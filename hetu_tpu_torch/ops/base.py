@@ -1,0 +1,56 @@
+"""Op factory: symbolic ops with PyTorch lowering rules (twin of
+``hetu_tpu/ops/base.py``, with the same ``op_type`` strings so the two
+graphs line up op for op)."""
+from __future__ import annotations
+
+import inspect
+
+from ..graph.node import Op
+
+OP_REGISTRY = {}
+
+
+class SimpleOp(Op):
+    """A node whose semantics are fully captured by a pure lowering function."""
+
+    def __init__(self, op_type, inputs, lower_fn, name=None, **attrs):
+        self.op_type = op_type
+        self._lower_fn = lower_fn
+        super().__init__(inputs, name=name, **attrs)
+
+    def lower(self, ctx, *vals):
+        return self._lower_fn(ctx, *vals, **self.attrs)
+
+
+def def_op(op_type, lower_fn):
+    """Register an op kind; returns its constructor.
+
+    The constructor accepts the graph-node inputs positionally and
+    attributes as keywords; positional values after the leading ``Op``
+    inputs are matched to the lowering function's parameter names in
+    order.  A trailing ``ctx=`` kwarg is accepted for reference-API
+    compatibility and ignored.
+    """
+    lower_params = [p for p in inspect.signature(lower_fn).parameters
+                    if p != "c" and not p.startswith("*")]
+
+    def ctor(*args, ctx=None, name=None, **attrs):
+        del ctx
+        inputs = []
+        i = 0
+        while i < len(args) and isinstance(args[i], Op):
+            inputs.append(args[i])
+            i += 1
+        extra = args[i:]
+        if extra:
+            attr_names = lower_params[len(inputs):]
+            if len(extra) > len(attr_names):
+                raise TypeError(
+                    f"{op_type}: too many positional args {extra}")
+            for pname, val in zip(attr_names, extra):
+                attrs[pname] = val
+        return SimpleOp(op_type, inputs, lower_fn, name=name, **attrs)
+
+    ctor.__name__ = op_type
+    OP_REGISTRY[op_type] = ctor
+    return ctor

@@ -1,0 +1,570 @@
+"""Continuous-batching autoregressive decode over device-resident KV caches
+(twin of ``hetu_tpu/serving/decode.py``).
+
+* **Incremental KV cache.**  Each decode step feeds one token per
+  sequence through the q_len=1 attention entry
+  (:func:`~hetu_tpu_torch.ops.sdpa_decode_op`; on the GPU the
+  hand-written flash kernel) against per-layer caches of shape
+  ``(batch_bucket, heads, len_bucket, head_dim)`` that live on the device
+  for the whole generation.  The step writes the new rows into the cache
+  tensors in place (``kv_cache_append_op``), where the JAX package
+  donates them to XLA.
+
+* **Bucketed growth.**  The batch dim and the cache length walk the
+  :func:`~hetu_tpu_torch.serving.default_buckets` ladder; a growth
+  re-allocates the caches once (``decode_batch_grows`` /
+  ``decode_len_grows``).
+
+* **Continuous batching.**  Sequences join and leave the in-flight batch
+  per token: a request takes a free KV slot at the next step boundary and
+  a finished sequence frees its slot at once (``decode_slot_recycles``).
+  Prompts are ingested one token per step (``decode_prefill_rows``).
+
+* **Greedy and batch-independent.**  Each slot attends only to its own
+  cache rows ``0..position``, and selection is host ``np.argmax`` over the
+  fetched logits row (first maximum wins, as in the JAX package).
+
+* **Per-token streaming** through :class:`DecodeStream` futures, with
+  explicit backpressure (:class:`~hetu_tpu_torch.serving.ServeRejected`).
+
+Not ported yet: chunked prefill (``chunked=``), the shared-prefix KV
+store (``prefix_store=``), tensor-parallel plans (``plan=``), stream
+recovery across replicas and the fleet tier, request-level batching, and
+the chaos / race / protocol / trace hooks.
+
+Threading: the router's loop thread owns the engine (slots, caches); the
+queue hands off under ``DecodeRouter._cv`` and each stream has its own
+lock.  Neither lock is held across a device call or while taking the
+other.
+"""
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from concurrent.futures import Future
+
+import numpy as np
+import torch
+
+from ..metrics import record_decode, record_decode_latency
+from .executor import InferenceExecutor, default_buckets
+from .router import ServeRejected
+
+
+class DecodeStream:
+    """Per-request handle: tokens stream out as the engine emits them.
+
+    ``token(i)`` returns a Future for the i-th generated token (failed
+    with ``IndexError`` if generation finishes before ``i`` tokens).
+    Iterating yields tokens until the sequence finishes.
+    ``result(timeout)`` blocks for the full token list.  A router or
+    engine failure fails every outstanding future and ``result()`` with
+    the same exception."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._futs = []
+        self._tokens = []
+        self._final = Future()
+
+    # -- consumer side -----------------------------------------------------
+
+    def token(self, i):
+        """Future for the ``i``-th generated token."""
+        i = int(i)
+        with self._lock:
+            done_short = self._final.done() and i >= len(self._tokens)
+            while len(self._futs) <= i:
+                self._futs.append(Future())
+            fut = self._futs[i]
+        if done_short and fut.set_running_or_notify_cancel():
+            # the sequence already finished with fewer tokens: a future
+            # created now would otherwise never resolve
+            fut.set_exception(IndexError(
+                f"generation finished after {len(self._tokens)} tokens"))
+        return fut
+
+    def result(self, timeout=None):
+        """Block for the complete generated-token list."""
+        return self._final.result(timeout)
+
+    @property
+    def done(self):
+        return self._final.done()
+
+    @property
+    def n_tokens(self):
+        with self._lock:
+            return len(self._tokens)
+
+    def __iter__(self):
+        i = 0
+        while True:
+            try:
+                yield self.token(i).result()
+            except Exception:
+                # IndexError past the end, cancellation, or the engine's
+                # failure — iteration stops; result() re-raises failures
+                return
+            i += 1
+
+    # -- engine side (router loop thread only) -----------------------------
+
+    def _emit(self, tok):
+        """Deliver one token; returns the token count after the append."""
+        with self._lock:
+            while len(self._futs) <= len(self._tokens):
+                self._futs.append(Future())
+            fut = self._futs[len(self._tokens)]
+            self._tokens.append(int(tok))
+            count = len(self._tokens)
+        # resolve outside the lock: a consumer's done-callback runs here
+        if fut.set_running_or_notify_cancel():
+            fut.set_result(int(tok))
+        return count
+
+    def _finish(self):
+        with self._lock:
+            tokens = list(self._tokens)
+            extra = self._futs[len(tokens):]
+        for f in extra:
+            if f.set_running_or_notify_cancel():
+                f.set_exception(IndexError(
+                    f"generation finished after {len(tokens)} tokens"))
+        if self._final.set_running_or_notify_cancel():
+            self._final.set_result(tokens)
+
+    def _fail(self, exc):
+        with self._lock:
+            pending = self._futs[len(self._tokens):]
+        for f in pending:
+            if f.set_running_or_notify_cancel():
+                f.set_exception(exc)
+        if self._final.set_running_or_notify_cancel():
+            self._final.set_exception(exc)
+
+
+class _DecodeRequest:
+    __slots__ = ("prompt", "max_new", "eos_id", "stream", "t_arrival",
+                 "deadline")
+
+    def __init__(self, prompt, max_new, eos_id, deadline=None):
+        self.prompt = prompt
+        self.max_new = int(max_new)
+        self.eos_id = eos_id
+        self.stream = DecodeStream()
+        self.t_arrival = time.monotonic()
+        self.deadline = deadline   # absolute monotonic, or None
+
+
+class _Sequence:
+    """One in-flight sequence's slot state (router loop thread only)."""
+
+    __slots__ = ("req", "ptr", "emitted", "t_last")
+
+    def __init__(self, req):
+        self.req = req
+        self.ptr = 0          # next prompt index to consume
+        self.emitted = 0
+        self.t_last = time.monotonic()
+
+
+class DecodeEngine:
+    """KV-cache decode executor: slots, bucket ladders, the decode step.
+
+    Built from :func:`~hetu_tpu_torch.models.gpt2_decode_graph`'s return
+    value: ``feeds`` maps ``input_ids`` (B, 1) / ``positions`` (B,) /
+    per-layer cache placeholders to nodes, ``logits`` is the (B, vocab)
+    fetch, ``cache_fetches`` the appended caches in feed order.
+
+    ``max_slots`` caps the in-flight batch; ``max_len`` caps the cache
+    length (prompt + generated).  ``device`` is CUDA by default; the CPU
+    only when asked for.  ``weights``: ``None`` (seeded init) or a
+    ``{name: array}`` dict (:func:`hetu_tpu_torch.params_from_named_arrays`).
+
+    Not thread-safe by design: the owning :class:`DecodeRouter` loop
+    thread (or a single test thread) makes every call after construction.
+    """
+
+    def __init__(self, feeds, logits, cache_fetches, weights=None, *,
+                 max_slots=8, max_len=128, seed=0, device=None, plan=None,
+                 chunked=None, prefix_store=None):
+        for opt, given in (("plan", plan), ("chunked", chunked),
+                           ("prefix_store", prefix_store)):
+            if given is not None:
+                raise NotImplementedError(f"DecodeEngine({opt}=) is not ported")
+        # float32 products in full float32, as the JAX decode graph
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.iex = InferenceExecutor(
+            [logits] + list(cache_fetches), weights=weights,
+            buckets=default_buckets(max_slots), seed=seed, device=device)
+        self.device = self.iex.device
+        self.max_len = int(max_len)
+        self.batch_ladder = self.iex.buckets
+        self.len_ladder = default_buckets(self.max_len)
+        self.cache_names = [n for n in feeds
+                            if n not in ("input_ids", "positions")]
+        # feed name -> executor feed key
+        self._fk = {name: self.iex._k(node) for name, node in feeds.items()}
+        ck0 = feeds[self.cache_names[0]]
+        self._heads, self._head_dim = ck0.shape[1], ck0.shape[3]
+        self.bb = self.batch_ladder[0]
+        self.lb = self.len_ladder[0]
+        self.slots = [None] * self.bb
+        self._used = [False] * self.bb       # slot served a sequence before
+        self.tokens = np.zeros(self.bb, np.int32)
+        self.positions = np.zeros(self.bb, np.int32)
+        self.caches = {name: self._alloc(self.bb, self.lb)
+                       for name in self.cache_names}
+        self._note_kv_bytes()
+
+    # -- memory ------------------------------------------------------------
+
+    def _alloc(self, bb, lb):
+        return torch.zeros((bb, self._heads, lb, self._head_dim),
+                           dtype=torch.float32, device=self.device)
+
+    @property
+    def kv_bytes(self):
+        return sum(c.numel() * c.element_size() for c in self.caches.values())
+
+    def _note_kv_bytes(self):
+        record_decode("decode_kv_bytes_hw", self.kv_bytes)
+
+    # -- capacity ----------------------------------------------------------
+
+    @property
+    def active(self):
+        return sum(1 for s in self.slots if s is not None)
+
+    @property
+    def idle(self):
+        return self.active == 0
+
+    def capacity(self):
+        """Free sequence slots, counting batch-ladder headroom."""
+        return self.batch_ladder[-1] - self.active
+
+    # -- bucket growth -----------------------------------------------------
+
+    @staticmethod
+    def _next_bucket(ladder, cur):
+        for b in ladder:
+            if b > cur:
+                return b
+        return None
+
+    def _grow_batch(self):
+        nb = self._next_bucket(self.batch_ladder, self.bb)
+        if nb is None:
+            raise RuntimeError(f"no free slot at max batch bucket {self.bb}")
+        pad = nb - self.bb
+        self.caches = {
+            name: torch.cat([c, self._alloc(pad, self.lb)], dim=0)
+            for name, c in self.caches.items()}
+        self.slots += [None] * pad
+        self._used += [False] * pad
+        self.tokens = np.concatenate([self.tokens, np.zeros(pad, np.int32)])
+        self.positions = np.concatenate([self.positions,
+                                         np.zeros(pad, np.int32)])
+        self.bb = nb
+        record_decode("decode_batch_grows")
+        self._note_kv_bytes()
+
+    def _grow_len_if_needed(self):
+        """Ensure the cache length bucket covers every active position."""
+        need = max((int(self.positions[i]) for i, s in enumerate(self.slots)
+                    if s is not None), default=-1)
+        if need < self.lb:
+            return
+        lb = self.lb
+        while lb <= need:
+            lb = self._next_bucket(self.len_ladder, lb)
+            if lb is None:
+                raise RuntimeError(
+                    f"cache position {need} exceeds max_len {self.max_len}")
+            record_decode("decode_len_grows")
+        pad = lb - self.lb
+        self.caches = {
+            name: torch.nn.functional.pad(c, (0, 0, 0, pad))
+            for name, c in self.caches.items()}
+        self.lb = lb
+        self._note_kv_bytes()
+
+    # -- join / leave ------------------------------------------------------
+
+    def join(self, req):
+        """Seat ``req`` in a free KV-cache slot (growing the batch bucket
+        if every slot is taken); its first prompt token decodes at the
+        next :meth:`step`.  A recycled slot's stale cache rows need no
+        clearing: rows past the new sequence's position stay invisible
+        and are overwritten before they become visible."""
+        slot = next((i for i, s in enumerate(self.slots) if s is None),
+                    None)
+        if slot is None:
+            self._grow_batch()
+            slot = next(i for i, s in enumerate(self.slots) if s is None)
+        self.slots[slot] = _Sequence(req)
+        self.tokens[slot] = req.prompt[0]
+        self.positions[slot] = 0
+        if self._used[slot]:
+            record_decode("decode_slot_recycles")
+        self._used[slot] = True
+        record_decode("decode_joins")
+        record_decode_latency(
+            "join_wait", (time.monotonic() - req.t_arrival) * 1e6)
+        return slot
+
+    def _clear(self, slot):
+        self.slots[slot] = None
+        self.tokens[slot] = 0
+        self.positions[slot] = 0
+
+    def _leave(self, slot):
+        seq = self.slots[slot]
+        self._clear(slot)
+        record_decode("decode_leaves")
+        seq.req.stream._finish()
+
+    def abort(self, exc):
+        """Fail every in-flight stream and clear the batch (router close
+        or a fatal step error)."""
+        for i, seq in enumerate(self.slots):
+            if seq is not None:
+                self._clear(i)
+                seq.req.stream._fail(exc)
+
+    def evict_expired(self, now=None):
+        """Deadline eviction: a seated sequence whose deadline has passed
+        leaves the batch now — its remaining futures fail with
+        ``ServeRejected('deadline')`` and the slot frees for the next
+        join.  Returns the number evicted."""
+        now = time.monotonic() if now is None else now
+        evicted = 0
+        for i, seq in enumerate(self.slots):
+            if seq is None or seq.req.deadline is None:
+                continue
+            if now >= seq.req.deadline:
+                self._clear(i)
+                record_decode("decode_leaves")
+                record_decode("decode_deadline_evictions")
+                seq.req.stream._fail(ServeRejected(
+                    "deadline",
+                    f"decode deadline passed after {seq.emitted} of "
+                    f"{seq.req.max_new} tokens"))
+                evicted += 1
+        return evicted
+
+    # -- the decode step ---------------------------------------------------
+
+    def _emit_token(self, i, seq, tok, now):
+        """Post-argmax bookkeeping: counters, latency, stream emission and
+        the done check."""
+        count = seq.req.stream._emit(tok)
+        seq.emitted += 1
+        record_decode("decode_generate_rows")
+        record_decode("decode_tokens")
+        record_decode_latency("token", (now - seq.t_last) * 1e6)
+        if count == 1:
+            record_decode_latency("ttft", (now - seq.req.t_arrival) * 1e6)
+        seq.t_last = now
+        self.tokens[i] = tok
+        done = (seq.emitted >= seq.req.max_new
+                or (seq.req.eos_id is not None and tok == seq.req.eos_id))
+        if not done and int(self.positions[i]) >= self.max_len:
+            done = True     # cache exhausted: stop cleanly
+        if done:
+            self._leave(i)
+
+    def step(self):
+        """Decode ONE batch step: every active slot consumes its pending
+        token, the caches take the new rows in place, rows past their
+        prompt emit.  Returns the number of tokens emitted."""
+        active = [i for i, s in enumerate(self.slots) if s is not None]
+        if not active:
+            return 0
+        self._grow_len_if_needed()
+        fn = self.iex.compiled(self.bb)
+        t0 = time.perf_counter_ns()
+        feeds = {
+            self._fk["input_ids"]: torch.from_numpy(
+                self.tokens.reshape(self.bb, 1).copy()).to(self.device),
+            self._fk["positions"]: torch.from_numpy(
+                self.positions.copy()).to(self.device),
+        }
+        for name in self.cache_names:
+            feeds[self._fk[name]] = self.caches[name]
+        outs = fn(self.iex.params, feeds)
+        # the logits copy to the host is paid only when some row reads it
+        if any(self.slots[i].ptr >= len(self.slots[i].req.prompt) - 1
+               for i in active):
+            logits = outs[0].cpu().numpy()
+        else:
+            logits = None
+            record_decode("decode_logits_skipped")
+        for name, new in zip(self.cache_names, outs[1:]):
+            self.caches[name] = new
+        record_decode("decode_steps")
+        emitted = 0
+        now = time.monotonic()
+        for i in active:
+            seq = self.slots[i]
+            self.positions[i] += 1
+            if seq.ptr < len(seq.req.prompt) - 1:
+                # mid-prompt: next prompt token, nothing to emit yet
+                seq.ptr += 1
+                self.tokens[i] = seq.req.prompt[seq.ptr]
+                record_decode("decode_prefill_rows")
+                continue
+            # greedy: the first maximum wins, as in the JAX package
+            tok = int(np.argmax(logits[i]))
+            seq.ptr = len(seq.req.prompt)
+            self._emit_token(i, seq, tok, now)
+            emitted += 1
+        record_decode_latency("step", (time.perf_counter_ns() - t0) / 1e3)
+        return emitted
+
+
+class DecodeRouter:
+    """Bounded-queue continuous-batching front end for one
+    :class:`DecodeEngine`.
+
+    ``submit`` admits a prompt and returns a :class:`DecodeStream`; the
+    loop thread seats waiting requests into free slots at every step
+    boundary and runs decode steps while any sequence is in flight.
+    ``close()`` rejects the queue and fails in-flight streams with
+    :class:`~hetu_tpu_torch.serving.ServeRejected` (``draining``)."""
+
+    def __init__(self, engine, queue_limit=64, start=True):
+        self.engine = engine
+        self.queue_limit = int(queue_limit)
+        self._q = collections.deque()
+        self._cv = threading.Condition()
+        self._stop = False
+        self._thread = None
+        if start:
+            self.start()
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self):
+        with self._cv:
+            if self._thread is not None or self._stop:
+                return self
+            self._thread = threading.Thread(
+                target=self._loop, daemon=True, name="hetu-decode-router")
+            self._thread.start()
+        return self
+
+    def close(self, timeout=None):
+        with self._cv:
+            self._stop = True
+            pending = list(self._q)
+            self._q.clear()
+            self._cv.notify_all()
+        for req in pending:
+            req.stream._fail(
+                ServeRejected("draining",
+                              "router closed with the request queued"))
+        if self._thread is not None:
+            self._thread.join(timeout)
+            if self._thread.is_alive():
+                raise RuntimeError(
+                    f"decode loop did not stop within {timeout} s")
+        # the loop thread has exited: engine state is safe to touch here
+        self.engine.abort(
+            ServeRejected("draining", "router closed mid-generation"))
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # -- admission ---------------------------------------------------------
+
+    def submit(self, prompt_ids, max_new_tokens=16, eos_id=None,
+               deadline_ms=None):
+        """Admit one prompt (1-D int token ids); returns a
+        :class:`DecodeStream`.  Raises ``ServeRejected`` when the queue
+        is full (``queue_full``), the router is closed (``draining``), or
+        the sequence cannot fit ``max_len`` (``over_max_len``).
+
+        ``deadline_ms``: completion budget from submit time.  A request
+        still queued past it fails at seat time; a seated sequence that
+        outlives it is evicted at the next step boundary."""
+        prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("empty prompt")
+        max_new = int(max_new_tokens)
+        if max_new < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if prompt.size + max_new - 1 > self.engine.max_len:
+            record_decode("decode_rejections")
+            raise ServeRejected(
+                "over_max_len",
+                f"prompt {prompt.size} + {max_new} new tokens exceeds the "
+                f"engine's max_len {self.engine.max_len}")
+        deadline = None if deadline_ms is None \
+            else time.monotonic() + float(deadline_ms) / 1e3
+        req = _DecodeRequest(prompt, max_new, eos_id, deadline)
+        with self._cv:
+            if self._stop:
+                record_decode("decode_rejections")
+                raise ServeRejected("draining", "router is closed")
+            if len(self._q) >= self.queue_limit:
+                record_decode("decode_rejections")
+                raise ServeRejected(
+                    "queue_full",
+                    f"decode queue full ({self.queue_limit} waiting) — "
+                    f"shed load upstream and retry")
+            self._q.append(req)
+            self._cv.notify()
+        return req.stream
+
+    # -- the loop ----------------------------------------------------------
+
+    def _take_joins(self):
+        """Requests to seat before the next step (empty: just step), or
+        None at shutdown."""
+        with self._cv:
+            while True:
+                if self._stop:
+                    return None
+                cap = self.engine.capacity()
+                busy = not self.engine.idle
+                if self._q and cap > 0:
+                    n = min(len(self._q), cap)
+                    return [self._q.popleft() for _ in range(n)]
+                if busy:
+                    return []
+                self._cv.wait(0.05)
+
+    def _loop(self):
+        while True:
+            joins = self._take_joins()
+            if joins is None:
+                return
+            now = time.monotonic()
+            for req in joins:
+                if req.deadline is not None and now >= req.deadline:
+                    # expired while queued: fail at seat time instead of
+                    # burning a KV slot on a dead deadline
+                    record_decode("decode_deadline_evictions")
+                    req.stream._fail(ServeRejected(
+                        "deadline",
+                        "decode deadline passed waiting for a slot"))
+                    continue
+                self.engine.join(req)
+            if not self.engine.idle:
+                try:
+                    self.engine.evict_expired()
+                    self.engine.step()
+                except Exception as e:    # noqa: BLE001 — every in-flight
+                    self.engine.abort(e)  # stream must learn its fate; the
+                    #                       router keeps serving new work
+
+
+__all__ = ["DecodeEngine", "DecodeRouter", "DecodeStream"]

@@ -40,3 +40,9 @@ def pytest_configure(config):
         "end-to-end/interpret-mode parity tests whose core coverage a "
         "cheaper sibling already provides, plus multiprocess launcher "
         "tests that need more CPU than the 1.5-core CI box offers")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (hetu_tpu_torch's CUDA kernels have no "
+        "CPU mode); skips with a reason elsewhere — on the card run "
+        "`python -m pytest --noconftest tests/test_torch_kernels_gpu.py "
+        "-m gpu`")

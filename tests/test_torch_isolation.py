@@ -1,0 +1,128 @@
+"""The PyTorch port stands alone: ``hetu_tpu_torch`` (and the GPU smoke
+script) import neither ``jax`` nor ``hetu_tpu``, entry points refuse a
+silent CPU fallback, and unported options fail by name."""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import hetu_tpu_torch as ht                                   # noqa: E402
+from hetu_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
+
+PKG = os.path.join(ROOT, "hetu_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "hetu_tpu")
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(module):
+    return any(module == m or module.startswith(m + ".") for m in FORBIDDEN)
+
+
+def test_import_with_jax_and_hetu_tpu_blocked():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['jaxlib'] = None\n"
+            "sys.modules['hetu_tpu'] = None\n"
+            "import hetu_tpu_torch\n"
+            "import hetu_tpu_torch.ops.kernels.flash_attention\n"
+            "import hetu_tpu_torch.ops.kernels._build\n"
+            "assert sys.modules['jax'] is None\n"
+            "print(hetu_tpu_torch.GPT2Config.small().n_layer)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "12"
+
+
+def test_sources_import_no_jax_or_hetu_tpu():
+    bad = []
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, ROOT)}:{node.lineno} {n}"
+                    for n in names if _forbidden(n)]
+    assert len(_sources()) > 15
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("entry", ["DecodeEngine", "InferenceExecutor",
+                                   "params_from_named_arrays"])
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
+                                                           entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ht.GPT2Config.tiny(n_layer=1)
+    feeds, logits, caches, _ = ht.gpt2_decode_graph(cfg, max_len=8)
+    calls = {
+        "DecodeEngine": lambda: ht.DecodeEngine(feeds, logits, caches),
+        "InferenceExecutor": lambda: ht.InferenceExecutor([logits]),
+        "params_from_named_arrays": lambda: ht.params_from_named_arrays(
+            {"w": np.zeros(2, np.float32)}),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize("opt", ["plan", "chunked", "prefix_store"])
+def test_decode_engine_refuses_unported_options(opt):
+    cfg = ht.GPT2Config.tiny(n_layer=1)
+    feeds, logits, caches, _ = ht.gpt2_decode_graph(cfg, max_len=8)
+    with pytest.raises(NotImplementedError, match=opt):
+        ht.DecodeEngine(feeds, logits, caches, device="cpu", **{opt: object()})
+
+
+@pytest.mark.parametrize("opt", ["plan", "mesh", "validate"])
+def test_inference_executor_refuses_unported_options(opt):
+    cfg = ht.GPT2Config.tiny(n_layer=1)
+    _, logits, _, _ = ht.gpt2_decode_graph(cfg, max_len=8)
+    with pytest.raises(NotImplementedError, match=opt):
+        ht.InferenceExecutor([logits], device="cpu", **{opt: "error"})
+
+
+def test_inference_executor_refuses_checkpoint_directory(tmp_path):
+    cfg = ht.GPT2Config.tiny(n_layer=1)
+    _, logits, _, _ = ht.gpt2_decode_graph(cfg, max_len=8)
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        ht.InferenceExecutor([logits], weights=str(tmp_path), device="cpu")
+
+
+@pytest.mark.parametrize("spec", ["causal", "key_mask", "mask", "bias",
+                                  "dense"])
+def test_flash_attention_unported_specializations_raise(spec):
+    q = torch.zeros(1, 1, 1, 8)
+    kw = {"lengths": torch.ones(1, dtype=torch.int32)}
+    if spec == "causal":
+        kw["causal"] = True
+    elif spec == "dense":
+        kw = {}
+    else:
+        kw[spec] = torch.ones(1, 1, 1, 1)
+    with pytest.raises(NotImplementedError, match=spec):
+        fa.flash_attention(q, q, q, **kw)
+
+
+def test_build_paths_stay_inside_the_package():
+    from hetu_tpu_torch.ops.kernels import _build
+    lib = _build.library_path("flash_attention")
+    assert lib.startswith(os.path.join(PKG, "_build") + os.sep)
+    assert os.path.exists(_build.source_path("flash_attention"))
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
