@@ -8,12 +8,13 @@ Run from the repository root on a machine with one CUDA card::
 Phases, in order; any failure raises and the script exits nonzero
 without printing the final result line:
 
-1. Build the port's CUDA kernels from ``hetu_tpu_torch/csrc`` with nvcc
-   (one process per source, all started together) and load them.
-2. Hold each kernel against its plain PyTorch version on the card at the
-   decode path's shapes (B=8, H=12, D=64; cache lengths 1, 7, 128, 384,
-   1024; S_q = 1, plus one S_q = 4 case with an empty row), and time the
-   kernel, the plain version, one PyTorch library call and the bound.
+1. Build every CUDA source of ``hetu_tpu_torch/csrc`` with nvcc (one
+   process per source, all started together) and load the kernels.
+2. Hold the decode kernel (``lengths``) against its plain PyTorch version
+   on the card at the decode path's shapes (B=8, H=12, D=64; cache
+   lengths 1, 7, 128, 384, 1024; S_q = 1, plus one S_q = 4 case with an
+   empty row), and time the kernel, the plain version, one PyTorch
+   library call and the bound.
 3. Serve GPT-2 small (published widths, seeded random weights, fp32):
    8 seeded prompts of 8-300 tokens through ``DecodeRouter`` →
    ``DecodeEngine`` with 32 new tokens each.  Every launch counter is set
@@ -22,7 +23,21 @@ without printing the final result line:
    attention dispatch may have left the kernel.
 4. Teacher-force one prompt through the port on the card and on the CPU
    (plain versions) with the same weights; per-step logits must agree.
-5. Print the card's name and power limit, the ``kernels`` JSON line and,
+5. Hold the training kernels (flash forward dense / key-mask, dQ, dK/dV)
+   against their plain versions at BERT-base attention shapes (B=4,
+   H=12, S=512, D=64: a key mask from ``synthetic_mlm_batch``'s lengths
+   plus one row with every key masked; dense; a ragged S=200), and time
+   each kernel, its plain version, the SDPA yardstick and the bound.
+6. Train BERT-base (published widths: 12 layers, hidden 768, 12 heads,
+   intermediate 3072, vocab 30522; seq 512, batch 16, dropout 0.1) with
+   ``AdamOptimizer(1e-4)`` through ``Executor.run``: 2 warm-up steps, then
+   10 counted steps with every launch counter set to 0 just before and
+   read just after (each training kernel: steps × 12 launches; no
+   attention dispatch may leave the kernels).
+7. Train the same widths cut to 2 layers (seq 128, batch 4, dropout 0) on
+   the card and on the CPU from the same weights for 3 Adam steps; the
+   losses and the step-1 gradients of every variable must agree.
+8. Print the card's name and power limit, the ``kernels`` JSON line and,
    last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32:
@@ -42,6 +57,12 @@ import torch
 KERNEL_ATOL = 1e-5
 # card vs CPU logits of the whole model (float32 end to end, no TF32)
 LOGITS_ATOL = 1e-4
+# training kernels vs plain: forward out / lse atol; dQ / dK / dV allclose
+# (the backward sums over S = 512 keys or queries in another order)
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+# card vs CPU training: losses rtol; step-1 gradients allclose
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-3, 1e-5
 # H100 SXM data sheet: HBM3 bytes/s and float32 (non-tensor-core) FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -50,6 +71,10 @@ B, H, D = 8, 12, 64
 CACHE_LENS = (1, 7, 128, 384, 1024)
 N_REQUESTS, MAX_NEW = 8, 32
 PROMPT_RANGE = (8, 300)
+# training kernels: BERT-base attention shapes
+TB, TS = 4, 512
+# BERT-base training step
+TRAIN_BATCH, TRAIN_SEQ, WARMUP, STEPS = 16, 512, 2, 10
 
 
 def log(msg):
@@ -62,6 +87,11 @@ def card_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def reset_launches(fa):
+    """Set every kernel's launch counter to 0."""
+    fa.launches = fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
 
 
 def time_ms(fn, iters=50, flush=None):
@@ -198,6 +228,250 @@ def teacher_forced_logits(engine, tokens):
     return np.stack(out)
 
 
+def train_bound(kind, bh, heads, s, d, valid_keys):
+    """Least time for one training kernel's function on these inputs.
+    Bytes: each input read once, each output written once (float32
+    q/k/v/dO/out/dQ/dK/dV rows, lse and delta per row, int32 key mask
+    when given).  Operations: 4 (forward), 6 (dQ: s, dP, dQ) or 8 (dK/dV:
+    s, dP, dV, dK) x S_q x D per valid (row, key) pair, ``valid_keys``
+    being the valid keys summed over the batch rows.  Returns (ms,
+    'bytes' | 'operations')."""
+    mat, row = bh * s * d, bh * s
+    mask = 0 if valid_keys is None else (bh // heads) * s
+    keys = (bh // heads) * s if valid_keys is None else valid_keys
+    words = {"fwd": 3 * mat + mask + mat + row,             # q k v m → o lse
+             "dq": 4 * mat + mask + 2 * row + mat,          # + dO lse δ → dQ
+             "dkv": 4 * mat + mask + 2 * row + 2 * mat}[kind]
+    flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * float(keys) * heads * s * d
+    t_bytes, t_ops = 4 * words / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_train_kernels(ht, fa):
+    """The training kernels vs their plain versions at BERT-base
+    attention shapes; times.  Returns the kernels-line entries of the
+    key-mask case with the worst error over all cases."""
+    F = torch.nn.functional
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush = flush_buf.zero_
+    scale = 1.0 / math.sqrt(D)
+    _, _, _, attn = ht.synthetic_mlm_batch(
+        ht.BertConfig.base(batch_size=TB, seq_len=TS), seed=0)
+    attn = attn.copy()
+    attn[-1] = 0                          # a row with every key masked
+    cases = [("key_mask", TS, attn), ("dense", TS, None),
+             ("ragged", 200, (np.arange(200)[None, :]
+                              < np.array([200, 77, 1, 150])[:, None])
+              .astype(np.int32))]
+    rng = np.random.RandomState(5)
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    lines = None
+    for name, s, mask in cases:
+        def t(*shape):
+            return torch.from_numpy(
+                rng.randn(*shape).astype(np.float32)).cuda()
+        q, k, v, do = (t(TB * H, s, D) for _ in range(4))
+        km = None if mask is None else torch.from_numpy(mask).cuda()
+        out, lse = fa.flash_fwd_masked(q, k, v, km, scale)
+        ref, lse_ref = fa.flash_fwd_plain(q, k, v, None, H, scale,
+                                          key_mask=km)
+        delta = (do * out).sum(-1)
+        dq = fa.flash_bwd_dq(q, k, v, km, do, lse, delta, scale)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, km, do, lse, delta, scale)
+        dq_r, dk_r, dv_r = fa.flash_bwd_plain(q, k, v, km, out, lse, do,
+                                              scale)
+        torch.cuda.synchronize()
+        err = {"fwd": max(float((out - ref).abs().max()),
+                          float((lse - lse_ref).abs().max())),
+               "dq": float((dq - dq_r).abs().max()),
+               "dkv": max(float((dk - dk_r).abs().max()),
+                          float((dv - dv_r).abs().max()))}
+        if not err["fwd"] <= KERNEL_ATOL:
+            raise AssertionError(f"flash fwd vs plain ({name}): {err}")
+        for got, want, what in ((dq, dq_r, "dq"), (dk, dk_r, "dk"),
+                                (dv, dv_r, "dv")):
+            if not torch.allclose(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL):
+                raise AssertionError(
+                    f"flash {what} vs plain ({name}): max err "
+                    f"{float((got - want).abs().max())}")
+        if name == "key_mask":
+            dead = slice((TB - 1) * H, TB * H)
+            if float(out[dead].abs().max()) != 0.0 \
+                    or float(dq[dead].abs().max()) != 0.0:
+                raise AssertionError("row with no valid key: out/dQ not 0")
+        for kk in worst:
+            worst[kk] = max(worst[kk], err[kk])
+        # the kernels and cuBLAS's SIMT products both sum each backward
+        # output as one FMA chain in key (query) order, so dQ/dK/dV may
+        # agree exactly; the magnitudes show the outputs are not trivial
+        log(f"[train-kernels] {name} B={TB} H={H} S={s} D={D} "
+            f"max_abs_err fwd={err['fwd']:.3e} dq={err['dq']:.3e} "
+            f"dkv={err['dkv']:.3e}; max |dq| {float(dq_r.abs().max()):.3e} "
+            f"|dk| {float(dk_r.abs().max()):.3e} "
+            f"|dv| {float(dv_r.abs().max()):.3e}")
+
+        # timings, each launch with the L2 cache flushed
+        q4, k4, v4 = (x.view(TB, H, s, D).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        smask = None if km is None else (km != 0).view(TB, 1, 1, s)
+        with torch.enable_grad():
+            lib_out = F.scaled_dot_product_attention(q4, k4, v4,
+                                                     attn_mask=smask)
+        do4 = do.view(TB, H, s, D)
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            q4.detach(), k4.detach(), v4.detach(), attn_mask=smask),
+            flush=flush)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            lib_out, (q4, k4, v4), do4, retain_graph=True), flush=flush)
+        valid = None if km is None else int(km.sum())
+        row = {
+            "fwd": {"ms": time_ms(lambda: fa.flash_fwd_masked(
+                        q, k, v, km, scale), flush=flush),
+                    "plain_ms": time_ms(lambda: fa.flash_fwd_plain(
+                        q, k, v, None, H, scale, key_mask=km), flush=flush),
+                    "library_ms": lib_fwd},
+            "dq": {"ms": time_ms(lambda: fa.flash_bwd_dq(
+                       q, k, v, km, do, lse, delta, scale), flush=flush),
+                   "plain_ms": time_ms(lambda: fa.flash_bwd_plain(
+                       q, k, v, km, out, lse, do, scale), flush=flush),
+                   "library_ms": lib_bwd},
+            "dkv": {"ms": time_ms(lambda: fa.flash_bwd_dkv(
+                        q, k, v, km, do, lse, delta, scale), flush=flush),
+                    "plain_ms": time_ms(lambda: fa.flash_bwd_plain(
+                        q, k, v, km, out, lse, do, scale), flush=flush),
+                    "library_ms": lib_bwd}}
+        for kk, r in row.items():
+            r["bound_ms"], r["bound_by"] = train_bound(kk, TB * H, H, s, D,
+                                                       valid)
+        log(f"[train-kernels] {name} timing {json.dumps(row)}")
+        if name == "key_mask":
+            lines = row
+    for kk in lines:
+        lines[kk]["max_abs_err"] = worst[kk]
+    return lines
+
+
+def _bert_feeds(feeds, batch):
+    ids, tt, labels, attn = batch
+    return {feeds["input_ids"]: ids, feeds["token_type_ids"]: tt,
+            feeds["masked_lm_labels"]: labels,
+            feeds["attention_mask"]: attn}
+
+
+def bert_step_flops(cfg):
+    """Model FLOPs of one training step (forward + backward = 3 x the
+    forward's): matrix products 6 x tokens x (layers x (4 h^2 + 2 h i) +
+    h^2 + h V) and attention 12 x B x heads x S^2 x (h / heads) per layer
+    (two S x S products, counted dense)."""
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    n, s, b = cfg.num_hidden_layers, cfg.seq_len, cfg.batch_size
+    dense = n * (4 * h * h + 2 * h * i) + h * h + h * v
+    attn = 12.0 * b * cfg.num_attention_heads * s * s \
+        * (h // cfg.num_attention_heads) * n
+    return 6.0 * b * s * dense + attn
+
+
+def phase_train(ht, fa, metrics):
+    """BERT-base MLM training steps through Executor.run on the card."""
+    cfg = ht.BertConfig.base(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    feeds, loss, _ = ht.bert_pretrain_graph(cfg)
+    train_op = ht.optim.AdamOptimizer(1e-4).minimize(loss)
+    t0 = time.perf_counter()
+    ex = ht.Executor({"train": [loss, train_op]}, seed=0, device="cuda")
+    log(f"[train] BERT-base executor built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fd = _bert_feeds(feeds, ht.synthetic_mlm_batch(cfg, seed=0))
+    losses = []
+    for _ in range(WARMUP):
+        losses.append(float(ex.run("train", feed_dict=fd)[0].asnumpy()))
+    torch.cuda.synchronize()
+    reset_launches(fa)
+    metrics.reset_flash_fallbacks()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        out = ex.run("train", feed_dict=fd)
+        losses.append(float(out[0].asnumpy()))     # waits for the step
+        times.append(time.perf_counter() - t0)
+    launches = {"flash_fwd": fa.fwd_launches, "flash_bwd_dq": fa.dq_launches,
+                "flash_bwd_dkv": fa.dkv_launches}
+    fallbacks = metrics.flash_fallback_counts()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[WARMUP]:
+        raise AssertionError(f"loss did not fall over the counted steps: "
+                             f"{losses}")
+    want = STEPS * cfg.num_hidden_layers
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"training kernel launches {launches} != "
+                             f"steps {STEPS} x layers {cfg.num_hidden_layers}")
+    left = {r: n for r, n in fallbacks.items() if r.startswith("backend:")}
+    if left:
+        raise AssertionError(f"attention left the kernels: {left}")
+    ms = np.asarray(times) * 1e3
+    tokens = cfg.batch_size * cfg.seq_len
+    real = int(fd[feeds["attention_mask"]].sum())
+    flops = bert_step_flops(cfg)
+    report = {
+        "batch": cfg.batch_size, "seq": cfg.seq_len, "steps": STEPS,
+        "losses": losses, "step_ms_p50": float(np.percentile(ms, 50)),
+        "step_ms_p99": float(np.percentile(ms, 99)),
+        "step_ms_mean": float(ms.mean()),
+        "samples_per_s": cfg.batch_size / (ms.mean() / 1e3),
+        "tokens_per_s": tokens / (ms.mean() / 1e3),
+        "real_tokens_per_s": real / (ms.mean() / 1e3),
+        "model_tflop_per_step": flops / 1e12,
+        "mfu_fp32": flops / (ms.mean() / 1e3) / PEAK_FP32_FLOPS,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": launches, "card": card_line()}
+    log(f"[train] {json.dumps(report)}")
+    return launches
+
+
+def phase_train_parity(ht):
+    """BERT-base widths cut to 2 layers: card vs CPU over 3 Adam steps
+    from the same weights; losses and step-1 gradients agree."""
+    cfg = ht.BertConfig.base(num_hidden_layers=2, batch_size=4, seq_len=128,
+                             hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+    feeds, loss, _ = ht.bert_pretrain_graph(cfg)
+    wrt = [n for n in ht.topo_sort([loss])
+           if isinstance(n, ht.PlaceholderOp) and n.is_variable
+           and n.trainable]
+    grads = ht.gradients(loss, wrt)
+    train_op = ht.optim.AdamOptimizer(1e-4).minimize(loss)
+    fetches = {"train": [loss, train_op] + grads}
+    card = ht.Executor(fetches, seed=0, device="cuda")
+    host = ht.Executor(fetches, seed=0, device="cpu")
+    host.load_dict(card.return_tensor_values())
+    fd = _bert_feeds(feeds, ht.synthetic_mlm_batch(cfg, seed=0))
+    loss_err, grad_err = 0.0, 0.0
+    for step in range(3):
+        got = card.run("train", feed_dict=fd, convert_to_numpy_ret_vals=True)
+        want = host.run("train", feed_dict=fd,
+                        convert_to_numpy_ret_vals=True)
+        gl, wl = float(got[0]), float(want[0])
+        loss_err = max(loss_err, abs(gl - wl) / abs(wl))
+        if not (math.isfinite(gl) and abs(gl - wl) <= TRAIN_LOSS_RTOL * abs(wl)):
+            raise AssertionError(f"card vs CPU loss at step {step + 1}: "
+                                 f"{gl} vs {wl}")
+        if step == 0:
+            for node, g, w in zip(wrt, got[2:], want[2:]):
+                grad_err = max(grad_err, float(np.max(np.abs(g - w))))
+                if not np.allclose(g, w, rtol=TRAIN_GRAD_RTOL,
+                                   atol=TRAIN_GRAD_ATOL):
+                    raise AssertionError(
+                        f"card vs CPU gradient of {node.name}: max err "
+                        f"{float(np.max(np.abs(g - w)))}")
+    log(f"[train-parity] card vs CPU, {cfg.num_hidden_layers} layers, "
+        f"3 Adam steps: loss max rel err {loss_err:.3e} (rtol "
+        f"{TRAIN_LOSS_RTOL}); step-1 gradients of {len(wrt)} variables max "
+        f"abs err {grad_err:.3e} (rtol {TRAIN_GRAD_RTOL}, atol "
+        f"{TRAIN_GRAD_ATOL})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script runs on the "
@@ -216,10 +490,11 @@ def main():
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build(["flash_attention"])
+    built = _build.build(_build.sources())
     for name, (secs, text) in built.items():
         log(f"[build] {name}: {secs:.1f} s\n{text.strip()}")
-    fa._kernel()
+    for entry in fa.ENTRIES:
+        fa.kernel(entry)
     log(f"[build] all kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -241,7 +516,7 @@ def main():
         # warm-up (cuBLAS handles, allocator) before the counted run
         router.submit(prompts[1][:4], max_new_tokens=2).result(timeout=300)
         torch.cuda.synchronize()
-        fa.launches = 0
+        reset_launches(fa)
         metrics.reset_decode_counts()
         metrics.reset_flash_fallbacks()
         torch.cuda.reset_peak_memory_stats()
@@ -296,7 +571,16 @@ def main():
     if not (np.all(np.isfinite(got)) and err <= LOGITS_ATOL):
         raise AssertionError(f"card vs CPU logits disagree: {err}")
 
-    # -- 5. result lines --------------------------------------------------------
+    # -- 5. training kernels vs plain ---------------------------------------------
+    tlines = phase_train_kernels(ht, fa)
+
+    # -- 6. train BERT-base ---------------------------------------------------------
+    tlaunches = phase_train(ht, fa, metrics)
+
+    # -- 7. card vs CPU training ------------------------------------------------------
+    phase_train_parity(ht)
+
+    # -- 8. result lines --------------------------------------------------------
     kernels = [{
         "name": "flash_fwd_lengths", "route": "cuda",
         "source": "hetu_tpu_torch/csrc/flash_attention.cu",
@@ -305,6 +589,21 @@ def main():
         "max_abs_err": line["max_abs_err"], "ms": line["ms"],
         "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
         "bound_by": line["bound_by"], "library_ms": line["library_ms"]}]
+    for key, name, source, replaces in (
+            ("fwd", "flash_fwd", "hetu_tpu_torch/csrc/flash_attention.cu",
+             "hetu_tpu/ops/pallas/flash_attention.py:202"),
+            ("dq", "flash_bwd_dq", "hetu_tpu_torch/csrc/flash_attention_bwd.cu",
+             "hetu_tpu/ops/pallas/flash_attention.py:299"),
+            ("dkv", "flash_bwd_dkv",
+             "hetu_tpu_torch/csrc/flash_attention_bwd.cu",
+             "hetu_tpu/ops/pallas/flash_attention.py:363")):
+        r = tlines[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": tlaunches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,15 @@
-// Flash attention forward, `lengths` specialization, written for Hopper (sm_90a).
+// Flash attention forward for Hopper (sm_90a): two kernels that replace
+// hetu_tpu/ops/pallas/flash_attention.py::_fwd_kernel (launched by _flash_fwd).
+// Both output `out` (BH, S_q, D) and the per-row log-sum-exp `lse` (BH, S_q),
+// float32.  A row with no valid key outputs 0 with lse = -1e30, as the TPU
+// kernel's _finish does.
 //
-// Replaces hetu_tpu/ops/pallas/flash_attention.py::_fwd_kernel (launched by
-// _flash_fwd) with `lengths` set: for the query rows of (b*h), keys at index
-// >= lengths[b] are invisible.  Outputs are `out` (BH, S_q, D) and the per-row
-// log-sum-exp `lse` (BH, S_q), both float32.  A row with no valid key outputs 0
-// with lse = -1e30, as the TPU kernel's _finish does.
+// 1. flash_fwd_lengths_kernel, the `lengths` specialization (decode): for the
+//    query rows of (b*h), keys at index >= lengths[b] are invisible.
+// 2. flash_fwd_kernel, the dense and `key_mask` specializations (training):
+//    keys with key_mask[b, j] == 0 are invisible; no mask = dense.
 //
+// ---- 1. lengths (decode)
 // What bounds it: at decode (S_q = 1) each valid K and V element is read once
 // and used for about two multiply-adds, far below the card's operations-per-
 // byte balance, so the kernel is bound by the K/V bytes it reads.  The design
@@ -28,7 +32,16 @@
 
 #include <cuda_runtime.h>
 
+#include "flash_tile.cuh"
+
 namespace {
+
+using hetu_flash::cp_async16;
+using hetu_flash::cp_async_wait_all;
+using hetu_flash::FULL;
+using hetu_flash::NEG_INF;
+using hetu_flash::warp_max;
+using hetu_flash::warp_sum;
 
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = 32 * NWARPS;
@@ -36,29 +49,6 @@ constexpr int BK = 32 * NWARPS;  // keys per shared-memory tile
 constexpr int BQ = 4;            // query rows per CTA
 constexpr int DMAX = 128;        // largest head dim
 constexpr int DPL = DMAX / 32;   // output dims per lane
-constexpr float NEG_INF = -1e30f;
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-  return x;
-}
 
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_lengths_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -238,4 +228,154 @@ extern "C" int hetu_flash_fwd_lengths(const float* q, const float* k, const floa
   flash_fwd_lengths_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
       q, k, v, lengths, out, lse, heads, s_q, s_kv, d, scale);
   return (int)cudaGetLastError();
+}
+
+// ---- 2. dense and key_mask (training)
+//
+// What bounds it: at the training shapes (S_q = S_kv = 512, D = 64) every K
+// and V row is used by 512 query rows, so the two products' operations, not
+// bytes, bound it: 4 * S_q * S_kv * D flops against 4 * (3 S + S) * D bytes
+// per (b*h).  The kernel runs in float32 on the CUDA cores (no tensor-core
+// path in fp32 exact), so the design is a register-tiled product: one CTA of
+// 256 threads per (b*h, 64 query rows); each 64-key tile of K and V is staged
+// once in shared memory and used by all 64 rows; a thread holds a 4 x 4 block
+// of scores and a 4-row slice of the output accumulator in registers
+// (flash_tile.cuh).  Scores and probabilities never reach device memory: the
+// probability tile goes through shared memory into the P.V product.  Ragged
+// tiles are zero-filled and masked here; nothing is padded in device memory.
+//
+// Not yet: wgmma / tensor cores (bf16 or TF32 would change the numbers),
+// double-buffered K/V staging, skipping key tiles that are entirely masked.
+
+namespace {
+
+using hetu_flash::PLD;
+using hetu_flash::TILE;
+using hetu_flash::TTHREADS;
+
+template <int G>  // float4 output column groups per thread: D <= 64 G
+__global__ void __launch_bounds__(TTHREADS)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ key_mask,
+                 float* __restrict__ out, float* __restrict__ lse, int heads, int s_q,
+                 int s_kv, int d, float scale) {
+  using namespace hetu_flash;
+  extern __shared__ __align__(16) float smem[];
+  const int ld = d + 4;
+  float* q_s = smem;              // TILE x ld
+  float* k_s = q_s + TILE * ld;   // TILE x ld
+  float* v_s = k_s + TILE * ld;   // TILE x ld
+  float* p_s = v_s + TILE * ld;   // TILE x PLD probabilities
+  int* ok_s = reinterpret_cast<int*>(p_s + TILE * PLD);  // TILE key flags
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * TILE;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const float* kb = k + (size_t)bh * s_kv * d;
+  const float* vb = v + (size_t)bh * s_kv * d;
+  const int* km = key_mask ? key_mask + (size_t)(bh / heads) * s_kv : nullptr;
+
+  stage_rows(q_s, q + (size_t)bh * s_q * d, q0, s_q, d);
+  float m[4], l[4];
+  float4 acc[4][G];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+  }
+  zero_acc(acc);
+
+  for (int k0 = 0; k0 < s_kv; k0 += TILE) {
+    __syncthreads();  // the previous tile's K, V and P are consumed
+    stage_rows(k_s, kb, k0, s_kv, d);
+    stage_rows(v_s, vb, k0, s_kv, d);
+    if (tid < TILE) {
+      const int key = k0 + tid;
+      ok_s[tid] = key < s_kv && (km == nullptr || km[key] != 0);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    float s[4][4];
+    dot_rows(s, q_s, k_s, d, ty, tx);
+    bool ok[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ok[j] = ok_s[tx + 16 * j] != 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mt = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = ok[j] ? s[i][j] * scale : NEG_INF;
+        mt = fmaxf(mt, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], half_max(mt));
+      const float alpha = expf(m[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // multiply by validity, never exp alone: on an all-masked tile
+        // exp(s - m_new) = 1
+        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        psum += p;
+        p_s[(4 * ty + i) * PLD + tx + 16 * j] = p;
+      }
+      l[i] = alpha * l[i] + half_sum(psum);
+      m[i] = m_new;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        acc[i][g].x *= alpha;
+        acc[i][g].y *= alpha;
+        acc[i][g].z *= alpha;
+        acc[i][g].w *= alpha;
+      }
+    }
+    __syncthreads();
+    acc_rows(acc, p_s, v_s, d, ty, tx);
+  }
+
+  float l_safe[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) l_safe[i] = l[i] == 0.f ? 1.f : l[i];
+  store_rows(out + (size_t)bh * s_q * d, acc, l_safe, q0, s_q, d, ty, tx);
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 4 * ty + i;
+      if (row < s_q) lse[(size_t)bh * s_q + row] = m[i] + logf(l_safe[i]);
+    }
+  }
+}
+
+template <int G>
+int launch_fwd(const float* q, const float* k, const float* v, const int* key_mask,
+               float* out, float* lse, int bh, int heads, int s_q, int s_kv, int d,
+               float scale, cudaStream_t stream) {
+  static size_t configured[64] = {0};
+  const size_t smem =
+      (size_t)(3 * TILE * (d + 4) + TILE * PLD) * sizeof(float) + TILE * sizeof(int);
+  cudaError_t err = hetu_flash::ensure_smem((const void*)flash_fwd_kernel<G>, smem, configured);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((s_q + TILE - 1) / TILE, bh);
+  flash_fwd_kernel<G><<<grid, TTHREADS, smem, stream>>>(q, k, v, key_mask, out, lse, heads,
+                                                        s_q, s_kv, d, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launch on `stream`; returns cudaGetLastError() after the launch (0 = launched).
+// q (bh, s_q, d), k/v (bh, s_kv, d), out (bh, s_q, d): contiguous float32,
+// 16-byte aligned; key_mask (bh / heads, s_kv) int32 or null (dense);
+// lse (bh, s_q) float32.
+extern "C" int hetu_flash_fwd(const float* q, const float* k, const float* v,
+                              const int* key_mask, float* out, float* lse, int bh, int heads,
+                              int s_q, int s_kv, int d, float scale, void* stream) {
+  if (d <= 0 || d > 128 || (d & 3) || heads <= 0 || bh <= 0 || bh > 65535 ||
+      bh % heads || s_q <= 0 || s_kv <= 0)
+    return (int)cudaErrorInvalidValue;
+  return d <= 64 ? launch_fwd<1>(q, k, v, key_mask, out, lse, bh, heads, s_q, s_kv, d, scale,
+                                 (cudaStream_t)stream)
+                 : launch_fwd<2>(q, k, v, key_mask, out, lse, bh, heads, s_q, s_kv, d, scale,
+                                 (cudaStream_t)stream);
 }

@@ -1,4 +1,5 @@
 """Define-then-run graph core of the port."""
 from .node import (Op, PlaceholderOp, Variable, placeholder_op, LowerCtx,
                    topo_sort)
-from .executor import lower_forward
+from .gradients import GradientOp, gradients
+from .executor import Executor, SubExecutor, lower_forward

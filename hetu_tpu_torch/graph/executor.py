@@ -1,12 +1,36 @@
-"""Graph evaluation (the forward half of ``hetu_tpu/graph/executor.py``).
+"""Graph evaluation and the training executor (twin of
+``hetu_tpu/graph/executor.py``, core only).
 
 ``lower_forward`` evaluates a topologically sorted subgraph eagerly:
 each node's ``lower`` runs on its inputs' tensors as soon as they exist.
-Remat and sharding have no counterpart in this slice.
+
+``Executor`` owns the variables of one or more fetch subgraphs
+(``{name: fetches}``) and runs a subgraph per :meth:`Executor.run`:
+feeds go to the device, the forward runs through ``lower_forward``,
+gradient markers (``GradientOp``) resolve through ``torch.autograd.grad``
+of the loss with respect to the trainable variables, and each
+``OptimizerOp`` applies its optimizer's pure update under
+``torch.no_grad()``.  PyTorch runs eagerly: the step is this sequence of
+kernel launches, with no whole-step capture.
+
+Not ported, refused by name: distribution (``dist_strategy``, ``mesh``,
+``zero``, ``plan``, ``pipeline``, ``num_microbatches``), ``remat``,
+``matmul_precision``, ``compute_dtype`` (bf16 mixed precision), the other
+JAX-package options, ``run(sync=False)``, ``run_steps``, ``save`` /
+``load`` and PS embeddings.
 """
 from __future__ import annotations
 
-from .node import PlaceholderOp
+import warnings
+
+import numpy as np
+import torch
+
+from ..context import resolve_device
+from ..ndarray import NDArray, wrap_device
+from ..optim.optimizer import OptimizerOp
+from .gradients import GradientOp
+from .node import LowerCtx, PlaceholderOp, checkpoint_names, topo_sort
 
 
 def lower_forward(topo, ctx, resolve_leaf):
@@ -19,3 +43,232 @@ def lower_forward(topo, ctx, resolve_leaf):
         else:
             env[node] = node.lower(ctx, *[env[i] for i in node.inputs])
     return env
+
+
+def _torch_dtype(np_dtype):
+    return torch.from_numpy(np.empty(0, np.dtype(np_dtype))).dtype
+
+
+def _step_generator(device, seed, step):
+    """The ``torch.Generator`` of one step: seeded from ``(seed, step)``
+    on the executor's device, so dropout masks depend on nothing else."""
+    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(1)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
+class SubExecutor:
+    """One fetch list → one step function."""
+
+    def __init__(self, name, fetches, executor):
+        self.name = name
+        self.fetches = list(fetches)
+        self.ex = executor
+        self.topo = topo_sort([f for f in self.fetches if f is not None])
+        self.opt_ops = [n for n in self.topo if isinstance(n, OptimizerOp)]
+        self.grad_ops = [n for n in self.topo if isinstance(n, GradientOp)]
+        # training iff the subgraph differentiates or is literally 'train'
+        self.training = bool(self.opt_ops or self.grad_ops) \
+            or name == "train"
+        self.fwd_topo = [n for n in self.topo
+                         if not isinstance(n, (GradientOp, OptimizerOp))]
+        self.feed_nodes = [n for n in self.topo
+                           if isinstance(n, PlaceholderOp)
+                           and not n.is_variable]
+        self.trainable_vars = sorted({g.wrt for g in self.grad_ops},
+                                     key=lambda n: n.id)
+        for v in self.trainable_vars:
+            if not (isinstance(v, PlaceholderOp) and v.is_variable):
+                raise ValueError(
+                    f"gradient w.r.t. non-variable {v} unsupported")
+        losses = {g.loss for g in self.grad_ops}
+        if len(losses) > 1:
+            raise ValueError("multiple distinct losses in one subgraph")
+        self.loss_node = next(iter(losses)) if losses else None
+
+    def run(self, feed_dict, convert_to_numpy_ret_vals=False):
+        ex = self.ex
+        feeds = {}
+        for node in self.feed_nodes:
+            if node not in feed_dict:
+                raise ValueError(f"missing feed for {node}")
+            feeds[node] = ex._place_feed(node, feed_dict[node])
+        ctx = LowerCtx(self.training,
+                       _step_generator(ex.device, ex.seed, ex.step_counter))
+        grads = {}
+        if self.grad_ops:
+            leaves = {v: ex.var_values[v].detach().requires_grad_(True)
+                      for v in self.trainable_vars}
+
+            def resolve(node):
+                if node in feeds:
+                    return feeds[node]
+                return leaves.get(node, ex.var_values.get(node))
+
+            with torch.enable_grad():
+                env = lower_forward(self.fwd_topo, ctx, resolve)
+                got = torch.autograd.grad(
+                    env[self.loss_node],
+                    [leaves[v] for v in self.trainable_vars],
+                    allow_unused=True)
+            grads = {v: torch.zeros_like(leaves[v]) if g is None else g
+                     for v, g in zip(self.trainable_vars, got)}
+            with torch.no_grad():
+                for op in self.opt_ops:
+                    keys = [ex._k(v) for v in op.params]
+                    sub_p = {k: ex.var_values[v]
+                             for k, v in zip(keys, op.params)}
+                    sub_g = {k: grads[v] for k, v in zip(keys, op.params)}
+                    new_p, ex.opt_states[op] = op.optimizer.apply(
+                        sub_p, sub_g, ex.opt_states[op], op.optimizer.lr)
+                    for k, v in zip(keys, op.params):
+                        ex.var_values[v] = new_p[k]
+        else:
+            with torch.no_grad():
+                env = lower_forward(
+                    self.fwd_topo, ctx,
+                    lambda n: feeds[n] if n in feeds else ex.var_values[n])
+        for node, val in ctx.state_updates.items():
+            ex.var_values[node] = val.detach()
+        if self.training:
+            ex.step_counter += 1
+
+        outs = []
+        for f in self.fetches:
+            if f is None or isinstance(f, OptimizerOp):
+                outs.append(None)
+            elif isinstance(f, GradientOp):
+                outs.append(grads[f.wrt])
+            else:
+                outs.append(env[f].detach())
+        if convert_to_numpy_ret_vals:
+            return [None if v is None else v.cpu().numpy() for v in outs]
+        return [None if v is None else wrap_device(v) for v in outs]
+
+
+class Executor:
+    """Multi-subgraph training executor (see module docstring).
+
+    ``eval_node_dict``: a list of fetches (one subgraph, "default") or
+    ``{name: fetch list}``.  ``seed``: variable init and dropout.
+    ``device``: where variables live and the step runs — CUDA by default
+    (raises without it); the CPU only when asked for.  ``ctx`` (the JAX
+    package's context argument) names the device when ``device`` is not
+    given.  Float32 products run in full float32 (TF32 off)."""
+
+    def __init__(self, eval_node_dict, ctx=None, seed=None, device=None,
+                 dist_strategy=None, mesh=None, pipeline=None,
+                 num_microbatches=None, matmul_precision=None, **kwargs):
+        for opt, given in (("dist_strategy", dist_strategy), ("mesh", mesh),
+                           ("pipeline", pipeline),
+                           ("num_microbatches", num_microbatches),
+                           ("matmul_precision", matmul_precision)):
+            if given is not None:
+                raise NotImplementedError(f"Executor({opt}=) is not ported")
+        cd = kwargs.pop("compute_dtype", None)
+        if cd is not None:
+            raise NotImplementedError(
+                f"Executor(compute_dtype={cd!r}) is not ported: the port "
+                f"trains in float32")
+        if kwargs.pop("remat", None) not in (None, False, "off"):
+            raise NotImplementedError("Executor(remat=) is not ported")
+        if kwargs:
+            raise NotImplementedError(
+                f"Executor({next(iter(kwargs))}=) is not ported")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if isinstance(eval_node_dict, dict):
+            self.eval_node_dict = dict(eval_node_dict)
+        else:
+            self.eval_node_dict = {"default": list(eval_node_dict)}
+        self.device = resolve_device(device if device is not None else ctx)
+        self.seed = 0 if seed is None else int(seed)
+        self.step_counter = 0
+        all_fetches = [n for fl in self.eval_node_dict.values() for n in fl
+                       if n is not None]
+        self.global_topo = topo_sort(all_fetches)
+        if any(getattr(n, "is_ps", False) for n in self.global_topo):
+            raise NotImplementedError("Executor: PS embeddings are not ported")
+        self._node_keys = {n: f"t{i}" for i, n in enumerate(self.global_topo)}
+        self.var_values = {}
+        self._init_variables()
+
+        self.opt_states = {}
+        for node in self.global_topo:
+            if isinstance(node, OptimizerOp):
+                self.opt_states[node] = node.optimizer.init_state(
+                    {self._k(v): self.var_values[v] for v in node.params})
+        self.subexecutors = {name: SubExecutor(name, fetches, self)
+                             for name, fetches in self.eval_node_dict.items()}
+
+    def _k(self, node):
+        """Canonical (topo-ordinal) key of a graph node."""
+        k = self._node_keys.get(node)
+        return k if k is not None else f"n{node.id}"
+
+    # -- variables and feeds ----------------------------------------------
+
+    def _init_variables(self):
+        from ..initializers import variable_generator
+        var_nodes = [n for n in self.global_topo
+                     if isinstance(n, PlaceholderOp) and n.is_variable]
+        self.var_names = checkpoint_names(var_nodes)
+        for i, node in enumerate(var_nodes):
+            val = node.get_init_value(variable_generator(self.seed, i))
+            if val is None:
+                raise ValueError(f"variable {node} has no value/initializer")
+            self.var_values[node] = self._place(val)
+
+    def _place(self, val):
+        """A tensor on the executor's device (float64 → float32)."""
+        if isinstance(val, NDArray):
+            val = val.torch()
+        t = val if isinstance(val, torch.Tensor) \
+            else torch.from_numpy(np.array(val))
+        if t.dtype == torch.float64:
+            t = t.to(torch.float32)
+        return t.to(self.device)
+
+    def _place_feed(self, node, val):
+        """A fed value on the device, in the placeholder's declared dtype
+        (int placeholders stay integral)."""
+        t = self._place(val)
+        if node.dtype is not None:
+            want = _torch_dtype(node.dtype)
+            if t.dtype != want:
+                t = t.to(want)
+        return t
+
+    # -- public API ---------------------------------------------------------
+
+    def run(self, name="default", eval_node_list=None, feed_dict=None,
+            convert_to_numpy_ret_vals=False, sync=True):
+        """Run one step of subgraph ``name``; returns its fetches as
+        :class:`NDArray` (numpy arrays with ``convert_to_numpy_ret_vals``):
+        a ``GradientOp`` fetch is its gradient, an ``OptimizerOp`` fetch
+        ``None``."""
+        if not sync:
+            raise NotImplementedError(
+                "Executor.run(sync=False) is not ported")
+        if isinstance(name, dict):  # run(feed_dict) shorthand
+            feed_dict, name = name, "default"
+        if isinstance(eval_node_list, dict) and feed_dict is None:
+            feed_dict, eval_node_list = eval_node_list, None
+        if eval_node_list:
+            warnings.warn("eval_node_list override is ignored; fetches are "
+                          "fixed per subgraph at construction")
+        return self.subexecutors[name].run(feed_dict or {},
+                                           convert_to_numpy_ret_vals)
+
+    def load_dict(self, state_dict):
+        """Set variables by checkpoint name from ``{name: array}``;
+        unknown names are skipped."""
+        by_name = {self.var_names[n]: n for n in self.var_values}
+        for name, val in state_dict.items():
+            node = by_name.get(name)
+            if node is not None:
+                self.var_values[node] = self._place(val)
+
+    def return_tensor_values(self):
+        """``{checkpoint name: numpy array}`` of every variable."""
+        return {self.var_names[n]: v.detach().cpu().numpy()
+                for n, v in self.var_values.items()}

@@ -25,12 +25,29 @@ def _next_id() -> int:
 class LowerCtx:
     """Per-evaluation context threaded through ``Op.lower``.
 
-    ``training``: whether the training subgraph is being evaluated
-    (dropout etc.); serving evaluates with ``training=False``.
+    - ``training``: whether the training subgraph is being evaluated
+      (dropout etc.); serving evaluates with ``training=False``.
+    - ``rng()``: the step's ``torch.Generator`` (the executor seeds it
+      from its seed and the step), for dropout and other stochastic ops;
+      each draw advances it, as each ``c.rng()`` of the JAX package
+      folds in a fresh count.
+    - ``state_updates``: ``{variable node: new value}`` for non-trainable
+      state written during the forward; the executor commits them after
+      the step.
     """
 
-    def __init__(self, training: bool):
+    def __init__(self, training: bool, generator=None):
         self.training = training
+        self.generator = generator
+        self.state_updates = {}
+
+    def rng(self):
+        if self.generator is None:
+            raise RuntimeError(
+                "This subgraph uses randomness (dropout etc.) but the "
+                "executor did not thread a generator; pass seed= to "
+                "Executor.")
+        return self.generator
 
 
 class Op:
@@ -155,6 +172,18 @@ def Variable(name, value=None, initializer=None, trainable=True, dtype=None,
 
 def placeholder_op(name="placeholder", dtype=np.float32, shape=None):
     return PlaceholderOp(name, dtype=dtype, shape=shape)
+
+
+def checkpoint_names(variables):
+    """``{node: checkpoint name}``, unique even when layers share default
+    names: the k-th repeat of a name gets ``~k`` (two
+    ``Linear(name='linear')`` → 'linear.weight', 'linear.weight~1')."""
+    names, seen = {}, {}
+    for node in variables:
+        count = seen.get(node.name, 0)
+        seen[node.name] = count + 1
+        names[node] = node.name if count == 0 else f"{node.name}~{count}"
+    return names
 
 
 def topo_sort(fetches):

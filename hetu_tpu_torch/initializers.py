@@ -1,4 +1,4 @@
-"""Initializers used by the decode graph (subset of
+"""Initializers of the ported graphs (subset of
 ``hetu_tpu/initializers.py``).
 
 Inits draw from an explicit ``torch.Generator`` on the CPU, so a value
@@ -96,6 +96,15 @@ class XavierUniformInit(GeneralXavierUniformInit):
         super().__init__(1.0, "avg")
 
 
+class XavierNormalInit(BaseInit):
+    """Normal(0, sqrt(1 / fan_avg)), as the JAX package's
+    ``XavierNormalInit`` (gain 1, mode "avg")."""
+
+    def init(self, out, generator):
+        std = float(np.sqrt(1.0 / _fans(out.shape, "avg")))
+        return torch.nn.init.normal_(out, 0.0, std, generator=generator)
+
+
 # -- Variable factories -----------------------------------------------------
 
 def zeros(shape, name=None, trainable=True, ctx=None):
@@ -104,6 +113,10 @@ def zeros(shape, name=None, trainable=True, ctx=None):
 
 def ones(shape, name=None, trainable=True, ctx=None):
     return OnesInit()(shape, name=name, trainable=trainable)
+
+
+def xavier_uniform(shape, name=None, trainable=True, ctx=None):
+    return XavierUniformInit()(shape, name=name, trainable=trainable)
 
 
 def truncated_normal(shape, mean=0.0, stddev=1.0, name=None, trainable=True,
@@ -120,3 +133,7 @@ def GenTruncatedNormal(mean=0.0, stddev=1.0):
 
 def GenXavierUniform():
     return XavierUniformInit()
+
+
+def GenXavierNormal():
+    return XavierNormalInit()

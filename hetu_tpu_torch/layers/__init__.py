@@ -1,3 +1,4 @@
-"""Layers of the decode slice."""
+"""Layers of the ported paths."""
 from .base import BaseLayer
-from .core import Linear, LayerNorm
+from .core import Linear, LayerNorm, Embedding, DropOut
+from .attention import MultiHeadAttention

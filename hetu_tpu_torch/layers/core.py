@@ -1,6 +1,7 @@
-"""Core layers of the decode slice (twin of ``hetu_tpu/layers/core.py``):
-``Linear`` and ``LayerNorm`` with the same variable names
-(``<name>.weight`` / ``.bias``, ``<name>.scale`` / ``.bias``)."""
+"""Core layers of the ported paths (twin of ``hetu_tpu/layers/core.py``):
+``Linear``, ``LayerNorm``, ``Embedding`` and ``DropOut`` with the same
+variable names (``<name>.weight`` / ``.bias``, ``<name>.scale`` /
+``.bias``, ``<name>.weight``)."""
 from __future__ import annotations
 
 from .base import BaseLayer
@@ -11,7 +12,7 @@ from .. import ops
 
 def _resolve_activation(activation):
     if isinstance(activation, str):
-        table = {"gelu": ops.gelu_op}
+        table = {"gelu": ops.gelu_op, "tanh": ops.tanh_op}
         if activation not in table:
             raise NotImplementedError(activation)
         return table[activation]
@@ -54,3 +55,23 @@ class LayerNorm(BaseLayer):
     def __call__(self, x):
         return ops.layer_normalization_op(x, self.scale_var, self.bias_var,
                                           eps=self.eps)
+
+
+class Embedding(BaseLayer):
+    def __init__(self, num_embeddings, embedding_dim, initializer=None,
+                 name="embedding", ctx=None):
+        initializer = initializer or init.GenXavierNormal()
+        self.embedding_table = initializer(
+            shape=(num_embeddings, embedding_dim), name=name + ".weight",
+            is_embed=True)
+
+    def __call__(self, x):
+        return ops.embedding_lookup_op(self.embedding_table, x)
+
+
+class DropOut(BaseLayer):
+    def __init__(self, p=0.5):
+        self.keep_prob = 1.0 - p
+
+    def __call__(self, x):
+        return ops.dropout_op(x, self.keep_prob)

@@ -9,6 +9,8 @@ add_op = def_op("AddElewise", lambda c, a, b: a + b)
 minus_op = def_op("MinusElewise", lambda c, a, b: a - b)
 mul_op = def_op("MultiplyElewise", lambda c, a, b: a * b)
 div_op = def_op("Division", lambda c, a, b: a / b)
+# the result takes the FIRST input's dtype, as the JAX op's astype(a.dtype)
+ne_op = def_op("Ne", lambda c, a, b: (a != b).to(a.dtype))
 
 # const variants
 addbyconst_op = def_op("AddConst", lambda c, a, const_attr=0.0: a + const_attr)
@@ -22,3 +24,4 @@ const_div_op = def_op("ConstDiv", lambda c, a, const_attr=1.0: const_attr / a)
 # unary
 opposite_op = def_op("Opposite", lambda c, a: -a)
 pow_op = def_op("Pow", lambda c, a, p=2.0: torch.pow(a, p))
+tanh_op = def_op("Tanh", lambda c, a: torch.tanh(a))

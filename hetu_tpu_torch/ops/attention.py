@@ -1,14 +1,22 @@
-"""Attention ops on the decode path (twin of ``hetu_tpu/ops/attention.py``).
+"""Attention ops of the ported paths (twin of ``hetu_tpu/ops/attention.py``).
 
 ``sdpa_reference`` is the plain attention, with the reference's rule that
-a query row with no valid key outputs zero.  ``dispatch_sdpa_decode`` is
-the q_len=1 decode step against a KV cache: on a CUDA tensor it always
-launches the hand-written flash kernel
-(:mod:`hetu_tpu_torch.ops.kernels.flash_attention`), at every cache
-length — the TPU package's gate (``_FLASH_MIN_LEN``, mod-128 bucketing,
-``artifacts/flash_ab.json``) does not carry over and is not read.  On a
-CPU tensor it takes ``sdpa_reference`` and counts ``backend:cpu`` in the
-``flash_fallbacks`` family.
+a query row with no valid key outputs zero.  The dispatchers:
+
+* ``dispatch_sdpa`` (dense) and ``dispatch_sdpa_masked`` (a mask node):
+  the training path.  ``_split_mask_kinds`` routes a (B|1, 1, 1, S_kv)
+  mask to the ``key_mask`` specialization; any other mask, and
+  ``causal``, raise ``NotImplementedError`` on the card (not ported).
+* ``dispatch_sdpa_decode``: the q_len=1 decode step against a KV cache
+  (the ``lengths`` specialization).
+
+On a CUDA tensor each always launches the hand-written flash kernels
+(:mod:`hetu_tpu_torch.ops.kernels.flash_attention`) at every length — the
+TPU package's gate (``_FLASH_MIN_LEN``, mod-128 bucketing,
+``artifacts/flash_ab.json``) does not carry over and is not read — and
+never falls back to ``sdpa_reference``.  On a CPU tensor each takes
+``sdpa_reference`` and counts ``backend:cpu`` in the ``flash_fallbacks``
+family.
 """
 import math
 
@@ -44,14 +52,66 @@ def sdpa_reference(q, k, v, causal=False, scale=None, mask=None, bias=None):
     return torch.matmul(probs.to(q.dtype), v)
 
 
+def _note_cpu():
+    from ..metrics import record_flash_fallback
+    record_flash_fallback("backend:cpu")
+
+
+def dispatch_sdpa(q, k, v, causal=False, scale=None):
+    """Dense (B, H, S, D) attention: the flash kernels on the card, the
+    plain attention on the CPU."""
+    if q.device.type == "cpu":
+        _note_cpu()
+        return sdpa_reference(q, k, v, causal=causal, scale=scale)
+    return flash_attention(q, k, v, causal=causal, scale=scale)
+
+
+def _sdpa(c, q, k, v, causal=False, scale=None):
+    return dispatch_sdpa(q, k, v, causal=causal, scale=scale)
+
+
+sdpa_op = def_op("ScaledDotProductAttention", _sdpa)
+
+
+def _split_mask_kinds(mask, q):
+    """Route a broadcastable mask: a (B|1, 1, 1, S_kv) mask is a pure
+    key-padding mask, the kernels' O(S) ``key_mask``; anything else is a
+    full mask.  Returns (key_mask, full_mask) with exactly one set."""
+    b = q.shape[0]
+    if mask.ndim == 4 and mask.shape[1] == 1 and mask.shape[2] == 1:
+        km = mask.reshape(mask.shape[0], mask.shape[-1])
+        if km.shape[0] == 1:
+            km = km.expand(b, km.shape[-1])
+        return km, None
+    return None, mask
+
+
+def dispatch_sdpa_masked(q, k, v, mask, causal=False, scale=None):
+    """Masked (B, H, S, D) attention: a key-padding mask rides the flash
+    kernels' ``key_mask`` path on the card; the CPU takes the plain
+    attention."""
+    if q.device.type == "cpu":
+        _note_cpu()
+        return sdpa_reference(q, k, v, causal=causal, scale=scale, mask=mask)
+    km, fm = _split_mask_kinds(mask, q)
+    return flash_attention(q, k, v, causal=causal, scale=scale, key_mask=km,
+                           mask=fm)
+
+
+def _sdpa_masked(c, q, k, v, mask, causal=False, scale=None):
+    return dispatch_sdpa_masked(q, k, v, mask, causal=causal, scale=scale)
+
+
+sdpa_masked_op = def_op("ScaledDotProductAttentionMasked", _sdpa_masked)
+
+
 def dispatch_sdpa_decode(q, k_cache, v_cache, positions, scale=None):
     """One decode step: ``q`` (B, H, 1, D) against ``k_cache``/``v_cache``
     (B, H, L, D) with the new token already appended at ``positions``
     (B,); keys beyond each position are invisible."""
     lengths = positions.to(torch.int32) + 1
     if q.device.type == "cpu":
-        from ..metrics import record_flash_fallback
-        record_flash_fallback("backend:cpu")
+        _note_cpu()
         s_kv = k_cache.shape[-2]
         cols = torch.arange(s_kv, device=q.device)[None, None, None, :]
         mask = cols < lengths[:, None, None, None]

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exports plain C functions and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so``
 inside the package (a directory ``.gitignore`` lists), then loaded with
-``ctypes``.  The hash covers the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  Nothing is built when a
+``ctypes``.  The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+and an unchanged one is reused.  Nothing is built when a
 module is imported: the first call that needs a kernel builds it.
 :func:`build` starts one ``nvcc`` per missing source, all at once.
 """
@@ -43,13 +44,22 @@ def _nvcc():
     return path
 
 
+def sources():
+    """Names of every kernel source, ``csrc/<name>.cu``."""
+    return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+
+
 def source_path(name):
     return os.path.join(CSRC_DIR, name + ".cu")
 
 
 def library_path(name):
-    with open(source_path(name), "rb") as f:
-        h = hashlib.sha256(f.read())
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(CSRC_DIR, f)
+                                       for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

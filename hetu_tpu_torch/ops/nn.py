@@ -1,4 +1,4 @@
-"""Neural-net ops on the decode path (subset of ``hetu_tpu/ops/nn.py``):
+"""Neural-net ops of the ported paths (subset of ``hetu_tpu/ops/nn.py``):
 GELU (tanh approximation), layer normalization, dropout."""
 import torch
 
@@ -9,10 +9,15 @@ gelu_op = def_op(
 
 
 def _dropout(c, a, keep_prob=0.9):
+    """Keep each element with probability ``keep_prob`` and scale the
+    survivors by 1 / keep_prob.  The Bernoulli mask comes from the step's
+    generator (``c.rng()``), so the bits differ from the JAX package's
+    ``jax.random.bernoulli``; the distribution is the same."""
     if not c.training or keep_prob >= 1.0:
         return a
-    raise NotImplementedError(
-        "dropout in training: the port serves only (training=False)")
+    keep = torch.rand(a.shape, generator=c.rng(), device=a.device) \
+        < keep_prob
+    return torch.where(keep, a / keep_prob, torch.zeros_like(a))
 
 
 dropout_op = def_op("Dropout", _dropout)

@@ -1,4 +1,4 @@
-"""Reshape / transpose (subset of ``hetu_tpu/ops/transform.py``)."""
+"""Reshape / transpose / slice (subset of ``hetu_tpu/ops/transform.py``)."""
 import torch
 
 from .base import def_op
@@ -15,3 +15,14 @@ def _transpose(c, a, perm=None):
 
 
 transpose_op = def_op("Transpose", _transpose)
+
+
+def _slice(c, a, begin=None, size=None, end=None):
+    begin = list(begin)
+    if size is not None:
+        end = [b + s if s >= 0 else dim
+               for b, s, dim in zip(begin, size, a.shape)]
+    return a[tuple(slice(b, e) for b, e in zip(begin, end))]
+
+
+slice_op = def_op("Slice", _slice)

@@ -23,7 +23,8 @@ import torch
 
 from ..context import resolve_device
 from ..graph.executor import lower_forward
-from ..graph.node import LowerCtx, Op, PlaceholderOp, topo_sort
+from ..graph.node import (LowerCtx, Op, PlaceholderOp, checkpoint_names,
+                          topo_sort)
 from ..initializers import variable_generator
 
 
@@ -87,7 +88,6 @@ class InferenceExecutor:
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"bad bucket set {self.buckets}")
         self.params = {}
-        self.var_names = {}
         self._load_weights(weights)
         self._compiled = {}
 
@@ -105,12 +105,7 @@ class InferenceExecutor:
                 f"InferenceExecutor: weights from {type(weights).__name__} "
                 f"(checkpoint directories, live executors) are not ported — "
                 f"pass a {{name: array}} dict")
-        seen = {}
-        for node in self.var_nodes:
-            count = seen.get(node.name, 0)
-            seen[node.name] = count + 1
-            self.var_names[node] = node.name if count == 0 \
-                else f"{node.name}~{count}"
+        self.var_names = checkpoint_names(self.var_nodes)
         named = weights or {}
         missing = []
         # initializers run only for variables the weights do not cover;

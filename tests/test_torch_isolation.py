@@ -39,6 +39,7 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "import hetu_tpu_torch\n"
             "import hetu_tpu_torch.ops.kernels.flash_attention\n"
             "import hetu_tpu_torch.ops.kernels._build\n"
+            "import hetu_tpu_torch.tools.profile_train\n"
             "assert sys.modules['jax'] is None\n"
             "print(hetu_tpu_torch.GPT2Config.small().n_layer)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -66,17 +67,24 @@ def test_sources_import_no_jax_or_hetu_tpu():
 
 
 @pytest.mark.parametrize("entry", ["DecodeEngine", "InferenceExecutor",
-                                   "params_from_named_arrays"])
+                                   "params_from_named_arrays", "Executor"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = ht.GPT2Config.tiny(n_layer=1)
     feeds, logits, caches, _ = ht.gpt2_decode_graph(cfg, max_len=8)
+    bcfg = ht.BertConfig.tiny(num_hidden_layers=1, batch_size=1, seq_len=4,
+                              hidden_size=8, intermediate_size=8,
+                              vocab_size=16)
+    _, loss, _ = ht.bert_pretrain_graph(bcfg)
     calls = {
         "DecodeEngine": lambda: ht.DecodeEngine(feeds, logits, caches),
         "InferenceExecutor": lambda: ht.InferenceExecutor([logits]),
         "params_from_named_arrays": lambda: ht.params_from_named_arrays(
             {"w": np.zeros(2, np.float32)}),
+        "Executor": lambda: ht.Executor(
+            {"train": [loss, ht.optim.AdamOptimizer(1e-4).minimize(loss)]},
+            device=None),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -108,16 +116,39 @@ def test_inference_executor_refuses_checkpoint_directory(tmp_path):
 @pytest.mark.parametrize("spec", ["causal", "key_mask", "mask", "bias",
                                   "dense"])
 def test_flash_attention_unported_specializations_raise(spec):
+    """Ported: ``lengths`` (decode) and dense / ``key_mask`` (training).
+    Unported and refused by name: causal, full mask and bias, whatever
+    they come with, and ``key_mask`` together with ``lengths``."""
     q = torch.zeros(1, 1, 1, 8)
     kw = {"lengths": torch.ones(1, dtype=torch.int32)}
+    match = spec
     if spec == "causal":
         kw["causal"] = True
     elif spec == "dense":
-        kw = {}
+        kw, match = {"causal": True}, "causal"
+    elif spec == "key_mask":
+        kw[spec] = torch.ones(1, 1, dtype=torch.int32)
+        match = "lengths together with key_mask"
     else:
         kw[spec] = torch.ones(1, 1, 1, 1)
-    with pytest.raises(NotImplementedError, match=spec):
+    with pytest.raises(NotImplementedError, match=match):
         fa.flash_attention(q, q, q, **kw)
+
+
+@pytest.mark.parametrize("what", ["causal", "full_mask"])
+def test_attention_dispatch_off_the_cpu_raises_for_unported_kinds(what):
+    """A tensor off the CPU (a meta tensor stands in for the card here)
+    goes to the kernels, which launch or raise by name: the dispatcher
+    never falls back to the plain attention."""
+    from hetu_tpu_torch.ops import attention
+    q = torch.zeros(1, 1, 2, 8, device="meta")
+    mask = torch.ones(1, 1, 1, 2, dtype=torch.int32, device="meta") \
+        if what == "causal" \
+        else torch.ones(1, 1, 2, 2, dtype=torch.int32, device="meta")
+    with pytest.raises(NotImplementedError,
+                       match="causal" if what == "causal" else "mask"):
+        attention.dispatch_sdpa_masked(q, q, q, mask,
+                                       causal=what == "causal")
 
 
 def test_build_paths_stay_inside_the_package():
@@ -125,4 +156,5 @@ def test_build_paths_stay_inside_the_package():
     lib = _build.library_path("flash_attention")
     assert lib.startswith(os.path.join(PKG, "_build") + os.sep)
     assert os.path.exists(_build.source_path("flash_attention"))
+    assert _build.sources() == ["flash_attention", "flash_attention_bwd"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -53,3 +53,87 @@ def test_cuda_kernel_matches_plain_version(cuda, s_q, s_kv, d):
     assert float((out - ref).abs().max()) <= ATOL
     assert torch.allclose(lse, lse_ref, rtol=1e-5, atol=1e-5)
     assert float(out.view(b, h, s_q, d)[1].abs().max()) == 0.0
+
+
+def _train_inputs(cuda, s, d, masked, seed):
+    """BH = 2 x 3 rows of (s, d) float32 with, when ``masked``, a ragged
+    key mask whose second batch row masks every key."""
+    rng = np.random.RandomState(seed)
+    b, h = 2, 3
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda)
+
+    q, k, v, do = t(b * h, s, d), t(b * h, s, d), t(b * h, s, d), \
+        t(b * h, s, d)
+    km = None
+    if masked:
+        m = (rng.rand(b, s) < 0.7).astype(np.int32)
+        m[0, 0] = 1
+        m[1] = 0
+        km = torch.from_numpy(m).to(cuda)
+    return q, k, v, do, km
+
+
+TRAIN_CASES = [(s, d, masked) for d in (32, 64, 128) for s in (1, 77, 512)
+               for masked in (False, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,d,masked", TRAIN_CASES)
+def test_forward_kernel_matches_plain_version(cuda, s, d, masked):
+    q, k, v, _, km = _train_inputs(cuda, s, d, masked, seed=s + d)
+    before = fa.fwd_launches
+    out, lse = fa.flash_fwd_masked(q, k, v, km, d ** -0.5)
+    ref, lse_ref = fa.flash_fwd_plain(q, k, v, None, 3, d ** -0.5,
+                                      key_mask=km)
+    torch.cuda.synchronize()
+    assert fa.fwd_launches == before + 1
+    assert float((out - ref).abs().max()) <= ATOL
+    assert float((lse - lse_ref).abs().max()) <= ATOL
+    if masked:
+        assert float(out[3:].abs().max()) == 0.0     # no valid key: zero
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,d,masked", TRAIN_CASES)
+def test_backward_kernels_match_plain_version(cuda, s, d, masked):
+    """dQ / dK / dV within allclose(rtol=1e-4, atol=1e-5) of the plain
+    formulas; masked keys and rows with no valid key get exact zeros, and
+    the result is the same from run to run (no atomics)."""
+    q, k, v, do, km = _train_inputs(cuda, s, d, masked, seed=7 * s + d)
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd_plain(q, k, v, None, 3, scale, key_mask=km)
+    delta = (do * out).sum(-1)
+    before = (fa.dq_launches, fa.dkv_launches)
+    dq = fa.flash_bwd_dq(q, k, v, km, do, lse, delta, scale)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, km, do, lse, delta, scale)
+    dq_ref, dk_ref, dv_ref = fa.flash_bwd_plain(q, k, v, km, out, lse, do,
+                                                scale)
+    torch.cuda.synchronize()
+    assert (fa.dq_launches, fa.dkv_launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert torch.allclose(got, want, rtol=1e-4, atol=1e-5), \
+            float((got - want).abs().max())
+    if masked:
+        assert float(dq[3:].abs().max()) == 0.0
+        dead = (km == 0).repeat_interleave(3, dim=0)
+        assert float(dk[dead].abs().max()) == 0.0
+        assert float(dv[dead].abs().max()) == 0.0
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, km, do, lse, delta, scale)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.gpu
+def test_autograd_function_launches_all_three_kernels(cuda):
+    q, k, v, do, km = _train_inputs(cuda, 77, 64, True, seed=3)
+    q4, k4, v4 = (t.view(2, 3, 77, 64).requires_grad_(True)
+                  for t in (q, k, v))
+    before = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
+    out = fa.flash_attention(q4, k4, v4, key_mask=km)
+    grads = torch.autograd.grad(out, (q4, k4, v4), do.view(2, 3, 77, 64))
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        n + 1 for n in before)
+    assert all(torch.isfinite(g).all() for g in grads)

@@ -192,3 +192,113 @@ def test_sdpa_decode_on_cpu_takes_the_plain_version_and_counts_it():
     got, want = _both("sdpa_decode_op", [q, kc, vc, pos])
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
     assert metrics.flash_fallback_counts() == {"backend:cpu": 1}
+
+
+# -- ops of the BERT training graph -------------------------------------------
+
+def test_ne_returns_the_first_inputs_dtype():
+    """The ``masked_lm_loss`` pattern: int32 labels against the float32
+    ``labels * 0.0 + -1.0``; the result is int32 in both packages."""
+    labels = np.array([3, -1, 0, -1, 7], np.int32)
+    got, want = _both("ne_op", [labels, labels * 0.0 - 1.0])
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["reduce_sum_op", "reduce_mean_op"])
+@pytest.mark.parametrize("axes,keepdims", [([0], False), ([1], True),
+                                           (None, False)])
+def test_reductions(name, axes, keepdims):
+    # rtol 1e-6: the two libraries sum in different orders (a few ulp)
+    got, want = _both(name, [_rand(4, 5)], axes=axes, keepdims=keepdims)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", ["reduce_sum_op", "reduce_mean_op"])
+def test_reductions_of_int32_keep_the_jax_dtype(name):
+    x = np.random.RandomState(0).randint(0, 2, size=(7,)).astype(np.int32)
+    got, want = _both(name, [x], axes=[0])
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_softmaxcrossentropy_sparse_with_ignored_labels():
+    logits = _rand(6, 9) * 3.0
+    labels = np.array([2, -1, 8, 0, -1, 5], np.int32)
+    got, want = _both("softmaxcrossentropy_sparse_op", [logits, labels])
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    assert got[1] == 0.0 and got[4] == 0.0
+
+
+def test_softmaxcrossentropy_dense_labels():
+    logits = _rand(5, 4) * 2.0
+    labels = np.eye(4, dtype=np.float32)[[0, 3, 1, 1, 2]]
+    got, want = _both("softmaxcrossentropy_op", [logits, labels])
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("kw", [{"begin": (0, 0, 0), "size": (2, 1, 4)},
+                                {"begin": (1, 2, 0), "size": (1, -1, 3)},
+                                {"begin": (0, 1, 1), "end": (2, 3, 4)}])
+def test_slice(kw):
+    got, want = _both("slice_op", [_rand(2, 3, 4)], **kw)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_tanh():
+    got, want = _both("tanh_op", [_rand(4, 8) * 3.0])
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+def test_embedding_lookup_with_float32_position_ids():
+    """BERT's position ids are a float32 variable; both packages cast
+    them to integers before the gather."""
+    table = _rand(16, 6)
+    pos = np.arange(12, dtype=np.float32)
+    got, want = _both("embedding_lookup_op", [table, pos])
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["dense", "key_mask"])
+def test_sdpa_ops_on_cpu_take_the_plain_version_and_count_it(kind):
+    q, k, v = (_rand(2, 3, 7, 8, seed=i) for i in range(3))
+    arrays, name = [q, k, v], "sdpa_op"
+    if kind == "key_mask":
+        m = np.ones((2, 1, 1, 7), np.int32)
+        m[0, ..., 4:] = 0
+        m[1] = 0                              # every key masked
+        arrays, name = arrays + [m], "sdpa_masked_op"
+    metrics.reset_flash_fallbacks()
+    got, want = _both(name, arrays)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    assert metrics.flash_fallback_counts() == {"backend:cpu": 1}
+
+
+@pytest.mark.parametrize("keep_prob", [0.9, 0.5])
+def test_training_dropout_statistics(keep_prob):
+    """Training dropout zeroes about 1 - keep_prob of the elements and
+    scales the survivors by 1 / keep_prob; the mask comes from the
+    context's generator, so a reseeded generator repeats it."""
+    x = torch.from_numpy(_rand(200, 500) + 5.0)      # no zeros in x
+    node = tops.dropout_op(torch_ph("x"), keep_prob=keep_prob)
+
+    def run(seed):
+        return node.lower(TorchCtx(True, torch.Generator().manual_seed(seed)),
+                          x)
+
+    y = run(0)
+    dropped = float((y == 0).float().mean())
+    n = x.numel()
+    sigma = np.sqrt(keep_prob * (1 - keep_prob) / n)
+    assert abs(dropped - (1 - keep_prob)) < 5 * sigma
+    kept = y != 0
+    torch.testing.assert_close(y[kept], x[kept] / keep_prob, rtol=0, atol=0)
+    assert torch.equal(run(0), y) and not torch.equal(run(1), y)
+
+
+def test_training_dropout_needs_a_generator():
+    node = tops.dropout_op(torch_ph("x"), keep_prob=0.5)
+    with pytest.raises(RuntimeError, match="seed="):
+        node.lower(TorchCtx(True), torch.ones(3))
