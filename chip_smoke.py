@@ -37,8 +37,31 @@ without printing the final result line:
 7. Train the same widths cut to 2 layers (seq 128, batch 4, dropout 0) on
    the card and on the CPU from the same weights for 3 Adam steps; the
    losses and the step-1 gradients of every variable must agree.
-8. Print the card's name and power limit, the ``kernels`` JSON line and,
-   last, ``{"ok": true, "device": {...}}``.
+8. Hold the embedding-cache kernels against their plain versions at the
+   CTR path's shapes: the slots and unique-inverse map of a real
+   ``begin_lookup`` over Zipf batches of the WDL configuration below
+   (53,248 ids, width 16, a 63,249-row slab), plus n = 0, n off the block
+   size, one run, every key distinct, widths 13 and 128.  The gather must
+   match exactly; the segment-sum within rtol 2e-5 / atol 1e-6 of its
+   plain version (``index_add_``, atomics) and exactly the host cache's
+   ``_segment_sum``.  Time each kernel, its plain version, the library
+   call and the bound.
+9. Train Wide & Deep at the repository's WDL configuration (Criteo layout,
+   13 dense and 26 sparse fields, batch 2048, vocab 100,000, dim 16, MLP
+   429-256-256-1 plus wide 13-1, ``SGDOptimizer(0.01)``; store SGD lr
+   0.01, init scale 0.01; cache limit 10,000, pull/push bound 10, LRU,
+   device scratch 53,248; ``synthetic_criteo_skewed(8*2048, seed=0)``
+   cycled) through the device-resident HET cache and ``Executor.run``: 3
+   warm-up steps, then 20 counted steps with every launch counter set to
+   0 just before and read just after (gather and segment-sum: one launch
+   a step each; no ``backend:`` fallback).
+10. The same configuration trained 8 steps through the device cache and 8
+    through the host cache on the card, from the same table and weights:
+    losses, the store table, versions and every cache counter equal bit
+    for bit.  Then 3 steps on the card against 3 on the CPU: losses within
+    rtol 1e-4, the store table within ``allclose(rtol=1e-5, atol=1e-6)``.
+11. Print the card's name and power limit, the ``kernels`` JSON line and,
+    last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32:
 ``torch.backends.cuda.matmul.allow_tf32`` is set False.
@@ -63,6 +86,13 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 # card vs CPU training: losses rtol; step-1 gradients allclose
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-3, 1e-5
+# segment-sum kernel vs its plain version (index_add_ adds with atomics),
+# on rows at the scale of the CTR step's embedding gradients
+SEG_RTOL, SEG_ATOL = 2e-5, 1e-6
+GRAD_SCALE = 1e-4
+# CTR training, card vs CPU: losses rtol; store table allclose
+CTR_LOSS_RTOL = 1e-4
+CTR_TABLE_RTOL, CTR_TABLE_ATOL = 1e-5, 1e-6
 # H100 SXM data sheet: HBM3 bytes/s and float32 (non-tensor-core) FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -75,6 +105,8 @@ PROMPT_RANGE = (8, 300)
 TB, TS = 4, 512
 # BERT-base training step
 TRAIN_BATCH, TRAIN_SEQ, WARMUP, STEPS = 16, 512, 2, 10
+# Wide & Deep through the HET cache (bench.py's WDL configuration)
+CTR_BATCH, CTR_VOCAB, CTR_DIM, CTR_WARMUP, CTR_STEPS = 2048, 100000, 16, 3, 20
 
 
 def log(msg):
@@ -89,9 +121,13 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def reset_launches(fa):
-    """Set every kernel's launch counter to 0."""
-    fa.launches = fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+def reset_launches(*modules):
+    """Set every kernel launch counter (each module integer named
+    ``launches`` or ``*_launches``) of the kernel modules to 0."""
+    for mod in modules:
+        for name in list(vars(mod)):
+            if name.endswith("launches"):
+                setattr(mod, name, 0)
 
 
 def time_ms(fn, iters=50, flush=None):
@@ -372,7 +408,7 @@ def bert_step_flops(cfg):
     return 6.0 * b * s * dense + attn
 
 
-def phase_train(ht, fa, metrics):
+def phase_train(ht, fa, metrics, kmods):
     """BERT-base MLM training steps through Executor.run on the card."""
     cfg = ht.BertConfig.base(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ)
     feeds, loss, _ = ht.bert_pretrain_graph(cfg)
@@ -386,7 +422,7 @@ def phase_train(ht, fa, metrics):
     for _ in range(WARMUP):
         losses.append(float(ex.run("train", feed_dict=fd)[0].asnumpy()))
     torch.cuda.synchronize()
-    reset_launches(fa)
+    reset_launches(*kmods)
     metrics.reset_flash_fallbacks()
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -472,6 +508,315 @@ def phase_train_parity(ht):
         f"{TRAIN_GRAD_ATOL})")
 
 
+# -- embedding cache / CTR -----------------------------------------------------
+
+def wdl_executor(ht, mode, device, slab_device=None):
+    """Wide & Deep at the WDL configuration: ((dense, sparse, y) feeds,
+    executor, its cache)."""
+    dense = ht.placeholder_op("dense")
+    sparse = ht.placeholder_op("sparse", dtype=np.int64)
+    y_ = ht.placeholder_op("y")
+    loss, prob = ht.wdl_criteo(dense, sparse, y_, CTR_BATCH, vocab=CTR_VOCAB,
+                               dim=CTR_DIM, embed_mode=mode, lr=0.01,
+                               slab_device=slab_device)
+    train_op = ht.optim.SGDOptimizer(0.01).minimize(loss)
+    ex = ht.Executor({"train": [loss, train_op], "eval": [prob]}, seed=0,
+                     device=device)
+    cache = ex.subexecutors["train"].ps_nodes[0].cache
+    return (dense, sparse, y_), ex, cache
+
+
+def ctr_batches(ht):
+    """The 8 training batches of ``synthetic_criteo_skewed(8 * 2048)``."""
+    d, s, y = ht.synthetic_criteo_skewed(8 * CTR_BATCH, vocab=CTR_VOCAB,
+                                         seed=0)
+    return [(d[i * CTR_BATCH:(i + 1) * CTR_BATCH],
+             s[i * CTR_BATCH:(i + 1) * CTR_BATCH],
+             y[i * CTR_BATCH:(i + 1) * CTR_BATCH]) for i in range(8)]
+
+
+def bytes_bound(nbytes, adds=0.0):
+    """(ms, 'bytes' | 'operations') of a copy or sum: ``nbytes`` at the
+    HBM rate against ``adds`` float32 additions at the fp32 peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, adds / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_emb_kernels(ht, emb, seg):
+    """The slab gather and the sorted segment-sum vs their plain versions
+    at the CTR path's shapes (a real slot plan), edge cases; times."""
+    from hetu_tpu_torch.ps.dist_store import _segment_sum
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush = flush_buf.zero_
+    batches = ctr_batches(ht)
+    store = ht.EmbeddingStore()
+    t = store.init_table(CTR_VOCAB, CTR_DIM, opt="sgd", lr=0.01, seed=0,
+                         init_scale=0.01)
+    cache = ht.DistCacheTable(store, t, limit=CTR_VOCAB // 10, pull_bound=10,
+                              push_bound=10, policy="lru", device=True,
+                              device_scratch=CTR_BATCH * 26)
+    cache.lookup(batches[0][1])             # batch 1 then has hits
+    h = cache.begin_lookup(batches[1][1])
+    try:
+        rows = h.roundtrip()
+    except BaseException:
+        cache.abort_lookup(h)
+        raise
+    cache.finish_lookup(h, rows)
+    slab = cache._ensure_dev_slab()
+    slots = torch.from_numpy(h.positions[h.inv].astype(np.int32)).cuda()
+    inv_np = h.inv.astype(np.int64)
+    inv = torch.from_numpy(h.inv.astype(np.int32)).cuda()
+    n, w = slots.shape[0], slab.shape[1]
+    rng = np.random.RandomState(8)
+    log(f"[emb-kernels] real plan: n={n} unique={h.uk.size} "
+        f"hits={int(h.hit.sum())} slab={tuple(slab.shape)}")
+
+    # -- gather: exact
+    gcases = [("plan", slab, slots)]
+    for name, rows_, w_, n_ in (("n=0", 64, 16, 0), ("n=1001", 5000, 16, 1001),
+                                ("w=13", 5000, 13, 4099),
+                                ("w=128", 5000, 128, 2051)):
+        gcases.append((name, torch.from_numpy(
+            rng.randn(rows_, w_).astype(np.float32)).cuda(),
+            torch.from_numpy(rng.randint(0, rows_, n_).astype(np.int32))
+            .cuda()))
+    for name, sl, sv in gcases:
+        out = emb.gather_rows(sl, sv)
+        ref = emb.gather_rows_plain(sl, sv)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or not torch.equal(out, ref):
+            raise AssertionError(f"gather kernel vs plain ({name}): max err "
+                                 f"{float((out - ref).abs().max())}")
+        log(f"[emb-kernels] gather {name} n={sv.shape[0]} "
+            f"w={sl.shape[1]}: equal")
+    slots64 = slots.long()
+    gline = {"ms": time_ms(lambda: emb.gather_rows(slab, slots), flush=flush),
+             "plain_ms": time_ms(lambda: emb.gather_rows_plain(slab, slots),
+                                 flush=flush),
+             "library_ms": time_ms(lambda: torch.index_select(slab, 0,
+                                                              slots64),
+                                   flush=flush),
+             "max_abs_err": 0.0}
+    distinct = int(torch.unique(slots).numel())
+    gline["bound_ms"], gline["bound_by"] = bytes_bound(
+        4 * n + 4 * distinct * w + 4 * n * w)
+
+    # -- segment-sum: plain within tolerance, host _segment_sum exactly
+    # rows at the scale of the step's embedding gradients (the loss is a
+    # mean over 2048 rows: |g| ~ 1e-5), where the tolerance against the
+    # atomics of index_add_ is met; the plan again at unit scale, where a
+    # run of ~370 rows cancels and differs from the atomics' order by more
+    # than rtol 2e-5, is held to the host _segment_sum exactly
+    def grads(n_, w_):
+        return torch.from_numpy(
+            (rng.randn(n_, w_) * GRAD_SCALE).astype(np.float32)).cuda()
+    g_plan = grads(n, w)
+    scases = [("plan", g_plan, inv_np),
+              ("plan, unit scale", torch.from_numpy(
+                  rng.randn(n, w).astype(np.float32)).cuda(), inv_np)]
+    for name, n_, w_, ids in (
+            ("n=0", 0, 16, np.zeros(0, np.int64)),
+            ("n=1001", 1001, 16, rng.randint(0, 300, 1001)),
+            ("one run", 4096, 16, np.zeros(4096, np.int64)),
+            ("distinct", 4096, 16, rng.permutation(10 ** 5)[:4096]),
+            ("w=13", 4099, 13, rng.randint(0, 500, 4099)),
+            ("w=128", 2051, 128, rng.randint(0, 500, 2051))):
+        inv_ = np.unique(ids, return_inverse=True)[1].astype(np.int64)
+        scases.append((name, grads(n_, w_), inv_))
+    worst = 0.0
+    for name, gg, iv in scases:
+        ii = torch.from_numpy(iv.astype(np.int32)).cuda()
+        before = seg.launches
+        out = emb.scatter_add_grads(gg, ii)
+        order = torch.sort(ii, stable=True)
+        ref = seg.sorted_segment_sum_plain(gg.index_select(0, order.indices),
+                                           order.values, gg.shape[0])
+        torch.cuda.synchronize()
+        if gg.shape[0] and seg.launches != before + 1:
+            raise AssertionError(f"segment-sum ({name}) did not launch")
+        err = float((out - ref).abs().max()) if out.numel() else 0.0
+        unit = name.endswith("unit scale")
+        if not unit and not torch.allclose(out, ref, rtol=SEG_RTOL,
+                                           atol=SEG_ATOL):
+            raise AssertionError(f"segment-sum kernel vs plain ({name}): "
+                                 f"max err {err}")
+        u = int(iv.max()) + 1 if iv.size else 0
+        host = out.cpu().numpy()
+        if iv.size:
+            cnt = np.bincount(iv)
+            if not np.array_equal(host[:u], _segment_sum(
+                    gg.cpu().numpy(), iv, cnt)):
+                raise AssertionError(f"segment-sum kernel vs host "
+                                     f"_segment_sum ({name}) not equal")
+        if host[u:].any():
+            raise AssertionError(f"segment-sum ({name}): rows past the last "
+                                 f"segment are not zero")
+        if not unit:
+            worst = max(worst, err)
+        log(f"[emb-kernels] segment-sum {name} n={gg.shape[0]} "
+            f"w={gg.shape[1]} segments={u}: max_abs_err vs plain "
+            f"{err:.3e}, equal to host _segment_sum")
+    order = torch.sort(inv, stable=True)
+    rows_sorted = g_plan.index_select(0, order.indices)
+    seg_ids = order.values
+    seg64 = seg_ids.long()
+    zeros = torch.zeros(n, w, device="cuda")
+    sline = {"ms": time_ms(lambda: seg.sorted_segment_sum(rows_sorted,
+                                                          seg_ids, n),
+                           flush=flush),
+             "plain_ms": time_ms(lambda: seg.sorted_segment_sum_plain(
+                 rows_sorted, seg_ids, n), flush=flush),
+             "library_ms": time_ms(lambda: zeros.index_add_(0, seg64,
+                                                            rows_sorted),
+                                   flush=flush),
+             "max_abs_err": worst}
+    u = int(h.uk.size)
+    sline["bound_ms"], sline["bound_by"] = bytes_bound(
+        4 * n * w + 4 * n + 4 * n * w, adds=float((n - u) * w))
+    sort_ms = time_ms(lambda: emb.scatter_add_grads(g_plan, inv),
+                      flush=flush)
+    longest = int(np.bincount(inv_np).max())
+    log(f"[emb-kernels] gather timing {json.dumps(gline)}")
+    log(f"[emb-kernels] segment-sum timing {json.dumps(sline)}; with the "
+        f"stable sort and permutation (scatter_add_grads) {sort_ms:.4f} ms; "
+        f"longest run {longest} rows of {n}, {u} segments")
+    return gline, sline
+
+
+def phase_ctr_train(ht, metrics, kmods, emb, seg):
+    """Wide & Deep training steps through the device cache on the card."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()     # what earlier phases still hold
+    t0 = time.perf_counter()
+    feeds, ex, cache = wdl_executor(ht, "vlru_dev", "cuda")
+    log(f"[ctr] WDL executor built in {time.perf_counter() - t0:.1f} s")
+    batches = ctr_batches(ht)
+
+    def step(i):
+        return float(ex.run("train", feed_dict=dict(
+            zip(feeds, batches[i % len(batches)])))[0].asnumpy())
+
+    losses = [step(i) for i in range(CTR_WARMUP)]
+    torch.cuda.synchronize()
+    reset_launches(*kmods)
+    metrics.reset_flash_fallbacks()
+    metrics.reset_emb_fallbacks()
+    metrics.reset_cache_counts()
+    before = dict(cache.stats)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(CTR_WARMUP, CTR_WARMUP + CTR_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(i))              # the loss copy waits for it
+        times.append(time.perf_counter() - t0)
+    launches = {"emb_gather": emb.launches, "sorted_segment_sum": seg.launches}
+    fallbacks = {**metrics.emb_fallback_counts(),
+                 **metrics.flash_fallback_counts()}
+    counts = metrics.cache_counts()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite CTR loss: {losses}")
+    if any(v != CTR_STEPS for v in launches.values()):
+        raise AssertionError(f"embedding kernel launches {launches} != "
+                             f"steps {CTR_STEPS}")
+    left = {r: c for r, c in fallbacks.items() if "backend:" in r}
+    if left:
+        raise AssertionError(f"the embedding path left the kernels: {left}")
+    # held out: a batch of another draw (seed 1) of the same generator
+    hd, hs, hy = ht.synthetic_criteo_skewed(CTR_BATCH, vocab=CTR_VOCAB,
+                                            seed=1)
+    prob = ex.run("eval", feed_dict=dict(zip(feeds, (hd, hs, hy))),
+                  convert_to_numpy_ret_vals=True)[0]
+    if prob.shape != (CTR_BATCH, 1) or not np.all(np.isfinite(prob)):
+        raise AssertionError(f"eval prob {prob.shape} not finite")
+    ms = np.asarray(times) * 1e3
+    hits = counts.get("emb_cache_hit_rows", 0)
+    occ = hits + counts.get("emb_cache_miss_rows", 0)
+    report = {
+        "batch": CTR_BATCH, "vocab": CTR_VOCAB, "dim": CTR_DIM,
+        "steps": CTR_STEPS, "losses": losses,
+        "step_ms_p50": float(np.percentile(ms, 50)),
+        "step_ms_p99": float(np.percentile(ms, 99)),
+        "step_ms_mean": float(ms.mean()),
+        "samples_per_s": CTR_BATCH / (ms.mean() / 1e3),
+        "hit_rate": hits / occ if occ else None,
+        "miss_rows_per_step": (cache.stats["fetches"] - before["fetches"])
+        / CTR_STEPS,
+        "miss_occurrences_per_step": counts.get("emb_cache_miss_rows", 0)
+        / CTR_STEPS,
+        "evicted_rows_per_step": counts.get("emb_cache_evict_rows", 0)
+        / CTR_STEPS,
+        "pushed_rows_per_step": counts.get("emb_cache_push_rows", 0)
+        / CTR_STEPS,
+        "held_out_auc": ht.metrics.auc(prob.ravel(), hy.ravel()),
+        "peak_mem_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+        "launches": launches, "card": card_line()}
+    log(f"[ctr] {json.dumps(report)}")
+    ex.close()
+    return launches
+
+
+def _ctr_run(ht, metrics, mode, device, steps, table, weights):
+    """``steps`` WDL steps from ``table`` and ``weights``: (losses, final
+    store table after a flush, versions, cache stats, cache counters)."""
+    feeds, ex, cache = wdl_executor(
+        ht, mode, device, slab_device=device if mode.endswith("_dev")
+        else None)
+    ex.load_dict(weights)
+    cache.store.set_data(cache.table, table)
+    metrics.reset_cache_counts()
+    batches = ctr_batches(ht)
+    losses = [float(ex.run("train", feed_dict=dict(
+        zip(feeds, batches[i % len(batches)])))[0].asnumpy())
+        for i in range(steps)]
+    cache.flush()
+    ex.close()
+    return (losses, cache.store.get_data(cache.table),
+            cache.store.versions(cache.table, np.arange(CTR_VOCAB)),
+            dict(cache.stats), metrics.cache_counts())
+
+
+def phase_ctr_parity(ht, metrics):
+    """Device cache vs host cache on the card, bit for bit; then card vs
+    CPU within tolerances."""
+    _, ex, cache = wdl_executor(ht, "vlru_dev", "cuda")
+    weights = ex.return_tensor_values()
+    table = cache.store.get_data(cache.table)
+    ex.close()
+    dev = _ctr_run(ht, metrics, "vlru_dev", "cuda", 8, table, weights)
+    host = _ctr_run(ht, metrics, "vlru", "cuda", 8, table, weights)
+    if dev[0] != host[0]:
+        raise AssertionError(f"device vs host cache losses: {dev[0]} vs "
+                             f"{host[0]}")
+    for i, what in ((1, "store table"), (2, "versions")):
+        if not np.array_equal(dev[i], host[i]):
+            raise AssertionError(f"device vs host cache {what} differ: max "
+                                 f"{float(np.max(np.abs(dev[i] - host[i])))}")
+    if dev[3] != host[3] or dev[4] != host[4]:
+        raise AssertionError(f"device vs host cache counters: {dev[3]} "
+                             f"{dev[4]} vs {host[3]} {host[4]}")
+    log(f"[ctr-parity] device vs host cache on the card, 8 steps: losses, "
+        f"store table, versions and counters equal bit for bit; "
+        f"stats {dev[3]}")
+    card = _ctr_run(ht, metrics, "vlru_dev", "cuda", 3, table, weights)
+    cpu = _ctr_run(ht, metrics, "vlru_dev", "cpu", 3, table, weights)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    tab_err = float(np.max(np.abs(card[1] - cpu[1])))
+    if not loss_err <= CTR_LOSS_RTOL:
+        raise AssertionError(f"card vs CPU CTR losses {card[0]} vs {cpu[0]}")
+    if not np.allclose(card[1], cpu[1], rtol=CTR_TABLE_RTOL,
+                       atol=CTR_TABLE_ATOL):
+        raise AssertionError(f"card vs CPU store table: max err {tab_err}")
+    if not np.array_equal(card[2], cpu[2]) or card[3] != cpu[3]:
+        raise AssertionError("card vs CPU: versions or cache stats differ")
+    log(f"[ctr-parity] card vs CPU, 3 steps: loss max rel err "
+        f"{loss_err:.3e} (rtol {CTR_LOSS_RTOL}); store table max abs err "
+        f"{tab_err:.3e} (rtol {CTR_TABLE_RTOL}, atol {CTR_TABLE_ATOL}); "
+        f"versions and stats equal")
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script runs on the "
@@ -481,7 +826,10 @@ def main():
     import hetu_tpu_torch as ht
     from hetu_tpu_torch import metrics
     from hetu_tpu_torch.ops.kernels import _build
+    from hetu_tpu_torch.ops.kernels import emb_cache as emb
     from hetu_tpu_torch.ops.kernels import flash_attention as fa
+    from hetu_tpu_torch.ops.kernels import segment_sum as seg
+    kmods = (fa, emb, seg)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -489,12 +837,14 @@ def main():
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
     # -- 1. build -----------------------------------------------------------
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     built = _build.build(_build.sources())
     for name, (secs, text) in built.items():
         log(f"[build] {name}: {secs:.1f} s\n{text.strip()}")
     for entry in fa.ENTRIES:
         fa.kernel(entry)
+    emb.kernel()
+    seg.kernel()
     log(f"[build] all kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -516,7 +866,7 @@ def main():
         # warm-up (cuBLAS handles, allocator) before the counted run
         router.submit(prompts[1][:4], max_new_tokens=2).result(timeout=300)
         torch.cuda.synchronize()
-        reset_launches(fa)
+        reset_launches(*kmods)
         metrics.reset_decode_counts()
         metrics.reset_flash_fallbacks()
         torch.cuda.reset_peak_memory_stats()
@@ -575,12 +925,21 @@ def main():
     tlines = phase_train_kernels(ht, fa)
 
     # -- 6. train BERT-base ---------------------------------------------------------
-    tlaunches = phase_train(ht, fa, metrics)
+    tlaunches = phase_train(ht, fa, metrics, kmods)
 
     # -- 7. card vs CPU training ------------------------------------------------------
     phase_train_parity(ht)
 
-    # -- 8. result lines --------------------------------------------------------
+    # -- 8. embedding-cache kernels vs plain ----------------------------------------
+    gline, sline = phase_emb_kernels(ht, emb, seg)
+
+    # -- 9. train Wide & Deep through the device cache --------------------------------
+    claunches = phase_ctr_train(ht, metrics, kmods, emb, seg)
+
+    # -- 10. device vs host cache, card vs CPU ------------------------------------------
+    phase_ctr_parity(ht, metrics)
+
+    # -- 11. result lines ---------------------------------------------------------
     kernels = [{
         "name": "flash_fwd_lengths", "route": "cuda",
         "source": "hetu_tpu_torch/csrc/flash_attention.cu",
@@ -604,6 +963,18 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for r, name, source, replaces in (
+            (gline, "emb_gather", "hetu_tpu_torch/csrc/emb_cache.cu",
+             "hetu_tpu/ops/pallas/emb_cache.py:71"),
+            (sline, "sorted_segment_sum", "hetu_tpu_torch/csrc/segment_sum.cu",
+             "hetu_tpu/ops/pallas/segment_sum.py:25")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": claunches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

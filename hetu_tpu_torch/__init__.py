@@ -24,7 +24,7 @@ Typical use (the shape of the JAX package's)::
 It imports neither ``jax`` nor ``hetu_tpu``.  Entry points run on CUDA
 unless the caller passes ``device="cpu"``.
 """
-from . import initializers, metrics, ops, optim
+from . import initializers, metrics, ops, optim, ps
 from . import initializers as init
 from .context import cpu, gpu, resolve_device
 from .graph import (Executor, GradientOp, LowerCtx, Op, PlaceholderOp,
@@ -33,12 +33,16 @@ from .graph import (Executor, GradientOp, LowerCtx, Op, PlaceholderOp,
 from .layers import DropOut, Embedding, LayerNorm, Linear, MultiHeadAttention
 from .models import (BertConfig, GPT2Config, bert_model, bert_pooler,
                      bert_pretrain_graph, gpt2_decode_graph,
-                     synthetic_mlm_batch)
+                     synthetic_criteo, synthetic_criteo_skewed,
+                     synthetic_mlm_batch, wdl_criteo)
 from .ndarray import NDArray
-from .ops import (array_reshape_op, embedding_lookup_op, matmul_op, ne_op,
-                  reduce_mean_op, reduce_sum_op, sdpa_masked_op, sdpa_op,
-                  slice_op, softmaxcrossentropy_op,
+from .ops import (array_reshape_op, binarycrossentropy_op, broadcastto_op,
+                  concat_op, embedding_lookup_op, matmul_op, ne_op,
+                  reduce_mean_op, reduce_sum_op, relu_op, sdpa_masked_op,
+                  sdpa_op, sigmoid_op, slice_op, softmaxcrossentropy_op,
                   softmaxcrossentropy_sparse_op, tanh_op, transpose_op)
+from .ps import (CacheSparseTable, DistCacheTable, EmbeddingStore,
+                 PSEmbeddingLookupOp, default_store, ps_embedding_lookup_op)
 from .serving import (DecodeEngine, DecodeRouter, DecodeStream,
                       InferenceExecutor, ServeRejected, default_buckets)
 from .weights import params_from_named_arrays

@@ -13,14 +13,27 @@ of the loss with respect to the trainable variables, and each
 ``torch.no_grad()``.  PyTorch runs eagerly: the step is this sequence of
 kernel launches, with no whole-step capture.
 
+PS embeddings (``ps_embedding_lookup_op``) take part as LEAVES: before
+the forward, a host-mode table's rows are pulled on the host and placed
+on the device; a device-resident cache (``DistCacheTable(device=True)``)
+plans its lookup on the host, runs the store round trip (pending pushes
+and the miss pull) on a one-worker feed thread while the dense feeds are
+placed, commits and fills the slab, and gathers the batch's rows on the
+card (kernel B4).  Each PS value is differentiated with the trainable
+variables; after the step a host table's row gradient goes back through
+``push`` and a device table's is first summed per unique key on the
+card (sort + kernel B5) and committed with ``apply_update_summed``.
+
 Not ported, refused by name: distribution (``dist_strategy``, ``mesh``,
 ``zero``, ``plan``, ``pipeline``, ``num_microbatches``), ``remat``,
-``matmul_precision``, ``compute_dtype`` (bf16 mixed precision), the other
-JAX-package options, ``run(sync=False)``, ``run_steps``, ``save`` /
-``load`` and PS embeddings.
+``matmul_precision``, ``compute_dtype`` (bf16 mixed precision), ASP/SSP
+(``bsp`` other than 0), ``prefetch`` and ids from a ``DataloaderOp``, the
+other JAX-package options, ``run(sync=False)``, ``run_steps``, ``save``
+/ ``load``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import warnings
 
 import numpy as np
@@ -28,6 +41,7 @@ import torch
 
 from ..context import resolve_device
 from ..ndarray import NDArray, wrap_device
+from ..ops.kernels.emb_cache import emb_scatter_add
 from ..optim.optimizer import OptimizerOp
 from .gradients import GradientOp
 from .node import LowerCtx, PlaceholderOp, checkpoint_names, topo_sort
@@ -71,9 +85,34 @@ class SubExecutor:
             or name == "train"
         self.fwd_topo = [n for n in self.topo
                          if not isinstance(n, (GradientOp, OptimizerOp))]
+        # PS embedding leaves: pulled (or gathered) before the step, their
+        # row gradient pushed after it; the ids placeholder is no feed
+        # node of the subgraph (the lookup has no inputs) and is read from
+        # the feed dict
+        self.ps_nodes = [n for n in self.topo if getattr(n, "is_ps", False)]
+        for n in self.ps_nodes:
+            idn = n.ids_node
+            if not isinstance(idn, PlaceholderOp) or idn.is_variable:
+                raise NotImplementedError(
+                    f"PS embedding {n}: ids from {idn} (a DataloaderOp or a "
+                    f"computed node) are not ported; feed an ids "
+                    f"placeholder")
+            if n.device_mode and n.cache.slab_device.type != \
+                    executor.device.type:
+                raise ValueError(
+                    f"PS embedding {n}: the cache slab is on "
+                    f"{n.cache.slab_device}, the executor on "
+                    f"{executor.device}")
+        self._ps_dev_items = [n for n in self.ps_nodes if n.device_mode]
+        self._ps_host_items = [n for n in self.ps_nodes
+                               if not n.device_mode]
+        #: node -> the step's committed _DevLookup (read by _ps_post_step)
+        self._dev_live = {}
+        self._feed_pool = None
         self.feed_nodes = [n for n in self.topo
                            if isinstance(n, PlaceholderOp)
-                           and not n.is_variable]
+                           and not n.is_variable
+                           and not getattr(n, "is_ps", False)]
         self.trainable_vars = sorted({g.wrt for g in self.grad_ops},
                                      key=lambda n: n.id)
         for v in self.trainable_vars:
@@ -87,17 +126,35 @@ class SubExecutor:
 
     def run(self, feed_dict, convert_to_numpy_ret_vals=False):
         ex = self.ex
-        feeds = {}
-        for node in self.feed_nodes:
-            if node not in feed_dict:
-                raise ValueError(f"missing feed for {node}")
-            feeds[node] = ex._place_feed(node, feed_dict[node])
+        # a device cache's store round trip starts first, on the feed
+        # thread, and overlaps the feed placement below
+        dev_pending = self._begin_dev_lookups(feed_dict) \
+            if self._ps_dev_items else None
+        ps_vals, invs = {}, {}
+        try:
+            feeds = {}
+            for node in self.feed_nodes:
+                if node not in feed_dict:
+                    raise ValueError(f"missing feed for {node}")
+                feeds[node] = ex._place_feed(node, feed_dict[node])
+            for node in self._ps_host_items:
+                ps_vals[node] = ex._place_feed(
+                    node, node.pull(self._ps_ids(node, feed_dict)))
+            if dev_pending is not None:
+                self._finish_dev_lookups(dev_pending, ps_vals, invs)
+        except BaseException:
+            if dev_pending is not None:
+                self._settle_dev_pending(dev_pending)
+            raise
         ctx = LowerCtx(self.training,
                        _step_generator(ex.device, ex.seed, ex.step_counter))
-        grads = {}
+        grads, ps_grads = {}, {}
         if self.grad_ops:
             leaves = {v: ex.var_values[v].detach().requires_grad_(True)
                       for v in self.trainable_vars}
+            leaves.update({n: v.detach().requires_grad_(True)
+                           for n, v in ps_vals.items()})
+            wrt = self.trainable_vars + self.ps_nodes
 
             def resolve(node):
                 if node in feeds:
@@ -107,12 +164,17 @@ class SubExecutor:
             with torch.enable_grad():
                 env = lower_forward(self.fwd_topo, ctx, resolve)
                 got = torch.autograd.grad(
-                    env[self.loss_node],
-                    [leaves[v] for v in self.trainable_vars],
+                    env[self.loss_node], [leaves[v] for v in wrt],
                     allow_unused=True)
-            grads = {v: torch.zeros_like(leaves[v]) if g is None else g
-                     for v, g in zip(self.trainable_vars, got)}
+            got = {v: torch.zeros_like(leaves[v]) if g is None else g
+                   for v, g in zip(wrt, got)}
+            grads = {v: got[v] for v in self.trainable_vars}
+            ps_grads = {n: got[n] for n in self.ps_nodes}
             with torch.no_grad():
+                for node in self._ps_dev_items:
+                    g = ps_grads[node]
+                    ps_grads[node] = emb_scatter_add(
+                        g.reshape(-1, g.shape[-1]), invs[node])
                 for op in self.opt_ops:
                     keys = [ex._k(v) for v in op.params]
                     sub_p = {k: ex.var_values[v]
@@ -126,9 +188,12 @@ class SubExecutor:
             with torch.no_grad():
                 env = lower_forward(
                     self.fwd_topo, ctx,
-                    lambda n: feeds[n] if n in feeds else ex.var_values[n])
+                    lambda n: feeds[n] if n in feeds
+                    else ps_vals[n] if n in ps_vals else ex.var_values[n])
         for node, val in ctx.state_updates.items():
             ex.var_values[node] = val.detach()
+        if self.ps_nodes:
+            self._ps_post_step(ps_grads)
         if self.training:
             ex.step_counter += 1
 
@@ -143,6 +208,99 @@ class SubExecutor:
         if convert_to_numpy_ret_vals:
             return [None if v is None else v.cpu().numpy() for v in outs]
         return [None if v is None else wrap_device(v) for v in outs]
+
+    # -- PS embeddings ----------------------------------------------------------
+
+    def _ps_ids(self, node, feed_dict):
+        """The ids batch of a PS lookup, read from the feed dict."""
+        if node.ids_node not in feed_dict:
+            raise ValueError(f"missing ids feed {node.ids_node} for PS "
+                             f"embedding {node}")
+        return np.asarray(feed_dict[node.ids_node], np.int64)
+
+    def _begin_dev_lookups(self, feed_dict):
+        """Phase 1 of a device-cache step: each table's plan
+        (``begin_lookup``, which takes the cache lock), then its store
+        round trip on the feed thread.  Returns the pending handles."""
+        if self._feed_pool is None:
+            self._feed_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix=f"feed-pipeline-{self.name}")
+        pending = []
+        try:
+            for node in self._ps_dev_items:
+                ids = self._ps_ids(node, feed_dict)
+                h = node.cache.begin_lookup(ids)
+                pending.append((node, ids, h,
+                                self._feed_pool.submit(h.roundtrip)))
+        except BaseException:
+            self._settle_dev_pending(pending)
+            raise
+        return pending
+
+    def _finish_dev_lookups(self, pending, ps_vals, invs):
+        """Phase 3: join the round trip, commit the plan (host bookkeeping
+        and the in-place slab fill), gather the batch's rows on the card
+        as the node's leaf value, and keep the unique-inverse map for the
+        gradient's scatter-add."""
+        for node, ids, h, fut in pending:
+            try:
+                rows = fut.result()
+            except BaseException:
+                node.cache.abort_lookup(h)
+                raise
+            cache = node.cache
+            # RLock depth 2 across commit + gather (finish_lookup's release
+            # drops to 1): no other lookup on this table may evict a slot
+            # of this batch and fill another key's row into it in between
+            cache._lock.acquire()
+            try:
+                cache.finish_lookup(h, rows)
+                g = cache.gather(h)
+            finally:
+                cache._lock.release()
+            ps_vals[node] = g.reshape(tuple(ids.shape) + (cache.width,))
+            inv = h.inv if h.flat.size else np.zeros(0, np.int64)
+            invs[node] = torch.from_numpy(inv.astype(np.int32)).to(
+                self.ex.device)
+            self._dev_live[node] = h
+
+    def _settle_dev_pending(self, pending):
+        """Failure path: every handle not yet committed releases its lock.
+        A round trip that succeeded is committed (its pushes reached the
+        store; dropping the plan would push them again later); a failed
+        or unread one is aborted with the cache untouched."""
+        for node, _ids, h, fut in pending:
+            if h.done:
+                continue
+            try:
+                rows = fut.result()
+            except BaseException:
+                node.cache.abort_lookup(h)
+                continue
+            try:
+                node.cache.finish_lookup(h, rows)
+            except BaseException:
+                node.cache.abort_lookup(h)
+
+    def _ps_post_step(self, ps_grads):
+        """The push boundary: a device table commits its U summed rows
+        (their copy to the host is the step's sync point), a host table
+        pushes the whole row gradient through its cache or store."""
+        for node in self.ps_nodes:
+            g = ps_grads.get(node)
+            if node.device_mode:
+                h = self._dev_live.pop(node, None)
+                if g is not None and h is not None and h.uk is not None:
+                    node.cache.apply_update_summed(
+                        h.uk, g[:h.uk.size].cpu().numpy(), h.cnt)
+            elif g is not None:
+                node.push(g.cpu().numpy())
+
+    def close(self):
+        """Stop the feed thread (idempotent)."""
+        if self._feed_pool is not None:
+            self._feed_pool.shutdown(wait=True)
+            self._feed_pool = None
 
 
 class Executor:
@@ -171,6 +329,15 @@ class Executor:
                 f"trains in float32")
         if kwargs.pop("remat", None) not in (None, False, "off"):
             raise NotImplementedError("Executor(remat=) is not ported")
+        bsp = kwargs.pop("bsp", 0)
+        if bsp != 0:
+            raise NotImplementedError(
+                f"Executor(bsp={bsp}): ASP / SSP parameter-server training "
+                f"is not ported; PS embeddings train BSP (bsp=0)")
+        if kwargs.pop("prefetch", False):
+            raise NotImplementedError(
+                "Executor(prefetch=True): the lookahead PS pull (for "
+                "DataloaderOp ids) is not ported")
         if kwargs:
             raise NotImplementedError(
                 f"Executor({next(iter(kwargs))}=) is not ported")
@@ -186,8 +353,6 @@ class Executor:
         all_fetches = [n for fl in self.eval_node_dict.values() for n in fl
                        if n is not None]
         self.global_topo = topo_sort(all_fetches)
-        if any(getattr(n, "is_ps", False) for n in self.global_topo):
-            raise NotImplementedError("Executor: PS embeddings are not ported")
         self._node_keys = {n: f"t{i}" for i, n in enumerate(self.global_topo)}
         self.var_values = {}
         self._init_variables()
@@ -258,6 +423,16 @@ class Executor:
                           "fixed per subgraph at construction")
         return self.subexecutors[name].run(feed_dict or {},
                                            convert_to_numpy_ret_vals)
+
+    def ps_flush(self):
+        """Barrier: every PS push of this executor has been applied.  The
+        port trains BSP only, and pushes inline at each step's end, so
+        none is ever in flight when ``run`` returns."""
+
+    def close(self):
+        """Stop the subgraphs' feed threads (idempotent)."""
+        for sub in self.subexecutors.values():
+            sub.close()
 
     def load_dict(self, state_dict):
         """Set variables by checkpoint name from ``{name: array}``;

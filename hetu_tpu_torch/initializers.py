@@ -56,6 +56,17 @@ class OnesInit(ConstantInit):
         super().__init__(1.0)
 
 
+class NormalInit(BaseInit):
+    """Normal(mean, stddev), as ``mean + stddev * jax.random.normal``."""
+
+    def __init__(self, mean=0.0, stddev=1.0):
+        self.mean, self.stddev = mean, stddev
+
+    def init(self, out, generator):
+        return torch.nn.init.normal_(out, self.mean, self.stddev,
+                                     generator=generator)
+
+
 class TruncatedNormalInit(BaseInit):
     """Normal(mean, stddev) truncated at two standard deviations, as
     ``jax.random.truncated_normal(key, -2, 2)`` scaled."""
@@ -126,6 +137,14 @@ def truncated_normal(shape, mean=0.0, stddev=1.0, name=None, trainable=True,
 
 
 # -- Gen* closures ----------------------------------------------------------
+
+def GenZeros():
+    return ZerosInit()
+
+
+def GenNormal(mean=0.0, stddev=1.0):
+    return NormalInit(mean, stddev)
+
 
 def GenTruncatedNormal(mean=0.0, stddev=1.0):
     return TruncatedNormalInit(mean, stddev)

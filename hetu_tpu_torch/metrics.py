@@ -1,5 +1,5 @@
-"""Counters and latency samples for the port's serving path (the subset
-of ``hetu_tpu/metrics.py`` the decode slice records into).
+"""Counters, latency samples and evaluation metrics of the port's paths
+(the subset of ``hetu_tpu/metrics.py`` the ported slices record into).
 
 Families:
 
@@ -7,6 +7,15 @@ Families:
   PyTorch attention instead of the CUDA kernel, by reason
   (``backend:cpu``).  On a CUDA tensor the dispatcher never records: it
   launches the kernel or raises.
+* ``emb_fallbacks`` — embedding-cache dispatches (the slab row gather,
+  the grad scatter-add) that took the plain version instead of the CUDA
+  kernel, by reason (``gather:backend:cpu``, ``scatter_add:backend:cpu``);
+  the twin of the JAX package's ``emb_pallas_fallbacks``, with the same
+  rule as flash: a CUDA tensor never records.
+* ``cache`` — HET embedding-cache events (``emb_cache_hit_rows``,
+  ``emb_cache_miss_rows``, ``emb_cache_evict_rows``,
+  ``emb_cache_push_rows``, ``emb_cache_push_rpcs``,
+  ``emb_grad_host_fallback``); a dense run records nothing.
 * ``decode`` — decode-plane events (``decode_steps``, ``decode_tokens``,
   joins/leaves, prefill rows, ...); kinds ending in ``_hw`` are
   high-water gauges.
@@ -84,6 +93,39 @@ def reset_flash_fallbacks():
     _REGISTRY.reset("flash_fallbacks")
 
 
+# ------------------------------------------------- embedding fallbacks
+
+def record_emb_fallback(reason):
+    """Count one embedding-cache dispatch that took the plain version."""
+    _REGISTRY.record("emb_fallbacks", reason)
+
+
+def emb_fallback_counts():
+    """{reason: count} snapshot of recorded embedding-kernel fallbacks."""
+    return _REGISTRY.counts("emb_fallbacks")
+
+
+def reset_emb_fallbacks():
+    _REGISTRY.reset("emb_fallbacks")
+
+
+# ------------------------------------------------------ embedding cache
+
+def record_cache(kind, n=1):
+    """Count ``n`` cache / sparse-transport events of ``kind``."""
+    if n:
+        _REGISTRY.record("cache", kind, n)
+
+
+def cache_counts():
+    """{kind: count} snapshot of the cache counters."""
+    return _REGISTRY.counts("cache")
+
+
+def reset_cache_counts():
+    _REGISTRY.reset("cache")
+
+
 # --------------------------------------------------------- decode plane
 
 def record_decode(kind, n=1):
@@ -136,3 +178,23 @@ def serve_counts():
 
 def reset_serve_counts():
     _REGISTRY.reset("serve")
+
+
+# ------------------------------------------------------------ evaluation
+
+def auc(y_pred, y_true):
+    """Binary ROC-AUC via the rank statistic (ties averaged); 0.5 when
+    one class is absent."""
+    score = np.asarray(y_pred).reshape(-1)
+    label = np.asarray(y_true).reshape(-1)
+    # a tied group's rank is the mean of its positions: start + (count-1)/2
+    _, inv, counts = np.unique(score, return_inverse=True,
+                               return_counts=True)
+    starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    ranks = (starts + (counts - 1) / 2.0 + 1.0)[inv]
+    pos = label > 0.5
+    n_pos, n_neg = pos.sum(), (~pos).sum()
+    if n_pos == 0 or n_neg == 0:
+        return 0.5
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2)
+                 / (n_pos * n_neg))

@@ -2,12 +2,15 @@
 from .base import OP_REGISTRY, SimpleOp, def_op
 from .arithmetic import (add_op, minus_op, mul_op, div_op, addbyconst_op,
                          minusbyconst_op, mulbyconst_op, div_const_op,
-                         const_div_op, opposite_op, pow_op, ne_op, tanh_op)
+                         const_div_op, opposite_op, pow_op, ne_op, tanh_op,
+                         sigmoid_op)
 from .matmul import matmul_op, linear_op
-from .nn import gelu_op, dropout_op, layer_normalization_op
-from .transform import array_reshape_op, transpose_op, slice_op
+from .nn import relu_op, gelu_op, dropout_op, layer_normalization_op
+from .transform import (array_reshape_op, transpose_op, slice_op, concat_op,
+                        broadcastto_op)
 from .reduce import reduce_sum_op, reduce_mean_op
-from .losses import softmaxcrossentropy_op, softmaxcrossentropy_sparse_op
+from .losses import (softmaxcrossentropy_op, softmaxcrossentropy_sparse_op,
+                     binarycrossentropy_op)
 from .embedding import embedding_lookup_op
 from .attention import (sdpa_reference, dispatch_sdpa, sdpa_op,
                         dispatch_sdpa_masked, sdpa_masked_op,

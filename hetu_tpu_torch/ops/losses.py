@@ -26,3 +26,10 @@ def _softmax_ce_sparse(c, logits, labels, ignored_index=-1):
 
 softmaxcrossentropy_sparse_op = def_op("SoftmaxCrossEntropySparse",
                                        _softmax_ce_sparse)
+
+
+binarycrossentropy_op = def_op(
+    "BinaryCrossEntropy",
+    lambda c, pred, labels, eps=1e-12:
+        -(labels * torch.log(pred + eps)
+          + (1 - labels) * torch.log(1 - pred + eps)))

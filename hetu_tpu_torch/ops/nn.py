@@ -1,8 +1,10 @@
 """Neural-net ops of the ported paths (subset of ``hetu_tpu/ops/nn.py``):
-GELU (tanh approximation), layer normalization, dropout."""
+ReLU, GELU (tanh approximation), layer normalization, dropout."""
 import torch
 
 from .base import def_op
+
+relu_op = def_op("Relu", lambda c, a: torch.relu(a))
 
 gelu_op = def_op(
     "Gelu", lambda c, a: torch.nn.functional.gelu(a, approximate="tanh"))

@@ -1,4 +1,5 @@
-"""Reshape / transpose / slice (subset of ``hetu_tpu/ops/transform.py``)."""
+"""Reshape / transpose / slice / concat / broadcast (subset of
+``hetu_tpu/ops/transform.py``)."""
 import torch
 
 from .base import def_op
@@ -26,3 +27,10 @@ def _slice(c, a, begin=None, size=None, end=None):
 
 
 slice_op = def_op("Slice", _slice)
+
+concat_op = def_op("Concat",
+                   lambda c, a, b, axis=0: torch.cat([a, b], dim=axis))
+
+# ``a`` broadcast to the shape of the second input's value
+broadcastto_op = def_op("BroadcastTo",
+                        lambda c, a, b: torch.broadcast_to(a, b.shape))

@@ -156,5 +156,6 @@ def test_build_paths_stay_inside_the_package():
     lib = _build.library_path("flash_attention")
     assert lib.startswith(os.path.join(PKG, "_build") + os.sep)
     assert os.path.exists(_build.source_path("flash_attention"))
-    assert _build.sources() == ["flash_attention", "flash_attention_bwd"]
+    assert _build.sources() == ["emb_cache", "flash_attention",
+                                "flash_attention_bwd", "segment_sum"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

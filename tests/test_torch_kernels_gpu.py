@@ -8,7 +8,10 @@ the JAX package, so it runs where only PyTorch is installed::
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -m gpu
 
 Tolerance: atol 1e-5 in float32 — kernel and plain version sum in
-different orders."""
+different orders.  The embedding-cache kernels: the slab row gather is a
+copy and must match exactly; the segment-sum must match its plain version
+(``index_add_``, atomics on the card) within rtol 2e-5 / atol 1e-6 and the
+host cache's ``_segment_sum`` exactly."""
 import os
 import sys
 
@@ -19,7 +22,10 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from hetu_tpu_torch.ops.kernels import emb_cache as emb  # noqa: E402
 from hetu_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
+from hetu_tpu_torch.ops.kernels import segment_sum as seg  # noqa: E402
+from hetu_tpu_torch.ps.dist_store import _segment_sum  # noqa: E402
 
 ATOL = 1e-5
 
@@ -137,3 +143,55 @@ def test_autograd_function_launches_all_three_kernels(cuda):
     assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
         n + 1 for n in before)
     assert all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,w,rows", [(53248, 16, 63249), (1000, 13, 77),
+                                      (255, 128, 300), (1, 4, 1), (0, 16, 8)])
+def test_gather_kernel_matches_plain_version(cuda, n, w, rows):
+    rng = np.random.RandomState(n + w)
+    slab = torch.from_numpy(rng.randn(rows, w).astype(np.float32)).to(cuda)
+    slots = torch.from_numpy(rng.randint(0, rows, n).astype(np.int32)).to(cuda)
+    before = emb.launches
+    out = emb.gather_rows(slab, slots)
+    ref = emb.gather_rows_plain(slab, slots)
+    torch.cuda.synchronize()
+    assert emb.launches == before + (1 if n else 0)
+    assert out.shape == (n, w) and torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,w,kind", [(53248, 16, "zipf"), (1000, 13, "zipf"),
+                                      (257, 128, "distinct"), (300, 16, "one"),
+                                      (1, 16, "one")])
+def test_segment_sum_kernel_matches_plain_and_host(cuda, n, w, kind):
+    rng = np.random.RandomState(n + w)
+    if kind == "zipf":
+        p = 1.0 / np.arange(1, 4001) ** 1.1
+        ids = rng.choice(4000, n, p=p / p.sum())
+    else:
+        ids = rng.permutation(10 * n)[:n] if kind == "distinct" \
+            else np.zeros(n, np.int64)
+    uk, inv, cnt = np.unique(ids, return_inverse=True, return_counts=True)
+    ii = torch.from_numpy(inv.astype(np.int32)).to(cuda)
+    order = torch.sort(ii, stable=True)
+    # rows at the scale of a CTR step's embedding gradients (1e-4), where
+    # the tolerance against the atomics of index_add_ holds; at unit scale
+    # a run of thousands of rows cancels and only the exact host check
+    # applies
+    for scale in (1e-4, 1.0):
+        g = (rng.randn(n, w) * scale).astype(np.float32)
+        gg = torch.from_numpy(g).to(cuda)
+        before = seg.launches
+        out = emb.scatter_add_grads(gg, ii)
+        ref = seg.sorted_segment_sum_plain(gg.index_select(0, order.indices),
+                                           order.values, n)
+        torch.cuda.synchronize()
+        assert seg.launches == before + 1
+        if scale < 1:
+            assert torch.allclose(out, ref, rtol=2e-5, atol=1e-6), \
+                float((out - ref).abs().max())
+        host = out.cpu().numpy()
+        assert np.array_equal(host[:uk.size], _segment_sum(g, inv, cnt))
+        assert not host[uk.size:].any()
+        assert torch.equal(out, emb.scatter_add_grads(gg, ii))  # run to run
