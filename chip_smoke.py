@@ -60,7 +60,32 @@ without printing the final result line:
     losses, the store table, versions and every cache counter equal bit
     for bit.  Then 3 steps on the card against 3 on the CPU: losses within
     rtol 1e-4, the store table within ``allclose(rtol=1e-5, atol=1e-6)``.
-11. Print the card's name and power limit, the ``kernels`` JSON line and,
+11. Hold the MoE row-gather kernel (B6) against its plain version at the
+    MoE path's shapes: the maps of a real ``TopKGateSparse`` at the MoE
+    configuration below over 8,192 random tokens (the dispatch, 20,480
+    slots from 8,192 rows; the combine and its backward, 8,192 rows from
+    20,480), plus n = 0, n = 1, every index -1, widths 13 and 2048: equal
+    exactly.  ``SparseDispatch`` / ``SparseCombine`` forward and backward
+    on those maps, kernel against plain gather: bit for bit.  Time the
+    kernel, its plain version, the library call and the bound.
+12. Train the repository's MoE configuration (BASELINE config 5,
+    ``bench.py``'s ``build_moe_graph``: 8,192 tokens, d 512,
+    ``TopKGateSparse(512, 8192, 16, k=2, capacity_factor=1.25)``,
+    ``Expert(16, 512, 2048)``, ``AdamOptimizer(1e-3)``) through
+    ``SparseMoELayer`` and ``Executor.run``: 3 warm-up steps, then 20
+    counted steps with every launch counter set to 0 just before and read
+    just after (the row gather: 6 launches a step; no ``backend:``
+    fallback), and 5 profiled steps for the device's idle share.  Then the
+    dense ``MoELayer`` graph of the same configuration the same way, as a
+    yardstick (it launches no row gather).
+13. The sparse and the dense graph from one set of weights, 3 Adam steps
+    on the card: routing maps equal, losses within rtol 1e-5, step-1
+    gradients within ``allclose(rtol=1e-4, atol=1e-6)``.  Then the sparse
+    graph at 1,024 tokens (full widths) on the card against the CPU, 3
+    Adam steps: routing maps equal (a differing route stops the phase with
+    the tokens' gate gaps), losses within rtol 1e-4, step-1 gradients
+    within ``allclose(rtol=1e-3, atol=1e-5)``.
+14. Print the card's name and power limit, the ``kernels`` JSON line and,
     last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32:
@@ -93,6 +118,10 @@ GRAD_SCALE = 1e-4
 # CTR training, card vs CPU: losses rtol; store table allclose
 CTR_LOSS_RTOL = 1e-4
 CTR_TABLE_RTOL, CTR_TABLE_ATOL = 1e-5, 1e-6
+# MoE sparse vs dense graph on the card: the same products in another
+# order around the gathers (losses rtol; step-1 gradients allclose)
+MOE_LOSS_RTOL = 1e-5
+MOE_GRAD_RTOL, MOE_GRAD_ATOL = 1e-4, 1e-6
 # H100 SXM data sheet: HBM3 bytes/s and float32 (non-tensor-core) FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -107,6 +136,12 @@ TB, TS = 4, 512
 TRAIN_BATCH, TRAIN_SEQ, WARMUP, STEPS = 16, 512, 2, 10
 # Wide & Deep through the HET cache (bench.py's WDL configuration)
 CTR_BATCH, CTR_VOCAB, CTR_DIM, CTR_WARMUP, CTR_STEPS = 2048, 100000, 16, 3, 20
+# GShard MoE (bench.py's MoE configuration); the card-vs-CPU cut
+MOE_WARMUP, MOE_STEPS, MOE_PROFILED, MOE_CPU_TOKENS = 3, 20, 5, 1024
+# row-gather launches of one top-2 training step: the dispatch (1), the
+# combine (2), its backward (2 for d_w, 1 for d_buffers); the tokens are
+# a feed, so autograd runs no dispatch backward
+MOE_GATHERS_PER_STEP = 6
 
 
 def log(msg):
@@ -816,6 +851,337 @@ def phase_ctr_parity(ht, metrics):
         f"versions and stats equal")
 
 
+# -- MoE ---------------------------------------------------------------------------
+
+def moe_route(ht, pm):
+    """The maps of a real ``TopKGateSparse`` at the MoE configuration
+    (seeded gate weights, 8,192 tokens from ``RandomState(0).randn``), on
+    the card: (tokens, token_of_slot, slot_of_token, k_of_slot, gate_w)."""
+    g = pm.moe_graph(sparse=True)
+    ex = ht.Executor({"route": list(g["route"][:4])}, seed=0, device="cuda")
+    fd = pm.moe_feeds(g)
+    tos, sot, kos, gw = (o.torch() for o in ex.run("route", feed_dict=fd))
+    return torch.from_numpy(fd[g["x"]]).cuda(), tos, sot, kos, gw
+
+
+def gather_bound(src, idx):
+    """(ms, 'bytes' | 'operations') of one row gather on these inputs: the
+    int32 indices and each distinct valid source row read once, the
+    output written once."""
+    valid = idx[idx >= 0]
+    rows = int(torch.unique(valid).numel()) if valid.numel() else 0
+    m = src.shape[1]
+    return bytes_bound(4 * idx.shape[0] + 4 * rows * m + 4 * idx.shape[0] * m)
+
+
+def phase_moe_kernels(ht, pm, md):
+    """The MoE row gather vs its plain version at the MoE path's shapes
+    (a real gate's maps), edge cases; the autograd functions kernel vs
+    plain bit for bit; times."""
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush = flush_buf.zero_
+    x, tos, sot, kos, gw = moe_route(ht, pm)
+    s, m = x.shape
+    n_slots, k = tos.shape[0], sot.shape[1]
+    rng = np.random.RandomState(11)
+
+    def rand(r, w):
+        return torch.from_numpy(rng.randn(r, w).astype(np.float32)).cuda()
+
+    def ints(lo, hi, n):
+        return torch.from_numpy(rng.randint(lo, hi, n).astype(np.int32)).cuda()
+
+    buffers, g_tok = rand(n_slots, m), rand(s, m)
+    sot_t = sot.t().contiguous()
+    log(f"[moe-kernels] real gate maps: tokens={s} slots={n_slots} "
+        f"empty slots={int((tos < 0).sum())} dropped routes="
+        f"{int((sot < 0).sum())} of {s * k}")
+    cases = [("dispatch fwd", x, tos),
+             ("combine fwd, d_w, dispatch bwd (route 0)", buffers, sot_t[0]),
+             ("combine fwd, d_w, dispatch bwd (route 1)", buffers, sot_t[1]),
+             ("combine bwd d_buffers", g_tok, tos),
+             ("n=0", rand(64, 16), ints(0, 64, 0)),
+             ("n=1", rand(5, 16), ints(0, 5, 1)),
+             ("every index -1", rand(100, 16), ints(-1, 0, 777)),
+             ("w=13", rand(5000, 13), ints(-1, 5000, 4099)),
+             ("w=2048", rand(2000, 2048), ints(-1, 2000, 3001))]
+    for name, src, idx in cases:
+        before = md.launches
+        out = md.row_gather(src, idx)
+        ref = md.row_gather_plain(src, idx)
+        torch.cuda.synchronize()
+        if md.launches != before + (1 if idx.shape[0] else 0):
+            raise AssertionError(f"row gather ({name}) did not launch once")
+        if out.shape != ref.shape or not torch.equal(out, ref):
+            raise AssertionError(f"row gather kernel vs plain ({name}): max "
+                                 f"err {float((out - ref).abs().max())}")
+        if out[idx < 0].any():
+            raise AssertionError(f"row gather ({name}): -1 rows not zero")
+        log(f"[moe-kernels] row gather {name} n={idx.shape[0]} m="
+            f"{src.shape[1]} src_rows={src.shape[0]}: equal")
+
+    # the autograd functions on those maps, kernel vs plain gather
+    def run(gather):
+        xx = x.clone().requires_grad_(True)
+        bb = buffers.clone().requires_grad_(True)
+        ww = gw.clone().requires_grad_(True)
+        buf = md.sparse_dispatch(xx, tos, sot, gather=gather)
+        out = md.sparse_combine(bb, ww, sot, tos, kos, gather=gather)
+        d_x, = torch.autograd.grad(buf, xx, buffers)
+        d_b, d_w = torch.autograd.grad(out, (bb, ww), g_tok)
+        return {"dispatch": buf, "combine": out, "d_tokens": d_x,
+                "d_buffers": d_b, "d_gate_w": d_w}
+
+    before = md.launches
+    got = run(md.row_gather)
+    torch.cuda.synchronize()
+    if md.launches != before + 3 * k + 2:
+        raise AssertionError(f"autograd functions launched "
+                             f"{md.launches - before}, not 3k + 2")
+    want = run(md.row_gather_plain)
+    torch.cuda.synchronize()
+    for name in got:
+        if not torch.equal(got[name], want[name]):
+            raise AssertionError(
+                f"{name}: kernel vs plain gather not bit-equal, max err "
+                f"{float((got[name] - want[name]).abs().max())}")
+    log(f"[moe-kernels] SparseDispatch / SparseCombine forward and backward, "
+        f"kernel vs plain gather: bit-equal ({', '.join(got)}; "
+        f"{3 * k + 2} launches)")
+
+    lines = {}
+    for name, src, idx in cases[:2]:
+        idx64 = idx.clamp_min(0).long()
+        neg = (idx < 0)[:, None]
+        row = {"ms": time_ms(lambda: md.row_gather(src, idx), flush=flush),
+               "plain_ms": time_ms(lambda: md.row_gather_plain(src, idx),
+                                   flush=flush),
+               # one library call per half: index_select, then the -1 rows
+               # zeroed in place (masked_fill_); the indices prepared once
+               "library_ms": time_ms(lambda: src.index_select(
+                   0, idx64).masked_fill_(neg, 0.0), flush=flush),
+               "max_abs_err": 0.0}
+        row["bound_ms"], row["bound_by"] = gather_bound(src, idx)
+        log(f"[moe-kernels] row gather timing ({name}, n={idx.shape[0]} "
+            f"m={m} src_rows={src.shape[0]}; library = index_select + "
+            f"masked_fill_): {json.dumps(row)}")
+        lines[name] = row
+    return lines["dispatch fwd"]
+
+
+def phase_moe_train(ht, pm, metrics, kmods, md):
+    """The MoE configuration trained through SparseMoELayer on the card,
+    then the dense MoELayer graph the same way."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()     # what earlier phases still hold
+    reports = {}
+    for graph in ("sparse", "dense"):
+        t0 = time.perf_counter()
+        dims, ex, fd = pm.build_moe_graph(sparse=graph == "sparse",
+                                          device="cuda")
+        log(f"[moe] {graph} executor built in {time.perf_counter() - t0:.1f} s")
+
+        def step():
+            return float(ex.run("train", feed_dict=fd)[0].asnumpy())
+
+        losses = [step() for _ in range(MOE_WARMUP)]
+        torch.cuda.synchronize()
+        reset_launches(*kmods)
+        metrics.reset_moe_fallbacks()
+        metrics.reset_flash_fallbacks()
+        metrics.reset_emb_fallbacks()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(MOE_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step())           # the loss copy waits for it
+            times.append(time.perf_counter() - t0)
+        launches = {"row_gather": md.launches}
+        others = {m.__name__.rsplit(".", 1)[-1]: n for m in kmods
+                  for name, n in vars(m).items()
+                  if name.endswith("launches") and m is not md and n}
+        fallbacks = {**metrics.moe_fallback_counts(),
+                     **metrics.flash_fallback_counts(),
+                     **metrics.emb_fallback_counts()}
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        kern, pwall, _ = pm.device_profile(step, MOE_PROFILED)
+        busy_s = sum(v[1] for v in kern.values()) / 1e6 / MOE_PROFILED
+        gather_us = sum(v[1] for n, v in kern.items() if "row_gather" in n)
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"non-finite MoE loss ({graph}): {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"MoE loss did not fall ({graph}): {losses}")
+        want = MOE_STEPS * MOE_GATHERS_PER_STEP if graph == "sparse" else 0
+        if launches["row_gather"] != want:
+            raise AssertionError(f"row gather launches ({graph}) {launches} "
+                                 f"!= {want}")
+        if others:
+            raise AssertionError(f"other kernels launched ({graph}): {others}")
+        left = {r: c for r, c in fallbacks.items() if "backend:" in r}
+        if left:
+            raise AssertionError(f"the MoE path left the kernel: {left}")
+        if not kern:
+            raise AssertionError("the profiler recorded no device time")
+        ms = np.asarray(times) * 1e3
+        flops = pm.moe_step_flops()
+        tokens = pm.TOKENS
+        reports[graph] = {
+            "graph": graph, "tokens": tokens, "d": dims["d"],
+            "experts": dims["experts"], "capacity": dims["capacity"],
+            "steps": MOE_STEPS, "losses": losses,
+            "step_ms_p50": float(np.percentile(ms, 50)),
+            "step_ms_p99": float(np.percentile(ms, 99)),
+            "step_ms_mean": float(ms.mean()),
+            "tokens_per_s": tokens / (ms.mean() / 1e3),
+            "model_gflop_per_step": flops / 1e9,
+            "mfu_fp32": flops / (ms.mean() / 1e3) / PEAK_FP32_FLOPS,
+            "peak_mem_gib": peak,
+            "device_busy_ms_per_step": busy_s * 1e3,
+            "device_idle_share": 1.0 - busy_s / (ms.mean() / 1e3),
+            "row_gather_device_ms_per_step": gather_us / MOE_PROFILED / 1e3,
+            "device_ops_per_step": sum(v[0] for v in kern.values())
+            / MOE_PROFILED,
+            "launches": launches, "card": card_line()}
+        log(f"[moe] {json.dumps(reports[graph])}")
+        ex.close()
+        del ex, fd
+        torch.cuda.empty_cache()
+    sp, de = reports["sparse"], reports["dense"]
+    log(f"[moe] step p50 sparse {sp['step_ms_p50']:.3f} ms, dense "
+        f"{de['step_ms_p50']:.3f} ms (dense / sparse "
+        f"{de['step_ms_p50'] / sp['step_ms_p50']:.2f}); peak memory sparse "
+        f"{sp['peak_mem_gib']:.3f} GiB, dense {de['peak_mem_gib']:.3f} GiB")
+    return sp["launches"]
+
+
+def moe_train_executor(ht, pm, tokens, sparse, device):
+    """The MoE graph at ``tokens`` tokens (full widths) with fetches [loss,
+    train op, every trainable variable's gradient, the routing maps (the
+    sparse gate's token_of_slot and slot_of_token; the dense gate's
+    dispatch tensor)]: (graph, variables, executor, feeds)."""
+    g = pm.moe_graph(tokens, sparse)
+    wrt = [n for n in ht.topo_sort([g["loss"]])
+           if isinstance(n, ht.PlaceholderOp) and n.is_variable
+           and n.trainable]
+    train_op = ht.optim.AdamOptimizer(1e-3).minimize(g["loss"])
+    fetches = [g["loss"], train_op] + ht.gradients(g["loss"], wrt) \
+        + list(g["route"][:2 if sparse else 1])
+    ex = ht.Executor({"train": fetches}, seed=0, device=device)
+    return g, wrt, ex, pm.moe_feeds(g)
+
+
+def load_all(ex, weights):
+    """``ex.load_dict(weights)``, after checking every variable of ``ex``
+    is in ``weights`` (load_dict skips unknown names silently)."""
+    missing = set(ex.var_names.values()) - set(weights)
+    if missing:
+        raise AssertionError(f"weights lack variables {sorted(missing)}")
+    ex.load_dict(weights)
+
+
+def dense_token_of_slot(dispatch):
+    """token_of_slot of a dense (s, e, c) dispatch tensor: the token whose
+    one-hot sits in each slot, -1 for an empty slot."""
+    flat = dispatch.reshape(dispatch.shape[0], -1)
+    token = flat.argmax(0)
+    return torch.where(flat.amax(0) > 0, token,
+                       torch.full_like(token, -1)).to(torch.int32)
+
+
+def phase_moe_parity(ht, pm):
+    """Sparse vs dense graph on the card from one set of weights, 3 Adam
+    steps; then the sparse graph on the card vs the CPU at 1,024 tokens."""
+    gs, wrt, sex, fd = moe_train_executor(ht, pm, pm.TOKENS, True, "cuda")
+    gd, _, dex, _ = moe_train_executor(ht, pm, pm.TOKENS, False, "cuda")
+    load_all(dex, sex.return_tensor_values())
+    fdd = {gd["x"]: fd[gs["x"]], gd["y"]: fd[gs["y"]]}
+    nv = len(wrt)
+    loss_err = grad_err = 0.0
+    for step in range(3):
+        a = [None if o is None else o.torch()
+             for o in sex.run("train", feed_dict=fd)]
+        b = [None if o is None else o.torch()
+             for o in dex.run("train", feed_dict=fdd)]
+        tos_s, tos_d = a[2 + nv], dense_token_of_slot(b[2 + nv])
+        if not torch.equal(tos_s, tos_d):
+            raise AssertionError(f"sparse vs dense routing differs at step "
+                                 f"{step + 1}: {int((tos_s != tos_d).sum())} "
+                                 f"slots")
+        la, lb = float(a[0]), float(b[0])
+        loss_err = max(loss_err, abs(la - lb) / abs(lb))
+        if not (math.isfinite(la) and abs(la - lb) <= MOE_LOSS_RTOL * abs(lb)):
+            raise AssertionError(f"sparse vs dense loss at step {step + 1}: "
+                                 f"{la} vs {lb}")
+        if step == 0:
+            for node, ga, gb in zip(wrt, a[2:2 + nv], b[2:2 + nv]):
+                grad_err = max(grad_err, float((ga - gb).abs().max()))
+                if not torch.allclose(ga, gb, rtol=MOE_GRAD_RTOL,
+                                      atol=MOE_GRAD_ATOL):
+                    raise AssertionError(
+                        f"sparse vs dense gradient of {node.name}: max err "
+                        f"{float((ga - gb).abs().max())}")
+    log(f"[moe-parity] sparse vs dense on the card, {pm.TOKENS} tokens, 3 Adam "
+        f"steps: routing equal every step; loss max rel err {loss_err:.3e} "
+        f"(rtol {MOE_LOSS_RTOL}); step-1 gradients of {nv} variables max abs "
+        f"err {grad_err:.3e} (rtol {MOE_GRAD_RTOL}, atol {MOE_GRAD_ATOL})")
+    for ex in (sex, dex):
+        ex.close()
+    del sex, dex, a, b, tos_d
+    torch.cuda.empty_cache()
+
+    # card vs CPU, the sparse graph cut to 1,024 tokens at full widths
+    g, wrt, card, fd = moe_train_executor(ht, pm, MOE_CPU_TOKENS, True,
+                                          "cuda")
+    gh, _, host, _ = moe_train_executor(ht, pm, MOE_CPU_TOKENS, True, "cpu")
+    load_all(host, card.return_tensor_values())
+    fdh = {gh["x"]: fd[g["x"]], gh["y"]: fd[g["y"]]}
+    wg_node = next(n for n, name in card.var_names.items()
+                   if name == "topk_gate.wg")
+    cap = g["gate"].capacity
+    loss_err = grad_err = 0.0
+    for step in range(3):
+        wg = card.var_values[wg_node].cpu().numpy().astype(np.float64)
+        got = card.run("train", feed_dict=fd, convert_to_numpy_ret_vals=True)
+        want = host.run("train", feed_dict=fdh,
+                        convert_to_numpy_ret_vals=True)
+        sot_c, sot_h = got[-1], want[-1]
+        if not (np.array_equal(got[-2], want[-2])
+                and np.array_equal(sot_c, sot_h)):
+            # a near tie between a token's top experts can flip one route
+            # between the devices: name each differing token's gate gaps
+            logits = fd[g["x"]].astype(np.float64) @ wg
+            p = np.exp(logits - logits.max(1, keepdims=True))
+            p = np.sort(p / p.sum(1, keepdims=True), axis=1)[:, ::-1]
+            ec = np.where(sot_c >= 0, sot_c // cap, -1)
+            eh = np.where(sot_h >= 0, sot_h // cap, -1)
+            diff = np.nonzero((ec != eh).any(1))[0]
+            gaps = [f"token {t}: p1-p2 {p[t, 0] - p[t, 1]:.3e}, p2-p3 "
+                    f"{p[t, 1] - p[t, 2]:.3e}" for t in diff[:20]]
+            raise AssertionError(
+                f"card vs CPU routing maps differ at step {step + 1}: "
+                f"{int((sot_c != sot_h).sum())} routes, expert choice of "
+                f"{diff.size} tokens; {'; '.join(gaps) or 'no expert flip'}")
+        gl, wl = float(got[0]), float(want[0])
+        loss_err = max(loss_err, abs(gl - wl) / abs(wl))
+        if not (math.isfinite(gl)
+                and abs(gl - wl) <= TRAIN_LOSS_RTOL * abs(wl)):
+            raise AssertionError(f"card vs CPU MoE loss at step {step + 1}: "
+                                 f"{gl} vs {wl}")
+        if step == 0:
+            for node, gc, gh_ in zip(wrt, got[2:], want[2:]):
+                grad_err = max(grad_err, float(np.max(np.abs(gc - gh_))))
+                if not np.allclose(gc, gh_, rtol=TRAIN_GRAD_RTOL,
+                                   atol=TRAIN_GRAD_ATOL):
+                    raise AssertionError(
+                        f"card vs CPU gradient of {node.name}: max err "
+                        f"{float(np.max(np.abs(gc - gh_)))}")
+    log(f"[moe-parity] card vs CPU, sparse graph, {MOE_CPU_TOKENS} tokens at "
+        f"full widths, 3 Adam steps: routing maps equal every step; loss max "
+        f"rel err {loss_err:.3e} (rtol {TRAIN_LOSS_RTOL}); step-1 gradients "
+        f"of {len(wrt)} variables max abs err {grad_err:.3e} (rtol "
+        f"{TRAIN_GRAD_RTOL}, atol {TRAIN_GRAD_ATOL})")
+    card.close()
+    host.close()
 
 def main():
     if not torch.cuda.is_available():
@@ -828,8 +1194,10 @@ def main():
     from hetu_tpu_torch.ops.kernels import _build
     from hetu_tpu_torch.ops.kernels import emb_cache as emb
     from hetu_tpu_torch.ops.kernels import flash_attention as fa
+    from hetu_tpu_torch.ops.kernels import moe_dispatch as md
     from hetu_tpu_torch.ops.kernels import segment_sum as seg
-    kmods = (fa, emb, seg)
+    from hetu_tpu_torch.tools import profile_moe as pm
+    kmods = (fa, emb, seg, md)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -845,6 +1213,7 @@ def main():
         fa.kernel(entry)
     emb.kernel()
     seg.kernel()
+    md.kernel()
     log(f"[build] all kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -939,7 +1308,16 @@ def main():
     # -- 10. device vs host cache, card vs CPU ------------------------------------------
     phase_ctr_parity(ht, metrics)
 
-    # -- 11. result lines ---------------------------------------------------------
+    # -- 11. MoE row gather vs plain -----------------------------------------------------
+    mline = phase_moe_kernels(ht, pm, md)
+
+    # -- 12. train the MoE configuration, sparse then dense -------------------------------
+    mlaunches = phase_moe_train(ht, pm, metrics, kmods, md)
+
+    # -- 13. sparse vs dense, card vs CPU ---------------------------------------------------
+    phase_moe_parity(ht, pm)
+
+    # -- 14. result lines ---------------------------------------------------------
     kernels = [{
         "name": "flash_fwd_lengths", "route": "cuda",
         "source": "hetu_tpu_torch/csrc/flash_attention.cu",
@@ -974,6 +1352,14 @@ def main():
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    kernels.append({
+        "name": "row_gather", "route": "cuda",
+        "source": "hetu_tpu_torch/csrc/moe_dispatch.cu",
+        "replaces": "hetu_tpu/ops/pallas/moe_dispatch.py:37",
+        "launches": mlaunches["row_gather"],
+        "max_abs_err": mline["max_abs_err"], "ms": mline["ms"],
+        "plain_ms": mline["plain_ms"], "bound_ms": mline["bound_ms"],
+        "bound_by": mline["bound_by"], "library_ms": mline["library_ms"]})
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,16 @@ kernel on a ported path is a hand-written kernel for the H100
 * training: BERT pretraining (MLM, MLM+NSP), ``bert_pretrain_graph`` →
   ``optim.AdamOptimizer(...).minimize(loss)`` → ``Executor`` →
   ``Executor.run``, attention forward and backward in the CUDA flash
-  kernels.
+  kernels;
+* CTR training through the HET embedding cache: Wide & Deep,
+  ``wdl_criteo(..., embed_mode="vlru_dev")`` → ``ps_embedding_lookup_op``
+  over ``DistCacheTable(device=True)`` → ``SGDOptimizer`` → ``Executor.run``,
+  the slab row gather and the grad segment-sum in CUDA kernels;
+* MoE training: GShard top-2 ``TopKGateSparse`` → ``SparseMoELayer``
+  (with ``Expert``) → ``AdamOptimizer`` → ``Executor.run``, the sparse
+  dispatch and combine, forward and backward, in the CUDA row-gather
+  kernel (the dense ``TopKGate`` → ``MoELayer`` graph runs on plain
+  products).
 
 Typical use (the shape of the JAX package's)::
 
@@ -30,15 +39,17 @@ from .context import cpu, gpu, resolve_device
 from .graph import (Executor, GradientOp, LowerCtx, Op, PlaceholderOp,
                     Variable, gradients, lower_forward, placeholder_op,
                     topo_sort)
-from .layers import DropOut, Embedding, LayerNorm, Linear, MultiHeadAttention
+from .layers import (DropOut, Embedding, Expert, LayerNorm, Linear,
+                     MoELayer, MultiHeadAttention, SparseMoELayer, TopKGate,
+                     TopKGateSparse)
 from .models import (BertConfig, GPT2Config, bert_model, bert_pooler,
                      bert_pretrain_graph, gpt2_decode_graph,
                      synthetic_criteo, synthetic_criteo_skewed,
                      synthetic_mlm_batch, wdl_criteo)
 from .ndarray import NDArray
 from .ops import (array_reshape_op, binarycrossentropy_op, broadcastto_op,
-                  concat_op, embedding_lookup_op, matmul_op, ne_op,
-                  reduce_mean_op, reduce_sum_op, relu_op, sdpa_masked_op,
+                  concat_op, einsum_op, embedding_lookup_op, matmul_op, mul_op,
+                  ne_op, reduce_mean_op, reduce_sum_op, relu_op, sdpa_masked_op,
                   sdpa_op, sigmoid_op, slice_op, softmaxcrossentropy_op,
                   softmaxcrossentropy_sparse_op, tanh_op, transpose_op)
 from .ps import (CacheSparseTable, DistCacheTable, EmbeddingStore,

@@ -107,6 +107,11 @@ class XavierUniformInit(GeneralXavierUniformInit):
         super().__init__(1.0, "avg")
 
 
+class HeUniformInit(GeneralXavierUniformInit):
+    def __init__(self):
+        super().__init__(2.0, "fan_in")
+
+
 class XavierNormalInit(BaseInit):
     """Normal(0, sqrt(1 / fan_avg)), as the JAX package's
     ``XavierNormalInit`` (gain 1, mode "avg")."""
@@ -128,6 +133,10 @@ def ones(shape, name=None, trainable=True, ctx=None):
 
 def xavier_uniform(shape, name=None, trainable=True, ctx=None):
     return XavierUniformInit()(shape, name=name, trainable=trainable)
+
+
+def he_uniform(shape, name=None, trainable=True, ctx=None):
+    return HeUniformInit()(shape, name=name, trainable=trainable)
 
 
 def truncated_normal(shape, mean=0.0, stddev=1.0, name=None, trainable=True,

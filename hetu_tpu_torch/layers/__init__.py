@@ -2,3 +2,5 @@
 from .base import BaseLayer
 from .core import Linear, LayerNorm, Embedding, DropOut
 from .attention import MultiHeadAttention
+from .gates import TopKGate, TopKGateSparse
+from .moe_layer import Expert, MoELayer, SparseMoELayer

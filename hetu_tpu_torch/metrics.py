@@ -12,6 +12,9 @@ Families:
   kernel, by reason (``gather:backend:cpu``, ``scatter_add:backend:cpu``);
   the twin of the JAX package's ``emb_pallas_fallbacks``, with the same
   rule as flash: a CUDA tensor never records.
+* ``moe_fallbacks`` — sparse MoE dispatches (``dispatch:backend:cpu``,
+  ``combine:backend:cpu``) that took the plain row gather instead of the
+  CUDA kernel; a CUDA tensor never records.
 * ``cache`` — HET embedding-cache events (``emb_cache_hit_rows``,
   ``emb_cache_miss_rows``, ``emb_cache_evict_rows``,
   ``emb_cache_push_rows``, ``emb_cache_push_rpcs``,
@@ -107,6 +110,23 @@ def emb_fallback_counts():
 
 def reset_emb_fallbacks():
     _REGISTRY.reset("emb_fallbacks")
+
+
+# --------------------------------------------------------- MoE fallbacks
+
+def record_moe_fallback(reason):
+    """Count one sparse MoE dispatch or combine that took the plain
+    gather."""
+    _REGISTRY.record("moe_fallbacks", reason)
+
+
+def moe_fallback_counts():
+    """{reason: count} snapshot of recorded MoE-gather fallbacks."""
+    return _REGISTRY.counts("moe_fallbacks")
+
+
+def reset_moe_fallbacks():
+    _REGISTRY.reset("moe_fallbacks")
 
 
 # ------------------------------------------------------ embedding cache

@@ -54,3 +54,21 @@ def def_op(op_type, lower_fn):
     ctor.__name__ = op_type
     OP_REGISTRY[op_type] = ctor
     return ctor
+
+
+class ItemOp(Op):
+    """Extract one output of a multi-output op (tuple-valued lowering)."""
+
+    op_type = "Item"
+
+    def __init__(self, src, index, name=None):
+        super().__init__([src], name=name)
+        self.index = index
+
+    def lower(self, ctx, val):
+        return val[self.index]
+
+
+def tuple_outputs(node, n):
+    """Split a tuple-valued node into n single-output nodes."""
+    return tuple(ItemOp(node, i, name=f"{node.name}.{i}") for i in range(n))

@@ -7,7 +7,7 @@ points set it explicitly).
 """
 import torch
 
-from .base import def_op
+from .base import SimpleOp, def_op
 
 
 def _t(x):
@@ -31,3 +31,12 @@ def _linear(c, a, b, bias, trans_A=False, trans_B=False):
 
 
 linear_op = def_op("Linear", _linear)
+
+
+def einsum_op(subscripts, *nodes, name=None):
+    """General einsum node (``torch.einsum``; the MoE experts' batched
+    products)."""
+    return SimpleOp("Einsum", list(nodes),
+                    lambda c, *vals, subscripts=None: torch.einsum(
+                        subscripts, *vals),
+                    name=name, subscripts=subscripts)

@@ -40,6 +40,7 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "import hetu_tpu_torch.ops.kernels.flash_attention\n"
             "import hetu_tpu_torch.ops.kernels._build\n"
             "import hetu_tpu_torch.tools.profile_train\n"
+            "import hetu_tpu_torch.tools.profile_moe\n"
             "assert sys.modules['jax'] is None\n"
             "print(hetu_tpu_torch.GPT2Config.small().n_layer)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -157,5 +158,6 @@ def test_build_paths_stay_inside_the_package():
     assert lib.startswith(os.path.join(PKG, "_build") + os.sep)
     assert os.path.exists(_build.source_path("flash_attention"))
     assert _build.sources() == ["emb_cache", "flash_attention",
-                                "flash_attention_bwd", "segment_sum"]
+                                "flash_attention_bwd", "moe_dispatch",
+                                "segment_sum"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -11,7 +11,9 @@ Tolerance: atol 1e-5 in float32 — kernel and plain version sum in
 different orders.  The embedding-cache kernels: the slab row gather is a
 copy and must match exactly; the segment-sum must match its plain version
 (``index_add_``, atomics on the card) within rtol 2e-5 / atol 1e-6 and the
-host cache's ``_segment_sum`` exactly."""
+host cache's ``_segment_sum`` exactly.  The MoE row gather is a copy with
+zero rows and must match exactly; so must the sparse dispatch and combine
+built from it, forward and backward, kernel against plain gather."""
 import os
 import sys
 
@@ -23,7 +25,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from hetu_tpu_torch.ops.kernels import emb_cache as emb  # noqa: E402
+from hetu_tpu_torch.ops import moe as tmoe  # noqa: E402
 from hetu_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
+from hetu_tpu_torch.ops.kernels import moe_dispatch as md  # noqa: E402
 from hetu_tpu_torch.ops.kernels import segment_sum as seg  # noqa: E402
 from hetu_tpu_torch.ps.dist_store import _segment_sum  # noqa: E402
 
@@ -195,3 +199,57 @@ def test_segment_sum_kernel_matches_plain_and_host(cuda, n, w, kind):
         assert np.array_equal(host[:uk.size], _segment_sum(g, inv, cnt))
         assert not host[uk.size:].any()
         assert torch.equal(out, emb.scatter_add_grads(gg, ii))  # run to run
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,rows", [(20480, 512, 8192), (8192, 512, 20480),
+                                      (37, 13, 20), (1, 4, 1), (0, 16, 8),
+                                      (100, 16, 0)])
+def test_row_gather_kernel_matches_plain_version(cuda, n, m, rows):
+    rng = np.random.RandomState(n + m)
+    src = torch.from_numpy(rng.randn(rows, m).astype(np.float32)).to(cuda)
+    idx = rng.randint(-1, rows, n) if rows else np.full(n, -1)
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    before = md.launches
+    out = md.row_gather(src, idx)
+    ref = md.row_gather_plain(src, idx)
+    torch.cuda.synchronize()
+    assert md.launches == before + (1 if n else 0)
+    assert out.shape == (n, m) and torch.equal(out, ref)
+    assert not out[idx < 0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2])
+def test_sparse_dispatch_and_combine_kernel_equals_plain(cuda, k):
+    """Forward and backward of both autograd functions, the kernel's
+    gather against the plain one on the same card: bit for bit (every
+    direction is a gather, no scatter and no atomics).  3k + 2 launches."""
+    rng = np.random.RandomState(k)
+    s, d, e = 1024, 64, 8
+    cap = int(np.ceil(k * 1.25 * s / e))
+    logits = torch.from_numpy(
+        (rng.randn(s, e) + np.linspace(1, -1, e)).astype(np.float32)).to(cuda)
+    tos, sot, kos, gate_w, _ = tmoe._topk_sparse_indices(logits, k, cap)
+    assert bool((tos < 0).any())
+    x = torch.from_numpy(rng.randn(s, d).astype(np.float32)).to(cuda)
+    w1 = torch.from_numpy((rng.randn(d, d) * 0.1).astype(np.float32)).to(cuda)
+    gw = gate_w.detach()
+    g_out = torch.from_numpy(rng.randn(s, d).astype(np.float32)).to(cuda)
+
+    def run(gather):
+        xx, ww, gg = (t.clone().requires_grad_(True) for t in (x, w1, gw))
+        buf = md.sparse_dispatch(xx, tos, sot, gather=gather)
+        out = md.sparse_combine(torch.tanh(buf @ ww), gg, sot, tos, kos,
+                                gather=gather)
+        grads = torch.autograd.grad(out, (xx, ww, gg), g_out)
+        return (buf, out) + grads
+
+    before = md.launches
+    got = run(md.row_gather)
+    assert md.launches == before + 3 * k + 2
+    want = run(md.row_gather_plain)
+    torch.cuda.synchronize()
+    for a, b, name in zip(got, want, ("buffers", "out", "d_tokens", "d_w1",
+                                      "d_gate_w")):
+        assert torch.equal(a, b), (name, float((a - b).abs().max()))
