@@ -85,7 +85,39 @@ without printing the final result line:
     Adam steps: routing maps equal (a differing route stops the phase with
     the tokens' gate gaps), losses within rtol 1e-4, step-1 gradients
     within ``allclose(rtol=1e-3, atol=1e-5)``.
-14. Print the card's name and power limit, the ``kernels`` JSON line and,
+14. Hold the causal kernels (forward, dQ, dK/dV) and the full-mask forward
+    against their plain versions at GPT-2 small attention shapes (B=8,
+    H=12, S=1024, D=64): causal; causal with a key mask (one batch row
+    fully masked); the unequal and ragged (S_q, S_kv) pairs (200, 200),
+    (64, 200), (200, 64), (1, 130); the full mask at the chunked-prefill
+    shape (C=32 queries against a 512-row cache, the mask of real
+    ``positions``, group ``b``) and one case per other group mode, each
+    with a fully masked row.  Time each kernel, its plain version, the
+    SDPA yardstick (``is_causal=True``; ``attn_mask=``) and the bound (a
+    causal kernel's operations count the visible (row, key) pairs only).
+15. Train GPT-2 small (published widths: 12 layers, 768 wide, 12 heads,
+    vocab 50257; seq 1024, batch 8, dropout 0.1, ``synthetic_lm_batch``)
+    with ``AdamOptimizer(1e-4)`` through ``Executor.run``: 2 warm-up steps,
+    then 10 counted steps with every launch counter set to 0 just before
+    and read just after (the causal forward, dQ and dK/dV: steps x 12
+    launches each; no ``backend:`` fallback; the loss falls).
+16. Train the same widths cut to 2 layers (seq 128, batch 4, dropout 0) on
+    the card and on the CPU from the same weights for 3 Adam steps; the
+    losses and the step-1 gradients of every variable must agree.
+17. Serve the weights trained in phase 15, carried by name
+    (``params_from_named_arrays(ex.return_tensor_values())``), through a
+    chunked-prefill ``DecodeEngine`` (``max_chunk`` 32) and through a
+    one-token engine, each behind ``DecodeRouter``: the 8 prompts of phase
+    3, 32 new tokens each.  Counters set to 0 just before the chunked run
+    and read just after: full-mask launches = prefill steps x 12,
+    ``lengths`` launches = (decode steps - prefill steps) x 12, both
+    nonzero, no ``backend:`` fallback, prefill steps saved > 0.  Logits of
+    one 300-token prompt at every chunk end and the KV caches, chunked
+    against token by token on the card and chunked on the card against
+    chunked on the CPU, within ``LOGITS_ATOL``.  The greedy streams of the
+    two engines must be equal; one may differ only from a step at which
+    the one-token path's top-2 logit gap is below 2 x ``LOGITS_ATOL``.
+18. Print the card's name and power limit, the ``kernels`` JSON line and,
     last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32:
@@ -97,6 +129,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -138,6 +171,9 @@ TRAIN_BATCH, TRAIN_SEQ, WARMUP, STEPS = 16, 512, 2, 10
 CTR_BATCH, CTR_VOCAB, CTR_DIM, CTR_WARMUP, CTR_STEPS = 2048, 100000, 16, 3, 20
 # GShard MoE (bench.py's MoE configuration); the card-vs-CPU cut
 MOE_WARMUP, MOE_STEPS, MOE_PROFILED, MOE_CPU_TOKENS = 3, 20, 5, 1024
+# GPT-2 small training step; the chunked-prefill kernel shape
+GPT_BATCH, GPT_SEQ, GPT_WARMUP, GPT_STEPS = 8, 1024, 2, 10
+PREFILL_CHUNK, PREFILL_CACHE = 32, 512
 # row-gather launches of one top-2 training step: the dispatch (1), the
 # combine (2), its backward (2 for d_w, 1 for d_buffers); the tokens are
 # a feed, so autograd runs no dispatch backward
@@ -299,22 +335,22 @@ def teacher_forced_logits(engine, tokens):
     return np.stack(out)
 
 
-def train_bound(kind, bh, heads, s, d, valid_keys):
-    """Least time for one training kernel's function on these inputs.
-    Bytes: each input read once, each output written once (float32
-    q/k/v/dO/out/dQ/dK/dV rows, lse and delta per row, int32 key mask
-    when given).  Operations: 4 (forward), 6 (dQ: s, dP, dQ) or 8 (dK/dV:
-    s, dP, dV, dK) x S_q x D per valid (row, key) pair, ``valid_keys``
-    being the valid keys summed over the batch rows.  Returns (ms,
-    'bytes' | 'operations')."""
-    mat, row = bh * s * d, bh * s
-    mask = 0 if valid_keys is None else (bh // heads) * s
-    keys = (bh // heads) * s if valid_keys is None else valid_keys
-    words = {"fwd": 3 * mat + mask + mat + row,             # q k v m → o lse
-             "dq": 4 * mat + mask + 2 * row + mat,          # + dO lse δ → dQ
-             "dkv": 4 * mat + mask + 2 * row + 2 * mat}[kind]
-    flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * float(keys) * heads * s * d
-    t_bytes, t_ops = 4 * words / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+def attn_bound(kind, bh, s_q, s_kv, d, pairs, extra_bytes=0, kv_rows=None):
+    """Least time for one attention kernel's function on these inputs.
+    Bytes: each input read once, each output written once (float32 q /
+    dO / out / dQ rows of S_q, k / v / dK / dV rows of S_kv or, with
+    ``kv_rows``, only the K/V rows some query can see; lse and delta per
+    row; ``extra_bytes`` of masks).  Operations: 4 (forward), 6 (dQ: s,
+    dP, dQ) or 8 (dK/dV: s, dP, dV, dK) x D per visible (row, key) pair.
+    Returns (ms, 'bytes' | 'operations')."""
+    qmat, row = bh * s_q * d, bh * s_q
+    kmat = bh * s_kv * d if kv_rows is None else kv_rows * d
+    words = {"fwd": qmat + 2 * kmat + qmat + row,
+             "dq": 2 * qmat + 2 * kmat + 2 * row + qmat,
+             "dkv": 2 * qmat + 2 * kmat + 2 * row + 2 * kmat}[kind]
+    flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * float(pairs) * d
+    t_bytes = (4 * words + extra_bytes) / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -395,7 +431,9 @@ def phase_train_kernels(ht, fa):
             flush=flush)
         lib_bwd = time_ms(lambda: torch.autograd.grad(
             lib_out, (q4, k4, v4), do4, retain_graph=True), flush=flush)
-        valid = None if km is None else int(km.sum())
+        # visible (row, key) pairs: every row sees the valid keys
+        pairs = (TB * s if km is None else int(km.sum())) * H * s
+        extra = 0 if km is None else 4 * km.numel()
         row = {
             "fwd": {"ms": time_ms(lambda: fa.flash_fwd_masked(
                         q, k, v, km, scale), flush=flush),
@@ -413,8 +451,8 @@ def phase_train_kernels(ht, fa):
                         q, k, v, km, out, lse, do, scale), flush=flush),
                     "library_ms": lib_bwd}}
         for kk, r in row.items():
-            r["bound_ms"], r["bound_by"] = train_bound(kk, TB * H, H, s, D,
-                                                       valid)
+            r["bound_ms"], r["bound_by"] = attn_bound(kk, TB * H, s, s, D,
+                                                      pairs, extra)
         log(f"[train-kernels] {name} timing {json.dumps(row)}")
         if name == "key_mask":
             lines = row
@@ -1183,6 +1221,505 @@ def phase_moe_parity(ht, pm):
     card.close()
     host.close()
 
+# -- GPT-2: causal kernels, training, chunked-prefill serving ----------------------
+
+def visible_pairs(bh, heads, s_q, s_kv, causal=False, key_mask=None,
+                  mask=None, gmode=None):
+    """Visible (row, key) pairs summed over the BH rows, counted from the
+    inputs themselves: the work a masked attention function has to do."""
+    valid = torch.ones(bh, s_q, s_kv, dtype=torch.bool, device="cuda")
+    if causal:
+        valid = valid.tril(s_kv - s_q)
+    if key_mask is not None:
+        valid &= (key_mask != 0).repeat_interleave(heads, dim=0)[:, None, :]
+    if mask is not None:
+        m = mask != 0
+        valid &= {"one": lambda: m.expand(bh, s_q, s_kv),
+                  "h": lambda: m.repeat(bh // heads, 1, 1),
+                  "b": lambda: m.repeat_interleave(heads, dim=0),
+                  "bh": lambda: m}[gmode]()
+    return int(valid.sum())
+
+
+def phase_causal_kernels(fa):
+    """The causal forward / dQ / dK/dV kernels and the full-mask forward vs
+    their plain versions at GPT-2 small attention shapes; times.  Returns
+    the kernels-line entries {fwd, dq, dkv, mask} with the worst error
+    over all cases."""
+    F = torch.nn.functional
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush = flush_buf.zero_
+    scale = 1.0 / math.sqrt(D)
+    rng = np.random.RandomState(15)
+    bh = GPT_BATCH * H
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+
+    km_np = (rng.rand(GPT_BATCH, GPT_SEQ) < 0.8).astype(np.int32)
+    km_np[:, 0] = 1
+    km_np[-1] = 0                          # a batch row with every key masked
+    cases = [("causal", GPT_SEQ, GPT_SEQ, None),
+             ("causal+key_mask", GPT_SEQ, GPT_SEQ, km_np),
+             ("causal ragged", 200, 200, None),
+             ("causal S_q<S_kv", 64, 200, None),
+             ("causal S_q>S_kv", 200, 64, None),
+             ("causal one row", 1, 130, None)]
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "mask": 0.0}
+    lines = {}
+    for name, s_q, s_kv, mask in cases:
+        q, do = t(bh, s_q, D), t(bh, s_q, D)
+        k, v = t(bh, s_kv, D), t(bh, s_kv, D)
+        km = None if mask is None else torch.from_numpy(mask).cuda()
+        out, lse = fa.flash_fwd_masked(q, k, v, km, scale, causal=True)
+        ref, lse_ref = fa.flash_fwd_plain(q, k, v, None, H, scale,
+                                          key_mask=km, causal=True)
+        delta = (do * out).sum(-1)
+        dq = fa.flash_bwd_dq(q, k, v, km, do, lse, delta, scale, causal=True)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, km, do, lse, delta, scale,
+                                  causal=True)
+        dq_r, dk_r, dv_r = fa.flash_bwd_plain(q, k, v, km, out, lse, do,
+                                              scale, causal=True)
+        torch.cuda.synchronize()
+        err = {"fwd": max(float((out - ref).abs().max()),
+                          float((lse - lse_ref).abs().max())),
+               "dq": float((dq - dq_r).abs().max()),
+               "dkv": max(float((dk - dk_r).abs().max()),
+                          float((dv - dv_r).abs().max()))}
+        if not err["fwd"] <= KERNEL_ATOL:
+            raise AssertionError(f"causal fwd vs plain ({name}): {err}")
+        for got, want, what in ((dq, dq_r, "dq"), (dk, dk_r, "dk"),
+                                (dv, dv_r, "dv")):
+            if not (bool(torch.isfinite(got).all())
+                    and torch.allclose(got, want, rtol=GRAD_RTOL,
+                                       atol=GRAD_ATOL)):
+                raise AssertionError(
+                    f"causal {what} vs plain ({name}): max err "
+                    f"{float((got - want).abs().max())}")
+        empty = max(0, s_q - s_kv)         # rows that see no key
+        if empty and (float(out[:, :empty].abs().max()) != 0.0
+                      or float(dq[:, :empty].abs().max()) != 0.0
+                      or not bool((lse[:, :empty] == fa.NEG_INF).all())):
+            raise AssertionError(f"{name}: rows with no visible key are not "
+                                 f"out = dQ = 0, lse = -1e30")
+        if km is not None:
+            dead = slice((GPT_BATCH - 1) * H, bh)
+            if float(out[dead].abs().max()) != 0.0 \
+                    or float(dq[dead].abs().max()) != 0.0:
+                raise AssertionError(f"{name}: fully masked batch row: "
+                                     f"out / dQ not 0")
+        for kk in err:
+            worst[kk] = max(worst[kk], err[kk])
+        log(f"[causal-kernels] {name} B={GPT_BATCH} H={H} S_q={s_q} "
+            f"S_kv={s_kv} D={D} max_abs_err fwd={err['fwd']:.3e} "
+            f"dq={err['dq']:.3e} dkv={err['dkv']:.3e}; max |dq| "
+            f"{float(dq_r.abs().max()):.3e} |dk| "
+            f"{float(dk_r.abs().max()):.3e} |dv| "
+            f"{float(dv_r.abs().max()):.3e}")
+        if s_q != GPT_SEQ:
+            continue
+        # timings at the training shape, each launch with the L2 flushed
+        q4, k4, v4 = (x.view(GPT_BATCH, H, -1, D).detach()
+                      .requires_grad_(True) for x in (q, k, v))
+        smask = None if km is None else \
+            ((km != 0).view(GPT_BATCH, 1, 1, s_kv)
+             & torch.ones(s_q, s_kv, dtype=torch.bool,
+                          device="cuda").tril())
+        sdpa_kw = {"is_causal": True} if km is None else {"attn_mask": smask}
+        with torch.enable_grad():
+            lib_out = F.scaled_dot_product_attention(q4, k4, v4, **sdpa_kw)
+        do4 = do.view(GPT_BATCH, H, s_q, D)
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            q4.detach(), k4.detach(), v4.detach(), **sdpa_kw), flush=flush)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            lib_out, (q4, k4, v4), do4, retain_graph=True), flush=flush)
+        plain_bwd = time_ms(lambda: fa.flash_bwd_plain(
+            q, k, v, km, out, lse, do, scale, causal=True), flush=flush)
+        row = {
+            "fwd": {"ms": time_ms(lambda: fa.flash_fwd_masked(
+                        q, k, v, km, scale, causal=True), flush=flush),
+                    "plain_ms": time_ms(lambda: fa.flash_fwd_plain(
+                        q, k, v, None, H, scale, key_mask=km, causal=True),
+                        flush=flush),
+                    "library_ms": lib_fwd},
+            "dq": {"ms": time_ms(lambda: fa.flash_bwd_dq(
+                       q, k, v, km, do, lse, delta, scale, causal=True),
+                       flush=flush),
+                   "plain_ms": plain_bwd, "library_ms": lib_bwd},
+            "dkv": {"ms": time_ms(lambda: fa.flash_bwd_dkv(
+                        q, k, v, km, do, lse, delta, scale, causal=True),
+                        flush=flush),
+                    "plain_ms": plain_bwd, "library_ms": lib_bwd}}
+        pairs = visible_pairs(bh, H, s_q, s_kv, causal=True, key_mask=km)
+        extra = 0 if km is None else 4 * km.numel()
+        for kk, r in row.items():
+            r["bound_ms"], r["bound_by"] = attn_bound(kk, bh, s_q, s_kv, D,
+                                                      pairs, extra)
+            r["visible_pairs"] = pairs
+        log(f"[causal-kernels] {name} timing (library = SDPA "
+            f"{'is_causal' if km is None else 'attn_mask'}; its backward "
+            f"is one call for dQ, dK and dV) {json.dumps(row)}")
+        if name == "causal":
+            lines.update(row)
+        del lib_out, q4, k4, v4
+
+    # -- the full-mask forward
+    C, L = PREFILL_CHUNK, PREFILL_CACHE
+    pos = rng.randint(0, L - C + 1, size=GPT_BATCH).astype(np.int32)
+    pos[0], pos[1] = 0, L - C              # the emptiest and the fullest row
+    positions = torch.from_numpy(pos).cuda()
+    lengths = positions[:, None] + 1 + torch.arange(C, device="cuda")[None, :]
+    real = (torch.arange(L, device="cuda")[None, None, :]
+            < lengths[:, :, None])                           # (B, C, L)
+    fcases = [("prefill, group b", "b", C, L, real.clone())]
+    for gmode, s_q, s_kv in (("one", 77, 130), ("h", 32, 512),
+                             ("bh", 64, 200), ("b", 1, 65)):
+        g = fa._group_rows(gmode, bh, H)
+        m = torch.from_numpy(rng.rand(g, s_q, s_kv) < 0.6).cuda()
+        fcases.append((f"random, group {gmode}", gmode, s_q, s_kv, m))
+    for name, gmode, s_q, s_kv, m in fcases:
+        if not name.startswith("prefill"):
+            m[0, 0] = False                # a row with every key masked
+        mask = m.to(torch.uint8).contiguous()
+        q = t(bh, s_q, D)
+        k, v = t(bh, s_kv, D), t(bh, s_kv, D)
+        before = fa.fwd_mask_launches
+        out, lse = fa.flash_fwd_fullmask(q, k, v, mask, gmode, H, scale)
+        ref, lse_ref = fa.flash_fwd_plain(q, k, v, None, H, scale, mask=mask,
+                                          gmode=gmode)
+        torch.cuda.synchronize()
+        if fa.fwd_mask_launches != before + 1:
+            raise AssertionError(f"full-mask forward ({name}) did not launch")
+        err = max(float((out - ref).abs().max()),
+                  float((lse - lse_ref).abs().max()))
+        if not err <= KERNEL_ATOL:
+            raise AssertionError(f"full-mask fwd vs plain ({name}): {err}")
+        if not name.startswith("prefill") and (
+                float(out[0, 0].abs().max()) != 0.0
+                or float(lse[0, 0]) != float(np.float32(fa.NEG_INF))):
+            raise AssertionError(f"{name}: the fully masked row is not "
+                                 f"out = 0, lse = -1e30")
+        worst["mask"] = max(worst["mask"], err)
+        log(f"[causal-kernels] full mask {name} B={GPT_BATCH} H={H} "
+            f"S_q={s_q} S_kv={s_kv} D={D} max_abs_err={err:.3e}")
+        if not name.startswith("prefill"):
+            continue
+        q4, k4, v4 = (x.view(GPT_BATCH, H, -1, D) for x in (q, k, v))
+        smask = m.view(GPT_BATCH, 1, s_q, s_kv)
+        row = {"ms": time_ms(lambda: fa.flash_fwd_fullmask(
+                   q, k, v, mask, gmode, H, scale), flush=flush),
+               "plain_ms": time_ms(lambda: fa.flash_fwd_plain(
+                   q, k, v, None, H, scale, mask=mask, gmode=gmode),
+                   flush=flush),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   q4, k4, v4, attn_mask=smask), flush=flush)}
+        pairs = visible_pairs(bh, H, s_q, s_kv, mask=m, gmode=gmode)
+        # K/V rows that some query of the chunk sees: below positions + C
+        kv_rows = int((pos + C).sum()) * H
+        row["bound_ms"], row["bound_by"] = attn_bound(
+            "fwd", bh, s_q, s_kv, D, pairs, extra_bytes=mask.numel(),
+            kv_rows=kv_rows)
+        row["visible_pairs"] = pairs
+        log(f"[causal-kernels] full mask {name} positions={pos.tolist()} "
+            f"timing (library = SDPA attn_mask) {json.dumps(row)}")
+        lines["mask"] = row
+    for kk in lines:
+        lines[kk]["max_abs_err"] = worst[kk]
+    return lines
+
+
+def gpt2_step_flops(cfg):
+    """Model FLOPs of one causal-LM training step (forward + backward = 3 x
+    the forward's): matrix products 6 x tokens x (layers x (4 h^2 + 8 h^2)
+    + h V) for the 12 blocks' q/k/v/o and MLP and ``lm_head``; attention
+    6 x B x heads x S^2 x (h / heads) per layer, two S x S products with
+    the causal half of the pairs counted."""
+    h, v, n = cfg.n_embd, cfg.vocab_size, cfg.n_layer
+    s, b = cfg.seq_len, cfg.batch_size
+    dense = n * 12 * h * h + h * v
+    attn = 6.0 * b * cfg.n_head * s * s * (h // cfg.n_head) * n
+    return 6.0 * b * s * dense + attn
+
+
+def phase_gpt2_train(ht, fa, metrics, kmods):
+    """GPT-2 small causal-LM training steps through Executor.run on the
+    card.  Returns (launches, the trained weights by name)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()     # what earlier phases still hold
+    cfg = ht.GPT2Config.small(batch_size=GPT_BATCH, seq_len=GPT_SEQ)
+    feeds, loss, _ = ht.gpt2_lm_graph(cfg)
+    train_op = ht.optim.AdamOptimizer(1e-4).minimize(loss)
+    t0 = time.perf_counter()
+    ex = ht.Executor({"train": [loss, train_op]}, seed=0, device="cuda")
+    log(f"[gpt2-train] GPT-2 small executor built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ids, labels = ht.synthetic_lm_batch(cfg, seed=0)
+    fd = {feeds["input_ids"]: ids, feeds["labels"]: labels}
+    losses = []
+    for _ in range(GPT_WARMUP):
+        losses.append(float(ex.run("train", feed_dict=fd)[0].asnumpy()))
+    torch.cuda.synchronize()
+    reset_launches(*kmods)
+    metrics.reset_flash_fallbacks()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(GPT_STEPS):
+        t0 = time.perf_counter()
+        out = ex.run("train", feed_dict=fd)
+        losses.append(float(out[0].asnumpy()))     # waits for the step
+        times.append(time.perf_counter() - t0)
+    launches = {"flash_fwd_causal": fa.fwd_causal_launches,
+                "flash_bwd_dq_causal": fa.dq_causal_launches,
+                "flash_bwd_dkv_causal": fa.dkv_causal_launches}
+    others = {name: n for m in kmods for name, n in vars(m).items()
+              if name.endswith("launches") and n
+              and not (m is fa and name.endswith("causal_launches"))}
+    fallbacks = metrics.flash_fallback_counts()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite GPT-2 training loss: {losses}")
+    if not losses[-1] < losses[GPT_WARMUP]:
+        raise AssertionError(f"GPT-2 loss did not fall over the counted "
+                             f"steps: {losses}")
+    want = GPT_STEPS * cfg.n_layer
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"causal kernel launches {launches} != steps "
+                             f"{GPT_STEPS} x layers {cfg.n_layer}")
+    if others:
+        raise AssertionError(f"other kernels launched: {others}")
+    left = {r: n for r, n in fallbacks.items() if r.startswith("backend:")}
+    if left:
+        raise AssertionError(f"attention left the kernels: {left}")
+    ms = np.asarray(times) * 1e3
+    tokens = cfg.batch_size * cfg.seq_len
+    flops = gpt2_step_flops(cfg)
+    report = {
+        "batch": cfg.batch_size, "seq": cfg.seq_len, "steps": GPT_STEPS,
+        "losses": losses, "step_ms_p50": float(np.percentile(ms, 50)),
+        "step_ms_p99": float(np.percentile(ms, 99)),
+        "step_ms_mean": float(ms.mean()),
+        "tokens_per_s": tokens / (ms.mean() / 1e3),
+        "model_tflop_per_step": flops / 1e12,
+        "mfu_fp32": flops / (ms.mean() / 1e3) / PEAK_FP32_FLOPS,
+        "peak_mem_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+        "launches": launches, "card": card_line()}
+    log(f"[gpt2-train] {json.dumps(report)}")
+    weights = ex.return_tensor_values()
+    ex.close()
+    del ex, out
+    torch.cuda.empty_cache()
+    return launches, weights
+
+
+def phase_gpt2_train_parity(ht):
+    """GPT-2 small widths cut to 2 layers: card vs CPU over 3 Adam steps
+    from the same weights; losses and step-1 gradients agree."""
+    cfg = ht.GPT2Config.small(n_layer=2, batch_size=4, seq_len=128,
+                              resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0)
+    feeds, loss, _ = ht.gpt2_lm_graph(cfg)
+    wrt = [n for n in ht.topo_sort([loss])
+           if isinstance(n, ht.PlaceholderOp) and n.is_variable
+           and n.trainable]
+    grads = ht.gradients(loss, wrt)
+    train_op = ht.optim.AdamOptimizer(1e-4).minimize(loss)
+    fetches = {"train": [loss, train_op] + grads}
+    card = ht.Executor(fetches, seed=0, device="cuda")
+    host = ht.Executor(fetches, seed=0, device="cpu")
+    load_all(host, card.return_tensor_values())
+    ids, labels = ht.synthetic_lm_batch(cfg, seed=0)
+    labels = labels.copy()
+    labels[:, -7:] = -1                   # ignored positions
+    fd = {feeds["input_ids"]: ids, feeds["labels"]: labels}
+    loss_err, grad_err = 0.0, 0.0
+    for step in range(3):
+        got = card.run("train", feed_dict=fd, convert_to_numpy_ret_vals=True)
+        want = host.run("train", feed_dict=fd,
+                        convert_to_numpy_ret_vals=True)
+        gl, wl = float(got[0]), float(want[0])
+        loss_err = max(loss_err, abs(gl - wl) / abs(wl))
+        if not (math.isfinite(gl) and abs(gl - wl) <= TRAIN_LOSS_RTOL * abs(wl)):
+            raise AssertionError(f"card vs CPU GPT-2 loss at step "
+                                 f"{step + 1}: {gl} vs {wl}")
+        if step == 0:
+            for node, g, w in zip(wrt, got[2:], want[2:]):
+                grad_err = max(grad_err, float(np.max(np.abs(g - w))))
+                if not np.allclose(g, w, rtol=TRAIN_GRAD_RTOL,
+                                   atol=TRAIN_GRAD_ATOL):
+                    raise AssertionError(
+                        f"card vs CPU gradient of {node.name}: max err "
+                        f"{float(np.max(np.abs(g - w)))}")
+    log(f"[gpt2-train-parity] card vs CPU, {cfg.n_layer} layers, 3 Adam "
+        f"steps: loss max rel err {loss_err:.3e} (rtol {TRAIN_LOSS_RTOL}); "
+        f"step-1 gradients of {len(wrt)} variables max abs err "
+        f"{grad_err:.3e} (rtol {TRAIN_GRAD_RTOL}, atol {TRAIN_GRAD_ATOL})")
+    card.close()
+    host.close()
+
+
+def chunked_teacher_forced(engine, tokens, chunk):
+    """One sequence through the engine's chunked step at batch 1 in pieces
+    of ``chunk`` tokens: ({position of each piece's last token: logits},
+    the caches)."""
+    iex, fk = engine.ciex, engine._cfk
+    fn = iex.compiled(1)
+    L = next(b for b in engine.len_ladder if b >= len(tokens) + chunk)
+    caches = {n: engine._alloc(1, L) for n in engine.cache_names}
+    out = {}
+    for t in range(0, len(tokens), chunk):
+        piece = tokens[t:t + chunk]
+        ids = np.zeros((1, chunk), np.int32)
+        ids[0, :len(piece)] = piece
+        feeds = {
+            fk["input_ids"]: torch.from_numpy(ids).to(engine.device),
+            fk["positions"]: torch.tensor([t], dtype=torch.int32,
+                                          device=engine.device),
+            fk["valid"]: torch.tensor([len(piece)], dtype=torch.int32,
+                                      device=engine.device)}
+        feeds.update({fk[n]: caches[n] for n in engine.cache_names})
+        out[t + len(piece) - 1] = fn(iex.params, feeds)[0][0].cpu().numpy()
+    return out, caches
+
+
+def serve_streams(ht, metrics, kmods, engine, prompts):
+    """The prompts through ``DecodeRouter``; counters set to 0 just before
+    and read just after.  Returns (token streams, report)."""
+    with ht.DecodeRouter(engine, queue_limit=len(prompts)) as router:
+        # warm-up (cuBLAS handles, allocator) before the counted run
+        router.submit(prompts[1][:40], max_new_tokens=2).result(timeout=300)
+        torch.cuda.synchronize()
+        reset_launches(*kmods)
+        metrics.reset_decode_counts()
+        metrics.reset_flash_fallbacks()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        streams = [router.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+        results = [s.result(timeout=900) for s in streams]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = metrics.decode_counts()
+    lat = metrics.decode_latency_stats()
+    n_tok = counts.get("decode_tokens", 0)
+    report = {k: counts.get(k, 0) for k in (
+        "decode_steps", "decode_prefill_steps", "decode_prefill_steps_saved",
+        "decode_prefill_rows", "decode_logits_skipped")}
+    report.update({
+        "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+        "ttft_p50_ms": lat["ttft"]["p50"] / 1e3,
+        "ttft_p99_ms": lat["ttft"]["p99"] / 1e3,
+        "step_p50_ms": lat["step"]["p50"] / 1e3,
+        "step_p99_ms": lat["step"]["p99"] / 1e3,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "kv_cache_len": engine.lb})
+    return results, report
+
+
+def phase_gpt2_serve(ht, fa, metrics, kmods, trained, prompts):
+    """The trained GPT-2 small weights, by name, behind a chunked-prefill
+    engine and a one-token engine on the card."""
+    cfg = ht.GPT2Config.small()
+    graph = ht.gpt2_decode_graph(cfg, max_len=cfg.n_positions)
+    cgraph = ht.gpt2_decode_chunked_graph(cfg, max_len=cfg.n_positions,
+                                          chunk=PREFILL_CHUNK)
+
+    def engine(device, chunked, slots=N_REQUESTS):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")   # a variable not found would warn
+            return ht.DecodeEngine(
+                *graph[:3], weights=ht.params_from_named_arrays(trained,
+                                                                device),
+                max_slots=slots, max_len=cfg.n_positions, device=device,
+                chunked=cgraph[:3] if chunked else None,
+                max_chunk=PREFILL_CHUNK if chunked else None)
+
+    ceng, oeng = engine("cuda", True), engine("cuda", False)
+    extra = set(trained) - set(oeng.iex.var_names.values())
+    if extra != {"gpt2.pos_ids"}:
+        raise AssertionError(f"names the decode graphs lack: {sorted(extra)}")
+
+    # -- the counted chunked run, then the one-token run
+    got, crep = serve_streams(ht, metrics, kmods, ceng, prompts)
+    launches = {"flash_fwd_mask": fa.fwd_mask_launches,
+                "flash_fwd_lengths": fa.launches}
+    others = {name: n for m in kmods for name, n in vars(m).items()
+              if name.endswith("launches") and n and not (
+                  m is fa and name in ("fwd_mask_launches", "launches"))}
+    fallbacks = metrics.flash_fallback_counts()
+    want, orep = serve_streams(ht, metrics, kmods, oeng, prompts)
+    if fa.launches != orep["decode_steps"] * cfg.n_layer:
+        raise AssertionError("one-token engine: lengths launches "
+                             f"{fa.launches} != steps x layers")
+    fallbacks.update(metrics.flash_fallback_counts())
+    crep["launches"] = launches
+    for rep in (crep, orep):
+        rep["card"] = card_line()
+    log(f"[gpt2-serve] chunked (max_chunk {PREFILL_CHUNK}): "
+        f"{json.dumps(crep)}")
+    log(f"[gpt2-serve] one-token: {json.dumps(orep)}")
+    psteps, steps = crep["decode_prefill_steps"], crep["decode_steps"]
+    if launches["flash_fwd_mask"] != psteps * cfg.n_layer or psteps == 0:
+        raise AssertionError(f"full-mask launches {launches} != prefill "
+                             f"steps {psteps} x n_layer {cfg.n_layer}")
+    if launches["flash_fwd_lengths"] != (steps - psteps) * cfg.n_layer \
+            or steps == psteps:
+        raise AssertionError(f"lengths launches {launches} != one-token "
+                             f"steps {steps - psteps} x n_layer")
+    if others:
+        raise AssertionError(f"other kernels launched: {others}")
+    if crep["decode_prefill_steps_saved"] <= 0 or steps >= orep["decode_steps"]:
+        raise AssertionError(f"chunked prefill saved no step: {crep} vs "
+                             f"{orep}")
+    left = {r: n for r, n in fallbacks.items() if r.startswith("backend:")}
+    if left:
+        raise AssertionError(f"attention left the kernels: {left}")
+    for i, toks in enumerate(got):
+        if len(toks) != MAX_NEW or not all(0 <= x < cfg.vocab_size
+                                           for x in toks):
+            raise AssertionError(f"chunked stream {i} returned {toks}")
+
+    # -- greedy streams: equal, or apart only from a near tie
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        at = next(j for j in range(MAX_NEW) if a[j] != b[j])
+        seq = list(prompts[i]) + list(b[:at])
+        row = np.sort(teacher_forced_logits(oeng, seq)[-1])
+        gap = float(row[-1] - row[-2])
+        log(f"[gpt2-serve] stream {i} differs from generated token {at}: "
+            f"chunked {a[at]} vs one-token {b[at]}; one-token top-2 logit "
+            f"gap {gap:.3e}")
+        if not gap < 2 * LOGITS_ATOL:
+            raise AssertionError(
+                f"stream {i}: chunked and one-token engines differ at token "
+                f"{at} with a top-2 gap of {gap} >= {2 * LOGITS_ATOL}")
+    same = sum(a == b for a, b in zip(got, want))
+    log(f"[gpt2-serve] greedy streams chunked vs one-token: {same}/"
+        f"{len(got)} equal; first stream {got[0][:8]}...")
+
+    # -- one 300-token prompt: chunked vs token by token, card vs CPU
+    tokens = [int(x) for x in prompts[0]]
+    one = teacher_forced_logits(oeng, tokens)
+    chk, ccaches = chunked_teacher_forced(ceng, tokens, PREFILL_CHUNK)
+    heng = engine("cpu", True, 1)
+    cpu, hcaches = chunked_teacher_forced(heng, tokens, PREFILL_CHUNK)
+    err_one = max(float(np.max(np.abs(chk[p] - one[p]))) for p in chk)
+    err_cpu = max(float(np.max(np.abs(chk[p] - cpu[p]))) for p in chk)
+    n = len(tokens)
+    err_kv = max(float((ccaches[name][:, :, :n].cpu()
+                        - hcaches[name][:, :, :n]).abs().max())
+                 for name in ceng.cache_names)
+    agree = sum(int(chk[p].argmax() == one[p].argmax()) for p in chk)
+    log(f"[gpt2-serve] {n}-token prompt, logits at the {len(chk)} chunk "
+        f"ends: chunked vs token by token on the card max_abs_err="
+        f"{err_one:.3e}; chunked card vs CPU max_abs_err={err_cpu:.3e} "
+        f"(atol {LOGITS_ATOL}); KV caches card vs CPU max_abs_err="
+        f"{err_kv:.3e}; argmax agree {agree}/{len(chk)}")
+    if not (all(np.all(np.isfinite(x)) for x in chk.values())
+            and max(err_one, err_cpu, err_kv) <= LOGITS_ATOL):
+        raise AssertionError(f"chunked prefill logits disagree: vs one-token "
+                             f"{err_one}, vs CPU {err_cpu}, caches {err_kv}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script runs on the "
@@ -1231,23 +1768,10 @@ def main():
     plens = rng.randint(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1, size=N_REQUESTS)
     plens[0] = PROMPT_RANGE[1]          # the cache grows past 256 rows
     prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in plens]
-    with ht.DecodeRouter(engine, queue_limit=N_REQUESTS) as router:
-        # warm-up (cuBLAS handles, allocator) before the counted run
-        router.submit(prompts[1][:4], max_new_tokens=2).result(timeout=300)
-        torch.cuda.synchronize()
-        reset_launches(*kmods)
-        metrics.reset_decode_counts()
-        metrics.reset_flash_fallbacks()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        streams = [router.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
-        results = [s.result(timeout=900) for s in streams]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"flash_fwd_lengths": fa.launches}
-    counts = metrics.decode_counts()
+    results, serve = serve_streams(ht, metrics, kmods, engine, prompts)
+    launches = {"flash_fwd_lengths": fa.launches}
     fallbacks = metrics.flash_fallback_counts()
-    steps = counts.get("decode_steps", 0)
+    steps = serve["decode_steps"]
     for i, toks in enumerate(results):
         if len(toks) != MAX_NEW or not all(0 <= t < cfg.vocab_size
                                            for t in toks):
@@ -1259,16 +1783,9 @@ def main():
     left = {r: n for r, n in fallbacks.items() if r.startswith("backend:")}
     if left:
         raise AssertionError(f"attention left the kernel: {left}")
-    lat = metrics.decode_latency_stats()
-    n_tok = counts.get("decode_tokens", 0)
-    serve = {"requests": N_REQUESTS, "prompt_lens": plens.tolist(),
-             "max_new_tokens": MAX_NEW, "decode_steps": steps,
-             "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
-             "step_p50_ms": lat["step"]["p50"] / 1e3,
-             "step_p99_ms": lat["step"]["p99"] / 1e3,
-             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-             "kv_cache_len": engine.lb, "launches": launches,
-             "card": card_line()}
+    serve.update({"requests": N_REQUESTS, "prompt_lens": plens.tolist(),
+                  "max_new_tokens": MAX_NEW, "launches": launches,
+                  "card": card_line()})
     log(f"[serve] {json.dumps(serve)}")
     log(f"[serve] first stream: {results[0][:8]}...")
 
@@ -1317,7 +1834,20 @@ def main():
     # -- 13. sparse vs dense, card vs CPU ---------------------------------------------------
     phase_moe_parity(ht, pm)
 
-    # -- 14. result lines ---------------------------------------------------------
+    # -- 14. causal and full-mask kernels vs plain -----------------------------------
+    glines = phase_causal_kernels(fa)
+
+    # -- 15. train GPT-2 small ---------------------------------------------------------
+    glaunches, trained = phase_gpt2_train(ht, fa, metrics, kmods)
+
+    # -- 16. card vs CPU GPT-2 training -------------------------------------------------
+    phase_gpt2_train_parity(ht)
+
+    # -- 17. serve the trained weights with chunked prefill ------------------------------
+    glaunches.update(phase_gpt2_serve(ht, fa, metrics, kmods, trained,
+                                      prompts))
+
+    # -- 18. result lines ---------------------------------------------------------
     kernels = [{
         "name": "flash_fwd_lengths", "route": "cuda",
         "source": "hetu_tpu_torch/csrc/flash_attention.cu",
@@ -1349,6 +1879,26 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": claunches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    for key, name, source, replaces in (
+            ("fwd", "flash_fwd_causal",
+             "hetu_tpu_torch/csrc/flash_attention.cu",
+             "hetu_tpu/ops/pallas/flash_attention.py:202"),
+            ("dq", "flash_bwd_dq_causal",
+             "hetu_tpu_torch/csrc/flash_attention_bwd.cu",
+             "hetu_tpu/ops/pallas/flash_attention.py:299"),
+            ("dkv", "flash_bwd_dkv_causal",
+             "hetu_tpu_torch/csrc/flash_attention_bwd.cu",
+             "hetu_tpu/ops/pallas/flash_attention.py:363"),
+            ("mask", "flash_fwd_mask",
+             "hetu_tpu_torch/csrc/flash_attention.cu",
+             "hetu_tpu/ops/pallas/flash_attention.py:202")):
+        r = glines[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": glaunches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

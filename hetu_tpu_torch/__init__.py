@@ -7,7 +7,14 @@ kernel on a ported path is a hand-written kernel for the H100
 (``csrc/``).  Ported paths:
 
 * serving: GPT-2 greedy decode, ``gpt2_decode_graph`` → ``DecodeEngine``
-  → ``DecodeRouter``, decode attention in the CUDA flash kernel;
+  → ``DecodeRouter``, decode attention in the CUDA flash kernel; with
+  ``DecodeEngine(chunked=gpt2_decode_chunked_graph(...)[:3])`` prompts are
+  ingested in chunks through the full-mask flash forward;
+* training: GPT-2 causal LM, ``gpt2_lm_graph`` →
+  ``optim.AdamOptimizer(...).minimize(loss)`` → ``Executor.run``,
+  attention in the causal flash kernels, forward and backward; the trained
+  weights load into the decode engines by name
+  (``params_from_named_arrays(ex.return_tensor_values())``);
 * training: BERT pretraining (MLM, MLM+NSP), ``bert_pretrain_graph`` →
   ``optim.AdamOptimizer(...).minimize(loss)`` → ``Executor`` →
   ``Executor.run``, attention forward and backward in the CUDA flash
@@ -43,9 +50,10 @@ from .layers import (DropOut, Embedding, Expert, LayerNorm, Linear,
                      MoELayer, MultiHeadAttention, SparseMoELayer, TopKGate,
                      TopKGateSparse)
 from .models import (BertConfig, GPT2Config, bert_model, bert_pooler,
-                     bert_pretrain_graph, gpt2_decode_graph,
+                     bert_pretrain_graph, gpt2_decode_chunked_graph,
+                     gpt2_decode_graph, gpt2_lm_graph, gpt2_model,
                      synthetic_criteo, synthetic_criteo_skewed,
-                     synthetic_mlm_batch, wdl_criteo)
+                     synthetic_lm_batch, synthetic_mlm_batch, wdl_criteo)
 from .ndarray import NDArray
 from .ops import (array_reshape_op, binarycrossentropy_op, broadcastto_op,
                   concat_op, einsum_op, embedding_lookup_op, matmul_op, mul_op,

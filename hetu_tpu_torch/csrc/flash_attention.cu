@@ -6,8 +6,11 @@
 //
 // 1. flash_fwd_lengths_kernel, the `lengths` specialization (decode): for the
 //    query rows of (b*h), keys at index >= lengths[b] are invisible.
-// 2. flash_fwd_kernel, the dense and `key_mask` specializations (training):
-//    keys with key_mask[b, j] == 0 are invisible; no mask = dense.
+// 2. flash_fwd_kernel, the dense, `key_mask`, causal and full-mask
+//    specializations (training and chunked prefill): keys with
+//    key_mask[b, j] == 0 are invisible; under `causal` key c is visible to
+//    query row r iff r + (S_kv - S_q) >= c; under a full mask iff
+//    mask[g, r, c] != 0.  The three compose (logical and); none = dense.
 //
 // ---- 1. lengths (decode)
 // What bounds it: at decode (S_q = 1) each valid K and V element is read once
@@ -230,7 +233,7 @@ extern "C" int hetu_flash_fwd_lengths(const float* q, const float* k, const floa
   return (int)cudaGetLastError();
 }
 
-// ---- 2. dense and key_mask (training)
+// ---- 2. dense, key_mask, causal and full mask (training, chunked prefill)
 //
 // What bounds it: at the training shapes (S_q = S_kv = 512, D = 64) every K
 // and V row is used by 512 query rows, so the two products' operations, not
@@ -244,8 +247,24 @@ extern "C" int hetu_flash_fwd_lengths(const float* q, const float* k, const floa
 // probability tile goes through shared memory into the P.V product.  Ragged
 // tiles are zero-filled and masked here; nothing is padded in device memory.
 //
+// Causal (template CAUSAL): validity is per (row, key), so it is taken with
+// the scores; the key loop ends at the last key the tile's last row sees
+// (bottom-right aligned diagonal, kv_off = S_kv - S_q), so key tiles wholly
+// above the diagonal cost neither bytes nor operations: about half the dense
+// work at S_q = S_kv.  A tile whose rows see no key at all (S_q > S_kv) runs
+// no iteration and writes out = 0, lse = -1e30.
+//
+// Full mask (template FMASK): a uint8 mask stored unbroadcast as
+// (G, S_q, S_kv), G one of 1, H, B, B*H (gmode 0..3: group 0, bh % heads,
+// bh / heads, bh).  Each 64 x 64 mask tile is staged once in shared memory
+// beside K and V (4 KB; ragged edges read as 0).  No tile is skipped:
+// validity is data.  The mask adds S_q * S_kv bytes per group to the
+// function's traffic; at the chunked-prefill shapes (S_q = 32) the K/V
+// bytes still dominate.
+//
 // Not yet: wgmma / tensor cores (bf16 or TF32 would change the numbers),
-// double-buffered K/V staging, skipping key tiles that are entirely masked.
+// double-buffered K/V staging, skipping key tiles that are entirely masked
+// by data (key_mask, full mask).
 
 namespace {
 
@@ -253,12 +272,14 @@ using hetu_flash::PLD;
 using hetu_flash::TILE;
 using hetu_flash::TTHREADS;
 
-template <int G>  // float4 output column groups per thread: D <= 64 G
+// G: float4 output column groups per thread (D <= 64 G)
+template <int G, bool CAUSAL, bool FMASK>
 __global__ void __launch_bounds__(TTHREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ key_mask,
-                 float* __restrict__ out, float* __restrict__ lse, int heads, int s_q,
-                 int s_kv, int d, float scale) {
+                 const unsigned char* __restrict__ mask, float* __restrict__ out,
+                 float* __restrict__ lse, int heads, int gmode, int s_q, int s_kv, int d,
+                 float scale) {
   using namespace hetu_flash;
   extern __shared__ __align__(16) float smem[];
   const int ld = d + 4;
@@ -267,6 +288,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* v_s = k_s + TILE * ld;   // TILE x ld
   float* p_s = v_s + TILE * ld;   // TILE x PLD probabilities
   int* ok_s = reinterpret_cast<int*>(p_s + TILE * PLD);  // TILE key flags
+  unsigned char* msk_s = reinterpret_cast<unsigned char*>(ok_s + TILE);  // TILE x TILE (FMASK)
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * TILE;
@@ -274,6 +296,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (size_t)bh * s_kv * d;
   const float* vb = v + (size_t)bh * s_kv * d;
   const int* km = key_mask ? key_mask + (size_t)(bh / heads) * s_kv : nullptr;
+  const unsigned char* mb = nullptr;
+  if (FMASK) {
+    const int g = gmode == 0 ? 0 : gmode == 1 ? bh % heads : gmode == 2 ? bh / heads : bh;
+    mb = mask + (size_t)g * s_q * s_kv;
+  }
+  // causal: row r sees key c iff r + kv_off >= c; the loop stops after the
+  // last key that the tile's last row sees
+  const int kv_off = s_kv - s_q;
+  const int k_end = CAUSAL ? min(s_kv, min(q0 + TILE, s_q) + kv_off) : s_kv;
 
   stage_rows(q_s, q + (size_t)bh * s_q * d, q0, s_q, d);
   float m[4], l[4];
@@ -285,28 +316,44 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   zero_acc(acc);
 
-  for (int k0 = 0; k0 < s_kv; k0 += TILE) {
-    __syncthreads();  // the previous tile's K, V and P are consumed
+  for (int k0 = 0; k0 < k_end; k0 += TILE) {
+    __syncthreads();  // the previous tile's K, V, P and mask are consumed
     stage_rows(k_s, kb, k0, s_kv, d);
     stage_rows(v_s, vb, k0, s_kv, d);
     if (tid < TILE) {
       const int key = k0 + tid;
       ok_s[tid] = key < s_kv && (km == nullptr || km[key] != 0);
     }
+    if (FMASK) {
+      for (int i = tid; i < TILE * TILE; i += TTHREADS) {
+        const int row = q0 + (i >> 6), key = k0 + (i & (TILE - 1));
+        msk_s[i] = (row < s_q && key < s_kv) ? mb[(size_t)row * s_kv + key] : 0;
+      }
+    }
     cp_async_wait_all();
     __syncthreads();
 
     float s[4][4];
     dot_rows(s, q_s, k_s, d, ty, tx);
-    bool ok[4];
+    bool ok[4][4];  // validity per (row, key)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) ok[j] = ok_s[tx + 16 * j] != 0;
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      const bool okj = ok_s[c] != 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        bool o = okj;
+        if (CAUSAL) o = o && (q0 + 4 * ty + i + kv_off >= k0 + c);
+        if (FMASK) o = o && msk_s[(4 * ty + i) * TILE + c] != 0;
+        ok[i][j] = o;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float mt = NEG_INF;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = ok[j] ? s[i][j] * scale : NEG_INF;
+        s[i][j] = ok[i][j] ? s[i][j] * scale : NEG_INF;
         mt = fmaxf(mt, s[i][j]);
       }
       const float m_new = fmaxf(m[i], half_max(mt));
@@ -314,9 +361,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float psum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        // multiply by validity, never exp alone: on an all-masked tile
-        // exp(s - m_new) = 1
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        // select by validity, never exp alone: while a row has seen no
+        // valid key, m_new = -1e30 and exp(s - m_new) = 1
+        const float p = ok[i][j] ? expf(s[i][j] - m_new) : 0.f;
         psum += p;
         p_s[(4 * ty + i) * PLD + tx + 16 * j] = p;
       }
@@ -334,6 +381,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     acc_rows(acc, p_s, v_s, d, ty, tx);
   }
 
+  cp_async_wait_all();  // a tile with no live key tile staged Q only
   float l_safe[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) l_safe[i] = l[i] == 0.f ? 1.f : l[i];
@@ -347,35 +395,71 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int G>
+template <int G, bool CAUSAL, bool FMASK>
 int launch_fwd(const float* q, const float* k, const float* v, const int* key_mask,
-               float* out, float* lse, int bh, int heads, int s_q, int s_kv, int d,
-               float scale, cudaStream_t stream) {
+               const unsigned char* mask, float* out, float* lse, int bh, int heads,
+               int gmode, int s_q, int s_kv, int d, float scale, cudaStream_t stream) {
   static size_t configured[64] = {0};
-  const size_t smem =
-      (size_t)(3 * TILE * (d + 4) + TILE * PLD) * sizeof(float) + TILE * sizeof(int);
-  cudaError_t err = hetu_flash::ensure_smem((const void*)flash_fwd_kernel<G>, smem, configured);
+  const size_t smem = (size_t)(3 * TILE * (d + 4) + TILE * PLD) * sizeof(float) +
+                      TILE * sizeof(int) + (FMASK ? TILE * TILE : 0);
+  cudaError_t err = hetu_flash::ensure_smem(
+      (const void*)flash_fwd_kernel<G, CAUSAL, FMASK>, smem, configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((s_q + TILE - 1) / TILE, bh);
-  flash_fwd_kernel<G><<<grid, TTHREADS, smem, stream>>>(q, k, v, key_mask, out, lse, heads,
-                                                        s_q, s_kv, d, scale);
+  flash_fwd_kernel<G, CAUSAL, FMASK><<<grid, TTHREADS, smem, stream>>>(
+      q, k, v, key_mask, mask, out, lse, heads, gmode, s_q, s_kv, d, scale);
   return (int)cudaGetLastError();
+}
+
+template <bool CAUSAL, bool FMASK>
+int dispatch_fwd(const float* q, const float* k, const float* v, const int* key_mask,
+                 const unsigned char* mask, float* out, float* lse, int bh, int heads,
+                 int gmode, int s_q, int s_kv, int d, float scale, void* stream) {
+  if (d <= 0 || d > 128 || (d & 3) || heads <= 0 || bh <= 0 || bh > 65535 ||
+      bh % heads || s_q <= 0 || s_kv <= 0 || gmode < 0 || gmode > 3)
+    return (int)cudaErrorInvalidValue;
+  return d <= 64 ? launch_fwd<1, CAUSAL, FMASK>(q, k, v, key_mask, mask, out, lse, bh, heads,
+                                                gmode, s_q, s_kv, d, scale,
+                                                (cudaStream_t)stream)
+                 : launch_fwd<2, CAUSAL, FMASK>(q, k, v, key_mask, mask, out, lse, bh, heads,
+                                                gmode, s_q, s_kv, d, scale,
+                                                (cudaStream_t)stream);
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() after the launch (0 = launched).
-// q (bh, s_q, d), k/v (bh, s_kv, d), out (bh, s_q, d): contiguous float32,
-// 16-byte aligned; key_mask (bh / heads, s_kv) int32 or null (dense);
-// lse (bh, s_q) float32.
+// Each launches on `stream` and returns cudaGetLastError() after the launch
+// (0 = launched).  q (bh, s_q, d), k/v (bh, s_kv, d), out (bh, s_q, d):
+// contiguous float32, 16-byte aligned; key_mask (bh / heads, s_kv) int32 or
+// null; lse (bh, s_q) float32.
+
+// dense (key_mask null) and key_mask
 extern "C" int hetu_flash_fwd(const float* q, const float* k, const float* v,
                               const int* key_mask, float* out, float* lse, int bh, int heads,
                               int s_q, int s_kv, int d, float scale, void* stream) {
-  if (d <= 0 || d > 128 || (d & 3) || heads <= 0 || bh <= 0 || bh > 65535 ||
-      bh % heads || s_q <= 0 || s_kv <= 0)
-    return (int)cudaErrorInvalidValue;
-  return d <= 64 ? launch_fwd<1>(q, k, v, key_mask, out, lse, bh, heads, s_q, s_kv, d, scale,
-                                 (cudaStream_t)stream)
-                 : launch_fwd<2>(q, k, v, key_mask, out, lse, bh, heads, s_q, s_kv, d, scale,
-                                 (cudaStream_t)stream);
+  return dispatch_fwd<false, false>(q, k, v, key_mask, nullptr, out, lse, bh, heads, 0, s_q,
+                                    s_kv, d, scale, stream);
+}
+
+// causal (bottom-right aligned), optionally with a key_mask
+extern "C" int hetu_flash_fwd_causal(const float* q, const float* k, const float* v,
+                                     const int* key_mask, float* out, float* lse, int bh,
+                                     int heads, int s_q, int s_kv, int d, float scale,
+                                     void* stream) {
+  return dispatch_fwd<true, false>(q, k, v, key_mask, nullptr, out, lse, bh, heads, 0, s_q,
+                                   s_kv, d, scale, stream);
+}
+
+// full mask: mask (G, s_q, s_kv) uint8, G = 1, heads, bh / heads or bh for
+// gmode 0..3; optionally with a key_mask and, causal != 0, the causal rule
+extern "C" int hetu_flash_fwd_mask(const float* q, const float* k, const float* v,
+                                   const int* key_mask, const unsigned char* mask,
+                                   float* out, float* lse, int bh, int heads, int s_q,
+                                   int s_kv, int d, int gmode, int causal, float scale,
+                                   void* stream) {
+  if (mask == nullptr) return (int)cudaErrorInvalidValue;
+  return causal ? dispatch_fwd<true, true>(q, k, v, key_mask, mask, out, lse, bh, heads, gmode,
+                                           s_q, s_kv, d, scale, stream)
+                : dispatch_fwd<false, true>(q, k, v, key_mask, mask, out, lse, bh, heads,
+                                            gmode, s_q, s_kv, d, scale, stream);
 }

@@ -5,8 +5,11 @@ applies to the attention OUTPUT (after the o-projection), not to the
 probabilities, which the flash kernels never materialise; a config's
 ``attention_probs_dropout_prob`` is that output-dropout rate.
 
-Not ported, refused by name: ``context_parallel`` (ring / Ulysses
-schedules) and an additive ``bias``.
+``causal=True`` takes the flash kernels' causal specialization, forward
+and backward, alone or with a key-padding mask.  Any other mask shape
+takes the full-mask forward, whose backward is not ported (it raises in
+training).  Not ported, refused by name: ``context_parallel`` (ring /
+Ulysses schedules) and an additive ``bias``.
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ class MultiHeadAttention(BaseLayer):
         optional (batch*kv_seq, hidden) memory for cross-attention;
         ``mask``: an optional validity mask node broadcastable to
         (B, H, S_q, S_k) — a (B, 1, 1, S_k) padding mask rides the flash
-        kernels' key-mask path."""
+        kernels' key-mask path, any other the full-mask forward."""
         if bias is not None:
             raise NotImplementedError(
                 "MultiHeadAttention(bias=): biased attention is not ported")

@@ -15,7 +15,10 @@ from .embedding import embedding_lookup_op
 from .attention import (sdpa_reference, dispatch_sdpa, sdpa_op,
                         dispatch_sdpa_masked, sdpa_masked_op,
                         dispatch_sdpa_decode, sdpa_decode_op,
-                        kv_cache_append_op)
+                        kv_cache_append_op, dispatch_sdpa_prefill,
+                        sdpa_prefill_op, chunk_positions_op,
+                        split_heads_chunk_op, merge_heads_chunk_op,
+                        chunk_emit_gather_op)
 from .moe import (topk_gate_op, layout_transform_op,
                   reverse_layout_transform_op, topk_gate_sparse_op,
                   sparse_dispatch_op, sparse_combine_op)

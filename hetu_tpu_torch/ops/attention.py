@@ -3,16 +3,26 @@
 ``sdpa_reference`` is the plain attention, with the reference's rule that
 a query row with no valid key outputs zero.  The dispatchers:
 
-* ``dispatch_sdpa`` (dense) and ``dispatch_sdpa_masked`` (a mask node):
-  the training path.  ``_split_mask_kinds`` routes a (B|1, 1, 1, S_kv)
-  mask to the ``key_mask`` specialization; any other mask, and
-  ``causal``, raise ``NotImplementedError`` on the card (not ported).
+* ``dispatch_sdpa`` (dense or ``causal``) and ``dispatch_sdpa_masked`` (a
+  mask node): the training path.  ``_split_mask_kinds`` routes a
+  (B|1, 1, 1, S_kv) mask to the ``key_mask`` specialization and any
+  other broadcastable mask to the full-mask one (forward only: its
+  backward is not ported and raises ``NotImplementedError``).
 * ``dispatch_sdpa_decode``: the q_len=1 decode step against a KV cache
   (the ``lengths`` specialization).
+* ``dispatch_sdpa_prefill``: the q_len=C chunked-prefill step against a
+  KV cache (the full-mask specialization; the per-sequence positions
+  cannot be written as one causal diagonal).
+
+``kv_cache_append_op`` and the chunk ops (``chunk_positions_op``,
+``split_heads_chunk_op``, ``merge_heads_chunk_op``,
+``chunk_emit_gather_op``) are the plain tensor code around them.  Not
+ported: the ``bias`` / masked-bias / varlen dispatchers and the ring and
+Ulysses schedules.
 
 On a CUDA tensor each always launches the hand-written flash kernels
 (:mod:`hetu_tpu_torch.ops.kernels.flash_attention`) at every length — the
-TPU package's gate (``_FLASH_MIN_LEN``, mod-128 bucketing,
+TPU package's gate (``_FLASH_MIN_LEN``, mod-128 bucketing, the prefill gate,
 ``artifacts/flash_ab.json``) does not carry over and is not read — and
 never falls back to ``sdpa_reference``.  On a CPU tensor each takes
 ``sdpa_reference`` and counts ``backend:cpu`` in the ``flash_fallbacks``
@@ -87,9 +97,9 @@ def _split_mask_kinds(mask, q):
 
 
 def dispatch_sdpa_masked(q, k, v, mask, causal=False, scale=None):
-    """Masked (B, H, S, D) attention: a key-padding mask rides the flash
-    kernels' ``key_mask`` path on the card; the CPU takes the plain
-    attention."""
+    """Masked (B, H, S, D) attention: on the card a key-padding mask
+    rides the flash kernels' ``key_mask`` path and any other mask the
+    full-mask forward; the CPU takes the plain attention."""
     if q.device.type == "cpu":
         _note_cpu()
         return sdpa_reference(q, k, v, causal=causal, scale=scale, mask=mask)
@@ -129,25 +139,119 @@ sdpa_decode_op = def_op("ScaledDotProductAttentionDecode", _sdpa_decode)
 
 
 def _kv_cache_append(c, cache, new, positions, valid=None):
-    """Write the (B, H, 1, D) token rows into the (B, H, L, D) cache at row
-    ``positions[b]`` of each sequence, IN PLACE, and return the cache.
+    """Write the (B, H, C, D) token rows into the (B, H, L, D) cache at
+    rows ``positions[b] .. positions[b] + C`` of each sequence, IN PLACE,
+    and return the cache.  C = 1 is the decode write, C > 1 a
+    chunked-prefill write.
+
+    ``valid`` (B,) int: rows ``>= valid[b]`` of the chunk are not
+    written, so a ragged chunk (a row that consumes fewer than C tokens,
+    or an idle slot with valid = 0) leaves the cache bytes equal to the
+    token-by-token path's.
 
     The JAX package returns a fresh array and lets XLA reuse the donated
     input buffer; here the write goes straight into the fed cache tensor
     (the engine feeds its own cache and reads the same tensor back).  The
     start row follows ``dynamic_update_slice``: a negative start counts
-    from the end, then the start clamps into ``[0, L - 1]``.  Only the
-    one-token write is ported: chunked writes (C > 1) and the ``valid``
-    mask belong to chunked prefill."""
-    if valid is not None or new.shape[-2] != 1:
-        raise NotImplementedError(
-            "kv_cache_append: chunked writes (C > 1, valid=) are not ported")
+    from the end, then the start clamps into ``[0, L - C]`` (the engine
+    grows the cache so that the window never has to shift)."""
     b, _, s_kv, _ = cache.shape
-    rows = positions.to(device=cache.device, dtype=torch.int64)
-    rows = torch.where(rows < 0, rows + s_kv, rows).clamp(0, s_kv - 1)
-    batch = torch.arange(b, device=cache.device)
-    cache[batch, :, rows, :] = new[:, :, 0, :].to(cache.dtype)
+    chunk = new.shape[-2]
+    if chunk > s_kv:
+        raise ValueError(f"kv_cache_append: a chunked write of {chunk} rows "
+                         f"does not fit a cache of {s_kv} rows")
+    start = positions.to(device=cache.device, dtype=torch.int64)
+    start = torch.where(start < 0, start + s_kv, start).clamp(0, s_kv - chunk)
+    rows = start[:, None] + torch.arange(chunk, device=cache.device)[None, :]
+    batch = torch.arange(b, device=cache.device)[:, None]
+    rows_new = new.to(cache.dtype).permute(0, 2, 1, 3)        # (B, C, H, D)
+    if valid is not None:
+        keep = torch.arange(chunk, device=cache.device)[None, :] \
+            < valid.to(device=cache.device, dtype=torch.int64)[:, None]
+        rows_new = torch.where(keep[:, :, None, None], rows_new,
+                               cache[batch, :, rows, :])
+    cache[batch, :, rows, :] = rows_new
     return cache
 
 
 kv_cache_append_op = def_op("KVCacheAppend", _kv_cache_append)
+
+
+def dispatch_sdpa_prefill(q, k_cache, v_cache, positions, scale=None):
+    """A chunked prefill step: ``q`` (B, H, C, D), this chunk's queries,
+    against ``k_cache``/``v_cache`` (B, H, L, D) with the chunk's rows
+    already appended at ``positions .. positions + C``.  ``positions``
+    (B,) is the cache row of each sequence's first chunk token;
+    chunk-local query j sees keys ``< positions + j + 1`` (causal within
+    the chunk, everything before it visible).  The (B, 1, C, L) mask is
+    built here, as the JAX package builds it, and goes to the full-mask
+    forward kernel on the card at every chunk and cache length.  Rows
+    past a sequence's real prompt are don't-cares: the caller's cache
+    write masks them and the emit gather slices them away."""
+    chunk, s_kv = q.shape[-2], k_cache.shape[-2]
+    lengths = (positions.to(torch.int32)[:, None] + 1
+               + torch.arange(chunk, dtype=torch.int32,
+                              device=q.device)[None, :])          # (B, C)
+    cols = torch.arange(s_kv, dtype=torch.int32, device=q.device)
+    mask = cols[None, None, None, :] < lengths[:, None, :, None]
+    if q.device.type == "cpu":
+        _note_cpu()
+        return sdpa_reference(q, k_cache, v_cache, scale=scale, mask=mask)
+    return flash_attention(q, k_cache, v_cache, scale=scale, mask=mask)
+
+
+def _sdpa_prefill(c, q, k_cache, v_cache, positions, scale=None):
+    return dispatch_sdpa_prefill(q, k_cache, v_cache, positions, scale=scale)
+
+
+sdpa_prefill_op = def_op("ScaledDotProductAttentionPrefill", _sdpa_prefill)
+
+
+def _chunk_positions(c, positions, ids, limit=None):
+    """Per-token cache positions of a (B, C) chunk: ``positions[b] + j``
+    for chunk-local token j, clamped to ``limit - 1`` so idle slots and
+    ragged tails index a real (ignored) position-embedding row."""
+    chunk = ids.shape[-1]
+    p = positions.to(torch.int32)[:, None] \
+        + torch.arange(chunk, dtype=torch.int32,
+                       device=positions.device)[None, :]
+    if limit is not None:
+        p = p.clamp(max=int(limit) - 1)
+    return p
+
+
+chunk_positions_op = def_op("ChunkPositions", _chunk_positions)
+
+
+def _split_heads_chunk(c, t, ids, n_head=1):
+    """(B*C, H*D) projected activations -> (B, H, C, D) heads, with the
+    (B, C) shape recovered from the ``ids`` feed."""
+    b, chunk = ids.shape
+    return t.reshape(b, chunk, n_head, -1).permute(0, 2, 1, 3)
+
+
+split_heads_chunk_op = def_op("SplitHeadsChunk", _split_heads_chunk)
+
+
+def _merge_heads_chunk(c, att):
+    """(B, H, C, D) attention outputs -> (B*C, H*D) for the residual
+    stream."""
+    b, h, chunk, d = att.shape
+    return att.permute(0, 2, 1, 3).reshape(b * chunk, h * d)
+
+
+merge_heads_chunk_op = def_op("MergeHeadsChunk", _merge_heads_chunk)
+
+
+def _chunk_emit_gather(c, hidden, ids, valid):
+    """Each sequence's LAST consumed chunk row out of the (B*C, E) hidden
+    stream: row ``valid[b] - 1`` (clamped into the chunk) of batch b ->
+    (B, E).  Taken before ln_f / lm_head, so a chunked step pays the
+    vocabulary projection for B rows, not B*C."""
+    b, chunk = ids.shape
+    h3 = hidden.reshape(b, chunk, hidden.shape[-1])
+    rows = (valid.to(torch.int64) - 1).clamp(0, chunk - 1)
+    return h3[torch.arange(b, device=hidden.device), rows]
+
+
+chunk_emit_gather_op = def_op("ChunkEmitGather", _chunk_emit_gather)

@@ -18,7 +18,21 @@
 * **Continuous batching.**  Sequences join and leave the in-flight batch
   per token: a request takes a free KV slot at the next step boundary and
   a finished sequence frees its slot at once (``decode_slot_recycles``).
-  Prompts are ingested one token per step (``decode_prefill_rows``).
+  Without a chunked entry, prompts are ingested one token per step
+  (``decode_prefill_rows``).
+
+* **Chunked prefill.**  With a ``chunked=`` graph entry
+  (:func:`~hetu_tpu_torch.models.gpt2_decode_chunked_graph`) prompt
+  ingestion consumes up to C tokens per sequence per step through the
+  q_len=C attention entry (:func:`~hetu_tpu_torch.ops.sdpa_prefill_op`; on
+  the GPU the full-mask flash kernel): a P-token prompt costs
+  ``ceil(P/C)`` steps instead of P.  Chunk sizes walk their own ladder; a
+  step's chunk is the smallest bucket covering the largest prompt
+  remainder, generating rows ride along with their one token at column
+  0, and a step where no row is past its prompt skips the logits copy to
+  the host (``decode_logits_skipped``).  Single-token steps keep the
+  q_len=1 entry.  Masked cache writes keep the KV rows equal to the
+  token-by-token path's at every chunk boundary.
 
 * **Greedy and batch-independent.**  Each slot attends only to its own
   cache rows ``0..position``, and selection is host ``np.argmax`` over the
@@ -27,10 +41,11 @@
 * **Per-token streaming** through :class:`DecodeStream` futures, with
   explicit backpressure (:class:`~hetu_tpu_torch.serving.ServeRejected`).
 
-Not ported yet: chunked prefill (``chunked=``), the shared-prefix KV
-store (``prefix_store=``), tensor-parallel plans (``plan=``), stream
-recovery across replicas and the fleet tier, request-level batching, and
-the chaos / race / protocol / trace hooks.
+Not ported yet: the shared-prefix KV store (``prefix_store=``),
+tensor-parallel plans (``plan=``), stream recovery across replicas and
+the fleet tier (of its replica contract only ``pending`` and
+``pending_steps`` exist), request-level batching, and the chaos / race /
+protocol / trace hooks.
 
 Threading: the router's loop thread owns the engine (slots, caches); the
 queue hands off under ``DecodeRouter._cv`` and each stream has its own
@@ -183,15 +198,23 @@ class DecodeEngine:
     only when asked for.  ``weights``: ``None`` (seeded init) or a
     ``{name: array}`` dict (:func:`hetu_tpu_torch.params_from_named_arrays`).
 
+    ``chunked=`` takes a second graph entry ``(feeds, logits,
+    cache_fetches)`` from
+    :func:`~hetu_tpu_torch.models.gpt2_decode_chunked_graph` (same weight
+    names, an extra ``valid`` feed).  Its executor is loaded from the
+    primary executor's parameters, never initialised on its own, so both
+    entries serve the same weight tensors; a variable the primary lacks
+    raises.  ``max_chunk`` caps the chunk ladder (default
+    ``min(32, max_len)``).
+
     Not thread-safe by design: the owning :class:`DecodeRouter` loop
     thread (or a single test thread) makes every call after construction.
     """
 
     def __init__(self, feeds, logits, cache_fetches, weights=None, *,
                  max_slots=8, max_len=128, seed=0, device=None, plan=None,
-                 chunked=None, prefix_store=None):
-        for opt, given in (("plan", plan), ("chunked", chunked),
-                           ("prefix_store", prefix_store)):
+                 chunked=None, max_chunk=None, prefix_store=None):
+        for opt, given in (("plan", plan), ("prefix_store", prefix_store)):
             if given is not None:
                 raise NotImplementedError(f"DecodeEngine({opt}=) is not ported")
         # float32 products in full float32, as the JAX decode graph
@@ -209,6 +232,25 @@ class DecodeEngine:
         self._fk = {name: self.iex._k(node) for name, node in feeds.items()}
         ck0 = feeds[self.cache_names[0]]
         self._heads, self._head_dim = ck0.shape[1], ck0.shape[3]
+        self.ciex = None
+        self.chunk_ladder = (1,)
+        self.chunk_top = 1
+        if chunked is not None:
+            cfeeds, clogits, ccaches = chunked
+            # the chunked executor serves the primary's weight tensors:
+            # built on its own it would draw every variable from a seed
+            # folded over a different topo order
+            w = {self.iex.var_names[n]: self.iex.params[self.iex._k(n)]
+                 for n in self.iex.var_nodes}
+            self.ciex = InferenceExecutor(
+                [clogits] + list(ccaches), weights=w,
+                buckets=default_buckets(max_slots), seed=seed,
+                device=self.device, strict=True)
+            top = int(max_chunk) if max_chunk else min(32, self.max_len)
+            self.chunk_ladder = tuple(default_buckets(max(2, top)))
+            self.chunk_top = self.chunk_ladder[-1]
+            self._cfk = {name: self.ciex._k(node)
+                         for name, node in cfeeds.items()}
         self.bb = self.batch_ladder[0]
         self.lb = self.len_ladder[0]
         self.slots = [None] * self.bb
@@ -272,10 +314,14 @@ class DecodeEngine:
         record_decode("decode_batch_grows")
         self._note_kv_bytes()
 
-    def _grow_len_if_needed(self):
-        """Ensure the cache length bucket covers every active position."""
+    def _grow_len_if_needed(self, span=1):
+        """Ensure the cache length bucket covers every active position
+        plus the ``span`` rows about to be written (span > 1: a chunked
+        step's write window; ``kv_cache_append_op`` clamps a start that
+        would overrun the cache, which would shift the window onto wrong
+        rows, so the bucket must cover it up front)."""
         need = max((int(self.positions[i]) for i, s in enumerate(self.slots)
-                    if s is not None), default=-1)
+                    if s is not None), default=-1) + int(span) - 1
         if need < self.lb:
             return
         lb = self.lb
@@ -358,9 +404,46 @@ class DecodeEngine:
 
     # -- the decode step ---------------------------------------------------
 
+    def _pick_chunk(self, active):
+        """Chunk bucket for this step: the smallest ladder bucket
+        covering the largest per-row token demand (the prompt remainder
+        of a mid-prompt row, 1 for a generating row), shrunk while the
+        write window would overrun ``max_len``, then shrunk to the
+        mixed-batch floor: every row of a chunked step computes q_len=C,
+        so a generating row (1 useful token) wastes C-1 padded
+        row-tokens, and the chunk shrinks while that waste exceeds the
+        useful prefill volume (at least half the step's padded token
+        volume must be prompt ingestion).  A lone prompt in an idle
+        engine keeps the full chunk; a full batch of generators admitting
+        one straggler prompt falls back toward the one-token entry.
+        1 = run the one-token entry (no chunked graph, or nothing to
+        chunk)."""
+        if self.ciex is None:
+            return 1
+        want, gen = 1, 0
+        for i in active:
+            seq = self.slots[i]
+            rem = len(seq.req.prompt) - seq.ptr
+            if rem > want:
+                want = rem
+            if rem <= 1:
+                gen += 1
+        if want <= 1:
+            return 1
+        want = min(want, self.chunk_top)
+        c = next(b for b in self.chunk_ladder if b >= want)
+        maxp = max(int(self.positions[i]) for i in active)
+        while c > 1 and maxp + c > self.max_len:
+            c = max(b for b in self.chunk_ladder if b < c)
+        pre = len(active) - gen
+        while c > 1 and gen * (c - 1) > pre * c:
+            c = max(b for b in self.chunk_ladder if b < c)
+        return c
+
     def _emit_token(self, i, seq, tok, now):
-        """Post-argmax bookkeeping: counters, latency, stream emission and
-        the done check."""
+        """Post-argmax bookkeeping shared by the one-token and chunked
+        paths: counters, latency, stream emission and the done check.
+        Returns 1 (one token emitted)."""
         count = seq.req.stream._emit(tok)
         seq.emitted += 1
         record_decode("decode_generate_rows")
@@ -376,14 +459,21 @@ class DecodeEngine:
             done = True     # cache exhausted: stop cleanly
         if done:
             self._leave(i)
+        return 1
 
     def step(self):
         """Decode ONE batch step: every active slot consumes its pending
-        token, the caches take the new rows in place, rows past their
-        prompt emit.  Returns the number of tokens emitted."""
+        token(s), the caches take the new rows in place, rows past their
+        prompt emit.  With a chunked entry, a step where some row still
+        owes several prompt tokens runs the q_len=C chunked path
+        (generating rows ride along); otherwise the one-token path runs.
+        Returns the number of tokens emitted."""
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
             return 0
+        chunk = self._pick_chunk(active)
+        if chunk > 1:
+            return self._step_chunked(active, chunk)
         self._grow_len_if_needed()
         fn = self.iex.compiled(self.bb)
         t0 = time.perf_counter_ns()
@@ -420,8 +510,79 @@ class DecodeEngine:
             # greedy: the first maximum wins, as in the JAX package
             tok = int(np.argmax(logits[i]))
             seq.ptr = len(seq.req.prompt)
-            self._emit_token(i, seq, tok, now)
-            emitted += 1
+            emitted += self._emit_token(i, seq, tok, now)
+        record_decode_latency("step", (time.perf_counter_ns() - t0) / 1e3)
+        return emitted
+
+    def _step_chunked(self, active, chunk):
+        """One chunked-prefill step: each active row consumes up to
+        ``chunk`` pending tokens (its prompt remainder, or its one
+        generated token at column 0), the caches take a masked multi-row
+        write, and only rows that finished their prompt read logits: a
+        pure-prefill chunk skips the copy to the host."""
+        self._grow_len_if_needed(span=chunk)
+        fn = self.ciex.compiled(self.bb)
+        t0 = time.perf_counter_ns()
+        ids = np.zeros((self.bb, chunk), np.int32)
+        valid = np.zeros(self.bb, np.int32)
+        consume = {}
+        emit_rows = []
+        for i in active:
+            seq = self.slots[i]
+            rem = len(seq.req.prompt) - seq.ptr
+            if rem > 0:
+                n = min(rem, chunk)
+                ids[i, :n] = seq.req.prompt[seq.ptr:seq.ptr + n]
+            else:
+                n = 1
+                ids[i, 0] = self.tokens[i]
+            valid[i] = n
+            consume[i] = n
+            if seq.ptr + n >= len(seq.req.prompt):
+                emit_rows.append(i)
+        feeds = {
+            self._cfk["input_ids"]: torch.from_numpy(ids).to(self.device),
+            self._cfk["positions"]: torch.from_numpy(
+                self.positions.copy()).to(self.device),
+            self._cfk["valid"]: torch.from_numpy(valid).to(self.device),
+        }
+        for name in self.cache_names:
+            feeds[self._cfk[name]] = self.caches[name]
+        outs = fn(self.ciex.params, feeds)
+        if emit_rows:
+            logits = outs[0].cpu().numpy()
+        else:
+            logits = None
+            record_decode("decode_logits_skipped")
+        for name, new in zip(self.cache_names, outs[1:]):
+            self.caches[name] = new
+        record_decode("decode_steps")
+        record_decode("decode_prefill_steps")
+        # steps saved against token-by-token ingestion: the widest row
+        # would have needed max(consume) one-token steps; this is one
+        record_decode("decode_prefill_steps_saved",
+                      max(consume.values()) - 1)
+        emitted = 0
+        now = time.monotonic()
+        for i in active:
+            seq = self.slots[i]
+            n = consume[i]
+            self.positions[i] += n
+            plen = len(seq.req.prompt)
+            if seq.ptr + n < plen:
+                # still mid-prompt after this chunk
+                seq.ptr += n
+                self.tokens[i] = seq.req.prompt[seq.ptr]
+                record_decode("decode_prefill_rows", n)
+                continue
+            # the prompt finished this step (n-1 of the consumed tokens
+            # were prefill rows, the last is the generate row) or the row
+            # was already generating (n == 1, no prefill row)
+            prefill_rows = (plen - seq.ptr - 1) if seq.ptr < plen else 0
+            record_decode("decode_prefill_rows", prefill_rows)
+            seq.ptr = plen
+            tok = int(np.argmax(logits[i]))
+            emitted += self._emit_token(i, seq, tok, now)
         record_decode_latency("step", (time.perf_counter_ns() - t0) / 1e3)
         return emitted
 
@@ -442,9 +603,32 @@ class DecodeRouter:
         self._q = collections.deque()
         self._cv = threading.Condition()
         self._stop = False
+        self._active_ct = 0     # loop's mirror of engine.active (under _cv)
         self._thread = None
         if start:
             self.start()
+
+    # -- load signals -------------------------------------------------------
+
+    @property
+    def pending(self):
+        """Queued + in-flight sequence count (``_active_ct`` is the loop's
+        own mirror of ``engine.active``: no cross-thread engine read)."""
+        with self._cv:
+            return len(self._q) + self._active_ct
+
+    @property
+    def pending_steps(self):
+        """Estimated engine steps queued ahead of a new request.  A
+        queued prompt costs ``ceil(prompt_len / chunk_top)`` prefill steps
+        (``prompt_len`` with no chunked entry, where ``chunk_top`` is 1),
+        not the one step per request that ``pending`` implies; an
+        in-flight sequence counts one step.  ``chunk_top`` does not change
+        after the engine is built, so reading it here is safe."""
+        ct = max(1, int(self.engine.chunk_top))
+        with self._cv:
+            q = sum((len(r.prompt) + ct - 1) // ct for r in self._q)
+            return q + self._active_ct
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -537,6 +721,9 @@ class DecodeRouter:
                 busy = not self.engine.idle
                 if self._q and cap > 0:
                     n = min(len(self._q), cap)
+                    # mirrored at pop time, before the step: a request is
+                    # never in neither the queue nor the in-flight count
+                    self._active_ct += n
                     return [self._q.popleft() for _ in range(n)]
                 if busy:
                     return []
@@ -565,6 +752,8 @@ class DecodeRouter:
                 except Exception as e:    # noqa: BLE001 — every in-flight
                     self.engine.abort(e)  # stream must learn its fate; the
                     #                       router keeps serving new work
+            with self._cv:
+                self._active_ct = self.engine.active
 
 
 __all__ = ["DecodeEngine", "DecodeRouter", "DecodeStream"]

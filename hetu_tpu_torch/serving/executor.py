@@ -53,14 +53,17 @@ class InferenceExecutor:
     initializer values) or a ``{name: array}`` dict.  ``buckets`` /
     ``max_batch``: the legal padded batch sizes.  ``device``: where
     weights live and the graph runs — CUDA by default; the CPU only when
-    asked for.
+    asked for.  ``strict``: a variable that a ``weights`` dict does not
+    cover raises ``KeyError`` instead of taking its seeded initializer
+    value with a warning.
 
     Not ported yet, and refused by name: ``plan=``, ``mesh=``,
     ``validate=``, PS embedding nodes and checkpoint-directory weights.
     """
 
     def __init__(self, fetches, weights=None, buckets=None, max_batch=128,
-                 seed=0, device=None, plan=None, mesh=None, validate=None):
+                 seed=0, device=None, plan=None, mesh=None, validate=None,
+                 strict=False):
         for opt, given in (("plan", plan), ("mesh", mesh),
                            ("validate", validate)):
             if given is not None:
@@ -88,7 +91,7 @@ class InferenceExecutor:
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"bad bucket set {self.buckets}")
         self.params = {}
-        self._load_weights(weights)
+        self._load_weights(weights, bool(strict))
         self._compiled = {}
 
     # -- canonical keys ----------------------------------------------------
@@ -99,7 +102,7 @@ class InferenceExecutor:
 
     # -- weights -----------------------------------------------------------
 
-    def _load_weights(self, weights):
+    def _load_weights(self, weights, strict=False):
         if weights is not None and not isinstance(weights, dict):
             raise NotImplementedError(
                 f"InferenceExecutor: weights from {type(weights).__name__} "
@@ -121,6 +124,10 @@ class InferenceExecutor:
                     raise ValueError(
                         f"variable {node} has no value/initializer")
             self.params[self._k(node)] = self._place(v)
+        if missing and strict:
+            raise KeyError(
+                f"weights provide no value for {len(missing)} variable(s): "
+                f"{missing[:5]}")
         if missing:
             warnings.warn(
                 f"weights source provides no value for {len(missing)} "

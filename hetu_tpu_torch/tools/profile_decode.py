@@ -7,11 +7,15 @@ widths, seeded random weights, fp32; 8 seeded prompts of 8-300 tokens,
 through ``DecodeRouter``, as chip_smoke.py serves it), device
 busy time (sum of kernel durations on the one stream), the device's idle
 share, kernel launches, and the kernels and host operators that take the
-most time.  Run from the repository root::
+most time.  ``--chunked`` gives the engine the chunked-prefill entry
+(``gpt2_decode_chunked_graph``, chunks of up to 32 tokens through the
+full-mask flash kernel) and also reports the prefill counters.  Run from
+the repository root::
 
-    python3 -m hetu_tpu_torch.tools.profile_decode [--out DIR]
+    python3 -m hetu_tpu_torch.tools.profile_decode [--chunked] [--out DIR]
 
-``--out`` receives ``profile_decode.json`` and the two operator tables.
+``--out`` receives ``profile_decode[_chunked].json`` and the two operator
+tables.
 """
 from __future__ import annotations
 
@@ -67,14 +71,19 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="directory for the JSON report and tables")
+    ap.add_argument("--chunked", action="store_true",
+                    help="ingest prompts through the chunked-prefill entry")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = ht.GPT2Config.small()
     feeds, logits, caches, _ = ht.gpt2_decode_graph(cfg, max_len=1024)
+    chunked = ht.gpt2_decode_chunked_graph(cfg, max_len=1024)[:3] \
+        if args.chunked else None
     engine = ht.DecodeEngine(feeds, logits, caches, max_slots=N_REQUESTS,
-                             max_len=1024, seed=0, device="cuda")
+                             max_len=1024, seed=0, device="cuda",
+                             chunked=chunked)
     prompts = _prompts(cfg.vocab_size)
     _serve(engine, [p[:4] for p in prompts])          # warm-up
 
@@ -86,6 +95,8 @@ def main(argv=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     lat = metrics.decode_latency_stats()["step"]
+    ttft = metrics.decode_latency_stats()["ttft"]
+    counts = metrics.decode_counts()
 
     # the same run through DecodeRouter's loop thread, as chip_smoke.py
     # serves it: the difference is the router's cost
@@ -97,7 +108,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         router_wall = time.perf_counter() - t0
 
-    fa.launches = 0
+    fa.launches = fa.fwd_mask_launches = 0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -118,8 +129,17 @@ def main(argv=None):
     top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:12]
     flash = sum(v[1] for name, v in kern.items()
                 if "flash_fwd_lengths" in name)
+    # the full-mask forward: the only flash_fwd_kernel a decode run launches
+    flash_mask = sum(v[1] for name, v in kern.items()
+                     if "flash_fwd_kernel" in name)
     report = {
         "card": _card(), "torch": torch.__version__,
+        "chunked": bool(args.chunked),
+        "counters": {k: counts.get(k, 0) for k in (
+            "decode_steps", "decode_prefill_steps",
+            "decode_prefill_steps_saved", "decode_prefill_rows",
+            "decode_logits_skipped")},
+        "ttft_ms_p50": ttft["p50"] / 1e3, "ttft_ms_p99": ttft["p99"] / 1e3,
         "steps": steps, "tokens": N_REQUESTS * MAX_NEW,
         "wall_s": wall, "tokens_per_s": N_REQUESTS * MAX_NEW / wall,
         "step_ms_mean": wall / steps * 1e3,
@@ -138,6 +158,8 @@ def main(argv=None):
             "flash_launches_per_step": fa.launches / psteps,
             "flash_ms_per_step": flash / psteps / 1e3,
             "flash_share_of_device": flash / busy_us if busy_us else None,
+            "flash_mask_launches_per_step": fa.fwd_mask_launches / psteps,
+            "flash_mask_ms_per_step": flash_mask / psteps / 1e3,
             "top_kernels": [{"name": n[:90], "count": c,
                              "ms_per_step": us / psteps / 1e3}
                             for n, (c, us) in top]},
@@ -146,9 +168,10 @@ def main(argv=None):
                                           row_limit=25)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "profile_decode.json"), "w") as f:
+        stem = "profile_decode" + ("_chunked" if args.chunked else "")
+        with open(os.path.join(args.out, stem + ".json"), "w") as f:
             json.dump(report, f, indent=1)
-        with open(os.path.join(args.out, "profile_decode_ops.txt"), "w") as f:
+        with open(os.path.join(args.out, stem + "_ops.txt"), "w") as f:
             f.write(cpu_table + "\n\n")
             f.write(prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=25))

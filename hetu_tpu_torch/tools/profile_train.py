@@ -1,18 +1,23 @@
-"""Where the time of a BERT-base training step goes, on the card.
+"""Where the time of a BERT-base or GPT-2 small training step goes, on the
+card.
 
-Runs the training workload of ``chip_smoke.py`` (BERT-base at published
-widths, seeded random weights, fp32; seq 512, batch 16, dropout 0.1,
-``synthetic_mlm_batch(cfg, seed=0)`` fed every step, ``AdamOptimizer(1e-4)``
-through ``Executor.run``) and reports per step: host wall time without
+Runs a training workload of ``chip_smoke.py``: ``--model bert`` (the
+default) BERT-base at published widths, seq 512, batch 16,
+``synthetic_mlm_batch(cfg, seed=0)``; ``--model gpt2`` GPT-2 small at
+published widths, seq 1024, batch 8, ``synthetic_lm_batch(cfg, seed=0)``,
+attention through the causal kernels.  Both: seeded random weights, fp32,
+dropout 0.1, the one batch fed every step, ``AdamOptimizer(1e-4)`` through
+``Executor.run``.  Reports per step: host wall time without
 the profiler, then under ``torch.profiler`` the device busy time (sum of
 kernel durations on the one stream), the device's idle share, kernel
 launches, the kernels that take the most device time, the share of the
 three flash attention kernels and of the matrix products.  Run from the
 repository root::
 
-    python3 -m hetu_tpu_torch.tools.profile_train [--out DIR] [--steps N]
+    python3 -m hetu_tpu_torch.tools.profile_train [--model bert|gpt2]
+        [--out DIR] [--steps N]
 
-``--out`` receives ``profile_train.json`` and the operator tables.
+``--out`` receives ``profile_train[_gpt2].json`` and the operator tables.
 """
 from __future__ import annotations
 
@@ -29,7 +34,10 @@ import torch
 import hetu_tpu_torch as ht
 from hetu_tpu_torch.ops.kernels import flash_attention as fa
 
-BATCH, SEQ, WARMUP = 16, 512, 2
+WARMUP = 2
+#: model -> (batch, seq)
+SHAPES = {"bert": (16, 512), "gpt2": (8, 1024)}
+# the kernels' names in a trace; the causal instantiations share them
 FLASH = {"flash_fwd_kernel": "fwd", "flash_bwd_dq_kernel": "dq",
          "flash_bwd_dkv_kernel": "dkv"}
 
@@ -46,8 +54,29 @@ def _is_gemm(name):
     return "gemm" in n or "sgemm" in n or "cutlass" in n or "xmma" in n
 
 
+def build(model, device="cuda"):
+    """(executor, feed dict) of ``model``'s training workload."""
+    batch, seq = SHAPES[model]
+    if model == "gpt2":
+        cfg = ht.GPT2Config.small(batch_size=batch, seq_len=seq)
+        feeds, loss, _ = ht.gpt2_lm_graph(cfg)
+        ids, labels = ht.synthetic_lm_batch(cfg, seed=0)
+        fd = {feeds["input_ids"]: ids, feeds["labels"]: labels}
+    else:
+        cfg = ht.BertConfig.base(batch_size=batch, seq_len=seq)
+        feeds, loss, _ = ht.bert_pretrain_graph(cfg)
+        ids, tt, labels, attn = ht.synthetic_mlm_batch(cfg, seed=0)
+        fd = {feeds["input_ids"]: ids, feeds["token_type_ids"]: tt,
+              feeds["masked_lm_labels"]: labels,
+              feeds["attention_mask"]: attn}
+    train_op = ht.optim.AdamOptimizer(1e-4).minimize(loss)
+    return ht.Executor({"train": [loss, train_op]}, seed=0,
+                       device=device), fd
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(SHAPES), default="bert")
     ap.add_argument("--out", default=None,
                     help="directory for the JSON report and tables")
     ap.add_argument("--steps", type=int, default=5,
@@ -56,13 +85,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA card")
-    cfg = ht.BertConfig.base(batch_size=BATCH, seq_len=SEQ)
-    feeds, loss, _ = ht.bert_pretrain_graph(cfg)
-    train_op = ht.optim.AdamOptimizer(1e-4).minimize(loss)
-    ex = ht.Executor({"train": [loss, train_op]}, seed=0, device="cuda")
-    ids, tt, labels, attn = ht.synthetic_mlm_batch(cfg, seed=0)
-    fd = {feeds["input_ids"]: ids, feeds["token_type_ids"]: tt,
-          feeds["masked_lm_labels"]: labels, feeds["attention_mask"]: attn}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch, seq = SHAPES[args.model]
+    ex, fd = build(args.model)
 
     def step():
         return float(ex.run("train", feed_dict=fd)[0].asnumpy())
@@ -78,7 +103,9 @@ def main(argv=None):
     step_s = float(np.mean(times))
 
     psteps = 3
-    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+    counters = [n for n in vars(fa) if n.endswith("_launches")]
+    for n in counters:
+        setattr(fa, n, 0)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -106,11 +133,12 @@ def main(argv=None):
         return us / psteps / 1e3
 
     report = {
-        "card": _card(), "torch": torch.__version__,
-        "batch": BATCH, "seq": SEQ,
+        "card": _card(), "torch": torch.__version__, "model": args.model,
+        "batch": batch, "seq": seq,
         "step_ms_mean": step_s * 1e3,
         "step_ms_all": [t * 1e3 for t in times],
-        "samples_per_s": BATCH / step_s,
+        "samples_per_s": batch / step_s,
+        "tokens_per_s": batch * seq / step_s,
         "profiled": {
             "steps": psteps, "wall_ms_per_step": pwall / psteps * 1e3,
             "device_busy_ms_per_step": per_step_ms(busy_us),
@@ -133,9 +161,11 @@ def main(argv=None):
                                           row_limit=30)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "profile_train.json"), "w") as f:
+        stem = "profile_train" + ("" if args.model == "bert"
+                                  else "_" + args.model)
+        with open(os.path.join(args.out, stem + ".json"), "w") as f:
             json.dump(report, f, indent=1)
-        with open(os.path.join(args.out, "profile_train_ops.txt"), "w") as f:
+        with open(os.path.join(args.out, stem + "_ops.txt"), "w") as f:
             f.write(dev_table + "\n\n")
             f.write(prof.key_averages().table(sort_by="self_cpu_time_total",
                                               row_limit=30))
@@ -143,8 +173,9 @@ def main(argv=None):
     if not kern:
         print("profile_train: the profiler recorded no device time")
     print(dev_table)
-    print(f"flash launches per profiled step: fwd {fa.fwd_launches / psteps} "
-          f"dq {fa.dq_launches / psteps} dkv {fa.dkv_launches / psteps}")
+    print("flash launches per profiled step: " + ", ".join(
+        f"{n} {getattr(fa, n) / psteps}" for n in counters
+        if getattr(fa, n)))
 
 
 if __name__ == "__main__":

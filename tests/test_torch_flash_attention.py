@@ -231,3 +231,246 @@ def test_training_wrappers_check_their_inputs(bad):
         if bad.startswith("mask"):
             fa.flash_fwd_masked(q, q, q, km, 1.0)
         fa.flash_bwd_dq(q, q, q, km, q, lse, delta, 1.0)
+
+
+# -- causal (training) and full mask (chunked prefill) ------------------------
+
+#: gradients of the new specializations, held tighter than GRAD_TOL: the
+#: plain version and the Pallas kernel compute the same formulas from the
+#: same lse, only the summation order differs
+CAUSAL_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+FWD_TOL = dict(rtol=1e-5, atol=1e-5)
+
+#: (S_q, S_kv): the lengths the CUDA kernels are held at on the card
+#: ((1024, 1024), (200, 200), (64, 200), (200, 64), (1, 130)), cut where
+#: the Pallas interpreter would be slow, plus two unequal pairs the Pallas
+#: entry takes (lengths equal mod 128).  The entry raises for causal
+#: lengths that differ mod 128; those are held to sdpa_reference only.
+CAUSAL_PAIRS = [(128, 128), (200, 200), (128, 256), (256, 128), (64, 200),
+                (200, 64), (1, 130)]
+
+
+def _causal_inputs(s_q, s_kv, seed, key_mask=False):
+    rng = np.random.RandomState(seed)
+    q, do = (rng.randn(TB, TH, s_q, TD).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(TB, TH, s_kv, TD).astype(np.float32) for _ in range(2))
+    km = None
+    if key_mask:
+        km = (rng.rand(TB, s_kv) < 0.7).astype(np.int32)
+        km[0, 0] = 1
+        km[1] = 0                      # a batch row with every key masked
+    return q, k, v, do, km
+
+
+def _pallas_takes(s_q, s_kv):
+    return (-s_q) % 128 == (-s_kv) % 128
+
+
+def _flat3(x):
+    return torch.from_numpy(x.reshape(TB * TH, x.shape[2], TD))
+
+
+@pytest.mark.parametrize("key_mask", [False, True])
+@pytest.mark.parametrize("s_q,s_kv", CAUSAL_PAIRS)
+def test_plain_causal_forward_and_backward_match_jax(s_q, s_kv, key_mask):
+    """Plain causal out / dQ / dK / dV against the Pallas kernels in
+    interpret mode (``jax.vjp`` of the entry) where the entry takes the
+    lengths, and against ``sdpa_reference`` (and ``jax.vjp`` of it)
+    always; lse against float64 numpy."""
+    q, k, v, do, km = _causal_inputs(s_q, s_kv, seed=s_q + s_kv,
+                                     key_mask=key_mask)
+    scale = 1.0 / np.sqrt(TD)
+    jkm = None if km is None else jnp.asarray(km)
+    jmask = None if km is None else jnp.asarray(km)[:, None, None, :]
+    refs = [lambda q, k, v: jax_sdpa_reference(q, k, v, causal=True,
+                                               mask=jmask)]
+    if _pallas_takes(s_q, s_kv):
+        refs.append(lambda q, k, v: jax_flash(q, k, v, causal=True,
+                                              key_mask=jkm, interpret=True))
+    tkm = None if km is None else torch.from_numpy(km)
+    out, lse = fa.flash_fwd_plain(_flat3(q), _flat3(k), _flat3(v), None, TH,
+                                  scale, key_mask=tkm, causal=True)
+    grads = fa.flash_bwd_plain(_flat3(q), _flat3(k), _flat3(v), tkm, out,
+                               lse, _flat3(do), scale, causal=True)
+    for fn in refs:
+        want, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k),
+                            jnp.asarray(v))
+        np.testing.assert_allclose(out.numpy().reshape(q.shape),
+                                   np.asarray(want), **FWD_TOL)
+        for name, got, ref in zip("qkv", grads, vjp(jnp.asarray(do))):
+            np.testing.assert_allclose(
+                got.numpy().reshape(ref.shape), np.asarray(ref),
+                err_msg=f"d{name}", **CAUSAL_GRAD_TOL)
+    # lse, and with it the probabilities exp(s - lse) the backward forms
+    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64),
+                  k.astype(np.float64)) * scale
+    valid = np.tril(np.ones((s_q, s_kv), bool), s_kv - s_q)[None, None]
+    if km is not None:
+        valid = valid & (km != 0)[:, None, None, :]
+    valid = np.broadcast_to(valid, s.shape)
+    lse = lse.numpy().reshape(TB, TH, s_q)
+    seen = valid.any(-1)
+    sm = np.where(valid, s, -np.inf)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        m = sm.max(-1)
+        want_lse = m + np.log(np.exp(sm - m[..., None]).sum(-1))
+    np.testing.assert_allclose(lse[seen], want_lse[seen], **FWD_TOL)
+    assert np.all(lse[~seen] == np.float32(fa.NEG_INF))
+    flat_seen = seen.reshape(TB * TH, s_q)
+    assert np.all(out.numpy()[~flat_seen] == 0.0)
+    assert np.all(grads[0].numpy()[~flat_seen] == 0.0)
+    for g in grads:
+        assert np.all(np.isfinite(g.numpy()))
+
+
+@pytest.mark.parametrize("key_mask", [False, True])
+@pytest.mark.parametrize("s_q,s_kv", [(128, 128), (77, 77), (40, 100),
+                                      (100, 40)])
+def test_causal_autograd_function_on_cpu_matches_autograd_of_sdpa_reference(
+        s_q, s_kv, key_mask):
+    """``flash_attention(causal=True)`` → ``FlashAttention`` on CPU
+    tensors runs the plain causal versions of all three kernels.  (The
+    wrappers take float32 only, so this stands in for a float64
+    ``gradcheck``.)"""
+    from hetu_tpu_torch.ops.attention import sdpa_reference
+    q, k, v, do, km = _causal_inputs(s_q, s_kv, seed=s_q, key_mask=key_mask)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True)
+                  for x in (q, k, v))
+    tkm = None if km is None else torch.from_numpy(km)
+    out = fa.flash_attention(tq, tk, tv, causal=True, key_mask=tkm)
+    ref = sdpa_reference(tq, tk, tv, causal=True, mask=None if tkm is None
+                         else tkm[:, None, None, :])
+    np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(),
+                               **FWD_TOL)
+    cot = torch.from_numpy(do)
+    got = torch.autograd.grad(out, (tq, tk, tv), cot)
+    want = torch.autograd.grad(ref, (tq, tk, tv), cot)
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), err_msg=f"d{name}",
+                                   **CAUSAL_GRAD_TOL)
+
+
+def _full_mask(gmode, s_q, s_kv, seed, rows=None):
+    """A boolean (1|B, 1|H, rows, S_kv) mask of group mode ``gmode`` with
+    one query row that masks every key."""
+    rng = np.random.RandomState(seed)
+    gb = TB if gmode in ("b", "bh") else 1
+    gh = TH if gmode in ("h", "bh") else 1
+    m = rng.rand(gb, gh, s_q if rows is None else rows, s_kv) < 0.6
+    m[0, 0, 0] = False
+    return m
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("gmode", ["one", "h", "b", "bh"])
+def test_plain_fullmask_forward_matches_jax_pallas_interpret(gmode, causal):
+    s_q = s_kv = 128
+    q, k, v, _, _ = _causal_inputs(s_q, s_kv, seed=11)
+    mask = _full_mask(gmode, s_q, s_kv, seed=12)
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), mask=jnp.asarray(mask),
+                                causal=causal, interpret=True))
+    ref = np.asarray(jax_sdpa_reference(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), causal=causal,
+                                        mask=jnp.asarray(mask)))
+    tmask = torch.from_numpy(mask)
+    assert fa.classify_group(tmask, TB, TH, s_q, s_kv, "mask") == gmode
+    got = fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), mask=tmask,
+                             causal=causal).numpy()
+    np.testing.assert_allclose(got, want, **FWD_TOL)
+    np.testing.assert_allclose(got, ref, **FWD_TOL)
+    # the row with every key masked outputs zero wherever its group reaches
+    dead = got[slice(None) if gmode in ("one", "h") else slice(0, 1),
+               slice(None) if gmode in ("one", "b") else slice(0, 1), 0]
+    assert np.all(dead == 0.0)
+
+
+@pytest.mark.parametrize("s_q,s_kv,rows", [(32, 96, None), (5, 40, 1),
+                                           (1, 130, None)])
+def test_plain_fullmask_ragged_and_row_broadcast_match_sdpa_reference(
+        s_q, s_kv, rows):
+    """Lengths no multiple of a tile, with ``key_mask`` on top, and a
+    (B, 1, 1|S_q, S_kv) mask whose one row is expanded over the query
+    rows (held to ``sdpa_reference``: the Pallas entry pads these)."""
+    q, k, v, _, km = _causal_inputs(s_q, s_kv, seed=s_kv, key_mask=True)
+    km[1, :3] = 1
+    mask = _full_mask("b", s_q, s_kv, seed=s_q, rows=rows)
+    both = mask & (km != 0)[:, None, None, :]
+    want = np.asarray(jax_sdpa_reference(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v),
+                                         mask=jnp.asarray(both)))
+    got = fa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), mask=torch.from_numpy(mask),
+                             key_mask=torch.from_numpy(km)).numpy()
+    np.testing.assert_allclose(got, want, **FWD_TOL)
+
+
+def test_fullmask_lse_of_a_dead_row_and_storage():
+    q, k, v, _, _ = _causal_inputs(16, 24, seed=3)
+    mask = torch.from_numpy(_full_mask("h", 16, 24, seed=4))
+    m3, gmode = fa.broadcast_group(mask, TB, TH, 16, 24, "mask")
+    assert gmode == "h" and m3.dtype == torch.uint8
+    assert tuple(m3.shape) == (TH, 16, 24)          # stored unbroadcast
+    out, lse = fa.flash_fwd_fullmask(_flat3(q), _flat3(k), _flat3(v), m3,
+                                     gmode, TH, 0.2)
+    assert np.all(out.numpy()[::TH, 0] == 0.0)      # head 0 of every batch
+    assert np.all(lse.numpy()[::TH, 0] == np.float32(fa.NEG_INF))
+
+
+@pytest.mark.parametrize("what", ["bias", "lengths+key_mask",
+                                  "lengths+causal", "mask backward"])
+def test_unported_specializations_are_refused_by_name(what):
+    q = torch.zeros(2, 2, 8, 8)
+    kw = {"bias": dict(bias=torch.zeros(1, 1, 8, 8)),
+          "lengths+key_mask": dict(
+              lengths=torch.ones(2, dtype=torch.int32),
+              key_mask=torch.ones(2, 8, dtype=torch.int32)),
+          "lengths+causal": dict(lengths=torch.ones(2, dtype=torch.int32),
+                                 causal=True),
+          "mask backward": dict(mask=torch.ones(1, 1, 8, 8,
+                                                dtype=torch.bool))}[what]
+    qq = q.clone().requires_grad_(True) if what == "mask backward" else q
+    with pytest.raises(NotImplementedError,
+                       match="full-mask backward" if what == "mask backward"
+                       else what.split("+")[0]):
+        fa.flash_attention(qq, q, q, **kw)
+
+
+def test_new_wrappers_count_no_launch_on_cpu():
+    q, k, v, do, km = _causal_inputs(16, 16, seed=9, key_mask=True)
+    names = ("fwd_causal_launches", "dq_causal_launches",
+             "dkv_causal_launches", "fwd_mask_launches")
+    before = [getattr(fa, n) for n in names]
+    tq, tk, tv, tdo = (_flat3(x) for x in (q, k, v, do))
+    tkm = torch.from_numpy(km)
+    out, lse = fa.flash_fwd_masked(tq, tk, tv, tkm, 0.25, causal=True)
+    delta = (tdo * out).sum(-1)
+    dq = fa.flash_bwd_dq(tq, tk, tv, tkm, tdo, lse, delta, 0.25, causal=True)
+    dk, dv = fa.flash_bwd_dkv(tq, tk, tv, tkm, tdo, lse, delta, 0.25,
+                              causal=True)
+    want = fa.flash_bwd_plain(tq, tk, tv, tkm, out, lse, tdo, 0.25,
+                              causal=True)
+    for g, w in zip((dq, dk, dv), want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    fa.flash_fwd_fullmask(tq, tk, tv,
+                          torch.ones(1, 16, 16, dtype=torch.uint8), "one", TH,
+                          0.25)
+    assert [getattr(fa, n) for n in names] == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "rows", "gmode", "key_mask_rows"])
+def test_fullmask_wrapper_checks_its_inputs(bad):
+    q = torch.zeros(4, 6, 8)
+    mask = torch.ones(2, 6, 6, dtype=torch.uint8)
+    gmode, km = "h", None
+    if bad == "dtype":
+        mask = mask.bool()
+    elif bad == "rows":
+        mask = torch.ones(3, 6, 6, dtype=torch.uint8)
+    elif bad == "gmode":
+        gmode = "hb"
+    else:
+        km = torch.ones(4, 6, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        fa.flash_fwd_fullmask(q, q, q, mask, gmode, 2, 1.0, key_mask=km)

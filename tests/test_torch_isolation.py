@@ -40,7 +40,11 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "import hetu_tpu_torch.ops.kernels.flash_attention\n"
             "import hetu_tpu_torch.ops.kernels._build\n"
             "import hetu_tpu_torch.tools.profile_train\n"
+            "import hetu_tpu_torch.tools.profile_decode\n"
             "import hetu_tpu_torch.tools.profile_moe\n"
+            "import hetu_tpu_torch.models.gpt2\n"
+            "import hetu_tpu_torch.ops.attention\n"
+            "import hetu_tpu_torch.serving.decode\n"
             "assert sys.modules['jax'] is None\n"
             "print(hetu_tpu_torch.GPT2Config.small().n_layer)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -91,12 +95,32 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         calls[entry]()
 
 
-@pytest.mark.parametrize("opt", ["plan", "chunked", "prefix_store"])
+@pytest.mark.parametrize("opt", ["plan", "prefix_store"])
 def test_decode_engine_refuses_unported_options(opt):
     cfg = ht.GPT2Config.tiny(n_layer=1)
     feeds, logits, caches, _ = ht.gpt2_decode_graph(cfg, max_len=8)
     with pytest.raises(NotImplementedError, match=opt):
         ht.DecodeEngine(feeds, logits, caches, device="cpu", **{opt: object()})
+
+
+def test_decode_engine_takes_a_chunked_entry_and_needs_its_variables():
+    """``chunked=`` is ported: the second executor is loaded from the
+    primary's parameters (the same tensors), and a chunked graph with a
+    variable the primary lacks raises instead of drawing it from a seed."""
+    cfg = ht.GPT2Config.tiny(n_layer=1)
+    feeds, logits, caches, _ = ht.gpt2_decode_graph(cfg, max_len=8)
+    chunked = ht.gpt2_decode_chunked_graph(cfg, max_len=8)[:3]
+    eng = ht.DecodeEngine(feeds, logits, caches, device="cpu",
+                          chunked=chunked, max_len=8)
+    assert eng.chunk_ladder == (1, 2, 4, 8) and eng.chunk_top == 8
+    by_name = {eng.iex.var_names[n]: eng.iex.params[eng.iex._k(n)]
+               for n in eng.iex.var_nodes}
+    for n in eng.ciex.var_nodes:
+        name = eng.ciex.var_names[n]
+        assert eng.ciex.params[eng.ciex._k(n)] is by_name[name]
+    other = ht.gpt2_decode_chunked_graph(cfg, max_len=8, name="other")[:3]
+    with pytest.raises(KeyError, match="other"):
+        ht.DecodeEngine(feeds, logits, caches, device="cpu", chunked=other)
 
 
 @pytest.mark.parametrize("opt", ["plan", "mesh", "validate"])
@@ -115,18 +139,20 @@ def test_inference_executor_refuses_checkpoint_directory(tmp_path):
 
 
 @pytest.mark.parametrize("spec", ["causal", "key_mask", "mask", "bias",
-                                  "dense"])
+                                  "mask_backward"])
 def test_flash_attention_unported_specializations_raise(spec):
-    """Ported: ``lengths`` (decode) and dense / ``key_mask`` (training).
-    Unported and refused by name: causal, full mask and bias, whatever
-    they come with, and ``key_mask`` together with ``lengths``."""
+    """Ported: ``lengths`` (decode), dense / ``key_mask`` / causal
+    (training) and the full-mask forward.  Unported and refused by name:
+    bias, whatever it comes with; ``lengths`` together with ``key_mask``,
+    ``mask`` or ``causal``; the full-mask backward."""
     q = torch.zeros(1, 1, 1, 8)
     kw = {"lengths": torch.ones(1, dtype=torch.int32)}
     match = spec
     if spec == "causal":
         kw["causal"] = True
-    elif spec == "dense":
-        kw, match = {"causal": True}, "causal"
+    elif spec == "mask_backward":
+        kw, match = {"mask": torch.ones(1, 1, 1, 1)}, "full-mask backward"
+        q = q.requires_grad_(True)
     elif spec == "key_mask":
         kw[spec] = torch.ones(1, 1, dtype=torch.int32)
         match = "lengths together with key_mask"
@@ -136,20 +162,24 @@ def test_flash_attention_unported_specializations_raise(spec):
         fa.flash_attention(q, q, q, **kw)
 
 
-@pytest.mark.parametrize("what", ["causal", "full_mask"])
+@pytest.mark.parametrize("what", ["causal", "full_mask", "prefill"])
 def test_attention_dispatch_off_the_cpu_raises_for_unported_kinds(what):
     """A tensor off the CPU (a meta tensor stands in for the card here)
-    goes to the kernels, which launch or raise by name: the dispatcher
-    never falls back to the plain attention."""
+    goes to the kernel wrappers, which launch or raise: the dispatcher
+    never falls back to the plain attention.  Causal, a full mask and the
+    chunked prefill are ported, so each reaches its wrapper, and the
+    wrapper has no kernel for a device that is not CUDA."""
     from hetu_tpu_torch.ops import attention
     q = torch.zeros(1, 1, 2, 8, device="meta")
-    mask = torch.ones(1, 1, 1, 2, dtype=torch.int32, device="meta") \
-        if what == "causal" \
-        else torch.ones(1, 1, 2, 2, dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError,
-                       match="causal" if what == "causal" else "mask"):
-        attention.dispatch_sdpa_masked(q, q, q, mask,
-                                       causal=what == "causal")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        if what == "prefill":
+            attention.dispatch_sdpa_prefill(
+                q, q, q, torch.zeros(1, dtype=torch.int32, device="meta"))
+        else:
+            mask = torch.ones(1, 1, 1 if what == "causal" else 2, 2,
+                              dtype=torch.int32, device="meta")
+            attention.dispatch_sdpa_masked(q, q, q, mask,
+                                           causal=what == "causal")
 
 
 def test_build_paths_stay_inside_the_package():

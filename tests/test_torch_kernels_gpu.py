@@ -8,7 +8,9 @@ the JAX package, so it runs where only PyTorch is installed::
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -m gpu
 
 Tolerance: atol 1e-5 in float32 — kernel and plain version sum in
-different orders.  The embedding-cache kernels: the slab row gather is a
+different orders.  The causal and full-mask specializations are held the
+same way at equal, unequal and ragged (S_q, S_kv), with rows that see no
+key.  The embedding-cache kernels: the slab row gather is a
 copy and must match exactly; the segment-sum must match its plain version
 (``index_add_``, atomics on the card) within rtol 2e-5 / atol 1e-6 and the
 host cache's ``_segment_sum`` exactly.  The MoE row gather is a copy with
@@ -147,6 +149,151 @@ def test_autograd_function_launches_all_three_kernels(cuda):
     assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
         n + 1 for n in before)
     assert all(torch.isfinite(g).all() for g in grads)
+
+
+# -- causal and full mask ------------------------------------------------------
+
+#: equal, ragged and unequal lengths; (200, 64) leaves the first 136 query
+#: rows with no visible key, (1, 130) is one row against a ragged cache
+CAUSAL_PAIRS = [(1024, 1024), (200, 200), (64, 200), (200, 64), (1, 130)]
+CAUSAL_CASES = [(s_q, s_kv, d, masked) for s_q, s_kv in CAUSAL_PAIRS
+                for d, masked in ((64, False), (64, True), (128, False))]
+
+
+def _causal_inputs(cuda, s_q, s_kv, d, masked, seed):
+    rng = np.random.RandomState(seed)
+    b, h = 2, 3
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda)
+
+    q, do = t(b * h, s_q, d), t(b * h, s_q, d)
+    k, v = t(b * h, s_kv, d), t(b * h, s_kv, d)
+    km = None
+    if masked:
+        m = (rng.rand(b, s_kv) < 0.7).astype(np.int32)
+        m[0, 0] = 1
+        m[1] = 0
+        km = torch.from_numpy(m).to(cuda)
+    return q, k, v, do, km
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_q,s_kv,d,masked", CAUSAL_CASES)
+def test_causal_forward_kernel_matches_plain_version(cuda, s_q, s_kv, d,
+                                                     masked):
+    q, k, v, _, km = _causal_inputs(cuda, s_q, s_kv, d, masked, s_q + s_kv)
+    before = (fa.fwd_launches, fa.fwd_causal_launches)
+    out, lse = fa.flash_fwd_masked(q, k, v, km, d ** -0.5, causal=True)
+    ref, lse_ref = fa.flash_fwd_plain(q, k, v, None, 3, d ** -0.5,
+                                      key_mask=km, causal=True)
+    torch.cuda.synchronize()
+    assert (fa.fwd_launches, fa.fwd_causal_launches) == (before[0],
+                                                         before[1] + 1)
+    assert float((out - ref).abs().max()) <= ATOL
+    assert float((lse - lse_ref).abs().max()) <= ATOL
+    empty = max(0, s_q - s_kv)          # rows that see no key
+    if empty:
+        assert float(out[:, :empty].abs().max()) == 0.0
+        assert bool((lse[:, :empty] == fa.NEG_INF).all())
+    if masked:
+        assert float(out[3:].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_q,s_kv,d,masked", CAUSAL_CASES)
+def test_causal_backward_kernels_match_plain_version(cuda, s_q, s_kv, d,
+                                                     masked):
+    """Causal dQ / dK / dV within allclose(rtol=1e-4, atol=1e-5) of the
+    plain formulas; rows that see no key and keys that no row sees get
+    exact zeros; the same from run to run."""
+    q, k, v, do, km = _causal_inputs(cuda, s_q, s_kv, d, masked,
+                                     3 * s_q + s_kv)
+    scale = d ** -0.5
+    out, lse = fa.flash_fwd_plain(q, k, v, None, 3, scale, key_mask=km,
+                                  causal=True)
+    delta = (do * out).sum(-1)
+    before = (fa.dq_causal_launches, fa.dkv_causal_launches)
+    dq = fa.flash_bwd_dq(q, k, v, km, do, lse, delta, scale, causal=True)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, km, do, lse, delta, scale,
+                              causal=True)
+    dq_ref, dk_ref, dv_ref = fa.flash_bwd_plain(q, k, v, km, out, lse, do,
+                                                scale, causal=True)
+    torch.cuda.synchronize()
+    assert (fa.dq_causal_launches, fa.dkv_causal_launches) == (
+        before[0] + 1, before[1] + 1)
+    for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert bool(torch.isfinite(got).all())
+        assert torch.allclose(got, want, rtol=1e-4, atol=1e-5), \
+            float((got - want).abs().max())
+    empty = max(0, s_q - s_kv)
+    if empty:
+        assert float(dq[:, :empty].abs().max()) == 0.0
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, km, do, lse, delta, scale,
+                                causal=True)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.gpu
+def test_causal_autograd_function_launches_the_causal_kernels(cuda):
+    q, k, v, do, _ = _causal_inputs(cuda, 200, 200, 64, False, seed=4)
+    q4, k4, v4 = (t.view(2, 3, 200, 64).requires_grad_(True)
+                  for t in (q, k, v))
+    before = (fa.fwd_causal_launches, fa.dq_causal_launches,
+              fa.dkv_causal_launches)
+    out = fa.flash_attention(q4, k4, v4, causal=True)
+    grads = torch.autograd.grad(out, (q4, k4, v4), do.view(2, 3, 200, 64))
+    torch.cuda.synchronize()
+    assert (fa.fwd_causal_launches, fa.dq_causal_launches,
+            fa.dkv_causal_launches) == tuple(n + 1 for n in before)
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+FULLMASK_CASES = [(gmode, s_q, s_kv, d, causal, masked)
+                  for gmode in ("one", "h", "b", "bh")
+                  for s_q, s_kv, d, causal, masked in (
+                      (32, 512, 64, False, False),
+                      (77, 130, 128, False, True),
+                      (200, 200, 32, True, True),
+                      (1, 65, 64, False, False))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gmode,s_q,s_kv,d,causal,masked", FULLMASK_CASES)
+def test_fullmask_forward_kernel_matches_plain_version(cuda, gmode, s_q, s_kv,
+                                                       d, causal, masked):
+    b, h = 2, 3
+    q, k, v, _, km = _causal_inputs(cuda, s_q, s_kv, d, masked,
+                                    s_q + 2 * s_kv)
+    rng = np.random.RandomState(s_q)
+    g = fa._group_rows(gmode, b * h, h)
+    m = (rng.rand(g, s_q, s_kv) < 0.6).astype(np.uint8)
+    m[0, 0] = 0                          # a row with every key masked
+    mask = torch.from_numpy(m).to(cuda)
+    before = fa.fwd_mask_launches
+    out, lse = fa.flash_fwd_fullmask(q, k, v, mask, gmode, h, d ** -0.5,
+                                     key_mask=km, causal=causal)
+    ref, lse_ref = fa.flash_fwd_plain(q, k, v, None, h, d ** -0.5,
+                                      key_mask=km, causal=causal, mask=mask,
+                                      gmode=gmode)
+    torch.cuda.synchronize()
+    assert fa.fwd_mask_launches == before + 1
+    assert float((out - ref).abs().max()) <= ATOL
+    assert float((lse - lse_ref).abs().max()) <= ATOL
+    assert float(out[0, 0].abs().max()) == 0.0
+    assert float(lse[0, 0]) == float(np.float32(fa.NEG_INF))
+
+
+@pytest.mark.gpu
+def test_fullmask_entry_refuses_gradients_and_runs_without(cuda):
+    q, k, v, _, _ = _causal_inputs(cuda, 32, 96, 64, False, seed=6)
+    q4, k4, v4 = (t.view(2, 3, -1, 64) for t in (q, k, v))
+    mask = torch.rand(2, 1, 32, 96, device=cuda) < 0.5
+    before = fa.fwd_mask_launches
+    out = fa.flash_attention(q4, k4, v4, mask=mask)
+    assert fa.fwd_mask_launches == before + 1 and out.shape == q4.shape
+    with pytest.raises(NotImplementedError, match="full-mask backward"):
+        fa.flash_attention(q4.clone().requires_grad_(True), k4, v4, mask=mask)
 
 
 @pytest.mark.gpu

@@ -153,11 +153,101 @@ def test_kv_cache_append_with_clamped_start(positions):
 
 
 def test_kv_cache_append_refuses_chunked_writes():
+    """Chunked writes are ported; the one refused is a chunk wider than
+    the cache (``dynamic_update_slice`` refuses it at trace time too)."""
     tnode = tops.kv_cache_append_op(torch_ph("c"), torch_ph("n"),
                                     torch_ph("p"))
-    with pytest.raises(NotImplementedError, match="chunked"):
-        tnode.lower(TorchCtx(False), torch.zeros(1, 1, 8, 2),
-                    torch.zeros(1, 1, 2, 2), torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="chunked"):
+        tnode.lower(TorchCtx(False), torch.zeros(1, 1, 2, 2),
+                    torch.zeros(1, 1, 3, 2), torch.zeros(1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("positions,valid", [
+    ([0, 3, 5], None), ([0, 3, 5], [3, 1, 0]), ([6, 2, 11], [3, 3, 2]),
+    ([-2, 0, -20], [2, 3, 1]), ([1, 1, 1], [0, 0, 0]), ([5, 5, 5], [9, 3, 3])])
+def test_kv_cache_append_chunked_with_valid(positions, valid):
+    """A (B, H, 3, D) chunk at ``positions``, rows ``>= valid[b]`` not
+    written (the old cache bytes stay): equal to the JAX op exactly,
+    starts clamped into [0, L - 3] as ``dynamic_update_slice`` clamps
+    them, and written in place."""
+    cache = _rand(3, 2, 8, 4)
+    new = _rand(3, 2, 3, 4, seed=1)
+    arrays = [cache, new, np.asarray(positions, np.int32)]
+    if valid is not None:
+        arrays.append(np.asarray(valid, np.int32))
+    got, want = _both("kv_cache_append_op", arrays)
+    np.testing.assert_array_equal(got, want)
+    tnode = tops.kv_cache_append_op(*[torch_ph(f"x{i}")
+                                      for i in range(len(arrays))])
+    c = torch.from_numpy(cache.copy())
+    out = tnode.lower(TorchCtx(False), c,
+                      *[torch.from_numpy(a) for a in arrays[1:]])
+    assert out.data_ptr() == c.data_ptr()
+    np.testing.assert_array_equal(c.numpy(), want)
+
+
+@pytest.mark.parametrize("valid", [[3, 1, 0], [2, 3, 3]])
+def test_kv_cache_append_chunk_equals_one_token_appends(valid):
+    """One masked 3-row write leaves the bytes of ``valid[b]`` one-token
+    writes at consecutive positions; rows past ``valid`` are untouched."""
+    cache = _rand(3, 2, 8, 4)
+    new = _rand(3, 2, 3, 4, seed=1)
+    pos = np.asarray([0, 4, 5], np.int32)
+    got, _ = _both("kv_cache_append_op",
+                   [cache, new, pos, np.asarray(valid, np.int32)])
+    step = tops.kv_cache_append_op(torch_ph("c"), torch_ph("n"),
+                                   torch_ph("p"))
+    want = torch.from_numpy(cache.copy())
+    for b in range(3):
+        for j in range(valid[b]):
+            step.lower(TorchCtx(False), want[b:b + 1],
+                       torch.from_numpy(new[b:b + 1, :, j:j + 1]),
+                       torch.tensor([pos[b] + j], dtype=torch.int32))
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_chunk_positions_clamp_to_the_limit():
+    pos = np.asarray([0, 5, 9], np.int32)
+    ids = np.zeros((3, 4), np.int32)
+    for limit in (None, 10):
+        got, want = _both("chunk_positions_op", [pos, ids], limit=limit)
+        assert got.dtype == want.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+    assert got[2].tolist() == [9, 9, 9, 9]
+
+
+def test_split_and_merge_heads_chunk():
+    t = _rand(3 * 4, 2 * 5)
+    ids = np.zeros((3, 4), np.int32)
+    got, want = _both("split_heads_chunk_op", [t, ids], n_head=2)
+    assert got.shape == want.shape == (3, 2, 4, 5)
+    np.testing.assert_array_equal(got, want)
+    back, jback = _both("merge_heads_chunk_op", [got])
+    np.testing.assert_array_equal(back, jback)
+    np.testing.assert_array_equal(back, t)
+
+
+@pytest.mark.parametrize("valid", [[4, 1, 2], [0, 9, 3]])
+def test_chunk_emit_gather_picks_the_last_consumed_row(valid):
+    hidden = _rand(3 * 4, 6)
+    ids = np.zeros((3, 4), np.int32)
+    got, want = _both("chunk_emit_gather_op",
+                      [hidden, ids, np.asarray(valid, np.int32)])
+    assert got.shape == (3, 6)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+def test_sdpa_prefill_on_cpu_takes_the_plain_version_and_counts_it(chunk):
+    """Chunk-local query j sees keys < positions + j + 1; a slot whose
+    window runs past the cache end only has don't-care rows."""
+    q = _rand(3, 2, chunk, 8)
+    kc, vc = _rand(3, 2, 12, 8, seed=1), _rand(3, 2, 12, 8, seed=2)
+    pos = np.asarray([0, 4, 2], np.int32)
+    metrics.reset_flash_fallbacks()
+    got, want = _both("sdpa_prefill_op", [q, kc, vc, pos])
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    assert metrics.flash_fallback_counts() == {"backend:cpu": 1}
 
 
 @pytest.mark.parametrize("kind", ["mask", "causal", "bias", "plain"])
