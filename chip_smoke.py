@@ -28,6 +28,10 @@ without printing the final result line:
    H=12, S=512, D=64: a key mask from ``synthetic_mlm_batch``'s lengths
    plus one row with every key masked; dense; a ragged S=200), and time
    each kernel, its plain version, the SDPA yardstick and the bound.
+   Phases 5, 14 and 18 share one check (``attn_case``): out and lse
+   within ``KERNEL_ATOL``, every gradient finite and within ``GRAD_RTOL``
+   / ``GRAD_ATOL``, every row that sees no key out = dQ = 0 with lse =
+   -1e30.
 6. Train BERT-base (published widths: 12 layers, hidden 768, 12 heads,
    intermediate 3072, vocab 30522; seq 512, batch 16, dropout 0.1) with
    ``AdamOptimizer(1e-4)`` through ``Executor.run``: 2 warm-up steps, then
@@ -117,7 +121,35 @@ without printing the final result line:
     chunked on the CPU, within ``LOGITS_ATOL``.  The greedy streams of the
     two engines must be equal; one may differ only from a step at which
     the one-token path's top-2 logit gap is below 2 x ``LOGITS_ATOL``.
-18. Print the card's name and power limit, the ``kernels`` JSON line and,
+18. Hold the additive-bias kernels (forward, dQ with dbias, dK/dV with
+    dkbias) against their plain versions at T5-small attention shapes (B=32,
+    H=8, D=64, scale 0.37): the encoder's (S=512, the relative-position bias
+    of group ``h``, the key mask of ``synthetic_seq2seq_batch(padded=True)``
+    with one batch row fully masked), the decoder's (S=114, causal, group
+    ``h``), rows that see no key ((200, 64) causal, group ``bh``), one row
+    (group ``b``), and the key-bias strip ((B, 1, 1, S) causal at S=512;
+    (114, 200) with a key mask); dbias must be exactly 0 on every pair no
+    row sees (above the diagonal: key tiles the causal dQ kernel skips).
+    Also the key-mask kernels at the cross-attention's shape (S_q=114,
+    S_kv=512, the same key mask with its fully masked row).  Time the
+    encoder's, decoder's and cross-attention's kernels and the strip,
+    their plain versions, SDPA (with a bias as a float ``attn_mask``, its
+    backward with the mask's gradient where torch gives one) and the
+    bound.
+19. Train T5-small (published widths: 6 + 6 layers, d_model 512, d_ff
+    2048, 8 heads, vocab 32,128, 32 relative-position buckets; source 512,
+    target 114, batch 32, dropout 0.1, ``use_mask=True`` with
+    ``synthetic_seq2seq_batch(padded=True)``) with ``AdamOptimizer(1e-4)``
+    through ``Executor.run``: 2 warm-up steps, then 10 counted steps with
+    every launch counter set to 0 just before and read just after (the
+    bias forward / dQ / dK/dV, their causal twins and the key-mask kernels
+    of the cross-attention: steps x 6 launches each; nothing else; no
+    ``backend:`` fallback; the loss falls).
+20. Train T5-small cut to 2 + 2 layers (batch 4, source 128 padded,
+    target 50, dropout 0) on the card and on the CPU from the same weights
+    for 3 Adam steps; the losses and the step-1 gradients of every
+    variable, the relative-position tables included, must agree.
+21. Print the card's name and power limit, the ``kernels`` JSON line and,
     last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32:
@@ -174,6 +206,11 @@ MOE_WARMUP, MOE_STEPS, MOE_PROFILED, MOE_CPU_TOKENS = 3, 20, 5, 1024
 # GPT-2 small training step; the chunked-prefill kernel shape
 GPT_BATCH, GPT_SEQ, GPT_WARMUP, GPT_STEPS = 8, 1024, 2, 10
 PREFILL_CHUNK, PREFILL_CACHE = 32, 512
+# T5-small seq2seq training (span-corruption lengths, batch cut from 128)
+T5_BATCH, T5_SRC, T5_TGT, T5_WARMUP, T5_STEPS = 32, 512, 114, 2, 10
+# the bias kernels are held at a scale other than T5's 1.0, which would
+# hide a bias added before the scale
+T5_KERNEL_SCALE = 0.37
 # row-gather launches of one top-2 training step: the dispatch (1), the
 # combine (2), its backward (2 for d_w, 1 for d_buffers); the tokens are
 # a feed, so autograd runs no dispatch backward
@@ -355,13 +392,199 @@ def attn_bound(kind, bh, s_q, s_kv, d, pairs, extra_bytes=0, kv_rows=None):
                                        else "operations")
 
 
+def attn_extra(kind, key_mask, bias, kbias, bh, s_q, s_kv):
+    """Bytes an attention kernel moves beyond q/k/v/dO/out/lse/delta: the
+    key mask, a bias or strip read once, and dQ's dbias (BH, S_q, S_kv) or
+    dK/dV's dkbias (BH, 1, S_kv) written once."""
+    n = 0 if key_mask is None else 4 * key_mask.numel()
+    for b in (bias, kbias):
+        if b is not None:
+            n += 4 * b.numel()
+    if kind == "dq" and bias is not None:
+        n += 4 * bh * s_q * s_kv
+    if kind == "dkv" and kbias is not None:
+        n += 4 * bh * s_kv
+    return n
+
+
+def sdpa_yardstick(fa, q, k, v, heads, scale, km, causal, bias, kbias,
+                   gmode):
+    """(B, H, S, D) views of q/k/v that need a gradient, SDPA's keyword
+    arguments for the same function and what they are: ``is_causal``, the
+    key mask (and causal rule) as a boolean ``attn_mask``, or the bias
+    with -1e30 on every masked pair as a float ``attn_mask`` that needs a
+    gradient too."""
+    bh, s_q, dh = q.shape
+    s_kv = k.shape[1]
+    b = bh // heads
+    q4, k4, v4 = (x.view(b, heads, -1, dh).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    kw = {"scale": scale}
+    if bias is None and kbias is None:
+        if km is None:
+            if causal:
+                kw["is_causal"] = True
+            return (q4, k4, v4), kw, "SDPA" + (" is_causal" if causal else "")
+        m = (km != 0).view(b, 1, 1, s_kv)
+        if causal:
+            m = m & torch.ones(s_q, s_kv, dtype=torch.bool,
+                               device="cuda").tril(s_kv - s_q)
+        kw["attn_mask"] = m
+        return (q4, k4, v4), kw, "SDPA boolean attn_mask"
+    amask = fa._expand_group(bias if bias is not None else kbias, gmode,
+                             bh, heads).view(b, heads, -1, s_kv)
+    valid = fa._valid(bh, s_q, s_kv, q.device, key_mask=km, causal=causal)
+    amask = amask.expand(b, heads, s_q, s_kv)
+    if valid is not None:
+        amask = amask.masked_fill(
+            ~valid.expand(bh, s_q, s_kv).view(b, heads, s_q, s_kv), -1e30)
+    kw["attn_mask"] = amask.contiguous().requires_grad_(True)
+    return (q4, k4, v4), kw, "SDPA with the bias as a float attn_mask"
+
+
+def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
+              causal=False, bias=None, kbias=None, gmode="bh", flush=None):
+    """One attention case held to its plain versions on the same inputs:
+    the bias forward / dQ (dbias) / dK/dV (dkbias) kernels with a dense
+    ``bias`` or a strip ``kbias`` of group mode ``gmode``, else the
+    dense / key-mask / causal ones.  out and lse within KERNEL_ATOL; dQ,
+    dK, dV, dbias, dkbias finite and allclose at GRAD_RTOL / GRAD_ATOL;
+    every row that sees no key (a batch row with every key masked, the
+    first S_q - S_kv causal rows) out = dQ = 0 and lse = -1e30; dbias 0 on
+    every pair no row sees.  With ``flush`` it also times each kernel, the
+    plain versions and SDPA on the same function, each launch with the L2
+    flushed, beside its bound.  Returns (max_abs_err {fwd, dq, dkv},
+    timings {fwd, dq, dkv} or None)."""
+    F = torch.nn.functional
+    bh, s_q, dh = q.shape
+    s_kv = k.shape[1]
+    biased = bias is not None or kbias is not None
+
+    def fwd():
+        if biased:
+            return fa.flash_fwd_bias(q, k, v, km, bias, kbias, gmode, heads,
+                                     scale, causal=causal)
+        return fa.flash_fwd_masked(q, k, v, km, scale, causal=causal)
+
+    def plain_fwd():
+        return fa.flash_fwd_plain(q, k, v, None, heads, scale, key_mask=km,
+                                  causal=causal, bias=bias, kbias=kbias,
+                                  bgmode=gmode)
+
+    out, lse = fwd()
+    ref, lse_ref = plain_fwd()
+    delta = (do * out).sum(-1)
+    args = (q, k, v, km, bias, kbias, gmode, heads, do, lse, delta, scale)
+
+    def dq_fn():
+        if biased:
+            return fa.flash_bwd_dq_bias(*args, causal=causal)
+        return fa.flash_bwd_dq(q, k, v, km, do, lse, delta, scale,
+                               causal=causal), None
+
+    def dkv_fn():
+        if biased:
+            return fa.flash_bwd_dkv_bias(*args, causal=causal)
+        return fa.flash_bwd_dkv(q, k, v, km, do, lse, delta, scale,
+                                causal=causal) + (None,)
+
+    def plain_bwd():
+        if biased:
+            return fa.flash_bwd_bias_plain(q, k, v, km, bias, kbias, gmode,
+                                           heads, out, lse, do, scale,
+                                           causal=causal)
+        return fa.flash_bwd_plain(q, k, v, km, out, lse, do, scale,
+                                  causal=causal) + (None, None)
+
+    dq, dbias = dq_fn()
+    dk, dv, dkbias = dkv_fn()
+    want = plain_bwd()
+    torch.cuda.synchronize()
+    err = {"fwd": max(float((out - ref).abs().max()),
+                      float((lse - lse_ref).abs().max()))}
+    if not err["fwd"] <= KERNEL_ATOL:
+        raise AssertionError(f"{tag} fwd vs plain ({name}): {err}")
+    for got, w, what in zip((dq, dk, dv, dbias, dkbias), want,
+                            ("dq", "dk", "dv", "dbias", "dkbias")):
+        if (got is None) != (w is None):
+            raise AssertionError(f"{tag} {name}: {what} missing")
+        if got is None:
+            continue
+        e = float((got - w).abs().max())
+        if not (bool(torch.isfinite(got).all())
+                and torch.allclose(got, w, rtol=GRAD_RTOL, atol=GRAD_ATOL)):
+            raise AssertionError(f"{tag} {what} vs plain ({name}): max err "
+                                 f"{e}")
+        key = "dq" if what in ("dq", "dbias") else "dkv"
+        err[key] = max(err.get(key, 0.0), e)
+    valid = fa._valid(bh, s_q, s_kv, q.device, key_mask=km, causal=causal)
+    blind = 0
+    if valid is not None:
+        valid = valid.expand(bh, s_q, s_kv)
+        rows = ~valid.any(-1)                      # rows that see no key
+        blind = int(rows.sum())
+        if blind and (float(out[rows].abs().max()) != 0.0
+                      or float(dq[rows].abs().max()) != 0.0
+                      or not bool((lse[rows] == fa.NEG_INF).all())):
+            raise AssertionError(f"{tag} {name}: rows with no visible key "
+                                 f"are not out = dQ = 0, lse = -1e30")
+        if dbias is not None and int(torch.count_nonzero(dbias[~valid])):
+            raise AssertionError(f"{tag} {name}: dbias is not 0 on the "
+                                 f"pairs no row sees")
+    # the kernels and cuBLAS's SIMT products both sum each backward output
+    # as one FMA chain in key (query) order, so they may agree exactly;
+    # the magnitudes show the outputs are not trivial
+    mags = {w_: float(x.abs().max()) for w_, x in zip(
+        ("dq", "dk", "dv", "dbias", "dkbias"), want) if x is not None}
+    log(f"{tag} {name} B={bh // heads} H={heads} S_q={s_q} S_kv={s_kv} "
+        f"D={dh} causal={causal} key_mask={km is not None} "
+        f"bias={'dense ' + gmode if bias is not None else 'strip ' + gmode if kbias is not None else 'none'} "
+        f"scale={scale:.4g} rows seeing no key={blind} max_abs_err "
+        f"{json.dumps(err)}; max |plain| {json.dumps(mags)}")
+    if flush is None:
+        return err, None
+    qkv4, kw, what = sdpa_yardstick(fa, q, k, v, heads, scale, km, causal,
+                                    bias, kbias, gmode)
+    do4 = do.view(qkv4[0].shape)
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(*qkv4, **kw)
+    lib_grads = qkv4 + ((kw["attn_mask"],) if biased else ())
+    try:
+        torch.autograd.grad(lib_out, lib_grads, do4, retain_graph=True)
+    except RuntimeError as exc:        # the yardstick only: no bias gradient
+        log(f"{tag} SDPA gives no attn_mask gradient: {exc}")
+        lib_grads = qkv4
+    plain_bwd_ms = time_ms(plain_bwd, flush=flush)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        lib_out, lib_grads, do4, retain_graph=True), flush=flush)
+    row = {"fwd": {"ms": time_ms(fwd, flush=flush),
+                   "plain_ms": time_ms(plain_fwd, flush=flush),
+                   "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                       *(x.detach() for x in qkv4),
+                       **{a: (b.detach() if torch.is_tensor(b) else b)
+                          for a, b in kw.items()}), flush=flush)},
+           "dq": {"ms": time_ms(dq_fn, flush=flush),
+                  "plain_ms": plain_bwd_ms, "library_ms": lib_bwd},
+           "dkv": {"ms": time_ms(dkv_fn, flush=flush),
+                   "plain_ms": plain_bwd_ms, "library_ms": lib_bwd}}
+    pairs = visible_pairs(bh, heads, s_q, s_kv, causal=causal, key_mask=km)
+    for kk, r in row.items():
+        r["bound_ms"], r["bound_by"] = attn_bound(
+            kk, bh, s_q, s_kv, dh, pairs,
+            attn_extra(kk, km, bias, kbias, bh, s_q, s_kv))
+        r["visible_pairs"] = pairs
+    log(f"{tag} {name} timing (library = {what}; its backward is one call "
+        f"for dQ, dK, dV{', dmask' if len(lib_grads) == 4 else ''}) "
+        f"{json.dumps(row)}")
+    del lib_out, qkv4, kw
+    return err, row
+
+
 def phase_train_kernels(ht, fa):
     """The training kernels vs their plain versions at BERT-base
     attention shapes; times.  Returns the kernels-line entries of the
     key-mask case with the worst error over all cases."""
-    F = torch.nn.functional
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
-    flush = flush_buf.zero_
     scale = 1.0 / math.sqrt(D)
     _, _, _, attn = ht.synthetic_mlm_batch(
         ht.BertConfig.base(batch_size=TB, seq_len=TS), seed=0)
@@ -375,85 +598,13 @@ def phase_train_kernels(ht, fa):
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
     lines = None
     for name, s, mask in cases:
-        def t(*shape):
-            return torch.from_numpy(
-                rng.randn(*shape).astype(np.float32)).cuda()
-        q, k, v, do = (t(TB * H, s, D) for _ in range(4))
+        q, k, v, do = (torch.from_numpy(rng.randn(TB * H, s, D).astype(
+            np.float32)).cuda() for _ in range(4))
         km = None if mask is None else torch.from_numpy(mask).cuda()
-        out, lse = fa.flash_fwd_masked(q, k, v, km, scale)
-        ref, lse_ref = fa.flash_fwd_plain(q, k, v, None, H, scale,
-                                          key_mask=km)
-        delta = (do * out).sum(-1)
-        dq = fa.flash_bwd_dq(q, k, v, km, do, lse, delta, scale)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, km, do, lse, delta, scale)
-        dq_r, dk_r, dv_r = fa.flash_bwd_plain(q, k, v, km, out, lse, do,
-                                              scale)
-        torch.cuda.synchronize()
-        err = {"fwd": max(float((out - ref).abs().max()),
-                          float((lse - lse_ref).abs().max())),
-               "dq": float((dq - dq_r).abs().max()),
-               "dkv": max(float((dk - dk_r).abs().max()),
-                          float((dv - dv_r).abs().max()))}
-        if not err["fwd"] <= KERNEL_ATOL:
-            raise AssertionError(f"flash fwd vs plain ({name}): {err}")
-        for got, want, what in ((dq, dq_r, "dq"), (dk, dk_r, "dk"),
-                                (dv, dv_r, "dv")):
-            if not torch.allclose(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL):
-                raise AssertionError(
-                    f"flash {what} vs plain ({name}): max err "
-                    f"{float((got - want).abs().max())}")
-        if name == "key_mask":
-            dead = slice((TB - 1) * H, TB * H)
-            if float(out[dead].abs().max()) != 0.0 \
-                    or float(dq[dead].abs().max()) != 0.0:
-                raise AssertionError("row with no valid key: out/dQ not 0")
+        err, row = attn_case(fa, "[train-kernels]", name, q, k, v, do, H,
+                             scale, km=km, flush=flush_buf.zero_)
         for kk in worst:
             worst[kk] = max(worst[kk], err[kk])
-        # the kernels and cuBLAS's SIMT products both sum each backward
-        # output as one FMA chain in key (query) order, so dQ/dK/dV may
-        # agree exactly; the magnitudes show the outputs are not trivial
-        log(f"[train-kernels] {name} B={TB} H={H} S={s} D={D} "
-            f"max_abs_err fwd={err['fwd']:.3e} dq={err['dq']:.3e} "
-            f"dkv={err['dkv']:.3e}; max |dq| {float(dq_r.abs().max()):.3e} "
-            f"|dk| {float(dk_r.abs().max()):.3e} "
-            f"|dv| {float(dv_r.abs().max()):.3e}")
-
-        # timings, each launch with the L2 cache flushed
-        q4, k4, v4 = (x.view(TB, H, s, D).detach().requires_grad_(True)
-                      for x in (q, k, v))
-        smask = None if km is None else (km != 0).view(TB, 1, 1, s)
-        with torch.enable_grad():
-            lib_out = F.scaled_dot_product_attention(q4, k4, v4,
-                                                     attn_mask=smask)
-        do4 = do.view(TB, H, s, D)
-        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-            q4.detach(), k4.detach(), v4.detach(), attn_mask=smask),
-            flush=flush)
-        lib_bwd = time_ms(lambda: torch.autograd.grad(
-            lib_out, (q4, k4, v4), do4, retain_graph=True), flush=flush)
-        # visible (row, key) pairs: every row sees the valid keys
-        pairs = (TB * s if km is None else int(km.sum())) * H * s
-        extra = 0 if km is None else 4 * km.numel()
-        row = {
-            "fwd": {"ms": time_ms(lambda: fa.flash_fwd_masked(
-                        q, k, v, km, scale), flush=flush),
-                    "plain_ms": time_ms(lambda: fa.flash_fwd_plain(
-                        q, k, v, None, H, scale, key_mask=km), flush=flush),
-                    "library_ms": lib_fwd},
-            "dq": {"ms": time_ms(lambda: fa.flash_bwd_dq(
-                       q, k, v, km, do, lse, delta, scale), flush=flush),
-                   "plain_ms": time_ms(lambda: fa.flash_bwd_plain(
-                       q, k, v, km, out, lse, do, scale), flush=flush),
-                   "library_ms": lib_bwd},
-            "dkv": {"ms": time_ms(lambda: fa.flash_bwd_dkv(
-                        q, k, v, km, do, lse, delta, scale), flush=flush),
-                    "plain_ms": time_ms(lambda: fa.flash_bwd_plain(
-                        q, k, v, km, out, lse, do, scale), flush=flush),
-                    "library_ms": lib_bwd}}
-        for kk, r in row.items():
-            r["bound_ms"], r["bound_by"] = attn_bound(kk, TB * H, s, s, D,
-                                                      pairs, extra)
-        log(f"[train-kernels] {name} timing {json.dumps(row)}")
         if name == "key_mask":
             lines = row
     for kk in lines:
@@ -1271,97 +1422,14 @@ def phase_causal_kernels(fa):
         q, do = t(bh, s_q, D), t(bh, s_q, D)
         k, v = t(bh, s_kv, D), t(bh, s_kv, D)
         km = None if mask is None else torch.from_numpy(mask).cuda()
-        out, lse = fa.flash_fwd_masked(q, k, v, km, scale, causal=True)
-        ref, lse_ref = fa.flash_fwd_plain(q, k, v, None, H, scale,
-                                          key_mask=km, causal=True)
-        delta = (do * out).sum(-1)
-        dq = fa.flash_bwd_dq(q, k, v, km, do, lse, delta, scale, causal=True)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, km, do, lse, delta, scale,
-                                  causal=True)
-        dq_r, dk_r, dv_r = fa.flash_bwd_plain(q, k, v, km, out, lse, do,
-                                              scale, causal=True)
-        torch.cuda.synchronize()
-        err = {"fwd": max(float((out - ref).abs().max()),
-                          float((lse - lse_ref).abs().max())),
-               "dq": float((dq - dq_r).abs().max()),
-               "dkv": max(float((dk - dk_r).abs().max()),
-                          float((dv - dv_r).abs().max()))}
-        if not err["fwd"] <= KERNEL_ATOL:
-            raise AssertionError(f"causal fwd vs plain ({name}): {err}")
-        for got, want, what in ((dq, dq_r, "dq"), (dk, dk_r, "dk"),
-                                (dv, dv_r, "dv")):
-            if not (bool(torch.isfinite(got).all())
-                    and torch.allclose(got, want, rtol=GRAD_RTOL,
-                                       atol=GRAD_ATOL)):
-                raise AssertionError(
-                    f"causal {what} vs plain ({name}): max err "
-                    f"{float((got - want).abs().max())}")
-        empty = max(0, s_q - s_kv)         # rows that see no key
-        if empty and (float(out[:, :empty].abs().max()) != 0.0
-                      or float(dq[:, :empty].abs().max()) != 0.0
-                      or not bool((lse[:, :empty] == fa.NEG_INF).all())):
-            raise AssertionError(f"{name}: rows with no visible key are not "
-                                 f"out = dQ = 0, lse = -1e30")
-        if km is not None:
-            dead = slice((GPT_BATCH - 1) * H, bh)
-            if float(out[dead].abs().max()) != 0.0 \
-                    or float(dq[dead].abs().max()) != 0.0:
-                raise AssertionError(f"{name}: fully masked batch row: "
-                                     f"out / dQ not 0")
+        # timings at the training shape
+        err, row = attn_case(fa, "[causal-kernels]", name, q, k, v, do, H,
+                             scale, km=km, causal=True,
+                             flush=flush if s_q == GPT_SEQ else None)
         for kk in err:
             worst[kk] = max(worst[kk], err[kk])
-        log(f"[causal-kernels] {name} B={GPT_BATCH} H={H} S_q={s_q} "
-            f"S_kv={s_kv} D={D} max_abs_err fwd={err['fwd']:.3e} "
-            f"dq={err['dq']:.3e} dkv={err['dkv']:.3e}; max |dq| "
-            f"{float(dq_r.abs().max()):.3e} |dk| "
-            f"{float(dk_r.abs().max()):.3e} |dv| "
-            f"{float(dv_r.abs().max()):.3e}")
-        if s_q != GPT_SEQ:
-            continue
-        # timings at the training shape, each launch with the L2 flushed
-        q4, k4, v4 = (x.view(GPT_BATCH, H, -1, D).detach()
-                      .requires_grad_(True) for x in (q, k, v))
-        smask = None if km is None else \
-            ((km != 0).view(GPT_BATCH, 1, 1, s_kv)
-             & torch.ones(s_q, s_kv, dtype=torch.bool,
-                          device="cuda").tril())
-        sdpa_kw = {"is_causal": True} if km is None else {"attn_mask": smask}
-        with torch.enable_grad():
-            lib_out = F.scaled_dot_product_attention(q4, k4, v4, **sdpa_kw)
-        do4 = do.view(GPT_BATCH, H, s_q, D)
-        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-            q4.detach(), k4.detach(), v4.detach(), **sdpa_kw), flush=flush)
-        lib_bwd = time_ms(lambda: torch.autograd.grad(
-            lib_out, (q4, k4, v4), do4, retain_graph=True), flush=flush)
-        plain_bwd = time_ms(lambda: fa.flash_bwd_plain(
-            q, k, v, km, out, lse, do, scale, causal=True), flush=flush)
-        row = {
-            "fwd": {"ms": time_ms(lambda: fa.flash_fwd_masked(
-                        q, k, v, km, scale, causal=True), flush=flush),
-                    "plain_ms": time_ms(lambda: fa.flash_fwd_plain(
-                        q, k, v, None, H, scale, key_mask=km, causal=True),
-                        flush=flush),
-                    "library_ms": lib_fwd},
-            "dq": {"ms": time_ms(lambda: fa.flash_bwd_dq(
-                       q, k, v, km, do, lse, delta, scale, causal=True),
-                       flush=flush),
-                   "plain_ms": plain_bwd, "library_ms": lib_bwd},
-            "dkv": {"ms": time_ms(lambda: fa.flash_bwd_dkv(
-                        q, k, v, km, do, lse, delta, scale, causal=True),
-                        flush=flush),
-                    "plain_ms": plain_bwd, "library_ms": lib_bwd}}
-        pairs = visible_pairs(bh, H, s_q, s_kv, causal=True, key_mask=km)
-        extra = 0 if km is None else 4 * km.numel()
-        for kk, r in row.items():
-            r["bound_ms"], r["bound_by"] = attn_bound(kk, bh, s_q, s_kv, D,
-                                                      pairs, extra)
-            r["visible_pairs"] = pairs
-        log(f"[causal-kernels] {name} timing (library = SDPA "
-            f"{'is_causal' if km is None else 'attn_mask'}; its backward "
-            f"is one call for dQ, dK and dV) {json.dumps(row)}")
         if name == "causal":
             lines.update(row)
-        del lib_out, q4, k4, v4
 
     # -- the full-mask forward
     C, L = PREFILL_CHUNK, PREFILL_CACHE
@@ -1720,6 +1788,236 @@ def phase_gpt2_serve(ht, fa, metrics, kmods, trained, prompts):
     return launches
 
 
+# -- T5: bias kernels, seq2seq training ---------------------------------------------
+
+def phase_bias_kernels(ht, fa):
+    """The bias forward / dQ (dbias) / dK/dV (dkbias) kernels vs their
+    plain versions at T5-small attention shapes, and the key-mask kernels
+    at the cross-attention's; times.  Returns the kernels-line entries
+    {fwd, dq, dkv} + suffix, each with the worst error over all cases of
+    its instantiation: no suffix for the encoder's dense bias, ``_causal``
+    for the decoder's, ``_kbias`` for the key-bias strip, ``_cross`` for
+    the cross-attention's key-mask kernels."""
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rng = np.random.RandomState(18)
+    cfg = ht.T5Config.small(batch_size=T5_BATCH, src_len=T5_SRC,
+                            tgt_len=T5_TGT)
+    heads, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
+    bh = T5_BATCH * heads
+    attn = ht.synthetic_seq2seq_batch(cfg, seed=0, padded=True)[3].copy()
+    attn[-1] = 0                          # a batch row with every key masked
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+
+    # (name, S_q, S_kv, causal, key mask, bias kind, gmode, suffix, timed)
+    cases = [("encoder", T5_SRC, T5_SRC, False, attn, "bias", "h", "", True),
+             ("decoder", T5_TGT, T5_TGT, True, None, "bias", "h", "_causal",
+              True),
+             ("cross-attention", T5_TGT, T5_SRC, False, attn, None, None,
+              "_cross", True),
+             ("rows that see no key", 200, 64, True, None, "bias", "bh",
+              "_causal", False),
+             ("one row, group b", 1, 130, False, attn[:, :130], "bias", "b",
+              "", False),
+             ("key-bias strip", T5_SRC, T5_SRC, True, None, "kbias", "b",
+              "_kbias", True),
+             ("key-bias strip ragged", 114, 200, False, attn[:, :200],
+              "kbias", "one", "_kbias", False)]
+    worst = {}
+    lines = {}
+    for name, s_q, s_kv, causal, mask, kind, gmode, sfx, timed in cases:
+        q, do = t(bh, s_q, dh), t(bh, s_q, dh)
+        k, v = t(bh, s_kv, dh), t(bh, s_kv, dh)
+        bias = kbias = None
+        if kind is not None:
+            x = t(fa._group_rows(gmode, bh, heads),
+                  s_q if kind == "bias" else 1, s_kv)
+            bias, kbias = (x, None) if kind == "bias" else (None, x)
+        km = None if mask is None else torch.from_numpy(
+            np.ascontiguousarray(mask, np.int32)).cuda()
+        err, row = attn_case(fa, "[bias-kernels]", name, q, k, v, do, heads,
+                             T5_KERNEL_SCALE, km=km, causal=causal,
+                             bias=bias, kbias=kbias, gmode=gmode or "bh",
+                             flush=flush_buf.zero_ if timed else None)
+        for kk, e in err.items():
+            worst[kk + sfx] = max(worst.get(kk + sfx, 0.0), e)
+        if row is not None:
+            for kk, r in row.items():
+                lines[kk + sfx] = r
+    for kk in lines:
+        lines[kk]["max_abs_err"] = worst[kk]
+    return lines
+
+
+def _t5_feeds(feeds, batch):
+    keys = ("input_ids", "decoder_input_ids", "labels", "attention_mask")
+    return {feeds[k]: v for k, v in zip(keys, batch)}
+
+
+def t5_step_flops(cfg):
+    """Model FLOPs of one seq2seq training step by ``bert_step_flops``'s
+    convention (forward + backward = 3 x the forward's, 2 a multiply-add):
+    products 6 x (source tokens x layers x (4 d^2 + 2 d f) [encoder] +
+    target tokens x layers x (6 d^2 + 2 d f) [decoder self q/k/v/o, cross
+    q/o, FFN] + source tokens x layers x 2 d^2 [cross k/v over the memory]
+    + target tokens x d V [lm_head]); attention 12 x B x heads x S_q x
+    S_kv x (d / heads) per layer for the encoder and the cross-attention
+    (counted dense) and 6 x ... for the causal decoder self-attention
+    (half the pairs)."""
+    d, f, v, n = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.num_layers
+    b, s, t = cfg.batch_size, cfg.src_len, cfg.tgt_len
+    ns, nt = b * s, b * t
+    dense = ns * n * (4 * d * d + 2 * d * f) + nt * n * (6 * d * d + 2 * d * f) \
+        + ns * n * 2 * d * d + nt * d * v
+    hd = cfg.num_heads * (d // cfg.num_heads)
+    attn = n * b * hd * (12.0 * s * s + 6.0 * t * t + 12.0 * t * s)
+    return 6.0 * dense + attn
+
+
+def phase_t5_train(ht, fa, metrics, kmods):
+    """T5-small seq2seq training steps through Executor.run on the card.
+    Returns the launches of the bias kernels (and the key-mask kernels the
+    cross-attention takes) over the counted steps."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()     # what earlier phases still hold
+    cfg = ht.T5Config.small(batch_size=T5_BATCH, src_len=T5_SRC,
+                            tgt_len=T5_TGT)
+    feeds, loss, _ = ht.t5_seq2seq_graph(cfg, use_mask=True)
+    train_op = ht.optim.AdamOptimizer(1e-4).minimize(loss)
+    t0 = time.perf_counter()
+    ex = ht.Executor({"train": [loss, train_op]}, seed=0, device="cuda")
+    log(f"[t5-train] T5-small executor built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = ht.synthetic_seq2seq_batch(cfg, seed=0, padded=True)
+    fd = _t5_feeds(feeds, batch)
+    losses = []
+    for _ in range(T5_WARMUP):
+        losses.append(float(ex.run("train", feed_dict=fd)[0].asnumpy()))
+    torch.cuda.synchronize()
+    reset_launches(*kmods)
+    metrics.reset_flash_fallbacks()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(T5_STEPS):
+        t0 = time.perf_counter()
+        out = ex.run("train", feed_dict=fd)
+        losses.append(float(out[0].asnumpy()))     # waits for the step
+        times.append(time.perf_counter() - t0)
+    launches = {"flash_fwd_bias": fa.fwd_bias_launches,
+                "flash_bwd_dq_bias": fa.dq_bias_launches,
+                "flash_bwd_dkv_bias": fa.dkv_bias_launches,
+                "flash_fwd_bias_causal": fa.fwd_bias_causal_launches,
+                "flash_bwd_dq_bias_causal": fa.dq_bias_causal_launches,
+                "flash_bwd_dkv_bias_causal": fa.dkv_bias_causal_launches,
+                "flash_fwd": fa.fwd_launches,
+                "flash_bwd_dq": fa.dq_launches,
+                "flash_bwd_dkv": fa.dkv_launches}
+    counted = {"fwd_bias_launches", "dq_bias_launches", "dkv_bias_launches",
+               "fwd_bias_causal_launches", "dq_bias_causal_launches",
+               "dkv_bias_causal_launches", "fwd_launches", "dq_launches",
+               "dkv_launches"}
+    others = {name: n for m in kmods for name, n in vars(m).items()
+              if name.endswith("launches") and n
+              and not (m is fa and name in counted)}
+    fallbacks = metrics.flash_fallback_counts()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite T5 training loss: {losses}")
+    if not losses[-1] < losses[T5_WARMUP]:
+        raise AssertionError(f"T5 loss did not fall over the counted steps: "
+                             f"{losses}")
+    want = T5_STEPS * cfg.num_layers
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"T5 attention launches {launches} != steps "
+                             f"{T5_STEPS} x layers {cfg.num_layers} each")
+    if others:
+        raise AssertionError(f"other kernels launched: {others}")
+    left = {r: n for r, n in fallbacks.items() if r.startswith("backend:")}
+    if left:
+        raise AssertionError(f"attention left the kernels: {left}")
+    # off the path: the key-bias strip (0, as ``others`` just checked)
+    launches.update({"flash_fwd_kbias": fa.fwd_kbias_launches,
+                     "flash_bwd_dq_kbias": fa.dq_kbias_launches,
+                     "flash_bwd_dkv_kbias": fa.dkv_kbias_launches})
+    ms = np.asarray(times) * 1e3
+    mean_s = ms.mean() / 1e3
+    src_real = int(batch[3].sum())
+    flops = t5_step_flops(cfg)
+    report = {
+        "batch": cfg.batch_size, "src_len": cfg.src_len,
+        "tgt_len": cfg.tgt_len, "steps": T5_STEPS, "losses": losses,
+        "step_ms_p50": float(np.percentile(ms, 50)),
+        "step_ms_p99": float(np.percentile(ms, 99)),
+        "step_ms_mean": float(ms.mean()),
+        "tokens_per_s": cfg.batch_size * (cfg.src_len + cfg.tgt_len) / mean_s,
+        "tgt_tokens_per_s": cfg.batch_size * cfg.tgt_len / mean_s,
+        "real_tokens_per_s": (src_real + cfg.batch_size * cfg.tgt_len)
+        / mean_s,
+        "src_real_tokens": src_real,
+        "model_tflop_per_step": flops / 1e12,
+        "mfu_fp32": flops / mean_s / PEAK_FP32_FLOPS,
+        "peak_mem_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+        "launches_per_step": {k: n / T5_STEPS for k, n in launches.items()},
+        "card": card_line()}
+    log(f"[t5-train] {json.dumps(report)}")
+    ex.close()
+    del ex, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_t5_train_parity(ht):
+    """T5-small widths cut to 2 + 2 layers (batch 4, source 128 padded,
+    target 50, dropout 0): card vs CPU over 3 Adam steps from the same
+    weights; losses and step-1 gradients of every variable agree.  The
+    query projections are scaled by 1/8 in both, so the unscaled logits
+    are O(1) as under T5's own init (tests/test_torch_t5.py says why)."""
+    cfg = ht.T5Config.small(num_layers=2, batch_size=4, src_len=128,
+                            tgt_len=50, dropout_rate=0.0)
+    feeds, loss, _ = ht.t5_seq2seq_graph(cfg, use_mask=True)
+    wrt = [n for n in ht.topo_sort([loss])
+           if isinstance(n, ht.PlaceholderOp) and n.is_variable
+           and n.trainable]
+    grads = ht.gradients(loss, wrt)
+    train_op = ht.optim.AdamOptimizer(1e-4).minimize(loss)
+    fetches = {"train": [loss, train_op] + grads}
+    card = ht.Executor(fetches, seed=0, device="cuda")
+    host = ht.Executor(fetches, seed=0, device="cpu")
+    weights = {n: w / 8 if n.endswith(".q.weight") else w
+               for n, w in card.return_tensor_values().items()}
+    load_all(card, weights)
+    load_all(host, weights)
+    fd = _t5_feeds(feeds, ht.synthetic_seq2seq_batch(cfg, seed=1,
+                                                     padded=True))
+    loss_err, grad_err = 0.0, 0.0
+    for step in range(3):
+        got = card.run("train", feed_dict=fd, convert_to_numpy_ret_vals=True)
+        want = host.run("train", feed_dict=fd,
+                        convert_to_numpy_ret_vals=True)
+        gl, wl = float(got[0]), float(want[0])
+        loss_err = max(loss_err, abs(gl - wl) / abs(wl))
+        if not (math.isfinite(gl) and abs(gl - wl) <= TRAIN_LOSS_RTOL * abs(wl)):
+            raise AssertionError(f"card vs CPU T5 loss at step {step + 1}: "
+                                 f"{gl} vs {wl}")
+        if step == 0:
+            for node, g, w in zip(wrt, got[2:], want[2:]):
+                grad_err = max(grad_err, float(np.max(np.abs(g - w))))
+                if not np.allclose(g, w, rtol=TRAIN_GRAD_RTOL,
+                                   atol=TRAIN_GRAD_ATOL):
+                    raise AssertionError(
+                        f"card vs CPU gradient of {node.name}: max err "
+                        f"{float(np.max(np.abs(g - w)))}")
+    log(f"[t5-train-parity] card vs CPU, {cfg.num_layers} + "
+        f"{cfg.num_layers} layers, 3 Adam steps: loss max rel err "
+        f"{loss_err:.3e} (rtol {TRAIN_LOSS_RTOL}); step-1 gradients of "
+        f"{len(wrt)} variables (the relative-position tables included) max "
+        f"abs err {grad_err:.3e} (rtol {TRAIN_GRAD_RTOL}, atol "
+        f"{TRAIN_GRAD_ATOL})")
+    card.close()
+    host.close()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script runs on the "
@@ -1847,69 +2145,57 @@ def main():
     glaunches.update(phase_gpt2_serve(ht, fa, metrics, kmods, trained,
                                       prompts))
 
-    # -- 18. result lines ---------------------------------------------------------
-    kernels = [{
-        "name": "flash_fwd_lengths", "route": "cuda",
-        "source": "hetu_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "hetu_tpu/ops/pallas/flash_attention.py:202",
-        "launches": launches["flash_fwd_lengths"],
-        "max_abs_err": line["max_abs_err"], "ms": line["ms"],
-        "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
-        "bound_by": line["bound_by"], "library_ms": line["library_ms"]}]
-    for key, name, source, replaces in (
-            ("fwd", "flash_fwd", "hetu_tpu_torch/csrc/flash_attention.cu",
-             "hetu_tpu/ops/pallas/flash_attention.py:202"),
-            ("dq", "flash_bwd_dq", "hetu_tpu_torch/csrc/flash_attention_bwd.cu",
-             "hetu_tpu/ops/pallas/flash_attention.py:299"),
-            ("dkv", "flash_bwd_dkv",
-             "hetu_tpu_torch/csrc/flash_attention_bwd.cu",
-             "hetu_tpu/ops/pallas/flash_attention.py:363")):
-        r = tlines[key]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": tlaunches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    for r, name, source, replaces in (
-            (gline, "emb_gather", "hetu_tpu_torch/csrc/emb_cache.cu",
-             "hetu_tpu/ops/pallas/emb_cache.py:71"),
-            (sline, "sorted_segment_sum", "hetu_tpu_torch/csrc/segment_sum.cu",
-             "hetu_tpu/ops/pallas/segment_sum.py:25")):
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": claunches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    for key, name, source, replaces in (
-            ("fwd", "flash_fwd_causal",
-             "hetu_tpu_torch/csrc/flash_attention.cu",
-             "hetu_tpu/ops/pallas/flash_attention.py:202"),
-            ("dq", "flash_bwd_dq_causal",
-             "hetu_tpu_torch/csrc/flash_attention_bwd.cu",
-             "hetu_tpu/ops/pallas/flash_attention.py:299"),
-            ("dkv", "flash_bwd_dkv_causal",
-             "hetu_tpu_torch/csrc/flash_attention_bwd.cu",
-             "hetu_tpu/ops/pallas/flash_attention.py:363"),
-            ("mask", "flash_fwd_mask",
-             "hetu_tpu_torch/csrc/flash_attention.cu",
-             "hetu_tpu/ops/pallas/flash_attention.py:202")):
-        r = glines[key]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": glaunches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    kernels.append({
-        "name": "row_gather", "route": "cuda",
-        "source": "hetu_tpu_torch/csrc/moe_dispatch.cu",
-        "replaces": "hetu_tpu/ops/pallas/moe_dispatch.py:37",
-        "launches": mlaunches["row_gather"],
-        "max_abs_err": mline["max_abs_err"], "ms": mline["ms"],
-        "plain_ms": mline["plain_ms"], "bound_ms": mline["bound_ms"],
-        "bound_by": mline["bound_by"], "library_ms": mline["library_ms"]})
+    # -- 18. bias kernels vs plain ------------------------------------------------------
+    blines = phase_bias_kernels(ht, fa)
+
+    # -- 19. train T5-small -----------------------------------------------------------
+    blaunches = phase_t5_train(ht, fa, metrics, kmods)
+
+    # -- 20. card vs CPU T5 training ---------------------------------------------------
+    phase_t5_train_parity(ht)
+
+    # -- 21. result lines ---------------------------------------------------------
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+
+    def entry(name, source, replaces, n, r):
+        return {"name": name, "route": "cuda",
+                "source": "hetu_tpu_torch/csrc/" + source,
+                "replaces": "hetu_tpu/ops/pallas/" + replaces,
+                "launches": n, **{k: r[k] for k in keys}}
+
+    # the cross-attention's key-mask case is held against the same
+    # instantiations as BERT's
+    for kk in ("fwd", "dq", "dkv"):
+        tlines[kk]["max_abs_err"] = max(tlines[kk]["max_abs_err"],
+                                        blines[kk + "_cross"]["max_abs_err"])
+    kernels = [entry("flash_fwd_lengths", "flash_attention.cu",
+                     "flash_attention.py:202",
+                     launches["flash_fwd_lengths"], line)]
+    flash = (("fwd", "flash_fwd", "flash_attention.cu", 202),
+             ("dq", "flash_bwd_dq", "flash_attention_bwd.cu", 299),
+             ("dkv", "flash_bwd_dkv", "flash_attention_bwd.cu", 363))
+    for lines, counts, key_sfx, name_sfx in (
+            (tlines, tlaunches, "", ""), (glines, glaunches, "", "_causal"),
+            (blines, blaunches, "", "_bias"),
+            (blines, blaunches, "_causal", "_bias_causal"),
+            (blines, blaunches, "_kbias", "_kbias")):
+        for key, name, source, at in flash:
+            kernels.append(entry(name + name_sfx, source,
+                                 f"flash_attention.py:{at}",
+                                 counts[name + name_sfx],
+                                 lines[key + key_sfx]))
+    kernels.append(entry("flash_fwd_mask", "flash_attention.cu",
+                         "flash_attention.py:202",
+                         glaunches["flash_fwd_mask"], glines["mask"]))
+    kernels.append(entry("emb_gather", "emb_cache.cu", "emb_cache.py:71",
+                         claunches["emb_gather"], gline))
+    kernels.append(entry("sorted_segment_sum", "segment_sum.cu",
+                         "segment_sum.py:25", claunches["sorted_segment_sum"],
+                         sline))
+    kernels.append(entry("row_gather", "moe_dispatch.cu",
+                         "moe_dispatch.py:37", mlaunches["row_gather"],
+                         mline))
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

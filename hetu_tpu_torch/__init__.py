@@ -23,6 +23,10 @@ kernel on a ported path is a hand-written kernel for the H100
   ``wdl_criteo(..., embed_mode="vlru_dev")`` → ``ps_embedding_lookup_op``
   over ``DistCacheTable(device=True)`` → ``SGDOptimizer`` → ``Executor.run``,
   the slab row gather and the grad segment-sum in CUDA kernels;
+* seq2seq training: T5, ``t5_seq2seq_graph(cfg, use_mask=True)`` →
+  ``optim.AdamOptimizer(...).minimize(loss)`` → ``Executor.run``, the
+  relative-position bias through the bias specializations of the CUDA
+  flash kernels, forward and backward (dbias summed over its group);
 * MoE training: GShard top-2 ``TopKGateSparse`` → ``SparseMoELayer``
   (with ``Expert``) → ``AdamOptimizer`` → ``Executor.run``, the sparse
   dispatch and combine, forward and backward, in the CUDA row-gather
@@ -47,17 +51,20 @@ from .graph import (Executor, GradientOp, LowerCtx, Op, PlaceholderOp,
                     Variable, gradients, lower_forward, placeholder_op,
                     topo_sort)
 from .layers import (DropOut, Embedding, Expert, LayerNorm, Linear,
-                     MoELayer, MultiHeadAttention, SparseMoELayer, TopKGate,
-                     TopKGateSparse)
+                     MoELayer, MultiHeadAttention, RMSNorm, SparseMoELayer,
+                     TopKGate, TopKGateSparse)
 from .models import (BertConfig, GPT2Config, bert_model, bert_pooler,
                      bert_pretrain_graph, gpt2_decode_chunked_graph,
                      gpt2_decode_graph, gpt2_lm_graph, gpt2_model,
                      synthetic_criteo, synthetic_criteo_skewed,
-                     synthetic_lm_batch, synthetic_mlm_batch, wdl_criteo)
+                     synthetic_lm_batch, synthetic_mlm_batch,
+                     synthetic_seq2seq_batch, T5Config, t5_seq2seq_graph,
+                     wdl_criteo)
 from .ndarray import NDArray
 from .ops import (array_reshape_op, binarycrossentropy_op, broadcastto_op,
                   concat_op, einsum_op, embedding_lookup_op, matmul_op, mul_op,
-                  ne_op, reduce_mean_op, reduce_sum_op, relu_op, sdpa_masked_op,
+                  ne_op, reduce_mean_op, reduce_sum_op, relu_op, rsqrt_op,
+                  sdpa_bias_op, sdpa_masked_bias_op, sdpa_masked_op,
                   sdpa_op, sigmoid_op, slice_op, softmaxcrossentropy_op,
                   softmaxcrossentropy_sparse_op, tanh_op, transpose_op)
 from .ps import (CacheSparseTable, DistCacheTable, EmbeddingStore,

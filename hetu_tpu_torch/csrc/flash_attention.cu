@@ -6,11 +6,12 @@
 //
 // 1. flash_fwd_lengths_kernel, the `lengths` specialization (decode): for the
 //    query rows of (b*h), keys at index >= lengths[b] are invisible.
-// 2. flash_fwd_kernel, the dense, `key_mask`, causal and full-mask
-//    specializations (training and chunked prefill): keys with
+// 2. flash_fwd_kernel, the dense, `key_mask`, causal, full-mask and additive
+//    bias specializations (training and chunked prefill): keys with
 //    key_mask[b, j] == 0 are invisible; under `causal` key c is visible to
 //    query row r iff r + (S_kv - S_q) >= c; under a full mask iff
-//    mask[g, r, c] != 0.  The three compose (logical and); none = dense.
+//    mask[g, r, c] != 0.  The three compose (logical and); none = dense.  A
+//    bias is added to the scaled scores before the validity select.
 //
 // ---- 1. lengths (decode)
 // What bounds it: at decode (S_q = 1) each valid K and V element is read once
@@ -262,24 +263,39 @@ extern "C" int hetu_flash_fwd_lengths(const float* q, const float* k, const floa
 // function's traffic; at the chunked-prefill shapes (S_q = 32) the K/V
 // bytes still dominate.
 //
+// Additive bias (templates BIAS, KBIAS; the T5 relative-position bias): the
+// logits are s * scale + bias before the validity select and the running
+// max, as in the TPU kernel's _block_logits.  BIAS: a float32 bias stored
+// unbroadcast as (G, S_q, S_kv), group `bgmode` as for the full mask; each
+// thread reads its 4 x 4 entries straight from device memory before the
+// Q.K^T product, so the loads overlap it (a half-warp reads 16 consecutive
+// floats of one row: coalesced).  At the T5 shapes (group h, 8 x 512 x 512
+// floats, 8 MB) the bias stays in L2 across the B rows that share it.
+// KBIAS: a per-key strip (G, 1, S_kv), four floats a thread a tile.  Either
+// composes with key_mask and causal; the causal tile skip is unchanged.
+//
 // Not yet: wgmma / tensor cores (bf16 or TF32 would change the numbers),
 // double-buffered K/V staging, skipping key tiles that are entirely masked
-// by data (key_mask, full mask).
+// by data (key_mask, full mask), bias together with a full mask.
 
 namespace {
 
+using hetu_flash::group_row;
 using hetu_flash::PLD;
 using hetu_flash::TILE;
 using hetu_flash::TTHREADS;
 
-// G: float4 output column groups per thread (D <= 64 G)
-template <int G, bool CAUSAL, bool FMASK>
+// G: float4 output column groups per thread (D <= 64 G); BIAS / KBIAS: at
+// most one, `bias` then points to the (G, S_q, S_kv) bias or the (G, S_kv)
+// strip of group mode `bgmode`
+template <int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
 __global__ void __launch_bounds__(TTHREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ key_mask,
-                 const unsigned char* __restrict__ mask, float* __restrict__ out,
-                 float* __restrict__ lse, int heads, int gmode, int s_q, int s_kv, int d,
-                 float scale) {
+                 const unsigned char* __restrict__ mask, const float* __restrict__ bias,
+                 float* __restrict__ out, float* __restrict__ lse, int heads, int gmode,
+                 int bgmode, int s_q, int s_kv, int d, float scale) {
+  static_assert(!(BIAS && KBIAS), "a dense bias or a key-bias strip, not both");
   using namespace hetu_flash;
   extern __shared__ __align__(16) float smem[];
   const int ld = d + 4;
@@ -297,10 +313,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + (size_t)bh * s_kv * d;
   const int* km = key_mask ? key_mask + (size_t)(bh / heads) * s_kv : nullptr;
   const unsigned char* mb = nullptr;
-  if (FMASK) {
-    const int g = gmode == 0 ? 0 : gmode == 1 ? bh % heads : gmode == 2 ? bh / heads : bh;
-    mb = mask + (size_t)g * s_q * s_kv;
-  }
+  if (FMASK) mb = mask + (size_t)group_row(gmode, bh, heads) * s_q * s_kv;
+  const float* bb = nullptr;
+  if (BIAS || KBIAS)
+    bb = bias + (size_t)group_row(bgmode, bh, heads) * (BIAS ? (size_t)s_q * s_kv : s_kv);
   // causal: row r sees key c iff r + kv_off >= c; the loop stops after the
   // last key that the tile's last row sees
   const int kv_off = s_kv - s_q;
@@ -333,6 +349,21 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();
 
+    float bv[4][4];  // the bias of each score, loaded ahead of the product
+    if constexpr (BIAS || KBIAS) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tx + 16 * j;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = q0 + 4 * ty + i;
+          if constexpr (BIAS)
+            bv[i][j] = (row < s_q && key < s_kv) ? bb[(size_t)row * s_kv + key] : 0.f;
+          else
+            bv[i][j] = key < s_kv ? bb[key] : 0.f;
+        }
+      }
+    }
     float s[4][4];
     dot_rows(s, q_s, k_s, d, ty, tx);
     bool ok[4][4];  // validity per (row, key)
@@ -353,7 +384,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float mt = NEG_INF;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = ok[i][j] ? s[i][j] * scale : NEG_INF;
+        if constexpr (BIAS || KBIAS)
+          s[i][j] = ok[i][j] ? s[i][j] * scale + bv[i][j] : NEG_INF;
+        else
+          s[i][j] = ok[i][j] ? s[i][j] * scale : NEG_INF;
         mt = fmaxf(mt, s[i][j]);
       }
       const float m_new = fmaxf(m[i], half_max(mt));
@@ -395,35 +429,38 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int G, bool CAUSAL, bool FMASK>
+template <int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
 int launch_fwd(const float* q, const float* k, const float* v, const int* key_mask,
-               const unsigned char* mask, float* out, float* lse, int bh, int heads,
-               int gmode, int s_q, int s_kv, int d, float scale, cudaStream_t stream) {
+               const unsigned char* mask, const float* bias, float* out, float* lse, int bh,
+               int heads, int gmode, int bgmode, int s_q, int s_kv, int d, float scale,
+               cudaStream_t stream) {
   static size_t configured[64] = {0};
   const size_t smem = (size_t)(3 * TILE * (d + 4) + TILE * PLD) * sizeof(float) +
                       TILE * sizeof(int) + (FMASK ? TILE * TILE : 0);
   cudaError_t err = hetu_flash::ensure_smem(
-      (const void*)flash_fwd_kernel<G, CAUSAL, FMASK>, smem, configured);
+      (const void*)flash_fwd_kernel<G, CAUSAL, FMASK, BIAS, KBIAS>, smem, configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((s_q + TILE - 1) / TILE, bh);
-  flash_fwd_kernel<G, CAUSAL, FMASK><<<grid, TTHREADS, smem, stream>>>(
-      q, k, v, key_mask, mask, out, lse, heads, gmode, s_q, s_kv, d, scale);
+  flash_fwd_kernel<G, CAUSAL, FMASK, BIAS, KBIAS><<<grid, TTHREADS, smem, stream>>>(
+      q, k, v, key_mask, mask, bias, out, lse, heads, gmode, bgmode, s_q, s_kv, d, scale);
   return (int)cudaGetLastError();
 }
 
-template <bool CAUSAL, bool FMASK>
+template <bool CAUSAL, bool FMASK, bool BIAS = false, bool KBIAS = false>
 int dispatch_fwd(const float* q, const float* k, const float* v, const int* key_mask,
-                 const unsigned char* mask, float* out, float* lse, int bh, int heads,
-                 int gmode, int s_q, int s_kv, int d, float scale, void* stream) {
+                 const unsigned char* mask, const float* bias, float* out, float* lse,
+                 int bh, int heads, int gmode, int bgmode, int s_q, int s_kv, int d,
+                 float scale, void* stream) {
   if (d <= 0 || d > 128 || (d & 3) || heads <= 0 || bh <= 0 || bh > 65535 ||
-      bh % heads || s_q <= 0 || s_kv <= 0 || gmode < 0 || gmode > 3)
+      bh % heads || s_q <= 0 || s_kv <= 0 || gmode < 0 || gmode > 3 || bgmode < 0 ||
+      bgmode > 3)
     return (int)cudaErrorInvalidValue;
-  return d <= 64 ? launch_fwd<1, CAUSAL, FMASK>(q, k, v, key_mask, mask, out, lse, bh, heads,
-                                                gmode, s_q, s_kv, d, scale,
-                                                (cudaStream_t)stream)
-                 : launch_fwd<2, CAUSAL, FMASK>(q, k, v, key_mask, mask, out, lse, bh, heads,
-                                                gmode, s_q, s_kv, d, scale,
-                                                (cudaStream_t)stream);
+  return d <= 64 ? launch_fwd<1, CAUSAL, FMASK, BIAS, KBIAS>(
+                       q, k, v, key_mask, mask, bias, out, lse, bh, heads, gmode, bgmode, s_q,
+                       s_kv, d, scale, (cudaStream_t)stream)
+                 : launch_fwd<2, CAUSAL, FMASK, BIAS, KBIAS>(
+                       q, k, v, key_mask, mask, bias, out, lse, bh, heads, gmode, bgmode, s_q,
+                       s_kv, d, scale, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -437,8 +474,8 @@ int dispatch_fwd(const float* q, const float* k, const float* v, const int* key_
 extern "C" int hetu_flash_fwd(const float* q, const float* k, const float* v,
                               const int* key_mask, float* out, float* lse, int bh, int heads,
                               int s_q, int s_kv, int d, float scale, void* stream) {
-  return dispatch_fwd<false, false>(q, k, v, key_mask, nullptr, out, lse, bh, heads, 0, s_q,
-                                    s_kv, d, scale, stream);
+  return dispatch_fwd<false, false>(q, k, v, key_mask, nullptr, nullptr, out, lse, bh, heads,
+                                    0, 0, s_q, s_kv, d, scale, stream);
 }
 
 // causal (bottom-right aligned), optionally with a key_mask
@@ -446,8 +483,8 @@ extern "C" int hetu_flash_fwd_causal(const float* q, const float* k, const float
                                      const int* key_mask, float* out, float* lse, int bh,
                                      int heads, int s_q, int s_kv, int d, float scale,
                                      void* stream) {
-  return dispatch_fwd<true, false>(q, k, v, key_mask, nullptr, out, lse, bh, heads, 0, s_q,
-                                   s_kv, d, scale, stream);
+  return dispatch_fwd<true, false>(q, k, v, key_mask, nullptr, nullptr, out, lse, bh, heads,
+                                   0, 0, s_q, s_kv, d, scale, stream);
 }
 
 // full mask: mask (G, s_q, s_kv) uint8, G = 1, heads, bh / heads or bh for
@@ -458,8 +495,35 @@ extern "C" int hetu_flash_fwd_mask(const float* q, const float* k, const float* 
                                    int s_kv, int d, int gmode, int causal, float scale,
                                    void* stream) {
   if (mask == nullptr) return (int)cudaErrorInvalidValue;
-  return causal ? dispatch_fwd<true, true>(q, k, v, key_mask, mask, out, lse, bh, heads, gmode,
-                                           s_q, s_kv, d, scale, stream)
-                : dispatch_fwd<false, true>(q, k, v, key_mask, mask, out, lse, bh, heads,
-                                            gmode, s_q, s_kv, d, scale, stream);
+  return causal ? dispatch_fwd<true, true>(q, k, v, key_mask, mask, nullptr, out, lse, bh,
+                                           heads, gmode, 0, s_q, s_kv, d, scale, stream)
+                : dispatch_fwd<false, true>(q, k, v, key_mask, mask, nullptr, out, lse, bh,
+                                            heads, gmode, 0, s_q, s_kv, d, scale, stream);
+}
+
+// additive bias: bias is a dense (G, s_q, s_kv) float32 bias or, strip != 0, a
+// per-key strip (G, 1, s_kv), of group mode gmode (0..3 as for the full
+// mask); optionally with a key_mask and, causal != 0, the causal rule
+template <bool BIAS, bool KBIAS>
+static int fwd_bias(const float* q, const float* k, const float* v, const int* key_mask,
+             const float* bias, float* out, float* lse, int bh, int heads, int s_q, int s_kv,
+             int d, int gmode, int causal, float scale, void* stream) {
+  return causal ? dispatch_fwd<true, false, BIAS, KBIAS>(q, k, v, key_mask, nullptr, bias, out,
+                                                         lse, bh, heads, 0, gmode, s_q, s_kv, d,
+                                                         scale, stream)
+                : dispatch_fwd<false, false, BIAS, KBIAS>(q, k, v, key_mask, nullptr, bias, out,
+                                                          lse, bh, heads, 0, gmode, s_q, s_kv, d,
+                                                          scale, stream);
+}
+
+extern "C" int hetu_flash_fwd_bias(const float* q, const float* k, const float* v,
+                                   const int* key_mask, const float* bias, float* out,
+                                   float* lse, int bh, int heads, int s_q, int s_kv, int d,
+                                   int gmode, int strip, int causal, float scale,
+                                   void* stream) {
+  if (bias == nullptr) return (int)cudaErrorInvalidValue;
+  return strip ? fwd_bias<false, true>(q, k, v, key_mask, bias, out, lse, bh, heads, s_q, s_kv,
+                                       d, gmode, causal, scale, stream)
+               : fwd_bias<true, false>(q, k, v, key_mask, bias, out, lse, bh, heads, s_q, s_kv,
+                                       d, gmode, causal, scale, stream);
 }

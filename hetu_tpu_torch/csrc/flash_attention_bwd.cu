@@ -1,5 +1,5 @@
-// Flash attention backward for Hopper (sm_90a), dense, `key_mask` and causal
-// specializations: two kernels that replace
+// Flash attention backward for Hopper (sm_90a), dense, `key_mask`, causal and
+// additive-bias specializations: two kernels that replace
 // hetu_tpu/ops/pallas/flash_attention.py::_dq_kernel and ::_dkv_kernel
 // (launched by _flash_bwd).
 //
@@ -33,8 +33,26 @@
 // the diagonal cost nothing: about half the dense work at S_q = S_kv.  A key
 // tile no query row sees runs no iteration and writes dK = dV = 0.
 //
+// Additive bias (templates BIAS, KBIAS, as in the forward): both kernels
+// recompute the biased scores s * scale + bias.  With a dense bias (G, S_q,
+// S_kv) the dQ kernel also writes t = P * (dP - delta), the pre-scale dS, as
+// dbias (BH, S_q, S_kv) float32, the TPU kernel's per-block dbias tiles; the
+// caller sums it over the bias's broadcast group.  Under causal it writes
+// zeros into the key tiles past its loop (the TPU kernel's pruned-block zero
+// tiles), so every entry of dbias is defined.  The dK/dV kernel reads the bias
+// of its (query tile, key tile) through the shared-memory tile dS^T uses later
+// (a coalesced row-major load, read back transposed), at the cost of one more
+// barrier a tile.  With a key-bias strip (G, 1, S_kv) the dK/dV kernel sums t
+// over the query rows into dkbias (BH, 1, S_kv): each thread keeps the partial
+// sums of its 4 keys in registers across the query tiles, and the 16 threads
+// of a key row combine them once at the end; the CTA owns its keys, so no
+// atomics, and the result is the same from run to run.  dbias is the one
+// output of S_q * S_kv floats a (b*h): at the T5 encoder shape (B*H = 256,
+// S = 512) it adds 268 MB of writes to the dQ kernel.
+//
 // Not yet: tensor cores, double-buffered staging, one fused kernel for dQ and
-// dK/dV, the full-mask, bias and `lengths` specializations.
+// dK/dV, the full-mask and `lengths` specializations, the group sum of dbias
+// inside the kernel.
 
 #include <cuda_runtime.h>
 
@@ -44,14 +62,18 @@ namespace {
 
 using namespace hetu_flash;
 
-// G: float4 output column groups per thread (D <= 64 G)
-template <int G, bool CAUSAL>
+// G: float4 output column groups per thread (D <= 64 G); BIAS / KBIAS: at
+// most one, `bias` then points to the (G, S_q, S_kv) bias or the (G, S_kv)
+// strip of group mode `bgmode`; `dbias` (BH, S_q, S_kv) is written with BIAS
+template <int G, bool CAUSAL, bool BIAS, bool KBIAS>
 __global__ void __launch_bounds__(TTHREADS)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const int* __restrict__ key_mask,
-                    const float* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq, int heads,
+                    const float* __restrict__ bias, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, float* __restrict__ dbias, int heads, int bgmode,
                     int s_q, int s_kv, int d, float scale) {
+  static_assert(!(BIAS && KBIAS), "a dense bias or a key-bias strip, not both");
   extern __shared__ __align__(16) float smem[];
   const int ld = d + 4;
   float* q_s = smem;              // TILE x ld
@@ -67,6 +89,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (size_t)bh * s_kv * d;
   const float* vb = v + (size_t)bh * s_kv * d;
   const int* km = key_mask ? key_mask + (size_t)(bh / heads) * s_kv : nullptr;
+  const float* bb = nullptr;
+  if (BIAS || KBIAS)
+    bb = bias + (size_t)group_row(bgmode, bh, heads) * (BIAS ? (size_t)s_q * s_kv : s_kv);
+  float* dbb = BIAS ? dbias + (size_t)bh * s_q * s_kv : nullptr;
 
   stage_rows(q_s, q + (size_t)bh * s_q * d, q0, s_q, d);
   stage_rows(do_s, dout + (size_t)bh * s_q * d, q0, s_q, d);
@@ -93,6 +119,21 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();
 
+    float bv[4][4];  // the bias of each score, loaded ahead of the products
+    if constexpr (BIAS || KBIAS) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tx + 16 * j;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = q0 + 4 * ty + i;
+          if constexpr (BIAS)
+            bv[i][j] = (row < s_q && key < s_kv) ? bb[(size_t)row * s_kv + key] : 0.f;
+          else
+            bv[i][j] = key < s_kv ? bb[key] : 0.f;
+        }
+      }
+    }
     float s[4][4], dp[4][4];
     dot_rows(s, q_s, k_s, d, ty, tx);
     dot_rows(dp, do_s, v_s, d, ty, tx);
@@ -104,26 +145,54 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i) {
         bool ok = okj;
         if (CAUSAL) ok = ok && (q0 + 4 * ty + i + kv_off >= k0 + c);
-        const float p = ok ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-        ds_s[(4 * ty + i) * PLD + c] = p * (dp[i][j] - dl_r[i]) * scale;
+        float p;
+        if constexpr (BIAS || KBIAS)
+          p = ok ? expf(s[i][j] * scale + bv[i][j] - lse_r[i]) : 0.f;
+        else
+          p = ok ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
+        const float t = p * (dp[i][j] - dl_r[i]);  // dL/d(logit), before the scale
+        ds_s[(4 * ty + i) * PLD + c] = t * scale;
+        if constexpr (BIAS) {
+          const int row = q0 + 4 * ty + i;
+          if (row < s_q && k0 + c < s_kv) dbb[(size_t)row * s_kv + k0 + c] = t;
+        }
       }
     }
     __syncthreads();
     acc_rows(acc, ds_s, k_s, d, ty, tx);
+  }
+  if constexpr (BIAS && CAUSAL) {
+    // key tiles past the loop: no row of this tile sees them, dbias = 0
+    const int kz = k_end <= 0 ? 0 : (k_end + TILE - 1) / TILE * TILE;
+    for (int k0 = kz; k0 < s_kv; k0 += TILE)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + 4 * ty + i;
+        if (row >= s_q) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = k0 + tx + 16 * j;
+          if (key < s_kv) dbb[(size_t)row * s_kv + key] = 0.f;
+        }
+      }
   }
   cp_async_wait_all();  // a tile with no live key tile staged Q and dO only
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
   store_rows(dq + (size_t)bh * s_q * d, acc, one, q0, s_q, d, ty, tx);
 }
 
-template <int G, bool CAUSAL>
+// BIAS / KBIAS and `bias` as for the dQ kernel; `dkbias` (BH, S_kv) is
+// written with KBIAS
+template <int G, bool CAUSAL, bool BIAS, bool KBIAS>
 __global__ void __launch_bounds__(TTHREADS)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const int* __restrict__ key_mask,
-                     const float* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int heads, int s_q, int s_kv, int d,
-                     float scale) {
+                     const float* __restrict__ bias, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv,
+                     float* __restrict__ dkbias, int heads, int bgmode, int s_q, int s_kv,
+                     int d, float scale) {
+  static_assert(!(BIAS && KBIAS), "a dense bias or a key-bias strip, not both");
   extern __shared__ __align__(16) float smem[];
   const int ld = d + 4;
   float* k_s = smem;               // TILE x ld
@@ -142,14 +211,20 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* qb = q + (size_t)bh * s_q * d;
   const float* dob = dout + (size_t)bh * s_q * d;
   const int* km = key_mask ? key_mask + (size_t)(bh / heads) * s_kv : nullptr;
+  const float* bb = nullptr;
+  if (BIAS || KBIAS)
+    bb = bias + (size_t)group_row(bgmode, bh, heads) * (BIAS ? (size_t)s_q * s_kv : s_kv);
 
   stage_rows(k_s, k + (size_t)bh * s_kv * d, k0, s_kv, d);
   stage_rows(v_s, v + (size_t)bh * s_kv * d, k0, s_kv, d);
   bool kok[4];
+  float kbv[4], dkb[4];  // KBIAS: the strip of this thread's keys, its dkbias sums
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + 4 * ty + i;
     kok[i] = key < s_kv && (km == nullptr || km[key] != 0);
+    kbv[i] = (KBIAS && key < s_kv) ? bb[key] : 0.f;
+    dkb[i] = 0.f;
   }
   float4 dk_acc[4][G], dv_acc[4][G];
   zero_acc(dk_acc);
@@ -170,9 +245,30 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       dl_s[tid] = in ? delta[(size_t)bh * s_q + row] : 0.f;
       qok_s[tid] = in;
     }
+    if constexpr (BIAS) {
+      // the (query, key) bias tile, row-major into dS^T's buffer
+      for (int i = tid; i < TILE * TILE; i += TTHREADS) {
+        const int r = i >> 6, c = i & (TILE - 1);
+        dst_s[r * PLD + c] = (q0 + r < s_q && k0 + c < s_kv)
+                                 ? bb[(size_t)(q0 + r) * s_kv + k0 + c] : 0.f;
+      }
+    }
     cp_async_wait_all();
     __syncthreads();
 
+    float bv[4][4];  // BIAS: [key 4ty + i][query tx + 16j]
+    if constexpr (BIAS) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 b4 =
+            *reinterpret_cast<const float4*>(dst_s + (tx + 16 * j) * PLD + 4 * ty);
+        bv[0][j] = b4.x;
+        bv[1][j] = b4.y;
+        bv[2][j] = b4.z;
+        bv[3][j] = b4.w;
+      }
+      __syncthreads();  // every thread has its bias before dS^T overwrites it
+    }
     float st[4][4], dpt[4][4];  // [key 4ty + i][query tx + 16j]
     dot_rows(st, k_s, q_s, d, ty, tx);
     dot_rows(dpt, v_s, do_s, d, ty, tx);
@@ -185,9 +281,17 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i) {
         bool ok = kok[i] && qok;
         if (CAUSAL) ok = ok && (q0 + c + kv_off >= k0 + 4 * ty + i);
-        const float p = ok ? expf(st[i][j] * scale - ls) : 0.f;
+        float p;
+        if constexpr (BIAS)
+          p = ok ? expf(st[i][j] * scale + bv[i][j] - ls) : 0.f;
+        else if constexpr (KBIAS)
+          p = ok ? expf(st[i][j] * scale + kbv[i] - ls) : 0.f;
+        else
+          p = ok ? expf(st[i][j] * scale - ls) : 0.f;
+        const float t = p * (dpt[i][j] - dl);  // dL/d(logit), before the scale
         pt_s[(4 * ty + i) * PLD + c] = p;
-        dst_s[(4 * ty + i) * PLD + c] = p * (dpt[i][j] - dl) * scale;
+        dst_s[(4 * ty + i) * PLD + c] = t * scale;
+        if constexpr (KBIAS) dkb[i] += t;
       }
     }
     __syncthreads();
@@ -198,64 +302,85 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
   store_rows(dk + (size_t)bh * s_kv * d, dk_acc, one, k0, s_kv, d, ty, tx);
   store_rows(dv + (size_t)bh * s_kv * d, dv_acc, one, k0, s_kv, d, ty, tx);
+  if constexpr (KBIAS) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float sum = half_sum(dkb[i]);  // over the 16 threads of key row 4ty + i
+      const int key = k0 + 4 * ty + i;
+      if (tx == 0 && key < s_kv) dkbias[(size_t)bh * s_kv + key] = sum;
+    }
+  }
 }
 
-template <int G, bool CAUSAL>
+template <int G, bool CAUSAL, bool BIAS, bool KBIAS>
 int launch_dq(const float* q, const float* k, const float* v, const int* key_mask,
-              const float* dout, const float* lse, const float* delta, float* dq, int bh,
-              int heads, int s_q, int s_kv, int d, float scale, cudaStream_t stream) {
+              const float* bias, const float* dout, const float* lse, const float* delta,
+              float* dq, float* dbias, int bh, int heads, int bgmode, int s_q, int s_kv, int d,
+              float scale, cudaStream_t stream) {
   static size_t configured[64] = {0};
   const size_t smem =
       (size_t)(4 * TILE * (d + 4) + TILE * PLD) * sizeof(float) + TILE * sizeof(int);
-  cudaError_t err = ensure_smem((const void*)flash_bwd_dq_kernel<G, CAUSAL>, smem, configured);
+  cudaError_t err = ensure_smem((const void*)flash_bwd_dq_kernel<G, CAUSAL, BIAS, KBIAS>,
+                                smem, configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((s_q + TILE - 1) / TILE, bh);
-  flash_bwd_dq_kernel<G, CAUSAL><<<grid, TTHREADS, smem, stream>>>(
-      q, k, v, key_mask, dout, lse, delta, dq, heads, s_q, s_kv, d, scale);
+  flash_bwd_dq_kernel<G, CAUSAL, BIAS, KBIAS><<<grid, TTHREADS, smem, stream>>>(
+      q, k, v, key_mask, bias, dout, lse, delta, dq, dbias, heads, bgmode, s_q, s_kv, d,
+      scale);
   return (int)cudaGetLastError();
 }
 
-template <int G, bool CAUSAL>
+template <int G, bool CAUSAL, bool BIAS, bool KBIAS>
 int launch_dkv(const float* q, const float* k, const float* v, const int* key_mask,
-               const float* dout, const float* lse, const float* delta, float* dk, float* dv,
-               int bh, int heads, int s_q, int s_kv, int d, float scale,
-               cudaStream_t stream) {
+               const float* bias, const float* dout, const float* lse, const float* delta,
+               float* dk, float* dv, float* dkbias, int bh, int heads, int bgmode, int s_q,
+               int s_kv, int d, float scale, cudaStream_t stream) {
   static size_t configured[64] = {0};
   const size_t smem = (size_t)(4 * TILE * (d + 4) + 2 * TILE * PLD + 2 * TILE) * sizeof(float) +
                       TILE * sizeof(int);
-  cudaError_t err = ensure_smem((const void*)flash_bwd_dkv_kernel<G, CAUSAL>, smem, configured);
+  cudaError_t err = ensure_smem((const void*)flash_bwd_dkv_kernel<G, CAUSAL, BIAS, KBIAS>,
+                                smem, configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((s_kv + TILE - 1) / TILE, bh);
-  flash_bwd_dkv_kernel<G, CAUSAL><<<grid, TTHREADS, smem, stream>>>(
-      q, k, v, key_mask, dout, lse, delta, dk, dv, heads, s_q, s_kv, d, scale);
+  flash_bwd_dkv_kernel<G, CAUSAL, BIAS, KBIAS><<<grid, TTHREADS, smem, stream>>>(
+      q, k, v, key_mask, bias, dout, lse, delta, dk, dv, dkbias, heads, bgmode, s_q, s_kv, d,
+      scale);
   return (int)cudaGetLastError();
 }
 
-bool bad_shape(int bh, int heads, int s_q, int s_kv, int d) {
+bool bad_shape(int bh, int heads, int s_q, int s_kv, int d, int bgmode = 0) {
   return d <= 0 || d > 128 || (d & 3) || heads <= 0 || bh <= 0 || bh > 65535 || bh % heads ||
-         s_q <= 0 || s_kv <= 0;
+         s_q <= 0 || s_kv <= 0 || bgmode < 0 || bgmode > 3;
 }
 
-template <bool CAUSAL>
+template <bool CAUSAL, bool BIAS = false, bool KBIAS = false>
 int dispatch_dq(const float* q, const float* k, const float* v, const int* key_mask,
-                const float* dout, const float* lse, const float* delta, float* dq, int bh,
-                int heads, int s_q, int s_kv, int d, float scale, void* stream) {
-  if (bad_shape(bh, heads, s_q, s_kv, d)) return (int)cudaErrorInvalidValue;
-  return d <= 64 ? launch_dq<1, CAUSAL>(q, k, v, key_mask, dout, lse, delta, dq, bh, heads,
-                                        s_q, s_kv, d, scale, (cudaStream_t)stream)
-                 : launch_dq<2, CAUSAL>(q, k, v, key_mask, dout, lse, delta, dq, bh, heads,
-                                        s_q, s_kv, d, scale, (cudaStream_t)stream);
+                const float* bias, const float* dout, const float* lse, const float* delta,
+                float* dq, float* dbias, int bh, int heads, int bgmode, int s_q, int s_kv,
+                int d, float scale, void* stream) {
+  if (bad_shape(bh, heads, s_q, s_kv, d, bgmode)) return (int)cudaErrorInvalidValue;
+  return d <= 64 ? launch_dq<1, CAUSAL, BIAS, KBIAS>(q, k, v, key_mask, bias, dout, lse, delta,
+                                                     dq, dbias, bh, heads, bgmode, s_q, s_kv,
+                                                     d, scale, (cudaStream_t)stream)
+                 : launch_dq<2, CAUSAL, BIAS, KBIAS>(q, k, v, key_mask, bias, dout, lse, delta,
+                                                     dq, dbias, bh, heads, bgmode, s_q, s_kv,
+                                                     d, scale, (cudaStream_t)stream);
 }
 
-template <bool CAUSAL>
+template <bool CAUSAL, bool BIAS = false, bool KBIAS = false>
 int dispatch_dkv(const float* q, const float* k, const float* v, const int* key_mask,
-                 const float* dout, const float* lse, const float* delta, float* dk, float* dv,
-                 int bh, int heads, int s_q, int s_kv, int d, float scale, void* stream) {
-  if (bad_shape(bh, heads, s_q, s_kv, d)) return (int)cudaErrorInvalidValue;
-  return d <= 64 ? launch_dkv<1, CAUSAL>(q, k, v, key_mask, dout, lse, delta, dk, dv, bh,
-                                         heads, s_q, s_kv, d, scale, (cudaStream_t)stream)
-                 : launch_dkv<2, CAUSAL>(q, k, v, key_mask, dout, lse, delta, dk, dv, bh,
-                                         heads, s_q, s_kv, d, scale, (cudaStream_t)stream);
+                 const float* bias, const float* dout, const float* lse, const float* delta,
+                 float* dk, float* dv, float* dkbias, int bh, int heads, int bgmode, int s_q,
+                 int s_kv, int d, float scale, void* stream) {
+  if (bad_shape(bh, heads, s_q, s_kv, d, bgmode)) return (int)cudaErrorInvalidValue;
+  return d <= 64 ? launch_dkv<1, CAUSAL, BIAS, KBIAS>(q, k, v, key_mask, bias, dout, lse,
+                                                      delta, dk, dv, dkbias, bh, heads, bgmode,
+                                                      s_q, s_kv, d, scale,
+                                                      (cudaStream_t)stream)
+                 : launch_dkv<2, CAUSAL, BIAS, KBIAS>(q, k, v, key_mask, bias, dout, lse,
+                                                      delta, dk, dv, dkbias, bh, heads, bgmode,
+                                                      s_q, s_kv, d, scale,
+                                                      (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -268,8 +393,8 @@ extern "C" int hetu_flash_bwd_dq(const float* q, const float* k, const float* v,
                                  const int* key_mask, const float* dout, const float* lse,
                                  const float* delta, float* dq, int bh, int heads, int s_q,
                                  int s_kv, int d, float scale, void* stream) {
-  return dispatch_dq<false>(q, k, v, key_mask, dout, lse, delta, dq, bh, heads, s_q, s_kv, d,
-                            scale, stream);
+  return dispatch_dq<false>(q, k, v, key_mask, nullptr, dout, lse, delta, dq, nullptr, bh,
+                            heads, 0, s_q, s_kv, d, scale, stream);
 }
 
 extern "C" int hetu_flash_bwd_dq_causal(const float* q, const float* k, const float* v,
@@ -277,16 +402,16 @@ extern "C" int hetu_flash_bwd_dq_causal(const float* q, const float* k, const fl
                                         const float* lse, const float* delta, float* dq,
                                         int bh, int heads, int s_q, int s_kv, int d,
                                         float scale, void* stream) {
-  return dispatch_dq<true>(q, k, v, key_mask, dout, lse, delta, dq, bh, heads, s_q, s_kv, d,
-                           scale, stream);
+  return dispatch_dq<true>(q, k, v, key_mask, nullptr, dout, lse, delta, dq, nullptr, bh,
+                           heads, 0, s_q, s_kv, d, scale, stream);
 }
 
 extern "C" int hetu_flash_bwd_dkv(const float* q, const float* k, const float* v,
                                   const int* key_mask, const float* dout, const float* lse,
                                   const float* delta, float* dk, float* dv, int bh, int heads,
                                   int s_q, int s_kv, int d, float scale, void* stream) {
-  return dispatch_dkv<false>(q, k, v, key_mask, dout, lse, delta, dk, dv, bh, heads, s_q, s_kv,
-                             d, scale, stream);
+  return dispatch_dkv<false>(q, k, v, key_mask, nullptr, dout, lse, delta, dk, dv, nullptr, bh,
+                             heads, 0, s_q, s_kv, d, scale, stream);
 }
 
 extern "C" int hetu_flash_bwd_dkv_causal(const float* q, const float* k, const float* v,
@@ -294,6 +419,65 @@ extern "C" int hetu_flash_bwd_dkv_causal(const float* q, const float* k, const f
                                          const float* lse, const float* delta, float* dk,
                                          float* dv, int bh, int heads, int s_q, int s_kv,
                                          int d, float scale, void* stream) {
-  return dispatch_dkv<true>(q, k, v, key_mask, dout, lse, delta, dk, dv, bh, heads, s_q, s_kv,
-                            d, scale, stream);
+  return dispatch_dkv<true>(q, k, v, key_mask, nullptr, dout, lse, delta, dk, dv, nullptr, bh,
+                            heads, 0, s_q, s_kv, d, scale, stream);
+}
+
+// Additive bias, as hetu_flash_fwd_bias takes it: bias (G, s_q, s_kv) or,
+// strip != 0, (G, 1, s_kv) float32 of group mode gmode; causal != 0 adds the
+// causal rule.  dQ with a dense bias writes dbias (bh, s_q, s_kv) float32 (the
+// pre-scale dS; null with a strip); dK/dV with a strip writes dkbias
+// (bh, 1, s_kv) float32 (null with a dense bias).
+template <bool BIAS, bool KBIAS>
+static int dq_bias(const float* q, const float* k, const float* v, const int* key_mask,
+            const float* bias, const float* dout, const float* lse, const float* delta,
+            float* dq, float* dbias, int bh, int heads, int s_q, int s_kv, int d, int gmode,
+            int causal, float scale, void* stream) {
+  return causal ? dispatch_dq<true, BIAS, KBIAS>(q, k, v, key_mask, bias, dout, lse, delta, dq,
+                                                 dbias, bh, heads, gmode, s_q, s_kv, d, scale,
+                                                 stream)
+                : dispatch_dq<false, BIAS, KBIAS>(q, k, v, key_mask, bias, dout, lse, delta, dq,
+                                                  dbias, bh, heads, gmode, s_q, s_kv, d, scale,
+                                                  stream);
+}
+
+template <bool BIAS, bool KBIAS>
+static int dkv_bias(const float* q, const float* k, const float* v, const int* key_mask,
+             const float* bias, const float* dout, const float* lse, const float* delta,
+             float* dk, float* dv, float* dkbias, int bh, int heads, int s_q, int s_kv, int d,
+             int gmode, int causal, float scale, void* stream) {
+  return causal ? dispatch_dkv<true, BIAS, KBIAS>(q, k, v, key_mask, bias, dout, lse, delta,
+                                                  dk, dv, dkbias, bh, heads, gmode, s_q, s_kv,
+                                                  d, scale, stream)
+                : dispatch_dkv<false, BIAS, KBIAS>(q, k, v, key_mask, bias, dout, lse, delta,
+                                                   dk, dv, dkbias, bh, heads, gmode, s_q, s_kv,
+                                                   d, scale, stream);
+}
+
+extern "C" int hetu_flash_bwd_dq_bias(const float* q, const float* k, const float* v,
+                                      const int* key_mask, const float* bias,
+                                      const float* dout, const float* lse, const float* delta,
+                                      float* dq, float* dbias, int bh, int heads, int s_q,
+                                      int s_kv, int d, int gmode, int strip, int causal,
+                                      float scale, void* stream) {
+  if (bias == nullptr || (strip != 0) != (dbias == nullptr)) return (int)cudaErrorInvalidValue;
+  return strip ? dq_bias<false, true>(q, k, v, key_mask, bias, dout, lse, delta, dq, nullptr, bh,
+                                      heads, s_q, s_kv, d, gmode, causal, scale, stream)
+               : dq_bias<true, false>(q, k, v, key_mask, bias, dout, lse, delta, dq, dbias, bh,
+                                      heads, s_q, s_kv, d, gmode, causal, scale, stream);
+}
+
+extern "C" int hetu_flash_bwd_dkv_bias(const float* q, const float* k, const float* v,
+                                       const int* key_mask, const float* bias,
+                                       const float* dout, const float* lse, const float* delta,
+                                       float* dk, float* dv, float* dkbias, int bh, int heads,
+                                       int s_q, int s_kv, int d, int gmode, int strip,
+                                       int causal, float scale, void* stream) {
+  if (bias == nullptr || (strip != 0) != (dkbias != nullptr)) return (int)cudaErrorInvalidValue;
+  return strip ? dkv_bias<false, true>(q, k, v, key_mask, bias, dout, lse, delta, dk, dv,
+                                       dkbias, bh, heads, s_q, s_kv, d, gmode, causal, scale,
+                                       stream)
+               : dkv_bias<true, false>(q, k, v, key_mask, bias, dout, lse, delta, dk, dv,
+                                       nullptr, bh, heads, s_q, s_kv, d, gmode, causal, scale,
+                                       stream);
 }

@@ -24,6 +24,12 @@ constexpr int TILE = 64;          // query or key rows of one tile
 constexpr int TTHREADS = 256;     // 16 x 16 threads
 constexpr int PLD = TILE + 4;     // row stride of a TILE x TILE score tile
 
+// Row of a (G, ...) mask or bias stored unbroadcast for row `bh` of B*H:
+// gmode 0..3 (one, h, b, bh) -> 0, bh % heads, bh / heads, bh.
+__device__ __forceinline__ int group_row(int gmode, int bh, int heads) {
+  return gmode == 0 ? 0 : gmode == 1 ? bh % heads : gmode == 2 ? bh / heads : bh;
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));

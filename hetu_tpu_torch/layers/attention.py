@@ -8,8 +8,11 @@ probabilities, which the flash kernels never materialise; a config's
 ``causal=True`` takes the flash kernels' causal specialization, forward
 and backward, alone or with a key-padding mask.  Any other mask shape
 takes the full-mask forward, whose backward is not ported (it raises in
-training).  Not ported, refused by name: ``context_parallel`` (ring /
-Ulysses schedules) and an additive ``bias``.
+training).  An additive ``bias`` (T5's relative position bias) takes the
+bias specialization, forward and backward, alone or with ``causal`` or a
+key-padding mask (``sdpa_bias_op``, ``sdpa_masked_bias_op``).  Not
+ported, refused by name: ``context_parallel`` (ring / Ulysses schedules)
+and a bias together with a full mask (raised by the kernel entry).
 """
 from __future__ import annotations
 
@@ -47,18 +50,22 @@ class MultiHeadAttention(BaseLayer):
         optional (batch*kv_seq, hidden) memory for cross-attention;
         ``mask``: an optional validity mask node broadcastable to
         (B, H, S_q, S_k) — a (B, 1, 1, S_k) padding mask rides the flash
-        kernels' key-mask path, any other the full-mask forward."""
-        if bias is not None:
-            raise NotImplementedError(
-                "MultiHeadAttention(bias=): biased attention is not ported")
+        kernels' key-mask path, any other the full-mask forward; ``bias``:
+        an optional additive logit bias node broadcastable the same way."""
         kv = x if kv is None else kv
         kv_seq = seq if kv_seq is None else kv_seq
         q = self._split(self.q(x), batch, seq)
         k = self._split(self.k(kv), batch, kv_seq)
         v = self._split(self.v(kv), batch, kv_seq)
-        if mask is not None:
+        if mask is not None and bias is not None:
+            o = ops.sdpa_masked_bias_op(q, k, v, mask, bias,
+                                        causal=self.causal, scale=scale)
+        elif mask is not None:
             o = ops.sdpa_masked_op(q, k, v, mask, causal=self.causal,
                                    scale=scale)
+        elif bias is not None:
+            o = ops.sdpa_bias_op(q, k, v, bias, causal=self.causal,
+                                 scale=scale)
         else:
             o = ops.sdpa_op(q, k, v, causal=self.causal, scale=scale)
         o = ops.transpose_op(o, perm=(0, 2, 1, 3))

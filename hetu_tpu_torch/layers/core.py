@@ -1,7 +1,7 @@
 """Core layers of the ported paths (twin of ``hetu_tpu/layers/core.py``):
-``Linear``, ``LayerNorm``, ``Embedding`` and ``DropOut`` with the same
-variable names (``<name>.weight`` / ``.bias``, ``<name>.scale`` /
-``.bias``, ``<name>.weight``)."""
+``Linear``, ``LayerNorm``, ``RMSNorm``, ``Embedding`` and ``DropOut``
+with the same variable names (``<name>.weight`` / ``.bias``,
+``<name>.scale`` / ``.bias``, ``<name>.scale``, ``<name>.weight``)."""
 from __future__ import annotations
 
 from .base import BaseLayer
@@ -12,7 +12,8 @@ from .. import ops
 
 def _resolve_activation(activation):
     if isinstance(activation, str):
-        table = {"gelu": ops.gelu_op, "tanh": ops.tanh_op}
+        table = {"gelu": ops.gelu_op, "tanh": ops.tanh_op,
+                 "relu": ops.relu_op}
         if activation not in table:
             raise NotImplementedError(activation)
         return table[activation]
@@ -55,6 +56,21 @@ class LayerNorm(BaseLayer):
     def __call__(self, x):
         return ops.layer_normalization_op(x, self.scale_var, self.bias_var,
                                           eps=self.eps)
+
+
+class RMSNorm(BaseLayer):
+    """Root-mean-square norm (T5LayerNorm: no mean subtraction, no bias),
+    built from the same ops as the JAX layer."""
+
+    def __init__(self, num_channels, eps=1e-6, name="rmsnorm"):
+        self.scale_var = init.ones(shape=(num_channels,), name=name + ".scale")
+        self.eps = eps
+
+    def __call__(self, x):
+        ms = ops.reduce_mean_op(ops.mul_op(x, x), [-1], keepdims=True)
+        normed = ops.mul_op(x, ops.broadcastto_op(
+            ops.rsqrt_op(ms + self.eps), x))
+        return ops.mul_op(normed, ops.broadcastto_op(self.scale_var, normed))
 
 
 class Embedding(BaseLayer):

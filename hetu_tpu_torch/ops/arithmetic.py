@@ -25,4 +25,5 @@ const_div_op = def_op("ConstDiv", lambda c, a, const_attr=1.0: const_attr / a)
 opposite_op = def_op("Opposite", lambda c, a: -a)
 pow_op = def_op("Pow", lambda c, a, p=2.0: torch.pow(a, p))
 tanh_op = def_op("Tanh", lambda c, a: torch.tanh(a))
+rsqrt_op = def_op("ReciprocalSqrt", lambda c, a: torch.rsqrt(a))
 sigmoid_op = def_op("Sigmoid", lambda c, a: torch.sigmoid(a))

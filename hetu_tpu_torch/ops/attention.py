@@ -8,6 +8,12 @@ a query row with no valid key outputs zero.  The dispatchers:
   (B|1, 1, 1, S_kv) mask to the ``key_mask`` specialization and any
   other broadcastable mask to the full-mask one (forward only: its
   backward is not ported and raises ``NotImplementedError``).
+* ``dispatch_sdpa_bias`` (an additive bias, dense or ``causal``) and
+  ``dispatch_sdpa_masked_bias`` (a mask node and a bias): T5's relative
+  position bias.  The mask takes ``_split_mask_kinds``; a bias with a
+  full mask raises ``NotImplementedError`` (not ported).  The bias's
+  gradient comes from the kernels (dbias, or dkbias for a (., ., 1, S_kv)
+  key-bias strip), summed over its broadcast group.
 * ``dispatch_sdpa_decode``: the q_len=1 decode step against a KV cache
   (the ``lengths`` specialization).
 * ``dispatch_sdpa_prefill``: the q_len=C chunked-prefill step against a
@@ -17,8 +23,7 @@ a query row with no valid key outputs zero.  The dispatchers:
 ``kv_cache_append_op`` and the chunk ops (``chunk_positions_op``,
 ``split_heads_chunk_op``, ``merge_heads_chunk_op``,
 ``chunk_emit_gather_op``) are the plain tensor code around them.  Not
-ported: the ``bias`` / masked-bias / varlen dispatchers and the ring and
-Ulysses schedules.
+ported: the varlen dispatcher and the ring and Ulysses schedules.
 
 On a CUDA tensor each always launches the hand-written flash kernels
 (:mod:`hetu_tpu_torch.ops.kernels.flash_attention`) at every length — the
@@ -113,6 +118,49 @@ def _sdpa_masked(c, q, k, v, mask, causal=False, scale=None):
 
 
 sdpa_masked_op = def_op("ScaledDotProductAttentionMasked", _sdpa_masked)
+
+
+def dispatch_sdpa_bias(q, k, v, bias, causal=False, scale=None):
+    """(B, H, S, D) attention with an additive logit ``bias``
+    broadcastable to (B, H, S_q, S_kv): the flash kernels' bias
+    specialization on the card, the plain attention on the CPU."""
+    if q.device.type == "cpu":
+        _note_cpu()
+        return sdpa_reference(q, k, v, causal=causal, scale=scale, bias=bias)
+    return flash_attention(q, k, v, causal=causal, scale=scale, bias=bias)
+
+
+def _sdpa_bias(c, q, k, v, bias, causal=False, scale=None):
+    """Attention with an additive logit bias (T5 relative position bias)."""
+    return dispatch_sdpa_bias(q, k, v, bias, causal=causal, scale=scale)
+
+
+sdpa_bias_op = def_op("ScaledDotProductAttentionBias", _sdpa_bias)
+
+
+def dispatch_sdpa_masked_bias(q, k, v, mask, bias, causal=False,
+                              scale=None):
+    """Masked and biased (B, H, S, D) attention: on the card a
+    key-padding mask rides the bias kernels' ``key_mask`` path (a full
+    mask with a bias is not ported and raises); the CPU takes the plain
+    attention."""
+    if q.device.type == "cpu":
+        _note_cpu()
+        return sdpa_reference(q, k, v, causal=causal, scale=scale, mask=mask,
+                              bias=bias)
+    km, fm = _split_mask_kinds(mask, q)
+    return flash_attention(q, k, v, causal=causal, scale=scale, key_mask=km,
+                           mask=fm, bias=bias)
+
+
+def _sdpa_masked_bias(c, q, k, v, mask, bias, causal=False, scale=None):
+    """Masked attention with an additive bias (T5's padded encoder)."""
+    return dispatch_sdpa_masked_bias(q, k, v, mask, bias, causal=causal,
+                                     scale=scale)
+
+
+sdpa_masked_bias_op = def_op("ScaledDotProductAttentionMaskedBias",
+                             _sdpa_masked_bias)
 
 
 def dispatch_sdpa_decode(q, k_cache, v_cache, positions, scale=None):

@@ -1,11 +1,16 @@
-"""Where the time of a BERT-base or GPT-2 small training step goes, on the
-card.
+"""Where the time of a BERT-base, GPT-2 small or T5-small training step
+goes, on the card.
 
 Runs a training workload of ``chip_smoke.py``: ``--model bert`` (the
 default) BERT-base at published widths, seq 512, batch 16,
 ``synthetic_mlm_batch(cfg, seed=0)``; ``--model gpt2`` GPT-2 small at
 published widths, seq 1024, batch 8, ``synthetic_lm_batch(cfg, seed=0)``,
-attention through the causal kernels.  Both: seeded random weights, fp32,
+attention through the causal kernels; ``--model t5`` T5-small at
+published widths, source 512, target 114, batch 32,
+``t5_seq2seq_graph(cfg, use_mask=True)`` on
+``synthetic_seq2seq_batch(cfg, seed=0, padded=True)``, attention through
+the bias kernels (encoder: with the key mask; decoder: causal) and the
+key-mask kernels (cross-attention).  All: seeded random weights, fp32,
 dropout 0.1, the one batch fed every step, ``AdamOptimizer(1e-4)`` through
 ``Executor.run``.  Reports per step: host wall time without
 the profiler, then under ``torch.profiler`` the device busy time (sum of
@@ -14,10 +19,11 @@ launches, the kernels that take the most device time, the share of the
 three flash attention kernels and of the matrix products.  Run from the
 repository root::
 
-    python3 -m hetu_tpu_torch.tools.profile_train [--model bert|gpt2]
+    python3 -m hetu_tpu_torch.tools.profile_train [--model bert|gpt2|t5]
         [--out DIR] [--steps N]
 
-``--out`` receives ``profile_train[_gpt2].json`` and the operator tables.
+``--out`` receives ``profile_train[_gpt2|_t5].json`` and the operator
+tables.
 """
 from __future__ import annotations
 
@@ -35,9 +41,11 @@ import hetu_tpu_torch as ht
 from hetu_tpu_torch.ops.kernels import flash_attention as fa
 
 WARMUP = 2
-#: model -> (batch, seq)
-SHAPES = {"bert": (16, 512), "gpt2": (8, 1024)}
-# the kernels' names in a trace; the causal instantiations share them
+#: T5's source and target lengths; model -> (batch, tokens a sequence)
+T5_SRC, T5_TGT = 512, 114
+SHAPES = {"bert": (16, 512), "gpt2": (8, 1024), "t5": (32, T5_SRC + T5_TGT)}
+# the kernels' names in a trace; the causal and bias instantiations share
+# them
 FLASH = {"flash_fwd_kernel": "fwd", "flash_bwd_dq_kernel": "dq",
          "flash_bwd_dkv_kernel": "dkv"}
 
@@ -57,7 +65,15 @@ def _is_gemm(name):
 def build(model, device="cuda"):
     """(executor, feed dict) of ``model``'s training workload."""
     batch, seq = SHAPES[model]
-    if model == "gpt2":
+    if model == "t5":
+        cfg = ht.T5Config.small(batch_size=batch, src_len=T5_SRC,
+                                tgt_len=T5_TGT)
+        feeds, loss, _ = ht.t5_seq2seq_graph(cfg, use_mask=True)
+        batch_np = ht.synthetic_seq2seq_batch(cfg, seed=0, padded=True)
+        fd = {feeds[k]: v for k, v in zip(
+            ("input_ids", "decoder_input_ids", "labels", "attention_mask"),
+            batch_np)}
+    elif model == "gpt2":
         cfg = ht.GPT2Config.small(batch_size=batch, seq_len=seq)
         feeds, loss, _ = ht.gpt2_lm_graph(cfg)
         ids, labels = ht.synthetic_lm_batch(cfg, seed=0)
@@ -139,6 +155,8 @@ def main(argv=None):
         "step_ms_all": [t * 1e3 for t in times],
         "samples_per_s": batch / step_s,
         "tokens_per_s": batch * seq / step_s,
+        "tgt_tokens_per_s": (batch * T5_TGT / step_s if args.model == "t5"
+                             else None),
         "profiled": {
             "steps": psteps, "wall_ms_per_step": pwall / psteps * 1e3,
             "device_busy_ms_per_step": per_step_ms(busy_us),

@@ -4,7 +4,10 @@ run by their interpreter (``flash_attention(..., interpret=True)``, and
 ``jax.vjp`` of it for the backward's ``_dq_kernel`` / ``_dkv_kernel``, as
 tests/test_pallas.py runs them) and to ``sdpa_reference``.  The CUDA
 kernels themselves are held to the same plain versions on the card
-(tests/test_torch_kernels_gpu.py and chip_smoke.py).
+(tests/test_torch_kernels_gpu.py and chip_smoke.py).  The additive-bias
+specializations are held with their gradient, dbias / dkbias summed over
+the bias's broadcast group, at a scale other than 1 (T5 attends at scale
+1, which would hide a bias added before the scale).
 
 Tolerances, float32: forward atol 1e-5 — the algorithms sum in different
 orders (blockwise online softmax vs one softmax); gradients rtol 2e-4,
@@ -418,11 +421,12 @@ def test_fullmask_lse_of_a_dead_row_and_storage():
     assert np.all(lse.numpy()[::TH, 0] == np.float32(fa.NEG_INF))
 
 
-@pytest.mark.parametrize("what", ["bias", "lengths+key_mask",
+@pytest.mark.parametrize("what", ["bias+mask", "lengths+key_mask",
                                   "lengths+causal", "mask backward"])
 def test_unported_specializations_are_refused_by_name(what):
     q = torch.zeros(2, 2, 8, 8)
-    kw = {"bias": dict(bias=torch.zeros(1, 1, 8, 8)),
+    kw = {"bias+mask": dict(bias=torch.zeros(1, 1, 8, 8),
+                            mask=torch.ones(1, 1, 8, 8, dtype=torch.bool)),
           "lengths+key_mask": dict(
               lengths=torch.ones(2, dtype=torch.int32),
               key_mask=torch.ones(2, 8, dtype=torch.int32)),
@@ -474,3 +478,169 @@ def test_fullmask_wrapper_checks_its_inputs(bad):
         km = torch.ones(4, 6, dtype=torch.int32)
     with pytest.raises(ValueError):
         fa.flash_fwd_fullmask(q, q, q, mask, gmode, 2, 1.0, key_mask=km)
+
+
+# -- additive bias (T5) --------------------------------------------------------
+
+#: the bias cases run at a scale other than 1: a bias added before the
+#: scale would pass at T5's scale 1.0
+BIAS_SCALE = 0.37
+BS, BB, BHEADS, BD = 128, 2, 2, 16
+
+
+def _bias_inputs(s_q, s_kv, bias_shape, seed, b=BB, h=BHEADS, key_mask=False):
+    rng = np.random.RandomState(seed)
+    q, do = (rng.randn(b, h, s_q, BD).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(b, h, s_kv, BD).astype(np.float32) for _ in range(2))
+    bias = rng.randn(*bias_shape).astype(np.float32)
+    km = None
+    if key_mask:
+        km = (rng.rand(b, s_kv) < 0.7).astype(np.int32)
+        km[0, 0] = 1
+        km[1] = 0                      # a batch row with every key masked
+    return q, k, v, do, bias, km
+
+
+def _port_bias_grads(q, k, v, do, bias, km, causal):
+    """out and (dq, dk, dv, dbias) of the port's entry on CPU tensors:
+    ``FlashAttention`` over the plain versions of the bias kernels, dbias
+    summed over its group."""
+    tq, tk, tv, tb = (torch.from_numpy(x).requires_grad_(True)
+                      for x in (q, k, v, bias))
+    out = fa.flash_attention(tq, tk, tv, causal=causal, scale=BIAS_SCALE,
+                             key_mask=None if km is None
+                             else torch.from_numpy(km), bias=tb)
+    grads = torch.autograd.grad(out, (tq, tk, tv, tb), torch.from_numpy(do))
+    return out.detach().numpy(), [g.numpy() for g in grads]
+
+
+def _jax_bias_grads(q, k, v, do, bias, km, causal):
+    jkm = None if km is None else jnp.asarray(km)
+
+    def fn(q, k, v, b):
+        return jax_flash(q, k, v, causal=causal, scale=BIAS_SCALE,
+                         key_mask=jkm, bias=b, interpret=True)
+
+    out, vjp = jax.vjp(fn, *(jnp.asarray(x) for x in (q, k, v, bias)))
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+BIAS_CASES = [("one", False, False), ("h", False, False), ("b", False, False),
+              ("bh", False, False), ("h", True, False), ("h", False, True),
+              ("bh", True, True)]
+
+
+@pytest.mark.parametrize("gmode,key_mask,causal", BIAS_CASES)
+def test_plain_bias_forward_and_backward_match_jax_pallas_interpret(
+        gmode, key_mask, causal):
+    """out, dq, dk, dv and the group-summed dbias of a dense bias in each
+    group mode, alone, with a key mask (one batch row fully masked) and
+    causal, against the Pallas kernels in interpret mode."""
+    shape = (BB if gmode in ("b", "bh") else 1,
+             BHEADS if gmode in ("h", "bh") else 1, BS, BS)
+    q, k, v, do, bias, km = _bias_inputs(BS, BS, shape, seed=len(gmode) + 7
+                                         * key_mask + 3 * causal,
+                                         key_mask=key_mask)
+    assert fa.classify_group(torch.from_numpy(bias), BB, BHEADS, BS, BS,
+                             "bias") == gmode
+    got, grads = _port_bias_grads(q, k, v, do, bias, km, causal)
+    want, wgrads = _jax_bias_grads(q, k, v, do, bias, km, causal)
+    np.testing.assert_allclose(got, want, **FWD_TOL)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), grads, wgrads):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, err_msg=name, **CAUSAL_GRAD_TOL)
+    if causal:      # no row sees a key above the diagonal: dbias is 0 there
+        assert np.all(grads[3][..., np.triu_indices(BS, 1)[0],
+                               np.triu_indices(BS, 1)[1]] == 0.0)
+    if key_mask:
+        assert np.all(got[1] == 0.0)
+
+
+@pytest.mark.parametrize("bias_shape,causal", [((1, 1, 1, 128), False),
+                                               ((2, 1, 1, 128), False),
+                                               ((2, 4, 1, 128), True)])
+def test_plain_key_bias_strip_matches_jax_pallas_interpret(bias_shape,
+                                                           causal):
+    """A (., ., 1, S_kv) bias takes the key-bias strip (the shapes of
+    tests/test_pallas.py's strip test, B=2, H=4): out, dq, dk, dv and the
+    group-summed dkbias against the Pallas kernels in interpret mode."""
+    q, k, v, do, bias, _ = _bias_inputs(BS, BS, bias_shape, seed=21, b=2, h=4)
+    before = fa.dkv_kbias_launches
+    got, grads = _port_bias_grads(q, k, v, do, bias, None, causal)
+    want, wgrads = _jax_bias_grads(q, k, v, do, bias, None, causal)
+    np.testing.assert_allclose(got, want, **FWD_TOL)
+    for name, g, w in zip(("dq", "dk", "dv", "dkbias"), grads, wgrads):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, err_msg=name, **CAUSAL_GRAD_TOL)
+    assert fa.dkv_kbias_launches == before       # the plain version ran
+
+
+@pytest.mark.parametrize("s_q,s_kv,causal,key_mask", [(114, 114, True, False),
+                                                      (114, 200, False, True)])
+def test_bias_autograd_function_on_cpu_matches_autograd_of_sdpa_reference(
+        s_q, s_kv, causal, key_mask):
+    """Ragged lengths (T5's 114-token target, causal; a 114 x 200 cross
+    shape with a key mask): ``flash_attention(bias=)`` → ``FlashAttention``
+    against autograd of ``sdpa_reference`` with the broadcast bias."""
+    from hetu_tpu_torch.ops.attention import sdpa_reference
+    q, k, v, do, bias, km = _bias_inputs(s_q, s_kv, (1, BHEADS, s_q, s_kv),
+                                         seed=s_kv, key_mask=key_mask)
+    got, grads = _port_bias_grads(q, k, v, do, bias, km, causal)
+    tq, tk, tv, tb = (torch.from_numpy(x).requires_grad_(True)
+                      for x in (q, k, v, bias))
+    ref = sdpa_reference(tq, tk, tv, causal=causal, scale=BIAS_SCALE,
+                         bias=tb, mask=None if km is None else
+                         torch.from_numpy(km)[:, None, None, :])
+    wgrads = torch.autograd.grad(ref, (tq, tk, tv, tb), torch.from_numpy(do))
+    np.testing.assert_allclose(got, ref.detach().numpy(), **FWD_TOL)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), grads, wgrads):
+        np.testing.assert_allclose(g, w.numpy(), err_msg=name,
+                                   **CAUSAL_GRAD_TOL)
+
+
+def test_bias_wrappers_count_no_launch_on_cpu_and_give_storage_grads():
+    q, k, v, do, bias, km = _bias_inputs(16, 24, (BHEADS, 16, 24), seed=5,
+                                         key_mask=True)
+    flat = [torch.from_numpy(x.reshape(BB * BHEADS, x.shape[2], BD))
+            for x in (q, k, v, do)]
+    tq, tk, tv, tdo = flat
+    tb, tkm = torch.from_numpy(bias), torch.from_numpy(km)
+    names = [n for n in vars(fa) if "bias" in n and n.endswith("launches")]
+    assert len(names) == 9
+    before = [getattr(fa, n) for n in names]
+    out, lse = fa.flash_fwd_bias(tq, tk, tv, tkm, tb, None, "h", BHEADS, 0.3)
+    delta = (tdo * out).sum(-1)
+    dq, dbias = fa.flash_bwd_dq_bias(tq, tk, tv, tkm, tb, None, "h", BHEADS,
+                                     tdo, lse, delta, 0.3)
+    dk, dv, dkbias = fa.flash_bwd_dkv_bias(tq, tk, tv, tkm, tb, None, "h",
+                                           BHEADS, tdo, lse, delta, 0.3)
+    want = fa.flash_bwd_bias_plain(tq, tk, tv, tkm, tb, None, "h", BHEADS,
+                                   out, lse, tdo, 0.3)
+    assert dkbias is None and want[4] is None
+    assert tuple(dbias.shape) == (BB * BHEADS, 16, 24)
+    for g, w in zip((dq, dk, dv, dbias), want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert [getattr(fa, n) for n in names] == before
+    red = fa.group_reduce(dbias, "h", BHEADS, tb.shape)
+    torch.testing.assert_close(red, dbias.view(BB, BHEADS, 16, 24).sum(0))
+
+
+@pytest.mark.parametrize("bad", ["both", "neither", "dtype", "rows",
+                                 "strip_rows", "gmode"])
+def test_bias_wrapper_checks_its_inputs(bad):
+    q = torch.zeros(4, 6, 8)
+    bias, kbias, gmode = torch.zeros(2, 6, 6), None, "h"
+    if bad == "both":
+        kbias = torch.zeros(2, 1, 6)
+    elif bad == "neither":
+        bias = None
+    elif bad == "dtype":
+        bias = bias.double()
+    elif bad == "rows":
+        bias = torch.zeros(3, 6, 6)
+    elif bad == "strip_rows":
+        bias, kbias = None, torch.zeros(2, 2, 6)
+    else:
+        gmode = "hb"
+    with pytest.raises(ValueError):
+        fa.flash_fwd_bias(q, q, q, None, bias, kbias, gmode, 2, 1.0)

@@ -10,7 +10,9 @@ the JAX package, so it runs where only PyTorch is installed::
 Tolerance: atol 1e-5 in float32 — kernel and plain version sum in
 different orders.  The causal and full-mask specializations are held the
 same way at equal, unequal and ragged (S_q, S_kv), with rows that see no
-key.  The embedding-cache kernels: the slab row gather is a
+key.  The additive-bias specializations are held with their dbias /
+dkbias (allclose rtol 1e-4, atol 1e-5), dbias exactly 0 where a row sees
+no key.  The embedding-cache kernels: the slab row gather is a
 copy and must match exactly; the segment-sum must match its plain version
 (``index_add_``, atomics on the card) within rtol 2e-5 / atol 1e-6 and the
 host cache's ``_segment_sum`` exactly.  The MoE row gather is a copy with
@@ -294,6 +296,122 @@ def test_fullmask_entry_refuses_gradients_and_runs_without(cuda):
     assert fa.fwd_mask_launches == before + 1 and out.shape == q4.shape
     with pytest.raises(NotImplementedError, match="full-mask backward"):
         fa.flash_attention(q4.clone().requires_grad_(True), k4, v4, mask=mask)
+
+
+# -- additive bias (T5) ----------------------------------------------------------
+
+#: (kind, gmode, S_q, S_kv, D, causal, key mask): the T5 encoder (group h,
+#: key mask) and decoder (causal, S = 114) shapes cut in batch, the groups,
+#: rows that see no key (200, 64), one row, and the key-bias strip
+BIAS_CASES = [("bias", "h", 512, 512, 64, False, True),
+              ("bias", "h", 114, 114, 64, True, False),
+              ("bias", "one", 77, 130, 128, False, False),
+              ("bias", "b", 200, 64, 32, True, True),
+              ("bias", "bh", 1, 130, 64, False, True),
+              ("kbias", "one", 128, 128, 64, False, False),
+              ("kbias", "b", 200, 200, 64, True, True),
+              ("kbias", "bh", 64, 200, 128, True, False)]
+
+
+def _bias_of(cuda, kind, gmode, s_q, s_kv, seed, b=2, h=3):
+    rng = np.random.RandomState(seed)
+    g = fa._group_rows(gmode, b * h, h)
+    x = torch.from_numpy(rng.randn(g, s_q if kind == "bias" else 1,
+                                   s_kv).astype(np.float32)).to(cuda)
+    return (x, None) if kind == "bias" else (None, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,gmode,s_q,s_kv,d,causal,masked", BIAS_CASES)
+def test_bias_kernels_match_plain_version(cuda, kind, gmode, s_q, s_kv, d,
+                                          causal, masked):
+    """Forward, dQ with dbias and dK/dV with dkbias against the plain
+    versions (out / lse atol 1e-5; gradients allclose(rtol=1e-4,
+    atol=1e-5)); dbias exactly 0 on the pairs a row does not see (the
+    causal kernel skips those key tiles and writes their zeros); the same
+    from run to run."""
+    q, k, v, do, km = _causal_inputs(cuda, s_q, s_kv, d, masked,
+                                     s_q + 5 * s_kv + d)
+    bias, kbias = _bias_of(cuda, kind, gmode, s_q, s_kv, seed=s_kv)
+    scale = 0.37
+    names = [f"{k}_{'kbias' if kind == 'kbias' else 'bias'}"
+             f"{'_causal' if causal and kind == 'bias' else ''}_launches"
+             for k in ("fwd", "dq", "dkv")]
+    before = [getattr(fa, n) for n in names]
+    out, lse = fa.flash_fwd_bias(q, k, v, km, bias, kbias, gmode, 3, scale,
+                                 causal=causal)
+    ref, lse_ref = fa.flash_fwd_plain(q, k, v, None, 3, scale, key_mask=km,
+                                      causal=causal, bias=bias, kbias=kbias,
+                                      bgmode=gmode)
+    delta = (do * out).sum(-1)
+    dq, dbias = fa.flash_bwd_dq_bias(q, k, v, km, bias, kbias, gmode, 3, do,
+                                     lse, delta, scale, causal=causal)
+    dk, dv, dkbias = fa.flash_bwd_dkv_bias(q, k, v, km, bias, kbias, gmode,
+                                           3, do, lse, delta, scale,
+                                           causal=causal)
+    want = fa.flash_bwd_bias_plain(q, k, v, km, bias, kbias, gmode, 3, out,
+                                   lse, do, scale, causal=causal)
+    torch.cuda.synchronize()
+    assert [getattr(fa, n) for n in names] == [n + 1 for n in before]
+    assert float((out - ref).abs().max()) <= ATOL
+    assert float((lse - lse_ref).abs().max()) <= ATOL
+    for got, ref_g in zip((dq, dk, dv, dbias, dkbias), want):
+        assert (got is None) == (ref_g is None)
+        if got is None:
+            continue
+        assert bool(torch.isfinite(got).all())
+        assert torch.allclose(got, ref_g, rtol=1e-4, atol=1e-5), \
+            float((got - ref_g).abs().max())
+    if dbias is not None:
+        valid = fa._valid(6, s_q, s_kv, cuda, key_mask=km, causal=causal)
+        if valid is not None:     # pairs no row sees: exactly 0
+            assert int(torch.count_nonzero(
+                dbias[~valid.expand_as(dbias)])) == 0
+        if causal:
+            above = torch.ones(s_q, s_kv, dtype=torch.bool,
+                               device=cuda).triu(s_kv - s_q + 1)
+            assert int(torch.count_nonzero(dbias[:, above])) == 0
+    dk2, dv2, dkb2 = fa.flash_bwd_dkv_bias(q, k, v, km, bias, kbias, gmode, 3,
+                                           do, lse, delta, scale,
+                                           causal=causal)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    if dkbias is not None:
+        assert torch.equal(dkbias, dkb2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_bias_autograd_function_launches_the_bias_kernels(cuda, causal):
+    """``flash_attention(bias=)`` with T5's (1, H, S, S) bias at T5's
+    scale 1.0: the bias kernels launch once each and the bias's gradient,
+    summed over the batch, matches autograd of the plain attention.  The
+    queries are divided by sqrt(D), as T5's query init does, so the
+    unscaled logits are O(1): at standard deviation sqrt(64) the rows are
+    near one-hot and dS = P (dP - delta) cancels, so any two summation
+    orders differ by ~1 % in dQ (tests/test_torch_t5.py)."""
+    from hetu_tpu_torch.ops.attention import sdpa_reference
+    q, k, v, do, km = _causal_inputs(cuda, 114, 114, 64, not causal, seed=8)
+    q = q / 8.0
+    bias = torch.randn(1, 3, 114, 114, device=cuda)
+    q4, k4, v4, b4 = (t.reshape(-1, 3, 114, t.shape[-1]).clone()
+                      .requires_grad_(True) for t in (q, k, v, bias))
+    mask = None if km is None else km[:, None, None, :]
+    names = [f"{k}_bias{'_causal' if causal else ''}_launches"
+             for k in ("fwd", "dq", "dkv")]
+    before = [getattr(fa, n) for n in names]
+    out = fa.flash_attention(q4, k4, v4, causal=causal, scale=1.0,
+                             key_mask=km, bias=b4)
+    grads = torch.autograd.grad(out, (q4, k4, v4, b4), do.view(2, 3, 114, 64))
+    torch.cuda.synchronize()
+    assert [getattr(fa, n) for n in names] == [n + 1 for n in before]
+    ref = sdpa_reference(q4, k4, v4, causal=causal, scale=1.0, mask=mask,
+                         bias=b4)
+    want = torch.autograd.grad(ref, (q4, k4, v4, b4), do.view(2, 3, 114, 64))
+    assert float((out - ref).detach().abs().max()) <= ATOL
+    for got, w in zip(grads, want):
+        assert got.shape == w.shape
+        assert torch.allclose(got, w, rtol=1e-4, atol=1e-5), \
+            float((got - w).abs().max())
 
 
 @pytest.mark.gpu

@@ -274,6 +274,39 @@ def test_sdpa_reference(kind):
         assert np.all(got[0, :, 1] == 0.0)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_sdpa_bias_on_cpu_takes_the_plain_version_and_counts_it(causal):
+    q, k, v = _rand(2, 3, 5, 8), _rand(2, 3, 5, 8, seed=1), \
+        _rand(2, 3, 5, 8, seed=2)
+    bias = _rand(1, 3, 5, 5, seed=5)
+    metrics.reset_flash_fallbacks()
+    got, want = _both("sdpa_bias_op", [q, k, v, bias], causal=causal,
+                      scale=1.0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    assert metrics.flash_fallback_counts() == {"backend:cpu": 1}
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_sdpa_masked_bias_on_cpu_takes_the_plain_version_and_counts_it(
+        causal):
+    q, k, v = _rand(2, 3, 5, 8), _rand(2, 3, 5, 8, seed=1), \
+        _rand(2, 3, 5, 8, seed=2)
+    mask = np.asarray([[1, 1, 0, 1, 0], [0, 0, 0, 0, 0]],
+                      np.int32).reshape(2, 1, 1, 5)   # one row fully masked
+    bias = _rand(2, 1, 5, 5, seed=6)
+    metrics.reset_flash_fallbacks()
+    got, want = _both("sdpa_masked_bias_op", [q, k, v, mask, bias],
+                      causal=causal)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    assert np.all(got[1] == 0.0)
+    assert metrics.flash_fallback_counts() == {"backend:cpu": 1}
+
+
+def test_rsqrt():
+    got, want = _both("rsqrt_op", [np.abs(_rand(4, 9)) + 1e-3])
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+
+
 def test_sdpa_decode_on_cpu_takes_the_plain_version_and_counts_it():
     q = _rand(3, 2, 1, 8)
     kc, vc = _rand(3, 2, 6, 8, seed=1), _rand(3, 2, 6, 8, seed=2)
