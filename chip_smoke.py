@@ -149,7 +149,36 @@ without printing the final result line:
     target 50, dropout 0) on the card and on the CPU from the same weights
     for 3 Adam steps; the losses and the step-1 gradients of every
     variable, the relative-position tables included, must agree.
-21. Print the card's name and power limit, the ``kernels`` JSON line and,
+21. Hold the full-mask kernels (forward, dQ, dK/dV), alone and with a
+    bias, against their plain versions at the paths' own shapes (D=64,
+    scale 0.125): XLNet's content and query streams (B=8, H=12, S=512, the
+    permutation masks of ``synthetic_plm_batch``, group ``b``, with a
+    group-``h`` bias; the query stream's first token of each permutation
+    sees no key), Longformer's window (B=2, H=12, S=4096,
+    ``longformer_attention_mask(4096, 512, 1)``, group ``one``), the
+    key-bias strip with XLNet's query mask, and at small shapes one causal
+    case of each instantiation (with a key mask, S_q > S_kv, ragged).
+    Each is checked by ``attn_case`` (dbias exactly 0 on every masked
+    pair, rows that see no key 0) and the four path cases are timed: the
+    kernel, its plain version and SDPA (a boolean ``attn_mask``, or the
+    bias with -1e30 on masked pairs as a float one) beside the bound on
+    visible pairs.
+22. Train XLNet-base (published widths: 12 layers, d_model 768, 12 heads,
+    d_inner 3072, vocab 32,000, clamp 256; seq 512, batch 8, dropout 0.1,
+    ``synthetic_plm_batch(seed=0)``) with ``AdamOptimizer(1e-4)`` through
+    ``Executor.run``: 2 warm-up steps, then 10 counted steps with every
+    launch counter set to 0 just before and read just after (the
+    mask-with-bias forward, dQ and dK/dV: steps x 23 each, both streams of
+    12 layers less the last layer's content stream, which the loss does not
+    reach; nothing else; no ``backend:`` fallback; the loss does not rise).
+23. Train Longformer-base (published widths: 12 layers, 768 wide, 12
+    heads, window 512, one global token, 4098 positions, vocab 30,522;
+    seq 4096, batch 2, dropout 0.1, ``synthetic_mlm_ids(seed=0)``) the same
+    way (the full-mask forward, dQ and dK/dV: steps x 12 each).
+24. Tiny XLNet and tiny Longformer (dropout 0) on the card and on the CPU
+    from the same weights for 3 Adam steps; the losses and the step-1
+    gradients of every variable must agree at phase 20's gates.
+25. Print the card's name and power limit, the ``kernels`` JSON line and,
     last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32:
@@ -211,6 +240,11 @@ T5_BATCH, T5_SRC, T5_TGT, T5_WARMUP, T5_STEPS = 32, 512, 114, 2, 10
 # the bias kernels are held at a scale other than T5's 1.0, which would
 # hide a bias added before the scale
 T5_KERNEL_SCALE = 0.37
+# XLNet-base permutation LM (the paper's pretraining length, batch cut);
+# the attention scale of both paths (D = 64)
+XL_BATCH, XL_SEQ, XL_WARMUP, XL_STEPS, XL_SCALE = 8, 512, 2, 10, 0.125
+# Longformer-base MLM at its published length
+LF_BATCH, LF_SEQ, LF_WARMUP, LF_STEPS = 2, 4096, 2, 10
 # row-gather launches of one top-2 training step: the dispatch (1), the
 # combine (2), its backward (2 for d_w, 1 for d_buffers); the tokens are
 # a feed, so autograd runs no dispatch backward
@@ -392,11 +426,14 @@ def attn_bound(kind, bh, s_q, s_kv, d, pairs, extra_bytes=0, kv_rows=None):
                                        else "operations")
 
 
-def attn_extra(kind, key_mask, bias, kbias, bh, s_q, s_kv):
+def attn_extra(kind, key_mask, bias, kbias, bh, s_q, s_kv, mask=None):
     """Bytes an attention kernel moves beyond q/k/v/dO/out/lse/delta: the
-    key mask, a bias or strip read once, and dQ's dbias (BH, S_q, S_kv) or
-    dK/dV's dkbias (BH, 1, S_kv) written once."""
+    key mask, a full uint8 mask (G, S_q, S_kv), a bias or strip read once,
+    and dQ's dbias (BH, S_q, S_kv) or dK/dV's dkbias (BH, 1, S_kv) written
+    once."""
     n = 0 if key_mask is None else 4 * key_mask.numel()
+    if mask is not None:
+        n += mask.numel()
     for b in (bias, kbias):
         if b is not None:
             n += 4 * b.numel()
@@ -407,13 +444,21 @@ def attn_extra(kind, key_mask, bias, kbias, bh, s_q, s_kv):
     return n
 
 
+def _group_view(x, gmode, b, heads):
+    """A (G, ...) tensor stored for ``gmode`` as its rank-4 broadcastable
+    view (1|B, 1|H, rows, S_kv)."""
+    gb = b if gmode in ("b", "bh") else 1
+    gh = heads if gmode in ("h", "bh") else 1
+    return x.view(gb, gh, x.shape[-2], x.shape[-1])
+
+
 def sdpa_yardstick(fa, q, k, v, heads, scale, km, causal, bias, kbias,
-                   gmode):
+                   gmode, mask=None, mask_gmode="bh"):
     """(B, H, S, D) views of q/k/v that need a gradient, SDPA's keyword
     arguments for the same function and what they are: ``is_causal``, the
-    key mask (and causal rule) as a boolean ``attn_mask``, or the bias
-    with -1e30 on every masked pair as a float ``attn_mask`` that needs a
-    gradient too."""
+    key mask, full mask (in its broadcast shape) and causal rule as a
+    boolean ``attn_mask``, or the bias with -1e30 on every masked pair as
+    a float ``attn_mask`` that needs a gradient too."""
     bh, s_q, dh = q.shape
     s_kv = k.shape[1]
     b = bh // heads
@@ -421,11 +466,15 @@ def sdpa_yardstick(fa, q, k, v, heads, scale, km, causal, bias, kbias,
                   for x in (q, k, v))
     kw = {"scale": scale}
     if bias is None and kbias is None:
-        if km is None:
+        if km is None and mask is None:
             if causal:
                 kw["is_causal"] = True
             return (q4, k4, v4), kw, "SDPA" + (" is_causal" if causal else "")
-        m = (km != 0).view(b, 1, 1, s_kv)
+        m = None if mask is None else _group_view(mask != 0, mask_gmode, b,
+                                                  heads)
+        if km is not None:
+            kmv = (km != 0).view(b, 1, 1, s_kv)
+            m = kmv if m is None else m & kmv
         if causal:
             m = m & torch.ones(s_q, s_kv, dtype=torch.bool,
                                device="cuda").tril(s_kv - s_q)
@@ -433,7 +482,8 @@ def sdpa_yardstick(fa, q, k, v, heads, scale, km, causal, bias, kbias,
         return (q4, k4, v4), kw, "SDPA boolean attn_mask"
     amask = fa._expand_group(bias if bias is not None else kbias, gmode,
                              bh, heads).view(b, heads, -1, s_kv)
-    valid = fa._valid(bh, s_q, s_kv, q.device, key_mask=km, causal=causal)
+    valid = fa._valid(bh, s_q, s_kv, q.device, key_mask=km, causal=causal,
+                      mask=mask, gmode=mask_gmode, heads=heads)
     amask = amask.expand(b, heads, s_q, s_kv)
     if valid is not None:
         amask = amask.masked_fill(
@@ -443,24 +493,31 @@ def sdpa_yardstick(fa, q, k, v, heads, scale, km, causal, bias, kbias,
 
 
 def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
-              causal=False, bias=None, kbias=None, gmode="bh", flush=None):
+              causal=False, bias=None, kbias=None, gmode="bh", flush=None,
+              mask=None, mask_gmode="bh"):
     """One attention case held to its plain versions on the same inputs:
-    the bias forward / dQ (dbias) / dK/dV (dkbias) kernels with a dense
-    ``bias`` or a strip ``kbias`` of group mode ``gmode``, else the
+    with a full uint8 ``mask`` (G, S_q, S_kv) of group mode ``mask_gmode``
+    the full-mask forward / dQ / dK/dV kernels, alone or with a bias;
+    else the bias forward / dQ (dbias) / dK/dV (dkbias) kernels with a
+    dense ``bias`` or a strip ``kbias`` of group mode ``gmode``; else the
     dense / key-mask / causal ones.  out and lse within KERNEL_ATOL; dQ,
     dK, dV, dbias, dkbias finite and allclose at GRAD_RTOL / GRAD_ATOL;
     every row that sees no key (a batch row with every key masked, the
-    first S_q - S_kv causal rows) out = dQ = 0 and lse = -1e30; dbias 0 on
-    every pair no row sees.  With ``flush`` it also times each kernel, the
-    plain versions and SDPA on the same function, each launch with the L2
-    flushed, beside its bound.  Returns (max_abs_err {fwd, dq, dkv},
-    timings {fwd, dq, dkv} or None)."""
+    first S_q - S_kv causal rows, a row the mask hides) out = dQ = 0 and
+    lse = -1e30; dbias 0 on every pair no row sees.  With ``flush`` it
+    also times each kernel, the plain versions and SDPA on the same
+    function, each launch with the L2 flushed, beside its bound.  Returns
+    (max_abs_err {fwd, dq, dkv}, timings {fwd, dq, dkv} or None)."""
     F = torch.nn.functional
     bh, s_q, dh = q.shape
     s_kv = k.shape[1]
     biased = bias is not None or kbias is not None
+    bkw = dict(causal=causal, bias=bias, kbias=kbias, bgmode=gmode)
 
     def fwd():
+        if mask is not None:
+            return fa.flash_fwd_fullmask(q, k, v, mask, mask_gmode, heads,
+                                         scale, key_mask=km, **bkw)
         if biased:
             return fa.flash_fwd_bias(q, k, v, km, bias, kbias, gmode, heads,
                                      scale, causal=causal)
@@ -469,30 +526,36 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
     def plain_fwd():
         return fa.flash_fwd_plain(q, k, v, None, heads, scale, key_mask=km,
                                   causal=causal, bias=bias, kbias=kbias,
-                                  bgmode=gmode)
+                                  bgmode=gmode, mask=mask, gmode=mask_gmode)
 
     out, lse = fwd()
     ref, lse_ref = plain_fwd()
     delta = (do * out).sum(-1)
     args = (q, k, v, km, bias, kbias, gmode, heads, do, lse, delta, scale)
+    margs = (q, k, v, km, mask, mask_gmode, heads, do, lse, delta, scale)
 
     def dq_fn():
+        if mask is not None:
+            return fa.flash_bwd_dq_mask(*margs, **bkw)
         if biased:
             return fa.flash_bwd_dq_bias(*args, causal=causal)
         return fa.flash_bwd_dq(q, k, v, km, do, lse, delta, scale,
                                causal=causal), None
 
     def dkv_fn():
+        if mask is not None:
+            return fa.flash_bwd_dkv_mask(*margs, **bkw)
         if biased:
             return fa.flash_bwd_dkv_bias(*args, causal=causal)
         return fa.flash_bwd_dkv(q, k, v, km, do, lse, delta, scale,
                                 causal=causal) + (None,)
 
     def plain_bwd():
-        if biased:
+        if biased or mask is not None:
             return fa.flash_bwd_bias_plain(q, k, v, km, bias, kbias, gmode,
                                            heads, out, lse, do, scale,
-                                           causal=causal)
+                                           causal=causal, mask=mask,
+                                           gmode=mask_gmode)
         return fa.flash_bwd_plain(q, k, v, km, out, lse, do, scale,
                                   causal=causal) + (None, None)
 
@@ -517,7 +580,8 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
                                  f"{e}")
         key = "dq" if what in ("dq", "dbias") else "dkv"
         err[key] = max(err.get(key, 0.0), e)
-    valid = fa._valid(bh, s_q, s_kv, q.device, key_mask=km, causal=causal)
+    valid = fa._valid(bh, s_q, s_kv, q.device, key_mask=km, causal=causal,
+                      mask=mask, gmode=mask_gmode, heads=heads)
     blind = 0
     if valid is not None:
         valid = valid.expand(bh, s_q, s_kv)
@@ -538,13 +602,14 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
         ("dq", "dk", "dv", "dbias", "dkbias"), want) if x is not None}
     log(f"{tag} {name} B={bh // heads} H={heads} S_q={s_q} S_kv={s_kv} "
         f"D={dh} causal={causal} key_mask={km is not None} "
+        f"mask={'none' if mask is None else 'group ' + mask_gmode} "
         f"bias={'dense ' + gmode if bias is not None else 'strip ' + gmode if kbias is not None else 'none'} "
         f"scale={scale:.4g} rows seeing no key={blind} max_abs_err "
         f"{json.dumps(err)}; max |plain| {json.dumps(mags)}")
     if flush is None:
         return err, None
     qkv4, kw, what = sdpa_yardstick(fa, q, k, v, heads, scale, km, causal,
-                                    bias, kbias, gmode)
+                                    bias, kbias, gmode, mask, mask_gmode)
     do4 = do.view(qkv4[0].shape)
     with torch.enable_grad():
         lib_out = F.scaled_dot_product_attention(*qkv4, **kw)
@@ -567,12 +632,15 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
                   "plain_ms": plain_bwd_ms, "library_ms": lib_bwd},
            "dkv": {"ms": time_ms(dkv_fn, flush=flush),
                    "plain_ms": plain_bwd_ms, "library_ms": lib_bwd}}
-    pairs = visible_pairs(bh, heads, s_q, s_kv, causal=causal, key_mask=km)
+    pairs = visible_pairs(bh, heads, s_q, s_kv, causal=causal, key_mask=km,
+                          mask=mask, gmode=mask_gmode)
     for kk, r in row.items():
         r["bound_ms"], r["bound_by"] = attn_bound(
             kk, bh, s_q, s_kv, dh, pairs,
-            attn_extra(kk, km, bias, kbias, bh, s_q, s_kv))
+            attn_extra(kk, km, bias, kbias, bh, s_q, s_kv, mask))
         r["visible_pairs"] = pairs
+        if mask is not None and not causal:     # a data mask skips no tile
+            r["walked_pairs"] = bh * s_q * s_kv
     log(f"{tag} {name} timing (library = {what}; its backward is one call "
         f"for dQ, dK, dV{', dmask' if len(lib_grads) == 4 else ''}) "
         f"{json.dumps(row)}")
@@ -2018,6 +2086,318 @@ def phase_t5_train_parity(ht):
     host.close()
 
 
+def phase_mask_kernels(ht, fa):
+    """The full-mask kernels (forward, dQ, dK/dV), alone and with a bias
+    or strip, vs their plain versions at the XLNet and Longformer paths'
+    shapes, plus one causal case of each and the strip with a full mask at
+    small shapes; times.  Returns the kernels-line entries {fwd, dq, dkv}
+    + suffix, each with the worst error over all cases of its
+    instantiation: ``_mask_bias`` (XLNet's content stream), ``_mask``
+    (Longformer), ``_mask_kbias`` (the strip at XLNet's shape)."""
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rng = np.random.RandomState(21)
+    xcfg = ht.XLNetConfig.base(batch_size=XL_BATCH, seq_len=XL_SEQ)
+    heads = xcfg.n_head
+    dh = xcfg.d_model // heads
+    _, cmask, qmask, _ = ht.synthetic_plm_batch(xcfg, seed=0)
+    lcfg = ht.LongformerConfig.base(batch_size=LF_BATCH, seq_len=LF_SEQ)
+    wmask = ht.longformer_attention_mask(LF_SEQ, lcfg.attention_window,
+                                         lcfg.num_global_tokens)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+
+    def u8(m):
+        return torch.from_numpy(np.ascontiguousarray(m != 0, np.uint8)).cuda()
+
+    def rand_mask(gmode, b, s_q, s_kv):
+        m = rng.rand(fa._group_rows(gmode, b * heads, heads), s_q, s_kv) < 0.5
+        m[0, 0] = False                    # a row the mask hides entirely
+        return m
+
+    # (name, B, S_q, S_kv, mask (G, S_q, S_kv), mask group, bias kind,
+    # bias group, causal, key mask, suffix, timed)
+    xs = XL_SEQ
+    cases = [
+        ("XLNet content stream", XL_BATCH, xs, xs, cmask[:, 0], "b", "bias",
+         "h", False, False, "_mask_bias", True),
+        ("XLNet query stream", XL_BATCH, xs, xs, qmask[:, 0], "b", "bias",
+         "h", False, False, "_mask_bias", True),
+        ("Longformer window", LF_BATCH, LF_SEQ, LF_SEQ, wmask[None], "one",
+         None, None, False, False, "_mask", True),
+        ("XLNet query stream, key-bias strip", XL_BATCH, xs, xs,
+         qmask[:, 0], "b", "kbias", "one", False, False, "_mask_kbias",
+         True),
+        ("mask causal, key mask", 2, 200, 200, None, "bh", None, None, True,
+         True, "_mask", False),
+        ("mask + bias causal, S_q > S_kv", 2, 200, 64, None, "h", "bias",
+         "bh", True, False, "_mask_bias", False),
+        ("mask + strip causal, key mask", 2, 77, 130, None, "one", "kbias",
+         "b", True, True, "_mask_kbias", False)]
+    worst, lines = {}, {}
+    for (name, b, s_q, s_kv, m, mg, kind, bg, causal, keyed, sfx,
+         timed) in cases:
+        bh = b * heads
+        q, do = t(bh, s_q, dh), t(bh, s_q, dh)
+        k, v = t(bh, s_kv, dh), t(bh, s_kv, dh)
+        mask = u8(rand_mask(mg, b, s_q, s_kv) if m is None else m)
+        bias = kbias = None
+        if kind is not None:
+            x = t(fa._group_rows(bg, bh, heads),
+                  s_q if kind == "bias" else 1, s_kv)
+            bias, kbias = (x, None) if kind == "bias" else (None, x)
+        km = None
+        if keyed:
+            kmn = (rng.rand(b, s_kv) < 0.7).astype(np.int32)
+            kmn[0, 0] = 1
+            km = torch.from_numpy(kmn).cuda()
+        err, row = attn_case(fa, "[mask-kernels]", name, q, k, v, do, heads,
+                             XL_SCALE, km=km, causal=causal, bias=bias,
+                             kbias=kbias, gmode=bg or "bh",
+                             flush=flush_buf.zero_ if timed else None,
+                             mask=mask, mask_gmode=mg)
+        for kk, e in err.items():
+            worst[kk + sfx] = max(worst.get(kk + sfx, 0.0), e)
+        if row is not None and "fwd" + sfx not in lines:
+            for kk, r in row.items():
+                lines[kk + sfx] = r
+        del q, k, v, do, mask, bias, kbias
+        torch.cuda.empty_cache()
+    for kk in lines:
+        lines[kk]["max_abs_err"] = worst[kk]
+    return lines
+
+
+def attn_pairs(masks):
+    """Visible (row, key) pairs of every (b, h) summed, over a list of
+    (mask (G, S, S) numpy 0/1, copies): each mask counted once per head
+    and batch row it reaches."""
+    return float(sum(int(np.count_nonzero(m)) * n for m, n in masks))
+
+
+def xlnet_step_flops(cfg, cmask, qmask):
+    """Model FLOPs of one permutation-LM training step by
+    ``bert_step_flops``'s convention, for the graph as it runs: per token
+    and layer the k / v projections of the content stream, q / o of both
+    streams and both streams' FFN, except the last layer's content stream
+    (q, o, FFN, attention), which the loss does not reach; the lm head on
+    the query stream.  Attention 12 x (d / heads) per visible pair of the
+    2 L - 1 streams that run (``dense``: every pair)."""
+    d, di, v, n = cfg.d_model, cfg.d_inner, cfg.vocab_size, cfg.n_layer
+    tokens = cfg.batch_size * cfg.seq_len
+    per_layer = 2 * d * d + 2 * (2 * d * d + 2 * d * di)
+    dead = 2 * d * d + 2 * d * di        # the last layer's content stream
+    products = 6.0 * tokens * (n * per_layer - dead + d * v)
+    hd = cfg.d_model // cfg.n_head
+    h = cfg.n_head
+    vis = 12.0 * hd * h * ((n - 1) * attn_pairs([(cmask, 1)])
+                           + n * attn_pairs([(qmask, 1)]))
+    dense = 12.0 * hd * h * (2 * n - 1) * tokens * cfg.seq_len
+    return products + vis, products + dense
+
+
+def longformer_step_flops(cfg, wmask):
+    """Model FLOPs of one MLM training step by ``bert_step_flops``'s
+    convention: per token and layer q, k, v, q_global, o and the FFN, the
+    MLM head; attention 12 x (d / heads) per visible pair of the window
+    mask in every layer (``dense``: every pair)."""
+    d, di, v, n = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                   cfg.num_hidden_layers)
+    tokens = cfg.batch_size * cfg.seq_len
+    products = 6.0 * tokens * (n * (5 * d * d + 2 * d * di) + d * v)
+    hd = d // cfg.num_attention_heads
+    per = 12.0 * hd * cfg.num_attention_heads * n * cfg.batch_size
+    return (products + per * attn_pairs([(wmask, 1)]),
+            products + per * cfg.seq_len * cfg.seq_len)
+
+
+def line_name(counter):
+    """The kernels-line name of a flash launch counter
+    (``dq_mask_bias_launches`` -> ``flash_bwd_dq_mask_bias``)."""
+    kind, _, rest = counter[:-len("_launches")].partition("_")
+    return ("flash_fwd_" if kind == "fwd" else f"flash_bwd_{kind}_") + rest
+
+
+def train_path(fa, metrics, kmods, tag, ex, fd, steps, warmup, launches,
+               want, flops, base):
+    """``warmup`` + ``steps`` Adam steps of ``ex`` on ``fd``; the counted
+    steps with every launch counter set to 0 just before and read just
+    after.  ``launches`` names the counters of the path, each of which
+    must read ``want``; every other counter must read 0 and no attention
+    may take ``backend:cpu``; the loss must be finite and must not rise.
+    ``base``: the device memory allocated before the executor was built.
+    Returns the report."""
+    losses = [float(ex.run("train", feed_dict=fd)[0].asnumpy())
+              for _ in range(warmup)]
+    torch.cuda.synchronize()
+    reset_launches(*kmods)
+    metrics.reset_flash_fallbacks()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out = ex.run("train", feed_dict=fd)
+        losses.append(float(out[0].asnumpy()))     # waits for the step
+        times.append(time.perf_counter() - t0)
+    got = {name: getattr(fa, name) for name in launches}
+    others = {name: n for m in kmods for name, n in vars(m).items()
+              if name.endswith("launches") and n
+              and not (m is fa and name in launches)}
+    fallbacks = metrics.flash_fallback_counts()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag} non-finite training loss: {losses}")
+    if not losses[-1] <= losses[warmup]:
+        raise AssertionError(f"{tag} loss rose over the counted steps: "
+                             f"{losses}")
+    if any(n != want for n in got.values()):
+        raise AssertionError(f"{tag} launches {got} != {want} each")
+    if others:
+        raise AssertionError(f"{tag} other kernels launched: {others}")
+    left = {r: n for r, n in fallbacks.items() if r.startswith("backend:")}
+    if left:
+        raise AssertionError(f"{tag} attention left the kernels: {left}")
+    ms = np.asarray(times) * 1e3
+    mean_s = ms.mean() / 1e3
+    vis, dense = flops
+    return {"steps": steps, "losses": losses,
+            "step_ms_p50": float(np.percentile(ms, 50)),
+            "step_ms_p99": float(np.percentile(ms, 99)),
+            "step_ms_mean": float(ms.mean()),
+            "model_tflop_per_step": vis / 1e12,
+            "model_tflop_per_step_dense_attention": dense / 1e12,
+            "mfu_fp32": vis / mean_s / PEAK_FP32_FLOPS,
+            "mfu_fp32_dense_attention": dense / mean_s / PEAK_FP32_FLOPS,
+            "peak_mem_gib": (torch.cuda.max_memory_allocated() - base)
+            / 2 ** 30,
+            "launches": got, "launches_per_step": {
+                k_: n / steps for k_, n in got.items()},
+            "card": card_line()}
+
+
+def phase_xlnet_train(ht, fa, metrics, kmods):
+    """XLNet-base permutation-LM training steps through Executor.run on
+    the card.  Returns the launches of the mask-with-bias kernels."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()     # what earlier phases still hold
+    cfg = ht.XLNetConfig.base(seq_len=XL_SEQ, batch_size=XL_BATCH)
+    feeds, loss, _ = ht.xlnet_plm_graph(cfg)
+    train_op = ht.optim.AdamOptimizer(1e-4).minimize(loss)
+    t0 = time.perf_counter()
+    ex = ht.Executor({"train": [loss, train_op]}, seed=0, device="cuda")
+    log(f"[xlnet-train] XLNet-base executor built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = ht.synthetic_plm_batch(cfg, seed=0)
+    fd = {feeds[k_]: v_ for k_, v_ in zip(
+        ("input_ids", "content_mask", "query_mask", "labels"), batch)}
+    # every stream of every layer but the last layer's content stream,
+    # which the loss (from the query stream) does not reach
+    want = XL_STEPS * (2 * cfg.n_layer - 1)
+    names = ("fwd_mask_bias_launches", "dq_mask_bias_launches",
+             "dkv_mask_bias_launches")
+    report = train_path(fa, metrics, kmods, "[xlnet-train]", ex, fd,
+                        XL_STEPS, XL_WARMUP, names, want,
+                        xlnet_step_flops(cfg, batch[1], batch[2]), base)
+    tokens = cfg.batch_size * cfg.seq_len
+    report.update({"batch": cfg.batch_size, "seq": cfg.seq_len,
+                   "tokens_per_s": tokens / (report["step_ms_mean"] / 1e3),
+                   "visible_pairs_per_bh": {
+                       "content": attn_pairs([(batch[1], 1)])
+                       / cfg.batch_size,
+                       "query": attn_pairs([(batch[2], 1)]) / cfg.batch_size,
+                       "walked": float(cfg.seq_len ** 2)}})
+    log(f"[xlnet-train] {json.dumps(report)}")
+    ex.close()
+    del ex
+    torch.cuda.empty_cache()
+    return {line_name(n): c for n, c in report["launches"].items()}
+
+
+def phase_longformer_train(ht, fa, metrics, kmods):
+    """Longformer-base MLM training steps through Executor.run on the
+    card.  Returns the launches of the full-mask kernels."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()     # what earlier phases still hold
+    cfg = ht.LongformerConfig.base(seq_len=LF_SEQ, batch_size=LF_BATCH)
+    feeds, loss, _ = ht.longformer_mlm_graph(cfg)
+    train_op = ht.optim.AdamOptimizer(1e-4).minimize(loss)
+    t0 = time.perf_counter()
+    ex = ht.Executor({"train": [loss, train_op]}, seed=0, device="cuda")
+    log(f"[longformer-train] Longformer-base executor built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ids, labels = ht.synthetic_mlm_ids(cfg, seed=0)
+    fd = {feeds["input_ids"]: ids, feeds["labels"]: labels}
+    wmask = ht.longformer_attention_mask(cfg.seq_len, cfg.attention_window,
+                                         cfg.num_global_tokens)
+    names = ("fwd_mask_launches", "dq_mask_launches", "dkv_mask_launches")
+    report = train_path(fa, metrics, kmods, "[longformer-train]", ex, fd,
+                        LF_STEPS, LF_WARMUP, names,
+                        LF_STEPS * cfg.num_hidden_layers,
+                        longformer_step_flops(cfg, wmask[None]), base)
+    tokens = cfg.batch_size * cfg.seq_len
+    report.update({"batch": cfg.batch_size, "seq": cfg.seq_len,
+                   "tokens_per_s": tokens / (report["step_ms_mean"] / 1e3),
+                   "visible_pairs_per_bh": attn_pairs([(wmask, 1)]),
+                   "walked_pairs_per_bh": float(cfg.seq_len ** 2)})
+    log(f"[longformer-train] {json.dumps(report)}")
+    ex.close()
+    del ex
+    torch.cuda.empty_cache()
+    return {line_name(n): c for n, c in report["launches"].items()}
+
+
+def phase_mask_train_parity(ht):
+    """Tiny XLNet and tiny Longformer (dropout 0): card vs CPU over 3 Adam
+    steps from the same weights; losses and step-1 gradients of every
+    variable agree at phase 20's gates."""
+    xcfg = ht.XLNetConfig.tiny(batch_size=2, dropout=0.0)
+    lcfg = ht.LongformerConfig.tiny(batch_size=2, hidden_dropout_prob=0.0)
+    xb = ht.synthetic_plm_batch(xcfg, seed=1)
+    for tag, (feeds, loss, _), batch in (
+            ("XLNet", ht.xlnet_plm_graph(xcfg), dict(zip(
+                ("input_ids", "content_mask", "query_mask", "labels"), xb))),
+            ("Longformer", ht.longformer_mlm_graph(lcfg), dict(zip(
+                ("input_ids", "labels"), ht.synthetic_mlm_ids(lcfg, 1))))):
+        wrt = [n for n in ht.topo_sort([loss])
+               if isinstance(n, ht.PlaceholderOp) and n.is_variable
+               and n.trainable]
+        grads = ht.gradients(loss, wrt)
+        train_op = ht.optim.AdamOptimizer(1e-4).minimize(loss)
+        fetches = {"train": [loss, train_op] + grads}
+        card = ht.Executor(fetches, seed=0, device="cuda")
+        host = ht.Executor(fetches, seed=0, device="cpu")
+        load_all(host, card.return_tensor_values())
+        fd = {feeds[k_]: v_ for k_, v_ in batch.items()}
+        loss_err, grad_err = 0.0, 0.0
+        for step in range(3):
+            got = card.run("train", feed_dict=fd,
+                           convert_to_numpy_ret_vals=True)
+            want = host.run("train", feed_dict=fd,
+                            convert_to_numpy_ret_vals=True)
+            gl, wl = float(got[0]), float(want[0])
+            loss_err = max(loss_err, abs(gl - wl) / abs(wl))
+            if not (math.isfinite(gl)
+                    and abs(gl - wl) <= TRAIN_LOSS_RTOL * abs(wl)):
+                raise AssertionError(f"card vs CPU {tag} loss at step "
+                                     f"{step + 1}: {gl} vs {wl}")
+            if step == 0:
+                for node, g, w in zip(wrt, got[2:], want[2:]):
+                    grad_err = max(grad_err, float(np.max(np.abs(g - w))))
+                    if not np.allclose(g, w, rtol=TRAIN_GRAD_RTOL,
+                                       atol=TRAIN_GRAD_ATOL):
+                        raise AssertionError(
+                            f"card vs CPU {tag} gradient of {node.name}: "
+                            f"max err {float(np.max(np.abs(g - w)))}")
+        log(f"[mask-train-parity] {tag} tiny, card vs CPU, 3 Adam steps: "
+            f"loss max rel err {loss_err:.3e} (rtol {TRAIN_LOSS_RTOL}); "
+            f"step-1 gradients of {len(wrt)} variables max abs err "
+            f"{grad_err:.3e} (rtol {TRAIN_GRAD_RTOL}, atol "
+            f"{TRAIN_GRAD_ATOL})")
+        card.close()
+        host.close()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script runs on the "
@@ -2154,7 +2534,19 @@ def main():
     # -- 20. card vs CPU T5 training ---------------------------------------------------
     phase_t5_train_parity(ht)
 
-    # -- 21. result lines ---------------------------------------------------------
+    # -- 21. full-mask kernels, alone and with a bias, vs plain ----------------------
+    mlines = phase_mask_kernels(ht, fa)
+
+    # -- 22. train XLNet-base -------------------------------------------------------
+    mlaunches_x = phase_xlnet_train(ht, fa, metrics, kmods)
+
+    # -- 23. train Longformer-base --------------------------------------------------
+    mlaunches_l = phase_longformer_train(ht, fa, metrics, kmods)
+
+    # -- 24. card vs CPU XLNet and Longformer training -----------------------------
+    phase_mask_train_parity(ht)
+
+    # -- 25. result lines ---------------------------------------------------------
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
@@ -2185,9 +2577,28 @@ def main():
                                  f"flash_attention.py:{at}",
                                  counts[name + name_sfx],
                                  lines[key + key_sfx]))
+    # the full-mask forward: the chunked prefill's launches and
+    # Longformer's, its line at the prefill shape (phase 14), its error
+    # the worst of phases 14 and 21
+    glines["mask"]["max_abs_err"] = max(glines["mask"]["max_abs_err"],
+                                        mlines["fwd_mask"]["max_abs_err"])
     kernels.append(entry("flash_fwd_mask", "flash_attention.cu",
                          "flash_attention.py:202",
-                         glaunches["flash_fwd_mask"], glines["mask"]))
+                         glaunches["flash_fwd_mask"]
+                         + mlaunches_l["flash_fwd_mask"], glines["mask"]))
+    for key, name, source, at in flash[1:]:
+        kernels.append(entry(name + "_mask", source,
+                             f"flash_attention.py:{at}",
+                             mlaunches_l[name + "_mask"],
+                             mlines[key + "_mask"]))
+    for sfx, counts in (("_mask_bias", mlaunches_x), ("_mask_kbias", None)):
+        for key, name, source, at in flash:
+            # the strip with a full mask is on no path: 0, as phases 22
+            # and 23 checked
+            kernels.append(entry(name + sfx, source,
+                                 f"flash_attention.py:{at}",
+                                 0 if counts is None else counts[name + sfx],
+                                 mlines[key + sfx]))
     kernels.append(entry("emb_gather", "emb_cache.cu", "emb_cache.py:71",
                          claunches["emb_gather"], gline))
     kernels.append(entry("sorted_segment_sum", "segment_sum.cu",

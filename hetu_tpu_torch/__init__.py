@@ -27,6 +27,15 @@ kernel on a ported path is a hand-written kernel for the H100
   ``optim.AdamOptimizer(...).minimize(loss)`` → ``Executor.run``, the
   relative-position bias through the bias specializations of the CUDA
   flash kernels, forward and backward (dbias summed over its group);
+* permutation-LM pretraining: XLNet, ``xlnet_plm_graph`` →
+  ``optim.AdamOptimizer(...).minimize(loss)`` → ``Executor.run``, both
+  streams through the full-mask-with-bias specialization of the CUDA
+  flash kernels (the permutation mask group ``b``, the relative-position
+  bias group ``h``), forward and backward;
+* long-document MLM pretraining: Longformer, ``longformer_mlm_graph`` →
+  ``optim.AdamOptimizer(...).minimize(loss)`` → ``Executor.run``, the
+  sliding-window + global mask through the full-mask specialization of
+  the CUDA flash kernels, forward and backward;
 * MoE training: GShard top-2 ``TopKGateSparse`` → ``SparseMoELayer``
   (with ``Expert``) → ``AdamOptimizer`` → ``Executor.run``, the sparse
   dispatch and combine, forward and backward, in the CUDA row-gather
@@ -53,13 +62,16 @@ from .graph import (Executor, GradientOp, LowerCtx, Op, PlaceholderOp,
 from .layers import (DropOut, Embedding, Expert, LayerNorm, Linear,
                      MoELayer, MultiHeadAttention, RMSNorm, SparseMoELayer,
                      TopKGate, TopKGateSparse)
-from .models import (BertConfig, GPT2Config, bert_model, bert_pooler,
-                     bert_pretrain_graph, gpt2_decode_chunked_graph,
-                     gpt2_decode_graph, gpt2_lm_graph, gpt2_model,
+from .models import (BertConfig, GPT2Config, LongformerConfig, XLNetConfig,
+                     bert_model, bert_pooler, bert_pretrain_graph,
+                     gpt2_decode_chunked_graph, gpt2_decode_graph,
+                     gpt2_lm_graph, gpt2_model, longformer_attention_mask,
+                     longformer_mlm_graph, perm_masks_from_order,
                      synthetic_criteo, synthetic_criteo_skewed,
                      synthetic_lm_batch, synthetic_mlm_batch,
+                     synthetic_mlm_ids, synthetic_plm_batch,
                      synthetic_seq2seq_batch, T5Config, t5_seq2seq_graph,
-                     wdl_criteo)
+                     wdl_criteo, xlnet_plm_graph)
 from .ndarray import NDArray
 from .ops import (array_reshape_op, binarycrossentropy_op, broadcastto_op,
                   concat_op, einsum_op, embedding_lookup_op, matmul_op, mul_op,

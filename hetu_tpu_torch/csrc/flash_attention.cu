@@ -274,9 +274,18 @@ extern "C" int hetu_flash_fwd_lengths(const float* q, const float* k, const floa
 // KBIAS: a per-key strip (G, 1, S_kv), four floats a thread a tile.  Either
 // composes with key_mask and causal; the causal tile skip is unchanged.
 //
+// Bias with a full mask (FMASK together with BIAS or KBIAS; XLNet's
+// two-stream attention): the mask tile is staged as above and the bias read
+// as above, each through its own group mode (`gmode` for the mask, `bgmode`
+// for the bias: XLNet's permutation mask is group b, its relative-position
+// bias group h, in one launch).  A row the mask hides entirely (the query
+// stream's first token of each permutation) outputs 0 with lse = -1e30, as
+// without a bias.
+//
 // Not yet: wgmma / tensor cores (bf16 or TF32 would change the numbers),
 // double-buffered K/V staging, skipping key tiles that are entirely masked
-// by data (key_mask, full mask), bias together with a full mask.
+// by data (key_mask, full mask: at Longformer's 4096 a row sees 12.6 % of
+// the keys and every tile is walked), `lengths` together with another mask.
 
 namespace {
 
@@ -487,20 +496,6 @@ extern "C" int hetu_flash_fwd_causal(const float* q, const float* k, const float
                                    0, 0, s_q, s_kv, d, scale, stream);
 }
 
-// full mask: mask (G, s_q, s_kv) uint8, G = 1, heads, bh / heads or bh for
-// gmode 0..3; optionally with a key_mask and, causal != 0, the causal rule
-extern "C" int hetu_flash_fwd_mask(const float* q, const float* k, const float* v,
-                                   const int* key_mask, const unsigned char* mask,
-                                   float* out, float* lse, int bh, int heads, int s_q,
-                                   int s_kv, int d, int gmode, int causal, float scale,
-                                   void* stream) {
-  if (mask == nullptr) return (int)cudaErrorInvalidValue;
-  return causal ? dispatch_fwd<true, true>(q, k, v, key_mask, mask, nullptr, out, lse, bh,
-                                           heads, gmode, 0, s_q, s_kv, d, scale, stream)
-                : dispatch_fwd<false, true>(q, k, v, key_mask, mask, nullptr, out, lse, bh,
-                                            heads, gmode, 0, s_q, s_kv, d, scale, stream);
-}
-
 // additive bias: bias is a dense (G, s_q, s_kv) float32 bias or, strip != 0, a
 // per-key strip (G, 1, s_kv), of group mode gmode (0..3 as for the full
 // mask); optionally with a key_mask and, causal != 0, the causal rule
@@ -526,4 +521,36 @@ extern "C" int hetu_flash_fwd_bias(const float* q, const float* k, const float* 
                                        d, gmode, causal, scale, stream)
                : fwd_bias<true, false>(q, k, v, key_mask, bias, out, lse, bh, heads, s_q, s_kv,
                                        d, gmode, causal, scale, stream);
+}
+
+// full mask: mask (G, s_q, s_kv) uint8, G = 1, heads, bh / heads or bh for
+// gmode 0..3; optionally with an additive bias as hetu_flash_fwd_bias takes
+// it, of its own group mode bgmode (bias null: the mask alone; strip != 0:
+// the key-bias strip), a key_mask and, causal != 0, the causal rule
+template <bool BIAS, bool KBIAS>
+static int fwd_mask(const float* q, const float* k, const float* v, const int* key_mask,
+                    const unsigned char* mask, const float* bias, float* out, float* lse,
+                    int bh, int heads, int s_q, int s_kv, int d, int gmode, int bgmode,
+                    int causal, float scale, void* stream) {
+  return causal ? dispatch_fwd<true, true, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, out, lse,
+                                                        bh, heads, gmode, bgmode, s_q, s_kv, d,
+                                                        scale, stream)
+                : dispatch_fwd<false, true, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, out,
+                                                         lse, bh, heads, gmode, bgmode, s_q,
+                                                         s_kv, d, scale, stream);
+}
+
+extern "C" int hetu_flash_fwd_mask(const float* q, const float* k, const float* v,
+                                   const int* key_mask, const unsigned char* mask,
+                                   const float* bias, float* out, float* lse, int bh,
+                                   int heads, int s_q, int s_kv, int d, int gmode, int bgmode,
+                                   int strip, int causal, float scale, void* stream) {
+  if (mask == nullptr) return (int)cudaErrorInvalidValue;
+  if (bias == nullptr)
+    return fwd_mask<false, false>(q, k, v, key_mask, mask, nullptr, out, lse, bh, heads, s_q,
+                                  s_kv, d, gmode, 0, causal, scale, stream);
+  return strip ? fwd_mask<false, true>(q, k, v, key_mask, mask, bias, out, lse, bh, heads, s_q,
+                                       s_kv, d, gmode, bgmode, causal, scale, stream)
+               : fwd_mask<true, false>(q, k, v, key_mask, mask, bias, out, lse, bh, heads, s_q,
+                                       s_kv, d, gmode, bgmode, causal, scale, stream);
 }

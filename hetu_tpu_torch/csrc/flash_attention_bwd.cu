@@ -50,9 +50,27 @@
 // output of S_q * S_kv floats a (b*h): at the T5 encoder shape (B*H = 256,
 // S = 512) it adds 268 MB of writes to the dQ kernel.
 //
+// Full mask (template FMASK; Longformer's sliding window, XLNet's permutation
+// masks): a uint8 mask stored unbroadcast as (G, S_q, S_kv) of group mode
+// `gmode` (as the forward's), composed with key_mask, causal and either
+// bias, the bias through its own group mode `bgmode`.  The dQ kernel stages
+// each 64 x 64 mask tile once in shared memory beside K and V, as the
+// forward does (4 KB; ragged edges read 0).  The dK/dV kernel owns keys and
+// needs the tile transposed: it stages the (query, key) tile row-major,
+// coalesced, into a buffer of its own (the bias already uses dS^T's), with
+// rows of 68 bytes so that a thread's four keys are one aligned 4-byte read
+// and the 32 threads of a warp hit 32 distinct banks.  The probability is
+// the same select on validity, so a row the mask hides entirely (lse =
+// -1e30; the first token of each permutation in XLNet's query stream) gives
+// dQ = 0 and a dbias row of exact zeros and adds nothing to dK, dV or
+// dkbias; dbias is exactly 0 on every masked pair (t = P (dP - delta) with
+// P = 0).  No tile is skipped: validity is data, so at Longformer's 4096
+// the kernels walk every (query tile, key tile) pair though 12.6 % of the
+// pairs are visible.
+//
 // Not yet: tensor cores, double-buffered staging, one fused kernel for dQ and
-// dK/dV, the full-mask and `lengths` specializations, the group sum of dbias
-// inside the kernel.
+// dK/dV, skipping the tiles a data mask hides, the `lengths` specialization,
+// the group sum of dbias inside the kernel.
 
 #include <cuda_runtime.h>
 
@@ -62,17 +80,24 @@ namespace {
 
 using namespace hetu_flash;
 
-// G: float4 output column groups per thread (D <= 64 G); BIAS / KBIAS: at
-// most one, `bias` then points to the (G, S_q, S_kv) bias or the (G, S_kv)
-// strip of group mode `bgmode`; `dbias` (BH, S_q, S_kv) is written with BIAS
-template <int G, bool CAUSAL, bool BIAS, bool KBIAS>
+// Row stride in bytes of the dK/dV kernel's transposed mask tile: 17 words,
+// so the uchar4 reads of a warp land in 32 distinct banks.
+constexpr int MLD = TILE + 4;
+
+// G: float4 output column groups per thread (D <= 64 G); FMASK: `mask`
+// points to the (G, S_q, S_kv) uint8 mask of group mode `gmode`; BIAS /
+// KBIAS: at most one, `bias` then points to the (G, S_q, S_kv) bias or the
+// (G, S_kv) strip of group mode `bgmode`; `dbias` (BH, S_q, S_kv) is written
+// with BIAS
+template <int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
 __global__ void __launch_bounds__(TTHREADS)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const int* __restrict__ key_mask,
-                    const float* __restrict__ bias, const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, float* __restrict__ dbias, int heads, int bgmode,
-                    int s_q, int s_kv, int d, float scale) {
+                    const unsigned char* __restrict__ mask, const float* __restrict__ bias,
+                    const float* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    float* __restrict__ dbias, int heads, int gmode, int bgmode, int s_q,
+                    int s_kv, int d, float scale) {
   static_assert(!(BIAS && KBIAS), "a dense bias or a key-bias strip, not both");
   extern __shared__ __align__(16) float smem[];
   const int ld = d + 4;
@@ -82,6 +107,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* v_s = k_s + TILE * ld;   // TILE x ld
   float* ds_s = v_s + TILE * ld;  // TILE x PLD
   int* ok_s = reinterpret_cast<int*>(ds_s + TILE * PLD);  // TILE key flags
+  unsigned char* msk_s = reinterpret_cast<unsigned char*>(ok_s + TILE);  // TILE x TILE (FMASK)
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * TILE;
@@ -89,6 +115,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (size_t)bh * s_kv * d;
   const float* vb = v + (size_t)bh * s_kv * d;
   const int* km = key_mask ? key_mask + (size_t)(bh / heads) * s_kv : nullptr;
+  const unsigned char* mb = nullptr;
+  if (FMASK) mb = mask + (size_t)group_row(gmode, bh, heads) * s_q * s_kv;
   const float* bb = nullptr;
   if (BIAS || KBIAS)
     bb = bias + (size_t)group_row(bgmode, bh, heads) * (BIAS ? (size_t)s_q * s_kv : s_kv);
@@ -115,6 +143,12 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (tid < TILE) {
       const int key = k0 + tid;
       ok_s[tid] = key < s_kv && (km == nullptr || km[key] != 0);
+    }
+    if (FMASK) {
+      for (int i = tid; i < TILE * TILE; i += TTHREADS) {
+        const int row = q0 + (i >> 6), key = k0 + (i & (TILE - 1));
+        msk_s[i] = (row < s_q && key < s_kv) ? mb[(size_t)row * s_kv + key] : 0;
+      }
     }
     cp_async_wait_all();
     __syncthreads();
@@ -145,6 +179,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i) {
         bool ok = okj;
         if (CAUSAL) ok = ok && (q0 + 4 * ty + i + kv_off >= k0 + c);
+        if (FMASK) ok = ok && msk_s[(4 * ty + i) * TILE + c] != 0;
         float p;
         if constexpr (BIAS || KBIAS)
           p = ok ? expf(s[i][j] * scale + bv[i][j] - lse_r[i]) : 0.f;
@@ -181,17 +216,17 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_rows(dq + (size_t)bh * s_q * d, acc, one, q0, s_q, d, ty, tx);
 }
 
-// BIAS / KBIAS and `bias` as for the dQ kernel; `dkbias` (BH, S_kv) is
-// written with KBIAS
-template <int G, bool CAUSAL, bool BIAS, bool KBIAS>
+// FMASK, BIAS / KBIAS, `mask` and `bias` as for the dQ kernel; `dkbias`
+// (BH, S_kv) is written with KBIAS
+template <int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
 __global__ void __launch_bounds__(TTHREADS)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const int* __restrict__ key_mask,
-                     const float* __restrict__ bias, const float* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv,
-                     float* __restrict__ dkbias, int heads, int bgmode, int s_q, int s_kv,
-                     int d, float scale) {
+                     const unsigned char* __restrict__ mask, const float* __restrict__ bias,
+                     const float* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, float* __restrict__ dkbias, int heads, int gmode,
+                     int bgmode, int s_q, int s_kv, int d, float scale) {
   static_assert(!(BIAS && KBIAS), "a dense bias or a key-bias strip, not both");
   extern __shared__ __align__(16) float smem[];
   const int ld = d + 4;
@@ -204,6 +239,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* lse_s = dst_s + TILE * PLD;  // TILE
   float* dl_s = lse_s + TILE;         // TILE
   int* qok_s = reinterpret_cast<int*>(dl_s + TILE);  // TILE query flags
+  // FMASK: the (query, key) mask tile, query rows of MLD bytes
+  unsigned char* msk_s = reinterpret_cast<unsigned char*>(qok_s + TILE);
 
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * TILE;
@@ -211,6 +248,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* qb = q + (size_t)bh * s_q * d;
   const float* dob = dout + (size_t)bh * s_q * d;
   const int* km = key_mask ? key_mask + (size_t)(bh / heads) * s_kv : nullptr;
+  const unsigned char* mb = nullptr;
+  if (FMASK) mb = mask + (size_t)group_row(gmode, bh, heads) * s_q * s_kv;
   const float* bb = nullptr;
   if (BIAS || KBIAS)
     bb = bias + (size_t)group_row(bgmode, bh, heads) * (BIAS ? (size_t)s_q * s_kv : s_kv);
@@ -253,6 +292,13 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                  ? bb[(size_t)(q0 + r) * s_kv + k0 + c] : 0.f;
       }
     }
+    if (FMASK) {
+      for (int i = tid; i < TILE * TILE; i += TTHREADS) {
+        const int r = i >> 6, c = i & (TILE - 1);
+        msk_s[r * MLD + c] = (q0 + r < s_q && k0 + c < s_kv)
+                                 ? mb[(size_t)(q0 + r) * s_kv + k0 + c] : 0;
+      }
+    }
     cp_async_wait_all();
     __syncthreads();
 
@@ -277,10 +323,15 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int c = tx + 16 * j;
       const bool qok = qok_s[c] != 0;
       const float ls = lse_s[c], dl = dl_s[c];
+      // FMASK: mask[query c][keys 4ty .. 4ty + 3], one aligned 4-byte read
+      uchar4 mk = make_uchar4(1, 1, 1, 1);
+      if (FMASK) mk = *reinterpret_cast<const uchar4*>(msk_s + c * MLD + 4 * ty);
+      const unsigned char mki[4] = {mk.x, mk.y, mk.z, mk.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         bool ok = kok[i] && qok;
         if (CAUSAL) ok = ok && (q0 + c + kv_off >= k0 + 4 * ty + i);
+        if (FMASK) ok = ok && mki[i] != 0;
         float p;
         if constexpr (BIAS)
           p = ok ? expf(st[i][j] * scale + bv[i][j] - ls) : 0.f;
@@ -312,75 +363,77 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int G, bool CAUSAL, bool BIAS, bool KBIAS>
+template <int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
 int launch_dq(const float* q, const float* k, const float* v, const int* key_mask,
-              const float* bias, const float* dout, const float* lse, const float* delta,
-              float* dq, float* dbias, int bh, int heads, int bgmode, int s_q, int s_kv, int d,
-              float scale, cudaStream_t stream) {
+              const unsigned char* mask, const float* bias, const float* dout,
+              const float* lse, const float* delta, float* dq, float* dbias, int bh, int heads,
+              int gmode, int bgmode, int s_q, int s_kv, int d, float scale,
+              cudaStream_t stream) {
   static size_t configured[64] = {0};
-  const size_t smem =
-      (size_t)(4 * TILE * (d + 4) + TILE * PLD) * sizeof(float) + TILE * sizeof(int);
-  cudaError_t err = ensure_smem((const void*)flash_bwd_dq_kernel<G, CAUSAL, BIAS, KBIAS>,
-                                smem, configured);
+  const size_t smem = (size_t)(4 * TILE * (d + 4) + TILE * PLD) * sizeof(float) +
+                      TILE * sizeof(int) + (FMASK ? TILE * TILE : 0);
+  cudaError_t err = ensure_smem(
+      (const void*)flash_bwd_dq_kernel<G, CAUSAL, FMASK, BIAS, KBIAS>, smem, configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((s_q + TILE - 1) / TILE, bh);
-  flash_bwd_dq_kernel<G, CAUSAL, BIAS, KBIAS><<<grid, TTHREADS, smem, stream>>>(
-      q, k, v, key_mask, bias, dout, lse, delta, dq, dbias, heads, bgmode, s_q, s_kv, d,
-      scale);
+  flash_bwd_dq_kernel<G, CAUSAL, FMASK, BIAS, KBIAS><<<grid, TTHREADS, smem, stream>>>(
+      q, k, v, key_mask, mask, bias, dout, lse, delta, dq, dbias, heads, gmode, bgmode, s_q,
+      s_kv, d, scale);
   return (int)cudaGetLastError();
 }
 
-template <int G, bool CAUSAL, bool BIAS, bool KBIAS>
+template <int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
 int launch_dkv(const float* q, const float* k, const float* v, const int* key_mask,
-               const float* bias, const float* dout, const float* lse, const float* delta,
-               float* dk, float* dv, float* dkbias, int bh, int heads, int bgmode, int s_q,
-               int s_kv, int d, float scale, cudaStream_t stream) {
+               const unsigned char* mask, const float* bias, const float* dout,
+               const float* lse, const float* delta, float* dk, float* dv, float* dkbias,
+               int bh, int heads, int gmode, int bgmode, int s_q, int s_kv, int d, float scale,
+               cudaStream_t stream) {
   static size_t configured[64] = {0};
   const size_t smem = (size_t)(4 * TILE * (d + 4) + 2 * TILE * PLD + 2 * TILE) * sizeof(float) +
-                      TILE * sizeof(int);
-  cudaError_t err = ensure_smem((const void*)flash_bwd_dkv_kernel<G, CAUSAL, BIAS, KBIAS>,
-                                smem, configured);
+                      TILE * sizeof(int) + (FMASK ? TILE * MLD : 0);
+  cudaError_t err = ensure_smem(
+      (const void*)flash_bwd_dkv_kernel<G, CAUSAL, FMASK, BIAS, KBIAS>, smem, configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((s_kv + TILE - 1) / TILE, bh);
-  flash_bwd_dkv_kernel<G, CAUSAL, BIAS, KBIAS><<<grid, TTHREADS, smem, stream>>>(
-      q, k, v, key_mask, bias, dout, lse, delta, dk, dv, dkbias, heads, bgmode, s_q, s_kv, d,
-      scale);
+  flash_bwd_dkv_kernel<G, CAUSAL, FMASK, BIAS, KBIAS><<<grid, TTHREADS, smem, stream>>>(
+      q, k, v, key_mask, mask, bias, dout, lse, delta, dk, dv, dkbias, heads, gmode, bgmode, s_q,
+      s_kv, d, scale);
   return (int)cudaGetLastError();
 }
 
-bool bad_shape(int bh, int heads, int s_q, int s_kv, int d, int bgmode = 0) {
+bool bad_shape(int bh, int heads, int s_q, int s_kv, int d, int gmode = 0, int bgmode = 0) {
   return d <= 0 || d > 128 || (d & 3) || heads <= 0 || bh <= 0 || bh > 65535 || bh % heads ||
-         s_q <= 0 || s_kv <= 0 || bgmode < 0 || bgmode > 3;
+         s_q <= 0 || s_kv <= 0 || gmode < 0 || gmode > 3 || bgmode < 0 || bgmode > 3;
 }
 
-template <bool CAUSAL, bool BIAS = false, bool KBIAS = false>
+template <bool CAUSAL, bool FMASK = false, bool BIAS = false, bool KBIAS = false>
 int dispatch_dq(const float* q, const float* k, const float* v, const int* key_mask,
-                const float* bias, const float* dout, const float* lse, const float* delta,
-                float* dq, float* dbias, int bh, int heads, int bgmode, int s_q, int s_kv,
-                int d, float scale, void* stream) {
-  if (bad_shape(bh, heads, s_q, s_kv, d, bgmode)) return (int)cudaErrorInvalidValue;
-  return d <= 64 ? launch_dq<1, CAUSAL, BIAS, KBIAS>(q, k, v, key_mask, bias, dout, lse, delta,
-                                                     dq, dbias, bh, heads, bgmode, s_q, s_kv,
-                                                     d, scale, (cudaStream_t)stream)
-                 : launch_dq<2, CAUSAL, BIAS, KBIAS>(q, k, v, key_mask, bias, dout, lse, delta,
-                                                     dq, dbias, bh, heads, bgmode, s_q, s_kv,
-                                                     d, scale, (cudaStream_t)stream);
+                const unsigned char* mask, const float* bias, const float* dout,
+                const float* lse, const float* delta, float* dq, float* dbias, int bh,
+                int heads, int gmode, int bgmode, int s_q, int s_kv, int d, float scale,
+                void* stream) {
+  if (bad_shape(bh, heads, s_q, s_kv, d, gmode, bgmode)) return (int)cudaErrorInvalidValue;
+  return d <= 64 ? launch_dq<1, CAUSAL, FMASK, BIAS, KBIAS>(
+                       q, k, v, key_mask, mask, bias, dout, lse, delta, dq, dbias, bh, heads,
+                       gmode, bgmode, s_q, s_kv, d, scale, (cudaStream_t)stream)
+                 : launch_dq<2, CAUSAL, FMASK, BIAS, KBIAS>(
+                       q, k, v, key_mask, mask, bias, dout, lse, delta, dq, dbias, bh, heads,
+                       gmode, bgmode, s_q, s_kv, d, scale, (cudaStream_t)stream);
 }
 
-template <bool CAUSAL, bool BIAS = false, bool KBIAS = false>
+template <bool CAUSAL, bool FMASK = false, bool BIAS = false, bool KBIAS = false>
 int dispatch_dkv(const float* q, const float* k, const float* v, const int* key_mask,
-                 const float* bias, const float* dout, const float* lse, const float* delta,
-                 float* dk, float* dv, float* dkbias, int bh, int heads, int bgmode, int s_q,
-                 int s_kv, int d, float scale, void* stream) {
-  if (bad_shape(bh, heads, s_q, s_kv, d, bgmode)) return (int)cudaErrorInvalidValue;
-  return d <= 64 ? launch_dkv<1, CAUSAL, BIAS, KBIAS>(q, k, v, key_mask, bias, dout, lse,
-                                                      delta, dk, dv, dkbias, bh, heads, bgmode,
-                                                      s_q, s_kv, d, scale,
-                                                      (cudaStream_t)stream)
-                 : launch_dkv<2, CAUSAL, BIAS, KBIAS>(q, k, v, key_mask, bias, dout, lse,
-                                                      delta, dk, dv, dkbias, bh, heads, bgmode,
-                                                      s_q, s_kv, d, scale,
-                                                      (cudaStream_t)stream);
+                 const unsigned char* mask, const float* bias, const float* dout,
+                 const float* lse, const float* delta, float* dk, float* dv, float* dkbias,
+                 int bh, int heads, int gmode, int bgmode, int s_q, int s_kv, int d,
+                 float scale, void* stream) {
+  if (bad_shape(bh, heads, s_q, s_kv, d, gmode, bgmode)) return (int)cudaErrorInvalidValue;
+  return d <= 64 ? launch_dkv<1, CAUSAL, FMASK, BIAS, KBIAS>(
+                       q, k, v, key_mask, mask, bias, dout, lse, delta, dk, dv, dkbias, bh,
+                       heads, gmode, bgmode, s_q, s_kv, d, scale, (cudaStream_t)stream)
+                 : launch_dkv<2, CAUSAL, FMASK, BIAS, KBIAS>(
+                       q, k, v, key_mask, mask, bias, dout, lse, delta, dk, dv, dkbias, bh,
+                       heads, gmode, bgmode, s_q, s_kv, d, scale, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -393,8 +446,8 @@ extern "C" int hetu_flash_bwd_dq(const float* q, const float* k, const float* v,
                                  const int* key_mask, const float* dout, const float* lse,
                                  const float* delta, float* dq, int bh, int heads, int s_q,
                                  int s_kv, int d, float scale, void* stream) {
-  return dispatch_dq<false>(q, k, v, key_mask, nullptr, dout, lse, delta, dq, nullptr, bh,
-                            heads, 0, s_q, s_kv, d, scale, stream);
+  return dispatch_dq<false>(q, k, v, key_mask, nullptr, nullptr, dout, lse, delta, dq, nullptr,
+                            bh, heads, 0, 0, s_q, s_kv, d, scale, stream);
 }
 
 extern "C" int hetu_flash_bwd_dq_causal(const float* q, const float* k, const float* v,
@@ -402,16 +455,16 @@ extern "C" int hetu_flash_bwd_dq_causal(const float* q, const float* k, const fl
                                         const float* lse, const float* delta, float* dq,
                                         int bh, int heads, int s_q, int s_kv, int d,
                                         float scale, void* stream) {
-  return dispatch_dq<true>(q, k, v, key_mask, nullptr, dout, lse, delta, dq, nullptr, bh,
-                           heads, 0, s_q, s_kv, d, scale, stream);
+  return dispatch_dq<true>(q, k, v, key_mask, nullptr, nullptr, dout, lse, delta, dq, nullptr,
+                           bh, heads, 0, 0, s_q, s_kv, d, scale, stream);
 }
 
 extern "C" int hetu_flash_bwd_dkv(const float* q, const float* k, const float* v,
                                   const int* key_mask, const float* dout, const float* lse,
                                   const float* delta, float* dk, float* dv, int bh, int heads,
                                   int s_q, int s_kv, int d, float scale, void* stream) {
-  return dispatch_dkv<false>(q, k, v, key_mask, nullptr, dout, lse, delta, dk, dv, nullptr, bh,
-                             heads, 0, s_q, s_kv, d, scale, stream);
+  return dispatch_dkv<false>(q, k, v, key_mask, nullptr, nullptr, dout, lse, delta, dk, dv,
+                             nullptr, bh, heads, 0, 0, s_q, s_kv, d, scale, stream);
 }
 
 extern "C" int hetu_flash_bwd_dkv_causal(const float* q, const float* k, const float* v,
@@ -419,8 +472,8 @@ extern "C" int hetu_flash_bwd_dkv_causal(const float* q, const float* k, const f
                                          const float* lse, const float* delta, float* dk,
                                          float* dv, int bh, int heads, int s_q, int s_kv,
                                          int d, float scale, void* stream) {
-  return dispatch_dkv<true>(q, k, v, key_mask, nullptr, dout, lse, delta, dk, dv, nullptr, bh,
-                            heads, 0, s_q, s_kv, d, scale, stream);
+  return dispatch_dkv<true>(q, k, v, key_mask, nullptr, nullptr, dout, lse, delta, dk, dv,
+                            nullptr, bh, heads, 0, 0, s_q, s_kv, d, scale, stream);
 }
 
 // Additive bias, as hetu_flash_fwd_bias takes it: bias (G, s_q, s_kv) or,
@@ -428,30 +481,34 @@ extern "C" int hetu_flash_bwd_dkv_causal(const float* q, const float* k, const f
 // causal rule.  dQ with a dense bias writes dbias (bh, s_q, s_kv) float32 (the
 // pre-scale dS; null with a strip); dK/dV with a strip writes dkbias
 // (bh, 1, s_kv) float32 (null with a dense bias).
-template <bool BIAS, bool KBIAS>
-static int dq_bias(const float* q, const float* k, const float* v, const int* key_mask,
-            const float* bias, const float* dout, const float* lse, const float* delta,
-            float* dq, float* dbias, int bh, int heads, int s_q, int s_kv, int d, int gmode,
-            int causal, float scale, void* stream) {
-  return causal ? dispatch_dq<true, BIAS, KBIAS>(q, k, v, key_mask, bias, dout, lse, delta, dq,
-                                                 dbias, bh, heads, gmode, s_q, s_kv, d, scale,
-                                                 stream)
-                : dispatch_dq<false, BIAS, KBIAS>(q, k, v, key_mask, bias, dout, lse, delta, dq,
-                                                  dbias, bh, heads, gmode, s_q, s_kv, d, scale,
-                                                  stream);
+template <bool FMASK, bool BIAS, bool KBIAS>
+static int dq_sel(const float* q, const float* k, const float* v, const int* key_mask,
+                  const unsigned char* mask, const float* bias, const float* dout,
+                  const float* lse, const float* delta, float* dq, float* dbias, int bh,
+                  int heads, int s_q, int s_kv, int d, int gmode, int bgmode, int causal,
+                  float scale, void* stream) {
+  return causal ? dispatch_dq<true, FMASK, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, dout, lse,
+                                                        delta, dq, dbias, bh, heads, gmode,
+                                                        bgmode, s_q, s_kv, d, scale, stream)
+                : dispatch_dq<false, FMASK, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, dout,
+                                                         lse, delta, dq, dbias, bh, heads, gmode,
+                                                         bgmode, s_q, s_kv, d, scale, stream);
 }
 
-template <bool BIAS, bool KBIAS>
-static int dkv_bias(const float* q, const float* k, const float* v, const int* key_mask,
-             const float* bias, const float* dout, const float* lse, const float* delta,
-             float* dk, float* dv, float* dkbias, int bh, int heads, int s_q, int s_kv, int d,
-             int gmode, int causal, float scale, void* stream) {
-  return causal ? dispatch_dkv<true, BIAS, KBIAS>(q, k, v, key_mask, bias, dout, lse, delta,
-                                                  dk, dv, dkbias, bh, heads, gmode, s_q, s_kv,
-                                                  d, scale, stream)
-                : dispatch_dkv<false, BIAS, KBIAS>(q, k, v, key_mask, bias, dout, lse, delta,
-                                                   dk, dv, dkbias, bh, heads, gmode, s_q, s_kv,
-                                                   d, scale, stream);
+template <bool FMASK, bool BIAS, bool KBIAS>
+static int dkv_sel(const float* q, const float* k, const float* v, const int* key_mask,
+                   const unsigned char* mask, const float* bias, const float* dout,
+                   const float* lse, const float* delta, float* dk, float* dv, float* dkbias,
+                   int bh, int heads, int s_q, int s_kv, int d, int gmode, int bgmode,
+                   int causal, float scale, void* stream) {
+  return causal ? dispatch_dkv<true, FMASK, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, dout,
+                                                         lse, delta, dk, dv, dkbias, bh, heads,
+                                                         gmode, bgmode, s_q, s_kv, d, scale,
+                                                         stream)
+                : dispatch_dkv<false, FMASK, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, dout,
+                                                          lse, delta, dk, dv, dkbias, bh, heads,
+                                                          gmode, bgmode, s_q, s_kv, d, scale,
+                                                          stream);
 }
 
 extern "C" int hetu_flash_bwd_dq_bias(const float* q, const float* k, const float* v,
@@ -461,10 +518,12 @@ extern "C" int hetu_flash_bwd_dq_bias(const float* q, const float* k, const floa
                                       int s_kv, int d, int gmode, int strip, int causal,
                                       float scale, void* stream) {
   if (bias == nullptr || (strip != 0) != (dbias == nullptr)) return (int)cudaErrorInvalidValue;
-  return strip ? dq_bias<false, true>(q, k, v, key_mask, bias, dout, lse, delta, dq, nullptr, bh,
-                                      heads, s_q, s_kv, d, gmode, causal, scale, stream)
-               : dq_bias<true, false>(q, k, v, key_mask, bias, dout, lse, delta, dq, dbias, bh,
-                                      heads, s_q, s_kv, d, gmode, causal, scale, stream);
+  return strip ? dq_sel<false, false, true>(q, k, v, key_mask, nullptr, bias, dout, lse, delta,
+                                            dq, nullptr, bh, heads, s_q, s_kv, d, 0, gmode,
+                                            causal, scale, stream)
+               : dq_sel<false, true, false>(q, k, v, key_mask, nullptr, bias, dout, lse, delta,
+                                            dq, dbias, bh, heads, s_q, s_kv, d, 0, gmode, causal,
+                                            scale, stream);
 }
 
 extern "C" int hetu_flash_bwd_dkv_bias(const float* q, const float* k, const float* v,
@@ -474,10 +533,57 @@ extern "C" int hetu_flash_bwd_dkv_bias(const float* q, const float* k, const flo
                                        int s_q, int s_kv, int d, int gmode, int strip,
                                        int causal, float scale, void* stream) {
   if (bias == nullptr || (strip != 0) != (dkbias != nullptr)) return (int)cudaErrorInvalidValue;
-  return strip ? dkv_bias<false, true>(q, k, v, key_mask, bias, dout, lse, delta, dk, dv,
-                                       dkbias, bh, heads, s_q, s_kv, d, gmode, causal, scale,
-                                       stream)
-               : dkv_bias<true, false>(q, k, v, key_mask, bias, dout, lse, delta, dk, dv,
-                                       nullptr, bh, heads, s_q, s_kv, d, gmode, causal, scale,
-                                       stream);
+  return strip ? dkv_sel<false, false, true>(q, k, v, key_mask, nullptr, bias, dout, lse, delta,
+                                             dk, dv, dkbias, bh, heads, s_q, s_kv, d, 0, gmode,
+                                             causal, scale, stream)
+               : dkv_sel<false, true, false>(q, k, v, key_mask, nullptr, bias, dout, lse, delta,
+                                             dk, dv, nullptr, bh, heads, s_q, s_kv, d, 0, gmode,
+                                             causal, scale, stream);
+}
+
+// Full mask, as hetu_flash_fwd_mask takes it: mask (G, s_q, s_kv) uint8 of
+// group mode gmode, composed with key_mask and, causal != 0, the causal rule;
+// optionally with an additive bias of its own group mode bgmode (bias null:
+// the mask alone; strip != 0: the key-bias strip).  dQ writes dbias with a
+// dense bias, dK/dV dkbias with a strip, as the bias entries do; each is
+// null otherwise.
+extern "C" int hetu_flash_bwd_dq_mask(const float* q, const float* k, const float* v,
+                                      const int* key_mask, const unsigned char* mask,
+                                      const float* bias, const float* dout, const float* lse,
+                                      const float* delta, float* dq, float* dbias, int bh,
+                                      int heads, int s_q, int s_kv, int d, int gmode, int bgmode,
+                                      int strip, int causal, float scale, void* stream) {
+  const bool dense = bias != nullptr && !strip;
+  if (mask == nullptr || dense != (dbias != nullptr)) return (int)cudaErrorInvalidValue;
+  if (bias == nullptr)
+    return dq_sel<true, false, false>(q, k, v, key_mask, mask, nullptr, dout, lse, delta, dq,
+                                      nullptr, bh, heads, s_q, s_kv, d, gmode, 0, causal, scale,
+                                      stream);
+  return strip ? dq_sel<true, false, true>(q, k, v, key_mask, mask, bias, dout, lse, delta, dq,
+                                           nullptr, bh, heads, s_q, s_kv, d, gmode, bgmode,
+                                           causal, scale, stream)
+               : dq_sel<true, true, false>(q, k, v, key_mask, mask, bias, dout, lse, delta, dq,
+                                           dbias, bh, heads, s_q, s_kv, d, gmode, bgmode, causal,
+                                           scale, stream);
+}
+
+extern "C" int hetu_flash_bwd_dkv_mask(const float* q, const float* k, const float* v,
+                                       const int* key_mask, const unsigned char* mask,
+                                       const float* bias, const float* dout, const float* lse,
+                                       const float* delta, float* dk, float* dv, float* dkbias,
+                                       int bh, int heads, int s_q, int s_kv, int d, int gmode,
+                                       int bgmode, int strip, int causal, float scale,
+                                       void* stream) {
+  const bool strip_bias = bias != nullptr && strip;
+  if (mask == nullptr || strip_bias != (dkbias != nullptr)) return (int)cudaErrorInvalidValue;
+  if (bias == nullptr)
+    return dkv_sel<true, false, false>(q, k, v, key_mask, mask, nullptr, dout, lse, delta, dk,
+                                       dv, nullptr, bh, heads, s_q, s_kv, d, gmode, 0, causal,
+                                       scale, stream);
+  return strip ? dkv_sel<true, false, true>(q, k, v, key_mask, mask, bias, dout, lse, delta, dk,
+                                            dv, dkbias, bh, heads, s_q, s_kv, d, gmode, bgmode,
+                                            causal, scale, stream)
+               : dkv_sel<true, true, false>(q, k, v, key_mask, mask, bias, dout, lse, delta, dk,
+                                            dv, nullptr, bh, heads, s_q, s_kv, d, gmode, bgmode,
+                                            causal, scale, stream);
 }

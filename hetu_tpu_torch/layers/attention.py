@@ -7,12 +7,11 @@ probabilities, which the flash kernels never materialise; a config's
 
 ``causal=True`` takes the flash kernels' causal specialization, forward
 and backward, alone or with a key-padding mask.  Any other mask shape
-takes the full-mask forward, whose backward is not ported (it raises in
-training).  An additive ``bias`` (T5's relative position bias) takes the
-bias specialization, forward and backward, alone or with ``causal`` or a
-key-padding mask (``sdpa_bias_op``, ``sdpa_masked_bias_op``).  Not
-ported, refused by name: ``context_parallel`` (ring / Ulysses schedules)
-and a bias together with a full mask (raised by the kernel entry).
+takes the full-mask specialization, forward and backward.  An additive
+``bias`` (T5's relative position bias) takes the bias specialization,
+forward and backward, alone or with ``causal``, a key-padding mask or a
+full mask (``sdpa_bias_op``, ``sdpa_masked_bias_op``).  Not ported,
+refused by name: ``context_parallel`` (ring / Ulysses schedules).
 """
 from __future__ import annotations
 
@@ -50,7 +49,7 @@ class MultiHeadAttention(BaseLayer):
         optional (batch*kv_seq, hidden) memory for cross-attention;
         ``mask``: an optional validity mask node broadcastable to
         (B, H, S_q, S_k) — a (B, 1, 1, S_k) padding mask rides the flash
-        kernels' key-mask path, any other the full-mask forward; ``bias``:
+        kernels' key-mask path, any other the full-mask kernels; ``bias``:
         an optional additive logit bias node broadcastable the same way."""
         kv = x if kv is None else kv
         kv_seq = seq if kv_seq is None else kv_seq

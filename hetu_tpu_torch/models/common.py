@@ -28,3 +28,28 @@ def merge_heads(x, batch, seq, hidden):
     """(batch, heads, seq, head_dim) → (batch*seq, hidden)."""
     x = ops.transpose_op(x, perm=(0, 2, 1, 3))
     return ops.array_reshape_op(x, output_shape=(batch * seq, hidden))
+
+
+def post_ln_encoder_stack(x, cfg, attn_factory, name):
+    """BERT-style post-LN encoder stack shared by the static-sparse-mask
+    models (Longformer): per layer, x = LN(x + attn(x));
+    x = LN(x + dropout(FFN(x))).  ``attn_factory(layer_name) -> callable``.
+    Reads hidden_size / num_hidden_layers / intermediate_size /
+    hidden_dropout_prob / layer_norm_eps off ``cfg``."""
+    from .. import initializers as init
+    from ..layers.core import Linear, LayerNorm
+    for i in range(cfg.num_hidden_layers):
+        ln = f"{name}.layer{i}"
+        attn = attn_factory(ln + ".attn")
+        x = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
+                      ln + ".ln1")(x + attn(x))
+        h = Linear(cfg.hidden_size, cfg.intermediate_size, activation="gelu",
+                   initializer=init.GenTruncatedNormal(0.0, 0.02),
+                   name=ln + ".ffn1")(x)
+        h = Linear(cfg.intermediate_size, cfg.hidden_size,
+                   initializer=init.GenTruncatedNormal(0.0, 0.02),
+                   name=ln + ".ffn2")(h)
+        h = ops.dropout_op(h, 1.0 - cfg.hidden_dropout_prob)
+        x = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
+                      ln + ".ln2")(x + h)
+    return x

@@ -6,14 +6,17 @@ a query row with no valid key outputs zero.  The dispatchers:
 * ``dispatch_sdpa`` (dense or ``causal``) and ``dispatch_sdpa_masked`` (a
   mask node): the training path.  ``_split_mask_kinds`` routes a
   (B|1, 1, 1, S_kv) mask to the ``key_mask`` specialization and any
-  other broadcastable mask to the full-mask one (forward only: its
-  backward is not ported and raises ``NotImplementedError``).
+  other broadcastable mask to the full-mask one, forward and backward
+  (Longformer's static (1, 1, S, S) sliding-window mask: group ``one``).
 * ``dispatch_sdpa_bias`` (an additive bias, dense or ``causal``) and
   ``dispatch_sdpa_masked_bias`` (a mask node and a bias): T5's relative
-  position bias.  The mask takes ``_split_mask_kinds``; a bias with a
-  full mask raises ``NotImplementedError`` (not ported).  The bias's
-  gradient comes from the kernels (dbias, or dkbias for a (., ., 1, S_kv)
-  key-bias strip), summed over its broadcast group.
+  position bias with its key-padding mask, XLNet's with its (B, 1, S, S)
+  permutation masks.  The mask takes ``_split_mask_kinds``: a key mask
+  rides the bias kernels, a full mask the mask-with-bias ones, the mask
+  and the bias each in its own group mode (XLNet: mask ``b``, bias
+  ``h``).  The bias's gradient comes from the kernels (dbias, or dkbias
+  for a (., ., 1, S_kv) key-bias strip), summed over its broadcast
+  group.
 * ``dispatch_sdpa_decode``: the q_len=1 decode step against a KV cache
   (the ``lengths`` specialization).
 * ``dispatch_sdpa_prefill``: the q_len=C chunked-prefill step against a
@@ -104,7 +107,8 @@ def _split_mask_kinds(mask, q):
 def dispatch_sdpa_masked(q, k, v, mask, causal=False, scale=None):
     """Masked (B, H, S, D) attention: on the card a key-padding mask
     rides the flash kernels' ``key_mask`` path and any other mask the
-    full-mask forward; the CPU takes the plain attention."""
+    full-mask kernels, forward and backward; the CPU takes the plain
+    attention."""
     if q.device.type == "cpu":
         _note_cpu()
         return sdpa_reference(q, k, v, causal=causal, scale=scale, mask=mask)
@@ -141,8 +145,8 @@ sdpa_bias_op = def_op("ScaledDotProductAttentionBias", _sdpa_bias)
 def dispatch_sdpa_masked_bias(q, k, v, mask, bias, causal=False,
                               scale=None):
     """Masked and biased (B, H, S, D) attention: on the card a
-    key-padding mask rides the bias kernels' ``key_mask`` path (a full
-    mask with a bias is not ported and raises); the CPU takes the plain
+    key-padding mask rides the bias kernels' ``key_mask`` path and any
+    other mask the full-mask-with-bias kernels; the CPU takes the plain
     attention."""
     if q.device.type == "cpu":
         _note_cpu()
@@ -154,7 +158,8 @@ def dispatch_sdpa_masked_bias(q, k, v, mask, bias, causal=False,
 
 
 def _sdpa_masked_bias(c, q, k, v, mask, bias, causal=False, scale=None):
-    """Masked attention with an additive bias (T5's padded encoder)."""
+    """Masked attention with an additive bias (T5's padded encoder,
+    XLNet's two streams)."""
     return dispatch_sdpa_masked_bias(q, k, v, mask, bias, causal=causal,
                                      scale=scale)
 

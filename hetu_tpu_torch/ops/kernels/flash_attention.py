@@ -1,6 +1,7 @@
 """Flash attention for the H100: forward (``lengths``, dense, ``key_mask``,
-causal, full mask, additive bias) and backward (dQ, dK/dV: dense,
-``key_mask``, causal, additive bias with its gradient).
+causal, full mask, additive bias, full mask with a bias) and backward (dQ,
+dK/dV: dense, ``key_mask``, causal, full mask, additive bias with its
+gradient, full mask with a bias).
 
 Replaces the TPU kernels of ``hetu_tpu/ops/pallas/flash_attention.py``
 with hand-written CUDA kernels, built for ``sm_90a`` and bound through
@@ -12,8 +13,9 @@ with hand-written CUDA kernels, built for ``sm_90a`` and bound through
   ``hetu_flash_fwd`` for the dense and ``key_mask`` ones and
   ``hetu_flash_fwd_causal`` for the causal one, alone or with a
   ``key_mask`` (training, :func:`flash_fwd_masked`);
-  ``hetu_flash_fwd_mask`` for the full-mask one, alone or with ``causal``
-  and ``key_mask`` (chunked prefill, :func:`flash_fwd_fullmask`);
+  ``hetu_flash_fwd_mask`` for the full-mask one, alone or with ``causal``,
+  ``key_mask`` and a bias or strip (chunked prefill, Longformer, XLNet;
+  :func:`flash_fwd_fullmask`);
   ``hetu_flash_fwd_bias`` for the additive-bias ones, a dense bias or a
   per-key strip, alone or with ``causal`` and ``key_mask`` (T5,
   :func:`flash_fwd_bias`).
@@ -23,7 +25,10 @@ with hand-written CUDA kernels, built for ``sm_90a`` and bound through
   (:func:`flash_bwd_dkv`); with a bias ``hetu_flash_bwd_dq_bias``, which
   also writes dbias, the pre-scale dS (:func:`flash_bwd_dq_bias`), and
   ``hetu_flash_bwd_dkv_bias``, which with a key-bias strip also writes its
-  column sums, dkbias (:func:`flash_bwd_dkv_bias`).
+  column sums, dkbias (:func:`flash_bwd_dkv_bias`); with a full mask
+  ``hetu_flash_bwd_dq_mask`` and ``hetu_flash_bwd_dkv_mask``, alone
+  (Longformer) or with a bias or strip and its dbias / dkbias (XLNet;
+  :func:`flash_bwd_dq_mask`, :func:`flash_bwd_dkv_mask`).
 
 Causal is bottom-right aligned, as in the TPU kernel: key ``c`` is
 visible to query row ``r`` iff ``r + (S_kv - S_q) >= c``, and tiles
@@ -34,7 +39,9 @@ as uint8 ``(G, S_q, S_kv)`` with ``G`` one of 1, H, B, B*H (``gmode``
 as ``(G, S_q, S_kv)``, or as a per-key strip ``(G, 1, S_kv)``; it is added
 to the scaled scores before the mask, and its gradient is summed over its
 broadcast group (:func:`group_reduce`, the JAX package's
-``_group_reduce``).
+``_group_reduce``).  A full mask and a bias each keep their own group mode
+(``gmode``, ``bgmode``): XLNet's permutation mask is group ``b`` and its
+relative-position bias group ``h`` in one launch.
 
 The forward returns ``out`` plus the per-row float32 log-sum-exp; a row
 with no valid key outputs 0 with lse = -1e30.  The backward recomputes
@@ -42,9 +49,9 @@ the probabilities from that lse.  Unlike the TPU entry, no sequence is
 padded to a multiple of 128: ragged tiles are masked inside the kernels,
 so causal attention takes any pair of lengths.
 
-Not ported yet, refused by name: a bias together with a full mask, the
-full-mask backward, ``lengths`` together with ``key_mask``, ``causal``,
-``mask`` or a bias, the ``lengths`` backward, bf16 inputs.
+Not ported yet, refused by name: ``lengths`` together with ``key_mask``,
+``causal``, ``mask`` or a bias; the ``lengths`` backward (``lengths`` is
+forward only, decode), bf16 inputs.
 
 Beside each kernel sits its plain PyTorch version
 (:func:`flash_fwd_plain`, :func:`flash_bwd_plain`).  A wrapper takes the
@@ -56,10 +63,13 @@ plain module integer (``launches``, ``fwd_launches``, ``dq_launches``,
 ``fwd_bias_launches``, ``dq_bias_launches``, ``dkv_bias_launches``, with
 ``causal`` ``fwd_bias_causal_launches``, ``dq_bias_causal_launches``,
 ``dkv_bias_causal_launches``, for a key-bias strip ``fwd_kbias_launches``,
-``dq_kbias_launches``, ``dkv_kbias_launches``; reset them by assignment).
-:class:`FlashAttention` is the autograd function of the dense /
-``key_mask`` / causal / bias path, the counterpart of the JAX package's
-``custom_vjp``.
+``dq_kbias_launches``, ``dkv_kbias_launches``; for a full mask with or
+without ``causal``: ``dq_mask_launches``, ``dkv_mask_launches``, with a
+dense bias ``fwd_mask_bias_launches``, ``dq_mask_bias_launches``,
+``dkv_mask_bias_launches``, with a strip ``fwd_mask_kbias_launches``,
+``dq_mask_kbias_launches``, ``dkv_mask_kbias_launches``; reset them by
+assignment).  :class:`FlashAttention` is the autograd function of every
+training path, the counterpart of the JAX package's ``custom_vjp``.
 """
 from __future__ import annotations
 
@@ -99,22 +109,35 @@ dkv_bias_causal_launches = 0
 fwd_kbias_launches = 0
 dq_kbias_launches = 0
 dkv_kbias_launches = 0
+#: ... by :func:`flash_bwd_dq_mask` and :func:`flash_bwd_dkv_mask` with a
+#: full mask alone (with or without ``causal``), and by those two and
+#: :func:`flash_fwd_fullmask` with a full mask and a dense bias or a strip
+dq_mask_launches = 0
+dkv_mask_launches = 0
+fwd_mask_bias_launches = 0
+dq_mask_bias_launches = 0
+dkv_mask_bias_launches = 0
+fwd_mask_kbias_launches = 0
+dq_mask_kbias_launches = 0
+dkv_mask_kbias_launches = 0
 
 #: C entry → (source ``csrc/<source>.cu``, pointer arguments, int
 #: arguments); each takes its pointers, then its ints ((bh, heads, s_q,
-#: s_kv, d), the full mask also (gmode, causal), a bias also (gmode,
-#: strip, causal)), then scale, stream
+#: s_kv, d), a bias also (gmode, strip, causal), a full mask with an
+#: optional bias (gmode, bgmode, strip, causal)), then scale, stream
 ENTRIES = {"hetu_flash_fwd_lengths": ("flash_attention", 6, 5),
            "hetu_flash_fwd": ("flash_attention", 6, 5),
            "hetu_flash_fwd_causal": ("flash_attention", 6, 5),
-           "hetu_flash_fwd_mask": ("flash_attention", 7, 7),
+           "hetu_flash_fwd_mask": ("flash_attention", 8, 9),
            "hetu_flash_fwd_bias": ("flash_attention", 7, 8),
            "hetu_flash_bwd_dq": ("flash_attention_bwd", 8, 5),
            "hetu_flash_bwd_dq_causal": ("flash_attention_bwd", 8, 5),
            "hetu_flash_bwd_dkv": ("flash_attention_bwd", 9, 5),
            "hetu_flash_bwd_dkv_causal": ("flash_attention_bwd", 9, 5),
            "hetu_flash_bwd_dq_bias": ("flash_attention_bwd", 10, 8),
-           "hetu_flash_bwd_dkv_bias": ("flash_attention_bwd", 11, 8)}
+           "hetu_flash_bwd_dkv_bias": ("flash_attention_bwd", 11, 8),
+           "hetu_flash_bwd_dq_mask": ("flash_attention_bwd", 11, 9),
+           "hetu_flash_bwd_dkv_mask": ("flash_attention_bwd", 12, 9)}
 
 #: broadcast-group modes of a full mask or a bias, in the kernel's numbering
 GMODES = ("one", "h", "b", "bh")
@@ -230,13 +253,17 @@ def flash_fwd_plain(q, k, v, lengths, heads, scale, key_mask=None,
 
 
 def _plain_grads(q, k, v, key_mask, lse, do, delta, scale, causal=False,
-                 bias=None, kbias=None, bgmode="bh", heads=1):
+                 bias=None, kbias=None, bgmode="bh", heads=1, mask=None,
+                 gmode="bh"):
     """dQ, dK, dV and t = dL/d(logits) (BH, S_q, S_kv), the pre-scale dS,
-    from the formulas the backward kernels compute."""
+    from the formulas the backward kernels compute; a full ``mask`` of
+    group mode ``gmode`` joins the validity, a ``bias`` or strip
+    ``kbias`` of group mode ``bgmode`` the logits."""
     s = _logits(q, k, scale, bias, kbias, bgmode, heads)
     p = torch.exp(s - lse[..., None])
     valid = _valid(q.shape[0], q.shape[1], k.shape[1], q.device,
-                   key_mask=key_mask, causal=causal)
+                   key_mask=key_mask, causal=causal, mask=mask, gmode=gmode,
+                   heads=heads)
     if valid is not None:
         # a select: a row with no valid key has lse = -1e30 and exp = inf
         p = torch.where(valid, p, torch.zeros_like(p))
@@ -247,26 +274,31 @@ def _plain_grads(q, k, v, key_mask, lse, do, delta, scale, causal=False,
             torch.matmul(p.transpose(1, 2), do), t)
 
 
-def flash_bwd_plain(q, k, v, key_mask, out, lse, do, scale, causal=False):
+def flash_bwd_plain(q, k, v, key_mask, out, lse, do, scale, causal=False,
+                    mask=None, gmode="bh", heads=1):
     """Plain PyTorch version of the backward kernels (not autograd):
     P = exp(s - lse) on valid (row, key) pairs, dP = dO.V^T,
     delta = rowsum(dO * O), dS = P * (dP - delta) * scale; returns
-    (dQ = dS.K, dK = dS^T.Q, dV = P^T.dO)."""
+    (dQ = dS.K, dK = dS^T.Q, dV = P^T.dO).  A full ``mask`` (G, S_q, S_kv)
+    of group mode ``gmode`` (``heads`` = H) joins the validity."""
     delta = (do * out).sum(-1)
-    return _plain_grads(q, k, v, key_mask, lse, do, delta, scale, causal)[:3]
+    return _plain_grads(q, k, v, key_mask, lse, do, delta, scale, causal,
+                        heads=heads, mask=mask, gmode=gmode)[:3]
 
 
 def flash_bwd_bias_plain(q, k, v, key_mask, bias, kbias, bgmode, heads, out,
-                         lse, do, scale, causal=False):
+                         lse, do, scale, causal=False, mask=None, gmode="bh"):
     """Plain PyTorch version of the bias backward kernels: as
     :func:`flash_bwd_plain` with the biased scores; returns (dQ, dK, dV,
     dbias, dkbias).  dbias (BH, S_q, S_kv) is the pre-scale dS when a dense
     ``bias`` is given, dkbias (BH, 1, S_kv) its sum over the query rows
     when a strip ``kbias`` is; the other is None.  Neither is summed over
-    its group."""
+    its group.  A full ``mask`` of its own group mode ``gmode`` joins the
+    validity."""
     delta = (do * out).sum(-1)
     dq, dk, dv, t = _plain_grads(q, k, v, key_mask, lse, do, delta, scale,
-                                 causal, bias, kbias, bgmode, heads)
+                                 causal, bias, kbias, bgmode, heads, mask,
+                                 gmode)
     return (dq, dk, dv, t if bias is not None else None,
             t.sum(1, keepdim=True) if kbias is not None else None)
 
@@ -451,38 +483,68 @@ def flash_fwd_masked(q, k, v, key_mask, scale, causal=False):
     return out, lse
 
 
+def _check_fullmask(fn, q, k, key_mask, mask, gmode, heads, bias, kbias,
+                    bgmode):
+    """A full mask of group mode ``gmode`` and, when either is given, a
+    bias or strip of group mode ``bgmode``; a ``key_mask`` has BH /
+    ``heads`` rows."""
+    _check_mask(fn, q, k, mask, gmode, heads)
+    if bias is not None or kbias is not None:
+        _check_bias(fn, q, k, key_mask, bias, kbias, bgmode, heads)
+    elif key_mask is not None \
+            and _check_key_mask(fn, q, k, key_mask) != heads:
+        raise ValueError(f"{fn}: key_mask has {key_mask.shape[0]} rows, "
+                         f"BH / heads is {q.shape[0] // heads}")
+
+
+def _mask_args(mask, gmode, bias, kbias, bgmode, causal):
+    """The mask C entries' mask and bias pointers and their (gmode,
+    bgmode, strip, causal) ints; no bias: a null pointer."""
+    b = bias if bias is not None else kbias
+    return (mask.data_ptr(), _ptr(b),
+            (GMODES.index(gmode), GMODES.index(bgmode) if b is not None else 0,
+             int(kbias is not None), int(bool(causal))))
+
+
 def flash_fwd_fullmask(q, k, v, mask, gmode, heads, scale, key_mask=None,
-                       causal=False):
+                       causal=False, bias=None, kbias=None, bgmode="bh"):
     """Attention over the (row, key) pairs where the full ``mask`` is
     nonzero: uint8 (G, S_q, S_kv), stored unbroadcast, ``gmode`` one of
     ``one`` (G = 1), ``h`` (G = ``heads``, shared over the batch), ``b``
     (G = BH / ``heads``, shared over heads), ``bh`` (G = BH).  Composes
-    with ``key_mask`` (B, S_kv) int32 and ``causal``.  q (BH, S_q, D),
-    k/v (BH, S_kv, D) float32.  Forward only.  Returns
+    with ``key_mask`` (B, S_kv) int32, ``causal`` and an additive
+    ``bias`` (G', S_q, S_kv) or key-bias strip ``kbias`` (G', 1, S_kv) of
+    its own group mode ``bgmode`` (as :func:`flash_fwd_bias` takes it).
+    q (BH, S_q, D), k/v (BH, S_kv, D) float32.  Returns
     ``(out (BH, S_q, D), lse (BH, S_q))``."""
-    global fwd_mask_launches
+    global fwd_mask_launches, fwd_mask_bias_launches, fwd_mask_kbias_launches
     fn_name = "flash_fwd_fullmask"
     _check_qkv(fn_name, q, k, v)
-    _check_mask(fn_name, q, k, mask, gmode, heads)
-    if key_mask is not None \
-            and _check_key_mask(fn_name, q, k, key_mask) != heads:
-        raise ValueError(f"{fn_name}: key_mask has {key_mask.shape[0]} rows, "
-                         f"BH / heads is {q.shape[0] // heads}")
+    _check_fullmask(fn_name, q, k, key_mask, mask, gmode, heads, bias, kbias,
+                    bgmode)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, None, heads, scale, key_mask=key_mask,
-                               causal=causal, mask=mask, gmode=gmode)
+                               causal=causal, mask=mask, gmode=gmode,
+                               bias=bias, kbias=kbias, bgmode=bgmode)
     bh, s_q, d = q.shape
-    _check_launch(fn_name, d, q=q, k=k, v=v, key_mask=key_mask)
+    _check_launch(fn_name, d, q=q, k=k, v=v, key_mask=key_mask, bias=bias,
+                  kbias=kbias)
     out = torch.empty_like(q)
     lse = torch.empty((bh, s_q), dtype=torch.float32, device=q.device)
-    fn = kernel("hetu_flash_fwd_mask")
+    m_ptr, b_ptr, ints = _mask_args(mask, gmode, bias, kbias, bgmode, causal)
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
-                mask.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, heads,
-                s_q, k.shape[1], d, GMODES.index(gmode), int(bool(causal)),
-                float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        rc = kernel("hetu_flash_fwd_mask")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), m_ptr,
+            b_ptr, out.data_ptr(), lse.data_ptr(), bh, heads, s_q, k.shape[1],
+            d, *ints, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
-    fwd_mask_launches += 1
+    if bias is not None:
+        fwd_mask_bias_launches += 1
+    elif kbias is not None:
+        fwd_mask_kbias_launches += 1
+    else:
+        fwd_mask_launches += 1
     return out, lse
 
 
@@ -673,52 +735,158 @@ def flash_bwd_dkv_bias(q, k, v, key_mask, bias, kbias, gmode, heads, do, lse,
     return dk, dv, dkbias
 
 
+# -- full mask, alone or with a bias (Longformer, XLNet) -------------------
+
+def flash_bwd_dq_mask(q, k, v, key_mask, mask, gmode, heads, do, lse, delta,
+                      scale, causal=False, bias=None, kbias=None, bgmode="bh"):
+    """dQ of :func:`flash_fwd_fullmask` (the full ``mask`` of group mode
+    ``gmode``, and optionally a ``bias`` or strip ``kbias`` of group mode
+    ``bgmode``) given dO, its lse and delta = rowsum(dO * out), each
+    (BH, S_q[, D]) float32.  With a dense ``bias`` also its gradient
+    before the group sum, dbias (BH, S_q, S_kv), exactly 0 on every pair
+    the row does not see.  Returns ``(dq, dbias)``; dbias is None without
+    a dense bias."""
+    global dq_mask_launches, dq_mask_bias_launches, dq_mask_kbias_launches
+    fn_name = "flash_bwd_dq_mask"
+    _check_qkv(fn_name, q, k, v)
+    _check_fullmask(fn_name, q, k, key_mask, mask, gmode, heads, bias, kbias,
+                    bgmode)
+    _check_rows(fn_name, q, do=do, lse=lse, delta=delta)
+    if q.device.type == "cpu":
+        dq, _, _, t = _plain_grads(q, k, v, key_mask, lse, do, delta, scale,
+                                   causal, bias, kbias, bgmode, heads, mask,
+                                   gmode)
+        return dq, (t if bias is not None else None)
+    bh, s_q, d = q.shape
+    s_kv = k.shape[1]
+    _check_launch(fn_name, d, q=q, k=k, v=v, key_mask=key_mask, bias=bias,
+                  kbias=kbias, do=do, lse=lse, delta=delta)
+    dq = torch.empty_like(q)
+    dbias = None if bias is None else torch.empty(
+        (bh, s_q, s_kv), dtype=torch.float32, device=q.device)
+    m_ptr, b_ptr, ints = _mask_args(mask, gmode, bias, kbias, bgmode, causal)
+    with torch.cuda.device(q.device):
+        rc = kernel("hetu_flash_bwd_dq_mask")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), m_ptr,
+            b_ptr, do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), _ptr(dbias), bh, heads, s_q, s_kv, d, *ints,
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(fn_name, rc)
+    if bias is not None:
+        dq_mask_bias_launches += 1
+    elif kbias is not None:
+        dq_mask_kbias_launches += 1
+    else:
+        dq_mask_launches += 1
+    return dq, dbias
+
+
+def flash_bwd_dkv_mask(q, k, v, key_mask, mask, gmode, heads, do, lse, delta,
+                       scale, causal=False, bias=None, kbias=None,
+                       bgmode="bh"):
+    """(dK, dV) of :func:`flash_fwd_fullmask`; inputs as
+    :func:`flash_bwd_dq_mask`.  With a strip ``kbias`` also its gradient
+    before the group sum, dkbias (BH, 1, S_kv).  Returns ``(dk, dv,
+    dkbias)``; dkbias is None without a strip."""
+    global dkv_mask_launches, dkv_mask_bias_launches, dkv_mask_kbias_launches
+    fn_name = "flash_bwd_dkv_mask"
+    _check_qkv(fn_name, q, k, v)
+    _check_fullmask(fn_name, q, k, key_mask, mask, gmode, heads, bias, kbias,
+                    bgmode)
+    _check_rows(fn_name, q, do=do, lse=lse, delta=delta)
+    if q.device.type == "cpu":
+        _, dk, dv, t = _plain_grads(q, k, v, key_mask, lse, do, delta, scale,
+                                    causal, bias, kbias, bgmode, heads, mask,
+                                    gmode)
+        return dk, dv, (t.sum(1, keepdim=True) if kbias is not None
+                        else None)
+    bh, s_q, d = q.shape
+    s_kv = k.shape[1]
+    _check_launch(fn_name, d, q=q, k=k, v=v, key_mask=key_mask, bias=bias,
+                  kbias=kbias, do=do, lse=lse, delta=delta)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dkbias = None if kbias is None else torch.empty(
+        (bh, 1, s_kv), dtype=torch.float32, device=q.device)
+    m_ptr, b_ptr, ints = _mask_args(mask, gmode, bias, kbias, bgmode, causal)
+    with torch.cuda.device(q.device):
+        rc = kernel("hetu_flash_bwd_dkv_mask")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), m_ptr,
+            b_ptr, do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _ptr(dkbias), bh, heads, s_q, s_kv,
+            d, *ints, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(fn_name, rc)
+    if bias is not None:
+        dkv_mask_bias_launches += 1
+    elif kbias is not None:
+        dkv_mask_kbias_launches += 1
+    else:
+        dkv_mask_launches += 1
+    return dk, dv, dkbias
+
+
 class FlashAttention(torch.autograd.Function):
-    """Dense / ``key_mask`` / causal / bias attention on (BH, S, D)
-    tensors with the kernels' gradient: forward saves q, k, v, key_mask,
-    the bias, out and lse; the backward forms delta = rowsum(dO * out)
-    (one plain expression, as the JAX package leaves it to XLA) and
-    launches dQ and dK/dV with the forward's ``causal``.  With a dense
-    ``bias`` or a key-bias strip ``kbias`` (group mode ``bgmode``, BH =
-    B * ``heads``) it launches the bias kernels and returns their dbias /
-    dkbias summed over the group, in the bias's storage shape (the JAX
-    package's ``_flash_vjp_bwd``).  ``key_mask``, ``scale`` and ``causal``
-    get no gradient."""
+    """Attention on (BH, S, D) tensors with the kernels' gradient, on every
+    training path: dense, ``key_mask``, causal, a full ``mask`` (uint8
+    (G, S_q, S_kv) of group mode ``gmode``) and a dense ``bias`` or
+    key-bias strip ``kbias`` (group mode ``bgmode``, BH = B * ``heads``),
+    each alone or together.  The forward saves q, k, v, key_mask, the
+    mask, the bias, out and lse; the backward forms delta = rowsum(dO *
+    out) (one plain expression, as the JAX package leaves it to XLA) and
+    launches dQ and dK/dV with the forward's ``causal``, mask and bias.
+    dbias / dkbias come back summed over the bias's group, in its storage
+    shape (the JAX package's ``_flash_vjp_bwd``).  ``key_mask``, the
+    mask, ``scale`` and ``causal`` get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, scale, causal=False, bias=None,
-                kbias=None, bgmode="bh", heads=1):
-        if bias is None and kbias is None:
+                kbias=None, bgmode="bh", heads=1, mask=None, gmode="bh"):
+        if mask is not None:
+            out, lse = flash_fwd_fullmask(q, k, v, mask, gmode, heads, scale,
+                                          key_mask=key_mask, causal=causal,
+                                          bias=bias, kbias=kbias,
+                                          bgmode=bgmode)
+        elif bias is None and kbias is None:
             out, lse = flash_fwd_masked(q, k, v, key_mask, scale, causal)
         else:
             out, lse = flash_fwd_bias(q, k, v, key_mask, bias, kbias, bgmode,
                                       heads, scale, causal)
-        ctx.save_for_backward(q, k, v, key_mask, bias, kbias, out, lse)
+        ctx.save_for_backward(q, k, v, key_mask, mask, bias, kbias, out, lse)
         ctx.scale = scale
         ctx.causal = bool(causal)
-        ctx.bgmode, ctx.heads = bgmode, heads
+        ctx.bgmode, ctx.heads, ctx.gmode = bgmode, heads, gmode
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, key_mask, bias, kbias, out, lse = ctx.saved_tensors
+        q, k, v, key_mask, mask, bias, kbias, out, lse = ctx.saved_tensors
         do = dout.contiguous()
         delta = (do * out).sum(-1)
-        if bias is None and kbias is None:
+        if mask is not None:
+            kw = dict(causal=ctx.causal, bias=bias, kbias=kbias,
+                      bgmode=ctx.bgmode)
+            args = (q, k, v, key_mask, mask, ctx.gmode, ctx.heads, do, lse,
+                    delta, ctx.scale)
+            dq, dbias = flash_bwd_dq_mask(*args, **kw)
+            dk, dv, dkbias = flash_bwd_dkv_mask(*args, **kw)
+        elif bias is None and kbias is None:
             dq = flash_bwd_dq(q, k, v, key_mask, do, lse, delta, ctx.scale,
                               ctx.causal)
             dk, dv = flash_bwd_dkv(q, k, v, key_mask, do, lse, delta,
                                    ctx.scale, ctx.causal)
-            return dq, dk, dv, None, None, None, None, None, None, None
-        args = (q, k, v, key_mask, bias, kbias, ctx.bgmode, ctx.heads, do,
-                lse, delta, ctx.scale, ctx.causal)
-        dq, dbias = flash_bwd_dq_bias(*args)
-        dk, dv, dkbias = flash_bwd_dkv_bias(*args)
+            dbias = dkbias = None
+        else:
+            args = (q, k, v, key_mask, bias, kbias, ctx.bgmode, ctx.heads,
+                    do, lse, delta, ctx.scale, ctx.causal)
+            dq, dbias = flash_bwd_dq_bias(*args)
+            dk, dv, dkbias = flash_bwd_dkv_bias(*args)
         if dbias is not None:
             dbias = group_reduce(dbias, ctx.bgmode, ctx.heads, bias.shape)
         if dkbias is not None:
             dkbias = group_reduce(dkbias, ctx.bgmode, ctx.heads, kbias.shape)
-        return dq, dk, dv, None, None, None, dbias, dkbias, None, None
+        return (dq, dk, dv, None, None, None, dbias, dkbias, None, None, None,
+                None)
 
 
 def classify_group(x, b, h, s_q, s_kv, name):
@@ -749,21 +917,17 @@ def broadcast_group(x, b, h, s_q, s_kv, name):
 def flash_attention(q, k, v, causal=False, scale=None, lengths=None,
                     key_mask=None, mask=None, bias=None):
     """(B, H, S, D) entry with the JAX package's signature.  Ported:
-    ``lengths`` (forward only, decode); dense, ``key_mask`` (B, S_kv) and
-    ``causal`` with their gradient; a full ``mask`` broadcastable as
-    (1|B, 1|H, 1|S_q, S_kv), alone or with ``causal`` and ``key_mask``,
-    forward only; an additive ``bias`` broadcastable the same way, alone
-    or with ``causal`` and ``key_mask``, with its gradient (a
-    (., ., 1, S_kv) bias takes the key-bias strip when S_q != 1, as in
-    the JAX entry).  Returns ``out`` (B, H, S_q, D)."""
+    ``lengths`` (forward only, decode); dense, ``key_mask`` (B, S_kv),
+    ``causal``, a full ``mask`` broadcastable as (1|B, 1|H, 1|S_q, S_kv)
+    and an additive ``bias`` broadcastable the same way, each alone or
+    together, with their gradient (a (., ., 1, S_kv) bias takes the
+    key-bias strip when S_q != 1, as in the JAX entry; the mask and the
+    bias keep their own group modes).  Returns ``out`` (B, H, S_q, D)."""
     if lengths is not None and (key_mask is not None or mask is not None
                                 or causal or bias is not None):
         raise NotImplementedError(
             "flash_attention: lengths together with key_mask, mask, "
             "causal or bias is not ported")
-    if bias is not None and mask is not None:
-        raise NotImplementedError(
-            "flash_attention: bias together with a full mask is not ported")
     b, h, s_q, d = q.shape
     s_kv = k.shape[2]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
@@ -775,16 +939,9 @@ def flash_attention(q, k, v, causal=False, scale=None, lengths=None,
         return out.view(b, h, s_q, d)
     if key_mask is not None:
         key_mask = (key_mask != 0).to(torch.int32).contiguous()
+    mask3, gmode = None, "bh"
     if mask is not None:
-        if torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in (q, k, v)):
-            raise NotImplementedError(
-                "flash_attention: the full-mask backward is not ported "
-                "(call it under torch.no_grad or on detached tensors)")
         mask3, gmode = broadcast_group(mask, b, h, s_q, s_kv, "mask")
-        out, _ = flash_fwd_fullmask(q3, k3, v3, mask3, gmode, h, scale,
-                                    key_mask=key_mask, causal=causal)
-        return out.view(b, h, s_q, d)
     bias3 = kbias3 = None
     bgmode = "bh"
     if bias is not None:
@@ -796,5 +953,5 @@ def flash_attention(q, k, v, causal=False, scale=None, lengths=None,
         else:
             bias3 = ba.reshape(-1, s_q, s_kv).contiguous()
     out = FlashAttention.apply(q3, k3, v3, key_mask, scale, bool(causal),
-                               bias3, kbias3, bgmode, h)
+                               bias3, kbias3, bgmode, h, mask3, gmode)
     return out.view(b, h, s_q, d)

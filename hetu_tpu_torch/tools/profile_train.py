@@ -1,5 +1,5 @@
-"""Where the time of a BERT-base, GPT-2 small or T5-small training step
-goes, on the card.
+"""Where the time of a BERT-base, GPT-2 small, T5-small, XLNet-base or
+Longformer-base training step goes, on the card.
 
 Runs a training workload of ``chip_smoke.py``: ``--model bert`` (the
 default) BERT-base at published widths, seq 512, batch 16,
@@ -10,7 +10,13 @@ published widths, source 512, target 114, batch 32,
 ``t5_seq2seq_graph(cfg, use_mask=True)`` on
 ``synthetic_seq2seq_batch(cfg, seed=0, padded=True)``, attention through
 the bias kernels (encoder: with the key mask; decoder: causal) and the
-key-mask kernels (cross-attention).  All: seeded random weights, fp32,
+key-mask kernels (cross-attention); ``--model xlnet`` XLNet-base at
+published widths, seq 512, batch 8, ``xlnet_plm_graph`` on
+``synthetic_plm_batch(cfg, seed=0)``, both streams through the
+full-mask-with-bias kernels; ``--model longformer`` Longformer-base at
+published widths, seq 4096, batch 2, ``longformer_mlm_graph`` on
+``synthetic_mlm_ids(cfg, seed=0)``, the window mask through the full-mask
+kernels.  All: seeded random weights, fp32,
 dropout 0.1, the one batch fed every step, ``AdamOptimizer(1e-4)`` through
 ``Executor.run``.  Reports per step: host wall time without
 the profiler, then under ``torch.profiler`` the device busy time (sum of
@@ -19,11 +25,11 @@ launches, the kernels that take the most device time, the share of the
 three flash attention kernels and of the matrix products.  Run from the
 repository root::
 
-    python3 -m hetu_tpu_torch.tools.profile_train [--model bert|gpt2|t5]
-        [--out DIR] [--steps N]
+    python3 -m hetu_tpu_torch.tools.profile_train
+        [--model bert|gpt2|t5|xlnet|longformer] [--out DIR] [--steps N]
 
-``--out`` receives ``profile_train[_gpt2|_t5].json`` and the operator
-tables.
+``--out`` receives ``profile_train[_<model>].json`` (none for bert) and
+the operator tables.
 """
 from __future__ import annotations
 
@@ -43,9 +49,10 @@ from hetu_tpu_torch.ops.kernels import flash_attention as fa
 WARMUP = 2
 #: T5's source and target lengths; model -> (batch, tokens a sequence)
 T5_SRC, T5_TGT = 512, 114
-SHAPES = {"bert": (16, 512), "gpt2": (8, 1024), "t5": (32, T5_SRC + T5_TGT)}
-# the kernels' names in a trace; the causal and bias instantiations share
-# them
+SHAPES = {"bert": (16, 512), "gpt2": (8, 1024), "t5": (32, T5_SRC + T5_TGT),
+          "xlnet": (8, 512), "longformer": (2, 4096)}
+# the kernels' names in a trace; the causal, mask and bias instantiations
+# share them
 FLASH = {"flash_fwd_kernel": "fwd", "flash_bwd_dq_kernel": "dq",
          "flash_bwd_dkv_kernel": "dkv"}
 
@@ -73,6 +80,17 @@ def build(model, device="cuda"):
         fd = {feeds[k]: v for k, v in zip(
             ("input_ids", "decoder_input_ids", "labels", "attention_mask"),
             batch_np)}
+    elif model == "xlnet":
+        cfg = ht.XLNetConfig.base(batch_size=batch, seq_len=seq)
+        feeds, loss, _ = ht.xlnet_plm_graph(cfg)
+        fd = {feeds[k]: v for k, v in zip(
+            ("input_ids", "content_mask", "query_mask", "labels"),
+            ht.synthetic_plm_batch(cfg, seed=0))}
+    elif model == "longformer":
+        cfg = ht.LongformerConfig.base(batch_size=batch, seq_len=seq)
+        feeds, loss, _ = ht.longformer_mlm_graph(cfg)
+        ids, labels = ht.synthetic_mlm_ids(cfg, seed=0)
+        fd = {feeds["input_ids"]: ids, feeds["labels"]: labels}
     elif model == "gpt2":
         cfg = ht.GPT2Config.small(batch_size=batch, seq_len=seq)
         feeds, loss, _ = ht.gpt2_lm_graph(cfg)

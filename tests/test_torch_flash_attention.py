@@ -7,7 +7,9 @@ kernels themselves are held to the same plain versions on the card
 (tests/test_torch_kernels_gpu.py and chip_smoke.py).  The additive-bias
 specializations are held with their gradient, dbias / dkbias summed over
 the bias's broadcast group, at a scale other than 1 (T5 attends at scale
-1, which would hide a bias added before the scale).
+1, which would hide a bias added before the scale).  So are the full-mask
+backward (Longformer) and a full mask together with a bias (XLNet), each
+through its own group mode.
 
 Tolerances, float32: forward atol 1e-5 — the algorithms sum in different
 orders (blockwise online softmax vs one softmax); gradients rtol 2e-4,
@@ -421,24 +423,16 @@ def test_fullmask_lse_of_a_dead_row_and_storage():
     assert np.all(lse.numpy()[::TH, 0] == np.float32(fa.NEG_INF))
 
 
-@pytest.mark.parametrize("what", ["bias+mask", "lengths+key_mask",
-                                  "lengths+causal", "mask backward"])
+@pytest.mark.parametrize("what", ["lengths+key_mask", "lengths+causal"])
 def test_unported_specializations_are_refused_by_name(what):
     q = torch.zeros(2, 2, 8, 8)
-    kw = {"bias+mask": dict(bias=torch.zeros(1, 1, 8, 8),
-                            mask=torch.ones(1, 1, 8, 8, dtype=torch.bool)),
-          "lengths+key_mask": dict(
+    kw = {"lengths+key_mask": dict(
               lengths=torch.ones(2, dtype=torch.int32),
               key_mask=torch.ones(2, 8, dtype=torch.int32)),
           "lengths+causal": dict(lengths=torch.ones(2, dtype=torch.int32),
-                                 causal=True),
-          "mask backward": dict(mask=torch.ones(1, 1, 8, 8,
-                                                dtype=torch.bool))}[what]
-    qq = q.clone().requires_grad_(True) if what == "mask backward" else q
-    with pytest.raises(NotImplementedError,
-                       match="full-mask backward" if what == "mask backward"
-                       else what.split("+")[0]):
-        fa.flash_attention(qq, q, q, **kw)
+                                 causal=True)}[what]
+    with pytest.raises(NotImplementedError, match=what.split("+")[0]):
+        fa.flash_attention(q, q, q, **kw)
 
 
 def test_new_wrappers_count_no_launch_on_cpu():
@@ -606,7 +600,7 @@ def test_bias_wrappers_count_no_launch_on_cpu_and_give_storage_grads():
     tq, tk, tv, tdo = flat
     tb, tkm = torch.from_numpy(bias), torch.from_numpy(km)
     names = [n for n in vars(fa) if "bias" in n and n.endswith("launches")]
-    assert len(names) == 9
+    assert len(names) == 15          # the mask-with-bias ones among them
     before = [getattr(fa, n) for n in names]
     out, lse = fa.flash_fwd_bias(tq, tk, tv, tkm, tb, None, "h", BHEADS, 0.3)
     delta = (tdo * out).sum(-1)
@@ -644,3 +638,190 @@ def test_bias_wrapper_checks_its_inputs(bad):
         gmode = "hb"
     with pytest.raises(ValueError):
         fa.flash_fwd_bias(q, q, q, None, bias, kbias, gmode, 2, 1.0)
+
+
+# -- full mask with its backward, alone or with a bias (Longformer, XLNet) ---
+
+#: (mask gmode, bias shape (1|B, 1|H, 1|S, S) or None, key mask, causal):
+#: the four mask groups alone, with and without a key mask and causal
+#: (Longformer's is group one); with a dense bias of group h (XLNet: mask
+#: b, bias h) or one; with a key-bias strip
+MASK_BWD_CASES = [("one", None, False, False), ("h", None, True, False),
+                  ("b", None, False, True), ("bh", None, True, True),
+                  ("b", (1, BHEADS, BS, BS), False, False),
+                  ("one", (1, BHEADS, BS, BS), True, True),
+                  ("bh", (1, 1, BS, BS), False, True),
+                  ("h", (1, 1, BS, BS), True, False),
+                  ("b", (1, 1, 1, BS), False, False),
+                  ("h", (BB, 1, 1, BS), True, True)]
+
+
+def _mask_of(gmode, seed, s=BS):
+    """A boolean (1|B, 1|H, S, S) mask of group mode ``gmode`` with one
+    query row that sees no key."""
+    rng = np.random.RandomState(seed)
+    m = rng.rand(BB if gmode in ("b", "bh") else 1,
+                 BHEADS if gmode in ("h", "bh") else 1, s, s) < 0.5
+    m[0, 0, 0] = False
+    return m
+
+
+@pytest.mark.parametrize("gmode,bias_shape,key_mask,causal", MASK_BWD_CASES)
+def test_plain_fullmask_backward_and_bias_match_jax_pallas_interpret(
+        gmode, bias_shape, key_mask, causal):
+    """out, dq, dk, dv and the group-summed dbias / dkbias of a full mask,
+    alone or with a bias of its own group mode, against the Pallas kernels
+    in interpret mode (``jax.vjp`` of the entry); the row with no visible
+    key gives out = dQ = 0 and a dbias row of 0, and dbias is exactly 0 on
+    every masked pair."""
+    shape = bias_shape or (1, 1, 1, BS)
+    q, k, v, do, bias, km = _bias_inputs(BS, BS, shape, seed=len(gmode)
+                                         + 5 * key_mask + 3 * causal,
+                                         key_mask=key_mask)
+    mask = _mask_of(gmode, seed=len(gmode) + 11)
+    tmask = torch.from_numpy(mask)
+    assert fa.classify_group(tmask, BB, BHEADS, BS, BS, "mask") == gmode
+    jkm = None if km is None else jnp.asarray(km)
+    xs = (q, k, v) + ((bias,) if bias_shape else ())
+
+    def fn(q, k, v, b=None):
+        return jax_flash(q, k, v, causal=causal, scale=BIAS_SCALE,
+                         key_mask=jkm, mask=jnp.asarray(mask), bias=b,
+                         interpret=True)
+
+    want, vjp = jax.vjp(fn, *(jnp.asarray(x) for x in xs))
+    wgrads = vjp(jnp.asarray(do))
+    tx = [torch.from_numpy(x).requires_grad_(True) for x in xs]
+    got = fa.flash_attention(*tx[:3], causal=causal, scale=BIAS_SCALE,
+                             key_mask=None if km is None
+                             else torch.from_numpy(km), mask=tmask,
+                             bias=tx[3] if bias_shape else None)
+    grads = torch.autograd.grad(got, tx, torch.from_numpy(do))
+    got = got.detach().numpy()
+    np.testing.assert_allclose(got, np.asarray(want), **FWD_TOL)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), grads, wgrads):
+        assert tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **CAUSAL_GRAD_TOL)
+    assert np.all(got[0, 0, 0] == 0.0)          # the row that sees no key
+    assert np.all(grads[0].numpy()[0, 0, 0] == 0.0)
+    if bias_shape and bias_shape[2] == BS:
+        # dbias before the group sum: 0 on the dead row and every pair no
+        # row sees
+        flat = [torch.from_numpy(x.reshape(BB * BHEADS, BS, BD))
+                for x in (q, k, v, do)]
+        m3, mg = fa.broadcast_group(tmask, BB, BHEADS, BS, BS, "mask")
+        b3 = torch.from_numpy(bias.reshape(-1, BS, BS))
+        bg = fa.classify_group(torch.from_numpy(bias), BB, BHEADS, BS, BS,
+                               "bias")
+        tkm = None if km is None else torch.from_numpy(km)
+        out, lse = fa.flash_fwd_fullmask(*flat[:3], m3, mg, BHEADS,
+                                         BIAS_SCALE, key_mask=tkm,
+                                         causal=causal, bias=b3, bgmode=bg)
+        delta = (flat[3] * out).sum(-1)
+        _, dbias = fa.flash_bwd_dq_mask(*flat[:3], tkm, m3, mg, BHEADS,
+                                        flat[3], lse, delta, BIAS_SCALE,
+                                        causal=causal, bias=b3, bgmode=bg)
+        valid = fa._valid(BB * BHEADS, BS, BS, "cpu", key_mask=tkm,
+                          causal=causal, mask=m3, gmode=mg, heads=BHEADS)
+        valid = valid.expand(BB * BHEADS, BS, BS)
+        assert int(torch.count_nonzero(dbias[~valid])) == 0
+        assert bool((dbias[0, 0] == 0).all())
+
+
+@pytest.mark.parametrize("s_q,s_kv,gmode,bias_group", [(77, 77, "b", "h"),
+                                                       (40, 100, "one", "bh")])
+def test_mask_bias_autograd_function_on_cpu_matches_autograd_of_sdpa_reference(
+        s_q, s_kv, gmode, bias_group):
+    """Ragged lengths: ``flash_attention(mask=, bias=)`` →
+    ``FlashAttention`` over the plain versions of the mask-with-bias
+    kernels against autograd of ``sdpa_reference``, the bias's gradient
+    summed over its group."""
+    from hetu_tpu_torch.ops.attention import sdpa_reference
+    bshape = (BB if bias_group in ("b", "bh") else 1,
+              BHEADS if bias_group in ("h", "bh") else 1, s_q, s_kv)
+    q, k, v, do, bias, _ = _bias_inputs(s_q, s_kv, bshape, seed=s_q)
+    rng = np.random.RandomState(s_kv)
+    mask = rng.rand(BB if gmode == "b" else 1, 1, s_q, s_kv) < 0.3
+    mask[0, 0, 0] = False
+    tq, tk, tv, tb = (torch.from_numpy(x).requires_grad_(True)
+                      for x in (q, k, v, bias))
+    tmask = torch.from_numpy(mask)
+    got = fa.flash_attention(tq, tk, tv, scale=BIAS_SCALE, mask=tmask,
+                             bias=tb)
+    ref = sdpa_reference(tq, tk, tv, scale=BIAS_SCALE, mask=tmask, bias=tb)
+    cot = torch.from_numpy(do)
+    np.testing.assert_allclose(got.detach().numpy(), ref.detach().numpy(),
+                               **FWD_TOL)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"),
+                          torch.autograd.grad(got, (tq, tk, tv, tb), cot),
+                          torch.autograd.grad(ref, (tq, tk, tv, tb), cot)):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w.numpy(), err_msg=name,
+                                   **CAUSAL_GRAD_TOL)
+
+
+def test_mask_wrappers_count_no_launch_on_cpu():
+    q, k, v, do, bias, km = _bias_inputs(16, 24, (BB, 16, 24), seed=6,
+                                         key_mask=True)
+    tq, tk, tv, tdo = (torch.from_numpy(x.reshape(BB * BHEADS, x.shape[2],
+                                                  BD))
+                       for x in (q, k, v, do))
+    tkm, tb = torch.from_numpy(km), torch.from_numpy(bias)
+    mask = torch.from_numpy(_mask_of("h", seed=1, s=24)[0, :, :16]
+                            .astype(np.uint8)).contiguous()
+    names = [n for n in vars(fa) if "mask" in n and n.endswith("launches")]
+    assert len(names) == 9
+    before = [getattr(fa, n) for n in names]
+    for b, kb in ((None, None), (tb, None), (None, tb[:, :1].contiguous())):
+        kw = dict(causal=True, bias=b, kbias=kb, bgmode="b")
+        out, lse = fa.flash_fwd_fullmask(tq, tk, tv, mask, "h", BHEADS, 0.3,
+                                         key_mask=tkm, **kw)
+        delta = (tdo * out).sum(-1)
+        args = (tq, tk, tv, tkm, mask, "h", BHEADS, tdo, lse, delta, 0.3)
+        dq, dbias = fa.flash_bwd_dq_mask(*args, **kw)
+        dk, dv, dkbias = fa.flash_bwd_dkv_mask(*args, **kw)
+        want = fa.flash_bwd_bias_plain(tq, tk, tv, tkm, b, kb, "b", BHEADS,
+                                       out, lse, tdo, 0.3, causal=True,
+                                       mask=mask, gmode="h")
+        assert (dbias is None) == (b is None)
+        assert (dkbias is None) == (kb is None)
+        for g, w in zip((dq, dk, dv, dbias, dkbias), want):
+            assert (g is None) == (w is None)
+            if g is not None:
+                torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert [getattr(fa, n) for n in names] == before
+
+
+@pytest.mark.parametrize("bad", ["mask_dtype", "mask_rows", "gmode",
+                                 "bias_rows", "bgmode", "both",
+                                 "key_mask_rows"])
+def test_mask_wrappers_check_their_inputs(bad):
+    q = torch.zeros(4, 6, 8)
+    lse, delta = torch.zeros(4, 6), torch.zeros(4, 6)
+    mask = torch.ones(2, 6, 6, dtype=torch.uint8)
+    gmode, km = "b", None
+    kw = dict(bias=torch.zeros(2, 6, 6), kbias=None, bgmode="h")
+    if bad == "mask_dtype":
+        mask = mask.bool()
+    elif bad == "mask_rows":
+        mask = torch.ones(4, 6, 6, dtype=torch.uint8)
+    elif bad == "gmode":
+        gmode = "hb"
+    elif bad == "bias_rows":
+        kw["bias"] = torch.zeros(4, 6, 6)
+    elif bad == "bgmode":
+        kw["bgmode"] = "x"
+    elif bad == "both":
+        kw["kbias"] = torch.zeros(2, 1, 6)
+    else:
+        km = torch.ones(4, 6, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        fa.flash_fwd_fullmask(q, q, q, mask, gmode, 2, 1.0, key_mask=km,
+                              **kw)
+    with pytest.raises(ValueError):
+        fa.flash_bwd_dq_mask(q, q, q, km, mask, gmode, 2, q, lse, delta, 1.0,
+                             **kw)
+    with pytest.raises(ValueError):
+        fa.flash_bwd_dkv_mask(q, q, q, km, mask, gmode, 2, q, lse, delta, 1.0,
+                              **kw)

@@ -44,15 +44,19 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "import hetu_tpu_torch.tools.profile_moe\n"
             "import hetu_tpu_torch.models.gpt2\n"
             "import hetu_tpu_torch.models.t5\n"
+            "import hetu_tpu_torch.models.xlnet\n"
+            "import hetu_tpu_torch.models.longformer\n"
             "import hetu_tpu_torch.ops.attention\n"
             "import hetu_tpu_torch.serving.decode\n"
             "assert sys.modules['jax'] is None\n"
             "print(hetu_tpu_torch.GPT2Config.small().n_layer)\n"
-            "print(hetu_tpu_torch.T5Config.small().num_layers)\n")
+            "print(hetu_tpu_torch.T5Config.small().num_layers)\n"
+            "print(hetu_tpu_torch.XLNetConfig.base().n_layer)\n"
+            "print(hetu_tpu_torch.LongformerConfig.base().attention_window)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["12", "6"]
+    assert proc.stdout.split() == ["12", "6", "12", "512"]
 
 
 def test_sources_import_no_jax_or_hetu_tpu():
@@ -140,21 +144,17 @@ def test_inference_executor_refuses_checkpoint_directory(tmp_path):
         ht.InferenceExecutor([logits], weights=str(tmp_path), device="cpu")
 
 
-@pytest.mark.parametrize("spec", ["causal", "key_mask", "mask", "bias",
-                                  "mask_backward"])
+@pytest.mark.parametrize("spec", ["causal", "key_mask", "mask", "bias"])
 def test_flash_attention_unported_specializations_raise(spec):
-    """Ported: ``lengths`` (decode), dense / ``key_mask`` / causal / bias
-    (training) and the full-mask forward.  Unported and refused by name:
-    ``lengths`` together with ``key_mask``, ``mask``, ``causal`` or a
-    bias; the full-mask backward."""
+    """Ported: ``lengths`` (decode), dense / ``key_mask`` / causal / full
+    mask / bias, alone or together (training), with their backward.
+    Unported and refused by name: ``lengths`` together with ``key_mask``,
+    ``mask``, ``causal`` or a bias."""
     q = torch.zeros(1, 1, 1, 8)
     kw = {"lengths": torch.ones(1, dtype=torch.int32)}
     match = spec
     if spec == "causal":
         kw["causal"] = True
-    elif spec == "mask_backward":
-        kw, match = {"mask": torch.ones(1, 1, 1, 1)}, "full-mask backward"
-        q = q.requires_grad_(True)
     elif spec == "key_mask":
         kw[spec] = torch.ones(1, 1, dtype=torch.int32)
         match = "lengths together with key_mask"
@@ -165,22 +165,23 @@ def test_flash_attention_unported_specializations_raise(spec):
 
 
 @pytest.mark.parametrize("what", ["causal", "full_mask", "prefill", "bias",
-                                  "masked_bias"])
+                                  "masked_bias", "masked_bias_full"])
 def test_attention_dispatch_off_the_cpu_raises_for_unported_kinds(what):
     """A tensor off the CPU (a meta tensor stands in for the card here)
     goes to the kernel wrappers, which launch or raise: the dispatcher
     never falls back to the plain attention.  Causal, a full mask, the
-    chunked prefill and a bias (alone or with a key mask) are ported, so
-    each reaches its wrapper, and the wrapper has no kernel for a device
-    that is not CUDA."""
+    chunked prefill and a bias (alone, with a key mask or with a full
+    mask) are ported, so each reaches its wrapper, and the wrapper has no
+    kernel for a device that is not CUDA."""
     from hetu_tpu_torch.ops import attention
     q = torch.zeros(1, 1, 2, 8, device="meta")
     bias = torch.zeros(1, 1, 2, 2, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         if what == "bias":
             attention.dispatch_sdpa_bias(q, q, q, bias, causal=True)
-        elif what == "masked_bias":
-            mask = torch.ones(1, 1, 1, 2, dtype=torch.int32, device="meta")
+        elif what.startswith("masked_bias"):
+            rows = 2 if what == "masked_bias_full" else 1
+            mask = torch.ones(1, 1, rows, 2, dtype=torch.int32, device="meta")
             attention.dispatch_sdpa_masked_bias(q, q, q, mask, bias)
         elif what == "prefill":
             attention.dispatch_sdpa_prefill(

@@ -12,7 +12,8 @@ different orders.  The causal and full-mask specializations are held the
 same way at equal, unequal and ragged (S_q, S_kv), with rows that see no
 key.  The additive-bias specializations are held with their dbias /
 dkbias (allclose rtol 1e-4, atol 1e-5), dbias exactly 0 where a row sees
-no key.  The embedding-cache kernels: the slab row gather is a
+no key; so is the full-mask backward, alone and with a bias of another
+group mode (Longformer's and XLNet's calls).  The embedding-cache kernels: the slab row gather is a
 copy and must match exactly; the segment-sum must match its plain version
 (``index_add_``, atomics on the card) within rtol 2e-5 / atol 1e-6 and the
 host cache's ``_segment_sum`` exactly.  The MoE row gather is a copy with
@@ -287,15 +288,146 @@ def test_fullmask_forward_kernel_matches_plain_version(cuda, gmode, s_q, s_kv,
 
 
 @pytest.mark.gpu
-def test_fullmask_entry_refuses_gradients_and_runs_without(cuda):
-    q, k, v, _, _ = _causal_inputs(cuda, 32, 96, 64, False, seed=6)
-    q4, k4, v4 = (t.view(2, 3, -1, 64) for t in (q, k, v))
+def test_fullmask_entry_launches_the_mask_backward(cuda):
+    """``flash_attention(mask=)`` with a gradient: the full-mask forward,
+    dQ and dK/dV launch once each and match autograd of the plain
+    attention; without a gradient only the forward launches."""
+    from hetu_tpu_torch.ops.attention import sdpa_reference
+    q, k, v, do, _ = _causal_inputs(cuda, 32, 96, 64, False, seed=6)
+    q4, k4, v4 = (t.view(2, 3, -1, 64).clone().requires_grad_(True)
+                  for t in (q, k, v))
     mask = torch.rand(2, 1, 32, 96, device=cuda) < 0.5
-    before = fa.fwd_mask_launches
+    mask[0, 0, 0] = False                # a row with every key masked
+    names = ("fwd_mask_launches", "dq_mask_launches", "dkv_mask_launches")
+    before = [getattr(fa, n) for n in names]
+    with torch.no_grad():
+        fa.flash_attention(q4, k4, v4, mask=mask)
     out = fa.flash_attention(q4, k4, v4, mask=mask)
-    assert fa.fwd_mask_launches == before + 1 and out.shape == q4.shape
-    with pytest.raises(NotImplementedError, match="full-mask backward"):
-        fa.flash_attention(q4.clone().requires_grad_(True), k4, v4, mask=mask)
+    grads = torch.autograd.grad(out, (q4, k4, v4), do.view(2, 3, 32, 64))
+    torch.cuda.synchronize()
+    assert [getattr(fa, n) for n in names] == [before[0] + 2, before[1] + 1,
+                                               before[2] + 1]
+    ref = sdpa_reference(q4, k4, v4, mask=mask)
+    want = torch.autograd.grad(ref, (q4, k4, v4), do.view(2, 3, 32, 64))
+    assert float((out - ref).detach().abs().max()) <= ATOL
+    for got, w in zip(grads, want):
+        assert torch.allclose(got, w, rtol=1e-4, atol=1e-5), \
+            float((got - w).abs().max())
+    assert float(grads[0][0, :, 0].abs().max()) == 0.0
+
+
+#: (mask gmode, bias kind or None, bias gmode, S_q, S_kv, D, causal, key
+#: mask): the full-mask backward alone in each group (Longformer's is
+#: group one), and with a bias or strip whose group differs from the
+#: mask's (XLNet: mask b, bias h), causal, ragged, rows that see no key
+MASK_BWD_CASES = [("one", None, None, 512, 512, 64, False, False),
+                  ("h", None, None, 77, 130, 128, False, True),
+                  ("b", None, None, 200, 200, 32, True, True),
+                  ("bh", None, None, 200, 64, 64, True, False),
+                  ("b", "bias", "h", 512, 512, 64, False, False),
+                  ("one", "bias", "bh", 77, 130, 128, False, True),
+                  ("h", "bias", "b", 200, 200, 64, True, False),
+                  ("bh", "bias", "one", 200, 64, 32, True, True),
+                  ("b", "kbias", "one", 128, 128, 64, False, False),
+                  ("one", "kbias", "b", 200, 200, 64, True, True),
+                  ("h", "kbias", "bh", 64, 200, 128, True, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gmode,kind,bgmode,s_q,s_kv,d,causal,masked",
+                         MASK_BWD_CASES)
+def test_fullmask_backward_kernels_match_plain_version(
+        cuda, gmode, kind, bgmode, s_q, s_kv, d, causal, masked):
+    """The full-mask forward, dQ (with dbias) and dK/dV (with dkbias),
+    alone or with a bias of another group mode, against their plain
+    versions (out / lse atol 1e-5; gradients allclose(rtol=1e-4,
+    atol=1e-5)); rows that see no key give out = dQ = 0 and a dbias row of
+    0; dbias exactly 0 on every masked pair; the same from run to run."""
+    q, k, v, do, km = _causal_inputs(cuda, s_q, s_kv, d, masked,
+                                     s_q + 7 * s_kv + d)
+    rng = np.random.RandomState(s_kv + d)
+    m = (rng.rand(fa._group_rows(gmode, 6, 3), s_q, s_kv) < 0.4)
+    m[0, 0] = False                      # a row with every key masked
+    mask = torch.from_numpy(m.astype(np.uint8)).to(cuda)
+    bias = kbias = None
+    if kind is not None:
+        bias, kbias = _bias_of(cuda, kind, bgmode, s_q, s_kv, seed=s_q)
+    sfx = "" if kind is None else "_" + kind
+    names = [f"{n}_mask{sfx}_launches" for n in ("fwd", "dq", "dkv")]
+    if kind is None:
+        names[0] = "fwd_mask_launches"
+    before = [getattr(fa, n) for n in names]
+    scale = 0.37
+    kw = dict(causal=causal, bias=bias, kbias=kbias, bgmode=bgmode or "bh")
+    out, lse = fa.flash_fwd_fullmask(q, k, v, mask, gmode, 3, scale,
+                                     key_mask=km, **kw)
+    ref, lse_ref = fa.flash_fwd_plain(q, k, v, None, 3, scale, key_mask=km,
+                                      causal=causal, mask=mask, gmode=gmode,
+                                      bias=bias, kbias=kbias,
+                                      bgmode=bgmode or "bh")
+    delta = (do * out).sum(-1)
+    args = (q, k, v, km, mask, gmode, 3, do, lse, delta, scale)
+    dq, dbias = fa.flash_bwd_dq_mask(*args, **kw)
+    dk, dv, dkbias = fa.flash_bwd_dkv_mask(*args, **kw)
+    want = fa.flash_bwd_bias_plain(q, k, v, km, bias, kbias, bgmode or "bh",
+                                   3, out, lse, do, scale, causal=causal,
+                                   mask=mask, gmode=gmode)
+    torch.cuda.synchronize()
+    assert [getattr(fa, n) for n in names] == [n + 1 for n in before]
+    assert float((out - ref).abs().max()) <= ATOL
+    assert float((lse - lse_ref).abs().max()) <= ATOL
+    for got, ref_g in zip((dq, dk, dv, dbias, dkbias), want):
+        assert (got is None) == (ref_g is None)
+        if got is None:
+            continue
+        assert bool(torch.isfinite(got).all())
+        assert torch.allclose(got, ref_g, rtol=1e-4, atol=1e-5), \
+            float((got - ref_g).abs().max())
+    valid = fa._valid(6, s_q, s_kv, cuda, key_mask=km, causal=causal,
+                      mask=mask, gmode=gmode, heads=3).expand(6, s_q, s_kv)
+    blind = ~valid.any(-1)
+    assert bool(blind.any())
+    assert float(out[blind].abs().max()) == 0.0
+    assert float(dq[blind].abs().max()) == 0.0
+    if dbias is not None:
+        assert int(torch.count_nonzero(dbias[~valid])) == 0
+    dk2, dv2, dkb2 = fa.flash_bwd_dkv_mask(*args, **kw)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    if dkbias is not None:
+        assert torch.equal(dkbias, dkb2)
+
+
+@pytest.mark.gpu
+def test_mask_bias_autograd_function_launches_the_mask_bias_kernels(cuda):
+    """XLNet's call: ``flash_attention(mask=, bias=)`` with a (B, 1, S, S)
+    permutation mask (group b) and a (1, H, S, S) bias (group h) at S =
+    96; the mask-bias forward, dQ and dK/dV launch once each and the
+    bias's gradient, summed over the batch, matches autograd of the plain
+    attention."""
+    from hetu_tpu_torch.ops.attention import sdpa_reference
+    q, k, v, do, _ = _causal_inputs(cuda, 96, 96, 64, False, seed=9)
+    q = q / 8.0
+    rng = np.random.RandomState(9)
+    rank = np.stack([rng.permutation(96) for _ in range(2)])
+    mask = torch.from_numpy(rank[:, None, None, :]
+                            < rank[:, None, :, None]).to(cuda)
+    bias = torch.randn(1, 3, 96, 96, device=cuda)
+    q4, k4, v4, b4 = (t.reshape(-1, 3, 96, t.shape[-1]).clone()
+                      .requires_grad_(True) for t in (q, k, v, bias))
+    names = ("fwd_mask_bias_launches", "dq_mask_bias_launches",
+             "dkv_mask_bias_launches")
+    before = [getattr(fa, n) for n in names]
+    out = fa.flash_attention(q4, k4, v4, mask=mask, bias=b4)
+    grads = torch.autograd.grad(out, (q4, k4, v4, b4), do.view(2, 3, 96, 64))
+    torch.cuda.synchronize()
+    assert [getattr(fa, n) for n in names] == [n + 1 for n in before]
+    ref = sdpa_reference(q4, k4, v4, mask=mask, bias=b4)
+    want = torch.autograd.grad(ref, (q4, k4, v4, b4), do.view(2, 3, 96, 64))
+    assert float((out - ref).detach().abs().max()) <= ATOL
+    for got, w in zip(grads, want):
+        assert got.shape == w.shape
+        assert torch.allclose(got, w, rtol=1e-4, atol=1e-5), \
+            float((got - w).abs().max())
 
 
 # -- additive bias (T5) ----------------------------------------------------------
