@@ -178,11 +178,43 @@ without printing the final result line:
 24. Tiny XLNet and tiny Longformer (dropout 0) on the card and on the CPU
     from the same weights for 3 Adam steps; the losses and the step-1
     gradients of every variable must agree at phase 20's gates.
-25. Print the card's name and power limit, the ``kernels`` JSON line and,
+25. Hold every bf16 instantiation of the training kernels (forward, dQ
+    with dbias, dK/dV with dkbias) against its bf16 plain version:
+    the key-mask kernels at the BERT-base flagship's attention shape
+    (B=64, H=12, S=512, D=64, ``synthetic_mlm_batch``'s key mask with one
+    batch row fully masked) and the causal ones at GPT-2 small's (B=8,
+    H=12, S=1024), each timed (L2 flushed, median of 50) beside its
+    plain version, SDPA in bf16 and the bound (bytes at 2 a value, or the
+    visible pairs' operations at the 989 TFLOP/s dense bf16 peak); dense,
+    ragged causal with a key mask, S_q > S_kv, a dense bias (groups h and
+    bh), the key-bias strip, a full mask (groups b and one), a full mask
+    with a bias and with a strip at small shapes.  Tolerance
+    ``BF16_RTOL`` / ``BF16_ATOL``.
+26. Train BERT-base at bench.py's flagship shape (batch 64, seq 512,
+    ``synthetic_mlm_batch``, dropout 0.1, ``AdamOptimizer(1e-4)``) through
+    ``Executor(compute_dtype="bfloat16").run``: 2 warm-up steps, then 10
+    counted steps with every launch counter set to 0 just before and read
+    just after (the bf16 forward, dQ and dK/dV: steps x 12 each; nothing
+    else; no ``backend:`` fallback; the loss finite and falling; the
+    masters float32), step p50/p99, tokens/s, MFU against the 989 TFLOP/s
+    bf16 peak, peak memory, and 3 profiled steps for the device's busy
+    time, idle share and the flash and matrix-product shares.
+27. Train GPT-2 small (seq 1024, batch 8, dropout 0.1) the same way (the
+    causal bf16 kernels: steps x 12 each).
+28. Tiny BERT and tiny GPT-2 (seq 128, batch 4, dropout 0) in bf16 on the
+    card and on the CPU from the same weights for 3 Adam steps: losses
+    within ``BF16_TRAIN_LOSS_RTOL``, step-1 gradients of every variable
+    float32 and allclose at ``BF16_TRAIN_GRAD_RTOL`` /
+    ``BF16_TRAIN_GRAD_ATOL``.  Then BERT-base (seq 512, batch 8) and
+    GPT-2 small (seq 1024, batch 4) at full width and depth, bf16 against
+    float32 on the card from the same weights: 3 Adam losses within 5 % /
+    0.05.
+29. Print the card's name and power limit, the ``kernels`` JSON line and,
     last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32:
-``torch.backends.cuda.matmul.allow_tf32`` is set False.
+``torch.backends.cuda.matmul.allow_tf32`` is set False.  The bf16 ones
+run on the tensor cores (cuBLAS), as the JAX package leaves them to XLA.
 """
 import json
 import math
@@ -216,9 +248,18 @@ CTR_TABLE_RTOL, CTR_TABLE_ATOL = 1e-5, 1e-6
 # order around the gathers (losses rtol; step-1 gradients allclose)
 MOE_LOSS_RTOL = 1e-5
 MOE_GRAD_RTOL, MOE_GRAD_ATOL = 1e-4, 1e-6
-# H100 SXM data sheet: HBM3 bytes/s and float32 (non-tensor-core) FLOP/s
+# H100 SXM data sheet: HBM3 bytes/s, float32 (non-tensor-core) FLOP/s and
+# the dense bf16 tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+# bf16 kernels vs their bf16 plain versions (out, dQ, dK, dV, dbias,
+# dkbias allclose; lse atol): both round P and dS to bf16 and round their
+# outputs, from float32 sums in another order and, in the forward, P
+# against the running max (kernel) or the row's max (plain), so an element
+# may land a bf16 ulp or two apart; test_pallas.py holds the TPU kernel's
+# bf16 instantiation to its reference at the same 2e-2
+BF16_RTOL, BF16_ATOL, BF16_LSE_ATOL = 2e-2, 2e-2, 1e-4
 
 B, H, D = 8, 12, 64
 CACHE_LENS = (1, 7, 128, 384, 1024)
@@ -245,6 +286,18 @@ T5_KERNEL_SCALE = 0.37
 XL_BATCH, XL_SEQ, XL_WARMUP, XL_STEPS, XL_SCALE = 8, 512, 2, 10, 0.125
 # Longformer-base MLM at its published length
 LF_BATCH, LF_SEQ, LF_WARMUP, LF_STEPS = 2, 4096, 2, 10
+# bf16 mixed precision: BERT-base at bench.py's flagship batch (seq TS),
+# GPT-2 small at GPT_BATCH x GPT_SEQ; profiled steps for the breakdown
+BF_BATCH, BF_WARMUP, BF_STEPS, BF_PROFILED = 64, 2, 10, 3
+# bf16 training, card vs CPU (tiny models): losses rtol; step-1 gradients
+# allclose (cuBLAS's bf16 products and the bf16 kernels against the CPU's
+# bf16 products and plain versions: each rounds once from float32 sums in
+# another order; tests/test_torch_bf16.py holds the CPU run to the JAX
+# package at the same gates)
+BF16_TRAIN_LOSS_RTOL = 5e-3
+BF16_TRAIN_GRAD_RTOL, BF16_TRAIN_GRAD_ATOL = 2e-2, 1e-2
+# the port's bf16 run against its float32 run: test_bf16_parity.py's budget
+BF16_PARITY_TOL = 5e-2
 # row-gather launches of one top-2 training step: the dispatch (1), the
 # combine (2), its backward (2 for d_w, 1 for d_buffers); the tokens are
 # a feed, so autograd runs no dispatch backward
@@ -406,22 +459,24 @@ def teacher_forced_logits(engine, tokens):
     return np.stack(out)
 
 
-def attn_bound(kind, bh, s_q, s_kv, d, pairs, extra_bytes=0, kv_rows=None):
+def attn_bound(kind, bh, s_q, s_kv, d, pairs, extra_bytes=0, kv_rows=None,
+               elem=4, peak=PEAK_FP32_FLOPS):
     """Least time for one attention kernel's function on these inputs.
-    Bytes: each input read once, each output written once (float32 q /
-    dO / out / dQ rows of S_q, k / v / dK / dV rows of S_kv or, with
-    ``kv_rows``, only the K/V rows some query can see; lse and delta per
-    row; ``extra_bytes`` of masks).  Operations: 4 (forward), 6 (dQ: s,
-    dP, dQ) or 8 (dK/dV: s, dP, dV, dK) x D per visible (row, key) pair.
+    Bytes: each input read once, each output written once (q / dO / out /
+    dQ rows of S_q, k / v / dK / dV rows of S_kv or, with ``kv_rows``,
+    only the K/V rows some query can see, ``elem`` bytes a value: 4 for
+    float32, 2 for bf16; float32 lse and delta per row; ``extra_bytes`` of
+    masks).  Operations: 4 (forward), 6 (dQ: s, dP, dQ) or 8 (dK/dV: s,
+    dP, dV, dK) x D per visible (row, key) pair, at ``peak`` FLOP/s.
     Returns (ms, 'bytes' | 'operations')."""
     qmat, row = bh * s_q * d, bh * s_q
     kmat = bh * s_kv * d if kv_rows is None else kv_rows * d
-    words = {"fwd": qmat + 2 * kmat + qmat + row,
-             "dq": 2 * qmat + 2 * kmat + 2 * row + qmat,
-             "dkv": 2 * qmat + 2 * kmat + 2 * row + 2 * kmat}[kind]
+    mats = {"fwd": qmat + 2 * kmat + qmat, "dq": 2 * qmat + 2 * kmat + qmat,
+            "dkv": 2 * qmat + 2 * kmat + 2 * kmat}[kind]
+    rows = {"fwd": row, "dq": 2 * row, "dkv": 2 * row}[kind]
     flops = {"fwd": 4, "dq": 6, "dkv": 8}[kind] * float(pairs) * d
-    t_bytes = (4 * words + extra_bytes) / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_FP32_FLOPS
+    t_bytes = (elem * mats + 4 * rows + extra_bytes) / PEAK_BYTES_PER_S
+    t_ops = flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -484,7 +539,7 @@ def sdpa_yardstick(fa, q, k, v, heads, scale, km, causal, bias, kbias,
                              bh, heads).view(b, heads, -1, s_kv)
     valid = fa._valid(bh, s_q, s_kv, q.device, key_mask=km, causal=causal,
                       mask=mask, gmode=mask_gmode, heads=heads)
-    amask = amask.expand(b, heads, s_q, s_kv)
+    amask = amask.expand(b, heads, s_q, s_kv).to(q.dtype)
     if valid is not None:
         amask = amask.masked_fill(
             ~valid.expand(bh, s_q, s_kv).view(b, heads, s_q, s_kv), -1e30)
@@ -500,8 +555,12 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
     the full-mask forward / dQ / dK/dV kernels, alone or with a bias;
     else the bias forward / dQ (dbias) / dK/dV (dkbias) kernels with a
     dense ``bias`` or a strip ``kbias`` of group mode ``gmode``; else the
-    dense / key-mask / causal ones.  out and lse within KERNEL_ATOL; dQ,
-    dK, dV, dbias, dkbias finite and allclose at GRAD_RTOL / GRAD_ATOL;
+    dense / key-mask / causal ones.  float32: out and lse within
+    KERNEL_ATOL; dQ, dK, dV, dbias, dkbias finite and allclose at
+    GRAD_RTOL / GRAD_ATOL.  bfloat16 q, k, v, dO (the ``_bf16`` kernels
+    against the bf16 plain versions): out, dQ, dK, dV, dbias, dkbias
+    allclose at BF16_RTOL / BF16_ATOL, lse within BF16_LSE_ATOL, the
+    bound at 2 bytes a value and the bf16 peak;
     every row that sees no key (a batch row with every key masked, the
     first S_q - S_kv causal rows, a row the mask hides) out = dQ = 0 and
     lse = -1e30; dbias 0 on every pair no row sees.  With ``flush`` it
@@ -528,9 +587,11 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
                                   causal=causal, bias=bias, kbias=kbias,
                                   bgmode=gmode, mask=mask, gmode=mask_gmode)
 
+    bf16 = q.dtype == torch.bfloat16
+    rtol, atol = (BF16_RTOL, BF16_ATOL) if bf16 else (GRAD_RTOL, GRAD_ATOL)
     out, lse = fwd()
     ref, lse_ref = plain_fwd()
-    delta = (do * out).sum(-1)
+    delta = (do.float() * out.float()).sum(-1)
     args = (q, k, v, km, bias, kbias, gmode, heads, do, lse, delta, scale)
     margs = (q, k, v, km, mask, mask_gmode, heads, do, lse, delta, scale)
 
@@ -563,9 +624,12 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
     dk, dv, dkbias = dkv_fn()
     want = plain_bwd()
     torch.cuda.synchronize()
-    err = {"fwd": max(float((out - ref).abs().max()),
+    err = {"fwd": max(float((out.float() - ref.float()).abs().max()),
                       float((lse - lse_ref).abs().max()))}
-    if not err["fwd"] <= KERNEL_ATOL:
+    ok = (torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol)
+          and float((lse - lse_ref).abs().max()) <= BF16_LSE_ATOL) if bf16 \
+        else err["fwd"] <= KERNEL_ATOL
+    if not ok:
         raise AssertionError(f"{tag} fwd vs plain ({name}): {err}")
     for got, w, what in zip((dq, dk, dv, dbias, dkbias), want,
                             ("dq", "dk", "dv", "dbias", "dkbias")):
@@ -573,9 +637,10 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
             raise AssertionError(f"{tag} {name}: {what} missing")
         if got is None:
             continue
+        got, w = got.float(), w.float()
         e = float((got - w).abs().max())
         if not (bool(torch.isfinite(got).all())
-                and torch.allclose(got, w, rtol=GRAD_RTOL, atol=GRAD_ATOL)):
+                and torch.allclose(got, w, rtol=rtol, atol=atol)):
             raise AssertionError(f"{tag} {what} vs plain ({name}): max err "
                                  f"{e}")
         key = "dq" if what in ("dq", "dbias") else "dkv"
@@ -601,7 +666,7 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
     mags = {w_: float(x.abs().max()) for w_, x in zip(
         ("dq", "dk", "dv", "dbias", "dkbias"), want) if x is not None}
     log(f"{tag} {name} B={bh // heads} H={heads} S_q={s_q} S_kv={s_kv} "
-        f"D={dh} causal={causal} key_mask={km is not None} "
+        f"D={dh} {str(q.dtype)[6:]} causal={causal} key_mask={km is not None} "
         f"mask={'none' if mask is None else 'group ' + mask_gmode} "
         f"bias={'dense ' + gmode if bias is not None else 'strip ' + gmode if kbias is not None else 'none'} "
         f"scale={scale:.4g} rows seeing no key={blind} max_abs_err "
@@ -637,7 +702,9 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
     for kk, r in row.items():
         r["bound_ms"], r["bound_by"] = attn_bound(
             kk, bh, s_q, s_kv, dh, pairs,
-            attn_extra(kk, km, bias, kbias, bh, s_q, s_kv, mask))
+            attn_extra(kk, km, bias, kbias, bh, s_q, s_kv, mask),
+            elem=q.element_size(),
+            peak=PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
         r["visible_pairs"] = pairs
         if mask is not None and not causal:     # a data mask skips no tile
             r["walked_pairs"] = bh * s_q * s_kv
@@ -2213,19 +2280,24 @@ def longformer_step_flops(cfg, wmask):
 
 def line_name(counter):
     """The kernels-line name of a flash launch counter
-    (``dq_mask_bias_launches`` -> ``flash_bwd_dq_mask_bias``)."""
+    (``dq_mask_bias_launches`` -> ``flash_bwd_dq_mask_bias``,
+    ``bf16_fwd_causal_launches`` -> ``flash_fwd_causal_bf16``)."""
+    if counter.startswith("bf16_"):
+        return line_name(counter[len("bf16_"):]) + "_bf16"
     kind, _, rest = counter[:-len("_launches")].partition("_")
-    return ("flash_fwd_" if kind == "fwd" else f"flash_bwd_{kind}_") + rest
+    return ("flash_fwd" if kind == "fwd" else f"flash_bwd_{kind}") \
+        + ("_" + rest if rest else "")
 
 
 def train_path(fa, metrics, kmods, tag, ex, fd, steps, warmup, launches,
-               want, flops, base):
+               want, flops, base, peak=("fp32", PEAK_FP32_FLOPS)):
     """``warmup`` + ``steps`` Adam steps of ``ex`` on ``fd``; the counted
     steps with every launch counter set to 0 just before and read just
     after.  ``launches`` names the counters of the path, each of which
     must read ``want``; every other counter must read 0 and no attention
     may take ``backend:cpu``; the loss must be finite and must not rise.
-    ``base``: the device memory allocated before the executor was built.
+    ``base``: the device memory allocated before the executor was built;
+    ``peak``: (name, FLOP/s) of the peak the MFU is taken against.
     Returns the report."""
     losses = [float(ex.run("train", feed_dict=fd)[0].asnumpy())
               for _ in range(warmup)]
@@ -2265,8 +2337,8 @@ def train_path(fa, metrics, kmods, tag, ex, fd, steps, warmup, launches,
             "step_ms_mean": float(ms.mean()),
             "model_tflop_per_step": vis / 1e12,
             "model_tflop_per_step_dense_attention": dense / 1e12,
-            "mfu_fp32": vis / mean_s / PEAK_FP32_FLOPS,
-            "mfu_fp32_dense_attention": dense / mean_s / PEAK_FP32_FLOPS,
+            "mfu_" + peak[0]: vis / mean_s / peak[1],
+            "mfu_" + peak[0] + "_dense_attention": dense / mean_s / peak[1],
             "peak_mem_gib": (torch.cuda.max_memory_allocated() - base)
             / 2 ** 30,
             "launches": got, "launches_per_step": {
@@ -2396,6 +2468,268 @@ def phase_mask_train_parity(ht):
             f"{TRAIN_GRAD_ATOL})")
         card.close()
         host.close()
+
+
+def phase_bf16_kernels(ht, fa):
+    """Every bf16 instantiation of the training kernels against its bf16
+    plain version: the key-mask kernels at the BERT-base flagship's
+    attention shape (B=64, H=12, S=512, D=64, the key mask of
+    ``synthetic_mlm_batch`` with one batch row fully masked) and the causal
+    ones at GPT-2 small's (B=8, H=12, S=1024), both timed with SDPA in
+    bf16 as the yardstick; dense, causal with a key mask, ragged and
+    S_q > S_kv, a dense bias (groups h, bh; with causal and a key mask),
+    the key-bias strip, a full mask (groups b, one; with causal and a key
+    mask), a full mask with a bias and with a strip at small shapes.
+    Returns the kernels-line entries {fwd, dq, dkv} of each path, errors
+    the worst over the cases of the same instantiation."""
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush = flush_buf.zero_
+    rng = np.random.RandomState(25)
+    scale = 1.0 / math.sqrt(D)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)) \
+            .to("cuda", torch.bfloat16)
+
+    _, _, _, attn = ht.synthetic_mlm_batch(
+        ht.BertConfig.base(batch_size=BF_BATCH, seq_len=TS), seed=0)
+    attn = attn.copy()
+    attn[-1] = 0                          # a row with every key masked
+    bkm = torch.from_numpy(attn).cuda()
+    small_km = torch.from_numpy(
+        (rng.rand(2, 200) < 0.7).astype(np.int32)).cuda()
+    small_km[1] = 0
+    worst = {}
+    lines = {}
+
+    def run(path, name, bh, s_q, s_kv, timed=False, **kw):
+        q, do = t(bh, s_q, D), t(bh, s_q, D)
+        k, v = t(bh, s_kv, D), t(bh, s_kv, D)
+        heads = kw.pop("heads", H)
+        err, row = attn_case(fa, "[bf16-kernels]", name, q, k, v, do, heads,
+                             kw.pop("scale", scale),
+                             flush=flush if timed else None, **kw)
+        for kk, e in err.items():
+            worst[(path, kk)] = max(worst.get((path, kk), 0.0), e)
+        if timed:
+            lines[path] = row
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+    run("bert", "BERT flagship key mask", BF_BATCH * H, TS, TS, timed=True,
+        km=bkm)
+    run("bert", "dense", 4 * H, TS, TS)
+    run("gpt2", "GPT-2 causal", GPT_BATCH * H, GPT_SEQ, GPT_SEQ, timed=True,
+        causal=True)
+    run("gpt2", "causal+key_mask ragged", 2 * 3, 200, 200, heads=3,
+        km=small_km, causal=True)
+    run("gpt2", "causal S_q>S_kv", 2 * 3, 200, 64, heads=3, causal=True)
+
+    def group(g, s_q, s_kv, bh=6, heads=3, p=None):
+        x = torch.from_numpy(rng.randn(fa._group_rows(g, bh, heads), s_q,
+                                       s_kv).astype(np.float32)).cuda()
+        if p is None:
+            return x
+        m = (x.abs() < p)
+        m[0, 0] = False                   # a row with every key masked
+        return m.to(torch.uint8).contiguous()
+
+    others = [
+        ("bias", "bias group h, causal", 114, 114,
+         dict(bias=group("h", 114, 114), gmode="h", causal=True)),
+        ("bias", "bias group bh, key mask", 130, 200,
+         dict(bias=group("bh", 130, 200), gmode="bh", km=small_km)),
+        ("kbias", "strip group b, causal", 200, 200,
+         dict(kbias=group("b", 1, 200), gmode="b", causal=True)),
+        ("mask", "mask group b", 96, 96,
+         dict(mask=group("b", 96, 96, p=1.0), mask_gmode="b")),
+        ("mask", "mask group one, causal, key mask", 200, 200,
+         dict(mask=group("one", 200, 200, p=1.0), mask_gmode="one",
+              causal=True, km=small_km)),
+        ("mask_bias", "mask group b, bias group h", 96, 96,
+         dict(mask=group("b", 96, 96, p=1.0), mask_gmode="b",
+              bias=group("h", 96, 96), gmode="h")),
+        ("mask_kbias", "mask group h, strip group one, causal", 130, 200,
+         dict(mask=group("h", 130, 200, p=1.0), mask_gmode="h",
+              kbias=group("one", 1, 200), gmode="one", causal=True))]
+    for path, name, s_q, s_kv, kw in others:
+        run(path, name, 6, s_q, s_kv, heads=3, scale=0.37, **kw)
+    log(f"[bf16-kernels] worst max_abs_err per instantiation "
+        f"{json.dumps({f'{p}/{k}': e for (p, k), e in worst.items()})}")
+    for path, row in lines.items():
+        for kk in row:
+            row[kk]["max_abs_err"] = worst[(path, kk)]
+    return lines
+
+
+def phase_bf16_train(ht, fa, metrics, kmods, model):
+    """BERT-base at bench.py's flagship shape (``model`` "bert": batch 64,
+    seq 512, ``synthetic_mlm_batch``) or GPT-2 small ("gpt2": batch 8,
+    seq 1024, ``synthetic_lm_batch``), dropout 0.1, ``AdamOptimizer(1e-4)``
+    through ``Executor(compute_dtype="bfloat16").run``: 2 warm-up steps,
+    10 counted steps with every launch counter set to 0 just before and
+    read just after (each bf16 training kernel of the path: steps x 12; no
+    other; no ``backend:`` fallback; the loss finite and falling), the
+    masters float32, then 3 profiled steps for the device's breakdown.
+    Returns the launches by kernels-line name."""
+    from hetu_tpu_torch.tools.profile_train import profile_steps
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()     # what earlier phases still hold
+    if model == "bert":
+        cfg = ht.BertConfig.base(batch_size=BF_BATCH, seq_len=TS)
+        feeds, loss, _ = ht.bert_pretrain_graph(cfg)
+        fd = _bert_feeds(feeds, ht.synthetic_mlm_batch(cfg, seed=0))
+        names = ("bf16_fwd_launches", "bf16_dq_launches",
+                 "bf16_dkv_launches")
+        flops, layers = bert_step_flops(cfg), cfg.num_hidden_layers
+        tokens = cfg.batch_size * cfg.seq_len
+    else:
+        cfg = ht.GPT2Config.small(batch_size=GPT_BATCH, seq_len=GPT_SEQ)
+        feeds, loss, _ = ht.gpt2_lm_graph(cfg)
+        ids, labels = ht.synthetic_lm_batch(cfg, seed=0)
+        fd = {feeds["input_ids"]: ids, feeds["labels"]: labels}
+        names = ("bf16_fwd_causal_launches", "bf16_dq_causal_launches",
+                 "bf16_dkv_causal_launches")
+        flops, layers = gpt2_step_flops(cfg), cfg.n_layer
+        tokens = cfg.batch_size * cfg.seq_len
+    tag = f"[bf16-{model}-train]"
+    train_op = ht.optim.AdamOptimizer(1e-4).minimize(loss)
+    t0 = time.perf_counter()
+    ex = ht.Executor({"train": [loss, train_op]}, seed=0, device="cuda",
+                     compute_dtype="bfloat16")
+    log(f"{tag} executor built in {time.perf_counter() - t0:.1f} s")
+    report = train_path(fa, metrics, kmods, tag, ex, fd, BF_STEPS, BF_WARMUP,
+                        names, BF_STEPS * layers, (flops, flops), base,
+                        peak=("bf16", PEAK_BF16_FLOPS))
+    losses = report["losses"]
+    if not losses[-1] < losses[BF_WARMUP]:
+        raise AssertionError(f"{tag} loss did not fall: {losses}")
+    bad = [ex.var_names[n] for n, v in ex.var_values.items()
+           if v.dtype != torch.float32]
+    if bad:
+        raise AssertionError(f"{tag} masters left float32: {bad[:5]}")
+    step_s = report["step_ms_mean"] / 1e3
+    report["profiled"], _ = profile_steps(
+        lambda: float(ex.run("train", feed_dict=fd)[0].asnumpy()),
+        BF_PROFILED, step_s)
+    report.update({"batch": cfg.batch_size, "seq": cfg.seq_len,
+                   "compute_dtype": "bfloat16",
+                   "tokens_per_s": tokens / step_s,
+                   "samples_per_s": cfg.batch_size / step_s,
+                   "masters": "float32"})
+    log(f"{tag} {json.dumps(report)}")
+    ex.close()
+    del ex
+    torch.cuda.empty_cache()
+    return {line_name(n): c for n, c in report["launches"].items()}
+
+
+def _bf16_graph(ht, model, cfg):
+    """(feeds by name, loss, feed values by name) of BERT or GPT-2."""
+    if model == "bert":
+        feeds, loss, _ = ht.bert_pretrain_graph(cfg)
+        values = dict(zip(("input_ids", "token_type_ids", "masked_lm_labels",
+                           "attention_mask"),
+                          ht.synthetic_mlm_batch(cfg, seed=1)))
+    else:
+        feeds, loss, _ = ht.gpt2_lm_graph(cfg)
+        values = dict(zip(("input_ids", "labels"),
+                          ht.synthetic_lm_batch(cfg, seed=1)))
+    return feeds, loss, values
+
+
+def phase_bf16_parity(ht):
+    """Tiny BERT and tiny GPT-2 at bf16 (dropout 0): card vs CPU over 3
+    Adam steps from the same weights, losses within BF16_TRAIN_LOSS_RTOL
+    and step-1 gradients of every variable allclose at BF16_TRAIN_GRAD_*.
+    Then BERT-base (seq 512, batch 8) and GPT-2 small (seq 1024, batch 4)
+    at full width and depth, dropout 0: the bf16 run against the float32
+    run on the card from the same weights, 3 Adam losses within
+    ``test_bf16_parity.py``'s 5 % / 0.05."""
+    tiny = {"bert": ht.BertConfig.tiny(batch_size=4, seq_len=128,
+                                       hidden_dropout_prob=0.0,
+                                       attention_probs_dropout_prob=0.0),
+            "gpt2": ht.GPT2Config.tiny(batch_size=4, seq_len=128,
+                                       resid_pdrop=0.0, embd_pdrop=0.0,
+                                       attn_pdrop=0.0)}
+    for model, cfg in tiny.items():
+        feeds, loss, values = _bf16_graph(ht, model, cfg)
+        wrt = [n for n in ht.topo_sort([loss])
+               if isinstance(n, ht.PlaceholderOp) and n.is_variable
+               and n.trainable]
+        fetches = {"train": [loss, ht.optim.AdamOptimizer(1e-3)
+                             .minimize(loss)] + ht.gradients(loss, wrt)}
+        card = ht.Executor(fetches, seed=0, device="cuda",
+                           compute_dtype="bfloat16")
+        host = ht.Executor(fetches, seed=0, device="cpu",
+                           compute_dtype="bfloat16")
+        load_all(host, card.return_tensor_values())
+        fd = {feeds[k]: v for k, v in values.items()}
+        loss_err, grad_err = 0.0, 0.0
+        for step in range(3):
+            got = card.run("train", feed_dict=fd,
+                           convert_to_numpy_ret_vals=True)
+            want = host.run("train", feed_dict=fd,
+                            convert_to_numpy_ret_vals=True)
+            gl, wl = float(got[0]), float(want[0])
+            loss_err = max(loss_err, abs(gl - wl) / abs(wl))
+            if not (math.isfinite(gl)
+                    and abs(gl - wl) <= BF16_TRAIN_LOSS_RTOL * abs(wl)):
+                raise AssertionError(f"bf16 card vs CPU {model} loss at "
+                                     f"step {step + 1}: {gl} vs {wl}")
+            if step == 0:
+                for node, g, w in zip(wrt, got[2:], want[2:]):
+                    grad_err = max(grad_err, float(np.max(np.abs(g - w))))
+                    if g.dtype != np.float32 or not np.allclose(
+                            g, w, rtol=BF16_TRAIN_GRAD_RTOL,
+                            atol=BF16_TRAIN_GRAD_ATOL):
+                        raise AssertionError(
+                            f"bf16 card vs CPU {model} gradient of "
+                            f"{node.name}: max err "
+                            f"{float(np.max(np.abs(g - w)))}")
+        log(f"[bf16-parity] tiny {model}, bf16 card vs CPU, 3 Adam steps: "
+            f"loss max rel err {loss_err:.3e} (rtol "
+            f"{BF16_TRAIN_LOSS_RTOL}); step-1 gradients of {len(wrt)} "
+            f"variables max abs err {grad_err:.3e} (rtol "
+            f"{BF16_TRAIN_GRAD_RTOL}, atol {BF16_TRAIN_GRAD_ATOL})")
+        card.close()
+        host.close()
+    full = {"bert": ht.BertConfig.base(batch_size=8, seq_len=TS,
+                                       hidden_dropout_prob=0.0,
+                                       attention_probs_dropout_prob=0.0),
+            "gpt2": ht.GPT2Config.small(batch_size=4, seq_len=GPT_SEQ,
+                                        resid_pdrop=0.0, embd_pdrop=0.0,
+                                        attn_pdrop=0.0)}
+    for model, cfg in full.items():
+        feeds, loss, values = _bf16_graph(ht, model, cfg)
+        fetches = {"train": [loss, ht.optim.AdamOptimizer(1e-4)
+                             .minimize(loss)]}
+        fd = {feeds[k]: v for k, v in values.items()}
+        runs, weights = {}, None
+        for cd in ("bfloat16", None):
+            ex = ht.Executor(fetches, seed=0, device="cuda",
+                             compute_dtype=cd)
+            if weights is None:
+                weights = ex.return_tensor_values()
+            else:
+                load_all(ex, weights)
+            runs[cd] = [float(ex.run("train", feed_dict=fd)[0].asnumpy())
+                        for _ in range(3)]
+            ex.close()
+            del ex
+            torch.cuda.empty_cache()
+        got, want = np.array(runs["bfloat16"]), np.array(runs[None])
+        if not (np.isfinite(got).all()
+                and np.allclose(got, want, rtol=BF16_PARITY_TOL,
+                                atol=BF16_PARITY_TOL)):
+            raise AssertionError(f"bf16 vs float32 {model} at full width: "
+                                 f"{got.tolist()} vs {want.tolist()}")
+        log(f"[bf16-parity] {model} full width (batch {cfg.batch_size}, seq "
+            f"{cfg.seq_len}), bf16 vs float32 on the card, 3 Adam losses "
+            f"{got.tolist()} vs {want.tolist()}: max rel diff "
+            f"{float(np.max(np.abs(got - want) / np.abs(want))):.3e} (rtol "
+            f"= atol = {BF16_PARITY_TOL})")
 
 
 def main():
@@ -2546,7 +2880,19 @@ def main():
     # -- 24. card vs CPU XLNet and Longformer training -----------------------------
     phase_mask_train_parity(ht)
 
-    # -- 25. result lines ---------------------------------------------------------
+    # -- 25. bf16 kernels vs plain -------------------------------------------------
+    bflines = phase_bf16_kernels(ht, fa)
+
+    # -- 26. train BERT-base at the bf16 flagship shape ------------------------------
+    bflaunches = phase_bf16_train(ht, fa, metrics, kmods, "bert")
+
+    # -- 27. train GPT-2 small in bf16 ----------------------------------------------
+    bflaunches.update(phase_bf16_train(ht, fa, metrics, kmods, "gpt2"))
+
+    # -- 28. bf16 card vs CPU, bf16 vs float32 --------------------------------------
+    phase_bf16_parity(ht)
+
+    # -- 29. result lines ---------------------------------------------------------
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
@@ -2599,6 +2945,15 @@ def main():
                                  f"flash_attention.py:{at}",
                                  0 if counts is None else counts[name + sfx],
                                  mlines[key + sfx]))
+    # the bf16 instantiations of the two paths: the key-mask kernels (BERT)
+    # and the causal ones (GPT-2)
+    for path, sfx in (("bert", "_bf16"), ("gpt2", "_causal_bf16")):
+        for key, name, source, at in flash:
+            if source == "flash_attention_bwd.cu":
+                source = "flash_attention_bwd_bf16.cu"
+            kernels.append(entry(name + sfx, source,
+                                 f"flash_attention.py:{at}",
+                                 bflaunches[name + sfx], bflines[path][key]))
     kernels.append(entry("emb_gather", "emb_cache.cu", "emb_cache.py:71",
                          claunches["emb_gather"], gline))
     kernels.append(entry("sorted_segment_sum", "segment_sum.cu",

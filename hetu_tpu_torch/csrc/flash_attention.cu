@@ -1,8 +1,9 @@
 // Flash attention forward for Hopper (sm_90a): two kernels that replace
 // hetu_tpu/ops/pallas/flash_attention.py::_fwd_kernel (launched by _flash_fwd).
 // Both output `out` (BH, S_q, D) and the per-row log-sum-exp `lse` (BH, S_q),
-// float32.  A row with no valid key outputs 0 with lse = -1e30, as the TPU
-// kernel's _finish does.
+// float32 (the training kernel also in bfloat16, with lse float32).  A row
+// with no valid key outputs 0 with lse = -1e30, as the TPU kernel's _finish
+// does.
 //
 // 1. flash_fwd_lengths_kernel, the `lengths` specialization (decode): for the
 //    query rows of (b*h), keys at index >= lengths[b] are invisible.
@@ -274,6 +275,15 @@ extern "C" int hetu_flash_fwd_lengths(const float* q, const float* k, const floa
 // KBIAS: a per-key strip (G, 1, S_kv), four floats a thread a tile.  Either
 // composes with key_mask and causal; the causal tile skip is unchanged.
 //
+// bfloat16 (template T = __nv_bfloat16, the `_bf16` entries; the TPU kernel's
+// bf16 instantiation): q, k, v and out are bf16, lse and the bias float32.  Q,
+// K and V tiles are widened to float32 as they are staged (flash_tile.cuh), so
+// the products run on the same SIMT loops; the probability tile that feeds
+// P.V is rounded to bf16 (the TPU kernel's p.astype(v.dtype)) while the row
+// sum l takes the unrounded P; out = acc / l is rounded to nearest even as it
+// is stored.  What bounds it is unchanged (the products' operations on the
+// CUDA cores); the inputs' bytes halve.
+//
 // Bias with a full mask (FMASK together with BIAS or KBIAS; XLNet's
 // two-stream attention): the mask tile is staged as above and the bias read
 // as above, each through its own group mode (`gmode` for the mask, `bgmode`
@@ -282,7 +292,8 @@ extern "C" int hetu_flash_fwd_lengths(const float* q, const float* k, const floa
 // stream's first token of each permutation) outputs 0 with lse = -1e30, as
 // without a bias.
 //
-// Not yet: wgmma / tensor cores (bf16 or TF32 would change the numbers),
+// Not yet: tensor cores (mma.sync / wgmma on the bf16 inputs; TF32 would
+// change the float32 numbers),
 // double-buffered K/V staging, skipping key tiles that are entirely masked
 // by data (key_mask, full mask: at Longformer's 4096 a row sees 12.6 % of
 // the keys and every tile is walked), `lengths` together with another mask.
@@ -294,15 +305,16 @@ using hetu_flash::PLD;
 using hetu_flash::TILE;
 using hetu_flash::TTHREADS;
 
-// G: float4 output column groups per thread (D <= 64 G); BIAS / KBIAS: at
-// most one, `bias` then points to the (G, S_q, S_kv) bias or the (G, S_kv)
-// strip of group mode `bgmode`
-template <int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
+// T: the element type of q, k, v and out (float or __nv_bfloat16); G: float4
+// output column groups per thread (D <= 64 G); BIAS / KBIAS: at most one,
+// `bias` then points to the (G, S_q, S_kv) bias or the (G, S_kv) strip of
+// group mode `bgmode`
+template <typename T, int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
 __global__ void __launch_bounds__(TTHREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const int* __restrict__ key_mask,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const int* __restrict__ key_mask,
                  const unsigned char* __restrict__ mask, const float* __restrict__ bias,
-                 float* __restrict__ out, float* __restrict__ lse, int heads, int gmode,
+                 T* __restrict__ out, float* __restrict__ lse, int heads, int gmode,
                  int bgmode, int s_q, int s_kv, int d, float scale) {
   static_assert(!(BIAS && KBIAS), "a dense bias or a key-bias strip, not both");
   using namespace hetu_flash;
@@ -318,8 +330,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * TILE;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const float* kb = k + (size_t)bh * s_kv * d;
-  const float* vb = v + (size_t)bh * s_kv * d;
+  const T* kb = k + (size_t)bh * s_kv * d;
+  const T* vb = v + (size_t)bh * s_kv * d;
   const int* km = key_mask ? key_mask + (size_t)(bh / heads) * s_kv : nullptr;
   const unsigned char* mb = nullptr;
   if (FMASK) mb = mask + (size_t)group_row(gmode, bh, heads) * s_q * s_kv;
@@ -406,9 +418,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         // select by validity, never exp alone: while a row has seen no
         // valid key, m_new = -1e30 and exp(s - m_new) = 1
+        // l sums P as computed; P.V takes P rounded to T (bf16: to
+        // nearest even, the TPU kernel's p.astype(v.dtype))
         const float p = ok[i][j] ? expf(s[i][j] - m_new) : 0.f;
         psum += p;
-        p_s[(4 * ty + i) * PLD + tx + 16 * j] = p;
+        p_s[(4 * ty + i) * PLD + tx + 16 * j] = round_to<T>(p);
       }
       l[i] = alpha * l[i] + half_sum(psum);
       m[i] = m_new;
@@ -438,119 +452,140 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
-int launch_fwd(const float* q, const float* k, const float* v, const int* key_mask,
-               const unsigned char* mask, const float* bias, float* out, float* lse, int bh,
+template <typename T, int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
+int launch_fwd(const T* q, const T* k, const T* v, const int* key_mask,
+               const unsigned char* mask, const float* bias, T* out, float* lse, int bh,
                int heads, int gmode, int bgmode, int s_q, int s_kv, int d, float scale,
                cudaStream_t stream) {
   static size_t configured[64] = {0};
   const size_t smem = (size_t)(3 * TILE * (d + 4) + TILE * PLD) * sizeof(float) +
                       TILE * sizeof(int) + (FMASK ? TILE * TILE : 0);
   cudaError_t err = hetu_flash::ensure_smem(
-      (const void*)flash_fwd_kernel<G, CAUSAL, FMASK, BIAS, KBIAS>, smem, configured);
+      (const void*)flash_fwd_kernel<T, G, CAUSAL, FMASK, BIAS, KBIAS>, smem, configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((s_q + TILE - 1) / TILE, bh);
-  flash_fwd_kernel<G, CAUSAL, FMASK, BIAS, KBIAS><<<grid, TTHREADS, smem, stream>>>(
+  flash_fwd_kernel<T, G, CAUSAL, FMASK, BIAS, KBIAS><<<grid, TTHREADS, smem, stream>>>(
       q, k, v, key_mask, mask, bias, out, lse, heads, gmode, bgmode, s_q, s_kv, d, scale);
   return (int)cudaGetLastError();
 }
 
-template <bool CAUSAL, bool FMASK, bool BIAS = false, bool KBIAS = false>
-int dispatch_fwd(const float* q, const float* k, const float* v, const int* key_mask,
-                 const unsigned char* mask, const float* bias, float* out, float* lse,
-                 int bh, int heads, int gmode, int bgmode, int s_q, int s_kv, int d,
-                 float scale, void* stream) {
-  if (d <= 0 || d > 128 || (d & 3) || heads <= 0 || bh <= 0 || bh > 65535 ||
+template <typename T, bool CAUSAL, bool FMASK, bool BIAS = false, bool KBIAS = false>
+int dispatch_fwd(const T* q, const T* k, const T* v, const int* key_mask,
+                 const unsigned char* mask, const float* bias, T* out, float* lse, int bh,
+                 int heads, int gmode, int bgmode, int s_q, int s_kv, int d, float scale,
+                 void* stream) {
+  if (hetu_flash::bad_head_dim<T>(d) || heads <= 0 || bh <= 0 || bh > 65535 ||
       bh % heads || s_q <= 0 || s_kv <= 0 || gmode < 0 || gmode > 3 || bgmode < 0 ||
       bgmode > 3)
     return (int)cudaErrorInvalidValue;
-  return d <= 64 ? launch_fwd<1, CAUSAL, FMASK, BIAS, KBIAS>(
+  return d <= 64 ? launch_fwd<T, 1, CAUSAL, FMASK, BIAS, KBIAS>(
                        q, k, v, key_mask, mask, bias, out, lse, bh, heads, gmode, bgmode, s_q,
                        s_kv, d, scale, (cudaStream_t)stream)
-                 : launch_fwd<2, CAUSAL, FMASK, BIAS, KBIAS>(
+                 : launch_fwd<T, 2, CAUSAL, FMASK, BIAS, KBIAS>(
                        q, k, v, key_mask, mask, bias, out, lse, bh, heads, gmode, bgmode, s_q,
                        s_kv, d, scale, (cudaStream_t)stream);
+}
+
+// additive bias: bias is a dense (G, s_q, s_kv) float32 bias or, strip != 0, a
+// per-key strip (G, 1, s_kv), of group mode gmode (0..3 as for the full
+// mask); optionally with a key_mask and, causal != 0, the causal rule
+template <typename T, bool BIAS, bool KBIAS>
+int fwd_bias(const T* q, const T* k, const T* v, const int* key_mask, const float* bias, T* out,
+             float* lse, int bh, int heads, int s_q, int s_kv, int d, int gmode, int causal,
+             float scale, void* stream) {
+  return causal ? dispatch_fwd<T, true, false, BIAS, KBIAS>(q, k, v, key_mask, nullptr, bias,
+                                                            out, lse, bh, heads, 0, gmode, s_q,
+                                                            s_kv, d, scale, stream)
+                : dispatch_fwd<T, false, false, BIAS, KBIAS>(q, k, v, key_mask, nullptr, bias,
+                                                             out, lse, bh, heads, 0, gmode, s_q,
+                                                             s_kv, d, scale, stream);
+}
+
+template <typename T>
+int entry_fwd_bias(const T* q, const T* k, const T* v, const int* key_mask, const float* bias,
+                   T* out, float* lse, int bh, int heads, int s_q, int s_kv, int d, int gmode,
+                   int strip, int causal, float scale, void* stream) {
+  if (bias == nullptr) return (int)cudaErrorInvalidValue;
+  return strip ? fwd_bias<T, false, true>(q, k, v, key_mask, bias, out, lse, bh, heads, s_q,
+                                          s_kv, d, gmode, causal, scale, stream)
+               : fwd_bias<T, true, false>(q, k, v, key_mask, bias, out, lse, bh, heads, s_q,
+                                          s_kv, d, gmode, causal, scale, stream);
+}
+
+// full mask: mask (G, s_q, s_kv) uint8, G = 1, heads, bh / heads or bh for
+// gmode 0..3; optionally with an additive bias as the bias entries take it,
+// of its own group mode bgmode (bias null: the mask alone; strip != 0: the
+// key-bias strip), a key_mask and, causal != 0, the causal rule
+template <typename T, bool BIAS, bool KBIAS>
+int fwd_mask(const T* q, const T* k, const T* v, const int* key_mask, const unsigned char* mask,
+             const float* bias, T* out, float* lse, int bh, int heads, int s_q, int s_kv, int d,
+             int gmode, int bgmode, int causal, float scale, void* stream) {
+  return causal ? dispatch_fwd<T, true, true, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, out,
+                                                           lse, bh, heads, gmode, bgmode, s_q,
+                                                           s_kv, d, scale, stream)
+                : dispatch_fwd<T, false, true, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, out,
+                                                            lse, bh, heads, gmode, bgmode, s_q,
+                                                            s_kv, d, scale, stream);
+}
+
+template <typename T>
+int entry_fwd_mask(const T* q, const T* k, const T* v, const int* key_mask,
+                   const unsigned char* mask, const float* bias, T* out, float* lse, int bh,
+                   int heads, int s_q, int s_kv, int d, int gmode, int bgmode, int strip,
+                   int causal, float scale, void* stream) {
+  if (mask == nullptr) return (int)cudaErrorInvalidValue;
+  if (bias == nullptr)
+    return fwd_mask<T, false, false>(q, k, v, key_mask, mask, nullptr, out, lse, bh, heads, s_q,
+                                     s_kv, d, gmode, 0, causal, scale, stream);
+  return strip ? fwd_mask<T, false, true>(q, k, v, key_mask, mask, bias, out, lse, bh, heads,
+                                          s_q, s_kv, d, gmode, bgmode, causal, scale, stream)
+               : fwd_mask<T, true, false>(q, k, v, key_mask, mask, bias, out, lse, bh, heads,
+                                          s_q, s_kv, d, gmode, bgmode, causal, scale, stream);
 }
 
 }  // namespace
 
 // Each launches on `stream` and returns cudaGetLastError() after the launch
 // (0 = launched).  q (bh, s_q, d), k/v (bh, s_kv, d), out (bh, s_q, d):
-// contiguous float32, 16-byte aligned; key_mask (bh / heads, s_kv) int32 or
-// null; lse (bh, s_q) float32.
+// contiguous float32 (or, in the `_bf16` twin of each entry, bfloat16 with d a
+// multiple of 8), 16-byte aligned; key_mask (bh / heads, s_kv) int32 or null;
+// lse (bh, s_q) float32; a bias float32 in either.
+using bf16 = __nv_bfloat16;
 
-// dense (key_mask null) and key_mask
-extern "C" int hetu_flash_fwd(const float* q, const float* k, const float* v,
-                              const int* key_mask, float* out, float* lse, int bh, int heads,
-                              int s_q, int s_kv, int d, float scale, void* stream) {
-  return dispatch_fwd<false, false>(q, k, v, key_mask, nullptr, nullptr, out, lse, bh, heads,
-                                    0, 0, s_q, s_kv, d, scale, stream);
-}
+// dense (key_mask null) and key_mask; causal (bottom-right aligned),
+// optionally with a key_mask; an additive bias (entry_fwd_bias); a full mask,
+// alone or with a bias (entry_fwd_mask)
+#define HETU_FWD_ENTRIES(T, SFX)                                                                \
+  extern "C" int hetu_flash_fwd##SFX(const T* q, const T* k, const T* v, const int* key_mask,  \
+                                     T* out, float* lse, int bh, int heads, int s_q, int s_kv,  \
+                                     int d, float scale, void* stream) {                       \
+    return dispatch_fwd<T, false, false>(q, k, v, key_mask, nullptr, nullptr, out, lse, bh,    \
+                                         heads, 0, 0, s_q, s_kv, d, scale, stream);            \
+  }                                                                                             \
+  extern "C" int hetu_flash_fwd_causal##SFX(const T* q, const T* k, const T* v,                \
+                                            const int* key_mask, T* out, float* lse, int bh,   \
+                                            int heads, int s_q, int s_kv, int d, float scale,  \
+                                            void* stream) {                                    \
+    return dispatch_fwd<T, true, false>(q, k, v, key_mask, nullptr, nullptr, out, lse, bh,     \
+                                        heads, 0, 0, s_q, s_kv, d, scale, stream);             \
+  }                                                                                             \
+  extern "C" int hetu_flash_fwd_bias##SFX(const T* q, const T* k, const T* v,                  \
+                                          const int* key_mask, const float* bias, T* out,      \
+                                          float* lse, int bh, int heads, int s_q, int s_kv,    \
+                                          int d, int gmode, int strip, int causal,             \
+                                          float scale, void* stream) {                         \
+    return entry_fwd_bias(q, k, v, key_mask, bias, out, lse, bh, heads, s_q, s_kv, d, gmode,   \
+                          strip, causal, scale, stream);                                       \
+  }                                                                                             \
+  extern "C" int hetu_flash_fwd_mask##SFX(const T* q, const T* k, const T* v,                  \
+                                          const int* key_mask, const unsigned char* mask,      \
+                                          const float* bias, T* out, float* lse, int bh,       \
+                                          int heads, int s_q, int s_kv, int d, int gmode,      \
+                                          int bgmode, int strip, int causal, float scale,      \
+                                          void* stream) {                                      \
+    return entry_fwd_mask(q, k, v, key_mask, mask, bias, out, lse, bh, heads, s_q, s_kv, d,    \
+                          gmode, bgmode, strip, causal, scale, stream);                        \
+  }
 
-// causal (bottom-right aligned), optionally with a key_mask
-extern "C" int hetu_flash_fwd_causal(const float* q, const float* k, const float* v,
-                                     const int* key_mask, float* out, float* lse, int bh,
-                                     int heads, int s_q, int s_kv, int d, float scale,
-                                     void* stream) {
-  return dispatch_fwd<true, false>(q, k, v, key_mask, nullptr, nullptr, out, lse, bh, heads,
-                                   0, 0, s_q, s_kv, d, scale, stream);
-}
-
-// additive bias: bias is a dense (G, s_q, s_kv) float32 bias or, strip != 0, a
-// per-key strip (G, 1, s_kv), of group mode gmode (0..3 as for the full
-// mask); optionally with a key_mask and, causal != 0, the causal rule
-template <bool BIAS, bool KBIAS>
-static int fwd_bias(const float* q, const float* k, const float* v, const int* key_mask,
-             const float* bias, float* out, float* lse, int bh, int heads, int s_q, int s_kv,
-             int d, int gmode, int causal, float scale, void* stream) {
-  return causal ? dispatch_fwd<true, false, BIAS, KBIAS>(q, k, v, key_mask, nullptr, bias, out,
-                                                         lse, bh, heads, 0, gmode, s_q, s_kv, d,
-                                                         scale, stream)
-                : dispatch_fwd<false, false, BIAS, KBIAS>(q, k, v, key_mask, nullptr, bias, out,
-                                                          lse, bh, heads, 0, gmode, s_q, s_kv, d,
-                                                          scale, stream);
-}
-
-extern "C" int hetu_flash_fwd_bias(const float* q, const float* k, const float* v,
-                                   const int* key_mask, const float* bias, float* out,
-                                   float* lse, int bh, int heads, int s_q, int s_kv, int d,
-                                   int gmode, int strip, int causal, float scale,
-                                   void* stream) {
-  if (bias == nullptr) return (int)cudaErrorInvalidValue;
-  return strip ? fwd_bias<false, true>(q, k, v, key_mask, bias, out, lse, bh, heads, s_q, s_kv,
-                                       d, gmode, causal, scale, stream)
-               : fwd_bias<true, false>(q, k, v, key_mask, bias, out, lse, bh, heads, s_q, s_kv,
-                                       d, gmode, causal, scale, stream);
-}
-
-// full mask: mask (G, s_q, s_kv) uint8, G = 1, heads, bh / heads or bh for
-// gmode 0..3; optionally with an additive bias as hetu_flash_fwd_bias takes
-// it, of its own group mode bgmode (bias null: the mask alone; strip != 0:
-// the key-bias strip), a key_mask and, causal != 0, the causal rule
-template <bool BIAS, bool KBIAS>
-static int fwd_mask(const float* q, const float* k, const float* v, const int* key_mask,
-                    const unsigned char* mask, const float* bias, float* out, float* lse,
-                    int bh, int heads, int s_q, int s_kv, int d, int gmode, int bgmode,
-                    int causal, float scale, void* stream) {
-  return causal ? dispatch_fwd<true, true, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, out, lse,
-                                                        bh, heads, gmode, bgmode, s_q, s_kv, d,
-                                                        scale, stream)
-                : dispatch_fwd<false, true, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, out,
-                                                         lse, bh, heads, gmode, bgmode, s_q,
-                                                         s_kv, d, scale, stream);
-}
-
-extern "C" int hetu_flash_fwd_mask(const float* q, const float* k, const float* v,
-                                   const int* key_mask, const unsigned char* mask,
-                                   const float* bias, float* out, float* lse, int bh,
-                                   int heads, int s_q, int s_kv, int d, int gmode, int bgmode,
-                                   int strip, int causal, float scale, void* stream) {
-  if (mask == nullptr) return (int)cudaErrorInvalidValue;
-  if (bias == nullptr)
-    return fwd_mask<false, false>(q, k, v, key_mask, mask, nullptr, out, lse, bh, heads, s_q,
-                                  s_kv, d, gmode, 0, causal, scale, stream);
-  return strip ? fwd_mask<false, true>(q, k, v, key_mask, mask, bias, out, lse, bh, heads, s_q,
-                                       s_kv, d, gmode, bgmode, causal, scale, stream)
-               : fwd_mask<true, false>(q, k, v, key_mask, mask, bias, out, lse, bh, heads, s_q,
-                                       s_kv, d, gmode, bgmode, causal, scale, stream);
-}
+HETU_FWD_ENTRIES(float, )
+HETU_FWD_ENTRIES(bf16, _bf16)

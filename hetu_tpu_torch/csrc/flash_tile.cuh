@@ -11,8 +11,20 @@
 // one half-warp, so row reductions are 4 shuffles.  In a 64 x d output tile
 // the same thread owns the same rows and the float4 column groups tx and
 // tx + 16, so a row's softmax state and its output live in the same thread.
+//
+// Element types: q, k, v, dO and the outputs out, dQ, dK, dV are float or
+// __nv_bfloat16 (the kernels' template parameter T).  A bfloat16 row tile is
+// widened to float32 as it is staged (stage_rows), so every inner loop runs in
+// float32 on either type: a product of bf16 operands is exact in float32 and
+// accumulates in float32, as the TPU kernel's bf16 instantiation does
+// (preferred_element_type=float32).  Where that kernel rounds an operand of a
+// product to bf16 (P before P.V and P^T.dO, dS before dS.K and dS^T.Q), the
+// kernels store round_to<T>(x) into the shared tile; outputs are rounded to
+// nearest even as they are stored (store_rows).  For float every rounding is
+// the identity, so the float32 kernels are unchanged.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace hetu_flash {
@@ -64,6 +76,21 @@ __device__ __forceinline__ float half_sum(float x) {
   return x;
 }
 
+// x as an operand of a product of T values: rounded to T (bf16: to nearest
+// even) and widened back; float: x itself.
+template <typename T>
+__device__ __forceinline__ float round_to(float x);
+
+template <>
+__device__ __forceinline__ float round_to<float>(float x) {
+  return x;
+}
+
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // Stage rows [r0, r0 + TILE) of the row-major (n, d) matrix `src` into `dst`
 // (row stride d + 4) with cp.async; rows at or past n are zero.  The caller
 // waits (cp_async_wait_all) and synchronises before reading.
@@ -78,6 +105,45 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__
     else
       *reinterpret_cast<float4*>(s) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+}
+
+// The same for a bfloat16 matrix (d a multiple of 8): each thread loads 8
+// values (16 bytes) and widens them into two float4 stores, so the staged tile
+// is float32 exactly as above.  The load is synchronous: the caller's
+// cp_async_wait_all and barrier cover it as well.
+__device__ __forceinline__ void stage_rows(float* dst, const __nv_bfloat16* __restrict__ src,
+                                           int r0, int n, int d) {
+  const int d8 = d >> 3, ld = d + 4;
+  for (int i = threadIdx.x; i < TILE * d8; i += TTHREADS) {
+    const int r = i / d8, c = i - r * d8;
+    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+    if (r0 + r < n) {
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * d) + c);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+      const float2 e = __bfloat1622float2(h[2]), f = __bfloat1622float2(h[3]);
+      lo = make_float4(a.x, a.y, b.x, b.y);
+      hi = make_float4(e.x, e.y, f.x, f.y);
+    }
+    float* s = dst + r * ld + 8 * c;
+    *reinterpret_cast<float4*>(s) = lo;
+    *reinterpret_cast<float4*>(s + 4) = hi;
+  }
+}
+
+// Four consecutive output values at `p` (16-byte aligned for float, 8-byte for
+// bf16, which rounds each to nearest even).
+__device__ __forceinline__ void store4(float* p, const float4& a) {
+  *reinterpret_cast<float4*>(p) = a;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float4& a) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a.x, a.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(a.z, a.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
 // acc[i][j] = A[4ty + i, :d] . B[tx + 16j, :d] over two staged row tiles.
@@ -160,9 +226,9 @@ __device__ __forceinline__ void zero_acc(float4 (&acc)[4][G]) {
 }
 
 // Write rows r0 + 4ty + i (< n) of an output tile held as acc_rows holds it
-// into the row-major (n, d) matrix `dst`, each row divided by div[i].
-template <int G>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float4 (&acc)[4][G],
+// into the row-major (n, d) matrix `dst` of T, each row divided by div[i].
+template <int G, typename T>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst, const float4 (&acc)[4][G],
                                            const float (&div)[4], int r0, int n, int d,
                                            int ty, int tx) {
   const int d4 = d >> 2;
@@ -175,11 +241,18 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst, const float4
       const int col4 = tx + 16 * g;
       if (col4 < d4) {
         const float4 a = acc[i][g];
-        reinterpret_cast<float4*>(dst + (size_t)row * d)[col4] =
-            make_float4(a.x / div[i], a.y / div[i], a.z / div[i], a.w / div[i]);
+        store4(dst + (size_t)row * d + 4 * col4,
+               make_float4(a.x / div[i], a.y / div[i], a.z / div[i], a.w / div[i]));
       }
     }
   }
+}
+
+// A head dim the training kernels take for element type T: a multiple of 4
+// floats or of 8 bf16 values (one 16-byte load), at most 128.
+template <typename T>
+inline bool bad_head_dim(int d) {
+  return d <= 0 || d > 128 || (d & (16 / (int)sizeof(T) - 1));
 }
 
 // Opt a kernel into `bytes` of dynamic shared memory (needed above 48 KB),

@@ -24,9 +24,20 @@ variables; after the step a host table's row gradient goes back through
 ``push`` and a device table's is first summed per unique key on the
 card (sort + kernel B5) and committed with ``apply_update_summed``.
 
+Mixed precision (``compute_dtype="bfloat16"``, the JAX package's
+``_cast_tree`` discipline): inside the step every float32 variable,
+trainable or not, and every float32 feed is cast to bfloat16; a
+trainable variable is cast inside the differentiated function, so its
+gradient reaches the float32 master as float32.  Feeds first take their
+placeholder's declared dtype, so integer ids, labels and masks are never
+rounded.  Fetched values and state updates leave the step as float32;
+the optimizer's state and update stay float32, on the masters.  Not with
+PS embeddings or the MoE sparse dispatch (their kernels take float32
+only): refused by name.
+
 Not ported, refused by name: distribution (``dist_strategy``, ``mesh``,
 ``zero``, ``plan``, ``pipeline``, ``num_microbatches``), ``remat``,
-``matmul_precision``, ``compute_dtype`` (bf16 mixed precision), ASP/SSP
+``matmul_precision``, a ``compute_dtype`` other than bfloat16, ASP/SSP
 (``bsp`` other than 0), ``prefetch`` and ids from a ``DataloaderOp``, the
 other JAX-package options, ``run(sync=False)``, ``run_steps``, ``save``
 / ``load``.
@@ -61,6 +72,22 @@ def lower_forward(topo, ctx, resolve_leaf):
 
 def _torch_dtype(np_dtype):
     return torch.from_numpy(np.empty(0, np.dtype(np_dtype))).dtype
+
+
+def _compute_dtype(cd):
+    """``Executor(compute_dtype=)``: None, or bfloat16 by name or dtype."""
+    if cd is None:
+        return None
+    if cd is torch.bfloat16 or (isinstance(cd, str) and cd == "bfloat16"):
+        return torch.bfloat16
+    raise NotImplementedError(
+        f"Executor(compute_dtype={cd!r}) is not ported: the port trains in "
+        f"float32 or, with compute_dtype='bfloat16', in bfloat16 mixed "
+        f"precision")
+
+
+#: op types whose kernels take float32 only (the MoE sparse dispatch)
+_F32_ONLY_OPS = ("SparseDispatch", "SparseCombine")
 
 
 def _step_generator(device, seed, step):
@@ -123,6 +150,30 @@ class SubExecutor:
         if len(losses) > 1:
             raise ValueError("multiple distinct losses in one subgraph")
         self.loss_node = next(iter(losses)) if losses else None
+        if executor.compute_dtype is not None:
+            f32_only = [n for n in self.topo if getattr(n, "is_ps", False)
+                        or getattr(n, "op_type", None) in _F32_ONLY_OPS]
+            if f32_only:
+                raise NotImplementedError(
+                    f"Executor(compute_dtype=...) with {f32_only[0]} in "
+                    f"subgraph {name!r}: PS embeddings and the MoE sparse "
+                    f"dispatch take float32 only")
+
+    def _low(self, t):
+        """A float32 value in the compute dtype (the mixed-precision cast
+        into the step); anything else unchanged."""
+        cd = self.ex.compute_dtype
+        if cd is not None and t is not None and t.dtype == torch.float32:
+            return t.to(cd)
+        return t
+
+    def _high(self, t):
+        """A compute-dtype value back in float32 (fetches and state
+        updates leave the step as float32)."""
+        cd = self.ex.compute_dtype
+        if cd is not None and t.dtype == cd:
+            return t.float()
+        return t
 
     def run(self, feed_dict, convert_to_numpy_ret_vals=False):
         ex = self.ex
@@ -136,7 +187,8 @@ class SubExecutor:
             for node in self.feed_nodes:
                 if node not in feed_dict:
                     raise ValueError(f"missing feed for {node}")
-                feeds[node] = ex._place_feed(node, feed_dict[node])
+                feeds[node] = self._low(
+                    ex._place_feed(node, feed_dict[node]))
             for node in self._ps_host_items:
                 ps_vals[node] = ex._place_feed(
                     node, node.pull(self._ps_ids(node, feed_dict)))
@@ -159,7 +211,9 @@ class SubExecutor:
             def resolve(node):
                 if node in feeds:
                     return feeds[node]
-                return leaves.get(node, ex.var_values.get(node))
+                # the cast of a trainable variable is differentiated
+                # through: its gradient reaches the master as float32
+                return self._low(leaves.get(node, ex.var_values.get(node)))
 
             with torch.enable_grad():
                 env = lower_forward(self.fwd_topo, ctx, resolve)
@@ -189,9 +243,10 @@ class SubExecutor:
                 env = lower_forward(
                     self.fwd_topo, ctx,
                     lambda n: feeds[n] if n in feeds
-                    else ps_vals[n] if n in ps_vals else ex.var_values[n])
+                    else ps_vals[n] if n in ps_vals
+                    else self._low(ex.var_values[n]))
         for node, val in ctx.state_updates.items():
-            ex.var_values[node] = val.detach()
+            ex.var_values[node] = self._high(val.detach())
         if self.ps_nodes:
             self._ps_post_step(ps_grads)
         if self.training:
@@ -204,7 +259,7 @@ class SubExecutor:
             elif isinstance(f, GradientOp):
                 outs.append(grads[f.wrt])
             else:
-                outs.append(env[f].detach())
+                outs.append(self._high(env[f].detach()))
         if convert_to_numpy_ret_vals:
             return [None if v is None else v.cpu().numpy() for v in outs]
         return [None if v is None else wrap_device(v) for v in outs]
@@ -311,7 +366,9 @@ class Executor:
     ``device``: where variables live and the step runs — CUDA by default
     (raises without it); the CPU only when asked for.  ``ctx`` (the JAX
     package's context argument) names the device when ``device`` is not
-    given.  Float32 products run in full float32 (TF32 off)."""
+    given.  Float32 products run in full float32 (TF32 off).
+    ``compute_dtype``: None (float32) or ``"bfloat16"`` (mixed precision,
+    see the module docstring)."""
 
     def __init__(self, eval_node_dict, ctx=None, seed=None, device=None,
                  dist_strategy=None, mesh=None, pipeline=None,
@@ -322,11 +379,8 @@ class Executor:
                            ("matmul_precision", matmul_precision)):
             if given is not None:
                 raise NotImplementedError(f"Executor({opt}=) is not ported")
-        cd = kwargs.pop("compute_dtype", None)
-        if cd is not None:
-            raise NotImplementedError(
-                f"Executor(compute_dtype={cd!r}) is not ported: the port "
-                f"trains in float32")
+        self.compute_dtype = _compute_dtype(kwargs.pop("compute_dtype",
+                                                       None))
         if kwargs.pop("remat", None) not in (None, False, "off"):
             raise NotImplementedError("Executor(remat=) is not ported")
         bsp = kwargs.pop("bsp", 0)

@@ -44,11 +44,38 @@ from .base import def_op
 from .kernels.flash_attention import NEG_INF, flash_attention
 
 
+class ScoresF32(torch.autograd.Function):
+    """q·kᵀ with a float32 result from bfloat16 operands (softmax needs the
+    float32 range), whose backward rounds the float32 cotangent to the
+    operands' dtype before the dQ and dK products: the JAX package's
+    ``_scores_f32`` custom VJP, the discipline of the flash backward
+    kernels.  A bfloat16 product accumulates in float32 and rounds once,
+    in both packages."""
+
+    @staticmethod
+    def forward(ctx, q, k):
+        ctx.save_for_backward(q, k)
+        return torch.matmul(q.float(), k.float().transpose(-1, -2))
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k = ctx.saved_tensors
+        g = g.to(q.dtype)
+        return (torch.matmul(g, k),
+                torch.matmul(g.transpose(-1, -2), q).to(k.dtype))
+
+
 def sdpa_reference(q, k, v, causal=False, scale=None, mask=None, bias=None):
-    """(B, H, S, D) reference attention in plain torch (float32 scores)."""
+    """(B, H, S, D) reference attention in plain torch (float32 scores).
+    With bfloat16 inputs the scores come from :class:`ScoresF32` and the
+    probabilities are rounded to bfloat16 before P·V, as in the JAX
+    package; the output is in the inputs' dtype."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if q.dtype == torch.float32:
+        logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    else:
+        logits = ScoresF32.apply(q, k) * scale
     if bias is not None:
         logits = logits + bias
     valid = None

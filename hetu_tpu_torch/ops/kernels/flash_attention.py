@@ -20,7 +20,8 @@ with hand-written CUDA kernels, built for ``sm_90a`` and bound through
   per-key strip, alone or with ``causal`` and ``key_mask`` (T5,
   :func:`flash_fwd_bias`).
 * ``_dq_kernel`` and ``_dkv_kernel`` (entered through ``_flash_bwd``) →
-  ``csrc/flash_attention_bwd.cu``: ``hetu_flash_bwd_dq[_causal]``
+  ``csrc/flash_attention_bwd.cuh`` (entries compiled in
+  ``flash_attention_bwd.cu``): ``hetu_flash_bwd_dq[_causal]``
   (:func:`flash_bwd_dq`) and ``hetu_flash_bwd_dkv[_causal]``
   (:func:`flash_bwd_dkv`); with a bias ``hetu_flash_bwd_dq_bias``, which
   also writes dbias, the pre-scale dS (:func:`flash_bwd_dq_bias`), and
@@ -49,9 +50,19 @@ the probabilities from that lse.  Unlike the TPU entry, no sequence is
 padded to a multiple of 128: ragged tiles are masked inside the kernels,
 so causal attention takes any pair of lengths.
 
+bfloat16: every training specialization takes bfloat16 q, k, v and dO
+(the ``_bf16`` C entries, head dim a multiple of 8; the backward's in
+``csrc/flash_attention_bwd_bf16.cu``) and rounds where the
+TPU kernel's bf16 instantiation rounds: products of bf16 operands
+accumulate in float32; the row sum l sums the unrounded P; P is rounded
+to bf16 before P·V and Pᵀ·dO, dS·scale before dS·K and dSᵀ·Q; out, dQ,
+dK and dV are rounded to bf16 (round to nearest even).  lse, delta, the
+bias, dbias and dkbias stay float32.  The ``lengths`` (decode) kernel
+takes float32 only: the decode caches are float32 in both packages.
+
 Not ported yet, refused by name: ``lengths`` together with ``key_mask``,
 ``causal``, ``mask`` or a bias; the ``lengths`` backward (``lengths`` is
-forward only, decode), bf16 inputs.
+forward only, decode); bfloat16 ``lengths``.
 
 Beside each kernel sits its plain PyTorch version
 (:func:`flash_fwd_plain`, :func:`flash_bwd_plain`).  A wrapper takes the
@@ -67,7 +78,8 @@ plain module integer (``launches``, ``fwd_launches``, ``dq_launches``,
 without ``causal``: ``dq_mask_launches``, ``dkv_mask_launches``, with a
 dense bias ``fwd_mask_bias_launches``, ``dq_mask_bias_launches``,
 ``dkv_mask_bias_launches``, with a strip ``fwd_mask_kbias_launches``,
-``dq_mask_kbias_launches``, ``dkv_mask_kbias_launches``; reset them by
+``dq_mask_kbias_launches``, ``dkv_mask_kbias_launches``; with bfloat16
+inputs the same names with a ``bf16_`` prefix; reset them by
 assignment).  :class:`FlashAttention` is the autograd function of every
 training path, the counterpart of the JAX package's ``custom_vjp``.
 """
@@ -81,8 +93,11 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-#: largest head dim the kernels take (and it must be a multiple of 4)
+#: largest head dim the kernels take (and it must be a multiple of 4, of 8
+#: with bfloat16 inputs)
 MAX_HEAD_DIM = 128
+#: the input dtypes of the training kernels
+DTYPES = (torch.float32, torch.bfloat16)
 
 #: kernel launches made in this process by :func:`flash_fwd` (lengths),
 #: :func:`flash_fwd_masked`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`
@@ -120,6 +135,20 @@ dkv_mask_bias_launches = 0
 fwd_mask_kbias_launches = 0
 dq_mask_kbias_launches = 0
 dkv_mask_kbias_launches = 0
+#: the same counts for bfloat16 inputs (the ``_bf16`` C entries)
+bf16_fwd_launches = bf16_dq_launches = bf16_dkv_launches = 0
+bf16_fwd_causal_launches = bf16_dq_causal_launches = 0
+bf16_dkv_causal_launches = bf16_fwd_mask_launches = 0
+bf16_fwd_bias_launches = bf16_dq_bias_launches = bf16_dkv_bias_launches = 0
+bf16_fwd_bias_causal_launches = bf16_dq_bias_causal_launches = 0
+bf16_dkv_bias_causal_launches = 0
+bf16_fwd_kbias_launches = bf16_dq_kbias_launches = 0
+bf16_dkv_kbias_launches = 0
+bf16_dq_mask_launches = bf16_dkv_mask_launches = 0
+bf16_fwd_mask_bias_launches = bf16_dq_mask_bias_launches = 0
+bf16_dkv_mask_bias_launches = 0
+bf16_fwd_mask_kbias_launches = bf16_dq_mask_kbias_launches = 0
+bf16_dkv_mask_kbias_launches = 0
 
 #: C entry → (source ``csrc/<source>.cu``, pointer arguments, int
 #: arguments); each takes its pointers, then its ints ((bh, heads, s_q,
@@ -138,6 +167,13 @@ ENTRIES = {"hetu_flash_fwd_lengths": ("flash_attention", 6, 5),
            "hetu_flash_bwd_dkv_bias": ("flash_attention_bwd", 11, 8),
            "hetu_flash_bwd_dq_mask": ("flash_attention_bwd", 11, 9),
            "hetu_flash_bwd_dkv_mask": ("flash_attention_bwd", 12, 9)}
+# every training entry also has a bfloat16 twin, ``<entry>_bf16``; the
+# backward's are compiled from their own source
+# (``csrc/flash_attention_bwd_bf16.cu``), so the two halves build in parallel
+ENTRIES.update({name + "_bf16": (src + "_bf16" if src.endswith("_bwd")
+                                 else src, n_ptr, n_int)
+                for name, (src, n_ptr, n_int) in ENTRIES.items()
+                if name != "hetu_flash_fwd_lengths"})
 
 #: broadcast-group modes of a full mask or a bias, in the kernel's numbering
 GMODES = ("one", "h", "b", "bh")
@@ -156,6 +192,24 @@ def kernel(name):
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return fn
+
+
+def _entry(name, q):
+    """The C entry ``name`` for ``q``'s dtype (bfloat16: ``_bf16``)."""
+    return name + "_bf16" if q.dtype == torch.bfloat16 else name
+
+
+def _count(counter, q):
+    """Add one to the launch counter ``counter`` of ``q``'s dtype
+    (bfloat16: ``bf16_<counter>``)."""
+    name = "bf16_" + counter if q.dtype == torch.bfloat16 else counter
+    globals()[name] += 1
+
+
+def _rnd(x, dtype):
+    """float32 ``x`` rounded to ``dtype`` and back, where a kernel rounds
+    for a product of ``dtype`` operands (float32: ``x`` itself)."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
 
 
 def _group_rows(gmode, bh, heads):
@@ -217,9 +271,9 @@ def _valid(bh, s_q, s_kv, device, lengths=None, key_mask=None, causal=False,
 
 
 def _logits(q, k, scale, bias=None, kbias=None, bgmode="bh", heads=1):
-    """Scaled scores plus the additive ``bias`` (G, S_q, S_kv) or key-bias
-    strip ``kbias`` (G, 1, S_kv) of group mode ``bgmode``."""
-    s = torch.matmul(q, k.transpose(1, 2)) * scale       # (BH, S_q, S_kv)
+    """Scaled float32 scores plus the additive ``bias`` (G, S_q, S_kv) or
+    key-bias strip ``kbias`` (G, 1, S_kv) of group mode ``bgmode``."""
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
     for b in (bias, kbias):
         if b is not None:
             s = s + _expand_group(b, bgmode, q.shape[0], heads)
@@ -235,7 +289,8 @@ def flash_fwd_plain(q, k, v, lengths, heads, scale, key_mask=None,
     mode ``gmode`` (``heads`` = H tells the groups apart), by any of them
     together or, with none, not at all (dense).  A ``bias``
     (G, S_q, S_kv) or key-bias strip ``kbias`` (G, 1, S_kv) of group mode
-    ``bgmode`` is added to the scaled scores first."""
+    ``bgmode`` is added to the scaled scores first.  bfloat16 inputs
+    round where the kernels do (P before P·V, the output)."""
     s = _logits(q, k, scale, bias, kbias, bgmode, heads)
     valid = _valid(q.shape[0], q.shape[1], k.shape[1], q.device, lengths,
                    key_mask, causal, mask, gmode, heads)
@@ -247,9 +302,9 @@ def flash_fwd_plain(q, k, v, lengths, heads, scale, key_mask=None,
         p = p * valid                                      # no all-masked leak
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
-    out = torch.matmul(p, v) / l_safe
+    out = torch.matmul(_rnd(p, v.dtype), v.float()) / l_safe
     lse = (m + torch.log(l_safe)).squeeze(-1)
-    return out, lse
+    return out.to(q.dtype), lse
 
 
 def _plain_grads(q, k, v, key_mask, lse, do, delta, scale, causal=False,
@@ -258,7 +313,9 @@ def _plain_grads(q, k, v, key_mask, lse, do, delta, scale, causal=False,
     """dQ, dK, dV and t = dL/d(logits) (BH, S_q, S_kv), the pre-scale dS,
     from the formulas the backward kernels compute; a full ``mask`` of
     group mode ``gmode`` joins the validity, a ``bias`` or strip
-    ``kbias`` of group mode ``bgmode`` the logits."""
+    ``kbias`` of group mode ``bgmode`` the logits.  bfloat16 inputs round
+    where the kernels do (P before Pᵀ·dO, dS before dS·K and dSᵀ·Q, the
+    outputs); t stays float32."""
     s = _logits(q, k, scale, bias, kbias, bgmode, heads)
     p = torch.exp(s - lse[..., None])
     valid = _valid(q.shape[0], q.shape[1], k.shape[1], q.device,
@@ -267,11 +324,13 @@ def _plain_grads(q, k, v, key_mask, lse, do, delta, scale, causal=False,
     if valid is not None:
         # a select: a row with no valid key has lse = -1e30 and exp = inf
         p = torch.where(valid, p, torch.zeros_like(p))
-    dp = torch.matmul(do, v.transpose(1, 2))
+    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
     t = p * (dp - delta[..., None])
-    ds = t * scale
-    return (torch.matmul(ds, k), torch.matmul(ds.transpose(1, 2), q),
-            torch.matmul(p.transpose(1, 2), do), t)
+    ds = _rnd(t * scale, q.dtype)
+    return (torch.matmul(ds, k.float()).to(q.dtype),
+            torch.matmul(ds.transpose(1, 2), q.float()).to(k.dtype),
+            torch.matmul(_rnd(p, do.dtype).transpose(1, 2),
+                         do.float()).to(v.dtype), t)
 
 
 def flash_bwd_plain(q, k, v, key_mask, out, lse, do, scale, causal=False,
@@ -281,7 +340,7 @@ def flash_bwd_plain(q, k, v, key_mask, out, lse, do, scale, causal=False,
     delta = rowsum(dO * O), dS = P * (dP - delta) * scale; returns
     (dQ = dS.K, dK = dS^T.Q, dV = P^T.dO).  A full ``mask`` (G, S_q, S_kv)
     of group mode ``gmode`` (``heads`` = H) joins the validity."""
-    delta = (do * out).sum(-1)
+    delta = (do.float() * out.float()).sum(-1)
     return _plain_grads(q, k, v, key_mask, lse, do, delta, scale, causal,
                         heads=heads, mask=mask, gmode=gmode)[:3]
 
@@ -295,7 +354,7 @@ def flash_bwd_bias_plain(q, k, v, key_mask, bias, kbias, bgmode, heads, out,
     when a strip ``kbias`` is; the other is None.  Neither is summed over
     its group.  A full ``mask`` of its own group mode ``gmode`` joins the
     validity."""
-    delta = (do * out).sum(-1)
+    delta = (do.float() * out.float()).sum(-1)
     dq, dk, dv, t = _plain_grads(q, k, v, key_mask, lse, do, delta, scale,
                                  causal, bias, kbias, bgmode, heads, mask,
                                  gmode)
@@ -306,9 +365,11 @@ def flash_bwd_bias_plain(q, k, v, key_mask, bias, kbias, bgmode, heads, out,
 # -- checks ------------------------------------------------------------------
 
 def _check_qkv(fn, q, k, v):
+    if q.dtype not in DTYPES:
+        raise TypeError(f"{fn}: q must be float32 or bfloat16, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{fn}: {name} must be float32, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{fn}: {name} is {t.dtype}, q {q.dtype}")
         if t.ndim != 3:
             raise ValueError(f"{fn}: {name} must be (BH, S, D), "
                              f"got {tuple(t.shape)}")
@@ -377,25 +438,30 @@ def _check_bias(fn, q, k, key_mask, bias, kbias, gmode, heads):
 
 
 def _check_rows(fn, q, **rows):
-    """Per-row float32 inputs (lse, delta: (BH, S_q)) and dO (BH, S_q, D)."""
+    """Per-row float32 inputs (lse, delta: (BH, S_q)) and dO (BH, S_q, D)
+    in q's dtype."""
     for name, t in rows.items():
         want = tuple(q.shape) if name == "do" else tuple(q.shape[:2])
-        if t.dtype != torch.float32 or tuple(t.shape) != want \
+        dtype = q.dtype if name == "do" else torch.float32
+        if t.dtype != dtype or tuple(t.shape) != want \
                 or t.device != q.device:
-            raise ValueError(f"{fn}: {name} must be float32 {want} on "
+            raise ValueError(f"{fn}: {name} must be {dtype} {want} on "
                              f"{q.device}, got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
 
 
 def _check_launch(fn, d, **tensors):
     """What every kernel needs beyond the shapes: a CUDA device, a head
-    dim it takes, contiguous 16-byte aligned buffers."""
-    dev = next(iter(tensors.values())).device
+    dim it takes (a multiple of 4, of 8 for bfloat16 q, whose 16-byte
+    loads are 8 values), contiguous 16-byte aligned buffers."""
+    first = next(iter(tensors.values()))
+    dev = first.device
     if dev.type != "cuda":
         raise ValueError(f"{fn}: no kernel for device {dev}")
-    if d > MAX_HEAD_DIM or d % 4:
-        raise ValueError(f"{fn}: head dim {d} must be a multiple of 4 "
-                         f"and <= {MAX_HEAD_DIM}")
+    mult = 8 if first.dtype == torch.bfloat16 else 4
+    if d > MAX_HEAD_DIM or d % mult:
+        raise ValueError(f"{fn}: head dim {d} must be a multiple of {mult} "
+                         f"and <= {MAX_HEAD_DIM} for {first.dtype}")
     for name, t in tensors.items():
         if t is None:
             continue
@@ -418,6 +484,9 @@ def _raise_on(fn, rc):
 
 def _check(q, k, v, lengths, heads):
     _check_qkv("flash_fwd", q, k, v)
+    if q.dtype != torch.float32:
+        raise TypeError(f"flash_fwd: the lengths kernel takes float32 only, "
+                        f"got {q.dtype}")
     bh = q.shape[0]
     if heads < 1 or bh % heads:
         raise ValueError(f"flash_fwd: BH={bh} is not a multiple of "
@@ -457,9 +526,8 @@ def flash_fwd_masked(q, k, v, key_mask, scale, causal=False):
     """Attention over the keys where ``key_mask`` (B, S_kv) int32 is
     nonzero, or over every key when it is None, and with ``causal`` only
     over the keys ``c <= r + S_kv - S_q`` of query row ``r``: q
-    (BH, S_q, D), k/v (BH, S_kv, D) float32.  Returns
-    ``(out (BH, S_q, D), lse (BH, S_q))``."""
-    global fwd_launches, fwd_causal_launches
+    (BH, S_q, D), k/v (BH, S_kv, D) float32 or bfloat16.  Returns
+    ``(out (BH, S_q, D) in q's dtype, lse (BH, S_q) float32)``."""
     fn_name = "flash_fwd_masked"
     _check_qkv(fn_name, q, k, v)
     heads = _check_key_mask(fn_name, q, k, key_mask)
@@ -470,16 +538,14 @@ def flash_fwd_masked(q, k, v, key_mask, scale, causal=False):
     _check_launch(fn_name, d, q=q, k=k, v=v, key_mask=key_mask)
     out = torch.empty_like(q)
     lse = torch.empty((bh, s_q), dtype=torch.float32, device=q.device)
-    fn = kernel("hetu_flash_fwd_causal" if causal else "hetu_flash_fwd")
+    fn = kernel(_entry("hetu_flash_fwd_causal" if causal
+                       else "hetu_flash_fwd", q))
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
                 out.data_ptr(), lse.data_ptr(), bh, heads, s_q, k.shape[1], d,
                 float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
-    if causal:
-        fwd_causal_launches += 1
-    else:
-        fwd_launches += 1
+    _count("fwd_causal_launches" if causal else "fwd_launches", q)
     return out, lse
 
 
@@ -515,9 +581,8 @@ def flash_fwd_fullmask(q, k, v, mask, gmode, heads, scale, key_mask=None,
     with ``key_mask`` (B, S_kv) int32, ``causal`` and an additive
     ``bias`` (G', S_q, S_kv) or key-bias strip ``kbias`` (G', 1, S_kv) of
     its own group mode ``bgmode`` (as :func:`flash_fwd_bias` takes it).
-    q (BH, S_q, D), k/v (BH, S_kv, D) float32.  Returns
-    ``(out (BH, S_q, D), lse (BH, S_q))``."""
-    global fwd_mask_launches, fwd_mask_bias_launches, fwd_mask_kbias_launches
+    q (BH, S_q, D), k/v (BH, S_kv, D) float32 or bfloat16.  Returns
+    ``(out (BH, S_q, D) in q's dtype, lse (BH, S_q) float32)``."""
     fn_name = "flash_fwd_fullmask"
     _check_qkv(fn_name, q, k, v)
     _check_fullmask(fn_name, q, k, key_mask, mask, gmode, heads, bias, kbias,
@@ -533,25 +598,22 @@ def flash_fwd_fullmask(q, k, v, mask, gmode, heads, scale, key_mask=None,
     lse = torch.empty((bh, s_q), dtype=torch.float32, device=q.device)
     m_ptr, b_ptr, ints = _mask_args(mask, gmode, bias, kbias, bgmode, causal)
     with torch.cuda.device(q.device):
-        rc = kernel("hetu_flash_fwd_mask")(
+        rc = kernel(_entry("hetu_flash_fwd_mask", q))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), m_ptr,
             b_ptr, out.data_ptr(), lse.data_ptr(), bh, heads, s_q, k.shape[1],
             d, *ints, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
-    if bias is not None:
-        fwd_mask_bias_launches += 1
-    elif kbias is not None:
-        fwd_mask_kbias_launches += 1
-    else:
-        fwd_mask_launches += 1
+    _count("fwd_mask_bias_launches" if bias is not None
+           else "fwd_mask_kbias_launches" if kbias is not None
+           else "fwd_mask_launches", q)
     return out, lse
 
 
 def flash_bwd_dq(q, k, v, key_mask, do, lse, delta, scale, causal=False):
     """dQ of :func:`flash_fwd_masked` given dO, its lse and
-    delta = rowsum(dO * out), each (BH, S_q[, D]) float32."""
-    global dq_launches, dq_causal_launches
+    delta = rowsum(dO * out) (BH, S_q) float32, dO (BH, S_q, D) in q's
+    dtype."""
     fn_name = "flash_bwd_dq"
     _check_qkv(fn_name, q, k, v)
     heads = _check_key_mask(fn_name, q, k, key_mask)
@@ -563,23 +625,20 @@ def flash_bwd_dq(q, k, v, key_mask, do, lse, delta, scale, causal=False):
     _check_launch(fn_name, d, q=q, k=k, v=v, key_mask=key_mask, do=do,
                   lse=lse, delta=delta)
     dq = torch.empty_like(q)
-    fn = kernel("hetu_flash_bwd_dq_causal" if causal else "hetu_flash_bwd_dq")
+    fn = kernel(_entry("hetu_flash_bwd_dq_causal" if causal
+                       else "hetu_flash_bwd_dq", q))
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 bh, heads, s_q, k.shape[1], d, float(scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
-    if causal:
-        dq_causal_launches += 1
-    else:
-        dq_launches += 1
+    _count("dq_causal_launches" if causal else "dq_launches", q)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, key_mask, do, lse, delta, scale, causal=False):
     """(dK, dV) of :func:`flash_fwd_masked`; inputs as :func:`flash_bwd_dq`."""
-    global dkv_launches, dkv_causal_launches
     fn_name = "flash_bwd_dkv"
     _check_qkv(fn_name, q, k, v)
     heads = _check_key_mask(fn_name, q, k, key_mask)
@@ -593,18 +652,15 @@ def flash_bwd_dkv(q, k, v, key_mask, do, lse, delta, scale, causal=False):
                   lse=lse, delta=delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = kernel("hetu_flash_bwd_dkv_causal" if causal
-                else "hetu_flash_bwd_dkv")
+    fn = kernel(_entry("hetu_flash_bwd_dkv_causal" if causal
+                       else "hetu_flash_bwd_dkv", q))
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), bh, heads, s_q, k.shape[1], d, float(scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
-    if causal:
-        dkv_causal_launches += 1
-    else:
-        dkv_launches += 1
+    _count("dkv_causal_launches" if causal else "dkv_launches", q)
     return dk, dv
 
 
@@ -624,8 +680,8 @@ def flash_fwd_bias(q, k, v, key_mask, bias, kbias, gmode, heads, scale,
     float32, stored unbroadcast for group mode ``gmode`` (as
     :func:`flash_fwd_fullmask`'s mask, BH = B * ``heads``).  Composes with
     ``key_mask`` (B, S_kv) int32 and ``causal``.  q (BH, S_q, D), k/v
-    (BH, S_kv, D) float32.  Returns ``(out (BH, S_q, D), lse (BH, S_q))``."""
-    global fwd_bias_launches, fwd_bias_causal_launches, fwd_kbias_launches
+    (BH, S_kv, D) float32 or bfloat16.  Returns ``(out (BH, S_q, D) in q's
+    dtype, lse (BH, S_q) float32)``."""
     fn_name = "flash_fwd_bias"
     _check_qkv(fn_name, q, k, v)
     _check_bias(fn_name, q, k, key_mask, bias, kbias, gmode, heads)
@@ -640,18 +696,15 @@ def flash_fwd_bias(q, k, v, key_mask, bias, kbias, gmode, heads, scale,
     lse = torch.empty((bh, s_q), dtype=torch.float32, device=q.device)
     b_ptr, b_ints = _bias_args(bias, kbias, gmode, causal)
     with torch.cuda.device(q.device):
-        rc = kernel("hetu_flash_fwd_bias")(
+        rc = kernel(_entry("hetu_flash_fwd_bias", q))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), b_ptr,
             out.data_ptr(), lse.data_ptr(), bh, heads, s_q, k.shape[1], d,
             *b_ints, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
-    if bias is None:
-        fwd_kbias_launches += 1
-    elif causal:
-        fwd_bias_causal_launches += 1
-    else:
-        fwd_bias_launches += 1
+    _count("fwd_kbias_launches" if bias is None
+           else "fwd_bias_causal_launches" if causal
+           else "fwd_bias_launches", q)
     return out, lse
 
 
@@ -661,7 +714,6 @@ def flash_bwd_dq_bias(q, k, v, key_mask, bias, kbias, gmode, heads, do, lse,
     gradient before the group sum: dbias (BH, S_q, S_kv) float32, the
     pre-scale dS, zero on every (row, key) pair the row does not see.
     Returns ``(dq, dbias)``; dbias is None with a strip ``kbias``."""
-    global dq_bias_launches, dq_bias_causal_launches, dq_kbias_launches
     fn_name = "flash_bwd_dq_bias"
     _check_qkv(fn_name, q, k, v)
     _check_bias(fn_name, q, k, key_mask, bias, kbias, gmode, heads)
@@ -679,18 +731,15 @@ def flash_bwd_dq_bias(q, k, v, key_mask, bias, kbias, gmode, heads, do, lse,
         (bh, s_q, s_kv), dtype=torch.float32, device=q.device)
     b_ptr, b_ints = _bias_args(bias, kbias, gmode, causal)
     with torch.cuda.device(q.device):
-        rc = kernel("hetu_flash_bwd_dq_bias")(
+        rc = kernel(_entry("hetu_flash_bwd_dq_bias", q))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), b_ptr,
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             _ptr(dbias), bh, heads, s_q, s_kv, d, *b_ints, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
-    if bias is None:
-        dq_kbias_launches += 1
-    elif causal:
-        dq_bias_causal_launches += 1
-    else:
-        dq_bias_launches += 1
+    _count("dq_kbias_launches" if bias is None
+           else "dq_bias_causal_launches" if causal
+           else "dq_bias_launches", q)
     return dq, dbias
 
 
@@ -700,7 +749,6 @@ def flash_bwd_dkv_bias(q, k, v, key_mask, bias, kbias, gmode, heads, do, lse,
     gradient before the group sum: dkbias (BH, 1, S_kv) float32, the
     pre-scale dS summed over the query rows.  Returns ``(dk, dv,
     dkbias)``; dkbias is None with a dense ``bias``."""
-    global dkv_bias_launches, dkv_bias_causal_launches, dkv_kbias_launches
     fn_name = "flash_bwd_dkv_bias"
     _check_qkv(fn_name, q, k, v)
     _check_bias(fn_name, q, k, key_mask, bias, kbias, gmode, heads)
@@ -720,18 +768,15 @@ def flash_bwd_dkv_bias(q, k, v, key_mask, bias, kbias, gmode, heads, do, lse,
         (bh, 1, s_kv), dtype=torch.float32, device=q.device)
     b_ptr, b_ints = _bias_args(bias, kbias, gmode, causal)
     with torch.cuda.device(q.device):
-        rc = kernel("hetu_flash_bwd_dkv_bias")(
+        rc = kernel(_entry("hetu_flash_bwd_dkv_bias", q))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), b_ptr,
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _ptr(dkbias), bh, heads, s_q, s_kv, d, *b_ints,
             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
-    if bias is None:
-        dkv_kbias_launches += 1
-    elif causal:
-        dkv_bias_causal_launches += 1
-    else:
-        dkv_bias_launches += 1
+    _count("dkv_kbias_launches" if bias is None
+           else "dkv_bias_causal_launches" if causal
+           else "dkv_bias_launches", q)
     return dk, dv, dkbias
 
 
@@ -741,12 +786,11 @@ def flash_bwd_dq_mask(q, k, v, key_mask, mask, gmode, heads, do, lse, delta,
                       scale, causal=False, bias=None, kbias=None, bgmode="bh"):
     """dQ of :func:`flash_fwd_fullmask` (the full ``mask`` of group mode
     ``gmode``, and optionally a ``bias`` or strip ``kbias`` of group mode
-    ``bgmode``) given dO, its lse and delta = rowsum(dO * out), each
-    (BH, S_q[, D]) float32.  With a dense ``bias`` also its gradient
+    ``bgmode``) given dO (BH, S_q, D) in q's dtype, its lse and delta =
+    rowsum(dO * out), each (BH, S_q) float32.  With a dense ``bias`` also its gradient
     before the group sum, dbias (BH, S_q, S_kv), exactly 0 on every pair
     the row does not see.  Returns ``(dq, dbias)``; dbias is None without
     a dense bias."""
-    global dq_mask_launches, dq_mask_bias_launches, dq_mask_kbias_launches
     fn_name = "flash_bwd_dq_mask"
     _check_qkv(fn_name, q, k, v)
     _check_fullmask(fn_name, q, k, key_mask, mask, gmode, heads, bias, kbias,
@@ -766,18 +810,15 @@ def flash_bwd_dq_mask(q, k, v, key_mask, mask, gmode, heads, do, lse, delta,
         (bh, s_q, s_kv), dtype=torch.float32, device=q.device)
     m_ptr, b_ptr, ints = _mask_args(mask, gmode, bias, kbias, bgmode, causal)
     with torch.cuda.device(q.device):
-        rc = kernel("hetu_flash_bwd_dq_mask")(
+        rc = kernel(_entry("hetu_flash_bwd_dq_mask", q))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), m_ptr,
             b_ptr, do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), _ptr(dbias), bh, heads, s_q, s_kv, d, *ints,
             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
-    if bias is not None:
-        dq_mask_bias_launches += 1
-    elif kbias is not None:
-        dq_mask_kbias_launches += 1
-    else:
-        dq_mask_launches += 1
+    _count("dq_mask_bias_launches" if bias is not None
+           else "dq_mask_kbias_launches" if kbias is not None
+           else "dq_mask_launches", q)
     return dq, dbias
 
 
@@ -788,7 +829,6 @@ def flash_bwd_dkv_mask(q, k, v, key_mask, mask, gmode, heads, do, lse, delta,
     :func:`flash_bwd_dq_mask`.  With a strip ``kbias`` also its gradient
     before the group sum, dkbias (BH, 1, S_kv).  Returns ``(dk, dv,
     dkbias)``; dkbias is None without a strip."""
-    global dkv_mask_launches, dkv_mask_bias_launches, dkv_mask_kbias_launches
     fn_name = "flash_bwd_dkv_mask"
     _check_qkv(fn_name, q, k, v)
     _check_fullmask(fn_name, q, k, key_mask, mask, gmode, heads, bias, kbias,
@@ -810,19 +850,16 @@ def flash_bwd_dkv_mask(q, k, v, key_mask, mask, gmode, heads, do, lse, delta,
         (bh, 1, s_kv), dtype=torch.float32, device=q.device)
     m_ptr, b_ptr, ints = _mask_args(mask, gmode, bias, kbias, bgmode, causal)
     with torch.cuda.device(q.device):
-        rc = kernel("hetu_flash_bwd_dkv_mask")(
+        rc = kernel(_entry("hetu_flash_bwd_dkv_mask", q))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), m_ptr,
             b_ptr, do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _ptr(dkbias), bh, heads, s_q, s_kv,
             d, *ints, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
-    if bias is not None:
-        dkv_mask_bias_launches += 1
-    elif kbias is not None:
-        dkv_mask_kbias_launches += 1
-    else:
-        dkv_mask_launches += 1
+    _count("dkv_mask_bias_launches" if bias is not None
+           else "dkv_mask_kbias_launches" if kbias is not None
+           else "dkv_mask_launches", q)
     return dk, dv, dkbias
 
 
@@ -833,8 +870,9 @@ class FlashAttention(torch.autograd.Function):
     key-bias strip ``kbias`` (group mode ``bgmode``, BH = B * ``heads``),
     each alone or together.  The forward saves q, k, v, key_mask, the
     mask, the bias, out and lse; the backward forms delta = rowsum(dO *
-    out) (one plain expression, as the JAX package leaves it to XLA) and
-    launches dQ and dK/dV with the forward's ``causal``, mask and bias.
+    out) in float32 (one plain expression, as the JAX package leaves it
+    to XLA) and launches dQ and dK/dV with the forward's ``causal``, mask
+    and bias.
     dbias / dkbias come back summed over the bias's group, in its storage
     shape (the JAX package's ``_flash_vjp_bwd``).  ``key_mask``, the
     mask, ``scale`` and ``causal`` get no gradient."""
@@ -862,7 +900,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, key_mask, mask, bias, kbias, out, lse = ctx.saved_tensors
         do = dout.contiguous()
-        delta = (do * out).sum(-1)
+        delta = (do.float() * out.float()).sum(-1)
         if mask is not None:
             kw = dict(causal=ctx.causal, bias=bias, kbias=kbias,
                       bgmode=ctx.bgmode)

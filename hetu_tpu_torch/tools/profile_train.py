@@ -16,9 +16,11 @@ published widths, seq 512, batch 8, ``xlnet_plm_graph`` on
 full-mask-with-bias kernels; ``--model longformer`` Longformer-base at
 published widths, seq 4096, batch 2, ``longformer_mlm_graph`` on
 ``synthetic_mlm_ids(cfg, seed=0)``, the window mask through the full-mask
-kernels.  All: seeded random weights, fp32,
-dropout 0.1, the one batch fed every step, ``AdamOptimizer(1e-4)`` through
-``Executor.run``.  Reports per step: host wall time without
+kernels.  All: seeded random weights, fp32 (with ``--compute-dtype
+bfloat16``: bf16 mixed precision, the bf16 flash kernels; ``--batch``
+sets the batch: bench.py's flagship is ``--model bert --compute-dtype
+bfloat16 --batch 64``), dropout 0.1, the one batch fed every step,
+``AdamOptimizer(1e-4)`` through ``Executor.run``.  Reports per step: host wall time without
 the profiler, then under ``torch.profiler`` the device busy time (sum of
 kernel durations on the one stream), the device's idle share, kernel
 launches, the kernels that take the most device time, the share of the
@@ -26,10 +28,11 @@ three flash attention kernels and of the matrix products.  Run from the
 repository root::
 
     python3 -m hetu_tpu_torch.tools.profile_train
-        [--model bert|gpt2|t5|xlnet|longformer] [--out DIR] [--steps N]
+        [--model bert|gpt2|t5|xlnet|longformer] [--compute-dtype bfloat16]
+        [--batch N] [--out DIR] [--steps N]
 
-``--out`` receives ``profile_train[_<model>].json`` (none for bert) and
-the operator tables.
+``--out`` receives ``profile_train[_<model>][_bf16].json`` (no model
+suffix for bert) and the operator tables.
 """
 from __future__ import annotations
 
@@ -66,12 +69,15 @@ def _card():
 
 def _is_gemm(name):
     n = name.lower()
-    return "gemm" in n or "sgemm" in n or "cutlass" in n or "xmma" in n
+    return ("gemm" in n or "sgemm" in n or "cutlass" in n or "xmma" in n
+            or "nvjet" in n)                # cuBLAS's Hopper bf16 kernels
 
 
-def build(model, device="cuda"):
-    """(executor, feed dict) of ``model``'s training workload."""
-    batch, seq = SHAPES[model]
+def build(model, device="cuda", compute_dtype=None, batch=None):
+    """(executor, feed dict) of ``model``'s training workload, with
+    ``compute_dtype`` and, given, ``batch`` instead of the model's."""
+    batch = batch or SHAPES[model][0]
+    seq = SHAPES[model][1]
     if model == "t5":
         cfg = ht.T5Config.small(batch_size=batch, src_len=T5_SRC,
                                 tgt_len=T5_TGT)
@@ -104,42 +110,19 @@ def build(model, device="cuda"):
               feeds["masked_lm_labels"]: labels,
               feeds["attention_mask"]: attn}
     train_op = ht.optim.AdamOptimizer(1e-4).minimize(loss)
-    return ht.Executor({"train": [loss, train_op]}, seed=0,
-                       device=device), fd
+    return ht.Executor({"train": [loss, train_op]}, seed=0, device=device,
+                       compute_dtype=compute_dtype), fd
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=sorted(SHAPES), default="bert")
-    ap.add_argument("--out", default=None,
-                    help="directory for the JSON report and tables")
-    ap.add_argument("--steps", type=int, default=5,
-                    help="timed steps without the profiler (and the "
-                         "profiled steps: 3)")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_train: needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    batch, seq = SHAPES[args.model]
-    ex, fd = build(args.model)
-
-    def step():
-        return float(ex.run("train", feed_dict=fd)[0].asnumpy())
-
-    for _ in range(WARMUP):
-        step()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(args.steps):
-        t0 = time.perf_counter()
-        step()
-        times.append(time.perf_counter() - t0)
-    step_s = float(np.mean(times))
-
-    psteps = 3
-    counters = [n for n in vars(fa) if n.endswith("_launches")]
-    for n in counters:
-        setattr(fa, n, 0)
+def profile_steps(step, psteps=3, step_s=None):
+    """``psteps`` calls of ``step`` (one training step each) under
+    ``torch.profiler``: per step the device busy time (sum of kernel
+    durations on the one stream), the device's idle share (against the
+    profiled wall time and, given ``step_s``, the unprofiled step time:
+    the profiler slows the host, not the kernels), kernel launches, the
+    three flash kernels' time and share, the matrix products' and the
+    kernels that take the most device time.  Returns (that report, the
+    profiler)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -166,39 +149,80 @@ def main(argv=None):
     def per_step_ms(us):
         return us / psteps / 1e3
 
+    return {
+        "steps": psteps, "wall_ms_per_step": pwall / psteps * 1e3,
+        "device_busy_ms_per_step": per_step_ms(busy_us),
+        "device_idle_share": 1.0 - busy_us / 1e6 / pwall,
+        "device_idle_share_unprofiled":
+            None if step_s is None else 1.0 - busy_us / 1e6 / psteps / step_s,
+        "kernels_per_step": n_kern / psteps,
+        "flash_ms_per_step": {k: per_step_ms(v) for k, v in flash.items()},
+        "flash_share_of_device":
+            sum(flash.values()) / busy_us if busy_us else None,
+        "gemm_ms_per_step": per_step_ms(gemm),
+        "gemm_share_of_device": gemm / busy_us if busy_us else None,
+        "top_kernels": [{"name": n[:90], "count_per_step": c / psteps,
+                         "ms_per_step": per_step_ms(us)}
+                        for n, (c, us) in top]}, prof
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(SHAPES), default="bert")
+    ap.add_argument("--compute-dtype", choices=["bfloat16"], default=None,
+                    help="mixed precision (default: float32)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="batch size (default: the model's)")
+    ap.add_argument("--out", default=None,
+                    help="directory for the JSON report and tables")
+    ap.add_argument("--steps", type=int, default=5,
+                    help="timed steps without the profiler (and the "
+                         "profiled steps: 3)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train: needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = args.batch or SHAPES[args.model][0]
+    seq = SHAPES[args.model][1]
+    ex, fd = build(args.model, compute_dtype=args.compute_dtype, batch=batch)
+
+    def step():
+        return float(ex.run("train", feed_dict=fd)[0].asnumpy())
+
+    for _ in range(WARMUP):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        step()
+        times.append(time.perf_counter() - t0)
+    step_s = float(np.mean(times))
+
+    counters = [n for n in vars(fa) if n.endswith("_launches")]
+    for n in counters:
+        setattr(fa, n, 0)
+    psteps = 3
+    profiled, prof = profile_steps(step, psteps, step_s)
     report = {
         "card": _card(), "torch": torch.__version__, "model": args.model,
         "batch": batch, "seq": seq,
+        "compute_dtype": args.compute_dtype or "float32",
         "step_ms_mean": step_s * 1e3,
         "step_ms_all": [t * 1e3 for t in times],
         "samples_per_s": batch / step_s,
         "tokens_per_s": batch * seq / step_s,
         "tgt_tokens_per_s": (batch * T5_TGT / step_s if args.model == "t5"
                              else None),
-        "profiled": {
-            "steps": psteps, "wall_ms_per_step": pwall / psteps * 1e3,
-            "device_busy_ms_per_step": per_step_ms(busy_us),
-            "device_idle_share": 1.0 - busy_us / 1e6 / pwall,
-            # the profiler slows the host, not the kernels: the busy time
-            # per step against the unprofiled step time
-            "device_idle_share_unprofiled":
-                1.0 - busy_us / 1e6 / psteps / step_s,
-            "kernels_per_step": n_kern / psteps,
-            "flash_ms_per_step": {k: per_step_ms(v) for k, v in flash.items()},
-            "flash_share_of_device":
-                sum(flash.values()) / busy_us if busy_us else None,
-            "gemm_ms_per_step": per_step_ms(gemm),
-            "gemm_share_of_device": gemm / busy_us if busy_us else None,
-            "top_kernels": [{"name": n[:90], "count_per_step": c / psteps,
-                             "ms_per_step": per_step_ms(us)}
-                            for n, (c, us) in top]},
+        "profiled": profiled,
     }
     dev_table = prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=30)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         stem = "profile_train" + ("" if args.model == "bert"
-                                  else "_" + args.model)
+                                  else "_" + args.model) \
+            + ("_bf16" if args.compute_dtype else "")
         with open(os.path.join(args.out, stem + ".json"), "w") as f:
             json.dump(report, f, indent=1)
         with open(os.path.join(args.out, stem + "_ops.txt"), "w") as f:
@@ -206,7 +230,7 @@ def main(argv=None):
             f.write(prof.key_averages().table(sort_by="self_cpu_time_total",
                                               row_limit=30))
     print(json.dumps(report, indent=1))
-    if not kern:
+    if not profiled["kernels_per_step"]:
         print("profile_train: the profiler recorded no device time")
     print(dev_table)
     print("flash launches per profiled step: " + ", ".join(

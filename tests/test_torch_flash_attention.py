@@ -14,7 +14,9 @@ through its own group mode.
 Tolerances, float32: forward atol 1e-5 — the algorithms sum in different
 orders (blockwise online softmax vs one softmax); gradients rtol 2e-4,
 atol 2e-4, the JAX package's own flash-gradient tolerance
-(tests/test_pallas.py)."""
+(tests/test_pallas.py).  bfloat16 (the mixed-precision path): the bf16
+plain versions against the Pallas kernels' bf16 instantiation within one
+bf16 ulp (``BF16_TOL``), and ``ScoresF32`` against ``_scores_f32``."""
 import os
 import sys
 
@@ -600,7 +602,9 @@ def test_bias_wrappers_count_no_launch_on_cpu_and_give_storage_grads():
     tq, tk, tv, tdo = flat
     tb, tkm = torch.from_numpy(bias), torch.from_numpy(km)
     names = [n for n in vars(fa) if "bias" in n and n.endswith("launches")]
-    assert len(names) == 15          # the mask-with-bias ones among them
+    # the mask-with-bias ones among them, each with its bfloat16 twin
+    assert len(names) == 30
+    assert sum(n.startswith("bf16_") for n in names) == 15
     before = [getattr(fa, n) for n in names]
     out, lse = fa.flash_fwd_bias(tq, tk, tv, tkm, tb, None, "h", BHEADS, 0.3)
     delta = (tdo * out).sum(-1)
@@ -771,7 +775,9 @@ def test_mask_wrappers_count_no_launch_on_cpu():
     mask = torch.from_numpy(_mask_of("h", seed=1, s=24)[0, :, :16]
                             .astype(np.uint8)).contiguous()
     names = [n for n in vars(fa) if "mask" in n and n.endswith("launches")]
-    assert len(names) == 9
+    # each with its bfloat16 twin
+    assert len(names) == 18
+    assert sum(n.startswith("bf16_") for n in names) == 9
     before = [getattr(fa, n) for n in names]
     for b, kb in ((None, None), (tb, None), (None, tb[:, :1].contiguous())):
         kw = dict(causal=True, bias=b, kbias=kb, bgmode="b")
@@ -825,3 +831,130 @@ def test_mask_wrappers_check_their_inputs(bad):
     with pytest.raises(ValueError):
         fa.flash_bwd_dkv_mask(q, q, q, km, mask, gmode, 2, q, lse, delta, 1.0,
                               **kw)
+
+
+# -- bfloat16 (the mixed-precision training path) -----------------------------
+
+#: (kind, S, key mask, causal): BERT's key mask and GPT-2's causal rule,
+#: dense, a ragged causal case with a key mask, one dense bias (group h,
+#: bf16 as a model under compute_dtype makes it) and one full mask (group b)
+BF16_CASES = [("dense", 128, False, False), ("key_mask", 128, True, False),
+              ("causal", 128, False, True), ("causal", 77, True, True),
+              ("bias", 128, True, False), ("mask", 128, False, True)]
+
+
+def _bf16_case(kind, s, key_mask, causal):
+    """The inputs of one bf16 case as numpy float32 arrays (rounded to bf16
+    by each package as it converts them) and the mask."""
+    q, k, v, do, bias, km = _bias_inputs(s, s, (1, BHEADS, s, s),
+                                         seed=s + 3 * key_mask + causal,
+                                         key_mask=key_mask)
+    mask = _mask_of("b", seed=s, s=s) if kind == "mask" else None
+    return (q, k, v) + ((bias,) if kind == "bias" else ()), do, km, mask
+
+
+#: bf16 plain versions vs the Pallas kernels' bf16 instantiation: one bf16
+#: ulp.  The two round the same operands at the same points, from float32
+#: sums taken in another order, so an element can land one ulp apart; the
+#: measured spread over BF16_CASES is a few isolated flips (at most 1.95e-3
+#: absolute, on values near 0.5; relative 2^-8 at most), and elements of
+#: magnitude up to ~5.  test_pallas.py holds the TPU kernel to its
+#: reference at the wider 2e-2.
+BF16_TOL = dict(rtol=2 ** -7, atol=2 ** -8)
+
+
+@pytest.mark.parametrize("kind,s,key_mask,causal", BF16_CASES)
+def test_bf16_plain_versions_match_jax_pallas_interpret(kind, s, key_mask,
+                                                       causal):
+    """bf16 q, k, v (and bias) through ``flash_attention`` on CPU tensors
+    (``FlashAttention`` over the bf16 plain versions of the forward, dQ
+    and dK/dV) against the Pallas kernels' bf16 instantiation in interpret
+    mode (``jax.vjp`` of the entry): out and every gradient bf16, within
+    ``BF16_TOL``; dbias in the bias's dtype."""
+    xs, do, km, mask = _bf16_case(kind, s, key_mask, causal)
+    jkm = None if km is None else jnp.asarray(km)
+    jmask = None if mask is None else jnp.asarray(mask)
+
+    def fn(q, k, v, b=None):
+        return jax_flash(q, k, v, causal=causal, scale=BIAS_SCALE,
+                         key_mask=jkm, mask=jmask, bias=b, interpret=True)
+
+    want, vjp = jax.vjp(fn, *(jnp.asarray(x, jnp.bfloat16) for x in xs))
+    wgrads = vjp(jnp.asarray(do, jnp.bfloat16))
+    tx = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+          for x in xs]
+    got = fa.flash_attention(
+        *tx[:3], causal=causal, scale=BIAS_SCALE,
+        key_mask=None if km is None else torch.from_numpy(km),
+        mask=None if mask is None else torch.from_numpy(mask),
+        bias=tx[3] if len(tx) > 3 else None)
+    grads = torch.autograd.grad(got, tx,
+                                torch.from_numpy(do).to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want, np.float32), **BF16_TOL)
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), grads, wgrads):
+        assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16, name
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w, np.float32), err_msg=name,
+                                   **BF16_TOL)
+
+
+def test_bf16_plain_versions_keep_float32_outputs_where_the_kernels_do():
+    """lse, delta and dbias stay float32 with bf16 inputs; out, dQ, dK and
+    dV take the inputs' dtype; float32 inputs give exactly what they gave
+    before bf16 existed (every rounding is the identity)."""
+    q, k, v, do, bias, km = _bias_inputs(24, 40, (BB * BHEADS, 24, 40),
+                                         seed=4, key_mask=True)
+    flat = [torch.from_numpy(x.reshape(BB * BHEADS, x.shape[2], BD))
+            for x in (q, k, v, do)]
+    tkm, tb = torch.from_numpy(km), torch.from_numpy(bias)
+    for dtype in (torch.float32, torch.bfloat16):
+        tq, tk, tv, tdo = (x.to(dtype) for x in flat)
+        out, lse = fa.flash_fwd_plain(tq, tk, tv, None, BHEADS, 0.3,
+                                      key_mask=tkm, bias=tb)
+        dq, dk, dv, dbias, _ = fa.flash_bwd_bias_plain(
+            tq, tk, tv, tkm, tb, None, "bh", BHEADS, out, lse, tdo, 0.3)
+        assert lse.dtype == dbias.dtype == torch.float32
+        assert out.dtype == dq.dtype == dk.dtype == dv.dtype == dtype
+    tq, tk, tv, tdo = flat
+    out, lse = fa.flash_fwd_plain(tq, tk, tv, None, BHEADS, 0.3,
+                                  key_mask=tkm, bias=tb)
+    s = torch.matmul(tq, tk.transpose(1, 2)) * 0.3 + tb
+    s = torch.where(tkm.repeat_interleave(BHEADS, 0)[:, None, :] != 0, s,
+                    torch.full_like(s, fa.NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m) * (tkm.repeat_interleave(BHEADS, 0)[:, None, :]
+                            != 0)
+    l_ = p.sum(-1, keepdim=True)
+    l_ = torch.where(l_ == 0, torch.ones_like(l_), l_)
+    torch.testing.assert_close(out, torch.matmul(p, tv) / l_, rtol=0,
+                               atol=0)
+
+
+def test_scores_f32_twin_matches_jax():
+    """The port's ``ScoresF32`` against the JAX package's ``_scores_f32``
+    on the same bf16 operands: the float32 scores (exact bf16 products,
+    float32 sums in another order) and the bf16 dQ, dK from the cotangent
+    rounded to bf16 first (each product rounds once from a float32 sum,
+    so an element may land one bf16 ulp apart)."""
+    from hetu_tpu.ops.attention import _scores_f32
+    from hetu_tpu_torch.ops.attention import ScoresF32
+    rng = np.random.RandomState(8)
+    q, k = rng.randn(2, 3, 24, 16), rng.randn(2, 3, 40, 16)
+    g = rng.randn(2, 3, 24, 40).astype(np.float32)
+    jq, jk = (jnp.asarray(x, jnp.bfloat16) for x in (q, k))
+    want, vjp = jax.vjp(_scores_f32, jq, jk)
+    wdq, wdk = vjp(jnp.asarray(g))
+    tq, tk = (torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+              for x in (q, k))
+    got = ScoresF32.apply(tq, tk)
+    dq, dk = torch.autograd.grad(got, (tq, tk), torch.from_numpy(g))
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-6, atol=1e-6)
+    for name, a, b in (("dq", dq, wdq), ("dk", dk, wdk)):
+        assert a.dtype == torch.bfloat16 and b.dtype == jnp.bfloat16, name
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(b, np.float32), rtol=2 ** -8,
+                                   atol=1e-6, err_msg=name)

@@ -47,8 +47,15 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "import hetu_tpu_torch.models.xlnet\n"
             "import hetu_tpu_torch.models.longformer\n"
             "import hetu_tpu_torch.ops.attention\n"
+            "import hetu_tpu_torch.ops.arithmetic\n"
+            "import hetu_tpu_torch.ops.embedding\n"
+            "import hetu_tpu_torch.graph.executor\n"
             "import hetu_tpu_torch.serving.decode\n"
             "assert sys.modules['jax'] is None\n"
+            "x = hetu_tpu_torch.placeholder_op('x')\n"
+            "ex = hetu_tpu_torch.Executor([x * 2.0], device='cpu',\n"
+            "                             compute_dtype='bfloat16')\n"
+            "print(ex.run(feed_dict={x: [1.5]})[0].asnumpy().dtype)\n"
             "print(hetu_tpu_torch.GPT2Config.small().n_layer)\n"
             "print(hetu_tpu_torch.T5Config.small().num_layers)\n"
             "print(hetu_tpu_torch.XLNetConfig.base().n_layer)\n"
@@ -56,7 +63,7 @@ def test_import_with_jax_and_hetu_tpu_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["12", "6", "12", "512"]
+    assert proc.stdout.split() == ["float32", "12", "6", "12", "512"]
 
 
 def test_sources_import_no_jax_or_hetu_tpu():
@@ -165,16 +172,20 @@ def test_flash_attention_unported_specializations_raise(spec):
 
 
 @pytest.mark.parametrize("what", ["causal", "full_mask", "prefill", "bias",
-                                  "masked_bias", "masked_bias_full"])
+                                  "masked_bias", "masked_bias_full",
+                                  "bf16_key_mask", "bf16_causal"])
 def test_attention_dispatch_off_the_cpu_raises_for_unported_kinds(what):
     """A tensor off the CPU (a meta tensor stands in for the card here)
     goes to the kernel wrappers, which launch or raise: the dispatcher
     never falls back to the plain attention.  Causal, a full mask, the
     chunked prefill and a bias (alone, with a key mask or with a full
-    mask) are ported, so each reaches its wrapper, and the wrapper has no
-    kernel for a device that is not CUDA."""
+    mask) are ported, and so is bfloat16 (the mixed-precision path), so
+    each reaches its wrapper, and the wrapper has no kernel for a device
+    that is not CUDA."""
     from hetu_tpu_torch.ops import attention
-    q = torch.zeros(1, 1, 2, 8, device="meta")
+    q = torch.zeros(1, 1, 2, 8, device="meta",
+                    dtype=torch.bfloat16 if what.startswith("bf16")
+                    else torch.float32)
     bias = torch.zeros(1, 1, 2, 2, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         if what == "bias":
@@ -187,10 +198,19 @@ def test_attention_dispatch_off_the_cpu_raises_for_unported_kinds(what):
             attention.dispatch_sdpa_prefill(
                 q, q, q, torch.zeros(1, dtype=torch.int32, device="meta"))
         else:
-            mask = torch.ones(1, 1, 1 if what == "causal" else 2, 2,
+            mask = torch.ones(1, 1, 2 if what == "full_mask" else 1, 2,
                               dtype=torch.int32, device="meta")
             attention.dispatch_sdpa_masked(q, q, q, mask,
-                                           causal=what == "causal")
+                                           causal=what.endswith("causal"))
+
+
+def test_bf16_decode_is_refused_by_name():
+    """The ``lengths`` (decode) kernel takes float32 only: the decode
+    caches are float32 in both packages, and no bf16 decode path exists
+    to port."""
+    q = torch.zeros(2, 1, 8, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 only"):
+        fa.flash_fwd(q, q, q, torch.ones(1, dtype=torch.int32), 2, 1.0)
 
 
 def test_build_paths_stay_inside_the_package():
@@ -199,6 +219,9 @@ def test_build_paths_stay_inside_the_package():
     assert lib.startswith(os.path.join(PKG, "_build") + os.sep)
     assert os.path.exists(_build.source_path("flash_attention"))
     assert _build.sources() == ["emb_cache", "flash_attention",
-                                "flash_attention_bwd", "moe_dispatch",
+                                "flash_attention_bwd",
+                                "flash_attention_bwd_bf16", "moe_dispatch",
                                 "segment_sum"]
+    assert {src for src, _, _ in fa.ENTRIES.values()} == {
+        "flash_attention", "flash_attention_bwd", "flash_attention_bwd_bf16"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -13,7 +13,9 @@ same way at equal, unequal and ragged (S_q, S_kv), with rows that see no
 key.  The additive-bias specializations are held with their dbias /
 dkbias (allclose rtol 1e-4, atol 1e-5), dbias exactly 0 where a row sees
 no key; so is the full-mask backward, alone and with a bias of another
-group mode (Longformer's and XLNet's calls).  The embedding-cache kernels: the slab row gather is a
+group mode (Longformer's and XLNet's calls).  Every specialization also
+runs in bfloat16 against its bf16 plain version within rtol = atol = 2e-2
+(``BF16_TOL``).  The embedding-cache kernels: the slab row gather is a
 copy and must match exactly; the segment-sum must match its plain version
 (``index_add_``, atomics on the card) within rtol 2e-5 / atol 1e-6 and the
 host cache's ``_segment_sum`` exactly.  The MoE row gather is a copy with
@@ -650,3 +652,156 @@ def test_sparse_dispatch_and_combine_kernel_equals_plain(cuda, k):
     for a, b, name in zip(got, want, ("buffers", "out", "d_tokens", "d_w1",
                                       "d_gate_w")):
         assert torch.equal(a, b), (name, float((a - b).abs().max()))
+
+
+# -- bfloat16 (the mixed-precision training path) ---------------------------------
+
+#: bf16 kernel vs its bf16 plain version: both round P and dS to bf16 and
+#: their outputs to bf16, but from scores summed in another order and, in the
+#: forward, P relative to the running (kernel) or the row's (plain) max, so
+#: an element may differ by an ulp of bf16; test_pallas.py holds the TPU
+#: kernel's bf16 instantiation to its reference at the same 2e-2
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+#: (kind, mask gmode, bias gmode, S_q, S_kv, D, causal, key mask): every
+#: specialization the templates cover, at small shapes with ragged tiles
+BF16_CASES = [("dense", None, None, 512, 512, 64, False, False),
+              ("dense", None, None, 200, 200, 64, False, True),
+              ("dense", None, None, 1024, 1024, 64, True, False),
+              ("dense", None, None, 200, 64, 128, True, True),
+              ("bias", None, "h", 114, 114, 64, True, False),
+              ("bias", None, "h", 200, 130, 64, False, True),
+              ("kbias", None, "b", 200, 200, 64, True, True),
+              ("mask", "b", None, 96, 96, 64, False, False),
+              ("mask", "one", None, 200, 64, 64, True, True),
+              ("mask_bias", "b", "h", 96, 96, 64, False, False),
+              ("mask_kbias", "h", "one", 130, 200, 64, True, False)]
+
+
+def _bf16(*xs):
+    return tuple(None if x is None else x.to(torch.bfloat16) for x in xs)
+
+
+def _bf16_run(fa_kind, q, k, v, do, km, mask, mgmode, bias, kbias, bgmode,
+              causal, scale):
+    """(out, lse, dq, dk, dv, dbias, dkbias) of the kernels for one case."""
+    if fa_kind.startswith("mask"):
+        kw = dict(causal=causal, bias=bias, kbias=kbias, bgmode=bgmode)
+        out, lse = fa.flash_fwd_fullmask(q, k, v, mask, mgmode, 3, scale,
+                                         key_mask=km, **kw)
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, km, mask, mgmode, 3, do, lse, delta, scale)
+        dq, dbias = fa.flash_bwd_dq_mask(*args, **kw)
+        dk, dv, dkbias = fa.flash_bwd_dkv_mask(*args, **kw)
+    elif fa_kind in ("bias", "kbias"):
+        out, lse = fa.flash_fwd_bias(q, k, v, km, bias, kbias, bgmode, 3,
+                                     scale, causal=causal)
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, km, bias, kbias, bgmode, 3, do, lse, delta, scale)
+        dq, dbias = fa.flash_bwd_dq_bias(*args, causal=causal)
+        dk, dv, dkbias = fa.flash_bwd_dkv_bias(*args, causal=causal)
+    else:
+        out, lse = fa.flash_fwd_masked(q, k, v, km, scale, causal=causal)
+        delta = (do.float() * out.float()).sum(-1)
+        dq = fa.flash_bwd_dq(q, k, v, km, do, lse, delta, scale,
+                             causal=causal)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, km, do, lse, delta, scale,
+                                  causal=causal)
+        dbias = dkbias = None
+    return out, lse, dq, dk, dv, dbias, dkbias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,mgmode,bgmode,s_q,s_kv,d,causal,masked",
+                         BF16_CASES)
+def test_bf16_kernels_match_plain_version(cuda, kind, mgmode, bgmode, s_q,
+                                          s_kv, d, causal, masked):
+    """Every bfloat16 instantiation (forward, dQ with dbias, dK/dV with
+    dkbias) against its bf16 plain version: out, dQ, dK, dV bf16 within
+    ``BF16_TOL``; lse within 1e-4 and dbias / dkbias (float32, from the
+    unrounded t) within ``BF16_TOL``; each launch counted under its
+    ``bf16_`` counter and none under the float32 one; rows that see no
+    key give out = dQ = 0."""
+    q, k, v, do, km = _causal_inputs(cuda, s_q, s_kv, d, masked,
+                                     s_q + 3 * s_kv + d)
+    q, k, v, do = _bf16(q, k, v, do)
+    mask = None
+    if mgmode is not None:
+        rng = np.random.RandomState(s_kv + d)
+        m = rng.rand(fa._group_rows(mgmode, 6, 3), s_q, s_kv) < 0.4
+        m[0, 0] = False                  # a row with every key masked
+        mask = torch.from_numpy(m.astype(np.uint8)).to(cuda)
+    bias = kbias = None
+    if bgmode is not None:
+        bias, kbias = _bias_of(cuda, "kbias" if kind.endswith("kbias")
+                               else "bias", bgmode, s_q, s_kv, seed=s_q)
+    scale = 0.37
+    counters = [n for n in vars(fa) if n.endswith("launches")]
+    before = {n: getattr(fa, n) for n in counters}
+    got = _bf16_run(kind, q, k, v, do, km, mask, mgmode or "bh", bias, kbias,
+                    bgmode or "bh", causal, scale)
+    torch.cuda.synchronize()
+    moved = {n: getattr(fa, n) - before[n] for n in counters
+             if getattr(fa, n) != before[n]}
+    assert len(moved) == 3 and all(n.startswith("bf16_") and c == 1
+                                   for n, c in moved.items()), moved
+    out, lse, dq, dk, dv, dbias, dkbias = got
+    for t in (out, dq, dk, dv):
+        assert t.dtype == torch.bfloat16
+    ref, lse_ref = fa.flash_fwd_plain(
+        q, k, v, None, 3, scale, key_mask=km, causal=causal, mask=mask,
+        gmode=mgmode or "bh", bias=bias, kbias=kbias, bgmode=bgmode or "bh")
+    want = fa.flash_bwd_bias_plain(q, k, v, km, bias, kbias, bgmode or "bh",
+                                   3, out, lse, do, scale, causal=causal,
+                                   mask=mask, gmode=mgmode or "bh")
+    assert float((lse - lse_ref).abs().max()) <= 1e-4
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    for g, w, name in zip((dq, dk, dv, dbias, dkbias), want,
+                          ("dq", "dk", "dv", "dbias", "dkbias")):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert bool(torch.isfinite(g.float()).all()), name
+            torch.testing.assert_close(g.float(), w.float(), **BF16_TOL,
+                                       msg=name)
+    valid = fa._valid(6, s_q, s_kv, cuda, key_mask=km, causal=causal,
+                      mask=mask, gmode=mgmode or "bh", heads=3)
+    if valid is not None:
+        blind = ~valid.expand(6, s_q, s_kv).any(-1)
+        if bool(blind.any()):
+            assert float(out[blind].float().abs().max()) == 0.0
+            assert float(dq[blind].float().abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_autograd_function_matches_the_cpu_route(cuda, causal):
+    """``flash_attention`` on bfloat16 (B, H, S, D) tensors with a key mask
+    (BERT) or ``causal`` (GPT-2): the bf16 forward, dQ and dK/dV launch
+    once each, and the output and gradients match the same call on the
+    CPU (the plain versions) within ``BF16_TOL``."""
+    q, k, v, do, km = _causal_inputs(cuda, 200, 200, 64, not causal, seed=3)
+    q4, k4, v4, do4 = (t.view(2, 3, 200, 64) for t in _bf16(q, k, v, do))
+    names = [f"bf16_{n}{'_causal' if causal else ''}_launches"
+             for n in ("fwd", "dq", "dkv")]
+    before = [getattr(fa, n) for n in names]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        x = [t.to(dev).detach().requires_grad_(True) for t in (q4, k4, v4)]
+        out = fa.flash_attention(*x, causal=causal,
+                                 key_mask=None if km is None else km.to(dev))
+        res[dev] = (out,) + torch.autograd.grad(out, x, do4.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert [getattr(fa, n) for n in names] == [n + 1 for n in before]
+    for g, w in zip(res["cuda"], res["cpu"]):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        torch.testing.assert_close(g.detach().float().cpu(),
+                                   w.detach().float(), **BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_bf16_head_dim_must_be_a_multiple_of_8(cuda):
+    q, k, v, _, _ = _causal_inputs(cuda, 64, 64, 68, False, seed=1)
+    fa.flash_fwd_masked(q, k, v, None, 0.1)         # float32 takes D = 68
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_fwd_masked(*_bf16(q, k, v), None, 0.1)
