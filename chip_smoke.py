@@ -178,18 +178,25 @@ without printing the final result line:
 24. Tiny XLNet and tiny Longformer (dropout 0) on the card and on the CPU
     from the same weights for 3 Adam steps; the losses and the step-1
     gradients of every variable must agree at phase 20's gates.
-25. Hold every bf16 instantiation of the training kernels (forward, dQ
-    with dbias, dK/dV with dkbias) against its bf16 plain version:
-    the key-mask kernels at the BERT-base flagship's attention shape
-    (B=64, H=12, S=512, D=64, ``synthetic_mlm_batch``'s key mask with one
-    batch row fully masked) and the causal ones at GPT-2 small's (B=8,
-    H=12, S=1024), each timed (L2 flushed, median of 50) beside its
-    plain version, SDPA in bf16 and the bound (bytes at 2 a value, or the
-    visible pairs' operations at the 989 TFLOP/s dense bf16 peak); dense,
-    ragged causal with a key mask, S_q > S_kv, a dense bias (groups h and
-    bh), the key-bias strip, a full mask (groups b and one), a full mask
-    with a bias and with a strip at small shapes.  Tolerance
-    ``BF16_RTOL`` / ``BF16_ATOL``.
+25. Check in the SASS (``cuobjdump -sass``) that every instantiation of
+    the bf16 forward and dK/dV kernels runs its products on the tensor
+    cores (bf16 ``HMMA``).  Hold every bf16 instantiation of the training
+    kernels (forward, dQ with dbias, dK/dV with dkbias) against its bf16
+    plain version: the key-mask kernels at the BERT-base flagship's
+    attention shape (B=64, H=12, S=512, D=64, ``synthetic_mlm_batch``'s
+    key mask with one batch row fully masked) and the causal ones at GPT-2
+    small's (B=8, H=12, S=1024), each timed (L2 flushed, median of 50)
+    beside its plain version, SDPA in bf16 and the bound (bytes at 2 a
+    value, or the visible pairs' operations at the 989 TFLOP/s dense bf16
+    peak); dense, ragged causal with a key mask, S_q > S_kv, a dense bias
+    (groups h and bh), the key-bias strip, a full mask (groups b and one),
+    a full mask with a bias and with a strip at small shapes; then the
+    instantiations on no bf16 path, timed at their float32 paths' shapes:
+    T5's encoder bias (B=32, H=8, S=512, group h, its key mask) and
+    key-bias strip (group b, causal), XLNet's content stream (B=8, S=512,
+    mask group b, bias group h) and query stream with a strip, and
+    Longformer's window (B=2, S=4096, mask group one).  Tolerance
+    ``BF16_RTOL`` / ``BF16_ATOL``, lse within ``BF16_LSE_ATOL``.
 26. Train BERT-base at bench.py's flagship shape (batch 64, seq 512,
     ``synthetic_mlm_batch``, dropout 0.1, ``AdamOptimizer(1e-4)``) through
     ``Executor(compute_dtype="bfloat16").run``: 2 warm-up steps, then 10
@@ -2470,6 +2477,34 @@ def phase_mask_train_parity(ht):
         host.close()
 
 
+def check_hmma():
+    """The SASS of the bf16 forward and dK/dV libraries (``cuobjdump
+    -sass``): every instantiation of the two kernels must run its products
+    on the tensor cores (bf16 ``HMMA`` instructions).  Returns {kernel
+    template: (instantiations, fewest HMMA in one)}."""
+    from hetu_tpu_torch.ops.kernels import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    found = {}
+    for source, kern in (("flash_attention_bf16", "flash_fwd_mma_kernel"),
+                         ("flash_attention_dkv_bf16",
+                          "flash_dkv_mma_kernel")):
+        sass = subprocess.run([tool, "-sass", _build.library_path(source)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        funcs = [f for f in sass.split("Function : ")[1:]
+                 if kern in f.split("\n", 1)[0]]
+        hmma = [sum("HMMA" in ln and "BF16" in ln for ln in f.splitlines())
+                for f in funcs]
+        if not funcs or min(hmma) == 0:
+            raise AssertionError(f"{source}: {kern} has no bf16 HMMA in "
+                                 f"{hmma.count(0)} of {len(funcs)} "
+                                 f"instantiations")
+        found[kern] = (len(funcs), min(hmma))
+    log(f"[bf16-kernels] SASS: bf16 HMMA in every instantiation "
+        f"(instantiations, fewest HMMA): {json.dumps(found)}")
+    return found
+
+
 def phase_bf16_kernels(ht, fa):
     """Every bf16 instantiation of the training kernels against its bf16
     plain version: the key-mask kernels at the BERT-base flagship's
@@ -2482,6 +2517,7 @@ def phase_bf16_kernels(ht, fa):
     mask), a full mask with a bias and with a strip at small shapes.
     Returns the kernels-line entries {fwd, dq, dkv} of each path, errors
     the worst over the cases of the same instantiation."""
+    check_hmma()
     flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     flush = flush_buf.zero_
     rng = np.random.RandomState(25)
@@ -2554,6 +2590,49 @@ def phase_bf16_kernels(ht, fa):
               kbias=group("one", 1, 200), gmode="one", causal=True))]
     for path, name, s_q, s_kv, kw in others:
         run(path, name, 6, s_q, s_kv, heads=3, scale=0.37, **kw)
+
+    # the other instantiations timed at their float32 paths' shapes (phases
+    # 18 and 21), on no bf16 path: T5's encoder (bias group h, its padded key
+    # mask with a dead batch row) and key-bias strip, XLNet's content stream
+    # (mask group b, bias group h) and query stream with a strip, and
+    # Longformer's window (mask group one)
+    t5 = ht.T5Config.small(batch_size=T5_BATCH, src_len=T5_SRC,
+                           tgt_len=T5_TGT)
+    t5h = t5.num_heads
+    t5km = ht.synthetic_seq2seq_batch(t5, seed=0, padded=True)[3].copy()
+    t5km[-1] = 0
+    t5km = torch.from_numpy(np.ascontiguousarray(t5km, np.int32)).cuda()
+    xcfg = ht.XLNetConfig.base(batch_size=XL_BATCH, seq_len=XL_SEQ)
+    _, cmask, qmask, _ = ht.synthetic_plm_batch(xcfg, seed=0)
+    lcfg = ht.LongformerConfig.base(batch_size=LF_BATCH, seq_len=LF_SEQ)
+    wmask = ht.longformer_attention_mask(LF_SEQ, lcfg.attention_window,
+                                         lcfg.num_global_tokens)
+
+    def u8(m):
+        return torch.from_numpy(np.ascontiguousarray(m != 0, np.uint8)).cuda()
+
+    def dense(g, bh, heads, rows, s_kv):
+        return torch.from_numpy(rng.randn(fa._group_rows(
+            g, bh, heads), rows, s_kv).astype(np.float32)).cuda()
+
+    tb, xb = T5_BATCH * t5h, XL_BATCH * H
+    paths = [
+        ("bias", "T5 encoder, bias group h", tb, T5_SRC, T5_SRC,
+         dict(heads=t5h, scale=T5_KERNEL_SCALE, km=t5km, gmode="h",
+              bias=dense("h", tb, t5h, T5_SRC, T5_SRC))),
+        ("kbias", "T5 key-bias strip group b, causal", tb, T5_SRC, T5_SRC,
+         dict(heads=t5h, scale=T5_KERNEL_SCALE, causal=True, gmode="b",
+              kbias=dense("b", tb, t5h, 1, T5_SRC))),
+        ("mask_bias", "XLNet content stream", xb, XL_SEQ, XL_SEQ,
+         dict(scale=XL_SCALE, mask=u8(cmask[:, 0]), mask_gmode="b",
+              gmode="h", bias=dense("h", xb, H, XL_SEQ, XL_SEQ))),
+        ("mask_kbias", "XLNet query stream, key-bias strip", xb, XL_SEQ,
+         XL_SEQ, dict(scale=XL_SCALE, mask=u8(qmask[:, 0]), mask_gmode="b",
+                      gmode="one", kbias=dense("one", xb, H, 1, XL_SEQ))),
+        ("mask", "Longformer window", LF_BATCH * H, LF_SEQ, LF_SEQ,
+         dict(scale=XL_SCALE, mask=u8(wmask[None]), mask_gmode="one"))]
+    for path, name, bh, s_q, s_kv, kw in paths:
+        run(path, name, bh, s_q, s_kv, timed=True, **kw)
     log(f"[bf16-kernels] worst max_abs_err per instantiation "
         f"{json.dumps({f'{p}/{k}': e for (p, k), e in worst.items()})}")
     for path, row in lines.items():
@@ -2945,15 +3024,23 @@ def main():
                                  f"flash_attention.py:{at}",
                                  0 if counts is None else counts[name + sfx],
                                  mlines[key + sfx]))
-    # the bf16 instantiations of the two paths: the key-mask kernels (BERT)
-    # and the causal ones (GPT-2)
-    for path, sfx in (("bert", "_bf16"), ("gpt2", "_causal_bf16")):
-        for key, name, source, at in flash:
-            if source == "flash_attention_bwd.cu":
-                source = "flash_attention_bwd_bf16.cu"
-            kernels.append(entry(name + sfx, source,
+    # the bf16 instantiations of the two paths, the key-mask kernels (BERT)
+    # and the causal ones (GPT-2), then the others at their float32 paths'
+    # shapes (on no bf16 path: 0, as phases 26 and 27 checked); the forward
+    # and dK/dV on the tensor cores, dQ on the SIMT loops
+    bf_sources = {"fwd": "flash_attention_bf16.cu",
+                  "dq": "flash_attention_bwd_bf16.cu",
+                  "dkv": "flash_attention_dkv_bf16.cu"}
+    for path, sfx in (("bert", "_bf16"), ("gpt2", "_causal_bf16"),
+                      ("bias", "_bias_bf16"), ("kbias", "_kbias_bf16"),
+                      ("mask", "_mask_bf16"), ("mask_bias", "_mask_bias_bf16"),
+                      ("mask_kbias", "_mask_kbias_bf16")):
+        for key, name, _, at in flash:
+            kernels.append(entry(name + sfx, bf_sources[key],
                                  f"flash_attention.py:{at}",
-                                 bflaunches[name + sfx], bflines[path][key]))
+                                 bflaunches[name + sfx]
+                                 if path in ("bert", "gpt2") else 0,
+                                 bflines[path][key]))
     kernels.append(entry("emb_gather", "emb_cache.cu", "emb_cache.py:71",
                          claunches["emb_gather"], gline))
     kernels.append(entry("sorted_segment_sum", "segment_sum.cu",

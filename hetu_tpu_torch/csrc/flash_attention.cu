@@ -1,9 +1,9 @@
 // Flash attention forward for Hopper (sm_90a): two kernels that replace
 // hetu_tpu/ops/pallas/flash_attention.py::_fwd_kernel (launched by _flash_fwd).
 // Both output `out` (BH, S_q, D) and the per-row log-sum-exp `lse` (BH, S_q),
-// float32 (the training kernel also in bfloat16, with lse float32).  A row
-// with no valid key outputs 0 with lse = -1e30, as the TPU kernel's _finish
-// does.
+// float32; the bf16 training entries run on the tensor cores
+// (flash_attention_bf16.cu).  A row with no valid key outputs 0 with lse =
+// -1e30, as the TPU kernel's _finish does.
 //
 // 1. flash_fwd_lengths_kernel, the `lengths` specialization (decode): for the
 //    query rows of (b*h), keys at index >= lengths[b] are invisible.
@@ -275,14 +275,10 @@ extern "C" int hetu_flash_fwd_lengths(const float* q, const float* k, const floa
 // KBIAS: a per-key strip (G, 1, S_kv), four floats a thread a tile.  Either
 // composes with key_mask and causal; the causal tile skip is unchanged.
 //
-// bfloat16 (template T = __nv_bfloat16, the `_bf16` entries; the TPU kernel's
-// bf16 instantiation): q, k, v and out are bf16, lse and the bias float32.  Q,
-// K and V tiles are widened to float32 as they are staged (flash_tile.cuh), so
-// the products run on the same SIMT loops; the probability tile that feeds
-// P.V is rounded to bf16 (the TPU kernel's p.astype(v.dtype)) while the row
-// sum l takes the unrounded P; out = acc / l is rounded to nearest even as it
-// is stored.  What bounds it is unchanged (the products' operations on the
-// CUDA cores); the inputs' bytes halve.
+// The template also takes T = __nv_bfloat16 (tiles widened to float32 as
+// they are staged, P rounded to bf16 before P.V, flash_tile.cuh), but only
+// the float32 entries are built from it: the bf16 entries run the
+// tensor-core kernel of flash_attention_bf16.cu.
 //
 // Bias with a full mask (FMASK together with BIAS or KBIAS; XLNet's
 // two-stream attention): the mask tile is staged as above and the bias read
@@ -292,8 +288,7 @@ extern "C" int hetu_flash_fwd_lengths(const float* q, const float* k, const floa
 // stream's first token of each permutation) outputs 0 with lse = -1e30, as
 // without a bias.
 //
-// Not yet: tensor cores (mma.sync / wgmma on the bf16 inputs; TF32 would
-// change the float32 numbers),
+// Not yet: tensor cores for float32 (TF32 would change the numbers),
 // double-buffered K/V staging, skipping key tiles that are entirely masked
 // by data (key_mask, full mask: at Longformer's 4096 a row sees 12.6 % of
 // the keys and every tile is walked), `lengths` together with another mask.
@@ -547,10 +542,9 @@ int entry_fwd_mask(const T* q, const T* k, const T* v, const int* key_mask,
 
 // Each launches on `stream` and returns cudaGetLastError() after the launch
 // (0 = launched).  q (bh, s_q, d), k/v (bh, s_kv, d), out (bh, s_q, d):
-// contiguous float32 (or, in the `_bf16` twin of each entry, bfloat16 with d a
-// multiple of 8), 16-byte aligned; key_mask (bh / heads, s_kv) int32 or null;
-// lse (bh, s_q) float32; a bias float32 in either.
-using bf16 = __nv_bfloat16;
+// contiguous float32, 16-byte aligned; key_mask (bh / heads, s_kv) int32 or
+// null; lse (bh, s_q) float32; a bias float32.  The `_bf16` twins of these
+// entries run on the tensor cores (flash_attention_bf16.cu).
 
 // dense (key_mask null) and key_mask; causal (bottom-right aligned),
 // optionally with a key_mask; an additive bias (entry_fwd_bias); a full mask,
@@ -588,4 +582,3 @@ using bf16 = __nv_bfloat16;
   }
 
 HETU_FWD_ENTRIES(float, )
-HETU_FWD_ENTRIES(bf16, _bf16)

@@ -68,21 +68,21 @@
 // the kernels walk every (query tile, key tile) pair though 12.6 % of the
 // pairs are visible.
 //
-// bfloat16 (template T = __nv_bfloat16, the `_bf16` entries; the TPU kernels'
-// bf16 instantiation): q, k, v, dO, dQ, dK and dV are bf16; lse, delta, the
-// bias, dbias and dkbias float32.  Row tiles are widened to float32 as they
-// are staged (flash_tile.cuh), so the products keep their SIMT loops.  The
-// operands the TPU kernels round are rounded here at the same points: dS =
-// t * scale to bf16 before dS.K (dQ kernel) and dS^T.Q (dK/dV kernel), P to
-// bf16 before P^T.dO; dbias and dkbias take the unrounded t; dQ, dK and dV
-// are rounded to nearest even as they are stored.
+// bfloat16 dQ (template T = __nv_bfloat16, the `_bf16` dQ entries; the TPU
+// kernel's bf16 instantiation): q, k, v, dO and dQ are bf16; lse, delta, the
+// bias and dbias float32.  Row tiles are widened to float32 as they are
+// staged (flash_tile.cuh), so the products keep their SIMT loops; dS = t *
+// scale is rounded to bf16 before dS.K where the TPU kernel rounds it; dbias
+// takes the unrounded t; dQ is rounded to nearest even as it is stored.  The
+// template takes T = __nv_bfloat16 for dK/dV too, but the bf16 dK/dV entries
+// run the tensor-core kernel of flash_attention_dkv_bf16.cu.
 //
 // The kernels and the C entries' bodies live in this header; the float32
-// entries are compiled in flash_attention_bwd.cu and the bf16 ones in
-// flash_attention_bwd_bf16.cu, so the two halves of the 96 instantiations
-// build in parallel.
+// entries are compiled in flash_attention_bwd.cu and the bf16 dQ ones in
+// flash_attention_bwd_bf16.cu, so they build in parallel.
 //
-// Not yet: tensor cores, double-buffered staging, one fused kernel for dQ and
+// Not yet: tensor cores for dQ (bf16; TF32 would change the float32
+// numbers), double-buffered staging, one fused kernel for dQ and
 // dK/dV, skipping the tiles a data mask hides, the `lengths` specialization,
 // the group sum of dbias inside the kernel.
 
@@ -564,14 +564,17 @@ int entry_dkv_mask(const T* q, const T* k, const T* v, const int* key_mask,
 
 }  // namespace
 
-// HETU_BWD_ENTRIES(T, SFX) defines the C entries for element type T, each
-// named with the suffix SFX.  Each launches on `stream` and returns
-// cudaGetLastError() after the launch (0 = launched).  q/dout/dq (bh, s_q, d), k/v/dk/dv (bh, s_kv, d): contiguous
-// float32 (or, in the `_bf16` twin of each entry, bfloat16 with d a multiple
-// of 8), 16-byte aligned; key_mask (bh / heads, s_kv) int32 or null; lse and
-// delta (bh, s_q) float32; a bias, dbias and dkbias float32 in either.  The
-// `_causal` entries add the causal rule.
-#define HETU_BWD_ENTRIES(T, SFX)                                                                \
+// HETU_BWD_DQ_ENTRIES(T, SFX) and HETU_BWD_DKV_ENTRIES(T, SFX) define the dQ
+// and the dK/dV C entries for element type T, each named with the suffix
+// SFX; HETU_BWD_ENTRIES(T, SFX) both.  Each launches on `stream` and returns
+// cudaGetLastError() after the launch (0 = launched).  q/dout/dq (bh, s_q,
+// d), k/v/dk/dv (bh, s_kv, d): contiguous float32 (or, in the `_bf16` twin of
+// each dQ entry, bfloat16 with d a multiple of 8), 16-byte aligned; key_mask
+// (bh / heads, s_kv) int32 or null; lse and delta (bh, s_q) float32; a bias,
+// dbias and dkbias float32 in either.  The `_causal` entries add the causal
+// rule.  (The bf16 dK/dV entries run on the tensor cores:
+// flash_attention_dkv_bf16.cu.)
+#define HETU_BWD_DQ_ENTRIES(T, SFX)                                                             \
   extern "C" int hetu_flash_bwd_dq##SFX(const T* q, const T* k, const T* v,                    \
                                         const int* key_mask, const T* dout, const float* lse,  \
                                         const float* delta, T* dq, int bh, int heads, int s_q, \
@@ -586,6 +589,24 @@ int entry_dkv_mask(const T* q, const T* k, const T* v, const int* key_mask,
     return dispatch_dq<T, true>(q, k, v, key_mask, nullptr, nullptr, dout, lse, delta, dq,     \
                                 nullptr, bh, heads, 0, 0, s_q, s_kv, d, scale, stream);        \
   }                                                                                             \
+  extern "C" int hetu_flash_bwd_dq_bias##SFX(                                                  \
+      const T* q, const T* k, const T* v, const int* key_mask, const float* bias,              \
+      const T* dout, const float* lse, const float* delta, T* dq, float* dbias, int bh,        \
+      int heads, int s_q, int s_kv, int d, int gmode, int strip, int causal, float scale,      \
+      void* stream) {                                                                          \
+    return entry_dq_bias(q, k, v, key_mask, bias, dout, lse, delta, dq, dbias, bh, heads, s_q, \
+                         s_kv, d, gmode, strip, causal, scale, stream);                        \
+  }                                                                                             \
+  extern "C" int hetu_flash_bwd_dq_mask##SFX(                                                  \
+      const T* q, const T* k, const T* v, const int* key_mask, const unsigned char* mask,      \
+      const float* bias, const T* dout, const float* lse, const float* delta, T* dq,           \
+      float* dbias, int bh, int heads, int s_q, int s_kv, int d, int gmode, int bgmode,        \
+      int strip, int causal, float scale, void* stream) {                                      \
+    return entry_dq_mask(q, k, v, key_mask, mask, bias, dout, lse, delta, dq, dbias, bh,       \
+                         heads, s_q, s_kv, d, gmode, bgmode, strip, causal, scale, stream);    \
+  }
+
+#define HETU_BWD_DKV_ENTRIES(T, SFX)                                                           \
   extern "C" int hetu_flash_bwd_dkv##SFX(const T* q, const T* k, const T* v,                   \
                                          const int* key_mask, const T* dout, const float* lse, \
                                          const float* delta, T* dk, T* dv, int bh, int heads,  \
@@ -601,14 +622,6 @@ int entry_dkv_mask(const T* q, const T* k, const T* v, const int* key_mask,
     return dispatch_dkv<T, true>(q, k, v, key_mask, nullptr, nullptr, dout, lse, delta, dk,    \
                                  dv, nullptr, bh, heads, 0, 0, s_q, s_kv, d, scale, stream);   \
   }                                                                                             \
-  extern "C" int hetu_flash_bwd_dq_bias##SFX(                                                  \
-      const T* q, const T* k, const T* v, const int* key_mask, const float* bias,              \
-      const T* dout, const float* lse, const float* delta, T* dq, float* dbias, int bh,        \
-      int heads, int s_q, int s_kv, int d, int gmode, int strip, int causal, float scale,      \
-      void* stream) {                                                                          \
-    return entry_dq_bias(q, k, v, key_mask, bias, dout, lse, delta, dq, dbias, bh, heads, s_q, \
-                         s_kv, d, gmode, strip, causal, scale, stream);                        \
-  }                                                                                             \
   extern "C" int hetu_flash_bwd_dkv_bias##SFX(                                                 \
       const T* q, const T* k, const T* v, const int* key_mask, const float* bias,              \
       const T* dout, const float* lse, const float* delta, T* dk, T* dv, float* dkbias,        \
@@ -616,14 +629,6 @@ int entry_dkv_mask(const T* q, const T* k, const T* v, const int* key_mask,
       float scale, void* stream) {                                                             \
     return entry_dkv_bias(q, k, v, key_mask, bias, dout, lse, delta, dk, dv, dkbias, bh,       \
                           heads, s_q, s_kv, d, gmode, strip, causal, scale, stream);           \
-  }                                                                                             \
-  extern "C" int hetu_flash_bwd_dq_mask##SFX(                                                  \
-      const T* q, const T* k, const T* v, const int* key_mask, const unsigned char* mask,      \
-      const float* bias, const T* dout, const float* lse, const float* delta, T* dq,           \
-      float* dbias, int bh, int heads, int s_q, int s_kv, int d, int gmode, int bgmode,        \
-      int strip, int causal, float scale, void* stream) {                                      \
-    return entry_dq_mask(q, k, v, key_mask, mask, bias, dout, lse, delta, dq, dbias, bh,       \
-                         heads, s_q, s_kv, d, gmode, bgmode, strip, causal, scale, stream);    \
   }                                                                                             \
   extern "C" int hetu_flash_bwd_dkv_mask##SFX(                                                 \
       const T* q, const T* k, const T* v, const int* key_mask, const unsigned char* mask,      \
@@ -633,3 +638,7 @@ int entry_dkv_mask(const T* q, const T* k, const T* v, const int* key_mask,
     return entry_dkv_mask(q, k, v, key_mask, mask, bias, dout, lse, delta, dk, dv, dkbias, bh, \
                           heads, s_q, s_kv, d, gmode, bgmode, strip, causal, scale, stream);   \
   }
+
+#define HETU_BWD_ENTRIES(T, SFX) \
+  HETU_BWD_DQ_ENTRIES(T, SFX)    \
+  HETU_BWD_DKV_ENTRIES(T, SFX)

@@ -1,10 +1,11 @@
-// Flash attention backward for Hopper (sm_90a), bfloat16: the C entries
-// hetu_flash_bwd_{dq,dkv}[_causal,_bias,_mask]_bf16 of the dQ and dK/dV
-// kernels in flash_attention_bwd.cuh, the TPU kernels' bf16 instantiation of
-// hetu_tpu/ops/pallas/flash_attention.py::_dq_kernel and ::_dkv_kernel.
+// Flash attention backward for Hopper (sm_90a), bfloat16 dQ: the C entries
+// hetu_flash_bwd_dq[_causal,_bias,_mask]_bf16 of the SIMT dQ kernel in
+// flash_attention_bwd.cuh, the TPU kernel's bf16 instantiation of
+// hetu_tpu/ops/pallas/flash_attention.py::_dq_kernel.  The bf16 dK/dV
+// entries run on the tensor cores (flash_attention_dkv_bf16.cu).
 
 #include <cuda_bf16.h>
 
 #include "flash_attention_bwd.cuh"
 
-HETU_BWD_ENTRIES(__nv_bfloat16, _bf16)
+HETU_BWD_DQ_ENTRIES(__nv_bfloat16, _bf16)

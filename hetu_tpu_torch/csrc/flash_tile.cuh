@@ -13,7 +13,9 @@
 // tx + 16, so a row's softmax state and its output live in the same thread.
 //
 // Element types: q, k, v, dO and the outputs out, dQ, dK, dV are float or
-// __nv_bfloat16 (the kernels' template parameter T).  A bfloat16 row tile is
+// __nv_bfloat16 (the kernels' template parameter T).  Of the bf16
+// instantiations only dQ is built from these SIMT loops; the bf16 forward and
+// dK/dV run on the tensor cores (flash_mma.cuh).  A bfloat16 row tile is
 // widened to float32 as it is staged (stage_rows), so every inner loop runs in
 // float32 on either type: a product of bf16 operands is exact in float32 and
 // accumulates in float32, as the TPU kernel's bf16 instantiation does

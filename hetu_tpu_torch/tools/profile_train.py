@@ -54,10 +54,11 @@ WARMUP = 2
 T5_SRC, T5_TGT = 512, 114
 SHAPES = {"bert": (16, 512), "gpt2": (8, 1024), "t5": (32, T5_SRC + T5_TGT),
           "xlnet": (8, 512), "longformer": (2, 4096)}
-# the kernels' names in a trace; the causal, mask and bias instantiations
-# share them
+# the kernels' names in a trace (the SIMT ones, then the bf16 tensor-core
+# forward and dK/dV); the causal, mask and bias instantiations share them
 FLASH = {"flash_fwd_kernel": "fwd", "flash_bwd_dq_kernel": "dq",
-         "flash_bwd_dkv_kernel": "dkv"}
+         "flash_bwd_dkv_kernel": "dkv", "flash_fwd_mma_kernel": "fwd",
+         "flash_dkv_mma_kernel": "dkv"}
 
 
 def _card():
@@ -141,8 +142,9 @@ def profile_steps(step, psteps=3, step_s=None):
             k[1] += e.time_range.end - e.time_range.start
     busy_us = sum(v[1] for v in kern.values())
     n_kern = sum(v[0] for v in kern.values())
-    flash = {short: sum(v[1] for n, v in kern.items() if key in n)
-             for key, short in FLASH.items()}
+    flash = collections.Counter()
+    for key, short in FLASH.items():
+        flash[short] += sum(v[1] for n, v in kern.items() if key in n)
     gemm = sum(v[1] for n, v in kern.items() if _is_gemm(n))
     top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:15]
 

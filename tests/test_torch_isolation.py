@@ -3,6 +3,7 @@ script) import neither ``jax`` nor ``hetu_tpu``, entry points refuse a
 silent CPU fallback, and unported options fail by name."""
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -219,9 +220,62 @@ def test_build_paths_stay_inside_the_package():
     assert lib.startswith(os.path.join(PKG, "_build") + os.sep)
     assert os.path.exists(_build.source_path("flash_attention"))
     assert _build.sources() == ["emb_cache", "flash_attention",
+                                "flash_attention_bf16",
                                 "flash_attention_bwd",
-                                "flash_attention_bwd_bf16", "moe_dispatch",
+                                "flash_attention_bwd_bf16",
+                                "flash_attention_dkv_bf16", "moe_dispatch",
                                 "segment_sum"]
     assert {src for src, _, _ in fa.ENTRIES.values()} == {
-        "flash_attention", "flash_attention_bwd", "flash_attention_bwd_bf16"}
+        "flash_attention", "flash_attention_bf16", "flash_attention_bwd",
+        "flash_attention_bwd_bf16", "flash_attention_dkv_bf16"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def _c_entries(source):
+    """Names of the ``extern "C" int`` functions ``csrc/<source>.cu``
+    defines: written out, or through an entry macro (``#define
+    NAME(T, SFX)`` whose body names ``<entry>##SFX``) of the source or a
+    header it includes, expanded with the suffix it is invoked with."""
+    from hetu_tpu_torch.ops.kernels import _build
+    with open(_build.source_path(source)) as f:
+        text = f.read()
+    files = [text]
+    for inc in re.findall(r'#include "([^"]+)"', text):
+        with open(os.path.join(_build.CSRC_DIR, inc)) as f:
+            files.append(f.read())
+    names, macros = set(), {}
+    for body in files:
+        joined = body.replace("\\\n", " ")
+        for m in re.finditer(r"#define (\w+)\(T, SFX\)(.*)", joined):
+            macros[m.group(1)] = m.group(2)
+        plain = "\n".join(ln for ln in joined.splitlines()
+                          if not ln.startswith("#define"))
+        names |= set(re.findall(r'extern "C" int (\w+)\(', plain))
+    for macro, sfx in re.findall(r"^(\w+)\([^,()]*,\s*(\w*)\)\s*$", text,
+                                 re.M):
+        seen, todo = set(), [macro]
+        while todo:                        # macros that expand macros
+            body = macros[todo.pop()]
+            names |= {n + sfx for n in
+                      re.findall(r'extern "C" int (\w+)##SFX\(', body)}
+            for inner in re.findall(r"\b(HETU_\w+)\(T, SFX\)", body):
+                if inner not in seen:
+                    seen.add(inner)
+                    todo.append(inner)
+    return names
+
+
+def test_every_entry_is_defined_in_the_source_the_map_names():
+    """A routing typo in ``fa.ENTRIES`` would only show on the card (the
+    symbol is missing from the library that is loaded): every entry must be
+    an ``extern "C" int`` of the source the map names, and the map must
+    route every training entry's bf16 twin."""
+    defined = {}
+    for name, (source, _, _) in fa.ENTRIES.items():
+        if source not in defined:
+            defined[source] = _c_entries(source)
+        assert name in defined[source], (name, source,
+                                         sorted(defined[source]))
+    assert {n + "_bf16" for n in fa.ENTRIES
+            if not n.endswith("_bf16") and n != "hetu_flash_fwd_lengths"} \
+        == {n for n in fa.ENTRIES if n.endswith("_bf16")}

@@ -664,7 +664,11 @@ def test_sparse_dispatch_and_combine_kernel_equals_plain(cuda, k):
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 
 #: (kind, mask gmode, bias gmode, S_q, S_kv, D, causal, key mask): every
-#: specialization the templates cover, at small shapes with ragged tiles
+#: specialization the templates cover, at small shapes with ragged tiles;
+#: head dims the tensor-core kernels pad (40 to 48 in shared memory) or take
+#: in one k-step (16), both sequence axes off the 64-row tile, causal with
+#: S_q > S_kv, odd S_kv (the bias read one float at a time, the mask staged
+#: byte by byte)
 BF16_CASES = [("dense", None, None, 512, 512, 64, False, False),
               ("dense", None, None, 200, 200, 64, False, True),
               ("dense", None, None, 1024, 1024, 64, True, False),
@@ -675,7 +679,16 @@ BF16_CASES = [("dense", None, None, 512, 512, 64, False, False),
               ("mask", "b", None, 96, 96, 64, False, False),
               ("mask", "one", None, 200, 64, 64, True, True),
               ("mask_bias", "b", "h", 96, 96, 64, False, False),
-              ("mask_kbias", "h", "one", 130, 200, 64, True, False)]
+              ("mask_kbias", "h", "one", 130, 200, 64, True, False),
+              ("dense", None, None, 200, 200, 40, False, True),
+              ("dense", None, None, 100, 150, 16, False, False),
+              ("dense", None, None, 150, 70, 40, True, False),
+              ("dense", None, None, 77, 101, 96, True, True),
+              ("bias", None, "bh", 77, 101, 40, False, True),
+              ("kbias", None, "h", 150, 70, 16, True, False),
+              ("mask", "bh", None, 130, 90, 40, True, False),
+              ("mask_bias", "b", "h", 100, 150, 16, False, True),
+              ("mask_kbias", "one", "b", 77, 101, 120, False, False)]
 
 
 def _bf16(*xs):
@@ -770,6 +783,41 @@ def test_bf16_kernels_match_plain_version(cuda, kind, mgmode, bgmode, s_q,
         if bool(blind.any()):
             assert float(out[blind].float().abs().max()) == 0.0
             assert float(dq[blind].float().abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,mgmode,bgmode,s_q,s_kv,d,causal,masked",
+                         [("dense", None, None, 512, 512, 64, False, True),
+                          ("dense", None, None, 1024, 1024, 64, True, False),
+                          ("kbias", None, "b", 200, 200, 40, True, True),
+                          ("mask_kbias", "h", "one", 130, 200, 64, True,
+                           False)])
+def test_bf16_dkv_is_the_same_from_run_to_run(cuda, kind, mgmode, bgmode,
+                                              s_q, s_kv, d, causal, masked):
+    """The bf16 dK/dV kernel owns its keys and sums in a fixed order (no
+    atomics): two runs on the same inputs give dK, dV and dkbias equal bit
+    for bit."""
+    q, k, v, do, km = _causal_inputs(cuda, s_q, s_kv, d, masked, s_q + d)
+    q, k, v, do = _bf16(q, k, v, do)
+    mask = None
+    if mgmode is not None:
+        rng = np.random.RandomState(s_kv)
+        mask = torch.from_numpy(
+            (rng.rand(fa._group_rows(mgmode, 6, 3), s_q, s_kv) < 0.4)
+            .astype(np.uint8)).to(cuda)
+    bias = kbias = None
+    if bgmode is not None:
+        bias, kbias = _bias_of(cuda, "kbias", bgmode, s_q, s_kv, seed=s_kv)
+    runs = []
+    for _ in range(2):
+        got = _bf16_run(kind, q, k, v, do, km, mask, mgmode or "bh", bias,
+                        kbias, bgmode or "bh", causal, 0.37)
+        runs.append((got[3], got[4], got[6]))       # dk, dv, dkbias
+    torch.cuda.synchronize()
+    for a, b, name in zip(runs[0], runs[1], ("dk", "dv", "dkbias")):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(a, b), name
 
 
 @pytest.mark.gpu
