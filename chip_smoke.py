@@ -179,7 +179,7 @@ without printing the final result line:
     from the same weights for 3 Adam steps; the losses and the step-1
     gradients of every variable must agree at phase 20's gates.
 25. Check in the SASS (``cuobjdump -sass``) that every instantiation of
-    the bf16 forward and dK/dV kernels runs its products on the tensor
+    the bf16 forward, dQ and dK/dV kernels runs its products on the tensor
     cores (bf16 ``HMMA``).  Hold every bf16 instantiation of the training
     kernels (forward, dQ with dbias, dK/dV with dkbias) against its bf16
     plain version: the key-mask kernels at the BERT-base flagship's
@@ -2478,14 +2478,15 @@ def phase_mask_train_parity(ht):
 
 
 def check_hmma():
-    """The SASS of the bf16 forward and dK/dV libraries (``cuobjdump
-    -sass``): every instantiation of the two kernels must run its products
-    on the tensor cores (bf16 ``HMMA`` instructions).  Returns {kernel
-    template: (instantiations, fewest HMMA in one)}."""
+    """The SASS of the bf16 forward, dQ and dK/dV libraries (``cuobjdump
+    -sass``): every instantiation of the three kernels must run its
+    products on the tensor cores (bf16 ``HMMA`` instructions).  Returns
+    {kernel template: (instantiations, fewest HMMA in one)}."""
     from hetu_tpu_torch.ops.kernels import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     found = {}
     for source, kern in (("flash_attention_bf16", "flash_fwd_mma_kernel"),
+                         ("flash_attention_dq_bf16", "flash_dq_mma_kernel"),
                          ("flash_attention_dkv_bf16",
                           "flash_dkv_mma_kernel")):
         sass = subprocess.run([tool, "-sass", _build.library_path(source)],
@@ -3026,10 +3027,10 @@ def main():
                                  mlines[key + sfx]))
     # the bf16 instantiations of the two paths, the key-mask kernels (BERT)
     # and the causal ones (GPT-2), then the others at their float32 paths'
-    # shapes (on no bf16 path: 0, as phases 26 and 27 checked); the forward
-    # and dK/dV on the tensor cores, dQ on the SIMT loops
+    # shapes (on no bf16 path: 0, as phases 26 and 27 checked); all three on
+    # the tensor cores
     bf_sources = {"fwd": "flash_attention_bf16.cu",
-                  "dq": "flash_attention_bwd_bf16.cu",
+                  "dq": "flash_attention_dq_bf16.cu",
                   "dkv": "flash_attention_dkv_bf16.cu"}
     for path, sfx in (("bert", "_bf16"), ("gpt2", "_causal_bf16"),
                       ("bias", "_bias_bf16"), ("kbias", "_kbias_bf16"),

@@ -275,9 +275,8 @@ extern "C" int hetu_flash_fwd_lengths(const float* q, const float* k, const floa
 // KBIAS: a per-key strip (G, 1, S_kv), four floats a thread a tile.  Either
 // composes with key_mask and causal; the causal tile skip is unchanged.
 //
-// The template also takes T = __nv_bfloat16 (tiles widened to float32 as
-// they are staged, P rounded to bf16 before P.V, flash_tile.cuh), but only
-// the float32 entries are built from it: the bf16 entries run the
+// Only float32 entries are built from this template (T = float, P "rounded"
+// by the identity round_to<float>, flash_tile.cuh): the bf16 entries run the
 // tensor-core kernel of flash_attention_bf16.cu.
 //
 // Bias with a full mask (FMASK together with BIAS or KBIAS; XLNet's
@@ -300,7 +299,7 @@ using hetu_flash::PLD;
 using hetu_flash::TILE;
 using hetu_flash::TTHREADS;
 
-// T: the element type of q, k, v and out (float or __nv_bfloat16); G: float4
+// T: the element type of q, k, v and out (float); G: float4
 // output column groups per thread (D <= 64 G); BIAS / KBIAS: at most one,
 // `bias` then points to the (G, S_q, S_kv) bias or the (G, S_kv) strip of
 // group mode `bgmode`

@@ -68,23 +68,15 @@
 // the kernels walk every (query tile, key tile) pair though 12.6 % of the
 // pairs are visible.
 //
-// bfloat16 dQ (template T = __nv_bfloat16, the `_bf16` dQ entries; the TPU
-// kernel's bf16 instantiation): q, k, v, dO and dQ are bf16; lse, delta, the
-// bias and dbias float32.  Row tiles are widened to float32 as they are
-// staged (flash_tile.cuh), so the products keep their SIMT loops; dS = t *
-// scale is rounded to bf16 before dS.K where the TPU kernel rounds it; dbias
-// takes the unrounded t; dQ is rounded to nearest even as it is stored.  The
-// template takes T = __nv_bfloat16 for dK/dV too, but the bf16 dK/dV entries
-// run the tensor-core kernel of flash_attention_dkv_bf16.cu.
+// float32 only (template T = float): the bf16 entries run the tensor-core
+// kernels of flash_attention_dq_bf16.cu and flash_attention_dkv_bf16.cu.
+// The kernels and the C entries' bodies live in this header; the entries
+// are compiled in flash_attention_bwd.cu.
 //
-// The kernels and the C entries' bodies live in this header; the float32
-// entries are compiled in flash_attention_bwd.cu and the bf16 dQ ones in
-// flash_attention_bwd_bf16.cu, so they build in parallel.
-//
-// Not yet: tensor cores for dQ (bf16; TF32 would change the float32
-// numbers), double-buffered staging, one fused kernel for dQ and
-// dK/dV, skipping the tiles a data mask hides, the `lengths` specialization,
-// the group sum of dbias inside the kernel.
+// Not yet: tensor cores (TF32 would change the float32 numbers),
+// double-buffered staging, one fused kernel for dQ and dK/dV, skipping the
+// tiles a data mask hides, the `lengths` specialization, the group sum of
+// dbias inside the kernel.
 
 #pragma once
 
@@ -100,12 +92,11 @@ using namespace hetu_flash;
 // so the uchar4 reads of a warp land in 32 distinct banks.
 constexpr int MLD = TILE + 4;
 
-// T: the element type of q, k, v, dO and the gradients (float or
-// __nv_bfloat16); G: float4 output column groups per thread (D <= 64 G); FMASK: `mask`
-// points to the (G, S_q, S_kv) uint8 mask of group mode `gmode`; BIAS /
-// KBIAS: at most one, `bias` then points to the (G, S_q, S_kv) bias or the
-// (G, S_kv) strip of group mode `bgmode`; `dbias` (BH, S_q, S_kv) is written
-// with BIAS
+// T: the element type of q, k, v, dO and the gradients (float); G: float4
+// output column groups per thread (D <= 64 G); FMASK: `mask` points to the
+// (G, S_q, S_kv) uint8 mask of group mode `gmode`; BIAS / KBIAS: at most
+// one, `bias` then points to the (G, S_q, S_kv) bias or the (G, S_kv) strip
+// of group mode `bgmode`; `dbias` (BH, S_q, S_kv) is written with BIAS
 template <typename T, int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
 __global__ void __launch_bounds__(TTHREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -568,11 +559,10 @@ int entry_dkv_mask(const T* q, const T* k, const T* v, const int* key_mask,
 // and the dK/dV C entries for element type T, each named with the suffix
 // SFX; HETU_BWD_ENTRIES(T, SFX) both.  Each launches on `stream` and returns
 // cudaGetLastError() after the launch (0 = launched).  q/dout/dq (bh, s_q,
-// d), k/v/dk/dv (bh, s_kv, d): contiguous float32 (or, in the `_bf16` twin of
-// each dQ entry, bfloat16 with d a multiple of 8), 16-byte aligned; key_mask
+// d), k/v/dk/dv (bh, s_kv, d): contiguous float32, 16-byte aligned; key_mask
 // (bh / heads, s_kv) int32 or null; lse and delta (bh, s_q) float32; a bias,
-// dbias and dkbias float32 in either.  The `_causal` entries add the causal
-// rule.  (The bf16 dK/dV entries run on the tensor cores:
+// dbias and dkbias float32.  The `_causal` entries add the causal rule.
+// (The `_bf16` twins run on the tensor cores: flash_attention_dq_bf16.cu,
 // flash_attention_dkv_bf16.cu.)
 #define HETU_BWD_DQ_ENTRIES(T, SFX)                                                             \
   extern "C" int hetu_flash_bwd_dq##SFX(const T* q, const T* k, const T* v,                    \

@@ -7,8 +7,8 @@
 // kernel's (flash_attention_bwd.cuh): P = exp(s - lse) on valid pairs, 0
 // elsewhere (a select, so a row with lse = -1e30 never forms exp(+huge)),
 // t = P * (dP - delta), dV = P^T.dO and dK = (t * scale)^T.Q; with a
-// key-bias strip dkbias = the column sums of t.  The bf16 dQ kernel stays
-// the SIMT one (flash_attention_bwd_bf16.cu).
+// key-bias strip dkbias = the column sums of t.  The bf16 dQ kernel is
+// flash_attention_dq_bf16.cu.
 //
 // What bounds it: at the training shapes the four products, 8 * D flops per
 // visible (row, key) pair: the tensor cores, not the memory.  Design
@@ -34,8 +34,8 @@
 // Each CTA owns its keys: no atomics, and dK, dV and dkbias are the same bit
 // for bit from run to run.
 //
-// Not yet: wgmma and TMA, dQ on the tensor cores (one fused kernel for dQ and
-// dK/dV), skipping tiles a data mask hides.
+// Not yet: wgmma and TMA, one fused kernel for dQ and dK/dV, skipping tiles
+// a data mask hides.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

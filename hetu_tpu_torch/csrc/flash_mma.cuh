@@ -1,10 +1,11 @@
 // Shared pieces of the port's bf16 tensor-core flash kernels (sm_90a):
-// flash_attention_bf16.cu (the forward) and flash_attention_dkv_bf16.cu
-// (dK/dV).  Both run their products on mma.sync.aligned.m16n8k16 with bf16
-// operands and float32 accumulators, written with inline PTX.
+// flash_attention_bf16.cu (the forward), flash_attention_dq_bf16.cu (dQ) and
+// flash_attention_dkv_bf16.cu (dK/dV).  All run their products on
+// mma.sync.aligned.m16n8k16 with bf16 operands and float32 accumulators,
+// written with inline PTX.
 //
-// Tile scheme: a CTA of 4 warps owns 64 rows (query rows in the forward,
-// keys in dK/dV), 16 rows a warp, and walks the other side in tiles of 64
+// Tile scheme: a CTA of 4 warps owns 64 rows (query rows in the forward and
+// dQ, keys in dK/dV), 16 rows a warp, and walks the other side in tiles of 64
 // rows staged in shared memory with cp.async, two buffers deep, so the copy
 // of the next tile runs under this tile's products.  The head dim is padded
 // to the instantiation's DMAX (64 for d <= 64, else 128), so every loop over

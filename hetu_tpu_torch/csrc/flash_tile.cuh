@@ -12,21 +12,13 @@
 // the same thread owns the same rows and the float4 column groups tx and
 // tx + 16, so a row's softmax state and its output live in the same thread.
 //
-// Element types: q, k, v, dO and the outputs out, dQ, dK, dV are float or
-// __nv_bfloat16 (the kernels' template parameter T).  Of the bf16
-// instantiations only dQ is built from these SIMT loops; the bf16 forward and
-// dK/dV run on the tensor cores (flash_mma.cuh).  A bfloat16 row tile is
-// widened to float32 as it is staged (stage_rows), so every inner loop runs in
-// float32 on either type: a product of bf16 operands is exact in float32 and
-// accumulates in float32, as the TPU kernel's bf16 instantiation does
-// (preferred_element_type=float32).  Where that kernel rounds an operand of a
-// product to bf16 (P before P.V and P^T.dO, dS before dS.K and dS^T.Q), the
-// kernels store round_to<T>(x) into the shared tile; outputs are rounded to
-// nearest even as they are stored (store_rows).  For float every rounding is
-// the identity, so the float32 kernels are unchanged.
+// Element type: the kernels built from these SIMT loops are float32 (their
+// template parameter T is float); where the TPU kernel's bf16 instantiation
+// rounds an operand of a product, they store round_to<T>(x) into the shared
+// tile, the identity for float.  The bf16 forward, dQ and dK/dV run on the
+// tensor cores (flash_mma.cuh).
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace hetu_flash {
@@ -78,19 +70,14 @@ __device__ __forceinline__ float half_sum(float x) {
   return x;
 }
 
-// x as an operand of a product of T values: rounded to T (bf16: to nearest
-// even) and widened back; float: x itself.
+// x as an operand of a product of T values, rounded to T: for float, x
+// itself.
 template <typename T>
 __device__ __forceinline__ float round_to(float x);
 
 template <>
 __device__ __forceinline__ float round_to<float>(float x) {
   return x;
-}
-
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // Stage rows [r0, r0 + TILE) of the row-major (n, d) matrix `src` into `dst`
@@ -109,43 +96,9 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__
   }
 }
 
-// The same for a bfloat16 matrix (d a multiple of 8): each thread loads 8
-// values (16 bytes) and widens them into two float4 stores, so the staged tile
-// is float32 exactly as above.  The load is synchronous: the caller's
-// cp_async_wait_all and barrier cover it as well.
-__device__ __forceinline__ void stage_rows(float* dst, const __nv_bfloat16* __restrict__ src,
-                                           int r0, int n, int d) {
-  const int d8 = d >> 3, ld = d + 4;
-  for (int i = threadIdx.x; i < TILE * d8; i += TTHREADS) {
-    const int r = i / d8, c = i - r * d8;
-    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-    if (r0 + r < n) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * d) + c);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-      const float2 e = __bfloat1622float2(h[2]), f = __bfloat1622float2(h[3]);
-      lo = make_float4(a.x, a.y, b.x, b.y);
-      hi = make_float4(e.x, e.y, f.x, f.y);
-    }
-    float* s = dst + r * ld + 8 * c;
-    *reinterpret_cast<float4*>(s) = lo;
-    *reinterpret_cast<float4*>(s + 4) = hi;
-  }
-}
-
-// Four consecutive output values at `p` (16-byte aligned for float, 8-byte for
-// bf16, which rounds each to nearest even).
+// Four consecutive output values at `p` (16-byte aligned).
 __device__ __forceinline__ void store4(float* p, const float4& a) {
   *reinterpret_cast<float4*>(p) = a;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float4& a) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a.x, a.y);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(a.z, a.w);
-  uint2 u;
-  u.x = *reinterpret_cast<const unsigned*>(&lo);
-  u.y = *reinterpret_cast<const unsigned*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 // acc[i][j] = A[4ty + i, :d] . B[tx + 16j, :d] over two staged row tiles.

@@ -51,10 +51,10 @@ padded to a multiple of 128: ragged tiles are masked inside the kernels,
 so causal attention takes any pair of lengths.
 
 bfloat16: every training specialization takes bfloat16 q, k, v and dO
-(the ``_bf16`` C entries, head dim a multiple of 8: the forward and dK/dV
-on the tensor cores, ``mma.sync`` in ``csrc/flash_attention_bf16.cu`` and
-``csrc/flash_attention_dkv_bf16.cu``; dQ in
-``csrc/flash_attention_bwd_bf16.cu``) and rounds where the
+(the ``_bf16`` C entries, head dim a multiple of 8: the forward, dQ and
+dK/dV on the tensor cores, ``mma.sync`` in ``csrc/flash_attention_bf16.cu``,
+``csrc/flash_attention_dq_bf16.cu`` and
+``csrc/flash_attention_dkv_bf16.cu``) and rounds where the
 TPU kernel's bf16 instantiation rounds: products of bf16 operands
 accumulate in float32; the row sum l sums the unrounded P; P is rounded
 to bf16 before P·V and Pᵀ·dO, dS·scale before dS·K and dSᵀ·Q; out, dQ,
@@ -169,15 +169,14 @@ ENTRIES = {"hetu_flash_fwd_lengths": ("flash_attention", 6, 5),
            "hetu_flash_bwd_dkv_bias": ("flash_attention_bwd", 11, 8),
            "hetu_flash_bwd_dq_mask": ("flash_attention_bwd", 11, 9),
            "hetu_flash_bwd_dkv_mask": ("flash_attention_bwd", 12, 9)}
-# every training entry also has a bfloat16 twin, ``<entry>_bf16``, compiled
-# from a source of its own so the sources build in parallel: the forward and
-# dK/dV on the tensor cores (``csrc/flash_attention_bf16.cu``,
-# ``csrc/flash_attention_dkv_bf16.cu``), dQ on the SIMT loops
-# (``csrc/flash_attention_bwd_bf16.cu``)
+# every training entry also has a bfloat16 twin, ``<entry>_bf16``, on the
+# tensor cores, the forward, dQ and dK/dV each compiled from a source of its
+# own so the sources build in parallel (``csrc/flash_attention_bf16.cu``,
+# ``csrc/flash_attention_dq_bf16.cu``, ``csrc/flash_attention_dkv_bf16.cu``)
 ENTRIES.update({
     name + "_bf16": ("flash_attention_bf16" if src == "flash_attention"
                      else "flash_attention_dkv_bf16" if "_dkv" in name
-                     else "flash_attention_bwd_bf16", n_ptr, n_int)
+                     else "flash_attention_dq_bf16", n_ptr, n_int)
     for name, (src, n_ptr, n_int) in ENTRIES.items()
     if name != "hetu_flash_fwd_lengths"})
 

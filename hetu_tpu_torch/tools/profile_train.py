@@ -54,11 +54,11 @@ WARMUP = 2
 T5_SRC, T5_TGT = 512, 114
 SHAPES = {"bert": (16, 512), "gpt2": (8, 1024), "t5": (32, T5_SRC + T5_TGT),
           "xlnet": (8, 512), "longformer": (2, 4096)}
-# the kernels' names in a trace (the SIMT ones, then the bf16 tensor-core
-# forward and dK/dV); the causal, mask and bias instantiations share them
+# the kernels' names in a trace (the float32 SIMT ones, then the bf16
+# tensor-core ones); the causal, mask and bias instantiations share them
 FLASH = {"flash_fwd_kernel": "fwd", "flash_bwd_dq_kernel": "dq",
          "flash_bwd_dkv_kernel": "dkv", "flash_fwd_mma_kernel": "fwd",
-         "flash_dkv_mma_kernel": "dkv"}
+         "flash_dq_mma_kernel": "dq", "flash_dkv_mma_kernel": "dkv"}
 
 
 def _card():

@@ -222,12 +222,12 @@ def test_build_paths_stay_inside_the_package():
     assert _build.sources() == ["emb_cache", "flash_attention",
                                 "flash_attention_bf16",
                                 "flash_attention_bwd",
-                                "flash_attention_bwd_bf16",
-                                "flash_attention_dkv_bf16", "moe_dispatch",
+                                "flash_attention_dkv_bf16",
+                                "flash_attention_dq_bf16", "moe_dispatch",
                                 "segment_sum"]
     assert {src for src, _, _ in fa.ENTRIES.values()} == {
         "flash_attention", "flash_attention_bf16", "flash_attention_bwd",
-        "flash_attention_bwd_bf16", "flash_attention_dkv_bf16"}
+        "flash_attention_dkv_bf16", "flash_attention_dq_bf16"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -279,3 +279,21 @@ def test_every_entry_is_defined_in_the_source_the_map_names():
     assert {n + "_bf16" for n in fa.ENTRIES
             if not n.endswith("_bf16") and n != "hetu_flash_fwd_lengths"} \
         == {n for n in fa.ENTRIES if n.endswith("_bf16")}
+
+
+#: the tensor-core source of each bf16 training kernel; the SIMT sources
+#: (``flash_attention``, ``flash_attention_bwd``) build float32 only
+BF16_SOURCES = {"fwd": "flash_attention_bf16", "dq": "flash_attention_dq_bf16",
+                "dkv": "flash_attention_dkv_bf16"}
+
+
+@pytest.mark.parametrize("entry", sorted(n for n in fa.ENTRIES
+                                         if n.endswith("_bf16")))
+def test_bf16_entry_routes_to_its_tensor_core_source(entry):
+    """Every bf16 training entry (forward, dQ, dK/dV) is built from its
+    tensor-core source, and none from a SIMT one."""
+    kind = "fwd" if entry.startswith("hetu_flash_fwd") else \
+        "dkv" if entry.startswith("hetu_flash_bwd_dkv") else "dq"
+    source = fa.ENTRIES[entry][0]
+    assert source == BF16_SOURCES[kind], (entry, source)
+    assert source not in ("flash_attention", "flash_attention_bwd")

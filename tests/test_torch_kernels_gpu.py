@@ -821,6 +821,40 @@ def test_bf16_dkv_is_the_same_from_run_to_run(cuda, kind, mgmode, bgmode,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind,mgmode,bgmode,s_q,s_kv,d,causal,masked",
+                         [("dense", None, None, 512, 512, 64, False, True),
+                          ("bias", None, "h", 200, 130, 64, False, True),
+                          ("mask_bias", "b", "h", 100, 150, 40, False, True),
+                          ("dense", None, None, 1024, 1024, 64, True, False)])
+def test_bf16_dq_is_the_same_from_run_to_run(cuda, kind, mgmode, bgmode,
+                                             s_q, s_kv, d, causal, masked):
+    """The bf16 dQ kernel owns its query rows and sums in a fixed order (no
+    atomics): two runs on the same inputs give dQ and dbias equal bit for
+    bit."""
+    q, k, v, do, km = _causal_inputs(cuda, s_q, s_kv, d, masked, s_q + d)
+    q, k, v, do = _bf16(q, k, v, do)
+    mask = None
+    if mgmode is not None:
+        rng = np.random.RandomState(s_kv)
+        mask = torch.from_numpy(
+            (rng.rand(fa._group_rows(mgmode, 6, 3), s_q, s_kv) < 0.4)
+            .astype(np.uint8)).to(cuda)
+    bias = kbias = None
+    if bgmode is not None:
+        bias, kbias = _bias_of(cuda, "bias", bgmode, s_q, s_kv, seed=s_kv)
+    runs = []
+    for _ in range(2):
+        got = _bf16_run(kind, q, k, v, do, km, mask, mgmode or "bh", bias,
+                        kbias, bgmode or "bh", causal, 0.37)
+        runs.append((got[2], got[5]))               # dq, dbias
+    torch.cuda.synchronize()
+    for a, b, name in zip(runs[0], runs[1], ("dq", "dbias")):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("causal", [False, True])
 def test_bf16_autograd_function_matches_the_cpu_route(cuda, causal):
     """``flash_attention`` on bfloat16 (B, H, S, D) tensors with a key mask
