@@ -26,12 +26,14 @@ without printing the final result line:
 5. Hold the training kernels (flash forward dense / key-mask, dQ, dK/dV)
    against their plain versions at BERT-base attention shapes (B=4,
    H=12, S=512, D=64: a key mask from ``synthetic_mlm_batch``'s lengths
-   plus one row with every key masked; dense; a ragged S=200), and time
-   each kernel, its plain version, the SDPA yardstick and the bound.
+   plus one row with every key masked; dense; a ragged S=200; key masks
+   whose tail tiles are dead), and time each kernel, its plain version,
+   the SDPA yardstick and the bound.
    Phases 5, 14 and 18 share one check (``attn_case``): out and lse
    within ``KERNEL_ATOL``, every gradient finite and within ``GRAD_RTOL``
    / ``GRAD_ATOL``, every row that sees no key out = dQ = 0 with lse =
-   -1e30.
+   -1e30; it also prints the key tiles the float32 forward walks (it skips
+   those with no visible pair) against all of them.
 6. Train BERT-base (published widths: 12 layers, hidden 768, 12 heads,
    intermediate 3072, vocab 30522; seq 512, batch 16, dropout 0.1) with
    ``AdamOptimizer(1e-4)`` through ``Executor.run``: 2 warm-up steps, then
@@ -45,10 +47,12 @@ without printing the final result line:
    CTR path's shapes: the slots and unique-inverse map of a real
    ``begin_lookup`` over Zipf batches of the WDL configuration below
    (53,248 ids, width 16, a 63,249-row slab), plus n = 0, n off the block
-   size, one run, every key distinct, widths 13 and 128.  The gather must
-   match exactly; the segment-sum within rtol 2e-5 / atol 1e-6 of its
-   plain version (``index_add_``, atomics) and exactly the host cache's
-   ``_segment_sum``.  Time each kernel, its plain version, the library
+   size, one run, every key distinct, widths 13 and 128, and runs longer
+   than the segment-sum's shared-memory chunk (one run of 3,000 x 128;
+   53,248 Zipf ids over 4,000).  The gather must match exactly; the
+   segment-sum within rtol 2e-5 / atol 1e-6 of its plain version
+   (``index_add_``, atomics), exactly the host cache's ``_segment_sum``
+   and itself from run to run.  Time each kernel, its plain version, the library
    call and the bound.
 9. Train Wide & Deep at the repository's WDL configuration (Criteo layout,
    13 dense and 26 sparse fields, batch 2048, vocab 100,000, dim 16, MLP
@@ -93,7 +97,8 @@ without printing the final result line:
     against their plain versions at GPT-2 small attention shapes (B=8,
     H=12, S=1024, D=64): causal; causal with a key mask (one batch row
     fully masked); the unequal and ragged (S_q, S_kv) pairs (200, 200),
-    (64, 200), (200, 64), (1, 130); the full mask at the chunked-prefill
+    (64, 200), (200, 64), (1, 130), and (300, 700) with dead key-mask
+    tails; the full mask at the chunked-prefill
     shape (C=32 queries against a 512-row cache, the mask of real
     ``positions``, group ``b``) and one case per other group mode, each
     with a fully masked row.  Time each kernel, its plain version, the
@@ -128,7 +133,8 @@ without printing the final result line:
     with one batch row fully masked), the decoder's (S=114, causal, group
     ``h``), rows that see no key ((200, 64) causal, group ``bh``), one row
     (group ``b``), and the key-bias strip ((B, 1, 1, S) causal at S=512;
-    (114, 200) with a key mask); dbias must be exactly 0 on every pair no
+    (114, 200) with a key mask); a dense bias with dead key-mask tiles
+    ((150, 450), group ``h``); dbias must be exactly 0 on every pair no
     row sees (above the diagonal: key tiles the causal dQ kernel skips).
     Also the key-mask kernels at the cross-attention's shape (S_q=114,
     S_kv=512, the same key mask with its fully masked row).  Time the
@@ -156,8 +162,11 @@ without printing the final result line:
     group-``h`` bias; the query stream's first token of each permutation
     sees no key), Longformer's window (B=2, H=12, S=4096,
     ``longformer_attention_mask(4096, 512, 1)``, group ``one``), the
-    key-bias strip with XLNet's query mask, and at small shapes one causal
-    case of each instantiation (with a key mask, S_q > S_kv, ragged).
+    key-bias strip with XLNet's query mask, at small shapes one causal
+    case of each instantiation (with a key mask, S_q > S_kv, ragged), and
+    sparse masks with empty key tiles and a query tile that sees no key,
+    alone and with a bias (ragged).  Longformer's forward must walk at
+    most a quarter of its key tiles.
     Each is checked by ``attn_case`` (dbias exactly 0 on every masked
     pair, rows that see no key 0) and the four path cases are timed: the
     kernel, its plain version and SDPA (a boolean ``attn_mask``, or the
@@ -573,7 +582,9 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
     lse = -1e30; dbias 0 on every pair no row sees.  With ``flush`` it
     also times each kernel, the plain versions and SDPA on the same
     function, each launch with the L2 flushed, beside its bound.  Returns
-    (max_abs_err {fwd, dq, dkv}, timings {fwd, dq, dkv} or None)."""
+    (max_abs_err {fwd, dq, dkv}, timings {fwd, dq, dkv} or None); the
+    log line and the forward's timing give the key tiles the float32
+    forward walks (``fa.walked_tiles``) beside all of them."""
     F = torch.nn.functional
     bh, s_q, dh = q.shape
     s_kv = k.shape[1]
@@ -654,6 +665,12 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
         err[key] = max(err.get(key, 0.0), e)
     valid = fa._valid(bh, s_q, s_kv, q.device, key_mask=km, causal=causal,
                       mask=mask, gmode=mask_gmode, heads=heads)
+    # key tiles the float32 forward walks (it skips those with no visible
+    # pair); the bf16 forward and every backward walk all below the causal
+    # end
+    walk = fa.walked_tiles(bh, heads, s_q, s_kv, key_mask=km, causal=causal,
+                           mask=mask, gmode=mask_gmode)
+    tiles = {"walked": int(walk.sum()), "of": int(walk.numel())}
     blind = 0
     if valid is not None:
         valid = valid.expand(bh, s_q, s_kv)
@@ -676,8 +693,9 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
         f"D={dh} {str(q.dtype)[6:]} causal={causal} key_mask={km is not None} "
         f"mask={'none' if mask is None else 'group ' + mask_gmode} "
         f"bias={'dense ' + gmode if bias is not None else 'strip ' + gmode if kbias is not None else 'none'} "
-        f"scale={scale:.4g} rows seeing no key={blind} max_abs_err "
-        f"{json.dumps(err)}; max |plain| {json.dumps(mags)}")
+        f"scale={scale:.4g} rows seeing no key={blind} forward tiles "
+        f"{tiles['walked'] if not bf16 else tiles['of']} of {tiles['of']} "
+        f"max_abs_err {json.dumps(err)}; max |plain| {json.dumps(mags)}")
     if flush is None:
         return err, None
     qkv4, kw, what = sdpa_yardstick(fa, q, k, v, heads, scale, km, causal,
@@ -713,7 +731,9 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
             elem=q.element_size(),
             peak=PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
         r["visible_pairs"] = pairs
-        if mask is not None and not causal:     # a data mask skips no tile
+        if kk == "fwd" and not bf16:
+            r["walked_tiles"], r["tiles"] = tiles["walked"], tiles["of"]
+        elif mask is not None and not causal:  # a data mask skips no tile
             r["walked_pairs"] = bh * s_q * s_kv
     log(f"{tag} {name} timing (library = {what}; its backward is one call "
         f"for dQ, dK, dV{', dmask' if len(lib_grads) == 4 else ''}) "
@@ -735,6 +755,9 @@ def phase_train_kernels(ht, fa):
     cases = [("key_mask", TS, attn), ("dense", TS, None),
              ("ragged", 200, (np.arange(200)[None, :]
                               < np.array([200, 77, 1, 150])[:, None])
+              .astype(np.int32)),
+             ("dead key tiles", TS, (np.arange(TS)[None, :]
+                                     < np.array([300, 64, 129, 511])[:, None])
               .astype(np.int32))]
     rng = np.random.RandomState(5)
     worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
@@ -979,6 +1002,7 @@ def phase_emb_kernels(ht, emb, seg):
         return torch.from_numpy(
             (rng.randn(n_, w_) * GRAD_SCALE).astype(np.float32)).cuda()
     g_plan = grads(n, w)
+    zipf = 1.0 / np.arange(1, 4001) ** 1.1
     scases = [("plan", g_plan, inv_np),
               ("plan, unit scale", torch.from_numpy(
                   rng.randn(n, w).astype(np.float32)).cuda(), inv_np)]
@@ -988,7 +1012,12 @@ def phase_emb_kernels(ht, emb, seg):
             ("one run", 4096, 16, np.zeros(4096, np.int64)),
             ("distinct", 4096, 16, rng.permutation(10 ** 5)[:4096]),
             ("w=13", 4099, 13, rng.randint(0, 500, 4099)),
-            ("w=128", 2051, 128, rng.randint(0, 500, 2051))):
+            ("w=128", 2051, 128, rng.randint(0, 500, 2051)),
+            # runs longer than the kernel's shared-memory chunk, staged by
+            # a whole CTA (the GPU test's Zipf case has runs of thousands)
+            ("one run, w=128", 3000, 128, np.zeros(3000, np.int64)),
+            ("Zipf, 4,000 ids", 53248, 16, np.random.RandomState(88).choice(
+                4000, 53248, p=zipf / zipf.sum()))):
         inv_ = np.unique(ids, return_inverse=True)[1].astype(np.int64)
         scases.append((name, grads(n_, w_), inv_))
     worst = 0.0
@@ -1019,11 +1048,16 @@ def phase_emb_kernels(ht, emb, seg):
         if host[u:].any():
             raise AssertionError(f"segment-sum ({name}): rows past the last "
                                  f"segment are not zero")
+        if not torch.equal(out, emb.scatter_add_grads(gg, ii)):
+            raise AssertionError(f"segment-sum ({name}) differs from run to "
+                                 f"run")
         if not unit:
             worst = max(worst, err)
+        longest = int(np.bincount(iv).max()) if iv.size else 0
         log(f"[emb-kernels] segment-sum {name} n={gg.shape[0]} "
-            f"w={gg.shape[1]} segments={u}: max_abs_err vs plain "
-            f"{err:.3e}, equal to host _segment_sum")
+            f"w={gg.shape[1]} segments={u} longest run {longest}: "
+            f"max_abs_err vs plain {err:.3e}, equal to host _segment_sum "
+            f"and from run to run")
     order = torch.sort(inv, stable=True)
     rows_sorted = g_plan.index_select(0, order.indices)
     seg_ids = order.values
@@ -1633,6 +1667,16 @@ def phase_causal_kernels(fa):
         log(f"[causal-kernels] full mask {name} positions={pos.tolist()} "
             f"timing (library = SDPA attn_mask) {json.dumps(row)}")
         lines["mask"] = row
+    # key tiles the float32 forward skips: dead key-mask tails, S_q < S_kv
+    s_q, s_kv = 300, 700
+    km = torch.from_numpy((np.arange(s_kv)[None, :] < np.array(
+        [700, 650, 400, 129, 64, 1, 300, 0])[:, None]).astype(np.int32)).cuda()
+    err, _ = attn_case(fa, "[causal-kernels]",
+                       "causal S_q<S_kv, dead key tiles", t(bh, s_q, D),
+                       t(bh, s_kv, D), t(bh, s_kv, D), t(bh, s_q, D), H, scale,
+                       km=km, causal=True)
+    for kk in err:
+        worst[kk] = max(worst[kk], err[kk])
     for kk in lines:
         lines[kk]["max_abs_err"] = worst[kk]
     return lines
@@ -1948,6 +1992,10 @@ def phase_bias_kernels(ht, fa):
     bh = T5_BATCH * heads
     attn = ht.synthetic_seq2seq_batch(cfg, seed=0, padded=True)[3].copy()
     attn[-1] = 0                          # a batch row with every key masked
+    # key tiles the float32 forward skips: dead tails and a dead tile inside
+    dead = (np.arange(450)[None, :] < np.random.RandomState(181).randint(
+        1, 451, size=T5_BATCH)[:, None]).astype(np.int32)
+    dead[:, 64:128] = 0
 
     def t(*shape):
         return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
@@ -1965,7 +2013,9 @@ def phase_bias_kernels(ht, fa):
              ("key-bias strip", T5_SRC, T5_SRC, True, None, "kbias", "b",
               "_kbias", True),
              ("key-bias strip ragged", 114, 200, False, attn[:, :200],
-              "kbias", "one", "_kbias", False)]
+              "kbias", "one", "_kbias", False),
+             ("dead key tiles, group h", 150, 450, False, dead, "bias", "h",
+              "", False)]
     worst = {}
     lines = {}
     for name, s_q, s_kv, causal, mask, kind, gmode, sfx, timed in cases:
@@ -2184,8 +2234,12 @@ def phase_mask_kernels(ht, fa):
     def u8(m):
         return torch.from_numpy(np.ascontiguousarray(m != 0, np.uint8)).cuda()
 
-    def rand_mask(gmode, b, s_q, s_kv):
-        m = rng.rand(fa._group_rows(gmode, b * heads, heads), s_q, s_kv) < 0.5
+    def rand_mask(gmode, b, s_q, s_kv, sparse=False):
+        m = rng.rand(fa._group_rows(gmode, b * heads, heads), s_q, s_kv) \
+            < (0.05 if sparse else 0.5)
+        if sparse:                         # tiles the float32 forward skips
+            m[:, :, 64:192] = False
+            m[:, 64:128, :] = False
         m[0, 0] = False                    # a row the mask hides entirely
         return m
 
@@ -2207,14 +2261,19 @@ def phase_mask_kernels(ht, fa):
         ("mask + bias causal, S_q > S_kv", 2, 200, 64, None, "h", "bias",
          "bh", True, False, "_mask_bias", False),
         ("mask + strip causal, key mask", 2, 77, 130, None, "one", "kbias",
-         "b", True, True, "_mask_kbias", False)]
+         "b", True, True, "_mask_kbias", False),
+        ("sparse mask, empty tiles", 2, 300, 520, "sparse", "bh", None, None,
+         False, True, "_mask", False),
+        ("sparse mask + bias, empty tiles", 2, 200, 333, "sparse", "b",
+         "bias", "h", False, False, "_mask_bias", False)]
     worst, lines = {}, {}
     for (name, b, s_q, s_kv, m, mg, kind, bg, causal, keyed, sfx,
          timed) in cases:
         bh = b * heads
         q, do = t(bh, s_q, dh), t(bh, s_q, dh)
         k, v = t(bh, s_kv, dh), t(bh, s_kv, dh)
-        mask = u8(rand_mask(mg, b, s_q, s_kv) if m is None else m)
+        mask = u8(rand_mask(mg, b, s_q, s_kv, sparse=m is not None)
+                  if m is None or isinstance(m, str) else m)
         bias = kbias = None
         if kind is not None:
             x = t(fa._group_rows(bg, bh, heads),
@@ -2232,6 +2291,12 @@ def phase_mask_kernels(ht, fa):
                              mask=mask, mask_gmode=mg)
         for kk, e in err.items():
             worst[kk + sfx] = max(worst.get(kk + sfx, 0.0), e)
+        if name.startswith("Longformer") and (
+                row["fwd"]["walked_tiles"] > row["fwd"]["tiles"] / 4):
+            raise AssertionError(f"{name}: the forward walks "
+                                 f"{row['fwd']['walked_tiles']} of "
+                                 f"{row['fwd']['tiles']} tiles, more than "
+                                 f"a quarter")
         if row is not None and "fwd" + sfx not in lines:
             for kk, r in row.items():
                 lines[kk + sfx] = r

@@ -235,190 +235,378 @@ extern "C" int hetu_flash_fwd_lengths(const float* q, const float* k, const floa
   return (int)cudaGetLastError();
 }
 
-// ---- 2. dense, key_mask, causal and full mask (training, chunked prefill)
+// ---- 2. dense, key_mask, causal, full mask and bias (training, chunked prefill)
 //
 // What bounds it: at the training shapes (S_q = S_kv = 512, D = 64) every K
 // and V row is used by 512 query rows, so the two products' operations, not
-// bytes, bound it: 4 * S_q * S_kv * D flops against 4 * (3 S + S) * D bytes
-// per (b*h).  The kernel runs in float32 on the CUDA cores (no tensor-core
-// path in fp32 exact), so the design is a register-tiled product: one CTA of
-// 256 threads per (b*h, 64 query rows); each 64-key tile of K and V is staged
-// once in shared memory and used by all 64 rows; a thread holds a 4 x 4 block
-// of scores and a 4-row slice of the output accumulator in registers
-// (flash_tile.cuh).  Scores and probabilities never reach device memory: the
-// probability tile goes through shared memory into the P.V product.  Ragged
-// tiles are zero-filled and masked here; nothing is padded in device memory.
+// bytes, bound it: 4 * D flops per visible (row, key) pair against about
+// 16 * D bytes per row.  The kernel runs in full float32 on the CUDA cores
+// (no TF32: the float32 path's numbers are the contract), so it is a
+// register-tiled SIMT product, and what decides its speed is how many
+// shared-memory reads and instructions each FMA costs, how well the copies
+// hide behind the products, and how many tiles it walks.
 //
-// Causal (template CAUSAL): validity is per (row, key), so it is taken with
-// the scores; the key loop ends at the last key the tile's last row sees
-// (bottom-right aligned diagonal, kv_off = S_kv - S_q), so key tiles wholly
-// above the diagonal cost neither bytes nor operations: about half the dense
-// work at S_q = S_kv.  A tile whose rows see no key at all (S_q > S_kv) runs
-// no iteration and writes out = 0, lse = -1e30.
+// Layout: one CTA of 128 threads (16 x 8: tx = tid % 16, ty = tid / 16) per
+// (b*h, tile of FT = 64 query rows).  Thread (ty, tx) owns query rows ty + 8i
+// (i < 8) and, in a 64 x 64 score tile, keys tx + 16j (j < 4): 32 scores, 8
+// rows x 4 FMAs for every float4 of Q and of K it reads.  The same thread owns
+// the output columns of the float4 groups tx (and tx + 16 at D > 64) of its 8
+// rows, so a row's softmax state and its output live in the 16 threads of one
+// half-warp, whose row reductions are 4 shuffles.  A grid of fewer than two
+// 64-row CTAs an SM (chunked prefill's 32-query chunks, short sequences at
+// small batch) takes 32-row CTAs instead, rows ty + 8i for i < 4, twice as
+// many CTAs for the same work.  Q, K and V tiles sit in shared memory with a
+// row stride of d16 + 4 floats (the head dim rounded up to 16, the pad
+// zero), so every product loop unrolls by 16 without a remainder.
 //
-// Full mask (template FMASK): a uint8 mask stored unbroadcast as
-// (G, S_q, S_kv), G one of 1, H, B, B*H (gmode 0..3: group 0, bh % heads,
-// bh / heads, bh).  Each 64 x 64 mask tile is staged once in shared memory
-// beside K and V (4 KB; ragged edges read as 0).  No tile is skipped:
-// validity is data.  The mask adds S_q * S_kv bytes per group to the
-// function's traffic; at the chunked-prefill shapes (S_q = 32) the K/V
-// bytes still dominate.
+// Pipeline, per walked key tile t, with one K buffer and one V buffer:
+//   wait for K(t) (+ its mask tile and key flags); barrier
+//   copy V(t) (and a dense bias tile) with cp.async
+//   S = Q K(t)^T in registers; validity; online softmax in base 2 (exp2f,
+//     scale * log2 e folded in); P into the warp's own rows of a P tile
+//   wait for V(t); barrier
+//   copy K(t + 1), its mask tile and flags with cp.async
+//   O += P V(t)
+// so V's copy hides behind Q K^T and the next K's behind P V, with two
+// barriers a tile.  P goes through shared memory, but only through the rows
+// of the warp that wrote them: no barrier guards it.  The row sum l is kept
+// per thread and reduced once at the end.
 //
-// Additive bias (templates BIAS, KBIAS; the T5 relative-position bias): the
-// logits are s * scale + bias before the validity select and the running
-// max, as in the TPU kernel's _block_logits.  BIAS: a float32 bias stored
-// unbroadcast as (G, S_q, S_kv), group `bgmode` as for the full mask; each
-// thread reads its 4 x 4 entries straight from device memory before the
-// Q.K^T product, so the loads overlap it (a half-warp reads 16 consecutive
-// floats of one row: coalesced).  At the T5 shapes (group h, 8 x 512 x 512
-// floats, 8 MB) the bias stays in L2 across the B rows that share it.
-// KBIAS: a per-key strip (G, 1, S_kv), four floats a thread a tile.  Either
-// composes with key_mask and causal; the causal tile skip is unchanged.
+// Skipping (the data decides which tiles hold work): a plain PyTorch pass
+// (ops/kernels/flash_attention.py, tile_maps) reduces the full mask to one
+// byte per (group, query tile, key tile), nonzero where a pair is visible.
+// Each CTA first lists, in order, the key tiles below its causal end whose
+// byte is nonzero and, with a key mask, that hold an unmasked key (a thread
+// a tile reads the tile's 64 key-mask words: no launch and no map for it),
+// and walks only those: no copy and no product for the others.  Causal CTAs take
+// their query tiles heaviest first.  A row that sees no key in any walked
+// tile outputs 0 with lse = -1e30.
 //
-// Only float32 entries are built from this template (T = float, P "rounded"
-// by the identity round_to<float>, flash_tile.cuh): the bf16 entries run the
-// tensor-core kernel of flash_attention_bf16.cu.
-//
-// Bias with a full mask (FMASK together with BIAS or KBIAS; XLNet's
-// two-stream attention): the mask tile is staged as above and the bias read
-// as above, each through its own group mode (`gmode` for the mask, `bgmode`
-// for the bias: XLNet's permutation mask is group b, its relative-position
-// bias group h, in one launch).  A row the mask hides entirely (the query
-// stream's first token of each permutation) outputs 0 with lse = -1e30, as
-// without a bias.
-//
-// Not yet: tensor cores for float32 (TF32 would change the numbers),
-// double-buffered K/V staging, skipping key tiles that are entirely masked
-// by data (key_mask, full mask: at Longformer's 4096 a row sees 12.6 % of
-// the keys and every tile is walked), `lengths` together with another mask.
+// Full mask (FMASK): uint8 (G, S_q, S_kv), group mode gmode (0..3: one, h,
+// b, bh -> group 0, bh % heads, bh / heads, bh); each walked tile is copied
+// beside K in 16-byte cp.async chunks (byte loads at ragged or unaligned
+// edges).  Bias (BIAS: float32 (G, S_q, S_kv) of group mode bgmode): each
+// warp copies its own rows of the tile into its rows of the P tile with
+// V(t), reads them, and overwrites them with P; the logit is
+// s * scale + bias before the validity select, as in the TPU kernel's
+// _block_logits.  Key-bias strip (KBIAS: (G, 1, S_kv)): four floats a thread
+// a tile, loaded ahead of the product.  Either composes with a full mask,
+// key_mask and causal.
 
 namespace {
 
-using hetu_flash::group_row;
-using hetu_flash::PLD;
-using hetu_flash::TILE;
-using hetu_flash::TTHREADS;
+constexpr int FT = 64;                  // query rows and keys of one tile
+constexpr int FTHREADS = 128;           // 16 x 8 threads
+constexpr int FPLD = FT + 4;            // row stride of the P tile
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-// T: the element type of q, k, v and out (float); G: float4
-// output column groups per thread (D <= 64 G); BIAS / KBIAS: at most one,
-// `bias` then points to the (G, S_q, S_kv) bias or the (G, S_kv) strip of
-// group mode `bgmode`
-template <typename T, int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
-__global__ void __launch_bounds__(TTHREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ key_mask,
-                 const unsigned char* __restrict__ mask, const float* __restrict__ bias,
-                 T* __restrict__ out, float* __restrict__ lse, int heads, int gmode,
-                 int bgmode, int s_q, int s_kv, int d, float scale) {
-  static_assert(!(BIAS && KBIAS), "a dense bias or a key-bias strip, not both");
-  using namespace hetu_flash;
-  extern __shared__ __align__(16) float smem[];
-  const int ld = d + 4;
-  float* q_s = smem;              // TILE x ld
-  float* k_s = q_s + TILE * ld;   // TILE x ld
-  float* v_s = k_s + TILE * ld;   // TILE x ld
-  float* p_s = v_s + TILE * ld;   // TILE x PLD probabilities
-  int* ok_s = reinterpret_cast<int*>(p_s + TILE * PLD);  // TILE key flags
-  unsigned char* msk_s = reinterpret_cast<unsigned char*>(ok_s + TILE);  // TILE x TILE (FMASK)
+__device__ __forceinline__ void async_copy16(void* smem, const void* gmem) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * TILE;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const T* kb = k + (size_t)bh * s_kv * d;
-  const T* vb = v + (size_t)bh * s_kv * d;
-  const int* km = key_mask ? key_mask + (size_t)(bh / heads) * s_kv : nullptr;
-  const unsigned char* mb = nullptr;
-  if (FMASK) mb = mask + (size_t)group_row(gmode, bh, heads) * s_q * s_kv;
-  const float* bb = nullptr;
-  if (BIAS || KBIAS)
-    bb = bias + (size_t)group_row(bgmode, bh, heads) * (BIAS ? (size_t)s_q * s_kv : s_kv);
-  // causal: row r sees key c iff r + kv_off >= c; the loop stops after the
-  // last key that the tile's last row sees
-  const int kv_off = s_kv - s_q;
-  const int k_end = CAUSAL ? min(s_kv, min(q0 + TILE, s_q) + kv_off) : s_kv;
+__device__ __forceinline__ void async_copy4(void* smem, const void* gmem) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
 
-  stage_rows(q_s, q + (size_t)bh * s_q * d, q0, s_q, d);
-  float m[4], l[4];
-  float4 acc[4][G];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
+__device__ __forceinline__ void async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + rows) of the row-major (n, d) float32 matrix `src` into
+// `dst` (row stride ld), 16 bytes a copy; rows at or past n are zero.
+__device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__ src, int r0,
+                                           int n, int d, int ld, int rows) {
+  const int d4 = d >> 2;
+  for (int i = threadIdx.x; i < rows * d4; i += FTHREADS) {
+    const int r = i / d4, c = i - r * d4;
+    float* s = dst + r * ld + 4 * c;
+    if (r0 + r < n)
+      async_copy16(s, src + (size_t)(r0 + r) * d + 4 * c);
+    else
+      *reinterpret_cast<float4*>(s) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  zero_acc(acc);
+}
 
-  for (int k0 = 0; k0 < k_end; k0 += TILE) {
-    __syncthreads();  // the previous tile's K, V, P and mask are consumed
-    stage_rows(k_s, kb, k0, s_kv, d);
-    stage_rows(v_s, vb, k0, s_kv, d);
-    if (tid < TILE) {
-      const int key = k0 + tid;
-      ok_s[tid] = key < s_kv && (km == nullptr || km[key] != 0);
+// The rows x 64 tile at (q0, k0) of one (S_q, S_kv) uint8 mask; ragged
+// edges 0.
+__device__ __forceinline__ void stage_mask(unsigned char* dst, const unsigned char* __restrict__ mb,
+                                           int q0, int k0, int s_q, int s_kv, bool vec,
+                                           int rows) {
+  for (int i = threadIdx.x; i < rows * FT / 16; i += FTHREADS) {
+    const int r = i >> 2, c = 16 * (i & 3);
+    const int row = q0 + r, key = k0 + c;
+    unsigned char* s = dst + r * FT + c;
+    const unsigned char* g = mb + (size_t)row * s_kv + key;
+    if (vec && row < s_q && key + 16 <= s_kv) {
+      async_copy16(s, g);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 16; ++u) s[u] = (row < s_q && key + u < s_kv) ? g[u] : 0;
     }
-    if (FMASK) {
-      for (int i = tid; i < TILE * TILE; i += TTHREADS) {
-        const int row = q0 + (i >> 6), key = k0 + (i & (TILE - 1));
-        msk_s[i] = (row < s_q && key < s_kv) ? mb[(size_t)row * s_kv + key] : 0;
+  }
+}
+
+// This warp's 2R rows (those of its ty 2w and 2w + 1) of the bias tile at
+// (q0, k0) into the same rows of p_s (stride FPLD); ragged edges 0.
+template <int R>
+__device__ __forceinline__ void stage_bias_rows(float* p_s, const float* __restrict__ bb,
+                                                int q0, int k0, int s_q, int s_kv, bool vec) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int it = 0; it < R; ++it) {
+    const int idx = it * 32 + lane, rr = idx >> 4, c = 4 * (idx & 15);
+    const int r = 2 * warp + (rr & 1) + 8 * (rr >> 1);  // rows ty + 8i of ty 2w, 2w + 1
+    const int row = q0 + r, key = k0 + c;
+    float* s = p_s + r * FPLD + c;
+    const float* g = bb + (size_t)row * s_kv + key;
+    if (vec && row < s_q && key + 4 <= s_kv) {
+      async_copy16(s, g);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (row < s_q && key + u < s_kv)
+          async_copy4(s + u, g + u);
+        else
+          s[u] = 0.f;
       }
     }
-    cp_async_wait_all();
-    __syncthreads();
+  }
+}
 
-    float bv[4][4];  // the bias of each score, loaded ahead of the product
-    if constexpr (BIAS || KBIAS) {
+__device__ __forceinline__ float half_max16(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float half_sum16(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float p, const float4& m) {
+  acc.x = fmaf(p, m.x, acc.x);
+  acc.y = fmaf(p, m.y, acc.y);
+  acc.z = fmaf(p, m.z, acc.z);
+  acc.w = fmaf(p, m.w, acc.w);
+}
+
+// R: query rows per thread (8: 64-row CTAs; 4: 32-row CTAs for grids too
+// small to fill the card); G: float4 output column groups per thread
+// (D <= 64 G).  mask_tiles (G', n_qt, n_kt) of 64 x 64 tiles: one byte per
+// tile, 0 where no pair is visible, or null (walk every tile).  BIAS / KBIAS: at
+// most one, `bias` then points to the (G', S_q, S_kv) bias or the (G', S_kv)
+// strip of group mode `bgmode`.
+template <int R, int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
+__global__ void __launch_bounds__(FTHREADS, R == 8 ? (G == 1 ? 3 : 1) : (G == 1 ? 4 : 2))
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ key_mask,
+                 const unsigned char* __restrict__ mask,
+                 const unsigned char* __restrict__ mask_tiles, const float* __restrict__ bias,
+                 float* __restrict__ out, float* __restrict__ lse, int heads, int gmode,
+                 int bgmode, int s_q, int s_kv, int d, float scale) {
+  static_assert(!(BIAS && KBIAS), "a dense bias or a key-bias strip, not both");
+  extern __shared__ __align__(16) float smem[];
+  const int d16 = (d + 15) & ~15, ld = d16 + 4;
+  constexpr int QR = 8 * R;       // query rows of the CTA
+  const int n_kt = (s_kv + FT - 1) / FT;
+  float* q_s = smem;              // QR x ld
+  float* k_s = q_s + QR * ld;     // FT x ld
+  float* v_s = k_s + FT * ld;     // FT x ld
+  float* p_s = v_s + FT * ld;     // QR x FPLD: P (a dense bias first)
+  int* ok_s = reinterpret_cast<int*>(p_s + QR * FPLD);  // FT key flags
+  int* wcnt = ok_s + FT;                                // 4 warp counts
+  int* walk = wcnt + 4;                                 // n_kt walked key tiles
+  unsigned char* msk_s = reinterpret_cast<unsigned char*>(walk + ((n_kt + 3) & ~3));  // QR x FT
+
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // the heaviest causal tiles first
+  const int q0 = qt * QR;
+  const int d4 = d >> 2;
+  const float* kb = k + (size_t)bh * s_kv * d;
+  const float* vb = v + (size_t)bh * s_kv * d;
+  const int* km = key_mask ? key_mask + (size_t)(bh / heads) * s_kv : nullptr;
+  const unsigned char* mb = nullptr;
+  const unsigned char* mt = nullptr;
+  if (FMASK) {
+    const int g = hetu_flash::group_row(gmode, bh, heads);
+    mb = mask + (size_t)g * s_q * s_kv;
+    if (mask_tiles) mt = mask_tiles + ((size_t)g * ((s_q + FT - 1) / FT) + q0 / FT) * n_kt;
+  }
+  const float* bb = nullptr;
+  if (BIAS || KBIAS)
+    bb = bias + (size_t)hetu_flash::group_row(bgmode, bh, heads) *
+                    (BIAS ? (size_t)s_q * s_kv : (size_t)s_kv);
+  const bool mvec = FMASK && (s_kv & 15) == 0 && ((size_t)mask & 15) == 0;
+  const bool bvec = BIAS && (s_kv & 3) == 0 && ((size_t)bias & 15) == 0;
+  // causal: row r sees key c iff r + kv_off >= c; the walk stops after the
+  // last key that the tile's last row sees
+  const int kv_off = s_kv - s_q;
+  int kt_end = n_kt;
+  if (CAUSAL) {
+    const int last = min(s_kv, min(q0 + QR, s_q) + kv_off);  // keys [0, last)
+    kt_end = last > 0 ? (last + FT - 1) / FT : 0;
+  }
+
+  // zero the Q and K pad columns [d, d16) once (cp.async never writes them)
+  if (d16 != d) {
+    for (int i = tid; i < (QR + FT) * (d16 - d); i += FTHREADS)  // k_s follows q_s
+      q_s[(i / (d16 - d)) * ld + d + i % (d16 - d)] = 0.f;
+  }
+
+  // the key tiles this CTA walks, in order (a ballot prefix)
+  int n_walk = 0;
+  for (int base = 0; base < kt_end; base += FTHREADS) {
+    const int kt = base + tid;
+    bool live = kt < kt_end;
+    if (live && mt) live = mt[kt] != 0;
+    if (live && km) {  // a tile whose keys are all masked holds no work
+      bool any = false;
+      const int k0 = kt * FT, kn = min(FT, s_kv - k0);
+#pragma unroll 16
+      for (int c = 0; c < FT; ++c) any |= c < kn && km[k0 + c] != 0;
+      live = any;
+    }
+    const unsigned bal = __ballot_sync(0xffffffffu, live);
+    __syncthreads();  // the previous round's counts are read
+    if (lane == 0) wcnt[warp] = __popc(bal);
+    __syncthreads();
+    int at = n_walk;
+#pragma unroll
+    for (int w = 0; w < FTHREADS / 32; ++w) {
+      if (w < warp) at += wcnt[w];
+      n_walk += wcnt[w];
+    }
+    if (live) walk[at + __popc(bal & ((1u << lane) - 1u))] = kt;
+  }
+  __syncthreads();
+
+  // K(t), its mask tile and its key flags
+  auto stage_key_tile = [&](int k0) {
+    stage_tile(k_s, kb, k0, s_kv, d, ld, FT);
+    if (tid < FT) {
+      const int key = k0 + tid;
+      if (km != nullptr && key < s_kv)
+        async_copy4(ok_s + tid, km + key);
+      else
+        ok_s[tid] = key < s_kv;
+    }
+    if (FMASK) stage_mask(msk_s, mb, q0, k0, s_q, s_kv, mvec, QR);
+  };
+
+  stage_tile(q_s, q + (size_t)bh * s_q * d, q0, s_q, d, ld, QR);
+  if (n_walk > 0) stage_key_tile(walk[0] * FT);
+  async_commit();
+
+  const float sl2 = scale * LOG2E;
+  const float neg_inf = __int_as_float(0xff800000);  // -inf: exp2 gives 0
+  float m[R], l[R];
+  float4 acc[R][G];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = hetu_flash::NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[i][g] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  for (int t = 0; t < n_walk; ++t) {
+    const int k0 = walk[t] * FT;
+    async_wait<0>();
+    __syncthreads();  // K(t) is in; every warp is done with V(t - 1) and its P rows
+    if (BIAS) {
+      stage_bias_rows<R>(p_s, bb, q0, k0, s_q, s_kv, bvec);
+      async_commit();
+    }
+    stage_tile(v_s, vb, k0, s_kv, d, ld, FT);
+    async_commit();
+
+    float kbv[4];  // the strip's values at this thread's keys
+    if (KBIAS) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int key = k0 + tx + 16 * j;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = q0 + 4 * ty + i;
-          if constexpr (BIAS)
-            bv[i][j] = (row < s_q && key < s_kv) ? bb[(size_t)row * s_kv + key] : 0.f;
-          else
-            bv[i][j] = key < s_kv ? bb[key] : 0.f;
-        }
+        kbv[j] = key < s_kv ? bb[key] : 0.f;
       }
     }
-    float s[4][4];
-    dot_rows(s, q_s, k_s, d, ty, tx);
-    bool ok[4][4];  // validity per (row, key)
+
+    // S = Q K^T: rows ty + 8i, keys tx + 16j
+    float s[R][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      const bool okj = ok_s[c] != 0;
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        bool o = okj;
-        if (CAUSAL) o = o && (q0 + 4 * ty + i + kv_off >= k0 + c);
-        if (FMASK) o = o && msk_s[(4 * ty + i) * TILE + c] != 0;
-        ok[i][j] = o;
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int c0 = 0; c0 < d16; c0 += 16) {
+#pragma unroll
+      for (int c = c0; c < c0 + 16; c += 4) {
+        float4 a[R], b[4];
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          a[i] = *reinterpret_cast<const float4*>(q_s + (ty + 8 * i) * ld + c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          b[j] = *reinterpret_cast<const float4*>(k_s + (tx + 16 * j) * ld + c);
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float x = s[i][j];
+            x = fmaf(a[i].x, b[j].x, x);
+            x = fmaf(a[i].y, b[j].y, x);
+            x = fmaf(a[i].z, b[j].z, x);
+            x = fmaf(a[i].w, b[j].w, x);
+            s[i][j] = x;
+          }
       }
     }
+    if (BIAS) {
+      async_wait<1>();  // this warp's bias rows are in (V(t) may not be)
+      __syncwarp();
+    }
+
+    // logits in base 2 (invalid: -inf, so exp2 gives 0 and no row that has
+    // seen no valid key takes a probability from its -1e30 running max);
+    // online softmax; P into this warp's rows of p_s
+    bool okj[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mt = NEG_INF;
+    for (int j = 0; j < 4; ++j) okj[j] = ok_s[tx + 16 * j] != 0;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = ty + 8 * i;
+      float mt_ = neg_inf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if constexpr (BIAS || KBIAS)
-          s[i][j] = ok[i][j] ? s[i][j] * scale + bv[i][j] : NEG_INF;
-        else
-          s[i][j] = ok[i][j] ? s[i][j] * scale : NEG_INF;
-        mt = fmaxf(mt, s[i][j]);
+        const int c = tx + 16 * j;
+        bool ok = okj[j];
+        if (CAUSAL) ok = ok && (q0 + r + kv_off >= k0 + c);
+        if (FMASK) ok = ok && msk_s[r * FT + c] != 0;
+        float x = s[i][j] * sl2;
+        if (BIAS) x = fmaf(p_s[r * FPLD + c], LOG2E, x);
+        if (KBIAS) x = fmaf(kbv[j], LOG2E, x);
+        s[i][j] = ok ? x : neg_inf;
+        mt_ = fmaxf(mt_, s[i][j]);
       }
-      const float m_new = fmaxf(m[i], half_max(mt));
-      const float alpha = expf(m[i] - m_new);
+      const float m_new = fmaxf(m[i], half_max16(mt_));
+      const float alpha = exp2f(m[i] - m_new);
       float psum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        // select by validity, never exp alone: while a row has seen no
-        // valid key, m_new = -1e30 and exp(s - m_new) = 1
-        // l sums P as computed; P.V takes P rounded to T (bf16: to
-        // nearest even, the TPU kernel's p.astype(v.dtype))
-        const float p = ok[i][j] ? expf(s[i][j] - m_new) : 0.f;
+        const float p = exp2f(s[i][j] - m_new);
         psum += p;
-        p_s[(4 * ty + i) * PLD + tx + 16 * j] = round_to<T>(p);
+        p_s[r * FPLD + tx + 16 * j] = p;
       }
-      l[i] = alpha * l[i] + half_sum(psum);
+      l[i] = fmaf(alpha, l[i], psum);
       m[i] = m_new;
 #pragma unroll
       for (int g = 0; g < G; ++g) {
@@ -428,113 +616,165 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         acc[i][g].w *= alpha;
       }
     }
-    __syncthreads();
-    acc_rows(acc, p_s, v_s, d, ty, tx);
-  }
 
-  cp_async_wait_all();  // a tile with no live key tile staged Q only
-  float l_safe[4];
+    async_wait<0>();
+    __syncthreads();  // V(t) is in; every warp is done with K(t), its mask and flags
+    if (t + 1 < n_walk) stage_key_tile(walk[t + 1] * FT);
+    async_commit();
+
+    // O += P V(t)
+#pragma unroll 4
+    for (int key = 0; key < FT; key += 4) {
+      float4 p[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) l_safe[i] = l[i] == 0.f ? 1.f : l[i];
-  store_rows(out + (size_t)bh * s_q * d, acc, l_safe, q0, s_q, d, ty, tx);
-  if (tx == 0) {
+      for (int i = 0; i < R; ++i)
+        p[i] = *reinterpret_cast<const float4*>(p_s + (ty + 8 * i) * FPLD + key);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-      if (row < s_q) lse[(size_t)bh * s_q + row] = m[i] + logf(l_safe[i]);
+      for (int g = 0; g < G; ++g) {
+        const int col4 = tx + 16 * g;
+        if (col4 < d4) {
+          const float* vr = v_s + key * ld + 4 * col4;
+          const float4 v0 = *reinterpret_cast<const float4*>(vr);
+          const float4 v1 = *reinterpret_cast<const float4*>(vr + ld);
+          const float4 v2 = *reinterpret_cast<const float4*>(vr + 2 * ld);
+          const float4 v3 = *reinterpret_cast<const float4*>(vr + 3 * ld);
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            fma4(acc[i][g], p[i].x, v0);
+            fma4(acc[i][g], p[i].y, v1);
+            fma4(acc[i][g], p[i].z, v2);
+            fma4(acc[i][g], p[i].w, v3);
+          }
+        }
+      }
     }
+  }
+  async_wait<0>();  // a CTA that walked no tile staged Q only
+
+  float* ob = out + (size_t)bh * s_q * d;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const float li = half_sum16(l[i]);
+    const int row = q0 + ty + 8 * i;
+    if (row >= s_q) continue;
+    const float inv = li == 0.f ? 1.f : 1.f / li;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int col4 = tx + 16 * g;
+      if (col4 < d4) {
+        const float4 a = acc[i][g];
+        *reinterpret_cast<float4*>(ob + (size_t)row * d + 4 * col4) =
+            make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+      }
+    }
+    if (tx == 0)
+      lse[(size_t)bh * s_q + row] = li == 0.f ? hetu_flash::NEG_INF : m[i] * LN2 + logf(li);
   }
 }
 
-template <typename T, int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
-int launch_fwd(const T* q, const T* k, const T* v, const int* key_mask,
-               const unsigned char* mask, const float* bias, T* out, float* lse, int bh,
-               int heads, int gmode, int bgmode, int s_q, int s_kv, int d, float scale,
-               cudaStream_t stream) {
+template <int R, int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
+int launch_fwd(const float* q, const float* k, const float* v, const int* key_mask,
+               const unsigned char* mask, const unsigned char* mask_tiles, const float* bias,
+               float* out, float* lse, int bh, int heads, int gmode, int bgmode, int s_q,
+               int s_kv, int d, float scale, cudaStream_t stream) {
   static size_t configured[64] = {0};
-  const size_t smem = (size_t)(3 * TILE * (d + 4) + TILE * PLD) * sizeof(float) +
-                      TILE * sizeof(int) + (FMASK ? TILE * TILE : 0);
+  constexpr int QR = 8 * R;
+  const int d16 = (d + 15) & ~15, n_kt = (s_kv + FT - 1) / FT;
+  const size_t smem = (size_t)((QR + 2 * FT) * (d16 + 4) + QR * FPLD) * sizeof(float) +
+                      (FT + 4 + ((n_kt + 3) & ~3)) * sizeof(int) + (FMASK ? QR * FT : 0);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   cudaError_t err = hetu_flash::ensure_smem(
-      (const void*)flash_fwd_kernel<T, G, CAUSAL, FMASK, BIAS, KBIAS>, smem, configured);
+      (const void*)flash_fwd_kernel<R, G, CAUSAL, FMASK, BIAS, KBIAS>, smem, configured);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((s_q + TILE - 1) / TILE, bh);
-  flash_fwd_kernel<T, G, CAUSAL, FMASK, BIAS, KBIAS><<<grid, TTHREADS, smem, stream>>>(
-      q, k, v, key_mask, mask, bias, out, lse, heads, gmode, bgmode, s_q, s_kv, d, scale);
+  const dim3 grid(bh, (s_q + QR - 1) / QR);
+  flash_fwd_kernel<R, G, CAUSAL, FMASK, BIAS, KBIAS><<<grid, FTHREADS, smem, stream>>>(
+      q, k, v, key_mask, mask, mask_tiles, bias, out, lse, heads, gmode, bgmode, s_q, s_kv, d,
+      scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool CAUSAL, bool FMASK, bool BIAS = false, bool KBIAS = false>
-int dispatch_fwd(const T* q, const T* k, const T* v, const int* key_mask,
-                 const unsigned char* mask, const float* bias, T* out, float* lse, int bh,
-                 int heads, int gmode, int bgmode, int s_q, int s_kv, int d, float scale,
+// a grid of fewer 64-row CTAs than this an SM takes 32-row ones: at the
+// paths' shapes prefill's 96 CTAs and 192 at S = 200 gain, BERT's 384 at
+// B = 4 loses (python3 -m hetu_tpu_torch.tools.kernel_variants fwd)
+constexpr int WAVE_CTAS = 2;
+
+// The SM count of the current device (read once per device).
+inline cudaError_t num_sms(int* out) {
+  static int count[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (count[dev] == 0) {
+    err = cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  *out = count[dev];
+  return cudaSuccess;
+}
+
+template <bool CAUSAL, bool FMASK, bool BIAS = false, bool KBIAS = false>
+int dispatch_fwd(const float* q, const float* k, const float* v, const int* key_mask,
+                 const unsigned char* mask, const unsigned char* mask_tiles, const float* bias,
+                 float* out, float* lse,
+                 int bh, int heads, int gmode, int bgmode, int s_q, int s_kv, int d, float scale,
                  void* stream) {
-  if (hetu_flash::bad_head_dim<T>(d) || heads <= 0 || bh <= 0 || bh > 65535 ||
-      bh % heads || s_q <= 0 || s_kv <= 0 || gmode < 0 || gmode > 3 || bgmode < 0 ||
+  if (hetu_flash::bad_head_dim<float>(d) || heads <= 0 || bh <= 0 || bh % heads || s_q <= 0 ||
+      s_kv <= 0 || (s_q + 31) / 32 > 65535 || gmode < 0 || gmode > 3 || bgmode < 0 ||
       bgmode > 3)
     return (int)cudaErrorInvalidValue;
-  return d <= 64 ? launch_fwd<T, 1, CAUSAL, FMASK, BIAS, KBIAS>(
-                       q, k, v, key_mask, mask, bias, out, lse, bh, heads, gmode, bgmode, s_q,
-                       s_kv, d, scale, (cudaStream_t)stream)
-                 : launch_fwd<T, 2, CAUSAL, FMASK, BIAS, KBIAS>(
-                       q, k, v, key_mask, mask, bias, out, lse, bh, heads, gmode, bgmode, s_q,
-                       s_kv, d, scale, (cudaStream_t)stream);
+  int sms = 0;
+  cudaError_t err = num_sms(&sms);
+  if (err != cudaSuccess) return (int)err;
+  // 64-row CTAs unless there are too few to keep the card busy (prefill's
+  // 32-row chunks, short sequences at small batch): then 32-row ones, twice
+  // as many
+  const bool small = (long long)bh * ((s_q + FT - 1) / FT) < (long long)WAVE_CTAS * sms;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (small)
+    return d <= 64 ? launch_fwd<4, 1, CAUSAL, FMASK, BIAS, KBIAS>(
+                         q, k, v, key_mask, mask, mask_tiles, bias, out, lse, bh,
+                         heads, gmode, bgmode, s_q, s_kv, d, scale, st)
+                   : launch_fwd<4, 2, CAUSAL, FMASK, BIAS, KBIAS>(
+                         q, k, v, key_mask, mask, mask_tiles, bias, out, lse, bh,
+                         heads, gmode, bgmode, s_q, s_kv, d, scale, st);
+  return d <= 64 ? launch_fwd<8, 1, CAUSAL, FMASK, BIAS, KBIAS>(
+                       q, k, v, key_mask, mask, mask_tiles, bias, out, lse, bh, heads,
+                       gmode, bgmode, s_q, s_kv, d, scale, st)
+                 : launch_fwd<8, 2, CAUSAL, FMASK, BIAS, KBIAS>(
+                       q, k, v, key_mask, mask, mask_tiles, bias, out, lse, bh, heads,
+                       gmode, bgmode, s_q, s_kv, d, scale, st);
 }
 
-// additive bias: bias is a dense (G, s_q, s_kv) float32 bias or, strip != 0, a
-// per-key strip (G, 1, s_kv), of group mode gmode (0..3 as for the full
-// mask); optionally with a key_mask and, causal != 0, the causal rule
-template <typename T, bool BIAS, bool KBIAS>
-int fwd_bias(const T* q, const T* k, const T* v, const int* key_mask, const float* bias, T* out,
-             float* lse, int bh, int heads, int s_q, int s_kv, int d, int gmode, int causal,
-             float scale, void* stream) {
-  return causal ? dispatch_fwd<T, true, false, BIAS, KBIAS>(q, k, v, key_mask, nullptr, bias,
-                                                            out, lse, bh, heads, 0, gmode, s_q,
-                                                            s_kv, d, scale, stream)
-                : dispatch_fwd<T, false, false, BIAS, KBIAS>(q, k, v, key_mask, nullptr, bias,
-                                                             out, lse, bh, heads, 0, gmode, s_q,
-                                                             s_kv, d, scale, stream);
-}
-
-template <typename T>
-int entry_fwd_bias(const T* q, const T* k, const T* v, const int* key_mask, const float* bias,
-                   T* out, float* lse, int bh, int heads, int s_q, int s_kv, int d, int gmode,
-                   int strip, int causal, float scale, void* stream) {
-  if (bias == nullptr) return (int)cudaErrorInvalidValue;
-  return strip ? fwd_bias<T, false, true>(q, k, v, key_mask, bias, out, lse, bh, heads, s_q,
-                                          s_kv, d, gmode, causal, scale, stream)
-               : fwd_bias<T, true, false>(q, k, v, key_mask, bias, out, lse, bh, heads, s_q,
-                                          s_kv, d, gmode, causal, scale, stream);
+// additive bias: a dense (G, s_q, s_kv) bias or, strip != 0, a per-key strip
+// (G, 1, s_kv), of group mode gmode (0..3 as for the full mask); optionally
+// with a key_mask and, causal != 0, the causal rule
+template <bool BIAS, bool KBIAS>
+int fwd_bias(const float* q, const float* k, const float* v, const int* key_mask,
+             const float* bias, float* out, float* lse, int bh, int heads, int s_q, int s_kv,
+             int d, int gmode, int causal, float scale, void* stream) {
+  return causal ? dispatch_fwd<true, false, BIAS, KBIAS>(q, k, v, key_mask, nullptr, nullptr, bias,
+                                                         out, lse, bh, heads, 0, gmode, s_q, s_kv,
+                                                         d, scale, stream)
+                : dispatch_fwd<false, false, BIAS, KBIAS>(q, k, v, key_mask, nullptr, nullptr,
+                                                          bias, out, lse, bh, heads, 0, gmode, s_q,
+                                                          s_kv, d, scale, stream);
 }
 
 // full mask: mask (G, s_q, s_kv) uint8, G = 1, heads, bh / heads or bh for
 // gmode 0..3; optionally with an additive bias as the bias entries take it,
-// of its own group mode bgmode (bias null: the mask alone; strip != 0: the
-// key-bias strip), a key_mask and, causal != 0, the causal rule
-template <typename T, bool BIAS, bool KBIAS>
-int fwd_mask(const T* q, const T* k, const T* v, const int* key_mask, const unsigned char* mask,
-             const float* bias, T* out, float* lse, int bh, int heads, int s_q, int s_kv, int d,
-             int gmode, int bgmode, int causal, float scale, void* stream) {
-  return causal ? dispatch_fwd<T, true, true, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, out,
-                                                           lse, bh, heads, gmode, bgmode, s_q,
-                                                           s_kv, d, scale, stream)
-                : dispatch_fwd<T, false, true, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, out,
-                                                            lse, bh, heads, gmode, bgmode, s_q,
-                                                            s_kv, d, scale, stream);
-}
-
-template <typename T>
-int entry_fwd_mask(const T* q, const T* k, const T* v, const int* key_mask,
-                   const unsigned char* mask, const float* bias, T* out, float* lse, int bh,
-                   int heads, int s_q, int s_kv, int d, int gmode, int bgmode, int strip,
-                   int causal, float scale, void* stream) {
-  if (mask == nullptr) return (int)cudaErrorInvalidValue;
-  if (bias == nullptr)
-    return fwd_mask<T, false, false>(q, k, v, key_mask, mask, nullptr, out, lse, bh, heads, s_q,
-                                     s_kv, d, gmode, 0, causal, scale, stream);
-  return strip ? fwd_mask<T, false, true>(q, k, v, key_mask, mask, bias, out, lse, bh, heads,
-                                          s_q, s_kv, d, gmode, bgmode, causal, scale, stream)
-               : fwd_mask<T, true, false>(q, k, v, key_mask, mask, bias, out, lse, bh, heads,
-                                          s_q, s_kv, d, gmode, bgmode, causal, scale, stream);
+// of its own group mode bgmode, a key_mask and, causal != 0, the causal rule
+template <bool BIAS, bool KBIAS>
+int fwd_mask(const float* q, const float* k, const float* v, const int* key_mask,
+             const unsigned char* mask, const unsigned char* mask_tiles, const float* bias,
+             float* out, float* lse, int bh, int heads, int s_q, int s_kv, int d, int gmode,
+             int bgmode, int causal, float scale, void* stream) {
+  return causal ? dispatch_fwd<true, true, BIAS, KBIAS>(q, k, v, key_mask, mask, mask_tiles, bias,
+                                                        out, lse, bh, heads, gmode, bgmode, s_q,
+                                                        s_kv, d, scale, stream)
+                : dispatch_fwd<false, true, BIAS, KBIAS>(q, k, v, key_mask, mask, mask_tiles,
+                                                         bias, out, lse, bh, heads, gmode, bgmode,
+                                                         s_q, s_kv, d, scale, stream);
 }
 
 }  // namespace
@@ -545,39 +785,54 @@ int entry_fwd_mask(const T* q, const T* k, const T* v, const int* key_mask,
 // null; lse (bh, s_q) float32; a bias float32.  The `_bf16` twins of these
 // entries run on the tensor cores (flash_attention_bf16.cu).
 
-// dense (key_mask null) and key_mask; causal (bottom-right aligned),
-// optionally with a key_mask; an additive bias (entry_fwd_bias); a full mask,
-// alone or with a bias (entry_fwd_mask)
-#define HETU_FWD_ENTRIES(T, SFX)                                                                \
-  extern "C" int hetu_flash_fwd##SFX(const T* q, const T* k, const T* v, const int* key_mask,  \
-                                     T* out, float* lse, int bh, int heads, int s_q, int s_kv,  \
-                                     int d, float scale, void* stream) {                       \
-    return dispatch_fwd<T, false, false>(q, k, v, key_mask, nullptr, nullptr, out, lse, bh,    \
-                                         heads, 0, 0, s_q, s_kv, d, scale, stream);            \
-  }                                                                                             \
-  extern "C" int hetu_flash_fwd_causal##SFX(const T* q, const T* k, const T* v,                \
-                                            const int* key_mask, T* out, float* lse, int bh,   \
-                                            int heads, int s_q, int s_kv, int d, float scale,  \
-                                            void* stream) {                                    \
-    return dispatch_fwd<T, true, false>(q, k, v, key_mask, nullptr, nullptr, out, lse, bh,     \
-                                        heads, 0, 0, s_q, s_kv, d, scale, stream);             \
-  }                                                                                             \
-  extern "C" int hetu_flash_fwd_bias##SFX(const T* q, const T* k, const T* v,                  \
-                                          const int* key_mask, const float* bias, T* out,      \
-                                          float* lse, int bh, int heads, int s_q, int s_kv,    \
-                                          int d, int gmode, int strip, int causal,             \
-                                          float scale, void* stream) {                         \
-    return entry_fwd_bias(q, k, v, key_mask, bias, out, lse, bh, heads, s_q, s_kv, d, gmode,   \
-                          strip, causal, scale, stream);                                       \
-  }                                                                                             \
-  extern "C" int hetu_flash_fwd_mask##SFX(const T* q, const T* k, const T* v,                  \
-                                          const int* key_mask, const unsigned char* mask,      \
-                                          const float* bias, T* out, float* lse, int bh,       \
-                                          int heads, int s_q, int s_kv, int d, int gmode,      \
-                                          int bgmode, int strip, int causal, float scale,      \
-                                          void* stream) {                                      \
-    return entry_fwd_mask(q, k, v, key_mask, mask, bias, out, lse, bh, heads, s_q, s_kv, d,    \
-                          gmode, bgmode, strip, causal, scale, stream);                        \
-  }
+// dense (key_mask null) and key_mask
+extern "C" int hetu_flash_fwd(const float* q, const float* k, const float* v,
+                              const int* key_mask, float* out, float* lse, int bh, int heads,
+                              int s_q, int s_kv, int d, float scale, void* stream) {
+  return dispatch_fwd<false, false>(q, k, v, key_mask, nullptr, nullptr, nullptr, out, lse, bh,
+                                    heads, 0, 0, s_q, s_kv, d, scale, stream);
+}
 
-HETU_FWD_ENTRIES(float, )
+// causal (bottom-right aligned), optionally with a key_mask
+extern "C" int hetu_flash_fwd_causal(const float* q, const float* k, const float* v,
+                                     const int* key_mask, float* out, float* lse, int bh,
+                                     int heads, int s_q, int s_kv, int d, float scale,
+                                     void* stream) {
+  return dispatch_fwd<true, false>(q, k, v, key_mask, nullptr, nullptr, nullptr, out, lse, bh,
+                                   heads, 0, 0, s_q, s_kv, d, scale, stream);
+}
+
+// an additive bias: a dense bias or (strip != 0) a key-bias strip of group
+// mode gmode, with an optional key_mask and (causal != 0) the causal rule
+extern "C" int hetu_flash_fwd_bias(const float* q, const float* k, const float* v,
+                                   const int* key_mask, const float* bias, float* out,
+                                   float* lse, int bh, int heads, int s_q, int s_kv, int d,
+                                   int gmode, int strip, int causal, float scale, void* stream) {
+  if (bias == nullptr) return (int)cudaErrorInvalidValue;
+  return strip ? fwd_bias<false, true>(q, k, v, key_mask, bias, out, lse, bh, heads, s_q, s_kv,
+                                       d, gmode, causal, scale, stream)
+               : fwd_bias<true, false>(q, k, v, key_mask, bias, out, lse, bh, heads, s_q, s_kv,
+                                       d, gmode, causal, scale, stream);
+}
+
+// a full mask of group mode gmode, alone or with a bias (null: none; strip
+// != 0: a key-bias strip) of its own group mode bgmode, an optional key_mask
+// and (causal != 0) the causal rule; mask_tiles (G, ceil(s_q / 64),
+// ceil(s_kv / 64)) uint8, 0 where a 64 x 64 tile of the mask holds no
+// visible pair (tile_maps in ops/kernels/flash_attention.py), or null:
+// every tile is walked
+extern "C" int hetu_flash_fwd_mask(const float* q, const float* k, const float* v,
+                                   const int* key_mask, const unsigned char* mask,
+                                   const unsigned char* mask_tiles, const float* bias,
+                                   float* out, float* lse, int bh, int heads, int s_q, int s_kv,
+                                   int d, int gmode, int bgmode, int strip, int causal,
+                                   float scale, void* stream) {
+  if (mask == nullptr) return (int)cudaErrorInvalidValue;
+  if (bias == nullptr)
+    return fwd_mask<false, false>(q, k, v, key_mask, mask, mask_tiles, nullptr, out, lse, bh,
+                                  heads, s_q, s_kv, d, gmode, 0, causal, scale, stream);
+  return strip ? fwd_mask<false, true>(q, k, v, key_mask, mask, mask_tiles, bias, out, lse, bh,
+                                       heads, s_q, s_kv, d, gmode, bgmode, causal, scale, stream)
+               : fwd_mask<true, false>(q, k, v, key_mask, mask, mask_tiles, bias, out, lse, bh,
+                                       heads, s_q, s_kv, d, gmode, bgmode, causal, scale, stream);
+}

@@ -45,8 +45,12 @@ broadcast group (:func:`group_reduce`, the JAX package's
 relative-position bias group ``h`` in one launch.
 
 The forward returns ``out`` plus the per-row float32 log-sum-exp; a row
-with no valid key outputs 0 with lse = -1e30.  The backward recomputes
-the probabilities from that lse.  Unlike the TPU entry, no sequence is
+with no valid key outputs 0 with lse = -1e30.  The float32 training
+forward walks only the key tiles that hold a visible pair: the full-mask
+wrapper passes it the mask's one-byte-a-tile map from :func:`tile_maps`,
+built on the device, and the kernel checks the key mask's tiles itself
+(:func:`walked_tiles` says which tiles a call walks).  The backward
+recomputes the probabilities from that lse.  Unlike the TPU entry, no sequence is
 padded to a multiple of 128: ragged tiles are masked inside the kernels,
 so causal attention takes any pair of lengths.
 
@@ -64,7 +68,9 @@ takes float32 only: the decode caches are float32 in both packages.
 
 Not ported yet, refused by name: ``lengths`` together with ``key_mask``,
 ``causal``, ``mask`` or a bias; the ``lengths`` backward (``lengths`` is
-forward only, decode); bfloat16 ``lengths``.
+forward only, decode: :func:`flash_attention` refuses ``lengths`` while
+autograd records and q, k or v needs a gradient, on every device);
+bfloat16 ``lengths``.
 
 Beside each kernel sits its plain PyTorch version
 (:func:`flash_fwd_plain`, :func:`flash_bwd_plain`).  A wrapper takes the
@@ -100,6 +106,8 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 #: the input dtypes of the training kernels
 DTYPES = (torch.float32, torch.bfloat16)
+#: query rows and keys of one tile of the float32 training forward
+TILE = 64
 
 #: kernel launches made in this process by :func:`flash_fwd` (lengths),
 #: :func:`flash_fwd_masked`, :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`
@@ -179,6 +187,9 @@ ENTRIES.update({
                      else "flash_attention_dq_bf16", n_ptr, n_int)
     for name, (src, n_ptr, n_int) in ENTRIES.items()
     if name != "hetu_flash_fwd_lengths"})
+# the float32 full-mask forward also takes the mask's tile map
+# (:func:`tile_maps`) after the mask
+ENTRIES["hetu_flash_fwd_mask"] = ("flash_attention", 9, 9)
 
 #: broadcast-group modes of a full mask or a bias, in the kernel's numbering
 GMODES = ("one", "h", "b", "bh")
@@ -273,6 +284,70 @@ def _valid(bh, s_q, s_kv, device, lengths=None, key_mask=None, causal=False,
         m = _expand_group(mask.to(device) != 0, gmode, bh, heads)
         valid = m if valid is None else valid & m
     return valid
+
+
+def tile_maps(key_mask=None, mask=None, tile=TILE):
+    """Which tiles of the attention matrix hold a visible pair, one byte a
+    tile (nonzero: some pair visible), each one reduction (and a pad when
+    a length is not a whole number of tiles) where the inputs lie, with no
+    host sync: ``key_tiles`` (B, ceil(S_kv / tile)) bool from a
+    ``key_mask`` (B, S_kv), ``mask_tiles`` (G, ceil(S_q / tile),
+    ceil(S_kv / tile)) bool from a full uint8 ``mask`` (G, S_q, S_kv);
+    None for what is not given.  The float32 forward takes the mask's map
+    and applies the key mask's rule to each key tile itself (no launch):
+    it walks only the key tiles both mark (and, with ``causal``, those
+    before the tile's last visible key), so it skips a padded key tail and
+    the empty tiles of a sparse mask.  The backward kernels can take both
+    maps."""
+    def split(s):   # (tiles, rows a tile); one tile needs no padding
+        n_t = -(-s // tile)
+        return n_t, (tile if n_t > 1 else s)
+
+    key_tiles = mask_tiles = None
+    if key_mask is not None:
+        b, s_kv = key_mask.shape
+        n_kt, cols = split(s_kv)
+        km = key_mask
+        if n_kt * cols != s_kv:
+            km = torch.nn.functional.pad(km, (0, n_kt * cols - s_kv))
+        key_tiles = km.view(b, n_kt, cols).any(dim=2)
+    if mask is not None:
+        g, s_q, s_kv = mask.shape
+        (n_qt, rows), (n_kt, cols) = split(s_q), split(s_kv)
+        m = mask
+        if n_qt * rows != s_q or n_kt * cols != s_kv:
+            m = torch.nn.functional.pad(m, (0, n_kt * cols - s_kv,
+                                            0, n_qt * rows - s_q))
+        if cols % 8 == 0 and m.is_contiguous() and m.storage_offset() % 8 == 0:
+            m, cols = m.view(torch.int64), cols // 8   # 8 mask bytes a word
+        mask_tiles = m.reshape(g, n_qt, rows, n_kt, cols).any(dim=(2, 4))
+    return key_tiles, mask_tiles
+
+
+def walked_tiles(bh, heads, s_q, s_kv, key_mask=None, causal=False,
+                 mask=None, gmode="bh", tile=TILE):
+    """The key tiles the float32 forward kernel walks, boolean
+    (BH, ceil(S_q / tile), ceil(S_kv / tile)): those :func:`tile_maps`
+    marks for the row's batch (``key_mask``) and mask group (``mask`` of
+    group mode ``gmode``, BH = B * ``heads``), and with ``causal`` only
+    those before the query tile's last visible key."""
+    device = next((t.device for t in (key_mask, mask) if t is not None),
+                  torch.device("cpu"))
+    n_qt, n_kt = -(-s_q // tile), -(-s_kv // tile)
+    walk = torch.ones((bh, n_qt, n_kt), dtype=torch.bool, device=device)
+    if causal:
+        rows_end = torch.clamp((torch.arange(n_qt, device=device) + 1) * tile,
+                               max=s_q)
+        last = torch.clamp(rows_end + (s_kv - s_q), max=s_kv)  # keys [0, last)
+        walk &= (torch.arange(n_kt, device=device)[None, :] * tile
+                 < last[:, None])[None]
+    key_tiles, mask_tiles = tile_maps(key_mask, mask, tile)
+    if key_tiles is not None:
+        walk &= key_tiles.bool().repeat_interleave(
+            bh // key_tiles.shape[0], dim=0)[:, None, :]
+    if mask_tiles is not None:
+        walk &= _expand_group(mask_tiles.bool(), gmode, bh, heads)
+    return walk
 
 
 def _logits(q, k, scale, bias=None, kbias=None, bgmode="bh", heads=1):
@@ -602,10 +677,15 @@ def flash_fwd_fullmask(q, k, v, mask, gmode, heads, scale, key_mask=None,
     out = torch.empty_like(q)
     lse = torch.empty((bh, s_q), dtype=torch.float32, device=q.device)
     m_ptr, b_ptr, ints = _mask_args(mask, gmode, bias, kbias, bgmode, causal)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), m_ptr,
+            b_ptr]
+    mask_tiles = None
+    if q.dtype == torch.float32:
+        mask_tiles = tile_maps(mask=mask)[1]
+        ptrs.insert(5, mask_tiles.data_ptr())
     with torch.cuda.device(q.device):
         rc = kernel(_entry("hetu_flash_fwd_mask", q))(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), m_ptr,
-            b_ptr, out.data_ptr(), lse.data_ptr(), bh, heads, s_q, k.shape[1],
+            *ptrs, out.data_ptr(), lse.data_ptr(), bh, heads, s_q, k.shape[1],
             d, *ints, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
@@ -971,6 +1051,11 @@ def flash_attention(q, k, v, causal=False, scale=None, lengths=None,
         raise NotImplementedError(
             "flash_attention: lengths together with key_mask, mask, "
             "causal or bias is not ported")
+    if lengths is not None and torch.is_grad_enabled() \
+            and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention: the lengths backward is not ported (lengths is "
+            "forward only, decode); run it under torch.no_grad()")
     b, h, s_q, d = q.shape
     s_kv = k.shape[2]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)

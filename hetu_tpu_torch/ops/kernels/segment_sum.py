@@ -3,9 +3,12 @@
 Replaces the TPU kernel ``hetu_tpu/ops/pallas/segment_sum.py::_seg_kernel``
 (launched by ``sorted_segment_sum``) with the hand-written CUDA kernel
 ``csrc/segment_sum.cu`` (``hetu_segment_sum``), built for ``sm_90a`` and
-bound through ``ctypes``: one thread per (run start, column) sums its run
-in sorted order, with no atomics, so the result is the same from run to
-run and equal bit for bit to the host cache's ``_segment_sum``.
+bound through ``ctypes``: the thread of each (segment, column) sums its
+run in sorted order from the run's first row, with no atomics, so the
+result is the same from run to run and equal bit for bit to the host
+cache's ``_segment_sum``.  Short runs are summed four columns a thread
+with their loads in flight; each run of 16 rows or more is staged through
+shared memory by a whole CTA.
 
 :func:`sorted_segment_sum_plain` is the plain PyTorch version
 (``index_add_``).  :func:`sorted_segment_sum` takes it only for tensors on

@@ -958,3 +958,78 @@ def test_scores_f32_twin_matches_jax():
         np.testing.assert_allclose(a.float().numpy(),
                                    np.asarray(b, np.float32), rtol=2 ** -8,
                                    atol=1e-6, err_msg=name)
+
+
+# -- tile maps of the float32 forward (which key tiles it walks) ---------------
+
+def _tiles_any(valid, tile=64):
+    """numpy: any visible pair in each (tile x tile) block of the last two
+    axes of a boolean (..., S_q, S_kv) array, ragged edges included."""
+    s_q, s_kv = valid.shape[-2:]
+    n_qt, n_kt = -(-s_q // tile), -(-s_kv // tile)
+    out = np.zeros(valid.shape[:-2] + (n_qt, n_kt), bool)
+    for i in range(n_qt):
+        for j in range(n_kt):
+            out[..., i, j] = valid[..., i * tile:(i + 1) * tile,
+                                   j * tile:(j + 1) * tile].any(axis=(-2, -1))
+    return out
+
+
+def _sparse_mask(rng, g, s_q, s_kv):
+    """A sparse uint8 (G, S_q, S_kv) mask with whole empty key tiles and
+    one query tile whose rows see no key at all."""
+    m = rng.rand(g, s_q, s_kv) < 0.02
+    m[:, :, 64:128] = False                # an empty key-tile column
+    m[:, 64:128, :] = False                # an all-invisible tile row
+    return m.astype(np.uint8)
+
+
+@pytest.mark.parametrize("gmode", fa.GMODES)
+@pytest.mark.parametrize("s_q,s_kv", [(200, 260), (130, 70), (64, 64)])
+def test_tile_maps_and_walked_tiles_match_numpy_reference(gmode, s_q, s_kv):
+    rng = np.random.RandomState(s_q + s_kv + len(gmode))
+    b, h = 2, 3
+    g = fa._group_rows(gmode, b * h, h)
+    m = _sparse_mask(rng, g, s_q, s_kv)
+    km = (np.arange(s_kv)[None, :] < np.array([s_kv - 1, 40])[:, None])
+    km = km.astype(np.int32)               # row 1: a padded key tail
+    key_tiles, mask_tiles = fa.tile_maps(torch.from_numpy(km),
+                                         torch.from_numpy(m))
+    assert key_tiles.element_size() == mask_tiles.element_size() == 1
+    np.testing.assert_array_equal(mask_tiles.numpy() != 0, _tiles_any(m != 0))
+    np.testing.assert_array_equal(
+        key_tiles.numpy() != 0,
+        _tiles_any(np.broadcast_to(km[:, None, :] != 0, (b, 1, s_kv)))[:, 0])
+    if s_q > 128:
+        assert not mask_tiles.numpy()[:, 1].any()    # the invisible tile row
+    # the kernel walks exactly the tiles with a visible pair when one map,
+    # or causal, decides; with several it may walk more, never fewer
+    tm, tkm = torch.from_numpy(m), torch.from_numpy(km)
+    for kw, exact in ((dict(mask=tm), True), (dict(key_mask=tkm), True),
+                      (dict(causal=True), True),
+                      (dict(mask=tm, key_mask=tkm, causal=True), False)):
+        walk = fa.walked_tiles(b * h, h, s_q, s_kv, gmode=gmode, **kw)
+        valid = fa._valid(b * h, s_q, s_kv, "cpu", gmode=gmode, heads=h,
+                          **kw).expand(b * h, s_q, s_kv).numpy()
+        want = _tiles_any(valid)
+        assert walk.shape == want.shape
+        if exact:
+            np.testing.assert_array_equal(walk.numpy(), want)
+        else:
+            assert (walk.numpy() | ~want).all()
+
+
+def test_lengths_backward_is_refused_by_name():
+    rng = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(rng.randn(2, 2, 1, 8).astype(np.float32))
+               for _ in range(3))
+    lengths = torch.tensor([1, 1], dtype=torch.int32)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="lengths backward"):
+            fa.flash_attention(q, k, v, lengths=lengths)
+        with torch.no_grad():                 # serving: unchanged
+            out = fa.flash_attention(q, k, v, lengths=lengths)
+        t.requires_grad_(False)
+        np.testing.assert_array_equal(
+            out.numpy(), fa.flash_attention(q, k, v, lengths=lengths).numpy())

@@ -15,10 +15,13 @@ dkbias (allclose rtol 1e-4, atol 1e-5), dbias exactly 0 where a row sees
 no key; so is the full-mask backward, alone and with a bias of another
 group mode (Longformer's and XLNet's calls).  Every specialization also
 runs in bfloat16 against its bf16 plain version within rtol = atol = 2e-2
-(``BF16_TOL``).  The embedding-cache kernels: the slab row gather is a
+(``BF16_TOL``).  The float32 forward is also held where it skips
+key tiles that hold no visible pair (sparse masks, dead key-mask tails,
+causal).  The embedding-cache kernels: the slab row gather is a
 copy and must match exactly; the segment-sum must match its plain version
 (``index_add_``, atomics on the card) within rtol 2e-5 / atol 1e-6 and the
-host cache's ``_segment_sum`` exactly.  The MoE row gather is a copy with
+host cache's ``_segment_sum`` exactly, also on runs longer than the
+kernel's shared-memory chunk.  The MoE row gather is a copy with
 zero rows and must match exactly; so must the sparse dispatch and combine
 built from it, forward and backward, kernel against plain gather."""
 import os
@@ -566,7 +569,9 @@ def test_gather_kernel_matches_plain_version(cuda, n, w, rows):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,w,kind", [(53248, 16, "zipf"), (1000, 13, "zipf"),
                                       (257, 128, "distinct"), (300, 16, "one"),
-                                      (1, 16, "one")])
+                                      (1, 16, "one"), (20000, 16, "one"),
+                                      (3000, 128, "one"), (5001, 13, "one"),
+                                      (53248, 13, "zipf")])
 def test_segment_sum_kernel_matches_plain_and_host(cuda, n, w, kind):
     rng = np.random.RandomState(n + w)
     if kind == "zipf":
@@ -598,6 +603,77 @@ def test_segment_sum_kernel_matches_plain_and_host(cuda, n, w, kind):
         assert np.array_equal(host[:uk.size], _segment_sum(g, inv, cnt))
         assert not host[uk.size:].any()
         assert torch.equal(out, emb.scatter_add_grads(gg, ii))  # run to run
+
+
+# the float32 forward walks only the key tiles that hold a visible pair
+# (tile_maps): masks with whole empty key tiles, a query tile whose rows
+# see nothing, ragged edges, a key mask with dead tail tiles, causal with
+# S_q != S_kv; (kind, gmode, s_q, s_kv, d, causal, masked)
+SKIP_CASES = [("mask", "one", 300, 520, 64, False, False),
+              ("mask", "b", 200, 333, 64, True, True),
+              ("mask", "bh", 130, 77, 128, False, True),
+              ("mask", "h", 512, 512, 32, False, False),
+              ("mask_bias", "b", 256, 300, 64, False, True),
+              ("key_mask", None, 300, 520, 64, False, True),
+              ("key_mask", None, 130, 700, 64, True, True),
+              ("bias", "h", 200, 450, 64, False, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,gmode,s_q,s_kv,d,causal,masked", SKIP_CASES)
+def test_forward_skips_empty_tiles_and_matches_plain_version(
+        cuda, kind, gmode, s_q, s_kv, d, causal, masked):
+    b, h = 2, 3
+    rng = np.random.RandomState(s_q * 7 + s_kv)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda)
+
+    q, k, v = t(b * h, s_q, d), t(b * h, s_kv, d), t(b * h, s_kv, d)
+    km = None
+    if masked:
+        n_live = np.array([s_kv - 3, max(1, s_kv // 5)])
+        kmn = (np.arange(s_kv)[None, :] < n_live[:, None]).astype(np.int32)
+        kmn[0, 64:128] = 0                 # a dead key tile inside the row
+        km = torch.from_numpy(kmn).to(cuda)
+    mask = None
+    if kind.startswith("mask"):
+        g = fa._group_rows(gmode, b * h, h)
+        m = rng.rand(g, s_q, s_kv) < 0.05
+        m[:, :, -1] = True                 # the ragged last key tile
+        m[:, :, 64:192] = False            # empty key tiles
+        m[:, 64:128, :] = False            # a query tile that sees nothing
+        mask = torch.from_numpy(m.astype(np.uint8)).to(cuda)
+    bias = None
+    if kind.endswith("bias"):
+        bias = t(fa._group_rows("h", b * h, h), s_q, s_kv)
+    scale = d ** -0.5
+    walk = fa.walked_tiles(b * h, h, s_q, s_kv, key_mask=km, causal=causal,
+                           mask=mask, gmode=gmode or "bh")
+    assert 0 < int(walk.sum()) < walk.numel()
+    if mask is not None:
+        out, lse = fa.flash_fwd_fullmask(q, k, v, mask, gmode, h, scale,
+                                         key_mask=km, causal=causal,
+                                         bias=bias, bgmode="h")
+    elif bias is not None:
+        out, lse = fa.flash_fwd_bias(q, k, v, km, bias, None, "h", h, scale,
+                                     causal=causal)
+    else:
+        out, lse = fa.flash_fwd_masked(q, k, v, km, scale, causal=causal)
+    ref, lse_ref = fa.flash_fwd_plain(q, k, v, None, h, scale, key_mask=km,
+                                      causal=causal, mask=mask,
+                                      gmode=gmode or "bh", bias=bias,
+                                      bgmode="h")
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= ATOL
+    assert float((lse - lse_ref).abs().max()) <= ATOL
+    valid = fa._valid(b * h, s_q, s_kv, q.device, key_mask=km, causal=causal,
+                      mask=mask, gmode=gmode or "bh", heads=h)
+    blind = ~valid.expand(b * h, s_q, s_kv).any(-1)
+    assert int(blind.sum()) > 0 or kind in ("bias", "key_mask")
+    if int(blind.sum()):
+        assert float(out[blind].abs().max()) == 0.0
+        assert bool((lse[blind] == fa.NEG_INF).all())
 
 
 @pytest.mark.gpu
