@@ -200,12 +200,12 @@ without printing the final result line:
     peak); dense, ragged causal with a key mask, S_q > S_kv, a dense bias
     (groups h and bh), the key-bias strip, a full mask (groups b and one),
     a full mask with a bias and with a strip at small shapes; then the
-    instantiations on no bf16 path, timed at their float32 paths' shapes:
-    T5's encoder bias (B=32, H=8, S=512, group h, its key mask) and
-    key-bias strip (group b, causal), XLNet's content stream (B=8, S=512,
-    mask group b, bias group h) and query stream with a strip, and
-    Longformer's window (B=2, S=4096, mask group one).  Tolerance
-    ``BF16_RTOL`` / ``BF16_ATOL``, lse within ``BF16_LSE_ATOL``.
+    other instantiations, timed at their paths' shapes: T5's encoder bias
+    (B=32, H=8, S=512, group h, its key mask), decoder bias (S=114, group
+    h, causal) and key-bias strip (group b, causal), XLNet's content
+    stream (B=8, S=512, mask group b, bias group h) and query stream with
+    a strip, and Longformer's window (B=2, S=4096, mask group one).
+    Tolerance ``BF16_RTOL`` / ``BF16_ATOL``, lse within ``BF16_LSE_ATOL``.
 26. Train BERT-base at bench.py's flagship shape (batch 64, seq 512,
     ``synthetic_mlm_batch``, dropout 0.1, ``AdamOptimizer(1e-4)``) through
     ``Executor(compute_dtype="bfloat16").run``: 2 warm-up steps, then 10
@@ -225,13 +225,50 @@ without printing the final result line:
     GPT-2 small (seq 1024, batch 4) at full width and depth, bf16 against
     float32 on the card from the same weights: 3 Adam losses within 5 % /
     0.05.
-29. Print the card's name and power limit, the ``kernels`` JSON line and,
+29. Hold the MoE row gather's bf16 instantiation (B6) against its plain
+    version on phase 11's real gate maps at the MoE configuration (8,192
+    tokens, d 512, 16 experts, capacity 1,280), every direction on bf16
+    rows, plus n = 0, n = 1, every index -1, width 13, a source 2 bytes
+    off 16-byte alignment and width 2048: bit for bit.
+    ``SparseDispatch`` / ``SparseCombine`` forward and backward in the
+    bf16 step's dtypes (bf16 tokens and rows, float32 gate weights, so a
+    float32 combine output and d_buffers gather), kernel against plain
+    gather: bit for bit.  Time the kernel, its plain version,
+    ``index_select`` + ``masked_fill_`` in bf16 and the bytes bound at 2
+    bytes a value (L2 flushed, median of 50).
+30. Train phase 12's MoE configuration through
+    ``Executor(compute_dtype="bfloat16").run``, sparse then dense: 3
+    warm-up and 20 counted steps with every launch counter set to 0 just
+    before and read just after (the sparse graph: 5 bf16 row gathers and 1
+    float32 a step, ``MOE_GATHERS_BF16_STEP``; the dense graph none; no
+    other kernel; no ``backend:`` fallback; the loss finite), step
+    p50/p99, tokens/s, MFU against the 989 TFLOP/s bf16 peak, peak memory
+    and 5 profiled steps for busy time and idle share.
+31. Train T5-small, XLNet-base and Longformer-base in bf16 at the shapes
+    and widths of phases 19, 22 and 23: 2 warm-up and 10 counted steps
+    each (each bf16 flash entry the model reaches: steps x its float32
+    count, 6, 23 or 12 a step; nothing else; no ``backend:`` fallback; the
+    loss finite and not rising; the masters float32), then 3 profiled
+    steps: busy time, idle share, the flash and matrix-product shares.
+32. Tiny sparse MoE (tests/test_torch_moe.py's slice), T5, XLNet and
+    Longformer in bf16, card against CPU from the same weights for 3 Adam
+    steps at each model's own card-vs-CPU rate (MoE 1e-3, as phase 13;
+    the others 1e-4, as phases 20 and 24) and phase 28's gates; T5's,
+    XLNet's and Longformer's losses as the float64 loss of each device's
+    bf16 logits (the fetched loss is a bf16 sum, whose spacing is the
+    gate's size); MoE: routing maps equal every step (a differing route
+    stops the phase with the tokens' gate gaps).  Then the
+    MoE configuration, T5-small (batch 8), XLNet-base (batch 4) and
+    Longformer-base (batch 1) at full width, bf16 against float32 on the
+    card from the same weights: 3 Adam losses within 5 % / 0.05.
+33. Print the card's name and power limit, the ``kernels`` JSON line and,
     last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32:
 ``torch.backends.cuda.matmul.allow_tf32`` is set False.  The bf16 ones
 run on the tensor cores (cuBLAS), as the JAX package leaves them to XLA.
 """
+import gc
 import json
 import math
 import os
@@ -314,10 +351,14 @@ BF16_TRAIN_LOSS_RTOL = 5e-3
 BF16_TRAIN_GRAD_RTOL, BF16_TRAIN_GRAD_ATOL = 2e-2, 1e-2
 # the port's bf16 run against its float32 run: test_bf16_parity.py's budget
 BF16_PARITY_TOL = 5e-2
-# row-gather launches of one top-2 training step: the dispatch (1), the
-# combine (2), its backward (2 for d_w, 1 for d_buffers); the tokens are
-# a feed, so autograd runs no dispatch backward
-MOE_GATHERS_PER_STEP = 6
+# row-gather launches of one top-2 training step by kernels-line name: the
+# dispatch (1), the combine (2), its backward (2 for d_w, 1 for
+# d_buffers); the tokens are a feed, so autograd runs no dispatch backward.
+# In bf16 the rows are bf16 but the combine's output, and so the gradient
+# d_buffers gathers, is float32 (float32 gate weights times bf16 rows, the
+# JAX package's promotion)
+MOE_GATHERS_PER_STEP = {"row_gather": 6, "row_gather_bf16": 0}
+MOE_GATHERS_BF16_STEP = {"row_gather": 1, "row_gather_bf16": 5}
 
 
 def log(msg):
@@ -1232,11 +1273,12 @@ def moe_route(ht, pm):
 def gather_bound(src, idx):
     """(ms, 'bytes' | 'operations') of one row gather on these inputs: the
     int32 indices and each distinct valid source row read once, the
-    output written once."""
+    output written once (src's element size: 4 bytes, 2 in bf16)."""
     valid = idx[idx >= 0]
     rows = int(torch.unique(valid).numel()) if valid.numel() else 0
-    m = src.shape[1]
-    return bytes_bound(4 * idx.shape[0] + 4 * rows * m + 4 * idx.shape[0] * m)
+    m, es = src.shape[1], src.element_size()
+    return bytes_bound(4 * idx.shape[0] + es * rows * m
+                       + es * idx.shape[0] * m)
 
 
 def phase_moe_kernels(ht, pm, md):
@@ -1334,17 +1376,142 @@ def phase_moe_kernels(ht, pm, md):
     return lines["dispatch fwd"]
 
 
-def phase_moe_train(ht, pm, metrics, kmods, md):
-    """The MoE configuration trained through SparseMoELayer on the card,
-    then the dense MoELayer graph the same way."""
+def phase_moe_bf16_kernels(ht, pm, md):
+    """B6's bf16 instantiation against its plain version at the MoE path's
+    shapes (the maps of phase 11's real gate), every direction on bf16
+    rows, and edge cases (n = 0, n = 1, every index -1, width 13, a source
+    2 bytes off 16-byte alignment, width 2048): bit for bit.  The autograd
+    functions in the bf16 step's dtypes (bf16 tokens and expert rows,
+    float32 gate weights), kernel against plain gather: bit for bit, with
+    3k + 1 bf16 launches and one float32.  Times the dispatch and the
+    combine's route-0 gather: kernel, plain version, ``index_select`` +
+    ``masked_fill_`` in bf16 and the bytes bound at 2 bytes a value.
+    Returns the dispatch's kernels-line row."""
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush = flush_buf.zero_
+    x, tos, sot, kos, gw = moe_route(ht, pm)
+    s, m = x.shape
+    n_slots, k = tos.shape[0], sot.shape[1]
+    rng = np.random.RandomState(29)
+    bf = torch.bfloat16
+
+    def rand(r, w):
+        return torch.from_numpy(rng.randn(r, w).astype(np.float32)).to(
+            "cuda", bf)
+
+    def ints(lo, hi, n):
+        return torch.from_numpy(rng.randint(lo, hi, n).astype(np.int32)).cuda()
+
+    xb, buffers, g_tok = x.to(bf), rand(n_slots, m), rand(s, m)
+    sot_t = sot.t().contiguous()
+    # rows of 16 bf16 values starting one value (2 bytes) into the buffer
+    off = rand(1, 5000 * 16 + 1).view(-1)[1:].view(5000, 16)
+    cases = [("dispatch fwd", xb, tos),
+             ("combine fwd, d_w, dispatch bwd (route 0)", buffers, sot_t[0]),
+             ("combine fwd, d_w, dispatch bwd (route 1)", buffers, sot_t[1]),
+             ("slot <- token map on bf16 rows", g_tok, tos),
+             ("n=0", rand(64, 16), ints(0, 64, 0)),
+             ("n=1", rand(5, 16), ints(0, 5, 1)),
+             ("every index -1", rand(100, 16), ints(-1, 0, 777)),
+             ("w=13", rand(5000, 13), ints(-1, 5000, 4099)),
+             ("w=16, src 2 bytes off alignment", off, ints(-1, 5000, 4099)),
+             ("w=2048", rand(2000, 2048), ints(-1, 2000, 3001))]
+    for name, src, idx in cases:
+        before, before32 = md.bf16_launches, md.launches
+        out = md.row_gather(src, idx)
+        ref = md.row_gather_plain(src, idx)
+        torch.cuda.synchronize()
+        if md.bf16_launches != before + (1 if idx.shape[0] else 0) \
+                or md.launches != before32:
+            raise AssertionError(f"bf16 row gather ({name}) did not launch "
+                                 f"its bf16 kernel once")
+        if out.dtype != bf or out.shape != ref.shape or not torch.equal(
+                out.view(torch.int16), ref.view(torch.int16)):
+            raise AssertionError(f"bf16 row gather kernel vs plain ({name}): "
+                                 f"not bit-equal")
+        if out[idx < 0].any():
+            raise AssertionError(f"bf16 row gather ({name}): -1 rows not "
+                                 f"zero")
+        log(f"[moe-bf16-kernels] row gather {name} n={idx.shape[0]} m="
+            f"{src.shape[1]} src_rows={src.shape[0]}: bit-equal")
+
+    g_out = g_tok.float()
+
+    def run(gather):
+        xx = xb.clone().requires_grad_(True)
+        bb = buffers.clone().requires_grad_(True)
+        ww = gw.clone().requires_grad_(True)
+        buf = md.sparse_dispatch(xx, tos, sot, gather=gather)
+        out = md.sparse_combine(bb, ww, sot, tos, kos, gather=gather)
+        d_x, = torch.autograd.grad(buf, xx, buffers)
+        d_b, d_w = torch.autograd.grad(out, (bb, ww), g_out)
+        return {"dispatch": buf, "combine": out, "d_tokens": d_x,
+                "d_buffers": d_b, "d_gate_w": d_w}
+
+    before, before32 = md.bf16_launches, md.launches
+    got = run(md.row_gather)
     torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()     # what earlier phases still hold
+    if (md.bf16_launches - before, md.launches - before32) != (3 * k + 1, 1):
+        raise AssertionError(
+            f"bf16 autograd functions launched {md.bf16_launches - before} "
+            f"bf16 and {md.launches - before32} float32 gathers, not "
+            f"3k + 1 and 1")
+    want = run(md.row_gather_plain)
+    torch.cuda.synchronize()
+    dtypes = {name: str(t.dtype).replace("torch.", "")
+              for name, t in got.items()}
+    if dtypes != {"dispatch": "bfloat16", "combine": "float32",
+                  "d_tokens": "bfloat16", "d_buffers": "bfloat16",
+                  "d_gate_w": "float32"}:
+        raise AssertionError(f"bf16 autograd functions' dtypes {dtypes}")
+    for name in got:
+        if not torch.equal(got[name], want[name]):
+            raise AssertionError(
+                f"bf16 {name}: kernel vs plain gather not bit-equal, max err "
+                f"{float((got[name] - want[name]).abs().max())}")
+    log(f"[moe-bf16-kernels] SparseDispatch / SparseCombine in the bf16 "
+        f"step's dtypes {json.dumps(dtypes)}, kernel vs plain gather: "
+        f"bit-equal ({3 * k + 1} bf16 launches, 1 float32)")
+
+    lines = {}
+    for name, src, idx in cases[:2]:
+        idx64 = idx.clamp_min(0).long()
+        neg = (idx < 0)[:, None]
+        row = {"ms": time_ms(lambda: md.row_gather(src, idx), flush=flush),
+               "plain_ms": time_ms(lambda: md.row_gather_plain(src, idx),
+                                   flush=flush),
+               "library_ms": time_ms(lambda: src.index_select(
+                   0, idx64).masked_fill_(neg, 0.0), flush=flush),
+               "max_abs_err": 0.0}
+        row["bound_ms"], row["bound_by"] = gather_bound(src, idx)
+        log(f"[moe-bf16-kernels] bf16 row gather timing ({name}, n="
+            f"{idx.shape[0]} m={m} src_rows={src.shape[0]}; library = "
+            f"index_select + masked_fill_): {json.dumps(row)}")
+        lines[name] = row
+    return lines["dispatch fwd"]
+
+
+def phase_moe_train(ht, pm, metrics, kmods, md, compute_dtype=None):
+    """The MoE configuration trained through SparseMoELayer on the card,
+    then the dense MoELayer graph the same way; float32, or bf16 mixed
+    precision with ``compute_dtype="bfloat16"``.  Returns the sparse
+    graph's row-gather launches by kernels-line name."""
+    bf16 = compute_dtype is not None
+    tag = "[moe-bf16]" if bf16 else "[moe]"
+    peak = ("bf16", PEAK_BF16_FLOPS) if bf16 else ("fp32", PEAK_FP32_FLOPS)
     reports = {}
     for graph in ("sparse", "dense"):
+        # what earlier phases still hold, their cycles collected first so
+        # none is freed during the run
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         dims, ex, fd = pm.build_moe_graph(sparse=graph == "sparse",
-                                          device="cuda")
-        log(f"[moe] {graph} executor built in {time.perf_counter() - t0:.1f} s")
+                                          device="cuda",
+                                          compute_dtype=compute_dtype)
+        log(f"{tag} {graph} executor built in "
+            f"{time.perf_counter() - t0:.1f} s")
 
         def step():
             return float(ex.run("train", feed_dict=fd)[0].asnumpy())
@@ -1361,23 +1528,29 @@ def phase_moe_train(ht, pm, metrics, kmods, md):
             t0 = time.perf_counter()
             losses.append(step())           # the loss copy waits for it
             times.append(time.perf_counter() - t0)
-        launches = {"row_gather": md.launches}
+        launches = {"row_gather": md.launches,
+                    "row_gather_bf16": md.bf16_launches}
         others = {m.__name__.rsplit(".", 1)[-1]: n for m in kmods
                   for name, n in vars(m).items()
                   if name.endswith("launches") and m is not md and n}
         fallbacks = {**metrics.moe_fallback_counts(),
                      **metrics.flash_fallback_counts(),
                      **metrics.emb_fallback_counts()}
-        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        peak_mem = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
         kern, pwall, _ = pm.device_profile(step, MOE_PROFILED)
         busy_s = sum(v[1] for v in kern.values()) / 1e6 / MOE_PROFILED
-        gather_us = sum(v[1] for n, v in kern.items() if "row_gather" in n)
+        gather_us = {dt: sum(v[1] for n, v in kern.items()
+                             if any(k_ in n for k_ in names))
+                     for dt, names in pm.B6_KERNELS.items()}
         if not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"non-finite MoE loss ({graph}): {losses}")
-        if not losses[-1] < losses[0]:
+        # float32 must fall; the bf16 loss is a bf16 number, held finite
+        if not bf16 and not losses[-1] < losses[0]:
             raise AssertionError(f"MoE loss did not fall ({graph}): {losses}")
-        want = MOE_STEPS * MOE_GATHERS_PER_STEP if graph == "sparse" else 0
-        if launches["row_gather"] != want:
+        per_step = MOE_GATHERS_BF16_STEP if bf16 else MOE_GATHERS_PER_STEP
+        want = {name: MOE_STEPS * n if graph == "sparse" else 0
+                for name, n in per_step.items()}
+        if launches != want:
             raise AssertionError(f"row gather launches ({graph}) {launches} "
                                  f"!= {want}")
         if others:
@@ -1391,28 +1564,31 @@ def phase_moe_train(ht, pm, metrics, kmods, md):
         flops = pm.moe_step_flops()
         tokens = pm.TOKENS
         reports[graph] = {
-            "graph": graph, "tokens": tokens, "d": dims["d"],
+            "graph": graph, "compute_dtype": compute_dtype or "float32",
+            "tokens": tokens, "d": dims["d"],
             "experts": dims["experts"], "capacity": dims["capacity"],
             "steps": MOE_STEPS, "losses": losses,
+            "loss_fell": losses[-1] < losses[0],
             "step_ms_p50": float(np.percentile(ms, 50)),
             "step_ms_p99": float(np.percentile(ms, 99)),
             "step_ms_mean": float(ms.mean()),
             "tokens_per_s": tokens / (ms.mean() / 1e3),
             "model_gflop_per_step": flops / 1e9,
-            "mfu_fp32": flops / (ms.mean() / 1e3) / PEAK_FP32_FLOPS,
-            "peak_mem_gib": peak,
+            "mfu_" + peak[0]: flops / (ms.mean() / 1e3) / peak[1],
+            "peak_mem_gib": peak_mem,
             "device_busy_ms_per_step": busy_s * 1e3,
             "device_idle_share": 1.0 - busy_s / (ms.mean() / 1e3),
-            "row_gather_device_ms_per_step": gather_us / MOE_PROFILED / 1e3,
+            "row_gather_device_ms_per_step": {
+                dt: us / MOE_PROFILED / 1e3 for dt, us in gather_us.items()},
             "device_ops_per_step": sum(v[0] for v in kern.values())
             / MOE_PROFILED,
             "launches": launches, "card": card_line()}
-        log(f"[moe] {json.dumps(reports[graph])}")
+        log(f"{tag} {json.dumps(reports[graph])}")
         ex.close()
         del ex, fd
         torch.cuda.empty_cache()
     sp, de = reports["sparse"], reports["dense"]
-    log(f"[moe] step p50 sparse {sp['step_ms_p50']:.3f} ms, dense "
+    log(f"{tag} step p50 sparse {sp['step_ms_p50']:.3f} ms, dense "
         f"{de['step_ms_p50']:.3f} ms (dense / sparse "
         f"{de['step_ms_p50'] / sp['step_ms_p50']:.2f}); peak memory sparse "
         f"{sp['peak_mem_gib']:.3f} GiB, dense {de['peak_mem_gib']:.3f} GiB")
@@ -1451,6 +1627,24 @@ def dense_token_of_slot(dispatch):
     token = flat.argmax(0)
     return torch.where(flat.amax(0) > 0, token,
                        torch.full_like(token, -1)).to(torch.int32)
+
+
+def route_gaps(x, wg, sot_a, sot_b, cap, k):
+    """Why two routings of the same tokens differ: each token whose expert
+    choice differs, with the gaps between its sorted gate probabilities
+    (float64 from ``x`` and ``wg``), p1-p2 ... p_k-p_{k+1}; a near tie
+    can flip a route between devices."""
+    logits = x.astype(np.float64) @ wg.astype(np.float64)
+    p = np.exp(logits - logits.max(1, keepdims=True))
+    p = np.sort(p / p.sum(1, keepdims=True), axis=1)[:, ::-1]
+    ea = np.where(sot_a >= 0, sot_a // cap, -1)
+    eb = np.where(sot_b >= 0, sot_b // cap, -1)
+    diff = np.nonzero((ea != eb).any(1))[0]
+    gaps = [f"token {t}: " + ", ".join(
+        f"p{j + 1}-p{j + 2} {p[t, j] - p[t, j + 1]:.3e}" for j in range(k))
+        for t in diff[:20]]
+    return (f"{int((sot_a != sot_b).sum())} routes, expert choice of "
+            f"{diff.size} tokens; {'; '.join(gaps) or 'no expert flip'}")
 
 
 def phase_moe_parity(ht, pm):
@@ -1514,18 +1708,10 @@ def phase_moe_parity(ht, pm):
                 and np.array_equal(sot_c, sot_h)):
             # a near tie between a token's top experts can flip one route
             # between the devices: name each differing token's gate gaps
-            logits = fd[g["x"]].astype(np.float64) @ wg
-            p = np.exp(logits - logits.max(1, keepdims=True))
-            p = np.sort(p / p.sum(1, keepdims=True), axis=1)[:, ::-1]
-            ec = np.where(sot_c >= 0, sot_c // cap, -1)
-            eh = np.where(sot_h >= 0, sot_h // cap, -1)
-            diff = np.nonzero((ec != eh).any(1))[0]
-            gaps = [f"token {t}: p1-p2 {p[t, 0] - p[t, 1]:.3e}, p2-p3 "
-                    f"{p[t, 1] - p[t, 2]:.3e}" for t in diff[:20]]
             raise AssertionError(
                 f"card vs CPU routing maps differ at step {step + 1}: "
-                f"{int((sot_c != sot_h).sum())} routes, expert choice of "
-                f"{diff.size} tokens; {'; '.join(gaps) or 'no expert flip'}")
+                + route_gaps(fd[g["x"]], wg, sot_c, sot_h, cap,
+                             sot_c.shape[1]))
         gl, wl = float(got[0]), float(want[0])
         loss_err = max(loss_err, abs(gl - wl) / abs(wl))
         if not (math.isfinite(gl)
@@ -2353,12 +2539,10 @@ def longformer_step_flops(cfg, wmask):
 def line_name(counter):
     """The kernels-line name of a flash launch counter
     (``dq_mask_bias_launches`` -> ``flash_bwd_dq_mask_bias``,
-    ``bf16_fwd_causal_launches`` -> ``flash_fwd_causal_bf16``)."""
-    if counter.startswith("bf16_"):
-        return line_name(counter[len("bf16_"):]) + "_bf16"
-    kind, _, rest = counter[:-len("_launches")].partition("_")
-    return ("flash_fwd" if kind == "fwd" else f"flash_bwd_{kind}") \
-        + ("_" + rest if rest else "")
+    ``bf16_fwd_causal_launches`` -> ``flash_fwd_causal_bf16``): profile_train's
+    rule, which also names the kernels of a trace."""
+    from hetu_tpu_torch.tools.profile_train import line_name as name
+    return name(counter)
 
 
 def train_path(fa, metrics, kmods, tag, ex, fd, steps, warmup, launches,
@@ -2637,7 +2821,7 @@ def phase_bf16_kernels(ht, fa):
         return m.to(torch.uint8).contiguous()
 
     others = [
-        ("bias", "bias group h, causal", 114, 114,
+        ("bias_causal", "bias group h, causal", 114, 114,
          dict(bias=group("h", 114, 114), gmode="h", causal=True)),
         ("bias", "bias group bh, key mask", 130, 200,
          dict(bias=group("bh", 130, 200), gmode="bh", km=small_km)),
@@ -2657,10 +2841,11 @@ def phase_bf16_kernels(ht, fa):
     for path, name, s_q, s_kv, kw in others:
         run(path, name, 6, s_q, s_kv, heads=3, scale=0.37, **kw)
 
-    # the other instantiations timed at their float32 paths' shapes (phases
-    # 18 and 21), on no bf16 path: T5's encoder (bias group h, its padded key
-    # mask with a dead batch row) and key-bias strip, XLNet's content stream
-    # (mask group b, bias group h) and query stream with a strip, and
+    # the other instantiations timed at their paths' shapes (phases 18 and
+    # 21; the bf16 paths of phase 31 take the same): T5's encoder (bias
+    # group h, its padded key mask with a dead batch row), decoder (bias
+    # group h, causal) and key-bias strip, XLNet's content stream (mask
+    # group b, bias group h) and query stream with a strip, and
     # Longformer's window (mask group one)
     t5 = ht.T5Config.small(batch_size=T5_BATCH, src_len=T5_SRC,
                            tgt_len=T5_TGT)
@@ -2686,6 +2871,9 @@ def phase_bf16_kernels(ht, fa):
         ("bias", "T5 encoder, bias group h", tb, T5_SRC, T5_SRC,
          dict(heads=t5h, scale=T5_KERNEL_SCALE, km=t5km, gmode="h",
               bias=dense("h", tb, t5h, T5_SRC, T5_SRC))),
+        ("bias_causal", "T5 decoder, bias group h, causal", tb, T5_TGT,
+         T5_TGT, dict(heads=t5h, scale=T5_KERNEL_SCALE, causal=True,
+                      gmode="h", bias=dense("h", tb, t5h, T5_TGT, T5_TGT))),
         ("kbias", "T5 key-bias strip group b, causal", tb, T5_SRC, T5_SRC,
          dict(heads=t5h, scale=T5_KERNEL_SCALE, causal=True, gmode="b",
               kbias=dense("b", tb, t5h, 1, T5_SRC))),
@@ -2770,111 +2958,296 @@ def phase_bf16_train(ht, fa, metrics, kmods, model):
     return {line_name(n): c for n, c in report["launches"].items()}
 
 
-def _bf16_graph(ht, model, cfg):
-    """(feeds by name, loss, feed values by name) of BERT or GPT-2."""
+def phase_bf16_model_train(ht, fa, metrics, kmods, model):
+    """T5-small, XLNet-base or Longformer-base at its float32 phase's
+    shapes and widths (phases 19, 22, 23: dropout 0.1,
+    ``AdamOptimizer(1e-4)``) through
+    ``Executor(compute_dtype="bfloat16").run``: 2 warm-up steps, 10
+    counted steps with every launch counter set to 0 just before and read
+    just after (each bf16 flash entry the model reaches: steps x its
+    float32 count, 6, 23 or 12; no other kernel; no ``backend:``
+    fallback; the loss finite and not rising), the masters float32, then
+    3 profiled steps for the device's busy time, idle share and the flash
+    and matrix-product shares.  Returns the launches by kernels-line
+    name."""
+    from hetu_tpu_torch.tools.profile_train import profile_steps
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()     # what earlier phases still hold
+    if model == "t5":
+        cfg = ht.T5Config.small(batch_size=T5_BATCH, src_len=T5_SRC,
+                                tgt_len=T5_TGT)
+        feeds, loss, _ = ht.t5_seq2seq_graph(cfg, use_mask=True)
+        fd = _t5_feeds(feeds, ht.synthetic_seq2seq_batch(cfg, seed=0,
+                                                         padded=True))
+        # each bias kernel, its causal twin and the cross-attention's
+        # key-mask kernels, once a layer
+        kinds = ("bias", "bias_causal", "")
+        per_step, steps, warmup = cfg.num_layers, T5_STEPS, T5_WARMUP
+        flops = (t5_step_flops(cfg),) * 2
+        tokens = cfg.batch_size * (cfg.src_len + cfg.tgt_len)
+    elif model == "xlnet":
+        cfg = ht.XLNetConfig.base(seq_len=XL_SEQ, batch_size=XL_BATCH)
+        feeds, loss, _ = ht.xlnet_plm_graph(cfg)
+        batch = ht.synthetic_plm_batch(cfg, seed=0)
+        fd = {feeds[k_]: v_ for k_, v_ in zip(
+            ("input_ids", "content_mask", "query_mask", "labels"), batch)}
+        kinds = ("mask_bias",)
+        per_step, steps, warmup = 2 * cfg.n_layer - 1, XL_STEPS, XL_WARMUP
+        flops = xlnet_step_flops(cfg, batch[1], batch[2])
+        tokens = cfg.batch_size * cfg.seq_len
+    else:
+        cfg = ht.LongformerConfig.base(seq_len=LF_SEQ, batch_size=LF_BATCH)
+        feeds, loss, _ = ht.longformer_mlm_graph(cfg)
+        ids, labels = ht.synthetic_mlm_ids(cfg, seed=0)
+        fd = {feeds["input_ids"]: ids, feeds["labels"]: labels}
+        wmask = ht.longformer_attention_mask(
+            cfg.seq_len, cfg.attention_window, cfg.num_global_tokens)
+        kinds = ("mask",)
+        per_step, steps, warmup = (cfg.num_hidden_layers, LF_STEPS,
+                                   LF_WARMUP)
+        flops = longformer_step_flops(cfg, wmask[None])
+        tokens = cfg.batch_size * cfg.seq_len
+    names = tuple(f"bf16_{op}_{kind}_launches".replace("__", "_")
+                  for kind in kinds for op in ("fwd", "dq", "dkv"))
+    tag = f"[bf16-{model}-train]"
+    train_op = ht.optim.AdamOptimizer(1e-4).minimize(loss)
+    t0 = time.perf_counter()
+    ex = ht.Executor({"train": [loss, train_op]}, seed=0, device="cuda",
+                     compute_dtype="bfloat16")
+    log(f"{tag} executor built in {time.perf_counter() - t0:.1f} s")
+    report = train_path(fa, metrics, kmods, tag, ex, fd, steps, warmup,
+                        names, steps * per_step, flops, base,
+                        peak=("bf16", PEAK_BF16_FLOPS))
+    bad = [ex.var_names[n] for n, v in ex.var_values.items()
+           if v.dtype != torch.float32]
+    if bad:
+        raise AssertionError(f"{tag} masters left float32: {bad[:5]}")
+    step_s = report["step_ms_mean"] / 1e3
+    report["profiled"], _ = profile_steps(
+        lambda: float(ex.run("train", feed_dict=fd)[0].asnumpy()),
+        BF_PROFILED, step_s)
+    report.update({"batch": cfg.batch_size, "compute_dtype": "bfloat16",
+                   "tokens_per_s": tokens / step_s, "masters": "float32"})
+    log(f"{tag} {json.dumps(report)}")
+    ex.close()
+    del ex
+    torch.cuda.empty_cache()
+    return {line_name(n): c for n, c in report["launches"].items()}
+
+
+def parity_configs(ht, model):
+    """(tiny configuration, scale of every ``*.q.weight``, Adam learning
+    rate of the tiny card-vs-CPU run, full-width configuration) of a bf16
+    parity model.  Dropout 0 throughout.  The tiny runs take each model's
+    own card-vs-CPU rate: 1e-3 for BERT and GPT-2 (phase 28) and the MoE
+    (phase 13), 1e-4 for T5, XLNet and Longformer (phases 20 and 24).
+    The full widths at a cut batch: BERT-base batch 8 (of 64), GPT-2
+    small 4 (of 8), T5-small 8 (of 32), XLNet-base 4 (of 8),
+    Longformer-base 1 (of 2); the MoE configuration (``pm.moe_graph``'s
+    arguments) whole, its tiny slice tests/test_torch_moe.py's.  T5's
+    query projections are scaled by 1/8 in the tiny run, as phase 20
+    does."""
+    if model == "bert":
+        drop = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+        return (ht.BertConfig.tiny(batch_size=4, seq_len=128, **drop), 1.0,
+                1e-3, ht.BertConfig.base(batch_size=8, seq_len=TS, **drop))
+    if model == "gpt2":
+        drop = dict(resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0)
+        return (ht.GPT2Config.tiny(batch_size=4, seq_len=128, **drop), 1.0,
+                1e-3, ht.GPT2Config.small(batch_size=4, seq_len=GPT_SEQ,
+                                          **drop))
+    if model == "t5":
+        return (ht.T5Config.tiny(batch_size=4, src_len=128, tgt_len=50,
+                                 dropout_rate=0.0), 0.125, 1e-4,
+                ht.T5Config.small(batch_size=8, src_len=T5_SRC,
+                                  tgt_len=T5_TGT, dropout_rate=0.0))
+    if model == "xlnet":
+        return (ht.XLNetConfig.tiny(batch_size=2, dropout=0.0), 1.0, 1e-4,
+                ht.XLNetConfig.base(batch_size=4, seq_len=XL_SEQ,
+                                    dropout=0.0))
+    if model == "longformer":
+        return (ht.LongformerConfig.tiny(batch_size=2,
+                                         hidden_dropout_prob=0.0), 1.0, 1e-4,
+                ht.LongformerConfig.base(batch_size=1, seq_len=LF_SEQ,
+                                         hidden_dropout_prob=0.0))
+    return (dict(batch_tokens=64, d=16, experts=4, hidden=32), 1.0, 1e-3,
+            dict(batch_tokens=8192))
+
+
+def _bf16_graph(ht, pm, model, cfg):
+    """(feeds by name, loss, feed values by name, extra fetches) of BERT,
+    GPT-2, T5 (``use_mask``), XLNet, Longformer or the sparse MoE graph
+    (``cfg``: ``pm.moe_graph``'s arguments).  The extra fetches: the MoE
+    graph's token_of_slot and slot_of_token; T5's, XLNet's and
+    Longformer's logits (:func:`lm_loss64`)."""
+    if model == "moe":
+        g = pm.moe_graph(sparse=True, **cfg)
+        values = {n.name: v for n, v in pm.moe_feeds(g, seed=1).items()}
+        return ({"x": g["x"], "y": g["y"]}, g["loss"], values,
+                list(g["route"][:2]))
     if model == "bert":
         feeds, loss, _ = ht.bert_pretrain_graph(cfg)
-        values = dict(zip(("input_ids", "token_type_ids", "masked_lm_labels",
-                           "attention_mask"),
-                          ht.synthetic_mlm_batch(cfg, seed=1)))
-    else:
+        names = ("input_ids", "token_type_ids", "masked_lm_labels",
+                 "attention_mask")
+        batch = ht.synthetic_mlm_batch(cfg, seed=1)
+        return feeds, loss, dict(zip(names, batch)), []
+    if model == "gpt2":
         feeds, loss, _ = ht.gpt2_lm_graph(cfg)
-        values = dict(zip(("input_ids", "labels"),
-                          ht.synthetic_lm_batch(cfg, seed=1)))
-    return feeds, loss, values
+        names, batch = ("input_ids", "labels"), ht.synthetic_lm_batch(cfg,
+                                                                      seed=1)
+        return feeds, loss, dict(zip(names, batch)), []
+    if model == "t5":
+        feeds, loss, logits = ht.t5_seq2seq_graph(cfg, use_mask=True)
+        names = ("input_ids", "decoder_input_ids", "labels",
+                 "attention_mask")
+        batch = ht.synthetic_seq2seq_batch(cfg, seed=1, padded=True)
+    elif model == "xlnet":
+        feeds, loss, logits = ht.xlnet_plm_graph(cfg)
+        names = ("input_ids", "content_mask", "query_mask", "labels")
+        batch = ht.synthetic_plm_batch(cfg, seed=1)
+    else:
+        feeds, loss, logits = ht.longformer_mlm_graph(cfg)
+        names, batch = ("input_ids", "labels"), ht.synthetic_mlm_ids(cfg, 1)
+    return feeds, loss, dict(zip(names, batch)), [logits]
 
 
-def phase_bf16_parity(ht):
-    """Tiny BERT and tiny GPT-2 at bf16 (dropout 0): card vs CPU over 3
-    Adam steps from the same weights, losses within BF16_TRAIN_LOSS_RTOL
-    and step-1 gradients of every variable allclose at BF16_TRAIN_GRAD_*.
-    Then BERT-base (seq 512, batch 8) and GPT-2 small (seq 1024, batch 4)
-    at full width and depth, dropout 0: the bf16 run against the float32
-    run on the card from the same weights, 3 Adam losses within
+def lm_loss64(logits, labels):
+    """The models' masked LM loss (``masked_lm_loss``: the mean over labels
+    other than -1) in float64 from fetched logits: the bf16 step's loss
+    without its last rounding, the bf16 sum over the tokens, whose
+    spacing (3.9e-3 to 7.8e-3 relative) is as wide as the loss gate."""
+    x = logits.astype(np.float64).reshape(-1, logits.shape[-1])
+    y = np.asarray(labels).reshape(-1)
+    x, y = x[y != -1], y[y != -1]
+    m = x.max(-1)
+    lse = m + np.log(np.exp(x - m[:, None]).sum(-1))
+    return float(np.mean(lse - x[np.arange(len(y)), y]))
+
+
+def bf16_card_vs_cpu(ht, pm, model, cfg, q_scale, lr):
+    """One tiny model at bf16 (dropout 0): card vs CPU over 3 Adam steps
+    (learning rate ``lr``) from the same weights (``*.q.weight`` scaled by
+    ``q_scale``), losses within BF16_TRAIN_LOSS_RTOL and step-1 gradients
+    of every variable float32 and allclose at BF16_TRAIN_GRAD_*.  The MoE
+    routing maps must be equal at every step (a differing route stops the
+    phase with the tokens' gate gaps from the bf16-rounded operands).
+    T5's, XLNet's and Longformer's losses are compared as
+    :func:`lm_loss64` of each device's bf16 logits (the fetched bf16
+    losses are logged beside them); BERT's, GPT-2's and the MoE's (a
+    float32 value) as fetched."""
+    feeds, loss, values, extra = _bf16_graph(ht, pm, model, cfg)
+    route = extra if model == "moe" else []
+    wrt = [n for n in ht.topo_sort([loss])
+           if isinstance(n, ht.PlaceholderOp) and n.is_variable
+           and n.trainable]
+    fetches = {"train": [loss, ht.optim.AdamOptimizer(lr).minimize(loss)]
+               + ht.gradients(loss, wrt) + extra}
+    card = ht.Executor(fetches, seed=0, device="cuda",
+                       compute_dtype="bfloat16")
+    host = ht.Executor(fetches, seed=0, device="cpu",
+                       compute_dtype="bfloat16")
+    weights = {n: w * q_scale if n.endswith(".q.weight") else w
+               for n, w in card.return_tensor_values().items()}
+    load_all(card, weights)
+    load_all(host, weights)
+    fd = {feeds[k]: v for k, v in values.items()}
+    nv = len(wrt)
+    wg_node = next((n for n, name in card.var_names.items()
+                    if name == "topk_gate.wg"), None)
+    loss_err, grad_err, fetched = 0.0, 0.0, []
+    for step in range(3):
+        wg = None if wg_node is None else \
+            card.var_values[wg_node].to(torch.bfloat16).float().cpu().numpy()
+        got = card.run("train", feed_dict=fd, convert_to_numpy_ret_vals=True)
+        want = host.run("train", feed_dict=fd,
+                        convert_to_numpy_ret_vals=True)
+        if route and not all(np.array_equal(a, b) for a, b in
+                             zip(got[2 + nv:], want[2 + nv:])):
+            xb = torch.from_numpy(values["x"]).to(torch.bfloat16).float()
+            cap = int(math.ceil(pm.K * pm.CAPACITY_FACTOR
+                                * cfg["batch_tokens"] / cfg["experts"]))
+            raise AssertionError(
+                f"bf16 card vs CPU {model} routing maps differ at step "
+                f"{step + 1}: " + route_gaps(xb.numpy(), wg, got[-1],
+                                             want[-1], cap, pm.K))
+        fetched.append((float(got[0]), float(want[0])))
+        if extra and not route:
+            gl = lm_loss64(got[-1], values["labels"])
+            wl = lm_loss64(want[-1], values["labels"])
+        else:
+            gl, wl = fetched[-1]
+        loss_err = max(loss_err, abs(gl - wl) / abs(wl))
+        if not (math.isfinite(gl)
+                and abs(gl - wl) <= BF16_TRAIN_LOSS_RTOL * abs(wl)):
+            raise AssertionError(f"bf16 card vs CPU {model} loss at "
+                                 f"step {step + 1}: {gl} vs {wl}")
+        if step == 0:
+            for node, g, w in zip(wrt, got[2:2 + nv], want[2:2 + nv]):
+                grad_err = max(grad_err, float(np.max(np.abs(g - w))))
+                if g.dtype != np.float32 or not np.allclose(
+                        g, w, rtol=BF16_TRAIN_GRAD_RTOL,
+                        atol=BF16_TRAIN_GRAD_ATOL):
+                    raise AssertionError(
+                        f"bf16 card vs CPU {model} gradient of "
+                        f"{node.name}: max err "
+                        f"{float(np.max(np.abs(g - w)))}")
+    what = ("routing maps equal every step; " if route else "") + (
+        "loss (float64 from the bf16 logits)" if extra and not route
+        else "loss")
+    log(f"[bf16-parity] tiny {model}, bf16 card vs CPU, 3 Adam steps (lr "
+        f"{lr}): {what} max rel err {loss_err:.3e} (rtol "
+        f"{BF16_TRAIN_LOSS_RTOL}); fetched losses (card, CPU) {fetched}; "
+        f"step-1 gradients of {nv} variables max abs err {grad_err:.3e} "
+        f"(rtol {BF16_TRAIN_GRAD_RTOL}, atol {BF16_TRAIN_GRAD_ATOL})")
+    card.close()
+    host.close()
+
+
+def bf16_vs_f32(ht, pm, model, cfg):
+    """One model at full width (dropout 0): the bf16 run against the
+    float32 run on the card from the same weights, 3 Adam losses within
     ``test_bf16_parity.py``'s 5 % / 0.05."""
-    tiny = {"bert": ht.BertConfig.tiny(batch_size=4, seq_len=128,
-                                       hidden_dropout_prob=0.0,
-                                       attention_probs_dropout_prob=0.0),
-            "gpt2": ht.GPT2Config.tiny(batch_size=4, seq_len=128,
-                                       resid_pdrop=0.0, embd_pdrop=0.0,
-                                       attn_pdrop=0.0)}
-    for model, cfg in tiny.items():
-        feeds, loss, values = _bf16_graph(ht, model, cfg)
-        wrt = [n for n in ht.topo_sort([loss])
-               if isinstance(n, ht.PlaceholderOp) and n.is_variable
-               and n.trainable]
-        fetches = {"train": [loss, ht.optim.AdamOptimizer(1e-3)
-                             .minimize(loss)] + ht.gradients(loss, wrt)}
-        card = ht.Executor(fetches, seed=0, device="cuda",
-                           compute_dtype="bfloat16")
-        host = ht.Executor(fetches, seed=0, device="cpu",
-                           compute_dtype="bfloat16")
-        load_all(host, card.return_tensor_values())
-        fd = {feeds[k]: v for k, v in values.items()}
-        loss_err, grad_err = 0.0, 0.0
-        for step in range(3):
-            got = card.run("train", feed_dict=fd,
-                           convert_to_numpy_ret_vals=True)
-            want = host.run("train", feed_dict=fd,
-                            convert_to_numpy_ret_vals=True)
-            gl, wl = float(got[0]), float(want[0])
-            loss_err = max(loss_err, abs(gl - wl) / abs(wl))
-            if not (math.isfinite(gl)
-                    and abs(gl - wl) <= BF16_TRAIN_LOSS_RTOL * abs(wl)):
-                raise AssertionError(f"bf16 card vs CPU {model} loss at "
-                                     f"step {step + 1}: {gl} vs {wl}")
-            if step == 0:
-                for node, g, w in zip(wrt, got[2:], want[2:]):
-                    grad_err = max(grad_err, float(np.max(np.abs(g - w))))
-                    if g.dtype != np.float32 or not np.allclose(
-                            g, w, rtol=BF16_TRAIN_GRAD_RTOL,
-                            atol=BF16_TRAIN_GRAD_ATOL):
-                        raise AssertionError(
-                            f"bf16 card vs CPU {model} gradient of "
-                            f"{node.name}: max err "
-                            f"{float(np.max(np.abs(g - w)))}")
-        log(f"[bf16-parity] tiny {model}, bf16 card vs CPU, 3 Adam steps: "
-            f"loss max rel err {loss_err:.3e} (rtol "
-            f"{BF16_TRAIN_LOSS_RTOL}); step-1 gradients of {len(wrt)} "
-            f"variables max abs err {grad_err:.3e} (rtol "
-            f"{BF16_TRAIN_GRAD_RTOL}, atol {BF16_TRAIN_GRAD_ATOL})")
-        card.close()
-        host.close()
-    full = {"bert": ht.BertConfig.base(batch_size=8, seq_len=TS,
-                                       hidden_dropout_prob=0.0,
-                                       attention_probs_dropout_prob=0.0),
-            "gpt2": ht.GPT2Config.small(batch_size=4, seq_len=GPT_SEQ,
-                                        resid_pdrop=0.0, embd_pdrop=0.0,
-                                        attn_pdrop=0.0)}
-    for model, cfg in full.items():
-        feeds, loss, values = _bf16_graph(ht, model, cfg)
-        fetches = {"train": [loss, ht.optim.AdamOptimizer(1e-4)
-                             .minimize(loss)]}
-        fd = {feeds[k]: v for k, v in values.items()}
-        runs, weights = {}, None
-        for cd in ("bfloat16", None):
-            ex = ht.Executor(fetches, seed=0, device="cuda",
-                             compute_dtype=cd)
-            if weights is None:
-                weights = ex.return_tensor_values()
-            else:
-                load_all(ex, weights)
-            runs[cd] = [float(ex.run("train", feed_dict=fd)[0].asnumpy())
-                        for _ in range(3)]
-            ex.close()
-            del ex
-            torch.cuda.empty_cache()
-        got, want = np.array(runs["bfloat16"]), np.array(runs[None])
-        if not (np.isfinite(got).all()
-                and np.allclose(got, want, rtol=BF16_PARITY_TOL,
-                                atol=BF16_PARITY_TOL)):
-            raise AssertionError(f"bf16 vs float32 {model} at full width: "
-                                 f"{got.tolist()} vs {want.tolist()}")
-        log(f"[bf16-parity] {model} full width (batch {cfg.batch_size}, seq "
-            f"{cfg.seq_len}), bf16 vs float32 on the card, 3 Adam losses "
-            f"{got.tolist()} vs {want.tolist()}: max rel diff "
-            f"{float(np.max(np.abs(got - want) / np.abs(want))):.3e} (rtol "
-            f"= atol = {BF16_PARITY_TOL})")
+    feeds, loss, values, _ = _bf16_graph(ht, pm, model, cfg)
+    lr = 1e-3 if model == "moe" else 1e-4    # each training phase's
+    fetches = {"train": [loss, ht.optim.AdamOptimizer(lr).minimize(loss)]}
+    fd = {feeds[k]: v for k, v in values.items()}
+    runs, weights = {}, None
+    for cd in ("bfloat16", None):
+        ex = ht.Executor(fetches, seed=0, device="cuda", compute_dtype=cd)
+        if weights is None:
+            weights = ex.return_tensor_values()
+        else:
+            load_all(ex, weights)
+        runs[cd] = [float(ex.run("train", feed_dict=fd)[0].asnumpy())
+                    for _ in range(3)]
+        ex.close()
+        del ex
+        torch.cuda.empty_cache()
+    got, want = np.array(runs["bfloat16"]), np.array(runs[None])
+    if not (np.isfinite(got).all()
+            and np.allclose(got, want, rtol=BF16_PARITY_TOL,
+                            atol=BF16_PARITY_TOL)):
+        raise AssertionError(f"bf16 vs float32 {model} at full width: "
+                             f"{got.tolist()} vs {want.tolist()}")
+    shape = cfg if model == "moe" else {"batch": cfg.batch_size}
+    log(f"[bf16-parity] {model} full width ({json.dumps(shape)}), bf16 vs "
+        f"float32 on the card, 3 Adam losses {got.tolist()} vs "
+        f"{want.tolist()}: max rel diff "
+        f"{float(np.max(np.abs(got - want) / np.abs(want))):.3e} (rtol "
+        f"= atol = {BF16_PARITY_TOL})")
+
+
+def phase_bf16_parity(ht, pm, models):
+    """``models`` at bf16: each tiny model card vs CPU
+    (:func:`bf16_card_vs_cpu`), then each at full width bf16 vs float32
+    on the card (:func:`bf16_vs_f32`); configurations from
+    :func:`parity_configs`."""
+    cfgs = {m: parity_configs(ht, m) for m in models}
+    for model, (tiny, q_scale, lr, _) in cfgs.items():
+        bf16_card_vs_cpu(ht, pm, model, tiny, q_scale, lr)
+    for model, (_, _, _, full) in cfgs.items():
+        bf16_vs_f32(ht, pm, model, full)
 
 
 def main():
@@ -2907,7 +3280,8 @@ def main():
         fa.kernel(entry)
     emb.kernel()
     seg.kernel()
-    md.kernel()
+    md.kernel(torch.float32)
+    md.kernel(torch.bfloat16)
     log(f"[build] all kernels built and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -3035,9 +3409,25 @@ def main():
     bflaunches.update(phase_bf16_train(ht, fa, metrics, kmods, "gpt2"))
 
     # -- 28. bf16 card vs CPU, bf16 vs float32 --------------------------------------
-    phase_bf16_parity(ht)
+    phase_bf16_parity(ht, pm, ("bert", "gpt2"))
 
-    # -- 29. result lines ---------------------------------------------------------
+    # -- 29. the bf16 MoE row gather vs plain ---------------------------------------
+    mline_bf16 = phase_moe_bf16_kernels(ht, pm, md)
+
+    # -- 30. train the MoE configuration in bf16, sparse then dense -----------------
+    mlaunches_bf16 = phase_moe_train(ht, pm, metrics, kmods, md,
+                                     compute_dtype="bfloat16")
+
+    # -- 31. train T5-small, XLNet-base and Longformer-base in bf16 -----------------
+    for model in ("t5", "xlnet", "longformer"):
+        for name, n in phase_bf16_model_train(ht, fa, metrics, kmods,
+                                              model).items():
+            bflaunches[name] = bflaunches.get(name, 0) + n
+
+    # -- 32. bf16 card vs CPU, bf16 vs float32: MoE, T5, XLNet, Longformer ------------
+    phase_bf16_parity(ht, pm, ("moe", "t5", "xlnet", "longformer"))
+
+    # -- 33. result lines ---------------------------------------------------------
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
@@ -3090,22 +3480,25 @@ def main():
                                  f"flash_attention.py:{at}",
                                  0 if counts is None else counts[name + sfx],
                                  mlines[key + sfx]))
-    # the bf16 instantiations of the two paths, the key-mask kernels (BERT)
-    # and the causal ones (GPT-2), then the others at their float32 paths'
-    # shapes (on no bf16 path: 0, as phases 26 and 27 checked); all three on
-    # the tensor cores
+    # the bf16 instantiations, all three kernels on the tensor cores: the
+    # key-mask ones (BERT and T5's cross-attention) and the causal ones
+    # (GPT-2) timed at the BERT and GPT-2 shapes, the others at their
+    # paths' shapes; their launches from phases 26, 27 and 31 (the
+    # key-bias strip, alone or with a full mask, is on no path: 0, as those
+    # phases checked)
     bf_sources = {"fwd": "flash_attention_bf16.cu",
                   "dq": "flash_attention_dq_bf16.cu",
                   "dkv": "flash_attention_dkv_bf16.cu"}
     for path, sfx in (("bert", "_bf16"), ("gpt2", "_causal_bf16"),
-                      ("bias", "_bias_bf16"), ("kbias", "_kbias_bf16"),
+                      ("bias", "_bias_bf16"),
+                      ("bias_causal", "_bias_causal_bf16"),
+                      ("kbias", "_kbias_bf16"),
                       ("mask", "_mask_bf16"), ("mask_bias", "_mask_bias_bf16"),
                       ("mask_kbias", "_mask_kbias_bf16")):
         for key, name, _, at in flash:
             kernels.append(entry(name + sfx, bf_sources[key],
                                  f"flash_attention.py:{at}",
-                                 bflaunches[name + sfx]
-                                 if path in ("bert", "gpt2") else 0,
+                                 bflaunches.get(name + sfx, 0),
                                  bflines[path][key]))
     kernels.append(entry("emb_gather", "emb_cache.cu", "emb_cache.py:71",
                          claunches["emb_gather"], gline))
@@ -3115,6 +3508,9 @@ def main():
     kernels.append(entry("row_gather", "moe_dispatch.cu",
                          "moe_dispatch.py:37", mlaunches["row_gather"],
                          mline))
+    kernels.append(entry("row_gather_bf16", "moe_dispatch.cu",
+                         "moe_dispatch.py:37",
+                         mlaunches_bf16["row_gather_bf16"], mline_bf16))
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -31,9 +31,11 @@ trainable variable is cast inside the differentiated function, so its
 gradient reaches the float32 master as float32.  Feeds first take their
 placeholder's declared dtype, so integer ids, labels and masks are never
 rounded.  Fetched values and state updates leave the step as float32;
-the optimizer's state and update stay float32, on the masters.  Not with
-PS embeddings or the MoE sparse dispatch (their kernels take float32
-only): refused by name.
+the optimizer's state and update stay float32, on the masters.  The MoE
+sparse dispatch keeps the JAX package's dtypes (bf16 expert buffers,
+float32 gate weights and combine output), so its row gather runs in both
+dtypes within one step.  Not with PS embeddings (the cache slab and its
+kernels are float32 only): refused by name.
 
 Not ported, refused by name: distribution (``dist_strategy``, ``mesh``,
 ``zero``, ``plan``, ``pipeline``, ``num_microbatches``), ``remat``,
@@ -84,10 +86,6 @@ def _compute_dtype(cd):
         f"Executor(compute_dtype={cd!r}) is not ported: the port trains in "
         f"float32 or, with compute_dtype='bfloat16', in bfloat16 mixed "
         f"precision")
-
-
-#: op types whose kernels take float32 only (the MoE sparse dispatch)
-_F32_ONLY_OPS = ("SparseDispatch", "SparseCombine")
 
 
 def _step_generator(device, seed, step):
@@ -150,14 +148,10 @@ class SubExecutor:
         if len(losses) > 1:
             raise ValueError("multiple distinct losses in one subgraph")
         self.loss_node = next(iter(losses)) if losses else None
-        if executor.compute_dtype is not None:
-            f32_only = [n for n in self.topo if getattr(n, "is_ps", False)
-                        or getattr(n, "op_type", None) in _F32_ONLY_OPS]
-            if f32_only:
-                raise NotImplementedError(
-                    f"Executor(compute_dtype=...) with {f32_only[0]} in "
-                    f"subgraph {name!r}: PS embeddings and the MoE sparse "
-                    f"dispatch take float32 only")
+        if executor.compute_dtype is not None and self.ps_nodes:
+            raise NotImplementedError(
+                f"Executor(compute_dtype=...) with {self.ps_nodes[0]} in "
+                f"subgraph {name!r}: PS embeddings take float32 only")
 
     def _low(self, t):
         """A float32 value in the compute dtype (the mixed-precision cast

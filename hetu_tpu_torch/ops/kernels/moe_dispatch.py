@@ -7,10 +7,12 @@ tensors.  Every direction of both transforms is one primitive::
     row_gather(src, idx)[i] = src[idx[i]]      (a zero row where idx < 0)
 
 * :func:`row_gather` — the hand-written CUDA kernel ``csrc/moe_dispatch.cu``
-  (``hetu_row_gather``), which replaces the TPU kernel
+  (``hetu_row_gather`` for float32, ``hetu_row_gather_bf16`` for
+  bfloat16: the output has ``src``'s dtype), which replaces the TPU kernel
   ``hetu_tpu/ops/pallas/moe_dispatch.py::_gather_kernel`` (launched by
   ``row_gather``).  Plain version: :func:`row_gather_plain`
-  (``index_select`` over the clamped indices, the ``-1`` rows zeroed).
+  (``index_select`` over the clamped indices, the ``-1`` rows zeroed, in
+  any dtype).
 * :class:`SparseDispatch` / :class:`SparseCombine` — the autograd
   functions, with the JAX package's custom VJPs as written
   (``moe_dispatch.py:88-158``), so no direction is a scatter::
@@ -25,14 +27,22 @@ tensors.  Every direction of both transforms is one primitive::
   default), so a caller can run the same code with the plain version on
   the card and hold the two to each other bit for bit.
 
+Under ``Executor(compute_dtype="bfloat16")`` the tokens and the expert
+buffers are bf16 and the gate weights ``w`` float32, as in the JAX
+package, so ``w * buffers[...]`` promotes the combine's output to
+float32.  One step then gathers in both dtypes: bf16 in the dispatch
+(forward and backward), the combine forward and d_w's re-gathers;
+float32 in d_buffers' gather of the combine's (float32) gradient.
+Nothing is cast to make the dtypes agree.
+
 On a CPU tensor :func:`row_gather` takes the plain version; on a CUDA
 tensor it launches the kernel or raises.  The kernel runs on PyTorch's
 current stream, the stream autograd runs ``backward`` on, so it is
-ordered with the plain torch ops around it.  ``launches`` counts its
-launches (reset it by assignment).  Index maps are int32, as in JAX;
-:func:`sparse_dispatch` / :func:`sparse_combine` convert them once and
-lay ``slot_of_token`` out route-major, so each launch gets a contiguous
-column.
+ordered with the plain torch ops around it.  ``launches`` (float32) and
+``bf16_launches`` count its launches by dtype (reset them by
+assignment).  Index maps are int32, as in JAX; :func:`sparse_dispatch` /
+:func:`sparse_combine` convert them once and lay ``slot_of_token`` out
+route-major, so each launch gets a contiguous column.
 """
 from __future__ import annotations
 
@@ -42,22 +52,29 @@ import torch
 
 from . import _build
 
-#: kernel launches made in this process by :func:`row_gather`
+#: kernel launches made in this process by :func:`row_gather`, on
+#: float32 and on bfloat16 ``src``
 launches = 0
+bf16_launches = 0
 
-_FN = []
+#: src dtype -> (C entry, launch counter)
+_ENTRIES = {torch.float32: ("hetu_row_gather", "launches"),
+            torch.bfloat16: ("hetu_row_gather_bf16", "bf16_launches")}
+_FNS = {}
 
 
-def kernel():
-    """The bound C entry ``hetu_row_gather`` (built on first use)."""
-    if not _FN:
-        fn = _build.load("moe_dispatch").hetu_row_gather
+def kernel(dtype):
+    """The bound C entry for ``dtype`` (``hetu_row_gather`` or
+    ``hetu_row_gather_bf16``; built on first use)."""
+    fn = _FNS.get(dtype)
+    if fn is None:
+        fn = getattr(_build.load("moe_dispatch"), _ENTRIES[dtype][0])
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                                ctypes.c_longlong,
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FN.append(fn)
-    return _FN[0]
+        _FNS[dtype] = fn
+    return fn
 
 
 def row_gather_plain(src, idx):
@@ -72,15 +89,15 @@ def row_gather_plain(src, idx):
 
 def row_gather(src, idx):
     """``out[i] = src[idx[i]]``, zeros where ``idx[i] < 0``: src (R, m)
-    float32 and contiguous, idx (n,) int32 with values in [-1, R) (the
-    kernel does not check the upper bound)."""
-    global launches
+    float32 or bfloat16 and contiguous, idx (n,) int32 with values in
+    [-1, R) (the kernel does not check the upper bound); the output has
+    ``src``'s dtype."""
     if src.ndim != 2 or idx.ndim != 1:
         raise ValueError(f"row_gather: src (R, m) and idx (n,) expected, got "
                          f"{tuple(src.shape)} and {tuple(idx.shape)}")
-    if src.dtype != torch.float32 or idx.dtype != torch.int32:
-        raise TypeError(f"row_gather: float32 src and int32 idx expected, "
-                        f"got {src.dtype}, {idx.dtype}")
+    if src.dtype not in _ENTRIES or idx.dtype != torch.int32:
+        raise TypeError(f"row_gather: float32 or bfloat16 src and int32 idx "
+                        f"expected, got {src.dtype}, {idx.dtype}")
     if idx.device != src.device:
         raise ValueError(f"row_gather: idx on {idx.device}, src on "
                          f"{src.device}")
@@ -89,19 +106,19 @@ def row_gather(src, idx):
     if src.device.type != "cuda":
         raise ValueError(f"row_gather: no kernel for device {src.device}")
     n, m = idx.shape[0], src.shape[1]
-    out = torch.empty((n, m), dtype=torch.float32, device=src.device)
+    out = torch.empty((n, m), dtype=src.dtype, device=src.device)
     if n == 0 or m == 0:
         return out
     if not src.is_contiguous():
         raise ValueError("row_gather: src must be contiguous")
     idx = idx.contiguous()
     with torch.cuda.device(src.device):
-        rc = kernel()(src.data_ptr(), idx.data_ptr(), out.data_ptr(), n, m,
-                      src.shape[0],
-                      torch.cuda.current_stream(src.device).cuda_stream)
+        rc = kernel(src.dtype)(
+            src.data_ptr(), idx.data_ptr(), out.data_ptr(), n, m,
+            src.shape[0], torch.cuda.current_stream(src.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"row_gather: kernel launch failed (cudaError {rc})")
-    launches += 1
+    globals()[_ENTRIES[src.dtype][1]] += 1
     return out
 
 

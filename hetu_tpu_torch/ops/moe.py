@@ -13,7 +13,8 @@ Two formulations of one routing, as in the JAX package:
   the CUDA row-gather kernel (``ops/kernels/moe_dispatch.py``, B6),
   forward and backward.
 
-The arithmetic is the JAX package's, literally: float one-hot cumsums for
+The arithmetic is the JAX package's, literally: the softmax one op at a
+time (:func:`_softmax`), float32 one-hot cumsums for
 the queue positions, expert-2 positions offset by the count of expert-1
 *choices* (``mask1``, dropped ones included), the aux loss from the first
 route's mask only, the top-2 renormalisation with its ``1e-9`` floor, and
@@ -34,6 +35,17 @@ def _one_hot_f(idx, n):
         torch.float32)
 
 
+def _softmax(logits):
+    """``jax.nn.softmax`` over the last axis as the JAX package computes
+    it, ``exp(x - max) / sum(exp(x - max))`` one op at a time, each op
+    rounding to the logits' dtype.  ``torch.softmax`` rounds once from
+    float32: in bf16 that lands an ulp away from the JAX package's gates
+    in most rows and flips a route wherever two gates tie after one of
+    the two roundings (ROADMAP C13)."""
+    u = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return u / u.sum(dim=-1, keepdim=True)
+
+
 def _cumsum_tokens(mask):
     """``cumsum(mask, axis=0)`` of an (s, e) one-hot, scanned along the
     last axis of its transpose: PyTorch scans an outer axis one column a
@@ -46,7 +58,7 @@ def _cumsum_tokens(mask):
 def _top1_gating(logits, capacity):
     """Returns (dispatch (s,e,c), combine (s,e,c), aux_loss) — GShard top-1."""
     s, e = logits.shape
-    gates = torch.softmax(logits, dim=-1)
+    gates = _softmax(logits)
     idx1 = torch.argmax(gates, dim=-1)
     mask1 = _one_hot_f(idx1, e)                       # (s, e)
     # position of each token within its expert queue
@@ -64,7 +76,7 @@ def _top1_gating(logits, capacity):
 
 def _top2_gating(logits, capacity):
     s, e = logits.shape
-    gates = torch.softmax(logits, dim=-1)
+    gates = _softmax(logits)
     idx1 = torch.argmax(gates, dim=-1)
     mask1 = _one_hot_f(idx1, e)
     gates2 = gates * (1 - mask1)
@@ -132,7 +144,7 @@ def _topk_sparse_indices(logits, k, capacity):
     """
     s, e = logits.shape
     dev = logits.device
-    gates = torch.softmax(logits, dim=-1)
+    gates = _softmax(logits)
     remaining = gates
     count_prev = torch.zeros((1, e), dtype=torch.float32, device=dev)
     slots, gws, masks = [], [], []

@@ -24,8 +24,10 @@ bfloat16 --batch 64``), dropout 0.1, the one batch fed every step,
 the profiler, then under ``torch.profiler`` the device busy time (sum of
 kernel durations on the one stream), the device's idle share, kernel
 launches, the kernels that take the most device time, the share of the
-three flash attention kernels and of the matrix products.  Run from the
-repository root::
+three flash attention kernels and of the matrix products, and each flash
+entry's launches and device time by its name in ``chip_smoke.py``'s
+``kernels`` line (``flash_fwd_mask_bias_bf16``: the counter
+``bf16_fwd_mask_bias_launches``).  Run from the repository root::
 
     python3 -m hetu_tpu_torch.tools.profile_train
         [--model bert|gpt2|t5|xlnet|longformer] [--compute-dtype bfloat16]
@@ -40,6 +42,7 @@ import argparse
 import collections
 import json
 import os
+import re
 import subprocess
 import time
 
@@ -59,6 +62,49 @@ SHAPES = {"bert": (16, 512), "gpt2": (8, 1024), "t5": (32, T5_SRC + T5_TGT),
 FLASH = {"flash_fwd_kernel": "fwd", "flash_bwd_dq_kernel": "dq",
          "flash_bwd_dkv_kernel": "dkv", "flash_fwd_mma_kernel": "fwd",
          "flash_dq_mma_kernel": "dq", "flash_dkv_mma_kernel": "dkv"}
+
+
+#: a flash training kernel in a trace; its last four template arguments
+#: are (CAUSAL, FMASK, BIAS, KBIAS) in every source
+_FLASH_KERNEL = re.compile(
+    r"(flash_fwd|flash_bwd_dq|flash_bwd_dkv|flash_dq|flash_dkv)(_mma)?"
+    r"_kernel<([^>]*)>")
+
+
+def line_name(counter):
+    """The kernels-line name of a flash launch counter
+    (``dq_mask_bias_launches`` -> ``flash_bwd_dq_mask_bias``,
+    ``bf16_fwd_causal_launches`` -> ``flash_fwd_causal_bf16``)."""
+    if counter.startswith("bf16_"):
+        return line_name(counter[len("bf16_"):]) + "_bf16"
+    kind, _, rest = counter[:-len("_launches")].partition("_")
+    return ("flash_fwd" if kind == "fwd" else f"flash_bwd_{kind}") \
+        + ("_" + rest if rest else "")
+
+
+def kernel_counter(kernel):
+    """The launch counter of ``ops/kernels/flash_attention.py`` that counts
+    the trace's kernel ``kernel`` (``bf16_dq_mask_bias_launches``), from
+    its template arguments; None for any other kernel.  The tensor-core
+    (``_mma``) kernels are the bf16 ones."""
+    m = _FLASH_KERNEL.search(kernel)
+    if m is None:
+        return None
+    kind = m.group(1).rsplit("_", 1)[-1]
+    args = [a.strip() for a in m.group(3).split(",")]
+    causal, fmask, bias, kbias = (a in ("true", "1", "(bool)1")
+                                  for a in args[-4:])
+    if fmask:
+        rest = "mask" + ("_bias" if bias else "_kbias" if kbias else "")
+    elif bias:
+        rest = "bias_causal" if causal else "bias"
+    elif kbias:
+        rest = "kbias"
+    else:
+        rest = "causal" if causal else ""
+    bf16 = m.group(2) is not None or "bfloat16" in m.group(3)
+    return ("bf16_" if bf16 else "") + kind + ("_" + rest if rest else "") \
+        + "_launches"
 
 
 def _card():
@@ -145,6 +191,12 @@ def profile_steps(step, psteps=3, step_s=None):
     flash = collections.Counter()
     for key, short in FLASH.items():
         flash[short] += sum(v[1] for n, v in kern.items() if key in n)
+    entries = collections.defaultdict(lambda: [0, 0.0])
+    for n, (c, us) in kern.items():
+        counter = kernel_counter(n)
+        if counter is not None:
+            entries[line_name(counter)][0] += c
+            entries[line_name(counter)][1] += us
     gemm = sum(v[1] for n, v in kern.items() if _is_gemm(n))
     top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:15]
 
@@ -161,6 +213,9 @@ def profile_steps(step, psteps=3, step_s=None):
         "flash_ms_per_step": {k: per_step_ms(v) for k, v in flash.items()},
         "flash_share_of_device":
             sum(flash.values()) / busy_us if busy_us else None,
+        "flash_entries": {name: {"launches_per_step": c / psteps,
+                                 "ms_per_step": per_step_ms(us)}
+                          for name, (c, us) in sorted(entries.items())},
         "gemm_ms_per_step": per_step_ms(gemm),
         "gemm_share_of_device": gemm / busy_us if busy_us else None,
         "top_kernels": [{"name": n[:90], "count_per_step": c / psteps,
@@ -217,6 +272,9 @@ def main(argv=None):
         "tgt_tokens_per_s": (batch * T5_TGT / step_s if args.model == "t5"
                              else None),
         "profiled": profiled,
+        "flash_launches_per_profiled_step": {
+            line_name(n): getattr(fa, n) / psteps for n in counters
+            if getattr(fa, n)},
     }
     dev_table = prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=30)
@@ -235,9 +293,6 @@ def main(argv=None):
     if not profiled["kernels_per_step"]:
         print("profile_train: the profiler recorded no device time")
     print(dev_table)
-    print("flash launches per profiled step: " + ", ".join(
-        f"{n} {getattr(fa, n) / psteps}" for n in counters
-        if getattr(fa, n)))
 
 
 if __name__ == "__main__":

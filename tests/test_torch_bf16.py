@@ -7,23 +7,38 @@ integer feeds alone.  Here on the CPU the port's attention takes
 ``sdpa_reference`` (its ``ScoresF32`` twin of the JAX package's
 ``_scores_f32``), as the JAX package's does; the bf16 flash kernels are
 held to their plain versions in tests/test_torch_flash_attention.py (and
-on the card in tests/test_torch_kernels_gpu.py).
+on the card in tests/test_torch_kernels_gpu.py).  The sparse MoE slice's
+gathers take the plain version in the port and the Pallas kernel in
+interpret mode in the JAX package, as its own lowering does on the CPU.
 
-Tiny BERT (MLM, MLM + NSP) and tiny GPT-2 start from the JAX package's
-weights and take the same feeds.  XLA on the CPU fuses a bf16 elementwise
-chain and rounds once (it may even keep the float32 value of a bf16 node:
-GPT-2's fetched loss is not a bf16 number there), torch rounds after every
-op, so the two agree to bf16 tolerances, not bit for bit.  The tolerances
-come from the measured spread:
+Tiny BERT (MLM, MLM + NSP), GPT-2, T5 (dense and ``use_mask``, the query
+projections scaled by 1/8 as in tests/test_torch_t5.py), XLNet,
+Longformer (each at the tiny configuration of its own
+tests/test_torch_<model>.py, dropout off) and the sparse GShard MoE
+slice of tests/test_torch_moe.py (64 tokens, d 16, 4 experts, hidden 32,
+top-2, capacity factor 1.25) start from the JAX package's weights and
+take the same feeds.  XLA on the CPU fuses a bf16 elementwise chain and
+rounds once (it may even keep the float32 value of a bf16 node: GPT-2's
+fetched loss is not a bf16 number there), torch rounds after every op,
+so the two agree to bf16 tolerances, not bit for bit.  The tolerances
+come from the measured spread; beside each, the worst measured ratio to
+it per model (bert, bert_nsp, gpt2, t5, t5_mask, xlnet, longformer,
+moe):
 
-* losses (step 1 and 3 Adam steps): rtol 5e-3 (measured: at most 2.2e-3,
-  GPT-2; BERT 0 and 1.6e-3);
+* losses (step 1 and 3 Adam steps): rtol 5e-3 (step 1: 0, 0, 0.44, 0,
+  0, 0, 0.20, 0; 3 steps: 0, 0.31, 0.44, 0.34, 0.34, 0, 0.48, 0.001);
 * step-1 gradients of every variable: ``allclose(rtol=2e-2, atol=1e-2)``
-  (measured at rtol 2e-2: atol 5.6e-3 needed at most, BERT's token-type
-  table; the key biases' gradients are rounding noise around an exact 0);
+  (0.62 and 0.63 BERT's token-type table, 0.25 GPT-2's ``wpe``, 0.024
+  T5's shared embedding, 0.54 XLNet's ``layer0.o.bias``, 0.17
+  Longformer's word table, 0.009 MoE's ``expert.b2``; the key biases'
+  gradients are rounding noise around an exact 0);
 * the port's bf16 run against its own float32 run, 3 Adam losses:
-  ``test_bf16_parity.py``'s budget, rtol 5e-2 / atol 5e-2 (measured: at
-  most 5.3e-3 relative)."""
+  ``test_bf16_parity.py``'s budget, rtol 5e-2 / atol 5e-2 (0.039, 0.058,
+  0.092, 0.080, 0.079, 0.030, 0.067, 0.004);
+* the MoE slice's routing maps equal at every step, exactly (they held
+  only once the port's gate took the JAX package's softmax one op at a
+  time, ROADMAP C13)."""
+import functools
 import os
 import sys
 
@@ -40,7 +55,14 @@ from hetu_tpu.graph.node import LowerCtx as JaxLowerCtx     # noqa: E402
 from hetu_tpu.graph.node import topo_sort as jax_topo      # noqa: E402
 from hetu_tpu.models import bert as jbert                  # noqa: E402
 from hetu_tpu.models import gpt2 as jgpt2                  # noqa: E402
+from hetu_tpu.models import longformer as jlf              # noqa: E402
+from hetu_tpu.models import t5 as jt5                      # noqa: E402
+from hetu_tpu.models import xlnet as jxl                   # noqa: E402
+from hetu_tpu.ops import moe as jmoe                       # noqa: E402
+from hetu_tpu.ops.pallas import moe_dispatch as jmd        # noqa: E402
 import hetu_tpu_torch as tht                               # noqa: E402
+from hetu_tpu_torch.ops import moe as tmoe                 # noqa: E402
+from hetu_tpu_torch.ops.kernels import moe_dispatch as tmd  # noqa: E402
 
 BERT_CFG = dict(batch_size=2, seq_len=24, hidden_size=32,
                 intermediate_size=64, vocab_size=96, num_hidden_layers=2,
@@ -48,26 +70,86 @@ BERT_CFG = dict(batch_size=2, seq_len=24, hidden_size=32,
                 attention_probs_dropout_prob=0.0)
 GPT2_CFG = dict(batch_size=2, seq_len=24, resid_pdrop=0.0, embd_pdrop=0.0,
                 attn_pdrop=0.0)
+# each model's tiny configuration from its own tests/test_torch_<model>.py
+T5_CFG = dict(batch_size=2, src_len=16, tgt_len=12, dropout_rate=0.0)
+#: test_torch_t5.py's scale of every ``*.q.weight`` (T5's own init)
+T5_Q_SCALE = 0.125
+XLNET_CFG = dict(batch_size=2, dropout=0.0)
+LONGFORMER_CFG = dict(batch_size=2, hidden_dropout_prob=0.0)
+# test_torch_moe.py's MoE slice: tokens, d, experts, hidden, top-k,
+# capacity factor
+MOE_TOKENS, MOE_D, MOE_E, MOE_HIDDEN, MOE_K, MOE_CF = 64, 16, 4, 32, 2, 1.25
 LOSS_RTOL = 5e-3
 GRAD_TOL = dict(rtol=2e-2, atol=1e-2)
 PARITY_TOL = dict(rtol=5e-2, atol=5e-2)
 STEPS = 3
-MODELS = ["bert", "bert_nsp", "gpt2"]
+MODELS = ["bert", "bert_nsp", "gpt2", "t5", "t5_mask", "xlnet",
+          "longformer", "moe"]
+
+
+def _moe_graph(ht):
+    """test_torch_moe.py's sparse slice: (feeds, loss, [token_of_slot,
+    slot_of_token])."""
+    x = ht.placeholder_op("x", shape=(MOE_TOKENS, MOE_D))
+    y_ = ht.placeholder_op("y", shape=(MOE_TOKENS, MOE_D))
+    gate = ht.layers.TopKGateSparse(MOE_D, MOE_TOKENS, MOE_E, k=MOE_K,
+                                    capacity_factor=MOE_CF)
+    moe = ht.layers.SparseMoELayer(
+        gate, ht.layers.Expert(MOE_E, MOE_D, MOE_HIDDEN), MOE_D)
+    h, aux = moe(x)
+    loss = ht.reduce_mean_op(ht.ops.mul_op(h - y_, h - y_), [0, 1]) \
+        + aux * 0.01
+    route = sorted((n for n in ht.topo_sort([loss])
+                    if n.inputs and n.inputs[0].op_type == "TopKGateSparse"),
+                   key=lambda n: n.index)
+    return {"x": x, "y": y_}, loss, route[:2]
 
 
 def _graph(jax_side, model):
-    """(feeds {name: node}, loss) of a tiny model in one package."""
+    """(feeds {name: node}, loss, extra fetches) of a tiny model in one
+    package: the MoE slice's routing maps, nothing for the others."""
+    ht = jht if jax_side else tht
+    if model == "moe":
+        return _moe_graph(ht)
     if model == "gpt2":
         mod = jgpt2 if jax_side else tht.models
         feeds, loss, _ = mod.gpt2_lm_graph(mod.GPT2Config.tiny(**GPT2_CFG))
+    elif model in ("t5", "t5_mask"):
+        mod = jt5 if jax_side else tht.models
+        feeds, loss, _ = mod.t5_seq2seq_graph(mod.T5Config.tiny(**T5_CFG),
+                                              use_mask=model == "t5_mask")
+    elif model == "xlnet":
+        mod = jxl if jax_side else tht.models
+        feeds, loss, _ = mod.xlnet_plm_graph(mod.XLNetConfig.tiny(**XLNET_CFG))
+    elif model == "longformer":
+        mod = jlf if jax_side else tht.models
+        feeds, loss, _ = mod.longformer_mlm_graph(
+            mod.LongformerConfig.tiny(**LONGFORMER_CFG))
     else:
         mod = jbert if jax_side else tht.models
         feeds, loss, _ = mod.bert_pretrain_graph(
             mod.BertConfig.tiny(**BERT_CFG), use_nsp=model == "bert_nsp")
-    return feeds, loss
+    return feeds, loss, []
 
 
 def _feed_values(model):
+    if model == "moe":
+        rng = np.random.RandomState(0)
+        return {"x": rng.randn(MOE_TOKENS, MOE_D).astype(np.float32),
+                "y": rng.randn(MOE_TOKENS, MOE_D).astype(np.float32)}
+    if model in ("t5", "t5_mask"):
+        batch = jt5.synthetic_seq2seq_batch(jt5.T5Config.tiny(**T5_CFG),
+                                            seed=0, padded=model == "t5_mask")
+        return dict(zip(("input_ids", "decoder_input_ids", "labels",
+                         "attention_mask"), batch))
+    if model == "xlnet":
+        return dict(zip(("input_ids", "content_mask", "query_mask",
+                         "labels"), jxl.synthetic_plm_batch(
+                             jxl.XLNetConfig.tiny(**XLNET_CFG), seed=0)))
+    if model == "longformer":
+        return dict(zip(("input_ids", "labels"), tht.models.longformer
+                        .synthetic_mlm_ids(tht.models.LongformerConfig.tiny(
+                            **LONGFORMER_CFG), seed=0)))
     if model == "gpt2":
         ids, labels = jgpt2.synthetic_lm_batch(
             jgpt2.GPT2Config.tiny(**GPT2_CFG), seed=0)
@@ -86,26 +168,39 @@ def _feed_values(model):
 def _executor(jax_side, model, compute_dtype):
     ht = jht if jax_side else tht
     topo = jax_topo if jax_side else tht.topo_sort
-    feeds, loss = _graph(jax_side, model)
+    feeds, loss, extra = _graph(jax_side, model)
     wrt = [n for n in topo([loss]) if getattr(n, "is_variable", False)
            and n.trainable]
     fetches = {"train": [loss, ht.optim.AdamOptimizer(1e-3).minimize(loss)]
-               + ht.gradients(loss, wrt)}
+               + ht.gradients(loss, wrt) + extra}
     kw = {} if jax_side else {"device": "cpu"}
     ex = ht.Executor(fetches, seed=0, compute_dtype=compute_dtype, **kw)
     return feeds, ex, [n.name for n in wrt]
 
 
-@pytest.fixture(scope="module", params=MODELS)
-def runs(request):
+def _weights(jex, model):
+    """The JAX package's initial weights by name; T5's query projections
+    scaled as tests/test_torch_t5.py scales them (loaded back into
+    ``jex``)."""
+    weights = jex.return_tensor_values()
+    if model in ("t5", "t5_mask"):
+        weights = {n: w * T5_Q_SCALE if n.endswith(".q.weight") else w
+                   for n, w in weights.items()}
+        jex.load_dict(weights)
+    return weights
+
+
+@functools.lru_cache(maxsize=None)
+def _runs(model):
     """The JAX package's bf16 run, the port's bf16 run and the port's
     float32 run of one tiny model, all from the JAX package's weights:
-    {run: (losses, step-1 gradients)}, and the variable names."""
-    model = request.param
+    {run: (losses, step-1 gradients, each step's extra fetches)}, the
+    variable names and, for the MoE slice, the gate weights of each step
+    (the port's masters before the step)."""
     values = _feed_values(model)
     jfeeds, jex, names = _executor(True, model, "bfloat16")
-    weights = jex.return_tensor_values()
-    out = {}
+    weights = _weights(jex, model)
+    out, gate_ws = {}, []
     for tag, jax_side, cd in (("jax", True, "bfloat16"),
                               ("port", False, "bfloat16"),
                               ("port_f32", False, None)):
@@ -114,20 +209,32 @@ def runs(request):
         else:
             feeds, ex, tnames = _executor(False, model, cd)
             assert tnames == names
+            assert set(ex.var_names.values()) == set(weights)
             ex.load_dict(weights)
         fd = {feeds[k]: v for k, v in values.items()}
-        losses, grads = [], None
+        losses, grads, extras = [], None, []
         for step in range(STEPS):
+            if tag == "port" and model == "moe":
+                gate_ws.append(next(
+                    v.numpy() for n, v in ex.var_values.items()
+                    if ex.var_names[n] == "topk_gate.wg"))
             got = ex.run("train", feed_dict=fd)
             losses.append(got[0].asnumpy())
+            extras.append([e.asnumpy() for e in got[2 + len(names):]])
             if step == 0:
-                grads = [g.asnumpy() for g in got[2:]]
+                grads = [g.asnumpy() for g in got[2:2 + len(names)]]
         if not jax_side:
             masters = list(ex.var_values.values())
             assert all(v.dtype == torch.float32 for v in masters)
             assert ex.step_counter == STEPS
-        out[tag] = (losses, grads)
-    return model, names, out
+        out[tag] = (losses, grads, extras)
+    return names, out, gate_ws
+
+
+@pytest.fixture(scope="module", params=MODELS)
+def runs(request):
+    names, out, _ = _runs(request.param)
+    return request.param, names, out
 
 
 def test_tiny_model_step_one_loss_matches_jax_bf16(runs):
@@ -157,6 +264,40 @@ def test_port_bf16_tracks_its_float32_run(runs):
     np.testing.assert_allclose(np.array(out["port"][0], np.float64),
                                np.array(out["port_f32"][0], np.float64),
                                **PARITY_TOL)
+
+
+def test_tiny_moe_routing_maps_match_jax_bf16():
+    """The bf16 MoE slice's token_of_slot and slot_of_token equal the JAX
+    package's at every step.  On a difference the message names each
+    token whose expert choice differs with the gaps between its sorted
+    gate probabilities (float64 from the bf16-rounded operands): a route
+    flips only across a near tie."""
+    _, out, gate_ws = _runs("moe")
+    x = _feed_values("moe")["x"]
+    bf = torch.bfloat16
+    cap = int(np.ceil(MOE_K * MOE_CF * MOE_TOKENS / MOE_E))
+    for step, (got, want) in enumerate(zip(out["port"][2], out["jax"][2])):
+        if all(np.array_equal(g, w) for g, w in zip(got, want)):
+            continue
+        xb, wb = (torch.from_numpy(a).to(bf).double().numpy()
+                  for a in (x, gate_ws[step]))
+        logits = xb @ wb
+        p = np.exp(logits - logits.max(1, keepdims=True))
+        p = np.sort(p / p.sum(1, keepdims=True), axis=1)[:, ::-1]
+        sot_t, sot_j = got[1], want[1]
+        et = np.where(sot_t >= 0, sot_t // cap, -1)
+        ej = np.where(sot_j >= 0, sot_j // cap, -1)
+        diff = np.nonzero((et != ej).any(1))[0]
+        gaps = [f"token {t}: " + ", ".join(
+            f"p{j + 1}-p{j + 2} {p[t, j] - p[t, j + 1]:.3e}"
+            for j in range(MOE_K)) for t in diff]
+        pytest.fail(f"step {step + 1}: routing maps differ "
+                    f"(token_of_slot {int((got[0] != want[0]).sum())} "
+                    f"slots, slot_of_token {int((sot_t != sot_j).sum())} "
+                    f"routes); {'; '.join(gaps) or 'no expert flip'}")
+    # the slice drops routes and leaves slots empty: both -1 rules run
+    tos, sot = out["port"][2][0]
+    assert (tos < 0).any() and tos.dtype == sot.dtype == np.int32
 
 
 # -- every node's dtype ---------------------------------------------------------
@@ -191,17 +332,23 @@ def _lower_all(jax_side, loss, weights, values):
     return [env[n] for n in topo([loss])], topo([loss])
 
 
-@pytest.mark.parametrize("model", ["bert_nsp", "gpt2"])
+@pytest.mark.parametrize("model", ["bert_nsp", "gpt2", "t5_mask", "xlnet",
+                                   "longformer", "moe"])
 def test_every_node_has_the_jax_packages_dtype(model):
-    """Tiny BERT (MLM + NSP, whose graph holds the MLM-only one) and GPT-2
-    lowered node by node in both packages at bf16:
+    """Tiny BERT (MLM + NSP, whose graph holds the MLM-only one), GPT-2, T5
+    (``use_mask``, whose graph holds the dense one), XLNet, Longformer and
+    the sparse MoE slice lowered node by node in both packages at bf16:
     the graphs line up op for op, and every node's output has the JAX
     package's dtype (jnp's promotion: a bf16 sum over an integer count
     plus 1e-6 stays bf16, the port's weak-float rule in
-    ops/arithmetic.py)."""
+    ops/arithmetic.py).  In the MoE slice the softmax and the expert
+    buffers are bf16, the one-hots, queue positions, gate weights, aux
+    loss and the combine's output float32 (bf16 rows times float32 gate
+    weights); the JAX package's gathers run its Pallas kernel in
+    interpret mode, as its own lowering does on the CPU."""
     values = _feed_values(model)
-    _, jloss = _graph(True, model)
-    _, tloss = _graph(False, model)
+    _, jloss, _ = _graph(True, model)
+    _, tloss, _ = _graph(False, model)
     jex = jht.Executor([jloss], seed=0)
     weights = {jex.var_names[n]: np.asarray(v)
                for n, v in jex.var_values.items()}
@@ -209,12 +356,104 @@ def test_every_node_has_the_jax_packages_dtype(model):
     tvals, tnodes = _lower_all(False, tloss, weights, values)
     assert [n.op_type for n in tnodes] == [n.op_type for n in jnodes]
     kinds = set()
+    seen = {}
     for jn, jv, tv in zip(jnodes, jvals, tvals):
+        if isinstance(jv, tuple):           # a multi-output op: its items
+            continue                        # are nodes of their own
         want = str(jv.dtype)
         got = str(tv.dtype).replace("torch.", "")
         assert got == want, (jn.op_type, jn.name, want, got)
         kinds.add(want)
+        seen.setdefault(jn.op_type, set()).add(want)
     assert {"bfloat16", "float32", "int32"} <= kinds
+    if model == "moe":
+        assert seen["SparseDispatch"] == {"bfloat16"}     # expert buffers
+        assert seen["SparseCombine"] == {"float32"}       # w * bf16 rows
+        gate = sorted((n.index, str(v.dtype)) for n, v in zip(jnodes, jvals)
+                      if n.op_type == "Item"
+                      and n.inputs[0].op_type == "TopKGateSparse")
+        # token_of_slot, slot_of_token, k_of_slot, gate_w, aux
+        assert [dt for _, dt in gate] == ["int32"] * 3 + ["float32"] * 2, \
+            gate
+
+
+@pytest.mark.parametrize("experts", [4, 16])
+def test_moe_gate_softmax_is_the_jax_packages(experts):
+    """The gate's softmax on bf16 logits is ``jax.nn.softmax``'s, bit for
+    bit: one bf16 rounding per op (ROADMAP C13).  ``torch.softmax``,
+    which rounds once from float32, differs from it in most rows.  Its
+    gradient passes gradcheck in float64."""
+    import jax.numpy as jnp
+    logits = np.random.RandomState(experts).randn(2000, experts)
+    jl = jnp.asarray(logits, jnp.bfloat16)
+    want = np.asarray(jax.nn.softmax(jl, axis=-1).astype(jnp.float32))
+    tl = torch.from_numpy(np.array(jl.astype(jnp.float32))).to(
+        torch.bfloat16)
+    got = tmoe._softmax(tl)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    once = torch.softmax(tl, dim=-1).float().numpy()
+    assert (once != want).any(1).mean() > 0.5
+    x64 = torch.from_numpy(logits[:8]).requires_grad_(True)
+    assert torch.autograd.gradcheck(tmoe._softmax, (x64,))
+
+
+def test_bf16_moe_gathers_keep_the_jax_packages_dtypes():
+    """Every row gather of a bf16 sparse MoE step, forward and backward,
+    in the order it runs, against the JAX package's ``pallas_call``s in
+    the jaxpr of the same gradient: the dispatch (forward and backward),
+    the combine forward and d_w's re-gathers gather bf16 rows; d_buffers
+    gathers the combine's float32 gradient (the gate weights are float32,
+    so the combine's output is).  Nothing is cast to make them agree."""
+    rng = np.random.RandomState(5)
+    s, d, e, k, cap = 16, 8, 4, 2, 6
+    tokens = rng.randn(s, d).astype(np.float32)
+    w = (rng.randn(d, d) * 0.3).astype(np.float32)
+    wg = rng.randn(d, e).astype(np.float32)
+    import jax.numpy as jnp
+
+    def jloss(tok, w_, wg_):
+        tos, sot, kos, gw, _ = jmoe._topk_sparse_indices(tok @ wg_, k, cap)
+        buf = jmd.sparse_dispatch(tok, tos, sot, True)
+        out = jmd.sparse_combine(jnp.tanh(buf @ w_), gw, sot, tos, kos, True)
+        return jnp.sum(out * out)
+
+    bf = (jnp.asarray(a, jnp.bfloat16) for a in (tokens, w, wg))
+    jaxpr = jax.make_jaxpr(jax.grad(jloss, argnums=(0, 1, 2)))(*bf)
+
+    def pallas_dtypes(jx):
+        found = []
+        for eqn in jx.eqns:
+            if eqn.primitive.name == "pallas_call":
+                found += [str(v.aval.dtype) for v in eqn.outvars]
+            for p in eqn.params.values():
+                for sub in p if isinstance(p, (tuple, list)) else (p,):
+                    inner = getattr(sub, "jaxpr", sub)
+                    if hasattr(inner, "eqns"):
+                        found += pallas_dtypes(inner)
+        return found
+
+    want = pallas_dtypes(jaxpr.jaxpr)
+    got = []
+
+    def gather(src, idx):
+        got.append(str(src.dtype).replace("torch.", ""))
+        return tmd.row_gather(src, idx)
+
+    tt, tw, twg = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True)
+                   for a in (tokens, w, wg))
+    tos, sot, kos, gw, _ = tmoe._topk_sparse_indices(tt @ twg, k, cap)
+    assert gw.dtype == torch.float32
+    buf = tmd.sparse_dispatch(tt, tos, sot, gather=gather)
+    out = tmd.sparse_combine(torch.tanh(buf @ tw), gw, sot, tos, kos,
+                             gather=gather)
+    assert buf.dtype == torch.bfloat16 and out.dtype == torch.float32
+    torch.autograd.grad(torch.sum(out * out), (tt, tw, twg))
+    # forward: dispatch, k combine routes; backward: k d_w re-gathers,
+    # d_buffers, k dispatch routes
+    assert got == ["bfloat16"] * (1 + 2 * k) + ["float32"] \
+        + ["bfloat16"] * k
+    assert sorted(got) == sorted(want), want
 
 
 # -- position ids (ROADMAP C11) --------------------------------------------------
@@ -289,9 +528,9 @@ def test_other_compute_dtypes_are_refused_by_name(cd):
         tht.Executor([x * 2.0], compute_dtype=ok, device="cpu")
 
 
-def test_ps_and_moe_subgraphs_refuse_compute_dtype_by_name():
-    """PS embeddings and the MoE sparse dispatch take float32 only (their
-    kernels, B4/B5 and B6, have no bf16 instantiation yet)."""
+def test_ps_subgraphs_refuse_compute_dtype_by_name():
+    """PS embeddings take float32 only (the cache slab and its kernels, B4
+    and B5, have no bf16 instantiation yet)."""
     ids = tht.placeholder_op("ids", dtype=np.int64)
     st = tht.EmbeddingStore()
     cache = tht.DistCacheTable(st, st.init_table(10, 4), limit=4,
@@ -300,11 +539,3 @@ def test_ps_and_moe_subgraphs_refuse_compute_dtype_by_name():
     with pytest.raises(NotImplementedError, match="PS embeddings"):
         tht.Executor([ps], compute_dtype="bfloat16", device="cpu")
     tht.Executor([ps], device="cpu")                # float32 takes it
-    x = tht.placeholder_op("x", shape=(16, 8))
-    moe = tht.layers.SparseMoELayer(
-        tht.layers.TopKGateSparse(8, 16, 4, k=2, capacity_factor=2.0),
-        tht.layers.Expert(4, 8, 16), 8)
-    h, aux = moe(x)
-    loss = tht.reduce_mean_op(h, [0, 1]) + aux
-    with pytest.raises(NotImplementedError, match="MoE sparse dispatch"):
-        tht.Executor([loss], compute_dtype="bfloat16", device="cpu")

@@ -730,6 +730,72 @@ def test_sparse_dispatch_and_combine_kernel_equals_plain(cuda, k):
         assert torch.equal(a, b), (name, float((a - b).abs().max()))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,rows,offset", [
+    (20480, 512, 8192, 0), (8192, 512, 20480, 0), (37, 13, 20, 0),
+    (37, 16, 20, 1), (1, 8, 1, 0), (0, 16, 8, 0), (100, 16, 0, 0)])
+def test_row_gather_bf16_kernel_matches_plain_version(cuda, n, m, rows,
+                                                      offset):
+    """The bf16 instantiation: bit-equal to the plain version, its own
+    launch counter; width 13 and a source that starts ``offset`` values
+    into its buffer (not 16-byte aligned) take the one-value path."""
+    rng = np.random.RandomState(n + m + offset)
+    buf = torch.from_numpy(rng.randn(rows * m + offset).astype(np.float32))
+    src = buf.to(cuda, torch.bfloat16)[offset:].view(rows, m)
+    idx = rng.randint(-1, rows, n) if rows else np.full(n, -1)
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    before, before32 = md.bf16_launches, md.launches
+    out = md.row_gather(src, idx)
+    ref = md.row_gather_plain(src, idx)
+    torch.cuda.synchronize()
+    assert md.bf16_launches == before + (1 if n else 0)
+    assert md.launches == before32
+    assert out.dtype == torch.bfloat16 and out.shape == (n, m)
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+    assert not out[idx < 0].any()
+
+
+@pytest.mark.gpu
+def test_sparse_dispatch_and_combine_bf16_kernel_equals_plain(cuda):
+    """The bf16 step's mix: bf16 tokens and expert rows, float32 gate
+    weights, so the combine's output and the gradient d_buffers gathers
+    are float32.  Kernel against plain gather, bit for bit; 2k + 3 bf16
+    launches (dispatch forward and backward, combine forward, d_w) and one
+    float32 (d_buffers)."""
+    rng = np.random.RandomState(7)
+    s, d, e, k = 1024, 64, 8, 2
+    cap = int(np.ceil(k * 1.25 * s / e))
+    bf = torch.bfloat16
+    x = torch.from_numpy(rng.randn(s, d).astype(np.float32)).to(cuda, bf)
+    wg = torch.from_numpy(rng.randn(d, e).astype(np.float32)).to(cuda, bf)
+    w1 = torch.from_numpy((rng.randn(d, d) * 0.1).astype(np.float32)).to(
+        cuda, bf)
+    g_out = torch.from_numpy(rng.randn(s, d).astype(np.float32)).to(cuda)
+    tos, sot, kos, gate_w, _ = tmoe._topk_sparse_indices(x @ wg, k, cap)
+    assert gate_w.dtype == torch.float32 and bool((tos < 0).any())
+    gw = gate_w.detach()
+
+    def run(gather):
+        xx, ww, gg = (t.clone().requires_grad_(True) for t in (x, w1, gw))
+        buf = md.sparse_dispatch(xx, tos, sot, gather=gather)
+        out = md.sparse_combine(torch.tanh(buf @ ww), gg, sot, tos, kos,
+                                gather=gather)
+        grads = torch.autograd.grad(out, (xx, ww, gg), g_out)
+        return (buf, out) + grads
+
+    before, before32 = md.bf16_launches, md.launches
+    got = run(md.row_gather)
+    assert md.bf16_launches == before + 3 * k + 1
+    assert md.launches == before32 + 1
+    want = run(md.row_gather_plain)
+    torch.cuda.synchronize()
+    assert [t.dtype for t in got] == [bf, torch.float32, bf, bf,
+                                      torch.float32]
+    for a, b, name in zip(got, want, ("buffers", "out", "d_tokens", "d_w1",
+                                      "d_gate_w")):
+        assert torch.equal(a, b), (name, float((a - b).abs().max()))
+
+
 # -- bfloat16 (the mixed-precision training path) ---------------------------------
 
 #: bf16 kernel vs its bf16 plain version: both round P and dS to bf16 and

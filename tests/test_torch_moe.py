@@ -50,21 +50,34 @@ TOKENS, D, E, HIDDEN, K, CF = 64, 16, 4, 32, 2, 1.25
 
 # ----------------------------------------------------------- row gather
 
-@pytest.mark.parametrize("width", [16, 13])
-def test_row_gather_plain_matches_pallas_kernel(width):
+@pytest.mark.parametrize("width,dtype", [
+    pytest.param(16, "float32", id="16"), pytest.param(13, "float32", id="13"),
+    pytest.param(16, "bfloat16", id="bf16-16"),
+    pytest.param(13, "bfloat16", id="bf16-13")])
+def test_row_gather_plain_matches_pallas_kernel(width, dtype):
+    """Bit-equal to the Pallas kernel in interpret mode in either dtype
+    (bf16: the rows compared as their 16-bit patterns)."""
     rng = np.random.RandomState(width)
     src = rng.randn(20, width).astype(np.float32)
     idx = rng.randint(-1, 20, size=37).astype(np.int32)   # n off 32
     idx[:4] = [-1, 3, 3, -1]                               # -1s, repeats
-    want = np.asarray(jrow_gather(jnp.asarray(src), jnp.asarray(idx),
-                                  interpret=True))
-    before = tmd.launches
-    got = tmd.row_gather(torch.from_numpy(src), torch.from_numpy(idx))
-    plain = tmd.row_gather_plain(torch.from_numpy(src), torch.from_numpy(idx))
-    assert tmd.launches == before            # a CPU tensor never launches
-    np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(plain.numpy(), want)
-    assert not want[idx < 0].any()
+    jsrc = jnp.asarray(src, dtype)
+    want = np.asarray(jrow_gather(jsrc, jnp.asarray(idx), interpret=True))
+    assert str(want.dtype) == dtype
+    tsrc = torch.from_numpy(np.array(jsrc.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+    before = (tmd.launches, tmd.bf16_launches)
+    got = tmd.row_gather(tsrc, torch.from_numpy(idx))
+    plain = tmd.row_gather_plain(tsrc, torch.from_numpy(idx))
+    # a CPU tensor never launches
+    assert (tmd.launches, tmd.bf16_launches) == before
+    bits = np.uint16 if dtype == "bfloat16" else np.uint32
+    for out in (got, plain):
+        assert out.dtype == tsrc.dtype
+        np.testing.assert_array_equal(
+            out.view(torch.int16 if bits is np.uint16 else torch.int32)
+            .numpy().view(bits), want.view(bits))
+    assert not want[idx < 0].astype(np.float32).any()
 
 
 def test_row_gather_edges_and_refusals():
@@ -78,6 +91,8 @@ def test_row_gather_edges_and_refusals():
         tmd.row_gather(src, torch.zeros(2, dtype=torch.int64))
     with pytest.raises(TypeError, match="float32"):
         tmd.row_gather(src.double(), torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(TypeError, match="torch.float16"):
+        tmd.row_gather(src.half(), torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError, match="no kernel"):
         tmd.row_gather(src.to("meta"),
                        torch.zeros(2, dtype=torch.int32, device="meta"))
