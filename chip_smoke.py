@@ -261,7 +261,34 @@ without printing the final result line:
     MoE configuration, T5-small (batch 8), XLNet-base (batch 4) and
     Longformer-base (batch 1) at full width, bf16 against float32 on the
     card from the same weights: 3 Adam losses within 5 % / 0.05.
-33. Print the card's name and power limit, the ``kernels`` JSON line and,
+33. Hold every kernel with ``lengths`` (``sdpa_varlen_op``'s
+    specialization: the forward, dQ with dbias and dK/dV with dkbias)
+    against its plain version in float32 and bf16: at the padding-masked
+    paths' shapes, BERT's (B=16, H=12, S=512, ``synthetic_mlm_batch``'s
+    lengths) and GPT-2's (B=8, H=12, S=1024, causal, lengths uniform over
+    [256, 1024], one row full and one of length 0), each timed (L2
+    flushed, median of 50) beside its plain version, SDPA with the
+    lengths as a boolean ``attn_mask`` and the bound (visible pairs, the
+    K/V rows below the lengths); and at small shapes with every rule the
+    kernels combine ``lengths`` with (S_q != S_kv, lengths 0, 1 and past
+    S_kv; a key mask, causal, a full mask in each group mode, a dense
+    bias, a strip, a full mask with a bias and with a strip).  dK, dV and
+    dkbias must be exactly 0 at every key past the lengths; the log gives
+    the key tiles below the lengths (the only ones any kernel walks).
+34. Train the padding-masked graphs of ``tools/profile_train.py``
+    (``varlen_graph``: 12 layers of ``x + o(sdpa_varlen_op(q, k, v,
+    lens))`` after a LayerNorm, hidden 768, 12 heads, ``mean((x -
+    y)^2)``, ``AdamOptimizer(1e-4)``): BERT's shape (batch 16, seq 512)
+    and GPT-2's (batch 8, seq 1024, causal), each in float32 and under
+    ``compute_dtype="bfloat16"``: 2 warm-up and 10 counted steps with
+    every launch counter set to 0 just before and read just after (the
+    forward, dQ and dK/dV with ``lengths``: 12 launches a step each;
+    nothing else; no ``backend:`` fallback), step p50/p99, MFU on visible
+    pairs, peak memory, 3 profiled steps (busy time, idle share).  Then
+    each at full width bf16 against float32 (3 Adam losses within 5 % /
+    0.05) and 2 layers (batch 2, seq 128) card against CPU in float32
+    (phase 7's gates) and bf16 (phase 28's).
+35. Print the card's name and power limit, the ``kernels`` JSON line and,
     last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32:
@@ -359,6 +386,11 @@ BF16_PARITY_TOL = 5e-2
 # JAX package's promotion)
 MOE_GATHERS_PER_STEP = {"row_gather": 6, "row_gather_bf16": 0}
 MOE_GATHERS_BF16_STEP = {"row_gather": 1, "row_gather_bf16": 5}
+# padding-masked attention (sdpa_varlen_op): the graphs of
+# tools/profile_train.py at BERT-base's (batch 16, seq 512, not causal) and
+# GPT-2 small's (batch 8, seq 1024, causal) attention widths, 12 layers
+VL_SHAPES = {"varlen-bert": (16, 512, False), "varlen-gpt2": (8, 1024, True)}
+VL_WARMUP, VL_STEPS, VL_PROFILED = 2, 10, 3
 
 
 def log(msg):
@@ -564,16 +596,27 @@ def _group_view(x, gmode, b, heads):
     return x.view(gb, gh, x.shape[-2], x.shape[-1])
 
 
+def length_keys(lengths, s_kv):
+    """The (B, S_kv) int32 key mask of ``lengths`` (B,): key ``c`` of row
+    ``b`` is visible iff ``c < lengths[b]``."""
+    cols = torch.arange(s_kv, device=lengths.device)[None, :]
+    return (cols < lengths.long()[:, None]).to(torch.int32)
+
+
 def sdpa_yardstick(fa, q, k, v, heads, scale, km, causal, bias, kbias,
-                   gmode, mask=None, mask_gmode="bh"):
+                   gmode, mask=None, mask_gmode="bh", lengths=None):
     """(B, H, S, D) views of q/k/v that need a gradient, SDPA's keyword
     arguments for the same function and what they are: ``is_causal``, the
-    key mask, full mask (in its broadcast shape) and causal rule as a
-    boolean ``attn_mask``, or the bias with -1e30 on every masked pair as
-    a float ``attn_mask`` that needs a gradient too."""
+    key mask (``lengths`` as one more), full mask (in its broadcast shape)
+    and causal rule as a boolean ``attn_mask``, or the bias with -1e30 on
+    every masked pair as a float ``attn_mask`` that needs a gradient
+    too."""
     bh, s_q, dh = q.shape
     s_kv = k.shape[1]
     b = bh // heads
+    if lengths is not None:
+        lk = length_keys(lengths, s_kv)
+        km = lk if km is None else km * lk
     q4, k4, v4 = (x.view(b, heads, -1, dh).detach().requires_grad_(True)
                   for x in (q, k, v))
     kw = {"scale": scale}
@@ -606,7 +649,7 @@ def sdpa_yardstick(fa, q, k, v, heads, scale, km, causal, bias, kbias,
 
 def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
               causal=False, bias=None, kbias=None, gmode="bh", flush=None,
-              mask=None, mask_gmode="bh"):
+              mask=None, mask_gmode="bh", lengths=None):
     """One attention case held to its plain versions on the same inputs:
     with a full uint8 ``mask`` (G, S_q, S_kv) of group mode ``mask_gmode``
     the full-mask forward / dQ / dK/dV kernels, alone or with a bias;
@@ -620,7 +663,10 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
     bound at 2 bytes a value and the bf16 peak;
     every row that sees no key (a batch row with every key masked, the
     first S_q - S_kv causal rows, a row the mask hides) out = dQ = 0 and
-    lse = -1e30; dbias 0 on every pair no row sees.  With ``flush`` it
+    lse = -1e30; dbias 0 on every pair no row sees.  With ``lengths``
+    (B,) every kernel takes it: dK, dV and dkbias exactly 0 at every key
+    at or past its row's length, and the bound reads only the K/V rows
+    below the lengths.  With ``flush`` it
     also times each kernel, the plain versions and SDPA on the same
     function, each launch with the L2 flushed, beside its bound.  Returns
     (max_abs_err {fwd, dq, dkv}, timings {fwd, dq, dkv} or None); the
@@ -630,7 +676,9 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
     bh, s_q, dh = q.shape
     s_kv = k.shape[1]
     biased = bias is not None or kbias is not None
-    bkw = dict(causal=causal, bias=bias, kbias=kbias, bgmode=gmode)
+    bkw = dict(causal=causal, bias=bias, kbias=kbias, bgmode=gmode,
+               lengths=lengths)
+    lkw = dict(causal=causal, lengths=lengths)
 
     def fwd():
         if mask is not None:
@@ -638,11 +686,11 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
                                          scale, key_mask=km, **bkw)
         if biased:
             return fa.flash_fwd_bias(q, k, v, km, bias, kbias, gmode, heads,
-                                     scale, causal=causal)
-        return fa.flash_fwd_masked(q, k, v, km, scale, causal=causal)
+                                     scale, **lkw)
+        return fa.flash_fwd_masked(q, k, v, km, scale, **lkw)
 
     def plain_fwd():
-        return fa.flash_fwd_plain(q, k, v, None, heads, scale, key_mask=km,
+        return fa.flash_fwd_plain(q, k, v, lengths, heads, scale, key_mask=km,
                                   causal=causal, bias=bias, kbias=kbias,
                                   bgmode=gmode, mask=mask, gmode=mask_gmode)
 
@@ -658,26 +706,27 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
         if mask is not None:
             return fa.flash_bwd_dq_mask(*margs, **bkw)
         if biased:
-            return fa.flash_bwd_dq_bias(*args, causal=causal)
+            return fa.flash_bwd_dq_bias(*args, **lkw)
         return fa.flash_bwd_dq(q, k, v, km, do, lse, delta, scale,
-                               causal=causal), None
+                               **lkw), None
 
     def dkv_fn():
         if mask is not None:
             return fa.flash_bwd_dkv_mask(*margs, **bkw)
         if biased:
-            return fa.flash_bwd_dkv_bias(*args, causal=causal)
+            return fa.flash_bwd_dkv_bias(*args, **lkw)
         return fa.flash_bwd_dkv(q, k, v, km, do, lse, delta, scale,
-                                causal=causal) + (None,)
+                                **lkw) + (None,)
 
     def plain_bwd():
         if biased or mask is not None:
             return fa.flash_bwd_bias_plain(q, k, v, km, bias, kbias, gmode,
                                            heads, out, lse, do, scale,
                                            causal=causal, mask=mask,
-                                           gmode=mask_gmode)
+                                           gmode=mask_gmode, lengths=lengths)
         return fa.flash_bwd_plain(q, k, v, km, out, lse, do, scale,
-                                  causal=causal) + (None, None)
+                                  causal=causal, heads=heads,
+                                  lengths=lengths) + (None, None)
 
     dq, dbias = dq_fn()
     dk, dv, dkbias = dkv_fn()
@@ -704,14 +753,23 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
                                  f"{e}")
         key = "dq" if what in ("dq", "dbias") else "dkv"
         err[key] = max(err.get(key, 0.0), e)
-    valid = fa._valid(bh, s_q, s_kv, q.device, key_mask=km, causal=causal,
-                      mask=mask, gmode=mask_gmode, heads=heads)
+    valid = fa._valid(bh, s_q, s_kv, q.device, lengths=lengths, key_mask=km,
+                      causal=causal, mask=mask, gmode=mask_gmode, heads=heads)
     # key tiles the float32 forward walks (it skips those with no visible
     # pair); the bf16 forward and every backward walk all below the causal
-    # end
+    # end and the length
     walk = fa.walked_tiles(bh, heads, s_q, s_kv, key_mask=km, causal=causal,
-                           mask=mask, gmode=mask_gmode)
+                           mask=mask, gmode=mask_gmode, lengths=lengths)
     tiles = {"walked": int(walk.sum()), "of": int(walk.numel())}
+    if lengths is not None:
+        tiles["below_lengths"] = int(fa.walked_tiles(
+            bh, heads, s_q, s_kv, causal=causal, lengths=lengths).sum())
+        lk = length_keys(lengths, s_kv).repeat_interleave(heads, dim=0) == 0
+        for what, g in (("dk", dk), ("dv", dv), ("dkbias", dkbias)):
+            if g is not None and int(torch.count_nonzero(
+                    g[:, 0][lk] if what == "dkbias" else g[lk])):
+                raise AssertionError(f"{tag} {name}: {what} is not 0 at the "
+                                     f"keys past the lengths")
     blind = 0
     if valid is not None:
         valid = valid.expand(bh, s_q, s_kv)
@@ -734,13 +792,15 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
         f"D={dh} {str(q.dtype)[6:]} causal={causal} key_mask={km is not None} "
         f"mask={'none' if mask is None else 'group ' + mask_gmode} "
         f"bias={'dense ' + gmode if bias is not None else 'strip ' + gmode if kbias is not None else 'none'} "
+        f"lengths={'none' if lengths is None else 'yes'} "
         f"scale={scale:.4g} rows seeing no key={blind} forward tiles "
-        f"{tiles['walked'] if not bf16 else tiles['of']} of {tiles['of']} "
+        f"{tiles['walked'] if not bf16 else tiles.get('below_lengths', tiles['of'])} of {tiles['of']} "
         f"max_abs_err {json.dumps(err)}; max |plain| {json.dumps(mags)}")
     if flush is None:
         return err, None
     qkv4, kw, what = sdpa_yardstick(fa, q, k, v, heads, scale, km, causal,
-                                    bias, kbias, gmode, mask, mask_gmode)
+                                    bias, kbias, gmode, mask, mask_gmode,
+                                    lengths)
     do4 = do.view(qkv4[0].shape)
     with torch.enable_grad():
         lib_out = F.scaled_dot_product_attention(*qkv4, **kw)
@@ -764,14 +824,20 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
            "dkv": {"ms": time_ms(dkv_fn, flush=flush),
                    "plain_ms": plain_bwd_ms, "library_ms": lib_bwd}}
     pairs = visible_pairs(bh, heads, s_q, s_kv, causal=causal, key_mask=km,
-                          mask=mask, gmode=mask_gmode)
+                          mask=mask, gmode=mask_gmode, lengths=lengths)
+    # with lengths only the K/V rows below them are read, plus the lengths
+    kv_rows = None if lengths is None else heads * int(
+        lengths.long().clamp(0, s_kv).sum())
     for kk, r in row.items():
         r["bound_ms"], r["bound_by"] = attn_bound(
             kk, bh, s_q, s_kv, dh, pairs,
-            attn_extra(kk, km, bias, kbias, bh, s_q, s_kv, mask),
-            elem=q.element_size(),
+            attn_extra(kk, km, bias, kbias, bh, s_q, s_kv, mask)
+            + (0 if lengths is None else 4 * lengths.numel()),
+            kv_rows=kv_rows, elem=q.element_size(),
             peak=PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
         r["visible_pairs"] = pairs
+        if lengths is not None:
+            r["tiles_below_lengths"] = tiles["below_lengths"]
         if kk == "fwd" and not bf16:
             r["walked_tiles"], r["tiles"] = tiles["walked"], tiles["of"]
         elif mask is not None and not causal:  # a data mask skips no tile
@@ -1737,12 +1803,15 @@ def phase_moe_parity(ht, pm):
 # -- GPT-2: causal kernels, training, chunked-prefill serving ----------------------
 
 def visible_pairs(bh, heads, s_q, s_kv, causal=False, key_mask=None,
-                  mask=None, gmode=None):
+                  mask=None, gmode=None, lengths=None):
     """Visible (row, key) pairs summed over the BH rows, counted from the
     inputs themselves: the work a masked attention function has to do."""
     valid = torch.ones(bh, s_q, s_kv, dtype=torch.bool, device="cuda")
     if causal:
         valid = valid.tril(s_kv - s_q)
+    if lengths is not None:
+        valid &= length_keys(lengths, s_kv).bool().repeat_interleave(
+            heads, dim=0)[:, None, :]
     if key_mask is not None:
         valid &= (key_mask != 0).repeat_interleave(heads, dim=0)[:, None, :]
     if mask is not None:
@@ -3045,9 +3114,14 @@ def parity_configs(ht, model):
     The full widths at a cut batch: BERT-base batch 8 (of 64), GPT-2
     small 4 (of 8), T5-small 8 (of 32), XLNet-base 4 (of 8),
     Longformer-base 1 (of 2); the MoE configuration (``pm.moe_graph``'s
-    arguments) whole, its tiny slice tests/test_torch_moe.py's.  T5's
-    query projections are scaled by 1/8 in the tiny run, as phase 20
-    does."""
+    arguments) whole, its tiny slice tests/test_torch_moe.py's; the
+    padding-masked graphs (``varlen-bert``, ``varlen-gpt2``) whole, their
+    tiny run 2 layers at batch 2, seq 128.  T5's query projections are
+    scaled by 1/8 in the tiny run, as phase 20 does."""
+    if model in VL_SHAPES:
+        batch, seq, _ = VL_SHAPES[model]
+        return (dict(layers=2, batch=2, seq=128), 1.0, 1e-3,
+                dict(layers=12, batch=batch, seq=seq))
     if model == "bert":
         drop = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
         return (ht.BertConfig.tiny(batch_size=4, seq_len=128, **drop), 1.0,
@@ -3077,10 +3151,21 @@ def parity_configs(ht, model):
 
 def _bf16_graph(ht, pm, model, cfg):
     """(feeds by name, loss, feed values by name, extra fetches) of BERT,
-    GPT-2, T5 (``use_mask``), XLNet, Longformer or the sparse MoE graph
-    (``cfg``: ``pm.moe_graph``'s arguments).  The extra fetches: the MoE
-    graph's token_of_slot and slot_of_token; T5's, XLNet's and
-    Longformer's logits (:func:`lm_loss64`)."""
+    GPT-2, T5 (``use_mask``), XLNet, Longformer, the sparse MoE graph
+    (``cfg``: ``pm.moe_graph``'s arguments) or a padding-masked graph
+    (``cfg``: layers, batch, seq).  The extra fetches: the MoE graph's
+    token_of_slot and slot_of_token; T5's, XLNet's and Longformer's
+    logits (:func:`lm_loss64`)."""
+    if model in VL_SHAPES:
+        from hetu_tpu_torch.tools.profile_train import (varlen_feeds,
+                                                        varlen_graph,
+                                                        varlen_lengths)
+        feeds, loss = varlen_graph(cfg["batch"], cfg["seq"],
+                                   VL_SHAPES[model][2],
+                                   n_layer=cfg["layers"])
+        lens = varlen_lengths(model, cfg["batch"], cfg["seq"])
+        return feeds, loss, {n.name: v for n, v in
+                             varlen_feeds(feeds, lens).items()}, []
     if model == "moe":
         g = pm.moe_graph(sparse=True, **cfg)
         values = {n.name: v for n, v in pm.moe_feeds(g, seed=1).items()}
@@ -3125,11 +3210,14 @@ def lm_loss64(logits, labels):
     return float(np.mean(lse - x[np.arange(len(y)), y]))
 
 
-def bf16_card_vs_cpu(ht, pm, model, cfg, q_scale, lr):
+def bf16_card_vs_cpu(ht, pm, model, cfg, q_scale, lr,
+                     compute_dtype="bfloat16"):
     """One tiny model at bf16 (dropout 0): card vs CPU over 3 Adam steps
     (learning rate ``lr``) from the same weights (``*.q.weight`` scaled by
     ``q_scale``), losses within BF16_TRAIN_LOSS_RTOL and step-1 gradients
-    of every variable float32 and allclose at BF16_TRAIN_GRAD_*.  The MoE
+    of every variable float32 and allclose at BF16_TRAIN_GRAD_*
+    (``compute_dtype=None``: float32, at TRAIN_LOSS_RTOL and
+    TRAIN_GRAD_*, phase 7's gates).  The MoE
     routing maps must be equal at every step (a differing route stops the
     phase with the tokens' gate gaps from the bf16-rounded operands).
     T5's, XLNet's and Longformer's losses are compared as
@@ -3144,9 +3232,13 @@ def bf16_card_vs_cpu(ht, pm, model, cfg, q_scale, lr):
     fetches = {"train": [loss, ht.optim.AdamOptimizer(lr).minimize(loss)]
                + ht.gradients(loss, wrt) + extra}
     card = ht.Executor(fetches, seed=0, device="cuda",
-                       compute_dtype="bfloat16")
+                       compute_dtype=compute_dtype)
     host = ht.Executor(fetches, seed=0, device="cpu",
-                       compute_dtype="bfloat16")
+                       compute_dtype=compute_dtype)
+    lrtol, grtol, gatol, tag = (
+        (BF16_TRAIN_LOSS_RTOL, BF16_TRAIN_GRAD_RTOL, BF16_TRAIN_GRAD_ATOL,
+         "bf16") if compute_dtype else
+        (TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL, "float32"))
     weights = {n: w * q_scale if n.endswith(".q.weight") else w
                for n, w in card.return_tensor_values().items()}
     load_all(card, weights)
@@ -3178,28 +3270,25 @@ def bf16_card_vs_cpu(ht, pm, model, cfg, q_scale, lr):
         else:
             gl, wl = fetched[-1]
         loss_err = max(loss_err, abs(gl - wl) / abs(wl))
-        if not (math.isfinite(gl)
-                and abs(gl - wl) <= BF16_TRAIN_LOSS_RTOL * abs(wl)):
-            raise AssertionError(f"bf16 card vs CPU {model} loss at "
+        if not (math.isfinite(gl) and abs(gl - wl) <= lrtol * abs(wl)):
+            raise AssertionError(f"{tag} card vs CPU {model} loss at "
                                  f"step {step + 1}: {gl} vs {wl}")
         if step == 0:
             for node, g, w in zip(wrt, got[2:2 + nv], want[2:2 + nv]):
                 grad_err = max(grad_err, float(np.max(np.abs(g - w))))
                 if g.dtype != np.float32 or not np.allclose(
-                        g, w, rtol=BF16_TRAIN_GRAD_RTOL,
-                        atol=BF16_TRAIN_GRAD_ATOL):
+                        g, w, rtol=grtol, atol=gatol):
                     raise AssertionError(
-                        f"bf16 card vs CPU {model} gradient of "
+                        f"{tag} card vs CPU {model} gradient of "
                         f"{node.name}: max err "
                         f"{float(np.max(np.abs(g - w)))}")
     what = ("routing maps equal every step; " if route else "") + (
         "loss (float64 from the bf16 logits)" if extra and not route
         else "loss")
-    log(f"[bf16-parity] tiny {model}, bf16 card vs CPU, 3 Adam steps (lr "
-        f"{lr}): {what} max rel err {loss_err:.3e} (rtol "
-        f"{BF16_TRAIN_LOSS_RTOL}); fetched losses (card, CPU) {fetched}; "
-        f"step-1 gradients of {nv} variables max abs err {grad_err:.3e} "
-        f"(rtol {BF16_TRAIN_GRAD_RTOL}, atol {BF16_TRAIN_GRAD_ATOL})")
+    log(f"[bf16-parity] tiny {model}, {tag} card vs CPU, 3 Adam steps (lr "
+        f"{lr}): {what} max rel err {loss_err:.3e} (rtol {lrtol}); fetched "
+        f"losses (card, CPU) {fetched}; step-1 gradients of {nv} variables "
+        f"max abs err {grad_err:.3e} (rtol {grtol}, atol {gatol})")
     card.close()
     host.close()
 
@@ -3230,7 +3319,7 @@ def bf16_vs_f32(ht, pm, model, cfg):
                             atol=BF16_PARITY_TOL)):
         raise AssertionError(f"bf16 vs float32 {model} at full width: "
                              f"{got.tolist()} vs {want.tolist()}")
-    shape = cfg if model == "moe" else {"batch": cfg.batch_size}
+    shape = cfg if isinstance(cfg, dict) else {"batch": cfg.batch_size}
     log(f"[bf16-parity] {model} full width ({json.dumps(shape)}), bf16 vs "
         f"float32 on the card, 3 Adam losses {got.tolist()} vs "
         f"{want.tolist()}: max rel diff "
@@ -3238,16 +3327,224 @@ def bf16_vs_f32(ht, pm, model, cfg):
         f"= atol = {BF16_PARITY_TOL})")
 
 
-def phase_bf16_parity(ht, pm, models):
+def phase_bf16_parity(ht, pm, models, float32_too=False):
     """``models`` at bf16: each tiny model card vs CPU
-    (:func:`bf16_card_vs_cpu`), then each at full width bf16 vs float32
-    on the card (:func:`bf16_vs_f32`); configurations from
-    :func:`parity_configs`."""
+    (:func:`bf16_card_vs_cpu`; with ``float32_too`` also in float32),
+    then each at full width bf16 vs float32 on the card
+    (:func:`bf16_vs_f32`); configurations from :func:`parity_configs`."""
     cfgs = {m: parity_configs(ht, m) for m in models}
     for model, (tiny, q_scale, lr, _) in cfgs.items():
-        bf16_card_vs_cpu(ht, pm, model, tiny, q_scale, lr)
+        for cd in ((None, "bfloat16") if float32_too else ("bfloat16",)):
+            bf16_card_vs_cpu(ht, pm, model, tiny, q_scale, lr, cd)
     for model, (_, _, _, full) in cfgs.items():
         bf16_vs_f32(ht, pm, model, full)
+
+
+def varlen_step_flops(batch, seq, lens, causal, layers, hidden, heads):
+    """Model FLOPs of one step of the padding-masked graph (forward +
+    backward = 3 x the forward's): the q, k, v, o products 6 x tokens x
+    layers x 4 h^2; attention 12 x (h / heads) per visible (row, key) pair
+    of each head and layer (``dense``: every pair, causal or not, as
+    ``bert_step_flops`` counts)."""
+    products = 6.0 * batch * seq * layers * 4 * hidden * hidden
+    lens = np.clip(np.asarray(lens, np.int64), 0, seq)
+    if causal:      # row r sees keys [0, min(r + 1, len))
+        rows = np.arange(1, seq + 1)[None, :]
+        pairs = float(np.minimum(rows, lens[:, None]).sum())
+    else:
+        pairs = float(seq * lens.sum())
+    per_pair = 12.0 * (hidden // heads) * heads * layers
+    return (products + per_pair * pairs,
+            products + per_pair * batch * seq * seq)
+
+
+def phase_varlen_kernels(ht, fa):
+    """Every kernel with ``lengths`` against its plain version, float32 and
+    bf16: timed at the varlen paths' shapes (BERT's B=16 H=12 S=512 with
+    ``synthetic_mlm_batch``'s lengths; GPT-2's B=8 H=12 S=1024 causal,
+    lengths uniform over [256, 1024], one row full and one of length 0)
+    beside the bound on visible pairs and SDPA with the lengths as a
+    boolean ``attn_mask``; and at small shapes with every rule the kernels
+    combine ``lengths`` with: a key mask, a full mask in each group mode,
+    a dense bias, a strip, a full mask with a bias and with a strip, causal
+    or not.  Each case checks dK, dV and dkbias exactly 0 past the lengths
+    (``attn_case``).  Returns the kernels-line entries {(path, dtype):
+    {fwd, dq, dkv}}, errors the worst over the cases of the same
+    instantiation."""
+    from hetu_tpu_torch.tools.profile_train import varlen_lengths
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush = flush_buf.zero_
+    rng = np.random.RandomState(33)
+    scale = 1.0 / math.sqrt(D)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)) \
+            .to("cuda", dtype)
+
+    def lens_of(*n):
+        return torch.tensor(n, dtype=torch.int32, device="cuda")
+
+    worst, lines = {}, {}
+
+    def run(path, dt, name, b, heads, s_q, s_kv, lengths, timed=False,
+            **kw):
+        q, do = t(b * heads, s_q, D, dtype=dt), t(b * heads, s_q, D, dtype=dt)
+        k, v = t(b * heads, s_kv, D, dtype=dt), t(b * heads, s_kv, D,
+                                                  dtype=dt)
+        err, row = attn_case(fa, "[varlen-kernels]", name, q, k, v, do,
+                             heads, kw.pop("scale", scale),
+                             flush=flush if timed else None,
+                             lengths=lengths, **kw)
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        if path is not None:
+            for kk, e in err.items():
+                worst[(path, tag, kk)] = max(worst.get((path, tag, kk), 0.0),
+                                             e)
+        if timed:
+            lines[(path, tag)] = row
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+    bb, bs, _ = VL_SHAPES["varlen-bert"]
+    gb, gs, _ = VL_SHAPES["varlen-gpt2"]
+    blens = torch.from_numpy(varlen_lengths("varlen-bert", bb, bs)).cuda()
+    glens = varlen_lengths("varlen-gpt2", gb, gs)
+    glens[-1] = 0                         # a row that sees no key
+    glens = torch.from_numpy(glens).cuda()
+    log(f"[varlen-kernels] BERT lengths {blens.tolist()}; GPT-2 lengths "
+        f"{glens.tolist()}")
+    small_km = torch.from_numpy((rng.rand(2, 200) < 0.7).astype(np.int32)) \
+        .cuda()
+    small_km[:, 0] = 1
+
+    def group(g, s_q, s_kv, p=None):
+        x = torch.from_numpy(rng.randn(fa._group_rows(g, 6, 3), s_q, s_kv)
+                             .astype(np.float32)).cuda()
+        if p is None:
+            return x
+        m = x.abs() < p
+        m[0, 0] = False                   # a row with every key masked
+        return m.to(torch.uint8).contiguous()
+
+    for dt in (torch.float32, torch.bfloat16):
+        run("len", dt, "BERT lengths", bb, H, bs, bs, blens, timed=True)
+        run("causal_len", dt, "GPT-2 lengths, causal", gb, H, gs, gs, glens,
+            timed=True, causal=True)
+        small = [
+            ("len", "lengths 0 and > S_kv, S_q != S_kv", 130, 333,
+             lens_of(0, 999), {}),
+            ("len", "key mask", 200, 200, lens_of(150, 64),
+             dict(km=small_km)),
+            ("causal_len", "causal S_q > S_kv, key mask", 200, 130,
+             lens_of(1, 130), dict(causal=True, km=small_km[:, :130]
+                                   .contiguous())),
+            (None, "mask group one, causal", 200, 200, lens_of(128, 200),
+             dict(mask=group("one", 200, 200, p=1.0), mask_gmode="one",
+                  causal=True)),
+            (None, "mask group h", 130, 200, lens_of(65, 999),
+             dict(mask=group("h", 130, 200, p=1.0), mask_gmode="h")),
+            (None, "mask group b, key mask", 96, 200, lens_of(100, 0),
+             dict(mask=group("b", 96, 200, p=1.0), mask_gmode="b",
+                  km=small_km)),
+            (None, "mask group bh", 77, 101, lens_of(1, 64),
+             dict(mask=group("bh", 77, 101, p=1.0), mask_gmode="bh")),
+            (None, "bias group h", 200, 130, lens_of(100, 129),
+             dict(bias=group("h", 200, 130), gmode="h")),
+            (None, "bias group bh, causal", 114, 114, lens_of(50, 114),
+             dict(bias=group("bh", 114, 114), gmode="bh", causal=True)),
+            (None, "strip group b, causal, key mask", 200, 200,
+             lens_of(190, 3), dict(kbias=group("b", 1, 200), gmode="b",
+                                   causal=True, km=small_km)),
+            (None, "mask group b, bias group h", 96, 96, lens_of(70, 96),
+             dict(mask=group("b", 96, 96, p=1.0), mask_gmode="b",
+                  bias=group("h", 96, 96), gmode="h")),
+            (None, "mask group h, strip group one, causal", 130, 200,
+             lens_of(129, 0), dict(mask=group("h", 130, 200, p=1.0),
+                                   mask_gmode="h",
+                                   kbias=group("one", 1, 200), gmode="one",
+                                   causal=True))]
+        for path, name, s_q, s_kv, lengths, kw in small:
+            run(path, dt, name, 2, 3, s_q, s_kv, lengths, scale=0.37, **kw)
+    log(f"[varlen-kernels] worst max_abs_err per instantiation "
+        f"{json.dumps({f'{p}/{d}/{k}': e for (p, d, k), e in worst.items()})}")
+    for (path, tag), row in lines.items():
+        for kk in row:
+            row[kk]["max_abs_err"] = worst[(path, tag, kk)]
+    return lines
+
+
+def _varlen_executor(ht, model, compute_dtype):
+    """(executor on the card, feed dict, lengths) of the padding-masked
+    graph of ``tools/profile_train.py`` at ``model``'s full shape
+    (``VL_SHAPES``, 12 layers, hidden 768, 12 heads)."""
+    from hetu_tpu_torch.tools.profile_train import (varlen_feeds,
+                                                    varlen_graph,
+                                                    varlen_lengths)
+    batch, seq, causal = VL_SHAPES[model]
+    feeds, loss = varlen_graph(batch, seq, causal)
+    train_op = ht.optim.AdamOptimizer(1e-4).minimize(loss)
+    lens = varlen_lengths(model, batch, seq)
+    ex = ht.Executor({"train": [loss, train_op]}, seed=0, device="cuda",
+                     compute_dtype=compute_dtype)
+    return ex, varlen_feeds(feeds, lens), lens
+
+
+def phase_varlen_train(ht, pm, fa, metrics, kmods):
+    """The padding-masked graphs (``sdpa_varlen_op``) at full width and
+    depth (12 layers; BERT's batch 16 x seq 512, GPT-2's batch 8 x seq
+    1024 causal) through ``Executor.run``, float32 and
+    ``compute_dtype="bfloat16"``: 2 warm-up steps, 10 counted steps with
+    every launch counter set to 0 just before and read just after (the
+    forward, dQ and dK/dV with ``lengths``: 12 launches a step each;
+    nothing else; no ``backend:`` fallback; the loss finite and not
+    rising), step p50/p99, MFU on visible pairs, peak memory, and 3
+    profiled steps for busy time and idle share.  Then bf16 against
+    float32 at full width (3 Adam losses within ``BF16_PARITY_TOL``) and
+    2 layers of the same widths (batch 2, seq 128) on the card against
+    the CPU, float32 at phase 7's gates and bf16 at phase 28's.  Returns
+    the launches by kernels-line name."""
+    from hetu_tpu_torch.tools.profile_train import (VARLEN_HEADS,
+                                                    VARLEN_HIDDEN,
+                                                    VARLEN_LAYERS,
+                                                    profile_steps)
+    got = {}
+    for model, (batch, seq, causal) in VL_SHAPES.items():
+        for cd in (None, "bfloat16"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            tag = f"[{model}-train{'-bf16' if cd else ''}]"
+            t0 = time.perf_counter()
+            ex, fd, lens = _varlen_executor(ht, model, cd)
+            log(f"{tag} executor built in {time.perf_counter() - t0:.1f} s")
+            names = tuple(("bf16_" if cd else "") + op
+                          + ("_causal" if causal else "") + "_len_launches"
+                          for op in ("fwd", "dq", "dkv"))
+            flops = varlen_step_flops(batch, seq, lens, causal,
+                                      VARLEN_LAYERS, VARLEN_HIDDEN,
+                                      VARLEN_HEADS)
+            peak = ("bf16", PEAK_BF16_FLOPS) if cd else \
+                ("fp32", PEAK_FP32_FLOPS)
+            report = train_path(fa, metrics, kmods, tag, ex, fd, VL_STEPS,
+                                VL_WARMUP, names, VL_STEPS * VARLEN_LAYERS,
+                                flops, base, peak=peak)
+            step_s = report["step_ms_mean"] / 1e3
+            report["profiled"], _ = profile_steps(
+                lambda: float(ex.run("train", feed_dict=fd)[0].asnumpy()),
+                VL_PROFILED, step_s, lengths=True)
+            report.update({"batch": batch, "seq": seq, "causal": causal,
+                           "lengths": lens.tolist(),
+                           "compute_dtype": cd or "float32",
+                           "tokens_per_s": batch * seq / step_s,
+                           "real_tokens_per_s": float(lens.sum()) / step_s})
+            log(f"{tag} {json.dumps(report)}")
+            ex.close()
+            del ex
+            torch.cuda.empty_cache()
+            got.update({line_name(n): c
+                        for n, c in report["launches"].items()})
+    phase_bf16_parity(ht, pm, tuple(VL_SHAPES), float32_too=True)
+    return got
 
 
 def main():
@@ -3427,7 +3724,13 @@ def main():
     # -- 32. bf16 card vs CPU, bf16 vs float32: MoE, T5, XLNet, Longformer ------------
     phase_bf16_parity(ht, pm, ("moe", "t5", "xlnet", "longformer"))
 
-    # -- 33. result lines ---------------------------------------------------------
+    # -- 33. the kernels with lengths vs plain ----------------------------------------
+    vlines = phase_varlen_kernels(ht, fa)
+
+    # -- 34. train the padding-masked graphs, float32 and bf16 -----------------------
+    vlaunches = phase_varlen_train(ht, pm, fa, metrics, kmods)
+
+    # -- 35. result lines ---------------------------------------------------------
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
@@ -3500,6 +3803,16 @@ def main():
                                  f"flash_attention.py:{at}",
                                  bflaunches.get(name + sfx, 0),
                                  bflines[path][key]))
+    # the lengths instantiations of the forward, dQ and dK/dV on the
+    # padding-masked paths (phase 34), float32 and bf16, timed at their
+    # shapes in phase 33
+    for path, dtype in (("len", "f32"), ("causal_len", "f32"),
+                        ("len", "bf16"), ("causal_len", "bf16")):
+        for key, name, source, at in flash:
+            nm = name + "_" + path + ("_bf16" if dtype == "bf16" else "")
+            kernels.append(entry(nm, bf_sources[key] if dtype == "bf16"
+                                 else source, f"flash_attention.py:{at}",
+                                 vlaunches[nm], vlines[(path, dtype)][key]))
     kernels.append(entry("emb_gather", "emb_cache.cu", "emb_cache.py:71",
                          claunches["emb_gather"], gline))
     kernels.append(entry("sorted_segment_sum", "segment_sum.cu",

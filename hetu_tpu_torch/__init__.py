@@ -77,7 +77,8 @@ from .ops import (array_reshape_op, binarycrossentropy_op, broadcastto_op,
                   concat_op, einsum_op, embedding_lookup_op, matmul_op, mul_op,
                   ne_op, reduce_mean_op, reduce_sum_op, relu_op, rsqrt_op,
                   sdpa_bias_op, sdpa_masked_bias_op, sdpa_masked_op,
-                  sdpa_op, sigmoid_op, slice_op, softmaxcrossentropy_op,
+                  sdpa_op, sdpa_varlen_op, sigmoid_op, slice_op,
+                  softmaxcrossentropy_op,
                   softmaxcrossentropy_sparse_op, tanh_op, transpose_op)
 from .ps import (CacheSparseTable, DistCacheTable, EmbeddingStore,
                  PSEmbeddingLookupOp, default_store, ps_embedding_lookup_op)

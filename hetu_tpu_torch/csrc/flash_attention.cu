@@ -7,12 +7,13 @@
 //
 // 1. flash_fwd_lengths_kernel, the `lengths` specialization (decode): for the
 //    query rows of (b*h), keys at index >= lengths[b] are invisible.
-// 2. flash_fwd_kernel, the dense, `key_mask`, causal, full-mask and additive
-//    bias specializations (training and chunked prefill): keys with
-//    key_mask[b, j] == 0 are invisible; under `causal` key c is visible to
-//    query row r iff r + (S_kv - S_q) >= c; under a full mask iff
-//    mask[g, r, c] != 0.  The three compose (logical and); none = dense.  A
-//    bias is added to the scaled scores before the validity select.
+// 2. flash_fwd_kernel, the dense, `key_mask`, `lengths`, causal, full-mask
+//    and additive bias specializations (training and chunked prefill): keys
+//    with key_mask[b, j] == 0 or at or past lengths[b] are invisible; under
+//    `causal` key c is visible to query row r iff r + (S_kv - S_q) >= c;
+//    under a full mask iff mask[g, r, c] != 0.  They compose (logical and);
+//    none = dense.  A bias is added to the scaled scores before the
+//    validity select.
 //
 // ---- 1. lengths (decode)
 // What bounds it: at decode (S_q = 1) each valid K and V element is read once
@@ -275,10 +276,14 @@ extern "C" int hetu_flash_fwd_lengths(const float* q, const float* k, const floa
 // Skipping (the data decides which tiles hold work): a plain PyTorch pass
 // (ops/kernels/flash_attention.py, tile_maps) reduces the full mask to one
 // byte per (group, query tile, key tile), nonzero where a pair is visible.
-// Each CTA first lists, in order, the key tiles below its causal end whose
-// byte is nonzero and, with a key mask, that hold an unmasked key (a thread
-// a tile reads the tile's 64 key-mask words: no launch and no map for it),
-// and walks only those: no copy and no product for the others.  Causal CTAs take
+// Each CTA first lists, in order, the key tiles below its causal end and
+// below ceil(lengths[b] / 64) whose byte is nonzero and, with a key mask,
+// that hold an unmasked key before the length (a thread a tile reads the
+// tile's 64 key-mask words: no launch and no map for it), and walks only
+// those: no copy and no product for the others.  The key flags of a walked
+// tile fold the length in (a key at or past it reads 0), so the last tile's
+// columns past the length are masked at no cost.  `lengths` is a nullable
+// pointer read once a CTA, not a template flag: a null one is S_kv.  Causal CTAs take
 // their query tiles heaviest first.  A row that sees no key in any walked
 // tile outputs 0 with lse = -1e30.
 //
@@ -405,12 +410,13 @@ __device__ __forceinline__ void fma4(float4& acc, float p, const float4& m) {
 // (D <= 64 G).  mask_tiles (G', n_qt, n_kt) of 64 x 64 tiles: one byte per
 // tile, 0 where no pair is visible, or null (walk every tile).  BIAS / KBIAS: at
 // most one, `bias` then points to the (G', S_q, S_kv) bias or the (G', S_kv)
-// strip of group mode `bgmode`.
+// strip of group mode `bgmode`.  lengths (BH / heads) int32 or null: keys
+// at or past lengths[bh / heads] are invisible.
 template <int R, int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
 __global__ void __launch_bounds__(FTHREADS, R == 8 ? (G == 1 ? 3 : 1) : (G == 1 ? 4 : 2))
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ key_mask,
-                 const unsigned char* __restrict__ mask,
+                 const int* __restrict__ lengths, const unsigned char* __restrict__ mask,
                  const unsigned char* __restrict__ mask_tiles, const float* __restrict__ bias,
                  float* __restrict__ out, float* __restrict__ lse, int heads, int gmode,
                  int bgmode, int s_q, int s_kv, int d, float scale) {
@@ -437,6 +443,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (size_t)bh * s_kv * d;
   const float* vb = v + (size_t)bh * s_kv * d;
   const int* km = key_mask ? key_mask + (size_t)(bh / heads) * s_kv : nullptr;
+  // keys [0, len) may be visible
+  const int len = lengths ? max(0, min(s_kv, lengths[bh / heads])) : s_kv;
   const unsigned char* mb = nullptr;
   const unsigned char* mt = nullptr;
   if (FMASK) {
@@ -453,11 +461,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // causal: row r sees key c iff r + kv_off >= c; the walk stops after the
   // last key that the tile's last row sees
   const int kv_off = s_kv - s_q;
-  int kt_end = n_kt;
-  if (CAUSAL) {
-    const int last = min(s_kv, min(q0 + QR, s_q) + kv_off);  // keys [0, last)
-    kt_end = last > 0 ? (last + FT - 1) / FT : 0;
-  }
+  int last = len;  // keys [0, last)
+  if (CAUSAL) last = min(last, min(q0 + QR, s_q) + kv_off);
+  const int kt_end = last > 0 ? (last + FT - 1) / FT : 0;
 
   // zero the Q and K pad columns [d, d16) once (cp.async never writes them)
   if (d16 != d) {
@@ -473,7 +479,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (live && mt) live = mt[kt] != 0;
     if (live && km) {  // a tile whose keys are all masked holds no work
       bool any = false;
-      const int k0 = kt * FT, kn = min(FT, s_kv - k0);
+      const int k0 = kt * FT, kn = min(FT, len - k0);
 #pragma unroll 16
       for (int c = 0; c < FT; ++c) any |= c < kn && km[k0 + c] != 0;
       live = any;
@@ -497,10 +503,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     stage_tile(k_s, kb, k0, s_kv, d, ld, FT);
     if (tid < FT) {
       const int key = k0 + tid;
-      if (km != nullptr && key < s_kv)
+      if (km != nullptr && key < len)
         async_copy4(ok_s + tid, km + key);
       else
-        ok_s[tid] = key < s_kv;
+        ok_s[tid] = key < len;
     }
     if (FMASK) stage_mask(msk_s, mb, q0, k0, s_q, s_kv, mvec, QR);
   };
@@ -674,7 +680,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int R, int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
 int launch_fwd(const float* q, const float* k, const float* v, const int* key_mask,
-               const unsigned char* mask, const unsigned char* mask_tiles, const float* bias,
+               const int* lengths, const unsigned char* mask, const unsigned char* mask_tiles,
+               const float* bias,
                float* out, float* lse, int bh, int heads, int gmode, int bgmode, int s_q,
                int s_kv, int d, float scale, cudaStream_t stream) {
   static size_t configured[64] = {0};
@@ -688,8 +695,8 @@ int launch_fwd(const float* q, const float* k, const float* v, const int* key_ma
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (s_q + QR - 1) / QR);
   flash_fwd_kernel<R, G, CAUSAL, FMASK, BIAS, KBIAS><<<grid, FTHREADS, smem, stream>>>(
-      q, k, v, key_mask, mask, mask_tiles, bias, out, lse, heads, gmode, bgmode, s_q, s_kv, d,
-      scale);
+      q, k, v, key_mask, lengths, mask, mask_tiles, bias, out, lse, heads, gmode, bgmode, s_q,
+      s_kv, d, scale);
   return (int)cudaGetLastError();
 }
 
@@ -715,10 +722,9 @@ inline cudaError_t num_sms(int* out) {
 
 template <bool CAUSAL, bool FMASK, bool BIAS = false, bool KBIAS = false>
 int dispatch_fwd(const float* q, const float* k, const float* v, const int* key_mask,
-                 const unsigned char* mask, const unsigned char* mask_tiles, const float* bias,
-                 float* out, float* lse,
-                 int bh, int heads, int gmode, int bgmode, int s_q, int s_kv, int d, float scale,
-                 void* stream) {
+                 const int* lengths, const unsigned char* mask, const unsigned char* mask_tiles,
+                 const float* bias, float* out, float* lse, int bh, int heads, int gmode,
+                 int bgmode, int s_q, int s_kv, int d, float scale, void* stream) {
   if (hetu_flash::bad_head_dim<float>(d) || heads <= 0 || bh <= 0 || bh % heads || s_q <= 0 ||
       s_kv <= 0 || (s_q + 31) / 32 > 65535 || gmode < 0 || gmode > 3 || bgmode < 0 ||
       bgmode > 3)
@@ -731,50 +737,47 @@ int dispatch_fwd(const float* q, const float* k, const float* v, const int* key_
   // as many
   const bool small = (long long)bh * ((s_q + FT - 1) / FT) < (long long)WAVE_CTAS * sms;
   cudaStream_t st = (cudaStream_t)stream;
-  if (small)
-    return d <= 64 ? launch_fwd<4, 1, CAUSAL, FMASK, BIAS, KBIAS>(
-                         q, k, v, key_mask, mask, mask_tiles, bias, out, lse, bh,
-                         heads, gmode, bgmode, s_q, s_kv, d, scale, st)
-                   : launch_fwd<4, 2, CAUSAL, FMASK, BIAS, KBIAS>(
-                         q, k, v, key_mask, mask, mask_tiles, bias, out, lse, bh,
-                         heads, gmode, bgmode, s_q, s_kv, d, scale, st);
-  return d <= 64 ? launch_fwd<8, 1, CAUSAL, FMASK, BIAS, KBIAS>(
-                       q, k, v, key_mask, mask, mask_tiles, bias, out, lse, bh, heads,
-                       gmode, bgmode, s_q, s_kv, d, scale, st)
-                 : launch_fwd<8, 2, CAUSAL, FMASK, BIAS, KBIAS>(
-                       q, k, v, key_mask, mask, mask_tiles, bias, out, lse, bh, heads,
-                       gmode, bgmode, s_q, s_kv, d, scale, st);
+#define HETU_FWD_LAUNCH(R_, G_)                                                               \
+  launch_fwd<R_, G_, CAUSAL, FMASK, BIAS, KBIAS>(q, k, v, key_mask, lengths, mask, mask_tiles, \
+                                                 bias, out, lse, bh, heads, gmode, bgmode, s_q, \
+                                                 s_kv, d, scale, st)
+  if (small) return d <= 64 ? HETU_FWD_LAUNCH(4, 1) : HETU_FWD_LAUNCH(4, 2);
+  return d <= 64 ? HETU_FWD_LAUNCH(8, 1) : HETU_FWD_LAUNCH(8, 2);
+#undef HETU_FWD_LAUNCH
 }
 
 // additive bias: a dense (G, s_q, s_kv) bias or, strip != 0, a per-key strip
-// (G, 1, s_kv), of group mode gmode (0..3 as for the full mask); optionally
-// with a key_mask and, causal != 0, the causal rule
+// (G, 1, s_kv), of group mode gmode; optionally with a key_mask, lengths and,
+// causal != 0, the causal rule
 template <bool BIAS, bool KBIAS>
 int fwd_bias(const float* q, const float* k, const float* v, const int* key_mask,
-             const float* bias, float* out, float* lse, int bh, int heads, int s_q, int s_kv,
-             int d, int gmode, int causal, float scale, void* stream) {
-  return causal ? dispatch_fwd<true, false, BIAS, KBIAS>(q, k, v, key_mask, nullptr, nullptr, bias,
-                                                         out, lse, bh, heads, 0, gmode, s_q, s_kv,
-                                                         d, scale, stream)
-                : dispatch_fwd<false, false, BIAS, KBIAS>(q, k, v, key_mask, nullptr, nullptr,
-                                                          bias, out, lse, bh, heads, 0, gmode, s_q,
-                                                          s_kv, d, scale, stream);
+             const int* lengths, const float* bias, float* out, float* lse, int bh, int heads,
+             int s_q, int s_kv, int d, int gmode, int causal, float scale, void* stream) {
+  return causal ? dispatch_fwd<true, false, BIAS, KBIAS>(q, k, v, key_mask, lengths, nullptr,
+                                                         nullptr, bias, out, lse, bh, heads, 0,
+                                                         gmode, s_q, s_kv, d, scale, stream)
+                : dispatch_fwd<false, false, BIAS, KBIAS>(q, k, v, key_mask, lengths, nullptr,
+                                                          nullptr, bias, out, lse, bh, heads, 0,
+                                                          gmode, s_q, s_kv, d, scale, stream);
 }
 
 // full mask: mask (G, s_q, s_kv) uint8, G = 1, heads, bh / heads or bh for
 // gmode 0..3; optionally with an additive bias as the bias entries take it,
-// of its own group mode bgmode, a key_mask and, causal != 0, the causal rule
+// of its own group mode bgmode, a key_mask, lengths and, causal != 0, the
+// causal rule
 template <bool BIAS, bool KBIAS>
 int fwd_mask(const float* q, const float* k, const float* v, const int* key_mask,
-             const unsigned char* mask, const unsigned char* mask_tiles, const float* bias,
-             float* out, float* lse, int bh, int heads, int s_q, int s_kv, int d, int gmode,
-             int bgmode, int causal, float scale, void* stream) {
-  return causal ? dispatch_fwd<true, true, BIAS, KBIAS>(q, k, v, key_mask, mask, mask_tiles, bias,
-                                                        out, lse, bh, heads, gmode, bgmode, s_q,
-                                                        s_kv, d, scale, stream)
-                : dispatch_fwd<false, true, BIAS, KBIAS>(q, k, v, key_mask, mask, mask_tiles,
-                                                         bias, out, lse, bh, heads, gmode, bgmode,
-                                                         s_q, s_kv, d, scale, stream);
+             const int* lengths, const unsigned char* mask, const unsigned char* mask_tiles,
+             const float* bias, float* out, float* lse, int bh, int heads, int s_q, int s_kv,
+             int d, int gmode, int bgmode, int causal, float scale, void* stream) {
+  return causal ? dispatch_fwd<true, true, BIAS, KBIAS>(q, k, v, key_mask, lengths, mask,
+                                                        mask_tiles, bias, out, lse, bh, heads,
+                                                        gmode, bgmode, s_q, s_kv, d, scale,
+                                                        stream)
+                : dispatch_fwd<false, true, BIAS, KBIAS>(q, k, v, key_mask, lengths, mask,
+                                                         mask_tiles, bias, out, lse, bh, heads,
+                                                         gmode, bgmode, s_q, s_kv, d, scale,
+                                                         stream);
 }
 
 }  // namespace
@@ -782,57 +785,64 @@ int fwd_mask(const float* q, const float* k, const float* v, const int* key_mask
 // Each launches on `stream` and returns cudaGetLastError() after the launch
 // (0 = launched).  q (bh, s_q, d), k/v (bh, s_kv, d), out (bh, s_q, d):
 // contiguous float32, 16-byte aligned; key_mask (bh / heads, s_kv) int32 or
-// null; lse (bh, s_q) float32; a bias float32.  The `_bf16` twins of these
-// entries run on the tensor cores (flash_attention_bf16.cu).
+// null; lengths (bh / heads) int32 or null (keys at or past lengths[b]
+// invisible; <= 0: none visible, >= s_kv: all); lse (bh, s_q) float32; a
+// bias float32.  The `_bf16` twins of these entries run on the tensor cores
+// (flash_attention_bf16.cu).
 
-// dense (key_mask null) and key_mask
+// dense (key_mask and lengths null), key_mask and/or lengths
 extern "C" int hetu_flash_fwd(const float* q, const float* k, const float* v,
-                              const int* key_mask, float* out, float* lse, int bh, int heads,
-                              int s_q, int s_kv, int d, float scale, void* stream) {
-  return dispatch_fwd<false, false>(q, k, v, key_mask, nullptr, nullptr, nullptr, out, lse, bh,
-                                    heads, 0, 0, s_q, s_kv, d, scale, stream);
+                              const int* key_mask, const int* lengths, float* out, float* lse,
+                              int bh, int heads, int s_q, int s_kv, int d, float scale,
+                              void* stream) {
+  return dispatch_fwd<false, false>(q, k, v, key_mask, lengths, nullptr, nullptr, nullptr, out,
+                                    lse, bh, heads, 0, 0, s_q, s_kv, d, scale, stream);
 }
 
-// causal (bottom-right aligned), optionally with a key_mask
+// causal (bottom-right aligned), optionally with a key_mask and lengths
 extern "C" int hetu_flash_fwd_causal(const float* q, const float* k, const float* v,
-                                     const int* key_mask, float* out, float* lse, int bh,
-                                     int heads, int s_q, int s_kv, int d, float scale,
-                                     void* stream) {
-  return dispatch_fwd<true, false>(q, k, v, key_mask, nullptr, nullptr, nullptr, out, lse, bh,
-                                   heads, 0, 0, s_q, s_kv, d, scale, stream);
+                                     const int* key_mask, const int* lengths, float* out,
+                                     float* lse, int bh, int heads, int s_q, int s_kv, int d,
+                                     float scale, void* stream) {
+  return dispatch_fwd<true, false>(q, k, v, key_mask, lengths, nullptr, nullptr, nullptr, out,
+                                   lse, bh, heads, 0, 0, s_q, s_kv, d, scale, stream);
 }
 
 // an additive bias: a dense bias or (strip != 0) a key-bias strip of group
-// mode gmode, with an optional key_mask and (causal != 0) the causal rule
+// mode gmode, with an optional key_mask, lengths and (causal != 0) the causal
+// rule
 extern "C" int hetu_flash_fwd_bias(const float* q, const float* k, const float* v,
-                                   const int* key_mask, const float* bias, float* out,
-                                   float* lse, int bh, int heads, int s_q, int s_kv, int d,
-                                   int gmode, int strip, int causal, float scale, void* stream) {
+                                   const int* key_mask, const int* lengths, const float* bias,
+                                   float* out, float* lse, int bh, int heads, int s_q, int s_kv,
+                                   int d, int gmode, int strip, int causal, float scale,
+                                   void* stream) {
   if (bias == nullptr) return (int)cudaErrorInvalidValue;
-  return strip ? fwd_bias<false, true>(q, k, v, key_mask, bias, out, lse, bh, heads, s_q, s_kv,
-                                       d, gmode, causal, scale, stream)
-               : fwd_bias<true, false>(q, k, v, key_mask, bias, out, lse, bh, heads, s_q, s_kv,
-                                       d, gmode, causal, scale, stream);
+  return strip ? fwd_bias<false, true>(q, k, v, key_mask, lengths, bias, out, lse, bh, heads,
+                                       s_q, s_kv, d, gmode, causal, scale, stream)
+               : fwd_bias<true, false>(q, k, v, key_mask, lengths, bias, out, lse, bh, heads,
+                                       s_q, s_kv, d, gmode, causal, scale, stream);
 }
 
 // a full mask of group mode gmode, alone or with a bias (null: none; strip
-// != 0: a key-bias strip) of its own group mode bgmode, an optional key_mask
-// and (causal != 0) the causal rule; mask_tiles (G, ceil(s_q / 64),
+// != 0: a key-bias strip) of its own group mode bgmode, an optional key_mask,
+// lengths and (causal != 0) the causal rule; mask_tiles (G, ceil(s_q / 64),
 // ceil(s_kv / 64)) uint8, 0 where a 64 x 64 tile of the mask holds no
 // visible pair (tile_maps in ops/kernels/flash_attention.py), or null:
 // every tile is walked
 extern "C" int hetu_flash_fwd_mask(const float* q, const float* k, const float* v,
-                                   const int* key_mask, const unsigned char* mask,
-                                   const unsigned char* mask_tiles, const float* bias,
-                                   float* out, float* lse, int bh, int heads, int s_q, int s_kv,
-                                   int d, int gmode, int bgmode, int strip, int causal,
-                                   float scale, void* stream) {
+                                   const int* key_mask, const int* lengths,
+                                   const unsigned char* mask, const unsigned char* mask_tiles,
+                                   const float* bias, float* out, float* lse, int bh, int heads,
+                                   int s_q, int s_kv, int d, int gmode, int bgmode, int strip,
+                                   int causal, float scale, void* stream) {
   if (mask == nullptr) return (int)cudaErrorInvalidValue;
   if (bias == nullptr)
-    return fwd_mask<false, false>(q, k, v, key_mask, mask, mask_tiles, nullptr, out, lse, bh,
-                                  heads, s_q, s_kv, d, gmode, 0, causal, scale, stream);
-  return strip ? fwd_mask<false, true>(q, k, v, key_mask, mask, mask_tiles, bias, out, lse, bh,
-                                       heads, s_q, s_kv, d, gmode, bgmode, causal, scale, stream)
-               : fwd_mask<true, false>(q, k, v, key_mask, mask, mask_tiles, bias, out, lse, bh,
-                                       heads, s_q, s_kv, d, gmode, bgmode, causal, scale, stream);
+    return fwd_mask<false, false>(q, k, v, key_mask, lengths, mask, mask_tiles, nullptr, out,
+                                  lse, bh, heads, s_q, s_kv, d, gmode, 0, causal, scale, stream);
+  return strip ? fwd_mask<false, true>(q, k, v, key_mask, lengths, mask, mask_tiles, bias, out,
+                                       lse, bh, heads, s_q, s_kv, d, gmode, bgmode, causal, scale,
+                                       stream)
+               : fwd_mask<true, false>(q, k, v, key_mask, lengths, mask, mask_tiles, bias, out,
+                                       lse, bh, heads, s_q, s_kv, d, gmode, bgmode, causal, scale,
+                                       stream);
 }

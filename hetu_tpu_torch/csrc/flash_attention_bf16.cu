@@ -5,7 +5,9 @@
 // _flash_fwd).  q, k, v and out are bf16; lse (BH, S_q), the bias and the
 // strip float32.  The specializations and their rules are the float32
 // kernel's (flash_attention.cu): dense, key_mask, causal (bottom-right
-// aligned, key tiles past the diagonal skipped), a full uint8 mask of group
+// aligned, key tiles past the diagonal skipped), `lengths` (a nullable
+// pointer read once a CTA: the key-tile loop ends at the length, which
+// replaces S_kv in the key test of the last tile), a full uint8 mask of group
 // mode `gmode`, an additive bias or key-bias strip of group mode `bgmode`,
 // alone or together.  A row with no valid key outputs 0 with lse = -1e30.
 //
@@ -43,16 +45,21 @@ namespace {
 
 using namespace hetu_mma;
 
-// DMAX: the head dim the instantiation pads to (64 or 128).  BIAS / KBIAS: at
+// DMAX: the head dim the instantiation pads to (64 or 128); at 64, three
+// CTAs an SM at least (at most 168 registers a thread: without the bound
+// the dense-bias instantiation took 175 and ran 2 CTAs an SM, 17 % slower
+// at T5's shape on an H100, tools/flash_timings.py).  BIAS / KBIAS: at
 // most one, `bias` then points to the (G, S_q, S_kv) bias or the (G, S_kv)
 // strip of group mode `bgmode`.  mask_vec: the mask's rows are 16-byte
-// aligned (cp.async staging).
+// aligned (cp.async staging).  lengths (BH / heads) int32 or null: keys at
+// or past lengths[bh / heads] are invisible.
 template <int DMAX, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(NTHREADS, DMAX == 64 ? 3 : 1)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int* __restrict__ key_mask,
-                     const unsigned char* __restrict__ mask, const float* __restrict__ bias,
-                     bf16* __restrict__ out, float* __restrict__ lse, int heads, int gmode,
+                     const int* __restrict__ lengths, const unsigned char* __restrict__ mask,
+                     const float* __restrict__ bias, bf16* __restrict__ out,
+                     float* __restrict__ lse, int heads, int gmode,
                      int bgmode, int s_q, int s_kv, int d, float scale, bool mask_vec) {
   static_assert(!(BIAS && KBIAS), "a dense bias or a key-bias strip, not both");
   constexpr int KS = DMAX / 16;  // k16 steps of Q.K^T, d16 column pairs of P.V
@@ -74,10 +81,11 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float* bb = nullptr;
   if (BIAS || KBIAS)
     bb = bias + (size_t)group_row(bgmode, bh, heads) * (BIAS ? (size_t)s_q * s_kv : s_kv);
-  // causal: row r sees key c iff r + kv_off >= c; the loop stops after the
-  // last key that the tile's last row sees
+  // keys [0, len) may be visible; causal: row r sees key c iff r + kv_off
+  // >= c; the loop stops after the last key that the tile's last row sees
+  const int len = lengths ? max(0, min(s_kv, lengths[bh / heads])) : s_kv;
   const int kv_off = s_kv - s_q;
-  const int k_end = CAUSAL ? min(s_kv, min(q0 + TILE, s_q) + kv_off) : s_kv;
+  const int k_end = CAUSAL ? min(len, min(q0 + TILE, s_q) + kv_off) : len;
   const int n_tiles = k_end > 0 ? (k_end + TILE - 1) / TILE : 0;
 
   auto stage = [&](int t) {
@@ -167,7 +175,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < 8; ++j) {
       const int c0 = 8 * j + 2 * tq;
       const int2 w = *reinterpret_cast<const int2*>(kmt + c0);
-      const bool kv[2] = {c0 < s_kv - k0 && w.x != 0, c0 + 1 < s_kv - k0 && w.y != 0};
+      const bool kv[2] = {c0 < len - k0 && w.x != 0, c0 + 1 < len - k0 && w.y != 0};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = r_lo + 8 * (e >> 1), c = c0 + (e & 1);
@@ -244,7 +252,8 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DMAX, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
 int launch_fwd(const bf16* q, const bf16* k, const bf16* v, const int* key_mask,
-               const unsigned char* mask, const float* bias, bf16* out, float* lse, int bh,
+               const int* lengths, const unsigned char* mask, const float* bias, bf16* out,
+               float* lse, int bh,
                int heads, int gmode, int bgmode, int s_q, int s_kv, int d, float scale,
                cudaStream_t stream) {
   static size_t configured[64] = {0};
@@ -256,36 +265,36 @@ int launch_fwd(const bf16* q, const bf16* k, const bf16* v, const int* key_mask,
   const bool mask_vec = FMASK && (s_kv & 15) == 0 && ((uintptr_t)mask & 15) == 0;
   const dim3 grid((s_q + TILE - 1) / TILE, bh);
   flash_fwd_mma_kernel<DMAX, CAUSAL, FMASK, BIAS, KBIAS><<<grid, NTHREADS, smem, stream>>>(
-      q, k, v, key_mask, mask, bias, out, lse, heads, gmode, bgmode, s_q, s_kv, d, scale,
-      mask_vec);
+      q, k, v, key_mask, lengths, mask, bias, out, lse, heads, gmode, bgmode, s_q, s_kv, d,
+      scale, mask_vec);
   return (int)cudaGetLastError();
 }
 
 template <bool CAUSAL, bool FMASK, bool BIAS = false, bool KBIAS = false>
 int dispatch_fwd(const bf16* q, const bf16* k, const bf16* v, const int* key_mask,
-                 const unsigned char* mask, const float* bias, bf16* out, float* lse, int bh,
-                 int heads, int gmode, int bgmode, int s_q, int s_kv, int d, float scale,
-                 void* stream) {
+                 const int* lengths, const unsigned char* mask, const float* bias, bf16* out,
+                 float* lse, int bh, int heads, int gmode, int bgmode, int s_q, int s_kv, int d,
+                 float scale, void* stream) {
   if (bad_shape(bh, heads, s_q, s_kv, d, gmode, bgmode)) return (int)cudaErrorInvalidValue;
   return d <= 64 ? launch_fwd<64, CAUSAL, FMASK, BIAS, KBIAS>(
-                       q, k, v, key_mask, mask, bias, out, lse, bh, heads, gmode, bgmode, s_q,
-                       s_kv, d, scale, (cudaStream_t)stream)
+                       q, k, v, key_mask, lengths, mask, bias, out, lse, bh, heads, gmode, bgmode,
+                       s_q, s_kv, d, scale, (cudaStream_t)stream)
                  : launch_fwd<128, CAUSAL, FMASK, BIAS, KBIAS>(
-                       q, k, v, key_mask, mask, bias, out, lse, bh, heads, gmode, bgmode, s_q,
-                       s_kv, d, scale, (cudaStream_t)stream);
+                       q, k, v, key_mask, lengths, mask, bias, out, lse, bh, heads, gmode, bgmode,
+                       s_q, s_kv, d, scale, (cudaStream_t)stream);
 }
 
 // CAUSAL from the entries' `causal` int
 template <bool FMASK, bool BIAS, bool KBIAS>
-int fwd_sel(const bf16* q, const bf16* k, const bf16* v, const int* key_mask,
+int fwd_sel(const bf16* q, const bf16* k, const bf16* v, const int* key_mask, const int* lengths,
             const unsigned char* mask, const float* bias, bf16* out, float* lse, int bh,
             int heads, int gmode, int bgmode, int s_q, int s_kv, int d, int causal, float scale,
             void* stream) {
-  return causal ? dispatch_fwd<true, FMASK, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, out,
-                                                         lse, bh, heads, gmode, bgmode, s_q,
+  return causal ? dispatch_fwd<true, FMASK, BIAS, KBIAS>(q, k, v, key_mask, lengths, mask, bias,
+                                                         out, lse, bh, heads, gmode, bgmode, s_q,
                                                          s_kv, d, scale, stream)
-                : dispatch_fwd<false, FMASK, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, out,
-                                                          lse, bh, heads, gmode, bgmode, s_q,
+                : dispatch_fwd<false, FMASK, BIAS, KBIAS>(q, k, v, key_mask, lengths, mask, bias,
+                                                          out, lse, bh, heads, gmode, bgmode, s_q,
                                                           s_kv, d, scale, stream);
 }
 
@@ -295,55 +304,61 @@ int fwd_sel(const bf16* q, const bf16* k, const bf16* v, const int* key_mask,
 // arguments: each launches on `stream` and returns cudaGetLastError() after
 // the launch (0 = launched).  q (bh, s_q, d), k/v (bh, s_kv, d), out (bh,
 // s_q, d): contiguous bfloat16, d a multiple of 8 (at most 128), 16-byte
-// aligned; key_mask (bh / heads, s_kv) int32 or null; lse (bh, s_q) float32;
-// a bias float32.
+// aligned; key_mask (bh / heads, s_kv) int32 or null; lengths (bh / heads)
+// int32 or null; lse (bh, s_q) float32; a bias float32.
 
-// dense (key_mask null) or key_mask
+// dense (key_mask and lengths null), key_mask and/or lengths
 extern "C" int hetu_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
-                                   const int* key_mask, bf16* out, float* lse, int bh, int heads,
-                                   int s_q, int s_kv, int d, float scale, void* stream) {
-  return dispatch_fwd<false, false>(q, k, v, key_mask, nullptr, nullptr, out, lse, bh, heads, 0,
-                                    0, s_q, s_kv, d, scale, stream);
+                                   const int* key_mask, const int* lengths, bf16* out, float* lse,
+                                   int bh, int heads, int s_q, int s_kv, int d, float scale,
+                                   void* stream) {
+  return dispatch_fwd<false, false>(q, k, v, key_mask, lengths, nullptr, nullptr, out, lse, bh,
+                                    heads, 0, 0, s_q, s_kv, d, scale, stream);
 }
 
-// causal (bottom-right aligned), optionally with a key_mask
+// causal (bottom-right aligned), optionally with a key_mask and lengths
 extern "C" int hetu_flash_fwd_causal_bf16(const bf16* q, const bf16* k, const bf16* v,
-                                          const int* key_mask, bf16* out, float* lse, int bh,
-                                          int heads, int s_q, int s_kv, int d, float scale,
-                                          void* stream) {
-  return dispatch_fwd<true, false>(q, k, v, key_mask, nullptr, nullptr, out, lse, bh, heads, 0,
-                                   0, s_q, s_kv, d, scale, stream);
+                                          const int* key_mask, const int* lengths, bf16* out,
+                                          float* lse, int bh, int heads, int s_q, int s_kv, int d,
+                                          float scale, void* stream) {
+  return dispatch_fwd<true, false>(q, k, v, key_mask, lengths, nullptr, nullptr, out, lse, bh,
+                                   heads, 0, 0, s_q, s_kv, d, scale, stream);
 }
 
 // additive bias: a dense (G, s_q, s_kv) bias or, strip != 0, a per-key strip
-// (G, 1, s_kv), of group mode gmode; optionally with a key_mask and causal
+// (G, 1, s_kv), of group mode gmode; optionally with a key_mask, lengths and
+// causal
 extern "C" int hetu_flash_fwd_bias_bf16(const bf16* q, const bf16* k, const bf16* v,
-                                        const int* key_mask, const float* bias, bf16* out,
-                                        float* lse, int bh, int heads, int s_q, int s_kv, int d,
-                                        int gmode, int strip, int causal, float scale,
-                                        void* stream) {
+                                        const int* key_mask, const int* lengths,
+                                        const float* bias, bf16* out, float* lse, int bh,
+                                        int heads, int s_q, int s_kv, int d, int gmode, int strip,
+                                        int causal, float scale, void* stream) {
   if (bias == nullptr) return (int)cudaErrorInvalidValue;
-  return strip ? fwd_sel<false, false, true>(q, k, v, key_mask, nullptr, bias, out, lse, bh,
-                                             heads, 0, gmode, s_q, s_kv, d, causal, scale, stream)
-               : fwd_sel<false, true, false>(q, k, v, key_mask, nullptr, bias, out, lse, bh,
-                                             heads, 0, gmode, s_q, s_kv, d, causal, scale, stream);
+  return strip ? fwd_sel<false, false, true>(q, k, v, key_mask, lengths, nullptr, bias, out, lse,
+                                             bh, heads, 0, gmode, s_q, s_kv, d, causal, scale,
+                                             stream)
+               : fwd_sel<false, true, false>(q, k, v, key_mask, lengths, nullptr, bias, out, lse,
+                                             bh, heads, 0, gmode, s_q, s_kv, d, causal, scale,
+                                             stream);
 }
 
 // full mask (G, s_q, s_kv) uint8 of group mode gmode; optionally with a bias
 // of its own group mode bgmode (null: none; strip != 0: the key-bias strip),
-// a key_mask and causal
+// a key_mask, lengths and causal
 extern "C" int hetu_flash_fwd_mask_bf16(const bf16* q, const bf16* k, const bf16* v,
-                                        const int* key_mask, const unsigned char* mask,
-                                        const float* bias, bf16* out, float* lse, int bh,
-                                        int heads, int s_q, int s_kv, int d, int gmode,
-                                        int bgmode, int strip, int causal, float scale,
-                                        void* stream) {
+                                        const int* key_mask, const int* lengths,
+                                        const unsigned char* mask, const float* bias, bf16* out,
+                                        float* lse, int bh, int heads, int s_q, int s_kv, int d,
+                                        int gmode, int bgmode, int strip, int causal,
+                                        float scale, void* stream) {
   if (mask == nullptr) return (int)cudaErrorInvalidValue;
   if (bias == nullptr)
-    return fwd_sel<true, false, false>(q, k, v, key_mask, mask, nullptr, out, lse, bh, heads,
-                                       gmode, 0, s_q, s_kv, d, causal, scale, stream);
-  return strip ? fwd_sel<true, false, true>(q, k, v, key_mask, mask, bias, out, lse, bh, heads,
-                                            gmode, bgmode, s_q, s_kv, d, causal, scale, stream)
-               : fwd_sel<true, true, false>(q, k, v, key_mask, mask, bias, out, lse, bh, heads,
-                                            gmode, bgmode, s_q, s_kv, d, causal, scale, stream);
+    return fwd_sel<true, false, false>(q, k, v, key_mask, lengths, mask, nullptr, out, lse, bh,
+                                       heads, gmode, 0, s_q, s_kv, d, causal, scale, stream);
+  return strip ? fwd_sel<true, false, true>(q, k, v, key_mask, lengths, mask, bias, out, lse, bh,
+                                            heads, gmode, bgmode, s_q, s_kv, d, causal, scale,
+                                            stream)
+               : fwd_sel<true, true, false>(q, k, v, key_mask, lengths, mask, bias, out, lse, bh,
+                                            heads, gmode, bgmode, s_q, s_kv, d, causal, scale,
+                                            stream);
 }

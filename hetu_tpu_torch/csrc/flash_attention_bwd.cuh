@@ -1,5 +1,5 @@
-// Flash attention backward for Hopper (sm_90a), dense, `key_mask`, causal and
-// additive-bias specializations: two kernels that replace
+// Flash attention backward for Hopper (sm_90a), dense, `key_mask`, `lengths`,
+// causal and additive-bias specializations: two kernels that replace
 // hetu_tpu/ops/pallas/flash_attention.py::_dq_kernel and ::_dkv_kernel
 // (launched by _flash_bwd).
 //
@@ -50,6 +50,15 @@
 // output of S_q * S_kv floats a (b*h): at the T5 encoder shape (B*H = 256,
 // S = 512) it adds 268 MB of writes to the dQ kernel.
 //
+// Lengths (a nullable `lengths` pointer, (BH / heads) int32, read once a CTA
+// and clamped to [0, S_kv]; null is S_kv): keys at or past lengths[b] are
+// invisible, composed with every other rule.  dQ's key loop ends at the
+// length (its last tile's columns past it read a 0 key flag); a dK/dV CTA
+// whose key tile starts at or past the length walks no query tile and writes
+// dK = dV = 0 (and dkbias = 0), and its flags mask the columns past the
+// length in the last tile, so every padded key gets exact zeros.  dbias is
+// zero on the key tiles past the dQ loop, as under causal.
+//
 // Full mask (template FMASK; Longformer's sliding window, XLNet's permutation
 // masks): a uint8 mask stored unbroadcast as (G, S_q, S_kv) of group mode
 // `gmode` (as the forward's), composed with key_mask, causal and either
@@ -75,8 +84,7 @@
 //
 // Not yet: tensor cores (TF32 would change the float32 numbers),
 // double-buffered staging, one fused kernel for dQ and dK/dV, skipping the
-// tiles a data mask hides, the `lengths` specialization, the group sum of
-// dbias inside the kernel.
+// tiles a data mask hides, the group sum of dbias inside the kernel.
 
 #pragma once
 
@@ -101,7 +109,8 @@ template <typename T, int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
 __global__ void __launch_bounds__(TTHREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ key_mask,
-                    const unsigned char* __restrict__ mask, const float* __restrict__ bias,
+                    const int* __restrict__ lengths, const unsigned char* __restrict__ mask,
+                    const float* __restrict__ bias,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     float* __restrict__ dbias, int heads, int gmode, int bgmode, int s_q,
@@ -129,6 +138,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (BIAS || KBIAS)
     bb = bias + (size_t)group_row(bgmode, bh, heads) * (BIAS ? (size_t)s_q * s_kv : s_kv);
   float* dbb = BIAS ? dbias + (size_t)bh * s_q * s_kv : nullptr;
+  // keys [0, len) may be visible
+  const int len = lengths ? max(0, min(s_kv, lengths[bh / heads])) : s_kv;
 
   stage_rows(q_s, q + (size_t)bh * s_q * d, q0, s_q, d);
   stage_rows(do_s, dout + (size_t)bh * s_q * d, q0, s_q, d);
@@ -142,7 +153,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float4 acc[4][G];
   zero_acc(acc);
   const int kv_off = s_kv - s_q;
-  const int k_end = CAUSAL ? min(s_kv, min(q0 + TILE, s_q) + kv_off) : s_kv;
+  // the loop's end: no row of the tile sees a key at or past it, so the key
+  // flags test it in place of the length (one register fewer)
+  const int k_end = CAUSAL ? min(len, min(q0 + TILE, s_q) + kv_off) : len;
 
   for (int k0 = 0; k0 < k_end; k0 += TILE) {
     __syncthreads();  // the previous tile's K and dS are consumed
@@ -150,7 +163,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     stage_rows(v_s, vb, k0, s_kv, d);
     if (tid < TILE) {
       const int key = k0 + tid;
-      ok_s[tid] = key < s_kv && (km == nullptr || km[key] != 0);
+      ok_s[tid] = key < k_end && (km == nullptr || km[key] != 0);
     }
     if (FMASK) {
       for (int i = tid; i < TILE * TILE; i += TTHREADS) {
@@ -205,8 +218,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     acc_rows(acc, ds_s, k_s, d, ty, tx);
   }
-  if constexpr (BIAS && CAUSAL) {
-    // key tiles past the loop: no row of this tile sees them, dbias = 0
+  if constexpr (BIAS) {
+    // key tiles past the loop (causal, lengths): no row of this tile sees
+    // them, dbias = 0
     const int kz = k_end <= 0 ? 0 : (k_end + TILE - 1) / TILE * TILE;
     for (int k0 = kz; k0 < s_kv; k0 += TILE)
 #pragma unroll
@@ -231,7 +245,8 @@ template <typename T, int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
 __global__ void __launch_bounds__(TTHREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ key_mask,
-                     const unsigned char* __restrict__ mask, const float* __restrict__ bias,
+                     const int* __restrict__ lengths, const unsigned char* __restrict__ mask,
+                     const float* __restrict__ bias,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, float* __restrict__ dkbias, int heads, int gmode,
@@ -262,6 +277,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* bb = nullptr;
   if (BIAS || KBIAS)
     bb = bias + (size_t)group_row(bgmode, bh, heads) * (BIAS ? (size_t)s_q * s_kv : s_kv);
+  // keys [0, len) may be visible
+  const int len = lengths ? max(0, min(s_kv, lengths[bh / heads])) : s_kv;
 
   stage_rows(k_s, k + (size_t)bh * s_kv * d, k0, s_kv, d);
   stage_rows(v_s, v + (size_t)bh * s_kv * d, k0, s_kv, d);
@@ -270,7 +287,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + 4 * ty + i;
-    kok[i] = key < s_kv && (km == nullptr || km[key] != 0);
+    kok[i] = key < len && (km == nullptr || km[key] != 0);
     kbv[i] = (KBIAS && key < s_kv) ? bb[key] : 0.f;
     dkb[i] = 0.f;
   }
@@ -281,8 +298,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // its tile (past s_q: no iteration, dK = dV = 0)
   const int kv_off = s_kv - s_q;
   const int q_begin = CAUSAL ? (max(0, k0 - kv_off) / TILE) * TILE : 0;
+  // a key tile at or past the length walks no query tile: dK = dV = 0
+  const int q_end = k0 < len ? s_q : 0;
 
-  for (int q0 = q_begin; q0 < s_q; q0 += TILE) {
+  for (int q0 = q_begin; q0 < q_end; q0 += TILE) {
     __syncthreads();  // the previous tile's Q, dO, P^T and dS^T are consumed
     stage_rows(q_s, qb, q0, s_q, d);
     stage_rows(do_s, dob, q0, s_q, d);
@@ -375,7 +394,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
-int launch_dq(const T* q, const T* k, const T* v, const int* key_mask, const unsigned char* mask,
+int launch_dq(const T* q, const T* k, const T* v, const int* key_mask, const int* lengths,
+              const unsigned char* mask,
               const float* bias, const T* dout, const float* lse, const float* delta, T* dq,
               float* dbias, int bh, int heads, int gmode, int bgmode, int s_q, int s_kv, int d,
               float scale, cudaStream_t stream) {
@@ -387,13 +407,13 @@ int launch_dq(const T* q, const T* k, const T* v, const int* key_mask, const uns
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((s_q + TILE - 1) / TILE, bh);
   flash_bwd_dq_kernel<T, G, CAUSAL, FMASK, BIAS, KBIAS><<<grid, TTHREADS, smem, stream>>>(
-      q, k, v, key_mask, mask, bias, dout, lse, delta, dq, dbias, heads, gmode, bgmode, s_q,
-      s_kv, d, scale);
+      q, k, v, key_mask, lengths, mask, bias, dout, lse, delta, dq, dbias, heads, gmode, bgmode,
+      s_q, s_kv, d, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int G, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
-int launch_dkv(const T* q, const T* k, const T* v, const int* key_mask,
+int launch_dkv(const T* q, const T* k, const T* v, const int* key_mask, const int* lengths,
                const unsigned char* mask, const float* bias, const T* dout, const float* lse,
                const float* delta, T* dk, T* dv, float* dkbias, int bh, int heads, int gmode,
                int bgmode, int s_q, int s_kv, int d, float scale, cudaStream_t stream) {
@@ -405,8 +425,8 @@ int launch_dkv(const T* q, const T* k, const T* v, const int* key_mask,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((s_kv + TILE - 1) / TILE, bh);
   flash_bwd_dkv_kernel<T, G, CAUSAL, FMASK, BIAS, KBIAS><<<grid, TTHREADS, smem, stream>>>(
-      q, k, v, key_mask, mask, bias, dout, lse, delta, dk, dv, dkbias, heads, gmode, bgmode, s_q,
-      s_kv, d, scale);
+      q, k, v, key_mask, lengths, mask, bias, dout, lse, delta, dk, dv, dkbias, heads, gmode,
+      bgmode, s_q, s_kv, d, scale);
   return (int)cudaGetLastError();
 }
 
@@ -417,62 +437,62 @@ bool bad_shape(int bh, int heads, int s_q, int s_kv, int d, int gmode = 0, int b
 }
 
 template <typename T, bool CAUSAL, bool FMASK = false, bool BIAS = false, bool KBIAS = false>
-int dispatch_dq(const T* q, const T* k, const T* v, const int* key_mask,
+int dispatch_dq(const T* q, const T* k, const T* v, const int* key_mask, const int* lengths,
                 const unsigned char* mask, const float* bias, const T* dout, const float* lse,
                 const float* delta, T* dq, float* dbias, int bh, int heads, int gmode,
                 int bgmode, int s_q, int s_kv, int d, float scale, void* stream) {
   if (bad_shape<T>(bh, heads, s_q, s_kv, d, gmode, bgmode)) return (int)cudaErrorInvalidValue;
   return d <= 64 ? launch_dq<T, 1, CAUSAL, FMASK, BIAS, KBIAS>(
-                       q, k, v, key_mask, mask, bias, dout, lse, delta, dq, dbias, bh, heads,
-                       gmode, bgmode, s_q, s_kv, d, scale, (cudaStream_t)stream)
+                       q, k, v, key_mask, lengths, mask, bias, dout, lse, delta, dq, dbias, bh,
+                       heads, gmode, bgmode, s_q, s_kv, d, scale, (cudaStream_t)stream)
                  : launch_dq<T, 2, CAUSAL, FMASK, BIAS, KBIAS>(
-                       q, k, v, key_mask, mask, bias, dout, lse, delta, dq, dbias, bh, heads,
-                       gmode, bgmode, s_q, s_kv, d, scale, (cudaStream_t)stream);
+                       q, k, v, key_mask, lengths, mask, bias, dout, lse, delta, dq, dbias, bh,
+                       heads, gmode, bgmode, s_q, s_kv, d, scale, (cudaStream_t)stream);
 }
 
 template <typename T, bool CAUSAL, bool FMASK = false, bool BIAS = false, bool KBIAS = false>
-int dispatch_dkv(const T* q, const T* k, const T* v, const int* key_mask,
+int dispatch_dkv(const T* q, const T* k, const T* v, const int* key_mask, const int* lengths,
                  const unsigned char* mask, const float* bias, const T* dout, const float* lse,
                  const float* delta, T* dk, T* dv, float* dkbias, int bh, int heads, int gmode,
                  int bgmode, int s_q, int s_kv, int d, float scale, void* stream) {
   if (bad_shape<T>(bh, heads, s_q, s_kv, d, gmode, bgmode)) return (int)cudaErrorInvalidValue;
   return d <= 64 ? launch_dkv<T, 1, CAUSAL, FMASK, BIAS, KBIAS>(
-                       q, k, v, key_mask, mask, bias, dout, lse, delta, dk, dv, dkbias, bh,
-                       heads, gmode, bgmode, s_q, s_kv, d, scale, (cudaStream_t)stream)
+                       q, k, v, key_mask, lengths, mask, bias, dout, lse, delta, dk, dv, dkbias,
+                       bh, heads, gmode, bgmode, s_q, s_kv, d, scale, (cudaStream_t)stream)
                  : launch_dkv<T, 2, CAUSAL, FMASK, BIAS, KBIAS>(
-                       q, k, v, key_mask, mask, bias, dout, lse, delta, dk, dv, dkbias, bh,
-                       heads, gmode, bgmode, s_q, s_kv, d, scale, (cudaStream_t)stream);
+                       q, k, v, key_mask, lengths, mask, bias, dout, lse, delta, dk, dv, dkbias,
+                       bh, heads, gmode, bgmode, s_q, s_kv, d, scale, (cudaStream_t)stream);
 }
 
 // causal != 0 selects the causal rule
 template <typename T, bool FMASK, bool BIAS, bool KBIAS>
-int dq_sel(const T* q, const T* k, const T* v, const int* key_mask, const unsigned char* mask,
-           const float* bias, const T* dout, const float* lse, const float* delta, T* dq,
-           float* dbias, int bh, int heads, int s_q, int s_kv, int d, int gmode, int bgmode,
-           int causal, float scale, void* stream) {
-  return causal ? dispatch_dq<T, true, FMASK, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, dout,
-                                                           lse, delta, dq, dbias, bh, heads,
+int dq_sel(const T* q, const T* k, const T* v, const int* key_mask, const int* lengths,
+           const unsigned char* mask, const float* bias, const T* dout, const float* lse,
+           const float* delta, T* dq, float* dbias, int bh, int heads, int s_q, int s_kv, int d,
+           int gmode, int bgmode, int causal, float scale, void* stream) {
+  return causal ? dispatch_dq<T, true, FMASK, BIAS, KBIAS>(q, k, v, key_mask, lengths, mask, bias,
+                                                           dout, lse, delta, dq, dbias, bh, heads,
                                                            gmode, bgmode, s_q, s_kv, d, scale,
                                                            stream)
-                : dispatch_dq<T, false, FMASK, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, dout,
-                                                            lse, delta, dq, dbias, bh, heads,
-                                                            gmode, bgmode, s_q, s_kv, d, scale,
-                                                            stream);
+                : dispatch_dq<T, false, FMASK, BIAS, KBIAS>(q, k, v, key_mask, lengths, mask,
+                                                            bias, dout, lse, delta, dq, dbias, bh,
+                                                            heads, gmode, bgmode, s_q, s_kv, d,
+                                                            scale, stream);
 }
 
 template <typename T, bool FMASK, bool BIAS, bool KBIAS>
-int dkv_sel(const T* q, const T* k, const T* v, const int* key_mask, const unsigned char* mask,
-            const float* bias, const T* dout, const float* lse, const float* delta, T* dk, T* dv,
-            float* dkbias, int bh, int heads, int s_q, int s_kv, int d, int gmode, int bgmode,
-            int causal, float scale, void* stream) {
-  return causal ? dispatch_dkv<T, true, FMASK, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, dout,
-                                                            lse, delta, dk, dv, dkbias, bh,
-                                                            heads, gmode, bgmode, s_q, s_kv, d,
-                                                            scale, stream)
-                : dispatch_dkv<T, false, FMASK, BIAS, KBIAS>(q, k, v, key_mask, mask, bias,
-                                                             dout, lse, delta, dk, dv, dkbias,
-                                                             bh, heads, gmode, bgmode, s_q, s_kv,
-                                                             d, scale, stream);
+int dkv_sel(const T* q, const T* k, const T* v, const int* key_mask, const int* lengths,
+            const unsigned char* mask, const float* bias, const T* dout, const float* lse,
+            const float* delta, T* dk, T* dv, float* dkbias, int bh, int heads, int s_q, int s_kv,
+            int d, int gmode, int bgmode, int causal, float scale, void* stream) {
+  return causal ? dispatch_dkv<T, true, FMASK, BIAS, KBIAS>(q, k, v, key_mask, lengths, mask,
+                                                            bias, dout, lse, delta, dk, dv,
+                                                            dkbias, bh, heads, gmode, bgmode, s_q,
+                                                            s_kv, d, scale, stream)
+                : dispatch_dkv<T, false, FMASK, BIAS, KBIAS>(q, k, v, key_mask, lengths, mask,
+                                                             bias, dout, lse, delta, dk, dv,
+                                                             dkbias, bh, heads, gmode, bgmode,
+                                                             s_q, s_kv, d, scale, stream);
 }
 
 // Additive bias: bias (G, s_q, s_kv) or, strip != 0, (G, 1, s_kv) float32 of
@@ -481,40 +501,40 @@ int dkv_sel(const T* q, const T* k, const T* v, const int* key_mask, const unsig
 // dK/dV with a strip writes dkbias (bh, 1, s_kv) float32 (null with a dense
 // bias).
 template <typename T>
-int entry_dq_bias(const T* q, const T* k, const T* v, const int* key_mask, const float* bias,
-                  const T* dout, const float* lse, const float* delta, T* dq, float* dbias,
-                  int bh, int heads, int s_q, int s_kv, int d, int gmode, int strip, int causal,
-                  float scale, void* stream) {
+int entry_dq_bias(const T* q, const T* k, const T* v, const int* key_mask, const int* lengths,
+                  const float* bias, const T* dout, const float* lse, const float* delta, T* dq,
+                  float* dbias, int bh, int heads, int s_q, int s_kv, int d, int gmode,
+                  int strip, int causal, float scale, void* stream) {
   if (bias == nullptr || (strip != 0) != (dbias == nullptr)) return (int)cudaErrorInvalidValue;
-  return strip ? dq_sel<T, false, false, true>(q, k, v, key_mask, nullptr, bias, dout, lse,
-                                               delta, dq, nullptr, bh, heads, s_q, s_kv, d, 0,
-                                               gmode, causal, scale, stream)
-               : dq_sel<T, false, true, false>(q, k, v, key_mask, nullptr, bias, dout, lse,
-                                               delta, dq, dbias, bh, heads, s_q, s_kv, d, 0,
+  return strip ? dq_sel<T, false, false, true>(q, k, v, key_mask, lengths, nullptr, bias, dout,
+                                               lse, delta, dq, nullptr, bh, heads, s_q, s_kv, d,
+                                               0, gmode, causal, scale, stream)
+               : dq_sel<T, false, true, false>(q, k, v, key_mask, lengths, nullptr, bias, dout,
+                                               lse, delta, dq, dbias, bh, heads, s_q, s_kv, d, 0,
                                                gmode, causal, scale, stream);
 }
 
 template <typename T>
-int entry_dkv_bias(const T* q, const T* k, const T* v, const int* key_mask, const float* bias,
-                   const T* dout, const float* lse, const float* delta, T* dk, T* dv,
-                   float* dkbias, int bh, int heads, int s_q, int s_kv, int d, int gmode,
+int entry_dkv_bias(const T* q, const T* k, const T* v, const int* key_mask, const int* lengths,
+                   const float* bias, const T* dout, const float* lse, const float* delta, T* dk,
+                   T* dv, float* dkbias, int bh, int heads, int s_q, int s_kv, int d, int gmode,
                    int strip, int causal, float scale, void* stream) {
   if (bias == nullptr || (strip != 0) != (dkbias != nullptr)) return (int)cudaErrorInvalidValue;
-  return strip ? dkv_sel<T, false, false, true>(q, k, v, key_mask, nullptr, bias, dout, lse,
-                                                delta, dk, dv, dkbias, bh, heads, s_q, s_kv, d,
-                                                0, gmode, causal, scale, stream)
-               : dkv_sel<T, false, true, false>(q, k, v, key_mask, nullptr, bias, dout, lse,
-                                                delta, dk, dv, nullptr, bh, heads, s_q, s_kv, d,
-                                                0, gmode, causal, scale, stream);
+  return strip ? dkv_sel<T, false, false, true>(q, k, v, key_mask, lengths, nullptr, bias, dout,
+                                                lse, delta, dk, dv, dkbias, bh, heads, s_q, s_kv,
+                                                d, 0, gmode, causal, scale, stream)
+               : dkv_sel<T, false, true, false>(q, k, v, key_mask, lengths, nullptr, bias, dout,
+                                                lse, delta, dk, dv, nullptr, bh, heads, s_q, s_kv,
+                                                d, 0, gmode, causal, scale, stream);
 }
 
 // Full mask: mask (G, s_q, s_kv) uint8 of group mode gmode, composed with
-// key_mask and, causal != 0, the causal rule; optionally with an additive bias
-// of its own group mode bgmode (bias null: the mask alone; strip != 0: the
-// key-bias strip).  dQ writes dbias with a dense bias, dK/dV dkbias with a
-// strip, as the bias entries do; each is null otherwise.
+// key_mask, lengths and, causal != 0, the causal rule; optionally with an
+// additive bias of its own group mode bgmode (bias null: the mask alone;
+// strip != 0: the key-bias strip).  dQ writes dbias with a dense bias, dK/dV
+// dkbias with a strip, as the bias entries do; each is null otherwise.
 template <typename T>
-int entry_dq_mask(const T* q, const T* k, const T* v, const int* key_mask,
+int entry_dq_mask(const T* q, const T* k, const T* v, const int* key_mask, const int* lengths,
                   const unsigned char* mask, const float* bias, const T* dout, const float* lse,
                   const float* delta, T* dq, float* dbias, int bh, int heads, int s_q, int s_kv,
                   int d, int gmode, int bgmode, int strip, int causal, float scale,
@@ -522,19 +542,19 @@ int entry_dq_mask(const T* q, const T* k, const T* v, const int* key_mask,
   const bool dense = bias != nullptr && !strip;
   if (mask == nullptr || dense != (dbias != nullptr)) return (int)cudaErrorInvalidValue;
   if (bias == nullptr)
-    return dq_sel<T, true, false, false>(q, k, v, key_mask, mask, nullptr, dout, lse, delta, dq,
-                                         nullptr, bh, heads, s_q, s_kv, d, gmode, 0, causal,
-                                         scale, stream);
-  return strip ? dq_sel<T, true, false, true>(q, k, v, key_mask, mask, bias, dout, lse, delta,
-                                              dq, nullptr, bh, heads, s_q, s_kv, d, gmode,
+    return dq_sel<T, true, false, false>(q, k, v, key_mask, lengths, mask, nullptr, dout, lse,
+                                         delta, dq, nullptr, bh, heads, s_q, s_kv, d, gmode, 0,
+                                         causal, scale, stream);
+  return strip ? dq_sel<T, true, false, true>(q, k, v, key_mask, lengths, mask, bias, dout, lse,
+                                              delta, dq, nullptr, bh, heads, s_q, s_kv, d, gmode,
                                               bgmode, causal, scale, stream)
-               : dq_sel<T, true, true, false>(q, k, v, key_mask, mask, bias, dout, lse, delta,
-                                              dq, dbias, bh, heads, s_q, s_kv, d, gmode, bgmode,
-                                              causal, scale, stream);
+               : dq_sel<T, true, true, false>(q, k, v, key_mask, lengths, mask, bias, dout, lse,
+                                              delta, dq, dbias, bh, heads, s_q, s_kv, d, gmode,
+                                              bgmode, causal, scale, stream);
 }
 
 template <typename T>
-int entry_dkv_mask(const T* q, const T* k, const T* v, const int* key_mask,
+int entry_dkv_mask(const T* q, const T* k, const T* v, const int* key_mask, const int* lengths,
                    const unsigned char* mask, const float* bias, const T* dout, const float* lse,
                    const float* delta, T* dk, T* dv, float* dkbias, int bh, int heads, int s_q,
                    int s_kv, int d, int gmode, int bgmode, int strip, int causal, float scale,
@@ -542,15 +562,15 @@ int entry_dkv_mask(const T* q, const T* k, const T* v, const int* key_mask,
   const bool strip_bias = bias != nullptr && strip;
   if (mask == nullptr || strip_bias != (dkbias != nullptr)) return (int)cudaErrorInvalidValue;
   if (bias == nullptr)
-    return dkv_sel<T, true, false, false>(q, k, v, key_mask, mask, nullptr, dout, lse, delta, dk,
-                                          dv, nullptr, bh, heads, s_q, s_kv, d, gmode, 0, causal,
-                                          scale, stream);
-  return strip ? dkv_sel<T, true, false, true>(q, k, v, key_mask, mask, bias, dout, lse, delta,
-                                               dk, dv, dkbias, bh, heads, s_q, s_kv, d, gmode,
-                                               bgmode, causal, scale, stream)
-               : dkv_sel<T, true, true, false>(q, k, v, key_mask, mask, bias, dout, lse, delta,
-                                               dk, dv, nullptr, bh, heads, s_q, s_kv, d, gmode,
-                                               bgmode, causal, scale, stream);
+    return dkv_sel<T, true, false, false>(q, k, v, key_mask, lengths, mask, nullptr, dout, lse,
+                                          delta, dk, dv, nullptr, bh, heads, s_q, s_kv, d, gmode,
+                                          0, causal, scale, stream);
+  return strip ? dkv_sel<T, true, false, true>(q, k, v, key_mask, lengths, mask, bias, dout, lse,
+                                               delta, dk, dv, dkbias, bh, heads, s_q, s_kv, d,
+                                               gmode, bgmode, causal, scale, stream)
+               : dkv_sel<T, true, true, false>(q, k, v, key_mask, lengths, mask, bias, dout, lse,
+                                               delta, dk, dv, nullptr, bh, heads, s_q, s_kv, d,
+                                               gmode, bgmode, causal, scale, stream);
 }
 
 }  // namespace
@@ -560,73 +580,81 @@ int entry_dkv_mask(const T* q, const T* k, const T* v, const int* key_mask,
 // SFX; HETU_BWD_ENTRIES(T, SFX) both.  Each launches on `stream` and returns
 // cudaGetLastError() after the launch (0 = launched).  q/dout/dq (bh, s_q,
 // d), k/v/dk/dv (bh, s_kv, d): contiguous float32, 16-byte aligned; key_mask
-// (bh / heads, s_kv) int32 or null; lse and delta (bh, s_q) float32; a bias,
+// (bh / heads, s_kv) int32 or null; lengths (bh / heads) int32 or null (keys
+// at or past lengths[b] invisible); lse and delta (bh, s_q) float32; a bias,
 // dbias and dkbias float32.  The `_causal` entries add the causal rule.
 // (The `_bf16` twins run on the tensor cores: flash_attention_dq_bf16.cu,
 // flash_attention_dkv_bf16.cu.)
 #define HETU_BWD_DQ_ENTRIES(T, SFX)                                                             \
   extern "C" int hetu_flash_bwd_dq##SFX(const T* q, const T* k, const T* v,                    \
-                                        const int* key_mask, const T* dout, const float* lse,  \
-                                        const float* delta, T* dq, int bh, int heads, int s_q, \
-                                        int s_kv, int d, float scale, void* stream) {          \
-    return dispatch_dq<T, false>(q, k, v, key_mask, nullptr, nullptr, dout, lse, delta, dq,    \
-                                 nullptr, bh, heads, 0, 0, s_q, s_kv, d, scale, stream);       \
+                                        const int* key_mask, const int* lengths, const T* dout, \
+                                        const float* lse, const float* delta, T* dq, int bh,   \
+                                        int heads, int s_q, int s_kv, int d, float scale,      \
+                                        void* stream) {                                        \
+    return dispatch_dq<T, false>(q, k, v, key_mask, lengths, nullptr, nullptr, dout, lse,      \
+                                 delta, dq, nullptr, bh, heads, 0, 0, s_q, s_kv, d, scale,     \
+                                 stream);                                                      \
   }                                                                                             \
   extern "C" int hetu_flash_bwd_dq_causal##SFX(                                                \
-      const T* q, const T* k, const T* v, const int* key_mask, const T* dout, const float* lse, \
-      const float* delta, T* dq, int bh, int heads, int s_q, int s_kv, int d, float scale,     \
-      void* stream) {                                                                          \
-    return dispatch_dq<T, true>(q, k, v, key_mask, nullptr, nullptr, dout, lse, delta, dq,     \
-                                nullptr, bh, heads, 0, 0, s_q, s_kv, d, scale, stream);        \
+      const T* q, const T* k, const T* v, const int* key_mask, const int* lengths,             \
+      const T* dout, const float* lse, const float* delta, T* dq, int bh, int heads, int s_q,  \
+      int s_kv, int d, float scale, void* stream) {                                            \
+    return dispatch_dq<T, true>(q, k, v, key_mask, lengths, nullptr, nullptr, dout, lse,       \
+                                delta, dq, nullptr, bh, heads, 0, 0, s_q, s_kv, d, scale,      \
+                                stream);                                                       \
   }                                                                                             \
   extern "C" int hetu_flash_bwd_dq_bias##SFX(                                                  \
-      const T* q, const T* k, const T* v, const int* key_mask, const float* bias,              \
-      const T* dout, const float* lse, const float* delta, T* dq, float* dbias, int bh,        \
-      int heads, int s_q, int s_kv, int d, int gmode, int strip, int causal, float scale,      \
-      void* stream) {                                                                          \
-    return entry_dq_bias(q, k, v, key_mask, bias, dout, lse, delta, dq, dbias, bh, heads, s_q, \
-                         s_kv, d, gmode, strip, causal, scale, stream);                        \
+      const T* q, const T* k, const T* v, const int* key_mask, const int* lengths,             \
+      const float* bias, const T* dout, const float* lse, const float* delta, T* dq,           \
+      float* dbias, int bh, int heads, int s_q, int s_kv, int d, int gmode, int strip,         \
+      int causal, float scale, void* stream) {                                                 \
+    return entry_dq_bias(q, k, v, key_mask, lengths, bias, dout, lse, delta, dq, dbias, bh,    \
+                         heads, s_q, s_kv, d, gmode, strip, causal, scale, stream);            \
   }                                                                                             \
   extern "C" int hetu_flash_bwd_dq_mask##SFX(                                                  \
-      const T* q, const T* k, const T* v, const int* key_mask, const unsigned char* mask,      \
-      const float* bias, const T* dout, const float* lse, const float* delta, T* dq,           \
-      float* dbias, int bh, int heads, int s_q, int s_kv, int d, int gmode, int bgmode,        \
-      int strip, int causal, float scale, void* stream) {                                      \
-    return entry_dq_mask(q, k, v, key_mask, mask, bias, dout, lse, delta, dq, dbias, bh,       \
-                         heads, s_q, s_kv, d, gmode, bgmode, strip, causal, scale, stream);    \
+      const T* q, const T* k, const T* v, const int* key_mask, const int* lengths,             \
+      const unsigned char* mask, const float* bias, const T* dout, const float* lse,           \
+      const float* delta, T* dq, float* dbias, int bh, int heads, int s_q, int s_kv, int d,    \
+      int gmode, int bgmode, int strip, int causal, float scale, void* stream) {               \
+    return entry_dq_mask(q, k, v, key_mask, lengths, mask, bias, dout, lse, delta, dq, dbias,  \
+                         bh, heads, s_q, s_kv, d, gmode, bgmode, strip, causal, scale,         \
+                         stream);                                                              \
   }
 
 #define HETU_BWD_DKV_ENTRIES(T, SFX)                                                           \
   extern "C" int hetu_flash_bwd_dkv##SFX(const T* q, const T* k, const T* v,                   \
-                                         const int* key_mask, const T* dout, const float* lse, \
-                                         const float* delta, T* dk, T* dv, int bh, int heads,  \
-                                         int s_q, int s_kv, int d, float scale,                \
-                                         void* stream) {                                       \
-    return dispatch_dkv<T, false>(q, k, v, key_mask, nullptr, nullptr, dout, lse, delta, dk,   \
-                                  dv, nullptr, bh, heads, 0, 0, s_q, s_kv, d, scale, stream);  \
+                                         const int* key_mask, const int* lengths,              \
+                                         const T* dout, const float* lse, const float* delta,  \
+                                         T* dk, T* dv, int bh, int heads, int s_q, int s_kv,   \
+                                         int d, float scale, void* stream) {                   \
+    return dispatch_dkv<T, false>(q, k, v, key_mask, lengths, nullptr, nullptr, dout, lse,     \
+                                  delta, dk, dv, nullptr, bh, heads, 0, 0, s_q, s_kv, d,       \
+                                  scale, stream);                                              \
   }                                                                                             \
   extern "C" int hetu_flash_bwd_dkv_causal##SFX(                                               \
-      const T* q, const T* k, const T* v, const int* key_mask, const T* dout, const float* lse, \
-      const float* delta, T* dk, T* dv, int bh, int heads, int s_q, int s_kv, int d,           \
-      float scale, void* stream) {                                                             \
-    return dispatch_dkv<T, true>(q, k, v, key_mask, nullptr, nullptr, dout, lse, delta, dk,    \
-                                 dv, nullptr, bh, heads, 0, 0, s_q, s_kv, d, scale, stream);   \
+      const T* q, const T* k, const T* v, const int* key_mask, const int* lengths,             \
+      const T* dout, const float* lse, const float* delta, T* dk, T* dv, int bh, int heads,    \
+      int s_q, int s_kv, int d, float scale, void* stream) {                                   \
+    return dispatch_dkv<T, true>(q, k, v, key_mask, lengths, nullptr, nullptr, dout, lse,      \
+                                 delta, dk, dv, nullptr, bh, heads, 0, 0, s_q, s_kv, d, scale, \
+                                 stream);                                                      \
   }                                                                                             \
   extern "C" int hetu_flash_bwd_dkv_bias##SFX(                                                 \
-      const T* q, const T* k, const T* v, const int* key_mask, const float* bias,              \
-      const T* dout, const float* lse, const float* delta, T* dk, T* dv, float* dkbias,        \
-      int bh, int heads, int s_q, int s_kv, int d, int gmode, int strip, int causal,           \
-      float scale, void* stream) {                                                             \
-    return entry_dkv_bias(q, k, v, key_mask, bias, dout, lse, delta, dk, dv, dkbias, bh,       \
-                          heads, s_q, s_kv, d, gmode, strip, causal, scale, stream);           \
+      const T* q, const T* k, const T* v, const int* key_mask, const int* lengths,             \
+      const float* bias, const T* dout, const float* lse, const float* delta, T* dk, T* dv,    \
+      float* dkbias, int bh, int heads, int s_q, int s_kv, int d, int gmode, int strip,        \
+      int causal, float scale, void* stream) {                                                 \
+    return entry_dkv_bias(q, k, v, key_mask, lengths, bias, dout, lse, delta, dk, dv, dkbias,  \
+                          bh, heads, s_q, s_kv, d, gmode, strip, causal, scale, stream);       \
   }                                                                                             \
   extern "C" int hetu_flash_bwd_dkv_mask##SFX(                                                 \
-      const T* q, const T* k, const T* v, const int* key_mask, const unsigned char* mask,      \
-      const float* bias, const T* dout, const float* lse, const float* delta, T* dk, T* dv,    \
-      float* dkbias, int bh, int heads, int s_q, int s_kv, int d, int gmode, int bgmode,       \
-      int strip, int causal, float scale, void* stream) {                                      \
-    return entry_dkv_mask(q, k, v, key_mask, mask, bias, dout, lse, delta, dk, dv, dkbias, bh, \
-                          heads, s_q, s_kv, d, gmode, bgmode, strip, causal, scale, stream);   \
+      const T* q, const T* k, const T* v, const int* key_mask, const int* lengths,             \
+      const unsigned char* mask, const float* bias, const T* dout, const float* lse,           \
+      const float* delta, T* dk, T* dv, float* dkbias, int bh, int heads, int s_q, int s_kv,   \
+      int d, int gmode, int bgmode, int strip, int causal, float scale, void* stream) {        \
+    return entry_dkv_mask(q, k, v, key_mask, lengths, mask, bias, dout, lse, delta, dk, dv,    \
+                          dkbias, bh, heads, s_q, s_kv, d, gmode, bgmode, strip, causal,       \
+                          scale, stream);                                                      \
   }
 
 #define HETU_BWD_ENTRIES(T, SFX) \

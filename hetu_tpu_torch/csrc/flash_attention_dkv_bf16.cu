@@ -25,7 +25,11 @@
 // rounded to bf16 where the TPU kernel rounds (p.astype(do.dtype),
 // ds.astype(q.dtype): flash_attention.py:403, :418), B from dO and Q through
 // ldmatrix.trans.  A chunk none of whose queries sees any of the warp's keys
-// (causal) is skipped: it would add exact zeros.  The dense bias and the
+// (causal) is skipped: it would add exact zeros.  With `lengths` (a
+// nullable pointer read once a CTA) a CTA whose keys start at or past the
+// length walks no query tile and writes dK = dV = 0 (dkbias 0), and the
+// keys past it in the last tile take a false key flag: every padded key
+// gets exact zeros.  The dense bias and the
 // mask are read transposed at fragment coordinates: the bias from device
 // memory (8 consecutive keys of one query row a quad-column of lanes: one
 // 32-byte sector), the mask from its staged tile (rows of MLD = 80 bytes, so
@@ -46,14 +50,16 @@ namespace {
 
 using namespace hetu_mma;
 
-// DMAX, FMASK, BIAS / KBIAS, `mask`, `bias` and mask_vec as in the forward
-// (flash_attention_bf16.cu); `dkbias` (BH, S_kv) is written with KBIAS
+// DMAX, FMASK, BIAS / KBIAS, `lengths`, `mask`, `bias` and mask_vec as in
+// the forward (flash_attention_bf16.cu); `dkbias` (BH, S_kv) is written with
+// KBIAS
 template <int DMAX, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
 __global__ void __launch_bounds__(NTHREADS)
 flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const int* __restrict__ key_mask,
-                     const unsigned char* __restrict__ mask, const float* __restrict__ bias,
-                     const bf16* __restrict__ dout, const float* __restrict__ lse,
+                     const int* __restrict__ lengths, const unsigned char* __restrict__ mask,
+                     const float* __restrict__ bias, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, float* __restrict__ dkbias, int heads, int gmode,
                      int bgmode, int s_q, int s_kv, int d, float scale, bool mask_vec) {
@@ -81,10 +87,12 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (BIAS || KBIAS)
     bb = bias + (size_t)group_row(bgmode, bh, heads) * (BIAS ? (size_t)s_q * s_kv : s_kv);
   // causal: the first query row that sees key k0 is k0 - kv_off; start at
-  // its tile (past s_q: no iteration, dK = dV = 0)
+  // its tile (past s_q: no iteration, dK = dV = 0); keys [0, len) may be
+  // visible, and a CTA whose keys start at or past len walks no query tile
+  const int len = lengths ? max(0, min(s_kv, lengths[bh / heads])) : s_kv;
   const int kv_off = s_kv - s_q;
   const int q_begin = CAUSAL ? (max(0, k0 - kv_off) / TILE) * TILE : 0;
-  const int n_tiles = q_begin < s_q ? (s_q - q_begin + TILE - 1) / TILE : 0;
+  const int n_tiles = q_begin < s_q && k0 < len ? (s_q - q_begin + TILE - 1) / TILE : 0;
 
   auto stage = [&](int t) {
     const int buf = t & 1, q0 = q_begin + t * TILE;
@@ -121,7 +129,7 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = k0 + kr_lo + 8 * h;
-    kok[h] = key < s_kv && (km == nullptr || km[key] != 0);
+    kok[h] = key < len && (km == nullptr || km[key] != 0);
     kbv[h] = (KBIAS && key < s_kv) ? bb[key] : 0.f;
     dkb[h] = 0.f;
   }
@@ -238,7 +246,8 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DMAX, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
 int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const int* key_mask,
-               const unsigned char* mask, const float* bias, const bf16* dout, const float* lse,
+               const int* lengths, const unsigned char* mask, const float* bias, const bf16* dout,
+               const float* lse,
                const float* delta, bf16* dk, bf16* dv, float* dkbias, int bh, int heads,
                int gmode, int bgmode, int s_q, int s_kv, int d, float scale,
                cudaStream_t stream) {
@@ -251,23 +260,24 @@ int launch_dkv(const bf16* q, const bf16* k, const bf16* v, const int* key_mask,
   const bool mask_vec = FMASK && (s_kv & 15) == 0 && ((uintptr_t)mask & 15) == 0;
   const dim3 grid((s_kv + TILE - 1) / TILE, bh);
   flash_dkv_mma_kernel<DMAX, CAUSAL, FMASK, BIAS, KBIAS><<<grid, NTHREADS, smem, stream>>>(
-      q, k, v, key_mask, mask, bias, dout, lse, delta, dk, dv, dkbias, heads, gmode, bgmode, s_q,
-      s_kv, d, scale, mask_vec);
+      q, k, v, key_mask, lengths, mask, bias, dout, lse, delta, dk, dv, dkbias, heads, gmode,
+      bgmode, s_q, s_kv, d, scale, mask_vec);
   return (int)cudaGetLastError();
 }
 
 // CAUSAL from the entries' `causal` int; the head dim picks the instantiation
 template <bool FMASK, bool BIAS, bool KBIAS>
 int dkv_sel(const bf16* q, const bf16* k, const bf16* v, const int* key_mask,
-            const unsigned char* mask, const float* bias, const bf16* dout, const float* lse,
+            const int* lengths, const unsigned char* mask, const float* bias, const bf16* dout,
+            const float* lse,
             const float* delta, bf16* dk, bf16* dv, float* dkbias, int bh, int heads, int s_q,
             int s_kv, int d, int gmode, int bgmode, int causal, float scale, void* stream) {
   if (bad_shape(bh, heads, s_q, s_kv, d, gmode, bgmode)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
 #define HETU_DKV_LAUNCH(DM, C)                                                                  \
-  launch_dkv<DM, C, FMASK, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, dout, lse, delta, dk,   \
-                                        dv, dkbias, bh, heads, gmode, bgmode, s_q, s_kv, d,    \
-                                        scale, st)
+  launch_dkv<DM, C, FMASK, BIAS, KBIAS>(q, k, v, key_mask, lengths, mask, bias, dout, lse,    \
+                                        delta, dk, dv, dkbias, bh, heads, gmode, bgmode, s_q,  \
+                                        s_kv, d, scale, st)
   if (d <= 64) return causal ? HETU_DKV_LAUNCH(64, true) : HETU_DKV_LAUNCH(64, false);
   return causal ? HETU_DKV_LAUNCH(128, true) : HETU_DKV_LAUNCH(128, false);
 #undef HETU_DKV_LAUNCH
@@ -279,69 +289,72 @@ int dkv_sel(const bf16* q, const bf16* k, const bf16* v, const int* key_mask,
 // arguments: each launches on `stream` and returns cudaGetLastError() after
 // the launch (0 = launched).  q/dout (bh, s_q, d), k/v/dk/dv (bh, s_kv, d):
 // contiguous bfloat16, d a multiple of 8 (at most 128), 16-byte aligned;
-// key_mask (bh / heads, s_kv) int32 or null; lse and delta (bh, s_q)
-// float32; a bias and dkbias float32.
+// key_mask (bh / heads, s_kv) int32 or null; lengths (bh / heads) int32 or
+// null; lse and delta (bh, s_q) float32; a bias and dkbias float32.
 
-// dense (key_mask null) or key_mask
+// dense (key_mask and lengths null), key_mask and/or lengths
 extern "C" int hetu_flash_bwd_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
-                                       const int* key_mask, const bf16* dout, const float* lse,
-                                       const float* delta, bf16* dk, bf16* dv, int bh, int heads,
-                                       int s_q, int s_kv, int d, float scale, void* stream) {
-  return dkv_sel<false, false, false>(q, k, v, key_mask, nullptr, nullptr, dout, lse, delta, dk,
-                                      dv, nullptr, bh, heads, s_q, s_kv, d, 0, 0, 0, scale,
-                                      stream);
+                                       const int* key_mask, const int* lengths, const bf16* dout,
+                                       const float* lse, const float* delta, bf16* dk, bf16* dv,
+                                       int bh, int heads, int s_q, int s_kv, int d, float scale,
+                                       void* stream) {
+  return dkv_sel<false, false, false>(q, k, v, key_mask, lengths, nullptr, nullptr, dout, lse,
+                                      delta, dk, dv, nullptr, bh, heads, s_q, s_kv, d, 0, 0, 0,
+                                      scale, stream);
 }
 
-// causal (bottom-right aligned), optionally with a key_mask
+// causal (bottom-right aligned), optionally with a key_mask and lengths
 extern "C" int hetu_flash_bwd_dkv_causal_bf16(const bf16* q, const bf16* k, const bf16* v,
-                                              const int* key_mask, const bf16* dout,
-                                              const float* lse, const float* delta, bf16* dk,
-                                              bf16* dv, int bh, int heads, int s_q, int s_kv,
-                                              int d, float scale, void* stream) {
-  return dkv_sel<false, false, false>(q, k, v, key_mask, nullptr, nullptr, dout, lse, delta, dk,
-                                      dv, nullptr, bh, heads, s_q, s_kv, d, 0, 0, 1, scale,
-                                      stream);
+                                              const int* key_mask, const int* lengths,
+                                              const bf16* dout, const float* lse,
+                                              const float* delta, bf16* dk, bf16* dv, int bh,
+                                              int heads, int s_q, int s_kv, int d, float scale,
+                                              void* stream) {
+  return dkv_sel<false, false, false>(q, k, v, key_mask, lengths, nullptr, nullptr, dout, lse,
+                                      delta, dk, dv, nullptr, bh, heads, s_q, s_kv, d, 0, 0, 1,
+                                      scale, stream);
 }
 
 // additive bias (G, s_q, s_kv) or, strip != 0, (G, 1, s_kv) float32 of group
 // mode gmode; causal != 0 adds the causal rule.  With a strip, dkbias (bh, 1,
 // s_kv) float32 (null with a dense bias).
 extern "C" int hetu_flash_bwd_dkv_bias_bf16(const bf16* q, const bf16* k, const bf16* v,
-                                            const int* key_mask, const float* bias,
-                                            const bf16* dout, const float* lse,
-                                            const float* delta, bf16* dk, bf16* dv,
-                                            float* dkbias, int bh, int heads, int s_q, int s_kv,
-                                            int d, int gmode, int strip, int causal, float scale,
-                                            void* stream) {
-  if (bias == nullptr || (strip != 0) != (dkbias != nullptr)) return (int)cudaErrorInvalidValue;
-  return strip ? dkv_sel<false, false, true>(q, k, v, key_mask, nullptr, bias, dout, lse, delta,
-                                             dk, dv, dkbias, bh, heads, s_q, s_kv, d, 0, gmode,
-                                             causal, scale, stream)
-               : dkv_sel<false, true, false>(q, k, v, key_mask, nullptr, bias, dout, lse, delta,
-                                             dk, dv, nullptr, bh, heads, s_q, s_kv, d, 0, gmode,
-                                             causal, scale, stream);
-}
-
-// full mask (G, s_q, s_kv) uint8 of group mode gmode, composed with key_mask
-// and, causal != 0, the causal rule; optionally with a bias of its own group
-// mode bgmode (null: none; strip != 0: the strip, with dkbias)
-extern "C" int hetu_flash_bwd_dkv_mask_bf16(const bf16* q, const bf16* k, const bf16* v,
-                                            const int* key_mask, const unsigned char* mask,
+                                            const int* key_mask, const int* lengths,
                                             const float* bias, const bf16* dout,
                                             const float* lse, const float* delta, bf16* dk,
                                             bf16* dv, float* dkbias, int bh, int heads, int s_q,
-                                            int s_kv, int d, int gmode, int bgmode, int strip,
-                                            int causal, float scale, void* stream) {
+                                            int s_kv, int d, int gmode, int strip, int causal,
+                                            float scale, void* stream) {
+  if (bias == nullptr || (strip != 0) != (dkbias != nullptr)) return (int)cudaErrorInvalidValue;
+  return strip ? dkv_sel<false, false, true>(q, k, v, key_mask, lengths, nullptr, bias, dout, lse,
+                                             delta, dk, dv, dkbias, bh, heads, s_q, s_kv, d, 0,
+                                             gmode, causal, scale, stream)
+               : dkv_sel<false, true, false>(q, k, v, key_mask, lengths, nullptr, bias, dout, lse,
+                                             delta, dk, dv, nullptr, bh, heads, s_q, s_kv, d, 0,
+                                             gmode, causal, scale, stream);
+}
+
+// full mask (G, s_q, s_kv) uint8 of group mode gmode, composed with key_mask,
+// lengths and, causal != 0, the causal rule; optionally with a bias of its
+// own group mode bgmode (null: none; strip != 0: the strip, with dkbias)
+extern "C" int hetu_flash_bwd_dkv_mask_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                            const int* key_mask, const int* lengths,
+                                            const unsigned char* mask, const float* bias,
+                                            const bf16* dout, const float* lse,
+                                            const float* delta, bf16* dk, bf16* dv,
+                                            float* dkbias, int bh, int heads, int s_q, int s_kv,
+                                            int d, int gmode, int bgmode, int strip, int causal,
+                                            float scale, void* stream) {
   const bool strip_bias = bias != nullptr && strip;
   if (mask == nullptr || strip_bias != (dkbias != nullptr)) return (int)cudaErrorInvalidValue;
   if (bias == nullptr)
-    return dkv_sel<true, false, false>(q, k, v, key_mask, mask, nullptr, dout, lse, delta, dk,
-                                       dv, nullptr, bh, heads, s_q, s_kv, d, gmode, 0, causal,
-                                       scale, stream);
-  return strip ? dkv_sel<true, false, true>(q, k, v, key_mask, mask, bias, dout, lse, delta, dk,
-                                            dv, dkbias, bh, heads, s_q, s_kv, d, gmode, bgmode,
-                                            causal, scale, stream)
-               : dkv_sel<true, true, false>(q, k, v, key_mask, mask, bias, dout, lse, delta, dk,
-                                            dv, nullptr, bh, heads, s_q, s_kv, d, gmode, bgmode,
-                                            causal, scale, stream);
+    return dkv_sel<true, false, false>(q, k, v, key_mask, lengths, mask, nullptr, dout, lse,
+                                       delta, dk, dv, nullptr, bh, heads, s_q, s_kv, d, gmode, 0,
+                                       causal, scale, stream);
+  return strip ? dkv_sel<true, false, true>(q, k, v, key_mask, lengths, mask, bias, dout, lse,
+                                            delta, dk, dv, dkbias, bh, heads, s_q, s_kv, d, gmode,
+                                            bgmode, causal, scale, stream)
+               : dkv_sel<true, true, false>(q, k, v, key_mask, lengths, mask, bias, dout, lse,
+                                            delta, dk, dv, nullptr, bh, heads, s_q, s_kv, d,
+                                            gmode, bgmode, causal, scale, stream);
 }

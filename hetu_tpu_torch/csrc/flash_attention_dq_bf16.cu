@@ -29,8 +29,12 @@
 // through ldmatrix.trans.  Chunks keep S and dP at 8 + 8 floats a thread,
 // which leaves room for the dQ accumulator (D / 8 x 4 floats) at D = 128.
 // Validity is taken before the products: a chunk that no row of the warp
-// sees (causal past the diagonal, a key mask's padding, a data mask's
-// hidden block) runs no product; it would add exact zeros.  The dense bias
+// sees (causal past the diagonal, a key mask's padding, keys at or past
+// `lengths`, a data mask's hidden block) runs no product; it would add
+// exact zeros.  `lengths` (a nullable pointer read once a CTA) also ends
+// the key-tile loop at the length, as causal ends it at the diagonal, and
+// each staged tile's key flags fold the length in (the chunks past it then
+// fail the chunk test and write their dbias zeros).  The dense bias
 // is read and dbias written at fragment coordinates (a quad holds 8
 // consecutive keys of one row: one 32-byte sector); a skipped chunk, and the
 // key tiles past a causal loop, still get their zeros, so every entry of
@@ -62,15 +66,17 @@ __device__ __forceinline__ void store_pair(float* __restrict__ dst, int i, int n
   if (i + 1 < n) dst[i + 1] = v1;
 }
 
-// DMAX, FMASK, BIAS / KBIAS, `mask`, `bias` and mask_vec as in the forward
-// (flash_attention_bf16.cu); `dbias` (BH, S_q, S_kv) is written with BIAS
+// DMAX, FMASK, BIAS / KBIAS, `lengths`, `mask`, `bias` and mask_vec as in
+// the forward (flash_attention_bf16.cu); `dbias` (BH, S_q, S_kv) is written
+// with BIAS
 template <int DMAX, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
 __global__ void __launch_bounds__(NTHREADS)
 flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ key_mask,
-                    const unsigned char* __restrict__ mask, const float* __restrict__ bias,
-                    const bf16* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    const int* __restrict__ lengths, const unsigned char* __restrict__ mask,
+                    const float* __restrict__ bias, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq,
                     float* __restrict__ dbias, int heads, int gmode, int bgmode, int s_q,
                     int s_kv, int d, float scale, bool mask_vec) {
   static_assert(!(BIAS && KBIAS), "a dense bias or a key-bias strip, not both");
@@ -94,17 +100,25 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (BIAS || KBIAS)
     bb = bias + (size_t)group_row(bgmode, bh, heads) * (BIAS ? (size_t)s_q * s_kv : s_kv);
   float* dbb = BIAS ? dbias + (size_t)bh * s_q * s_kv : nullptr;
-  // causal: row r sees key c iff r + kv_off >= c; the loop stops after the
-  // last key that the tile's last row sees
+  // keys [0, len) may be visible; causal: row r sees key c iff r + kv_off
+  // >= c; the loop stops after the last key that the tile's last row sees
+  const int len = lengths ? max(0, min(s_kv, lengths[bh / heads])) : s_kv;
+  // the length the staging reads each tile: from shared memory, so it holds
+  // no register across the loop
+  __shared__ int len_s;
+  if (tid == 0) len_s = len;
   const int kv_off = s_kv - s_q;
-  const int k_end = CAUSAL ? min(s_kv, min(q0 + TILE, s_q) + kv_off) : s_kv;
+  const int k_end = CAUSAL ? min(len, min(q0 + TILE, s_q) + kv_off) : len;
   const int n_tiles = k_end > 0 ? (k_end + TILE - 1) / TILE : 0;
 
   auto stage = [&](int t) {
     const int buf = t & 1, k0 = t * TILE;
     stage_rows<DMAX>(k_s + buf * TILE * ld, kb, k0, s_kv, d);
     stage_rows<DMAX>(v_s + buf * TILE * ld, vb, k0, s_kv, d);
-    if (km != nullptr && tid < TILE) {
+    if (lengths != nullptr && tid < TILE) {  // the length folded into the flags
+      const int key = k0 + tid;
+      km_s[buf * TILE + tid] = key < len_s && (km == nullptr || km[key] != 0);
+    } else if (km != nullptr && tid < TILE) {
       const bool in = k0 + tid < s_kv;
       cp_async4(km_s + buf * TILE + tid, in ? km + k0 + tid : km, in);
     }
@@ -112,9 +126,10 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
 
   // Q and dO into the second buffers (tile 1 overwrites them once they are
-  // in registers), K/V tile 0 into the first; without a key mask both
-  // key-flag buffers hold 1s for good
-  if (km == nullptr) km_s[tid] = 1;
+  // in registers), K/V tile 0 into the first; without a key mask or
+  // lengths both key-flag buffers hold 1s for good
+  if (km == nullptr && lengths == nullptr) km_s[tid] = 1;
+  __syncthreads();  // len_s is written
   stage_rows<DMAX>(k_s + TILE * ld, q + (size_t)bh * s_q * d, q0, s_q, d);
   stage_rows<DMAX>(v_s + TILE * ld, dout + (size_t)bh * s_q * d, q0, s_q, d);
   if (n_tiles > 0) stage(0);
@@ -269,8 +284,9 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   cp_async_wait_all();  // a tile with no live key tile staged Q and dO only
-  if constexpr (BIAS && CAUSAL) {
-    // key tiles past the loop: no row of this tile sees them, dbias = 0
+  if constexpr (BIAS) {
+    // key tiles past the loop (causal, lengths): no row of this tile sees
+    // them, dbias = 0
     const int kz = n_tiles * TILE;
     for (int r = 16 * warp; r < 16 * warp + 16 && q0 + r < s_q; ++r)
       for (int key = kz + lane; key < s_kv; key += 32)
@@ -291,7 +307,8 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DMAX, bool CAUSAL, bool FMASK, bool BIAS, bool KBIAS>
 int launch_dq(const bf16* q, const bf16* k, const bf16* v, const int* key_mask,
-              const unsigned char* mask, const float* bias, const bf16* dout, const float* lse,
+              const int* lengths, const unsigned char* mask, const float* bias, const bf16* dout,
+              const float* lse,
               const float* delta, bf16* dq, float* dbias, int bh, int heads, int gmode,
               int bgmode, int s_q, int s_kv, int d, float scale, cudaStream_t stream) {
   static size_t configured[64] = {0};
@@ -303,23 +320,23 @@ int launch_dq(const bf16* q, const bf16* k, const bf16* v, const int* key_mask,
   const bool mask_vec = FMASK && (s_kv & 15) == 0 && ((uintptr_t)mask & 15) == 0;
   const dim3 grid((s_q + TILE - 1) / TILE, bh);
   flash_dq_mma_kernel<DMAX, CAUSAL, FMASK, BIAS, KBIAS><<<grid, NTHREADS, smem, stream>>>(
-      q, k, v, key_mask, mask, bias, dout, lse, delta, dq, dbias, heads, gmode, bgmode, s_q,
-      s_kv, d, scale, mask_vec);
+      q, k, v, key_mask, lengths, mask, bias, dout, lse, delta, dq, dbias, heads, gmode, bgmode,
+      s_q, s_kv, d, scale, mask_vec);
   return (int)cudaGetLastError();
 }
 
 // CAUSAL from the entries' `causal` int; the head dim picks the instantiation
 template <bool FMASK, bool BIAS, bool KBIAS>
-int dq_sel(const bf16* q, const bf16* k, const bf16* v, const int* key_mask,
+int dq_sel(const bf16* q, const bf16* k, const bf16* v, const int* key_mask, const int* lengths,
            const unsigned char* mask, const float* bias, const bf16* dout, const float* lse,
            const float* delta, bf16* dq, float* dbias, int bh, int heads, int s_q, int s_kv,
            int d, int gmode, int bgmode, int causal, float scale, void* stream) {
   if (bad_shape(bh, heads, s_q, s_kv, d, gmode, bgmode)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
 #define HETU_DQ_LAUNCH(DM, C)                                                               \
-  launch_dq<DM, C, FMASK, BIAS, KBIAS>(q, k, v, key_mask, mask, bias, dout, lse, delta, dq, \
-                                       dbias, bh, heads, gmode, bgmode, s_q, s_kv, d, scale, \
-                                       st)
+  launch_dq<DM, C, FMASK, BIAS, KBIAS>(q, k, v, key_mask, lengths, mask, bias, dout, lse,    \
+                                       delta, dq, dbias, bh, heads, gmode, bgmode, s_q, s_kv, \
+                                       d, scale, st)
   if (d <= 64) return causal ? HETU_DQ_LAUNCH(64, true) : HETU_DQ_LAUNCH(64, false);
   return causal ? HETU_DQ_LAUNCH(128, true) : HETU_DQ_LAUNCH(128, false);
 #undef HETU_DQ_LAUNCH
@@ -331,66 +348,73 @@ int dq_sel(const bf16* q, const bf16* k, const bf16* v, const int* key_mask,
 // arguments: each launches on `stream` and returns cudaGetLastError() after
 // the launch (0 = launched).  q/dout/dq (bh, s_q, d), k/v (bh, s_kv, d):
 // contiguous bfloat16, d a multiple of 8 (at most 128), 16-byte aligned;
-// key_mask (bh / heads, s_kv) int32 or null; lse and delta (bh, s_q)
-// float32; a bias and dbias float32.
+// key_mask (bh / heads, s_kv) int32 or null; lengths (bh / heads) int32 or
+// null; lse and delta (bh, s_q) float32; a bias and dbias float32.
 
-// dense (key_mask null) or key_mask
+// dense (key_mask and lengths null), key_mask and/or lengths
 extern "C" int hetu_flash_bwd_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
-                                      const int* key_mask, const bf16* dout, const float* lse,
-                                      const float* delta, bf16* dq, int bh, int heads, int s_q,
-                                      int s_kv, int d, float scale, void* stream) {
-  return dq_sel<false, false, false>(q, k, v, key_mask, nullptr, nullptr, dout, lse, delta, dq,
-                                     nullptr, bh, heads, s_q, s_kv, d, 0, 0, 0, scale, stream);
+                                      const int* key_mask, const int* lengths, const bf16* dout,
+                                      const float* lse, const float* delta, bf16* dq, int bh,
+                                      int heads, int s_q, int s_kv, int d, float scale,
+                                      void* stream) {
+  return dq_sel<false, false, false>(q, k, v, key_mask, lengths, nullptr, nullptr, dout, lse,
+                                     delta, dq, nullptr, bh, heads, s_q, s_kv, d, 0, 0, 0, scale,
+                                     stream);
 }
 
-// causal (bottom-right aligned), optionally with a key_mask
+// causal (bottom-right aligned), optionally with a key_mask and lengths
 extern "C" int hetu_flash_bwd_dq_causal_bf16(const bf16* q, const bf16* k, const bf16* v,
-                                             const int* key_mask, const bf16* dout,
-                                             const float* lse, const float* delta, bf16* dq,
-                                             int bh, int heads, int s_q, int s_kv, int d,
-                                             float scale, void* stream) {
-  return dq_sel<false, false, false>(q, k, v, key_mask, nullptr, nullptr, dout, lse, delta, dq,
-                                     nullptr, bh, heads, s_q, s_kv, d, 0, 0, 1, scale, stream);
+                                             const int* key_mask, const int* lengths,
+                                             const bf16* dout, const float* lse,
+                                             const float* delta, bf16* dq, int bh, int heads,
+                                             int s_q, int s_kv, int d, float scale,
+                                             void* stream) {
+  return dq_sel<false, false, false>(q, k, v, key_mask, lengths, nullptr, nullptr, dout, lse,
+                                     delta, dq, nullptr, bh, heads, s_q, s_kv, d, 0, 0, 1, scale,
+                                     stream);
 }
 
 // additive bias (G, s_q, s_kv) or, strip != 0, (G, 1, s_kv) float32 of group
 // mode gmode; causal != 0 adds the causal rule.  With a dense bias, dbias
 // (bh, s_q, s_kv) float32, the pre-scale dS (null with a strip).
 extern "C" int hetu_flash_bwd_dq_bias_bf16(const bf16* q, const bf16* k, const bf16* v,
-                                           const int* key_mask, const float* bias,
-                                           const bf16* dout, const float* lse,
-                                           const float* delta, bf16* dq, float* dbias, int bh,
-                                           int heads, int s_q, int s_kv, int d, int gmode,
-                                           int strip, int causal, float scale, void* stream) {
-  if (bias == nullptr || (strip != 0) != (dbias == nullptr)) return (int)cudaErrorInvalidValue;
-  return strip ? dq_sel<false, false, true>(q, k, v, key_mask, nullptr, bias, dout, lse, delta,
-                                            dq, nullptr, bh, heads, s_q, s_kv, d, 0, gmode,
-                                            causal, scale, stream)
-               : dq_sel<false, true, false>(q, k, v, key_mask, nullptr, bias, dout, lse, delta,
-                                            dq, dbias, bh, heads, s_q, s_kv, d, 0, gmode, causal,
-                                            scale, stream);
-}
-
-// full mask (G, s_q, s_kv) uint8 of group mode gmode, composed with key_mask
-// and, causal != 0, the causal rule; optionally with a bias of its own group
-// mode bgmode (null: none; strip != 0: the strip), with dbias for a dense one
-extern "C" int hetu_flash_bwd_dq_mask_bf16(const bf16* q, const bf16* k, const bf16* v,
-                                           const int* key_mask, const unsigned char* mask,
+                                           const int* key_mask, const int* lengths,
                                            const float* bias, const bf16* dout,
                                            const float* lse, const float* delta, bf16* dq,
                                            float* dbias, int bh, int heads, int s_q, int s_kv,
-                                           int d, int gmode, int bgmode, int strip, int causal,
-                                           float scale, void* stream) {
+                                           int d, int gmode, int strip, int causal, float scale,
+                                           void* stream) {
+  if (bias == nullptr || (strip != 0) != (dbias == nullptr)) return (int)cudaErrorInvalidValue;
+  return strip ? dq_sel<false, false, true>(q, k, v, key_mask, lengths, nullptr, bias, dout, lse,
+                                            delta, dq, nullptr, bh, heads, s_q, s_kv, d, 0, gmode,
+                                            causal, scale, stream)
+               : dq_sel<false, true, false>(q, k, v, key_mask, lengths, nullptr, bias, dout, lse,
+                                            delta, dq, dbias, bh, heads, s_q, s_kv, d, 0, gmode,
+                                            causal, scale, stream);
+}
+
+// full mask (G, s_q, s_kv) uint8 of group mode gmode, composed with key_mask,
+// lengths and, causal != 0, the causal rule; optionally with a bias of its
+// own group mode bgmode (null: none; strip != 0: the strip), with dbias for a
+// dense one
+extern "C" int hetu_flash_bwd_dq_mask_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                           const int* key_mask, const int* lengths,
+                                           const unsigned char* mask, const float* bias,
+                                           const bf16* dout, const float* lse,
+                                           const float* delta, bf16* dq, float* dbias, int bh,
+                                           int heads, int s_q, int s_kv, int d, int gmode,
+                                           int bgmode, int strip, int causal, float scale,
+                                           void* stream) {
   const bool dense = bias != nullptr && !strip;
   if (mask == nullptr || dense != (dbias != nullptr)) return (int)cudaErrorInvalidValue;
   if (bias == nullptr)
-    return dq_sel<true, false, false>(q, k, v, key_mask, mask, nullptr, dout, lse, delta, dq,
-                                      nullptr, bh, heads, s_q, s_kv, d, gmode, 0, causal, scale,
-                                      stream);
-  return strip ? dq_sel<true, false, true>(q, k, v, key_mask, mask, bias, dout, lse, delta, dq,
-                                           nullptr, bh, heads, s_q, s_kv, d, gmode, bgmode,
-                                           causal, scale, stream)
-               : dq_sel<true, true, false>(q, k, v, key_mask, mask, bias, dout, lse, delta, dq,
-                                           dbias, bh, heads, s_q, s_kv, d, gmode, bgmode, causal,
-                                           scale, stream);
+    return dq_sel<true, false, false>(q, k, v, key_mask, lengths, mask, nullptr, dout, lse,
+                                      delta, dq, nullptr, bh, heads, s_q, s_kv, d, gmode, 0,
+                                      causal, scale, stream);
+  return strip ? dq_sel<true, false, true>(q, k, v, key_mask, lengths, mask, bias, dout, lse,
+                                           delta, dq, nullptr, bh, heads, s_q, s_kv, d, gmode,
+                                           bgmode, causal, scale, stream)
+               : dq_sel<true, true, false>(q, k, v, key_mask, lengths, mask, bias, dout, lse,
+                                           delta, dq, dbias, bh, heads, s_q, s_kv, d, gmode,
+                                           bgmode, causal, scale, stream);
 }

@@ -16,6 +16,7 @@ from .attention import (sdpa_reference, dispatch_sdpa, sdpa_op,
                         dispatch_sdpa_masked, sdpa_masked_op,
                         dispatch_sdpa_bias, sdpa_bias_op,
                         dispatch_sdpa_masked_bias, sdpa_masked_bias_op,
+                        dispatch_sdpa_varlen, sdpa_varlen_op,
                         dispatch_sdpa_decode, sdpa_decode_op,
                         kv_cache_append_op, dispatch_sdpa_prefill,
                         sdpa_prefill_op, chunk_positions_op,

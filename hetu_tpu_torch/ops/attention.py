@@ -17,6 +17,10 @@ a query row with no valid key outputs zero.  The dispatchers:
   ``h``).  The bias's gradient comes from the kernels (dbias, or dkbias
   for a (., ., 1, S_kv) key-bias strip), summed over its broadcast
   group.
+* ``dispatch_sdpa_varlen`` (``sdpa_varlen_op``): padding-masked attention,
+  keys at or past ``lengths[b]`` invisible, dense or ``causal``, forward
+  and backward through the training kernels' ``lengths``
+  specialization (which skips the key tiles past each length).
 * ``dispatch_sdpa_decode``: the q_len=1 decode step against a KV cache
   (the ``lengths`` specialization).
 * ``dispatch_sdpa_prefill``: the q_len=C chunked-prefill step against a
@@ -26,7 +30,7 @@ a query row with no valid key outputs zero.  The dispatchers:
 ``kv_cache_append_op`` and the chunk ops (``chunk_positions_op``,
 ``split_heads_chunk_op``, ``merge_heads_chunk_op``,
 ``chunk_emit_gather_op``) are the plain tensor code around them.  Not
-ported: the varlen dispatcher and the ring and Ulysses schedules.
+ported: the ring and Ulysses schedules.
 
 On a CUDA tensor each always launches the hand-written flash kernels
 (:mod:`hetu_tpu_torch.ops.kernels.flash_attention`) at every length — the
@@ -195,6 +199,37 @@ sdpa_masked_bias_op = def_op("ScaledDotProductAttentionMaskedBias",
                              _sdpa_masked_bias)
 
 
+def _length_mask(lengths, s_kv, device):
+    """The (B, 1, 1, S_kv) column mask of ``lengths`` (B,): key ``c`` of
+    batch row ``b`` is visible iff ``c < lengths[b]``."""
+    cols = torch.arange(s_kv, device=device)[None, None, None, :]
+    return cols < lengths.to(device=device,
+                             dtype=torch.int32)[:, None, None, None]
+
+
+def dispatch_sdpa_varlen(q, k, v, lengths, causal=False, scale=None):
+    """Padding-masked (B, H, S, D) attention: keys at or past
+    ``lengths[b]`` are invisible.  On the card the flash kernels'
+    ``lengths`` specialization, forward and backward (key tiles past each
+    length are neither loaded nor computed); on the CPU the plain
+    attention with the built column mask."""
+    if q.device.type == "cpu":
+        _note_cpu()
+        return sdpa_reference(q, k, v, causal=causal, scale=scale,
+                              mask=_length_mask(lengths, k.shape[-2],
+                                                q.device))
+    return flash_attention(q, k, v, causal=causal, scale=scale,
+                           lengths=lengths)
+
+
+def _sdpa_varlen(c, q, k, v, lengths, causal=False, scale=None):
+    """Padding-masked attention: keys >= lengths[b] are invisible."""
+    return dispatch_sdpa_varlen(q, k, v, lengths, causal=causal, scale=scale)
+
+
+sdpa_varlen_op = def_op("ScaledDotProductAttentionVarlen", _sdpa_varlen)
+
+
 def dispatch_sdpa_decode(q, k_cache, v_cache, positions, scale=None):
     """One decode step: ``q`` (B, H, 1, D) against ``k_cache``/``v_cache``
     (B, H, L, D) with the new token already appended at ``positions``
@@ -202,10 +237,9 @@ def dispatch_sdpa_decode(q, k_cache, v_cache, positions, scale=None):
     lengths = positions.to(torch.int32) + 1
     if q.device.type == "cpu":
         _note_cpu()
-        s_kv = k_cache.shape[-2]
-        cols = torch.arange(s_kv, device=q.device)[None, None, None, :]
-        mask = cols < lengths[:, None, None, None]
-        return sdpa_reference(q, k_cache, v_cache, scale=scale, mask=mask)
+        return sdpa_reference(q, k_cache, v_cache, scale=scale,
+                              mask=_length_mask(lengths, k_cache.shape[-2],
+                                                q.device))
     return flash_attention(q.contiguous(), k_cache.contiguous(),
                            v_cache.contiguous(), scale=scale,
                            lengths=lengths.contiguous())

@@ -1,15 +1,16 @@
-"""Flash attention for the H100: forward (``lengths``, dense, ``key_mask``,
-causal, full mask, additive bias, full mask with a bias) and backward (dQ,
-dK/dV: dense, ``key_mask``, causal, full mask, additive bias with its
-gradient, full mask with a bias).
+"""Flash attention for the H100: forward and backward (dQ, dK/dV) of every
+specialization of the TPU kernels: dense, ``key_mask``, ``lengths``,
+causal, full mask, additive bias (with its gradient), full mask with a
+bias, each alone or together.
 
 Replaces the TPU kernels of ``hetu_tpu/ops/pallas/flash_attention.py``
 with hand-written CUDA kernels, built for ``sm_90a`` and bound through
 ``ctypes``:
 
 * ``_fwd_kernel`` (entered through ``_flash_fwd``) →
-  ``csrc/flash_attention.cu``: ``hetu_flash_fwd_lengths`` for the
-  ``lengths`` specialization (decode, :func:`flash_fwd`);
+  ``csrc/flash_attention.cu``: ``hetu_flash_fwd_lengths`` for
+  ``lengths`` alone at one query row without a gradient (decode,
+  :func:`flash_fwd`);
   ``hetu_flash_fwd`` for the dense and ``key_mask`` ones and
   ``hetu_flash_fwd_causal`` for the causal one, alone or with a
   ``key_mask`` (training, :func:`flash_fwd_masked`);
@@ -30,6 +31,14 @@ with hand-written CUDA kernels, built for ``sm_90a`` and bound through
   ``hetu_flash_bwd_dq_mask`` and ``hetu_flash_bwd_dkv_mask``, alone
   (Longformer) or with a bias or strip and its dbias / dkbias (XLNet;
   :func:`flash_bwd_dq_mask`, :func:`flash_bwd_dkv_mask`).
+
+``lengths`` (B,) int32 composes with every other rule in every training
+entry, as the TPU kernel's ``has_lengths`` flag does: each takes a
+nullable ``lengths`` pointer after ``key_mask``, keys at or past
+``lengths[b]`` are invisible (``<= 0``: none; ``>= S_kv``: all), the
+key-tile loops end at the length and a dK/dV tile of keys at or past it
+writes zeros without walking the queries, so dK and dV of every padded
+key are exactly 0.  ``lengths`` gets no gradient.
 
 Causal is bottom-right aligned, as in the TPU kernel: key ``c`` is
 visible to query row ``r`` iff ``r + (S_kv - S_q) >= c``, and tiles
@@ -63,14 +72,10 @@ TPU kernel's bf16 instantiation rounds: products of bf16 operands
 accumulate in float32; the row sum l sums the unrounded P; P is rounded
 to bf16 before P·V and Pᵀ·dO, dS·scale before dS·K and dSᵀ·Q; out, dQ,
 dK and dV are rounded to bf16 (round to nearest even).  lse, delta, the
-bias, dbias and dkbias stay float32.  The ``lengths`` (decode) kernel
-takes float32 only: the decode caches are float32 in both packages.
-
-Not ported yet, refused by name: ``lengths`` together with ``key_mask``,
-``causal``, ``mask`` or a bias; the ``lengths`` backward (``lengths`` is
-forward only, decode: :func:`flash_attention` refuses ``lengths`` while
-autograd records and q, k or v needs a gradient, on every device);
-bfloat16 ``lengths``.
+bias, dbias and dkbias stay float32.  The decode kernel
+(``hetu_flash_fwd_lengths``) takes float32 only: the decode caches are
+float32 in both packages; bfloat16 ``lengths`` takes the training
+kernels.
 
 Beside each kernel sits its plain PyTorch version
 (:func:`flash_fwd_plain`, :func:`flash_bwd_plain`).  A wrapper takes the
@@ -86,7 +91,9 @@ plain module integer (``launches``, ``fwd_launches``, ``dq_launches``,
 without ``causal``: ``dq_mask_launches``, ``dkv_mask_launches``, with a
 dense bias ``fwd_mask_bias_launches``, ``dq_mask_bias_launches``,
 ``dkv_mask_bias_launches``, with a strip ``fwd_mask_kbias_launches``,
-``dq_mask_kbias_launches``, ``dkv_mask_kbias_launches``; with bfloat16
+``dq_mask_kbias_launches``, ``dkv_mask_kbias_launches``; with
+``lengths`` the same names with ``_len`` before ``_launches``
+(``fwd_len_launches``, ``dq_causal_len_launches``); with bfloat16
 inputs the same names with a ``bf16_`` prefix; reset them by
 assignment).  :class:`FlashAttention` is the autograd function of every
 training path, the counterpart of the JAX package's ``custom_vjp``.
@@ -159,6 +166,11 @@ bf16_fwd_mask_bias_launches = bf16_dq_mask_bias_launches = 0
 bf16_dkv_mask_bias_launches = 0
 bf16_fwd_mask_kbias_launches = bf16_dq_mask_kbias_launches = 0
 bf16_dkv_mask_kbias_launches = 0
+#: ... and each of them with ``lengths``: ``_len`` before ``_launches``
+#: (``fwd_len_launches``, ``bf16_dkv_mask_bias_len_launches``)
+for _name in [n for n in list(globals()) if n.endswith("_launches")]:
+    globals()[_name[:-len("_launches")] + "_len_launches"] = 0
+del _name
 
 #: C entry → (source ``csrc/<source>.cu``, pointer arguments, int
 #: arguments); each takes its pointers, then its ints ((bh, heads, s_q,
@@ -187,9 +199,13 @@ ENTRIES.update({
                      else "flash_attention_dq_bf16", n_ptr, n_int)
     for name, (src, n_ptr, n_int) in ENTRIES.items()
     if name != "hetu_flash_fwd_lengths"})
-# the float32 full-mask forward also takes the mask's tile map
+# every training entry takes the nullable ``lengths`` pointer after
+# ``key_mask``, and the float32 full-mask forward also the mask's tile map
 # (:func:`tile_maps`) after the mask
-ENTRIES["hetu_flash_fwd_mask"] = ("flash_attention", 9, 9)
+ENTRIES.update({name: (src, n_ptr + 1, n_int)
+                for name, (src, n_ptr, n_int) in ENTRIES.items()
+                if name != "hetu_flash_fwd_lengths"})
+ENTRIES["hetu_flash_fwd_mask"] = ("flash_attention", 10, 9)
 
 #: broadcast-group modes of a full mask or a bias, in the kernel's numbering
 GMODES = ("one", "h", "b", "bh")
@@ -215,9 +231,11 @@ def _entry(name, q):
     return name + "_bf16" if q.dtype == torch.bfloat16 else name
 
 
-def _count(counter, q):
+def _count(counter, q, lengths=None):
     """Add one to the launch counter ``counter`` of ``q``'s dtype
-    (bfloat16: ``bf16_<counter>``)."""
+    (bfloat16: ``bf16_<counter>``), with ``lengths`` its ``_len`` twin."""
+    if lengths is not None:
+        counter = counter[:-len("_launches")] + "_len_launches"
     name = "bf16_" + counter if q.dtype == torch.bfloat16 else counter
     globals()[name] += 1
 
@@ -325,14 +343,17 @@ def tile_maps(key_mask=None, mask=None, tile=TILE):
 
 
 def walked_tiles(bh, heads, s_q, s_kv, key_mask=None, causal=False,
-                 mask=None, gmode="bh", tile=TILE):
+                 mask=None, gmode="bh", tile=TILE, lengths=None):
     """The key tiles the float32 forward kernel walks, boolean
     (BH, ceil(S_q / tile), ceil(S_kv / tile)): those :func:`tile_maps`
     marks for the row's batch (``key_mask``) and mask group (``mask`` of
-    group mode ``gmode``, BH = B * ``heads``), and with ``causal`` only
-    those before the query tile's last visible key."""
-    device = next((t.device for t in (key_mask, mask) if t is not None),
-                  torch.device("cpu"))
+    group mode ``gmode``, BH = B * ``heads``), with ``causal`` only
+    those before the query tile's last visible key, and with ``lengths``
+    (B,) only those that start before the row's length.  With ``lengths``
+    and no other rule it is also the tiles every training kernel walks
+    (the bf16 forward, dQ, and the dK/dV tiles that walk any query)."""
+    device = next((t.device for t in (key_mask, mask, lengths)
+                   if t is not None), torch.device("cpu"))
     n_qt, n_kt = -(-s_q // tile), -(-s_kv // tile)
     walk = torch.ones((bh, n_qt, n_kt), dtype=torch.bool, device=device)
     if causal:
@@ -341,6 +362,11 @@ def walked_tiles(bh, heads, s_q, s_kv, key_mask=None, causal=False,
         last = torch.clamp(rows_end + (s_kv - s_q), max=s_kv)  # keys [0, last)
         walk &= (torch.arange(n_kt, device=device)[None, :] * tile
                  < last[:, None])[None]
+    if lengths is not None:
+        lens = lengths.to(device=device, dtype=torch.int64)
+        starts = torch.arange(n_kt, device=device)[None, :] * tile
+        walk &= (starts < lens[:, None]).repeat_interleave(
+            bh // lengths.shape[0], dim=0)[:, None, :]
     key_tiles, mask_tiles = tile_maps(key_mask, mask, tile)
     if key_tiles is not None:
         walk &= key_tiles.bool().repeat_interleave(
@@ -389,18 +415,18 @@ def flash_fwd_plain(q, k, v, lengths, heads, scale, key_mask=None,
 
 def _plain_grads(q, k, v, key_mask, lse, do, delta, scale, causal=False,
                  bias=None, kbias=None, bgmode="bh", heads=1, mask=None,
-                 gmode="bh"):
+                 gmode="bh", lengths=None):
     """dQ, dK, dV and t = dL/d(logits) (BH, S_q, S_kv), the pre-scale dS,
-    from the formulas the backward kernels compute; a full ``mask`` of
-    group mode ``gmode`` joins the validity, a ``bias`` or strip
-    ``kbias`` of group mode ``bgmode`` the logits.  bfloat16 inputs round
+    from the formulas the backward kernels compute; ``lengths`` (B,) and a
+    full ``mask`` of group mode ``gmode`` join the validity, a ``bias`` or
+    strip ``kbias`` of group mode ``bgmode`` the logits.  bfloat16 inputs round
     where the kernels do (P before Pᵀ·dO, dS before dS·K and dSᵀ·Q, the
     outputs); t stays float32."""
     s = _logits(q, k, scale, bias, kbias, bgmode, heads)
     p = torch.exp(s - lse[..., None])
     valid = _valid(q.shape[0], q.shape[1], k.shape[1], q.device,
-                   key_mask=key_mask, causal=causal, mask=mask, gmode=gmode,
-                   heads=heads)
+                   lengths=lengths, key_mask=key_mask, causal=causal,
+                   mask=mask, gmode=gmode, heads=heads)
     if valid is not None:
         # a select: a row with no valid key has lse = -1e30 and exp = inf
         p = torch.where(valid, p, torch.zeros_like(p))
@@ -414,30 +440,33 @@ def _plain_grads(q, k, v, key_mask, lse, do, delta, scale, causal=False,
 
 
 def flash_bwd_plain(q, k, v, key_mask, out, lse, do, scale, causal=False,
-                    mask=None, gmode="bh", heads=1):
+                    mask=None, gmode="bh", heads=1, lengths=None):
     """Plain PyTorch version of the backward kernels (not autograd):
     P = exp(s - lse) on valid (row, key) pairs, dP = dO.V^T,
     delta = rowsum(dO * O), dS = P * (dP - delta) * scale; returns
-    (dQ = dS.K, dK = dS^T.Q, dV = P^T.dO).  A full ``mask`` (G, S_q, S_kv)
-    of group mode ``gmode`` (``heads`` = H) joins the validity."""
+    (dQ = dS.K, dK = dS^T.Q, dV = P^T.dO).  ``lengths`` (B,) and a full
+    ``mask`` (G, S_q, S_kv) of group mode ``gmode`` (``heads`` = H) join
+    the validity."""
     delta = (do.float() * out.float()).sum(-1)
     return _plain_grads(q, k, v, key_mask, lse, do, delta, scale, causal,
-                        heads=heads, mask=mask, gmode=gmode)[:3]
+                        heads=heads, mask=mask, gmode=gmode,
+                        lengths=lengths)[:3]
 
 
 def flash_bwd_bias_plain(q, k, v, key_mask, bias, kbias, bgmode, heads, out,
-                         lse, do, scale, causal=False, mask=None, gmode="bh"):
+                         lse, do, scale, causal=False, mask=None, gmode="bh",
+                         lengths=None):
     """Plain PyTorch version of the bias backward kernels: as
     :func:`flash_bwd_plain` with the biased scores; returns (dQ, dK, dV,
     dbias, dkbias).  dbias (BH, S_q, S_kv) is the pre-scale dS when a dense
     ``bias`` is given, dkbias (BH, 1, S_kv) its sum over the query rows
     when a strip ``kbias`` is; the other is None.  Neither is summed over
-    its group.  A full ``mask`` of its own group mode ``gmode`` joins the
-    validity."""
+    its group.  ``lengths`` (B,) and a full ``mask`` of its own group mode
+    ``gmode`` join the validity."""
     delta = (do.float() * out.float()).sum(-1)
     dq, dk, dv, t = _plain_grads(q, k, v, key_mask, lse, do, delta, scale,
                                  causal, bias, kbias, bgmode, heads, mask,
-                                 gmode)
+                                 gmode, lengths)
     return (dq, dk, dv, t if bias is not None else None,
             t.sum(1, keepdim=True) if kbias is not None else None)
 
@@ -474,6 +503,38 @@ def _check_key_mask(fn, q, k, key_mask):
                          f"{key_mask.dtype} {tuple(key_mask.shape)} on "
                          f"{key_mask.device}")
     return bh // key_mask.shape[0]
+
+
+def _check_lengths(fn, q, lengths, heads=None):
+    """``lengths``, when given: contiguous int32 (B,) on q's device with
+    BH = B * ``heads`` (any B dividing BH when ``heads`` is None).
+    Returns the heads per entry (None without ``lengths``)."""
+    if lengths is None:
+        return None
+    bh = q.shape[0]
+    if lengths.dtype != torch.int32 or lengths.ndim != 1 \
+            or lengths.shape[0] < 1 or bh % lengths.shape[0] \
+            or lengths.device != q.device or not lengths.is_contiguous() \
+            or (heads is not None and bh != heads * lengths.shape[0]):
+        want = "B" if heads is None else str(bh // heads)
+        raise ValueError(f"{fn}: lengths must be contiguous int32 ({want},) "
+                         f"with BH={bh} a multiple of it, on {q.device}; "
+                         f"got {lengths.dtype} {tuple(lengths.shape)} on "
+                         f"{lengths.device}")
+    return bh // lengths.shape[0]
+
+
+def _key_heads(fn, q, k, key_mask, lengths):
+    """Heads per key-mask and ``lengths`` row (1 for dense): the two must
+    agree when both are given."""
+    heads = _check_key_mask(fn, q, k, key_mask)
+    if lengths is None:
+        return heads
+    lheads = _check_lengths(fn, q, lengths)
+    if key_mask is not None and lheads != heads:
+        raise ValueError(f"{fn}: key_mask has {key_mask.shape[0]} rows, "
+                         f"lengths {lengths.shape[0]}")
+    return lheads
 
 
 def _check_mask(fn, q, k, mask, gmode, heads):
@@ -602,18 +663,19 @@ def flash_fwd(q, k, v, lengths, heads, scale):
 
 # -- dense / key_mask / causal (training) -------------------------------------
 
-def flash_fwd_masked(q, k, v, key_mask, scale, causal=False):
+def flash_fwd_masked(q, k, v, key_mask, scale, causal=False, lengths=None):
     """Attention over the keys where ``key_mask`` (B, S_kv) int32 is
-    nonzero, or over every key when it is None, and with ``causal`` only
-    over the keys ``c <= r + S_kv - S_q`` of query row ``r``: q
-    (BH, S_q, D), k/v (BH, S_kv, D) float32 or bfloat16.  Returns
-    ``(out (BH, S_q, D) in q's dtype, lse (BH, S_q) float32)``."""
+    nonzero and that lie below ``lengths`` (B,) int32, or over every key
+    when both are None, and with ``causal`` only over the keys
+    ``c <= r + S_kv - S_q`` of query row ``r``: q (BH, S_q, D), k/v
+    (BH, S_kv, D) float32 or bfloat16.  Returns ``(out (BH, S_q, D) in
+    q's dtype, lse (BH, S_q) float32)``."""
     fn_name = "flash_fwd_masked"
     _check_qkv(fn_name, q, k, v)
-    heads = _check_key_mask(fn_name, q, k, key_mask)
+    heads = _key_heads(fn_name, q, k, key_mask, lengths)
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, None, heads, scale, key_mask=key_mask,
-                               causal=causal)
+        return flash_fwd_plain(q, k, v, lengths, heads, scale,
+                               key_mask=key_mask, causal=causal)
     bh, s_q, d = q.shape
     _check_launch(fn_name, d, q=q, k=k, v=v, key_mask=key_mask)
     out = torch.empty_like(q)
@@ -622,19 +684,21 @@ def flash_fwd_masked(q, k, v, key_mask, scale, causal=False):
                        else "hetu_flash_fwd", q))
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
-                out.data_ptr(), lse.data_ptr(), bh, heads, s_q, k.shape[1], d,
-                float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+                _ptr(lengths), out.data_ptr(), lse.data_ptr(), bh, heads, s_q,
+                k.shape[1], d, float(scale),
+                torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
-    _count("fwd_causal_launches" if causal else "fwd_launches", q)
+    _count("fwd_causal_launches" if causal else "fwd_launches", q, lengths)
     return out, lse
 
 
 def _check_fullmask(fn, q, k, key_mask, mask, gmode, heads, bias, kbias,
-                    bgmode):
+                    bgmode, lengths=None):
     """A full mask of group mode ``gmode`` and, when either is given, a
-    bias or strip of group mode ``bgmode``; a ``key_mask`` has BH /
-    ``heads`` rows."""
+    bias or strip of group mode ``bgmode``; a ``key_mask`` and ``lengths``
+    have BH / ``heads`` rows."""
     _check_mask(fn, q, k, mask, gmode, heads)
+    _check_lengths(fn, q, lengths, heads)
     if bias is not None or kbias is not None:
         _check_bias(fn, q, k, key_mask, bias, kbias, bgmode, heads)
     elif key_mask is not None \
@@ -653,22 +717,25 @@ def _mask_args(mask, gmode, bias, kbias, bgmode, causal):
 
 
 def flash_fwd_fullmask(q, k, v, mask, gmode, heads, scale, key_mask=None,
-                       causal=False, bias=None, kbias=None, bgmode="bh"):
+                       causal=False, bias=None, kbias=None, bgmode="bh",
+                       lengths=None):
     """Attention over the (row, key) pairs where the full ``mask`` is
     nonzero: uint8 (G, S_q, S_kv), stored unbroadcast, ``gmode`` one of
     ``one`` (G = 1), ``h`` (G = ``heads``, shared over the batch), ``b``
     (G = BH / ``heads``, shared over heads), ``bh`` (G = BH).  Composes
-    with ``key_mask`` (B, S_kv) int32, ``causal`` and an additive
-    ``bias`` (G', S_q, S_kv) or key-bias strip ``kbias`` (G', 1, S_kv) of
-    its own group mode ``bgmode`` (as :func:`flash_fwd_bias` takes it).
-    q (BH, S_q, D), k/v (BH, S_kv, D) float32 or bfloat16.  Returns
-    ``(out (BH, S_q, D) in q's dtype, lse (BH, S_q) float32)``."""
+    with ``key_mask`` (B, S_kv) int32, ``lengths`` (B,) int32, ``causal``
+    and an additive ``bias`` (G', S_q, S_kv) or key-bias strip ``kbias``
+    (G', 1, S_kv) of its own group mode ``bgmode`` (as
+    :func:`flash_fwd_bias` takes it).  q (BH, S_q, D), k/v (BH, S_kv, D)
+    float32 or bfloat16.  Returns ``(out (BH, S_q, D) in q's dtype, lse
+    (BH, S_q) float32)``."""
     fn_name = "flash_fwd_fullmask"
     _check_qkv(fn_name, q, k, v)
     _check_fullmask(fn_name, q, k, key_mask, mask, gmode, heads, bias, kbias,
-                    bgmode)
+                    bgmode, lengths)
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, None, heads, scale, key_mask=key_mask,
+        return flash_fwd_plain(q, k, v, lengths, heads, scale,
+                               key_mask=key_mask,
                                causal=causal, mask=mask, gmode=gmode,
                                bias=bias, kbias=kbias, bgmode=bgmode)
     bh, s_q, d = q.shape
@@ -677,12 +744,12 @@ def flash_fwd_fullmask(q, k, v, mask, gmode, heads, scale, key_mask=None,
     out = torch.empty_like(q)
     lse = torch.empty((bh, s_q), dtype=torch.float32, device=q.device)
     m_ptr, b_ptr, ints = _mask_args(mask, gmode, bias, kbias, bgmode, causal)
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), m_ptr,
-            b_ptr]
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+            _ptr(lengths), m_ptr, b_ptr]
     mask_tiles = None
     if q.dtype == torch.float32:
         mask_tiles = tile_maps(mask=mask)[1]
-        ptrs.insert(5, mask_tiles.data_ptr())
+        ptrs.insert(6, mask_tiles.data_ptr())
     with torch.cuda.device(q.device):
         rc = kernel(_entry("hetu_flash_fwd_mask", q))(
             *ptrs, out.data_ptr(), lse.data_ptr(), bh, heads, s_q, k.shape[1],
@@ -691,21 +758,22 @@ def flash_fwd_fullmask(q, k, v, mask, gmode, heads, scale, key_mask=None,
     _raise_on(fn_name, rc)
     _count("fwd_mask_bias_launches" if bias is not None
            else "fwd_mask_kbias_launches" if kbias is not None
-           else "fwd_mask_launches", q)
+           else "fwd_mask_launches", q, lengths)
     return out, lse
 
 
-def flash_bwd_dq(q, k, v, key_mask, do, lse, delta, scale, causal=False):
+def flash_bwd_dq(q, k, v, key_mask, do, lse, delta, scale, causal=False,
+                 lengths=None):
     """dQ of :func:`flash_fwd_masked` given dO, its lse and
     delta = rowsum(dO * out) (BH, S_q) float32, dO (BH, S_q, D) in q's
     dtype."""
     fn_name = "flash_bwd_dq"
     _check_qkv(fn_name, q, k, v)
-    heads = _check_key_mask(fn_name, q, k, key_mask)
+    heads = _key_heads(fn_name, q, k, key_mask, lengths)
     _check_rows(fn_name, q, do=do, lse=lse, delta=delta)
     if q.device.type == "cpu":
         return _plain_grads(q, k, v, key_mask, lse, do, delta, scale,
-                            causal)[0]
+                            causal, lengths=lengths)[0]
     bh, s_q, d = q.shape
     _check_launch(fn_name, d, q=q, k=k, v=v, key_mask=key_mask, do=do,
                   lse=lse, delta=delta)
@@ -714,23 +782,25 @@ def flash_bwd_dq(q, k, v, key_mask, do, lse, delta, scale, causal=False):
                        else "hetu_flash_bwd_dq", q))
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                bh, heads, s_q, k.shape[1], d, float(scale),
+                _ptr(lengths), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), bh, heads, s_q, k.shape[1], d, float(scale),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
-    _count("dq_causal_launches" if causal else "dq_launches", q)
+    _count("dq_causal_launches" if causal else "dq_launches", q, lengths)
     return dq
 
 
-def flash_bwd_dkv(q, k, v, key_mask, do, lse, delta, scale, causal=False):
-    """(dK, dV) of :func:`flash_fwd_masked`; inputs as :func:`flash_bwd_dq`."""
+def flash_bwd_dkv(q, k, v, key_mask, do, lse, delta, scale, causal=False,
+                  lengths=None):
+    """(dK, dV) of :func:`flash_fwd_masked`; inputs as :func:`flash_bwd_dq`.
+    dK and dV are exactly 0 at every key at or past ``lengths``."""
     fn_name = "flash_bwd_dkv"
     _check_qkv(fn_name, q, k, v)
-    heads = _check_key_mask(fn_name, q, k, key_mask)
+    heads = _key_heads(fn_name, q, k, key_mask, lengths)
     _check_rows(fn_name, q, do=do, lse=lse, delta=delta)
     if q.device.type == "cpu":
         _, dk, dv, _ = _plain_grads(q, k, v, key_mask, lse, do, delta, scale,
-                                    causal)
+                                    causal, lengths=lengths)
         return dk, dv
     bh, s_q, d = q.shape
     _check_launch(fn_name, d, q=q, k=k, v=v, key_mask=key_mask, do=do,
@@ -741,11 +811,11 @@ def flash_bwd_dkv(q, k, v, key_mask, do, lse, delta, scale, causal=False):
                        else "hetu_flash_bwd_dkv", q))
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), bh, heads, s_q, k.shape[1], d, float(scale),
-                torch.cuda.current_stream(q.device).cuda_stream)
+                _ptr(lengths), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), bh, heads, s_q, k.shape[1], d,
+                float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
-    _count("dkv_causal_launches" if causal else "dkv_launches", q)
+    _count("dkv_causal_launches" if causal else "dkv_launches", q, lengths)
     return dk, dv
 
 
@@ -759,19 +829,21 @@ def _bias_args(bias, kbias, gmode, causal):
 
 
 def flash_fwd_bias(q, k, v, key_mask, bias, kbias, gmode, heads, scale,
-                   causal=False):
+                   causal=False, lengths=None):
     """Attention with an additive bias on the scaled scores: exactly one
     of ``bias`` (G, S_q, S_kv) and a per-key strip ``kbias`` (G, 1, S_kv),
     float32, stored unbroadcast for group mode ``gmode`` (as
     :func:`flash_fwd_fullmask`'s mask, BH = B * ``heads``).  Composes with
-    ``key_mask`` (B, S_kv) int32 and ``causal``.  q (BH, S_q, D), k/v
-    (BH, S_kv, D) float32 or bfloat16.  Returns ``(out (BH, S_q, D) in q's
-    dtype, lse (BH, S_q) float32)``."""
+    ``key_mask`` (B, S_kv) int32, ``lengths`` (B,) int32 and ``causal``.
+    q (BH, S_q, D), k/v (BH, S_kv, D) float32 or bfloat16.  Returns
+    ``(out (BH, S_q, D) in q's dtype, lse (BH, S_q) float32)``."""
     fn_name = "flash_fwd_bias"
     _check_qkv(fn_name, q, k, v)
     _check_bias(fn_name, q, k, key_mask, bias, kbias, gmode, heads)
+    _check_lengths(fn_name, q, lengths, heads)
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, None, heads, scale, key_mask=key_mask,
+        return flash_fwd_plain(q, k, v, lengths, heads, scale,
+                               key_mask=key_mask,
                                causal=causal, bias=bias, kbias=kbias,
                                bgmode=gmode)
     bh, s_q, d = q.shape
@@ -782,19 +854,19 @@ def flash_fwd_bias(q, k, v, key_mask, bias, kbias, gmode, heads, scale,
     b_ptr, b_ints = _bias_args(bias, kbias, gmode, causal)
     with torch.cuda.device(q.device):
         rc = kernel(_entry("hetu_flash_fwd_bias", q))(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), b_ptr,
-            out.data_ptr(), lse.data_ptr(), bh, heads, s_q, k.shape[1], d,
-            *b_ints, float(scale),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+            _ptr(lengths), b_ptr, out.data_ptr(), lse.data_ptr(), bh, heads,
+            s_q, k.shape[1], d, *b_ints, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
     _count("fwd_kbias_launches" if bias is None
            else "fwd_bias_causal_launches" if causal
-           else "fwd_bias_launches", q)
+           else "fwd_bias_launches", q, lengths)
     return out, lse
 
 
 def flash_bwd_dq_bias(q, k, v, key_mask, bias, kbias, gmode, heads, do, lse,
-                      delta, scale, causal=False):
+                      delta, scale, causal=False, lengths=None):
     """dQ of :func:`flash_fwd_bias`, and with a dense ``bias`` its
     gradient before the group sum: dbias (BH, S_q, S_kv) float32, the
     pre-scale dS, zero on every (row, key) pair the row does not see.
@@ -802,10 +874,12 @@ def flash_bwd_dq_bias(q, k, v, key_mask, bias, kbias, gmode, heads, do, lse,
     fn_name = "flash_bwd_dq_bias"
     _check_qkv(fn_name, q, k, v)
     _check_bias(fn_name, q, k, key_mask, bias, kbias, gmode, heads)
+    _check_lengths(fn_name, q, lengths, heads)
     _check_rows(fn_name, q, do=do, lse=lse, delta=delta)
     if q.device.type == "cpu":
         dq, _, _, t = _plain_grads(q, k, v, key_mask, lse, do, delta, scale,
-                                   causal, bias, kbias, gmode, heads)
+                                   causal, bias, kbias, gmode, heads,
+                                   lengths=lengths)
         return dq, (t if bias is not None else None)
     bh, s_q, d = q.shape
     s_kv = k.shape[1]
@@ -817,19 +891,20 @@ def flash_bwd_dq_bias(q, k, v, key_mask, bias, kbias, gmode, heads, do, lse,
     b_ptr, b_ints = _bias_args(bias, kbias, gmode, causal)
     with torch.cuda.device(q.device):
         rc = kernel(_entry("hetu_flash_bwd_dq_bias", q))(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), b_ptr,
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            _ptr(dbias), bh, heads, s_q, s_kv, d, *b_ints, float(scale),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+            _ptr(lengths), b_ptr, do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), _ptr(dbias), bh, heads, s_q,
+            s_kv, d, *b_ints, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
     _count("dq_kbias_launches" if bias is None
            else "dq_bias_causal_launches" if causal
-           else "dq_bias_launches", q)
+           else "dq_bias_launches", q, lengths)
     return dq, dbias
 
 
 def flash_bwd_dkv_bias(q, k, v, key_mask, bias, kbias, gmode, heads, do, lse,
-                       delta, scale, causal=False):
+                       delta, scale, causal=False, lengths=None):
     """(dK, dV) of :func:`flash_fwd_bias`, and with a strip ``kbias`` its
     gradient before the group sum: dkbias (BH, 1, S_kv) float32, the
     pre-scale dS summed over the query rows.  Returns ``(dk, dv,
@@ -837,10 +912,12 @@ def flash_bwd_dkv_bias(q, k, v, key_mask, bias, kbias, gmode, heads, do, lse,
     fn_name = "flash_bwd_dkv_bias"
     _check_qkv(fn_name, q, k, v)
     _check_bias(fn_name, q, k, key_mask, bias, kbias, gmode, heads)
+    _check_lengths(fn_name, q, lengths, heads)
     _check_rows(fn_name, q, do=do, lse=lse, delta=delta)
     if q.device.type == "cpu":
         _, dk, dv, t = _plain_grads(q, k, v, key_mask, lse, do, delta, scale,
-                                    causal, bias, kbias, gmode, heads)
+                                    causal, bias, kbias, gmode, heads,
+                                    lengths=lengths)
         return dk, dv, (t.sum(1, keepdim=True) if kbias is not None
                         else None)
     bh, s_q, d = q.shape
@@ -854,21 +931,23 @@ def flash_bwd_dkv_bias(q, k, v, key_mask, bias, kbias, gmode, heads, do, lse,
     b_ptr, b_ints = _bias_args(bias, kbias, gmode, causal)
     with torch.cuda.device(q.device):
         rc = kernel(_entry("hetu_flash_bwd_dkv_bias", q))(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), b_ptr,
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _ptr(dkbias), bh, heads, s_q, s_kv, d, *b_ints,
-            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+            _ptr(lengths), b_ptr, do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dkbias), bh,
+            heads, s_q, s_kv, d, *b_ints, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
     _count("dkv_kbias_launches" if bias is None
            else "dkv_bias_causal_launches" if causal
-           else "dkv_bias_launches", q)
+           else "dkv_bias_launches", q, lengths)
     return dk, dv, dkbias
 
 
 # -- full mask, alone or with a bias (Longformer, XLNet) -------------------
 
 def flash_bwd_dq_mask(q, k, v, key_mask, mask, gmode, heads, do, lse, delta,
-                      scale, causal=False, bias=None, kbias=None, bgmode="bh"):
+                      scale, causal=False, bias=None, kbias=None, bgmode="bh",
+                      lengths=None):
     """dQ of :func:`flash_fwd_fullmask` (the full ``mask`` of group mode
     ``gmode``, and optionally a ``bias`` or strip ``kbias`` of group mode
     ``bgmode``) given dO (BH, S_q, D) in q's dtype, its lse and delta =
@@ -879,12 +958,12 @@ def flash_bwd_dq_mask(q, k, v, key_mask, mask, gmode, heads, do, lse, delta,
     fn_name = "flash_bwd_dq_mask"
     _check_qkv(fn_name, q, k, v)
     _check_fullmask(fn_name, q, k, key_mask, mask, gmode, heads, bias, kbias,
-                    bgmode)
+                    bgmode, lengths)
     _check_rows(fn_name, q, do=do, lse=lse, delta=delta)
     if q.device.type == "cpu":
         dq, _, _, t = _plain_grads(q, k, v, key_mask, lse, do, delta, scale,
                                    causal, bias, kbias, bgmode, heads, mask,
-                                   gmode)
+                                   gmode, lengths)
         return dq, (t if bias is not None else None)
     bh, s_q, d = q.shape
     s_kv = k.shape[1]
@@ -896,20 +975,21 @@ def flash_bwd_dq_mask(q, k, v, key_mask, mask, gmode, heads, do, lse, delta,
     m_ptr, b_ptr, ints = _mask_args(mask, gmode, bias, kbias, bgmode, causal)
     with torch.cuda.device(q.device):
         rc = kernel(_entry("hetu_flash_bwd_dq_mask", q))(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), m_ptr,
-            b_ptr, do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), _ptr(dbias), bh, heads, s_q, s_kv, d, *ints,
-            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+            _ptr(lengths), m_ptr, b_ptr, do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), _ptr(dbias), bh, heads, s_q,
+            s_kv, d, *ints, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
     _count("dq_mask_bias_launches" if bias is not None
            else "dq_mask_kbias_launches" if kbias is not None
-           else "dq_mask_launches", q)
+           else "dq_mask_launches", q, lengths)
     return dq, dbias
 
 
 def flash_bwd_dkv_mask(q, k, v, key_mask, mask, gmode, heads, do, lse, delta,
                        scale, causal=False, bias=None, kbias=None,
-                       bgmode="bh"):
+                       bgmode="bh", lengths=None):
     """(dK, dV) of :func:`flash_fwd_fullmask`; inputs as
     :func:`flash_bwd_dq_mask`.  With a strip ``kbias`` also its gradient
     before the group sum, dkbias (BH, 1, S_kv).  Returns ``(dk, dv,
@@ -917,12 +997,12 @@ def flash_bwd_dkv_mask(q, k, v, key_mask, mask, gmode, heads, do, lse, delta,
     fn_name = "flash_bwd_dkv_mask"
     _check_qkv(fn_name, q, k, v)
     _check_fullmask(fn_name, q, k, key_mask, mask, gmode, heads, bias, kbias,
-                    bgmode)
+                    bgmode, lengths)
     _check_rows(fn_name, q, do=do, lse=lse, delta=delta)
     if q.device.type == "cpu":
         _, dk, dv, t = _plain_grads(q, k, v, key_mask, lse, do, delta, scale,
                                     causal, bias, kbias, bgmode, heads, mask,
-                                    gmode)
+                                    gmode, lengths)
         return dk, dv, (t.sum(1, keepdim=True) if kbias is not None
                         else None)
     bh, s_q, d = q.shape
@@ -936,46 +1016,49 @@ def flash_bwd_dkv_mask(q, k, v, key_mask, mask, gmode, heads, do, lse, delta,
     m_ptr, b_ptr, ints = _mask_args(mask, gmode, bias, kbias, bgmode, causal)
     with torch.cuda.device(q.device):
         rc = kernel(_entry("hetu_flash_bwd_dkv_mask", q))(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask), m_ptr,
-            b_ptr, do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), _ptr(dkbias), bh, heads, s_q, s_kv,
-            d, *ints, float(scale),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+            _ptr(lengths), m_ptr, b_ptr, do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dkbias), bh,
+            heads, s_q, s_kv, d, *ints, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
     _count("dkv_mask_bias_launches" if bias is not None
            else "dkv_mask_kbias_launches" if kbias is not None
-           else "dkv_mask_launches", q)
+           else "dkv_mask_launches", q, lengths)
     return dk, dv, dkbias
 
 
 class FlashAttention(torch.autograd.Function):
     """Attention on (BH, S, D) tensors with the kernels' gradient, on every
-    training path: dense, ``key_mask``, causal, a full ``mask`` (uint8
-    (G, S_q, S_kv) of group mode ``gmode``) and a dense ``bias`` or
-    key-bias strip ``kbias`` (group mode ``bgmode``, BH = B * ``heads``),
-    each alone or together.  The forward saves q, k, v, key_mask, the
-    mask, the bias, out and lse; the backward forms delta = rowsum(dO *
-    out) in float32 (one plain expression, as the JAX package leaves it
-    to XLA) and launches dQ and dK/dV with the forward's ``causal``, mask
-    and bias.
+    training path: dense, ``key_mask``, ``lengths`` (B,), causal, a full
+    ``mask`` (uint8 (G, S_q, S_kv) of group mode ``gmode``) and a dense
+    ``bias`` or key-bias strip ``kbias`` (group mode ``bgmode``, BH = B *
+    ``heads``), each alone or together.  The forward saves q, k, v,
+    key_mask, lengths, the mask, the bias, out and lse; the backward forms
+    delta = rowsum(dO * out) in float32 (one plain expression, as the JAX
+    package leaves it to XLA) and launches dQ and dK/dV with the forward's
+    ``causal``, lengths, mask and bias.
     dbias / dkbias come back summed over the bias's group, in its storage
-    shape (the JAX package's ``_flash_vjp_bwd``).  ``key_mask``, the
-    mask, ``scale`` and ``causal`` get no gradient."""
+    shape (the JAX package's ``_flash_vjp_bwd``).  ``key_mask``,
+    ``lengths``, the mask, ``scale`` and ``causal`` get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, scale, causal=False, bias=None,
-                kbias=None, bgmode="bh", heads=1, mask=None, gmode="bh"):
+                kbias=None, bgmode="bh", heads=1, mask=None, gmode="bh",
+                lengths=None):
         if mask is not None:
             out, lse = flash_fwd_fullmask(q, k, v, mask, gmode, heads, scale,
                                           key_mask=key_mask, causal=causal,
                                           bias=bias, kbias=kbias,
-                                          bgmode=bgmode)
+                                          bgmode=bgmode, lengths=lengths)
         elif bias is None and kbias is None:
-            out, lse = flash_fwd_masked(q, k, v, key_mask, scale, causal)
+            out, lse = flash_fwd_masked(q, k, v, key_mask, scale, causal,
+                                        lengths=lengths)
         else:
             out, lse = flash_fwd_bias(q, k, v, key_mask, bias, kbias, bgmode,
-                                      heads, scale, causal)
-        ctx.save_for_backward(q, k, v, key_mask, mask, bias, kbias, out, lse)
+                                      heads, scale, causal, lengths=lengths)
+        ctx.save_for_backward(q, k, v, key_mask, lengths, mask, bias, kbias,
+                              out, lse)
         ctx.scale = scale
         ctx.causal = bool(causal)
         ctx.bgmode, ctx.heads, ctx.gmode = bgmode, heads, gmode
@@ -983,33 +1066,33 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, key_mask, mask, bias, kbias, out, lse = ctx.saved_tensors
+        q, k, v, key_mask, lengths, mask, bias, kbias, out, lse = \
+            ctx.saved_tensors
         do = dout.contiguous()
         delta = (do.float() * out.float()).sum(-1)
         if mask is not None:
             kw = dict(causal=ctx.causal, bias=bias, kbias=kbias,
-                      bgmode=ctx.bgmode)
+                      bgmode=ctx.bgmode, lengths=lengths)
             args = (q, k, v, key_mask, mask, ctx.gmode, ctx.heads, do, lse,
                     delta, ctx.scale)
             dq, dbias = flash_bwd_dq_mask(*args, **kw)
             dk, dv, dkbias = flash_bwd_dkv_mask(*args, **kw)
         elif bias is None and kbias is None:
-            dq = flash_bwd_dq(q, k, v, key_mask, do, lse, delta, ctx.scale,
-                              ctx.causal)
-            dk, dv = flash_bwd_dkv(q, k, v, key_mask, do, lse, delta,
-                                   ctx.scale, ctx.causal)
+            args = (q, k, v, key_mask, do, lse, delta, ctx.scale, ctx.causal)
+            dq = flash_bwd_dq(*args, lengths=lengths)
+            dk, dv = flash_bwd_dkv(*args, lengths=lengths)
             dbias = dkbias = None
         else:
             args = (q, k, v, key_mask, bias, kbias, ctx.bgmode, ctx.heads,
                     do, lse, delta, ctx.scale, ctx.causal)
-            dq, dbias = flash_bwd_dq_bias(*args)
-            dk, dv, dkbias = flash_bwd_dkv_bias(*args)
+            dq, dbias = flash_bwd_dq_bias(*args, lengths=lengths)
+            dk, dv, dkbias = flash_bwd_dkv_bias(*args, lengths=lengths)
         if dbias is not None:
             dbias = group_reduce(dbias, ctx.bgmode, ctx.heads, bias.shape)
         if dkbias is not None:
             dkbias = group_reduce(dkbias, ctx.bgmode, ctx.heads, kbias.shape)
         return (dq, dk, dv, None, None, None, dbias, dkbias, None, None, None,
-                None)
+                None, None)
 
 
 def classify_group(x, b, h, s_q, s_kv, name):
@@ -1039,23 +1122,17 @@ def broadcast_group(x, b, h, s_q, s_kv, name):
 
 def flash_attention(q, k, v, causal=False, scale=None, lengths=None,
                     key_mask=None, mask=None, bias=None):
-    """(B, H, S, D) entry with the JAX package's signature.  Ported:
-    ``lengths`` (forward only, decode); dense, ``key_mask`` (B, S_kv),
-    ``causal``, a full ``mask`` broadcastable as (1|B, 1|H, 1|S_q, S_kv)
-    and an additive ``bias`` broadcastable the same way, each alone or
-    together, with their gradient (a (., ., 1, S_kv) bias takes the
-    key-bias strip when S_q != 1, as in the JAX entry; the mask and the
-    bias keep their own group modes).  Returns ``out`` (B, H, S_q, D)."""
-    if lengths is not None and (key_mask is not None or mask is not None
-                                or causal or bias is not None):
-        raise NotImplementedError(
-            "flash_attention: lengths together with key_mask, mask, "
-            "causal or bias is not ported")
-    if lengths is not None and torch.is_grad_enabled() \
-            and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention: the lengths backward is not ported (lengths is "
-            "forward only, decode); run it under torch.no_grad()")
+    """(B, H, S, D) entry with the JAX package's signature: dense,
+    ``lengths`` (B,), ``key_mask`` (B, S_kv), ``causal``, a full ``mask``
+    broadcastable as (1|B, 1|H, 1|S_q, S_kv) and an additive ``bias``
+    broadcastable the same way, each alone or together, with their
+    gradient (a (., ., 1, S_kv) bias takes the key-bias strip when
+    S_q != 1, as in the JAX entry; the mask and the bias keep their own
+    group modes).  ``lengths`` alone at one float32 query row with no
+    gradient to take is the decode step: the ``lengths`` kernel
+    (:func:`flash_fwd`); every other call goes through
+    :class:`FlashAttention` and the training kernels.  Returns ``out``
+    (B, H, S_q, D)."""
     b, h, s_q, d = q.shape
     s_kv = k.shape[2]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
@@ -1063,8 +1140,14 @@ def flash_attention(q, k, v, causal=False, scale=None, lengths=None,
     k3 = k.contiguous().view(b * h, s_kv, d)
     v3 = v.contiguous().view(b * h, s_kv, d)
     if lengths is not None:
-        out, _ = flash_fwd(q3, k3, v3, lengths, h, scale)
-        return out.view(b, h, s_q, d)
+        lengths = lengths.to(torch.int32).contiguous()
+        decode = (s_q == 1 and q.dtype == torch.float32 and not causal
+                  and key_mask is None and mask is None and bias is None
+                  and not (torch.is_grad_enabled()
+                           and any(t.requires_grad for t in (q, k, v))))
+        if decode:
+            out, _ = flash_fwd(q3, k3, v3, lengths, h, scale)
+            return out.view(b, h, s_q, d)
     if key_mask is not None:
         key_mask = (key_mask != 0).to(torch.int32).contiguous()
     mask3, gmode = None, "bh"
@@ -1081,5 +1164,6 @@ def flash_attention(q, k, v, causal=False, scale=None, lengths=None,
         else:
             bias3 = ba.reshape(-1, s_q, s_kv).contiguous()
     out = FlashAttention.apply(q3, k3, v3, key_mask, scale, bool(causal),
-                               bias3, kbias3, bgmode, h, mask3, gmode)
+                               bias3, kbias3, bgmode, h, mask3, gmode,
+                               lengths)
     return out.view(b, h, s_q, d)

@@ -146,7 +146,8 @@ def forward_variants(flush):
         out = torch.empty_like(q)
         lse = torch.empty(bh, s_q, device="cuda")
         mt = fa.tile_maps(mask=mask)[1]
-        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), fa._ptr(km))
+        head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), fa._ptr(km),
+                None)                                   # no lengths
         if mask is not None:
             entry = "hetu_flash_fwd_mask"
             args = head + (mask.data_ptr(), mt.data_ptr(), None,

@@ -1,5 +1,6 @@
-"""Where the time of a BERT-base, GPT-2 small, T5-small, XLNet-base or
-Longformer-base training step goes, on the card.
+"""Where the time of a BERT-base, GPT-2 small, T5-small, XLNet-base,
+Longformer-base or padding-masked (``sdpa_varlen_op``) training step goes,
+on the card.
 
 Runs a training workload of ``chip_smoke.py``: ``--model bert`` (the
 default) BERT-base at published widths, seq 512, batch 16,
@@ -16,7 +17,16 @@ published widths, seq 512, batch 8, ``xlnet_plm_graph`` on
 full-mask-with-bias kernels; ``--model longformer`` Longformer-base at
 published widths, seq 4096, batch 2, ``longformer_mlm_graph`` on
 ``synthetic_mlm_ids(cfg, seed=0)``, the window mask through the full-mask
-kernels.  All: seeded random weights, fp32 (with ``--compute-dtype
+kernels; ``--model varlen-bert`` and ``--model varlen-gpt2``
+(:func:`varlen_graph`): L = 12 pre-norm attention blocks at BERT-base's
+and GPT-2 small's attention widths (hidden 768, 12 heads of 64),
+``x = x + o(sdpa_varlen_op(q(LN x), k(LN x), v(LN x), lens))`` and the
+loss ``mean((x - y)^2)`` on seeded float feeds, BERT's at seq 512, batch
+16, not causal, the lengths of ``synthetic_mlm_batch``'s rule (35 % of
+rows full, the rest uniform over [128, 512], seed 0), GPT-2's at seq
+1024, batch 8, causal, lengths uniform over [256, 1024] from seed 0 with
+one row full: the training kernels' ``lengths`` specialization.  All:
+seeded random weights, fp32 (with ``--compute-dtype
 bfloat16``: bf16 mixed precision, the bf16 flash kernels; ``--batch``
 sets the batch: bench.py's flagship is ``--model bert --compute-dtype
 bfloat16 --batch 64``), dropout 0.1, the one batch fed every step,
@@ -30,8 +40,8 @@ entry's launches and device time by its name in ``chip_smoke.py``'s
 ``bf16_fwd_mask_bias_launches``).  Run from the repository root::
 
     python3 -m hetu_tpu_torch.tools.profile_train
-        [--model bert|gpt2|t5|xlnet|longformer] [--compute-dtype bfloat16]
-        [--batch N] [--out DIR] [--steps N]
+        [--model bert|gpt2|t5|xlnet|longformer|varlen-bert|varlen-gpt2]
+        [--compute-dtype bfloat16] [--batch N] [--out DIR] [--steps N]
 
 ``--out`` receives ``profile_train[_<model>][_bf16].json`` (no model
 suffix for bert) and the operator tables.
@@ -56,7 +66,11 @@ WARMUP = 2
 #: T5's source and target lengths; model -> (batch, tokens a sequence)
 T5_SRC, T5_TGT = 512, 114
 SHAPES = {"bert": (16, 512), "gpt2": (8, 1024), "t5": (32, T5_SRC + T5_TGT),
-          "xlnet": (8, 512), "longformer": (2, 4096)}
+          "xlnet": (8, 512), "longformer": (2, 4096),
+          "varlen-bert": (16, 512), "varlen-gpt2": (8, 1024)}
+#: the varlen graphs' widths (BERT-base's and GPT-2 small's attention) and
+#: depth (both models' published 12 layers)
+VARLEN_HIDDEN, VARLEN_HEADS, VARLEN_LAYERS = 768, 12, 12
 # the kernels' names in a trace (the float32 SIMT ones, then the bf16
 # tensor-core ones); the causal, mask and bias instantiations share them
 FLASH = {"flash_fwd_kernel": "fwd", "flash_bwd_dq_kernel": "dq",
@@ -82,11 +96,13 @@ def line_name(counter):
         + ("_" + rest if rest else "")
 
 
-def kernel_counter(kernel):
+def kernel_counter(kernel, lengths=False):
     """The launch counter of ``ops/kernels/flash_attention.py`` that counts
     the trace's kernel ``kernel`` (``bf16_dq_mask_bias_launches``), from
     its template arguments; None for any other kernel.  The tensor-core
-    (``_mma``) kernels are the bf16 ones."""
+    (``_mma``) kernels are the bf16 ones.  ``lengths`` is an argument, not
+    a template flag: with ``lengths=True`` (a run whose every flash call
+    takes it) the counter is the ``_len`` one."""
     m = _FLASH_KERNEL.search(kernel)
     if m is None:
         return None
@@ -104,7 +120,7 @@ def kernel_counter(kernel):
         rest = "causal" if causal else ""
     bf16 = m.group(2) is not None or "bfloat16" in m.group(3)
     return ("bf16_" if bf16 else "") + kind + ("_" + rest if rest else "") \
-        + "_launches"
+        + ("_len" if lengths else "") + "_launches"
 
 
 def _card():
@@ -120,12 +136,74 @@ def _is_gemm(name):
             or "nvjet" in n)                # cuBLAS's Hopper bf16 kernels
 
 
+def varlen_graph(batch, seq, causal, n_layer=VARLEN_LAYERS,
+                 hidden=VARLEN_HIDDEN, heads=VARLEN_HEADS):
+    """The padding-masked attention graph: float feeds ``x`` and ``y``
+    (B·S, hidden) and the int32 feed ``lens`` (B,); each of ``n_layer``
+    layers ``x = x + o(attn(LayerNorm(x)))``, with q, k, v ``Linear``
+    layers reshaped to (B, S, heads, hidden / heads), transposed to
+    (B, heads, S, hidden / heads), ``sdpa_varlen_op(q, k, v, lens,
+    causal=causal)`` and the way back; the loss ``mean((x - y)^2)``.
+    Variables ``layer<i>.ln``, ``.q``, ``.k``, ``.v``, ``.o``: the JAX
+    package builds the same graph from the same ops and layers, so weights
+    carry by name.  Returns ({name: placeholder}, loss)."""
+    x = ht.placeholder_op("x", shape=(batch * seq, hidden))
+    y = ht.placeholder_op("y", shape=(batch * seq, hidden))
+    lens = ht.placeholder_op("lens", shape=(batch,), dtype=np.int32)
+    dk = hidden // heads
+
+    def split(t):
+        t = ht.array_reshape_op(t, output_shape=(batch, seq, heads, dk))
+        return ht.transpose_op(t, perm=(0, 2, 1, 3))
+
+    h = x
+    for i in range(n_layer):
+        a = ht.layers.LayerNorm(hidden, name=f"layer{i}.ln")(h)
+        q, k, v = (split(ht.layers.Linear(hidden, hidden,
+                                          name=f"layer{i}.{n}")(a))
+                   for n in "qkv")
+        o = ht.ops.sdpa_varlen_op(q, k, v, lens, causal=causal)
+        o = ht.transpose_op(o, perm=(0, 2, 1, 3))
+        o = ht.array_reshape_op(o, output_shape=(batch * seq, hidden))
+        h = h + ht.layers.Linear(hidden, hidden, name=f"layer{i}.o")(o)
+    diff = h - y
+    loss = ht.reduce_mean_op(ht.mul_op(diff, diff), [0, 1])
+    return {"x": x, "y": y, "lens": lens}, loss
+
+
+def varlen_lengths(model, batch, seq, seed=0):
+    """The varlen workloads' lengths (B,) int32: ``varlen-bert``
+    ``synthetic_mlm_batch``'s rule (35 % of rows full, the rest uniform over
+    [seq / 4, seq]); ``varlen-gpt2`` uniform over [seq / 4, seq] with row
+    0 full."""
+    if model == "varlen-bert":
+        cfg = ht.BertConfig.base(batch_size=batch, seq_len=seq)
+        return ht.synthetic_mlm_batch(cfg, seed=seed)[3].sum(1) \
+            .astype(np.int32)
+    lens = np.random.RandomState(seed).randint(seq // 4, seq + 1, batch)
+    lens[0] = seq
+    return lens.astype(np.int32)
+
+
+def varlen_feeds(feeds, lens, hidden=VARLEN_HIDDEN, seed=0):
+    """The feed dict of :func:`varlen_graph`: ``x`` and ``y`` standard
+    normal from ``seed``, ``lens``."""
+    rng = np.random.RandomState(seed)
+    rows = feeds["x"].shape[0]
+    return {feeds["x"]: rng.randn(rows, hidden).astype(np.float32),
+            feeds["y"]: rng.randn(rows, hidden).astype(np.float32),
+            feeds["lens"]: np.asarray(lens, np.int32)}
+
+
 def build(model, device="cuda", compute_dtype=None, batch=None):
     """(executor, feed dict) of ``model``'s training workload, with
     ``compute_dtype`` and, given, ``batch`` instead of the model's."""
     batch = batch or SHAPES[model][0]
     seq = SHAPES[model][1]
-    if model == "t5":
+    if model.startswith("varlen"):
+        feeds, loss = varlen_graph(batch, seq, causal=model == "varlen-gpt2")
+        fd = varlen_feeds(feeds, varlen_lengths(model, batch, seq))
+    elif model == "t5":
         cfg = ht.T5Config.small(batch_size=batch, src_len=T5_SRC,
                                 tgt_len=T5_TGT)
         feeds, loss, _ = ht.t5_seq2seq_graph(cfg, use_mask=True)
@@ -161,14 +239,16 @@ def build(model, device="cuda", compute_dtype=None, batch=None):
                        compute_dtype=compute_dtype), fd
 
 
-def profile_steps(step, psteps=3, step_s=None):
+def profile_steps(step, psteps=3, step_s=None, lengths=False):
     """``psteps`` calls of ``step`` (one training step each) under
     ``torch.profiler``: per step the device busy time (sum of kernel
     durations on the one stream), the device's idle share (against the
     profiled wall time and, given ``step_s``, the unprofiled step time:
     the profiler slows the host, not the kernels), kernel launches, the
     three flash kernels' time and share, the matrix products' and the
-    kernels that take the most device time.  Returns (that report, the
+    kernels that take the most device time; each flash entry under its
+    kernels-line name (``lengths``: the ``_len`` entries, for a run whose
+    every flash call takes ``lengths``).  Returns (that report, the
     profiler)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -193,7 +273,7 @@ def profile_steps(step, psteps=3, step_s=None):
         flash[short] += sum(v[1] for n, v in kern.items() if key in n)
     entries = collections.defaultdict(lambda: [0, 0.0])
     for n, (c, us) in kern.items():
-        counter = kernel_counter(n)
+        counter = kernel_counter(n, lengths)
         if counter is not None:
             entries[line_name(counter)][0] += c
             entries[line_name(counter)][1] += us
@@ -260,7 +340,8 @@ def main(argv=None):
     for n in counters:
         setattr(fa, n, 0)
     psteps = 3
-    profiled, prof = profile_steps(step, psteps, step_s)
+    profiled, prof = profile_steps(step, psteps, step_s,
+                                   lengths=args.model.startswith("varlen"))
     report = {
         "card": _card(), "torch": torch.__version__, "model": args.model,
         "batch": batch, "seq": seq,

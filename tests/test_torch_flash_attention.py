@@ -425,18 +425,6 @@ def test_fullmask_lse_of_a_dead_row_and_storage():
     assert np.all(lse.numpy()[::TH, 0] == np.float32(fa.NEG_INF))
 
 
-@pytest.mark.parametrize("what", ["lengths+key_mask", "lengths+causal"])
-def test_unported_specializations_are_refused_by_name(what):
-    q = torch.zeros(2, 2, 8, 8)
-    kw = {"lengths+key_mask": dict(
-              lengths=torch.ones(2, dtype=torch.int32),
-              key_mask=torch.ones(2, 8, dtype=torch.int32)),
-          "lengths+causal": dict(lengths=torch.ones(2, dtype=torch.int32),
-                                 causal=True)}[what]
-    with pytest.raises(NotImplementedError, match=what.split("+")[0]):
-        fa.flash_attention(q, q, q, **kw)
-
-
 def test_new_wrappers_count_no_launch_on_cpu():
     q, k, v, do, km = _causal_inputs(16, 16, seed=9, key_mask=True)
     names = ("fwd_causal_launches", "dq_causal_launches",
@@ -602,9 +590,11 @@ def test_bias_wrappers_count_no_launch_on_cpu_and_give_storage_grads():
     tq, tk, tv, tdo = flat
     tb, tkm = torch.from_numpy(bias), torch.from_numpy(km)
     names = [n for n in vars(fa) if "bias" in n and n.endswith("launches")]
-    # the mask-with-bias ones among them, each with its bfloat16 twin
-    assert len(names) == 30
-    assert sum(n.startswith("bf16_") for n in names) == 15
+    # the mask-with-bias ones among them, each with its bfloat16 twin, and
+    # each of those with its lengths twin
+    assert len(names) == 60
+    assert sum(n.startswith("bf16_") for n in names) == 30
+    assert sum(n.endswith("_len_launches") for n in names) == 30
     before = [getattr(fa, n) for n in names]
     out, lse = fa.flash_fwd_bias(tq, tk, tv, tkm, tb, None, "h", BHEADS, 0.3)
     delta = (tdo * out).sum(-1)
@@ -775,9 +765,10 @@ def test_mask_wrappers_count_no_launch_on_cpu():
     mask = torch.from_numpy(_mask_of("h", seed=1, s=24)[0, :, :16]
                             .astype(np.uint8)).contiguous()
     names = [n for n in vars(fa) if "mask" in n and n.endswith("launches")]
-    # each with its bfloat16 twin
-    assert len(names) == 18
-    assert sum(n.startswith("bf16_") for n in names) == 9
+    # each with its bfloat16 twin, and each of those with its lengths twin
+    assert len(names) == 36
+    assert sum(n.startswith("bf16_") for n in names) == 18
+    assert sum(n.endswith("_len_launches") for n in names) == 18
     before = [getattr(fa, n) for n in names]
     for b, kb in ((None, None), (tb, None), (None, tb[:, :1].contiguous())):
         kw = dict(causal=True, bias=b, kbias=kb, bgmode="b")
@@ -1018,18 +1009,3 @@ def test_tile_maps_and_walked_tiles_match_numpy_reference(gmode, s_q, s_kv):
         else:
             assert (walk.numpy() | ~want).all()
 
-
-def test_lengths_backward_is_refused_by_name():
-    rng = np.random.RandomState(3)
-    q, k, v = (torch.from_numpy(rng.randn(2, 2, 1, 8).astype(np.float32))
-               for _ in range(3))
-    lengths = torch.tensor([1, 1], dtype=torch.int32)
-    for t in (q, k, v):
-        t.requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="lengths backward"):
-            fa.flash_attention(q, k, v, lengths=lengths)
-        with torch.no_grad():                 # serving: unchanged
-            out = fa.flash_attention(q, k, v, lengths=lengths)
-        t.requires_grad_(False)
-        np.testing.assert_array_equal(
-            out.numpy(), fa.flash_attention(q, k, v, lengths=lengths).numpy())

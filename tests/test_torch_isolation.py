@@ -152,37 +152,19 @@ def test_inference_executor_refuses_checkpoint_directory(tmp_path):
         ht.InferenceExecutor([logits], weights=str(tmp_path), device="cpu")
 
 
-@pytest.mark.parametrize("spec", ["causal", "key_mask", "mask", "bias"])
-def test_flash_attention_unported_specializations_raise(spec):
-    """Ported: ``lengths`` (decode), dense / ``key_mask`` / causal / full
-    mask / bias, alone or together (training), with their backward.
-    Unported and refused by name: ``lengths`` together with ``key_mask``,
-    ``mask``, ``causal`` or a bias."""
-    q = torch.zeros(1, 1, 1, 8)
-    kw = {"lengths": torch.ones(1, dtype=torch.int32)}
-    match = spec
-    if spec == "causal":
-        kw["causal"] = True
-    elif spec == "key_mask":
-        kw[spec] = torch.ones(1, 1, dtype=torch.int32)
-        match = "lengths together with key_mask"
-    else:
-        kw[spec] = torch.ones(1, 1, 1, 1)
-    with pytest.raises(NotImplementedError, match=match):
-        fa.flash_attention(q, q, q, **kw)
-
-
 @pytest.mark.parametrize("what", ["causal", "full_mask", "prefill", "bias",
                                   "masked_bias", "masked_bias_full",
-                                  "bf16_key_mask", "bf16_causal"])
+                                  "bf16_key_mask", "bf16_causal", "varlen",
+                                  "bf16_varlen_causal"])
 def test_attention_dispatch_off_the_cpu_raises_for_unported_kinds(what):
     """A tensor off the CPU (a meta tensor stands in for the card here)
     goes to the kernel wrappers, which launch or raise: the dispatcher
     never falls back to the plain attention.  Causal, a full mask, the
-    chunked prefill and a bias (alone, with a key mask or with a full
-    mask) are ported, and so is bfloat16 (the mixed-precision path), so
-    each reaches its wrapper, and the wrapper has no kernel for a device
-    that is not CUDA."""
+    chunked prefill, a bias (alone, with a key mask or with a full mask)
+    and ``lengths`` (``sdpa_varlen_op``, alone or causal) are ported, and
+    so is bfloat16 (the mixed-precision path), so each reaches its
+    wrapper, and the wrapper has no kernel for a device that is not
+    CUDA."""
     from hetu_tpu_torch.ops import attention
     q = torch.zeros(1, 1, 2, 8, device="meta",
                     dtype=torch.bfloat16 if what.startswith("bf16")
@@ -195,6 +177,10 @@ def test_attention_dispatch_off_the_cpu_raises_for_unported_kinds(what):
             rows = 2 if what == "masked_bias_full" else 1
             mask = torch.ones(1, 1, rows, 2, dtype=torch.int32, device="meta")
             attention.dispatch_sdpa_masked_bias(q, q, q, mask, bias)
+        elif what.endswith(("varlen", "varlen_causal")):
+            attention.dispatch_sdpa_varlen(
+                q, q, q, torch.ones(1, dtype=torch.int32, device="meta"),
+                causal=what.endswith("causal"))
         elif what == "prefill":
             attention.dispatch_sdpa_prefill(
                 q, q, q, torch.zeros(1, dtype=torch.int32, device="meta"))

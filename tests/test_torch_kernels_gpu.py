@@ -837,11 +837,13 @@ def _bf16(*xs):
     return tuple(None if x is None else x.to(torch.bfloat16) for x in xs)
 
 
-def _bf16_run(fa_kind, q, k, v, do, km, mask, mgmode, bias, kbias, bgmode,
-              causal, scale):
-    """(out, lse, dq, dk, dv, dbias, dkbias) of the kernels for one case."""
+def _run_kernels(fa_kind, q, k, v, do, km, mask, mgmode, bias, kbias,
+                 bgmode, causal, scale, lengths=None):
+    """(out, lse, dq, dk, dv, dbias, dkbias) of the kernels for one case
+    (H = 3), with ``lengths`` (B,) when given."""
     if fa_kind.startswith("mask"):
-        kw = dict(causal=causal, bias=bias, kbias=kbias, bgmode=bgmode)
+        kw = dict(causal=causal, bias=bias, kbias=kbias, bgmode=bgmode,
+                  lengths=lengths)
         out, lse = fa.flash_fwd_fullmask(q, k, v, mask, mgmode, 3, scale,
                                          key_mask=km, **kw)
         delta = (do.float() * out.float()).sum(-1)
@@ -850,18 +852,21 @@ def _bf16_run(fa_kind, q, k, v, do, km, mask, mgmode, bias, kbias, bgmode,
         dk, dv, dkbias = fa.flash_bwd_dkv_mask(*args, **kw)
     elif fa_kind in ("bias", "kbias"):
         out, lse = fa.flash_fwd_bias(q, k, v, km, bias, kbias, bgmode, 3,
-                                     scale, causal=causal)
+                                     scale, causal=causal, lengths=lengths)
         delta = (do.float() * out.float()).sum(-1)
         args = (q, k, v, km, bias, kbias, bgmode, 3, do, lse, delta, scale)
-        dq, dbias = fa.flash_bwd_dq_bias(*args, causal=causal)
-        dk, dv, dkbias = fa.flash_bwd_dkv_bias(*args, causal=causal)
+        dq, dbias = fa.flash_bwd_dq_bias(*args, causal=causal,
+                                         lengths=lengths)
+        dk, dv, dkbias = fa.flash_bwd_dkv_bias(*args, causal=causal,
+                                               lengths=lengths)
     else:
-        out, lse = fa.flash_fwd_masked(q, k, v, km, scale, causal=causal)
+        out, lse = fa.flash_fwd_masked(q, k, v, km, scale, causal=causal,
+                                       lengths=lengths)
         delta = (do.float() * out.float()).sum(-1)
         dq = fa.flash_bwd_dq(q, k, v, km, do, lse, delta, scale,
-                             causal=causal)
+                             causal=causal, lengths=lengths)
         dk, dv = fa.flash_bwd_dkv(q, k, v, km, do, lse, delta, scale,
-                                  causal=causal)
+                                  causal=causal, lengths=lengths)
         dbias = dkbias = None
     return out, lse, dq, dk, dv, dbias, dkbias
 
@@ -893,8 +898,8 @@ def test_bf16_kernels_match_plain_version(cuda, kind, mgmode, bgmode, s_q,
     scale = 0.37
     counters = [n for n in vars(fa) if n.endswith("launches")]
     before = {n: getattr(fa, n) for n in counters}
-    got = _bf16_run(kind, q, k, v, do, km, mask, mgmode or "bh", bias, kbias,
-                    bgmode or "bh", causal, scale)
+    got = _run_kernels(kind, q, k, v, do, km, mask, mgmode or "bh", bias,
+                       kbias, bgmode or "bh", causal, scale)
     torch.cuda.synchronize()
     moved = {n: getattr(fa, n) - before[n] for n in counters
              if getattr(fa, n) != before[n]}
@@ -952,8 +957,8 @@ def test_bf16_dkv_is_the_same_from_run_to_run(cuda, kind, mgmode, bgmode,
         bias, kbias = _bias_of(cuda, "kbias", bgmode, s_q, s_kv, seed=s_kv)
     runs = []
     for _ in range(2):
-        got = _bf16_run(kind, q, k, v, do, km, mask, mgmode or "bh", bias,
-                        kbias, bgmode or "bh", causal, 0.37)
+        got = _run_kernels(kind, q, k, v, do, km, mask, mgmode or "bh",
+                           bias, kbias, bgmode or "bh", causal, 0.37)
         runs.append((got[3], got[4], got[6]))       # dk, dv, dkbias
     torch.cuda.synchronize()
     for a, b, name in zip(runs[0], runs[1], ("dk", "dv", "dkbias")):
@@ -986,8 +991,8 @@ def test_bf16_dq_is_the_same_from_run_to_run(cuda, kind, mgmode, bgmode,
         bias, kbias = _bias_of(cuda, "bias", bgmode, s_q, s_kv, seed=s_kv)
     runs = []
     for _ in range(2):
-        got = _bf16_run(kind, q, k, v, do, km, mask, mgmode or "bh", bias,
-                        kbias, bgmode or "bh", causal, 0.37)
+        got = _run_kernels(kind, q, k, v, do, km, mask, mgmode or "bh",
+                           bias, kbias, bgmode or "bh", causal, 0.37)
         runs.append((got[2], got[5]))               # dq, dbias
     torch.cuda.synchronize()
     for a, b, name in zip(runs[0], runs[1], ("dq", "dbias")):
@@ -1029,3 +1034,212 @@ def test_bf16_head_dim_must_be_a_multiple_of_8(cuda):
     fa.flash_fwd_masked(q, k, v, None, 0.1)         # float32 takes D = 68
     with pytest.raises(ValueError, match="multiple of 8"):
         fa.flash_fwd_masked(*_bf16(q, k, v), None, 0.1)
+
+
+# -- lengths with every other rule (sdpa_varlen_op), float32 and bf16 ------
+
+#: (kind, mask gmode, bias gmode, S_q, S_kv, D, causal, key mask, lengths of
+#: the two batch rows): ``lengths`` alone and with each rule the templates
+#: combine it with, at ragged shapes with S_q != S_kv; lengths 0, 1, ragged,
+#: a whole number of tiles, = S_kv and > S_kv
+LEN_CASES = [("dense", None, None, 200, 200, 64, False, False, (77, 200)),
+             ("dense", None, None, 130, 333, 64, False, False, (0, 383)),
+             ("dense", None, None, 200, 200, 64, True, False, (1, 150)),
+             ("dense", None, None, 200, 130, 40, True, False, (130, 64)),
+             ("dense", None, None, 200, 300, 64, False, True, (256, 17)),
+             ("mask", "b", None, 96, 150, 64, False, False, (100, 0)),
+             ("mask", "one", None, 200, 200, 64, True, True, (128, 200)),
+             ("mask", "h", None, 130, 200, 64, False, False, (65, 999)),
+             ("mask", "bh", None, 77, 101, 96, True, False, (1, 64)),
+             ("bias", None, "h", 200, 130, 64, False, True, (100, 129)),
+             ("bias", None, "bh", 114, 114, 64, True, False, (50, 114)),
+             ("kbias", None, "b", 200, 200, 64, True, True, (190, 3)),
+             ("mask_bias", "b", "h", 96, 96, 64, False, False, (70, 96)),
+             ("mask_kbias", "h", "one", 130, 200, 64, True, False, (129, 0))]
+
+
+def _len_case(cuda, kind, mgmode, bgmode, s_q, s_kv, d, masked, lens,
+              dtype, seed):
+    """Inputs of one ``LEN_CASES`` case in ``dtype``: (q, k, v, do, key
+    mask, lengths, mask, bias, kbias)."""
+    q, k, v, do, km = _causal_inputs(cuda, s_q, s_kv, d, masked, seed)
+    if dtype == torch.bfloat16:
+        q, k, v, do = _bf16(q, k, v, do)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    mask = None
+    if mgmode is not None:
+        rng = np.random.RandomState(seed + 1)
+        m = rng.rand(fa._group_rows(mgmode, 6, 3), s_q, s_kv) < 0.6
+        m[0, 0] = False                  # a row with every key masked
+        mask = torch.from_numpy(m.astype(np.uint8)).to(cuda)
+    bias = kbias = None
+    if bgmode is not None:
+        bias, kbias = _bias_of(cuda, "kbias" if kind.endswith("kbias")
+                               else "bias", bgmode, s_q, s_kv, seed=seed + 2)
+    return q, k, v, do, km, lengths, mask, bias, kbias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind,mgmode,bgmode,s_q,s_kv,d,causal,masked,lens",
+                         LEN_CASES)
+def test_lengths_kernels_match_plain_version(cuda, kind, mgmode, bgmode, s_q,
+                                             s_kv, d, causal, masked, lens,
+                                             dtype):
+    """Every kernel with ``lengths`` (forward, dQ with dbias, dK/dV with
+    dkbias) against its plain version on the same inputs: float32 out and
+    lse within 1e-5 and the gradients allclose(rtol=1e-4, atol=1e-5);
+    bf16 within ``BF16_TOL``, lse within 1e-4.  dK and dV are exactly 0 at
+    every key at or past the length, dkbias too, dbias on every pair no row
+    sees; a row that sees no key gives out = dQ = 0 and lse = -1e30; each
+    launch counts under its ``_len`` counter of the dtype."""
+    q, k, v, do, km, lengths, mask, bias, kbias = _len_case(
+        cuda, kind, mgmode, bgmode, s_q, s_kv, d, masked, lens, dtype,
+        seed=s_q + 7 * s_kv + d)
+    scale = 0.37
+    counters = [n for n in vars(fa) if n.endswith("launches")]
+    before = {n: getattr(fa, n) for n in counters}
+    got = _run_kernels(kind, q, k, v, do, km, mask, mgmode or "bh", bias,
+                       kbias, bgmode or "bh", causal, scale, lengths)
+    torch.cuda.synchronize()
+    moved = {n: getattr(fa, n) - before[n] for n in counters
+             if getattr(fa, n) != before[n]}
+    bf16 = dtype == torch.bfloat16
+    assert len(moved) == 3 and all(
+        n.endswith("_len_launches") and n.startswith("bf16_") == bf16
+        and c == 1 for n, c in moved.items()), moved
+    out, lse, dq, dk, dv, dbias, dkbias = got
+    ref, lse_ref = fa.flash_fwd_plain(
+        q, k, v, lengths, 3, scale, key_mask=km, causal=causal, mask=mask,
+        gmode=mgmode or "bh", bias=bias, kbias=kbias, bgmode=bgmode or "bh")
+    want = fa.flash_bwd_bias_plain(q, k, v, km, bias, kbias, bgmode or "bh",
+                                   3, out, lse, do, scale, causal=causal,
+                                   mask=mask, gmode=mgmode or "bh",
+                                   lengths=lengths)
+    tol = BF16_TOL if bf16 else dict(rtol=1e-4, atol=ATOL)
+    assert float((lse - lse_ref).abs().max()) <= (1e-4 if bf16 else ATOL)
+    if bf16:
+        torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+    else:
+        assert float((out - ref).abs().max()) <= ATOL
+    for g, w, name in zip((dq, dk, dv, dbias, dkbias), want,
+                          ("dq", "dk", "dv", "dbias", "dkbias")):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert g.dtype == w.dtype, name
+            assert bool(torch.isfinite(g.float()).all()), name
+            torch.testing.assert_close(g.float(), w.float(), **tol, msg=name)
+    for b, n in enumerate(lens):          # the padded keys: exactly 0
+        pad = slice(max(0, min(n, s_kv)), s_kv)
+        rows = slice(3 * b, 3 * b + 3)
+        for g in (dk, dv) + ((dkbias,) if dkbias is not None else ()):
+            assert int(torch.count_nonzero(g[rows, ..., pad])
+                       if g is dkbias else
+                       torch.count_nonzero(g[rows, pad])) == 0
+    valid = fa._valid(6, s_q, s_kv, cuda, lengths=lengths, key_mask=km,
+                      causal=causal, mask=mask, gmode=mgmode or "bh",
+                      heads=3).expand(6, s_q, s_kv)
+    blind = ~valid.any(-1)
+    if bool(blind.any()):
+        assert float(out[blind].float().abs().max()) == 0.0
+        assert float(dq[blind].float().abs().max()) == 0.0
+        assert bool((lse[blind] == fa.NEG_INF).all())
+    if dbias is not None:
+        assert int(torch.count_nonzero(dbias[~valid])) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [0, 2, 9, 13])
+def test_lengths_kernels_are_the_same_from_run_to_run(cuda, case, dtype):
+    """dQ, dbias, dK, dV and dkbias with ``lengths``: each CTA owns its
+    rows or keys (no atomics), so two runs are equal bit for bit."""
+    kind, mgmode, bgmode, s_q, s_kv, d, causal, masked, lens = \
+        LEN_CASES[case]
+    q, k, v, do, km, lengths, mask, bias, kbias = _len_case(
+        cuda, kind, mgmode, bgmode, s_q, s_kv, d, masked, lens, dtype,
+        seed=case)
+    runs = [_run_kernels(kind, q, k, v, do, km, mask, mgmode or "bh", bias,
+                         kbias, bgmode or "bh", causal, 0.37, lengths)[2:]
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b, name in zip(runs[0], runs[1],
+                          ("dq", "dk", "dv", "dbias", "dkbias")):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind,s_q,s_kv,causal,lens",
+                         [("dense", 512, 512, False, (300, 64)),
+                          ("dense", 300, 700, True, (129, 700)),
+                          ("mask", 256, 520, False, (200, 448)),
+                          ("bias", 200, 450, False, (0, 130))])
+def test_lengths_walk_stops_at_the_length(cuda, kind, s_q, s_kv, causal,
+                                          lens, dtype):
+    """The key tiles past each row's length are never read: K and V are
+    NaN in every 64-key tile that starts at or past the length (those
+    ``walked_tiles`` leaves out), and the forward, dQ and dK/dV still
+    match the plain version on the clean inputs, with dK = dV = 0 exactly
+    on those tiles."""
+    q, k, v, do, _, lengths, mask, bias, kbias = _len_case(
+        cuda, "mask" if kind == "mask" else kind, "b" if kind == "mask"
+        else None, "h" if kind == "bias" else None, s_q, s_kv, 64, False,
+        lens, dtype, seed=s_kv)
+    walk = fa.walked_tiles(6, 3, s_q, s_kv, lengths=lengths)[:, 0]
+    assert 0 < int(walk.sum()) < walk.numel()
+    dead = ~walk.repeat_interleave(fa.TILE, dim=1)[:, :s_kv]   # (BH, S_kv)
+    kp, vp = k.clone(), v.clone()
+    kp[dead], vp[dead] = float("nan"), float("nan")
+    args = (kind, q, kp, vp, do, None, mask, "b", bias, kbias, "h", causal,
+            0.37, lengths)
+    out, lse, dq, dk, dv, _, _ = _run_kernels(*args)
+    ref = _run_kernels(kind, q, k, v, do, None, mask, "b", bias, kbias, "h",
+                       causal, 0.37, lengths)
+    torch.cuda.synchronize()
+    assert int(torch.count_nonzero(dk[dead])) == 0
+    assert int(torch.count_nonzero(dv[dead])) == 0
+    for g, w in zip((out, lse, dq, dk, dv), ref[:5]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_varlen_autograd_matches_the_cpu_route(cuda, causal, dtype):
+    """``flash_attention(lengths=)`` with a gradient on the card (the
+    forward, dQ and dK/dV with ``lengths``, once each) against the same
+    call on the CPU (the plain versions): output and gradients within 1e-5
+    (float32) or ``BF16_TOL``; the gradient of every padded key exactly
+    0."""
+    q, k, v, do, _ = _causal_inputs(cuda, 200, 200, 64, False, seed=4)
+    if dtype == torch.bfloat16:
+        q, k, v, do = _bf16(q, k, v, do)
+    q4, k4, v4, do4 = (t.view(2, 3, 200, 64) for t in (q, k, v, do))
+    lengths = torch.tensor([77, 200], dtype=torch.int32)
+    names = [("bf16_" if dtype == torch.bfloat16 else "") + n
+             + ("_causal" if causal else "") + "_len_launches"
+             for n in ("fwd", "dq", "dkv")]
+    before = [getattr(fa, n) for n in names]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        x = [t.to(dev).detach().requires_grad_(True) for t in (q4, k4, v4)]
+        out = fa.flash_attention(*x, causal=causal,
+                                 lengths=lengths.to(dev))
+        res[dev] = (out,) + torch.autograd.grad(out, x, do4.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert [getattr(fa, n) for n in names] == [n + 1 for n in before]
+    tol = BF16_TOL if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=ATOL)
+    for g, w in zip(res["cuda"], res["cpu"]):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.detach().float().cpu(),
+                                   w.detach().float(), **tol)
+    for g in res["cuda"][2:]:
+        assert int(torch.count_nonzero(g[0, :, 77:])) == 0
