@@ -32,8 +32,8 @@ without printing the final result line:
    Phases 5, 14 and 18 share one check (``attn_case``): out and lse
    within ``KERNEL_ATOL``, every gradient finite and within ``GRAD_RTOL``
    / ``GRAD_ATOL``, every row that sees no key out = dQ = 0 with lse =
-   -1e30; it also prints the key tiles the float32 forward walks (it skips
-   those with no visible pair) against all of them.
+   -1e30; it also prints the tiles the float32 forward, dQ and dK/dV walk
+   (they skip those with no visible pair) against all of them.
 6. Train BERT-base (published widths: 12 layers, hidden 768, 12 heads,
    intermediate 3072, vocab 30522; seq 512, batch 16, dropout 0.1) with
    ``AdamOptimizer(1e-4)`` through ``Executor.run``: 2 warm-up steps, then
@@ -670,8 +670,8 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
     also times each kernel, the plain versions and SDPA on the same
     function, each launch with the L2 flushed, beside its bound.  Returns
     (max_abs_err {fwd, dq, dkv}, timings {fwd, dq, dkv} or None); the
-    log line and the forward's timing give the key tiles the float32
-    forward walks (``fa.walked_tiles``) beside all of them."""
+    log line and each float32 timing give the (query tile, key tile) pairs
+    the kernel walks (``fa.walked_tiles``) beside all of them."""
     F = torch.nn.functional
     bh, s_q, dh = q.shape
     s_kv = k.shape[1]
@@ -755,12 +755,16 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
         err[key] = max(err.get(key, 0.0), e)
     valid = fa._valid(bh, s_q, s_kv, q.device, lengths=lengths, key_mask=km,
                       causal=causal, mask=mask, gmode=mask_gmode, heads=heads)
-    # key tiles the float32 forward walks (it skips those with no visible
-    # pair); the bf16 forward and every backward walk all below the causal
-    # end and the length
-    walk = fa.walked_tiles(bh, heads, s_q, s_kv, key_mask=km, causal=causal,
-                           mask=mask, gmode=mask_gmode, lengths=lengths)
-    tiles = {"walked": int(walk.sum()), "of": int(walk.numel())}
+    # the (query tile, key tile) pairs the float32 kernels walk (they skip
+    # those with no visible pair): the forward and dQ by query tile, dK/dV
+    # by key tile; the bf16 kernels walk all below the causal end and the
+    # length
+    wkw = dict(key_mask=km, causal=causal, mask=mask, gmode=mask_gmode,
+               lengths=lengths)
+    walk = fa.walked_tiles(bh, heads, s_q, s_kv, **wkw)
+    tiles = {"walked": int(walk.sum()), "of": int(walk.numel()),
+             "walked_dkv": int(fa.walked_tiles(bh, heads, s_q, s_kv,
+                                               by="key", **wkw).sum())}
     if lengths is not None:
         tiles["below_lengths"] = int(fa.walked_tiles(
             bh, heads, s_q, s_kv, causal=causal, lengths=lengths).sum())
@@ -793,8 +797,10 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
         f"mask={'none' if mask is None else 'group ' + mask_gmode} "
         f"bias={'dense ' + gmode if bias is not None else 'strip ' + gmode if kbias is not None else 'none'} "
         f"lengths={'none' if lengths is None else 'yes'} "
-        f"scale={scale:.4g} rows seeing no key={blind} forward tiles "
-        f"{tiles['walked'] if not bf16 else tiles.get('below_lengths', tiles['of'])} of {tiles['of']} "
+        f"scale={scale:.4g} rows seeing no key={blind} fwd / dQ / dK·dV "
+        f"tiles {tiles['walked'] if not bf16 else tiles.get('below_lengths', tiles['of'])}"
+        f" / {tiles['walked'] if not bf16 else '-'} / "
+        f"{tiles['walked_dkv'] if not bf16 else '-'} of {tiles['of']} "
         f"max_abs_err {json.dumps(err)}; max |plain| {json.dumps(mags)}")
     if flush is None:
         return err, None
@@ -838,8 +844,10 @@ def attn_case(fa, tag, name, q, k, v, do, heads, scale, km=None,
         r["visible_pairs"] = pairs
         if lengths is not None:
             r["tiles_below_lengths"] = tiles["below_lengths"]
-        if kk == "fwd" and not bf16:
-            r["walked_tiles"], r["tiles"] = tiles["walked"], tiles["of"]
+        if not bf16:
+            r["walked_tiles"] = tiles["walked_dkv" if kk == "dkv"
+                                      else "walked"]
+            r["tiles"] = tiles["of"]
         elif mask is not None and not causal:  # a data mask skips no tile
             r["walked_pairs"] = bh * s_q * s_kv
     log(f"{tag} {name} timing (library = {what}; its backward is one call "
@@ -1922,7 +1930,7 @@ def phase_causal_kernels(fa):
         log(f"[causal-kernels] full mask {name} positions={pos.tolist()} "
             f"timing (library = SDPA attn_mask) {json.dumps(row)}")
         lines["mask"] = row
-    # key tiles the float32 forward skips: dead key-mask tails, S_q < S_kv
+    # key tiles the float32 kernels skip: dead key-mask tails, S_q < S_kv
     s_q, s_kv = 300, 700
     km = torch.from_numpy((np.arange(s_kv)[None, :] < np.array(
         [700, 650, 400, 129, 64, 1, 300, 0])[:, None]).astype(np.int32)).cuda()
@@ -2247,7 +2255,7 @@ def phase_bias_kernels(ht, fa):
     bh = T5_BATCH * heads
     attn = ht.synthetic_seq2seq_batch(cfg, seed=0, padded=True)[3].copy()
     attn[-1] = 0                          # a batch row with every key masked
-    # key tiles the float32 forward skips: dead tails and a dead tile inside
+    # key tiles the float32 kernels skip: dead tails and a dead tile inside
     dead = (np.arange(450)[None, :] < np.random.RandomState(181).randint(
         1, 451, size=T5_BATCH)[:, None]).astype(np.int32)
     dead[:, 64:128] = 0
@@ -2492,7 +2500,7 @@ def phase_mask_kernels(ht, fa):
     def rand_mask(gmode, b, s_q, s_kv, sparse=False):
         m = rng.rand(fa._group_rows(gmode, b * heads, heads), s_q, s_kv) \
             < (0.05 if sparse else 0.5)
-        if sparse:                         # tiles the float32 forward skips
+        if sparse:                         # tiles the float32 kernels skip
             m[:, :, 64:192] = False
             m[:, 64:128, :] = False
         m[0, 0] = False                    # a row the mask hides entirely
@@ -2546,12 +2554,13 @@ def phase_mask_kernels(ht, fa):
                              mask=mask, mask_gmode=mg)
         for kk, e in err.items():
             worst[kk + sfx] = max(worst.get(kk + sfx, 0.0), e)
-        if name.startswith("Longformer") and (
-                row["fwd"]["walked_tiles"] > row["fwd"]["tiles"] / 4):
-            raise AssertionError(f"{name}: the forward walks "
-                                 f"{row['fwd']['walked_tiles']} of "
-                                 f"{row['fwd']['tiles']} tiles, more than "
-                                 f"a quarter")
+        for kk in ("fwd", "dq", "dkv") if name.startswith("Longformer") \
+                else ():
+            if row[kk]["walked_tiles"] > row[kk]["tiles"] / 4:
+                raise AssertionError(f"{name}: {kk} walks "
+                                     f"{row[kk]['walked_tiles']} of "
+                                     f"{row[kk]['tiles']} tiles, more than "
+                                     f"a quarter")
         if row is not None and "fwd" + sfx not in lines:
             for kk, r in row.items():
                 lines[kk + sfx] = r
@@ -2567,6 +2576,17 @@ def attn_pairs(masks):
     (mask (G, S, S) numpy 0/1, copies): each mask counted once per head
     and batch row it reaches."""
     return float(sum(int(np.count_nonzero(m)) * n for m, n in masks))
+
+
+def walked_pairs(fa, m):
+    """(row, key) pairs a (b*h) of the float32 kernels walks, on average,
+    for a mask (S, S) or (B, ..., S, S) nonzero where visible: the tiles
+    ``fa.walked_tiles`` lists times 64 x 64."""
+    m = np.asarray(m != 0, np.uint8)
+    m = m.reshape(-1, *m.shape[-2:])
+    g, s_q, s_kv = m.shape
+    walk = fa.walked_tiles(g, 1, s_q, s_kv, mask=torch.from_numpy(m))
+    return float(walk.sum()) * fa.TILE * fa.TILE / g
 
 
 def xlnet_step_flops(cfg, cmask, qmask):
@@ -2702,7 +2722,8 @@ def phase_xlnet_train(ht, fa, metrics, kmods):
                        "content": attn_pairs([(batch[1], 1)])
                        / cfg.batch_size,
                        "query": attn_pairs([(batch[2], 1)]) / cfg.batch_size,
-                       "walked": float(cfg.seq_len ** 2)}})
+                       "walked_content": walked_pairs(fa, batch[1]),
+                       "walked_query": walked_pairs(fa, batch[2])}})
     log(f"[xlnet-train] {json.dumps(report)}")
     ex.close()
     del ex
@@ -2736,7 +2757,7 @@ def phase_longformer_train(ht, fa, metrics, kmods):
     report.update({"batch": cfg.batch_size, "seq": cfg.seq_len,
                    "tokens_per_s": tokens / (report["step_ms_mean"] / 1e3),
                    "visible_pairs_per_bh": attn_pairs([(wmask, 1)]),
-                   "walked_pairs_per_bh": float(cfg.seq_len ** 2)})
+                   "walked_pairs_per_bh": walked_pairs(fa, wmask)})
     log(f"[longformer-train] {json.dumps(report)}")
     ex.close()
     del ex

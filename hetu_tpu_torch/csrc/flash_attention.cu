@@ -300,110 +300,7 @@ extern "C" int hetu_flash_fwd_lengths(const float* q, const float* k, const floa
 
 namespace {
 
-constexpr int FT = 64;                  // query rows and keys of one tile
-constexpr int FTHREADS = 128;           // 16 x 8 threads
-constexpr int FPLD = FT + 4;            // row stride of the P tile
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void async_copy16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void async_copy4(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows [r0, r0 + rows) of the row-major (n, d) float32 matrix `src` into
-// `dst` (row stride ld), 16 bytes a copy; rows at or past n are zero.
-__device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__ src, int r0,
-                                           int n, int d, int ld, int rows) {
-  const int d4 = d >> 2;
-  for (int i = threadIdx.x; i < rows * d4; i += FTHREADS) {
-    const int r = i / d4, c = i - r * d4;
-    float* s = dst + r * ld + 4 * c;
-    if (r0 + r < n)
-      async_copy16(s, src + (size_t)(r0 + r) * d + 4 * c);
-    else
-      *reinterpret_cast<float4*>(s) = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// The rows x 64 tile at (q0, k0) of one (S_q, S_kv) uint8 mask; ragged
-// edges 0.
-__device__ __forceinline__ void stage_mask(unsigned char* dst, const unsigned char* __restrict__ mb,
-                                           int q0, int k0, int s_q, int s_kv, bool vec,
-                                           int rows) {
-  for (int i = threadIdx.x; i < rows * FT / 16; i += FTHREADS) {
-    const int r = i >> 2, c = 16 * (i & 3);
-    const int row = q0 + r, key = k0 + c;
-    unsigned char* s = dst + r * FT + c;
-    const unsigned char* g = mb + (size_t)row * s_kv + key;
-    if (vec && row < s_q && key + 16 <= s_kv) {
-      async_copy16(s, g);
-    } else {
-#pragma unroll
-      for (int u = 0; u < 16; ++u) s[u] = (row < s_q && key + u < s_kv) ? g[u] : 0;
-    }
-  }
-}
-
-// This warp's 2R rows (those of its ty 2w and 2w + 1) of the bias tile at
-// (q0, k0) into the same rows of p_s (stride FPLD); ragged edges 0.
-template <int R>
-__device__ __forceinline__ void stage_bias_rows(float* p_s, const float* __restrict__ bb,
-                                                int q0, int k0, int s_q, int s_kv, bool vec) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int it = 0; it < R; ++it) {
-    const int idx = it * 32 + lane, rr = idx >> 4, c = 4 * (idx & 15);
-    const int r = 2 * warp + (rr & 1) + 8 * (rr >> 1);  // rows ty + 8i of ty 2w, 2w + 1
-    const int row = q0 + r, key = k0 + c;
-    float* s = p_s + r * FPLD + c;
-    const float* g = bb + (size_t)row * s_kv + key;
-    if (vec && row < s_q && key + 4 <= s_kv) {
-      async_copy16(s, g);
-    } else {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (row < s_q && key + u < s_kv)
-          async_copy4(s + u, g + u);
-        else
-          s[u] = 0.f;
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float half_max16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_sum16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ void fma4(float4& acc, float p, const float4& m) {
-  acc.x = fmaf(p, m.x, acc.x);
-  acc.y = fmaf(p, m.y, acc.y);
-  acc.z = fmaf(p, m.z, acc.z);
-  acc.w = fmaf(p, m.w, acc.w);
-}
+using namespace hetu_flash;
 
 // R: query rows per thread (8: 64-row CTAs; 4: 32-row CTAs for grids too
 // small to fill the card); G: float4 output column groups per thread
@@ -435,7 +332,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   unsigned char* msk_s = reinterpret_cast<unsigned char*>(walk + ((n_kt + 3) & ~3));  // QR x FT
 
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;  // the heaviest causal tiles first
   const int q0 = qt * QR;
@@ -448,13 +344,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const unsigned char* mb = nullptr;
   const unsigned char* mt = nullptr;
   if (FMASK) {
-    const int g = hetu_flash::group_row(gmode, bh, heads);
+    const int g = group_row(gmode, bh, heads);
     mb = mask + (size_t)g * s_q * s_kv;
     if (mask_tiles) mt = mask_tiles + ((size_t)g * ((s_q + FT - 1) / FT) + q0 / FT) * n_kt;
   }
   const float* bb = nullptr;
   if (BIAS || KBIAS)
-    bb = bias + (size_t)hetu_flash::group_row(bgmode, bh, heads) *
+    bb = bias + (size_t)group_row(bgmode, bh, heads) *
                     (BIAS ? (size_t)s_q * s_kv : (size_t)s_kv);
   const bool mvec = FMASK && (s_kv & 15) == 0 && ((size_t)mask & 15) == 0;
   const bool bvec = BIAS && (s_kv & 3) == 0 && ((size_t)bias & 15) == 0;
@@ -471,32 +367,18 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       q_s[(i / (d16 - d)) * ld + d + i % (d16 - d)] = 0.f;
   }
 
-  // the key tiles this CTA walks, in order (a ballot prefix)
-  int n_walk = 0;
-  for (int base = 0; base < kt_end; base += FTHREADS) {
-    const int kt = base + tid;
-    bool live = kt < kt_end;
-    if (live && mt) live = mt[kt] != 0;
-    if (live && km) {  // a tile whose keys are all masked holds no work
+  // the key tiles this CTA walks, in order
+  const int n_walk = list_tiles(walk, wcnt, 0, kt_end, [&](int kt) {
+    if (mt && mt[kt] == 0) return false;
+    if (km) {  // a tile whose keys are all masked holds no work
       bool any = false;
       const int k0 = kt * FT, kn = min(FT, len - k0);
 #pragma unroll 16
       for (int c = 0; c < FT; ++c) any |= c < kn && km[k0 + c] != 0;
-      live = any;
+      return any;
     }
-    const unsigned bal = __ballot_sync(0xffffffffu, live);
-    __syncthreads();  // the previous round's counts are read
-    if (lane == 0) wcnt[warp] = __popc(bal);
-    __syncthreads();
-    int at = n_walk;
-#pragma unroll
-    for (int w = 0; w < FTHREADS / 32; ++w) {
-      if (w < warp) at += wcnt[w];
-      n_walk += wcnt[w];
-    }
-    if (live) walk[at + __popc(bal & ((1u << lane) - 1u))] = kt;
-  }
-  __syncthreads();
+    return true;
+  });
 
   // K(t), its mask tile and its key flags
   auto stage_key_tile = [&](int k0) {
@@ -504,7 +386,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (tid < FT) {
       const int key = k0 + tid;
       if (km != nullptr && key < len)
-        async_copy4(ok_s + tid, km + key);
+        cp_async4(ok_s + tid, km + key);
       else
         ok_s[tid] = key < len;
     }
@@ -521,7 +403,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float4 acc[R][G];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
-    m[i] = hetu_flash::NEG_INF;
+    m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
     for (int g = 0; g < G; ++g) acc[i][g] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -674,7 +556,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     if (tx == 0)
-      lse[(size_t)bh * s_q + row] = li == 0.f ? hetu_flash::NEG_INF : m[i] * LN2 + logf(li);
+      lse[(size_t)bh * s_q + row] = li == 0.f ? NEG_INF : m[i] * LN2 + logf(li);
   }
 }
 
@@ -690,7 +572,7 @@ int launch_fwd(const float* q, const float* k, const float* v, const int* key_ma
   const size_t smem = (size_t)((QR + 2 * FT) * (d16 + 4) + QR * FPLD) * sizeof(float) +
                       (FT + 4 + ((n_kt + 3) & ~3)) * sizeof(int) + (FMASK ? QR * FT : 0);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = hetu_flash::ensure_smem(
+  cudaError_t err = ensure_smem(
       (const void*)flash_fwd_kernel<R, G, CAUSAL, FMASK, BIAS, KBIAS>, smem, configured);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bh, (s_q + QR - 1) / QR);
@@ -725,7 +607,7 @@ int dispatch_fwd(const float* q, const float* k, const float* v, const int* key_
                  const int* lengths, const unsigned char* mask, const unsigned char* mask_tiles,
                  const float* bias, float* out, float* lse, int bh, int heads, int gmode,
                  int bgmode, int s_q, int s_kv, int d, float scale, void* stream) {
-  if (hetu_flash::bad_head_dim<float>(d) || heads <= 0 || bh <= 0 || bh % heads || s_q <= 0 ||
+  if (bad_head_dim<float>(d) || heads <= 0 || bh <= 0 || bh % heads || s_q <= 0 ||
       s_kv <= 0 || (s_q + 31) / 32 > 65535 || gmode < 0 || gmode > 3 || bgmode < 0 ||
       bgmode > 3)
     return (int)cudaErrorInvalidValue;

@@ -54,14 +54,16 @@ broadcast group (:func:`group_reduce`, the JAX package's
 relative-position bias group ``h`` in one launch.
 
 The forward returns ``out`` plus the per-row float32 log-sum-exp; a row
-with no valid key outputs 0 with lse = -1e30.  The float32 training
-forward walks only the key tiles that hold a visible pair: the full-mask
-wrapper passes it the mask's one-byte-a-tile map from :func:`tile_maps`,
-built on the device, and the kernel checks the key mask's tiles itself
-(:func:`walked_tiles` says which tiles a call walks).  The backward
-recomputes the probabilities from that lse.  Unlike the TPU entry, no sequence is
-padded to a multiple of 128: ragged tiles are masked inside the kernels,
-so causal attention takes any pair of lengths.
+with no valid key outputs 0 with lse = -1e30.  The backward recomputes the
+probabilities from that lse.  The float32 training kernels (forward, dQ,
+dK/dV) walk only the tiles that hold a visible pair: each full-mask
+wrapper passes its kernel the mask's one-byte-a-tile map from
+:func:`tile_maps`, built on the device (one reduction a call, no host
+sync), and the kernels check the key mask's tiles themselves
+(:func:`walked_tiles` says which tiles a call walks).  dQ writes dbias
+zeros on the tiles it skips.  Unlike the TPU entry, no sequence is padded
+to a multiple of 128: ragged tiles are masked inside the kernels, so
+causal attention takes any pair of lengths.
 
 bfloat16: every training specialization takes bfloat16 q, k, v and dO
 (the ``_bf16`` C entries, head dim a multiple of 8: the forward, dQ and
@@ -189,6 +191,9 @@ ENTRIES = {"hetu_flash_fwd_lengths": ("flash_attention", 6, 5),
            "hetu_flash_bwd_dkv_bias": ("flash_attention_bwd", 11, 8),
            "hetu_flash_bwd_dq_mask": ("flash_attention_bwd", 11, 9),
            "hetu_flash_bwd_dkv_mask": ("flash_attention_bwd", 12, 9)}
+#: the float32 entries that take a full mask's tile map
+_TILE_MAP_ENTRIES = ("hetu_flash_fwd_mask", "hetu_flash_bwd_dq_mask",
+                     "hetu_flash_bwd_dkv_mask")
 # every training entry also has a bfloat16 twin, ``<entry>_bf16``, on the
 # tensor cores, the forward, dQ and dK/dV each compiled from a source of its
 # own so the sources build in parallel (``csrc/flash_attention_bf16.cu``,
@@ -200,12 +205,11 @@ ENTRIES.update({
     for name, (src, n_ptr, n_int) in ENTRIES.items()
     if name != "hetu_flash_fwd_lengths"})
 # every training entry takes the nullable ``lengths`` pointer after
-# ``key_mask``, and the float32 full-mask forward also the mask's tile map
-# (:func:`tile_maps`) after the mask
-ENTRIES.update({name: (src, n_ptr + 1, n_int)
+# ``key_mask``, and the float32 full-mask entries (forward, dQ, dK/dV) also
+# the mask's tile map (:func:`tile_maps`) after the mask
+ENTRIES.update({name: (src, n_ptr + 1 + (name in _TILE_MAP_ENTRIES), n_int)
                 for name, (src, n_ptr, n_int) in ENTRIES.items()
                 if name != "hetu_flash_fwd_lengths"})
-ENTRIES["hetu_flash_fwd_mask"] = ("flash_attention", 10, 9)
 
 #: broadcast-group modes of a full mask or a bias, in the kernel's numbering
 GMODES = ("one", "h", "b", "bh")
@@ -311,12 +315,11 @@ def tile_maps(key_mask=None, mask=None, tile=TILE):
     host sync: ``key_tiles`` (B, ceil(S_kv / tile)) bool from a
     ``key_mask`` (B, S_kv), ``mask_tiles`` (G, ceil(S_q / tile),
     ceil(S_kv / tile)) bool from a full uint8 ``mask`` (G, S_q, S_kv);
-    None for what is not given.  The float32 forward takes the mask's map
-    and applies the key mask's rule to each key tile itself (no launch):
-    it walks only the key tiles both mark (and, with ``causal``, those
-    before the tile's last visible key), so it skips a padded key tail and
-    the empty tiles of a sparse mask.  The backward kernels can take both
-    maps."""
+    None for what is not given.  The float32 forward, dQ and dK/dV take
+    the mask's map and apply the key mask's rule to each key tile
+    themselves (no launch): they walk only the tiles both mark (and, with
+    ``causal``, those on or below the diagonal), so they skip a padded key
+    tail and the empty tiles of a sparse mask (:func:`walked_tiles`)."""
     def split(s):   # (tiles, rows a tile); one tile needs no padding
         n_t = -(-s // tile)
         return n_t, (tile if n_t > 1 else s)
@@ -343,36 +346,53 @@ def tile_maps(key_mask=None, mask=None, tile=TILE):
 
 
 def walked_tiles(bh, heads, s_q, s_kv, key_mask=None, causal=False,
-                 mask=None, gmode="bh", tile=TILE, lengths=None):
-    """The key tiles the float32 forward kernel walks, boolean
-    (BH, ceil(S_q / tile), ceil(S_kv / tile)): those :func:`tile_maps`
-    marks for the row's batch (``key_mask``) and mask group (``mask`` of
-    group mode ``gmode``, BH = B * ``heads``), with ``causal`` only
-    those before the query tile's last visible key, and with ``lengths``
-    (B,) only those that start before the row's length.  With ``lengths``
-    and no other rule it is also the tiles every training kernel walks
-    (the bf16 forward, dQ, and the dK/dV tiles that walk any query)."""
+                 mask=None, gmode="bh", tile=TILE, lengths=None, by="query"):
+    """The (query tile, key tile) pairs the float32 training kernels walk,
+    boolean (BH, ceil(S_q / tile), ceil(S_kv / tile)).  ``by="query"``
+    follows the forward's and dQ's rule, a query tile's key tiles: those
+    :func:`tile_maps` marks for the row's mask group (``mask`` of group
+    mode ``gmode``, BH = B * ``heads``), that start before the row's
+    ``lengths`` (B,) and, with a ``key_mask``, hold an unmasked key before
+    it, and with ``causal`` those before the query tile's last visible
+    key.  ``by="key"`` follows dK/dV's, a key tile's query tiles: none if
+    the key tile holds no unmasked key before the length, else those the
+    map marks in its column from the first that sees its first key under
+    ``causal``.  The two rules give the same pairs.  With ``lengths`` and
+    no other rule it is also the tiles every bf16 training kernel walks (the
+    forward, dQ, and the dK/dV tiles that walk any query)."""
     device = next((t.device for t in (key_mask, mask, lengths)
                    if t is not None), torch.device("cpu"))
     n_qt, n_kt = -(-s_q // tile), -(-s_kv // tile)
+    q_starts = torch.arange(n_qt, device=device) * tile
+    k_starts = torch.arange(n_kt, device=device) * tile
     walk = torch.ones((bh, n_qt, n_kt), dtype=torch.bool, device=device)
-    if causal:
-        rows_end = torch.clamp((torch.arange(n_qt, device=device) + 1) * tile,
-                               max=s_q)
-        last = torch.clamp(rows_end + (s_kv - s_q), max=s_kv)  # keys [0, last)
-        walk &= (torch.arange(n_kt, device=device)[None, :] * tile
-                 < last[:, None])[None]
+    kv_off = s_kv - s_q
+    if causal and by == "query":
+        # keys [0, last) up to the tile's last row's last visible key
+        last = torch.clamp(q_starts + tile, max=s_q) + kv_off
+        walk &= (k_starts[None, :] < last[:, None])[None]
+    elif causal:
+        # query tiles from the one that holds the first row seeing the
+        # key tile's first key (no such row at or past S_q)
+        first = k_starts - kv_off
+        walk &= ((first < s_q)[None, :]
+                 & (q_starts[:, None] + tile > first[None, :]))[None]
+    keys = None                       # (B, S_kv) keys below the length
     if lengths is not None:
         lens = lengths.to(device=device, dtype=torch.int64)
-        starts = torch.arange(n_kt, device=device)[None, :] * tile
-        walk &= (starts < lens[:, None]).repeat_interleave(
+        keys = torch.arange(s_kv, device=device)[None, :] < lens[:, None]
+        walk &= (k_starts[None, :] < lens[:, None]).repeat_interleave(
             bh // lengths.shape[0], dim=0)[:, None, :]
-    key_tiles, mask_tiles = tile_maps(key_mask, mask, tile)
-    if key_tiles is not None:
+    if key_mask is not None:
+        km = key_mask.to(device) != 0
+        if keys is not None:
+            km = km & keys
+        key_tiles = tile_maps(key_mask=km.to(torch.uint8), tile=tile)[0]
         walk &= key_tiles.bool().repeat_interleave(
             bh // key_tiles.shape[0], dim=0)[:, None, :]
-    if mask_tiles is not None:
-        walk &= _expand_group(mask_tiles.bool(), gmode, bh, heads)
+    if mask is not None:
+        walk &= _expand_group(tile_maps(mask=mask, tile=tile)[1].bool(),
+                              gmode, bh, heads)
     return walk
 
 
@@ -707,13 +727,23 @@ def _check_fullmask(fn, q, k, key_mask, mask, gmode, heads, bias, kbias,
                          f"BH / heads is {q.shape[0] // heads}")
 
 
-def _mask_args(mask, gmode, bias, kbias, bgmode, causal):
-    """The mask C entries' mask and bias pointers and their (gmode,
-    bgmode, strip, causal) ints; no bias: a null pointer."""
+def _mask_ints(gmode, bias, kbias, bgmode, causal):
+    """The mask C entries' (gmode, bgmode, strip, causal) ints."""
+    biased = bias is not None or kbias is not None
+    return (GMODES.index(gmode), GMODES.index(bgmode) if biased else 0,
+            int(kbias is not None), int(bool(causal)))
+
+
+def _mask_operands(q, mask, bias, kbias):
+    """The mask C entries' tensors after ``lengths``: the mask, for
+    float32 ``q`` its tile map (:func:`tile_maps`, built here on the
+    device: one reduction, no host sync; the ``_bf16`` entries take none),
+    the bias or strip (None: a null pointer).  The caller holds them until
+    the launch is enqueued."""
     b = bias if bias is not None else kbias
-    return (mask.data_ptr(), _ptr(b),
-            (GMODES.index(gmode), GMODES.index(bgmode) if b is not None else 0,
-             int(kbias is not None), int(bool(causal))))
+    if q.dtype != torch.float32:
+        return mask, b
+    return mask, tile_maps(mask=mask)[1], b
 
 
 def flash_fwd_fullmask(q, k, v, mask, gmode, heads, scale, key_mask=None,
@@ -743,18 +773,14 @@ def flash_fwd_fullmask(q, k, v, mask, gmode, heads, scale, key_mask=None,
                   kbias=kbias)
     out = torch.empty_like(q)
     lse = torch.empty((bh, s_q), dtype=torch.float32, device=q.device)
-    m_ptr, b_ptr, ints = _mask_args(mask, gmode, bias, kbias, bgmode, causal)
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
-            _ptr(lengths), m_ptr, b_ptr]
-    mask_tiles = None
-    if q.dtype == torch.float32:
-        mask_tiles = tile_maps(mask=mask)[1]
-        ptrs.insert(6, mask_tiles.data_ptr())
+    operands = _mask_operands(q, mask, bias, kbias)
     with torch.cuda.device(q.device):
         rc = kernel(_entry("hetu_flash_fwd_mask", q))(
-            *ptrs, out.data_ptr(), lse.data_ptr(), bh, heads, s_q, k.shape[1],
-            d, *ints, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+            _ptr(lengths), *map(_ptr, operands), out.data_ptr(),
+            lse.data_ptr(), bh, heads, s_q, k.shape[1], d,
+            *_mask_ints(gmode, bias, kbias, bgmode, causal),
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
     _count("fwd_mask_bias_launches" if bias is not None
            else "fwd_mask_kbias_launches" if kbias is not None
@@ -972,14 +998,15 @@ def flash_bwd_dq_mask(q, k, v, key_mask, mask, gmode, heads, do, lse, delta,
     dq = torch.empty_like(q)
     dbias = None if bias is None else torch.empty(
         (bh, s_q, s_kv), dtype=torch.float32, device=q.device)
-    m_ptr, b_ptr, ints = _mask_args(mask, gmode, bias, kbias, bgmode, causal)
+    operands = _mask_operands(q, mask, bias, kbias)
     with torch.cuda.device(q.device):
         rc = kernel(_entry("hetu_flash_bwd_dq_mask", q))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
-            _ptr(lengths), m_ptr, b_ptr, do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), _ptr(dbias), bh, heads, s_q,
-            s_kv, d, *ints, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            _ptr(lengths), *map(_ptr, operands), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(dbias), bh,
+            heads, s_q, s_kv, d,
+            *_mask_ints(gmode, bias, kbias, bgmode, causal),
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
     _count("dq_mask_bias_launches" if bias is not None
            else "dq_mask_kbias_launches" if kbias is not None
@@ -1013,14 +1040,15 @@ def flash_bwd_dkv_mask(q, k, v, key_mask, mask, gmode, heads, do, lse, delta,
     dv = torch.empty_like(v)
     dkbias = None if kbias is None else torch.empty(
         (bh, 1, s_kv), dtype=torch.float32, device=q.device)
-    m_ptr, b_ptr, ints = _mask_args(mask, gmode, bias, kbias, bgmode, causal)
+    operands = _mask_operands(q, mask, bias, kbias)
     with torch.cuda.device(q.device):
         rc = kernel(_entry("hetu_flash_bwd_dkv_mask", q))(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
-            _ptr(lengths), m_ptr, b_ptr, do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dkbias), bh,
-            heads, s_q, s_kv, d, *ints, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            _ptr(lengths), *map(_ptr, operands), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _ptr(dkbias), bh, heads, s_q, s_kv, d,
+            *_mask_ints(gmode, bias, kbias, bgmode, causal),
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(fn_name, rc)
     _count("dkv_mask_bias_launches" if bias is not None
            else "dkv_mask_kbias_launches" if kbias is not None

@@ -6,9 +6,10 @@ dK/dV wrappers at the training paths' shapes (D = 64): BERT's key mask
 (B=16, H=12, S=512, ``synthetic_mlm_batch``'s lengths as a key mask),
 GPT-2's causal (B=8, S=1024), the same causal with the varlen path's
 lengths as a key mask, T5's encoder bias (B=32, H=8, S=512, group ``h``,
-its padded key mask), XLNet's content stream (B=8, S=512, mask group
-``b``, bias group ``h``) and Longformer's window (B=2, S=4096, group
-``one``), float32 and bf16.  Where the tree's wrappers take ``lengths``
+its padded key mask), decoder bias (causal, S=114) and cross-attention
+(114 queries, 512 keys, the padded key mask), XLNet's content stream
+(B=8, S=512, mask group ``b``, bias group ``h``) and Longformer's window
+(B=2, S=4096, group ``one``), float32 and bf16.  Where the tree's wrappers take ``lengths``
 it also times the two varlen shapes with ``lengths`` in place of the key
 mask: the same visible pairs through the ``lengths`` specialization.
 Each time is the median of ``--iters`` CUDA-event timings with the L2
@@ -107,7 +108,7 @@ def main(argv=None):
     def u8(m):
         return torch.from_numpy(np.ascontiguousarray(m != 0, np.uint8)).cuda()
 
-    # (name, B, H, S, options)
+    # (name, B, H, S_q, options: S_kv when it differs)
     cases = [("bert key mask", 16, 12, 512, dict(km=keys(blens, 512))),
              ("gpt2 causal", 8, 12, 1024, dict(causal=True)),
              ("gpt2 causal key mask", 8, 12, 1024,
@@ -115,6 +116,11 @@ def main(argv=None):
              ("t5 encoder bias", 32, 8, 512,
               dict(km=torch.from_numpy(t5km).cuda(), bgmode="h",
                    bias=lambda: t(8, 512, 512, dtype=torch.float32))),
+             ("t5 decoder bias causal", 32, 8, 114,
+              dict(causal=True, bgmode="h",
+                   bias=lambda: t(8, 114, 114, dtype=torch.float32))),
+             ("t5 cross key mask", 32, 8, 114,
+              dict(km=torch.from_numpy(t5km).cuda(), s_kv=512)),
              ("xlnet mask bias", 8, 12, 512,
               dict(mask=u8(cmask), gmode="b", bgmode="h",
                    bias=lambda: t(12, 512, 512, dtype=torch.float32))),
@@ -130,8 +136,9 @@ def main(argv=None):
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         for name, b, h, s, o in cases:
-            bh = b * h
-            q, k, v, do = (t(bh, s, 64, dtype=dtype) for _ in range(4))
+            bh, s_kv = b * h, o.get("s_kv", s)
+            q, do = (t(bh, s, 64, dtype=dtype) for _ in range(2))
+            k, v = (t(bh, s_kv, 64, dtype=dtype) for _ in range(2))
             km, mask, causal = o.get("km"), o.get("mask"), o.get("causal",
                                                                   False)
             bias = o["bias"]() if "bias" in o else None

@@ -1009,3 +1009,96 @@ def test_tile_maps_and_walked_tiles_match_numpy_reference(gmode, s_q, s_kv):
         else:
             assert (walk.numpy() | ~want).all()
 
+
+
+# -- which tiles the float32 backward kernels walk ----------------------------
+
+def test_float32_mask_backward_entries_take_the_tile_map():
+    """The float32 full-mask dQ and dK/dV entries take the mask's tile map
+    after the mask, as the float32 forward does: one pointer more than
+    their ``_bf16`` twins, the same ints."""
+    for name in ("hetu_flash_fwd_mask", "hetu_flash_bwd_dq_mask",
+                 "hetu_flash_bwd_dkv_mask"):
+        _, n_ptr, n_int = fa.ENTRIES[name]
+        _, bf_ptr, bf_int = fa.ENTRIES[name + "_bf16"]
+        assert (n_ptr, n_int) == (bf_ptr + 1, bf_int), name
+
+
+def _c_signatures(source):
+    """{entry: (pointer args, int args)} of the ``extern "C"`` functions
+    in ``csrc/<source>.cu`` and the headers it includes, the stream and
+    the float scale left out (an entry macro's ``##SFX`` dropped)."""
+    import re
+    csrc = os.path.join(ROOT, "hetu_tpu_torch", "csrc")
+    with open(os.path.join(csrc, source + ".cu")) as f:
+        text = f.read()
+    for inc in re.findall(r'#include "([^"]+)"', text):
+        with open(os.path.join(csrc, inc)) as f:
+            text += f.read()
+    text = text.replace("\\\n", " ")
+    out = {}
+    for name, params in re.findall(
+            r'extern "C" int (\w+?)(?:##SFX)?\(([^)]*)\)', text):
+        args = [a.strip() for a in params.split(",")][:-2]  # scale, stream
+        out[name] = (sum("*" in a for a in args),
+                     sum(a.startswith("int ") for a in args))
+    return out
+
+
+def test_float32_entries_take_the_arguments_the_map_gives():
+    """Each float32 training entry's C signature has the pointer and int
+    arguments ``fa.ENTRIES`` binds (a wrong count shows only on the card,
+    as a crash or a wrong argument)."""
+    sigs = {**_c_signatures("flash_attention"),
+            **_c_signatures("flash_attention_bwd")}
+    for name, (src, n_ptr, n_int) in fa.ENTRIES.items():
+        if src in ("flash_attention", "flash_attention_bwd"):
+            assert sigs[name] == (n_ptr, n_int), (name, sigs[name])
+
+
+# (rule, exact): with one rule, lengths with a key mask, or lengths with
+# causal, every walked tile holds a visible pair; with a mask or a key mask
+# beside causal the kernels may walk a tile whose marks do not meet
+WALK_RULES = [("mask", True), ("key_mask", True), ("causal", True),
+              ("lengths", True), ("lengths+key_mask", True),
+              ("lengths+causal", True), ("mask+key_mask", False),
+              ("mask+causal+lengths", False), ("key_mask+causal", False)]
+
+
+@pytest.mark.parametrize("rule,exact", WALK_RULES)
+@pytest.mark.parametrize("gmode", fa.GMODES)
+@pytest.mark.parametrize("s_q,s_kv", [(200, 260), (300, 130), (64, 64)])
+def test_backward_walks_the_tiles_that_hold_a_visible_pair(s_q, s_kv, gmode,
+                                                           rule, exact):
+    """dQ walks each query tile's key tiles by the forward's rule
+    (``walked_tiles``), dK/dV each key tile's query tiles by its own
+    (``by="key"``): both give the same pairs, never miss a tile that holds
+    a visible pair of ``_valid``, and walk no other where the rules say
+    ``exact``."""
+    rng = np.random.RandomState(s_q * 3 + s_kv + len(gmode) + len(rule))
+    b, h = 2, 3
+    kw = {}
+    if "mask" in rule.split("+"):
+        kw.update(mask=torch.from_numpy(_sparse_mask(
+            rng, fa._group_rows(gmode, b * h, h), s_q, s_kv)), gmode=gmode)
+    if "key_mask" in rule:
+        km = (rng.rand(b, s_kv) < 0.5).astype(np.int32)
+        km[0, 64:128] = 0                  # a dead key tile
+        km[1, 40:] = 0                     # a padded tail
+        kw["key_mask"] = torch.from_numpy(km)
+    if "causal" in rule:
+        kw["causal"] = True
+    if "lengths" in rule:
+        kw["lengths"] = torch.tensor([s_kv - 70, 65], dtype=torch.int32)
+    by_q = fa.walked_tiles(b * h, h, s_q, s_kv, **kw)
+    by_k = fa.walked_tiles(b * h, h, s_q, s_kv, by="key", **kw)
+    valid = fa._valid(b * h, s_q, s_kv, "cpu", heads=h, **kw)
+    want = _tiles_any(valid.expand(b * h, s_q, s_kv).numpy())
+    assert by_q.shape == by_k.shape == want.shape
+    np.testing.assert_array_equal(by_k.numpy(), by_q.numpy())
+    if exact:
+        np.testing.assert_array_equal(by_q.numpy(), want)
+    else:
+        assert (by_q.numpy() | ~want).all()
+    if s_q > 128 and "mask" in kw:
+        assert not by_q.numpy()[:, 1].any()     # the invisible tile row

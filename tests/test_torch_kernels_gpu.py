@@ -1243,3 +1243,138 @@ def test_varlen_autograd_matches_the_cpu_route(cuda, causal, dtype):
                                    w.detach().float(), **tol)
     for g in res["cuda"][2:]:
         assert int(torch.count_nonzero(g[0, :, 77:])) == 0
+
+
+# -- the float32 backward walks only the tiles that hold a visible pair -------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mask", "mask_bias", "mask_kbias"])
+def test_backward_skips_empty_tiles_and_matches_plain_version(cuda, kind):
+    """A sparse mask whose query rows 64-127 and key columns 64-191 hold
+    no visible pair, alone, with a dense bias and with a strip: with Q and
+    dO NaN on those rows and K and V NaN on those keys, the forward, dQ,
+    dK/dV, dbias and dkbias equal bit for bit the same call on finite
+    values (the kernels never read a skipped tile), which matches the plain
+    version; dbias is exactly 0 on every pair no row sees."""
+    b, h, s_q, s_kv, d = 2, 3, 200, 300, 64
+    q, k, v, do, _ = _causal_inputs(cuda, s_q, s_kv, d, False, seed=41)
+    rng = np.random.RandomState(41)
+    m = rng.rand(fa._group_rows("b", b * h, h), s_q, s_kv) < 0.3
+    m[:, :, -1] = True                     # the ragged last key tile
+    m[:, 64:128, :] = False                # a query tile that sees nothing
+    m[:, :, 64:192] = False                # two key tiles no row sees
+    mask = torch.from_numpy(m.astype(np.uint8)).to(cuda)
+    bias = kbias = None
+    if kind != "mask":
+        bias, kbias = _bias_of(cuda, "kbias" if kind == "mask_kbias"
+                               else "bias", "h", s_q, s_kv, seed=42)
+    walk = fa.walked_tiles(b * h, h, s_q, s_kv, mask=mask, gmode="b")
+    assert 0 < int(walk.sum()) < walk.numel()
+    assert not walk[:, 1].any() and not walk[:, :, 1:3].any()
+    qn, don, kn, vn = q.clone(), do.clone(), k.clone(), v.clone()
+    qn[:, 64:128], don[:, 64:128] = float("nan"), float("nan")
+    kn[:, 64:192], vn[:, 64:192] = float("nan"), float("nan")
+    args = (mask, "b", bias, kbias, "h", False, 0.37)
+    got = _run_kernels(kind, qn, kn, vn, don, None, *args)
+    ref = _run_kernels(kind, q, k, v, do, None, *args)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, ref, ("out", "lse", "dq", "dk", "dv",
+                                     "dbias", "dkbias")):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert torch.equal(g, w), name
+    out, lse, dq, dk, dv, dbias, dkbias = ref
+    want = fa.flash_bwd_bias_plain(q, k, v, None, bias, kbias, "h", h, out,
+                                   lse, do, 0.37, mask=mask, gmode="b")
+    for g, w, name in zip((dq, dk, dv, dbias, dkbias), want,
+                          ("dq", "dk", "dv", "dbias", "dkbias")):
+        if g is not None:
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=ATOL, msg=name)
+    assert int(torch.count_nonzero(dk[:, 64:192])) == 0
+    assert int(torch.count_nonzero(dv[:, 64:192])) == 0
+    if dbias is not None:
+        valid = fa._valid(b * h, s_q, s_kv, cuda, mask=mask, gmode="b",
+                          heads=h).expand(b * h, s_q, s_kv)
+        assert int(torch.count_nonzero(dbias[~valid])) == 0
+    if dkbias is not None:
+        assert int(torch.count_nonzero(dkbias[:, 0, 64:192])) == 0
+
+
+#: every float32 instantiation of dQ and dK/dV: (kind, causal, D)
+F32_BWD_CASES = [(kind, causal, d)
+                 for kind in ("dense", "bias", "kbias", "mask", "mask_bias",
+                              "mask_kbias")
+                 for causal in (False, True) for d in (64, 96)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,causal,d", F32_BWD_CASES)
+def test_f32_backward_is_the_same_from_run_to_run(cuda, kind, causal, d):
+    """Every float32 dQ and dK/dV instantiation owns its rows or keys and
+    sums in a fixed order (no atomics): two runs on the same inputs give
+    dQ, dK, dV, dbias and dkbias equal bit for bit."""
+    s_q, s_kv = 200, 330
+    q, k, v, do, km = _causal_inputs(cuda, s_q, s_kv, d, True, s_q + d)
+    mask = None
+    if kind.startswith("mask"):
+        rng = np.random.RandomState(d)
+        mask = torch.from_numpy((rng.rand(fa._group_rows("b", 6, 3), s_q,
+                                          s_kv) < 0.4).astype(np.uint8)
+                                ).to(cuda)
+    bias = kbias = None
+    if kind.endswith("bias"):
+        bias, kbias = _bias_of(cuda, "kbias" if kind.endswith("kbias")
+                               else "bias", "h", s_q, s_kv, seed=d)
+    runs = [_run_kernels(kind, q, k, v, do, km, mask, "b", bias, kbias, "h",
+                         causal, 0.37)[2:] for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b, name in zip(runs[0], runs[1],
+                          ("dq", "dk", "dv", "dbias", "dkbias")):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert bool(torch.isfinite(a).all()), name
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["dense", "bias", "kbias", "mask"])
+def test_masked_key_tiles_are_skipped_and_get_zero_grads(cuda, kind):
+    """A key mask with whole 64-key tiles masked (tiles 1 and 3 of batch
+    row 0, all but the first 40 keys of row 1): dK = dV (= dkbias) = 0
+    exactly on every masked key, and with K and V NaN on the masked tiles
+    every output equals the call on finite values bit for bit."""
+    b, h, s_q, s_kv, d = 2, 3, 150, 300, 64
+    q, k, v, do, _ = _causal_inputs(cuda, s_q, s_kv, d, False, seed=7)
+    kmn = np.ones((b, s_kv), np.int32)
+    kmn[0, 64:128] = kmn[0, 192:256] = 0
+    kmn[1, 40:] = 0
+    km = torch.from_numpy(kmn).to(cuda)
+    mask = None
+    if kind == "mask":
+        rng = np.random.RandomState(8)
+        mask = torch.from_numpy((rng.rand(fa._group_rows("bh", 6, 3), s_q,
+                                          s_kv) < 0.5).astype(np.uint8)
+                                ).to(cuda)
+    bias = kbias = None
+    if kind in ("bias", "kbias"):
+        bias, kbias = _bias_of(cuda, kind, "b", s_q, s_kv, seed=9)
+    dead = torch.zeros(b * h, s_kv, dtype=torch.bool, device=cuda)
+    dead[:3, 64:128] = dead[:3, 192:256] = True
+    dead[3:, 64:] = True                   # whole tiles past the first
+    kn, vn = k.clone(), v.clone()
+    kn[dead], vn[dead] = float("nan"), float("nan")
+    args = (km, mask, "bh", bias, kbias, "b", False, 0.37)
+    got = _run_kernels(kind, q, kn, vn, do, *args)
+    ref = _run_kernels(kind, q, k, v, do, *args)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, ref, ("out", "lse", "dq", "dk", "dv",
+                                     "dbias", "dkbias")):
+        assert (g is None) == (w is None), name
+        if g is not None:
+            assert torch.equal(g, w), name
+    _, _, _, dk, dv, _, dkbias = ref
+    masked = (km == 0).repeat_interleave(h, dim=0)
+    assert int(torch.count_nonzero(dk[masked])) == 0
+    assert int(torch.count_nonzero(dv[masked])) == 0
+    if dkbias is not None:
+        assert int(torch.count_nonzero(dkbias[:, 0][masked])) == 0
