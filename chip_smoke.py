@@ -10,17 +10,27 @@ without printing the final result line:
 
 1. Build every CUDA source of ``hetu_tpu_torch/csrc`` with nvcc (one
    process per source, all started together) and load the kernels.
-2. Hold the decode kernel (``lengths``) against its plain PyTorch version
-   on the card at the decode path's shapes (B=8, H=12, D=64; cache
-   lengths 1, 7, 128, 384, 1024; S_q = 1, plus one S_q = 4 case with an
-   empty row), and time the kernel, the plain version, one PyTorch
-   library call and the bound.
+2. Hold the decode kernel (``lengths``: the split-KV kernel and, when
+   its plan has more than one split, the merge) against its plain PyTorch
+   version on the card at the decode path's shapes (B=8, H=12, D=64;
+   cache lengths 1, 7, 128, 384, 1024; S_q = 1, plus one S_q = 4 case
+   with an empty row); at the longest cache under every split plan of
+   ``DECODE_PLANS`` (lengths 0, 1, a partial tile, full, tile edges)
+   against the plain version and the plain split version: a row of length
+   0 exactly 0 with lse -1e30, NaN in every K and V row past a length
+   changes no bit, the same bits from run to run, one kernel launch a call
+   and one merge a call of more than one split.  Time the kernel (split
+   and merge), the plain version, one PyTorch library call and the bound;
+   after phase 3, also at the (batch bucket, cache bucket, lengths) shapes
+   that phase 3's run gave it.
 3. Serve GPT-2 small (published widths, seeded random weights, fp32):
    8 seeded prompts of 8-300 tokens through ``DecodeRouter`` →
    ``DecodeEngine`` with 32 new tokens each.  Every launch counter is set
    to 0 just before and read just after; each kernel of the path must
-   have launched (flash: decode steps × n_layer launches) and no
-   attention dispatch may have left the kernel.
+   have launched (flash: decode steps × n_layer launches; its merge once
+   for each of those calls whose split plan has more than one split,
+   recorded by ``DecodeCalls``) and no attention dispatch may have left
+   the kernel.
 4. Teacher-force one prompt through the port on the card and on the CPU
    (plain versions) with the same weights; per-step logits must agree.
 5. Hold the training kernels (flash forward dense / key-mask, dQ, dK/dV)
@@ -120,7 +130,9 @@ without printing the final result line:
     3, 32 new tokens each.  Counters set to 0 just before the chunked run
     and read just after: full-mask launches = prefill steps x 12,
     ``lengths`` launches = (decode steps - prefill steps) x 12, both
-    nonzero, no ``backend:`` fallback, prefill steps saved > 0.  Logits of
+    nonzero, the merge launched once for each ``lengths`` call of more
+    than one split (in the one-token run too), no ``backend:`` fallback,
+    prefill steps saved > 0.  Logits of
     one 300-token prompt at every chunk end and the KV caches, chunked
     against token by token on the card and chunked on the card against
     chunked on the CPU, within ``LOGITS_ATOL``.  The greedy streams of the
@@ -343,6 +355,13 @@ BF16_RTOL, BF16_ATOL, BF16_LSE_ATOL = 2e-2, 2e-2, 1e-4
 
 B, H, D = 8, 12, 64
 CACHE_LENS = (1, 7, 128, 384, 1024)
+#: the decode kernel's split plans (n_split, split_tiles) held at B, H and
+#: the longest cache: None is the wrapper's own; (1, 16) one split; (3, 6)
+#: a short last split; (16, 1) a tile a split; (32, 1) splits past the cache
+DECODE_PLANS = (None, (1, 16), (2, 8), (3, 6), (16, 1), (32, 1))
+#: their lengths: 0 (every split empty), 1, a partial tile, the whole cache,
+#: tile edges
+DECODE_LENS = (0, 1, 37, 1024, 64, 65, 700, 1023)
 N_REQUESTS, MAX_NEW = 8, 32
 PROMPT_RANGE = (8, 300)
 # training kernels: BERT-base attention shapes
@@ -450,12 +469,19 @@ def flash_bound(lengths, heads, s_q, d):
                                        else "operations")
 
 
+#: floats of the decode timings' L2 flush: a 512 MB fill keeps the device
+#: busy (about 0.17 ms) past the host's work in the decode wrapper (the
+#: split plan, the partials' allocation), which a 256 MB fill (about 0.085
+#: ms) did not always outlast: then the host's enqueue showed in the time
+DECODE_FLUSH = 128 * 2 ** 20
+
+
 def phase_kernels(fa):
     """Kernel vs plain version at the decode path's shapes; times."""
     F = torch.nn.functional
     rng = np.random.RandomState(0)
     scale = 1.0 / math.sqrt(D)
-    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush_buf = torch.empty(DECODE_FLUSH, dtype=torch.float32, device="cuda")
     cases = [(1, L) for L in CACHE_LENS] + [(4, 384)]
     worst = 0.0
     for s_q, L in cases:
@@ -500,9 +526,57 @@ def phase_kernels(fa):
                        q4, k4, v4, attn_mask=mask), flush=flush)}
             row["bound_ms"], row["bound_by"] = flash_bound(lens, H, s_q, D)
             log(f"[kernels] flash timing {json.dumps(row)}")
+    # every split plan: against the plain version and the plain split
+    # version; a row of length 0 exactly 0 with lse -1e30; NaN in every K
+    # and V row at or past a length changes no bit; the same bits run to run
+    L = CACHE_LENS[-1]
+    lens = np.array(DECODE_LENS, np.int32)
+    q = torch.from_numpy(rng.randn(B * H, 1, D).astype(np.float32)).cuda()
+    k, v = (torch.from_numpy(rng.randn(B * H, L, D).astype(np.float32)).cuda()
+            for _ in range(2))
+    lengths = torch.from_numpy(lens).cuda()
+    past = (torch.arange(L, device="cuda")[None, :]
+            >= lengths.repeat_interleave(H)[:, None])[..., None]
+    kn, vn = (x.masked_fill(past, float("nan")) for x in (k, v))
+    ref, lse_ref = fa.flash_fwd_plain(q, k, v, lengths, H, scale)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for plan in DECODE_PLANS:
+        used = plan or fa.decode_split_plan(B * H, 1, L, sms)
+        before = fa.launches, fa.merge_launches
+        out, lse = fa.flash_fwd(q, k, v, lengths, H, scale, plan=plan)
+        out_n, lse_n = fa.flash_fwd(q, kn, vn, lengths, H, scale, plan=plan)
+        again, lse_again = fa.flash_fwd(q, k, v, lengths, H, scale, plan=plan)
+        sref, slse = fa.flash_fwd_split_plain(q, k, v, lengths, H, scale,
+                                              used)
+        torch.cuda.synchronize()
+        if (fa.launches - before[0], fa.merge_launches - before[1]) \
+                != (3, 3 * (used[0] > 1)):
+            raise AssertionError(f"flash plan {used}: launches "
+                                 f"{fa.launches - before[0]}, merges "
+                                 f"{fa.merge_launches - before[1]}")
+        err = max(float((out - ref).abs().max()),
+                  float((out - sref).abs().max()))
+        if not (err <= KERNEL_ATOL
+                and torch.allclose(lse, lse_ref, rtol=1e-5, atol=1e-5)
+                and torch.allclose(lse, slse, rtol=1e-5, atol=1e-5)):
+            raise AssertionError(f"flash plan {used} vs plain: max err {err}")
+        if float(out[:H].abs().max()) != 0.0 \
+                or not bool((lse[:H] == fa.NEG_INF).all()):
+            raise AssertionError(f"flash plan {used}: a row of length 0 is "
+                                 "not 0 / -1e30")
+        if not (torch.equal(out, out_n) and torch.equal(lse, lse_n)):
+            raise AssertionError(f"flash plan {used}: NaN past the lengths "
+                                 "changed the output")
+        if not (torch.equal(out, again) and torch.equal(lse, lse_again)):
+            raise AssertionError(f"flash plan {used}: not the same bits from "
+                                 "run to run")
+        worst = max(worst, err)
+        log(f"[kernels] flash plan {used} lengths={lens.tolist()} "
+            f"max_abs_err={err:.3e}; NaN past the lengths and a second run: "
+            f"bit-equal")
+
     # the kernels line is taken at the longest cache with every row full
     full = np.full(B, CACHE_LENS[-1], np.int64)
-    L = CACHE_LENS[-1]
     q = torch.randn(B * H, 1, D, device="cuda")
     k = torch.randn(B * H, L, D, device="cuda")
     v = torch.randn(B * H, L, D, device="cuda")
@@ -524,9 +598,55 @@ def phase_kernels(fa):
                 q4, k4, v4, attn_mask=mask), flush=flush)}
     line["bound_ms"], line["bound_by"] = flash_bound(full, H, 1, D)
     line["max_abs_err"] = worst
-    log(f"[kernels] flash line shape B={B} H={H} L={L} full lengths: "
-        f"{json.dumps(line)}")
+    n_split = fa.decode_split_plan(B * H, 1, L, sms)[0]
+    log(f"[kernels] flash line shape B={B} H={H} L={L} full lengths, "
+        f"n_split {n_split}: {json.dumps(line)}")
     return line
+
+
+def phase_decode_shapes(fa, calls):
+    """The decode kernel at the (batch bucket, cache bucket) shapes that
+    phase 3's run gave it (``calls``, a :class:`DecodeCalls`), each at the
+    lengths of its last call there: held to its plain version, and timed
+    beside its plain version, SDPA with the lengths as a boolean mask and
+    the bound (L2 flushed, median of 50); the sum of calls x ms over the
+    shapes is the kernel's share of the run."""
+    F = torch.nn.functional
+    rng = np.random.RandomState(3)
+    scale = 1.0 / math.sqrt(D)
+    flush = torch.empty(DECODE_FLUSH, dtype=torch.float32,
+                        device="cuda").zero_
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for (bh, s_q, s_kv), (n, lengths) in sorted(calls.shapes.items()):
+        b = bh // H
+        q, k, v = (torch.from_numpy(rng.randn(bh, m, D).astype(
+            np.float32)).cuda() for m in (s_q, s_kv, s_kv))
+        out, _ = fa.flash_fwd(q, k, v, lengths, H, scale)
+        ref, _ = fa.flash_fwd_plain(q, k, v, lengths, H, scale)
+        err = float((out - ref).abs().max())
+        if not err <= KERNEL_ATOL:
+            raise AssertionError(f"flash at phase 3's shape B={b} L={s_kv}: "
+                                 f"max err {err}")
+        q4, k4, v4 = (t.view(b, H, -1, D) for t in (q, k, v))
+        mask = (torch.arange(s_kv, device="cuda")[None, :]
+                < lengths[:, None]).view(b, 1, 1, s_kv)
+        lens = lengths.cpu().numpy()
+        row = {"B": b, "L": s_kv, "lengths": lens.tolist(), "calls": n,
+               "n_split": fa.decode_split_plan(bh, s_q, s_kv, sms)[0],
+               "ms": time_ms(lambda: fa.flash_fwd(q, k, v, lengths, H, scale),
+                             flush=flush),
+               "plain_ms": time_ms(lambda: fa.flash_fwd_plain(
+                   q, k, v, lengths, H, scale), flush=flush),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   q4, k4, v4, attn_mask=mask), flush=flush),
+               "max_abs_err": err}
+        row["bound_ms"], row["bound_by"] = flash_bound(lens, H, s_q, D)
+        for key in total:
+            total[key] += n * row[key]
+        log(f"[kernels] flash at phase 3's shape {json.dumps(row)}")
+    log(f"[kernels] flash over phase 3's {calls.calls} calls, calls x ms "
+        f"summed: {json.dumps(total)}")
 
 
 def teacher_forced_logits(engine, tokens):
@@ -2097,14 +2217,60 @@ def chunked_teacher_forced(engine, tokens, chunk):
     return out, caches
 
 
-def serve_streams(ht, metrics, kmods, engine, prompts):
-    """The prompts through ``DecodeRouter``; counters set to 0 just before
-    and read just after.  Returns (token streams, report)."""
+class DecodeCalls:
+    """While open, records the decode kernel's calls (every call of
+    ``fa.flash_fwd``, which the decode attention reaches through
+    ``flash_attention``): how many, how many of them the split plan gives
+    more than one split (each launches the merge kernel), and for each
+    (BH, S_q, S_kv) shape its calls and the lengths of its last call (the
+    tensor itself, read after the run: no host sync during it)."""
+
+    def __init__(self, fa):
+        self.fa, self.inner = fa, fa.flash_fwd
+        self.sms = torch.cuda.get_device_properties(0).multi_processor_count
+        self.reset()
+
+    def reset(self):
+        self.calls = self.split_calls = 0
+        self.shapes = {}
+
+    def __enter__(self):
+        def flash_fwd(q, k, v, lengths, heads, scale, **kw):
+            shape = (q.shape[0], q.shape[1], k.shape[1])
+            n_split, _ = self.fa.decode_split_plan(*shape, self.sms)
+            self.calls += 1
+            self.split_calls += n_split > 1
+            self.shapes[shape] = (self.shapes.get(shape, (0,))[0] + 1,
+                                  lengths)
+            return self.inner(q, k, v, lengths, heads, scale, **kw)
+
+        self.fa.flash_fwd = flash_fwd
+        return self
+
+    def __exit__(self, *exc):
+        self.fa.flash_fwd = self.inner
+
+    def check(self, fa, tag):
+        """The decode kernel launched once a call and its merge once a call
+        whose plan has more than one split."""
+        if fa.launches != self.calls or fa.merge_launches != self.split_calls:
+            raise AssertionError(
+                f"{tag}: lengths launches {fa.launches} / merge launches "
+                f"{fa.merge_launches} != calls {self.calls} / calls with more "
+                f"than one split {self.split_calls}")
+
+
+def serve_streams(ht, metrics, kmods, engine, prompts, calls=None):
+    """The prompts through ``DecodeRouter``; counters (and ``calls``, a
+    :class:`DecodeCalls`) set to 0 just before and read just after.
+    Returns (token streams, report)."""
     with ht.DecodeRouter(engine, queue_limit=len(prompts)) as router:
         # warm-up (cuBLAS handles, allocator) before the counted run
         router.submit(prompts[1][:40], max_new_tokens=2).result(timeout=300)
         torch.cuda.synchronize()
         reset_launches(*kmods)
+        if calls is not None:
+            calls.reset()
         metrics.reset_decode_counts()
         metrics.reset_flash_fallbacks()
         torch.cuda.reset_peak_memory_stats()
@@ -2154,14 +2320,19 @@ def phase_gpt2_serve(ht, fa, metrics, kmods, trained, prompts):
         raise AssertionError(f"names the decode graphs lack: {sorted(extra)}")
 
     # -- the counted chunked run, then the one-token run
-    got, crep = serve_streams(ht, metrics, kmods, ceng, prompts)
-    launches = {"flash_fwd_mask": fa.fwd_mask_launches,
-                "flash_fwd_lengths": fa.launches}
-    others = {name: n for m in kmods for name, n in vars(m).items()
-              if name.endswith("launches") and n and not (
-                  m is fa and name in ("fwd_mask_launches", "launches"))}
-    fallbacks = metrics.flash_fallback_counts()
-    want, orep = serve_streams(ht, metrics, kmods, oeng, prompts)
+    with DecodeCalls(fa) as calls:
+        got, crep = serve_streams(ht, metrics, kmods, ceng, prompts, calls)
+        calls.check(fa, "chunked engine")
+        launches = {"flash_fwd_mask": fa.fwd_mask_launches,
+                    "flash_fwd_lengths": fa.launches,
+                    "flash_fwd_lengths_merge": fa.merge_launches}
+        others = {name: n for m in kmods for name, n in vars(m).items()
+                  if name.endswith("launches") and n and not (
+                      m is fa and name in ("fwd_mask_launches", "launches",
+                                           "merge_launches"))}
+        fallbacks = metrics.flash_fallback_counts()
+        want, orep = serve_streams(ht, metrics, kmods, oeng, prompts, calls)
+        calls.check(fa, "one-token engine")
     if fa.launches != orep["decode_steps"] * cfg.n_layer:
         raise AssertionError("one-token engine: lengths launches "
                              f"{fa.launches} != steps x layers")
@@ -3617,8 +3788,12 @@ def main():
     plens = rng.randint(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1, size=N_REQUESTS)
     plens[0] = PROMPT_RANGE[1]          # the cache grows past 256 rows
     prompts = [rng.randint(0, cfg.vocab_size, size=n) for n in plens]
-    results, serve = serve_streams(ht, metrics, kmods, engine, prompts)
-    launches = {"flash_fwd_lengths": fa.launches}
+    with DecodeCalls(fa) as calls:
+        results, serve = serve_streams(ht, metrics, kmods, engine, prompts,
+                                       calls)
+    calls.check(fa, "phase 3")
+    launches = {"flash_fwd_lengths": fa.launches,
+                "flash_fwd_lengths_merge": fa.merge_launches}
     fallbacks = metrics.flash_fallback_counts()
     steps = serve["decode_steps"]
     for i, toks in enumerate(results):
@@ -3637,6 +3812,8 @@ def main():
                   "card": card_line()})
     log(f"[serve] {json.dumps(serve)}")
     log(f"[serve] first stream: {results[0][:8]}...")
+    # the decode kernel at the shapes this run gave it (phase 2's timings)
+    phase_decode_shapes(fa, calls)
 
     # -- 4. card vs CPU, teacher-forced -----------------------------------------
     named = {engine.iex.var_names[n]:
@@ -3766,9 +3943,10 @@ def main():
     for kk in ("fwd", "dq", "dkv"):
         tlines[kk]["max_abs_err"] = max(tlines[kk]["max_abs_err"],
                                         blines[kk + "_cross"]["max_abs_err"])
-    kernels = [entry("flash_fwd_lengths", "flash_attention.cu",
-                     "flash_attention.py:202",
-                     launches["flash_fwd_lengths"], line)]
+    kernels = [dict(entry("flash_fwd_lengths", "flash_attention.cu",
+                          "flash_attention.py:202",
+                          launches["flash_fwd_lengths"], line),
+                    merge_launches=launches["flash_fwd_lengths_merge"])]
     flash = (("fwd", "flash_fwd", "flash_attention.cu", 202),
              ("dq", "flash_bwd_dq", "flash_attention_bwd.cu", 299),
              ("dkv", "flash_bwd_dkv", "flash_attention_bwd.cu", 363))

@@ -1,12 +1,14 @@
-// Flash attention forward for Hopper (sm_90a): two kernels that replace
+// Flash attention forward for Hopper (sm_90a): kernels that replace
 // hetu_tpu/ops/pallas/flash_attention.py::_fwd_kernel (launched by _flash_fwd).
-// Both output `out` (BH, S_q, D) and the per-row log-sum-exp `lse` (BH, S_q),
+// They output `out` (BH, S_q, D) and the per-row log-sum-exp `lse` (BH, S_q),
 // float32; the bf16 training entries run on the tensor cores
 // (flash_attention_bf16.cu).  A row with no valid key outputs 0 with lse =
 // -1e30, as the TPU kernel's _finish does.
 //
-// 1. flash_fwd_lengths_kernel, the `lengths` specialization (decode): for the
-//    query rows of (b*h), keys at index >= lengths[b] are invisible.
+// 1. flash_fwd_lengths_kernel and flash_fwd_lengths_merge_kernel, the
+//    `lengths` specialization (decode): for the query rows of (b*h), keys at
+//    index >= lengths[b] are invisible; the cache is split across CTAs and
+//    the splits merged.
 // 2. flash_fwd_kernel, the dense, `key_mask`, `lengths`, causal, full-mask
 //    and additive bias specializations (training and chunked prefill): keys
 //    with key_mask[b, j] == 0 or at or past lengths[b] are invisible; under
@@ -18,23 +20,71 @@
 // ---- 1. lengths (decode)
 // What bounds it: at decode (S_q = 1) each valid K and V element is read once
 // and used for about two multiply-adds, far below the card's operations-per-
-// byte balance, so the kernel is bound by the K/V bytes it reads.  The design
-// follows from that: the tile loop stops at lengths[b], so keys past the length
-// cost neither bytes nor operations; each K/V row is read once, with coalesced
-// 16-byte cp.async copies into shared memory; scores, the running max and sum
-// and the output accumulator never touch device memory.  Nothing is padded to
-// a tile multiple: the last tile is ragged and masked here.
+// byte balance, so the kernel is bound by the K/V bytes it reads (B 8, H 12,
+// a full 1024-row cache, D 64: 50 MB, 15 us at 3.35 TB/s).  Its one aim is to
+// keep enough of those bytes in flight, on every SM, from start to end.  The
+// earlier design (one CTA a (b*h): 96 CTAs, one tile in flight, waited for
+// before its scores) took 0.053 ms there on an H100 SXM at 700 W, this one
+// 0.028 to 0.029 ms (chip_smoke.py phase 2, tools/flash_timings.py).
 //
-// Layout: one CTA of NWARPS warps per (b*h, tile of BQ query rows).  Each key
-// tile of BK = 32 * NWARPS rows is staged in shared memory.  Warp w owns keys
-// [32w, 32w + 32) of every tile: lane l computes the score of key 32w + l, and
-// owns output dims l, l + 32, l + 64, l + 96 for the P.V product.  Every warp
-// keeps its own online-softmax state (max, sum, accumulator) per query row in
-// registers; the warps' states are merged once, at the end, through shared
-// memory (a two-level online softmax, so no query row waits on one warp).
+// Split-KV.  The grid is (BH * S_q, n_split): one CTA of 128 threads per
+// (query row, split).  Split s owns the whole key tiles [s * split_tiles,
+// (s + 1) * split_tiles) of DT = 64 keys, cut at lengths[b] (clamped to
+// [0, S_kv]); a split that starts at or past the length writes an empty
+// partial (m = -inf, l = 0) and exits, so keys past the length cost neither
+// bytes nor operations.  n_split and split_tiles come from the host's plan
+// (ops/kernels/flash_attention.py, decode_split_plan): from the shapes and the
+// SM count alone, never from the values of lengths, which live on the card.
+// It aims at three CTAs an SM (B 8, H 12, L 1024: 4 splits of 4 tiles, 384
+// CTAs on 132 SMs) and keeps a cache of at most three tiles in one split.
 //
-// Not yet: wgmma, TMA, double buffering, and splitting a long cache across
-// CTAs (at B*H = 96 rows the grid underfills the 132 SMs).
+// Merge.  With one split the CTA writes out and lse itself: one launch.  With
+// more, each CTA writes its (m, l, acc[D]) in float32 (m in base 2, acc not
+// yet divided by l) to the caller's scratch (BH, n_split, S_q, D + 2), and
+// flash_fwd_lengths_merge_kernel, launched behind it on the same stream as
+// its programmatic dependent (its launch overlaps the split kernel's run; it
+// waits for that grid's end before it reads), merges each row's splits in
+// split order, one warp a row, as an online softmax over the splits whose
+// loads all go out before any is used; an empty split weighs 0 and a row
+// whose splits are all empty outputs 0 with lse = -1e30.  A second launch
+// rather than a last-CTA-merges ticket: the ticket needs a counter that
+// outlives the call and that every stream launching the kernel would share;
+// the merge reads 0.1 MB at the kernels line's shape and costs about 3 us
+// there, 1 us less than a plain launch (tools/kernel_variants decode).  No
+// atomics anywhere: the output is the same bits from run to run.
+//
+// Copies.  K and V tiles go through a ring of two slots in shared memory,
+// each tile two TMA bulk copies (cp.async.bulk: the K and V rows of a tile
+// are contiguous) issued by one thread and reported by the slot's mbarrier:
+// tile t + 1 is in flight while tile t is computed, one barrier a tile, and
+// no thread spends instructions on addresses.  The copies are marked
+// evict-first in L2: the cache is streamed once, so it does not push the
+// L2's other lines out (after a fill of the L2 with dirty lines, 3.5 us of
+// write-back saved at the kernels line).  A row at or past the split's end
+// (the length or the next split) is never copied: the ragged last tile
+// copies fewer bytes, its score lanes past the end take -inf and its P.V
+// loop stops at the end, so NaN in the cache rows past a length changes no
+// output bit.  66 KB of shared memory a CTA at D = 64: three CTAs share an
+// SM.  A first design filled the ring with 16-byte cp.async copies by every
+// thread into padded rows: 0.8 to 1.1 us slower at the kernels line (the
+// same tools/kernel_variants decode, before that route was removed).
+//
+// Compute, one query row a CTA (no dead rows).  Warp w takes keys [16w,
+// 16w + 16) of each tile.  Q.K^T: two lanes a key, lanes l and l + 16 each
+// take half the head dim, one shuffle joins them, reading q from shared
+// memory and both halves in a rotated order (from column key % half), so
+// eight consecutive unpadded rows hit eight distinct bank groups.  Each
+// warp keeps its own online-softmax state (scores in base 2, scale * log2 e
+// folded in).  P.V: the warp's 16 probabilities go through shared memory;
+// lane l owns the float4 column group l % W (W: the head dim's float4 count
+// rounded up to a power of two) for the keys of its lane group l / W, so no
+// shuffle a key; the lane groups' sums are joined once, at the end, and the
+// four warps' states through shared memory.
+//
+// S_q > 1 (not on the decode path) is correct, not fast: each query row is a
+// CTA of its own and reads its keys again.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -42,198 +92,323 @@
 
 namespace {
 
-using hetu_flash::cp_async16;
-using hetu_flash::cp_async_wait_all;
-using hetu_flash::FULL;
-using hetu_flash::NEG_INF;
-using hetu_flash::warp_max;
-using hetu_flash::warp_sum;
+using namespace hetu_flash;
 
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = 32 * NWARPS;
-constexpr int BK = 32 * NWARPS;  // keys per shared-memory tile
-constexpr int BQ = 4;            // query rows per CTA
-constexpr int DMAX = 128;        // largest head dim
-constexpr int DPL = DMAX / 32;   // output dims per lane
+constexpr int DT = FT;       // keys of a decode tile
+constexpr int DSTAGES = 2;   // tiles of the K/V ring
+constexpr int DWKEYS = 16;   // keys a warp takes of each tile
+constexpr int DWARPS = FTHREADS / 32;
+static_assert(DWARPS * DWKEYS == DT, "the warps cover a tile");
+// The merge kernel launched as a programmatic dependent of the split kernel,
+// so its launch overlaps the split kernel's run (false: a plain launch, the
+// variant tools/kernel_variants times).
+constexpr bool DECODE_PDL = true;
 
-__global__ void __launch_bounds__(NTHREADS)
+// Shared memory of the split kernel: the K and V rings (unpadded rows), q,
+// the warps' probabilities, the warps' states (m, l, pad, pad, acc[d]), an
+// mbarrier a ring slot.
+inline size_t decode_smem(int d) {
+  return (size_t)(2 * DSTAGES * DT * d + d + DT + DWARPS * (d + 4)) * sizeof(float) +
+         DSTAGES * sizeof(unsigned long long);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// `bytes` from global `src` into shared `dst` (both 16-byte aligned, a
+// multiple of 16 bytes) by one TMA bulk copy under the L2 `policy`,
+// completing on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar, unsigned long long policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ bool bar_done(unsigned long long* bar, unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// DMAX: the largest head dim of the instantiation (64 or 128): a lane's
+// half of q . k takes at most DMAX / 8 float4s.
+template <int DMAX>
+__global__ void __launch_bounds__(FTHREADS, 3)
 flash_fwd_lengths_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const int* __restrict__ lengths,
                          float* __restrict__ out, float* __restrict__ lse,
-                         int heads, int s_q, int s_kv, int d, float scale) {
+                         float* __restrict__ part, int heads, int s_q, int s_kv, int d,
+                         int split_tiles, float scale) {
+  constexpr int QH = DMAX / 8;
   extern __shared__ __align__(16) float smem[];
-  // K rows are padded to d + 4 floats: rows stay 16-byte aligned for cp.async,
-  // and the lanes' float4 reads of 8 consecutive rows hit distinct banks.
-  const int ks = d + 4;
-  float* k_s = smem;            // BK x ks
-  float* v_s = k_s + BK * ks;   // BK x d
-  float* q_s = v_s + BK * d;    // BQ x d
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * BQ;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
   const int d4 = d >> 2;
+  float* k_s = smem;                    // DSTAGES x DT x d
+  float* v_s = k_s + DSTAGES * DT * d;  // DSTAGES x DT x d
+  float* q_s = v_s + DSTAGES * DT * d;  // d
+  float* p_s = q_s + d;                 // DT probabilities, 16 a warp
+  float* red = p_s + DT;                // DWARPS x (d + 4)
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(red + DWARPS * (d + 4));
 
-  int len = lengths[bh / heads];
-  len = len < 0 ? 0 : (len > s_kv ? s_kv : len);
+  // the merge (if any) may launch now: it waits for this grid's end
+  if (DECODE_PDL) asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int row = blockIdx.x;  // bh * s_q + query row
+  const int split = blockIdx.y, n_split = gridDim.y;
+  const int bh = row / s_q;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float* pr = n_split > 1
+                  ? part + (((size_t)bh * n_split + split) * s_q + (row - bh * s_q)) * (d + 2)
+                  : nullptr;  // this CTA's partial
 
-  const float* qb = q + ((size_t)bh * s_q + q0) * d;
+  const int len = max(0, min(s_kv, lengths[bh / heads]));
+  const int k_begin = split * split_tiles * DT;
+  const int k_end = min(len, k_begin + split_tiles * DT);  // keys [k_begin, k_end)
+  if (n_split > 1 && k_begin >= len) {                     // an empty split
+    if (tid == 0) {
+      pr[0] = __int_as_float(0xff800000);  // -inf
+      pr[1] = 0.f;
+    }
+    return;
+  }
+  const int nt = k_end > k_begin ? (k_end - k_begin + DT - 1) / DT : 0;
   const float* kb = k + (size_t)bh * s_kv * d;
   const float* vb = v + (size_t)bh * s_kv * d;
+  unsigned long long policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  // tile t into ring slot t % DSTAGES, by thread 0; the ragged last tile's
+  // rows past k_end are not copied (and never read)
+  auto stage = [&](int t) {
+    const int slot = t % DSTAGES, off = slot * DT * d, k0 = k_begin + t * DT;
+    const unsigned bytes = (unsigned)(min(DT, k_end - k0) * d * sizeof(float));
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                     smem_u32(bars + slot)),
+                 "r"(2 * bytes)
+                 : "memory");
+    bulk_copy(k_s + off, kb + (size_t)k0 * d, bytes, bars + slot, policy);
+    bulk_copy(v_s + off, vb + (size_t)k0 * d, bytes, bars + slot, policy);
+  };
 
-  // the query tile; rows past s_q are zero (computed, never stored)
-  for (int i = tid; i < BQ * d4; i += NTHREADS) {
-    const int r = i / d4, c = i - r * d4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < s_q) val = reinterpret_cast<const float4*>(qb + (size_t)r * d)[c];
-    reinterpret_cast<float4*>(q_s + r * d)[c] = val;
+  // this lane's half of q: float4 groups [c_base, c_base + c_cnt)
+  const int half = lane >> 4, h0 = (d4 + 1) >> 1;
+  const int c_base = half ? h0 : 0, c_cnt = half ? d4 - h0 : h0;
+  const int key = DWKEYS * warp + (lane & 15);  // this lane's key in a tile (Q.K^T)
+  if (tid == 0) {
+    for (int s = 0; s < DSTAGES; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bars + s)));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = 0; t < DSTAGES - 1 && t < nt; ++t) stage(t);
   }
+  for (int i = tid; i < d4; i += FTHREADS)
+    reinterpret_cast<float4*>(q_s)[i] = reinterpret_cast<const float4*>(q + (size_t)row * d)[i];
+  __syncthreads();  // the mbarriers are set up before any thread waits on them
+  // each lane reads its half of q and of k in a rotated order (from column
+  // key % c_cnt), so the unpadded rows of 8 consecutive keys hit 8 distinct
+  // bank groups
+  const int rot0 = c_cnt > 0 ? key % c_cnt : 0;
 
-  float m[BQ], l[BQ], acc[BQ][DPL];
-#pragma unroll
-  for (int r = 0; r < BQ; ++r) {
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
-  }
+  // P.V lanes: W lanes a group own the float4 columns; group g takes the
+  // warp's keys [g * kpg, (g + 1) * kpg) of each tile
+  int W = 2;
+  while (W < d4) W <<= 1;
+  const int kpg = DWKEYS * W / 32, g = lane / W, col4 = lane % W;
+  const float sl2 = scale * LOG2E;
 
-  for (int t0 = 0; t0 < len; t0 += BK) {
-    const int rows = min(BK, len - t0);
-    __syncthreads();  // the previous tile is consumed; q_s is staged
-    for (int i = tid; i < rows * d4; i += NTHREADS) {
-      const int r = i / d4, c = i - r * d4;
-      const size_t g = (size_t)(t0 + r) * d + 4 * c;
-      cp_async16(k_s + r * ks + 4 * c, kb + g);
-      cp_async16(v_s + r * d + 4 * c, vb + g);
+  float m_w = NEG_INF, l_w = 0.f;  // the warp's running max (base 2) and sum
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int t = 0; t < nt; ++t) {
+    const int k0 = k_begin + t * DT, off = (t % DSTAGES) * DT * d;
+    while (!bar_done(bars + t % DSTAGES, (t / DSTAGES) & 1)) {
     }
-    cp_async_wait_all();
-    __syncthreads();
+    __syncthreads();  // every warp is done with tile t - 1
+    if (tid == 0 && t + DSTAGES - 1 < nt) stage(t + DSTAGES - 1);
 
-    const int nv = min(32, rows - 32 * warp);  // valid keys in this warp's slice
-    if (nv <= 0) continue;                     // warp-uniform
-
-    float s[BQ];
+    // S: this lane's half of q . k, joined with lane l ^ 16's
+    const float* kr = k_s + off + key * d + 4 * c_base;
+    const float* qh = q_s + 4 * c_base;
+    float s = 0.f;
+    int c = rot0;
 #pragma unroll
-    for (int r = 0; r < BQ; ++r) s[r] = 0.f;
-    if (lane < nv) {
-      const float4* krow = reinterpret_cast<const float4*>(k_s + (32 * warp + lane) * ks);
-#pragma unroll 4
-      for (int c = 0; c < d4; ++c) {
-        const float4 kv = krow[c];
-#pragma unroll
-        for (int r = 0; r < BQ; ++r) {
-          const float4 qv = reinterpret_cast<const float4*>(q_s + r * d)[c];
-          s[r] += qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
-        }
+    for (int i = 0; i < QH; ++i) {
+      if (i < c_cnt) {
+        const float4 kv = *reinterpret_cast<const float4*>(kr + 4 * c);
+        const float4 qq = *reinterpret_cast<const float4*>(qh + 4 * c);
+        s = fmaf(qq.x, kv.x, s);
+        s = fmaf(qq.y, kv.y, s);
+        s = fmaf(qq.z, kv.z, s);
+        s = fmaf(qq.w, kv.w, s);
+        if (++c == c_cnt) c = 0;
       }
     }
-#pragma unroll
-    for (int r = 0; r < BQ; ++r) {
-      const float sr = lane < nv ? s[r] * scale : NEG_INF;
-      const float m_new = fmaxf(m[r], warp_max(sr));
-      const float alpha = expf(m[r] - m_new);
-      const float p = lane < nv ? expf(sr - m_new) : 0.f;
-      l[r] = alpha * l[r] + warp_sum(p);
-      m[r] = m_new;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] *= alpha;
-      s[r] = p;  // from here on: this lane's probability
-    }
-    for (int j = 0; j < nv; ++j) {
-      const float* vrow = v_s + (32 * warp + j) * d;
-      float pj[BQ];
-#pragma unroll
-      for (int r = 0; r < BQ; ++r) pj[r] = __shfl_sync(FULL, s[r], j);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int dd = lane + 32 * i;
-        if (dd < d) {
-          const float vv = vrow[dd];
-#pragma unroll
-          for (int r = 0; r < BQ; ++r) acc[r][i] += pj[r] * vv;
-        }
-      }
+    s += __shfl_xor_sync(FULL, s, 16);
+    // online softmax over the warp's 16 keys; a key at or past k_end scores
+    // -inf, so exp2 gives it 0 against the finite running max
+    const float x = k0 + key < k_end ? s * sl2 : __int_as_float(0xff800000);
+    const float m_new = fmaxf(m_w, half_max16(x));
+    const float alpha = exp2f(m_w - m_new);
+    const float p = exp2f(x - m_new);
+    l_w = fmaf(alpha, l_w, half_sum16(p));
+    m_w = m_new;
+    acc.x *= alpha;
+    acc.y *= alpha;
+    acc.z *= alpha;
+    acc.w *= alpha;
+    if (lane < 16) p_s[DWKEYS * warp + lane] = p;
+    __syncwarp();
+
+    // O += P V over this lane group's keys below k_end
+    const int k1 = DWKEYS * warp + g * kpg;  // the group's first key in the tile
+    const int nv = min(kpg, k_end - k0 - k1);
+    if (col4 < d4) {
+      const float* pw = p_s + k1;
+      const float* vw = v_s + off + k1 * d + 4 * col4;
+#pragma unroll 8
+      for (int i = 0; i < nv; ++i)
+        fma4(acc, pw[i], *reinterpret_cast<const float4*>(vw + i * d));
     }
   }
 
-  // merge the warps' partial states: the tiles' shared memory is reused
+  // join the lane groups' sums, then the warps' states
+  for (int o = W; o < 32; o <<= 1) {
+    acc.x += __shfl_xor_sync(FULL, acc.x, o);
+    acc.y += __shfl_xor_sync(FULL, acc.y, o);
+    acc.z += __shfl_xor_sync(FULL, acc.z, o);
+    acc.w += __shfl_xor_sync(FULL, acc.w, o);
+  }
+  const int rs = d + 4;
+  if (lane == 0) {
+    red[warp * rs] = m_w;
+    red[warp * rs + 1] = l_w;
+  }
+  if (lane < d4) *reinterpret_cast<float4*>(red + warp * rs + 4 + 4 * lane) = acc;
   __syncthreads();
-  const int rs = d + 2;  // slot: max, sum, d accumulator values
-  float* red = smem;
+  if (tid >= d4) return;
+  float mx = NEG_INF;
 #pragma unroll
-  for (int r = 0; r < BQ; ++r) {
-    float* slot = red + (warp * BQ + r) * rs;
-    if (lane == 0) {
-      slot[0] = m[r];
-      slot[1] = l[r];
-    }
+  for (int w = 0; w < DWARPS; ++w) mx = fmaxf(mx, red[w * rs]);
+  float sum = 0.f;
+  float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int dd = lane + 32 * i;
-      if (dd < d) slot[2 + dd] = acc[r][i];
-    }
+  for (int w = 0; w < DWARPS; ++w) {
+    const float f = exp2f(red[w * rs] - mx);
+    sum = fmaf(f, red[w * rs + 1], sum);
+    fma4(o, f, *reinterpret_cast<const float4*>(red + w * rs + 4 + 4 * tid));
   }
-  __syncthreads();
-  for (int r = warp; r < BQ; r += NWARPS) {
-    if (q0 + r >= s_q) continue;
-    float mx = NEG_INF;
-    for (int w = 0; w < NWARPS; ++w) mx = fmaxf(mx, red[(w * BQ + r) * rs]);
-    float sum = 0.f, o[DPL];
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) o[i] = 0.f;
-    for (int w = 0; w < NWARPS; ++w) {
-      const float* slot = red + (w * BQ + r) * rs;
-      const float f = expf(slot[0] - mx);
-      sum += f * slot[1];
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int dd = lane + 32 * i;
-        if (dd < d) o[i] += f * slot[2 + dd];
-      }
-    }
+  if (n_split == 1) {
     const float l_safe = sum == 0.f ? 1.f : sum;
-    const size_t row = (size_t)bh * s_q + q0 + r;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int dd = lane + 32 * i;
-      if (dd < d) out[row * d + dd] = o[i] / l_safe;
+    *reinterpret_cast<float4*>(out + (size_t)row * d + 4 * tid) =
+        make_float4(o.x / l_safe, o.y / l_safe, o.z / l_safe, o.w / l_safe);
+    if (tid == 0) lse[row] = sum == 0.f ? NEG_INF : mx * LN2 + logf(sum);
+  } else {
+    if (tid == 0) {
+      pr[0] = mx;
+      pr[1] = sum;
     }
-    if (lane == 0) lse[row] = mx + logf(l_safe);
+    pr[2 + 4 * tid] = o.x;
+    pr[3 + 4 * tid] = o.y;
+    pr[4 + 4 * tid] = o.z;
+    pr[5 + 4 * tid] = o.w;
   }
+}
+
+// One warp a row of BH * S_q: the row's n_split partials, in split order,
+// as an online softmax over the splits.  Nothing waits on a load's value
+// before the next split's loads go out (an unrolled loop, the empty splits
+// dropped by selects), so four splits cost one trip to L2.  An empty split
+// (m = -inf, l = 0) weighs 0, and its acc, never written, is selected away.
+__global__ void __launch_bounds__(FTHREADS)
+flash_fwd_lengths_merge_kernel(const float* __restrict__ part, float* __restrict__ out,
+                               float* __restrict__ lse, int rows, int s_q, int d, int n_split) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");  // the split kernel's partials are in
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * DWARPS + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int bh = row / s_q;
+  const size_t stride = (size_t)s_q * (d + 2);  // from one split's partial to the next
+  const float* pr = part + ((size_t)bh * n_split * s_q + (row - bh * s_q)) * (d + 2);
+  float mx = NEG_INF, sum = 0.f, o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int s = 0; s < n_split; ++s) {
+    const float* ps = pr + s * stride;
+    const float m = ps[0], l = ps[1];
+    float a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = lane + 32 * i < d ? ps[2 + lane + 32 * i] : 0.f;
+    const float mn = fmaxf(mx, m);  // an empty split's -inf leaves mx as it is
+    const float fo = exp2f(mx - mn), fs = exp2f(m - mn);
+    const bool live = l > 0.f;
+    sum = fmaf(fo, sum, live ? fs * l : 0.f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = live ? fmaf(fs, a[i], fo * o[i]) : o[i];
+    mx = mn;
+  }
+  const float l_safe = sum == 0.f ? 1.f : sum;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (lane + 32 * i < d) out[(size_t)row * d + lane + 32 * i] = o[i] / l_safe;
+  if (lane == 0) lse[row] = sum == 0.f ? NEG_INF : mx * LN2 + logf(sum);
+}
+
+template <int DMAX>
+int launch_lengths(const float* q, const float* k, const float* v, const int* lengths,
+                   float* out, float* lse, float* part, int rows, int heads, int s_q, int s_kv,
+                   int d, int n_split, int split_tiles, float scale, cudaStream_t stream) {
+  static size_t configured[64] = {0};
+  const size_t smem = decode_smem(d);
+  cudaError_t err =
+      ensure_smem((const void*)flash_fwd_lengths_kernel<DMAX>, smem, configured);
+  if (err != cudaSuccess) return (int)err;
+  flash_fwd_lengths_kernel<DMAX><<<dim3(rows, n_split), FTHREADS, smem, stream>>>(
+      q, k, v, lengths, out, lse, part, heads, s_q, s_kv, d, split_tiles, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((rows + DWARPS - 1) / DWARPS);
+  cfg.blockDim = dim3(FTHREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = DECODE_PDL ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, flash_fwd_lengths_merge_kernel, (const float*)part, out, lse,
+                           rows, s_q, d, n_split);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() after the launch (0 = launched).
-// q (bh, s_q, d), k/v (bh, s_kv, d), out (bh, s_q, d): contiguous float32,
-// 16-byte aligned; lengths (bh / heads) int32; lse (bh, s_q) float32.
+// Launch on `stream`; returns cudaGetLastError() after the last launch (0 =
+// launched).  q (bh, s_q, d), k/v (bh, s_kv, d), out (bh, s_q, d):
+// contiguous float32, 16-byte aligned; lengths (bh / heads) int32; lse
+// (bh, s_q) float32.  The plan (n_split, split_tiles) must cover s_kv
+// (n_split * split_tiles * 64 >= s_kv); with n_split > 1, part is float32
+// scratch of (bh, n_split, s_q, d + 2) and the merge kernel follows the split
+// kernel on the stream.
 extern "C" int hetu_flash_fwd_lengths(const float* q, const float* k, const float* v,
-                                      const int* lengths, float* out, float* lse, int bh,
-                                      int heads, int s_q, int s_kv, int d, float scale,
-                                      void* stream) {
-  if (d <= 0 || d > DMAX || (d & 3) || heads <= 0 || bh <= 0 || bh % heads ||
-      s_q <= 0 || s_kv < 0 || (s_q + BQ - 1) / BQ > 65535)
+                                      const int* lengths, float* out, float* lse, float* part,
+                                      int bh, int heads, int s_q, int s_kv, int d, int n_split,
+                                      int split_tiles, float scale, void* stream) {
+  if (hetu_flash::bad_head_dim<float>(d) || heads <= 0 || bh <= 0 || bh % heads || s_q <= 0 ||
+      s_kv < 0 || (long long)bh * s_q > INT_MAX || n_split < 1 || n_split > 65535 ||
+      split_tiles < 1 || (long long)n_split * split_tiles * DT < s_kv ||
+      (long long)n_split * split_tiles * DT > INT_MAX || (n_split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(BK * (d + 4) + BK * d + BQ * d) * sizeof(float);
-  // above 48 KB a kernel needs an explicit opt-in, once per device
-  static size_t configured[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (smem > configured[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_lengths_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured[dev] = smem;
-  }
-  const dim3 grid(bh, (s_q + BQ - 1) / BQ);
-  flash_fwd_lengths_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      q, k, v, lengths, out, lse, heads, s_q, s_kv, d, scale);
-  return (int)cudaGetLastError();
+  const int rows = bh * s_q;
+  cudaStream_t st = (cudaStream_t)stream;
+  return d <= 64 ? launch_lengths<64>(q, k, v, lengths, out, lse, part, rows, heads, s_q, s_kv,
+                                      d, n_split, split_tiles, scale, st)
+                 : launch_lengths<128>(q, k, v, lengths, out, lse, part, rows, heads, s_q, s_kv,
+                                       d, n_split, split_tiles, scale, st);
 }
 
 // ---- 2. dense, key_mask, causal, full mask and bias (training, chunked prefill)

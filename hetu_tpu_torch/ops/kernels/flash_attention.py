@@ -10,7 +10,8 @@ with hand-written CUDA kernels, built for ``sm_90a`` and bound through
 * ``_fwd_kernel`` (entered through ``_flash_fwd``) →
   ``csrc/flash_attention.cu``: ``hetu_flash_fwd_lengths`` for
   ``lengths`` alone at one query row without a gradient (decode,
-  :func:`flash_fwd`);
+  :func:`flash_fwd`: the cache split across CTAs by
+  :func:`decode_split_plan`, the splits merged by a second kernel);
   ``hetu_flash_fwd`` for the dense and ``key_mask`` ones and
   ``hetu_flash_fwd_causal`` for the causal one, alone or with a
   ``key_mask`` (training, :func:`flash_fwd_masked`);
@@ -83,7 +84,8 @@ Beside each kernel sits its plain PyTorch version
 (:func:`flash_fwd_plain`, :func:`flash_bwd_plain`).  A wrapper takes the
 plain version only for tensors on the CPU; on a CUDA tensor it launches
 its kernel or raises.  Each specialization counts its launches in a
-plain module integer (``launches``, ``fwd_launches``, ``dq_launches``,
+plain module integer (``launches`` and the decode merge's
+``merge_launches``, ``fwd_launches``, ``dq_launches``,
 ``dkv_launches``, ``fwd_causal_launches``, ``dq_causal_launches``,
 ``dkv_causal_launches``, ``fwd_mask_launches``, and for a dense bias
 ``fwd_bias_launches``, ``dq_bias_launches``, ``dkv_bias_launches``, with
@@ -173,12 +175,16 @@ bf16_dkv_mask_kbias_launches = 0
 for _name in [n for n in list(globals()) if n.endswith("_launches")]:
     globals()[_name[:-len("_launches")] + "_len_launches"] = 0
 del _name
+#: merge-kernel launches made by :func:`flash_fwd` (once a call whose split
+#: plan has more than one split)
+merge_launches = 0
 
 #: C entry → (source ``csrc/<source>.cu``, pointer arguments, int
 #: arguments); each takes its pointers, then its ints ((bh, heads, s_q,
-#: s_kv, d), a bias also (gmode, strip, causal), a full mask with an
-#: optional bias (gmode, bgmode, strip, causal)), then scale, stream
-ENTRIES = {"hetu_flash_fwd_lengths": ("flash_attention", 6, 5),
+#: s_kv, d), the decode entry also (n_split, split_tiles), a bias also
+#: (gmode, strip, causal), a full mask with an optional bias (gmode,
+#: bgmode, strip, causal)), then scale, stream
+ENTRIES = {"hetu_flash_fwd_lengths": ("flash_attention", 7, 7),
            "hetu_flash_fwd": ("flash_attention", 6, 5),
            "hetu_flash_fwd_causal": ("flash_attention", 6, 5),
            "hetu_flash_fwd_mask": ("flash_attention", 8, 9),
@@ -659,25 +665,119 @@ def _check(q, k, v, lengths, heads):
                          f"{tuple(lengths.shape)} on {lengths.device}")
 
 
-def flash_fwd(q, k, v, lengths, heads, scale):
+#: keys of one tile of the decode kernel: its split plan cuts each row's
+#: keys into runs of whole tiles
+DECODE_TILE = 64
+#: CTAs of the decode kernel one SM holds at D <= 64 (66 KB of shared memory
+#: each), the grid the split plan aims for
+DECODE_CTAS_PER_SM = 3
+#: the fewest key tiles a split takes: a cache of at most three tiles keeps
+#: one split and one launch
+DECODE_MIN_SPLIT_TILES = 2
+
+_SMS = {}
+
+
+def decode_split_plan(bh, s_q, s_kv, sms):
+    """How the decode kernel splits each row's keys across CTAs:
+    ``(n_split, split_tiles)``, split ``s`` owning the key tiles
+    ``[s * split_tiles, (s + 1) * split_tiles)`` of ``DECODE_TILE`` keys.
+    Made from the shapes and the SM count alone, never from the values of
+    ``lengths`` (they live on the card; reading them would stall the host):
+    enough splits for ``DECODE_CTAS_PER_SM`` CTAs of the (BH * S_q,
+    n_split) grid on each of ``sms`` SMs, at least
+    ``DECODE_MIN_SPLIT_TILES`` tiles a split, the tiles shared as evenly as
+    whole tiles allow, and no split past the last tile."""
+    tiles = max(1, -(-s_kv // DECODE_TILE))
+    want = -(-DECODE_CTAS_PER_SM * sms // (bh * s_q))
+    n = max(1, min(want, tiles // DECODE_MIN_SPLIT_TILES))
+    per = -(-tiles // n)
+    return -(-tiles // per), per
+
+
+def _sm_count(device):
+    """The SM count of CUDA ``device``, read once per device."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    n = _SMS.get(idx)
+    if n is None:
+        n = _SMS[idx] = torch.cuda.get_device_properties(idx) \
+            .multi_processor_count
+    return n
+
+
+def flash_fwd(q, k, v, lengths, heads, scale, plan=None):
     """Attention over keys below ``lengths``: q (BH, S_q, D), k/v
     (BH, S_kv, D) float32, lengths (B,) int32 with B = BH / heads.
-    Returns ``(out (BH, S_q, D), lse (BH, S_q))``."""
-    global launches
+    Returns ``(out (BH, S_q, D), lse (BH, S_q))``.  On the card the keys
+    are split across CTAs by :func:`decode_split_plan`, or by ``plan``
+    ``(n_split, split_tiles)`` when given (the tests and the timings force
+    one); with more than one split a second kernel merges them."""
+    global launches, merge_launches
     _check(q, k, v, lengths, heads)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, lengths, heads, scale)
     bh, s_q, d = q.shape
+    s_kv = k.shape[1]
     _check_launch("flash_fwd", d, q=q, k=k, v=v, lengths=lengths)
+    n_split, split_tiles = plan if plan is not None else decode_split_plan(
+        bh, s_q, s_kv, _sm_count(q.device))
     out = torch.empty_like(q)
     lse = torch.empty((bh, s_q), dtype=torch.float32, device=q.device)
+    # the splits' (m, l, acc) partials, on the current stream's allocator
+    part = torch.empty((bh, n_split, s_q, d + 2), dtype=torch.float32,
+                       device=q.device) if n_split > 1 else None
     fn = kernel("hetu_flash_fwd_lengths")
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), bh, heads, s_q, k.shape[1], d,
-                float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+                out.data_ptr(), lse.data_ptr(), _ptr(part), bh, heads, s_q,
+                s_kv, d, n_split, split_tiles, float(scale),
+                torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on("flash_fwd", rc)
     launches += 1
+    merge_launches += n_split > 1
+    return out, lse
+
+
+def flash_fwd_split_plain(q, k, v, lengths, heads, scale, plan):
+    """Plain PyTorch version of the decode kernel pair, split by ``plan``
+    ``(n_split, split_tiles)`` as :func:`flash_fwd` splits it: each
+    split's (max, sum, unnormalized output) over its keys below the
+    length, then the merge in split order, skipping empty splits.  A K or
+    V row at or past a length never reaches a sum (NaN there changes
+    nothing).  Same outputs as :func:`flash_fwd_plain`; for the tests."""
+    bh, s_q, d = q.shape
+    s_kv = k.shape[1]
+    n_split, split_tiles = plan
+    span = split_tiles * DECODE_TILE
+    lens = lengths.clamp(0, s_kv).repeat_interleave(heads)         # (BH,)
+    ms, ls, accs = [], [], []
+    for s in range(n_split):
+        k0, k1 = min(s * span, s_kv), min((s + 1) * span, s_kv)
+        ok = torch.arange(k0, k1, device=q.device)[None, :] \
+            < lens[:, None]                                         # (BH, n)
+        kk = torch.where(ok[..., None], k[:, k0:k1], 0.0)
+        vv = torch.where(ok[..., None], v[:, k0:k1], 0.0)
+        sc = torch.matmul(q, kk.transpose(1, 2)) * scale
+        sc = torch.where(ok[:, None, :], sc, -math.inf)
+        live = ok.any(-1)[:, None]                                  # (BH, 1)
+        m = torch.where(live, sc.amax(-1) if k1 > k0 else
+                        torch.zeros(bh, s_q, device=q.device), 0.0)
+        p = torch.exp(sc - m[..., None])                            # 0: not ok
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.matmul(p, vv))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    live = l > 0
+    mx = torch.where(live, m, -math.inf).amax(0)
+    mx = torch.where(live.any(0), mx, 0.0)
+    f = torch.where(live, torch.exp(m - mx), 0.0)
+    total = (f * l).sum(0)
+    o = (f[..., None] * acc).sum(0)
+    empty = total == 0
+    out = o / torch.where(empty, 1.0, total)[..., None]
+    lse = torch.where(empty, NEG_INF, mx + torch.log(torch.where(empty, 1.0,
+                                                                  total)))
     return out, lse
 
 

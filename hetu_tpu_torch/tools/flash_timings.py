@@ -12,11 +12,22 @@ its padded key mask), decoder bias (causal, S=114) and cross-attention
 (B=2, S=4096, group ``one``), float32 and bf16.  Where the tree's wrappers take ``lengths``
 it also times the two varlen shapes with ``lengths`` in place of the key
 mask: the same visible pairs through the ``lengths`` specialization.
+It also times the decode kernel (``flash_fwd``, the ``lengths``
+specialization at one query row, D = 64, H = 12) at the kernels line's
+shape (B=8, a 1024-row cache, every row full) and at the (batch bucket,
+cache bucket, lengths) shapes that ``chip_smoke.py``'s phase 3 gave it
+(``DECODE_SHAPES``, recorded from a phase 3 run on the card), with the
+split plan where the tree has one; ``--decode`` times those alone and
+builds only ``csrc/flash_attention.cu``.
 Each time is the median of ``--iters`` CUDA-event timings with the L2
-cache flushed before each launch.  It prints one JSON object: the card,
+cache flushed before each launch: by filling a 512 MB buffer (``--flush
+fill``, the repository's convention, which leaves the L2 full of dirty
+lines that the timed kernel's reads must write back) or by reading it
+(``--flush read``: clean lines).  It prints one JSON object: the card,
 the build's seconds, each kernel instantiation's registers and spilled
 bytes as ``ptxas`` reports them (when the call built the sources) and
-``{case: {fwd, dq, dkv}}`` in ms.
+``{case: {fwd, dq, dkv}}`` in ms, and ``decode``: ``{case: {ms,
+n_split}}``.
 
 Comparing two trees takes one call on one card, in turns::
 
@@ -46,6 +57,57 @@ _PTXAS = re.compile(
     r"ptxas info\s+: Used (\d+) registers")
 
 
+#: the decode kernel's shapes: (name, batch, cache rows, lengths); the
+#: kernels line's, then the (batch bucket, cache bucket) pairs of a phase 3
+#: run of chip_smoke.py, each at the lengths of its last call there (768,
+#: 768, 1,536 and 900 of the run's 3,972 calls; "NVIDIA H100 80GB HBM3,
+#: 700.00 W")
+DECODE_SHAPES = [("kernels line", 8, 1024, [1024] * 8),
+                 ("phase 3", 8, 64, [64] * 8),
+                 ("phase 3", 8, 128, [128, 128, 1, 128, 128, 128, 128, 128]),
+                 ("phase 3", 8, 256, [256, 256, 1, 256, 1, 1, 1, 1]),
+                 ("phase 3", 8, 384, [331, 1, 1, 1, 1, 1, 1, 1])]
+
+
+def time_ms(fn, flush, iters):
+    """Median device time of ``fn`` in ms, each run after ``flush`` (this
+    file's own, so both trees of a comparison are timed by one code)."""
+    import numpy as np
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _decode_times(fa, flush, iters):
+    """{case: {ms, n_split}} of ``fa.flash_fwd`` at ``DECODE_SHAPES``."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(0)
+    plan = getattr(fa, "decode_split_plan", None)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name, b, s_kv, lens in DECODE_SHAPES:
+        q, k, v = (torch.from_numpy(rng.randn(b * 12, n, 64).astype(
+            np.float32)).cuda() for n in (1, s_kv, s_kv))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        out[f"{name} B={b} L={s_kv}"] = {
+            "ms": time_ms(lambda: fa.flash_fwd(q, k, v, lengths, 12, 0.125),
+                          flush, iters),
+            "n_split": plan(b * 12, 1, s_kv, sms)[0] if plan else 1}
+    return out
+
+
 def _ptxas(log):
     """{``kernel<template args>``: [registers, spill stores, spill loads]}
     from one source's ptxas report."""
@@ -63,6 +125,11 @@ def main(argv=None):
     ap.add_argument("--root", default=HERE,
                     help="the repository tree whose package is timed")
     ap.add_argument("--iters", type=int, default=30)
+    ap.add_argument("--decode", action="store_true",
+                    help="time the decode kernel alone")
+    ap.add_argument("--flush", choices=("fill", "read"), default="fill",
+                    help="the L2 flush before each launch: fill a 512 MB "
+                    "buffer (the L2 left dirty) or read it (left clean)")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -71,19 +138,21 @@ def main(argv=None):
     import hetu_tpu_torch as ht
     from hetu_tpu_torch.ops.kernels import _build
     from hetu_tpu_torch.ops.kernels import flash_attention as fa
-    from hetu_tpu_torch.tools.kernel_variants import time_ms
     if not fa.__file__.startswith(root + os.sep):
         raise SystemExit(f"flash_timings: imported {fa.__file__}, not the "
                          f"tree at {root}")
     if not torch.cuda.is_available():
         raise SystemExit("flash_timings: needs a CUDA card")
     t0 = time.perf_counter()
-    built = _build.build([s for s in _build.sources()
+    built = _build.build(["flash_attention"] if args.decode else
+                         [s for s in _build.sources()
                           if s.startswith("flash")])
     build_s = time.perf_counter() - t0
     takes_lengths = "lengths" in inspect.signature(
         fa.flash_fwd_masked).parameters
-    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    # 512 MB: the fill or read (about 0.17 ms) outlasts the host's work in
+    # a wrapper, so the host's enqueue never shows in a kernel's time
+    flush_buf = torch.empty(128 * 2 ** 20, dtype=torch.float32, device="cuda")
     rng = np.random.RandomState(0)
 
     def t(*shape, dtype):
@@ -133,8 +202,10 @@ def main(argv=None):
                   ("gpt2 causal lengths", 8, 12, 1024,
                    dict(causal=True, lengths=torch.from_numpy(
                        glens.astype(np.int32)).cuda()))]
+    flush = flush_buf.zero_ if args.flush == "fill" else flush_buf.sum
+    decode = _decode_times(fa, flush, args.iters)
     out = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in () if args.decode else (torch.float32, torch.bfloat16):
         for name, b, h, s, o in cases:
             bh, s_kv = b * h, o.get("s_kv", s)
             q, do = (t(bh, s, 64, dtype=dtype) for _ in range(2))
@@ -177,7 +248,7 @@ def main(argv=None):
                 dkv = (lambda: fa.flash_bwd_dkv(q, k, v, km, do, lse, delta,
                                                 scale, causal=causal, **lw))
             tag = name + (" bf16" if dtype == torch.bfloat16 else " f32")
-            out[tag] = {kk: time_ms(fn, flush_buf.zero_, args.iters)
+            out[tag] = {kk: time_ms(fn, flush, args.iters)
                         for kk, fn in (("fwd", fwd), ("dq", dq),
                                        ("dkv", dkv))}
             del q, k, v, do, bias, res, lse, delta
@@ -186,12 +257,13 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"root": root, "card": card, "build_s": build_s,
+    print(json.dumps({"root": root, "card": card, "flush": args.flush,
+                      "build_s": build_s,
                       "build_s_per_source": {n: sec for n, (sec, _)
                                              in built.items()},
                       "ptxas": {n: _ptxas(log) for n, (_, log)
                                 in built.items()},
-                      "ms": out}))
+                      "ms": out, "decode": decode}))
 
 
 if __name__ == "__main__":

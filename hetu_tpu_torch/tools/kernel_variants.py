@@ -12,10 +12,16 @@ last three give wrong sums: they time one part alone, or the launch and
 the long-run CTAs' first id loads), at the CTR plan's shape (the ids of
 one WDL batch, ``synthetic_criteo_skewed(8 * 2048, vocab=100000,
 seed=0)``'s second, width 16), beside ``index_add_`` and the wrapper.
+``decode``: the decode kernel (``csrc/flash_attention.cu``'s split-KV
+``lengths`` kernel) as written, without its L2 evict-first hint, with a
+plain merge launch, with a ring of three tiles and without its merge
+launch, at six split plans of the kernels line's shape, each after an L2
+flush that fills a 256 MB buffer (dirty lines) and after one that reads
+it (clean lines).
 Every time is the median of 50 CUDA-event timings, each launch after an
 L2 flush.  Run from the repository root::
 
-    python3 -m hetu_tpu_torch.tools.kernel_variants fwd|segsum
+    python3 -m hetu_tpu_torch.tools.kernel_variants fwd|segsum|decode
 
 The modified sources and libraries go to ``hetu_tpu_torch/_build/variants``.
 """
@@ -197,6 +203,57 @@ def forward_variants(flush):
         print(f"[kernel-variants] fwd {name}: {json.dumps(row)}", flush=True)
 
 
+def decode_variants(flushes):
+    """The decode kernel (``hetu_flash_fwd_lengths``) at the kernels
+    line's shape (B 8, H 12, a full 1024-row cache, D 64) as written (TMA
+    copies into a ring of two tiles, evict-first in L2, the merge a
+    programmatic dependent launch), without the L2 hint, with a plain merge
+    launch, with a ring of three tiles, and as written without its merge
+    launch (the split kernel alone: wrong outputs with more than one
+    split), each at the split plans (n_split, split_tiles) of 16 tiles and
+    under each L2 flush of ``flushes``."""
+    libs = build_variants("flash_attention", {
+        "as_written": [],
+        "no_hint": [("complete_tx::bytes.L2::cache_hint ",
+                     "complete_tx::bytes "),
+                    ("[%0], [%1], %2, [%3], %4;", "[%0], [%1], %2, [%3];")],
+        "no_pdl": [("constexpr bool DECODE_PDL = true;",
+                    "constexpr bool DECODE_PDL = false;")],
+        "stages3": [("constexpr int DSTAGES = 2;",
+                     "constexpr int DSTAGES = 3;")],
+        "split_only": [("  err = cudaLaunchKernelEx(",
+                        "  if (0) err = cudaLaunchKernelEx(")]})
+    b, h, s_kv, d = 8, 12, 1024, 64
+    bh, scale = b * h, 0.125
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(bh, n, d).astype(np.float32)).cuda()
+               for n in (1, s_kv, s_kv))
+    lengths = torch.full((b,), s_kv, dtype=torch.int32, device="cuda")
+    ref, _ = fa.flash_fwd_plain(q, k, v, lengths, h, scale)
+    out = torch.empty_like(q)
+    lse = torch.empty(bh, 1, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    report = {"plan": fa.decode_split_plan(bh, 1, s_kv, sms)}
+    for vname, lib in libs.items():
+        fn = _entry(lib, "hetu_flash_fwd_lengths")
+        for n_split, per in ((1, 16), (2, 8), (3, 6), (4, 4), (8, 2),
+                             (16, 1)):
+            part = torch.empty(bh, n_split, 1, d + 2, device="cuda")
+            args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    lengths.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                    part.data_ptr(), bh, h, 1, s_kv, d, n_split, per, scale,
+                    stream)
+            if fn(*args) != 0:
+                raise SystemExit(f"kernel_variants: {vname} did not launch")
+            torch.cuda.synchronize()
+            row = {"max_abs_err": float((out - ref).abs().max())}
+            for fname, flush in flushes.items():
+                row[fname + "_ms"] = time_ms(lambda: fn(*args), flush)
+            report[f"{vname} {n_split}x{per}"] = row
+    print(f"[kernel-variants] decode {json.dumps(report)}", flush=True)
+
+
 def segsum_variants(flush):
     long_hook = "  if (count == 0) return;  // uniform\n"
     short_hook = "  constexpr int W = sizeof(V) / sizeof(float);\n"
@@ -245,17 +302,22 @@ def segsum_variants(flush):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("which", choices=["fwd", "segsum"])
+    ap.add_argument("which", choices=["fwd", "segsum", "decode"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    flush = torch.empty(64 * 2 ** 20, device="cuda").zero_
+    buf = torch.empty(64 * 2 ** 20, device="cuda")
+    flush = buf.zero_
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
     if args.which == "fwd":
         forward_variants(flush)
+    elif args.which == "decode":
+        # the fill leaves the L2 full of dirty lines that the timed kernel's
+        # reads write back; the read leaves it clean
+        decode_variants({"fill": flush, "read": buf.sum})
     else:
         segsum_variants(flush)
 

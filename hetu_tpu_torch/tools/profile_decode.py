@@ -108,7 +108,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         router_wall = time.perf_counter() - t0
 
-    fa.launches = fa.fwd_mask_launches = 0
+    fa.launches = fa.merge_launches = fa.fwd_mask_launches = 0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -127,6 +127,7 @@ def main(argv=None):
     busy_us = sum(v[1] for v in kern.values())
     n_kern = sum(v[0] for v in kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:12]
+    # the decode kernel: the split kernel and its merge
     flash = sum(v[1] for name, v in kern.items()
                 if "flash_fwd_lengths" in name)
     # the full-mask forward: the only flash_fwd_kernel a decode run launches
@@ -156,6 +157,8 @@ def main(argv=None):
                 1.0 - busy_us / 1e6 / psteps / (wall / steps),
             "kernels_per_step": n_kern / psteps,
             "flash_launches_per_step": fa.launches / psteps,
+            # the split kernel's merge, once a call of more than one split
+            "flash_merge_launches_per_step": fa.merge_launches / psteps,
             "flash_ms_per_step": flash / psteps / 1e3,
             "flash_share_of_device": flash / busy_us if busy_us else None,
             "flash_mask_launches_per_step": fa.fwd_mask_launches / psteps,

@@ -65,14 +65,112 @@ def test_cuda_kernel_matches_plain_version(cuda, s_q, s_kv, d):
     v = torch.from_numpy(rng.randn(b * h, s_kv, d).astype(np.float32)).to(cuda)
     lengths = torch.tensor([s_kv, 0, max(1, s_kv // 3)], dtype=torch.int32,
                            device=cuda)
-    before = fa.launches
+    before = fa.launches, fa.merge_launches
     out, lse = fa.flash_fwd(q, k, v, lengths, h, d ** -0.5)
     ref, lse_ref = fa.flash_fwd_plain(q, k, v, lengths, h, d ** -0.5)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    n_split, _ = fa.decode_split_plan(b * h, s_q, s_kv, fa._sm_count(cuda))
+    assert (fa.launches, fa.merge_launches) == (before[0] + 1,
+                                                before[1] + (n_split > 1))
     assert float((out - ref).abs().max()) <= ATOL
     assert torch.allclose(lse, lse_ref, rtol=1e-5, atol=1e-5)
     assert float(out.view(b, h, s_q, d)[1].abs().max()) == 0.0
+
+
+#: the decode kernels line's shape: B 8, H 12, a 1024-row cache, D 64
+DB, DH, DL = 8, 12, 1024
+#: lengths 0, 1, a partial tile, a full cache, tile edges, the last row
+DECODE_LENS = [0, 1, 37, DL, 64, 65, 700, DL - 1]
+#: split plans (n_split, split_tiles) of the 16 key tiles: None is the
+#: wrapper's own; (16, 1) splits at every tile; (3, 6) leaves the last
+#: split short; (32, 1) adds splits past the cache (all empty)
+DECODE_PLANS = [None, (1, 16), (2, 8), (4, 4), (3, 6), (16, 1), (32, 1)]
+
+
+def _decode_inputs(cuda, s_q, d, seed, s_kv=DL, lens=DECODE_LENS):
+    rng = np.random.RandomState(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda)
+
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return (t(DB * DH, s_q, d), t(DB * DH, s_kv, d), t(DB * DH, s_kv, d),
+            lengths)
+
+
+def _nan_past_lengths(x, lens):
+    """``x`` (B*H, S_kv, D) with NaN in every row at or past its length."""
+    x = x.clone().view(len(lens), -1, *x.shape[1:])
+    for b, n in enumerate(lens):
+        x[b, :, max(n, 0):] = float("nan")
+    return x.view(-1, *x.shape[2:])
+
+
+def _decode_call(q, k, v, lengths, plan):
+    """flash_fwd under ``plan``; checks it launched the split kernel once
+    and the merge once exactly when the plan has more than one split."""
+    before = fa.launches, fa.merge_launches
+    out, lse = fa.flash_fwd(q, k, v, lengths, DH, q.shape[2] ** -0.5,
+                            plan=plan)
+    torch.cuda.synchronize()
+    n_split = plan[0] if plan is not None else fa.decode_split_plan(
+        q.shape[0], q.shape[1], k.shape[1], fa._sm_count(q.device))[0]
+    assert (fa.launches, fa.merge_launches) == (before[0] + 1,
+                                                before[1] + (n_split > 1))
+    return out, lse
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", DECODE_PLANS)
+@pytest.mark.parametrize("s_q,d", [(1, 64), (4, 64), (1, 80), (1, 128)])
+def test_decode_kernel_splits_match_plain_version(cuda, s_q, d, plan):
+    """Every split plan against the plain version and the plain split
+    version: out within ATOL, lse within 1e-5, a row of length 0 exactly 0
+    with lse -1e30."""
+    q, k, v, lengths = _decode_inputs(cuda, s_q, d, seed=d + s_q)
+    out, lse = _decode_call(q, k, v, lengths, plan)
+    scale = d ** -0.5
+    ref, lse_ref = fa.flash_fwd_plain(q, k, v, lengths, DH, scale)
+    used = plan or fa.decode_split_plan(DB * DH, s_q, DL, fa._sm_count(cuda))
+    sref, slse = fa.flash_fwd_split_plain(q, k, v, lengths, DH, scale, used)
+    for want, wlse in ((ref, lse_ref), (sref, slse)):
+        assert float((out - want).abs().max()) <= ATOL
+        assert torch.allclose(lse, wlse, rtol=1e-5, atol=1e-5)
+    assert float(out[:DH].abs().max()) == 0.0
+    assert bool((lse[:DH] == fa.NEG_INF).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", [None, (1, 16), (4, 4), (16, 1), (32, 1)])
+@pytest.mark.parametrize("s_q", [1, 4])
+def test_decode_kernel_ignores_nan_past_lengths(cuda, s_q, plan):
+    """NaN in every K and V row at or past a length changes no output bit."""
+    q, k, v, lengths = _decode_inputs(cuda, s_q, 64, seed=3)
+    out, lse = _decode_call(q, k, v, lengths, plan)
+    kn, vn = (_nan_past_lengths(x, DECODE_LENS) for x in (k, v))
+    out_n, lse_n = _decode_call(q, kn, vn, lengths, plan)
+    assert torch.equal(out, out_n) and torch.equal(lse, lse_n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", [None, (4, 4), (32, 1)])
+def test_decode_kernel_is_the_same_from_run_to_run(cuda, plan):
+    """No atomics: the split kernel and the merge give the same bits every
+    run."""
+    q, k, v, lengths = _decode_inputs(cuda, 1, 64, seed=4)
+    first = _decode_call(q, k, v, lengths, plan)
+    for _ in range(3):
+        again = _decode_call(q, k, v, lengths, plan)
+        assert torch.equal(first[0], again[0])
+        assert torch.equal(first[1], again[1])
+
+
+@pytest.mark.gpu
+def test_decode_kernel_refuses_a_plan_short_of_the_cache(cuda):
+    """A plan that leaves keys uncovered is refused by the C entry."""
+    q, k, v, lengths = _decode_inputs(cuda, 1, 64, seed=5)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.flash_fwd(q, k, v, lengths, DH, 0.125, plan=(2, 4))
 
 
 def _train_inputs(cuda, s, d, masked, seed):
