@@ -57,7 +57,9 @@ without printing the final result line:
    CTR path's shapes: the slots and unique-inverse map of a real
    ``begin_lookup`` over Zipf batches of the WDL configuration below
    (53,248 ids, width 16, a 63,249-row slab), plus n = 0, n off the block
-   size, one run, every key distinct, widths 13 and 128, and runs longer
+   size, one run, every key distinct, widths 13, 128 and 2048, a slab 4
+   bytes off 16-byte alignment, 300,000 rows (more chunks than the
+   gather's grid takes at once), and runs longer
    than the segment-sum's shared-memory chunk (one run of 3,000 x 128;
    53,248 Zipf ids over 4,000).  The gather must match exactly; the
    segment-sum within rtol 2e-5 / atol 1e-6 of its plain version
@@ -82,10 +84,14 @@ without printing the final result line:
     MoE path's shapes: the maps of a real ``TopKGateSparse`` at the MoE
     configuration below over 8,192 random tokens (the dispatch, 20,480
     slots from 8,192 rows; the combine and its backward, 8,192 rows from
-    20,480), plus n = 0, n = 1, every index -1, widths 13 and 2048: equal
-    exactly.  ``SparseDispatch`` / ``SparseCombine`` forward and backward
-    on those maps, kernel against plain gather: bit for bit.  Time the
-    kernel, its plain version, the library call and the bound.
+    20,480), plus n = 0, n = 1, every index -1, widths 13 and 2048, a
+    source 4 bytes off 16-byte alignment, a block of the launch plan whose
+    every index is -1, and 300,000 rows (more blocks than the grid takes
+    at once): equal exactly.  ``SparseDispatch`` / ``SparseCombine``
+    forward and backward on those maps, kernel against plain gather: bit
+    for bit.  Time the kernel, its plain version, the library call and the
+    bound at the dispatch's and the combine's shapes (L2 flushed by a 512
+    MB fill, as phases 8 and 29).
 12. Train the repository's MoE configuration (BASELINE config 5,
     ``bench.py``'s ``build_moe_graph``: 8,192 tokens, d 512,
     ``TopKGateSparse(512, 8192, 16, k=2, capacity_factor=1.25)``,
@@ -93,7 +99,11 @@ without printing the final result line:
     ``SparseMoELayer`` and ``Executor.run``: 3 warm-up steps, then 20
     counted steps with every launch counter set to 0 just before and read
     just after (the row gather: 6 launches a step; no ``backend:``
-    fallback), and 5 profiled steps for the device's idle share.  Then the
+    fallback; each launch's shape recorded, ``GatherCalls``, for the
+    kernels line's launches at the combine shape), and 5 profiled steps
+    for the device's idle share and the gather's device time (a dtype
+    whose gathers launched must show some under ``B6_KERNELS``' names).
+    Then the
     dense ``MoELayer`` graph of the same configuration the same way, as a
     yardstick (it launches no row gather).
 13. The sparse and the dense graph from one set of weights, 3 Adam steps
@@ -241,21 +251,26 @@ without printing the final result line:
     version on phase 11's real gate maps at the MoE configuration (8,192
     tokens, d 512, 16 experts, capacity 1,280), every direction on bf16
     rows, plus n = 0, n = 1, every index -1, width 13, a source 2 bytes
-    off 16-byte alignment and width 2048: bit for bit.
+    off 16-byte alignment, width 2048, a block of the launch plan whose
+    every index is -1 and 300,000 rows: bit for bit.
     ``SparseDispatch`` / ``SparseCombine`` forward and backward in the
     bf16 step's dtypes (bf16 tokens and rows, float32 gate weights, so a
     float32 combine output and d_buffers gather), kernel against plain
     gather: bit for bit.  Time the kernel, its plain version,
     ``index_select`` + ``masked_fill_`` in bf16 and the bytes bound at 2
-    bytes a value (L2 flushed, median of 50).
+    bytes a value at the dispatch's and the combine's shapes (L2 flushed
+    by a 512 MB fill, median of 50); both go on the kernels line, the
+    combine's under ``combine``.
 30. Train phase 12's MoE configuration through
     ``Executor(compute_dtype="bfloat16").run``, sparse then dense: 3
     warm-up and 20 counted steps with every launch counter set to 0 just
     before and read just after (the sparse graph: 5 bf16 row gathers and 1
     float32 a step, ``MOE_GATHERS_BF16_STEP``; the dense graph none; no
-    other kernel; no ``backend:`` fallback; the loss finite), step
+    other kernel; no ``backend:`` fallback; the loss finite; each
+    launch's shape recorded, as in phase 12), step
     p50/p99, tokens/s, MFU against the 989 TFLOP/s bf16 peak, peak memory
-    and 5 profiled steps for busy time and idle share.
+    and 5 profiled steps for busy time, idle share and the gather's device
+    ms a step by dtype (nonzero where it launched).
 31. Train T5-small, XLNet-base and Longformer-base in bf16 at the shapes
     and widths of phases 19, 22 and 23: 2 warm-up and 10 counted steps
     each (each bf16 flash entry the model reaches: steps x its float32
@@ -469,10 +484,13 @@ def flash_bound(lengths, heads, s_q, d):
                                        else "operations")
 
 
-#: floats of the decode timings' L2 flush: a 512 MB fill keeps the device
-#: busy (about 0.17 ms) past the host's work in the decode wrapper (the
-#: split plan, the partials' allocation), which a 256 MB fill (about 0.085
-#: ms) did not always outlast: then the host's enqueue showed in the time
+#: floats of the decode and row-gather timings' L2 flush: a 512 MB fill
+#: keeps the device busy (about 0.17 ms) past the host's work in the decode
+#: wrapper (the split plan, the partials' allocation) and in the gathers'
+#: (the launch plan, the output's allocation), which a 256 MB fill (about
+#: 0.085 ms) did not always outlast: then the host's enqueue showed in the
+#: time (the gathers: 0.031-0.036 ms in a run whose 512 MB timings read
+#: 0.013-0.018)
 DECODE_FLUSH = 128 * 2 ** 20
 
 
@@ -1171,7 +1189,7 @@ def phase_emb_kernels(ht, emb, seg):
     """The slab gather and the sorted segment-sum vs their plain versions
     at the CTR path's shapes (a real slot plan), edge cases; times."""
     from hetu_tpu_torch.ps.dist_store import _segment_sum
-    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush_buf = torch.empty(DECODE_FLUSH, dtype=torch.float32, device="cuda")
     flush = flush_buf.zero_
     batches = ctr_batches(ht)
     store = ht.EmbeddingStore()
@@ -1201,11 +1219,18 @@ def phase_emb_kernels(ht, emb, seg):
     gcases = [("plan", slab, slots)]
     for name, rows_, w_, n_ in (("n=0", 64, 16, 0), ("n=1001", 5000, 16, 1001),
                                 ("w=13", 5000, 13, 4099),
-                                ("w=128", 5000, 128, 2051)):
+                                ("w=128", 5000, 128, 2051),
+                                ("w=2048", 2000, 2048, 3001),
+                                # more chunks than the grid takes at once
+                                ("n=300000, rounds", 70000, 16, 300000)):
         gcases.append((name, torch.from_numpy(
             rng.randn(rows_, w_).astype(np.float32)).cuda(),
             torch.from_numpy(rng.randint(0, rows_, n_).astype(np.int32))
             .cuda()))
+    # rows of 16 floats starting one float (4 bytes) into the buffer
+    gcases.append(("slab 4 bytes off alignment", torch.from_numpy(
+        rng.randn(5000 * 16 + 1).astype(np.float32)).cuda()[1:].view(5000, 16),
+        torch.from_numpy(rng.randint(0, 5000, 4099).astype(np.int32)).cuda()))
     for name, sl, sv in gcases:
         out = emb.gather_rows(sl, sv)
         ref = emb.gather_rows_plain(sl, sv)
@@ -1475,11 +1500,62 @@ def gather_bound(src, idx):
                        + es * idx.shape[0] * m)
 
 
+def gather_plan_of(md, src, idx):
+    """The launch plan (ctas, rows) the MoE row gather's wrapper makes for
+    ``src`` and ``idx`` on this card: the bulk route's grid and the rows of
+    its blocks, or (0, 0) for the chunk-a-thread route."""
+    return md.gather_plan(idx.shape[0], src.shape[1], src.element_size(),
+                          src.data_ptr(), 0, md._build.sm_count(src.device))
+
+
+def block_all_neg(md, src, idx):
+    """``idx`` with the second block of its launch plan for ``src`` set to
+    -1: a block whose every row is zeros, none of them read."""
+    _, rows = gather_plan_of(md, src, idx)
+    if not rows:
+        raise AssertionError("a block all -1: the plan takes no blocks")
+    out = idx.clone()
+    out[rows:2 * rows] = -1
+    return out
+
+
+class GatherCalls:
+    """While open, records the MoE row gather's launches by (dtype, n, m,
+    source rows): it wraps ``md.kernel``, through which ``row_gather``
+    reaches its C entry (the plain version and the counters are left
+    alone), and counts each call of the entry it returns."""
+
+    def __init__(self, md):
+        self.md, self.inner = md, md.kernel
+        self.shapes = {}
+
+    def __enter__(self):
+        def kernel(dtype):
+            fn = self.inner(dtype)
+
+            def launch(src, idx, out, n, m, src_rows, *rest):
+                key = (str(dtype)[6:], n, m, src_rows)
+                self.shapes[key] = self.shapes.get(key, 0) + 1
+                return fn(src, idx, out, n, m, src_rows, *rest)
+            return launch
+
+        self.md.kernel = kernel
+        return self
+
+    def __exit__(self, *exc):
+        self.md.kernel = self.inner
+
+    def count(self, dtype, n, src_rows):
+        """Launches on ``dtype`` rows gathering ``n`` of ``src_rows``."""
+        return sum(c for (dt, n_, _, r), c in self.shapes.items()
+                   if dt == dtype and n_ == n and r == src_rows)
+
+
 def phase_moe_kernels(ht, pm, md):
     """The MoE row gather vs its plain version at the MoE path's shapes
     (a real gate's maps), edge cases; the autograd functions kernel vs
     plain bit for bit; times."""
-    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush_buf = torch.empty(DECODE_FLUSH, dtype=torch.float32, device="cuda")
     flush = flush_buf.zero_
     x, tos, sot, kos, gw = moe_route(ht, pm)
     s, m = x.shape
@@ -1494,6 +1570,9 @@ def phase_moe_kernels(ht, pm, md):
 
     buffers, g_tok = rand(n_slots, m), rand(s, m)
     sot_t = sot.t().contiguous()
+    log(f"[moe-kernels] launch plans (ctas, rows): dispatch "
+        f"{gather_plan_of(md, x, tos)}, combine "
+        f"{gather_plan_of(md, buffers, sot_t[0])}")
     log(f"[moe-kernels] real gate maps: tokens={s} slots={n_slots} "
         f"empty slots={int((tos < 0).sum())} dropped routes="
         f"{int((sot < 0).sum())} of {s * k}")
@@ -1505,7 +1584,13 @@ def phase_moe_kernels(ht, pm, md):
              ("n=1", rand(5, 16), ints(0, 5, 1)),
              ("every index -1", rand(100, 16), ints(-1, 0, 777)),
              ("w=13", rand(5000, 13), ints(-1, 5000, 4099)),
-             ("w=2048", rand(2000, 2048), ints(-1, 2000, 3001))]
+             ("w=16, src 4 bytes off alignment",
+              rand(1, 5000 * 16 + 1).view(-1)[1:].view(5000, 16),
+              ints(-1, 5000, 4099)),
+             ("w=2048", rand(2000, 2048), ints(-1, 2000, 3001)),
+             ("a block all -1", buffers,
+              block_all_neg(md, buffers, sot_t[0])),
+             ("n=300000, rounds", rand(70000, 16), ints(-1, 70000, 300000))]
     for name, src, idx in cases:
         before = md.launches
         out = md.row_gather(src, idx)
@@ -1561,13 +1646,14 @@ def phase_moe_kernels(ht, pm, md):
                # zeroed in place (masked_fill_); the indices prepared once
                "library_ms": time_ms(lambda: src.index_select(
                    0, idx64).masked_fill_(neg, 0.0), flush=flush),
-               "max_abs_err": 0.0}
+               "max_abs_err": 0.0, "n": idx.shape[0],
+               "src_rows": src.shape[0]}
         row["bound_ms"], row["bound_by"] = gather_bound(src, idx)
         log(f"[moe-kernels] row gather timing ({name}, n={idx.shape[0]} "
             f"m={m} src_rows={src.shape[0]}; library = index_select + "
             f"masked_fill_): {json.dumps(row)}")
         lines[name] = row
-    return lines["dispatch fwd"]
+    return lines["dispatch fwd"], lines[cases[1][0]]
 
 
 def phase_moe_bf16_kernels(ht, pm, md):
@@ -1581,7 +1667,7 @@ def phase_moe_bf16_kernels(ht, pm, md):
     combine's route-0 gather: kernel, plain version, ``index_select`` +
     ``masked_fill_`` in bf16 and the bytes bound at 2 bytes a value.
     Returns the dispatch's kernels-line row."""
-    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush_buf = torch.empty(DECODE_FLUSH, dtype=torch.float32, device="cuda")
     flush = flush_buf.zero_
     x, tos, sot, kos, gw = moe_route(ht, pm)
     s, m = x.shape
@@ -1609,7 +1695,10 @@ def phase_moe_bf16_kernels(ht, pm, md):
              ("every index -1", rand(100, 16), ints(-1, 0, 777)),
              ("w=13", rand(5000, 13), ints(-1, 5000, 4099)),
              ("w=16, src 2 bytes off alignment", off, ints(-1, 5000, 4099)),
-             ("w=2048", rand(2000, 2048), ints(-1, 2000, 3001))]
+             ("w=2048", rand(2000, 2048), ints(-1, 2000, 3001)),
+             ("a block all -1", buffers,
+              block_all_neg(md, buffers, sot_t[0])),
+             ("n=300000, rounds", rand(70000, 16), ints(-1, 70000, 300000))]
     for name, src, idx in cases:
         before, before32 = md.bf16_launches, md.launches
         out = md.row_gather(src, idx)
@@ -1676,20 +1765,22 @@ def phase_moe_bf16_kernels(ht, pm, md):
                                    flush=flush),
                "library_ms": time_ms(lambda: src.index_select(
                    0, idx64).masked_fill_(neg, 0.0), flush=flush),
-               "max_abs_err": 0.0}
+               "max_abs_err": 0.0, "n": idx.shape[0],
+               "src_rows": src.shape[0]}
         row["bound_ms"], row["bound_by"] = gather_bound(src, idx)
         log(f"[moe-bf16-kernels] bf16 row gather timing ({name}, n="
             f"{idx.shape[0]} m={m} src_rows={src.shape[0]}; library = "
             f"index_select + masked_fill_): {json.dumps(row)}")
         lines[name] = row
-    return lines["dispatch fwd"]
+    return lines["dispatch fwd"], lines[cases[1][0]]
 
 
 def phase_moe_train(ht, pm, metrics, kmods, md, compute_dtype=None):
     """The MoE configuration trained through SparseMoELayer on the card,
     then the dense MoELayer graph the same way; float32, or bf16 mixed
     precision with ``compute_dtype="bfloat16"``.  Returns the sparse
-    graph's row-gather launches by kernels-line name."""
+    graph's row-gather launches by kernels-line name, and its counted
+    steps' launches by shape (a ``GatherCalls``)."""
     bf16 = compute_dtype is not None
     tag = "[moe-bf16]" if bf16 else "[moe]"
     peak = ("bf16", PEAK_BF16_FLOPS) if bf16 else ("fp32", PEAK_FP32_FLOPS)
@@ -1718,12 +1809,16 @@ def phase_moe_train(ht, pm, metrics, kmods, md, compute_dtype=None):
         metrics.reset_emb_fallbacks()
         torch.cuda.reset_peak_memory_stats()
         times = []
-        for _ in range(MOE_STEPS):
-            t0 = time.perf_counter()
-            losses.append(step())           # the loss copy waits for it
-            times.append(time.perf_counter() - t0)
+        with GatherCalls(md) as calls:
+            for _ in range(MOE_STEPS):
+                t0 = time.perf_counter()
+                losses.append(step())       # the loss copy waits for it
+                times.append(time.perf_counter() - t0)
         launches = {"row_gather": md.launches,
                     "row_gather_bf16": md.bf16_launches}
+        if sum(calls.shapes.values()) != sum(launches.values()):
+            raise AssertionError(f"row gather launches {launches} but "
+                                 f"{calls.shapes} recorded")
         others = {m.__name__.rsplit(".", 1)[-1]: n for m in kmods
                   for name, n in vars(m).items()
                   if name.endswith("launches") and m is not md and n}
@@ -1754,6 +1849,14 @@ def phase_moe_train(ht, pm, metrics, kmods, md, compute_dtype=None):
             raise AssertionError(f"the MoE path left the kernel: {left}")
         if not kern:
             raise AssertionError("the profiler recorded no device time")
+        # a dtype whose gathers launched must show device time under
+        # pm.B6_KERNELS' names (a renamed kernel would read 0)
+        for dt, counter in (("float32", "row_gather"),
+                            ("bfloat16", "row_gather_bf16")):
+            if launches[counter] and not gather_us[dt] > 0:
+                raise AssertionError(
+                    f"{launches[counter]} {dt} row gathers launched, but no "
+                    f"kernel named {pm.B6_KERNELS[dt]} has device time")
         ms = np.asarray(times) * 1e3
         flops = pm.moe_step_flops()
         tokens = pm.TOKENS
@@ -1776,8 +1879,12 @@ def phase_moe_train(ht, pm, metrics, kmods, md, compute_dtype=None):
                 dt: us / MOE_PROFILED / 1e3 for dt, us in gather_us.items()},
             "device_ops_per_step": sum(v[0] for v in kern.values())
             / MOE_PROFILED,
-            "launches": launches, "card": card_line()}
+            "launches": launches,
+            "launches_by_shape": {" ".join(map(str, key)): c for key, c
+                                  in sorted(calls.shapes.items())},
+            "card": card_line()}
         log(f"{tag} {json.dumps(reports[graph])}")
+        reports[graph]["calls"] = calls
         ex.close()
         del ex, fd
         torch.cuda.empty_cache()
@@ -1786,7 +1893,7 @@ def phase_moe_train(ht, pm, metrics, kmods, md, compute_dtype=None):
         f"{de['step_ms_p50']:.3f} ms (dense / sparse "
         f"{de['step_ms_p50'] / sp['step_ms_p50']:.2f}); peak memory sparse "
         f"{sp['peak_mem_gib']:.3f} GiB, dense {de['peak_mem_gib']:.3f} GiB")
-    return sp["launches"]
+    return sp["launches"], sp["calls"]
 
 
 def moe_train_executor(ht, pm, tokens, sparse, device):
@@ -3852,10 +3959,10 @@ def main():
     phase_ctr_parity(ht, metrics)
 
     # -- 11. MoE row gather vs plain -----------------------------------------------------
-    mline = phase_moe_kernels(ht, pm, md)
+    mline, mline_c = phase_moe_kernels(ht, pm, md)
 
     # -- 12. train the MoE configuration, sparse then dense -------------------------------
-    mlaunches = phase_moe_train(ht, pm, metrics, kmods, md)
+    mlaunches, mcalls = phase_moe_train(ht, pm, metrics, kmods, md)
 
     # -- 13. sparse vs dense, card vs CPU ---------------------------------------------------
     phase_moe_parity(ht, pm)
@@ -3907,11 +4014,11 @@ def main():
     phase_bf16_parity(ht, pm, ("bert", "gpt2"))
 
     # -- 29. the bf16 MoE row gather vs plain ---------------------------------------
-    mline_bf16 = phase_moe_bf16_kernels(ht, pm, md)
+    mline_bf16, mline_bf16_c = phase_moe_bf16_kernels(ht, pm, md)
 
     # -- 30. train the MoE configuration in bf16, sparse then dense -----------------
-    mlaunches_bf16 = phase_moe_train(ht, pm, metrics, kmods, md,
-                                     compute_dtype="bfloat16")
+    mlaunches_bf16, mcalls_bf16 = phase_moe_train(
+        ht, pm, metrics, kmods, md, compute_dtype="bfloat16")
 
     # -- 31. train T5-small, XLNet-base and Longformer-base in bf16 -----------------
     for model in ("t5", "xlnet", "longformer"):
@@ -4017,12 +4124,20 @@ def main():
     kernels.append(entry("sorted_segment_sum", "segment_sum.cu",
                          "segment_sum.py:25", claunches["sorted_segment_sum"],
                          sline))
-    kernels.append(entry("row_gather", "moe_dispatch.cu",
-                         "moe_dispatch.py:37", mlaunches["row_gather"],
-                         mline))
-    kernels.append(entry("row_gather_bf16", "moe_dispatch.cu",
-                         "moe_dispatch.py:37",
-                         mlaunches_bf16["row_gather_bf16"], mline_bf16))
+    # B6 at the dispatch shape (20,480 rows from 8,192), and under
+    # "combine" at the combine's (8,192 from 20,480): its times from phases
+    # 11 and 29, its launches those phases 12 and 30 recorded at that shape
+    # in their counted steps (GatherCalls)
+    for name, dtype, counts, calls, line, cline in (
+            ("row_gather", "float32", mlaunches, mcalls, mline, mline_c),
+            ("row_gather_bf16", "bfloat16", mlaunches_bf16, mcalls_bf16,
+             mline_bf16, mline_bf16_c)):
+        kernels.append(dict(
+            entry(name, "moe_dispatch.cu", "moe_dispatch.py:37",
+                  counts[name], line),
+            combine=dict({k: cline[k] for k in keys + ("n", "src_rows")},
+                         launches=calls.count(dtype, cline["n"],
+                                              cline["src_rows"]))))
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -11,10 +11,20 @@
 // threads of a warp read and write whole rows with 16-byte accesses (a row of
 // width 16 is four neighbouring threads, one 64-byte segment); the slot is
 // read once per chunk through the read-only cache, where the threads of a row
-// share it.  The TPU kernel keeps 8 row DMAs in flight per grid step; here the
-// 200,000-odd chunks of a CTR batch keep every SM's memory pipeline full by
-// themselves.  Widths that are not a multiple of 4 (or buffers not 16-byte
-// aligned) take the same layout with one float per thread.
+// share it.  The TPU kernel keeps 8 row DMAs in flight per grid step.  Widths
+// that are not a multiple of 4 (or buffers not 16-byte aligned) take the same
+// layout with one float per thread.
+//
+// What holds it (tools/kernel_variants.py gather, PERF.md section 6, on an
+// H100): not the bytes in flight.  At the CTR plan (53,248 rows of width 16,
+// 4.6 MB) it reads 0.0077-0.0079 ms after a filling L2 flush, where the same
+// grid returning at once reads 0.0052-0.0054 and writing the 3.4 MB output
+// alone 0.0060-0.0063: the launch and the two dependent trips to memory (the
+// slot, then its row) are the time.  A persistent grid whose warps each read
+// a run of up to 32 slots in one load, shared by shuffle, with 1-8 row loads
+// in flight a lane and 2-8 CTAs an SM, was measured against it in one call
+// after either flush and was 0.0078-0.0088 ms, never faster, so this kernel
+// stays and that one was deleted.
 //
 // Not yet: nothing skips the repeated rows of a skewed batch (each occurrence
 // re-reads its row; L2 absorbs most of it).

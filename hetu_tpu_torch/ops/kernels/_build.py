@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 NVCC_TIMEOUT = 600
 
 _LOADED = {}
+_SMS = {}
 
 
 def _nvcc():
@@ -110,3 +111,16 @@ def load(name):
         lib = ctypes.CDLL(library_path(name))
         _LOADED[name] = lib
     return lib
+
+
+def sm_count(device):
+    """The SM count of CUDA ``device``, read once per device (the launch
+    plans of the decode split and the row gather are made from it)."""
+    import torch
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    n = _SMS.get(idx)
+    if n is None:
+        n = _SMS[idx] = torch.cuda.get_device_properties(idx) \
+            .multi_processor_count
+    return n

@@ -675,9 +675,6 @@ DECODE_CTAS_PER_SM = 3
 #: one split and one launch
 DECODE_MIN_SPLIT_TILES = 2
 
-_SMS = {}
-
-
 def decode_split_plan(bh, s_q, s_kv, sms):
     """How the decode kernel splits each row's keys across CTAs:
     ``(n_split, split_tiles)``, split ``s`` owning the key tiles
@@ -695,17 +692,6 @@ def decode_split_plan(bh, s_q, s_kv, sms):
     return -(-tiles // per), per
 
 
-def _sm_count(device):
-    """The SM count of CUDA ``device``, read once per device."""
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    n = _SMS.get(idx)
-    if n is None:
-        n = _SMS[idx] = torch.cuda.get_device_properties(idx) \
-            .multi_processor_count
-    return n
-
-
 def flash_fwd(q, k, v, lengths, heads, scale, plan=None):
     """Attention over keys below ``lengths``: q (BH, S_q, D), k/v
     (BH, S_kv, D) float32, lengths (B,) int32 with B = BH / heads.
@@ -721,7 +707,7 @@ def flash_fwd(q, k, v, lengths, heads, scale, plan=None):
     s_kv = k.shape[1]
     _check_launch("flash_fwd", d, q=q, k=k, v=v, lengths=lengths)
     n_split, split_tiles = plan if plan is not None else decode_split_plan(
-        bh, s_q, s_kv, _sm_count(q.device))
+        bh, s_q, s_kv, _build.sm_count(q.device))
     out = torch.empty_like(q)
     lse = torch.empty((bh, s_q), dtype=torch.float32, device=q.device)
     # the splits' (m, l, acc) partials, on the current stream's allocator

@@ -35,6 +35,15 @@ float32.  One step then gathers in both dtypes: bf16 in the dispatch
 float32 in d_buffers' gather of the combine's (float32) gradient.
 Nothing is cast to make the dtypes agree.
 
+On the card the kernel is launched with the plan of :func:`gather_plan`
+(shapes, alignment and the SM count alone), which also picks its route:
+the MoE path's rows (whole 16-byte units on 16-byte-aligned buffers, a
+block of them within one shared-memory stage) by TMA bulk copies through
+shared-memory stages, a persistent grid walking blocks of consecutive
+output rows; other rows one 16-byte chunk, or one value, a thread.
+:func:`gather_runs` lists the blocks as the kernel walks them, so the
+CPU tests can hold a plan to cover every row once.
+
 On a CPU tensor :func:`row_gather` takes the plain version; on a CUDA
 tensor it launches the kernel or raises.  The kernel runs on PyTorch's
 current stream, the stream autograd runs ``backward`` on, so it is
@@ -69,12 +78,51 @@ def kernel(dtype):
     fn = _FNS.get(dtype)
     if fn is None:
         fn = getattr(_build.load("moe_dispatch"), _ENTRIES[dtype][0])
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                               ctypes.c_longlong,
-                                               ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FNS[dtype] = fn
     return fn
+
+
+#: the bulk route's blocks: at most BULK_BLOCK_BYTES of rows (one of the
+#: kernel's three shared-memory stages) and 32 rows (one lane an index),
+#: in BULK_CTAS_PER_SM one-warp CTAs an SM (three 16 KB stages a CTA leave
+#: room for four)
+BULK_BLOCK_BYTES = 16384
+BULK_CTAS_PER_SM = 4
+
+
+def gather_plan(n, m, elem_bytes, src_ptr, out_ptr, sms,
+                block_bytes=BULK_BLOCK_BYTES, ctas_per_sm=BULK_CTAS_PER_SM):
+    """The launch plan ``(ctas, rows)`` of the gather of ``n`` rows of
+    ``m`` values of ``elem_bytes`` bytes, on a card of ``sms`` SMs: the
+    bulk route, a grid of ``ctas`` CTAs walking blocks of ``rows``
+    consecutive output rows (block ``b`` by CTA ``b % ctas``), for rows of
+    whole 16-byte units on 16-byte-aligned buffers whose block fits
+    ``block_bytes``: at most 32 rows and ``block_bytes`` a block, at most
+    ``ctas_per_sm`` CTAs an SM, the fewest rounds of such a grid that
+    hold the rows, then the blocks that share those rounds evenly.
+    ``(0, 0)`` for the chunk-a-thread route (any other rows, or none)."""
+    row_bytes = m * elem_bytes
+    if (n <= 0 or row_bytes % 16 or src_ptr % 16 or out_ptr % 16
+            or row_bytes > block_bytes):
+        return 0, 0
+    per_max = min(32, block_bytes // row_bytes)
+    cap = sms * ctas_per_sm
+    rounds = -(-n // (cap * per_max))
+    rows = -(-n // (rounds * cap))
+    return min(-(-n // rows), cap), rows
+
+
+def gather_runs(n, plan):
+    """The blocks of ``plan`` as the bulk route walks them: for each CTA
+    in turn, each of its blocks in its order, ``(cta, start, stop)``."""
+    ctas, rows = plan
+    blocks = -(-n // rows) if ctas else 0
+    return [(c, b * rows, min(n, (b + 1) * rows))
+            for c in range(ctas) for b in range(c, blocks, ctas)]
 
 
 def row_gather_plain(src, idx):
@@ -112,10 +160,13 @@ def row_gather(src, idx):
     if not src.is_contiguous():
         raise ValueError("row_gather: src must be contiguous")
     idx = idx.contiguous()
+    ctas, rows = gather_plan(n, m, src.element_size(), src.data_ptr(),
+                             out.data_ptr(), _build.sm_count(src.device))
     with torch.cuda.device(src.device):
         rc = kernel(src.dtype)(
             src.data_ptr(), idx.data_ptr(), out.data_ptr(), n, m,
-            src.shape[0], torch.cuda.current_stream(src.device).cuda_stream)
+            src.shape[0], ctas, rows,
+            torch.cuda.current_stream(src.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"row_gather: kernel launch failed (cudaError {rc})")
     globals()[_ENTRIES[src.dtype][1]] += 1

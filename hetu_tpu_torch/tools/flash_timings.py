@@ -18,7 +18,12 @@ shape (B=8, a 1024-row cache, every row full) and at the (batch bucket,
 cache bucket, lengths) shapes that ``chip_smoke.py``'s phase 3 gave it
 (``DECODE_SHAPES``, recorded from a phase 3 run on the card), with the
 split plan where the tree has one; ``--decode`` times those alone and
-builds only ``csrc/flash_attention.cu``.
+builds only ``csrc/flash_attention.cu``.  ``--gathers`` times instead
+the row gathers alone (built from ``csrc/emb_cache.cu`` and
+``csrc/moe_dispatch.cu``), through their wrappers, at the shapes of
+``chip_smoke.py``'s phases 8, 11 and 29 (``gather_inputs``): B4 at the
+CTR path's slot plan, and B6 at the MoE dispatch and combine, float32 and
+bf16.
 Each time is the median of ``--iters`` CUDA-event timings with the L2
 cache flushed before each launch: by filling a 512 MB buffer (``--flush
 fill``, the repository's convention, which leaves the L2 full of dirty
@@ -27,7 +32,7 @@ lines that the timed kernel's reads must write back) or by reading it
 the build's seconds, each kernel instantiation's registers and spilled
 bytes as ``ptxas`` reports them (when the call built the sources) and
 ``{case: {fwd, dq, dkv}}`` in ms, and ``decode``: ``{case: {ms,
-n_split}}``.
+n_split}}``, or with ``--gathers`` ``gathers``: ``{case: ms}``.
 
 Comparing two trees takes one call on one card, in turns::
 
@@ -108,6 +113,58 @@ def _decode_times(fa, flush, iters):
     return out
 
 
+def gather_inputs(ht):
+    """``[(name, kind, src, idx)]`` on the card, the row gathers' inputs at
+    the main paths' shapes, made with the API both trees share: B4
+    (``kind`` ``"emb"``) at the slots of a real ``begin_lookup`` over the
+    second of ``synthetic_criteo_skewed(8 * 2048, vocab=100000, seed=0)``'s
+    batches (53,248 ids, width 16, the first batch looked up before it),
+    as ``chip_smoke.py``'s phase 8 builds them; B6 (``"moe"``) at the maps
+    of a real ``TopKGateSparse`` at the MoE configuration (8,192 tokens, d
+    512, 16 experts, capacity 1,280; phases 11 and 29): the dispatch
+    (20,480 slots from 8,192 token rows) and the combine's route 0 (8,192
+    rows from 20,480 slot rows), float32 and bf16."""
+    import numpy as np
+    import torch
+    from hetu_tpu_torch.tools import profile_moe as pm
+    _, s, _ = ht.synthetic_criteo_skewed(8 * 2048, vocab=100000, seed=0)
+    store = ht.EmbeddingStore()
+    t = store.init_table(100000, 16, opt="sgd", lr=0.01, seed=0,
+                         init_scale=0.01)
+    cache = ht.DistCacheTable(store, t, limit=10000, pull_bound=10,
+                              push_bound=10, policy="lru", device=True,
+                              device_scratch=2048 * 26)
+    cache.lookup(s[:2048])
+    h = cache.begin_lookup(s[2048:4096])
+    cache.finish_lookup(h, h.roundtrip())
+    slab = cache._ensure_dev_slab()
+    slots = torch.from_numpy(h.positions[h.inv].astype(np.int32)).cuda()
+    g = pm.moe_graph(sparse=True)
+    ex = ht.Executor({"route": list(g["route"][:4])}, seed=0, device="cuda")
+    fd = pm.moe_feeds(g)
+    tos, sot = (o.torch() for o in ex.run("route", feed_dict=fd)[:2])
+    x = torch.from_numpy(fd[g["x"]]).cuda()
+    buffers = torch.from_numpy(np.random.RandomState(11).randn(
+        tos.shape[0], x.shape[1]).astype(np.float32)).cuda()
+    route0 = sot[:, 0].to(torch.int32).contiguous()
+    tos = tos.to(torch.int32)
+    ex.close()
+    out = [("B4 ctr plan", "emb", slab, slots)]
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        out += [(f"B6 {tag} dispatch", "moe", x.to(dt), tos),
+                (f"B6 {tag} combine", "moe", buffers.to(dt), route0)]
+    return out
+
+
+def _gather_times(ht, flush, iters):
+    """{case: ms} of the tree's row-gather wrappers at ``gather_inputs``."""
+    from hetu_tpu_torch.ops.kernels import emb_cache as emb
+    from hetu_tpu_torch.ops.kernels import moe_dispatch as md
+    return {name: time_ms((lambda: emb.gather_rows(src, idx)) if kind == "emb"
+                          else (lambda: md.row_gather(src, idx)), flush, iters)
+            for name, kind, src, idx in gather_inputs(ht)}
+
+
 def _ptxas(log):
     """{``kernel<template args>``: [registers, spill stores, spill loads]}
     from one source's ptxas report."""
@@ -127,6 +184,8 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--decode", action="store_true",
                     help="time the decode kernel alone")
+    ap.add_argument("--gathers", action="store_true",
+                    help="time the row gathers (B4, B6) alone")
     ap.add_argument("--flush", choices=("fill", "read"), default="fill",
                     help="the L2 flush before each launch: fill a 512 MB "
                     "buffer (the L2 left dirty) or read it (left clean)")
@@ -144,9 +203,10 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("flash_timings: needs a CUDA card")
     t0 = time.perf_counter()
-    built = _build.build(["flash_attention"] if args.decode else
-                         [s for s in _build.sources()
-                          if s.startswith("flash")])
+    built = _build.build(
+        ["emb_cache", "moe_dispatch"] if args.gathers else
+        ["flash_attention"] if args.decode else
+        [s for s in _build.sources() if s.startswith("flash")])
     build_s = time.perf_counter() - t0
     takes_lengths = "lengths" in inspect.signature(
         fa.flash_fwd_masked).parameters
@@ -203,9 +263,11 @@ def main(argv=None):
                    dict(causal=True, lengths=torch.from_numpy(
                        glens.astype(np.int32)).cuda()))]
     flush = flush_buf.zero_ if args.flush == "fill" else flush_buf.sum
-    decode = _decode_times(fa, flush, args.iters)
+    gathers = _gather_times(ht, flush, args.iters) if args.gathers else {}
+    decode = {} if args.gathers else _decode_times(fa, flush, args.iters)
     out = {}
-    for dtype in () if args.decode else (torch.float32, torch.bfloat16):
+    for dtype in () if args.decode or args.gathers else (torch.float32,
+                                                         torch.bfloat16):
         for name, b, h, s, o in cases:
             bh, s_kv = b * h, o.get("s_kv", s)
             q, do = (t(bh, s, 64, dtype=dtype) for _ in range(2))
@@ -263,7 +325,7 @@ def main(argv=None):
                                              in built.items()},
                       "ptxas": {n: _ptxas(log) for n, (_, log)
                                 in built.items()},
-                      "ms": out, "decode": decode}))
+                      "ms": out, "decode": decode, "gathers": gathers}))
 
 
 if __name__ == "__main__":

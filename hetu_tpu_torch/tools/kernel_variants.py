@@ -17,11 +17,19 @@ seed=0)``'s second, width 16), beside ``index_add_`` and the wrapper.
 plain merge launch, with a ring of three tiles and without its merge
 launch, at six split plans of the kernels line's shape, each after an L2
 flush that fills a 256 MB buffer (dirty lines) and after one that reads
-it (clean lines).
+it (clean lines).  ``gather``: the row gathers B4 (``csrc/emb_cache.cu``)
+and B6 (``csrc/moe_dispatch.cu``, float32 and bf16) at the CTR plan and
+the MoE dispatch and combine: B6 as written, by its bulk route with two
+or four stages and with 32 KB blocks, and by its chunk-a-thread route
+(one 16-byte chunk a thread, its index loaded for each chunk: the scheme
+B6 had before the bulk route and B4 has); each route, and B4, also
+returning at once (the launch floor of its grid) and, the chunk kernels,
+reading only their indices; after both flushes.
 Every time is the median of 50 CUDA-event timings, each launch after an
 L2 flush.  Run from the repository root::
 
     python3 -m hetu_tpu_torch.tools.kernel_variants fwd|segsum|decode
+    python3 -m hetu_tpu_torch.tools.kernel_variants gather
 
 The modified sources and libraries go to ``hetu_tpu_torch/_build/variants``.
 """
@@ -254,6 +262,130 @@ def decode_variants(flushes):
     print(f"[kernel-variants] decode {json.dumps(report)}", flush=True)
 
 
+#: the row gathers' builds: as written, and with one choice changed.  The
+#: chunk kernels (B4's, and B6's chunk-a-thread route) returning at once
+#: or writing their index where their chunk would go; B6's bulk kernel
+#: returning at once, or with two or four stages
+CHUNK_EDITS = {
+    "moe_dispatch": {
+        "chunk_launch_only": [(
+            "uint4* __restrict__ out, long long n_chunks, int mc) {\n",
+            "uint4* __restrict__ out, long long n_chunks, int mc) {\n"
+            "  return;\n")],
+        "chunk_index_only": [(
+            "if (row >= 0) v = __ldg(src + (long long)row * mc + c);",
+            "v.x = (unsigned)row;")]},
+    "emb_cache": {
+        "launch_only": [(
+            "float4* __restrict__ out, long long n_chunks, int w4) {\n",
+            "float4* __restrict__ out, long long n_chunks, int w4) {\n"
+            "  return;\n")],
+        "index_only": [("out[t] = __ldg(slab + row * w4 + c);",
+                        "out[t] = make_float4(__int_as_float((int)row), 0.f, "
+                        "0.f, 0.f);")]}}
+_SMEM = "  extern __shared__ __align__(128) unsigned char smem[];\n"
+_STAGES = "constexpr int BULK_STAGES = {};"
+BULK_EDITS = {"bulk_launch_only": [(_SMEM, "  return;\n" + _SMEM)],
+              "s2": [(_STAGES.format(3), _STAGES.format(2))],
+              "s4": [(_STAGES.format(3), _STAGES.format(4))]}
+
+
+def gather_variants(flushes):
+    """The row gathers (B4 ``hetu_emb_gather``, B6 ``hetu_row_gather`` and
+    ``hetu_row_gather_bf16``) at ``flash_timings.gather_inputs``'s shapes
+    (phases 8, 11 and 29 of ``chip_smoke.py``), each build called through
+    its C entry: B4 as written, returning at once and reading only its
+    slots; B6 as written (its wrapper's plan), returning at once, with two
+    stages (six CTAs an SM) or four (three), with 32 KB blocks (two CTAs
+    an SM), and by its chunk-a-thread route (the plan ``(0, 0)``) as
+    written, returning at once and reading only its indices.  Each under
+    every L2 flush of ``flushes``, beside the bytes bound, the library call
+    (``index_select``, with ``masked_fill_`` for B6), the card's copy floor
+    at these bytes (the output written alone, and a contiguous copy of as
+    many bytes) and whether the output is bit-equal to the plain
+    gather."""
+    from hetu_tpu_torch.ops.kernels import moe_dispatch as md
+    from hetu_tpu_torch.tools.flash_timings import gather_inputs
+    libs = {"emb": build_variants("emb_cache", {"as_written": [],
+                                                **CHUNK_EDITS["emb_cache"]}),
+            "moe": build_variants("moe_dispatch", {
+                "as_written": [], **CHUNK_EDITS["moe_dispatch"],
+                **BULK_EDITS})}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    report = {"sms": sms}
+    for name, kind, src, idx in gather_inputs(ht):
+        n, m = idx.shape[0], src.shape[1]
+        es = src.element_size()
+        out = torch.empty(n, m, dtype=src.dtype, device="cuda")
+        ref = md.row_gather_plain(src, idx)
+        valid = idx[idx >= 0]
+        nbytes = 4 * n + es * int(torch.unique(valid).numel()) * m \
+            + es * n * m
+        idx64, neg = idx.clamp_min(0).long(), (idx < 0)[:, None]
+
+        def library():
+            rows = src.index_select(0, idx64)
+            return rows if kind == "emb" else rows.masked_fill_(neg, 0)
+
+        row = {"n": n, "m": m, "dtype": str(src.dtype)[6:],
+               "bound_ms": nbytes / 3.35e12 * 1e3,
+               "library_ms": {f: time_ms(library, fl)
+                              for f, fl in flushes.items()}}
+        # a card's copy floor at these bytes: the output written alone
+        # (zero_), and a contiguous copy of as many bytes (copy_)
+        flat = src.view(-1)[:n * m].clone() if src.numel() >= n * m else \
+            torch.empty(n * m, dtype=src.dtype, device="cuda")
+        flat_out = out.view(-1)
+        row["write_ms"] = {f: time_ms(out.zero_, fl)
+                           for f, fl in flushes.items()}
+        row["copy_ms"] = {f: time_ms(lambda: flat_out.copy_(flat), fl)
+                          for f, fl in flushes.items()}
+        calls = []
+        if kind == "emb":
+            for vname, lib in libs["emb"].items():
+                fn = lib.hetu_emb_gather
+                fn.argtypes = [ctypes.c_void_p] * 3 + [
+                    ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                calls.append((vname, fn, (
+                    src.data_ptr(), idx.data_ptr(), out.data_ptr(), n, m,
+                    src.shape[0], stream)))
+        else:
+            def plan(**kw):
+                return md.gather_plan(n, m, es, src.data_ptr(),
+                                      out.data_ptr(), sms, **kw)
+            runs = [("as_written", plan()), ("bulk_launch_only", plan()),
+                    ("s2", plan(ctas_per_sm=6)), ("s4", plan(ctas_per_sm=3)),
+                    ("as_written", plan(block_bytes=32768, ctas_per_sm=2)),
+                    ("as_written", (0, 0)), ("chunk_launch_only", (0, 0)),
+                    ("chunk_index_only", (0, 0))]
+            entry = "hetu_row_gather_bf16" if src.dtype == torch.bfloat16 \
+                else "hetu_row_gather"
+            for vname, (ctas, rows) in runs:
+                fn = getattr(libs["moe"][vname], entry)
+                fn.argtypes = [ctypes.c_void_p] * 3 + [
+                    ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                calls.append((f"{vname} ({ctas}x{rows})", fn, (
+                    src.data_ptr(), idx.data_ptr(), out.data_ptr(), n, m,
+                    src.shape[0], ctas, rows, stream)))
+        for label, fn, args in calls:
+            out.fill_(7)
+            if fn(*args) != 0:
+                raise SystemExit(f"kernel_variants: {label} did not launch")
+            torch.cuda.synchronize()
+            row[label] = {"equal": bool(torch.equal(out, ref)), **{
+                f + "_ms": time_ms(lambda: fn(*args), fl)
+                for f, fl in flushes.items()}}
+        report[name] = row
+        print(f"[kernel-variants] gather {name}: {json.dumps(row)}",
+              flush=True)
+    return report
+
+
 def segsum_variants(flush):
     long_hook = "  if (count == 0) return;  // uniform\n"
     short_hook = "  constexpr int W = sizeof(V) / sizeof(float);\n"
@@ -302,7 +434,7 @@ def segsum_variants(flush):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("which", choices=["fwd", "segsum", "decode"])
+    ap.add_argument("which", choices=["fwd", "segsum", "decode", "gather"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA card")
@@ -314,6 +446,8 @@ def main():
                          text=True, timeout=60).stdout.strip(), flush=True)
     if args.which == "fwd":
         forward_variants(flush)
+    elif args.which == "gather":
+        gather_variants({"fill": flush, "read": buf.sum})
     elif args.which == "decode":
         # the fill leaves the L2 full of dirty lines that the timed kernel's
         # reads write back; the read leaves it clean

@@ -172,6 +172,10 @@ def main(argv=None):
             if key in name:
                 emb_us[short][0] += c
                 emb_us[short][1] += us
+    missing = set(EMB_KERNELS.values()) - set(emb_us)
+    if missing:
+        raise SystemExit(f"profile_ctr: no device time under the names of "
+                         f"{sorted(missing)} ({EMB_KERNELS})")
     top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:15]
     cache = ex.subexecutors["train"].ps_nodes[0].cache
     report = {

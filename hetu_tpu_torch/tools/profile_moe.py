@@ -46,10 +46,14 @@ TOKENS, D, EXPERTS, K, CAPACITY_FACTOR = 8192, 512, 16, 2, 1.25
 WARMUP = 3
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
-#: the row gather's kernels in a trace, by the dtype they copy
-B6_KERNELS = {"float32": ("row_gather_vec_kernel<float>",
+#: the row gather's kernels in a trace, by the dtype they copy (the element
+#: type is each template's argument): the bulk route for the MoE path's
+#: rows, one chunk or one value a thread for others
+B6_KERNELS = {"float32": ("row_gather_bulk_kernel<float>",
+                          "row_gather_vec_kernel<float>",
                           "row_gather_scalar_kernel<float>"),
-              "bfloat16": ("row_gather_vec_kernel<__nv_bfloat16>",
+              "bfloat16": ("row_gather_bulk_kernel<__nv_bfloat16>",
+                           "row_gather_vec_kernel<__nv_bfloat16>",
                            "row_gather_scalar_kernel<__nv_bfloat16>")}
 
 
@@ -197,6 +201,11 @@ def main(argv=None):
           for dt, names in B6_KERNELS.items()}
     wrapper = {"float32": moe_dispatch.launches,
                "bfloat16": moe_dispatch.bf16_launches}
+    for dt, n in wrapper.items():
+        if n and not b6[dt][1] > 0:
+            raise SystemExit(f"profile_moe: {n} {dt} row gathers launched, "
+                             f"but no kernel named {B6_KERNELS[dt]} has "
+                             f"device time")
     top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:15]
     flops = moe_step_flops()
 

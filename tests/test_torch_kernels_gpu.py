@@ -69,7 +69,8 @@ def test_cuda_kernel_matches_plain_version(cuda, s_q, s_kv, d):
     out, lse = fa.flash_fwd(q, k, v, lengths, h, d ** -0.5)
     ref, lse_ref = fa.flash_fwd_plain(q, k, v, lengths, h, d ** -0.5)
     torch.cuda.synchronize()
-    n_split, _ = fa.decode_split_plan(b * h, s_q, s_kv, fa._sm_count(cuda))
+    n_split, _ = fa.decode_split_plan(b * h, s_q, s_kv,
+                                      fa._build.sm_count(cuda))
     assert (fa.launches, fa.merge_launches) == (before[0] + 1,
                                                 before[1] + (n_split > 1))
     assert float((out - ref).abs().max()) <= ATOL
@@ -114,7 +115,7 @@ def _decode_call(q, k, v, lengths, plan):
                             plan=plan)
     torch.cuda.synchronize()
     n_split = plan[0] if plan is not None else fa.decode_split_plan(
-        q.shape[0], q.shape[1], k.shape[1], fa._sm_count(q.device))[0]
+        q.shape[0], q.shape[1], k.shape[1], fa._build.sm_count(q.device))[0]
     assert (fa.launches, fa.merge_launches) == (before[0] + 1,
                                                 before[1] + (n_split > 1))
     return out, lse
@@ -131,7 +132,8 @@ def test_decode_kernel_splits_match_plain_version(cuda, s_q, d, plan):
     out, lse = _decode_call(q, k, v, lengths, plan)
     scale = d ** -0.5
     ref, lse_ref = fa.flash_fwd_plain(q, k, v, lengths, DH, scale)
-    used = plan or fa.decode_split_plan(DB * DH, s_q, DL, fa._sm_count(cuda))
+    used = plan or fa.decode_split_plan(DB * DH, s_q, DL,
+                                        fa._build.sm_count(cuda))
     sref, slse = fa.flash_fwd_split_plain(q, k, v, lengths, DH, scale, used)
     for want, wlse in ((ref, lse_ref), (sref, slse)):
         assert float((out - want).abs().max()) <= ATOL
@@ -851,6 +853,73 @@ def test_row_gather_bf16_kernel_matches_plain_version(cuda, n, m, rows,
     assert out.dtype == torch.bfloat16 and out.shape == (n, m)
     assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
     assert not out[idx < 0].any()
+
+
+#: the launch plan's edges (gather_plan), each (name, n, width, source
+#: rows, offset in values): n not a multiple of a block's rows, a block
+#: whose every index is -1, a source one value off 16-byte alignment,
+#: widths 13 and 2048, and more blocks than the grid takes in one round
+PLAN_EDGES = [("n off the block", 8193, 512, 3000, 0),
+              ("a block all -1", 8192, 512, 3000, 0),
+              ("src off alignment", 4099, 16, 5000, 1),
+              ("w=13", 4099, 13, 5000, 0), ("w=2048", 3001, 2048, 2000, 0),
+              ("rounds", 300000, 16, 70000, 0)]
+
+
+def _plan_case(cuda, dtype, n, width, rows, offset, slab=False):
+    """Source, indices and the plan the MoE gather's wrapper makes for
+    them (with ``slab``, every index valid, as the slab gather's)."""
+    rng = np.random.RandomState(n + width + offset)
+    buf = torch.from_numpy(rng.randn(rows * width + offset).astype(
+        np.float32)).to(cuda, dtype)
+    src = buf[offset:].view(rows, width)
+    idx = rng.randint(0 if slab else -1, rows, n).astype(np.int32)
+    plan = md.gather_plan(n, width, src.element_size(), src.data_ptr(), 0,
+                          md._build.sm_count(src.device))
+    return src, torch.from_numpy(idx).to(cuda), plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n,width,rows,offset", PLAN_EDGES,
+                         ids=[e[0] for e in PLAN_EDGES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_gather_kernel_at_the_plan_edges(cuda, dtype, name, n, width,
+                                             rows, offset):
+    """B6 at the plan's edges, by the route the plan picks: bit-equal to
+    the plain version, one launch on its dtype's counter."""
+    src, idx, plan = _plan_case(cuda, dtype, n, width, rows, offset)
+    if name == "a block all -1":
+        assert plan[1] > 0
+        idx[plan[1]:2 * plan[1]] = -1
+    counter = "bf16_launches" if dtype == torch.bfloat16 else "launches"
+    before = getattr(md, counter)
+    out = md.row_gather(src, idx)
+    torch.cuda.synchronize()
+    assert getattr(md, counter) == before + 1
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    ref = md.row_gather_plain(src, idx)
+    assert out.dtype == dtype and out.shape == (n, width)
+    assert torch.equal(out.view(bits), ref.view(bits))
+    assert not out[idx < 0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n,width,rows,offset",
+                         [e for e in PLAN_EDGES if e[0] != "a block all -1"],
+                         ids=[e[0] for e in PLAN_EDGES
+                              if e[0] != "a block all -1"])
+def test_slab_gather_kernel_at_the_plan_edges(cuda, name, n, width, rows,
+                                              offset):
+    """B4 at the same edges (every slot valid; more chunks than its
+    grid-stride grid takes at once at "rounds"): equal to the plain
+    version, one launch."""
+    slab, slots, _ = _plan_case(cuda, torch.float32, n, width, rows,
+                                offset, slab=True)
+    before = emb.launches
+    out = emb.gather_rows(slab, slots)
+    torch.cuda.synchronize()
+    assert emb.launches == before + 1
+    assert torch.equal(out, emb.gather_rows_plain(slab, slots))
 
 
 @pytest.mark.gpu
