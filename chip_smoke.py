@@ -315,7 +315,32 @@ without printing the final result line:
     each at full width bf16 against float32 (3 Adam losses within 5 % /
     0.05) and 2 layers (batch 2, seq 128) card against CPU in float32
     (phase 7's gates) and bf16 (phase 28's).
-35. Print the card's name and power limit, the ``kernels`` JSON line and,
+35. Train ResNet-18 / CIFAR10 (BASELINE config 1: ``bench.py``'s
+    ``build_resnet18_graph`` through ``profile_train.resnet18_step``:
+    ``models.resnet18`` at published widths, batch 128, 3x32x32 ``rand``
+    inputs and one-hot labels of 10 classes from ``RandomState(0)``,
+    ``MomentumOptimizer(0.1)``) with cuDNN's autotuner on for every ResNet
+    run (``profile_train.CUDNN_BENCHMARK``, printed) in float32 (TF32 off)
+    and in bf16, NCHW, then bf16 NHWC (a finding): 3 warm-up and 20
+    counted steps with every launch counter set to 0 just before and read
+    just after (the path launches no hand kernel: every counter reads 0),
+    the loss finite and falling, the masters float32; step p50 / p99,
+    samples/s, peak memory, MFU against 67 or 989 TFLOP/s (3 x 2 x the
+    forward's multiply-adds, counted from the graph's convolution and
+    linear shapes, ``profile_train.graph_flops``), and 3 profiled steps:
+    busy time, idle share, the time by kernel family, and the
+    convolutions' forward, dgrad and wgrad timed apart at the step's
+    shapes (``profile_train.conv_apart_ms``).
+36. The same float32 step fed by ``dataloader_op([Dataloader(x, 128,
+    "train")])`` over ``data.cifar10()``'s synthetic split (prefetch on):
+    10 counted steps, the loss finite, p50 beside phase 35's.
+37. ResNet-18 at batch 8, float32, card against CPU from the same weights
+    for 3 Momentum steps: the step-1 loss within ``RN_LOSS_RTOL``, the
+    later ones within ``RN_TRAJ_RTOL``, every step-1 gradient within
+    ``RN_GRAD_RELNORM``, every running statistic within
+    ``RN_STATS_RELNORM`` after step 1 and after the later steps (relative
+    norms).
+38. Print the card's name and power limit, the ``kernels`` JSON line and,
     last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32:
@@ -425,6 +450,20 @@ MOE_GATHERS_BF16_STEP = {"row_gather": 1, "row_gather_bf16": 5}
 # GPT-2 small's (batch 8, seq 1024, causal) attention widths, 12 layers
 VL_SHAPES = {"varlen-bert": (16, 512, False), "varlen-gpt2": (8, 1024, True)}
 VL_WARMUP, VL_STEPS, VL_PROFILED = 2, 10, 3
+# ResNet-18 / CIFAR10 (BASELINE config 1, bench.py's build_resnet18_graph):
+# batch 128; the dataloader-fed run's steps; the card-vs-CPU cut
+RN_BATCH, RN_WARMUP, RN_STEPS, RN_PROFILED = 128, 3, 20, 3
+RN_DL_STEPS = 10
+RN_CPU_BATCH, RN_CPU_STEPS = 8, 3
+# ResNet-18 card vs CPU (float32, TF32 off, cuDNN's autotuned algorithms,
+# FFT-based ones among them, against the CPU's): the step-1 loss rtol; the
+# later losses rtol (lr 0.1 on 8 samples amplifies the first step's
+# rounding: step 3 measured 4.1e-3 apart); each step-1 gradient by its
+# relative norm (measured 1.5e-4); each running statistic by its relative
+# norm after step 1 and after the later steps (2.2e-3 measured at most)
+RN_LOSS_RTOL, RN_TRAJ_RTOL = 1e-4, 2e-2
+RN_GRAD_RELNORM = 1e-3
+RN_STATS_RELNORM = (1e-4, 2e-2)
 
 
 def log(msg):
@@ -3846,6 +3885,203 @@ def phase_varlen_train(ht, pm, fa, metrics, kmods):
     return got
 
 
+# -- ResNet-18 / CIFAR10 (no hand kernel: cuDNN through torch) ---------------
+
+def resnet_run(ht, kmods, tag, macs, compute_dtype=None, data_format="NCHW",
+               loader=None, steps=RN_STEPS, profiled=True):
+    """bench.py's ResNet-18 step (``profile_train.resnet18_step``) on the
+    card: ``RN_WARMUP`` warm-up and ``steps`` counted steps with every
+    launch counter set to 0 just before and read just after (the path
+    launches no hand kernel: every counter must read 0), the loss finite,
+    the masters float32; then ``RN_PROFILED`` profiled steps (device busy
+    time, idle share, the time by kernel family).  ``loader``: (x, y) fed
+    through ``dataloader_op``.  ``macs``: the forward's multiply-adds.
+    Returns the report."""
+    from hetu_tpu_torch.tools import profile_train as pt
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ex, fd, loss = pt.resnet18_step(RN_BATCH, data_format, compute_dtype,
+                                    device="cuda", loader=loader)
+    pt.label_optimizers(ex)
+    log(f"{tag} executor built in {time.perf_counter() - t0:.1f} s")
+
+    def step():
+        return float(ex.run("train", feed_dict=fd)[0].asnumpy())
+
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(RN_WARMUP)]
+    log(f"{tag} {RN_WARMUP} warm-up steps (cuDNN autotuning) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    reset_launches(*kmods)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step())                       # waits for the step
+        times.append(time.perf_counter() - t0)
+    launched = {name: n for m in kmods for name, n in vars(m).items()
+                if name.endswith("launches") and n}
+    if launched:
+        raise AssertionError(f"{tag} hand kernels launched: {launched}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag} non-finite training loss: {losses}")
+    bad = [ex.var_names[n] for n, v in ex.var_values.items()
+           if v.dtype != torch.float32]
+    if bad:
+        raise AssertionError(f"{tag} variables left float32: {bad[:5]}")
+    ms = np.asarray(times) * 1e3
+    step_s = ms.mean() / 1e3
+    flops = 3 * 2 * macs
+    peak = ("bf16", PEAK_BF16_FLOPS) if compute_dtype else \
+        ("fp32", PEAK_FP32_FLOPS)
+    report = {"batch": RN_BATCH, "data_format": data_format,
+              "compute_dtype": compute_dtype or "float32",
+              "fed_by": "dataloader_op" if loader is not None
+              else "placeholders",
+              "cudnn_benchmark": torch.backends.cudnn.benchmark,
+              "steps": steps, "losses": losses,
+              "step_ms_p50": float(np.percentile(ms, 50)),
+              "step_ms_p99": float(np.percentile(ms, 99)),
+              "step_ms_mean": float(ms.mean()),
+              "samples_per_s": RN_BATCH / step_s,
+              "model_tflop_per_step": flops / 1e12,
+              "mfu_" + peak[0]: flops / step_s / peak[1],
+              "peak_mem_gib": (torch.cuda.max_memory_allocated() - base)
+              / 2 ** 30,
+              "hand_kernel_launches": 0, "card": card_line()}
+    if profiled:
+        prof_rep, prof = pt.profile_steps(step, RN_PROFILED, step_s)
+        if not prof_rep["device_busy_ms_per_step"] > 0:
+            raise AssertionError(f"{tag} the profiler saw no device time")
+        report["profiled"] = {k: prof_rep[k] for k in (
+            "wall_ms_per_step", "device_busy_ms_per_step",
+            "device_idle_share", "device_idle_share_unprofiled",
+            "kernels_per_step", "top_kernels")}
+        report["families_ms_per_step"] = pt.resnet_families(prof,
+                                                            RN_PROFILED)
+        report["conv_apart_ms_per_step"] = pt.conv_apart_ms(
+            loss, {n: np.shape(v) for n, v in fd.items()}, compute_dtype)
+    ex.close()
+    del ex
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_resnet_train(ht, kmods):
+    """Phase 35: ResNet-18 at bench.py's shape in float32 and bf16 (NCHW),
+    then bf16 NHWC (a finding).  Returns the float32 report."""
+    from hetu_tpu_torch.tools import profile_train as pt
+    torch.backends.cudnn.benchmark = pt.CUDNN_BENCHMARK
+    log(f"[resnet] torch.backends.cudnn.benchmark = "
+        f"{torch.backends.cudnn.benchmark} for every ResNet run; "
+        f"cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
+    x = ht.placeholder_op("x", shape=(RN_BATCH, 3, 32, 32))
+    y = ht.placeholder_op("y", shape=(RN_BATCH, 10))
+    loss, _ = ht.models.resnet18(x, y)
+    macs = pt.graph_flops(loss, {x: x.shape, y: y.shape})
+    total = macs["conv"] + macs["linear"]
+    log(f"[resnet] forward multiply-adds from the graph's shapes: "
+        f"{json.dumps(macs)} ({total / RN_BATCH / 1e9:.4f} G a sample); "
+        f"a training step counts 3 x 2 x {total} = {6 * total / 1e12:.4f} "
+        f"TFLOP")
+    reports = {}
+    for tag, cd, df in (("[resnet-f32]", None, "NCHW"),
+                        ("[resnet-bf16]", "bfloat16", "NCHW"),
+                        ("[resnet-bf16-nhwc]", "bfloat16", "NHWC")):
+        rep = resnet_run(ht, kmods, tag, total, cd, df)
+        losses = rep["losses"]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{tag} loss did not fall: {losses}")
+        log(f"{tag} {json.dumps(rep)}")
+        log(f"{tag} p50 {rep['step_ms_p50']:.3f} ms, p99 "
+            f"{rep['step_ms_p99']:.3f} ms, {rep['samples_per_s']:.1f} "
+            f"samples/s, peak {rep['peak_mem_gib']:.3f} GiB, idle "
+            f"{rep['profiled']['device_idle_share_unprofiled']:.4f}")
+        reports[tag] = rep
+    rep32 = reports["[resnet-f32]"]
+    rep32["macs"] = total
+    return rep32
+
+
+def phase_resnet_dataloader(ht, kmods, rep32):
+    """Phase 36: ResNet-18 fed by ``dataloader_op`` over ``cifar10()``'s
+    synthetic training split (prefetch on), float32 NCHW."""
+    tx, ty, _, _ = ht.data.cifar10()
+    rep = resnet_run(ht, kmods, "[resnet-dataloader]", rep32["macs"],
+                     loader=(tx, ty), steps=RN_DL_STEPS, profiled=False)
+    log(f"[resnet-dataloader] {json.dumps(rep)}")
+    log(f"[resnet-dataloader] p50 {rep['step_ms_p50']:.3f} ms beside the "
+        f"placeholder-fed p50 {rep32['step_ms_p50']:.3f} ms (float32)")
+
+
+def _resnet_parity_run(ht, device, weights):
+    """ResNet-18 at batch ``RN_CPU_BATCH`` on ``device``, float32,
+    ``RN_CPU_STEPS`` Momentum steps: (losses, step-1 gradients by name,
+    running statistics after each step, the initial weights)."""
+    x = ht.placeholder_op("x", shape=(RN_CPU_BATCH, 3, 32, 32))
+    y = ht.placeholder_op("y", shape=(RN_CPU_BATCH, 10))
+    loss, _ = ht.models.resnet18(x, y)
+    wrt = [n for n in ht.topo_sort([loss])
+           if getattr(n, "is_variable", False) and n.trainable]
+    ex = ht.Executor({"train": [loss, ht.optim.MomentumOptimizer(0.1)
+                                .minimize(loss)] + ht.gradients(loss, wrt)},
+                     seed=0, device=device)
+    if weights is None:
+        weights = ex.return_tensor_values()
+    ex.load_dict(weights)
+    rng = np.random.RandomState(0)
+    fd = {x: rng.rand(RN_CPU_BATCH, 3, 32, 32).astype(np.float32),
+          y: np.eye(10, dtype=np.float32)[rng.randint(0, 10, RN_CPU_BATCH)]}
+    losses, stats, grads = [], [], None
+    for _ in range(RN_CPU_STEPS):
+        out = ex.run("train", feed_dict=fd)
+        losses.append(float(out[0].asnumpy()))
+        if grads is None:
+            grads = {n.name: g.asnumpy() for n, g in zip(wrt, out[2:])}
+        stats.append({k: v for k, v in ex.return_tensor_values().items()
+                      if "_running_" in k})
+    return losses, grads, stats, weights
+
+
+def phase_resnet_parity(ht):
+    """Phase 37: ResNet-18 at batch 8, float32, card against CPU from the
+    same weights for 3 Momentum steps: the step-1 loss within
+    ``RN_LOSS_RTOL``, the later ones within ``RN_TRAJ_RTOL``, every step-1
+    gradient within ``RN_GRAD_RELNORM`` and every running statistic within
+    ``RN_STATS_RELNORM`` after step 1, then after each later step
+    (relative norms)."""
+    t0 = time.perf_counter()
+    card = _resnet_parity_run(ht, "cuda", None)
+    host = _resnet_parity_run(ht, "cpu", card[3])
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(card[0], host[0])]
+    grad_err = {n: rel(card[1][n], host[1][n]) for n in host[1]}
+    stats_err = [max(rel(c[k], h[k]) for k in h)
+                 for c, h in zip(card[2], host[2])]
+    worst = max(grad_err, key=grad_err.get)
+    log(f"[resnet-parity] batch {RN_CPU_BATCH}, {RN_CPU_STEPS} steps in "
+        f"{time.perf_counter() - t0:.1f} s: losses card {card[0]} CPU "
+        f"{host[0]}, relative error by step {loss_err} (rtol "
+        f"{RN_LOSS_RTOL}, then {RN_TRAJ_RTOL}); {len(grad_err)} step-1 "
+        f"gradients, worst relative norm {grad_err[worst]:.3e} ({worst}; "
+        f"gate {RN_GRAD_RELNORM}); {len(host[2][0])} running statistics, "
+        f"worst relative norm by step {stats_err} (gates "
+        f"{RN_STATS_RELNORM})")
+    if not all(math.isfinite(v) for v in card[0]) \
+            or loss_err[0] > RN_LOSS_RTOL \
+            or max(loss_err[1:]) > RN_TRAJ_RTOL \
+            or grad_err[worst] > RN_GRAD_RELNORM \
+            or stats_err[0] > RN_STATS_RELNORM[0] \
+            or max(stats_err[1:]) > RN_STATS_RELNORM[1] \
+            or len(host[2][0]) != 40:
+        raise AssertionError("ResNet-18 card vs CPU disagree")
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script runs on the "
@@ -4035,7 +4271,16 @@ def main():
     # -- 34. train the padding-masked graphs, float32 and bf16 -----------------------
     vlaunches = phase_varlen_train(ht, pm, fa, metrics, kmods)
 
-    # -- 35. result lines ---------------------------------------------------------
+    # -- 35. train ResNet-18 / CIFAR10: float32, bf16, bf16 NHWC -----------------
+    rn32 = phase_resnet_train(ht, kmods)
+
+    # -- 36. ResNet-18 fed by a DataloaderOp ----------------------------------------
+    phase_resnet_dataloader(ht, kmods, rn32)
+
+    # -- 37. card vs CPU ResNet-18 training -------------------------------------------
+    phase_resnet_parity(ht)
+
+    # -- 38. result lines ---------------------------------------------------------
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 

@@ -40,7 +40,15 @@ kernel on a ported path is a hand-written kernel for the H100
   (with ``Expert``) → ``AdamOptimizer`` → ``Executor.run``, the sparse
   dispatch and combine, forward and backward, in the CUDA row-gather
   kernel (the dense ``TopKGate`` → ``MoELayer`` graph runs on plain
-  products).
+  products);
+* CNN training: the model zoo of ``models/cnn.py`` (``resnet18`` /
+  ``resnet34`` in NCHW or NHWC, ``vgg16`` / ``vgg19``, ``alexnet``,
+  ``lenet``, ``cnn_3_layers``, ``mlp``, ``logreg``) over
+  ``conv2d_op``, ``batch_normalization_op`` and the pools (cuDNN through
+  ``torch.nn.functional``; the JAX package has no Pallas kernel there) →
+  ``optim.MomentumOptimizer(0.1).minimize(loss)`` → ``Executor.run``, fed
+  by placeholders or by ``dataloader_op([Dataloader(x, 128, "train")])``
+  over ``data.cifar10()`` (``run("train")`` with no feed dict).
 
 Typical use (the shape of the JAX package's)::
 
@@ -53,7 +61,7 @@ Typical use (the shape of the JAX package's)::
 It imports neither ``jax`` nor ``hetu_tpu``.  Entry points run on CUDA
 unless the caller passes ``device="cpu"``.
 """
-from . import initializers, metrics, ops, optim, ps
+from . import data, initializers, metrics, ops, optim, ps
 from . import initializers as init
 from .context import cpu, gpu, resolve_device
 from .graph import (Executor, GradientOp, LowerCtx, Op, PlaceholderOp,
@@ -72,13 +80,19 @@ from .models import (BertConfig, GPT2Config, LongformerConfig, XLNetConfig,
                      synthetic_mlm_ids, synthetic_plm_batch,
                      synthetic_seq2seq_batch, T5Config, t5_seq2seq_graph,
                      wdl_criteo, xlnet_plm_graph)
+from .data import Dataloader, DataloaderOp, dataloader_op
 from .ndarray import NDArray
-from .ops import (array_reshape_op, binarycrossentropy_op, broadcastto_op,
-                  concat_op, einsum_op, embedding_lookup_op, matmul_op, mul_op,
-                  ne_op, reduce_mean_op, reduce_sum_op, relu_op, rsqrt_op,
+from .ops import (BatchNormOp, array_reshape_op, avg_pool2d_op,
+                  batch_normalization_op, binarycrossentropy_op,
+                  broadcastto_op, concat_op, conv2d_add_bias_op, conv2d_op,
+                  dropout2d_op, dropout_op, einsum_op, embedding_lookup_op,
+                  gelu_op, instance_normalization2d_op,
+                  layer_normalization_op, leaky_relu_op, linear_op,
+                  log_softmax_op, matmul_op, max_pool2d_op, mul_op, ne_op,
+                  reduce_mean_op, reduce_sum_op, relu_op, rsqrt_op,
                   sdpa_bias_op, sdpa_masked_bias_op, sdpa_masked_op,
                   sdpa_op, sdpa_varlen_op, sigmoid_op, slice_op,
-                  softmaxcrossentropy_op,
+                  softmax_func, softmax_op, softmaxcrossentropy_op,
                   softmaxcrossentropy_sparse_op, tanh_op, transpose_op)
 from .ps import (CacheSparseTable, DistCacheTable, EmbeddingStore,
                  PSEmbeddingLookupOp, default_store, ps_embedding_lookup_op)

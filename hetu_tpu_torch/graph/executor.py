@@ -6,7 +6,9 @@ each node's ``lower`` runs on its inputs' tensors as soon as they exist.
 
 ``Executor`` owns the variables of one or more fetch subgraphs
 (``{name: fetches}``) and runs a subgraph per :meth:`Executor.run`:
-feeds go to the device, the forward runs through ``lower_forward``,
+feeds go to the device (a ``DataloaderOp`` leaf that the feed dict does
+not hold takes its loader's next batch for the subgraph's name, so a
+dataloader-fed graph trains with ``run(name)``), the forward runs through ``lower_forward``,
 gradient markers (``GradientOp``) resolve through ``torch.autograd.grad``
 of the loss with respect to the trainable variables, and each
 ``OptimizerOp`` applies its optimizer's pure update under
@@ -40,9 +42,10 @@ kernels are float32 only): refused by name.
 Not ported, refused by name: distribution (``dist_strategy``, ``mesh``,
 ``zero``, ``plan``, ``pipeline``, ``num_microbatches``), ``remat``,
 ``matmul_precision``, a ``compute_dtype`` other than bfloat16, ASP/SSP
-(``bsp`` other than 0), ``prefetch`` and ids from a ``DataloaderOp``, the
-other JAX-package options, ``run(sync=False)``, ``run_steps``, ``save``
-/ ``load``.
+(``bsp`` other than 0), ``prefetch`` and PS ids from a ``DataloaderOp``,
+the other JAX-package options, ``run(sync=False)``, ``run_steps``,
+``save`` / ``load``.  Nor is the JAX package's lookahead feed pipeline
+(``graph/run_plan.py``): each batch is placed when its step starts.
 """
 from __future__ import annotations
 
@@ -138,6 +141,10 @@ class SubExecutor:
                            if isinstance(n, PlaceholderOp)
                            and not n.is_variable
                            and not getattr(n, "is_ps", False)]
+        # fed from their loaders when the feed dict does not hold them
+        from ..data.dataloader import DataloaderOp
+        self.dataloader_nodes = [n for n in self.feed_nodes
+                                 if isinstance(n, DataloaderOp)]
         self.trainable_vars = sorted({g.wrt for g in self.grad_ops},
                                      key=lambda n: n.id)
         for v in self.trainable_vars:
@@ -179,10 +186,13 @@ class SubExecutor:
         try:
             feeds = {}
             for node in self.feed_nodes:
-                if node not in feed_dict:
+                if node in feed_dict:
+                    val = feed_dict[node]
+                elif node in self.dataloader_nodes:
+                    val = node.get_arr(self.name)
+                else:
                     raise ValueError(f"missing feed for {node}")
-                feeds[node] = self._low(
-                    ex._place_feed(node, feed_dict[node]))
+                feeds[node] = self._low(ex._place_feed(node, val))
             for node in self._ps_host_items:
                 ps_vals[node] = ex._place_feed(
                     node, node.pull(self._ps_ids(node, feed_dict)))
@@ -471,6 +481,13 @@ class Executor:
                           "fixed per subgraph at construction")
         return self.subexecutors[name].run(feed_dict or {},
                                            convert_to_numpy_ret_vals)
+
+    def get_batch_num(self, name="default"):
+        """Batches an epoch of subgraph ``name``'s dataloaders holds (the
+        fewest, where it has several); None without a ``DataloaderOp``."""
+        nums = [n.get_batch_num(name)
+                for n in self.subexecutors[name].dataloader_nodes]
+        return min(nums) if nums else None
 
     def ps_flush(self):
         """Barrier: every PS push of this executor has been applied.  The

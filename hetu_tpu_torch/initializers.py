@@ -1,5 +1,5 @@
-"""Initializers of the ported graphs (subset of
-``hetu_tpu/initializers.py``).
+"""Initializers (twin of ``hetu_tpu/initializers.py``: the init classes,
+the Variable factories and the ``Gen*`` closures).
 
 Inits draw from an explicit ``torch.Generator`` on the CPU, so a value
 depends only on the generator's seed — never on the device the executor
@@ -56,6 +56,17 @@ class OnesInit(ConstantInit):
         super().__init__(1.0)
 
 
+class UniformInit(BaseInit):
+    """Uniform(low, high), as ``jax.random.uniform(minval, maxval)``."""
+
+    def __init__(self, low=-1.0, high=1.0):
+        self.low, self.high = low, high
+
+    def init(self, out, generator):
+        return torch.nn.init.uniform_(out, self.low, self.high,
+                                      generator=generator)
+
+
 class NormalInit(BaseInit):
     """Normal(mean, stddev), as ``mean + stddev * jax.random.normal``."""
 
@@ -80,6 +91,25 @@ class TruncatedNormalInit(BaseInit):
             self.mean + 2.0 * self.stddev, generator=generator)
 
 
+class OrthogonalInit(BaseInit):
+    """Orthogonal init: the Q of a normal matrix's QR, its columns' signs
+    set by R's diagonal, as the JAX package's."""
+
+    def __init__(self, gain=1.0):
+        self.gain = gain
+
+    def init(self, out, generator):
+        rows = out.shape[0]
+        cols = int(np.prod(out.shape[1:]))
+        a = torch.randn(max(rows, cols), min(rows, cols),
+                        generator=generator)
+        q, r = torch.linalg.qr(a)
+        q = q * torch.sign(torch.diagonal(r))
+        if rows < cols:
+            q = q.T
+        return out.copy_((self.gain * q[:rows, :cols]).reshape(out.shape))
+
+
 def _fans(shape, mode):
     shape = tuple(shape)
     if len(shape) == 2:
@@ -94,6 +124,8 @@ def _fans(shape, mode):
 
 
 class GeneralXavierUniformInit(BaseInit):
+    """Uniform(-limit, limit), limit = sqrt(3 * gain / fan(mode))."""
+
     def __init__(self, gain=1.0, mode="avg"):
         self.gain, self.mode = gain, mode
 
@@ -112,37 +144,106 @@ class HeUniformInit(GeneralXavierUniformInit):
         super().__init__(2.0, "fan_in")
 
 
-class XavierNormalInit(BaseInit):
-    """Normal(0, sqrt(1 / fan_avg)), as the JAX package's
-    ``XavierNormalInit`` (gain 1, mode "avg")."""
+class LecunUniformInit(GeneralXavierUniformInit):
+    def __init__(self):
+        super().__init__(1.0, "fan_in")
+
+
+class GeneralXavierNormalInit(BaseInit):
+    """Normal(0, sqrt(gain / fan(mode)))."""
+
+    def __init__(self, gain=1.0, mode="avg"):
+        self.gain, self.mode = gain, mode
 
     def init(self, out, generator):
-        std = float(np.sqrt(1.0 / _fans(out.shape, "avg")))
+        std = float(np.sqrt(self.gain / _fans(out.shape, self.mode)))
         return torch.nn.init.normal_(out, 0.0, std, generator=generator)
+
+
+class XavierNormalInit(GeneralXavierNormalInit):
+    def __init__(self):
+        super().__init__(1.0, "avg")
+
+
+class HeNormalInit(GeneralXavierNormalInit):
+    def __init__(self):
+        super().__init__(2.0, "fan_in")
+
+
+class LecunNormalInit(GeneralXavierNormalInit):
+    def __init__(self):
+        super().__init__(1.0, "fan_in")
 
 
 # -- Variable factories -----------------------------------------------------
 
+def _make(init, shape, name, trainable):
+    return init(shape, name=name, trainable=trainable)
+
+
+def orthogonal(shape, gain=1.0, name=None, trainable=True, ctx=None):
+    return _make(OrthogonalInit(gain), shape, name, trainable)
+
+
 def zeros(shape, name=None, trainable=True, ctx=None):
-    return ZerosInit()(shape, name=name, trainable=trainable)
+    return _make(ZerosInit(), shape, name, trainable)
 
 
 def ones(shape, name=None, trainable=True, ctx=None):
-    return OnesInit()(shape, name=name, trainable=trainable)
+    return _make(OnesInit(), shape, name, trainable)
 
 
-def xavier_uniform(shape, name=None, trainable=True, ctx=None):
-    return XavierUniformInit()(shape, name=name, trainable=trainable)
-
-
-def he_uniform(shape, name=None, trainable=True, ctx=None):
-    return HeUniformInit()(shape, name=name, trainable=trainable)
+def constant(shape, fill_value=0.0, name=None, trainable=True, ctx=None):
+    return _make(ConstantInit(fill_value), shape, name, trainable)
 
 
 def truncated_normal(shape, mean=0.0, stddev=1.0, name=None, trainable=True,
                      ctx=None):
-    return TruncatedNormalInit(mean, stddev)(shape, name=name,
-                                             trainable=trainable)
+    return _make(TruncatedNormalInit(mean, stddev), shape, name, trainable)
+
+
+def random_normal(shape, mean=0.0, stddev=1.0, name=None, trainable=True,
+                  ctx=None):
+    return _make(NormalInit(mean, stddev), shape, name, trainable)
+
+
+def random_uniform(shape, minval=-1.0, maxval=1.0, name=None, trainable=True,
+                   ctx=None):
+    return _make(UniformInit(minval, maxval), shape, name, trainable)
+
+
+def general_xavier_normal(shape, gain, mode, name=None, trainable=True,
+                          ctx=None):
+    return _make(GeneralXavierNormalInit(gain, mode), shape, name, trainable)
+
+
+def general_xavier_uniform(shape, gain, mode, name=None, trainable=True,
+                           ctx=None):
+    return _make(GeneralXavierUniformInit(gain, mode), shape, name, trainable)
+
+
+def xavier_normal(shape, name=None, trainable=True, ctx=None):
+    return _make(XavierNormalInit(), shape, name, trainable)
+
+
+def xavier_uniform(shape, name=None, trainable=True, ctx=None):
+    return _make(XavierUniformInit(), shape, name, trainable)
+
+
+def he_normal(shape, name=None, trainable=True, ctx=None):
+    return _make(HeNormalInit(), shape, name, trainable)
+
+
+def he_uniform(shape, name=None, trainable=True, ctx=None):
+    return _make(HeUniformInit(), shape, name, trainable)
+
+
+def lecun_normal(shape, name=None, trainable=True, ctx=None):
+    return _make(LecunNormalInit(), shape, name, trainable)
+
+
+def lecun_uniform(shape, name=None, trainable=True, ctx=None):
+    return _make(LecunUniformInit(), shape, name, trainable)
 
 
 # -- Gen* closures ----------------------------------------------------------
@@ -151,17 +252,53 @@ def GenZeros():
     return ZerosInit()
 
 
-def GenNormal(mean=0.0, stddev=1.0):
-    return NormalInit(mean, stddev)
+def GenOnes():
+    return OnesInit()
+
+
+def GenConstant(fill_value=0.0):
+    return ConstantInit(fill_value)
 
 
 def GenTruncatedNormal(mean=0.0, stddev=1.0):
     return TruncatedNormalInit(mean, stddev)
 
 
-def GenXavierUniform():
-    return XavierUniformInit()
+def GenNormal(mean=0.0, stddev=1.0):
+    return NormalInit(mean, stddev)
+
+
+def GenUniform(minval=-1.0, maxval=1.0):
+    return UniformInit(minval, maxval)
+
+
+def GenGeneralXavierNormal(gain, mode):
+    return GeneralXavierNormalInit(gain, mode)
+
+
+def GenGeneralXavierUniform(gain, mode):
+    return GeneralXavierUniformInit(gain, mode)
 
 
 def GenXavierNormal():
     return XavierNormalInit()
+
+
+def GenXavierUniform():
+    return XavierUniformInit()
+
+
+def GenHeNormal():
+    return HeNormalInit()
+
+
+def GenHeUniform():
+    return HeUniformInit()
+
+
+def GenLecunNormal():
+    return LecunNormalInit()
+
+
+def GenLecunUniform():
+    return LecunUniformInit()

@@ -5,7 +5,11 @@ from .arithmetic import (add_op, minus_op, mul_op, div_op, addbyconst_op,
                          const_div_op, opposite_op, pow_op, ne_op, tanh_op,
                          sigmoid_op, rsqrt_op)
 from .matmul import matmul_op, linear_op, einsum_op
-from .nn import relu_op, gelu_op, dropout_op, layer_normalization_op
+from .nn import (relu_op, leaky_relu_op, gelu_op, softmax_op, log_softmax_op,
+                 softmax_func, dropout_op, dropout2d_op, conv2d_op,
+                 conv2d_add_bias_op, max_pool2d_op, avg_pool2d_op,
+                 batch_normalization_op, layer_normalization_op,
+                 instance_normalization2d_op, BatchNormOp)
 from .transform import (array_reshape_op, transpose_op, slice_op, concat_op,
                         broadcastto_op)
 from .reduce import reduce_sum_op, reduce_mean_op

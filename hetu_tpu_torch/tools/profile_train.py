@@ -25,7 +25,16 @@ loss ``mean((x - y)^2)`` on seeded float feeds, BERT's at seq 512, batch
 16, not causal, the lengths of ``synthetic_mlm_batch``'s rule (35 % of
 rows full, the rest uniform over [128, 512], seed 0), GPT-2's at seq
 1024, batch 8, causal, lengths uniform over [256, 1024] from seed 0 with
-one row full: the training kernels' ``lengths`` specialization.  All:
+one row full: the training kernels' ``lengths`` specialization;
+``--model resnet18`` bench.py's ResNet-18 / CIFAR10 step
+(:func:`resnet18_step`: batch 128, 3x32x32 ``rand`` inputs, one-hot
+labels of 10 classes, NCHW, ``MomentumOptimizer(0.1)``, cuDNN's
+autotuner on: ``CUDNN_BENCHMARK``), whose report splits the device time
+by kernel family (:func:`resnet_families`: convolution forward, dgrad
+and wgrad, BatchNorm, ReLU and add, pooling, the head, the Momentum
+update; the convolutions also timed apart, :func:`conv_apart_ms`) and
+gives the step's FLOPs from the graph's convolution and
+linear shapes (:func:`graph_flops`).  All but ResNet:
 seeded random weights, fp32 (with ``--compute-dtype
 bfloat16``: bf16 mixed precision, the bf16 flash kernels; ``--batch``
 sets the batch: bench.py's flagship is ``--model bert --compute-dtype
@@ -40,7 +49,8 @@ entry's launches and device time by its name in ``chip_smoke.py``'s
 ``bf16_fwd_mask_bias_launches``).  Run from the repository root::
 
     python3 -m hetu_tpu_torch.tools.profile_train
-        [--model bert|gpt2|t5|xlnet|longformer|varlen-bert|varlen-gpt2]
+        [--model bert|gpt2|t5|xlnet|longformer|varlen-bert|varlen-gpt2|
+                 resnet18]
         [--compute-dtype bfloat16] [--batch N] [--out DIR] [--steps N]
 
 ``--out`` receives ``profile_train[_<model>][_bf16].json`` (no model
@@ -67,7 +77,11 @@ WARMUP = 2
 T5_SRC, T5_TGT = 512, 114
 SHAPES = {"bert": (16, 512), "gpt2": (8, 1024), "t5": (32, T5_SRC + T5_TGT),
           "xlnet": (8, 512), "longformer": (2, 4096),
-          "varlen-bert": (16, 512), "varlen-gpt2": (8, 1024)}
+          "varlen-bert": (16, 512), "varlen-gpt2": (8, 1024),
+          "resnet18": (128, None)}
+#: cuDNN's autotuner (``torch.backends.cudnn.benchmark``) for the ResNet
+#: step: on, in this tool and in ``chip_smoke.py``'s ResNet phases
+CUDNN_BENCHMARK = True
 #: the varlen graphs' widths (BERT-base's and GPT-2 small's attention) and
 #: depth (both models' published 12 layers)
 VARLEN_HIDDEN, VARLEN_HEADS, VARLEN_LAYERS = 768, 12, 12
@@ -200,6 +214,10 @@ def build(model, device="cuda", compute_dtype=None, batch=None):
     ``compute_dtype`` and, given, ``batch`` instead of the model's."""
     batch = batch or SHAPES[model][0]
     seq = SHAPES[model][1]
+    if model == "resnet18":
+        ex, fd, _ = resnet18_step(batch, device=device,
+                                  compute_dtype=compute_dtype)
+        return ex, fd
     if model.startswith("varlen"):
         feeds, loss = varlen_graph(batch, seq, causal=model == "varlen-gpt2")
         fd = varlen_feeds(feeds, varlen_lengths(model, batch, seq))
@@ -239,6 +257,225 @@ def build(model, device="cuda", compute_dtype=None, batch=None):
                        compute_dtype=compute_dtype), fd
 
 
+def resnet18_step(batch=128, data_format="NCHW", compute_dtype=None,
+                  device="cuda", loader=None):
+    """bench.py's ``build_resnet18_graph`` on the port: ``resnet18`` on x
+    (batch, 3, 32, 32) and one-hot y (batch, 10), ``MomentumOptimizer(0.1)``
+    through ``Executor(seed=0)``; the feeds as bench.py makes them
+    (``RandomState(0)``: ``rand`` inputs, then ``np.eye(10)[randint]``).
+    ``loader``: (x, y) arrays fed through ``dataloader_op`` instead (a
+    ``Dataloader`` of ``batch`` each, split "train", prefetch on), the
+    feed dict then empty.  Returns (executor, feed dict, loss)."""
+    if loader is None:
+        x = ht.placeholder_op("x", shape=(batch, 3, 32, 32))
+        y = ht.placeholder_op("y", shape=(batch, 10))
+    else:
+        x = ht.dataloader_op([ht.Dataloader(loader[0], batch, "train")])
+        y = ht.dataloader_op([ht.Dataloader(loader[1], batch, "train")])
+    loss, _ = ht.models.resnet18(x, y, data_format=data_format)
+    train_op = ht.optim.MomentumOptimizer(0.1).minimize(loss)
+    ex = ht.Executor({"train": [loss, train_op]}, seed=0, device=device,
+                     compute_dtype=compute_dtype)
+    if loader is not None:
+        return ex, {}, loss
+    rng = np.random.RandomState(0)
+    xv = rng.rand(batch, 3, 32, 32).astype(np.float32)
+    yv = np.eye(10, dtype=np.float32)[rng.randint(0, 10, batch)]
+    return ex, {x: xv, y: yv}, loss
+
+
+def graph_flops(loss, feed_shapes):
+    """Multiply-adds of one forward of ``loss``'s graph, from its
+    convolutions' and linear layers' shapes: the graph lowered on meta
+    tensors (shapes only, no data), each ``Conv2d`` counting
+    N * C_out * H_out * W_out * C_in * k_h * k_w, each ``Linear`` /
+    ``MatrixMult`` M * N * K.  ``feed_shapes``: {placeholder: shape}.
+    Returns {"conv": MACs, "linear": MACs}."""
+    from hetu_tpu_torch.graph.executor import lower_forward
+    from hetu_tpu_torch.graph.node import LowerCtx
+    topo = ht.topo_sort([loss])
+
+    def leaf(node):
+        shape = feed_shapes.get(node, node.shape)
+        return torch.empty(shape, device="meta")
+
+    env = lower_forward(topo, LowerCtx(False), leaf)
+    macs = {"conv": 0, "linear": 0}
+    for node in topo:
+        if node.op_type in ("Conv2d", "Conv2dAddBias"):
+            w = env[node.inputs[1]].shape          # OIHW in both layouts
+            macs["conv"] += env[node].numel() * int(np.prod(w[1:]))
+        elif node.op_type in ("Linear", "MatrixMult"):
+            a, b = (env[i].shape for i in node.inputs[:2])
+            macs["linear"] += int(np.prod(a)) * int(b[-1])
+    return macs
+
+
+#: the names of the ``record_function`` ranges the tools open
+RANGE_LABELS = frozenset({"optimizer"})
+
+#: the ResNet step's kernel families, in report order
+RESNET_FAMILIES = ("conv forward", "conv dgrad", "conv wgrad",
+                   "conv backward, other", "batchnorm", "relu and add",
+                   "pooling", "head", "momentum update", "casts and copies",
+                   "other")
+
+
+def resnet_family(ops, kernel):
+    """The family of a device kernel of the ResNet step: ``ops`` names
+    the CPU ops it ran under, innermost first (the optimizer's apply is
+    labelled ``optimizer``; a backward op's node is ``autograd::engine::
+    evaluate_function: <Name>Backward0``), ``kernel`` the kernel's name."""
+    chain = " ".join(ops)
+    low = kernel.lower()
+    if "optimizer" in ops:
+        return "momentum update"
+    if "ConvolutionBackward" in chain:
+        return "conv wgrad" if "wgrad" in low else \
+            "conv dgrad" if "dgrad" in low else "conv backward, other"
+    if "aten::convolution" in chain or "aten::conv2d" in chain:
+        return "conv forward"
+    if "batch_norm" in chain or "BatchNorm" in chain or "var_mean" in chain:
+        return "batchnorm"
+    if "pool" in chain.lower():
+        return "pooling"
+    if any(k in chain for k in ("relu", "Relu", "threshold_backward",
+                                "aten::add", "AddBackward")):
+        return "relu and add"
+    if any(k in chain for k in ("aten::mm", "aten::matmul", "MmBackward",
+                                "softmax", "Softmax", "aten::mean",
+                                "aten::sum", "aten::neg", "aten::mul")):
+        return "head"
+    if any(k in chain for k in ("aten::copy_", "aten::to", "Memcpy")) \
+            or "memcpy" in low:
+        return "casts and copies"
+    return "other"
+
+
+def label_optimizers(ex):
+    """Run each optimizer's ``apply`` of ``ex`` under a profiler range
+    named ``optimizer`` (no cost without a profiler), so
+    :func:`resnet_families` finds the update's kernels."""
+    for op in {n for sub in ex.subexecutors.values() for n in sub.opt_ops}:
+        opt = op.optimizer
+        if getattr(opt, "_labelled", False):
+            continue
+        apply = opt.apply
+
+        def labelled(*args, _apply=apply, **kw):
+            with torch.profiler.record_function("optimizer"):
+                return _apply(*args, **kw)
+        opt.apply = labelled
+        opt._labelled = True
+
+
+def resnet_families(prof, psteps):
+    """Device ms a step by :data:`RESNET_FAMILIES` from a profile: each
+    kernel through the op that launched it (``FunctionEvent.kernels``)
+    and that op's parents; ``unattributed`` is the device time of kernels
+    the profiler tied to no op (e.g. the feeds' copies)."""
+    fam = collections.Counter()
+    attributed = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels \
+                or e.name in RANGE_LABELS:
+            continue
+        ops, p = [], e
+        while p is not None:
+            ops.append(p.name)
+            p = p.cpu_parent
+        for k in e.kernels:
+            fam[resnet_family(ops, k.name)] += k.duration
+            attributed += k.duration
+    busy = sum(e.time_range.end - e.time_range.start
+               for e in device_kernels(prof))
+    out = {name: fam[name] / psteps / 1e3 for name in RESNET_FAMILIES}
+    out["unattributed"] = (busy - attributed) / psteps / 1e3
+    return out
+
+
+def device_kernels(prof):
+    """The device events of a profile that are kernels or copies: not the
+    device-side copy of a ``record_function`` range (such as
+    :func:`label_optimizers`' ``optimizer``), which spans kernels already
+    counted."""
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and e.name not in RANGE_LABELS:
+            yield e
+
+
+def conv_apart_ms(loss, feed_shapes, compute_dtype=None, iters=10):
+    """The step's convolutions run apart on the card, at their shapes,
+    layout and dtype, each kind under the profiler: the forward
+    (``F.conv2d``), the input gradient (dgrad) and the weight gradient
+    (wgrad), each through ``aten.convolution_backward`` asking for that one
+    output (a convolution on a feed, the stem, has no dgrad in the step).
+    Device time of the kernels a kind launches (cuDNN's layout conversions
+    included, as in the step), over ``iters`` passes of the graph's
+    convolutions, after two untimed passes in which cuDNN's autotuner
+    settles.  The step's trace cannot split a backward whose algorithm
+    runs FFTs and GEMMs (kernels named for neither gradient); this can.
+    Returns ms a step {"forward", "dgrad", "wgrad"}."""
+    from hetu_tpu_torch.graph.executor import lower_forward
+    from hetu_tpu_torch.graph.node import LowerCtx, PlaceholderOp
+    F = torch.nn.functional
+    topo = ht.topo_sort([loss])
+    env = lower_forward(topo, LowerCtx(False), lambda n: torch.empty(
+        feed_shapes.get(n, n.shape), device="meta"))
+    learned = set()                 # nodes that depend on a variable
+    for node in topo:
+        if (isinstance(node, PlaceholderOp) and node.is_variable) \
+                or any(i in learned for i in node.inputs):
+            learned.add(node)
+    dtype = torch.bfloat16 if compute_dtype else torch.float32
+    calls = {"forward": [], "dgrad": [], "wgrad": []}
+    for node in topo:
+        if node.op_type not in ("Conv2d", "Conv2dAddBias"):
+            continue
+        stride, padding = (node.attrs.get(k, d) for k, d in
+                           (("stride", 1), ("padding", 0)))
+        stride = (stride, stride) if isinstance(stride, int) else stride
+        padding = (padding, padding) if isinstance(padding, int) \
+            else padding
+        x = torch.randn(tuple(env[node.inputs[0]].shape), device="cuda",
+                        dtype=dtype)
+        if node.attrs.get("data_format") == "NHWC":
+            x = x.permute(0, 3, 1, 2)
+        w = torch.randn(tuple(env[node.inputs[1]].shape), device="cuda",
+                        dtype=dtype)
+        gy = torch.randn_like(F.conv2d(x, w, None, stride, padding))
+
+        def back(mask, x=x, w=w, gy=gy, stride=stride, padding=padding):
+            return torch.ops.aten.convolution_backward(
+                gy, x, w, None, stride, padding, (1, 1), False, (0, 0), 1,
+                mask)
+        calls["forward"].append(
+            lambda x=x, w=w, stride=stride, padding=padding:
+                F.conv2d(x, w, None, stride, padding))
+        if node.inputs[0] in learned:
+            calls["dgrad"].append(lambda back=back:
+                                  back((True, False, False)))
+        calls["wgrad"].append(lambda back=back: back((False, True, False)))
+    for _ in range(2):
+        for fns in calls.values():
+            for fn in fns:
+                fn()
+    torch.cuda.synchronize()
+    out = {}
+    for kind, fns in calls.items():
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+        out[kind] = sum(e.time_range.end - e.time_range.start
+                        for e in device_kernels(prof)) / iters / 1e3
+    return out
+
+
 def profile_steps(step, psteps=3, step_s=None, lengths=False):
     """``psteps`` calls of ``step`` (one training step each) under
     ``torch.profiler``: per step the device busy time (sum of kernel
@@ -261,11 +498,10 @@ def profile_steps(step, psteps=3, step_s=None, lengths=False):
     pwall = time.perf_counter() - t0
 
     kern = collections.defaultdict(lambda: [0, 0.0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            k = kern[e.name]
-            k[0] += 1
-            k[1] += e.time_range.end - e.time_range.start
+    for e in device_kernels(prof):
+        k = kern[e.name]
+        k[0] += 1
+        k[1] += e.time_range.end - e.time_range.start
     busy_us = sum(v[1] for v in kern.values())
     n_kern = sum(v[0] for v in kern.values())
     flash = collections.Counter()
@@ -321,7 +557,12 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     batch = args.batch or SHAPES[args.model][0]
     seq = SHAPES[args.model][1]
+    resnet = args.model == "resnet18"
+    if resnet:
+        torch.backends.cudnn.benchmark = CUDNN_BENCHMARK
     ex, fd = build(args.model, compute_dtype=args.compute_dtype, batch=batch)
+    if resnet:
+        label_optimizers(ex)
 
     def step():
         return float(ex.run("train", feed_dict=fd)[0].asnumpy())
@@ -349,7 +590,7 @@ def main(argv=None):
         "step_ms_mean": step_s * 1e3,
         "step_ms_all": [t * 1e3 for t in times],
         "samples_per_s": batch / step_s,
-        "tokens_per_s": batch * seq / step_s,
+        "tokens_per_s": None if seq is None else batch * seq / step_s,
         "tgt_tokens_per_s": (batch * T5_TGT / step_s if args.model == "t5"
                              else None),
         "profiled": profiled,
@@ -357,6 +598,20 @@ def main(argv=None):
             line_name(n): getattr(fa, n) / psteps for n in counters
             if getattr(fa, n)},
     }
+    if resnet:
+        loss = ex.subexecutors["train"].loss_node
+        feed_shapes = {n: tuple(np.shape(v)) for n, v in fd.items()}
+        macs = graph_flops(loss, feed_shapes)
+        step_flops = 3 * 2 * (macs["conv"] + macs["linear"])
+        peak = 989e12 if args.compute_dtype else 67e12
+        report.update({
+            "cudnn_benchmark": torch.backends.cudnn.benchmark,
+            "forward_macs": macs, "step_tflop": step_flops / 1e12,
+            "mfu": step_flops / step_s / peak,
+            "mfu_peak_tflops": peak / 1e12,
+            "families_ms_per_step": resnet_families(prof, psteps),
+            "conv_apart_ms_per_step": conv_apart_ms(
+                loss, feed_shapes, args.compute_dtype)})
     dev_table = prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=30)
     if args.out:

@@ -52,6 +52,11 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "import hetu_tpu_torch.ops.embedding\n"
             "import hetu_tpu_torch.graph.executor\n"
             "import hetu_tpu_torch.serving.decode\n"
+            "import hetu_tpu_torch.models.cnn\n"
+            "import hetu_tpu_torch.ops.nn\n"
+            "import hetu_tpu_torch.data.dataloader\n"
+            "import hetu_tpu_torch.data.datasets\n"
+            "import hetu_tpu_torch.data.transforms\n"
             "assert sys.modules['jax'] is None\n"
             "x = hetu_tpu_torch.placeholder_op('x')\n"
             "ex = hetu_tpu_torch.Executor([x * 2.0], device='cpu',\n"
@@ -60,11 +65,21 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "print(hetu_tpu_torch.GPT2Config.small().n_layer)\n"
             "print(hetu_tpu_torch.T5Config.small().num_layers)\n"
             "print(hetu_tpu_torch.XLNetConfig.base().n_layer)\n"
-            "print(hetu_tpu_torch.LongformerConfig.base().attention_window)\n")
+            "print(hetu_tpu_torch.LongformerConfig.base().attention_window)\n"
+            "tx, ty, _, _ = hetu_tpu_torch.data.cifar10()\n"
+            "x = hetu_tpu_torch.dataloader_op(\n"
+            "    [hetu_tpu_torch.Dataloader(tx[:4], 2, 'train')])\n"
+            "y = hetu_tpu_torch.dataloader_op(\n"
+            "    [hetu_tpu_torch.Dataloader(ty[:4], 2, 'train')])\n"
+            "loss, _ = hetu_tpu_torch.models.resnet18(x, y)\n"
+            "ex = hetu_tpu_torch.Executor({'train': [loss]}, device='cpu')\n"
+            "print(ex.get_batch_num('train'),\n"
+            "      ex.run('train')[0].asnumpy().shape)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["float32", "12", "6", "12", "512"]
+    assert proc.stdout.split() == ["float32", "12", "6", "12", "512",
+                                   "2", "()"]
 
 
 def test_sources_import_no_jax_or_hetu_tpu():
@@ -86,7 +101,8 @@ def test_sources_import_no_jax_or_hetu_tpu():
 
 
 @pytest.mark.parametrize("entry", ["DecodeEngine", "InferenceExecutor",
-                                   "params_from_named_arrays", "Executor"])
+                                   "params_from_named_arrays", "Executor",
+                                   "Executor(resnet18, dataloader)"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -96,6 +112,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                               hidden_size=8, intermediate_size=8,
                               vocab_size=16)
     _, loss, _ = ht.bert_pretrain_graph(bcfg)
+    images = ht.dataloader_op([ht.Dataloader(np.zeros((4, 3, 32, 32)), 2)])
+    labels = ht.dataloader_op([ht.Dataloader(np.zeros((4, 10)), 2)])
+    cnn_loss, _ = ht.models.resnet18(images, labels)
     calls = {
         "DecodeEngine": lambda: ht.DecodeEngine(feeds, logits, caches),
         "InferenceExecutor": lambda: ht.InferenceExecutor([logits]),
@@ -104,6 +123,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         "Executor": lambda: ht.Executor(
             {"train": [loss, ht.optim.AdamOptimizer(1e-4).minimize(loss)]},
             device=None),
+        "Executor(resnet18, dataloader)": lambda: ht.Executor(
+            {"train": [cnn_loss,
+                       ht.optim.MomentumOptimizer(0.1).minimize(cnn_loss)]}),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -1545,3 +1545,105 @@ def test_masked_key_tiles_are_skipped_and_get_zero_grads(cuda, kind):
     assert int(torch.count_nonzero(dv[masked])) == 0
     if dkbias is not None:
         assert int(torch.count_nonzero(dkbias[:, 0][masked])) == 0
+
+
+# -- the CNN ops (cuDNN through torch.nn.functional; no hand kernel) ---------
+#: (op, data_format) at ResNet-18's kinds of call, small shapes: a 3x3
+#: stride-2 convolution, a 1x1 one, the bias op, both pools (the average
+#: with padding above half the kernel, which the op pads itself), BatchNorm
+#: in training and in inference
+CNN_CASES = [("conv", "NCHW"), ("conv", "NHWC"), ("conv_1x1", "NCHW"),
+             ("conv_bias", "NHWC"), ("max_pool", "NCHW"),
+             ("max_pool", "NHWC"), ("avg_pool", "NCHW"),
+             ("avg_pool_pad", "NHWC"), ("bn_train", "NCHW"),
+             ("bn_train", "NHWC"), ("bn_eval", "NCHW")]
+#: float32 card against CPU: the convolutions sum in another order (TF32
+#: off).  bf16: each side rounds once from float32 sums in another order,
+#: and BatchNorm's scale and bias gradients sum 256 bf16 products whose
+#: terms cancel (0.25 apart on a largest value of 101 measured): held to
+#: ``BF16_TOL``'s rtol and its atol times the output's largest magnitude
+CNN_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-5),
+           torch.bfloat16: BF16_TOL}
+
+
+def _cnn_call(op, df):
+    """(node, numpy inputs, how many of them are differentiated,
+    training)."""
+    from hetu_tpu_torch import ops
+    rng = np.random.RandomState(len(op) + len(df))
+    nhwc = df == "NHWC"
+
+    def act(c, hw):
+        shape = (4, hw, hw, c) if nhwc else (4, c, hw, hw)
+        return rng.randn(*shape).astype(np.float32)
+
+    from hetu_tpu_torch.graph.node import Variable, placeholder_op
+    xs = [placeholder_op(f"x{i}") for i in range(3)]
+    if op.startswith("conv"):
+        k = 1 if op == "conv_1x1" else 3
+        arrays = [act(16, 8), rng.randn(32, 16, k, k).astype(np.float32)
+                  * 0.1]
+        if op == "conv_bias":
+            arrays.append(rng.randn(32).astype(np.float32))
+            node = ops.conv2d_add_bias_op(*xs, stride=2, padding=1,
+                                          data_format=df)
+        else:
+            node = ops.conv2d_op(xs[0], xs[1], stride=2,
+                                 padding=0 if k == 1 else 1, data_format=df)
+        return node, arrays, len(arrays), True
+    if op.endswith("pool") or op.endswith("pool_pad"):
+        kind = "max" if op.startswith("max") else "avg"
+        k, s, p = (2, 2, 2) if op.endswith("_pad") else (4, 4, 0)
+        node = getattr(ops, f"{kind}_pool2d_op")(xs[0], k, k, p, s,
+                                                 data_format=df)
+        return node, [act(16, 8)], 1, True
+    scale = rng.rand(16).astype(np.float32) + 0.5
+    bias = rng.randn(16).astype(np.float32)
+    node = ops.batch_normalization_op(
+        xs[0], Variable("s", value=scale), Variable("b", value=bias),
+        momentum=0.9, data_format=df)
+    arrays = [act(16, 8) * 2.0 + 1.0, scale, bias,
+              rng.randn(16).astype(np.float32),
+              rng.rand(16).astype(np.float32) + 0.5]
+    return node, arrays, 3, op == "bn_train"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("op,df", CNN_CASES)
+def test_cnn_op_on_the_card_matches_the_cpu(cuda, op, df, dtype):
+    """The op's value, the gradients of its differentiated inputs and (in
+    BatchNorm's training) both running statistics, on the card against the
+    port's CPU run of the same lowering."""
+    from hetu_tpu_torch.graph.node import LowerCtx
+    node, arrays, n_diff, training = _cnn_call(op, df)
+    results = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", cuda):
+            ts = [torch.from_numpy(a).to(dev, dtype).requires_grad_(
+                i < n_diff) for i, a in enumerate(arrays)]
+            ctx = LowerCtx(training)
+            out = node.lower(ctx, *ts)
+            if not results:
+                g = torch.from_numpy(np.random.RandomState(5).randn(
+                    *out.shape).astype(np.float32))
+            grads = torch.autograd.grad(out, ts[:n_diff], g.to(dev, dtype))
+            stats = [ctx.state_updates[n] for n in
+                     (getattr(node, "running_mean", None),
+                      getattr(node, "running_var", None))
+                     if n in ctx.state_updates]
+            results.append([t.detach().float().cpu().numpy()
+                            for t in [out, *grads, *stats]])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert out.device.type == "cuda" and out.dtype == dtype
+    assert len(results[1]) == 1 + n_diff + (2 if op == "bn_train" else 0)
+    for want, got in zip(*results):
+        assert np.all(np.isfinite(got))
+        tol = dict(CNN_TOL[dtype])
+        if dtype == torch.bfloat16:
+            tol["atol"] *= max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got, want, **tol)
