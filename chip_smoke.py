@@ -340,20 +340,66 @@ without printing the final result line:
     ``RN_GRAD_RELNORM``, every running statistic within
     ``RN_STATS_RELNORM`` after step 1 and after the later steps (relative
     norms).
-38. Print the card's name and power limit, the ``kernels`` JSON line and,
-    last, ``{"ok": true, "device": {...}}``.
+38. Data parallel at world size 1 on the card: an NCCL group of one
+    rank (``init_method`` a file under a temporary directory), then
+    BERT-base at phase 6's cell and ResNet-18 at batch 128 (BASELINE
+    config 2's per-rank shape), float32, each through
+    ``Executor(dist_strategy=DataParallel())`` and through the plain
+    ``Executor`` from the same seed in the same call: ``DP_STEPS`` steps
+    each under ``torch.use_deterministic_algorithms(True)``, so that the
+    plain executor repeats itself bit for bit (BERT: the flash launches of
+    the strategy's run == steps x layers; the losses and every parameter
+    after the steps within ``DP_BERT_RTOL``, bit-equal expected, the
+    largest difference printed; ResNet: phase 37's gates, since sync BN
+    sums in another order than ``var_mean``, no hand kernel launched, and
+    a probe of the step-1 forward and backward lowered both ways from the
+    same weights: equal to ``TIE_F64_RELNORM`` in float64, and in float32
+    the ReLU pre-activations on opposite sides of 0 located, each step-1
+    gradient upstream of one held to ``RN_TIE_GRAD_RELNORM``, the others
+    to phase 37's ``RN_GRAD_RELNORM``, in the probe and in the executors'
+    runs), then ``DP_TIMED`` timed steps of each in turns (p50, fastest
+    and slowest, samples/s) and ``DP_PROFILED`` profiled strategy steps
+    (the NCCL kernels' device ms a step, the all-reduce calls and their
+    host ms).  The group is destroyed at the end of the phase.
+39. Two ranks on the one card: two spawned processes on ``cuda:0``, gloo
+    carrying CUDA tensors (NCCL refuses two ranks on one device), each
+    running ``DP_STEPS`` steps of tiny BERT (``BertConfig.tiny(batch_size=
+    16, seq_len=32)``, Adam 1e-3, dropout 0) and of ResNet-18 at batch 8
+    (Momentum 0.1) fed the global batch, from the weights of the
+    single-process plain ``Executor`` run on the card over the global batch
+    in this process, and held to it at phase 37's gates (losses, step-1
+    gradients, ResNet's to ``RN_TIE_GRAD_RELNORM``, tiny BERT's at phase
+    7's ``TRAIN_GRAD_RTOL`` / ``TRAIN_GRAD_ATOL`` elementwise: its
+    attention key biases have a gradient of 0 in exact arithmetic, every
+    row's logits shifting by one constant, so a relative norm there
+    compares rounding noise; running statistics; ResNet's later losses
+    and statistics to ``RN_TIE_TRAJ``, see ``RN_TIE_GRAD_RELNORM``);
+    every rank returns the same losses, and the losses fall.
+    The flash kernels at a rank's attention shape (B=8, H=2, S=32, D=64,
+    each rank's key mask) are held to their plain versions first.  A
+    child that fails, outlives ``DP2_TIMEOUT`` or exits non-zero fails
+    the phase.
+40. Print the card's name and power limit, the ``kernels`` JSON line (the
+    float32 dense / key-mask flash rows count the launches of phases 38
+    and 39 too) and, last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32:
 ``torch.backends.cuda.matmul.allow_tf32`` is set False.  The bf16 ones
 run on the tensor cores (cuBLAS), as the JAX package leaves them to XLA.
 """
+import contextlib
 import gc
 import json
 import math
+import multiprocessing
 import os
+import pickle
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
 import warnings
 
 import numpy as np
@@ -464,6 +510,32 @@ RN_CPU_BATCH, RN_CPU_STEPS = 8, 3
 RN_LOSS_RTOL, RN_TRAJ_RTOL = 1e-4, 2e-2
 RN_GRAD_RELNORM = 1e-3
 RN_STATS_RELNORM = (1e-4, 2e-2)
+# data parallel (phases 38 and 39): the steps held to the plain executor,
+# the timed steps of each executor, the profiled ones; BERT-base through
+# the strategy at world size 1 against the plain executor (the same
+# arithmetic: bit-equal expected); phase 39's world, global batches and
+# each child's time limit
+DP_STEPS, DP_TIMED, DP_PROFILED = 3, 8, 2
+DP_BERT_RTOL = 1e-6
+# ResNet-18 where the strategy's sync BN and the plain executor's
+# F.batch_norm round the forward differently.  They are one function:
+# phase 38's probe holds the two to TIE_F64_RELNORM in float64 on the card
+# (tests/test_torch_parallel.py: 1e-12 on the CPU).  In float32 the rounding
+# change moves now and then a ReLU pre-activation within ~1e-6 of 0 across
+# it, and every gradient upstream of that ReLU changes by one row's term of
+# a sum over the N rows of a channel (batch x height x width), of the order
+# of 1/sqrt(N) of its norm: 5.4e-3 measured at batch 128, 1.1e-2 at batch 8
+# over two ranks.  Phase 38's probe locates those pre-activations on the
+# card; a step-1 gradient with no flipped ReLU downstream keeps phase 37's
+# RN_GRAD_RELNORM, one with a flip RN_TIE_GRAD_RELNORM.  After such a step
+# 1, lr 0.1 on 8 samples carries the changed update into phase 39's later
+# losses and statistics (1.9e-2 and 2.0e-2 apart at step 3 in every card
+# run), held to RN_TIE_TRAJ (loss rtol, relative norm).  Both set after
+# those card runs
+RN_TIE_GRAD_RELNORM = 2e-2
+RN_TIE_TRAJ = (5e-2, 5e-2)
+TIE_F64_RELNORM = 1e-10
+DP2_WORLD, DP2_BERT_BATCH, DP2_RN_BATCH, DP2_TIMEOUT = 2, 16, 8, 240
 
 
 def log(msg):
@@ -4082,6 +4154,529 @@ def phase_resnet_parity(ht):
             or len(host[2][0]) != 40:
         raise AssertionError("ResNet-18 card vs CPU disagree")
 
+
+# -- data parallel ----------------------------------------------------------------
+
+def dp_workload(ht, model, batch):
+    """(loss, feed dict, optimizer) of a data-parallel workload, fed the
+    global batch: ``bert-base`` (phase 6's cell, dropout 0.1),
+    ``bert-tiny`` (dropout 0) or ``resnet18`` (bench.py's feeds)."""
+    if model.startswith("bert"):
+        if model == "bert-base":
+            cfg = ht.BertConfig.base(batch_size=batch, seq_len=TRAIN_SEQ)
+        else:
+            cfg = ht.BertConfig.tiny(batch_size=batch, seq_len=32,
+                                     hidden_dropout_prob=0.0,
+                                     attention_probs_dropout_prob=0.0)
+        feeds, loss, _ = ht.bert_pretrain_graph(cfg)
+        fd = _bert_feeds(feeds, ht.synthetic_mlm_batch(cfg, seed=0))
+        lr = 1e-4 if model == "bert-base" else 1e-3
+        return loss, fd, ht.optim.AdamOptimizer(lr)
+    x = ht.placeholder_op("x", shape=(batch, 3, 32, 32))
+    y = ht.placeholder_op("y", shape=(batch, 10))
+    loss, _ = ht.models.resnet18(x, y)
+    rng = np.random.RandomState(0)
+    fd = {x: rng.rand(batch, 3, 32, 32).astype(np.float32),
+          y: np.eye(10, dtype=np.float32)[rng.randint(0, 10, batch)]}
+    return loss, fd, ht.optim.MomentumOptimizer(0.1)
+
+
+def dp_executor(ht, model, batch, strategy=None, grads=True):
+    """(executor, feed dict, trainable variables) of ``dp_workload`` on
+    the card, ``Executor(seed=0)``; with ``grads`` every trainable
+    variable's gradient is fetched after the loss and the step."""
+    loss, fd, opt = dp_workload(ht, model, batch)
+    wrt = [n for n in ht.topo_sort([loss])
+           if getattr(n, "is_variable", False) and n.trainable]
+    fetches = [loss, opt.minimize(loss)] + (ht.gradients(loss, wrt)
+                                            if grads else [])
+    ex = ht.Executor({"train": fetches}, seed=0, device="cuda",
+                     dist_strategy=strategy)
+    return ex, fd, wrt if grads else []
+
+
+def dp_steps(ex, fd, wrt, steps):
+    """``steps`` steps: losses, step-1 gradients by name (``wrt``), the
+    running statistics by name after each step."""
+    losses, grads, stats = [], None, []
+    for _ in range(steps):
+        out = ex.run("train", feed_dict=fd)
+        losses.append(float(out[0].asnumpy()))
+        if grads is None:
+            grads = {n.name: g.asnumpy() for n, g in zip(wrt, out[2:])}
+        stats.append({ex.var_names[n]: v.cpu().numpy()
+                      for n, v in ex.var_values.items()
+                      if "_running_" in ex.var_names[n]})
+    return {"losses": losses, "grads": grads, "stats": stats}
+
+
+def _relnorm(a, b):
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def hold_to_phase37_gates(tag, got, want, grad_gate=RN_GRAD_RELNORM,
+                          later=(RN_TRAJ_RTOL, RN_STATS_RELNORM[1])):
+    """``got`` against ``want`` (``dp_steps`` records) at phase 37's
+    gates: the step-1 loss within ``RN_LOSS_RTOL``, the later losses and
+    running statistics within ``later`` (loss rtol, relative norm), every
+    step-1 gradient and the step-1 statistics by their relative norms.
+    ``grad_gate``: one relative norm, or one a variable by name, or a pair
+    ``(rtol, atol)`` that holds every gradient elementwise, as phase 7
+    holds BERT's.  Returns the errors."""
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                   want["losses"])]
+    if isinstance(grad_gate, tuple):
+        grad_err = {k: float(np.max(np.abs(got["grads"][k] - w)))
+                    for k, w in want["grads"].items()}
+        grad_ok = all(np.allclose(got["grads"][k], w, rtol=grad_gate[0],
+                                  atol=grad_gate[1])
+                      for k, w in want["grads"].items())
+    else:
+        gates = grad_gate if isinstance(grad_gate, dict) \
+            else dict.fromkeys(want["grads"], grad_gate)
+        grad_err = {k: _relnorm(got["grads"][k], w)
+                    for k, w in want["grads"].items()}
+        grad_ok = all(e <= gates[k] for k, e in grad_err.items())
+    worst = max(grad_err, key=grad_err.get, default=None)
+    total = float(np.sqrt(sum(np.sum((got["grads"][k] - w) ** 2)
+                              for k, w in want["grads"].items()))
+                  / max(np.sqrt(sum(np.sum(w ** 2)
+                                    for w in want["grads"].values())),
+                        1e-30))
+    stats_err = [max((_relnorm(g[k], w[k]) for k in w), default=0.0)
+                 for g, w in zip(got["stats"], want["stats"])]
+    errs = {"loss_rel_err_by_step": loss_err,
+            "grad_worst": [worst, grad_err.get(worst)],
+            "grad_total_relnorm": total,
+            "stats_worst_relnorm_by_step": stats_err}
+    if not all(math.isfinite(v) for v in got["losses"]) \
+            or sorted(got["grads"]) != sorted(want["grads"]) \
+            or loss_err[0] > RN_LOSS_RTOL \
+            or max(loss_err[1:]) > later[0] \
+            or not grad_ok \
+            or (stats_err and stats_err[0] > RN_STATS_RELNORM[0]) \
+            or (stats_err and max(stats_err[1:]) > later[1]):
+        raise AssertionError(f"{tag} disagree at phase 37's gates: "
+                             f"{json.dumps(errs)}")
+    return errs
+
+
+def collective_ms(prof, steps):
+    """The all-reduces of a profile, a step: NCCL kernels' device ms and
+    launches, and ``c10d::allreduce_`` calls and their host ms (the
+    profiled host time: the profiler slows the host)."""
+    from hetu_tpu_torch.tools import profile_train as pt
+    us, n = 0.0, 0
+    for e in pt.device_kernels(prof):
+        if "nccl" in e.name.lower():
+            us += e.time_range.end - e.time_range.start
+            n += 1
+    host = [e for e in prof.key_averages() if e.key == "c10d::allreduce_"]
+    calls = sum(e.count for e in host)
+    host_us = sum(e.cpu_time_total for e in host)
+    return {"nccl_ms_per_step": us / steps / 1e3,
+            "nccl_kernels_per_step": n / steps,
+            "allreduce_calls_per_step": calls / steps,
+            "allreduce_host_ms_per_step_profiled": host_us / steps / 1e3}
+
+
+def dp_time_and_profile(tag, runs, batch):
+    """``DP_TIMED`` steps of each executor in turns (plain, strategy,
+    strategy, plain, ...: p50, fastest, slowest), then ``DP_PROFILED``
+    profiled strategy steps.
+    ``runs``: {"plain" / "dp": (executor, its feed dict)}.  Returns the
+    report."""
+    from hetu_tpu_torch.tools import profile_train as pt
+    times = {"plain": [], "dp": []}
+    order = ["plain", "dp", "dp", "plain"] * (DP_TIMED // 2)
+    for which in order:
+        ex, fd = runs[which]
+        t0 = time.perf_counter()
+        float(ex.run("train", feed_dict=fd)[0].asnumpy())  # waits
+        times[which].append(time.perf_counter() - t0)
+    p50 = {k: float(np.percentile(np.asarray(v) * 1e3, 50))
+           for k, v in times.items()}
+    spread = {k: [min(v) * 1e3, max(v) * 1e3] for k, v in times.items()}
+    dp, fd = runs["dp"]
+    rep, prof = pt.profile_steps(
+        lambda: float(dp.run("train", feed_dict=fd)[0].asnumpy()),
+        DP_PROFILED, p50["dp"] / 1e3)
+    coll = collective_ms(prof, DP_PROFILED)
+    report = {"batch": batch, "timed_steps_each": DP_TIMED,
+              "plain_step_ms_p50": p50["plain"],
+              "dp_step_ms_p50": p50["dp"],
+              "plain_step_ms_min_max": spread["plain"],
+              "dp_step_ms_min_max": spread["dp"],
+              "plain_samples_per_s": batch / (p50["plain"] / 1e3),
+              "dp_samples_per_s": batch / (p50["dp"] / 1e3),
+              **coll,
+              "dp_device_busy_ms_per_step": rep["device_busy_ms_per_step"],
+              "dp_device_idle_share_unprofiled":
+                  rep["device_idle_share_unprofiled"],
+              "card": card_line()}
+    log(f"{tag} {json.dumps(report)}")
+    log(f"{tag} p50 plain {p50['plain']:.3f} ms, DataParallel "
+        f"{p50['dp']:.3f} ms; all-reduce (NCCL kernels) "
+        f"{coll['nccl_ms_per_step']:.4f} ms a step over "
+        f"{coll['nccl_kernels_per_step']:g} launches; "
+        f"{coll['allreduce_calls_per_step']:g} c10d all-reduce calls a step, "
+        f"{coll['allreduce_host_ms_per_step_profiled']:.3f} host ms "
+        f"(profiled)")
+    return report
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)`` (with the cuBLAS
+    workspace setting it asks for), the previous state restored after."""
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    prev = torch.are_deterministic_algorithms_enabled()
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev)
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+
+
+def resnet_tie_probe(ht, weights):
+    """Phase 38's ResNet-18 probe: one step-1 forward and backward at
+    ``RN_BATCH`` from ``weights``, lowered the plain way and by the
+    batch-axis rules on the group of one (sync BN), on the card, as the
+    executor's step lowers it.  In float64 the two must agree to
+    ``TIE_F64_RELNORM`` (loss and every gradient): one function.  In
+    float32 it locates the ReLU pre-activations on opposite sides of 0 in
+    the two, and every gradient with none of them downstream must agree
+    to ``RN_GRAD_RELNORM``, the others to ``RN_TIE_GRAD_RELNORM``.
+    Returns (the names of the variables upstream of a flipped ReLU, the
+    float32 step-1 gradients of each way by name)."""
+    from hetu_tpu_torch.parallel.batch_axis import BatchAxis
+    loss, fd, _ = dp_workload(ht, "resnet18", RN_BATCH)
+    topo = ht.topo_sort([loss])
+    ex = ht.Executor([loss], seed=0, device="cuda")
+    ex.load_dict(weights)
+    params = [n for n in topo
+              if getattr(n, "is_variable", False) and n.trainable]
+    relus = [n for n in topo if n.op_type == "Relu"]
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        feeds = {n: torch.from_numpy(v).to("cuda", dtype)
+                 for n, v in fd.items()}
+        for way in ("plain", "dp"):
+            axis = None
+            if way == "dp":
+                axis = BatchAxis(None, 1, 0)
+                axis.sharded.update(feeds)
+            leaves = {n: ex.var_values[n].to(dtype).requires_grad_(True)
+                      for n in params}
+            with torch.enable_grad():
+                env = ht.lower_forward(
+                    topo, ht.LowerCtx(True, None, axis),
+                    lambda n: feeds[n] if n in feeds
+                    else leaves.get(n, ex.var_values[n].to(dtype)))
+                grads = torch.autograd.grad(env[loss],
+                                            [leaves[n] for n in params])
+            out[dtype, way] = (
+                float(env[loss]),
+                {n.name: g.cpu().numpy() for n, g in zip(params, grads)},
+                {r: env[r.inputs[0]].detach() for r in relus})
+            del env, grads, leaves
+    ex.close()
+
+    (l64, g64, _), (m64, h64, _) = out[torch.float64, "plain"], \
+        out[torch.float64, "dp"]
+    f64 = max([abs(m64 - l64) / abs(l64)]
+              + [_relnorm(h64[k], g) for k, g in g64.items()])
+    (_, g32, pre), (_, h32, dpre) = out[torch.float32, "plain"], \
+        out[torch.float32, "dp"]
+    flips = {}
+    for r in relus:
+        diff = (pre[r] > 0) != (dpre[r] > 0)
+        if bool(diff.any()):
+            near = torch.maximum(pre[r][diff].abs(), dpre[r][diff].abs())
+            flips[r] = (int(diff.sum()), float(near.max()))
+    parents = {}
+    for n in topo:
+        parents[n] = set(n.inputs).union(*(parents[i] for i in n.inputs))
+    reached = {n.name for r in flips for n in parents[r] if n in params}
+    gates = {k: RN_TIE_GRAD_RELNORM if k in reached else RN_GRAD_RELNORM
+             for k in g32}
+    err = {k: _relnorm(h32[k], g) for k, g in g32.items()}
+    free = [err[k] for k in err if k not in reached]
+    log(f"[dp1-resnet-probe] float64: the strategy's lowering against the "
+        f"plain one, worst relative error of the loss and the {len(g64)} "
+        f"gradients {f64:.3e} (gate {TIE_F64_RELNORM}); float32: "
+        f"{sum(c for c, _ in flips.values())} ReLU pre-activations on "
+        f"opposite sides of 0 in {len(flips)} of {len(relus)} ReLUs "
+        f"{json.dumps({r.inputs[0].name: v for r, v in flips.items()})} "
+        f"(count, largest |x|); {len(reached)} gradients upstream of a flip,"
+        f" worst relative norm {max((err[k] for k in reached), default=0):.3e}"
+        f" (gate {RN_TIE_GRAD_RELNORM}); {len(free)} with none, worst "
+        f"{max(free, default=0):.3e} (gate {RN_GRAD_RELNORM})")
+    if not f64 <= TIE_F64_RELNORM \
+            or any(e > gates[k] for k, e in err.items()):
+        raise AssertionError("[dp1-resnet-probe] the strategy's lowering "
+                             "and the plain one disagree")
+    return reached, {"plain": g32, "dp": h32}
+
+
+def phase_dp_world1(ht, fa, metrics, kmods):
+    """Phase 38: BERT-base and ResNet-18 through
+    ``Executor(dist_strategy=DataParallel())`` on an NCCL group of one
+    rank, against the plain executor in the same call.  Returns the
+    strategy's flash launches (BERT)."""
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method="file://"
+                            + os.path.join(tmp, "init"), rank=0,
+                            world_size=1)
+    try:
+        strategy = ht.dist.DataParallel()
+        # -- BERT-base at phase 6's cell --------------------------------------
+        torch.cuda.empty_cache()
+        plain, pfd, _ = dp_executor(ht, "bert-base", TRAIN_BATCH,
+                                    grads=False)
+        dp, dfd, _ = dp_executor(ht, "bert-base", TRAIN_BATCH, strategy,
+                                 grads=False)
+        with deterministic_algorithms():
+            want = dp_steps(plain, pfd, [], DP_STEPS)
+            torch.cuda.synchronize()
+            reset_launches(*kmods)
+            metrics.reset_flash_fallbacks()
+            got = dp_steps(dp, dfd, [], DP_STEPS)
+        launches = {"flash_fwd": fa.fwd_launches,
+                    "flash_bwd_dq": fa.dq_launches,
+                    "flash_bwd_dkv": fa.dkv_launches}
+        left = {r: n for r, n in metrics.flash_fallback_counts().items()
+                if r.startswith("backend:")}
+        layers = 12
+        if left or any(n != DP_STEPS * layers for n in launches.values()):
+            raise AssertionError(f"[dp1-bert] flash launches {launches} != "
+                                 f"{DP_STEPS} x {layers}, fallbacks {left}")
+        pv, dv = plain.return_tensor_values(), dp.return_tensor_values()
+        worst = max(float(np.max(np.abs(dv[k] - v))) for k, v in pv.items())
+        worst_rel = max(float(np.max(np.abs(dv[k] - v)
+                                     / np.maximum(np.abs(v), 1e-30)))
+                        for k, v in pv.items())
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                          want["losses"]))
+        log(f"[dp1-bert] {DP_STEPS} steps (deterministic algorithms): "
+            f"losses DataParallel "
+            f"{got['losses']} plain {want['losses']} (max rel {loss_rel:.3e});"
+            f" {len(pv)} variables after the steps: largest abs difference "
+            f"{worst:.3e}, largest relative {worst_rel:.3e} (rtol "
+            f"{DP_BERT_RTOL}); bit-equal: {worst == 0.0 and loss_rel == 0.0};"
+            f" flash launches {launches}")
+        if loss_rel > DP_BERT_RTOL or not all(
+                np.allclose(dv[k], v, rtol=DP_BERT_RTOL, atol=0)
+                for k, v in pv.items()):
+            raise AssertionError("[dp1-bert] the strategy's path and the "
+                                 "plain executor disagree")
+        dp_time_and_profile("[dp1-bert]", {"plain": (plain, pfd),
+                                           "dp": (dp, dfd)}, TRAIN_BATCH)
+        plain.close()
+        dp.close()
+        del plain, dp, pv, dv
+        gc.collect()
+        torch.cuda.empty_cache()
+        # -- ResNet-18 at BASELINE config 2's per-rank batch ------------------
+        plain, pfd, pwrt = dp_executor(ht, "resnet18", RN_BATCH)
+        dp, dfd, dwrt = dp_executor(ht, "resnet18", RN_BATCH, strategy)
+        weights = plain.return_tensor_values()
+        with deterministic_algorithms():
+            want = dp_steps(plain, pfd, pwrt, DP_STEPS)
+            torch.cuda.synchronize()
+            reset_launches(*kmods)
+            got = dp_steps(dp, dfd, dwrt, DP_STEPS)
+            launched = {name: n for m in kmods
+                        for name, n in vars(m).items()
+                        if name.endswith("launches") and n}
+            reached, probe = resnet_tie_probe(ht, weights)
+        if launched:
+            raise AssertionError(f"[dp1-resnet] hand kernels launched: "
+                                 f"{launched}")
+        link = {k: max(_relnorm(run["grads"][n], probe[k][n])
+                       for n in probe[k])
+                for k, run in (("plain", want), ("dp", got))}
+        errs = hold_to_phase37_gates(
+            "[dp1-resnet] DataParallel vs plain", got, want,
+            {k: RN_TIE_GRAD_RELNORM if k in reached else RN_GRAD_RELNORM
+             for k in want["grads"]})
+        log(f"[dp1-resnet] {DP_STEPS} steps at batch {RN_BATCH} "
+            f"(deterministic algorithms): losses DataParallel "
+            f"{got['losses']} plain {want['losses']}; {json.dumps(errs)} "
+            f"(gates {RN_LOSS_RTOL}, {RN_TRAJ_RTOL}, {RN_STATS_RELNORM}; "
+            f"step-1 gradients {RN_GRAD_RELNORM}, {len(reached)} upstream "
+            f"of a flipped ReLU {RN_TIE_GRAD_RELNORM}); the executors' "
+            f"step-1 gradients against the probe's, worst relative norm "
+            f"{json.dumps(link)}")
+        dp_time_and_profile("[dp1-resnet]", {"plain": (plain, pfd),
+                                             "dp": (dp, dfd)}, RN_BATCH)
+        plain.close()
+        dp.close()
+        del plain, dp
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def dp2_rank(rank, world, tmp):
+    """Entry of one phase-39 rank: gloo over a file in ``tmp``, tiny BERT
+    and ResNet-18 through ``DataParallel`` on ``cuda:0`` from the weights
+    in ``tmp``; the records (or the traceback) into ``tmp``."""
+    import torch.distributed as dist
+    try:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        import hetu_tpu_torch as ht
+        from hetu_tpu_torch import metrics
+        from hetu_tpu_torch.ops.kernels import emb_cache as emb
+        from hetu_tpu_torch.ops.kernels import flash_attention as fa
+        from hetu_tpu_torch.ops.kernels import moe_dispatch as md
+        from hetu_tpu_torch.ops.kernels import segment_sum as seg
+        from hetu_tpu_torch.tools import profile_train as pt
+        torch.cuda.set_device(0)
+        torch.backends.cudnn.benchmark = pt.CUDNN_BENCHMARK
+        dist.init_process_group("gloo", init_method="file://"
+                                + os.path.join(tmp, "init"), rank=rank,
+                                world_size=world)
+        with open(os.path.join(tmp, "weights.pkl"), "rb") as f:
+            weights = pickle.load(f)
+        strategy = ht.dist.DataParallel()
+        res = {}
+        for model, batch in (("bert-tiny", DP2_BERT_BATCH),
+                             ("resnet18", DP2_RN_BATCH)):
+            ex, fd, wrt = dp_executor(ht, model, batch, strategy)
+            ex.load_dict(weights[model])
+            reset_launches(fa, emb, seg, md)
+            metrics.reset_flash_fallbacks()
+            t0 = time.perf_counter()
+            res[model] = dp_steps(ex, fd, wrt, DP_STEPS)
+            res[model]["seconds"] = time.perf_counter() - t0
+            res[model]["launches"] = {
+                name: n for m in (fa, emb, seg, md)
+                for name, n in vars(m).items()
+                if name.endswith("launches") and n}
+            res[model]["fallbacks"] = metrics.flash_fallback_counts()
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_dp_two_ranks(ht, fa):
+    """Phase 39: two ranks on the one card over gloo, held to the
+    single-process plain executor over the global batch.  Returns the
+    flash launches of both ranks (tiny BERT)."""
+    tmp = tempfile.mkdtemp()
+    try:
+        # the kernels at a rank's attention shape, with each rank's mask
+        cfg = ht.BertConfig.tiny(batch_size=DP2_BERT_BATCH, seq_len=32)
+        attn = ht.synthetic_mlm_batch(cfg, seed=0)[3]
+        heads, dk = cfg.num_attention_heads, cfg.hidden_size \
+            // cfg.num_attention_heads
+        per = DP2_BERT_BATCH // DP2_WORLD
+        rng = np.random.RandomState(7)
+        for r in range(DP2_WORLD):
+            q, k, v, do = (torch.from_numpy(rng.randn(
+                per * heads, 32, dk).astype(np.float32)).cuda()
+                for _ in range(4))
+            km = torch.from_numpy(attn[r * per:(r + 1) * per]).cuda()
+            attn_case(fa, "[dp2-kernels]", f"rank {r} key mask", q, k, v,
+                      do, heads, 1.0 / math.sqrt(dk), km=km)
+        # the single-process reference over the global batch, its weights
+        refs, weights = {}, {}
+        for model, batch in (("bert-tiny", DP2_BERT_BATCH),
+                             ("resnet18", DP2_RN_BATCH)):
+            ex, fd, wrt = dp_executor(ht, model, batch)
+            weights[model] = ex.return_tensor_values()
+            refs[model] = dp_steps(ex, fd, wrt, DP_STEPS)
+            ex.close()
+        with open(os.path.join(tmp, "weights.pkl"), "wb") as f:
+            pickle.dump(weights, f)
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=dp2_rank, args=(r, DP2_WORLD, tmp))
+                 for r in range(DP2_WORLD)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DP2_TIMEOUT
+        try:
+            while any(p.is_alive() for p in procs) \
+                    and time.monotonic() < deadline \
+                    and not any(p.exitcode not in (None, 0) for p in procs):
+                time.sleep(0.2)
+            codes = [p.exitcode for p in procs]
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(30)
+        errs = [open(os.path.join(tmp, f)).read()
+                for f in sorted(os.listdir(tmp)) if f.endswith(".err")]
+        if errs or codes != [0] * DP2_WORLD:
+            raise AssertionError(f"[dp2] ranks exited {codes} (None: alive "
+                                 f"past {DP2_TIMEOUT} s)\n" + "\n".join(errs))
+        ranks = []
+        for r in range(DP2_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        log(f"[dp2] {DP2_WORLD} ranks on cuda:0 over gloo in "
+            f"{time.perf_counter() - t0:.1f} s (spawn included)")
+        launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        counters = {"flash_fwd": "fwd_launches",
+                    "flash_bwd_dq": "dq_launches",
+                    "flash_bwd_dkv": "dkv_launches"}
+        for model in refs:
+            resnet = model == "resnet18"
+            errs = hold_to_phase37_gates(
+                f"[dp2-{model}] rank 0 vs the single-process run",
+                ranks[0][model], refs[model],
+                RN_TIE_GRAD_RELNORM if resnet
+                else (TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL),
+                RN_TIE_TRAJ if resnet
+                else (RN_TRAJ_RTOL, RN_STATS_RELNORM[1]))
+            if not ranks[0][model]["losses"][-1] \
+                    < ranks[0][model]["losses"][0]:
+                raise AssertionError(f"[dp2-{model}] the loss did not fall: "
+                                     f"{ranks[0][model]['losses']}")
+            for r, rec in enumerate(ranks):
+                if rec[model]["losses"] != ranks[0][model]["losses"]:
+                    raise AssertionError(f"[dp2-{model}] rank {r} losses "
+                                         f"{rec[model]['losses']} differ")
+                left = {k: n for k, n in rec[model]["fallbacks"].items()
+                        if k.startswith("backend:")}
+                got = rec[model]["launches"]
+                want = {c: DP_STEPS * cfg.num_hidden_layers
+                        for c in counters.values()} \
+                    if model == "bert-tiny" else {}
+                if left or got != want:
+                    raise AssertionError(f"[dp2-{model}] rank {r} launches "
+                                         f"{got} != {want}, fallbacks {left}")
+                for name, c in counters.items():
+                    launches[name] += got.get(c, 0)
+            log(f"[dp2-{model}] global batch "
+                f"{DP2_BERT_BATCH if model == 'bert-tiny' else DP2_RN_BATCH},"
+                f" {DP_STEPS} steps: losses rank 0 "
+                f"{ranks[0][model]['losses']} single-process "
+                f"{refs[model]['losses']}; {json.dumps(errs)}; seconds by "
+                f"rank {[rec[model]['seconds'] for rec in ranks]}; "
+                f"launches by rank {[rec[model]['launches'] for rec in ranks]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script runs on the "
@@ -4280,7 +4875,14 @@ def main():
     # -- 37. card vs CPU ResNet-18 training -------------------------------------------
     phase_resnet_parity(ht)
 
-    # -- 38. result lines ---------------------------------------------------------
+    # -- 38. data parallel at world size 1: BERT-base, ResNet-18 ---------------------
+    dlaunches = phase_dp_world1(ht, fa, metrics, kmods)
+
+    # -- 39. two ranks on the one card over gloo ---------------------------------------
+    for name, n in phase_dp_two_ranks(ht, fa).items():
+        dlaunches[name] += n
+
+    # -- 40. result lines ---------------------------------------------------------
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
@@ -4302,6 +4904,9 @@ def main():
     flash = (("fwd", "flash_fwd", "flash_attention.cu", 202),
              ("dq", "flash_bwd_dq", "flash_attention_bwd.cu", 299),
              ("dkv", "flash_bwd_dkv", "flash_attention_bwd.cu", 363))
+    # the float32 dense / key-mask kernels ran on the data-parallel
+    # paths too (phases 38 and 39)
+    tlaunches = {k: n + dlaunches.get(k, 0) for k, n in tlaunches.items()}
     for lines, counts, key_sfx, name_sfx in (
             (tlines, tlaunches, "", ""), (glines, glaunches, "", "_causal"),
             (blines, blaunches, "", "_bias"),

@@ -48,7 +48,14 @@ kernel on a ported path is a hand-written kernel for the H100
   ``torch.nn.functional``; the JAX package has no Pallas kernel there) →
   ``optim.MomentumOptimizer(0.1).minimize(loss)`` → ``Executor.run``, fed
   by placeholders or by ``dataloader_op([Dataloader(x, 128, "train")])``
-  over ``data.cifar10()`` (``run("train")`` with no feed dict).
+  over ``data.cifar10()`` (``run("train")`` with no feed dict);
+* data-parallel training of those graphs (BERT, ResNet-18, any graph of
+  the ops ``parallel/batch_axis.py`` names): ``torch.distributed`` set up
+  by the caller (gloo on the CPU, NCCL on the card), then
+  ``Executor(..., dist_strategy=ht.dist.DataParallel())`` on every rank,
+  fed the global batch; each rank runs its rows, every reduction over the
+  batch (the loss, BatchNorm's statistics) is global, and the gradients
+  are averaged over the group.
 
 Typical use (the shape of the JAX package's)::
 
@@ -61,9 +68,10 @@ Typical use (the shape of the JAX package's)::
 It imports neither ``jax`` nor ``hetu_tpu``.  Entry points run on CUDA
 unless the caller passes ``device="cpu"``.
 """
-from . import data, initializers, metrics, ops, optim, ps
+from . import data, initializers, metrics, ops, optim, parallel, ps
 from . import initializers as init
-from .context import cpu, gpu, resolve_device
+from . import parallel as dist  # reference alias: ht.dist.DataParallel
+from .context import cpu, gpu, make_mesh, resolve_device
 from .graph import (Executor, GradientOp, LowerCtx, Op, PlaceholderOp,
                     Variable, gradients, lower_forward, placeholder_op,
                     topo_sort)

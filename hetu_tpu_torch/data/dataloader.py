@@ -26,6 +26,7 @@ class Dataloader:
                  drop_last=True, shuffle=False, seed=0,
                  dp_rank=0, dp_nrank=1, prefetch=2):
         data = np.asarray(raw_data, np.float32)
+        self.dp_rank, self.dp_nrank = int(dp_rank), int(dp_nrank)
         if dp_nrank > 1:  # contiguous shard per dp worker
             per = len(data) // dp_nrank
             data = data[dp_rank * per:(dp_rank + 1) * per]

@@ -39,13 +39,31 @@ float32 gate weights and combine output), so its row gather runs in both
 dtypes within one step.  Not with PS embeddings (the cache slab and its
 kernels are float32 only): refused by name.
 
-Not ported, refused by name: distribution (``dist_strategy``, ``mesh``,
-``zero``, ``plan``, ``pipeline``, ``num_microbatches``), ``remat``,
-``matmul_precision``, a ``compute_dtype`` other than bfloat16, ASP/SSP
-(``bsp`` other than 0), ``prefetch`` and PS ids from a ``DataloaderOp``,
-the other JAX-package options, ``run(sync=False)``, ``run_steps``,
-``save`` / ``load``.  Nor is the JAX package's lookahead feed pipeline
-(``graph/run_plan.py``): each batch is placed when its step starts.
+Data parallelism (``dist_strategy=DataParallel()``, over the
+``torch.distributed`` group the caller initialised): the JAX package runs
+the single-device program on the global batch under GSPMD, and so does
+each rank here, on its rows.  Every rank is fed the global batch (or a
+``Dataloader`` already cut to its shard) and keeps its contiguous block of
+rows of every fed value with ndim > 0 (dim 0 must divide by dp); 0-d feeds
+and variables are replicated, the variables from rank 0's values by one
+broadcast at construction.  The forward lowers every node with a sharded
+input by its op type's rule (``parallel/batch_axis.py``), so the loss, a
+masked mean and BatchNorm's statistics are reductions over the global
+batch; the gradients are averaged over the group in flattened buckets
+after ``torch.autograd.grad``; a replicated fetch is returned as is, a
+sharded one gathered to the global batch, so every rank returns what the
+single-device run returns.  Rank r > 0 draws its dropout masks from
+``(seed, step, r)``.
+
+Not ported, refused by name: ZeRO (``zero``, ``DataParallel(zero=)``), a
+strategy other than ``DataParallel``, ``mesh``, ``compute_dtype`` or PS
+embeddings together with ``dist_strategy``, ``plan``, ``pipeline``,
+``num_microbatches``, ``remat``, ``matmul_precision``, a
+``compute_dtype`` other than bfloat16, ASP/SSP (``bsp`` other than 0),
+``prefetch`` and PS ids from a ``DataloaderOp``, the other JAX-package
+options, ``run(sync=False)``, ``run_steps``, ``save`` / ``load``.  Nor is
+the JAX package's lookahead feed pipeline (``graph/run_plan.py``): each
+batch is placed when its step starts.
 """
 from __future__ import annotations
 
@@ -59,19 +77,28 @@ from ..context import resolve_device
 from ..ndarray import NDArray, wrap_device
 from ..ops.kernels.emb_cache import emb_scatter_add
 from ..optim.optimizer import OptimizerOp
+from ..parallel.batch_axis import BatchAxis
+from ..parallel.collectives import (all_gather, all_reduce_mean_buckets,
+                                    broadcast)
+from ..parallel.strategies import DataParallel
 from .gradients import GradientOp
 from .node import LowerCtx, PlaceholderOp, checkpoint_names, topo_sort
 
 
 def lower_forward(topo, ctx, resolve_leaf):
     """Evaluate every node of ``topo`` into an environment
-    ``{node: tensor}``; placeholders resolve through ``resolve_leaf(node)``."""
+    ``{node: tensor}``; placeholders resolve through ``resolve_leaf(node)``.
+    Under data parallelism (``ctx.batch_axis``) a node with a
+    batch-sharded input lowers by its op type's rule."""
     env = {}
+    axis = ctx.batch_axis
     for node in topo:
         if isinstance(node, PlaceholderOp):
             env[node] = resolve_leaf(node)
-        else:
-            env[node] = node.lower(ctx, *[env[i] for i in node.inputs])
+            continue
+        vals = [env[i] for i in node.inputs]
+        env[node] = node.lower(ctx, *vals) if axis is None \
+            else axis.lower(node, ctx, vals)
     return env
 
 
@@ -91,10 +118,13 @@ def _compute_dtype(cd):
         f"precision")
 
 
-def _step_generator(device, seed, step):
+def _step_generator(device, seed, step, rank=0):
     """The ``torch.Generator`` of one step: seeded from ``(seed, step)``
-    on the executor's device, so dropout masks depend on nothing else."""
-    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(1)
+    on the executor's device, so dropout masks depend on nothing else; a
+    data-parallel rank r > 0 from ``(seed, step, r)``, so ranks do not
+    repeat one mask (rank 0 draws the single-device masks)."""
+    entropy = [int(seed), int(step)] + ([int(rank)] if rank else [])
+    state = np.random.SeedSequence(entropy).generate_state(1)
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
@@ -159,6 +189,31 @@ class SubExecutor:
             raise NotImplementedError(
                 f"Executor(compute_dtype=...) with {self.ps_nodes[0]} in "
                 f"subgraph {name!r}: PS embeddings take float32 only")
+        #: dataloaders that already hold this rank's shard
+        self._shard_loaders = set()
+        if executor.dp is not None:
+            self._check_dp(name)
+
+    def _check_dp(self, name):
+        """Data parallelism: no PS embeddings; each dataloader either
+        holds the whole dataset (``dp_nrank=1``: its batches are split
+        like feeds) or exactly this rank's shard."""
+        if self.ps_nodes:
+            raise NotImplementedError(
+                f"Executor(dist_strategy=...) with PS embedding "
+                f"{self.ps_nodes[0]} in subgraph {name!r} is not ported")
+        _, size, rank = self.ex.dp
+        for node in self.dataloader_nodes:
+            dl = node.dataloaders.get(name)
+            if dl is None or dl.dp_nrank == 1:
+                continue
+            if (dl.dp_nrank, dl.dp_rank) != (size, rank):
+                raise ValueError(
+                    f"{node}: its dataloader {name!r} holds shard "
+                    f"{dl.dp_rank} of {dl.dp_nrank}; rank {rank} of a "
+                    f"data-parallel group of {size} takes dp_nrank=1 or "
+                    f"its own shard")
+            self._shard_loaders.add(node)
 
     def _low(self, t):
         """A float32 value in the compute dtype (the mixed-precision cast
@@ -183,6 +238,7 @@ class SubExecutor:
         dev_pending = self._begin_dev_lookups(feed_dict) \
             if self._ps_dev_items else None
         ps_vals, invs = {}, {}
+        axis = None if ex.dp is None else BatchAxis(*ex.dp)
         try:
             feeds = {}
             for node in self.feed_nodes:
@@ -192,7 +248,10 @@ class SubExecutor:
                     val = node.get_arr(self.name)
                 else:
                     raise ValueError(f"missing feed for {node}")
-                feeds[node] = self._low(ex._place_feed(node, val))
+                feeds[node] = self._low(ex._place_feed(
+                    node, val, rows=node not in self._shard_loaders))
+                if axis is not None and feeds[node].ndim:
+                    axis.sharded.add(node)
             for node in self._ps_host_items:
                 ps_vals[node] = ex._place_feed(
                     node, node.pull(self._ps_ids(node, feed_dict)))
@@ -203,7 +262,9 @@ class SubExecutor:
                 self._settle_dev_pending(dev_pending)
             raise
         ctx = LowerCtx(self.training,
-                       _step_generator(ex.device, ex.seed, ex.step_counter))
+                       _step_generator(ex.device, ex.seed, ex.step_counter,
+                                       0 if axis is None else axis.rank),
+                       axis)
         grads, ps_grads = {}, {}
         if self.grad_ops:
             leaves = {v: ex.var_values[v].detach().requires_grad_(True)
@@ -229,6 +290,9 @@ class SubExecutor:
             grads = {v: got[v] for v in self.trainable_vars}
             ps_grads = {n: got[n] for n in self.ps_nodes}
             with torch.no_grad():
+                if axis is not None and grads:
+                    grads = dict(zip(grads, all_reduce_mean_buckets(
+                        list(grads.values()), axis.group)))
                 for node in self._ps_dev_items:
                     g = ps_grads[node]
                     ps_grads[node] = emb_scatter_add(
@@ -262,6 +326,8 @@ class SubExecutor:
                 outs.append(None)
             elif isinstance(f, GradientOp):
                 outs.append(grads[f.wrt])
+            elif axis is not None and f in axis.sharded:
+                outs.append(all_gather(env[f].detach(), axis.group))
             else:
                 outs.append(self._high(env[f].detach()))
         if convert_to_numpy_ret_vals:
@@ -372,19 +438,30 @@ class Executor:
     package's context argument) names the device when ``device`` is not
     given.  Float32 products run in full float32 (TF32 off).
     ``compute_dtype``: None (float32) or ``"bfloat16"`` (mixed precision,
-    see the module docstring)."""
+    see the module docstring).  ``dist_strategy``: None or a
+    ``DataParallel`` over the initialised ``torch.distributed`` world (see
+    the module docstring)."""
 
     def __init__(self, eval_node_dict, ctx=None, seed=None, device=None,
                  dist_strategy=None, mesh=None, pipeline=None,
                  num_microbatches=None, matmul_precision=None, **kwargs):
-        for opt, given in (("dist_strategy", dist_strategy), ("mesh", mesh),
-                           ("pipeline", pipeline),
+        for opt, given in (("mesh", mesh), ("pipeline", pipeline),
                            ("num_microbatches", num_microbatches),
                            ("matmul_precision", matmul_precision)):
             if given is not None:
                 raise NotImplementedError(f"Executor({opt}=) is not ported")
+        if dist_strategy is not None \
+                and not isinstance(dist_strategy, DataParallel):
+            raise NotImplementedError(
+                f"Executor(dist_strategy={type(dist_strategy).__name__}) is "
+                f"not ported; DataParallel is")
         self.compute_dtype = _compute_dtype(kwargs.pop("compute_dtype",
                                                        None))
+        if dist_strategy is not None and self.compute_dtype is not None:
+            raise NotImplementedError(
+                "Executor(compute_dtype=..., dist_strategy=...): bf16 data "
+                "parallelism is not ported; data-parallel steps run in "
+                "float32")
         if kwargs.pop("remat", None) not in (None, False, "off"):
             raise NotImplementedError("Executor(remat=) is not ported")
         bsp = kwargs.pop("bsp", 0)
@@ -406,6 +483,13 @@ class Executor:
         else:
             self.eval_node_dict = {"default": list(eval_node_dict)}
         self.device = resolve_device(device if device is not None else ctx)
+        self.dist_strategy = dist_strategy
+        #: (dp process group, its size, this rank's rank in it), or None
+        self.dp = None
+        if dist_strategy is not None:
+            group = dist_strategy.make_mesh().get_group("dp")
+            self.dp = (group, torch.distributed.get_world_size(group),
+                       torch.distributed.get_rank(group))
         self.seed = 0 if seed is None else int(seed)
         self.step_counter = 0
         all_fetches = [n for fl in self.eval_node_dict.values() for n in fl
@@ -440,6 +524,22 @@ class Executor:
             if val is None:
                 raise ValueError(f"variable {node} has no value/initializer")
             self.var_values[node] = self._place(val)
+        if self.dp is not None:
+            self._broadcast_variables()
+
+    def _broadcast_variables(self):
+        """Every rank starts from rank 0's variables: one broadcast of
+        them all, flattened (one per dtype)."""
+        by_dtype = {}
+        for node, val in self.var_values.items():
+            by_dtype.setdefault(val.dtype, []).append(node)
+        for nodes in by_dtype.values():
+            flat = broadcast(torch.cat([self.var_values[n].reshape(-1)
+                                        for n in nodes]), self.dp[0])
+            parts = flat.split([self.var_values[n].numel() for n in nodes])
+            for n, part in zip(nodes, parts):
+                self.var_values[n] = part.view(
+                    self.var_values[n].shape).clone()
 
     def _place(self, val):
         """A tensor on the executor's device (float64 → float32)."""
@@ -451,15 +551,35 @@ class Executor:
             t = t.to(torch.float32)
         return t.to(self.device)
 
-    def _place_feed(self, node, val):
+    def _place_feed(self, node, val, rows=True):
         """A fed value on the device, in the placeholder's declared dtype
-        (int placeholders stay integral)."""
+        (int placeholders stay integral); under data parallelism, with
+        ``rows``, only this rank's rows of it."""
+        if self.dp is not None and rows:
+            val = self._rows(node, val)
         t = self._place(val)
         if node.dtype is not None:
             want = _torch_dtype(node.dtype)
             if t.dtype != want:
                 t = t.to(want)
         return t
+
+    def _rows(self, node, val):
+        """This rank's contiguous block of the dim the strategy splits (0;
+        a 0-d value whole); it must divide by the group size."""
+        if isinstance(val, NDArray):
+            val = val.torch()
+        if not isinstance(val, torch.Tensor):
+            val = np.asarray(val)
+        if self.dist_strategy.feed_spec(node, val.ndim) is None:
+            return val
+        _, size, rank = self.dp
+        if val.shape[0] % size:
+            raise ValueError(
+                f"feed {node}: dim 0 of {tuple(val.shape)} does not divide "
+                f"by the data-parallel group's {size} ranks")
+        per = val.shape[0] // size
+        return val[rank * per:(rank + 1) * per]
 
     # -- public API ---------------------------------------------------------
 

@@ -34,12 +34,17 @@ class LowerCtx:
     - ``state_updates``: ``{variable node: new value}`` for non-trainable
       state written during the forward; the executor commits them after
       the step.
+    - ``batch_axis``: under data parallelism, the step's
+      :class:`~hetu_tpu_torch.parallel.batch_axis.BatchAxis`: which nodes
+      hold this rank's rows of the batch, and the rule each op type is
+      lowered by on them; None otherwise.
     """
 
-    def __init__(self, training: bool, generator=None):
+    def __init__(self, training: bool, generator=None, batch_axis=None):
         self.training = training
         self.generator = generator
         self.state_updates = {}
+        self.batch_axis = batch_axis
 
     def rng(self):
         if self.generator is None:

@@ -23,6 +23,9 @@ Families:
   joins/leaves, prefill rows, ...); kinds ending in ``_hw`` are
   high-water gauges.
 * ``serve`` — InferenceExecutor events, same gauge rule.
+* ``faults`` — fault-tolerance events by kind; the port records one:
+  ``preduce_dead_rank_excluded``, dead ranks a partial-reduce group left
+  out (``parallel.preduce.PartialReduce``).
 * decode latency samples in microseconds by kind (``step``, ``token``,
   ``ttft``, ``join_wait``), the newest :data:`LATENCY_WINDOW` kept.
 
@@ -198,6 +201,23 @@ def serve_counts():
 
 def reset_serve_counts():
     _REGISTRY.reset("serve")
+
+
+# --------------------------------------------------------------- faults
+
+def record_fault(kind, n=1):
+    """Count ``n`` fault-tolerance events of ``kind`` (a detection or a
+    recovery: a clean run records none)."""
+    _REGISTRY.record("faults", kind, n)
+
+
+def fault_counts():
+    """{kind: count} snapshot of recorded fault events."""
+    return _REGISTRY.counts("faults")
+
+
+def reset_faults():
+    _REGISTRY.reset("faults")
 
 
 # ------------------------------------------------------------ evaluation

@@ -180,18 +180,24 @@ class BatchNormOp(Op):
                           self.running_mean, self.running_var], name=name,
                          momentum=momentum, eps=eps, data_format=data_format)
 
+    def write_running(self, ctx, rmean, rvar, mean, var):
+        """Write ``(1 - momentum) * running + momentum * batch`` of both
+        statistics into ``ctx.state_updates``."""
+        momentum = self.attrs["momentum"]
+        ctx.state_updates[self.running_mean] = \
+            (1 - momentum) * rmean.reshape(-1) + momentum * mean
+        ctx.state_updates[self.running_var] = \
+            (1 - momentum) * rvar.reshape(-1) + momentum * var
+
     def lower(self, ctx, x, scale, bias, rmean, rvar):
-        momentum, eps = self.attrs["momentum"], self.attrs["eps"]
+        eps = self.attrs["eps"]
         df = self.attrs["data_format"]
         xc = x.movedim(-1, 1) if df == "NHWC" else x
         if ctx.training:
             with torch.no_grad():
                 var, mean = torch.var_mean(
                     xc, dim=[0] + list(range(2, xc.ndim)), correction=0)
-            ctx.state_updates[self.running_mean] = \
-                (1 - momentum) * rmean.reshape(-1) + momentum * mean
-            ctx.state_updates[self.running_var] = \
-                (1 - momentum) * rvar.reshape(-1) + momentum * var
+            self.write_running(ctx, rmean, rvar, mean, var)
             # torch's own running update would take the unbiased variance:
             # it gets no running tensors and normalizes with the batch's
             out = F.batch_norm(xc, None, None, scale.reshape(-1),

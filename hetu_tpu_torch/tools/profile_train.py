@@ -258,14 +258,15 @@ def build(model, device="cuda", compute_dtype=None, batch=None):
 
 
 def resnet18_step(batch=128, data_format="NCHW", compute_dtype=None,
-                  device="cuda", loader=None):
+                  device="cuda", loader=None, dist_strategy=None):
     """bench.py's ``build_resnet18_graph`` on the port: ``resnet18`` on x
     (batch, 3, 32, 32) and one-hot y (batch, 10), ``MomentumOptimizer(0.1)``
     through ``Executor(seed=0)``; the feeds as bench.py makes them
     (``RandomState(0)``: ``rand`` inputs, then ``np.eye(10)[randint]``).
     ``loader``: (x, y) arrays fed through ``dataloader_op`` instead (a
     ``Dataloader`` of ``batch`` each, split "train", prefetch on), the
-    feed dict then empty.  Returns (executor, feed dict, loss)."""
+    feed dict then empty.  ``dist_strategy``: the executor's.  Returns
+    (executor, feed dict, loss)."""
     if loader is None:
         x = ht.placeholder_op("x", shape=(batch, 3, 32, 32))
         y = ht.placeholder_op("y", shape=(batch, 10))
@@ -275,7 +276,7 @@ def resnet18_step(batch=128, data_format="NCHW", compute_dtype=None,
     loss, _ = ht.models.resnet18(x, y, data_format=data_format)
     train_op = ht.optim.MomentumOptimizer(0.1).minimize(loss)
     ex = ht.Executor({"train": [loss, train_op]}, seed=0, device=device,
-                     compute_dtype=compute_dtype)
+                     compute_dtype=compute_dtype, dist_strategy=dist_strategy)
     if loader is not None:
         return ex, {}, loss
     rng = np.random.RandomState(0)

@@ -43,6 +43,7 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "import hetu_tpu_torch.tools.profile_train\n"
             "import hetu_tpu_torch.tools.profile_decode\n"
             "import hetu_tpu_torch.tools.profile_moe\n"
+            "import hetu_tpu_torch.tools.profile_dp\n"
             "import hetu_tpu_torch.models.gpt2\n"
             "import hetu_tpu_torch.models.t5\n"
             "import hetu_tpu_torch.models.xlnet\n"
@@ -57,6 +58,12 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "import hetu_tpu_torch.data.dataloader\n"
             "import hetu_tpu_torch.data.datasets\n"
             "import hetu_tpu_torch.data.transforms\n"
+            "import hetu_tpu_torch.context\n"
+            "import hetu_tpu_torch.parallel\n"
+            "import hetu_tpu_torch.parallel.batch_axis\n"
+            "import hetu_tpu_torch.parallel.collectives\n"
+            "import hetu_tpu_torch.parallel.preduce\n"
+            "import hetu_tpu_torch.parallel.strategies\n"
             "assert sys.modules['jax'] is None\n"
             "x = hetu_tpu_torch.placeholder_op('x')\n"
             "ex = hetu_tpu_torch.Executor([x * 2.0], device='cpu',\n"
@@ -74,12 +81,23 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "loss, _ = hetu_tpu_torch.models.resnet18(x, y)\n"
             "ex = hetu_tpu_torch.Executor({'train': [loss]}, device='cpu')\n"
             "print(ex.get_batch_num('train'),\n"
-            "      ex.run('train')[0].asnumpy().shape)\n")
+            "      ex.run('train')[0].asnumpy().shape)\n"
+            "import os, tempfile, torch.distributed as dist\n"
+            "init = os.path.join(tempfile.mkdtemp(), 'init')\n"
+            "dist.init_process_group('gloo', init_method='file://' + init,\n"
+            "                        rank=0, world_size=1)\n"
+            "x = hetu_tpu_torch.placeholder_op('x')\n"
+            "loss = hetu_tpu_torch.reduce_mean_op(x * 2.0, [0])\n"
+            "ex = hetu_tpu_torch.Executor(\n"
+            "    [loss], device='cpu',\n"
+            "    dist_strategy=hetu_tpu_torch.dist.DataParallel())\n"
+            "print(ex.run(feed_dict={x: [1.0, 2.0]})[0].asnumpy())\n"
+            "dist.destroy_process_group()\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["float32", "12", "6", "12", "512",
-                                   "2", "()"]
+                                   "2", "()", "3.0"]
 
 
 def test_sources_import_no_jax_or_hetu_tpu():
@@ -102,7 +120,8 @@ def test_sources_import_no_jax_or_hetu_tpu():
 
 @pytest.mark.parametrize("entry", ["DecodeEngine", "InferenceExecutor",
                                    "params_from_named_arrays", "Executor",
-                                   "Executor(resnet18, dataloader)"])
+                                   "Executor(resnet18, dataloader)",
+                                   "Executor(DataParallel)"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
                                                            entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -126,6 +145,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         "Executor(resnet18, dataloader)": lambda: ht.Executor(
             {"train": [cnn_loss,
                        ht.optim.MomentumOptimizer(0.1).minimize(cnn_loss)]}),
+        "Executor(DataParallel)": lambda: ht.Executor(
+            {"train": [loss, ht.optim.AdamOptimizer(1e-4).minimize(loss)]},
+            dist_strategy=ht.dist.DataParallel()),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
