@@ -360,7 +360,17 @@ without printing the final result line:
     runs), then ``DP_TIMED`` timed steps of each in turns (p50, fastest
     and slowest, samples/s) and ``DP_PROFILED`` profiled strategy steps
     (the NCCL kernels' device ms a step, the all-reduce calls and their
-    host ms).  The group is destroyed at the end of the phase.
+    host ms).  Then, on the same group: BERT-base through
+    ``Executor(zero=2)``, which builds no plan at world size 1, so its
+    losses are the plain executor's bit for bit and ``zero_counts()``
+    stays empty; and BERT-base at the same cell in bf16 through the
+    strategy against the plain bf16 executor (the bf16 key-mask kernels
+    held to their plain versions at its attention shape, B=16, first):
+    ``DP_STEPS`` steps each under deterministic algorithms, the losses
+    within ``BF16_TRAIN_LOSS_RTOL`` and every step-1 gradient within
+    ``BF16_TRAIN_GRAD_RTOL`` / ``_ATOL`` (bit-equal expected, printed), 12
+    launches a step of each bf16 key-mask kernel, then p50 of both in
+    turns.  The group is destroyed at the end of the phase.
 39. Two ranks on the one card: two spawned processes on ``cuda:0``, gloo
     carrying CUDA tensors (NCCL refuses two ranks on one device), each
     running ``DP_STEPS`` steps of tiny BERT (``BertConfig.tiny(batch_size=
@@ -374,14 +384,40 @@ without printing the final result line:
     row's logits shifting by one constant, so a relative norm there
     compares rounding noise; running statistics; ResNet's later losses
     and statistics to ``RN_TIE_TRAJ``, see ``RN_TIE_GRAD_RELNORM``);
-    every rank returns the same losses, and the losses fall.
-    The flash kernels at a rank's attention shape (B=8, H=2, S=32, D=64,
-    each rank's key mask) are held to their plain versions first.  A
-    child that fails, outlives ``DP2_TIMEOUT`` or exits non-zero fails
+    every rank returns the same losses, and the losses fall.  Then
+    GPT-2 small, T5-small (``use_mask=True``, query projections scaled by
+    1/8 as in phase 20), XLNet-base and Longformer-base at published
+    widths cut to 2 layers (2 + 2 for T5), dropout 0, Adam 1e-4, 2 steps
+    each at the global batches of ``DP2_CUT`` (4 at seq 1024; 8 at source
+    512 and target 114; 4 at seq 512; 2 at seq 4096), held the same way
+    to the single-process run at tiny BERT's gates, each rank counting
+    the flash launches of its specializations (``DP2_CUT``).
+    The flash kernels at a rank's attention shapes are held to their
+    plain versions first: tiny BERT's key mask (B=8, H=2, S=32), GPT-2's
+    causal kernels, T5's bias with the key mask, causal bias and
+    cross-attention key mask, XLNet's full mask with a bias (both
+    streams), Longformer's window mask, each with the rank's rows of the
+    masks.  A child that fails, outlives ``DP2_TIMEOUT`` or exits non-zero
+    fails the phase.
+40. ZeRO on two ranks of the card over gloo: the key-mask kernels at a
+    rank's attention shape (B=8, H=12, S=512) first, then BERT-base at
+    phase 6's cell (global batch 16, seq 512, dropout 0.1, Adam 1e-4)
+    through ``Executor(dist_strategy=DataParallel(), zero=stage)`` at
+    stages 0, 1, 2 and 3, ``ZERO_STEPS`` steps each under deterministic
+    algorithms: stage 1 bit-equal to stage 0 (losses and every parameter
+    after the steps), stages 2 and 3 too, else within phase 37's
+    ``RN_LOSS_RTOL`` / ``RN_TRAJ_RTOL`` with the spread printed; every
+    rank ends with the same parameters; each kernel 12 launches a step.
+    Printed for each rank and stage: the optimizer-state bytes, the
+    parameter bytes held between steps (``Executor.memory_accounting``),
+    the device memory held after the steps, ``max_memory_allocated``,
+    ``zero_counts()`` and the step ms (gloo staging the CUDA tensors
+    through the host, two ranks on one card: no multi-card number).  A
+    child that fails, outlives ``ZERO_TIMEOUT`` or exits non-zero fails
     the phase.
-40. Print the card's name and power limit, the ``kernels`` JSON line (the
-    float32 dense / key-mask flash rows count the launches of phases 38
-    and 39 too) and, last, ``{"ok": true, "device": {...}}``.
+41. Print the card's name and power limit, the ``kernels`` JSON line (each
+    flash row counts the launches of phases 38-40 too, by kernels-line
+    name) and, last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32:
 ``torch.backends.cuda.matmul.allow_tf32`` is set False.  The bf16 ones
@@ -536,6 +572,18 @@ RN_TIE_GRAD_RELNORM = 2e-2
 RN_TIE_TRAJ = (5e-2, 5e-2)
 TIE_F64_RELNORM = 1e-10
 DP2_WORLD, DP2_BERT_BATCH, DP2_RN_BATCH, DP2_TIMEOUT = 2, 16, 8, 240
+# phase 39's transformer graphs at published widths cut to 2 layers (2 + 2
+# for T5): global batch, steps, and the flash launches a step of each
+# kernels-line name (GPT-2: causal a layer; T5: a bias and a key mask an
+# encoder layer, a causal bias and a cross-attention key mask a decoder
+# layer; XLNet: two streams a layer less the last content stream;
+# Longformer: the window mask a layer)
+DP2_CUT = {"gpt2": (4, 2, {"causal": 2}),
+           "t5": (8, 2, {"bias": 2, "bias_causal": 2, "": 2}),
+           "xlnet": (4, 2, {"mask_bias": 3}),
+           "longformer": (2, 2, {"mask": 2})}
+# phase 40: ZeRO on two ranks of the card, BERT-base at phase 6's cell
+ZERO_STAGES, ZERO_STEPS, ZERO_TIMEOUT = (0, 1, 2, 3), 3, 300
 
 
 def log(msg):
@@ -4160,7 +4208,41 @@ def phase_resnet_parity(ht):
 def dp_workload(ht, model, batch):
     """(loss, feed dict, optimizer) of a data-parallel workload, fed the
     global batch: ``bert-base`` (phase 6's cell, dropout 0.1),
-    ``bert-tiny`` (dropout 0) or ``resnet18`` (bench.py's feeds)."""
+    ``bert-tiny`` (dropout 0), ``resnet18`` (bench.py's feeds), or one of
+    ``DP2_CUT``'s models at published widths cut to 2 layers (2 + 2 for
+    T5), dropout 0, Adam 1e-4: ``gpt2`` (seq 1024), ``t5`` (source 512,
+    target 114, ``use_mask=True``), ``xlnet`` (seq 512), ``longformer``
+    (seq 4096)."""
+    if model in DP2_CUT:
+        if model == "gpt2":
+            cfg = ht.GPT2Config.small(n_layer=2, batch_size=batch,
+                                      seq_len=GPT_SEQ, resid_pdrop=0.0,
+                                      embd_pdrop=0.0, attn_pdrop=0.0)
+            feeds, loss, _ = ht.gpt2_lm_graph(cfg)
+            ids, labels = ht.models.gpt2.synthetic_lm_batch(cfg, seed=0)
+            fd = {feeds["input_ids"]: ids, feeds["labels"]: labels}
+        elif model == "t5":
+            cfg = ht.T5Config.small(num_layers=2, batch_size=batch,
+                                    src_len=T5_SRC, tgt_len=T5_TGT,
+                                    dropout_rate=0.0)
+            feeds, loss, _ = ht.t5_seq2seq_graph(cfg, use_mask=True)
+            fd = _t5_feeds(feeds, ht.synthetic_seq2seq_batch(
+                cfg, seed=0, padded=True))
+        elif model == "xlnet":
+            cfg = ht.XLNetConfig.base(n_layer=2, batch_size=batch,
+                                      seq_len=XL_SEQ, dropout=0.0)
+            feeds, loss, _ = ht.xlnet_plm_graph(cfg)
+            fd = {feeds[k_]: v_ for k_, v_ in zip(
+                ("input_ids", "content_mask", "query_mask", "labels"),
+                ht.synthetic_plm_batch(cfg, seed=0))}
+        else:
+            cfg = ht.LongformerConfig.base(num_hidden_layers=2,
+                                           batch_size=batch, seq_len=LF_SEQ,
+                                           hidden_dropout_prob=0.0)
+            feeds, loss, _ = ht.longformer_mlm_graph(cfg)
+            fd = {feeds[k_]: v_ for k_, v_ in zip(
+                ("input_ids", "labels"), ht.synthetic_mlm_ids(cfg, 0))}
+        return loss, fd, ht.optim.AdamOptimizer(1e-4)
     if model.startswith("bert"):
         if model == "bert-base":
             cfg = ht.BertConfig.base(batch_size=batch, seq_len=TRAIN_SEQ)
@@ -4181,9 +4263,9 @@ def dp_workload(ht, model, batch):
     return loss, fd, ht.optim.MomentumOptimizer(0.1)
 
 
-def dp_executor(ht, model, batch, strategy=None, grads=True):
+def dp_executor(ht, model, batch, strategy=None, grads=True, **kw):
     """(executor, feed dict, trainable variables) of ``dp_workload`` on
-    the card, ``Executor(seed=0)``; with ``grads`` every trainable
+    the card, ``Executor(seed=0, **kw)``; with ``grads`` every trainable
     variable's gradient is fetched after the loss and the step."""
     loss, fd, opt = dp_workload(ht, model, batch)
     wrt = [n for n in ht.topo_sort([loss])
@@ -4191,8 +4273,18 @@ def dp_executor(ht, model, batch, strategy=None, grads=True):
     fetches = [loss, opt.minimize(loss)] + (ht.gradients(loss, wrt)
                                             if grads else [])
     ex = ht.Executor({"train": fetches}, seed=0, device="cuda",
-                     dist_strategy=strategy)
+                     dist_strategy=strategy, **kw)
     return ex, fd, wrt if grads else []
+
+
+def flash_launches(fa):
+    """{kernels-line name: launches} of every nonzero training flash
+    counter; the decode counters must read 0."""
+    if fa.launches or fa.merge_launches:
+        raise AssertionError(f"decode kernels launched: {fa.launches}, "
+                             f"{fa.merge_launches}")
+    return {line_name(c): n for c, n in vars(fa).items()
+            if c.endswith("_launches") and n}
 
 
 def dp_steps(ex, fd, wrt, steps):
@@ -4478,11 +4570,27 @@ def phase_dp_world1(ht, fa, metrics, kmods):
                                  "plain executor disagree")
         dp_time_and_profile("[dp1-bert]", {"plain": (plain, pfd),
                                            "dp": (dp, dfd)}, TRAIN_BATCH)
+        # zero=2 at world size 1: no plan is built, so the plain step
+        metrics.reset_zero_counts()
+        z2, zfd, _ = dp_executor(ht, "bert-base", TRAIN_BATCH, strategy,
+                                 grads=False, zero=2)
+        with deterministic_algorithms():
+            zl = dp_steps(z2, zfd, [], DP_STEPS)["losses"]
+        log(f"[dp1-bert-zero2] Executor(zero=2) on the group of one: "
+            f"stage {z2.zero}, plans {len(z2._zero_plans)}, losses {zl} "
+            f"(plain {want['losses']}), zero_counts "
+            f"{metrics.zero_counts()}")
+        if z2._zero_plans or zl != want["losses"] or metrics.zero_counts():
+            raise AssertionError("[dp1-bert-zero2] zero=2 at world size 1 "
+                                 "is not the plain step")
         plain.close()
         dp.close()
-        del plain, dp, pv, dv
+        z2.close()
+        del plain, dp, pv, dv, z2
         gc.collect()
         torch.cuda.empty_cache()
+        launches.update(phase_dp_world1_bf16(ht, fa, metrics, kmods,
+                                             strategy))
         # -- ResNet-18 at BASELINE config 2's per-rank batch ------------------
         plain, pfd, pwrt = dp_executor(ht, "resnet18", RN_BATCH)
         dp, dfd, dwrt = dp_executor(ht, "resnet18", RN_BATCH, strategy)
@@ -4527,6 +4635,74 @@ def phase_dp_world1(ht, fa, metrics, kmods):
     return launches
 
 
+def phase_dp_world1_bf16(ht, fa, metrics, kmods, strategy):
+    """Phase 38's bf16 part: the bf16 key-mask kernels at the cell's
+    attention shape (B=16, H=12, S=512, D=64), then BERT-base at phase 6's
+    cell in bf16 through the strategy on the group of one against the
+    plain bf16 executor: ``DP_STEPS`` steps each under deterministic
+    algorithms (the losses within ``BF16_TRAIN_LOSS_RTOL``, every step-1
+    gradient within ``BF16_TRAIN_GRAD_RTOL`` / ``_ATOL``; bit-equal
+    expected, printed), 12 launches a step of each bf16 key-mask kernel,
+    then p50 of both in turns.  Returns the strategy's bf16 launches."""
+    cfg = ht.BertConfig.base(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    attn = torch.from_numpy(ht.synthetic_mlm_batch(cfg, seed=0)[3]).cuda()
+    rng = np.random.RandomState(38)
+    q, k, v, do = (torch.from_numpy(rng.randn(
+        TRAIN_BATCH * H, TRAIN_SEQ, D).astype(np.float32)).to(
+            "cuda", torch.bfloat16) for _ in range(4))
+    attn_case(fa, "[dp1-bf16-kernels]", "bf16 key mask, B=16", q, k, v, do,
+              H, 1.0 / math.sqrt(D), km=attn)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    plain, pfd, pwrt = dp_executor(ht, "bert-base", TRAIN_BATCH,
+                                   compute_dtype="bfloat16")
+    dp, dfd, dwrt = dp_executor(ht, "bert-base", TRAIN_BATCH, strategy,
+                                compute_dtype="bfloat16")
+    with deterministic_algorithms():
+        want = dp_steps(plain, pfd, pwrt, DP_STEPS)
+        torch.cuda.synchronize()
+        reset_launches(*kmods)
+        metrics.reset_flash_fallbacks()
+        got = dp_steps(dp, dfd, dwrt, DP_STEPS)
+    launches = flash_launches(fa)
+    left = {r: n for r, n in metrics.flash_fallback_counts().items()
+            if r.startswith("backend:")}
+    expect = {n: DP_STEPS * cfg.num_hidden_layers
+              for n in ("flash_fwd_bf16", "flash_bwd_dq_bf16",
+                        "flash_bwd_dkv_bf16")}
+    if left or launches != expect:
+        raise AssertionError(f"[dp1-bert-bf16] launches {launches} != "
+                             f"{expect}, fallbacks {left}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                      want["losses"]))
+    gerr = {n: float(np.max(np.abs(got["grads"][n] - g)))
+            for n, g in want["grads"].items()}
+    worst = max(gerr, key=gerr.get)
+    bits = loss_rel == 0.0 and gerr[worst] == 0.0
+    log(f"[dp1-bert-bf16] {DP_STEPS} bf16 steps (deterministic algorithms)"
+        f": losses DataParallel {got['losses']} plain {want['losses']} (max "
+        f"rel {loss_rel:.3e}, rtol {BF16_TRAIN_LOSS_RTOL}); step-1 gradients "
+        f"of {len(gerr)} variables, largest abs difference {gerr[worst]:.3e}"
+        f" ({worst}; rtol {BF16_TRAIN_GRAD_RTOL}, atol "
+        f"{BF16_TRAIN_GRAD_ATOL}); bit-equal: {bits}; bf16 flash launches "
+        f"{launches}")
+    if loss_rel > BF16_TRAIN_LOSS_RTOL or not all(
+            np.allclose(got["grads"][n], g, rtol=BF16_TRAIN_GRAD_RTOL,
+                        atol=BF16_TRAIN_GRAD_ATOL)
+            for n, g in want["grads"].items()):
+        raise AssertionError("[dp1-bert-bf16] the strategy's bf16 path and "
+                             "the plain bf16 executor disagree")
+    del want, got
+    dp_time_and_profile("[dp1-bert-bf16]", {"plain": (plain, pfd),
+                                            "dp": (dp, dfd)}, TRAIN_BATCH)
+    plain.close()
+    dp.close()
+    del plain, dp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def dp2_rank(rank, world, tmp):
     """Entry of one phase-39 rank: gloo over a file in ``tmp``, tiny BERT
     and ResNet-18 through ``DataParallel`` on ``cuda:0`` from the weights
@@ -4550,20 +4726,25 @@ def dp2_rank(rank, world, tmp):
             weights = pickle.load(f)
         strategy = ht.dist.DataParallel()
         res = {}
-        for model, batch in (("bert-tiny", DP2_BERT_BATCH),
-                             ("resnet18", DP2_RN_BATCH)):
+        for model, batch, steps in dp2_models():
             ex, fd, wrt = dp_executor(ht, model, batch, strategy)
             ex.load_dict(weights[model])
             reset_launches(fa, emb, seg, md)
             metrics.reset_flash_fallbacks()
             t0 = time.perf_counter()
-            res[model] = dp_steps(ex, fd, wrt, DP_STEPS)
+            res[model] = dp_steps(ex, fd, wrt, steps)
             res[model]["seconds"] = time.perf_counter() - t0
-            res[model]["launches"] = {
-                name: n for m in (fa, emb, seg, md)
+            res[model]["launches"] = dict(flash_launches(fa), **{
+                name: n for m in (emb, seg, md)
                 for name, n in vars(m).items()
-                if name.endswith("launches") and n}
+                if name.endswith("launches") and n})
             res[model]["fallbacks"] = metrics.flash_fallback_counts()
+            if rank:                     # rank 0's are held to the reference
+                res[model]["grads"] = None
+            ex.close()
+            del ex
+            gc.collect()
+            torch.cuda.empty_cache()
         with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
     except BaseException:
@@ -4575,12 +4756,96 @@ def dp2_rank(rank, world, tmp):
             dist.destroy_process_group()
 
 
+def dp2_models():
+    """Phase 39's (model, global batch, steps)."""
+    return [("bert-tiny", DP2_BERT_BATCH, DP_STEPS),
+            ("resnet18", DP2_RN_BATCH, DP_STEPS)] + [
+        (m, batch, steps) for m, (batch, steps, _) in DP2_CUT.items()]
+
+
+def dp2_kernels(ht, fa):
+    """The flash specializations that phase 39's transformer graphs launch,
+    held to their plain versions at a rank's attention shape, with each
+    rank's rows of the masks: GPT-2's causal kernels; T5's bias with the
+    key mask, causal bias and cross-attention key mask; XLNet's full mask
+    with a bias (both streams); Longformer's window mask."""
+    rng = np.random.RandomState(39)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+
+    def u8(m):
+        return torch.from_numpy(np.ascontiguousarray(m != 0, np.uint8)).cuda()
+
+    t5cfg = ht.T5Config.small(batch_size=DP2_CUT["t5"][0], src_len=T5_SRC,
+                              tgt_len=T5_TGT)
+    t5attn = ht.synthetic_seq2seq_batch(t5cfg, seed=0, padded=True)[3]
+    xcfg = ht.XLNetConfig.base(batch_size=DP2_CUT["xlnet"][0],
+                               seq_len=XL_SEQ)
+    _, cmask, qmask, _ = ht.synthetic_plm_batch(xcfg, seed=0)
+    lcfg = ht.LongformerConfig.base(batch_size=DP2_CUT["longformer"][0],
+                                    seq_len=LF_SEQ)
+    wmask = ht.longformer_attention_mask(LF_SEQ, lcfg.attention_window,
+                                         lcfg.num_global_tokens)
+    t5h, xh = t5cfg.num_heads, xcfg.n_head
+    for r in range(DP2_WORLD):
+        tag = f"rank {r}"
+        b = DP2_CUT["gpt2"][0] // DP2_WORLD
+        q, k, v, do = (t(b * H, GPT_SEQ, D) for _ in range(4))
+        attn_case(fa, "[dp2-kernels]", f"{tag} GPT-2 causal", q, k, v, do,
+                  H, 1.0 / math.sqrt(D), causal=True)
+        b = DP2_CUT["t5"][0] // DP2_WORLD
+        km = torch.from_numpy(np.ascontiguousarray(
+            t5attn[r * b:(r + 1) * b], np.int32)).cuda()
+        for name, s_q, s_kv, causal, bias, keyed in (
+                ("T5 encoder bias + key mask", T5_SRC, T5_SRC, False, True,
+                 True),
+                ("T5 decoder causal bias", T5_TGT, T5_TGT, True, True, False),
+                ("T5 cross-attention key mask", T5_TGT, T5_SRC, False, False,
+                 True)):
+            q, do = t(b * t5h, s_q, D), t(b * t5h, s_q, D)
+            k, v = t(b * t5h, s_kv, D), t(b * t5h, s_kv, D)
+            attn_case(fa, "[dp2-kernels]", f"{tag} {name}", q, k, v, do,
+                      t5h, T5_KERNEL_SCALE, km=km if keyed else None,
+                      causal=causal, bias=t(t5h, s_q, s_kv) if bias else None,
+                      gmode="h")
+        b = DP2_CUT["xlnet"][0] // DP2_WORLD
+        for name, m in (("content", cmask), ("query", qmask)):
+            q, k, v, do = (t(b * xh, XL_SEQ, D) for _ in range(4))
+            attn_case(fa, "[dp2-kernels]", f"{tag} XLNet {name} stream", q,
+                      k, v, do, xh, XL_SCALE, bias=t(xh, XL_SEQ, XL_SEQ),
+                      gmode="h", mask=u8(m[r * b:(r + 1) * b, 0]),
+                      mask_gmode="b")
+        b = DP2_CUT["longformer"][0] // DP2_WORLD
+        q, k, v, do = (t(b * H, LF_SEQ, D) for _ in range(4))
+        attn_case(fa, "[dp2-kernels]", f"{tag} Longformer window", q, k, v,
+                  do, H, XL_SCALE, mask=u8(wmask[None]), mask_gmode="one")
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+
+def dp2_expected(model, cfg_layers):
+    """{kernels-line name: launches} a phase-39 rank must count."""
+    if model == "resnet18":
+        return {}
+    if model == "bert-tiny":
+        per, steps = {"": cfg_layers}, DP_STEPS
+    else:
+        _, steps, per = DP2_CUT[model]
+    out = {}
+    for sfx, n in per.items():
+        for kern in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            out[kern + ("_" + sfx if sfx else "")] = n * steps
+    return out
+
+
 def phase_dp_two_ranks(ht, fa):
     """Phase 39: two ranks on the one card over gloo, held to the
     single-process plain executor over the global batch.  Returns the
-    flash launches of both ranks (tiny BERT)."""
+    flash launches of both ranks by kernels-line name."""
     tmp = tempfile.mkdtemp()
     try:
+        dp2_kernels(ht, fa)
         # the kernels at a rank's attention shape, with each rank's mask
         cfg = ht.BertConfig.tiny(batch_size=DP2_BERT_BATCH, seq_len=32)
         attn = ht.synthetic_mlm_batch(cfg, seed=0)[3]
@@ -4596,13 +4861,20 @@ def phase_dp_two_ranks(ht, fa):
             attn_case(fa, "[dp2-kernels]", f"rank {r} key mask", q, k, v,
                       do, heads, 1.0 / math.sqrt(dk), km=km)
         # the single-process reference over the global batch, its weights
+        # (T5's query projections scaled by 1/8, as phase 20 does)
         refs, weights = {}, {}
-        for model, batch in (("bert-tiny", DP2_BERT_BATCH),
-                             ("resnet18", DP2_RN_BATCH)):
+        for model, batch, steps in dp2_models():
             ex, fd, wrt = dp_executor(ht, model, batch)
             weights[model] = ex.return_tensor_values()
-            refs[model] = dp_steps(ex, fd, wrt, DP_STEPS)
+            if model == "t5":
+                weights[model] = {n: w / 8 if n.endswith(".q.weight")
+                                  else w for n, w in weights[model].items()}
+                load_all(ex, weights[model])
+            refs[model] = dp_steps(ex, fd, wrt, steps)
             ex.close()
+            del ex
+            gc.collect()
+            torch.cuda.empty_cache()
         with open(os.path.join(tmp, "weights.pkl"), "wb") as f:
             pickle.dump(weights, f)
         ctx = multiprocessing.get_context("spawn")
@@ -4634,10 +4906,7 @@ def phase_dp_two_ranks(ht, fa):
                 ranks.append(pickle.load(f))
         log(f"[dp2] {DP2_WORLD} ranks on cuda:0 over gloo in "
             f"{time.perf_counter() - t0:.1f} s (spawn included)")
-        launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-        counters = {"flash_fwd": "fwd_launches",
-                    "flash_bwd_dq": "dq_launches",
-                    "flash_bwd_dkv": "dkv_launches"}
+        launches = {}
         for model in refs:
             resnet = model == "resnet18"
             errs = hold_to_phase37_gates(
@@ -4658,17 +4927,16 @@ def phase_dp_two_ranks(ht, fa):
                 left = {k: n for k, n in rec[model]["fallbacks"].items()
                         if k.startswith("backend:")}
                 got = rec[model]["launches"]
-                want = {c: DP_STEPS * cfg.num_hidden_layers
-                        for c in counters.values()} \
-                    if model == "bert-tiny" else {}
+                want = dp2_expected(model, cfg.num_hidden_layers)
                 if left or got != want:
                     raise AssertionError(f"[dp2-{model}] rank {r} launches "
                                          f"{got} != {want}, fallbacks {left}")
-                for name, c in counters.items():
-                    launches[name] += got.get(c, 0)
-            log(f"[dp2-{model}] global batch "
-                f"{DP2_BERT_BATCH if model == 'bert-tiny' else DP2_RN_BATCH},"
-                f" {DP_STEPS} steps: losses rank 0 "
+                for name, n in got.items():
+                    launches[name] = launches.get(name, 0) + n
+            batch, steps = next((b, n) for m, b, n in dp2_models()
+                                if m == model)
+            log(f"[dp2-{model}] global batch {batch}, {steps} steps"
+                f"{' (2 layers)' if model in DP2_CUT else ''}: losses rank 0 "
                 f"{ranks[0][model]['losses']} single-process "
                 f"{refs[model]['losses']}; {json.dumps(errs)}; seconds by "
                 f"rank {[rec[model]['seconds'] for rec in ranks]}; "
@@ -4676,6 +4944,186 @@ def phase_dp_two_ranks(ht, fa):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
+
+def zero_rank(rank, world, tmp):
+    """Entry of one phase-40 rank: gloo over a file in ``tmp``, BERT-base
+    through ``DataParallel`` at each ZeRO stage on ``cuda:0`` under
+    deterministic algorithms; the records (or the traceback) into
+    ``tmp``."""
+    import hashlib
+    import torch.distributed as dist
+    try:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        import hetu_tpu_torch as ht
+        from hetu_tpu_torch import metrics
+        from hetu_tpu_torch.ops.kernels import flash_attention as fa
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method="file://"
+                                + os.path.join(tmp, "init"), rank=rank,
+                                world_size=world)
+        res, base = {}, None
+        with deterministic_algorithms():
+            for stage in ZERO_STAGES:
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                ex, fd, _ = dp_executor(ht, "bert-base", TRAIN_BATCH,
+                                        ht.dist.DataParallel(), grads=False,
+                                        zero=stage)
+                reset_launches(fa)
+                metrics.reset_zero_counts()
+                losses, times = [], []
+                for _ in range(ZERO_STEPS):
+                    t0 = time.perf_counter()
+                    losses.append(float(ex.run("train", feed_dict=fd)[0]
+                                        .asnumpy()))
+                    times.append((time.perf_counter() - t0) * 1e3)
+                gc.collect()
+                held = torch.cuda.memory_allocated() - before
+                mem = ex.memory_accounting()
+                vals = ex.return_tensor_values()
+                digest = hashlib.sha256(b"".join(
+                    vals[k].tobytes() for k in sorted(vals))).hexdigest()
+                if base is None:
+                    base = vals
+                diff = max(float(np.max(np.abs(v - base[k])))
+                           for k, v in vals.items())
+                rel = max(float(np.max(np.abs(v - base[k])
+                                       / np.maximum(np.abs(base[k]), 1e-30)))
+                          for k, v in vals.items())
+                res[stage] = {
+                    "losses": losses, "step_ms": times, "mem": mem,
+                    "held_between_steps_bytes": held,
+                    "max_memory_allocated_gib":
+                        torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "zero_counts": metrics.zero_counts(),
+                    "plans": {op.name: len(plan.buckets)
+                              for op, plan in ex._zero_plans.items()},
+                    "digest": digest, "max_abs_diff_vs_stage0": diff,
+                    "max_rel_diff_vs_stage0": rel,
+                    "launches": flash_launches(fa)}
+                ex.close()
+                del ex, vals
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_zero_two_ranks(ht, fa):
+    """Phase 40: ZeRO stages 0-3 on two ranks of the card over gloo.  The
+    key-mask kernels at a rank's attention shape first, then BERT-base at
+    phase 6's cell (global batch 16, seq 512, dropout 0.1, Adam 1e-4),
+    ``ZERO_STEPS`` steps a stage under deterministic algorithms.  Stage 1
+    must be bit-equal to stage 0 (losses and every parameter after the
+    steps); stages 2 and 3 too (at dp 2 a reduce-scatter adds the same two
+    terms as the all-reduce), else held to phase 37's gates with the
+    spread printed; every rank ends with the same parameters.  Prints each
+    rank's and stage's optimizer-state and parameter bytes, peak memory,
+    ``zero_counts()`` and step ms (gloo staging through the host: no
+    multi-card number).  Returns the flash launches of both ranks."""
+    cfg = ht.BertConfig.base(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    attn = ht.synthetic_mlm_batch(cfg, seed=0)[3]
+    per = TRAIN_BATCH // DP2_WORLD
+    rng = np.random.RandomState(40)
+    for r in range(DP2_WORLD):
+        q, k, v, do = (torch.from_numpy(rng.randn(
+            per * H, TRAIN_SEQ, D).astype(np.float32)).cuda()
+            for _ in range(4))
+        km = torch.from_numpy(attn[r * per:(r + 1) * per]).cuda()
+        attn_case(fa, "[zero-kernels]", f"rank {r} key mask", q, k, v, do,
+                  H, 1.0 / math.sqrt(D), km=km)
+        del q, k, v, do
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp()
+    try:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=zero_rank, args=(r, DP2_WORLD, tmp))
+                 for r in range(DP2_WORLD)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + ZERO_TIMEOUT
+        try:
+            while any(p.is_alive() for p in procs) \
+                    and time.monotonic() < deadline \
+                    and not any(p.exitcode not in (None, 0) for p in procs):
+                time.sleep(0.2)
+            codes = [p.exitcode for p in procs]
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(30)
+        errs = [open(os.path.join(tmp, f)).read()
+                for f in sorted(os.listdir(tmp)) if f.endswith(".err")]
+        if errs or codes != [0] * DP2_WORLD:
+            raise AssertionError(f"[zero] ranks exited {codes} (None: alive "
+                                 f"past {ZERO_TIMEOUT} s)\n" + "\n".join(errs))
+        ranks = []
+        for r in range(DP2_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[zero] {DP2_WORLD} ranks on cuda:0 over gloo in "
+        f"{time.perf_counter() - t0:.1f} s (spawn included); {card_line()}")
+    layers = cfg.num_hidden_layers
+    expect = {n: ZERO_STEPS * layers
+              for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    launches = {}
+    base = ranks[0][0]
+    for stage in ZERO_STAGES:
+        rec = ranks[0][stage]
+        for r, other in enumerate(ranks):
+            o = other[stage]
+            if o["digest"] != rec["digest"] or o["losses"] != rec["losses"]:
+                raise AssertionError(f"[zero-{stage}] rank {r} ends with "
+                                     f"other parameters or losses")
+            if o["launches"] != expect:
+                raise AssertionError(f"[zero-{stage}] rank {r} launches "
+                                     f"{o['launches']} != {expect}")
+            for name, n in o["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+            m = o["mem"]
+            log(f"[zero-{stage}] rank {r}: optimizer state "
+                f"{m['opt_state_bytes_per_device']} B, parameters held "
+                f"between steps {m['param_bytes_per_device']} B full + "
+                f"{m['zero_slab_bytes_per_device']} B rows, gradients' "
+                f"layout {m['grad_bytes_per_device']} B; device memory held "
+                f"after the steps {o['held_between_steps_bytes']} B, "
+                f"max_memory_allocated {o['max_memory_allocated_gib']:.3f} "
+                f"GiB; zero_counts {json.dumps(o['zero_counts'])} "
+                f"({ZERO_STEPS} steps); buckets {json.dumps(o['plans'])}; "
+                f"step ms (gloo staging CUDA tensors through the host, two "
+                f"ranks on one card: no multi-card number) "
+                f"{[round(t, 3) for t in o['step_ms']]}; {card_line()}")
+        bits = rec["losses"] == base["losses"] \
+            and rec["digest"] == base["digest"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"],
+                                                          base["losses"]))
+        log(f"[zero-{stage}] losses {rec['losses']} (stage 0 "
+            f"{base['losses']}, max rel {loss_rel:.3e}); parameters after "
+            f"{ZERO_STEPS} steps vs stage 0: largest abs difference "
+            f"{rec['max_abs_diff_vs_stage0']:.3e}, relative "
+            f"{rec['max_rel_diff_vs_stage0']:.3e}; bit-equal: {bits}")
+        if stage and not rec["plans"]:
+            raise AssertionError(f"[zero-{stage}] no ZeRO plan was built")
+        if stage == 1 and not bits:
+            raise AssertionError("[zero-1] stage 1 is not bit-equal to "
+                                 "stage 0")
+        if stage > 1 and not bits and (
+                loss_rel > RN_LOSS_RTOL
+                or rec["max_rel_diff_vs_stage0"] > RN_TRAJ_RTOL):
+            raise AssertionError(f"[zero-{stage}] outside phase 37's gates")
+    return launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -4880,9 +5328,13 @@ def main():
 
     # -- 39. two ranks on the one card over gloo ---------------------------------------
     for name, n in phase_dp_two_ranks(ht, fa).items():
-        dlaunches[name] += n
+        dlaunches[name] = dlaunches.get(name, 0) + n
 
-    # -- 40. result lines ---------------------------------------------------------
+    # -- 40. ZeRO stages 0-3 on two ranks of the card -----------------------------
+    for name, n in phase_zero_two_ranks(ht, fa).items():
+        dlaunches[name] = dlaunches.get(name, 0) + n
+
+    # -- 41. result lines ---------------------------------------------------------
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
@@ -4904,9 +5356,6 @@ def main():
     flash = (("fwd", "flash_fwd", "flash_attention.cu", 202),
              ("dq", "flash_bwd_dq", "flash_attention_bwd.cu", 299),
              ("dkv", "flash_bwd_dkv", "flash_attention_bwd.cu", 363))
-    # the float32 dense / key-mask kernels ran on the data-parallel
-    # paths too (phases 38 and 39)
-    tlaunches = {k: n + dlaunches.get(k, 0) for k, n in tlaunches.items()}
     for lines, counts, key_sfx, name_sfx in (
             (tlines, tlaunches, "", ""), (glines, glaunches, "", "_causal"),
             (blines, blaunches, "", "_bias"),
@@ -4988,6 +5437,13 @@ def main():
             combine=dict({k: cline[k] for k in keys + ("n", "src_rows")},
                          launches=calls.count(dtype, cline["n"],
                                               cline["src_rows"]))))
+    # the flash kernels of the data-parallel paths (phases 38-40), by
+    # kernels-line name
+    for e in kernels:
+        e["launches"] += dlaunches.pop(e["name"], 0)
+    if dlaunches:
+        raise AssertionError(f"launches with no kernels-line entry: "
+                             f"{dlaunches}")
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

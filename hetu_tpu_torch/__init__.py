@@ -55,7 +55,10 @@ kernel on a ported path is a hand-written kernel for the H100
   ``Executor(..., dist_strategy=ht.dist.DataParallel())`` on every rank,
   fed the global batch; each rank runs its rows, every reduction over the
   batch (the loss, BatchNorm's statistics) is global, and the gradients
-  are averaged over the group.
+  are averaged over the group; GPT-2, T5, XLNet and Longformer too, in
+  float32 or bf16, and with ``Executor(zero=1|2|3)`` each rank keeps and
+  updates only its slice of the optimizer state (and, at stage 3, of the
+  parameters).
 
 Typical use (the shape of the JAX package's)::
 

@@ -55,9 +55,29 @@ sharded one gathered to the global batch, so every rank returns what the
 single-device run returns.  Rank r > 0 draws its dropout masks from
 ``(seed, step, r)``.
 
-Not ported, refused by name: ZeRO (``zero``, ``DataParallel(zero=)``), a
-strategy other than ``DataParallel``, ``mesh``, ``compute_dtype`` or PS
-embeddings together with ``dist_strategy``, ``plan``, ``pipeline``,
+Mixed precision composes with the strategy: the casts into and out of
+bf16 run inside each rank's step, the gradients reach the float32 masters
+as float32 and are averaged (or reduce-scattered) in float32.
+
+ZeRO (``zero=`` 1..3, else ``HETU_ZERO``, else ``DataParallel(zero=)``;
+``parallel/zero.py``): with a strategy over two ranks or more, each
+``OptimizerOp`` whose parameters are all float gets a plan of flat
+buckets, and each rank keeps only its row of every bucket's optimizer
+state (born in rows) and updates only that row.  Stage 1 slices the
+averaged gradients, stages 2 and 3 reduce-scatter each bucket's gradient
+slab; stages 1 and 2 all-gather the updated rows into full parameters
+after the update, stage 3 keeps the rows as the masters between steps
+(``var_values`` holds :class:`_ZeroView` stand-ins) and all-gathers them
+at the top of the next step, before the forward.  A stand-in gathers its
+bucket on demand (an eval subgraph, ``return_tensor_values``), and
+``load_dict`` writes through to the rows a bucket at a time: collectives,
+so every rank makes the same calls.  A fetched ``GradientOp`` is the full
+averaged gradient at every stage.  At world size 1, or without a
+strategy, ``zero=`` is the plain step.
+
+Not ported, refused by name: a strategy other than ``DataParallel``,
+``mesh``, PS embeddings together with ``dist_strategy``, ``plan``,
+``pipeline``,
 ``num_microbatches``, ``remat``, ``matmul_precision``, a
 ``compute_dtype`` other than bfloat16, ASP/SSP (``bsp`` other than 0),
 ``prefetch`` and PS ids from a ``DataloaderOp``, the other JAX-package
@@ -68,6 +88,7 @@ batch is placed when its step starts.
 from __future__ import annotations
 
 import concurrent.futures
+import os
 import warnings
 
 import numpy as np
@@ -77,6 +98,7 @@ from ..context import resolve_device
 from ..ndarray import NDArray, wrap_device
 from ..ops.kernels.emb_cache import emb_scatter_add
 from ..optim.optimizer import OptimizerOp
+from ..parallel import zero as _zero
 from ..parallel.batch_axis import BatchAxis
 from ..parallel.collectives import (all_gather, all_reduce_mean_buckets,
                                     broadcast)
@@ -126,6 +148,33 @@ def _step_generator(device, seed, step, rank=0):
     entropy = [int(seed), int(step)] + ([int(rank)] if rank else [])
     state = np.random.SeedSequence(entropy).generate_state(1)
     return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
+class _ZeroView:
+    """``Executor.var_values`` stand-in for a stage-3 ZeRO parameter: its
+    master values live in the ranks' rows of a bucket
+    (``Executor._zero_rows``), so no full copy exists between steps.
+    ``materialize()`` gathers the bucket (a collective) and returns the
+    full tensor."""
+
+    __slots__ = ("ex", "node", "bucket")
+
+    def __init__(self, ex, node, bucket):
+        self.ex = ex
+        self.node = node
+        self.bucket = bucket
+
+    @property
+    def shape(self):
+        b = self.bucket
+        return b.shapes[b.param_keys.index(self.ex._k(self.node))]
+
+    def materialize(self):
+        return self.ex._zero_gather([self.node], count=False)[self.node]
+
+    def __repr__(self):
+        return (f"<ZeroView of '{self.node.name}' shape={self.shape} "
+                f"in bucket {self.bucket.key}>")
 
 
 class SubExecutor:
@@ -189,6 +238,17 @@ class SubExecutor:
             raise NotImplementedError(
                 f"Executor(compute_dtype=...) with {self.ps_nodes[0]} in "
                 f"subgraph {name!r}: PS embeddings take float32 only")
+        #: the variables the subgraph reads
+        self.var_nodes = [n for n in self.topo
+                          if isinstance(n, PlaceholderOp) and n.is_variable]
+        #: parameters whose gradient slabs are reduce-scattered (ZeRO
+        #: stages 2 and 3), not all-reduced
+        self._scattered = {p for op in self.opt_ops
+                           for p in op.params
+                           if executor._zero_plans.get(op) is not None
+                           and executor._zero_plans[op].stage >= 2}
+        self._grad_fetched = {f.wrt for f in self.fetches
+                              if isinstance(f, GradientOp)}
         #: dataloaders that already hold this rank's shard
         self._shard_loaders = set()
         if executor.dp is not None:
@@ -266,8 +326,16 @@ class SubExecutor:
                                        0 if axis is None else axis.rank),
                        axis)
         grads, ps_grads = {}, {}
+        # stage-3 ZeRO: the full parameters of this step, gathered from
+        # the ranks' rows at its top, before the forward
+        live = ex._zero_gather(self.var_nodes) if ex._zero_covered else {}
+
+        def var(node):
+            v = live.get(node)
+            return ex.var_values[node] if v is None else v
+
         if self.grad_ops:
-            leaves = {v: ex.var_values[v].detach().requires_grad_(True)
+            leaves = {v: var(v).detach().requires_grad_(True)
                       for v in self.trainable_vars}
             leaves.update({n: v.detach().requires_grad_(True)
                            for n, v in ps_vals.items()})
@@ -278,7 +346,8 @@ class SubExecutor:
                     return feeds[node]
                 # the cast of a trainable variable is differentiated
                 # through: its gradient reaches the master as float32
-                return self._low(leaves.get(node, ex.var_values.get(node)))
+                return self._low(leaves[node] if node in leaves
+                                 else var(node))
 
             with torch.enable_grad():
                 env = lower_forward(self.fwd_topo, ctx, resolve)
@@ -290,18 +359,23 @@ class SubExecutor:
             grads = {v: got[v] for v in self.trainable_vars}
             ps_grads = {n: got[n] for n in self.ps_nodes}
             with torch.no_grad():
-                if axis is not None and grads:
-                    grads = dict(zip(grads, all_reduce_mean_buckets(
-                        list(grads.values()), axis.group)))
+                rest = [v for v in grads if v not in self._scattered]
+                if axis is not None and rest:
+                    grads.update(zip(rest, all_reduce_mean_buckets(
+                        [grads[v] for v in rest], axis.group)))
                 for node in self._ps_dev_items:
                     g = ps_grads[node]
                     ps_grads[node] = emb_scatter_add(
                         g.reshape(-1, g.shape[-1]), invs[node])
                 for op in self.opt_ops:
                     keys = [ex._k(v) for v in op.params]
+                    sub_g = {k: grads[v] for k, v in zip(keys, op.params)}
+                    if op in ex._zero_plans:
+                        ex._zero_update(op, sub_g, grads,
+                                        self._grad_fetched)
+                        continue
                     sub_p = {k: ex.var_values[v]
                              for k, v in zip(keys, op.params)}
-                    sub_g = {k: grads[v] for k, v in zip(keys, op.params)}
                     new_p, ex.opt_states[op] = op.optimizer.apply(
                         sub_p, sub_g, ex.opt_states[op], op.optimizer.lr)
                     for k, v in zip(keys, op.params):
@@ -312,7 +386,7 @@ class SubExecutor:
                     self.fwd_topo, ctx,
                     lambda n: feeds[n] if n in feeds
                     else ps_vals[n] if n in ps_vals
-                    else self._low(ex.var_values[n]))
+                    else self._low(var(n)))
         for node, val in ctx.state_updates.items():
             ex.var_values[node] = self._high(val.detach())
         if self.ps_nodes:
@@ -327,7 +401,8 @@ class SubExecutor:
             elif isinstance(f, GradientOp):
                 outs.append(grads[f.wrt])
             elif axis is not None and f in axis.sharded:
-                outs.append(all_gather(env[f].detach(), axis.group))
+                outs.append(all_gather(self._high(env[f].detach()),
+                                       axis.group))
             else:
                 outs.append(self._high(env[f].detach()))
         if convert_to_numpy_ret_vals:
@@ -438,13 +513,17 @@ class Executor:
     package's context argument) names the device when ``device`` is not
     given.  Float32 products run in full float32 (TF32 off).
     ``compute_dtype``: None (float32) or ``"bfloat16"`` (mixed precision,
-    see the module docstring).  ``dist_strategy``: None or a
-    ``DataParallel`` over the initialised ``torch.distributed`` world (see
-    the module docstring)."""
+    see the module docstring), with or without a strategy.
+    ``dist_strategy``: None or a ``DataParallel`` over the initialised
+    ``torch.distributed`` world: gloo on the CPU, NCCL on the card, or
+    gloo carrying CUDA tensors for two ranks on one card (see the module
+    docstring).  ``zero``: the ZeRO stage 0..3 of the weight update under
+    the strategy (None: ``HETU_ZERO``, then the strategy's ``zero``)."""
 
     def __init__(self, eval_node_dict, ctx=None, seed=None, device=None,
                  dist_strategy=None, mesh=None, pipeline=None,
-                 num_microbatches=None, matmul_precision=None, **kwargs):
+                 num_microbatches=None, matmul_precision=None, zero=None,
+                 **kwargs):
         for opt, given in (("mesh", mesh), ("pipeline", pipeline),
                            ("num_microbatches", num_microbatches),
                            ("matmul_precision", matmul_precision)):
@@ -457,11 +536,12 @@ class Executor:
                 f"not ported; DataParallel is")
         self.compute_dtype = _compute_dtype(kwargs.pop("compute_dtype",
                                                        None))
-        if dist_strategy is not None and self.compute_dtype is not None:
-            raise NotImplementedError(
-                "Executor(compute_dtype=..., dist_strategy=...): bf16 data "
-                "parallelism is not ported; data-parallel steps run in "
-                "float32")
+        # the JAX package's precedence: the keyword, HETU_ZERO, the strategy
+        if zero is None:
+            zero = os.environ.get("HETU_ZERO") or None
+        if zero is None:
+            zero = getattr(dist_strategy, "zero", None) or None
+        self.zero = _zero.resolve_stage(zero)
         if kwargs.pop("remat", None) not in (None, False, "off"):
             raise NotImplementedError("Executor(remat=) is not ported")
         bsp = kwargs.pop("bsp", 0)
@@ -499,11 +579,21 @@ class Executor:
         self.var_values = {}
         self._init_variables()
 
+        #: OptimizerOp -> ZeroPlan (ZeRO on, a strategy over >= 2 ranks)
+        self._zero_plans = {}
+        #: stage 3: bucket key -> this rank's row of the parameters
+        self._zero_rows = {}
+        #: stage 3: parameter node -> its bucket, and key -> node
+        self._zero_covered = {}
+        self._zero_key_node = {}
+        self._build_zero_plans()
         self.opt_states = {}
         for node in self.global_topo:
             if isinstance(node, OptimizerOp):
+                plan = self._zero_plans.get(node)
                 self.opt_states[node] = node.optimizer.init_state(
-                    {self._k(v): self.var_values[v] for v in node.params})
+                    {self._k(v): self.var_values[v] for v in node.params}) \
+                    if plan is None else self._init_zero_state(node, plan)
         self.subexecutors = {name: SubExecutor(name, fetches, self)
                              for name, fetches in self.eval_node_dict.items()}
 
@@ -511,6 +601,144 @@ class Executor:
         """Canonical (topo-ordinal) key of a graph node."""
         k = self._node_keys.get(node)
         return k if k is not None else f"n{node.id}"
+
+    # -- ZeRO weight-update sharding (parallel/zero.py) --------------------
+
+    def _build_zero_plans(self):
+        """One :class:`ZeroPlan` per OptimizerOp when ZeRO is on under a
+        strategy of two ranks or more.  An optimizer with a parameter that
+        is not a float tensor keeps its replicated update (a partial plan
+        would skip the uncovered parameters' update); LAMB gets a bucket a
+        parameter (its trust ratio is per parameter)."""
+        if not self.zero or self.dp is None or self.dp[1] < 2:
+            return
+        for node in self.global_topo:
+            if not isinstance(node, OptimizerOp) or not node.params:
+                continue
+            items = []
+            for p in node.params:
+                v = self.var_values[p]
+                # (a bf16 master has no numpy dtype to pack by: replicated)
+                dtype = None if v.dtype == torch.bfloat16 \
+                    else str(v.dtype).replace("torch.", "")
+                if dtype is None or _zero.ineligible_reason(p, dtype):
+                    items = None
+                    break
+                items.append((self._k(p), tuple(v.shape), dtype))
+            if items is None:
+                continue
+            self._zero_plans[node] = _zero.build_plan(
+                items, self.dp[1], self.zero,
+                per_param=bool(getattr(node.optimizer, "lamb", False)),
+                prefix=self._k(node) + ".")
+
+    def _init_zero_state(self, op, plan):
+        """``op``'s optimizer state, born in this rank's rows; at stage 3
+        the rows of the parameters become the masters (``var_values``
+        takes :class:`_ZeroView` stand-ins)."""
+        rank = self.dp[2]
+        by_key = {self._k(p): p for p in op.params}
+        rows = {}
+        for b in plan.buckets:
+            slab = _zero.pack_slab({k: self.var_values[by_key[k]]
+                                    for k in b.param_keys}, b)
+            rows[b.key] = _zero.row_of(slab, rank)
+        state = op.optimizer.init_state(rows)
+        if plan.stage >= 3:
+            self._zero_rows.update(rows)
+            self._zero_key_node.update(by_key)
+            for b in plan.buckets:
+                for k in b.param_keys:
+                    p = by_key[k]
+                    self._zero_covered[p] = b
+                    self.var_values[p] = _ZeroView(self, p, b)
+        return state
+
+    def _zero_gather(self, nodes, count=True):
+        """Stage 3: ``{node: full tensor}`` of every planned parameter in
+        the buckets that hold one of ``nodes``, each bucket gathered once
+        from the ranks' rows (a collective)."""
+        buckets = {}
+        for n in nodes:
+            b = self._zero_covered.get(n)
+            if b is not None:
+                buckets[b.key] = b
+        out = {}
+        for b in buckets.values():
+            full = _zero.gather_full(self._zero_rows[b.key], b,
+                                     self.dp[0], count=count)
+            out.update((self._zero_key_node[k], t) for k, t in full.items())
+        return out
+
+    def _zero_update(self, op, sub_g, grads, fetched):
+        """``op``'s sharded update: its gradient rows (sliced, or
+        reduce-scattered at stages 2 and 3), the optimizer on this rank's
+        rows, and the full parameters gathered back (stages 1 and 2) or
+        the new rows kept (stage 3).  A fetched gradient in a
+        reduce-scattered bucket is gathered to the full averaged one
+        (``grads``, in place)."""
+        plan = self._zero_plans[op]
+        group, _, rank = self.dp
+        keys = [self._k(v) for v in op.params]
+        g_rows = _zero.grad_rows(plan, sub_g, rank, group)
+        if plan.stage >= 3:
+            params = {b.key: self._zero_rows[b.key] for b in plan.buckets}
+        else:
+            params = {k: self.var_values[v] for k, v in zip(keys, op.params)}
+        new, self.opt_states[op] = _zero.apply_sharded(
+            op.optimizer, plan, params, g_rows, self.opt_states[op],
+            op.optimizer.lr, rank, group)
+        if plan.stage >= 3:
+            self._zero_rows.update(new)
+        else:
+            for k, v in zip(keys, op.params):
+                self.var_values[v] = new[k]
+        if plan.stage >= 2 and fetched.intersection(op.params):
+            node = dict(zip(keys, op.params))
+            for b in plan.buckets:
+                if any(node[k] in fetched for k in b.param_keys):
+                    full = _zero.gather_full(g_rows[b.key], b, group,
+                                             count=False)
+                    grads.update((node[k], t) for k, t in full.items())
+
+    def memory_accounting(self):
+        """This rank's bytes of the persistent training state, the numbers
+        the ZeRO memory claim is judged on (the JAX package's keys that
+        need no compiled step): ``param_bytes_per_device`` (full
+        parameters held; a stage-3 stand-in counts 0),
+        ``zero_slab_bytes_per_device`` (stage-3 parameter rows),
+        ``opt_state_bytes_per_device``, ``grad_bytes_per_device`` (the
+        gradients' layout: full, or a row a bucket at stages 2 and 3) and
+        ``zero_stage`` (0 without a plan)."""
+        def nbytes(t):
+            return t.numel() * t.element_size() \
+                if isinstance(t, torch.Tensor) else 0
+
+        def leaves(tree):
+            if isinstance(tree, dict):
+                return [x for v in tree.values() for x in leaves(v)]
+            return [tree]
+
+        grads = 0
+        for node in self.global_topo:
+            if not isinstance(node, OptimizerOp):
+                continue
+            plan = self._zero_plans.get(node)
+            if plan is None:
+                grads += sum(nbytes(self.var_values[p]) for p in node.params)
+            else:
+                grads += sum(b.nbytes // (plan.dp if plan.stage >= 2 else 1)
+                             for b in plan.buckets)
+        return {
+            "zero_stage": self.zero if self._zero_plans else 0,
+            "param_bytes_per_device": sum(nbytes(v) for v in
+                                          self.var_values.values()),
+            "zero_slab_bytes_per_device": sum(
+                nbytes(v) for v in self._zero_rows.values()),
+            "opt_state_bytes_per_device": sum(
+                nbytes(x) for st in self.opt_states.values()
+                for x in leaves(st)),
+            "grad_bytes_per_device": int(grads)}
 
     # -- variables and feeds ----------------------------------------------
 
@@ -621,14 +849,35 @@ class Executor:
 
     def load_dict(self, state_dict):
         """Set variables by checkpoint name from ``{name: array}``;
-        unknown names are skipped."""
+        unknown names are skipped.  A stage-3 ZeRO parameter is written
+        through to this rank's row, a bucket at a time (every rank loads
+        the same values)."""
         by_name = {self.var_names[n]: n for n in self.var_values}
+        touched = {}
         for name, val in state_dict.items():
             node = by_name.get(name)
-            if node is not None:
+            if node is None:
+                continue
+            b = self._zero_covered.get(node)
+            if b is None:
                 self.var_values[node] = self._place(val)
+            else:
+                touched.setdefault(b.key, (b, {}))[1][self._k(node)] = val
+        rank = self.dp[2] if touched else 0
+        for key, (b, vals) in touched.items():
+            row = self._zero_rows[key]
+            flat = torch.zeros(b.padded, dtype=row.dtype, device=row.device)
+            flat[rank * b.width:(rank + 1) * b.width] = row
+            for k, shape, off in zip(b.param_keys, b.shapes, b.offsets):
+                if k in vals:
+                    v = self._place(vals[k]).reshape(-1)
+                    flat[off:off + v.numel()] = v
+            self._zero_rows[key] = _zero.row_of(
+                flat.view(b.dp, b.width), rank)
 
     def return_tensor_values(self):
-        """``{checkpoint name: numpy array}`` of every variable."""
-        return {self.var_names[n]: v.detach().cpu().numpy()
+        """``{checkpoint name: numpy array}`` of every variable; stage-3
+        ZeRO parameters gathered from the ranks' rows (a collective)."""
+        full = self._zero_gather(list(self._zero_covered), count=False)
+        return {self.var_names[n]: full.get(n, v).detach().cpu().numpy()
                 for n, v in self.var_values.items()}

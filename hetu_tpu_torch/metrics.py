@@ -26,6 +26,13 @@ Families:
 * ``faults`` — fault-tolerance events by kind; the port records one:
   ``preduce_dead_rank_excluded``, dead ranks a partial-reduce group left
   out (``parallel.preduce.PartialReduce``).
+* ``zero`` — the ZeRO sharded update's traffic and padding, in bytes
+  (``zero_reduce_scatter_bytes``: gradient slabs reduce-scattered,
+  ``zero_all_gather_bytes``: updated parameter slabs gathered back,
+  ``zero_pad_bytes``: zero fill that makes ragged buckets shard evenly;
+  ``parallel.zero``).  The JAX package counts once per trace; the port
+  has no trace and counts every step, so a run of n steps records n
+  times one step's bytes.  A run without ``zero=`` records nothing.
 * decode latency samples in microseconds by kind (``step``, ``token``,
   ``ttft``, ``join_wait``), the newest :data:`LATENCY_WINDOW` kept.
 
@@ -218,6 +225,23 @@ def fault_counts():
 
 def reset_faults():
     _REGISTRY.reset("faults")
+
+
+# ----------------------------------------------------------------- ZeRO
+
+def record_zero(kind, n=1):
+    """Count ``n`` bytes of ZeRO sharded-update traffic of ``kind``."""
+    if n:
+        _REGISTRY.record("zero", kind, n)
+
+
+def zero_counts():
+    """{kind: bytes} snapshot of the ZeRO counters."""
+    return _REGISTRY.counts("zero")
+
+
+def reset_zero_counts():
+    _REGISTRY.reset("zero")
 
 
 # ------------------------------------------------------------ evaluation

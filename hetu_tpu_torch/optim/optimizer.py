@@ -8,7 +8,8 @@ graph-level contract: ``opt.minimize(loss)`` returns a fetchable node.
 The arithmetic follows the JAX package line for line, in float32: Adam's
 step ``t`` is an int32 tensor and its bias corrections are
 ``1 - beta ** float32(t)``; ``l2reg`` adds ``l2reg * p`` to the gradient;
-LAMB scales the update by the trust ratio ||p|| / ||update||.
+LAMB scales the update by the trust ratio ||p|| / ||update||, whose
+norms under ZeRO sum over the ranks' rows of the parameter.
 
 Not ported: a learning rate that is an ``LRScheduler`` (a schedule) —
 the rate is a number.
@@ -21,6 +22,7 @@ import torch
 
 from ..graph.gradients import gradients
 from ..graph.node import Op, PlaceholderOp, topo_sort
+from ..parallel.collectives import all_reduce
 
 
 class OptimizerOp(Op):
@@ -140,7 +142,10 @@ class AdamOptimizer(Optimizer):
             st["vmax"] = {k: torch.zeros_like(p) for k, p in params.items()}
         return st
 
-    def apply(self, params, grads, state, lr):
+    def apply(self, params, grads, state, lr, group=None):
+        """``group``: the process group over which each of ``params`` is
+        split by rows (the ZeRO update, ``parallel/zero.py``): LAMB's two
+        squared norms are then summed over it before the trust ratio."""
         t = state["t"] + 1
         tf = t.to(torch.float32)
         bc1 = 1 - self.beta1 ** tf
@@ -163,8 +168,10 @@ class AdamOptimizer(Optimizer):
             upd = (m / bc1) / (torch.sqrt(vhat) + self.epsilon) \
                 + self.weight_decay * p
             if self.lamb:
-                wn = torch.sqrt(torch.sum(p * p))
-                un = torch.sqrt(torch.sum(upd * upd))
+                sq = torch.stack([torch.sum(p * p), torch.sum(upd * upd)])
+                if group is not None:
+                    sq = all_reduce(sq, group)
+                wn, un = torch.sqrt(sq).unbind()
                 trust = torch.where((wn > 0) & (un > 0), wn / un,
                                     torch.ones_like(wn))
                 upd = trust * upd

@@ -1,7 +1,7 @@
 """Data parallelism over ``torch.distributed`` (the ported part of
-``hetu_tpu/parallel``): the strategies, the collectives, partial reduce
-and the batch-axis rules that ``Executor(dist_strategy=DataParallel())``
-lowers by.  ``ht.dist`` is this package, as in the JAX package."""
+``hetu_tpu/parallel``): the strategies, the collectives, partial reduce,
+the batch-axis rules that ``Executor(dist_strategy=DataParallel())``
+lowers by, and the ZeRO weight-update sharding (``zero``).  ``ht.dist`` is this package, as in the JAX package."""
 from .strategies import Strategy, DataParallel, ModelParallel
 from . import collectives
 from .collectives import CommGroup, new_group_comm
@@ -9,3 +9,5 @@ from .preduce import (PartialReduce, DistPartialReduce, preduce_mean,
                       preduce_scatter_mean)
 from . import batch_axis
 from .batch_axis import BatchAxis
+from . import zero
+from .zero import ZeroPlan, ZeroBucket

@@ -14,16 +14,23 @@ its rows of what the single-device program computes on the global batch:
 
 * row-local ops (elementwise, activations, dropout, LayerNorm, the pools,
   the per-row losses) lower as they are; a replicated input may only
-  broadcast against the rows (fewer dims, or a leading dim of 1);
+  broadcast against the rows (fewer dims, or a leading dim of 1), or hold
+  the global batch's rows (a leading dim of dp times the rank's rows, as
+  Longformer's global-token selector and XLNet's tiled query stream do):
+  then the rank takes its block of it, as GSPMD would;
 * ops with weights (matmul and linear without ``trans_A``, convolution,
   embedding lookup) lower as they are; the weights must be replicated and
   the data sharded;
-* attention: q, k and v sharded; a mask, bias or lengths sharded, or
-  broadcast over the batch;
+* attention: q, k and v sharded (or holding the global rows, as above); a
+  mask, bias or lengths sharded, or broadcast over the batch;
+* ``BroadcastTo`` to a sharded shape gives a sharded value (its operand
+  sharded, or replicated and broadcast into the rows); a sharded operand
+  broadcast to a replicated shape raises;
 * ``Transpose`` keeps dim 0 in place;
 * a reduction over dim 0 (``ReduceSum``, ``ReduceMean``) reduces locally,
   then sums over the group with the differentiable ``all_reduce`` (a mean
-  divides by the global count): a replicated value;
+  divides by the global count): a replicated value.  A bf16 input is
+  reduced in float32, locally and over the group, and rounded once;
 * shape-carrying ops (``ArrayReshape``, ``Slice``) take the leading
   static dim of their shape argument divided by dp (a reshape's must
   divide exactly; a slice must keep the whole batch);
@@ -32,7 +39,9 @@ its rows of what the single-device program computes on the global batch:
   alike (sync BN, what GSPMD computes): each rank's per-channel mean and
   sum of squared deviations, exchanged in one all-reduce and combined
   exactly (Chan's pairwise update); its backward sums ``dy`` and
-  ``dy * xhat`` over the group in one more.
+  ``dy * xhat`` over the group in one more.  A bf16 input is normalized
+  in float32 and rounded once, and its statistics round to bf16, as the
+  single-device ``F.batch_norm`` and ``var_mean`` give them.
 
 An op type the table does not name, on a sharded input, raises
 ``NotImplementedError`` naming it: never a silent local answer.
@@ -45,6 +54,13 @@ import torch
 import torch.distributed as dist
 
 from .collectives import all_reduce
+
+#: reduced and normalized in float32, rounded once (the bf16 step)
+_LOW = (torch.bfloat16, torch.float16)
+
+
+def _up(t):
+    return t.float() if t.dtype in _LOW else t
 
 
 class BatchAxis:
@@ -85,7 +101,23 @@ def _lower_with(node, ctx, vals, **attrs):
     return node._lower_fn(ctx, *vals, **{**node.attrs, **attrs})
 
 
+def _take_rows(ax, vals, flags):
+    """Each replicated input that holds the global batch's rows (as many
+    dims as the sharded inputs, dim 0 dp times theirs) replaced by this
+    rank's block of them, and then counted sharded."""
+    sharded = [v for v, f in zip(vals, flags) if f]
+    rows, nd = sharded[0].shape[0], max(v.ndim for v in sharded)
+    vals, flags = list(vals), list(flags)
+    for i, (v, f) in enumerate(zip(vals, flags)):
+        if not f and v is not None and v.ndim >= nd \
+                and v.shape[0] == rows * ax.size:
+            vals[i] = v[ax.rank * rows:(ax.rank + 1) * rows]
+            flags[i] = True
+    return vals, flags
+
+
 def _rowwise(ax, node, ctx, vals, flags):
+    vals, flags = _take_rows(ax, vals, flags)
     out = node.lower(ctx, *vals)
     for v, f in zip(vals, flags):
         if f and (out.ndim == 0 or v.shape[0] != out.shape[0]):
@@ -112,6 +144,7 @@ def _weights(*pos):
 
 
 def _attention(ax, node, ctx, vals, flags):
+    vals, flags = _take_rows(ax, vals, flags)
     if not all(flags[:3]):
         _refuse(node, "q, k and v must all be sharded")
     for v, f in zip(vals[3:], flags[3:]):
@@ -166,15 +199,26 @@ def _reduce(mean):
         dims = tuple(d % a.ndim for d in axes)
         if 0 not in dims:
             return node.lower(ctx, *vals), True
+        low = a.dtype if a.dtype in _LOW else None
+        a = _up(a)                          # float32 sums, one rounding
         if not mean:
-            return all_reduce(node.lower(ctx, *vals), ax.group), False
-        if not a.is_floating_point():
-            a = a.to(torch.float32)
-        count = math.prod(a.shape[d] for d in dims) * ax.size
-        local = torch.sum(a, dim=dims,
-                          keepdim=node.attrs.get("keepdims", False))
-        return all_reduce(local, ax.group) / count, False
+            out = all_reduce(node.lower(ctx, a), ax.group)
+        else:
+            if not a.is_floating_point():
+                a = a.to(torch.float32)
+            count = math.prod(a.shape[d] for d in dims) * ax.size
+            local = torch.sum(a, dim=dims,
+                              keepdim=node.attrs.get("keepdims", False))
+            out = all_reduce(local, ax.group) / count
+        return (out if low is None else out.to(low)), False
     return rule
+
+
+def _broadcast_to(ax, node, ctx, vals, flags):
+    if not flags[1]:
+        _refuse(node, "a sharded operand broadcast to a replicated shape")
+    vals, flags = _take_rows(ax, vals, flags)
+    return node.lower(ctx, *vals), True
 
 
 class _SyncBatchNorm(torch.autograd.Function):
@@ -184,6 +228,8 @@ class _SyncBatchNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps, group, size, rank):
+        low = x.dtype
+        x = _up(x)
         dims = [0] + list(range(2, x.ndim))
         shape = (1, -1) + (1,) * (x.ndim - 2)
         n = x.numel() // x.shape[1]
@@ -199,22 +245,26 @@ class _SyncBatchNorm(torch.autograd.Function):
         invstd = torch.rsqrt(var + eps)
         xhat = (x - mean.reshape(shape)) * invstd.reshape(shape)
         ctx.save_for_backward(xhat, scale, invstd)
-        ctx.group, ctx.count = group, n * size
+        ctx.group, ctx.count, ctx.low = group, n * size, low
+        mean, var = mean.to(low), var.to(low)
         ctx.mark_non_differentiable(mean, var)
-        return xhat * scale.reshape(shape) + bias.reshape(shape), mean, var
+        out = xhat * _up(scale).reshape(shape) + _up(bias).reshape(shape)
+        return out.to(low), mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         xhat, scale, invstd = ctx.saved_tensors
+        dy = _up(dy)
         dims = [0] + list(range(2, dy.ndim))
         shape = (1, -1) + (1,) * (dy.ndim - 2)
         local = torch.stack([dy.sum(dims), (dy * xhat).sum(dims)])
         dbias, dscale = local.clone()              # this rank's rows
         dist.all_reduce(local, group=ctx.group)    # the global batch's
-        dx = (scale * invstd).reshape(shape) * (
+        dx = (_up(scale) * invstd).reshape(shape) * (
             dy - (local[0] / ctx.count).reshape(shape)
             - xhat * (local[1] / ctx.count).reshape(shape))
-        return (dx, dscale.reshape(scale.shape), dbias.reshape(scale.shape),
+        return (dx.to(ctx.low), dscale.reshape(scale.shape).to(scale.dtype),
+                dbias.reshape(scale.shape).to(scale.dtype),
                 None, None, None, None)
 
 
@@ -255,4 +305,4 @@ RULES.update({
     "EmbeddingLookup": _weights(0), "Transpose": _transpose,
     "ArrayReshape": _reshape, "Slice": _slice,
     "ReduceSum": _reduce(mean=False), "ReduceMean": _reduce(mean=True),
-    "BatchNorm": _batch_norm})
+    "BatchNorm": _batch_norm, "BroadcastTo": _broadcast_to})

@@ -20,8 +20,9 @@ Only calls that the torch releases this port runs on all have are used
 (``all_gather_into_tensor``, ``reduce_scatter_tensor``,
 ``all_to_all_single``, ``batch_isend_irecv``); newer releases mark the
 first two deprecated, which is silenced where they are called.
-``slab_spec`` / ``replicated_spec`` (GSPMD layouts of the ZeRO update) are
-not ported.
+``reduce_scatter_flat`` / ``all_gather_flat`` move the flat ``(dp,
+width)`` slabs of the ZeRO update (``parallel/zero.py``); its GSPMD
+layouts ``slab_spec`` / ``replicated_spec`` are not ported.
 """
 from __future__ import annotations
 
@@ -156,6 +157,18 @@ def reduce_scatter(x, group=None, axis=0, tiled=True):
         out = _scatter0(xm.reshape((n, -1) + tuple(xm.shape[1:])), pg)
         return out.movedim(0, axis)
     return _scatter0(xm, pg)
+
+
+def reduce_scatter_flat(slab, group=None):
+    """Row r of the sum over ranks of a ``(dp, width)`` slab on rank r:
+    one ``reduce_scatter_tensor`` (a flat ``width``-long tensor)."""
+    return _scatter0(slab, _pg(group))
+
+
+def all_gather_flat(row, group=None):
+    """Every rank's flat ``width``-long row stacked into the ``(dp,
+    width)`` slab, in rank order: one ``all_gather_into_tensor``."""
+    return _gather0(row, _pg(group))
 
 
 def all_to_all(x, group=None, split_axis=0, concat_axis=0):

@@ -10,10 +10,12 @@ in), and every rank computes
 
 over the whole group: the same number as an all-reduce over the active
 subgroup, with no communicator built per membership.
+``preduce_scatter_mean`` gives each rank only its block of that mean,
+``reduce_scatter(mask * g) / all_reduce(mask)``: the gradient rows the
+ZeRO update (``parallel/zero.py``) consumes, in one reduce-scatter.
 
 Not ported, refused by name: ``DistPartialReduce`` (group formation from
-the distributed store's SSP clocks) and ``preduce_scatter_mean`` (the
-masked mean in the ZeRO reduce-scatter layout).
+the distributed store's SSP clocks).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from ..metrics import record_fault
-from .collectives import all_reduce
+from .collectives import all_reduce, reduce_scatter
 
 
 def _tree_map(fn, tree):
@@ -125,9 +127,17 @@ class PartialReduce:
 
     @staticmethod
     def preduce_scatter(grad, mask, group=None):
-        raise NotImplementedError(
-            "PartialReduce.preduce_scatter: the masked mean in the ZeRO "
-            "reduce-scatter layout waits for ZeRO, which is not ported")
+        """Rank r's block r (along dim 0) of the mean of ``grad`` over the
+        active ranks: ``reduce_scatter(mask * g) / all_reduce(mask)``, one
+        reduce-scatter where :meth:`preduce` pays an all-reduce.  Every
+        leaf's dim 0 must divide by the group size (a ``zero.pack_slab``
+        slab does by construction)."""
+        leaves = []
+        _tree_map(leaves.append, grad)
+        m = torch.as_tensor(mask, dtype=torch.float32,
+                            device=leaves[0].device)
+        den = all_reduce(m, group)
+        return _tree_map(lambda g: reduce_scatter(g * m, group) / den, grad)
 
 
 class DistPartialReduce(PartialReduce):
@@ -147,8 +157,7 @@ def preduce_mean(grad, mask, group=None):
 
 
 def preduce_scatter_mean(grad, mask, group=None):
-    """Functional alias of :meth:`PartialReduce.preduce_scatter` (not
-    ported)."""
+    """Functional alias of :meth:`PartialReduce.preduce_scatter`."""
     return PartialReduce.preduce_scatter(grad, mask, group)
 
 

@@ -6,13 +6,15 @@ A strategy owns a named mesh over the ``torch.distributed`` world and
 answers which dim of a fed value is split over it.  The JAX package then
 lets GSPMD run the single-device program on the global batch; the port
 has no partitioner, so ``Executor(dist_strategy=DataParallel())`` keeps
-those semantics by hand (``parallel/batch_axis.py``).  Not ported, refused
-by name: ZeRO (``zero`` other than 0), a ``num_devices`` other than the
-world size, and ``ModelParallel``.
+those semantics by hand (``parallel/batch_axis.py``); ``zero`` stages 1-3
+shard the weight update over it (``parallel/zero.py``).  Not ported,
+refused by name: a ``num_devices`` other than the world size, and
+``ModelParallel``.
 """
 from __future__ import annotations
 
 from ..context import make_mesh
+from .zero import resolve_stage
 
 
 class Strategy:
@@ -24,27 +26,6 @@ class Strategy:
         return None
 
 
-def _zero_stage(value):
-    """``zero`` as the JAX package reads it (None/False off, True stage 2,
-    else 0..3); only 0 is ported."""
-    if value is None or value is False:
-        return 0
-    stage = 2 if value is True else value
-    try:
-        stage = int(stage)
-    except (TypeError, ValueError):
-        stage = -1
-    if stage < 0 or stage > 3:
-        raise ValueError(f"zero={value!r}: expected a stage in 0..3 "
-                         f"(0=off, 1=opt-state, 2=+reduce-scatter, "
-                         f"3=+sharded params)")
-    if stage:
-        raise NotImplementedError(
-            f"DataParallel(zero={value!r}): ZeRO weight-update sharding is "
-            f"not ported; zero=0 replicates parameters and optimizer state")
-    return 0
-
-
 class DataParallel(Strategy):
     """Pure data parallelism: the batch dim of every fed value is split
     over the mesh's ``dp`` axis, every reduction over the batch is global,
@@ -53,7 +34,12 @@ class DataParallel(Strategy):
     ``aggregate`` ∈ {allreduce, ps, hybrid}, kept for reference API parity
     (simple.py:6): all three reduce dense gradients with the collective,
     as in the JAX package.  ``num_devices``: the world size (None: the
-    world).  ``zero``: 0 only."""
+    world).  ``zero``: the ZeRO stage, 0..3 (True: 2), which
+    ``Executor(zero=)`` and ``HETU_ZERO`` override (``parallel/zero.py``):
+    1 shards the optimizer state over the ranks, 2 also reduce-scatters the
+    gradients, 3 also keeps each rank's slice of the parameters between
+    steps.  On the CPU the ranks run over gloo; on the card over NCCL, or
+    over gloo for two ranks on one card."""
 
     def __init__(self, aggregate="allreduce", num_devices=None, zero=None):
         aggregate = (aggregate or "allreduce").lower()
@@ -62,7 +48,7 @@ class DataParallel(Strategy):
                              f"expected allreduce, ps or hybrid")
         self.aggregate = aggregate
         self.num_devices = num_devices
-        self.zero = _zero_stage(zero)
+        self.zero = resolve_stage(zero)
 
     def make_mesh(self):
         """The ``dp`` mesh over the initialised world."""

@@ -94,14 +94,15 @@ def test_load_dict_and_return_tensor_values_round_trip():
                                   b.run("train", feed_dict=fd)[0].asnumpy())
 
 
-@pytest.mark.parametrize("opt", ["dist_strategy", "mesh", "zero", "remat",
+@pytest.mark.parametrize("opt", ["dist_strategy", "mesh", "remat",
                                  "plan", "pipeline", "num_microbatches",
                                  "matmul_precision", "compute_dtype",
                                  "timing"])
 def test_unported_executor_options_raise_by_name(opt):
     _, _, loss, _, train_op = _mlp(tht)
     # compute_dtype is ported for bfloat16 only; float16 stays refused
-    value = {"compute_dtype": "float16", "remat": "dots", "zero": 1,
+    # (zero= is ported: tests/test_torch_zero.py)
+    value = {"compute_dtype": "float16", "remat": "dots",
              "num_microbatches": 4, "pipeline": "gpipe",
              "timing": True}.get(opt, object())
     with pytest.raises(NotImplementedError, match=opt):

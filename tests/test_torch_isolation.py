@@ -52,6 +52,7 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "import hetu_tpu_torch.ops.arithmetic\n"
             "import hetu_tpu_torch.ops.embedding\n"
             "import hetu_tpu_torch.graph.executor\n"
+            "import hetu_tpu_torch.parallel.zero\n"
             "import hetu_tpu_torch.serving.decode\n"
             "import hetu_tpu_torch.models.cnn\n"
             "import hetu_tpu_torch.ops.nn\n"

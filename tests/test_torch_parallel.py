@@ -575,18 +575,13 @@ def _mlp_executor(**kw):
                                    .minimize(loss)]}, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("what", ["zero", "model_parallel", "compute_dtype",
-                                  "mesh", "not_a_strategy", "no_group",
-                                  "make_mesh_tp", "dcn_axes"])
+@pytest.mark.parametrize("what", ["model_parallel", "mesh", "not_a_strategy",
+                                  "no_group", "make_mesh_tp", "dcn_axes"])
 def test_unported_strategy_arguments_raise_by_name(what):
     dp = tht.dist.DataParallel
     cases = {
-        "zero": (NotImplementedError, "zero", lambda: dp(zero=1)),
         "model_parallel": (NotImplementedError, "ModelParallel",
                            lambda: tht.dist.ModelParallel({"tp": 2})),
-        "compute_dtype": (NotImplementedError, "compute_dtype",
-                          lambda: _mlp_executor(dist_strategy=dp(),
-                                                compute_dtype="bfloat16")),
         "mesh": (NotImplementedError, "mesh",
                  lambda: _mlp_executor(dist_strategy=dp(), mesh=object())),
         "not_a_strategy": (NotImplementedError, "dist_strategy",
@@ -611,8 +606,8 @@ def test_strategy_checks_mirror_the_jax_package():
         tht.dist.DataParallel(aggregate="ring")
     with pytest.raises(ValueError, match="0..3"):
         tht.dist.DataParallel(zero=7)
-    with pytest.raises(NotImplementedError, match="zero"):
-        tht.dist.DataParallel(zero=True)
+    assert [tht.dist.DataParallel(zero=z).zero
+            for z in (None, True, 1, 3, "2")] == [0, 2, 1, 3, 2]
     with pytest.raises(NotImplementedError, match="DistPartialReduce"):
         tht.dist.DistPartialReduce(object())
 
@@ -711,7 +706,7 @@ def _lower_sharded(node, *vals, size=2, training=True):
 @pytest.mark.parametrize("what", ["unknown_op", "moves_batch", "partial_slice",
                                   "trans_A", "sharded_weight",
                                   "replicated_rows", "replicated_mask",
-                                  "undivided_reshape"])
+                                  "undivided_reshape", "sharded_broadcast"])
 def test_batch_axis_refuses_what_it_cannot_split(what):
     a = tht.placeholder_op("a")
     b = tht.placeholder_op("b")
@@ -732,10 +727,13 @@ def test_batch_axis_refuses_what_it_cannot_split(what):
                             tht.ops.add_op(a, b), (x, x)),
         "replicated_mask": (NotImplementedError, "broadcast over the batch",
                             tht.sdpa_masked_op(a, a, a, b),
-                            (q, q, q, np.ones((2, 1, 1, 3), np.int32))),
+                            (q, q, q, np.ones((3, 1, 1, 3), np.int32))),
         "undivided_reshape": (ValueError, "does not divide",
                               tht.array_reshape_op(a, output_shape=(3, 8)),
                               (np.ones((3, 8), np.float32),)),
+        "sharded_broadcast": (NotImplementedError, "replicated shape",
+                              tht.broadcastto_op(a, b),
+                              (np.ones((2, 1), np.float32), x)),
     }
     err, match, node, vals = cases[what]
     with pytest.raises(err, match=match):
@@ -756,3 +754,29 @@ def test_batch_axis_splits_shapes_and_keeps_row_local_ops():
     # a reduction that keeps dim 0 stays row-local (no collective)
     out = _lower_sharded(tht.reduce_sum_op(a, [2]), x)
     np.testing.assert_array_equal(out.numpy(), x.sum(2))
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_batch_axis_broadcasts_and_takes_the_global_rows_of_replicated(rank):
+    """``BroadcastTo`` of a replicated operand into sharded rows (T5's
+    RMSNorm scale) is sharded; a replicated value holding the global
+    batch's rows (Longformer's global-token selector, XLNet's tiled query
+    stream) meets the sharded rows as this rank's block of it."""
+    a, b = tht.placeholder_op("a"), tht.placeholder_op("b")
+    x = np.arange(24, dtype=np.float32).reshape(2, 3, 4)   # a rank's rows
+    scale = np.arange(4, dtype=np.float32)
+    glob = np.arange(4 * 3 * 4, dtype=np.float32).reshape(4, 3, 4)
+    for node, vals, want in (
+            (tht.broadcastto_op(b, a), (scale, x),
+             np.broadcast_to(scale, x.shape)),
+            (tht.broadcastto_op(a, a), (x[:, :, :1],), None),
+            (tht.ops.mul_op(a, b), (x, glob), x * glob[2 * rank:2 * rank + 2]),
+            (tht.ops.mul_op(a, b), (x, scale), x * scale)):
+        axis = BatchAxis(None, 2, rank)
+        axis.sharded.add(a)
+        out = axis.lower(node, tht.LowerCtx(True, None, axis),
+                         [torch.as_tensor(v) for v in vals]
+                         + ([torch.as_tensor(x)] if want is None else []))
+        assert node in axis.sharded
+        if want is not None:
+            np.testing.assert_array_equal(out.numpy(), want)
