@@ -415,9 +415,41 @@ without printing the final result line:
     through the host, two ranks on one card: no multi-card number).  A
     child that fails, outlives ``ZERO_TIMEOUT`` or exits non-zero fails
     the phase.
-41. Print the card's name and power limit, the ``kernels`` JSON line (each
-    flash row counts the launches of phases 38-40 too, by kernels-line
-    name) and, last, ``{"ok": true, "device": {...}}``.
+41. The training loop's state, under deterministic algorithms (the
+    embedding backward's atomics would otherwise change bits), in a
+    temporary directory removed afterwards.  (a) Schedule, save and
+    resume: BERT-base at phase 6's cell (dropout 0.1) on
+    ``AdamOptimizer(CosineScheduler(1e-4, warmup_steps=2,
+    total_steps=8))``: ``STATE_STEPS`` uninterrupted steps; then half of
+    them, ``Executor.save``, a fresh executor, ``load`` and the other
+    half, bit-equal to the uninterrupted losses; the same through
+    ``auto_save_every`` and ``resume(dir)``; the save and load seconds and
+    the checkpoint's bytes printed.  (b) Warm start:
+    ``bert_classify_graph(cfg, num_labels=3)`` loads that checkpoint with
+    ``params_only=True``: every trunk parameter bit-equal to the
+    checkpoint's file, ``step_counter`` 0, 2 steps of finite losses.
+    (c) Remat: ``off``, ``dots``, ``full`` and ``offload`` from one set
+    of weights, ``REMAT_STEPS`` steps each with dropout on: the losses and
+    every gradient bit-equal to ``off``; ``max_memory_allocated`` of each,
+    the bytes ``offload`` moved to pinned host memory (more than 0), and
+    the flash launches (a recompute launches the forward again: twice a
+    layer a step under ``dots`` and ``full``).  (d) Accumulation:
+    ``num_microbatches=2`` at batch 16 (the graph built at the microbatch
+    size, dropout 0) against the plain step, fed a batch that is two
+    copies of one 8-row block, so each microbatch's masked-token mean is
+    the whole batch's (the loss of an accumulated step is the mean of its
+    microbatches' means, as in the JAX package): the first loss within
+    ``ACC_RTOL[0]``, the next two within ``ACC_RTOL[1]``, the peak memory
+    of both.  (e) PS tables: Wide & Deep through the device cache at
+    phase 9's configuration (every step's gradient rows pushed:
+    ``push_bound=1``; with a larger bound a save's cache flush moves the
+    trajectory): 3 steps, ``save``, a fresh graph, store and executor,
+    ``load``, 3 steps, bit-equal to 6 uninterrupted steps, one B4 and one
+    B5 launch a step.
+42. Print the card's name and power limit, the ``kernels`` JSON line (each
+    flash row counts the launches of phases 38-41 too, B4 and B5 those of
+    phase 41, by kernels-line name) and, last, ``{"ok": true, "device":
+    {...}}``.
 
 Float32 matrix products run in full float32:
 ``torch.backends.cuda.matmul.allow_tf32`` is set False.  The bf16 ones
@@ -584,6 +616,13 @@ DP2_CUT = {"gpt2": (4, 2, {"causal": 2}),
            "longformer": (2, 2, {"mask": 2})}
 # phase 40: ZeRO on two ranks of the card, BERT-base at phase 6's cell
 ZERO_STAGES, ZERO_STEPS, ZERO_TIMEOUT = (0, 1, 2, 3), 3, 300
+# phase 41: the training loop's state at phase 6's cell; the accumulated
+# step's first loss and its next two against the plain step's (only the
+# order of the reductions differs; set before the first card run)
+STATE_STEPS, REMAT_STEPS, ACC_M, ACC_STEPS = 6, 2, 2, 3
+STATE_LR = (1e-4, 2, 8)
+REMAT_POLICIES = ("off", "dots", "full", "offload")
+ACC_RTOL = (1e-5, 1e-3)
 
 
 def log(msg):
@@ -5125,6 +5164,334 @@ def phase_zero_two_ranks(ht, fa):
     return launches
 
 
+# -- phase 41: the training loop's state ------------------------------------
+
+def _free_cuda():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _state_bert(ht, cfg, **kw):
+    """BERT-base at ``cfg`` on Adam under the Cosine schedule: (executor,
+    feed dict, trainable variables)."""
+    feeds, loss, _ = ht.bert_pretrain_graph(cfg)
+    wrt = [n for n in ht.topo_sort([loss])
+           if isinstance(n, ht.PlaceholderOp) and n.is_variable
+           and n.trainable]
+    fetches = [loss, ht.optim.AdamOptimizer(
+        ht.optim.CosineScheduler(STATE_LR[0], warmup_steps=STATE_LR[1],
+                                 total_steps=STATE_LR[2])).minimize(loss)]
+    if kw.pop("grads", False):
+        fetches += ht.gradients(loss, wrt)
+    ex = ht.Executor({"train": fetches}, seed=0, device="cuda", **kw)
+    return ex, feeds, wrt
+
+
+def _losses(ex, fd, n):
+    return [float(ex.run("train", feed_dict=fd)[0].asnumpy())
+            for _ in range(n)]
+
+
+def _flash_counts(fa):
+    return {"flash_fwd": fa.fwd_launches, "flash_bwd_dq": fa.dq_launches,
+            "flash_bwd_dkv": fa.dkv_launches}
+
+
+def _ckpt_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def state_resume(ht, fa, metrics, kmods, cfg, fd_of, tmp, launches):
+    """41a: the schedule, save / load and auto-save / resume, bit-equal to
+    the uninterrupted run.  Returns (the checkpoint's path, report)."""
+    half = STATE_STEPS // 2
+    report = {}
+
+    def counted(run):
+        reset_launches(*kmods)
+        metrics.reset_flash_fallbacks()
+        out = run()
+        for k, n in _flash_counts(fa).items():
+            launches[k] += n
+        left = {r: c for r, c in metrics.flash_fallback_counts().items()
+                if r.startswith("backend:")}
+        if left:
+            raise AssertionError(f"attention left the kernels: {left}")
+        return out
+
+    ex, feeds, _ = _state_bert(ht, cfg)
+    fd = fd_of(feeds)
+    want = counted(lambda: _losses(ex, fd, STATE_STEPS))
+    opt = ex.subexecutors["train"].opt_ops[0].optimizer
+    rates = [float(opt.step_lr(s)) for s in range(STATE_STEPS)]
+    del ex, opt
+    _free_cuda()
+    ex, feeds, _ = _state_bert(ht, cfg)
+    fd = fd_of(feeds)
+    first = counted(lambda: _losses(ex, fd, half))
+    path = os.path.join(tmp, "bert_ckpt")
+    t0 = time.perf_counter()
+    ex.save(path)
+    report["save_s"] = time.perf_counter() - t0
+    report["ckpt_bytes"] = _ckpt_bytes(path)
+    del ex
+    _free_cuda()
+    ex, feeds, _ = _state_bert(ht, cfg)
+    fd = fd_of(feeds)
+    t0 = time.perf_counter()
+    ex.load(path)
+    torch.cuda.synchronize()
+    report["load_s"] = time.perf_counter() - t0
+    if ex.step_counter != half:
+        raise AssertionError(f"loaded step {ex.step_counter} != {half}")
+    rest = counted(lambda: _losses(ex, fd, STATE_STEPS - half))
+    if first + rest != want:
+        raise AssertionError(f"save -> load -> continue {first + rest} != "
+                             f"uninterrupted {want}")
+    del ex
+    _free_cuda()
+    auto = os.path.join(tmp, "auto")
+    ex, feeds, _ = _state_bert(ht, cfg, auto_save_dir=auto,
+                               auto_save_every=half,
+                               install_signal_handlers=False)
+    fd = fd_of(feeds)
+    first = counted(lambda: _losses(ex, fd, half))
+    del ex
+    _free_cuda()
+    ex, feeds, _ = _state_bert(ht, cfg)
+    fd = fd_of(feeds)
+    t0 = time.perf_counter()
+    step = ex.resume(auto)
+    report["resume_s"] = time.perf_counter() - t0
+    if step != half:
+        raise AssertionError(f"resume({auto}) gave step {step}, not {half}")
+    rest = counted(lambda: _losses(ex, fd, STATE_STEPS - half))
+    if first + rest != want:
+        raise AssertionError(f"auto-save -> resume -> continue "
+                             f"{first + rest} != uninterrupted {want}")
+    del ex
+    _free_cuda()
+    faults = metrics.fault_counts()
+    if faults.get("auto_save", 0) < 1 or faults.get("resume", 0) != 1:
+        raise AssertionError(f"fault counters {faults}")
+    report.update({"losses": want, "rates": rates, "faults": faults})
+    return path, report
+
+
+def state_warm_start(ht, fa, kmods, cfg, path, launches):
+    """41b: ``bert_classify_graph`` warm-started from the checkpoint."""
+    feeds, loss, _ = ht.bert_classify_graph(cfg, num_labels=3)
+    ex = ht.Executor({"train": [loss, ht.optim.AdamOptimizer(1e-4)
+                                .minimize(loss)]}, seed=11, device="cuda")
+    ex.load(path, params_only=True)
+    if ex.step_counter != 0:
+        raise AssertionError(f"params_only load set step {ex.step_counter}")
+    with open(os.path.join(path, "meta.json")) as f:
+        names = json.load(f)["params"]
+    vals = ex.return_tensor_values()
+    trunk = [n for n in names if n in vals]
+    for name in trunk:
+        if not np.array_equal(vals[name], np.load(
+                os.path.join(path, "params", names[name]))):
+            raise AssertionError(f"warm-started {name} differs from the "
+                                 f"checkpoint")
+    ids, tt, _, attn = ht.synthetic_mlm_batch(cfg, seed=0)
+    labels = (ids[:, 0] % 3).astype(np.int32)
+    fd = {feeds["input_ids"]: ids, feeds["token_type_ids"]: tt,
+          feeds["labels"]: labels, feeds["attention_mask"]: attn}
+    reset_launches(*kmods)
+    losses = _losses(ex, fd, 2)
+    for k, n in _flash_counts(fa).items():
+        launches[k] += n
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"warm-started losses {losses}")
+    del ex
+    _free_cuda()
+    return {"trunk_params": len(trunk), "fresh_params": len(vals)
+            - len(trunk), "losses": losses}
+
+
+def state_remat(ht, fa, metrics, kmods, cfg, fd_of, launches):
+    """41c: every policy bit-equal to ``off`` with dropout on; peak
+    memory, offloaded bytes and flash launches of each."""
+    ref, report = None, {}
+    for pol in REMAT_POLICIES:
+        ex, feeds, wrt = _state_bert(ht, cfg, grads=True, remat=pol)
+        fd = fd_of(feeds)
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(*kmods)
+        metrics.reset_remat_counts()
+        t0 = time.perf_counter()
+        got = []
+        for _ in range(REMAT_STEPS):
+            out = ex.run("train", feed_dict=fd)
+            got.append((float(out[0].asnumpy()),
+                        [g.torch().cpu() for g in out[2:]]))
+        secs = time.perf_counter() - t0
+        counts = _flash_counts(fa)
+        for k, n in counts.items():
+            launches[k] += n
+        recompute = 2 if pol in ("dots", "full") else 1
+        want_n = {"flash_fwd": recompute, "flash_bwd_dq": 1,
+                  "flash_bwd_dkv": 1}
+        for k, n in counts.items():
+            if n != REMAT_STEPS * cfg.num_hidden_layers * want_n[k]:
+                raise AssertionError(f"remat={pol}: {k} launched {n} times")
+        moved = metrics.remat_counts().get("remat_offload_bytes", 0)
+        if pol == "offload" and not moved > 0:
+            raise AssertionError("remat='offload' moved no bytes to the "
+                                 "host")
+        if ref is None:
+            ref = got
+        else:
+            for step, ((gl, gg), (wl, wg)) in enumerate(zip(got, ref)):
+                if gl != wl or not all(torch.equal(a, b)
+                                       for a, b in zip(gg, wg)):
+                    bad = [n.name for n, a, b in zip(wrt, gg, wg)
+                           if not torch.equal(a, b)]
+                    raise AssertionError(
+                        f"remat={pol} step {step + 1}: loss {gl} vs {wl}, "
+                        f"gradients differ: {bad[:5]}")
+        report[pol] = {"peak_mem_gib": torch.cuda.max_memory_allocated()
+                       / 2 ** 30, "offload_bytes": moved,
+                       "s_per_step": secs / REMAT_STEPS, "flash": counts,
+                       "plan_segments": (ex.remat_plan("train") or {})
+                       .get("segments"), "losses": [g[0] for g in got]}
+        del ex, got
+        _free_cuda()
+    return report
+
+
+def state_accumulate(ht, fa, kmods, launches):
+    """41d: ``num_microbatches=ACC_M`` against the plain step."""
+    runs = {}
+    for m in (1, ACC_M):
+        cfg = ht.BertConfig.base(batch_size=TRAIN_BATCH // m,
+                                 seq_len=TRAIN_SEQ, hidden_dropout_prob=0.0,
+                                 attention_probs_dropout_prob=0.0)
+        block = ht.synthetic_mlm_batch(ht.BertConfig.base(
+            batch_size=TRAIN_BATCH // ACC_M, seq_len=TRAIN_SEQ), seed=0)
+        batch = [np.concatenate([a] * ACC_M) for a in block]
+        ex, feeds, _ = _state_bert(ht, cfg, num_microbatches=m)
+        fd = _bert_feeds(feeds, batch)
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(*kmods)
+        t0 = time.perf_counter()
+        losses = _losses(ex, fd, ACC_STEPS)
+        secs = time.perf_counter() - t0
+        counts = _flash_counts(fa)
+        for k, n in counts.items():
+            launches[k] += n
+            if n != ACC_STEPS * m * cfg.num_hidden_layers:
+                raise AssertionError(f"M={m}: {k} launched {n} times")
+        runs[m] = {"losses": losses, "s_per_step": secs / ACC_STEPS,
+                   "peak_mem_gib": torch.cuda.max_memory_allocated()
+                   / 2 ** 30}
+        del ex
+        _free_cuda()
+    got, want = runs[ACC_M]["losses"], runs[1]["losses"]
+    spread = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    runs["rel_spread"] = spread
+    if not (all(math.isfinite(x) for x in got) and spread[0] <= ACC_RTOL[0]
+            and max(spread[1:]) <= ACC_RTOL[1]):
+        raise AssertionError(f"M={ACC_M} losses {got} vs M=1 {want}: "
+                             f"spread {spread}")
+    return runs
+
+
+def state_ps(ht, emb, seg, kmods, tmp, launches):
+    """41e: Wide & Deep through the device cache, saved and resumed."""
+    batches = ctr_batches(ht)[:6]
+
+    def wdl():
+        feeds, ex, cache = wdl_executor(ht, "vlru_dev", "cuda")
+        cache.push_bound = 1
+        return feeds, ex
+
+    def run(feeds, ex, part):
+        reset_launches(*kmods)
+        out = [float(ex.run("train", feed_dict=dict(zip(feeds, b)))[0]
+                     .asnumpy()) for b in part]
+        for k, mod in (("emb_gather", emb), ("sorted_segment_sum", seg)):
+            if mod.launches != len(part):
+                raise AssertionError(f"{k}: {mod.launches} launches in "
+                                     f"{len(part)} steps")
+            launches[k] += mod.launches
+        return out
+
+    feeds, ex = wdl()
+    want = run(feeds, ex, batches)
+    ex.close()
+    feeds, ex = wdl()
+    first = run(feeds, ex, batches[:3])
+    path = os.path.join(tmp, "wdl_ckpt")
+    t0 = time.perf_counter()
+    ex.save(path)
+    save_s = time.perf_counter() - t0
+    ex.close()
+    del ex
+    _free_cuda()
+    feeds, ex = wdl()
+    t0 = time.perf_counter()
+    ex.load(path)
+    load_s = time.perf_counter() - t0
+    rest = run(feeds, ex, batches[3:])
+    ex.close()
+    if first + rest != want:
+        raise AssertionError(f"WDL save -> load -> continue {first + rest} "
+                             f"!= uninterrupted {want}")
+    return {"losses": want, "save_s": save_s, "load_s": load_s,
+            "ckpt_bytes": _ckpt_bytes(path)}
+
+
+def phase_training_state(ht, fa, emb, seg, metrics, kmods):
+    """Phase 41 (see the module docstring); returns its launches by
+    kernels-line name."""
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                               "emb_gather", "sorted_segment_sum")}
+    cfg = ht.BertConfig.base(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+
+    def fd_of(feeds):
+        return _bert_feeds(feeds, ht.synthetic_mlm_batch(cfg, seed=0))
+
+    metrics.reset_faults()
+    report = {"card": card_line()}
+    with tempfile.TemporaryDirectory() as tmp, deterministic_algorithms():
+        t0 = time.perf_counter()
+        path, report["resume"] = state_resume(ht, fa, metrics, kmods, cfg,
+                                              fd_of, tmp, launches)
+        report["resume"]["phase_s"] = time.perf_counter() - t0
+        log(f"[state] {json.dumps(report['resume'])}")
+        t0 = time.perf_counter()
+        report["warm_start"] = state_warm_start(ht, fa, kmods, cfg, path,
+                                                launches)
+        report["warm_start"]["phase_s"] = time.perf_counter() - t0
+        log(f"[state] warm start {json.dumps(report['warm_start'])}")
+        t0 = time.perf_counter()
+        report["remat"] = state_remat(ht, fa, metrics, kmods, cfg, fd_of,
+                                      launches)
+        report["remat"]["phase_s"] = time.perf_counter() - t0
+        log(f"[state] remat {json.dumps(report['remat'])}")
+        t0 = time.perf_counter()
+        report["accumulate"] = state_accumulate(ht, fa, kmods, launches)
+        report["accumulate"]["phase_s"] = time.perf_counter() - t0
+        log(f"[state] accumulate {json.dumps(report['accumulate'])}")
+        t0 = time.perf_counter()
+        report["ps"] = state_ps(ht, emb, seg, kmods, tmp, launches)
+        report["ps"]["phase_s"] = time.perf_counter() - t0
+        log(f"[state] ps {json.dumps(report['ps'])}")
+    report["launches"] = launches
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[state] launches {json.dumps(launches)} card {report['card']} "
+        f"phase 41 in {report['phase_s']:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script runs on the "
@@ -5334,7 +5701,12 @@ def main():
     for name, n in phase_zero_two_ranks(ht, fa).items():
         dlaunches[name] = dlaunches.get(name, 0) + n
 
-    # -- 41. result lines ---------------------------------------------------------
+    # -- 41. the training loop's state: schedule, checkpoints, remat, ... ----------
+    for name, n in phase_training_state(ht, fa, emb, seg, metrics,
+                                        kmods).items():
+        dlaunches[name] = dlaunches.get(name, 0) + n
+
+    # -- 42. result lines ---------------------------------------------------------
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
@@ -5437,8 +5809,8 @@ def main():
             combine=dict({k: cline[k] for k in keys + ("n", "src_rows")},
                          launches=calls.count(dtype, cline["n"],
                                               cline["src_rows"]))))
-    # the flash kernels of the data-parallel paths (phases 38-40), by
-    # kernels-line name
+    # the flash kernels of the data-parallel paths (phases 38-40) and of
+    # phase 41, and phase 41's B4 and B5 launches, by kernels-line name
     for e in kernels:
         e["launches"] += dlaunches.pop(e["name"], 0)
     if dlaunches:

@@ -82,7 +82,7 @@ from .layers import (DropOut, Embedding, Expert, LayerNorm, Linear,
                      MoELayer, MultiHeadAttention, RMSNorm, SparseMoELayer,
                      TopKGate, TopKGateSparse)
 from .models import (BertConfig, GPT2Config, LongformerConfig, XLNetConfig,
-                     bert_model, bert_pooler, bert_pretrain_graph,
+                     bert_classify_graph, bert_model, bert_pooler, bert_pretrain_graph,
                      gpt2_decode_chunked_graph, gpt2_decode_graph,
                      gpt2_lm_graph, gpt2_model, longformer_attention_mask,
                      longformer_mlm_graph, perm_masks_from_order,

@@ -75,18 +75,32 @@ so every rank makes the same calls.  A fetched ``GradientOp`` is the full
 averaged gradient at every stage.  At world size 1, or without a
 strategy, ``zero=`` is the plain step.
 
+Learning rates: each update reads its optimizer's ``step_lr(step)`` (a
+number, or an ``LRScheduler``'s float32 value at the step counter), and
+every optimizer's ``on_step`` runs after each training step.
+
+Gradient accumulation (``num_microbatches=M``, the JAX package's
+``_microbatched_grads``): the batch feeds split into M blocks, one
+forward and backward a block, the gradients summed and divided by M, the
+state updates threaded from block to block; M = 1 is the plain step.
+Rematerialization (``remat=``): ``parallel/remat.py``.  Checkpoints in
+the ``hetu_tpu.ckpt.v1`` format, auto-save, ``resume`` and the
+preemption save: ``graph/checkpoint.py``.
+
 Not ported, refused by name: a strategy other than ``DataParallel``,
 ``mesh``, PS embeddings together with ``dist_strategy``, ``plan``,
-``pipeline``,
-``num_microbatches``, ``remat``, ``matmul_precision``, a
-``compute_dtype`` other than bfloat16, ASP/SSP (``bsp`` other than 0),
-``prefetch`` and PS ids from a ``DataloaderOp``, the other JAX-package
-options, ``run(sync=False)``, ``run_steps``, ``save`` / ``load``.  Nor is
-the JAX package's lookahead feed pipeline (``graph/run_plan.py``): each
-batch is placed when its step starts.
+``pipeline``, ``num_microbatches`` and ``remat`` under ``dist_strategy``,
+``num_microbatches`` with PS embeddings, ``remat='auto'``,
+``matmul_precision``, a ``compute_dtype`` other than bfloat16, ASP/SSP
+(``bsp`` other than 0), ``prefetch`` and PS ids from a ``DataloaderOp``,
+the other JAX-package options (``timing``, ``validate``, ...),
+``run(sync=False)``, ``run_steps`` and ``save_orbax`` / ``load_orbax``.
+Nor is the JAX package's lookahead feed pipeline (``graph/run_plan.py``):
+each batch is placed when its step starts.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import os
 import warnings
@@ -97,31 +111,107 @@ import torch
 from ..context import resolve_device
 from ..ndarray import NDArray, wrap_device
 from ..ops.kernels.emb_cache import emb_scatter_add
+from ..metrics import record_remat
 from ..optim.optimizer import OptimizerOp
+from ..parallel import remat as _remat
 from ..parallel import zero as _zero
 from ..parallel.batch_axis import BatchAxis
 from ..parallel.collectives import (all_gather, all_reduce_mean_buckets,
                                     broadcast)
 from ..parallel.strategies import DataParallel
+from .checkpoint import CheckpointMixin
 from .gradients import GradientOp
-from .node import LowerCtx, PlaceholderOp, checkpoint_names, topo_sort
+from .node import (LowerCtx, Op, PlaceholderOp, checkpoint_names,
+                   topo_sort)
 
 
-def lower_forward(topo, ctx, resolve_leaf):
+def lower_forward(topo, ctx, resolve_leaf, keep=None, remat_segments=None,
+                  offload=None):
     """Evaluate every node of ``topo`` into an environment
     ``{node: tensor}``; placeholders resolve through ``resolve_leaf(node)``.
     Under data parallelism (``ctx.batch_axis``) a node with a
-    batch-sharded input lowers by its op type's rule."""
-    env = {}
+    batch-sharded input lowers by its op type's rule.
+
+    ``keep`` (a training step): each value is dropped after its last
+    consumer unless it is in ``keep``, so the returned environment holds
+    only ``keep`` and no activation outlives the forward but what autograd
+    saved.  ``remat_segments`` (``remat='full'``): node lists, contiguous
+    in topo order, each lowered inside its own checkpoint
+    (``parallel/remat.py``), only its boundary values (consumed outside
+    it, or in ``keep``) entering the environment.  ``offload``
+    (``remat='offload'``): a :class:`~hetu_tpu_torch.parallel.remat.
+    ProductOffload` that is told of every product's output."""
     axis = ctx.batch_axis
-    for node in topo:
-        if isinstance(node, PlaceholderOp):
-            env[node] = resolve_leaf(node)
-            continue
-        vals = [env[i] for i in node.inputs]
-        env[node] = node.lower(ctx, *vals) if axis is None \
+
+    def lower(node, vals):
+        out = node.lower(ctx, *vals) if axis is None \
             else axis.lower(node, ctx, vals)
+        if offload is not None and node.op_type in _remat.OFFLOAD_OPS:
+            offload.note(out)
+        return out
+
+    env = {}
+    if keep is None:
+        for node in topo:
+            env[node] = resolve_leaf(node) \
+                if isinstance(node, PlaceholderOp) \
+                else lower(node, [env[i] for i in node.inputs])
+        return env
+    keep = set(keep)
+    last, consumers = {}, {}
+    for i, node in enumerate(topo):
+        for x in node.inputs:
+            last[x] = i
+            consumers.setdefault(x, set()).add(node)
+    segments = remat_segments or ()
+    seg_of = {n: si for si, seg in enumerate(segments) for n in seg}
+    done = set()
+    for i, node in enumerate(topo):
+        if node not in done:
+            done.add(node)
+            if isinstance(node, PlaceholderOp):
+                env[node] = resolve_leaf(node)
+            elif node in seg_of:
+                seg = segments[seg_of[node]]
+                env.update(_lower_segment(seg, env, done, consumers, keep,
+                                          resolve_leaf, lower, ctx))
+            else:
+                env[node] = lower(node, [env[x] for x in node.inputs])
+        for x in node.inputs:
+            if last[x] == i and x not in keep:
+                env.pop(x, None)
+        if node not in last and node not in keep:
+            env.pop(node, None)
     return env
+
+
+def _lower_segment(seg, env, done, consumers, keep, resolve_leaf, lower,
+                   ctx):
+    """One ``remat='full'`` segment under its checkpoint: ``{node: value}``
+    of its boundary values.  A placeholder that topo order puts inside
+    the segment's span is resolved first."""
+    segset = set(seg)
+    ext = []
+    for n in seg:
+        for x in n.inputs:
+            if x not in env and isinstance(x, PlaceholderOp):
+                env[x] = resolve_leaf(x)
+                done.add(x)
+            if x not in segset and x not in ext:
+                ext.append(x)
+    outs = [n for n in seg if n in keep or not consumers.get(n)
+            or any(c not in segset for c in consumers[n])]
+
+    def seg_fn(*ins):
+        e = dict(zip(ext, ins))
+        for n in seg:
+            e[n] = lower(n, [e[x] for x in n.inputs])
+        return tuple(e[o] for o in outs)
+
+    vals = _remat.checkpointed(seg_fn, ctx.generator,
+                               *[env[x] for x in ext])
+    done.update(seg)
+    return dict(zip(outs, vals))
 
 
 def _torch_dtype(np_dtype):
@@ -140,12 +230,15 @@ def _compute_dtype(cd):
         f"precision")
 
 
-def _step_generator(device, seed, step, rank=0):
+def _step_generator(device, seed, step, rank=0, micro=None):
     """The ``torch.Generator`` of one step: seeded from ``(seed, step)``
     on the executor's device, so dropout masks depend on nothing else; a
     data-parallel rank r > 0 from ``(seed, step, r)``, so ranks do not
-    repeat one mask (rank 0 draws the single-device masks)."""
-    entropy = [int(seed), int(step)] + ([int(rank)] if rank else [])
+    repeat one mask (rank 0 draws the single-device masks); microbatch i
+    of an accumulated step from ``(seed, step, rank, i)``."""
+    entropy = [int(seed), int(step)] \
+        + ([int(rank)] if rank or micro is not None else []) \
+        + ([int(micro)] if micro is not None else [])
     state = np.random.SeedSequence(entropy).generate_state(1)
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
@@ -253,6 +346,28 @@ class SubExecutor:
         self._shard_loaders = set()
         if executor.dp is not None:
             self._check_dp(name)
+        #: the values a training step keeps past the forward
+        self._keep = [f for f in self.fetches
+                      if f is not None
+                      and not isinstance(f, (GradientOp, OptimizerOp))]
+        if self.loss_node is not None:
+            self._keep.append(self.loss_node)
+        # which fetches consume a feed (transitively): how an accumulated
+        # step merges its microbatches' values
+        feed_set = set(self.feed_nodes)
+        deps = {}
+        for node in self.topo:
+            deps[node] = node in feed_set or any(deps.get(i, False)
+                                                 for i in node.inputs)
+        self.fetch_depends_feed = [f is not None and deps.get(f, False)
+                                   for f in self.fetches]
+        if self.ps_nodes and self.grad_ops \
+                and (executor.num_microbatches or 1) > 1:
+            raise NotImplementedError(
+                f"Executor(num_microbatches=) with PS embedding "
+                f"{self.ps_nodes[0]} in subgraph {name!r}: the rows are "
+                f"pulled for the whole batch")
+        self._remat_plan = _remat.plan_for(self)
 
     def _check_dp(self, name):
         """Data parallelism: no PS embeddings; each dataloader either
@@ -334,30 +449,13 @@ class SubExecutor:
             v = live.get(node)
             return ex.var_values[node] if v is None else v
 
+        updates = ctx.state_updates
         if self.grad_ops:
-            leaves = {v: var(v).detach().requires_grad_(True)
-                      for v in self.trainable_vars}
-            leaves.update({n: v.detach().requires_grad_(True)
-                           for n, v in ps_vals.items()})
-            wrt = self.trainable_vars + self.ps_nodes
-
-            def resolve(node):
-                if node in feeds:
-                    return feeds[node]
-                # the cast of a trainable variable is differentiated
-                # through: its gradient reaches the master as float32
-                return self._low(leaves[node] if node in leaves
-                                 else var(node))
-
-            with torch.enable_grad():
-                env = lower_forward(self.fwd_topo, ctx, resolve)
-                got = torch.autograd.grad(
-                    env[self.loss_node], [leaves[v] for v in wrt],
-                    allow_unused=True)
-            got = {v: torch.zeros_like(leaves[v]) if g is None else g
-                   for v, g in zip(wrt, got)}
-            grads = {v: got[v] for v in self.trainable_vars}
-            ps_grads = {n: got[n] for n in self.ps_nodes}
+            if (ex.num_microbatches or 1) > 1:
+                env, grads, updates = self._accumulate(feeds, var)
+            else:
+                env, grads, ps_grads = self._value_and_grad(
+                    feeds, ps_vals, var, ctx)
             with torch.no_grad():
                 rest = [v for v in grads if v not in self._scattered]
                 if axis is not None and rest:
@@ -370,14 +468,15 @@ class SubExecutor:
                 for op in self.opt_ops:
                     keys = [ex._k(v) for v in op.params]
                     sub_g = {k: grads[v] for k, v in zip(keys, op.params)}
+                    lr = op.optimizer.step_lr(ex.step_counter)
                     if op in ex._zero_plans:
                         ex._zero_update(op, sub_g, grads,
-                                        self._grad_fetched)
+                                        self._grad_fetched, lr)
                         continue
                     sub_p = {k: ex.var_values[v]
                              for k, v in zip(keys, op.params)}
                     new_p, ex.opt_states[op] = op.optimizer.apply(
-                        sub_p, sub_g, ex.opt_states[op], op.optimizer.lr)
+                        sub_p, sub_g, ex.opt_states[op], lr)
                     for k, v in zip(keys, op.params):
                         ex.var_values[v] = new_p[k]
         else:
@@ -387,12 +486,14 @@ class SubExecutor:
                     lambda n: feeds[n] if n in feeds
                     else ps_vals[n] if n in ps_vals
                     else self._low(var(n)))
-        for node, val in ctx.state_updates.items():
+        for node, val in updates.items():
             ex.var_values[node] = self._high(val.detach())
         if self.ps_nodes:
             self._ps_post_step(ps_grads)
         if self.training:
             ex.step_counter += 1
+            for op in self.opt_ops:
+                op.optimizer.on_step(ex.step_counter)
 
         outs = []
         for f in self.fetches:
@@ -408,6 +509,116 @@ class SubExecutor:
         if convert_to_numpy_ret_vals:
             return [None if v is None else v.cpu().numpy() for v in outs]
         return [None if v is None else wrap_device(v) for v in outs]
+
+    # -- the differentiated forward ---------------------------------------------
+
+    def _forward(self, ctx, resolve):
+        """The training forward under the executor's ``remat`` policy;
+        returns the environment of ``self._keep``."""
+        ex, keep = self.ex, self._keep
+        if self._remat_plan is not None:
+            return lower_forward(self.fwd_topo, ctx, resolve, keep=keep,
+                                 remat_segments=self._remat_plan
+                                 .remat_node_lists())
+        if ex.remat == "offload" and ex._offload_ok:
+            off = _remat.ProductOffload()
+            with off.hooks():
+                env = lower_forward(self.fwd_topo, ctx, resolve, keep=keep,
+                                    offload=off)
+            record_remat("remat_offload_bytes", off.bytes)
+            return env
+        if ex.remat in ("dots", "offload"):
+            return _remat.checkpointed(
+                lambda: lower_forward(self.fwd_topo, ctx, resolve,
+                                      keep=keep),
+                ctx.generator, dots=True)
+        return lower_forward(self.fwd_topo, ctx, resolve, keep=keep)
+
+    def _value_and_grad(self, feeds, ps_vals, var, ctx):
+        """``(env, grads, ps_grads)`` of one forward and backward:
+        ``torch.autograd.grad`` of the loss with respect to the trainable
+        variables and the PS leaves."""
+        leaves = {v: var(v).detach().requires_grad_(True)
+                  for v in self.trainable_vars}
+        leaves.update({n: v.detach().requires_grad_(True)
+                       for n, v in ps_vals.items()})
+        wrt = self.trainable_vars + self.ps_nodes
+
+        def resolve(node):
+            if node in feeds:
+                return feeds[node]
+            # the cast of a trainable variable is differentiated
+            # through: its gradient reaches the master as float32
+            return self._low(leaves[node] if node in leaves else var(node))
+
+        with torch.enable_grad():
+            env = self._forward(ctx, resolve)
+            got = torch.autograd.grad(
+                env[self.loss_node], [leaves[v] for v in wrt],
+                allow_unused=True)
+        got = {v: torch.zeros_like(leaves[v]) if g is None else g
+               for v, g in zip(wrt, got)}
+        return (env, {v: got[v] for v in self.trainable_vars},
+                {n: got[n] for n in self.ps_nodes})
+
+    def _accumulate(self, feeds, var):
+        """``num_microbatches`` M > 1 (the JAX package's
+        ``_microbatched_grads``): the batch feeds split into M blocks
+        along dim 0, the other feeds whole to each; one forward and
+        backward a block, its dropout from the (step, block) generator;
+        state updates threaded from block to block; the gradients summed
+        and divided by M once.  Returns ``(env, grads, state updates)``,
+        the fetches merged as the JAX package merges them."""
+        ex = self.ex
+        M = ex.num_microbatches
+        explicit = ex.microbatch_feeds
+        names = {ex._k(n) if isinstance(n, Op) else n
+                 for n in explicit or ()}
+        cand = [v.shape[0] for n, v in feeds.items()
+                if v.ndim and (not explicit or ex._k(n) in names)]
+        counts = collections.Counter(cand)
+        B = max(counts, key=lambda d: (counts[d], d)) if counts else 0
+        if B % M:
+            raise ValueError(
+                f"batch {B} not divisible into {M} microbatches")
+        split = {n for n, v in feeds.items()
+                 if v.ndim and v.shape[0] == B
+                 and (not explicit or ex._k(n) in names)}
+        if not split:
+            raise ValueError("num_microbatches needs at least one "
+                             "batch-shaped feed")
+        mb = B // M
+        acc = {v: torch.zeros_like(var(v)) for v in self.trainable_vars}
+        threaded, per_block = {}, []
+        for i in range(M):
+            fd = {n: v[i * mb:(i + 1) * mb] if n in split else v
+                  for n, v in feeds.items()}
+            ctx = LowerCtx(True, _step_generator(
+                ex.device, ex.seed, ex.step_counter, micro=i))
+            env, g, _ = self._value_and_grad(
+                fd, {}, lambda n: threaded[n] if n in threaded else var(n),
+                ctx)
+            for v in acc:
+                acc[v] = acc[v] + g[v]
+            threaded.update((n, t.detach())
+                            for n, t in ctx.state_updates.items())
+            per_block.append([env[f].detach() if f in env else None
+                              for f in self.fetches])
+        grads = {v: a / M for v, a in acc.items()}
+        merged = {}
+        for j, (f, dep) in enumerate(zip(self.fetches,
+                                         self.fetch_depends_feed)):
+            if f is None or f not in self._keep:
+                continue
+            a = torch.stack([blk[j] for blk in per_block])
+            if a.ndim <= 1:
+                merged[f] = a.mean(0)
+            elif dep:
+                merged[f] = a.reshape((-1,) + a.shape[2:]) \
+                    if mb and a.shape[1] % mb == 0 else a.mean(0)
+            else:
+                merged[f] = a[-1]
+        return merged, grads, threaded
 
     # -- PS embeddings ----------------------------------------------------------
 
@@ -503,7 +714,7 @@ class SubExecutor:
             self._feed_pool = None
 
 
-class Executor:
+class Executor(CheckpointMixin):
     """Multi-subgraph training executor (see module docstring).
 
     ``eval_node_dict``: a list of fetches (one subgraph, "default") or
@@ -518,14 +729,20 @@ class Executor:
     ``torch.distributed`` world: gloo on the CPU, NCCL on the card, or
     gloo carrying CUDA tensors for two ranks on one card (see the module
     docstring).  ``zero``: the ZeRO stage 0..3 of the weight update under
-    the strategy (None: ``HETU_ZERO``, then the strategy's ``zero``)."""
+    the strategy (None: ``HETU_ZERO``, then the strategy's ``zero``).
+    ``num_microbatches`` (with ``microbatch_feeds=``): gradient
+    accumulation over that many blocks of the batch.  ``remat``: ``'off'``,
+    ``'dots'`` (or True), ``'full'`` or ``'offload'``
+    (``parallel/remat.py``).  ``auto_save_dir`` / ``auto_save_every`` /
+    ``auto_save_keep`` / ``auto_resume`` / ``install_signal_handlers``:
+    periodic checkpoints, resume at construction and the SIGTERM / SIGINT
+    save (``graph/checkpoint.py``)."""
 
     def __init__(self, eval_node_dict, ctx=None, seed=None, device=None,
                  dist_strategy=None, mesh=None, pipeline=None,
                  num_microbatches=None, matmul_precision=None, zero=None,
                  **kwargs):
         for opt, given in (("mesh", mesh), ("pipeline", pipeline),
-                           ("num_microbatches", num_microbatches),
                            ("matmul_precision", matmul_precision)):
             if given is not None:
                 raise NotImplementedError(f"Executor({opt}=) is not ported")
@@ -542,8 +759,23 @@ class Executor:
         if zero is None:
             zero = getattr(dist_strategy, "zero", None) or None
         self.zero = _zero.resolve_stage(zero)
-        if kwargs.pop("remat", None) not in (None, False, "off"):
-            raise NotImplementedError("Executor(remat=) is not ported")
+        self.remat = _remat.resolve_policy(kwargs.pop("remat", False))
+        if self.remat == "auto":
+            raise NotImplementedError(
+                "Executor(remat='auto') is not ported: its per-segment "
+                "pricing needs the shape-inferred cost model "
+                "(analysis.infer_graph)")
+        self.num_microbatches = None if num_microbatches is None \
+            else int(num_microbatches)
+        self.microbatch_feeds = kwargs.pop("microbatch_feeds", None)
+        if dist_strategy is not None:
+            for opt, on in (("num_microbatches",
+                             (self.num_microbatches or 1) > 1),
+                            ("remat", self.remat != "off")):
+                if on:
+                    raise NotImplementedError(
+                        f"Executor({opt}=) with dist_strategy is not "
+                        f"ported")
         bsp = kwargs.pop("bsp", 0)
         if bsp != 0:
             raise NotImplementedError(
@@ -553,6 +785,7 @@ class Executor:
             raise NotImplementedError(
                 "Executor(prefetch=True): the lookahead PS pull (for "
                 "DataloaderOp ids) is not ported")
+        self._init_fault_tolerance(kwargs)
         if kwargs:
             raise NotImplementedError(
                 f"Executor({next(iter(kwargs))}=) is not ported")
@@ -563,6 +796,10 @@ class Executor:
         else:
             self.eval_node_dict = {"default": list(eval_node_dict)}
         self.device = resolve_device(device if device is not None else ctx)
+        #: 'offload' moves saved products to pinned host memory (CUDA);
+        #: elsewhere it is the counted fallback to 'dots'
+        self._offload_ok = self.remat == "offload" \
+            and _remat.offload_available(self.device)
         self.dist_strategy = dist_strategy
         #: (dp process group, its size, this rank's rank in it), or None
         self.dp = None
@@ -596,6 +833,8 @@ class Executor:
                     if plan is None else self._init_zero_state(node, plan)
         self.subexecutors = {name: SubExecutor(name, fetches, self)
                              for name, fetches in self.eval_node_dict.items()}
+        if self._auto_resume and self.auto_save_dir:
+            self.resume(self.auto_save_dir)
 
     def _k(self, node):
         """Canonical (topo-ordinal) key of a graph node."""
@@ -670,7 +909,7 @@ class Executor:
             out.update((self._zero_key_node[k], t) for k, t in full.items())
         return out
 
-    def _zero_update(self, op, sub_g, grads, fetched):
+    def _zero_update(self, op, sub_g, grads, fetched, lr):
         """``op``'s sharded update: its gradient rows (sliced, or
         reduce-scattered at stages 2 and 3), the optimizer on this rank's
         rows, and the full parameters gathered back (stages 1 and 2) or
@@ -687,7 +926,7 @@ class Executor:
             params = {k: self.var_values[v] for k, v in zip(keys, op.params)}
         new, self.opt_states[op] = _zero.apply_sharded(
             op.optimizer, plan, params, g_rows, self.opt_states[op],
-            op.optimizer.lr, rank, group)
+            lr, rank, group)
         if plan.stage >= 3:
             self._zero_rows.update(new)
         else:
@@ -827,8 +1066,27 @@ class Executor:
         if eval_node_list:
             warnings.warn("eval_node_list override is ignored; fetches are "
                           "fixed per subgraph at construction")
-        return self.subexecutors[name].run(feed_dict or {},
-                                           convert_to_numpy_ret_vals)
+        sub = self.subexecutors[name]
+        # a SIGTERM / SIGINT during the step defers its save to the
+        # boundary, where parameters, optimizer state and step agree
+        self._in_step = True
+        try:
+            out = sub.run(feed_dict or {}, convert_to_numpy_ret_vals)
+        finally:
+            self._in_step = False
+        self._post_step(sub.training)
+        return out
+
+    def remat_plan(self, name=None):
+        """``{"policy": ..., "plans": {subgraph: plan report}}`` (with
+        ``name``, that subgraph's report or None); only ``'full'`` builds
+        per-segment plans."""
+        plans = {n: sub._remat_plan.report()
+                 for n, sub in self.subexecutors.items()
+                 if sub._remat_plan is not None}
+        if name is not None:
+            return plans.get(name)
+        return {"policy": self.remat, "plans": plans}
 
     def get_batch_num(self, name="default"):
         """Batches an epoch of subgraph ``name``'s dataloaders holds (the
@@ -878,6 +1136,4 @@ class Executor:
     def return_tensor_values(self):
         """``{checkpoint name: numpy array}`` of every variable; stage-3
         ZeRO parameters gathered from the ranks' rows (a collective)."""
-        full = self._zero_gather(list(self._zero_covered), count=False)
-        return {self.var_names[n]: full.get(n, v).detach().cpu().numpy()
-                for n, v in self.var_values.items()}
+        return {self.var_names[n]: hv for n, hv in self._vars_host()}

@@ -23,9 +23,18 @@ Families:
   joins/leaves, prefill rows, ...); kinds ending in ``_hw`` are
   high-water gauges.
 * ``serve`` — InferenceExecutor events, same gauge rule.
-* ``faults`` — fault-tolerance events by kind; the port records one:
+* ``faults`` — fault-tolerance events by kind:
   ``preduce_dead_rank_excluded``, dead ranks a partial-reduce group left
-  out (``parallel.preduce.PartialReduce``).
+  out (``parallel.preduce.PartialReduce``); and the checkpoint events the
+  JAX package records, ``auto_save`` (a periodic checkpoint written),
+  ``emergency_save`` (a SIGTERM / SIGINT save), ``resume`` (a
+  checkpoint restored) and ``ckpt_incomplete_skipped`` (an incomplete
+  checkpoint passed over by ``resume``).
+* ``remat`` — rematerialization: the ``'full'`` plan's segments
+  (``remat_layers_total``, ``remat_layers_rematted``, once a build),
+  ``remat_offload_fallback`` (``'offload'`` without a card, once a
+  build) and ``remat_offload_bytes`` (bytes ``'offload'`` moved to
+  pinned host memory, every step).
 * ``zero`` — the ZeRO sharded update's traffic and padding, in bytes
   (``zero_reduce_scatter_bytes``: gradient slabs reduce-scattered,
   ``zero_all_gather_bytes``: updated parameter slabs gathered back,
@@ -228,6 +237,21 @@ def reset_faults():
 
 
 # ----------------------------------------------------------------- ZeRO
+
+def record_remat(kind, n=1):
+    """Count ``n`` rematerialization events of ``kind``."""
+    if n:
+        _REGISTRY.record("remat", kind, n)
+
+
+def remat_counts():
+    """{kind: count} of rematerialization events."""
+    return _REGISTRY.counts("remat")
+
+
+def reset_remat_counts():
+    _REGISTRY.reset("remat")
+
 
 def record_zero(kind, n=1):
     """Count ``n`` bytes of ZeRO sharded-update traffic of ``kind``."""

@@ -4,8 +4,8 @@ permutation-LM and Longformer MLM pretraining, and the CNN zoo (ResNet,
 VGG, AlexNet, LeNet, the 3-layer CNN, MLP, logistic regression)."""
 from .gpt2 import (GPT2Config, gpt2_decode_chunked_graph, gpt2_decode_graph,
                    gpt2_lm_graph, gpt2_model, synthetic_lm_batch)
-from .bert import (BertConfig, bert_model, bert_pooler, bert_pretrain_graph,
-                   synthetic_mlm_batch)
+from .bert import (BertConfig, bert_classify_graph, bert_model, bert_pooler,
+                   bert_pretrain_graph, synthetic_mlm_batch)
 from .common import (masked_lm_loss, merge_heads, post_ln_encoder_stack,
                      split_heads)
 from .cnn import (alexnet, cnn_3_layers, lenet, logreg, mlp, resnet,

@@ -1,4 +1,5 @@
-"""BERT pretraining graph (twin of ``hetu_tpu/models/bert.py``).
+"""BERT pretraining and sequence-classification graphs (twin of
+``hetu_tpu/models/bert.py``).
 
 The same graph, node for node: attention is the fused ``sdpa_op`` /
 ``sdpa_masked_op`` (the hand-written flash kernels on the card) and
@@ -6,8 +7,9 @@ activations flow as (batch*seq, hidden) 2-D tensors.  Variable names match
 the JAX graph letter for letter (``bert.embeddings.word.weight``,
 ``bert.layer{i}.attn.{q,k,v,o}``, ``.ln1``, ``.ffn1``, ``.ffn2``,
 ``.ln2``, ``bert.mlm_transform``, ``.mlm_ln``, ``.mlm_decoder``,
-``bert.pooler.dense``, ``bert.seq_relationship``), so the JAX package's
-weights load into the port by name.
+``bert.pooler.dense``, ``bert.seq_relationship``, ``bert.classifier``),
+so the JAX package's weights load into the port by name, and a
+pretraining checkpoint warm-starts ``bert_classify_graph``'s trunk.
 """
 from __future__ import annotations
 
@@ -178,6 +180,42 @@ def bert_pooler(cfg, seq, name="bert.pooler"):
     return Linear(cfg.hidden_size, cfg.hidden_size, activation="tanh",
                   initializer=init.GenTruncatedNormal(0.0, 0.02),
                   name=name + ".dense")(cls)
+
+
+def bert_classify_graph(cfg, num_labels, name="bert", use_mask=True):
+    """Sequence-classification fine-tuning graph: the pooler and a
+    classifier head over the encoder.  Returns (placeholders dict, loss
+    node, logits node); ``labels``: (batch,) int class ids.
+
+    The encoder's and embeddings' variable names are
+    ``bert_pretrain_graph``'s, so ``Executor.load(pretrain_ckpt,
+    params_only=True)`` restores the shared trunk by name and leaves the
+    pooler and classifier at their init (``params_only`` keeps the fresh
+    step counter and optimizer state: a full ``load`` would resume the
+    pretraining schedule and moments into the new task)."""
+    shape = (cfg.batch_size, cfg.seq_len)
+    input_ids = placeholder_op("input_ids", shape=shape, dtype=np.int32)
+    token_type_ids = placeholder_op("token_type_ids", shape=shape,
+                                    dtype=np.int32)
+    labels = placeholder_op("labels", shape=(cfg.batch_size,),
+                            dtype=np.int32)
+    attention_mask = placeholder_op("attention_mask", shape=shape,
+                                    dtype=np.int32) if use_mask else None
+
+    seq = bert_model(cfg, input_ids, token_type_ids,
+                     attention_mask=attention_mask, name=name)
+    pooled = bert_pooler(cfg, seq, name + ".pooler")
+    pooled = ops.dropout_op(pooled, 1.0 - cfg.hidden_dropout_prob)
+    logits = Linear(cfg.hidden_size, num_labels,
+                    initializer=init.GenTruncatedNormal(0.0, 0.02),
+                    name=name + ".classifier")(pooled)
+    loss = ops.reduce_mean_op(
+        ops.softmaxcrossentropy_sparse_op(logits, labels), [0])
+    feeds = {"input_ids": input_ids, "token_type_ids": token_type_ids,
+             "labels": labels}
+    if attention_mask is not None:
+        feeds["attention_mask"] = attention_mask
+    return feeds, loss, logits
 
 
 def synthetic_mlm_batch(cfg, seed=0, mask_frac=0.15, full_frac=0.35):

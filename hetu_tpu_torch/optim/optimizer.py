@@ -11,13 +11,15 @@ step ``t`` is an int32 tensor and its bias corrections are
 LAMB scales the update by the trust ratio ||p|| / ||update||, whose
 norms under ZeRO sum over the ranks' rows of the parameter.
 
-Not ported: a learning rate that is an ``LRScheduler`` (a schedule) —
-the rate is a number.
+The learning rate is a number or an ``LRScheduler``
+(``optim/lr_scheduler.py``).  The executor asks ``step_lr(step)`` for
+the step's float32 rate before every update, so a schedule advances with
+the step counter and an ``opt.lr = x`` reassignment between steps is
+honored on the next one (the JAX package's ``_check_lr_objs``).
 """
 from __future__ import annotations
 
-import numbers
-
+import numpy as np
 import torch
 
 from ..graph.gradients import gradients
@@ -41,12 +43,32 @@ class OptimizerOp(Op):
 
 class Optimizer:
     def __init__(self, learning_rate, l2reg=0.0):
-        if not isinstance(learning_rate, numbers.Real):
-            raise NotImplementedError(
-                f"learning rate {type(learning_rate).__name__}: LRScheduler "
-                f"learning rates are not ported — pass a number")
-        self.lr = float(learning_rate)
+        self.lr = learning_rate  # a number or an LRScheduler
         self.l2reg = l2reg
+
+    # -- the learning rate ------------------------------------------------
+    def host_lr(self, step):
+        """The float64 rate of ``step`` (logging, checkpoint metadata)."""
+        from .lr_scheduler import LRScheduler
+        if isinstance(self.lr, LRScheduler):
+            return float(self.lr.get(step))
+        return float(self.lr)
+
+    def step_lr(self, step):
+        """The float32 rate the update of ``step`` uses: a schedule's
+        ``traced`` value, or, for a data-dependent schedule, its ``get``
+        rounded to float32 (the JAX package's traced and host paths)."""
+        from .lr_scheduler import LRScheduler
+        if isinstance(self.lr, LRScheduler):
+            v = self.lr.traced(step)
+            return np.float32(self.lr.get(step) if v is None else v)
+        return np.float32(float(self.lr))
+
+    def on_step(self, step):
+        """Called with the new step counter after every training step."""
+        from .lr_scheduler import LRScheduler
+        if isinstance(self.lr, LRScheduler):
+            self.lr.on_step(step)
 
     # -- graph API --------------------------------------------------------
     def minimize(self, loss, var_list=None):

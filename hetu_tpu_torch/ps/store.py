@@ -6,16 +6,46 @@ The port keeps the JAX package's pure-numpy table (``_NumpyTable``): a
 momentum / Nesterov / AdaGrad / Adam updates of the native store.  The
 native C++ store (``ps/native/ps_store.cc``) is not ported yet; its
 tables initialise from another generator, so a run that must match it
-loads one table into both with :meth:`EmbeddingStore.set_data`.  Not
-ported: save / load / digest, load recording, SSP clocks and dense push.
+loads one table into both with :meth:`EmbeddingStore.set_data`.
+
+``save`` / ``load`` keep a table's whole state (data, optimizer slots,
+versions) in the JAX package's streamed v3 file: the magic
+``HETUPS3\n``, an int64 header length, a JSON header naming each array's
+dtype and shape, then the arrays' bytes in order, written and read in
+64 MB slices.  The file is byte for byte the one the JAX package's numpy
+table writes; ``load`` also reads its v2 ``npz`` and v1 ``.npy`` files.
+Not ported: the state digest, load recording, SSP clocks and dense push.
 """
 from __future__ import annotations
 
+import json
+import struct
 import threading
 
 import numpy as np
 
 _OPT_IDS = {"sgd": 0, "momentum": 1, "nesterov": 2, "adagrad": 3, "adam": 4}
+
+_V3_MAGIC = b"HETUPS3\n"
+_V3_CHUNK = 1 << 26          # 64 MB a write / readinto slice
+
+
+def _write_chunked(f, arr):
+    """Stream a C-contiguous array to ``f`` without copying it whole."""
+    mv = memoryview(arr).cast("B")
+    for off in range(0, len(mv), _V3_CHUNK):
+        f.write(mv[off:off + _V3_CHUNK])
+
+
+def _read_chunked(f, arr):
+    """Stream bytes from ``f`` into ``arr``'s buffer."""
+    mv = memoryview(arr).cast("B")
+    off = 0
+    while off < len(mv):
+        n = f.readinto(mv[off:off + _V3_CHUNK])
+        if not n:
+            raise IOError(f"truncated v3 table checkpoint at byte {off}")
+        off += n
 
 
 class _NumpyTable:
@@ -139,6 +169,63 @@ class EmbeddingStore:
         t = self._tables[table]
         with t._lock:
             return t.version[keys].copy()
+
+    def save(self, table, path):
+        """The table's whole state (data, versions, optimizer slots) to
+        ``path`` in the v3 format."""
+        t = self._tables[table]
+        with t._lock:
+            blobs = [("data", t.data), ("version", t.version)]
+            for name in ("s0", "s1", "t"):
+                if getattr(t, name) is not None:
+                    blobs.append((name, getattr(t, name)))
+            header = json.dumps({"arrays": [
+                {"name": n, "dtype": str(a.dtype), "shape": list(a.shape)}
+                for n, a in blobs]}).encode()
+            with open(path, "wb") as f:
+                f.write(_V3_MAGIC)
+                f.write(struct.pack("<q", len(header)))
+                f.write(header)
+                for _, a in blobs:
+                    _write_chunked(f, a)
+
+    def load(self, table, path):
+        """Restore a table saved by :meth:`save` (or by the JAX package's
+        numpy table: v3, v2 ``npz`` or v1 ``.npy``)."""
+        t = self._tables[table]
+        with t._lock, open(path, "rb") as f:
+            head = f.read(8)
+            if head == _V3_MAGIC:
+                (hlen,) = struct.unpack("<q", f.read(8))
+                meta = json.loads(f.read(hlen).decode())
+                for spec in meta["arrays"]:
+                    target = {"data": t.data, "version": t.version,
+                              "s0": t.s0, "s1": t.s1, "t": t.t}.get(
+                                  spec["name"])
+                    nbytes = (int(np.prod(spec["shape"]))
+                              * np.dtype(spec["dtype"]).itemsize)
+                    if target is None:
+                        f.seek(nbytes, 1)   # a slot this table lacks
+                        continue
+                    if (list(target.shape) != list(spec["shape"])
+                            or str(target.dtype) != spec["dtype"]):
+                        raise IOError(
+                            f"v3 checkpoint array {spec['name']} is "
+                            f"{spec['shape']}:{spec['dtype']}, table wants "
+                            f"{list(target.shape)}:{target.dtype}")
+                    _read_chunked(f, target)
+                return
+        if head[:2] == b"PK":      # v2: an npz archive of the full state
+            blobs = np.load(path)
+            with t._lock:
+                t.data[:] = blobs["data"]
+                t.version[:] = blobs["version"]
+                for name in ("s0", "s1", "t"):
+                    if name in blobs and getattr(t, name) is not None:
+                        getattr(t, name)[:] = blobs[name]
+        else:                      # v1: a bare .npy of the data
+            with t._lock:
+                t.data[:] = np.load(path)
 
 
 _default_store = []

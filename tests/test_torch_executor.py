@@ -100,14 +100,17 @@ def test_load_dict_and_return_tensor_values_round_trip():
                                  "timing"])
 def test_unported_executor_options_raise_by_name(opt):
     _, _, loss, _, train_op = _mlp(tht)
-    # compute_dtype is ported for bfloat16 only; float16 stays refused
-    # (zero= is ported: tests/test_torch_zero.py)
-    value = {"compute_dtype": "float16", "remat": "dots",
+    # compute_dtype is ported for bfloat16 only; float16 stays refused;
+    # remat is ported but for 'auto'; num_microbatches is ported but
+    # under a strategy (zero= is ported: tests/test_torch_zero.py)
+    value = {"compute_dtype": "float16", "remat": "auto",
              "num_microbatches": 4, "pipeline": "gpipe",
              "timing": True}.get(opt, object())
+    kw = {opt: value}
+    if opt == "num_microbatches":
+        kw["dist_strategy"] = tht.dist.DataParallel()
     with pytest.raises(NotImplementedError, match=opt):
-        tht.Executor({"train": [loss, train_op]}, device="cpu",
-                     **{opt: value})
+        tht.Executor({"train": [loss, train_op]}, device="cpu", **kw)
 
 
 def test_non_blocking_run_is_not_ported():

@@ -65,6 +65,10 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "import hetu_tpu_torch.parallel.collectives\n"
             "import hetu_tpu_torch.parallel.preduce\n"
             "import hetu_tpu_torch.parallel.strategies\n"
+            "import hetu_tpu_torch.parallel.remat\n"
+            "import hetu_tpu_torch.graph.checkpoint\n"
+            "import hetu_tpu_torch.optim.lr_scheduler\n"
+            "import hetu_tpu_torch.ps.store\n"
             "assert sys.modules['jax'] is None\n"
             "x = hetu_tpu_torch.placeholder_op('x')\n"
             "ex = hetu_tpu_torch.Executor([x * 2.0], device='cpu',\n"

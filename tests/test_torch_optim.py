@@ -76,7 +76,3 @@ def test_optimizer_trajectory_matches_jax(case):
         np.testing.assert_allclose(got_w[name], np.asarray(want_w[name]),
                                    rtol=0, atol=ATOL, err_msg=name)
 
-
-def test_scheduled_learning_rate_is_not_ported():
-    with pytest.raises(NotImplementedError, match="LRScheduler"):
-        tht.optim.AdamOptimizer(jht.lr.FixedScheduler(0.1))

@@ -39,6 +39,14 @@ process.
 * Tiny BERT (``test_torch_parallel.py``'s, Adam 1e-3, 5 steps) at stages
   2 and 3, dp 2: losses bit-equal to the port's stage 0, and within
   rtol 2e-4 of the JAX single-device run.
+* Checkpoints (Adam): at dp 2, stages 1-3 save after 3 steps, a fresh
+  executor loads, and its next 3 losses are the uninterrupted run's bit
+  for bit; the moments are stored as ``(dp, width)`` slabs, as the JAX
+  package stores them.  World 4 loads each dp-2 checkpoint (the moments
+  transcoded to its layout, with the JAX package's warning) and continues
+  within ``MLP_RTOL`` of the dp-2 run.  The JAX package's
+  ``DataParallel(num_devices=2)``, ``zero=2`` checkpoint loads in the port
+  at dp 2 and continues within ``MLP_RTOL`` of the JAX continuation.
 
 The plan, the stage resolution and the slab packing are held to
 ``hetu_tpu.parallel.zero`` exactly, in this process.  The rank processes
@@ -75,6 +83,7 @@ BERT_STEPS, BERT_RTOL = 5, 2e-4
 SUM_TOL = dict(rtol=1e-6, atol=1e-6)
 PREDUCE_MASK = (1.0, 1.0, 0.0, 1.0)     # rank 2 dead
 PREDUCE_WIDTH = 6
+CKPT_STEPS = 3
 
 
 def optimizer(ht, name):
@@ -225,6 +234,50 @@ def bert_workloads(dp, weights):
     return out
 
 
+def ckpt_saves(dp, tmp):
+    """World 2: each stage's save → fresh executor → load → continue; the
+    checkpoints stay for world 4 (a marker file says they are complete)."""
+    import torch.distributed as dist
+    out = {}
+    for stage in (1, 2, 3):
+        x, y_, _, ex = mlp(tht, "adam", device="cpu", dist_strategy=dp,
+                           zero=stage)
+        first, _ = _run_mlp(ex, x, y_, CKPT_STEPS)
+        path = os.path.join(tmp, f"dp2_stage{stage}")
+        ex.save(path)
+        x2, y2, _, ex2 = mlp(tht, "adam", device="cpu", dist_strategy=dp,
+                             zero=stage)
+        ex2.load(path)
+        out[stage] = {"first": first, "step": ex2.step_counter,
+                      "next": _run_mlp(ex2, x2, y2, CKPT_STEPS)[0]}
+    if dist.get_rank() == 0:
+        with open(os.path.join(tmp, "dp2.tmp"), "w") as f:
+            f.write("done")
+        os.replace(os.path.join(tmp, "dp2.tmp"),
+                   os.path.join(tmp, "dp2.done"))
+    return out
+
+
+def ckpt_loads_transcoded(dp, tmp, deadline):
+    """World 4: each dp-2 checkpoint loaded and continued."""
+    import warnings
+    while not os.path.exists(os.path.join(tmp, "dp2.done")):
+        if time.monotonic() > deadline:
+            raise TimeoutError("the dp-2 checkpoints never appeared")
+        time.sleep(0.2)
+    out = {}
+    for stage in (1, 2, 3):
+        x, y_, _, ex = mlp(tht, "adam", device="cpu", dist_strategy=dp,
+                           zero=stage)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ex.load(os.path.join(tmp, f"dp2_stage{stage}"))
+        out[stage] = {"next": _run_mlp(ex, x, y_, CKPT_STEPS)[0],
+                      "warned": any("transcoding" in str(w.message)
+                                    for w in caught)}
+    return out
+
+
 def rank_main(rank, world, init_file, out_dir, weights_path):
     import torch.distributed as dist
     torch.set_num_threads(1)
@@ -232,8 +285,20 @@ def rank_main(rank, world, init_file, out_dir, weights_path):
         dist.init_process_group("gloo", init_method="file://" + init_file,
                                 rank=rank, world_size=world)
         dp = tht.dist.DataParallel()
-        res = {"mlp": mlp_workloads(dp), "stage3": stage3_workloads(dp),
-               "counts": counter_workloads(dp)}
+        tmp = os.path.dirname(out_dir)
+        res = {}
+        if world == 2:
+            res["ckpt"] = ckpt_saves(dp, tmp)
+            x, y_, _, ex = mlp(tht, "adam", device="cpu", dist_strategy=dp,
+                               zero=2)
+            ex.load(os.path.join(tmp, "jax_zero2"))
+            res["from_jax"] = _run_mlp(ex, x, y_, CKPT_STEPS)[0]
+        res.update({"mlp": mlp_workloads(dp),
+                    "stage3": stage3_workloads(dp),
+                    "counts": counter_workloads(dp)})
+        if world == 4:
+            res["ckpt"] = ckpt_loads_transcoded(
+                dp, tmp, time.monotonic() + JOIN_TIMEOUT)
         x, y_, _, ex = mlp(tht, "adam", device="cpu",
                            dist_strategy=tht.dist.DataParallel(zero=1))
         res["strategy_zero"] = (ex.zero, bool(ex._zero_plans),
@@ -256,18 +321,28 @@ def rank_main(rank, world, init_file, out_dir, weights_path):
 
 # -- the JAX references, in the test process ---------------------------------------
 
-def jax_references(jht, jbert):
-    """Tiny BERT's initial weights (yielded first), then its single-device
-    losses and the ragged MLP's ``DataParallel(num_devices=dp)`` stage-0
-    losses of every optimizer."""
+def jax_references(jht, jbert, tmp):
+    """Tiny BERT's initial weights and the ``zero=2`` dp-2 checkpoint
+    (``<tmp>/jax_zero2``, written after 3 steps) first; then the BERT
+    single-device losses, that checkpoint's continuation and the ragged
+    MLP's ``DataParallel(num_devices=dp)`` stage-0 losses of every
+    optimizer."""
     loss, fd = bert_graph(jbert)
     ex = jht.Executor({"train": [loss, jht.optim.AdamOptimizer(1e-3)
                                  .minimize(loss)]}, seed=11, validate="off")
     ref = {"weights": ex.return_tensor_values()}
+    xv, yv = mlp_feeds()
+    zx, zy, _, zex = mlp(jht, "adam", dist_strategy=jht.dist.DataParallel(
+        num_devices=2), zero=2, validate="off")
+    for _ in range(CKPT_STEPS):
+        zex.run("train", feed_dict={zx: xv, zy: yv})
+    zex.save(os.path.join(tmp, "jax_zero2"))
     yield ref
+    ref["jax_zero2_next"] = [
+        float(np.asarray(zex.run("train", feed_dict={zx: xv, zy: yv})[0]
+                         .asnumpy())) for _ in range(CKPT_STEPS)]
     ref["bert"] = [float(np.asarray(ex.run("train", feed_dict=fd)[0]
                                     .asnumpy())) for _ in range(BERT_STEPS)]
-    xv, yv = mlp_feeds()
     for world in WORLDS:
         for opt in OPTS:
             x, y_, _, jex = mlp(jht, opt, dist_strategy=jht.dist
@@ -285,7 +360,7 @@ def runs(tmp_path_factory):
     import hetu_tpu as jht
     from hetu_tpu.models import bert as jbert
     tmp = str(tmp_path_factory.mktemp("zero"))
-    refs = jax_references(jht, jbert)
+    refs = jax_references(jht, jbert, tmp)
     ref = next(refs)
     weights_path = os.path.join(tmp, "weights.pkl")
     with open(weights_path, "wb") as f:
@@ -298,6 +373,7 @@ def runs(tmp_path_factory):
     finally:
         out = {w: join_world(*started[w], deadline) for w in WORLDS}
     out["ref"] = ref
+    out["tmp"] = tmp
     return out
 
 
@@ -469,6 +545,47 @@ def test_tiny_bert_sharded_matches_stage0_and_jax(runs, stage):
                                rtol=BERT_RTOL)
     assert got[stage][-1] < got[stage][0]
     assert runs[2][1]["bert"][stage] == got[stage]
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_checkpoint_round_trip_is_bit_equal(runs, stage):
+    whole = runs[2][0]["mlp"]["adam", stage]["losses"]
+    for res in runs[2]:
+        got = res["ckpt"][stage]
+        assert got["step"] == CKPT_STEPS
+        assert got["first"] == whole[:CKPT_STEPS]
+        assert got["next"] == whole[CKPT_STEPS:2 * CKPT_STEPS]
+    # the moments as the JAX package stores them: (dp, width) slabs
+    import json
+    path = os.path.join(runs["tmp"], f"dp2_stage{stage}")
+    with open(os.path.join(path, "meta.json")) as f:
+        leaves = json.load(f)["opt"][0]["leaves"]
+    slabs = [k for k in leaves if k.endswith(".zb0']")]
+    assert sorted(k.split("']")[0] for k in slabs) == ["['m", "['v"]
+    for k in slabs:
+        assert np.load(os.path.join(path, "opt", leaves[k])).shape == \
+            (2, 54)
+    if stage == 2:
+        with open(os.path.join(runs["tmp"], "jax_zero2", "meta.json")) as f:
+            assert json.load(f)["opt"][0]["leaves"] == leaves
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_dp2_checkpoint_loads_transcoded_at_dp4(runs, stage):
+    want = runs[2][0]["mlp"]["adam", stage]["losses"][
+        CKPT_STEPS:2 * CKPT_STEPS]
+    for res in runs[4]:
+        got = res["ckpt"][stage]
+        assert got["warned"]
+        np.testing.assert_allclose(got["next"], want, rtol=MLP_RTOL)
+        assert got["next"] == runs[4][0]["ckpt"][stage]["next"]
+
+
+def test_jax_zero2_checkpoint_continues_in_the_port(runs):
+    for res in runs[2]:
+        np.testing.assert_allclose(res["from_jax"],
+                                   runs["ref"]["jax_zero2_next"],
+                                   rtol=MLP_RTOL)
 
 
 # -- plans, stages and slabs against the JAX package, in this process ---------------
