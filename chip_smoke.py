@@ -446,15 +446,45 @@ without printing the final result line:
     trajectory): 3 steps, ``save``, a fresh graph, store and executor,
     ``load``, 3 steps, bit-equal to 6 uninterrupted steps, one B4 and one
     B5 launch a step.
-42. Print the card's name and power limit, the ``kernels`` JSON line (each
-    flash row counts the launches of phases 38-41 too, B4 and B5 those of
-    phase 41, by kernels-line name) and, last, ``{"ok": true, "device":
-    {...}}``.
+42. The executor's run surface on BERT-base at phase 6's cell (dropout
+    0.1, ``AdamOptimizer(1e-4)``, one seed for every executor), under
+    deterministic algorithms but for (d), with
+    ``HETU_FEED_PIPELINE_MIN_US=0`` so that every ahead-of-step placement
+    takes the side stream.  (a) ``lint`` of the graph (its wall time; clean
+    and complete), then ``Executor(validate='error')``: every launch
+    counter 0 across the construction.  (b) That executor through
+    ``run_steps(feeder, 4, sync=False)`` three times and a second one
+    through a plain ``run()`` loop of 4 steps three times, in turns: the
+    12 losses bit-equal, ``plan_cache_hit`` 11 and ``plan_cache_miss`` 1
+    over the async executor's counted steps, ``feeds_pipelined`` and
+    ``async_sync_points`` counted, 12 launches a step of each training
+    kernel with no ``backend:`` fallback; ms a step of each turn, one
+    profiled turn of 3 steps each (device busy ms a step; the idle share
+    against the unprofiled turns' p50), and one step each under ``torch.cuda.set_sync_debug_mode("warn")``, whose
+    warnings list the host syncs of a step by source line.  (f) A feed of
+    the wrong shape: ``GraphValidationError`` naming ``input_ids``, no
+    launch.  (c) The same graph with its four feeds ``dataloader_op``s
+    over a ``synthetic_mlm_batch`` of 6 batches, the feed pipeline on and
+    off: losses bit-equal, ``feeds_pipelined`` 4 a step after the first
+    with it on and none off, p50 of both.  (e) ``remat='off'``, ``'auto'``
+    with the card's budget and ``'auto'`` under ``HETU_HBM_BUDGET_MB=1``
+    (every segment rematted): 2 steps each, losses bit-equal, the plans
+    and ``max_memory_allocated``.  (g) Wide & Deep at phase 9's
+    configuration, 8 steps with ``sync=False`` against 8 with
+    ``sync=True``: losses bit-equal, B4 and B5 once a step.  (d)
+    ``matmul_precision`` None, ``'tensorfloat32'`` and ``'bfloat16'``, 5
+    steps each: p50, the largest loss gap against None, TF32 off again
+    after each.
+43. Print the card's name and power limit, the ``kernels`` JSON line (each
+    flash row counts the launches of phases 38-42 too, B4 and B5 those of
+    phases 41 and 42, by kernels-line name) and, last, ``{"ok": true,
+    "device": {...}}``.
 
 Float32 matrix products run in full float32:
 ``torch.backends.cuda.matmul.allow_tf32`` is set False.  The bf16 ones
 run on the tensor cores (cuBLAS), as the JAX package leaves them to XLA.
 """
+import collections
 import contextlib
 import gc
 import json
@@ -623,6 +653,15 @@ STATE_STEPS, REMAT_STEPS, ACC_M, ACC_STEPS = 6, 2, 2, 3
 STATE_LR = (1e-4, 2, 8)
 REMAT_POLICIES = ("off", "dots", "full", "offload")
 ACC_RTOL = (1e-5, 1e-3)
+# phase 42: the executor's run surface at phase 6's cell.  (b) 12 counted
+# steps a loop in 3 turns of 4 (the async window of 4 stays full from the
+# second turn on), then one profiled turn of 3; (c) steps fed by loaders;
+# (d) steps a precision; (e) steps a remat plan and the budget that
+# remats everything; (g) WDL steps a mode
+RS_TURNS, RS_TURN_STEPS, RS_PROFILED = 3, 4, 3
+RS_DL_STEPS, RS_PREC_STEPS, RS_REMAT_STEPS, RS_WDL_STEPS = 6, 5, 2, 8
+RS_SMALL_BUDGET_MB = 1
+RS_PRECISIONS = (None, "tensorfloat32", "bfloat16")
 
 
 def log(msg):
@@ -5492,6 +5531,441 @@ def phase_training_state(ht, fa, emb, seg, metrics, kmods):
     return launches
 
 
+def _launch_counts(kmods):
+    """{module: {counter: n}} of every kernel launch counter that is not
+    0."""
+    out = {}
+    for mod in kmods:
+        hot = {k: v for k, v in vars(mod).items()
+               if k.endswith("launches") and v}
+        if hot:
+            out[mod.__name__.rsplit(".", 1)[-1]] = hot
+    return out
+
+
+def _rs_bert(ht, cfg, **kw):
+    """BERT-base at ``cfg`` on ``AdamOptimizer(1e-4)``: (feeds, fetches,
+    executor)."""
+    feeds, loss, _ = ht.bert_pretrain_graph(cfg)
+    fetches = [loss, ht.optim.AdamOptimizer(1e-4).minimize(loss)]
+    ex = ht.Executor({"train": fetches}, seed=0, device="cuda", **kw)
+    return feeds, fetches, ex
+
+
+def _left_kernels(metrics):
+    left = {r: c for r, c in metrics.flash_fallback_counts().items()
+            if r.startswith("backend:")}
+    if left:
+        raise AssertionError(f"attention left the kernels: {left}")
+
+
+def _check_flash(fa, steps, layers, tag, fwd_per_layer=1):
+    counts = _flash_counts(fa)
+    want = {"flash_fwd": steps * layers * fwd_per_layer,
+            "flash_bwd_dq": steps * layers, "flash_bwd_dkv": steps * layers}
+    if counts != want:
+        raise AssertionError(f"{tag}: flash launches {counts} != {want}")
+    return counts
+
+
+def _device_busy(pm, step, steps):
+    """(device busy ms a step, profiled wall ms a step) of one profiled
+    call of ``step``, which runs ``steps`` steps."""
+    kern, wall, _ = pm.device_profile(step, 1)
+    if not kern:
+        raise AssertionError("the profiler recorded no device time")
+    return sum(v[1] for v in kern.values()) / 1e3 / steps, \
+        wall * 1e3 / steps
+
+
+def _sync_sites(step):
+    """``step()`` under ``torch.cuda.set_sync_debug_mode("warn")``, which
+    warns wherever a call synchronizes the host with the card: (its
+    result, {source line: count} of those syncs, each at the innermost
+    frame of this repository's code)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sites = collections.Counter()
+    active = [False]     # the mode switch itself warns: count the step only
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if not active[0] or "synchroniz" not in str(message):
+            return
+        for fr in reversed(traceback.extract_stack()[:-1]):
+            if fr.filename.startswith(root):
+                sites[f"{os.path.relpath(fr.filename, root)}:{fr.lineno} "
+                      f"in {fr.name}"] += 1
+                return
+        sites[f"{filename}:{lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        active[0] = True
+        try:
+            out = step()
+        finally:
+            active[0] = False
+            torch.cuda.set_sync_debug_mode(0)
+    return out, dict(sites)
+
+
+def rs_construct(ht, metrics, kmods, cfg):
+    """42a: the lint's wall time, and a validated construction that
+    launches nothing."""
+    feeds, loss, _ = ht.bert_pretrain_graph(cfg)
+    fetches = [loss, ht.optim.AdamOptimizer(1e-4).minimize(loss)]
+    reset_launches(*kmods)
+    metrics.reset_flash_fallbacks()
+    t0 = time.perf_counter()
+    report = ht.lint(fetches)
+    lint_s = time.perf_counter() - t0
+    if not report.ok or not report.complete:
+        raise AssertionError(f"BERT-base lint: {report}")
+    t0 = time.perf_counter()
+    ex = ht.Executor({"train": fetches}, seed=0, device="cuda",
+                     validate="error")
+    build_s = time.perf_counter() - t0
+    hot = _launch_counts(kmods)
+    if hot or metrics.flash_fallback_counts():
+        raise AssertionError(f"validated construction launched {hot}, "
+                             f"fallbacks {metrics.flash_fallback_counts()}")
+    return feeds, ex, {"lint_s": lint_s, "build_s": build_s,
+                       "nodes": len(report.shapes.topo), "launches": 0}
+
+
+def rs_async(ht, fa, metrics, kmods, pm, cfg, batch, feeds_a, ex_a,
+             launches):
+    """42b: ``run_steps(sync=False)`` against a plain ``run()`` loop, in
+    turns; bit-equal losses, the plan counters, launches, p50, idle
+    share."""
+    feeds_s, _, ex_s = _rs_bert(ht, cfg)
+    fd_a, fd_s = _bert_feeds(feeds_a, batch), _bert_feeds(feeds_s, batch)
+    plan = {}
+    turns = {"async": [], "sync": []}
+    call_ms, losses = [], {"async": [], "sync": []}
+
+    def async_turn(n):
+        outs = ex_a.run_steps(lambda i: fd_a, n, name="train", sync=False)
+        torch.cuda.synchronize()
+        return [o[0] for o in outs]
+
+    def sync_turn(n):
+        outs = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            outs.append(ex_s.run("train", feed_dict=fd_s)[0])
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return outs
+
+    for _ in range(RS_TURNS):
+        for kind, turn in (("async", async_turn), ("sync", sync_turn)):
+            reset_launches(*kmods)
+            metrics.reset_flash_fallbacks()
+            metrics.reset_run_plan_counts()
+            t0 = time.perf_counter()
+            outs = turn(RS_TURN_STEPS)
+            turns[kind].append((time.perf_counter() - t0) * 1e3
+                               / RS_TURN_STEPS)
+            losses[kind] += [float(o.asnumpy()) for o in outs]
+            counts = _check_flash(fa, RS_TURN_STEPS, cfg.num_hidden_layers,
+                                  f"42b {kind}")
+            for k, n in counts.items():
+                launches[k] += n
+            _left_kernels(metrics)
+            for k, n in metrics.run_plan_counts().items():
+                if kind == "async":
+                    plan[k] = plan.get(k, 0) + n
+    if plan.get("plan_cache_hit") != RS_TURNS * RS_TURN_STEPS - 1 \
+            or plan.get("plan_cache_miss") != 1:
+        raise AssertionError(f"async plan lookups {plan}")
+    for k in ("feeds_pipelined", "async_sync_points"):
+        if not plan.get(k):
+            raise AssertionError(f"{k} not counted: {plan}")
+    # one profiled turn of each (the trajectories stay in step)
+    idle = {}
+    for kind, turn, out in (("async", async_turn, losses["async"]),
+                            ("sync", sync_turn, losses["sync"])):
+        reset_launches(*kmods)
+        last = []
+        busy, wall = _device_busy(
+            pm, lambda t=turn: last.extend(t(RS_PROFILED)), RS_PROFILED)
+        out += [float(o.asnumpy()) for o in last]
+        for k, n in _check_flash(fa, RS_PROFILED, cfg.num_hidden_layers,
+                                 f"42b {kind} profiled").items():
+            launches[k] += n
+        # the profiler's own host cost inflates the profiled step: the
+        # share is taken against the unprofiled turns' p50
+        p50 = float(np.percentile(turns[kind], 50))
+        idle[kind] = {"device_busy_ms_per_step": busy,
+                      "profiled_ms_per_step": wall,
+                      "device_idle_share_unprofiled": 1.0 - busy / p50,
+                      "device_idle_share_profiled": 1.0 - busy / wall}
+    # the host syncs of one step of each
+    syncs = {}
+    probes = (("async", lambda: ex_a.run_steps(lambda i: fd_a, 1,
+                                               name="train", sync=False)[0],
+               losses["async"]),
+              ("sync", lambda: ex_s.run("train", feed_dict=fd_s),
+               losses["sync"]))
+    for kind, step, out in probes:
+        reset_launches(*kmods)
+        step_out, syncs[kind] = _sync_sites(step)
+        out.append(float(step_out[0].asnumpy()))
+        for k, n in _check_flash(fa, 1, cfg.num_hidden_layers,
+                                 f"42b {kind} sync probe").items():
+            launches[k] += n
+    if losses["async"] != losses["sync"]:
+        raise AssertionError(f"async losses {losses['async']} != sync "
+                             f"{losses['sync']}")
+    rep = {"steps": RS_TURNS * RS_TURN_STEPS + RS_PROFILED + 1,
+           "losses": losses["sync"], "plan_counts_async": plan,
+           "host_syncs_a_step": syncs,
+           "turn_ms_per_step": turns,
+           "step_ms_p50": {k: float(np.percentile(v, 50))
+                           for k, v in turns.items()},
+           "sync_run_call_ms_p50": float(np.percentile(call_ms, 50)),
+           "idle": idle}
+    ex_s.close()
+    del ex_s
+    _free_cuda()
+    return rep
+
+
+def _dataloader_bert(ht, cfg, data):
+    """BERT-base at ``cfg`` with each of its four feeds a ``dataloader_op``
+    over ``data`` (the placeholders swapped for loaders, int32 kept)."""
+    feeds, loss, _ = ht.bert_pretrain_graph(cfg)
+    fetches = [loss, ht.optim.AdamOptimizer(1e-4).minimize(loss)]
+    swap = {}
+    for key, arr in data.items():
+        node = ht.dataloader_op([ht.Dataloader(arr, cfg.batch_size,
+                                               "train")], name=key)
+        node.dtype, node.shape = np.int32, feeds[key].shape
+        swap[feeds[key]] = node
+    for node in ht.topo_sort(fetches):
+        node.inputs = [swap.get(i, i) for i in node.inputs]
+    return ht.Executor({"train": fetches}, seed=0, device="cuda")
+
+
+def rs_dataloader(ht, fa, metrics, kmods, cfg, launches):
+    """42c: the same graph fed by loaders, the double buffer on and off."""
+    big = ht.BertConfig.base(batch_size=cfg.batch_size * RS_DL_STEPS,
+                             seq_len=cfg.seq_len)
+    ids, tt, labels, attn = ht.synthetic_mlm_batch(big, seed=1)
+    data = {"input_ids": ids, "token_type_ids": tt,
+            "masked_lm_labels": labels, "attention_mask": attn}
+    runs = {}
+    for pipe in ("1", "0"):
+        os.environ["HETU_FEED_PIPELINE"] = pipe
+        try:
+            ex = _dataloader_bert(ht, cfg, data)
+            reset_launches(*kmods)
+            metrics.reset_flash_fallbacks()
+            metrics.reset_run_plan_counts()
+            losses, ms = [], []
+            for _ in range(RS_DL_STEPS):
+                t0 = time.perf_counter()
+                losses.append(float(ex.run("train")[0].asnumpy()))
+                ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            os.environ.pop("HETU_FEED_PIPELINE", None)
+        for k, n in _check_flash(fa, RS_DL_STEPS, cfg.num_hidden_layers,
+                                 f"42c pipeline={pipe}").items():
+            launches[k] += n
+        _left_kernels(metrics)
+        counts = metrics.run_plan_counts()
+        piped = counts.get("feeds_pipelined", 0)
+        if (pipe == "1") != (piped == 4 * (RS_DL_STEPS - 1)):
+            raise AssertionError(f"pipeline={pipe}: feeds_pipelined "
+                                 f"{piped}")
+        runs[pipe] = {"losses": losses, "step_ms": ms,
+                      "step_ms_p50": float(np.percentile(ms, 50)),
+                      "run_plan": counts}
+        ex.close()
+        del ex
+        _free_cuda()
+    if runs["1"]["losses"] != runs["0"]["losses"]:
+        raise AssertionError(f"pipelined losses {runs['1']['losses']} != "
+                             f"{runs['0']['losses']}")
+    return runs
+
+
+def rs_precision(ht, fa, metrics, kmods, cfg, batch, launches):
+    """42d: matmul_precision None, 'tensorfloat32', 'bfloat16'."""
+    runs = {}
+    for prec in RS_PRECISIONS:
+        feeds, _, ex = _rs_bert(ht, cfg, matmul_precision=prec)
+        fd = _bert_feeds(feeds, batch)
+        reset_launches(*kmods)
+        metrics.reset_flash_fallbacks()
+        losses, ms = [], []
+        for _ in range(RS_PREC_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(ex.run("train", feed_dict=fd)[0].asnumpy()))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        state = (torch.get_float32_matmul_precision(),
+                 torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        if state != ("highest", False, False):
+            raise AssertionError(f"matmul_precision={prec}: {state} after "
+                                 f"the steps")
+        for k, n in _check_flash(fa, RS_PREC_STEPS, cfg.num_hidden_layers,
+                                 f"42d {prec}").items():
+            launches[k] += n
+        _left_kernels(metrics)
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"matmul_precision={prec}: {losses}")
+        runs[str(prec)] = {"losses": losses,
+                           "step_ms_p50": float(np.percentile(ms, 50))}
+        del ex
+        _free_cuda()
+    base = runs["None"]["losses"]
+    for rep in runs.values():
+        rep["max_loss_gap_vs_none"] = max(abs(a - b) for a, b in
+                                          zip(rep["losses"], base))
+    return runs
+
+
+def rs_remat(ht, fa, metrics, kmods, cfg, batch, launches):
+    """42e: remat='auto' with the card's budget and with one that must
+    remat everything, against 'off'."""
+    runs = {}
+    for tag, remat, budget in (("off", "off", None), ("auto", "auto", None),
+                               ("auto_small", "auto", RS_SMALL_BUDGET_MB)):
+        if budget is not None:
+            os.environ["HETU_HBM_BUDGET_MB"] = str(budget)
+        try:
+            feeds, _, ex = _rs_bert(ht, cfg, remat=remat)
+        finally:
+            os.environ.pop("HETU_HBM_BUDGET_MB", None)
+        fd = _bert_feeds(feeds, batch)
+        plan = ex.remat_plan("train")
+        _free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(*kmods)
+        metrics.reset_flash_fallbacks()
+        losses = [float(ex.run("train", feed_dict=fd)[0].asnumpy())
+                  for _ in range(RS_REMAT_STEPS)]
+        rematted = plan["segments_rematted"] if plan else 0
+        for k, n in _check_flash(fa, RS_REMAT_STEPS, cfg.num_hidden_layers,
+                                 f"42e {tag}",
+                                 2 if rematted else 1).items():
+            launches[k] += n
+        _left_kernels(metrics)
+        runs[tag] = {"losses": losses,
+                     "peak_mem_gib": torch.cuda.max_memory_allocated()
+                     / 2 ** 30,
+                     "plan": None if plan is None else
+                     {k: plan[k] for k in plan if k != "per_segment"}}
+        del ex
+        _free_cuda()
+    if runs["auto_small"]["plan"]["segments_rematted"] != \
+            runs["auto_small"]["plan"]["segments"]:
+        raise AssertionError(f"a {RS_SMALL_BUDGET_MB} MB budget left "
+                             f"segments unrematted: {runs['auto_small']}")
+    for tag in ("auto", "auto_small"):
+        if runs[tag]["losses"] != runs["off"]["losses"]:
+            raise AssertionError(f"remat {tag} losses {runs[tag]['losses']} "
+                                 f"!= off {runs['off']['losses']}")
+    return runs
+
+
+def rs_feed_check(ht, kmods, cfg, feeds, ex):
+    """42f: validate='error' names a mis-shaped feed's placeholder."""
+    fd = _bert_feeds(feeds, ht.synthetic_mlm_batch(cfg, seed=0))
+    key = feeds["input_ids"]
+    fd[key] = fd[key][:, :-1]
+    reset_launches(*kmods)
+    try:
+        ex.run("train", feed_dict=fd)
+    except ht.GraphValidationError as e:
+        if "input_ids" not in str(e):
+            raise AssertionError(f"the error does not name input_ids: {e}")
+        if _launch_counts(kmods):
+            raise AssertionError(f"a rejected feed launched "
+                                 f"{_launch_counts(kmods)}")
+        return {"raised": type(e).__name__, "message": str(e)[:160]}
+    raise AssertionError("a mis-shaped feed ran under validate='error'")
+
+
+def rs_wdl(ht, emb, seg, kmods, launches):
+    """42g: Wide & Deep at phase 9's configuration, sync=False against
+    sync=True."""
+    batches = ctr_batches(ht)[:RS_WDL_STEPS]
+    runs = {}
+    for sync in (True, False):
+        feeds, ex, _ = wdl_executor(ht, "vlru_dev", "cuda")
+        reset_launches(*kmods)
+        outs = [ex.run("train", feed_dict=dict(zip(feeds, b)), sync=sync)[0]
+                for b in batches]
+        runs[sync] = [float(o.asnumpy()) for o in outs]
+        for k, mod in (("emb_gather", emb), ("sorted_segment_sum", seg)):
+            if mod.launches != RS_WDL_STEPS:
+                raise AssertionError(f"{k}: {mod.launches} launches in "
+                                     f"{RS_WDL_STEPS} steps (sync={sync})")
+            launches[k] += mod.launches
+        ex.close()
+        del ex
+        _free_cuda()
+    if runs[True] != runs[False]:
+        raise AssertionError(f"WDL async {runs[False]} != sync {runs[True]}")
+    return {"losses": runs[True]}
+
+
+def phase_run_surface(ht, fa, emb, seg, metrics, kmods, pm):
+    """Phase 42 (see the module docstring); returns its launches by
+    kernels-line name."""
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                               "emb_gather", "sorted_segment_sum")}
+    cfg = ht.BertConfig.base(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    batch = ht.synthetic_mlm_batch(cfg, seed=0)
+    report = {"card": card_line()}
+
+    def part(key, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        out["phase_s"] = time.perf_counter() - t0
+        report[key] = out
+        log(f"[run-surface] {key} {json.dumps(out)}")
+
+    feeds, ex = [None], [None]
+
+    def construct():
+        feeds[0], ex[0], rep = rs_construct(ht, metrics, kmods, cfg)
+        return rep
+
+    # the feed pipeline is forced on for any placement cost, so that the
+    # side-stream path runs whatever the host's speed
+    os.environ["HETU_FEED_PIPELINE_MIN_US"] = "0"
+    try:
+        with deterministic_algorithms():
+            part("a_construct", construct)
+            part("b_async", rs_async, ht, fa, metrics, kmods, pm, cfg, batch,
+                 feeds[0], ex[0], launches)
+            part("f_feed_check", rs_feed_check, ht, kmods, cfg, feeds[0],
+                 ex[0])
+            ex[0].close()
+            ex[0] = None
+            _free_cuda()
+            part("c_dataloader", rs_dataloader, ht, fa, metrics, kmods, cfg,
+                 launches)
+            part("e_remat", rs_remat, ht, fa, metrics, kmods, cfg, batch,
+                 launches)
+            part("g_wdl", rs_wdl, ht, emb, seg, kmods, launches)
+        part("d_precision", rs_precision, ht, fa, metrics, kmods, cfg, batch,
+             launches)
+    finally:
+        os.environ.pop("HETU_FEED_PIPELINE_MIN_US", None)
+    report["launches"] = launches
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[run-surface] launches {json.dumps(launches)} card "
+        f"{report['card']} phase 42 in {report['phase_s']:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script runs on the "
@@ -5706,7 +6180,12 @@ def main():
                                         kmods).items():
         dlaunches[name] = dlaunches.get(name, 0) + n
 
-    # -- 42. result lines ---------------------------------------------------------
+    # -- 42. the executor's run surface on BERT-base --------------------------------
+    for name, n in phase_run_surface(ht, fa, emb, seg, metrics, kmods,
+                                     pm).items():
+        dlaunches[name] = dlaunches.get(name, 0) + n
+
+    # -- 43. result lines ---------------------------------------------------------
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
@@ -5810,7 +6289,7 @@ def main():
                          launches=calls.count(dtype, cline["n"],
                                               cline["src_rows"]))))
     # the flash kernels of the data-parallel paths (phases 38-40) and of
-    # phase 41, and phase 41's B4 and B5 launches, by kernels-line name
+    # phases 41 and 42, and their B4 and B5 launches, by kernels-line name
     for e in kernels:
         e["launches"] += dlaunches.pop(e["name"], 0)
     if dlaunches:

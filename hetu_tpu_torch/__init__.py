@@ -71,7 +71,8 @@ Typical use (the shape of the JAX package's)::
 It imports neither ``jax`` nor ``hetu_tpu``.  Entry points run on CUDA
 unless the caller passes ``device="cpu"``.
 """
-from . import data, initializers, metrics, ops, optim, parallel, ps
+from . import analysis, data, initializers, metrics, ops, optim, parallel, ps
+from .analysis import GraphValidationError, lint
 from . import initializers as init
 from . import parallel as dist  # reference alias: ht.dist.DataParallel
 from .context import cpu, gpu, make_mesh, resolve_device

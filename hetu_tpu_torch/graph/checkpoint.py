@@ -263,6 +263,7 @@ class CheckpointMixin:
         rebuilt from the slab's leading dim and the moments re-packed into
         this world's layout (pure data movement).  Anything else passes
         through."""
+        self._drain_async()
         plan = self._zero_plans.get(op)
         if plan is None:
             return host_tree
@@ -314,6 +315,7 @@ class CheckpointMixin:
         """Checkpoint the parameters, optimizer state, PS tables,
         dataloader cursors and step (see the module docstring);
         ``file=name`` writes the single pickle blob ``<path>/<name>``."""
+        self._drain_async()  # steps of run(sync=False) land first
         self._flush_ps_caches()
         rank0 = self._rank0
         path = os.path.normpath(path)
@@ -552,6 +554,7 @@ class CheckpointMixin:
         ``.saving`` / ``.replaced`` remnants of a cut save are probed at
         lower priority than a published checkpoint of the same step).
         Returns the restored step, or None when nothing loads."""
+        self._drain_async()
         def attempt(cand, count_incomplete=False):
             if not os.path.isdir(cand):
                 return False

@@ -79,6 +79,24 @@ Learning rates: each update reads its optimizer's ``step_lr(step)`` (a
 number, or an ``LRScheduler``'s float32 value at the step counter), and
 every optimizer's ``on_step`` runs after each training step.
 
+The run surface (the JAX executor's): ``validate='warn'|'error'|'off'``
+(default ``'warn'``) lints every subgraph at construction
+(``analysis.lint`` on meta tensors: nothing launches) and checks fed
+shapes once per run plan; each step replays its subgraph's cached
+:class:`~hetu_tpu_torch.graph.run_plan.RunPlan` (placement closures, the
+validation verdict, the dataloader double buffer); ``run(sync=False)``
+keeps a window of ``HETU_ASYNC_WINDOW`` (default 4) steps in flight, a
+CUDA event recorded after each, the oldest synchronized once the window
+is full; ``run_steps(feeder, n)`` places step i+1's feeds on a
+one-worker thread (on the card: pinned memory, a side stream, an event
+the compute stream waits on) while step i runs; ``timing=True`` records
+each run's wall time, blocking on its fetches (``timer_logs``,
+``logOut``, ``clearTimer``); ``matmul_precision=`` sets
+``torch.set_float32_matmul_precision`` (and cuDNN's TF32 switch) for the
+step only.  The forced sync points of non-blocking stepping (a numpy
+conversion, the PS push boundary, a save, a resume, ``ps_flush``, the
+window) are counted in ``metrics.run_plan_counts()['async_sync_points']``.
+
 Gradient accumulation (``num_microbatches=M``, the JAX package's
 ``_microbatched_grads``): the batch feeds split into M blocks, one
 forward and backward a block, the gradients summed and divided by M, the
@@ -90,19 +108,18 @@ preemption save: ``graph/checkpoint.py``.
 Not ported, refused by name: a strategy other than ``DataParallel``,
 ``mesh``, PS embeddings together with ``dist_strategy``, ``plan``,
 ``pipeline``, ``num_microbatches`` and ``remat`` under ``dist_strategy``,
-``num_microbatches`` with PS embeddings, ``remat='auto'``,
-``matmul_precision``, a ``compute_dtype`` other than bfloat16, ASP/SSP
-(``bsp`` other than 0), ``prefetch`` and PS ids from a ``DataloaderOp``,
-the other JAX-package options (``timing``, ``validate``, ...),
-``run(sync=False)``, ``run_steps`` and ``save_orbax`` / ``load_orbax``.
-Nor is the JAX package's lookahead feed pipeline (``graph/run_plan.py``):
-each batch is placed when its step starts.
+``num_microbatches`` with PS embeddings, a ``compute_dtype`` other than
+bfloat16, ASP/SSP (``bsp`` other than 0), ``prefetch`` and PS ids from a
+``DataloaderOp``, the other JAX-package options, and ``save_orbax`` /
+``load_orbax``.
 """
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import os
+import time
 import warnings
 
 import numpy as np
@@ -111,7 +128,7 @@ import torch
 from ..context import resolve_device
 from ..ndarray import NDArray, wrap_device
 from ..ops.kernels.emb_cache import emb_scatter_add
-from ..metrics import record_remat
+from ..metrics import record_remat, record_run_plan
 from ..optim.optimizer import OptimizerOp
 from ..parallel import remat as _remat
 from ..parallel import zero as _zero
@@ -122,7 +139,8 @@ from ..parallel.strategies import DataParallel
 from .checkpoint import CheckpointMixin
 from .gradients import GradientOp
 from .node import (LowerCtx, Op, PlaceholderOp, checkpoint_names,
-                   topo_sort)
+                   format_site, topo_sort)
+from .run_plan import PlanCache, feed_pipeline_enabled, pipeline_min_us
 
 
 def lower_forward(topo, ctx, resolve_leaf, keep=None, remat_segments=None,
@@ -243,6 +261,58 @@ def _step_generator(device, seed, step, rank=0, micro=None):
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
+#: ``matmul_precision=`` names (the JAX package's) -> the
+#: ``torch.set_float32_matmul_precision`` setting of the step
+MATMUL_PRECISIONS = {"bfloat16": "medium", "fastest": "medium",
+                     "default": "medium", "tensorfloat32": "high",
+                     "high": "high", "float32": "highest",
+                     "highest": "highest"}
+
+
+@contextlib.contextmanager
+def _precision(level):
+    """The step's float32 product precision: ``level`` set on entry (cuDNN's
+    TF32 switch on at ``'high'`` and below), the process's previous
+    settings restored on exit."""
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.set_float32_matmul_precision(level)
+    torch.backends.cudnn.allow_tf32 = level != "highest"
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cuda.matmul.allow_tf32 = saved[1]
+        torch.backends.cudnn.allow_tf32 = saved[2]
+
+
+class _StepMark:
+    """One in-flight step of ``run(sync=False)``: a CUDA event recorded on
+    the compute stream after the step, or, on the CPU (where a step is
+    done when ``run`` returns), nothing to wait for."""
+
+    __slots__ = ("event",)
+
+    def __init__(self, device):
+        self.event = None
+        if device.type == "cuda":
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(device))
+
+    def synchronize(self):
+        if self.event is not None:
+            self.event.synchronize()
+
+
+def _sync_outs(outs):
+    """Block until the fetched tensors are computed (the timer's rule)."""
+    devs = {o.torch().device for o in outs or ()
+            if isinstance(o, NDArray) and o.torch().is_cuda}
+    for dev in devs:
+        _StepMark(dev).synchronize()
+
+
 class _ZeroView:
     """``Executor.var_values`` stand-in for a stage-3 ZeRO parameter: its
     master values live in the ranks' rows of a bucket
@@ -309,6 +379,8 @@ class SubExecutor:
         #: node -> the step's committed _DevLookup (read by _ps_post_step)
         self._dev_live = {}
         self._feed_pool = None
+        #: feed schema -> RunPlan, built at the first run
+        self._plan_cache = None
         self.feed_nodes = [n for n in self.topo
                            if isinstance(n, PlaceholderOp)
                            and not n.is_variable
@@ -406,7 +478,7 @@ class SubExecutor:
             return t.float()
         return t
 
-    def run(self, feed_dict, convert_to_numpy_ret_vals=False):
+    def run(self, feed_dict, convert_to_numpy_ret_vals=False, sync=True):
         ex = self.ex
         # a device cache's store round trip starts first, on the feed
         # thread, and overlaps the feed placement below
@@ -415,17 +487,15 @@ class SubExecutor:
         ps_vals, invs = {}, {}
         axis = None if ex.dp is None else BatchAxis(*ex.dp)
         try:
+            # the feed schema's cached plan: placement closures, the
+            # validation verdict, the dataloader double buffer
+            if self._plan_cache is None:
+                self._plan_cache = PlanCache(self)
+            plan = self._plan_cache.lookup(feed_dict)
             feeds = {}
-            for node in self.feed_nodes:
-                if node in feed_dict:
-                    val = feed_dict[node]
-                elif node in self.dataloader_nodes:
-                    val = node.get_arr(self.name)
-                else:
-                    raise ValueError(f"missing feed for {node}")
-                feeds[node] = self._low(ex._place_feed(
-                    node, val, rows=node not in self._shard_loaders))
-                if axis is not None and feeds[node].ndim:
+            for node, t in plan.place_feeds(feed_dict).items():
+                feeds[node] = self._low(t)
+                if axis is not None and t.ndim:
                     axis.sharded.add(node)
             for node in self._ps_host_items:
                 ps_vals[node] = ex._place_feed(
@@ -488,8 +558,14 @@ class SubExecutor:
                     else self._low(var(n)))
         for node, val in updates.items():
             ex.var_values[node] = self._high(val.detach())
+        # the step is enqueued: step N+1's dataloader batches go to the
+        # device now, overlapping its device work
+        plan.start_feed_prefetch()
         if self.ps_nodes:
             self._ps_post_step(ps_grads)
+            if not sync:
+                # the push boundary reads the row gradient on the host
+                record_run_plan("async_sync_points")
         if self.training:
             ex.step_counter += 1
             for op in self.opt_ops:
@@ -507,6 +583,9 @@ class SubExecutor:
             else:
                 outs.append(self._high(env[f].detach()))
         if convert_to_numpy_ret_vals:
+            if not sync:
+                # the conversion waits for the step: a sync point
+                record_run_plan("async_sync_points")
             return [None if v is None else v.cpu().numpy() for v in outs]
         return [None if v is None else wrap_device(v) for v in outs]
 
@@ -629,20 +708,26 @@ class SubExecutor:
                              f"embedding {node}")
         return np.asarray(feed_dict[node.ids_node], np.int64)
 
+    def _ensure_feed_pool(self):
+        """The subgraph's one feed worker, shared by the dataloader double
+        buffer (``RunPlan.start_feed_prefetch``) and the device cache's
+        store round trip."""
+        if self._feed_pool is None:
+            self._feed_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix=f"feed-pipeline-{self.name}")
+        return self._feed_pool
+
     def _begin_dev_lookups(self, feed_dict):
         """Phase 1 of a device-cache step: each table's plan
         (``begin_lookup``, which takes the cache lock), then its store
         round trip on the feed thread.  Returns the pending handles."""
-        if self._feed_pool is None:
-            self._feed_pool = concurrent.futures.ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix=f"feed-pipeline-{self.name}")
+        pool = self._ensure_feed_pool()
         pending = []
         try:
             for node in self._ps_dev_items:
                 ids = self._ps_ids(node, feed_dict)
                 h = node.cache.begin_lookup(ids)
-                pending.append((node, ids, h,
-                                self._feed_pool.submit(h.roundtrip)))
+                pending.append((node, ids, h, pool.submit(h.roundtrip)))
         except BaseException:
             self._settle_dev_pending(pending)
             raise
@@ -742,10 +827,19 @@ class Executor(CheckpointMixin):
                  dist_strategy=None, mesh=None, pipeline=None,
                  num_microbatches=None, matmul_precision=None, zero=None,
                  **kwargs):
-        for opt, given in (("mesh", mesh), ("pipeline", pipeline),
-                           ("matmul_precision", matmul_precision)):
+        for opt, given in (("mesh", mesh), ("pipeline", pipeline)):
             if given is not None:
                 raise NotImplementedError(f"Executor({opt}=) is not ported")
+        if matmul_precision is not None \
+                and matmul_precision not in MATMUL_PRECISIONS:
+            raise ValueError(
+                f"matmul_precision={matmul_precision!r}: expected None or "
+                f"one of {sorted(MATMUL_PRECISIONS)}")
+        #: the JAX name given, and the step's torch setting (None: the
+        #: executor's float32 default, TF32 off)
+        self.matmul_precision = matmul_precision
+        self._precision = None if matmul_precision is None \
+            else MATMUL_PRECISIONS[matmul_precision]
         if dist_strategy is not None \
                 and not isinstance(dist_strategy, DataParallel):
             raise NotImplementedError(
@@ -760,11 +854,6 @@ class Executor(CheckpointMixin):
             zero = getattr(dist_strategy, "zero", None) or None
         self.zero = _zero.resolve_stage(zero)
         self.remat = _remat.resolve_policy(kwargs.pop("remat", False))
-        if self.remat == "auto":
-            raise NotImplementedError(
-                "Executor(remat='auto') is not ported: its per-segment "
-                "pricing needs the shape-inferred cost model "
-                "(analysis.infer_graph)")
         self.num_microbatches = None if num_microbatches is None \
             else int(num_microbatches)
         self.microbatch_feeds = kwargs.pop("microbatch_feeds", None)
@@ -785,6 +874,25 @@ class Executor(CheckpointMixin):
             raise NotImplementedError(
                 "Executor(prefetch=True): the lookahead PS pull (for "
                 "DataloaderOp ids) is not ported")
+        # validate: the lint at construction and the fed-shape check once
+        # a run plan ('warn' reports, 'error' raises, 'off' skips)
+        self.validate = kwargs.pop("validate", "warn")
+        if self.validate not in ("warn", "error", "off"):
+            raise ValueError(f"validate={self.validate!r}: expected "
+                             "'warn', 'error', or 'off'")
+        self._feed_warned = set()
+        # timing: each run's wall time, blocking on its fetches
+        self.timing = bool(kwargs.pop("timing", False))
+        self.timer_logs = {}
+        #: run(sync=False): the marks of the steps in flight, oldest first
+        self._async_pending = collections.deque()
+        try:
+            self._async_window = max(
+                1, int(os.environ.get("HETU_ASYNC_WINDOW", "4")))
+        except ValueError:
+            self._async_window = 4
+        #: the side stream ahead-of-step feed copies run on (CUDA)
+        self._feed_stream = None
         self._init_fault_tolerance(kwargs)
         if kwargs:
             raise NotImplementedError(
@@ -833,6 +941,7 @@ class Executor(CheckpointMixin):
                     if plan is None else self._init_zero_state(node, plan)
         self.subexecutors = {name: SubExecutor(name, fetches, self)
                              for name, fetches in self.eval_node_dict.items()}
+        self._validate_graphs()
         if self._auto_resume and self.auto_save_dir:
             self.resume(self.auto_save_dir)
 
@@ -1055,10 +1164,15 @@ class Executor(CheckpointMixin):
         """Run one step of subgraph ``name``; returns its fetches as
         :class:`NDArray` (numpy arrays with ``convert_to_numpy_ret_vals``):
         a ``GradientOp`` fetch is its gradient, an ``OptimizerOp`` fetch
-        ``None``."""
-        if not sync:
-            raise NotImplementedError(
-                "Executor.run(sync=False) is not ported")
+        ``None``.
+
+        ``sync=False``: non-blocking stepping.  The fetches are tensors
+        whose kernels may still run; the executor keeps at most
+        ``HETU_ASYNC_WINDOW`` (default 4) such steps in flight and waits
+        for the oldest when the window is full.  The forced waits (a numpy
+        conversion, the PS push boundary, a save, the window) count as
+        ``async_sync_points``.  The same ops run in the same order on one
+        stream either way, so the bits are the same."""
         if isinstance(name, dict):  # run(feed_dict) shorthand
             feed_dict, name = name, "default"
         if isinstance(eval_node_list, dict) and feed_dict is None:
@@ -1067,20 +1181,221 @@ class Executor(CheckpointMixin):
             warnings.warn("eval_node_list override is ignored; fetches are "
                           "fixed per subgraph at construction")
         sub = self.subexecutors[name]
+        t0 = time.perf_counter() if self.timing else None
         # a SIGTERM / SIGINT during the step defers its save to the
         # boundary, where parameters, optimizer state and step agree
         self._in_step = True
         try:
-            out = sub.run(feed_dict or {}, convert_to_numpy_ret_vals)
+            with contextlib.nullcontext() if self._precision is None \
+                    else _precision(self._precision):
+                out = sub.run(feed_dict or {}, convert_to_numpy_ret_vals,
+                              sync)
         finally:
             self._in_step = False
+        if not sync and not convert_to_numpy_ret_vals:
+            self._note_async()
+        if t0 is not None:
+            # the timer blocks on the fetches: an unblocked bracket would
+            # time the enqueue, not the step
+            _sync_outs(out)
+            self.timer_logs.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
         self._post_step(sub.training)
         return out
 
+    def run_steps(self, feeder, n, name="default", sync=False,
+                  convert_to_numpy_ret_vals=False):
+        """Drive ``n`` steps with pipelined feeds and, by default,
+        non-blocking stepping.
+
+        ``feeder``: ``callable(i) -> feed_dict``, a list of feed dicts, or
+        None for a dataloader-fed graph (whose plan double-buffers on its
+        own).  Step i+1's feeds are placed on a one-worker thread while
+        step i runs (on the card: from pinned memory on a side stream,
+        the compute stream waiting on the copy's event), when a step's
+        placement costs more than a thread handoff (``pipeline_min_us``);
+        step 0 is placed inline.  Returns each step's fetches."""
+        if not isinstance(n, int) or n < 0:
+            raise ValueError(f"run_steps needs a step count, got {n!r}")
+        if feeder is None:
+            get_fd = None
+        elif callable(feeder):
+            get_fd = feeder
+        else:
+            fds = list(feeder)
+            if len(fds) < n:
+                raise ValueError(
+                    f"run_steps: {n} steps but only {len(fds)} feed dicts")
+            get_fd = fds.__getitem__
+
+        def place_all(fd):
+            return {node: self._place_ahead(node, v)
+                    for node, v in fd.items()}
+
+        def adopt(placed):
+            return {node: self._adopt(t, ev)
+                    for node, (t, ev) in placed.items()}
+
+        pool = None
+        placed, overlap = {}, False
+        if get_fd and n:
+            t0 = time.perf_counter()
+            placed = adopt(place_all(get_fd(0)))
+            overlap = feed_pipeline_enabled() \
+                and (time.perf_counter() - t0) * 1e6 >= pipeline_min_us()
+        results = []
+        try:
+            for i in range(n):
+                fut = None
+                if overlap and i + 1 < n:
+                    if pool is None:
+                        pool = concurrent.futures.ThreadPoolExecutor(
+                            max_workers=1,
+                            thread_name_prefix="run-steps-feed")
+                    fut = pool.submit(place_all, get_fd(i + 1))
+                results.append(self.run(
+                    name, feed_dict=placed, sync=sync,
+                    convert_to_numpy_ret_vals=convert_to_numpy_ret_vals))
+                if fut is not None:
+                    placed = adopt(fut.result())
+                    record_run_plan("feeds_pipelined", len(placed))
+                elif get_fd and i + 1 < n:
+                    placed = adopt(place_all(get_fd(i + 1)))
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True)
+        return results
+
+    def _place_ahead(self, node, val, rows=False):
+        """A feed placed ahead of the step that reads it: ``(tensor,
+        event)``.  On the card the copy leaves pinned host memory on the
+        executor's side stream (``non_blocking=True``) and ``event`` marks
+        its end; elsewhere the plain placement and no event.  ``rows``:
+        this rank's rows only (a dataloader's batch; ``run_steps`` leaves
+        the split to the step)."""
+        if self.device.type != "cuda":
+            return self._place_feed(node, val, rows=rows), None
+        if self._feed_stream is None:
+            self._feed_stream = torch.cuda.Stream(self.device)
+        if self.dp is not None and rows:
+            val = self._rows(node, val)
+        if isinstance(val, NDArray):
+            val = val.torch()
+        if not isinstance(val, torch.Tensor):
+            val = torch.from_numpy(np.array(val))
+        with torch.cuda.stream(self._feed_stream):
+            if val.device.type == "cpu":
+                val = val.pin_memory()
+            t = self._place_feed(node, val.to(self.device, non_blocking=True),
+                                 rows=False)
+            event = torch.cuda.Event()
+            event.record(self._feed_stream)
+        return t, event
+
+    def _adopt(self, t, event):
+        """A tensor placed ahead, made safe to read on the compute stream:
+        the stream waits on the copy's event, and the tensor's memory is
+        recorded as used there."""
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            t.record_stream(stream)
+        return t
+
+    def _note_async(self):
+        """Track one non-blocking step; wait for the oldest once more than
+        the window are in flight."""
+        self._async_pending.append(_StepMark(self.device))
+        if len(self._async_pending) > self._async_window:
+            record_run_plan("async_sync_points")
+            self._async_pending.popleft().synchronize()
+
+    def _drain_async(self):
+        """Wait for every step in flight (one sync point when any was):
+        before a save, a resume, ``ps_flush`` and a ZeRO transcoding."""
+        if not self._async_pending:
+            return
+        record_run_plan("async_sync_points")
+        while self._async_pending:
+            self._async_pending.popleft().synchronize()
+
+    def logOut(self, path, clear=True):
+        """Append the recorded step times to ``path`` ("name<TAB>t ms")."""
+        with open(path, "a") as f:
+            for name, times in self.timer_logs.items():
+                for t in times:
+                    f.write(f"{name}\t{t:.3f} ms\n")
+        if clear:
+            self.clearTimer()
+
+    def clearTimer(self):
+        self.timer_logs = {}
+
+    # -- static validation (analysis/) -------------------------------------
+
+    def _validate_graphs(self):
+        """The construction-time lint of every subgraph (``validate=
+        'warn'|'error'``): graph bugs fail here with the node and its
+        creation site, before a step runs.  Fed shapes are checked once a
+        run plan (:meth:`_check_feeds`)."""
+        if self.validate == "off":
+            return
+        from ..analysis import lint as lint_graph
+        # remat is a training-graph concern: an eval subgraph beside it
+        # does not warn of "no recomputable segment", unless no subgraph
+        # differentiates, and then the first says so
+        any_grads = any(s.grad_ops for s in self.subexecutors.values())
+        first = next(iter(self.eval_node_dict), None)
+        for name, fetches in self.eval_node_dict.items():
+            lint_remat = self.remat if (
+                self.subexecutors[name].grad_ops
+                or (not any_grads and name == first)) else "off"
+            try:
+                report = lint_graph(fetches, zero=self.zero,
+                                    remat=lint_remat,
+                                    dp=None if self.dp is None
+                                    else self.dp[1])
+            except Exception as e:
+                # the analyzer must never break a working graph
+                warnings.warn(f"graph lint crashed on subgraph "
+                              f"'{name}': {type(e).__name__}: {e}",
+                              RuntimeWarning)
+                continue
+            if report.diagnostics:
+                if self.validate == "error":
+                    report.raise_errors(all_severities=True)
+                warnings.warn(
+                    f"graph lint found {len(report.diagnostics)} issue(s) "
+                    f"in subgraph '{name}' "
+                    f"(Executor(validate='off') silences):\n{report}",
+                    UserWarning)
+
+    def _check_feeds(self, sub, feed_dict):
+        """Fed values against their placeholders' declared shapes (the
+        run-time half of ``validate=``, once a feed schema)."""
+        from ..analysis.lint import GraphValidationError
+        for node in sub.feed_nodes:
+            if node not in feed_dict or node.shape is None:
+                continue
+            val = feed_dict[node]
+            shape = tuple(val.shape) if hasattr(val, "shape") \
+                else tuple(np.shape(val))
+            if shape == tuple(node.shape):
+                continue
+            msg = (f"feed for placeholder '{node.name}' has shape "
+                   f"{shape} but the placeholder declares "
+                   f"{tuple(node.shape)} [created at "
+                   f"{format_site(node.creation_site)}]")
+            if self.validate == "error":
+                raise GraphValidationError(msg)
+            if node.id not in self._feed_warned:
+                self._feed_warned.add(node.id)
+                warnings.warn(msg, UserWarning)
+
     def remat_plan(self, name=None):
         """``{"policy": ..., "plans": {subgraph: plan report}}`` (with
-        ``name``, that subgraph's report or None); only ``'full'`` builds
-        per-segment plans."""
+        ``name``, that subgraph's report or None); ``'full'`` and
+        ``'auto'`` build per-segment plans."""
         plans = {n: sub._remat_plan.report()
                  for n, sub in self.subexecutors.items()
                  if sub._remat_plan is not None}
@@ -1098,7 +1413,9 @@ class Executor(CheckpointMixin):
     def ps_flush(self):
         """Barrier: every PS push of this executor has been applied.  The
         port trains BSP only, and pushes inline at each step's end, so
-        none is ever in flight when ``run`` returns."""
+        none is in flight when ``run`` returns; steps of ``run(sync=
+        False)`` still in flight are waited for."""
+        self._drain_async()
 
     def close(self):
         """Stop the subgraphs' feed threads (idempotent)."""

@@ -24,6 +24,9 @@ class GradientOp(Op):
     def lower(self, ctx, *vals):  # resolved specially by the executor
         raise RuntimeError("GradientOp must be resolved by the executor")
 
+    def infer_shape(self, input_shapes):
+        return input_shapes[1]
+
 
 def gradients(loss, node_list, insert_grad=None):
     """Gradient nodes of ``loss`` w.r.t. each node in ``node_list``.

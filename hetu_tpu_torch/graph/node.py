@@ -9,11 +9,48 @@ eagerly, so there is no jit step).
 """
 from __future__ import annotations
 
+import os
+import sys
+
 import numpy as np
 import torch
 
 # Global monotonically increasing id for deterministic topo-order tie-breaking.
 _NODE_COUNTER = 0
+
+#: the package root: frames inside it are the framework's, not the user's
+#: graph-building code
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _creation_site(skip=2, max_depth=25):
+    """(filename, lineno, function) of the innermost frame outside the
+    package: the user line that created a node.  Taken at every
+    ``Op.__init__`` so that graph diagnostics (``lint``, the executor's
+    ``validate=``) say where a bad node came from; a frame walk, cheap
+    enough to run always."""
+    try:
+        f = sys._getframe(skip)
+    except ValueError:  # pragma: no cover - shallow stack
+        return None
+    last = None
+    for _ in range(max_depth):
+        if f is None:
+            break
+        fn = f.f_code.co_filename
+        last = (fn, f.f_lineno, f.f_code.co_name)
+        if not fn.startswith(_PKG_DIR):
+            return last
+        f = f.f_back
+    return last
+
+
+def format_site(site):
+    """A creation site as 'file:line in func'."""
+    if not site:
+        return "<unknown site>"
+    fn, line, func = site
+    return f"{fn}:{line} in {func}"
 
 
 def _next_id() -> int:
@@ -66,10 +103,21 @@ class Op:
         self.inputs = list(inputs)
         self.attrs = attrs
         self.name = name or f"{self.op_type}_{self.id}"
+        # the user line that created this node (diagnostics)
+        self.creation_site = _creation_site()
 
     # -- lowering ---------------------------------------------------------
     def lower(self, ctx: LowerCtx, *vals):
         raise NotImplementedError(f"{self.op_type} has no lowering rule")
+
+    def infer_shape(self, input_shapes):
+        """Static output shape from input shapes: ops without a hand rule
+        evaluate their own ``lower`` on meta tensors
+        (:func:`hetu_tpu_torch.analysis.shapes.abstract_infer_shape`).
+        None when the inputs are unknown or the lowering cannot run
+        abstractly."""
+        from ..analysis.shapes import abstract_infer_shape
+        return abstract_infer_shape(self, input_shapes)
 
     # -- python operator sugar --------------------------------------------
     def __add__(self, other):
@@ -165,6 +213,9 @@ class PlaceholderOp(Op):
 
     def lower(self, ctx, *vals):  # never called: the executor feeds these
         raise RuntimeError("Placeholder values are supplied by the executor")
+
+    def infer_shape(self, input_shapes):
+        return self.shape
 
 
 def Variable(name, value=None, initializer=None, trainable=True, dtype=None,

@@ -42,8 +42,22 @@ Families:
   ``parallel.zero``).  The JAX package counts once per trace; the port
   has no trace and counts every step, so a run of n steps records n
   times one step's bytes.  A run without ``zero=`` records nothing.
+* ``run_plan`` — the executor's cached run plans
+  (``graph/run_plan.py``): ``plan_cache_hit`` / ``plan_cache_miss`` a
+  plan lookup (a steady feed schema hits every step after the first),
+  ``feeds_pipelined`` (feeds whose host-to-device copy was issued ahead
+  of the step that read them: the dataloader double buffer and
+  ``Executor.run_steps``), ``feed_pipeline_depth_hw`` (the most
+  dataloader feeds with a copy in flight at once, a gauge) and
+  ``async_sync_points`` (where ``run(sync=False)`` had to wait: a numpy
+  conversion, the PS push boundary, a save, the window filling).
 * decode latency samples in microseconds by kind (``step``, ``token``,
   ``ttft``, ``join_wait``), the newest :data:`LATENCY_WINDOW` kept.
+
+Abstract evaluation (``analysis/shapes.py``) runs the ops' lowerings on
+meta tensors inside :func:`suppress_perf_counters`: the dispatch-time
+families (flash, embedding and MoE fallbacks, remat, ZeRO) record
+nothing there, on that thread only.
 
 All families live in one process-wide registry guarded by one lock, so
 the router's loop thread and a reader thread may touch them at once.
@@ -51,6 +65,7 @@ the router's loop thread and a reader thread may touch them at once.
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 
 import numpy as np
@@ -98,11 +113,34 @@ class _Registry:
 
 _REGISTRY = _Registry()
 
+# per-thread: an abstract evaluation on one thread must not silence real
+# dispatches on another
+_suppress = threading.local()
+
+
+@contextlib.contextmanager
+def suppress_perf_counters():
+    """Scope in which the dispatch-time counters do not record (abstract
+    shape evaluation, which runs lowerings on meta tensors).  Per
+    thread."""
+    _suppress.depth = getattr(_suppress, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _suppress.depth -= 1
+
+
+def counters_suppressed():
+    """True inside a :func:`suppress_perf_counters` scope (this thread)."""
+    return getattr(_suppress, "depth", 0) > 0
+
 
 # ------------------------------------------------------ flash fallbacks
 
 def record_flash_fallback(reason):
     """Count one attention dispatch that took the plain version."""
+    if counters_suppressed():
+        return
     _REGISTRY.record("flash_fallbacks", reason)
 
 
@@ -119,6 +157,8 @@ def reset_flash_fallbacks():
 
 def record_emb_fallback(reason):
     """Count one embedding-cache dispatch that took the plain version."""
+    if counters_suppressed():
+        return
     _REGISTRY.record("emb_fallbacks", reason)
 
 
@@ -136,6 +176,8 @@ def reset_emb_fallbacks():
 def record_moe_fallback(reason):
     """Count one sparse MoE dispatch or combine that took the plain
     gather."""
+    if counters_suppressed():
+        return
     _REGISTRY.record("moe_fallbacks", reason)
 
 
@@ -240,7 +282,7 @@ def reset_faults():
 
 def record_remat(kind, n=1):
     """Count ``n`` rematerialization events of ``kind``."""
-    if n:
+    if n and not counters_suppressed():
         _REGISTRY.record("remat", kind, n)
 
 
@@ -255,7 +297,7 @@ def reset_remat_counts():
 
 def record_zero(kind, n=1):
     """Count ``n`` bytes of ZeRO sharded-update traffic of ``kind``."""
-    if n:
+    if n and not counters_suppressed():
         _REGISTRY.record("zero", kind, n)
 
 
@@ -266,6 +308,23 @@ def zero_counts():
 
 def reset_zero_counts():
     _REGISTRY.reset("zero")
+
+
+# ------------------------------------------------------------- run plans
+
+def record_run_plan(kind, n=1):
+    """Count ``n`` run-plan / async-stepping events of ``kind``; kinds
+    ending in ``_hw`` are high-water gauges."""
+    _REGISTRY.record("run_plan", kind, n)
+
+
+def run_plan_counts():
+    """{kind: count} snapshot of the run-plan counters."""
+    return _REGISTRY.counts("run_plan")
+
+
+def reset_run_plan_counts():
+    _REGISTRY.reset("run_plan")
 
 
 # ------------------------------------------------------------ evaluation

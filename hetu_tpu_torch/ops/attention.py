@@ -101,16 +101,22 @@ def sdpa_reference(q, k, v, causal=False, scale=None, mask=None, bias=None):
     return torch.matmul(probs.to(q.dtype), v)
 
 
-def _note_cpu():
-    from ..metrics import record_flash_fallback
-    record_flash_fallback("backend:cpu")
+def _plain(q):
+    """Whether the plain attention runs: on a CPU tensor (counted as a
+    ``backend:cpu`` fallback), or on a meta tensor under abstract
+    evaluation (``analysis/shapes.py``: shapes only, counted nowhere).
+    Any other tensor goes to the kernel wrappers, which launch or raise."""
+    from ..metrics import counters_suppressed, record_flash_fallback
+    if q.device.type == "cpu":
+        record_flash_fallback("backend:cpu")
+        return True
+    return q.device.type == "meta" and counters_suppressed()
 
 
 def dispatch_sdpa(q, k, v, causal=False, scale=None):
     """Dense (B, H, S, D) attention: the flash kernels on the card, the
     plain attention on the CPU."""
-    if q.device.type == "cpu":
-        _note_cpu()
+    if _plain(q):
         return sdpa_reference(q, k, v, causal=causal, scale=scale)
     return flash_attention(q, k, v, causal=causal, scale=scale)
 
@@ -140,8 +146,7 @@ def dispatch_sdpa_masked(q, k, v, mask, causal=False, scale=None):
     rides the flash kernels' ``key_mask`` path and any other mask the
     full-mask kernels, forward and backward; the CPU takes the plain
     attention."""
-    if q.device.type == "cpu":
-        _note_cpu()
+    if _plain(q):
         return sdpa_reference(q, k, v, causal=causal, scale=scale, mask=mask)
     km, fm = _split_mask_kinds(mask, q)
     return flash_attention(q, k, v, causal=causal, scale=scale, key_mask=km,
@@ -159,8 +164,7 @@ def dispatch_sdpa_bias(q, k, v, bias, causal=False, scale=None):
     """(B, H, S, D) attention with an additive logit ``bias``
     broadcastable to (B, H, S_q, S_kv): the flash kernels' bias
     specialization on the card, the plain attention on the CPU."""
-    if q.device.type == "cpu":
-        _note_cpu()
+    if _plain(q):
         return sdpa_reference(q, k, v, causal=causal, scale=scale, bias=bias)
     return flash_attention(q, k, v, causal=causal, scale=scale, bias=bias)
 
@@ -179,8 +183,7 @@ def dispatch_sdpa_masked_bias(q, k, v, mask, bias, causal=False,
     key-padding mask rides the bias kernels' ``key_mask`` path and any
     other mask the full-mask-with-bias kernels; the CPU takes the plain
     attention."""
-    if q.device.type == "cpu":
-        _note_cpu()
+    if _plain(q):
         return sdpa_reference(q, k, v, causal=causal, scale=scale, mask=mask,
                               bias=bias)
     km, fm = _split_mask_kinds(mask, q)
@@ -213,8 +216,7 @@ def dispatch_sdpa_varlen(q, k, v, lengths, causal=False, scale=None):
     ``lengths`` specialization, forward and backward (key tiles past each
     length are neither loaded nor computed); on the CPU the plain
     attention with the built column mask."""
-    if q.device.type == "cpu":
-        _note_cpu()
+    if _plain(q):
         return sdpa_reference(q, k, v, causal=causal, scale=scale,
                               mask=_length_mask(lengths, k.shape[-2],
                                                 q.device))
@@ -235,8 +237,7 @@ def dispatch_sdpa_decode(q, k_cache, v_cache, positions, scale=None):
     (B, H, L, D) with the new token already appended at ``positions``
     (B,); keys beyond each position are invisible."""
     lengths = positions.to(torch.int32) + 1
-    if q.device.type == "cpu":
-        _note_cpu()
+    if _plain(q):
         return sdpa_reference(q, k_cache, v_cache, scale=scale,
                               mask=_length_mask(lengths, k_cache.shape[-2],
                                                 q.device))
@@ -308,8 +309,7 @@ def dispatch_sdpa_prefill(q, k_cache, v_cache, positions, scale=None):
                               device=q.device)[None, :])          # (B, C)
     cols = torch.arange(s_kv, dtype=torch.int32, device=q.device)
     mask = cols[None, None, None, :] < lengths[:, None, :, None]
-    if q.device.type == "cpu":
-        _note_cpu()
+    if _plain(q):
         return sdpa_reference(q, k_cache, v_cache, scale=scale, mask=mask)
     return flash_attention(q, k_cache, v_cache, scale=scale, mask=mask)
 

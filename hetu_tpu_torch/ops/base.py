@@ -13,23 +13,40 @@ OP_REGISTRY = {}
 class SimpleOp(Op):
     """A node whose semantics are fully captured by a pure lowering function."""
 
-    def __init__(self, op_type, inputs, lower_fn, name=None, **attrs):
+    def __init__(self, op_type, inputs, lower_fn, shape_fn=None, name=None,
+                 **attrs):
         self.op_type = op_type
         self._lower_fn = lower_fn
+        self._shape_fn = shape_fn
         super().__init__(inputs, name=name, **attrs)
 
     def lower(self, ctx, *vals):
         return self._lower_fn(ctx, *vals, **self.attrs)
 
+    def infer_shape(self, input_shapes):
+        if input_shapes and any(s is None for s in input_shapes):
+            return None   # unknown inputs stay unknown
+        if self._shape_fn is None:
+            # no hand rule: the lowering itself, evaluated on meta tensors
+            return super().infer_shape(input_shapes)
+        return self._shape_fn(*input_shapes, **self.attrs)
 
-def def_op(op_type, lower_fn):
+    @property
+    def has_shape_rule(self):
+        """True iff a hand-written shape rule exists: the
+        ``shape-rule-mismatch`` lint cross-checks only hand rules."""
+        return self._shape_fn is not None
+
+
+def def_op(op_type, lower_fn, shape_fn=None):
     """Register an op kind; returns its constructor.
 
     The constructor accepts the graph-node inputs positionally and
     attributes as keywords; positional values after the leading ``Op``
     inputs are matched to the lowering function's parameter names in
     order.  A trailing ``ctx=`` kwarg is accepted for reference-API
-    compatibility and ignored.
+    compatibility and ignored.  ``shape_fn(*input_shapes, **attrs)``: an
+    optional hand shape rule.
     """
     lower_params = [p for p in inspect.signature(lower_fn).parameters
                     if p != "c" and not p.startswith("*")]
@@ -49,7 +66,8 @@ def def_op(op_type, lower_fn):
                     f"{op_type}: too many positional args {extra}")
             for pname, val in zip(attr_names, extra):
                 attrs[pname] = val
-        return SimpleOp(op_type, inputs, lower_fn, name=name, **attrs)
+        return SimpleOp(op_type, inputs, lower_fn, shape_fn, name=name,
+                        **attrs)
 
     ctor.__name__ = op_type
     OP_REGISTRY[op_type] = ctor

@@ -135,6 +135,13 @@ def row_gather_plain(src, idx):
     return torch.where((idx >= 0)[:, None], rows, src.new_zeros(()))
 
 
+def _abstract(t):
+    """A meta tensor under abstract evaluation (``analysis/shapes.py``):
+    the plain version gives the shape, and nothing launches."""
+    from ...metrics import counters_suppressed
+    return t.device.type == "meta" and counters_suppressed()
+
+
 def row_gather(src, idx):
     """``out[i] = src[idx[i]]``, zeros where ``idx[i] < 0``: src (R, m)
     float32 or bfloat16 and contiguous, idx (n,) int32 with values in
@@ -149,7 +156,7 @@ def row_gather(src, idx):
     if idx.device != src.device:
         raise ValueError(f"row_gather: idx on {idx.device}, src on "
                          f"{src.device}")
-    if src.device.type == "cpu":
+    if src.device.type == "cpu" or _abstract(src):
         return row_gather_plain(src, idx)
     if src.device.type != "cuda":
         raise ValueError(f"row_gather: no kernel for device {src.device}")

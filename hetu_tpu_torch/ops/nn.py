@@ -95,7 +95,19 @@ def _conv2d(c, x, w, padding=0, stride=1, data_format="NCHW"):
     return _from_nchw(out, data_format)
 
 
-conv2d_op = def_op("Conv2d", _conv2d)
+def _conv2d_shape(x, w, padding=0, stride=1, data_format="NCHW"):
+    ph, pw = _pair(padding)
+    sh, sw = _pair(stride)
+    if data_format == "NHWC":
+        n, h, ww, _ = x
+    else:
+        n, _, h, ww = x
+    o, _, kh, kw = w
+    oh, ow = (h + 2 * ph - kh) // sh + 1, (ww + 2 * pw - kw) // sw + 1
+    return (n, oh, ow, o) if data_format == "NHWC" else (n, o, oh, ow)
+
+
+conv2d_op = def_op("Conv2d", _conv2d, _conv2d_shape)
 
 
 def _bias_shape(data_format):
@@ -106,7 +118,9 @@ conv2d_add_bias_op = def_op(
     "Conv2dAddBias",
     lambda c, x, w, b, padding=0, stride=1, data_format="NCHW":
         _conv2d(c, x, w, padding, stride, data_format)
-        + b.reshape(_bias_shape(data_format)))
+        + b.reshape(_bias_shape(data_format)),
+    lambda x, w, b, padding=0, stride=1, data_format="NCHW":
+        _conv2d_shape(x, w, padding, stride, data_format))
 
 
 def _pool(c, x, kernel_H, kernel_W, padding, stride, kind,
@@ -129,12 +143,25 @@ def _pool(c, x, kernel_H, kernel_W, padding, stride, kind,
     return _from_nchw(out, data_format)
 
 
+def _pool_shape(x, kernel_H, kernel_W, padding, stride, data_format="NCHW"):
+    ph, pw = _pair(padding)
+    sh, sw = _pair(stride)
+    if data_format == "NHWC":
+        n, h, w, ch = x
+    else:
+        n, ch, h, w = x
+    oh, ow = (h + 2 * ph - kernel_H) // sh + 1, \
+        (w + 2 * pw - kernel_W) // sw + 1
+    return (n, oh, ow, ch) if data_format == "NHWC" else (n, ch, oh, ow)
+
+
 def _pool_op(op_type, kind):
     def ctor(node, kernel_H, kernel_W, padding=0, stride=1, ctx=None,
              name=None, data_format="NCHW"):
         del ctx
         return SimpleOp(op_type, [node],
                         lambda c, x, **kw: _pool(c, x, kind=kind, **kw),
+                        lambda x, **kw: _pool_shape(x, **kw),
                         name=name, kernel_H=kernel_H, kernel_W=kernel_W,
                         padding=padding, stride=stride,
                         data_format=data_format)
@@ -208,6 +235,9 @@ class BatchNormOp(Op):
                                training=False, eps=eps)
         return out.movedim(1, -1) if df == "NHWC" else out
 
+    def infer_shape(self, input_shapes):
+        return tuple(input_shapes[0])
+
 
 def batch_normalization_op(node_in, bn_scale, bn_bias, momentum=0.1, eps=1e-5,
                            ctx=None, name=None, data_format="NCHW"):
@@ -223,7 +253,8 @@ def _layer_norm(c, x, scale, bias, eps=0.01):
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
-layer_normalization_op = def_op("LayerNorm", _layer_norm)
+layer_normalization_op = def_op("LayerNorm", _layer_norm,
+                                lambda x, s, b, eps=0.01: tuple(x))
 
 
 def _instance_norm2d(c, x, eps=1e-7):

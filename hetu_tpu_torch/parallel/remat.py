@@ -23,8 +23,15 @@ memory, on non-reentrant ``torch.utils.checkpoint``:
   recomputed: the other activations stay on the device.  Elsewhere the
   JAX package's counted fallback to ``'dots'`` (``remat_offload_fallback``
   once an executor; ``HETU_REQUIRE_OFFLOAD=1`` raises instead).
-* ``'auto'``    — refused by name: its per-segment pricing needs the
-  shape-inferred cost model (``analysis.infer_graph``), not ported.
+* ``'auto'``    — the segments of ``'full'``, each priced from the
+  shapes of ``analysis.infer_graph`` (:func:`_price_segments`: the bytes
+  of the values it produces, the bytes that must survive as its
+  boundaries, the products' FLOPs a replay re-pays, with
+  ``autoparallel.cost_model``'s pricing); the cheapest recompute per
+  byte freed is rematted first until the projected live bytes fit the
+  budget (:func:`resolve_budget`: ``HETU_HBM_BUDGET_MB``, else the
+  card's memory).  No budget, or a graph that does not price, remats
+  every segment.  ``Executor.remat_plan()`` reports the plan.
 
 Every policy gives the losses and gradients of ``'off'`` bit for bit: a
 recompute replays the same ops on the same inputs.  Dropout draws from
@@ -42,6 +49,7 @@ import os
 import weakref
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from ..metrics import record_remat
@@ -92,11 +100,38 @@ def resolve_policy(value):
     return pol
 
 
+def resolve_budget(device=None):
+    """The device memory budget of ``'auto'`` in bytes: ``(bytes,
+    source)``, or ``(None, None)``.  ``HETU_HBM_BUDGET_MB`` wins; then a
+    CUDA ``device``'s (or, given none, the current card's) total memory;
+    the CPU reports none."""
+    env = os.environ.get("HETU_HBM_BUDGET_MB")
+    if env:
+        try:
+            return int(float(env) * 2**20), "HETU_HBM_BUDGET_MB"
+        except ValueError:
+            pass
+    dev = torch.device(device) if device is not None else None
+    if dev is None and torch.cuda.is_available():
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev is not None and dev.type == "cuda":
+        try:
+            _free, total = torch.cuda.mem_get_info(dev)
+            return int(total), "device"
+        except Exception:
+            pass
+    return None, None
+
+
 @dataclass
 class RematSegment:
-    """One contiguous run of forward nodes, anchored at products.  The
-    byte and FLOP prices of the JAX package's segments come from its
-    shape-inferred cost model, which the port lacks: they stay 0."""
+    """One contiguous run of forward nodes, anchored at products.
+
+    ``act_bytes`` prices every value the segment produces (what saving
+    them costs), ``out_bytes`` the ones that survive as its boundaries
+    either way (consumed outside it, or fetched), ``recompute_flops`` the
+    product FLOPs a replay re-pays; ``saved_bytes``, what remat frees, is
+    the difference."""
 
     index: int
     nodes: list
@@ -110,18 +145,23 @@ class RematSegment:
     def saved_bytes(self):
         return max(0.0, self.act_bytes - self.out_bytes)
 
+    @property
+    def cost_per_byte(self):
+        """The greedy key: recompute FLOPs per byte freed."""
+        return self.recompute_flops / max(1.0, self.saved_bytes)
+
 
 @dataclass
 class RematPlan:
     """The per-segment decisions of one subgraph (``'full'``: every
-    segment)."""
+    segment; ``'auto'``: the budget's)."""
 
     policy: str
     segments: list = field(default_factory=list)
     budget_bytes: object = None
     budget_source: object = None
     persistent_bytes: int = 0
-    priced: bool = False
+    priced: bool = True
     note: str = ""
 
     @property
@@ -207,22 +247,148 @@ def build_segments(topo, skip=()):
             if len(s) > 1 and any(_is_anchor(n) for n in s)]
 
 
-def plan_for(sub):
-    """The ``'full'`` plan of one differentiating subgraph (None for the
-    other policies and for forward-only subgraphs).  Records the JAX
-    package's plan counters once a build."""
-    if sub.ex.remat != "full" or not sub.grad_ops:
+def _price_segments(segments, fetches, topo, skip=()):
+    """Per-segment (act_bytes, out_bytes, recompute_flops) from the shapes
+    of ``analysis.infer_graph``.  True when every segment priced; a failed
+    inference leaves the prices at 0."""
+    from ..graph.gradients import GradientOp
+    try:
+        from ..analysis.shapes import infer_graph
+        from ..autoparallel.cost_model import MATMUL_OPS, matmul_flops
+        gs = infer_graph(fetches)
+    except Exception:
+        return False
+
+    def nbytes(node):
+        st = gs.struct(node)
+        if st is None or isinstance(st, (tuple, list)):
+            return None
+        return float(st.numel() * st.element_size())
+
+    # a segment's value consumed outside it survives as a boundary
+    skip = set(skip)
+    lowerable = [n for n in topo
+                 if not (isinstance(n, GradientOp) or n in skip)]
+    consumers = {}
+    for n in lowerable:
+        for i in n.inputs:
+            consumers.setdefault(i, []).append(n)
+    fetch_set = {f for f in fetches if f is not None}
+
+    ok = True
+    for seg in segments:
+        segset = set(seg.nodes)
+        act = out = flops = 0.0
+        for node in seg.nodes:
+            b = nbytes(node)
+            if b is None:
+                ok = False
+                continue
+            act += b
+            cons = consumers.get(node, [])
+            if node in fetch_set or not cons \
+                    or any(c not in segset for c in cons):
+                out += b
+            if node.op_type in MATMUL_OPS or node.op_type == "Einsum":
+                f = None
+                try:
+                    f = matmul_flops(node, gs, gs.shape(node))
+                except Exception:
+                    f = None
+                if f:
+                    flops += f
+                else:
+                    ok = False
+            elif node.op_type.startswith("Conv"):
+                # 2 * output elements * the contracted Cin * kH * kW
+                out_shape = gs.shape(node)
+                w_shape = gs.shape(node.inputs[1])
+                if out_shape and w_shape:
+                    flops += 2.0 * float(np.prod(out_shape)) \
+                        * float(np.prod(w_shape)) / w_shape[0]
+                else:
+                    ok = False
+            elif node.op_type.startswith(ANCHOR_PREFIXES):
+                # attention: the scores and values products
+                q = gs.shape(node.inputs[0])
+                kv = gs.shape(node.inputs[1])
+                if q and kv:
+                    flops += 2.0 * 2.0 * float(np.prod(q[:-2])) \
+                        * q[-2] * kv[-2] * q[-1]
+                else:
+                    ok = False
+        seg.act_bytes, seg.out_bytes, seg.recompute_flops = act, out, flops
+    return ok
+
+
+def build_plan(topo, fetches, policy, skip=(), persistent_bytes=0,
+               budget=None, budget_source=None):
+    """The per-segment decisions of ``policy`` over one fetch subgraph: a
+    :class:`RematPlan`, or None for the policies without segments.
+    Records the ``remat_*`` counters once a build."""
+    if policy not in ("full", "auto"):
         return None
-    segs = [RematSegment(index=i, nodes=nodes, remat=True,
-                         anchors=sum(1 for n in nodes if _is_anchor(n)))
-            for i, nodes in enumerate(build_segments(sub.topo,
-                                                     skip=sub.opt_ops))]
-    plan = RematPlan(policy="full", segments=segs,
-                     note="segments unpriced: the shape-inferred cost "
-                          "model (analysis.infer_graph) is not ported")
+    segs = [RematSegment(index=i, nodes=nodes)
+            for i, nodes in enumerate(build_segments(topo, skip=skip))]
+    for s in segs:
+        s.anchors = sum(1 for n in s.nodes if _is_anchor(n))
+    priced = _price_segments(segs, fetches, topo, skip=skip)
+    note = ""
+    if policy == "full":
+        for s in segs:
+            s.remat = True
+    else:
+        if budget is None:
+            budget, budget_source = resolve_budget()
+        if budget is None or not priced:
+            # no budget, or a graph that does not price: remat everything
+            # (the remat-policy lint says so at construction)
+            for s in segs:
+                s.remat = True
+            note = "no HBM budget resolvable — rematting every segment" \
+                if budget is None else \
+                "graph not fully priceable — rematting every segment"
+        else:
+            live = persistent_bytes + sum(s.act_bytes for s in segs)
+            for s in sorted(segs, key=lambda s: s.cost_per_byte):
+                if live <= budget:
+                    break
+                s.remat = True
+                live -= s.saved_bytes
+            if live > budget:
+                note = (f"budget {budget} B not reachable even with "
+                        f"every segment rematted (projected {int(live)} "
+                        f"B)")
+    plan = RematPlan(policy=policy, segments=segs, budget_bytes=budget,
+                     budget_source=budget_source,
+                     persistent_bytes=int(persistent_bytes),
+                     priced=priced, note=note)
     record_remat("remat_layers_total", len(segs))
     record_remat("remat_layers_rematted", plan.n_remat)
+    record_remat("remat_bytes_saved", plan.bytes_saved)
+    record_remat("remat_recompute_flops", plan.recompute_flops)
     return plan
+
+
+def plan_for(sub):
+    """The ``'full'`` or ``'auto'`` plan of one differentiating subgraph
+    (None for the other policies and for forward-only subgraphs); the
+    persistent bytes are the executor's parameters, optimizer state and
+    gradients (``Executor.memory_accounting``), the budget the
+    executor's device's."""
+    ex = sub.ex
+    if ex.remat not in ("full", "auto") or not sub.grad_ops:
+        return None
+    mem = ex.memory_accounting()
+    persistent = (mem["param_bytes_per_device"]
+                  + mem["zero_slab_bytes_per_device"]
+                  + mem["opt_state_bytes_per_device"]
+                  + mem["grad_bytes_per_device"])
+    budget, source = resolve_budget(ex.device) if ex.remat == "auto" \
+        else (None, None)
+    return build_plan(sub.topo, sub.fetches, ex.remat, skip=sub.opt_ops,
+                      persistent_bytes=persistent, budget=budget,
+                      budget_source=source)
 
 
 def offload_available(device):
@@ -320,6 +486,7 @@ class ProductOffload:
 
 
 __all__ = ["POLICIES", "ANCHOR_OPS", "ANCHOR_PREFIXES", "STATE_WRITING_OPS",
-           "OFFLOAD_OPS", "resolve_policy", "anchors_per_segment",
-           "RematSegment", "RematPlan", "build_segments", "plan_for",
+           "OFFLOAD_OPS", "resolve_policy", "resolve_budget",
+           "anchors_per_segment", "RematSegment", "RematPlan",
+           "build_segments", "build_plan", "plan_for",
            "offload_available", "checkpointed", "ProductOffload"]

@@ -205,7 +205,9 @@ class DecodeEngine:
     primary executor's parameters, never initialised on its own, so both
     entries serve the same weight tensors; a variable the primary lacks
     raises.  ``max_chunk`` caps the chunk ladder (default
-    ``min(32, max_len)``).
+    ``min(32, max_len)``).  ``validate`` (``'error'``, ``'warn'``,
+    ``'off'``) is each entry's ``InferenceExecutor(validate=,
+    decode=True)``.
 
     Not thread-safe by design: the owning :class:`DecodeRouter` loop
     thread (or a single test thread) makes every call after construction.
@@ -213,7 +215,8 @@ class DecodeEngine:
 
     def __init__(self, feeds, logits, cache_fetches, weights=None, *,
                  max_slots=8, max_len=128, seed=0, device=None, plan=None,
-                 chunked=None, max_chunk=None, prefix_store=None):
+                 validate="error", chunked=None, max_chunk=None,
+                 prefix_store=None):
         for opt, given in (("plan", plan), ("prefix_store", prefix_store)):
             if given is not None:
                 raise NotImplementedError(f"DecodeEngine({opt}=) is not ported")
@@ -221,7 +224,8 @@ class DecodeEngine:
         torch.backends.cuda.matmul.allow_tf32 = False
         self.iex = InferenceExecutor(
             [logits] + list(cache_fetches), weights=weights,
-            buckets=default_buckets(max_slots), seed=seed, device=device)
+            buckets=default_buckets(max_slots), seed=seed, device=device,
+            validate=validate, decode=True)
         self.device = self.iex.device
         self.max_len = int(max_len)
         self.batch_ladder = self.iex.buckets
@@ -245,7 +249,8 @@ class DecodeEngine:
             self.ciex = InferenceExecutor(
                 [clogits] + list(ccaches), weights=w,
                 buckets=default_buckets(max_slots), seed=seed,
-                device=self.device, strict=True)
+                device=self.device, strict=True, validate=validate,
+                decode=True)
             top = int(max_chunk) if max_chunk else min(32, self.max_len)
             self.chunk_ladder = tuple(default_buckets(max(2, top)))
             self.chunk_top = self.chunk_ladder[-1]

@@ -55,23 +55,34 @@ class InferenceExecutor:
     weights live and the graph runs — CUDA by default; the CPU only when
     asked for.  ``strict``: a variable that a ``weights`` dict does not
     cover raises ``KeyError`` instead of taking its seeded initializer
-    value with a warning.
+    value with a warning.  ``validate``: ``'error'`` (the default: a
+    gradient or an optimizer update in the fetch set is rejected at
+    construction, with its creation site), ``'warn'`` or ``'off'``; the
+    lint runs with ``serving=True, training=False`` and ``'error'``
+    escalates only error-severity diagnostics (a dropout in a served
+    forward is inert and only warned of).  ``decode=True``: the fetch set
+    is a one-token decode step (the ``decode-incompatible-op`` rule).
 
-    Not ported yet, and refused by name: ``plan=``, ``mesh=``,
-    ``validate=``, PS embedding nodes and checkpoint-directory weights.
+    Not ported yet, and refused by name: ``plan=``, ``mesh=``, PS
+    embedding nodes and checkpoint-directory weights.
     """
 
     def __init__(self, fetches, weights=None, buckets=None, max_batch=128,
-                 seed=0, device=None, plan=None, mesh=None, validate=None,
-                 strict=False):
-        for opt, given in (("plan", plan), ("mesh", mesh),
-                           ("validate", validate)):
+                 seed=0, device=None, plan=None, mesh=None, validate="error",
+                 strict=False, decode=False):
+        for opt, given in (("plan", plan), ("mesh", mesh)):
             if given is not None:
                 raise NotImplementedError(
                     f"InferenceExecutor({opt}=) is not ported")
+        if validate not in ("warn", "error", "off"):
+            raise ValueError(f"validate={validate!r}: expected "
+                             "'warn', 'error', or 'off'")
+        self.validate = validate
+        self.decode = bool(decode)
         if isinstance(fetches, Op):
             fetches = [fetches]
         self.fetches = list(fetches)
+        self._validate_graph()
         self.device = resolve_device(device)
         self.seed = int(seed)
         self.topo = topo_sort(self.fetches)
@@ -99,6 +110,29 @@ class InferenceExecutor:
     def _k(self, node):
         k = self._node_keys.get(node)
         return k if k is not None else f"n{node.id}"
+
+    # -- static validation -------------------------------------------------
+
+    def _validate_graph(self):
+        """``lint(fetches, serving=True, training=False)`` at construction
+        (see the class docstring)."""
+        if self.validate == "off":
+            return
+        from ..analysis import lint as lint_graph
+        try:
+            report = lint_graph(self.fetches, training=False, serving=True,
+                                decode=self.decode)
+        except Exception as e:
+            warnings.warn(f"serving graph lint crashed: "
+                          f"{type(e).__name__}: {e}", RuntimeWarning)
+            return
+        if report.diagnostics:
+            if self.validate == "error":
+                report.raise_errors()
+            warnings.warn(
+                f"serving lint found {len(report.diagnostics)} issue(s) "
+                f"(InferenceExecutor(validate='off') silences):\n{report}",
+                UserWarning)
 
     # -- weights -----------------------------------------------------------
 

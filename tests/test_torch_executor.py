@@ -4,7 +4,9 @@ gives the same loss and the same ``gradients`` fetches in both packages
 from the same weights (atol 1e-6, float32), plus the executor's own
 contract: ``run`` returns ``NDArray``s, ``step_counter`` advances on
 training subgraphs only, ``load_dict`` / ``return_tensor_values``
-round-trip, and unported options fail by name."""
+round-trip, and unported options fail by name.  The run surface
+(``run(sync=False)``, ``run_steps``, ``timing=``, ``matmul_precision=``,
+``remat='auto'``) is held in ``tests/test_torch_run_plan.py``."""
 import os
 import sys
 
@@ -94,27 +96,18 @@ def test_load_dict_and_return_tensor_values_round_trip():
                                   b.run("train", feed_dict=fd)[0].asnumpy())
 
 
-@pytest.mark.parametrize("opt", ["dist_strategy", "mesh", "remat",
+@pytest.mark.parametrize("opt", ["dist_strategy", "mesh",
                                  "plan", "pipeline", "num_microbatches",
-                                 "matmul_precision", "compute_dtype",
-                                 "timing"])
+                                 "compute_dtype"])
 def test_unported_executor_options_raise_by_name(opt):
     _, _, loss, _, train_op = _mlp(tht)
     # compute_dtype is ported for bfloat16 only; float16 stays refused;
-    # remat is ported but for 'auto'; num_microbatches is ported but
-    # under a strategy (zero= is ported: tests/test_torch_zero.py)
-    value = {"compute_dtype": "float16", "remat": "auto",
-             "num_microbatches": 4, "pipeline": "gpipe",
-             "timing": True}.get(opt, object())
+    # num_microbatches is ported but under a strategy (zero= is ported:
+    # tests/test_torch_zero.py)
+    value = {"compute_dtype": "float16",
+             "num_microbatches": 4, "pipeline": "gpipe"}.get(opt, object())
     kw = {opt: value}
     if opt == "num_microbatches":
         kw["dist_strategy"] = tht.dist.DataParallel()
     with pytest.raises(NotImplementedError, match=opt):
         tht.Executor({"train": [loss, train_op]}, device="cpu", **kw)
-
-
-def test_non_blocking_run_is_not_ported():
-    x, y_, loss, _, train_op = _mlp(tht)
-    ex = tht.Executor({"train": [loss, train_op]}, device="cpu")
-    with pytest.raises(NotImplementedError, match="sync=False"):
-        ex.run("train", feed_dict=_feeds(x, y_), sync=False)

@@ -69,11 +69,18 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "import hetu_tpu_torch.graph.checkpoint\n"
             "import hetu_tpu_torch.optim.lr_scheduler\n"
             "import hetu_tpu_torch.ps.store\n"
+            "import hetu_tpu_torch.analysis\n"
+            "import hetu_tpu_torch.analysis.shapes\n"
+            "import hetu_tpu_torch.analysis.lint\n"
+            "import hetu_tpu_torch.autoparallel\n"
+            "import hetu_tpu_torch.autoparallel.cost_model\n"
+            "import hetu_tpu_torch.graph.run_plan\n"
             "assert sys.modules['jax'] is None\n"
             "x = hetu_tpu_torch.placeholder_op('x')\n"
             "ex = hetu_tpu_torch.Executor([x * 2.0], device='cpu',\n"
             "                             compute_dtype='bfloat16')\n"
             "print(ex.run(feed_dict={x: [1.5]})[0].asnumpy().dtype)\n"
+            "print(hetu_tpu_torch.lint([x * 2.0], feeds={x: (3,)}).ok)\n"
             "print(hetu_tpu_torch.GPT2Config.small().n_layer)\n"
             "print(hetu_tpu_torch.T5Config.small().num_layers)\n"
             "print(hetu_tpu_torch.XLNetConfig.base().n_layer)\n"
@@ -101,7 +108,7 @@ def test_import_with_jax_and_hetu_tpu_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ["float32", "12", "6", "12", "512",
+    assert proc.stdout.split() == ["float32", "True", "12", "6", "12", "512",
                                    "2", "()", "3.0"]
 
 
@@ -186,7 +193,7 @@ def test_decode_engine_takes_a_chunked_entry_and_needs_its_variables():
         ht.DecodeEngine(feeds, logits, caches, device="cpu", chunked=other)
 
 
-@pytest.mark.parametrize("opt", ["plan", "mesh", "validate"])
+@pytest.mark.parametrize("opt", ["plan", "mesh"])
 def test_inference_executor_refuses_unported_options(opt):
     cfg = ht.GPT2Config.tiny(n_layer=1)
     _, logits, _, _ = ht.gpt2_decode_graph(cfg, max_len=8)

@@ -23,7 +23,10 @@ copy and must match exactly; the segment-sum must match its plain version
 host cache's ``_segment_sum`` exactly, also on runs longer than the
 kernel's shared-memory chunk.  The MoE row gather is a copy with
 zero rows and must match exactly; so must the sparse dispatch and combine
-built from it, forward and backward, kernel against plain gather."""
+built from it, forward and backward, kernel against plain gather.  The
+executor's ``run_steps(sync=False)`` on the card (feeds copied ahead from
+pinned memory on a side stream, a window of CUDA events) gives the plain
+loop's bits."""
 import os
 import sys
 
@@ -1647,3 +1650,56 @@ def test_cnn_op_on_the_card_matches_the_cpu(cuda, op, df, dtype):
         if dtype == torch.bfloat16:
             tol["atol"] *= max(1.0, float(np.abs(want).max()))
         np.testing.assert_allclose(got, want, **tol)
+
+
+# -- the executor's run surface on the card --------------------------------
+
+
+def _mlp_steps(monkeypatch, mode, n=8):
+    """A two-product MLP on the card under Adam, ``n`` steps of seeded
+    feeds: the plain ``run()`` loop, or ``run_steps(sync=False)`` with
+    every next step's feeds placed ahead on the side stream.  Returns the
+    losses (bytes), the final weights and the run-plan counters."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import metrics
+    monkeypatch.setenv("HETU_FEED_PIPELINE_MIN_US", "0")
+    monkeypatch.setenv("HETU_ASYNC_WINDOW", "2")
+    rng = np.random.RandomState(0)
+    x = ht.placeholder_op("x", shape=(256, 512))
+    w1 = ht.Variable("w1", value=rng.randn(512, 1024).astype(np.float32)
+                     * 0.05)
+    w2 = ht.Variable("w2", value=rng.randn(1024, 16).astype(np.float32)
+                     * 0.05)
+    h = ht.matmul_op(ht.relu_op(ht.matmul_op(x, w1)), w2)
+    loss = ht.reduce_mean_op(h * h, [0, 1])
+    ex = ht.Executor({"train": [loss,
+                                ht.optim.AdamOptimizer(1e-3).minimize(loss)]},
+                     seed=0, device="cuda", validate="error")
+    feeds = [rng.randn(256, 512).astype(np.float32) for _ in range(n)]
+    metrics.reset_run_plan_counts()
+    if mode == "loop":
+        outs = [ex.run("train", feed_dict={x: f}) for f in feeds]
+    else:
+        outs = ex.run_steps(lambda i: {x: feeds[i]}, n, name="train",
+                            sync=False)
+        assert len(ex._async_pending) == 2
+    losses = [o[0].asnumpy().tobytes() for o in outs]
+    ex.ps_flush()
+    assert not ex._async_pending
+    return losses, ex.return_tensor_values(), metrics.run_plan_counts()
+
+
+@pytest.mark.gpu
+def test_run_steps_on_the_card_is_bit_equal_to_the_loop(cuda, monkeypatch):
+    """Feeds copied ahead from pinned memory on the side stream, the
+    compute stream waiting on each copy's event, and a window of two CUDA
+    events: the same bits as the plain loop."""
+    want, w_want, _ = _mlp_steps(monkeypatch, "loop")
+    got, w_got, counts = _mlp_steps(monkeypatch, "steps")
+    assert got == want
+    for k in w_want:
+        np.testing.assert_array_equal(w_got[k], w_want[k])
+    assert counts["feeds_pipelined"] == 7
+    assert counts["plan_cache_miss"] == 1 and counts["plan_cache_hit"] == 7
+    # six steps past the window of two, and the flush
+    assert counts["async_sync_points"] == 7

@@ -18,7 +18,13 @@ gradient accumulation (``Executor(num_microbatches=)``) in the port.
   a BatchNorm graph's running statistics are threaded from microbatch to
   microbatch as the JAX package threads them (rtol 1e-5); the
   ``microbatch_feeds`` choice, an indivisible batch and PS embeddings are
-  held to the JAX package's rules."""
+  held to the JAX package's rules.
+* ``remat='auto'``: on ``tests/test_remat.py``'s two-segment toy the
+  port's plan equals ``hetu_tpu.parallel.remat.build_plan``'s for the
+  same budget (segment for segment, bytes, FLOPs, the report); without a
+  budget every segment is rematted and noted, and the lint warns; through
+  the executor the plan follows ``HETU_HBM_BUDGET_MB`` and the losses and
+  gradients are bit-equal to ``'off'``."""
 import os
 import sys
 import warnings
@@ -293,3 +299,84 @@ def test_accumulation_with_ps_embeddings_is_refused():
         tht.Executor({"train": [loss, tht.optim.SGDOptimizer(0.1)
                                 .minimize(loss)]}, device="cpu",
                      num_microbatches=2)
+
+
+# ------------------------------------------------------------ remat auto
+
+def _toy(ht):
+    """``tests/test_remat.py``'s two-segment toy (one anchor a segment)."""
+    rng = np.random.RandomState(0)
+    x = ht.placeholder_op("x", shape=(64, 32))
+    y_ = ht.placeholder_op("y", shape=(64, 4))
+    wa = ht.Variable("wa", value=rng.randn(32, 512).astype(np.float32) * .1)
+    wb = ht.Variable("wb", value=rng.randn(512, 4).astype(np.float32) * .1)
+    ha = ht.relu_op(ht.matmul_op(ht.relu_op(x), wa))
+    loss = ht.reduce_mean_op(
+        ht.softmaxcrossentropy_op(ht.matmul_op(ha, wb), y_), [0])
+    return x, y_, [loss, ht.optim.SGDOptimizer(0.1).minimize(loss)]
+
+
+def _plan(mod, topo, fetches, policy, **kw):
+    skip = [n for n in topo if n.op_type == "OptimizerUpdate"]
+    return mod.build_plan(topo, fetches, policy, skip=skip, **kw)
+
+
+def _summary(plan):
+    return [(len(s.nodes), s.anchors, s.act_bytes, s.out_bytes,
+             s.recompute_flops, s.remat) for s in plan.segments]
+
+
+def test_auto_plan_equals_the_jax_packages(monkeypatch):
+    monkeypatch.setenv("HETU_REMAT_SEGMENT_ANCHORS", "1")
+    monkeypatch.delenv("HETU_HBM_BUDGET_MB", raising=False)
+    tf, jf = _toy(tht)[2], _toy(jht)[2]
+    ttopo, jtopo_ = tht.topo_sort(tf), jtopo(jf)
+    tall = _plan(tremat, ttopo, tf, "full")
+    jall = _plan(jremat, jtopo_, jf, "full")
+    assert tall.priced and jall.priced and len(tall.segments) == 2
+    assert _summary(tall) == _summary(jall)
+    cheapest = min(tall.segments, key=lambda s: s.cost_per_byte)
+    budget = int(sum(s.act_bytes for s in tall.segments)
+                 - cheapest.saved_bytes)
+    for b in (budget, budget - 1, 10 ** 9):
+        t = _plan(tremat, ttopo, tf, "auto", budget=b, budget_source="t")
+        j = _plan(jremat, jtopo_, jf, "auto", budget=b, budget_source="t")
+        assert _summary(t) == _summary(j), b
+        assert t.report() == j.report(), b
+    assert [s.index for s in _plan(tremat, ttopo, tf, "auto", budget=budget)
+            .segments if s.remat] == [cheapest.index]
+    t = _plan(tremat, ttopo, tf, "auto")
+    j = _plan(jremat, jtopo_, jf, "auto")
+    assert t.n_remat == len(t.segments) == j.n_remat
+    assert t.note == j.note and "no HBM budget" in t.note
+
+
+def test_auto_through_the_executor_follows_the_budget(monkeypatch):
+    """Tiny BERT with dropout: with a budget too small for anything every
+    segment is rematted, with a large one none; the losses and every
+    gradient are bit-equal to 'off' either way."""
+    base = _run(*_port("off"), 2)
+    monkeypatch.setenv("HETU_HBM_BUDGET_MB", "0.001")
+    ex, fd = _port("auto")
+    rep = ex.remat_plan("train")
+    assert rep["policy"] == "auto" and rep["budget_source"] == \
+        "HETU_HBM_BUDGET_MB" and rep["priced"]
+    assert rep["segments_rematted"] == rep["segments"] > 1
+    _bit_equal(_run(ex, fd, 2), base)
+    monkeypatch.setenv("HETU_HBM_BUDGET_MB", "100000")
+    ex, fd = _port("auto")
+    assert ex.remat_plan("train")["segments_rematted"] == 0
+    _bit_equal(_run(ex, fd, 2), base)
+
+
+def test_auto_without_a_budget_warns_on_the_cpu(monkeypatch):
+    monkeypatch.delenv("HETU_HBM_BUDGET_MB", raising=False)
+    x, y_, fetches = _toy(tht)
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        ex = tht.Executor({"train": fetches}, seed=0, device="cpu",
+                          remat="auto")
+    assert any("remat-policy" in str(r.message)
+               and "no resolvable HBM budget" in str(r.message)
+               for r in rec)
+    assert "no HBM budget" in ex.remat_plan("train")["note"]
