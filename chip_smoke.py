@@ -475,9 +475,29 @@ without printing the final result line:
     ``matmul_precision`` None, ``'tensorfloat32'`` and ``'bfloat16'``, 5
     steps each: p50, the largest loss gap against None, TF32 off again
     after each.
-43. Print the card's name and power limit, the ``kernels`` JSON line (each
+43. The sharded parameter server at phase 9's configuration (Wide & Deep,
+    batch 2048, vocab 100,000, dim 16, the 8 ``ctr_batches``): a spawned
+    process serves shard 1 of a two-rank ``DistributedStore`` (keys
+    ``% 2``), this process rank 0.  (a) The device cache (``vlru_dev``)
+    over the two shards in turns with the same 8 steps over one local
+    store, from one table and one set of weights: losses, the store table
+    after the flushes, versions and cache counters equal bit for bit, B4
+    and B5 once a step (counted over every run), p50 of the timed steps,
+    device busy of the profiled ones and the idle share, RPCs and request
+    bytes a step; then B4 and B5 held to their plain versions at this
+    phase's shapes (a real plan's slots over the sharded store: gather
+    exact, segment-sum equal to the host ``_segment_sum`` and within
+    ``SEG_RTOL`` / ``SEG_ATOL`` of plain).  (b) The host cache (``vlru``)
+    over the two shards, no B4 / B5: ``bsp=0``; ``bsp=-1`` with a
+    ``ps_flush`` each step (losses and table equal to ``bsp=0``'s bit for
+    bit) and without (every push landed by ``ps_flush``); ``bsp=2`` on an
+    ``ssp_init(1)`` store (one clock tick a step, losses equal to
+    ``bsp=0``'s); p50 of each.  (c) ``embed_mode='lru'`` (the native
+    ``CacheSparseTable``): the store's native library loaded, p50 and hit
+    rate.
+44. Print the card's name and power limit, the ``kernels`` JSON line (each
     flash row counts the launches of phases 38-42 too, B4 and B5 those of
-    phases 41 and 42, by kernels-line name) and, last, ``{"ok": true,
+    phases 41-43, by kernels-line name) and, last, ``{"ok": true,
     "device": {...}}``.
 
 Float32 matrix products run in full float32:
@@ -493,6 +513,7 @@ import multiprocessing
 import os
 import pickle
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -662,6 +683,12 @@ RS_TURNS, RS_TURN_STEPS, RS_PROFILED = 3, 4, 3
 RS_DL_STEPS, RS_PREC_STEPS, RS_REMAT_STEPS, RS_WDL_STEPS = 6, 5, 2, 8
 RS_SMALL_BUDGET_MB = 1
 RS_PRECISIONS = (None, "tensorfloat32", "bfloat16")
+# phase 43: the sharded parameter server at phase 9's configuration, the 8
+# ctr_batches a run: (a) turns of the local and the two-shard store, each
+# run's first step untimed and its last PS_PROFILED profiled; the tables
+# each store makes ((a) one a turn, (b) BSP, ASP flushed each step, ASP,
+# SSP); the seconds the shard process may take to start or stop
+PS_TURNS, PS_PROFILED, PS_TABLES, PS_TIMEOUT = 2, 2, 6, 120
 
 
 def log(msg):
@@ -5966,6 +5993,320 @@ def phase_run_surface(ht, fa, emb, seg, metrics, kmods, pm):
     return launches
 
 
+# -- phase 43: the sharded parameter server --------------------------------------
+
+def ps_shard(ports, conn, vocab, dim):
+    """Phase 43's shard process: rank 1 of the two-rank store, serving
+    shard 1 of ``PS_TABLES`` tables of ``vocab`` x ``dim`` until told to
+    stop."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from hetu_tpu_torch.ps.dist_store import DistributedStore
+    store = DistributedStore(1, 2, [("127.0.0.1", p) for p in ports],
+                             port=ports[1])
+    for _ in range(PS_TABLES):
+        store.init_table(vocab, dim, opt="sgd", lr=0.01, seed=0,
+                         init_scale=0.01)
+    conn.send(("ready", store.local.native))
+    conn.recv()
+    store.close()
+    conn.send(("closed", None))
+
+
+def _free_ports(n):
+    socks = [socket.socket() for _ in range(n)]
+    for sk in socks:
+        sk.bind(("127.0.0.1", 0))
+    ports = [sk.getsockname()[1] for sk in socks]
+    for sk in socks:
+        sk.close()
+    return ports
+
+
+def ps_wdl(ht, store, tid, mode, weights, device="cuda", **ex_kw):
+    """Wide & Deep at the WDL configuration over ``store``'s table
+    ``tid`` through the HET cache as ``wdl_criteo`` builds it (``vlru_dev``
+    or ``vlru``): (feeds, executor, cache)."""
+    dense = ht.placeholder_op("dense")
+    sparse = ht.placeholder_op("sparse", dtype=np.int64)
+    y_ = ht.placeholder_op("y")
+    dev = mode.endswith("_dev")
+    cache = ht.DistCacheTable(
+        store, tid, limit=max(CTR_VOCAB // 10, 256), pull_bound=10,
+        push_bound=10, policy="lru", device=dev,
+        device_scratch=min(CTR_VOCAB, CTR_BATCH * 26) if dev else None,
+        slab_device=device if dev else None)
+    emb = ht.ps_embedding_lookup_op(cache, sparse, width=CTR_DIM)
+    loss, _ = ht.models.ctr._wdl_head(emb, dense, y_, CTR_BATCH, CTR_DIM)
+    ex = ht.Executor({"train": [loss, ht.optim.SGDOptimizer(0.01)
+                                .minimize(loss)]}, seed=0, device=device,
+                     **ex_kw)
+    if weights is not None:
+        ex.load_dict(weights)
+    return (dense, sparse, y_), ex, cache
+
+
+def ps_run(ht, metrics, pm, store, tid, mode, weights, batches, table0,
+           device="cuda", profiled=0, flush_each=False, **ex_kw):
+    """One run of ``batches`` from ``table0``: its losses, the ms of the
+    steps after the first and before the last ``profiled`` (the loss copy
+    waits for each), device busy ms a profiled step, RPCs and request
+    bytes, then the store table, versions and cache stats after the
+    flushes."""
+    store.set_data(tid, table0)
+    feeds, ex, cache = ps_wdl(ht, store, tid, mode, weights, device,
+                              **ex_kw)
+    metrics.reset_rpc_stats()
+    losses, ms = [], []
+    plain = len(batches) - profiled
+    for i, b in enumerate(batches[:plain]):
+        t0 = time.perf_counter()
+        losses.append(float(ex.run("train", feed_dict=dict(
+            zip(feeds, b)))[0].asnumpy()))
+        if flush_each:
+            ex.ps_flush()
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    busy = None
+    if profiled:
+        it = iter(batches[plain:])
+
+        def step():
+            losses.append(float(ex.run("train", feed_dict=dict(
+                zip(feeds, next(it))))[0].asnumpy()))
+        busy = _device_busy(pm, lambda: [step() for _ in range(profiled)],
+                            profiled)[0]
+    rpc = metrics.rpc_stats()
+    ex.ps_flush()
+    cache.flush()
+    keys = np.arange(CTR_VOCAB)
+    out = {"losses": losses, "ms": ms, "busy_ms": busy,
+           "rpc_calls": rpc["calls"], "rpc_bytes": rpc["bytes"],
+           "table": store.pull(tid, keys), "versions": store.versions(
+               tid, keys), "stats": dict(cache.stats),
+           "ex": ex, "cache": cache}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss over the PS ({mode}): "
+                             f"{losses}")
+    return out
+
+
+def _per_step(d, steps):
+    return {k: v / steps for k, v in sorted(d.items())}
+
+
+def ps_kernels_at_phase_shapes(emb, seg, cache, ids):
+    """B4 and B5 at phase 43's shapes, after its counted steps: the slots
+    of a real plan over the sharded store (two batches of ``ids``, the
+    second with hits), against their plain versions."""
+    from hetu_tpu_torch.ps.dist_store import _segment_sum
+    cache.lookup(ids[0])                    # the next batch then has hits
+    h = cache.begin_lookup(ids[1])
+    try:
+        rows = h.roundtrip()
+    except BaseException:
+        cache.abort_lookup(h)
+        raise
+    cache.finish_lookup(h, rows)
+    slab = cache._ensure_dev_slab()
+    slots = torch.from_numpy(h.positions[h.inv].astype(np.int32)).to(
+        slab.device)
+    out = emb.gather_rows(slab, slots)
+    if not torch.equal(out, emb.gather_rows_plain(slab, slots)):
+        raise AssertionError("phase 43: B4 vs plain not equal")
+    inv = torch.from_numpy(h.inv.astype(np.int32)).to(slab.device)
+    g = torch.from_numpy((np.random.RandomState(43).randn(
+        h.inv.size, CTR_DIM) * GRAD_SCALE).astype(np.float32)).to(slab.device)
+    got = emb.scatter_add_grads(g, inv)
+    order = torch.sort(inv, stable=True)
+    plain = seg.sorted_segment_sum_plain(g.index_select(0, order.indices),
+                                         order.values, g.shape[0])
+    err = float((got - plain).abs().max())
+    if not torch.allclose(got, plain, rtol=SEG_RTOL, atol=SEG_ATOL):
+        raise AssertionError(f"phase 43: B5 vs plain max err {err}")
+    u = int(h.uk.size)
+    if not np.array_equal(got.cpu().numpy()[:u], _segment_sum(
+            g.cpu().numpy(), h.inv, h.cnt)):
+        raise AssertionError("phase 43: B5 vs the host _segment_sum")
+    return {"n": int(h.inv.size), "unique": u,
+            "hits": int(h.hit.sum()), "gather": "equal",
+            "segment_sum_max_abs_err": err}
+
+
+def phase_ps_sharded(ht, emb, seg, metrics, kmods, pm, device="cuda"):
+    """Phase 43 (see the module docstring); returns its B4 / B5 launches
+    by kernels-line name."""
+    from hetu_tpu_torch.ps import build as ps_build
+    from hetu_tpu_torch.ps.dist_store import DistributedStore
+    t_phase = time.perf_counter()
+    ports = _free_ports(2)
+    ctx = multiprocessing.get_context("spawn")
+    conn, child = ctx.Pipe()
+    proc = ctx.Process(target=ps_shard,
+                       args=(ports, child, CTR_VOCAB, CTR_DIM), daemon=True)
+    proc.start()
+    dstore = None
+    report = {"card": card_line()}
+    launches = {"emb_gather": 0, "sorted_segment_sum": 0}
+    try:
+        batches = ctr_batches(ht)
+        steps = len(batches)
+        local = ht.EmbeddingStore()
+        ltids = [local.init_table(CTR_VOCAB, CTR_DIM, opt="sgd", lr=0.01,
+                                  seed=0, init_scale=0.01)
+                 for _ in range(PS_TURNS)]
+        table0 = local.get_data(ltids[0])
+        _, ex0, _ = ps_wdl(ht, local, ltids[0], "vlru_dev", None, device)
+        weights = ex0.return_tensor_values()
+        ex0.close()
+        dstore = DistributedStore(0, 2, [("127.0.0.1", p) for p in ports],
+                                  port=ports[0])
+        dtids = [dstore.init_table(CTR_VOCAB, CTR_DIM, opt="sgd", lr=0.01,
+                                   seed=0, init_scale=0.01)
+                 for _ in range(PS_TABLES)]
+        if not conn.poll(PS_TIMEOUT):
+            raise AssertionError("phase 43: the shard process did not start")
+        status, native = conn.recv()
+        if status != "ready" or not (native and dstore.local.native
+                                     and local.native):
+            raise AssertionError(f"phase 43: the stores' native library is "
+                                 f"not loaded ({status}, {native})")
+
+        # (a) the device cache, local and sharded in turns
+        runs = {"local": [], "sharded": []}
+        for turn in range(PS_TURNS):
+            for kind, store, tid in (("local", local, ltids[turn]),
+                                     ("sharded", dstore, dtids[turn])):
+                reset_launches(*kmods)
+                r = ps_run(ht, metrics, pm, store, tid, "vlru_dev", weights,
+                           batches, table0, device, profiled=PS_PROFILED)
+                got = {"emb_gather": emb.launches,
+                       "sorted_segment_sum": seg.launches}
+                if any(v != steps for v in got.values()):
+                    raise AssertionError(f"phase 43 (a) {kind}: B4 / B5 "
+                                         f"launches {got} != {steps}")
+                for k in launches:
+                    launches[k] += got[k]
+                runs[kind].append(r)
+                if kind == "local" or turn < PS_TURNS - 1:
+                    r["ex"].close()
+        for turn in range(PS_TURNS):
+            a, b = runs["sharded"][turn], runs["local"][turn]
+            if a["losses"] != b["losses"]:
+                raise AssertionError(f"phase 43 (a): sharded losses "
+                                     f"{a['losses']} != local {b['losses']}")
+            for k in ("table", "versions"):
+                if not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"phase 43 (a): sharded vs local "
+                                         f"{k} differ")
+            if a["stats"] != b["stats"]:
+                raise AssertionError(f"phase 43 (a): cache stats "
+                                     f"{a['stats']} != {b['stats']}")
+        last = runs["sharded"][-1]
+        kcheck = ps_kernels_at_phase_shapes(emb, seg, last["cache"],
+                                            [b[1] for b in batches[:2]])
+        last["ex"].close()
+        part = {"losses": runs["local"][0]["losses"],
+                "equal": "losses, table, versions, cache stats",
+                "launches": dict(launches), "kernels_vs_plain": kcheck}
+        for kind, rs in runs.items():
+            ms = np.concatenate([r["ms"] for r in rs])
+            p50 = float(np.percentile(ms, 50))
+            busy = float(np.mean([r["busy_ms"] for r in rs]))
+            part[kind] = {
+                "step_ms_p50": p50, "step_ms": [r["ms"] for r in rs],
+                "busy_ms": busy, "idle_share": 1.0 - busy / p50,
+                "rpcs_per_step": _per_step(rs[0]["rpc_calls"], steps),
+                "request_bytes_per_step": _per_step(rs[0]["rpc_bytes"],
+                                                    steps),
+                "miss_rows_per_step": rs[0]["stats"]["fetches"] / steps}
+        report["a_device_cache"] = part
+        log(f"[ps] (a) {json.dumps(part)}")
+
+        # (b) the host cache over the two shards: BSP, ASP, SSP
+        reset_launches(*kmods)
+        part = {}
+        bsp0 = ps_run(ht, metrics, pm, dstore, dtids[2], "vlru", weights,
+                      batches, table0, device, bsp=0)
+        flushed = ps_run(ht, metrics, pm, dstore, dtids[3], "vlru", weights,
+                         batches, table0, device, bsp=-1, flush_each=True)
+        asp = ps_run(ht, metrics, pm, dstore, dtids[4], "vlru", weights,
+                     batches, table0, device, bsp=-1)
+        dstore.ssp_init(1)
+        ssp = ps_run(ht, metrics, pm, dstore, dtids[5], "vlru", weights,
+                     batches, table0, device, bsp=2)
+        clocks = dstore.clocks()
+        if flushed["losses"] != bsp0["losses"] or not np.array_equal(
+                flushed["table"], bsp0["table"]):
+            raise AssertionError("phase 43 (b): ASP flushed each step is not "
+                                 "BSP bit for bit")
+        if asp["stats"]["updates"] != steps * CTR_BATCH * 26 \
+                or asp["ex"]._ps_futures:
+            raise AssertionError(f"phase 43 (b): ASP pushes did not all land "
+                                 f"({asp['stats']})")
+        if clocks.tolist() != [steps] or ssp["losses"] != bsp0["losses"]:
+            raise AssertionError(f"phase 43 (b): SSP clocks {clocks} (want "
+                                 f"[{steps}]) or losses differ from BSP")
+        if emb.launches or seg.launches:
+            raise AssertionError("phase 43 (b): the host cache launched B4 / "
+                                 "B5")
+        for name, r in (("bsp0", bsp0), ("asp_flushed", flushed),
+                        ("asp", asp), ("ssp2", ssp)):
+            part[name] = {"step_ms_p50": float(np.percentile(r["ms"], 50)),
+                          "losses": r["losses"],
+                          "rpcs_per_step": _per_step(r["rpc_calls"], steps),
+                          "request_bytes_per_step": _per_step(r["rpc_bytes"],
+                                                              steps)}
+            r["ex"].close()
+        part["asp_table_max_abs_diff_vs_bsp0"] = float(
+            np.max(np.abs(asp["table"] - bsp0["table"])))
+        part["ssp_clocks"] = clocks.tolist()
+        report["b_host_cache"] = part
+        log(f"[ps] (b) {json.dumps(part)}")
+
+        # (c) the native HET cache (CacheSparseTable) on the default store
+        feeds, ex, cache = wdl_executor(ht, "lru", device)
+        if cache._h is None or not cache.store.native:
+            raise AssertionError("phase 43 (c): the native cache is not in "
+                                 "use")
+        ms, losses = [], []
+        for i, b in enumerate(batches):
+            t0 = time.perf_counter()
+            losses.append(float(ex.run("train", feed_dict=dict(
+                zip(feeds, b)))[0].asnumpy()))
+            if i:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        if not all(math.isfinite(x) for x in losses) \
+                or emb.launches or seg.launches:
+            raise AssertionError(f"phase 43 (c): losses {losses}, B4 / B5 "
+                                 f"{emb.launches} / {seg.launches}")
+        perf = cache.perf()
+        ex.close()
+        part = {"step_ms_p50": float(np.percentile(ms, 50)),
+                "losses": losses, "hit_rate": perf["hit_rate"],
+                "perf": perf,
+                "library": os.path.basename(ps_build.library_path())}
+        report["c_native_lru"] = part
+        log(f"[ps] (c) {json.dumps(part)}")
+    finally:
+        if dstore is not None:
+            dstore.close()
+        if proc.is_alive():
+            try:
+                conn.send("stop")
+                if conn.poll(PS_TIMEOUT):
+                    conn.recv()
+            except (OSError, EOFError):
+                pass
+        proc.join(30)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(10)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[ps] launches {json.dumps(launches)} card {report['card']} "
+        f"phase 43 in {report['phase_s']:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script runs on the "
@@ -6185,7 +6526,12 @@ def main():
                                      pm).items():
         dlaunches[name] = dlaunches.get(name, 0) + n
 
-    # -- 43. result lines ---------------------------------------------------------
+    # -- 43. the sharded parameter server on Wide & Deep ----------------------------
+    for name, n in phase_ps_sharded(ht, emb, seg, metrics, kmods,
+                                    pm).items():
+        dlaunches[name] = dlaunches.get(name, 0) + n
+
+    # -- 44. result lines ---------------------------------------------------------
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
@@ -6289,7 +6635,8 @@ def main():
                          launches=calls.count(dtype, cline["n"],
                                               cline["src_rows"]))))
     # the flash kernels of the data-parallel paths (phases 38-40) and of
-    # phases 41 and 42, and their B4 and B5 launches, by kernels-line name
+    # phases 41 and 42, and the B4 and B5 launches of phases 41-43, by
+    # kernels-line name
     for e in kernels:
         e["launches"] += dlaunches.pop(e["name"], 0)
     if dlaunches:

@@ -315,7 +315,9 @@ class CheckpointMixin:
         """Checkpoint the parameters, optimizer state, PS tables,
         dataloader cursors and step (see the module docstring);
         ``file=name`` writes the single pickle blob ``<path>/<name>``."""
-        self._drain_async()  # steps of run(sync=False) land first
+        # steps of run(sync=False) and ASP pushes land first, then the
+        # caches' pending rows
+        self.ps_flush()
         self._flush_ps_caches()
         rank0 = self._rank0
         path = os.path.normpath(path)
@@ -365,7 +367,9 @@ class CheckpointMixin:
             meta["opt"].append({"name": op.name, "leaves": leaves})
         for i, node in enumerate(self._ps_table_sites()):
             fn = f"ps{i}.bin"
-            if rank0:
+            # a DistributedStore suffixes its shard (.shard<rank>): every
+            # rank writes its own; a plain store's one file, rank 0
+            if rank0 or hasattr(node.store, "server"):
                 node.store.save(node.table, os.path.join(work, fn))
             meta["ps_tables"].append({"file": fn, "node": node.name})
         meta["dataloaders"] = [

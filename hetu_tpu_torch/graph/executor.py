@@ -25,6 +25,22 @@ card (kernel B4).  Each PS value is differentiated with the trainable
 variables; after the step a host table's row gradient goes back through
 ``push`` and a device table's is first summed per unique key on the
 card (sort + kernel B5) and committed with ``apply_update_summed``.
+The ids come from the feed dict or from a ``DataloaderOp`` (its loader's
+next batch for the subgraph).
+
+The PS plane around the step (the JAX package's): ``bsp=0`` (BSP, the
+default) pushes at the step's end; ``bsp=-1`` (ASP) pushes on a
+one-worker pool with at most 32 pushes in flight, the ids captured when
+queued, a failed push raised at the next step, and ``ps_flush`` drains
+them; ``bsp=k > 0`` (SSP) ticks each store's clock after the push and
+waits, under ``ssp_timeout_ms``, until this worker is within k clocks of
+the slowest (a store without ``ssp_init`` is skipped).  ``prefetch``
+(default True) pulls the next batch's rows of a host table whose ids
+come from a ``DataloaderOp`` on a background thread, after the push
+under BSP / SSP (not at all over a ``DistributedStore``, whose other
+workers' pushes of the step it would miss) and before it under ASP; the
+next step takes them when its ids match.  A device cache trains under
+BSP only.
 
 Mixed precision (``compute_dtype="bfloat16"``, the JAX package's
 ``_cast_tree`` discipline): inside the step every float32 variable,
@@ -109,9 +125,8 @@ Not ported, refused by name: a strategy other than ``DataParallel``,
 ``mesh``, PS embeddings together with ``dist_strategy``, ``plan``,
 ``pipeline``, ``num_microbatches`` and ``remat`` under ``dist_strategy``,
 ``num_microbatches`` with PS embeddings, a ``compute_dtype`` other than
-bfloat16, ASP/SSP (``bsp`` other than 0), ``prefetch`` and PS ids from a
-``DataloaderOp``, the other JAX-package options, and ``save_orbax`` /
-``load_orbax``.
+bfloat16, a device cache under ASP / SSP, PS ids from a computed node,
+the other JAX-package options, and ``save_orbax`` / ``load_orbax``.
 """
 from __future__ import annotations
 
@@ -364,9 +379,9 @@ class SubExecutor:
             idn = n.ids_node
             if not isinstance(idn, PlaceholderOp) or idn.is_variable:
                 raise NotImplementedError(
-                    f"PS embedding {n}: ids from {idn} (a DataloaderOp or a "
-                    f"computed node) are not ported; feed an ids "
-                    f"placeholder")
+                    f"PS embedding {n}: ids from {idn} (a computed node) "
+                    f"are not ported; feed an ids placeholder or a "
+                    f"DataloaderOp")
             if n.device_mode and n.cache.slab_device.type != \
                     executor.device.type:
                 raise ValueError(
@@ -378,6 +393,9 @@ class SubExecutor:
                                if not n.device_mode]
         #: node -> the step's committed _DevLookup (read by _ps_post_step)
         self._dev_live = {}
+        #: node -> (ids, Future[rows]): lookahead pulls in flight
+        self._prefetched = {}
+        self._prefetch_pool = None
         self._feed_pool = None
         #: feed schema -> RunPlan, built at the first run
         self._plan_cache = None
@@ -389,6 +407,7 @@ class SubExecutor:
         from ..data.dataloader import DataloaderOp
         self.dataloader_nodes = [n for n in self.feed_nodes
                                  if isinstance(n, DataloaderOp)]
+        self._feed_node_set = frozenset(self.feed_nodes)
         self.trainable_vars = sorted({g.wrt for g in self.grad_ops},
                                      key=lambda n: n.id)
         for v in self.trainable_vars:
@@ -499,7 +518,7 @@ class SubExecutor:
                     axis.sharded.add(node)
             for node in self._ps_host_items:
                 ps_vals[node] = ex._place_feed(
-                    node, node.pull(self._ps_ids(node, feed_dict)))
+                    node, self._host_rows(node, feed_dict, feeds))
             if dev_pending is not None:
                 self._finish_dev_lookups(dev_pending, ps_vals, invs)
         except BaseException:
@@ -701,12 +720,37 @@ class SubExecutor:
 
     # -- PS embeddings ----------------------------------------------------------
 
-    def _ps_ids(self, node, feed_dict):
-        """The ids batch of a PS lookup, read from the feed dict."""
-        if node.ids_node not in feed_dict:
-            raise ValueError(f"missing ids feed {node.ids_node} for PS "
-                             f"embedding {node}")
-        return np.asarray(feed_dict[node.ids_node], np.int64)
+    def _ps_ids(self, node, feed_dict, feeds=None, peek=False):
+        """The ids batch of a PS lookup: from the feed dict, else from its
+        ``DataloaderOp`` — the value the run plan placed when the loader
+        also feeds the graph (``feeds``), the loader's next batch peeked
+        when the plan has yet to take it (``peek``), else taken here."""
+        from ..data.dataloader import DataloaderOp
+        idn = node.ids_node
+        if idn in feed_dict:
+            return np.asarray(feed_dict[idn], np.int64)
+        if isinstance(idn, DataloaderOp):
+            if feeds is not None and idn in feeds:
+                return feeds[idn].cpu().numpy().astype(np.int64)
+            if idn in self._feed_node_set:
+                if peek:
+                    return np.asarray(idn.get_next_arr(self.name), np.int64)
+            else:
+                return np.asarray(idn.get_arr(self.name), np.int64)
+        raise ValueError(f"missing ids feed {idn} for PS embedding {node}")
+
+    def _host_rows(self, node, feed_dict, feeds):
+        """A host table's rows for this step: the lookahead pull issued at
+        the end of the previous run when its ids match, else a pull."""
+        ids = self._ps_ids(node, feed_dict, feeds)
+        pre = self._prefetched.pop(node, None)
+        # compare the ids before joining: a mismatched prefetch would cost
+        # a whole pull wait only to be dropped
+        if pre is not None and np.array_equal(pre[0], ids):
+            rows = pre[1].result()
+            node._last_ids = pre[0]
+            return rows
+        return node.pull(ids)
 
     def _ensure_feed_pool(self):
         """The subgraph's one feed worker, shared by the dataloader double
@@ -721,11 +765,16 @@ class SubExecutor:
         """Phase 1 of a device-cache step: each table's plan
         (``begin_lookup``, which takes the cache lock), then its store
         round trip on the feed thread.  Returns the pending handles."""
+        if self.ex.bsp != 0:
+            raise NotImplementedError(
+                "device-resident embedding caches support BSP training "
+                "(bsp=0): ASP / SSP need the host-mode cache "
+                "(DistCacheTable(device=False))")
         pool = self._ensure_feed_pool()
         pending = []
         try:
             for node in self._ps_dev_items:
-                ids = self._ps_ids(node, feed_dict)
+                ids = self._ps_ids(node, feed_dict, peek=True)
                 h = node.cache.begin_lookup(ids)
                 pending.append((node, ids, h, pool.submit(h.roundtrip)))
         except BaseException:
@@ -779,9 +828,16 @@ class SubExecutor:
                 node.cache.abort_lookup(h)
 
     def _ps_post_step(self, ps_grads):
-        """The push boundary: a device table commits its U summed rows
-        (their copy to the host is the step's sync point), a host table
-        pushes the whole row gradient through its cache or store."""
+        """The PS plane after the step: the push (inline, or on the ASP
+        worker), the SSP clock tick and wait, and the next batch's
+        lookahead pull.  A device table commits its U summed rows (their
+        copy to the host is the step's sync point); a host table pushes
+        the whole row gradient through its cache or store."""
+        ex = self.ex
+        if ex.bsp == -1 and ex.prefetch:
+            # ASP: the next pull may overlap the push (bounded staleness
+            # allows it)
+            self._start_ps_prefetch()
         for node in self.ps_nodes:
             g = ps_grads.get(node)
             if node.device_mode:
@@ -790,13 +846,98 @@ class SubExecutor:
                     node.cache.apply_update_summed(
                         h.uk, g[:h.uk.size].cpu().numpy(), h.cnt)
             elif g is not None:
-                node.push(g.cpu().numpy())
+                if ex.bsp == -1:
+                    # the copy to the host runs on the worker, too
+                    ex._ps_async_push(node, g)
+                else:
+                    node.push(g.cpu().numpy())
+        if ex.bsp > 0 and self.training:
+            self._ssp_wait()
+        if ex.bsp != -1 and ex.prefetch:
+            # BSP / SSP: the lookahead pull must see this step's push
+            self._start_ps_prefetch()
+
+    def _ssp_wait(self):
+        """SSP (reference ``_compute_ssp_prefetch``): tick each store's
+        clock after its push, then block while more than ``bsp`` clocks
+        ahead of the slowest worker, under the ``ssp_timeout_ms``
+        watchdog.  A store never ``ssp_init``-ed is skipped."""
+        ex = self.ex
+        seen = set()
+        for node in self.ps_nodes:
+            store = node.store
+            if id(store) in seen or not hasattr(store, "ssp_sync") \
+                    or not getattr(store, "ssp_ready", True):
+                continue
+            seen.add(id(store))
+            rank = getattr(store, "rank", 0)
+            try:
+                store.clock(rank)
+            except RuntimeError as e:
+                if "not initialised" in str(e):
+                    # a distributed store whose clocks were never
+                    # ssp_init-ed: bounded staleness is vacuous
+                    continue
+                raise
+            deadline = time.monotonic() + ex.ssp_timeout_ms / 1e3
+            # a store whose ssp_sync blocks gets one wait for the budget
+            # (never 0 ms, which reads as forever); another is polled
+            blocking = getattr(store, "ssp_blocking", False)
+            while True:
+                left_ms = (deadline - time.monotonic()) * 1e3
+                if blocking:
+                    ok = left_ms > 0 and store.ssp_sync(
+                        rank, ex.bsp, timeout_ms=max(1, int(left_ms)))
+                else:
+                    ok = store.ssp_sync(rank, ex.bsp, timeout_ms=200)
+                if ok:
+                    break
+                if time.monotonic() >= deadline:
+                    raise RuntimeError(
+                        f"SSP bound {ex.bsp} not satisfied within "
+                        f"{ex.ssp_timeout_ms}ms — a peer worker is stalled "
+                        f"or dead")
+                if not blocking:
+                    time.sleep(0.005)
+
+    def _start_ps_prefetch(self):
+        """Issue the next batch's row pulls on a background thread for
+        every host table whose ids come from a ``DataloaderOp`` (the one
+        source whose next batch is known: ``get_next_arr``); the next run
+        takes them when its ids match."""
+        from ..data.dataloader import DataloaderOp
+        from ..ps.dist_store import DistributedStore
+        for node in self.ps_nodes:
+            if node in self._prefetched or node.device_mode:
+                continue
+            if isinstance(node.store, DistributedStore) \
+                    and self.ex.bsp != -1:
+                # BSP / SSP over several workers: a lookahead issued after
+                # only the local push would miss the other workers' pushes
+                # of the step
+                continue
+            idn = node.ids_node
+            if not isinstance(idn, DataloaderOp):
+                continue
+            try:
+                next_ids = np.asarray(idn.get_next_arr(self.name), np.int64)
+            except KeyError:       # no dataloader for this subgraph
+                continue
+            if self._prefetch_pool is None:
+                self._prefetch_pool = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=1,
+                    thread_name_prefix=f"ps-prefetch-{self.name}")
+            self._prefetched[node] = (
+                next_ids, self._prefetch_pool.submit(node.pull_rows,
+                                                     next_ids))
 
     def close(self):
-        """Stop the feed thread (idempotent)."""
-        if self._feed_pool is not None:
-            self._feed_pool.shutdown(wait=True)
-            self._feed_pool = None
+        """Stop the feed and prefetch threads (idempotent)."""
+        for attr in ("_feed_pool", "_prefetch_pool"):
+            pool = getattr(self, attr)
+            if pool is not None:
+                pool.shutdown(wait=True)
+                setattr(self, attr, None)
 
 
 class Executor(CheckpointMixin):
@@ -865,15 +1006,16 @@ class Executor(CheckpointMixin):
                     raise NotImplementedError(
                         f"Executor({opt}=) with dist_strategy is not "
                         f"ported")
-        bsp = kwargs.pop("bsp", 0)
-        if bsp != 0:
-            raise NotImplementedError(
-                f"Executor(bsp={bsp}): ASP / SSP parameter-server training "
-                f"is not ported; PS embeddings train BSP (bsp=0)")
-        if kwargs.pop("prefetch", False):
-            raise NotImplementedError(
-                "Executor(prefetch=True): the lookahead PS pull (for "
-                "DataloaderOp ids) is not ported")
+        # bsp: 0 BSP (push at the step's end), -1 ASP (push on a worker),
+        # k > 0 SSP (staleness bound k through the stores' clocks)
+        self.bsp = int(kwargs.pop("bsp", 0))
+        # prefetch: the next batch's PS rows pulled during this step
+        self.prefetch = bool(kwargs.pop("prefetch", True))
+        # the SSP wait's watchdog
+        self.ssp_timeout_ms = int(kwargs.pop("ssp_timeout_ms", 600000))
+        #: ASP pushes in flight, oldest first, on a one-worker pool
+        self._ps_futures = []
+        self._ps_pool = None
         # validate: the lint at construction and the fed-shape check once
         # a run plan ('warn' reports, 'error' raises, 'off' skips)
         self.validate = kwargs.pop("validate", "warn")
@@ -1410,17 +1552,47 @@ class Executor(CheckpointMixin):
                 for n in self.subexecutors[name].dataloader_nodes]
         return min(nums) if nums else None
 
+    def _ps_async_push(self, node, grad):
+        """Queue an ASP push of ``grad`` for ``node``'s current ids: at
+        most 32 in flight (the oldest waited for); a finished push is
+        read, so a failed one raises at the next step."""
+        if self._ps_pool is None:
+            self._ps_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="ps-asp-push")
+        pending = []
+        for f in self._ps_futures:
+            if f.done():
+                f.result()
+            else:
+                pending.append(f)
+        self._ps_futures = pending
+        while len(self._ps_futures) >= 32:
+            self._ps_futures.pop(0).result()
+        # the ids now: by the time the worker runs, the next step may have
+        # replaced node._last_ids
+        ids = node._last_ids
+        self._ps_futures.append(self._ps_pool.submit(
+            lambda: node.push_to(ids, grad.cpu().numpy())))
+
     def ps_flush(self):
-        """Barrier: every PS push of this executor has been applied.  The
-        port trains BSP only, and pushes inline at each step's end, so
-        none is in flight when ``run`` returns; steps of ``run(sync=
-        False)`` still in flight are waited for."""
+        """Barrier: every PS push of this executor has been applied (the
+        ASP pushes in flight, and the steps of ``run(sync=False)``)."""
         self._drain_async()
+        futures, self._ps_futures = self._ps_futures, []
+        for f in futures:
+            f.result()
 
     def close(self):
-        """Stop the subgraphs' feed threads (idempotent)."""
-        for sub in self.subexecutors.values():
-            sub.close()
+        """Drain the ASP pushes and stop the subgraphs' feed and prefetch
+        threads and the push worker (idempotent)."""
+        try:
+            self.ps_flush()
+        finally:
+            for sub in self.subexecutors.values():
+                sub.close()
+            if self._ps_pool is not None:
+                self._ps_pool.shutdown(wait=True)
+                self._ps_pool = None
 
     def load_dict(self, state_dict):
         """Set variables by checkpoint name from ``{name: array}``;

@@ -18,7 +18,19 @@ Families:
 * ``cache`` — HET embedding-cache events (``emb_cache_hit_rows``,
   ``emb_cache_miss_rows``, ``emb_cache_evict_rows``,
   ``emb_cache_push_rows``, ``emb_cache_push_rpcs``,
-  ``emb_grad_host_fallback``); a dense run records nothing.
+  ``emb_grad_host_fallback``) and the sharded store's wire batching:
+  rows and bytes the client-side dedup kept off the wire before the
+  shard fanout (``ps_dedup_{pull,push}_{rows,bytes}_saved``, the local
+  shard's share included) and round trips where one ``OP_PUSH_PULL``
+  frame carried both a push and a pull (``ps_push_pull_fused_rpcs``); a
+  dense run records nothing.
+* ``ps_rpc`` / ``ps_rpc_bytes`` — one count and the request bytes (keys
+  and payload, header excluded) of every successful client RPC of a
+  :class:`~hetu_tpu_torch.ps.dist_store.DistributedStore`, by opcode
+  name (``OP_PULL``, ``OP_PUSH``, ...), with its round-trip latency in
+  microseconds among the latency samples under ``rpc:<opcode>``
+  (:func:`record_rpc`, :func:`rpc_stats`); counter-silent probes record
+  nothing.
 * ``decode`` — decode-plane events (``decode_steps``, ``decode_tokens``,
   joins/leaves, prefill rows, ...); kinds ending in ``_hw`` are
   high-water gauges.
@@ -29,7 +41,12 @@ Families:
   JAX package records, ``auto_save`` (a periodic checkpoint written),
   ``emergency_save`` (a SIGTERM / SIGINT save), ``resume`` (a
   checkpoint restored) and ``ckpt_incomplete_skipped`` (an incomplete
-  checkpoint passed over by ``resume``).
+  checkpoint passed over by ``resume``); the sharded store's transport
+  records ``ps_rpc_retry`` (a retried attempt), ``ps_peer_unreachable``
+  (retries exhausted), ``ps_bad_frame`` (a frame length outside
+  ``[0, HETU_MAX_FRAME_MB]``), ``heartbeat_send_failed`` and
+  ``alive_mask_unavailable`` (``DistPartialReduce`` formed a group
+  without liveness).
 * ``remat`` — rematerialization: the ``'full'`` plan's segments
   (``remat_layers_total``, ``remat_layers_rematted``, once a build),
   ``remat_offload_fallback`` (``'offload'`` without a card, once a
@@ -106,9 +123,14 @@ class _Registry:
         with self._lock:
             return list(self._latency.get(kind, ()))
 
-    def reset_latency(self):
+    def reset_latency(self, prefix=None):
+        """Drop the latency samples (of the kinds starting ``prefix``)."""
         with self._lock:
-            self._latency.clear()
+            if prefix is None:
+                self._latency.clear()
+                return
+            for kind in [k for k in self._latency if k.startswith(prefix)]:
+                del self._latency[kind]
 
 
 _REGISTRY = _Registry()
@@ -276,6 +298,40 @@ def fault_counts():
 
 def reset_faults():
     _REGISTRY.reset("faults")
+
+
+# ------------------------------------------------------- PS transport
+
+def record_rpc(op, us, nbytes):
+    """One successful PS client RPC of opcode name ``op``: its latency
+    (``us``) among the samples, its request bytes into ``ps_rpc_bytes``."""
+    _REGISTRY.record("ps_rpc", op, 1)
+    if nbytes:
+        _REGISTRY.record("ps_rpc_bytes", op, int(nbytes))
+    _REGISTRY.observe("rpc:" + op, us)
+
+
+def rpc_stats():
+    """{"calls": {op: n}, "bytes": {op: total}, "latency_us": {op:
+    {count, p50, p99, mean}}} over the kept samples."""
+    calls = _REGISTRY.counts("ps_rpc")
+    lat = {}
+    for op in calls:
+        s = _REGISTRY.samples("rpc:" + op)
+        if s:
+            a = np.asarray(s)
+            lat[op] = {"count": int(a.size),
+                       "p50": float(np.percentile(a, 50)),
+                       "p99": float(np.percentile(a, 99)),
+                       "mean": float(a.mean())}
+    return {"calls": calls, "bytes": _REGISTRY.counts("ps_rpc_bytes"),
+            "latency_us": lat}
+
+
+def reset_rpc_stats():
+    _REGISTRY.reset("ps_rpc")
+    _REGISTRY.reset("ps_rpc_bytes")
+    _REGISTRY.reset_latency("rpc:")
 
 
 # ----------------------------------------------------------------- ZeRO

@@ -3,10 +3,10 @@ Wide & Deep on Criteo-format data, 13 dense and 26 categorical fields, one
 shared embedding table addressed with per-field offsets, binary
 cross-entropy loss.  The embedding lives in the graph (a dense variable)
 or in a host store behind ``ps_embedding_lookup_op``, directly or through
-the HET cache, whose slab can live on the card.
+a HET cache: the vectorized one (whose slab can live on the card) or the
+native one (``CacheSparseTable``).
 
-Not ported: DeepFM, DCN, the cache-parity validation, and the native
-cache modes (``lru``, ``lfu``, ``lfuopt``: ``CacheSparseTable``).
+Not ported: DeepFM, DCN and the cache-parity validation.
 """
 import numpy as np
 
@@ -15,7 +15,8 @@ from ..graph.node import Variable
 from ..ops import (array_reshape_op, binarycrossentropy_op, broadcastto_op,
                    concat_op, embedding_lookup_op, matmul_op, reduce_mean_op,
                    relu_op, sigmoid_op)
-from ..ps import DistCacheTable, EmbeddingStore, default_store
+from ..ps import (CacheSparseTable, DistCacheTable, EmbeddingStore,
+                  default_store)
 from ..ps.ops import ps_embedding_lookup_op
 
 NUM_DENSE = 13
@@ -25,11 +26,13 @@ NUM_SPARSE = 26
 def _embed(ids_node, vocab, dim, mode, lr, name, batch_ids=None,
            slab_device=None):
     """Shared embedding.  Modes: ``dense`` (in-graph variable), ``ps``
-    (the default store, no cache), ``vlru`` / ``vlfu`` (the HET cache,
-    :class:`DistCacheTable`, host slab) and ``vlru_dev`` / ``vlfu_dev``
-    (the same cache with its slab on ``slab_device``, CUDA by default:
-    hit rows gathered on the card, only miss rows cross from the host,
-    grads summed on the card)."""
+    (the default store, no cache), ``lru`` / ``lfu`` / ``lfuopt`` (the
+    native HET cache, :class:`CacheSparseTable`, over the default store),
+    ``vlru`` / ``vlfu`` (the vectorized HET cache, :class:`DistCacheTable`,
+    host slab) and ``vlru_dev`` / ``vlfu_dev`` (the same cache with its
+    slab on ``slab_device``, CUDA by default: hit rows gathered on the
+    card, only miss rows cross from the host, grads summed on the
+    card)."""
     if mode == "dense":
         table = Variable(name, initializer=init.GenNormal(0.0, 0.01),
                          shape=(vocab, dim), trainable=True, is_embed=True)
@@ -54,11 +57,11 @@ def _embed(ids_node, vocab, dim, mode, lr, name, batch_ids=None,
                                device_scratch=scratch,
                                slab_device=slab_device)
         return ps_embedding_lookup_op(cache, ids_node, width=dim)
-    if mode in ("lru", "lfu", "lfuopt"):
-        raise NotImplementedError(
-            f"embed_mode={mode!r} (CacheSparseTable, the native C++ HET "
-            f"cache) is not ported: use 'v{mode[:3]}' or 'v{mode[:3]}_dev'")
-    raise ValueError(f"unknown embed_mode {mode!r}")
+    # the native cache policies; an unknown mode is refused by name there
+    cs = CacheSparseTable(limit=max(vocab // 10, 256), length=vocab,
+                          width=dim, policy=mode, bound=10, opt="sgd", lr=lr,
+                          seed=0)
+    return ps_embedding_lookup_op(cs, ids_node)
 
 
 def _mlp(x, dims, name):
@@ -82,6 +85,12 @@ def wdl_criteo(dense, sparse, y_, batch_size, vocab=100000, dim=16,
     slab (CUDA by default; pass the executor's device)."""
     emb = _embed(sparse, vocab, dim, embed_mode, lr, "wdl_embed",
                  batch_ids=batch_size * NUM_SPARSE, slab_device=slab_device)
+    return _wdl_head(emb, dense, y_, batch_size, dim)
+
+
+def _wdl_head(emb, dense, y_, batch_size, dim):
+    """Wide & Deep above its embedding node ``emb`` (batch, 26, dim):
+    ``(loss, prob)``."""
     flat = array_reshape_op(emb, (batch_size, NUM_SPARSE * dim))
     deep_in = concat_op(flat, dense, axis=1)
     deep = _mlp(deep_in, [NUM_SPARSE * dim + NUM_DENSE, 256, 256, 1], "deep")

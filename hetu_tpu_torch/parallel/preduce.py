@@ -14,8 +14,9 @@ subgroup, with no communicator built per membership.
 ``reduce_scatter(mask * g) / all_reduce(mask)``: the gradient rows the
 ZeRO update (``parallel/zero.py``) consumes, in one reduce-scatter.
 
-Not ported, refused by name: ``DistPartialReduce`` (group formation from
-the distributed store's SSP clocks).
+:class:`DistPartialReduce` forms the group across processes from a
+:class:`~hetu_tpu_torch.ps.dist_store.DistributedStore`'s SSP clocks
+(channel 1) and heartbeat liveness on rank 0.
 """
 from __future__ import annotations
 
@@ -141,14 +142,73 @@ class PartialReduce:
 
 
 class DistPartialReduce(PartialReduce):
-    """Group formation from the distributed store's SSP clocks: not
-    ported."""
+    """Multi-process group formation from the distributed store's SSP
+    clocks (reference ``preduce_get_partner`` asks the PS the same way,
+    ``ps-lite preduce_handler.h``; the clocks live on rank 0).
 
-    def __init__(self, store, *args, **kwargs):
-        raise NotImplementedError(
-            "DistPartialReduce: group formation from the distributed "
-            "store's SSP clocks is not ported; PartialReduce forms the "
-            "group on the host")
+    Each step a worker announces arrival by ticking its clock, then polls
+    the clock vector for up to ``max_wait_ms``; the workers whose clock
+    reached this worker's own tick count are in the mask.  Stragglers
+    that miss the window contribute ``mask=0`` for the step: the
+    collective stays lockstep, only the averaging weights change.
+    """
+
+    #: its own clock channel: the executor's SSP loop ticks channel 0 every
+    #: step, and sharing it would break 'arrival at step s <=> clock >= s+1'
+    CHANNEL = 1
+
+    def __init__(self, store, n_workers=None, max_wait_ms=100.0,
+                 min_workers=2, poll_ms=5.0, heartbeat_deadline_ms=None):
+        super().__init__(n_workers or store.world,
+                         max_wait_ms=max_wait_ms, min_workers=min_workers)
+        self.store = store
+        self.poll_ms = poll_ms
+        # with a deadline, ranks whose heartbeat on rank 0 is older are
+        # dead: left out of the group and not waited for
+        self.heartbeat_deadline_ms = heartbeat_deadline_ms
+        # idempotent on the server: every rank may call it
+        store.ssp_init(self.n_workers, channel=self.CHANNEL)
+
+    def report_arrival(self, rank, step, t=None):
+        self.store.clock(rank, channel=self.CHANNEL)
+
+    def _alive(self, rank):
+        if self.heartbeat_deadline_ms is None:
+            return super()._alive(rank)     # an explicit alive_fn works too
+        alive = self.store.alive_mask(
+            self.heartbeat_deadline_ms,
+            n_workers=self.n_workers).astype(np.float32)
+        alive[rank] = 1.0
+        return alive
+
+    def get_partner(self, rank, step):
+        """Active mask for this step from the shared clock vector: one
+        ``report_arrival`` a worker a step, so arrival at step s means
+        clock >= s + 1.  Liveness is read once a formation (a failed read
+        forms the group without it, counted as
+        ``alive_mask_unavailable``); the wait holds only for ranks still
+        believed alive."""
+        target = step + 1
+        deadline = time.monotonic() + self.max_wait_ms / 1e3
+        try:
+            alive = self._alive(rank)
+        except RuntimeError:
+            record_fault("alive_mask_unavailable")
+            alive = None
+        while True:
+            clocks = self.store.clocks(channel=self.CHANNEL)
+            if clocks.size < self.n_workers:
+                raise RuntimeError(
+                    f"preduce clock vector has {clocks.size} entries < "
+                    f"n_workers={self.n_workers} — ssp_init raced or ran "
+                    f"with a smaller world")
+            mask = (clocks[:self.n_workers] >= target).astype(np.float32)
+            done = mask.sum() >= self.n_workers if alive is None \
+                else bool((mask >= alive).all())
+            if done or time.monotonic() >= deadline:
+                break
+            time.sleep(self.poll_ms / 1e3)
+        return self._finalize(mask, rank, alive)
 
 
 def preduce_mean(grad, mask, group=None):

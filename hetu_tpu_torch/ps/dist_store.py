@@ -1,21 +1,107 @@
-"""The HET bounded-staleness embedding cache (twin of the cache half of
-``hetu_tpu/ps/dist_store.py``: ``_segment_sum``, ``_DevLookup`` and
-``DistCacheTable``).
+"""The sharded parameter server and the HET bounded-staleness embedding
+cache (twin of ``hetu_tpu/ps/dist_store.py``).
 
-Not ported, refused by name: the multi-host store (``DistributedStore``,
-``StoreServer``: sharding, replication, fencing) and the cache's read-only
-serving mode (``read_only``, ``refresh_every``).  The cache works over
-the port's :class:`~hetu_tpu_torch.ps.store.EmbeddingStore`.
+**The sharded store.**  Every process of a ``world`` owns the keys with
+``key % world == rank``: a :class:`DistributedStore` keeps its shard in a
+local :class:`~hetu_tpu_torch.ps.store.EmbeddingStore` (the native core),
+answers for it over TCP through its :class:`StoreServer` thread, and
+routes the keys it does not own to their owner over persistent sockets
+in length-prefixed binary frames (int64 keys, float32 rows; no pickle).
+The frame layout is the JAX package's byte for byte — an 8-byte length,
+then the header ``<BiqdIqqqq`` (op, table, nkeys, lr, payload width,
+client rank, client sequence number, shard, fencing epoch), the keys and
+the payload — with the epoch sent as the JAX package sends it without
+replication, so either package's client talks to either package's
+server.  Transport discipline (ps-lite ``resender.h``): every socket op
+has a timeout; a failed op drops the connection and retries on a fresh
+one after a decorrelated-jitter backoff with the SAME (client, seq), and
+the server's dedup window applies a retried push or clock tick once;
+exhausted retries raise a RuntimeError naming the peer.  A frame length
+outside ``[0, HETU_MAX_FRAME_MB]`` drops that connection only.
+
+The client deduplicates keys with ``np.unique`` before the shard fanout
+(duplicate grads pre-summed; a sorted unique batch, as the HET cache
+hands over, skips it), fuses a push and a pull of one peer into one
+``OP_PUSH_PULL`` frame, pushes asynchronously on a bounded queue
+(``push_async`` / ``flush``, ASP), and keeps SSP clocks, in independent
+channels, and heartbeats on rank 0 (the reference's scheduler role).
+
+Not ported, refused by name (they come with the next slice): shard
+replication (``replication=2``, ``HETU_PS_REPLICATION=2``), the standby
+relaunch (``standby``, ``HETU_PS_STANDBY=1``), re-replication
+(``re_replicate``, ``re_replicate_async``, ``maybe_re_replicate``), the
+state digest (``table_checksum``) and fencing epochs (``shard_epoch``);
+the server answers the replication opcodes (``OP_REPLICATE`` through
+``OP_EPOCH``) with an error naming them.  Nor the chaos hooks.
+
+**The cache** (``_segment_sum``, ``_DevLookup``, :class:`DistCacheTable`)
+works over either store; its read-only serving mode (``read_only``,
+``refresh_every``) is not ported.
 """
 from __future__ import annotations
 
+import itertools
+import os
+import queue
+import random
+import socket
+import struct
 import threading
+import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
 from ..context import resolve_device
-from ..metrics import record_cache
+from ..metrics import record_cache, record_fault, record_rpc
+from .opcodes import defop as _defop, frame_repr, op_name
+from .store import EmbeddingStore
+
+OP_PULL = _defop("OP_PULL", 1)
+OP_PUSH = _defop("OP_PUSH", 2)
+OP_VERSIONS = _defop("OP_VERSIONS", 3)
+OP_CLOCK = _defop("OP_CLOCK", 4)
+OP_SSP_SYNC = _defop("OP_SSP_SYNC", 5)
+OP_SSP_INIT = _defop("OP_SSP_INIT", 6)
+OP_SHUTDOWN = _defop("OP_SHUTDOWN", 7)
+OP_CLOCKS = _defop("OP_CLOCKS", 8)
+OP_HEARTBEAT = _defop("OP_HEARTBEAT", 9)
+OP_ALIVE = _defop("OP_ALIVE", 10)
+#: fused push + pull (reference PsfType kSDPushPull): the keys carry
+#: ``[npush, push_keys..., pull_keys...]``, the payload the grads
+OP_PUSH_PULL = _defop("OP_PUSH_PULL", 11)
+#: the replication plane: registered for the wire's sake, answered with an
+#: error naming them (not ported)
+OP_REPLICATE = _defop("OP_REPLICATE", 12)
+OP_PROMOTE = _defop("OP_PROMOTE", 13)
+OP_INIT = _defop("OP_INIT", 14)
+OP_SET_DATA = _defop("OP_SET_DATA", 15)
+OP_SYNC = _defop("OP_SYNC", 16)
+OP_SYNC_PUT = _defop("OP_SYNC_PUT", 17)
+OP_CHECKSUM = _defop("OP_CHECKSUM", 18)
+OP_EPOCH = _defop("OP_EPOCH", 19)
+_NOT_PORTED_OPS = frozenset((OP_REPLICATE, OP_PROMOTE, OP_INIT, OP_SYNC,
+                             OP_SYNC_PUT, OP_CHECKSUM, OP_EPOCH))
+
+# op, table, nkeys, lr, payload width, client rank, client sequence number,
+# shard (-1: the receiving server's own), fencing epoch (0 without
+# replication).  (client, seq) lets the server apply a retried push or
+# clock tick once.
+_HDR = struct.Struct("<BiqdIqqqq")
+#: retried pushes are remembered per client this many ops back
+_DEDUP_WINDOW = 4096
+
+#: hard cap on a decoded frame length: a corrupt or hostile length prefix
+#: raises a clean protocol error, not a negative or multi-GB allocation
+MAX_FRAME_BYTES = int(float(os.environ.get("HETU_MAX_FRAME_MB",
+                                           "1024")) * 1e6)
+
+
+def _next_backoff(base, prev, cap, rng):
+    """Decorrelated-jitter retry delay: ``min(cap, uniform(base,
+    3*prev))``, so a fleet of retrying workers spreads out."""
+    return min(cap, rng.uniform(base, 3.0 * max(base, prev)))
 
 
 def _segment_sum(grads, inv, counts):
@@ -40,22 +126,811 @@ def _segment_sum(grads, inv, counts):
         return out
 
 
-class DistributedStore:
-    """Not ported: the multi-host sharded store."""
+def _recv_exact(sock, n):
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        r = sock.recv_into(view[got:], n - got)
+        if r == 0:
+            raise ConnectionError("peer closed")
+        got += r
+    return bytes(buf)
 
-    def __init__(self, *args, **kwargs):
+
+def _send_frame(sock, *parts):
+    body = b"".join(parts)
+    sock.sendall(struct.pack("<q", len(body)) + body)
+
+
+class FrameError(ConnectionError):
+    """Corrupt frame header: framing on this stream is unrecoverable, so
+    it is a ConnectionError — the server drops the connection and the
+    client retries on a fresh one."""
+
+
+def _recv_frame(sock):
+    (n,) = struct.unpack("<q", _recv_exact(sock, 8))
+    if n < 0 or n > MAX_FRAME_BYTES:
+        record_fault("ps_bad_frame")
+        raise FrameError(
+            f"frame length {n} outside [0, {MAX_FRAME_BYTES}] "
+            f"(HETU_MAX_FRAME_MB) — corrupt or hostile peer")
+    return _recv_exact(sock, n)
+
+
+def _refuse_replication(replication, standby):
+    if replication is None:
+        replication = int(os.environ.get("HETU_PS_REPLICATION", "1"))
+    if int(replication) == 2:
         raise NotImplementedError(
-            "DistributedStore (the multi-host sharded parameter server) is "
-            "not ported: use hetu_tpu_torch.ps.EmbeddingStore")
+            "replication=2 (a live ring backup of every shard, "
+            "HETU_PS_REPLICATION=2) is not ported: the port's sharded store "
+            "keeps one copy")
+    if not 1 <= int(replication) <= 2:
+        raise ValueError(f"replication={replication} unsupported: 1 (off) "
+                         f"or 2 (primary + one ring backup)")
+    if standby is None:
+        standby = os.environ.get("HETU_PS_STANDBY", "") == "1"
+    if standby:
+        raise NotImplementedError(
+            "standby=True (HETU_PS_STANDBY=1, a relaunched replacement "
+            "rank) is not ported: it needs replication")
 
 
 class StoreServer:
-    """Not ported: the TCP server of a store shard."""
+    """Serves one process's shard over TCP (the reference server role):
+    an accept loop, a handler thread a connection, the ``(client, seq)``
+    dedup window for pushes and clock ticks, SSP clock vectors by
+    channel and the heartbeat table."""
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, local: EmbeddingStore, world: int, rank: int,
+                 host="127.0.0.1", port=0, replication=1, standby=False):
+        _refuse_replication(replication, standby)
+        self.local, self.world, self.rank = local, world, rank
+        self._ssp_lock = threading.Condition()
+        self._clocks = {}          # channel -> per-worker clock vector
+        self._hb = {}              # rank -> (monotonic last seen, step)
+        self._hb_lock = threading.Lock()
+        self._applied = {}         # client -> OrderedDict of recent seqs
+        self._applied_lock = threading.Lock()
+        self._live_conns = set()
+        self._serving = {rank}
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind((host, port))
+        self._sock.listen(64)
+        self.port = self._sock.getsockname()[1]
+        self._stop = False
+        self._thread = threading.Thread(target=self._accept_loop, daemon=True,
+                                        name=f"ps-accept-r{rank}")
+        self._thread.start()
+
+    def serves(self, shard):
+        """True iff this server answers for ``shard``."""
+        return shard in self._serving
+
+    def _store_serving(self, shard):
+        """(store, shard) serving ``shard`` (-1: our own), or an error the
+        client sees."""
+        if shard < 0:
+            shard = self.rank
+        if shard not in self._serving:
+            raise RuntimeError(
+                f"shard {shard} not served by rank {self.rank} "
+                f"(serving {sorted(self._serving)})")
+        return self.local, shard
+
+    def _accept_loop(self):
+        while not self._stop:
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:
+                return
+            if self._stop:      # raced a concurrent stop(): refuse service
+                try:
+                    conn.close()
+                except OSError:
+                    pass
+                return
+            self._live_conns.add(conn)
+            threading.Thread(target=self._serve, args=(conn,), daemon=True,
+                             name=f"ps-serve-r{self.rank}").start()
+
+    def _serve(self, conn):
+        try:
+            while True:
+                body = _recv_frame(conn)
+                if self._stop:
+                    # a stopped server refuses ALL service, even on a
+                    # connection that slipped past stop()
+                    break
+                try:
+                    stop = self._handle(conn, body)
+                except (ConnectionError, OSError):
+                    raise
+                except Exception as e:  # the handler's error, to the client
+                    _send_frame(conn, b"\x01",
+                                f"{type(e).__name__}: {e}".encode())
+                    continue
+                if stop:
+                    break
+        except (ConnectionError, OSError):
+            pass
+        finally:
+            self._live_conns.discard(conn)
+            conn.close()
+
+    def _seen(self, client, seq):
+        """True iff this (client, seq) non-idempotent op (push, clock) was
+        already applied: a retry resent a frame whose ack was lost.
+        Clients base seq on time_ns, so a restarted client's sequences
+        are fresh."""
+        with self._applied_lock:
+            seen = self._applied.setdefault(client, OrderedDict())
+            if seq in seen:
+                return True
+            seen[seq] = True
+            while len(seen) > _DEDUP_WINDOW:
+                seen.popitem(last=False)
+            return False
+
+    def _clock_vec(self, channel):
+        v = self._clocks.get(channel)
+        if v is None:
+            raise RuntimeError(
+                f"SSP channel {channel} not initialised: call "
+                f"ssp_init(n_workers, channel={channel}) first")
+        return v
+
+    def _handle(self, conn, body):
+        op, table, nkeys, lr, width, client, seq, shard, _epoch = \
+            _HDR.unpack_from(body)
+        off = _HDR.size
+        keys = np.frombuffer(body, np.int64, nkeys, off)
+        off += nkeys * 8
+        if op == OP_PULL:
+            store, _ = self._store_serving(shard)
+            out = store.pull(table, keys // self.world)
+            _send_frame(conn, b"\x00",
+                        np.ascontiguousarray(out, np.float32).tobytes())
+        elif op == OP_PUSH:
+            store, _ = self._store_serving(shard)
+            if not self._seen(client, seq):
+                grads = np.frombuffer(body, np.float32, nkeys * width,
+                                      off).reshape(nkeys, width)
+                store.push(table, keys // self.world, grads, lr)
+            _send_frame(conn, b"\x00\x01")
+        elif op == OP_PUSH_PULL:
+            # the push half is as non-idempotent as OP_PUSH: a retried
+            # frame skips it but still answers the (idempotent) pull
+            store, _ = self._store_serving(shard)
+            npush = int(keys[0])
+            push_keys = keys[1:1 + npush]
+            pull_keys = keys[1 + npush:]
+            if npush and not self._seen(client, seq):
+                grads = np.frombuffer(body, np.float32, npush * width,
+                                      off).reshape(npush, width)
+                store.push(table, push_keys // self.world, grads, lr)
+            out = store.pull(table, pull_keys // self.world)
+            _send_frame(conn, b"\x00",
+                        np.ascontiguousarray(out, np.float32).tobytes())
+        elif op == OP_VERSIONS:
+            store, _ = self._store_serving(shard)
+            v = store.versions(table, keys // self.world)
+            _send_frame(conn, b"\x00",
+                        np.ascontiguousarray(v, np.int64).tobytes())
+        elif op == OP_SET_DATA:
+            store, _ = self._store_serving(shard)
+            n = (len(body) - off) // 4
+            store.set_data(table, np.frombuffer(body, np.float32, n, off)
+                           .reshape(-1, width))
+            _send_frame(conn, b"\x00\x01")
+        elif op == OP_SSP_INIT:
+            n, channel = int(keys[0]), int(keys[1])
+            with self._ssp_lock:
+                # idempotent: every rank calls init; a different size is an
+                # explicit reset
+                cur = self._clocks.get(channel)
+                if cur is None or cur.size != n:
+                    self._clocks[channel] = np.zeros(n, np.int64)
+            _send_frame(conn, b"\x00\x01")
+        elif op == OP_CLOCK:
+            # a retried tick whose ack was lost must not count twice
+            channel = int(keys[1]) if nkeys > 1 else 0
+            if not self._seen(client, seq):
+                with self._ssp_lock:
+                    self._clock_vec(channel)[int(keys[0])] += 1
+                    self._ssp_lock.notify_all()
+            _send_frame(conn, b"\x00\x01")
+        elif op == OP_SSP_SYNC:
+            worker, staleness = int(keys[0]), int(keys[1])
+            channel = int(keys[2]) if nkeys > 2 else 0
+            # always bounded, by a total deadline (570 s without one, under
+            # the client's 600 s socket deadline)
+            deadline = time.monotonic() + (lr if lr > 0 else 570.0)
+            ok = True
+            with self._ssp_lock:
+                v = self._clock_vec(channel)
+                while v[worker] - v.min() > staleness:
+                    left = deadline - time.monotonic()
+                    if left <= 0 or not self._ssp_lock.wait(left):
+                        ok = False
+                        break
+                    v = self._clock_vec(channel)
+            _send_frame(conn, b"\x00", b"\x01" if ok else b"\x00")
+        elif op == OP_CLOCKS:
+            channel = int(keys[0]) if nkeys else 0
+            with self._ssp_lock:
+                v = self._clock_vec(channel).copy()
+            _send_frame(conn, b"\x00", v.tobytes())
+        elif op == OP_HEARTBEAT:
+            with self._hb_lock:
+                self._hb[int(keys[0])] = (time.monotonic(), int(keys[1]))
+            _send_frame(conn, b"\x00\x01")
+        elif op == OP_ALIVE:
+            # keys=[n] (or [n, 1]: strict, a never-pinged rank is dead), lr
+            # the deadline in ms: 1 iff the rank pinged within it; a rank
+            # never seen counts alive (startup stagger is not death)
+            n = int(keys[0])
+            strict = nkeys > 1 and bool(keys[1])
+            deadline_s = (lr if lr > 0 else 10_000.0) / 1e3
+            now = time.monotonic()
+            mask = np.zeros(n, np.int64)
+            with self._hb_lock:
+                for r in range(n):
+                    rec = self._hb.get(r)
+                    mask[r] = (0 if strict else 1) if rec is None else \
+                        int(now - rec[0] <= deadline_s)
+            _send_frame(conn, b"\x00", mask.tobytes())
+        elif op == OP_SHUTDOWN:
+            _send_frame(conn, b"\x00\x01")
+            return True
+        elif op in _NOT_PORTED_OPS:
+            raise NotImplementedError(
+                f"{op_name(op)} (shard replication, fencing and failover) "
+                f"is not ported")
+        else:
+            raise ValueError(
+                f"unknown opcode in frame "
+                f"{frame_repr(op, table, nkeys, shard, client, seq)}")
+        return False
+
+    def stop(self):
+        """Stop serving: the listening socket and every live connection
+        close, so peers see a dead server at once."""
+        self._stop = True
+        try:    # shutdown wakes a blocked accept() where close() does not
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+        for conn in list(self._live_conns):
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+
+class DistributedStore:
+    """A worker + server pair with ``key % world`` routing and the
+    :class:`~hetu_tpu_torch.ps.store.EmbeddingStore` API.
+
+    ``endpoints``: ``(host, port)`` of every rank, index = rank; this
+    process's entry may be None (its own server's bound port is used).
+    A shard process is one of these that serves until ``close``.
+    """
+
+    def __init__(self, rank, world, endpoints=None, host="127.0.0.1",
+                 port=0, async_queue=64, rpc_timeout=60.0, rpc_retries=3,
+                 connect_timeout=10.0, replication=None, standby=None):
+        _refuse_replication(replication, standby)
+        self.rank, self.world = rank, world
+        self.local = EmbeddingStore()
+        self.server = StoreServer(self.local, world, rank, host, port)
+        self.endpoints = list(endpoints) if endpoints else [None] * world
+        self.endpoints[rank] = (host, self.server.port)
+        self.rpc_timeout = rpc_timeout
+        self.rpc_retries = max(1, rpc_retries)
+        self.connect_timeout = connect_timeout
+        self._backoff_base = float(
+            os.environ.get("HETU_RPC_BACKOFF_MS", "50")) / 1e3
+        self._backoff_cap = 1.0
+        self._backoff_rng = random.Random()
+        # seq base = time_ns: increasing across process restarts, so a
+        # relaunched worker never collides with its predecessor's entries
+        # in a server's dedup window
+        self._seq = itertools.count(time.time_ns())
+        self._conns = {}
+        self._conn_locks = {}
+        self._connect_lock = threading.Lock()   # guards the conn dicts
+        self._pool = None                       # lazy RPC fan-out pool
+        self._tables = {}
+        self._queue = queue.Queue(maxsize=async_queue)
+        self._async_thread = None
+        self._hb_thread = None
+        self._hb_stop = threading.Event()
+
+    # -- connections -------------------------------------------------------
+    def _conn(self, peer):
+        # a lock a peer: a slow or dead peer does not stall the others
+        with self._connect_lock:
+            lock = self._conn_locks.setdefault(peer, threading.Lock())
+        with lock:
+            if peer not in self._conns:
+                s = socket.create_connection(self.endpoints[peer],
+                                             timeout=self.connect_timeout)
+                s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                self._conns[peer] = s
+            return self._conns[peer], lock
+
+    def _drop_conn(self, peer):
+        with self._connect_lock:
+            lock = self._conn_locks.setdefault(peer, threading.Lock())
+        with lock:
+            s = self._conns.pop(peer, None)
+            if s is not None:
+                try:
+                    s.close()
+                except OSError:
+                    pass
+
+    def _rpc(self, peer, op, table, keys, payload=b"", lr=-1.0, width=0,
+             op_timeout=None, shard=-1, seq=None, record=True,
+             retries=None, epoch=0):
+        """One request / response against ``peer``: a timeout on every
+        socket op, a failed op retried on a fresh connection after a
+        backoff with the same (client, seq), exhausted retries raised as a
+        RuntimeError naming the peer.  ``seq`` may be pinned by the
+        caller; ``record=False`` keeps a probe out of the counters."""
+        keys = np.ascontiguousarray(keys, np.int64)
+        hdr = _HDR.pack(op, table, keys.size, lr, width, self.rank,
+                        next(self._seq) if seq is None else seq, shard,
+                        epoch)
+        t_rpc = time.perf_counter_ns()
+        nbytes = keys.nbytes + len(payload)
+        last_err = None
+        delay = 0.0
+        for attempt in range(self.rpc_retries if retries is None
+                             else max(1, retries)):
+            if attempt:
+                if record:
+                    record_fault("ps_rpc_retry")
+                delay = _next_backoff(self._backoff_base, delay,
+                                      self._backoff_cap, self._backoff_rng)
+                time.sleep(delay)
+            try:
+                sock, lock = self._conn(peer)
+                with lock:
+                    sock.settimeout(op_timeout if op_timeout is not None
+                                    else self.rpc_timeout)
+                    _send_frame(sock, hdr, keys.tobytes(), payload)
+                    resp = _recv_frame(sock)
+                break
+            except (TimeoutError, ConnectionError, OSError) as e:
+                last_err = e
+                self._drop_conn(peer)
+        else:
+            if record:
+                record_fault("ps_peer_unreachable")
+            host_, port_ = self.endpoints[peer] or ("?", "?")
+            raise RuntimeError(
+                f"PS peer {peer} at {host_}:{port_} unreachable after "
+                f"{self.rpc_retries} attempts sending "
+                f"{frame_repr(op, table, keys.size, shard)} "
+                f"({type(last_err).__name__}: {last_err}) — server process "
+                f"dead or wedged")
+        if not resp or resp[:1] == b"\x01":
+            raise RuntimeError(
+                f"PS rank {peer} error on {op_name(op)}: "
+                f"{resp[1:].decode(errors='replace')}")
+        if record:
+            record_rpc(op_name(op), (time.perf_counter_ns() - t_rpc) / 1e3,
+                       nbytes)
+        return resp[1:]
+
+    def _rpc_shard(self, shard, op, table, keys, payload=b"", lr=-1.0,
+                   width=0, op_timeout=None):
+        """An RPC to the rank serving ``shard`` (its home rank)."""
+        return self._rpc(shard, op, table, keys, payload, lr, width,
+                         op_timeout, shard=shard, seq=next(self._seq))
+
+    def _fanout(self, jobs):
+        """Run per-peer jobs concurrently (one RPC in flight a peer)."""
+        if len(jobs) <= 1:
+            for fn in jobs:
+                fn()
+            return
+        from concurrent.futures import ThreadPoolExecutor
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(max_workers=max(2, self.world))
+        futs = [self._pool.submit(fn) for fn in jobs]
+        for f in futs:
+            f.result()
+
+    def _local(self, shard):
+        """True iff ``shard`` is answered by this process's own server."""
+        return shard == self.rank and self.server.serves(shard)
+
+    # -- tables ------------------------------------------------------------
+    def _shard_rows(self, rows, shard):
+        return (rows - shard + self.world - 1) // self.world
+
+    def init_table(self, rows, width, **kw):
+        """This rank's shard of a ``rows x width`` table (every rank calls
+        it with the same arguments); returns its id."""
+        tid = self.local.init_table(self._shard_rows(rows, self.rank), width,
+                                    **kw)
+        self._tables[tid] = (rows, width)
+        return tid
+
+    def width(self, table):
+        return self._tables[table][1]
+
+    def set_data(self, table, arr):
+        """Scatter a full ``(rows, width)`` array across every shard."""
+        rows, width = self._tables[table]
+        arr = np.ascontiguousarray(arr, np.float32)
+        if arr.shape != (rows, width):
+            raise ValueError(f"set_data shape {arr.shape} != "
+                             f"({rows}, {width})")
+        jobs = []
+        for s in range(self.world):
+            part = np.ascontiguousarray(arr[s::self.world])
+            if self._local(s):
+                jobs.append(lambda part=part: self.local.set_data(table,
+                                                                  part))
+            else:
+                jobs.append(lambda s=s, part=part: self._rpc_shard(
+                    s, OP_SET_DATA, table, np.zeros(0, np.int64),
+                    part.tobytes(), width=width))
+        self._fanout(jobs)
+
+    # -- sparse ops (EmbeddingStore API) -----------------------------------
+    # Wire-level dedup: a Zipf-skewed CTR batch is mostly duplicate keys,
+    # so pull / push collapse to unique keys before the fanout and scatter
+    # back through the inverse; the server accumulates duplicates within a
+    # push anyway, so pre-summing them gives the same optimizer step and
+    # version bump.  The rows saved are counted (ps_dedup_*).
+
+    @staticmethod
+    def _sorted_unique(flat):
+        """True iff strictly ascending: the HET cache hands over sorted
+        unique keys, which skip a second dedup."""
+        return flat.size <= 1 or bool(np.all(np.diff(flat) > 0))
+
+    def _dedup_grads(self, keys, grads, width):
+        """(unique keys, per-unique summed grads); counts saved rows."""
+        if self._sorted_unique(keys):
+            return keys, grads
+        uk, inv, counts = np.unique(keys, return_inverse=True,
+                                    return_counts=True)
+        if uk.size < keys.size:
+            record_cache("ps_dedup_push_rows_saved", keys.size - uk.size)
+            record_cache("ps_dedup_push_bytes_saved",
+                         (keys.size - uk.size) * (width * 4 + 8))
+        return uk, _segment_sum(grads, inv, counts)
+
+    def pull(self, table, keys):
+        keys = np.ascontiguousarray(keys, np.int64)
+        flat = keys.reshape(-1)
+        _, width = self._tables[table]
+        if self._sorted_unique(flat):
+            uk, inv = flat, None
+        else:
+            uk, inv = np.unique(flat, return_inverse=True)
+            if uk.size < flat.size:
+                record_cache("ps_dedup_pull_rows_saved",
+                             flat.size - uk.size)
+                record_cache("ps_dedup_pull_bytes_saved",
+                             (flat.size - uk.size) * (width * 4 + 8))
+        out = np.empty((uk.size, width), np.float32)
+        owners = uk % self.world
+        jobs = []
+        for s in range(self.world):
+            sel = np.nonzero(owners == s)[0]
+            if not sel.size:
+                continue
+            if self._local(s):
+                jobs.append(lambda sel=sel: out.__setitem__(
+                    sel, self.local.pull(table, uk[sel] // self.world)))
+            else:
+                def job(s=s, sel=sel):
+                    raw = self._rpc_shard(s, OP_PULL, table, uk[sel])
+                    out[sel] = np.frombuffer(raw, np.float32).reshape(
+                        sel.size, width)
+                jobs.append(job)
+        self._fanout(jobs)
+        if inv is not None:
+            out = out[inv]
+        return out.reshape(keys.shape + (width,))
+
+    def push(self, table, keys, grads, lr=-1.0):
+        keys = np.ascontiguousarray(keys, np.int64).reshape(-1)
+        _, width = self._tables[table]
+        if not keys.size:
+            return
+        grads = np.ascontiguousarray(grads, np.float32).reshape(keys.size, -1)
+        uk, acc = self._dedup_grads(keys, grads, width)
+        owners = uk % self.world
+        jobs = []
+        for s in range(self.world):
+            sel = np.nonzero(owners == s)[0]
+            if not sel.size:
+                continue
+            if self._local(s):
+                jobs.append(lambda sel=sel: self.local.push(
+                    table, uk[sel] // self.world, acc[sel], lr))
+            else:
+                jobs.append(lambda s=s, sel=sel: self._rpc_shard(
+                    s, OP_PUSH, table, uk[sel],
+                    np.ascontiguousarray(acc[sel]).tobytes(), lr, width))
+        self._fanout(jobs)
+
+    def push_pull(self, table, push_keys, grads, pull_keys, lr=-1.0):
+        """Fused SDPushPull: each peer gets ONE ``OP_PUSH_PULL`` round trip
+        carrying its push and pull shards (the server applies the push
+        before it answers the pull); rows are owner-partitioned, so a
+        pull depends only on the pushes of its own frame."""
+        push_keys = np.ascontiguousarray(push_keys, np.int64).reshape(-1)
+        pull_arr = np.ascontiguousarray(pull_keys, np.int64)
+        pflat = pull_arr.reshape(-1)
+        _, width = self._tables[table]
+        if not push_keys.size:
+            return self.pull(table, pull_arr)
+        grads = np.ascontiguousarray(grads, np.float32).reshape(
+            push_keys.size, -1)
+        upk, acc = self._dedup_grads(push_keys, grads, width)
+        if self._sorted_unique(pflat):
+            ulk, linv = pflat, None
+        else:
+            ulk, linv = np.unique(pflat, return_inverse=True)
+            record_cache("ps_dedup_pull_rows_saved", pflat.size - ulk.size)
+            record_cache("ps_dedup_pull_bytes_saved",
+                         (pflat.size - ulk.size) * (width * 4 + 8))
+        out = np.empty((ulk.size, width), np.float32)
+        powners = upk % self.world
+        lowners = ulk % self.world
+        jobs = []
+        for s in range(self.world):
+            psel = np.nonzero(powners == s)[0]
+            lsel = np.nonzero(lowners == s)[0]
+            if not psel.size and not lsel.size:
+                continue
+            if self._local(s):
+                def local_job(psel=psel, lsel=lsel):
+                    if psel.size:
+                        self.local.push(table, upk[psel] // self.world,
+                                        acc[psel], lr)
+                    if lsel.size:
+                        out[lsel] = self.local.pull(
+                            table, ulk[lsel] // self.world)
+                jobs.append(local_job)
+            elif psel.size:
+                def fused_job(s=s, psel=psel, lsel=lsel):
+                    frame_keys = np.concatenate(
+                        (np.asarray([psel.size], np.int64),
+                         upk[psel], ulk[lsel]))
+                    raw = self._rpc_shard(
+                        s, OP_PUSH_PULL, table, frame_keys,
+                        np.ascontiguousarray(acc[psel]).tobytes(), lr,
+                        width)
+                    if lsel.size:
+                        out[lsel] = np.frombuffer(raw, np.float32).reshape(
+                            lsel.size, width)
+                        # only a frame that carried BOTH halves saved a
+                        # round trip
+                        record_cache("ps_push_pull_fused_rpcs", 1)
+                jobs.append(fused_job)
+            else:       # nothing to push at this peer: a plain pull
+                def pull_job(s=s, lsel=lsel):
+                    raw = self._rpc_shard(s, OP_PULL, table, ulk[lsel])
+                    out[lsel] = np.frombuffer(raw, np.float32).reshape(
+                        lsel.size, width)
+                jobs.append(pull_job)
+        self._fanout(jobs)
+        if linv is not None:
+            out = out[linv]
+        return out.reshape(pull_arr.shape + (width,))
+
+    def versions(self, table, keys):
+        keys = np.ascontiguousarray(keys, np.int64).reshape(-1)
+        uk, inv = np.unique(keys, return_inverse=True)
+        out = np.empty(uk.size, np.int64)
+        owners = uk % self.world
+        jobs = []
+        for s in range(self.world):
+            sel = np.nonzero(owners == s)[0]
+            if not sel.size:
+                continue
+            if self._local(s):
+                jobs.append(lambda sel=sel: out.__setitem__(
+                    sel, self.local.versions(table, uk[sel] // self.world)))
+            else:
+                def vjob(s=s, sel=sel):
+                    raw = self._rpc_shard(s, OP_VERSIONS, table, uk[sel])
+                    out[sel] = np.frombuffer(raw, np.int64)
+                jobs.append(vjob)
+        self._fanout(jobs)
+        return out[inv]
+
+    # -- ASP: bounded async push --------------------------------------------
+    def _async_worker(self):
+        while True:
+            item = self._queue.get()
+            if item is None:
+                return
+            table, keys, grads, lr = item
+            try:
+                self.push(table, keys, grads, lr)
+            finally:
+                self._queue.task_done()
+
+    def push_async(self, table, keys, grads, lr=-1.0):
+        """Enqueue a push; blocks only when ``async_queue`` is full
+        (bounded eventual consistency, ASP)."""
+        if self._async_thread is None:
+            self._async_thread = threading.Thread(
+                target=self._async_worker, daemon=True,
+                name=f"ps-async-r{self.rank}")
+            self._async_thread.start()
+        self._queue.put((table, np.array(keys, np.int64, copy=True),
+                         np.array(grads, np.float32, copy=True), lr))
+
+    def flush(self):
+        """Barrier: every queued async push has been applied."""
+        if self._async_thread is not None:
+            self._queue.join()
+
+    # -- SSP via rank 0 (the reference scheduler role) ----------------------
+    # ``channel`` separates independent clock consumers: the executor's SSP
+    # loop ticks channel 0, partial-reduce arrivals channel 1.
+    def ssp_init(self, n_workers, channel=0):
+        """Idempotent per (channel, size): every rank may call it."""
+        self._rpc_shard(0, OP_SSP_INIT, 0,
+                        np.asarray([n_workers, channel], np.int64))
+
+    def clock(self, worker=None, channel=0):
+        w = self.rank if worker is None else worker
+        self._rpc_shard(0, OP_CLOCK, 0, np.asarray([w, channel], np.int64))
+
+    def clocks(self, channel=0):
+        """Every worker's clock (rank 0's copy): the arrival feed of
+        partial-reduce group formation."""
+        raw = self._rpc_shard(0, OP_CLOCKS, 0,
+                              np.asarray([channel], np.int64))
+        return np.frombuffer(raw, np.int64).copy()
+
+    #: the server blocks on a condition (OP_SSP_SYNC): one RPC waits out
+    #: the whole bound
+    ssp_blocking = True
+
+    def ssp_sync(self, worker=None, staleness=0, timeout_ms=0, channel=0):
+        w = self.rank if worker is None else worker
+        # the socket deadline outlives the requested wait; timeout_ms=0
+        # waits for stragglers, bounded at 600 s
+        raw = self._rpc_shard(0, OP_SSP_SYNC, 0,
+                              np.asarray([w, staleness, channel], np.int64),
+                              lr=timeout_ms / 1e3 if timeout_ms else -1.0,
+                              op_timeout=(timeout_ms / 1e3 + 30.0)
+                              if timeout_ms else 600.0)
+        return raw == b"\x01"
+
+    # -- liveness: heartbeats on rank 0 -------------------------------------
+    def heartbeat(self, rank=None, step=0):
+        """Ping rank 0's liveness table."""
+        w = self.rank if rank is None else rank
+        self._rpc_shard(0, OP_HEARTBEAT, 0, np.asarray([w, step], np.int64))
+
+    def alive_mask(self, deadline_ms, n_workers=None):
+        """int64 mask over workers: 1 iff the rank pinged within
+        ``deadline_ms``, or never pinged at all (liveness declares death
+        only for ranks it has seen alive)."""
+        n = self.world if n_workers is None else n_workers
+        raw = self._rpc_shard(0, OP_ALIVE, 0, np.asarray([n], np.int64),
+                              lr=float(deadline_ms))
+        return np.frombuffer(raw, np.int64).copy()
+
+    def start_heartbeat(self, interval_ms=None, step_fn=None):
+        """Background pings every ``interval_ms`` (default
+        ``HETU_HEARTBEAT_MS``, 500) until ``close``; ``step_fn`` gives the
+        step reported.  A failed ping is counted
+        (``heartbeat_send_failed``) and retried next interval."""
+        if self._hb_thread is not None:
+            return
+        iv = (float(os.environ.get("HETU_HEARTBEAT_MS", "500"))
+              if interval_ms is None else float(interval_ms)) / 1e3
+
+        def beat():
+            while not self._hb_stop.wait(iv):
+                try:
+                    self.heartbeat(step=int(step_fn()) if step_fn else 0)
+                except (RuntimeError, OSError, ConnectionError):
+                    record_fault("heartbeat_send_failed")
+
+        self._hb_thread = threading.Thread(
+            target=beat, daemon=True, name=f"hetu-hb-{self.rank}")
+        self._hb_thread.start()
+
+    def liveness_report(self, deadline_ms, n_workers=None):
+        """Ranks the heartbeat table calls dead, split into ``dead`` (no
+        answer to one direct probe either) and ``unreachable`` (the rank
+        answers this client: it only fails to reach rank 0, counted as
+        ``ps_unreachable``), beside ``alive``."""
+        n = self.world if n_workers is None else int(n_workers)
+        mask = self.alive_mask(deadline_ms, n)
+        report = {"alive": [], "dead": [], "unreachable": []}
+        for r in range(min(n, self.world)):
+            if mask[r]:
+                report["alive"].append(r)
+                continue
+            try:
+                self._rpc(r, OP_EPOCH, 0, np.asarray([r], np.int64),
+                          op_timeout=min(2.0, self.rpc_timeout),
+                          record=False, retries=1)
+            except RuntimeError as e:
+                if "unreachable" in str(e):
+                    report["dead"].append(r)
+                    continue
+            # any answer is a live server, the port's refusal of OP_EPOCH
+            # included
+            report["unreachable"].append(r)
+            record_fault("ps_unreachable")
+        return report
+
+    # -- not ported: replication, fencing, failover --------------------------
+    def _not_ported(self, what):
         raise NotImplementedError(
-            "StoreServer (the parameter-server shard's TCP server) is not "
-            "ported")
+            f"DistributedStore.{what} (shard replication, fencing and "
+            f"failover) is not ported")
+
+    def re_replicate(self, shard=None):
+        self._not_ported("re_replicate")
+
+    def re_replicate_async(self, shard=None):
+        self._not_ported("re_replicate_async")
+
+    def maybe_re_replicate(self):
+        self._not_ported("maybe_re_replicate")
+
+    def table_checksum(self, table, shard, rank=None):
+        self._not_ported("table_checksum")
+
+    def shard_epoch(self, shard, rank=None):
+        self._not_ported("shard_epoch")
+
+    # -- shard persistence (reference per-server SaveParam) -----------------
+    # Shard files are named by shard: ``<path>.shard<rank>``.
+    def save(self, table, path):
+        for shard in sorted(self.server._serving):
+            self.local.save(table, f"{path}.shard{shard}")
+
+    def load(self, table, path):
+        for shard in sorted(self.server._serving):
+            self.local.load(table, f"{path}.shard{shard}")
+
+    def close(self):
+        """Drain the async pushes, say goodbye to every peer, stop the
+        heartbeat, the pool and the server."""
+        self._hb_stop.set()
+        self.flush()
+        if self._async_thread is not None:
+            self._queue.put(None)
+        for peer in list(self._conns):
+            try:
+                # best effort: a peer already gone is no fault
+                self._rpc(peer, OP_SHUTDOWN, 0, np.zeros(0, np.int64),
+                          op_timeout=min(5.0, self.rpc_timeout),
+                          record=False, retries=1)
+            except (OSError, RuntimeError, ConnectionError):
+                pass
+            self._drop_conn(peer)
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+        self.server.stop()
 
 
 class _DevLookup:

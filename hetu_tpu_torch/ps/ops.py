@@ -1,31 +1,24 @@
 """PS-backed embedding lookup as a graph op (twin of ``hetu_tpu/ps/ops.py``).
 
-The table lives in a host store (:mod:`hetu_tpu_torch.ps.store`); only
+The table lives in a host store (:mod:`hetu_tpu_torch.ps.store`, or a
+sharded :class:`~hetu_tpu_torch.ps.dist_store.DistributedStore`); only
 the batch's rows enter the step, as a LEAF whose gradient autograd
 computes like a parameter's.  The executor pulls the rows (through the
-HET cache when given a :class:`DistCacheTable`) before the step and
-pushes the row gradient after it.  With a device-resident cache
-(``DistCacheTable(device=True)``) the executor gathers the rows on the
-card instead and sums the gradient there (see ``device_mode``).
-
-Not ported, refused by name: ``CacheSparseTable`` (the native C++ cache).
+HET cache when given a :class:`DistCacheTable` or a native
+:class:`CacheSparseTable`) before the step and pushes the row gradient
+after it, at once (BSP, SSP) or on a background worker (ASP).  With a
+device-resident cache (``DistCacheTable(device=True)``) the executor
+gathers the rows on the card instead and sums the gradient there (see
+``device_mode``).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..graph.node import PlaceholderOp
+from .cstable import CacheSparseTable
 from .dist_store import DistCacheTable
 from .store import default_store
-
-
-class CacheSparseTable:
-    """Not ported: the native C++ HET cache."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "CacheSparseTable (the native C++ HET cache) is not ported: use "
-            "hetu_tpu_torch.ps.DistCacheTable")
 
 
 class PSEmbeddingLookupOp(PlaceholderOp):
@@ -39,11 +32,7 @@ class PSEmbeddingLookupOp(PlaceholderOp):
         self.inputs = []           # leaf: ids resolved on the host per step
         self.ids_node = ids_node
         self._last_ids = None
-        if type(table).__name__ == "CacheSparseTable":
-            raise NotImplementedError(
-                "ps_embedding_lookup_op over a CacheSparseTable (the native "
-                "C++ HET cache) is not ported: use DistCacheTable")
-        if isinstance(table, DistCacheTable):
+        if isinstance(table, (CacheSparseTable, DistCacheTable)):
             self.cache = table
             self.store, self.table = table.store, table.table
             self.width = table.width
@@ -60,31 +49,49 @@ class PSEmbeddingLookupOp(PlaceholderOp):
     def device_mode(self):
         """True when the backing cache keeps a device-resident slab: the
         executor then gathers the rows on the card by slot index and sums
-        the gradient there; ``pull`` / ``push`` below are the host-mode
+        the gradient there; the methods below are the host-mode
         protocol."""
         return isinstance(self.cache, DistCacheTable) and self.cache.device
+
+    def pull_rows(self, ids):
+        """The rows of ``ids`` without touching ``_last_ids`` (which the
+        step in flight pushes to): safe on the prefetch thread."""
+        ids = np.asarray(ids, np.int64)
+        if isinstance(self.cache, DistCacheTable):
+            return self.cache.lookup(ids)
+        if self.cache is not None:
+            dest = np.empty(ids.shape + (self.cache.width,), np.float32)
+            return self.cache._lookup_sync(ids, dest)
+        return self.store.pull(self.table, ids)
 
     def pull(self, ids):
         """The rows of ``ids`` (remembered for :meth:`push`)."""
         ids = np.asarray(ids, np.int64)
         self._last_ids = ids
-        if self.cache is not None:
-            return self.cache.lookup(ids)
-        return self.store.pull(self.table, ids)
+        return self.pull_rows(ids)
+
+    def push_to(self, ids, grads):
+        """Push the row gradient onto explicit ``ids``: what a deferred
+        (ASP) push uses, since the next step may have replaced
+        ``_last_ids`` by the time it runs."""
+        if ids is None:
+            return
+        if isinstance(self.cache, DistCacheTable):
+            self.cache.update(ids, grads)
+        elif self.cache is not None:
+            self.cache._update_sync(ids, grads)
+        else:
+            self.store.push(self.table, ids, grads)
 
     def push(self, grads):
         """Push the row gradient of the last pulled ids."""
-        if self._last_ids is None:
-            return
-        if self.cache is not None:
-            self.cache.update(self._last_ids, grads)
-        else:
-            self.store.push(self.table, self._last_ids, grads)
+        self.push_to(self._last_ids, grads)
 
 
 def ps_embedding_lookup_op(table, ids_node, width=None, name=None):
     """``ht.ps_embedding_lookup_op(table, ids)``: embedding rows for the ids
-    batch from a host store, directly or through a :class:`DistCacheTable`
-    (given as the cache, a ``(store, table)`` tuple or a bare table id on
-    the default store)."""
+    batch from a host store, directly or through a cache (a
+    :class:`DistCacheTable` or :class:`CacheSparseTable`), given as the
+    cache, a ``(store, table)`` tuple or a bare table id on the default
+    store."""
     return PSEmbeddingLookupOp(table, ids_node, width=width, name=name)

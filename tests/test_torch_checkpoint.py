@@ -213,9 +213,14 @@ def _pushed(store, table):
 
 @pytest.mark.parametrize("opt", ["sgd", "adam"])
 def test_ps_v3_file_is_the_jax_numpy_tables(tmp_path, monkeypatch, opt):
+    """Both packages' numpy tables (selected as without g++); the native
+    tables' files are held in ``test_ps_native_file_is_the_jax_native``."""
     from hetu_tpu.ps import store as jstore
+    from hetu_tpu_torch.ps import store as tstore
     monkeypatch.setattr(jstore, "get_lib", lambda: None)
+    monkeypatch.setattr(tstore, "get_lib", lambda: None)
     js, ts = jstore.EmbeddingStore(), tht.EmbeddingStore()
+    assert not ts.native
     jt = js.init_table(50, 8, opt=opt, lr=0.05, seed=2)
     tt = ts.init_table(50, 8, opt=opt, lr=0.05, seed=2)
     _pushed(js, jt)
@@ -241,7 +246,35 @@ def test_ps_v3_file_is_the_jax_numpy_tables(tmp_path, monkeypatch, opt):
         (tmp_path / "j2.bin").read_bytes()
 
 
-def test_ps_store_reads_the_older_formats(tmp_path):
+@pytest.mark.parametrize("opt", ["sgd", "adam"])
+def test_ps_native_file_is_the_jax_native(tmp_path, opt):
+    """The native tables of both packages: the same file byte for byte,
+    and each loads the other's."""
+    from hetu_tpu.ps import store as jstore
+    js, ts = jstore.EmbeddingStore(), tht.EmbeddingStore()
+    assert ts.native and js._lib is not None
+    jt = js.init_table(50, 8, opt=opt, lr=0.05, seed=2)
+    tt = ts.init_table(50, 8, opt=opt, lr=0.05, seed=2)
+    _pushed(js, jt)
+    _pushed(ts, tt)
+    js.save(jt, str(tmp_path / "j.bin"))
+    ts.save(tt, str(tmp_path / "t.bin"))
+    assert (tmp_path / "j.bin").read_bytes() == \
+        (tmp_path / "t.bin").read_bytes()
+    ts2 = tht.EmbeddingStore()
+    tt2 = ts2.init_table(50, 8, opt=opt, lr=0.05, seed=9)
+    ts2.load(tt2, str(tmp_path / "j.bin"))
+    np.testing.assert_array_equal(ts2.get_data(tt2), js.get_data(jt))
+    ts2.save(tt2, str(tmp_path / "t2.bin"))
+    assert (tmp_path / "t2.bin").read_bytes() == \
+        (tmp_path / "j.bin").read_bytes()
+
+
+def test_ps_store_reads_the_older_formats(tmp_path, monkeypatch):
+    # the v2 and v1 files are the numpy table's (the native core reads its
+    # own), in both packages
+    from hetu_tpu_torch.ps import store as tstore
+    monkeypatch.setattr(tstore, "get_lib", lambda: None)
     ts = tht.EmbeddingStore()
     t = ts.init_table(10, 4, opt="adam", seed=1)
     _data = np.arange(40, dtype=np.float32).reshape(10, 4)

@@ -312,6 +312,12 @@ def test_partial_reduce_masks_match_jax(kw):
                                                            and 0 in alive)
 
 
-def test_unported_partial_reduce_paths_raise_by_name():
-    with pytest.raises(NotImplementedError, match="SSP"):
-        tht.dist.DistPartialReduce(object())
+def test_unported_partial_reduce_paths_raise_by_name(monkeypatch):
+    # DistPartialReduce is ported (tests/test_torch_ps_dist.py); the store
+    # it rides on refuses a standby rank and replication, by keyword or
+    # environment
+    with pytest.raises(NotImplementedError, match="standby"):
+        tht.ps.DistributedStore(0, 1, standby=True)
+    monkeypatch.setenv("HETU_PS_REPLICATION", "2")
+    with pytest.raises(NotImplementedError, match="replication=2"):
+        tht.ps.DistributedStore(0, 1)

@@ -162,13 +162,19 @@ def test_ps_executor_contract():
     rng = np.random.RandomState(0)
     p, lab = rng.rand(50).round(1), rng.rand(50) > 0.5
     assert tmetrics.auc(p, lab) == jht.metrics.auc(p, lab)
-    for kw, name in ((dict(bsp=1), "bsp"), (dict(bsp=-1), "bsp"),
-                     (dict(prefetch=True), "prefetch")):
-        with pytest.raises(NotImplementedError, match=name):
-            tht.Executor(fetch, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="DataloaderOp"):
+    # a device cache trains BSP only: ASP / SSP refused at the first run
+    for bsp in (1, -1):
+        exb = tht.Executor(fetch, device="cpu", bsp=bsp)
+        with pytest.raises(NotImplementedError, match="bsp=0"):
+            exb.run("train", feed_dict=dict(zip(feeds, (d, s, y))))
+        exb.close()
+    with pytest.raises(NotImplementedError, match="computed node"):
         tht.Executor([tht.ps_embedding_lookup_op(cache, ids + 1)],
                      device="cpu")
+    # the native cache modes build over CacheSparseTable
     for mode in ("lru", "lfu", "lfuopt"):
-        with pytest.raises(NotImplementedError, match="CacheSparseTable"):
-            _build(tht, tht.models.ctr, mode)
+        _, fl = _build(tht, tht.models.ctr, mode)
+        exm = tht.Executor(fl, device="cpu")
+        assert isinstance(_cache(exm), tht.CacheSparseTable)
+        assert _cache(exm).policy == mode.upper()
+        exm.close()

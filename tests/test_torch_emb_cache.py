@@ -283,11 +283,13 @@ def test_refusals_by_name():
                       "device_interpret")):
         with pytest.raises(NotImplementedError, match=name):
             TCache(st, t, slab_device="cpu", **kw)
-    for cls, name in ((tht.ps.DistributedStore, "DistributedStore"),
-                      (tht.ps.StoreServer, "StoreServer"),
-                      (tht.CacheSparseTable, "CacheSparseTable")):
+    # what stays refused of the sharded store: replication and standby
+    for kw, name in ((dict(replication=2), "replication=2"),
+                     (dict(standby=True), "standby")):
         with pytest.raises(NotImplementedError, match=name):
-            cls()
+            tht.ps.DistributedStore(0, 1, **kw)
+        with pytest.raises(NotImplementedError, match=name):
+            tht.ps.StoreServer(st, 1, 0, **kw)
     if not torch.cuda.is_available():
         # the slab goes to CUDA unless the CPU is asked for
         with pytest.raises(RuntimeError, match="CUDA"):

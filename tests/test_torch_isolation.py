@@ -69,6 +69,12 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "import hetu_tpu_torch.graph.checkpoint\n"
             "import hetu_tpu_torch.optim.lr_scheduler\n"
             "import hetu_tpu_torch.ps.store\n"
+            "import hetu_tpu_torch.ps.build\n"
+            "import hetu_tpu_torch.ps.opcodes\n"
+            "import hetu_tpu_torch.ps.cstable\n"
+            "import hetu_tpu_torch.ps.refcache\n"
+            "import hetu_tpu_torch.ps.dist_store\n"
+            "import hetu_tpu_torch.ps.ops\n"
             "import hetu_tpu_torch.analysis\n"
             "import hetu_tpu_torch.analysis.shapes\n"
             "import hetu_tpu_torch.analysis.lint\n"
@@ -104,12 +110,18 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "    [loss], device='cpu',\n"
             "    dist_strategy=hetu_tpu_torch.dist.DataParallel())\n"
             "print(ex.run(feed_dict={x: [1.0, 2.0]})[0].asnumpy())\n"
-            "dist.destroy_process_group()\n")
+            "dist.destroy_process_group()\n"
+            "s = hetu_tpu_torch.ps.DistributedStore(0, 1)\n"
+            "t = s.init_table(4, 2, init_scale=0.0)\n"
+            "s.push(t, [1], [[1.0, 1.0]], 0.5)\n"
+            "print(s.pull(t, [1])[0, 0], s.local.native)\n"
+            "s.close()\n"
+            "print(hetu_tpu_torch.CacheSparseTable(4, 8, 2).perf()['size'])\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["float32", "True", "12", "6", "12", "512",
-                                   "2", "()", "3.0"]
+                                   "2", "()", "3.0", "-0.5", "True", "0"]
 
 
 def test_sources_import_no_jax_or_hetu_tpu():

@@ -608,8 +608,18 @@ def test_strategy_checks_mirror_the_jax_package():
         tht.dist.DataParallel(zero=7)
     assert [tht.dist.DataParallel(zero=z).zero
             for z in (None, True, 1, 3, "2")] == [0, 2, 1, 3, 2]
-    with pytest.raises(NotImplementedError, match="DistPartialReduce"):
-        tht.dist.DistPartialReduce(object())
+    # DistPartialReduce forms a group from a store's clocks (one rank
+    # here); the store's replication stays refused
+    store = tht.ps.DistributedStore(0, 1)
+    try:
+        pr = tht.dist.DistPartialReduce(store, max_wait_ms=50.0,
+                                        min_workers=1)
+        pr.report_arrival(0, 0)
+        assert pr.get_partner(0, 0).tolist() == [1.0]
+    finally:
+        store.close()
+    with pytest.raises(NotImplementedError, match="replication=2"):
+        tht.ps.DistributedStore(0, 2, replication=2)
 
 
 def test_world_of_one_needs_num_devices_to_match(world1):
