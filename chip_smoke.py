@@ -495,10 +495,37 @@ without printing the final result line:
     ``bsp=0``'s); p50 of each.  (c) ``embed_mode='lru'`` (the native
     ``CacheSparseTable``): the store's native library loaded, p50 and hit
     rate.
-44. Print the card's name and power limit, the ``kernels`` JSON line (each
-    flash row counts the launches of phases 38-42 too, B4 and B5 those of
-    phases 41-43, by kernels-line name) and, last, ``{"ok": true,
-    "device": {...}}``.
+44. The remaining transformer families (``FAMILIES``).  (a) The flash
+    kernels vs their plain versions at their new shapes, timed as phase
+    21's with the bound and SDPA beside each: Swin-T stage 1's 49-token
+    windows (BH 1,536, D 32), shifted (mask group ``b`` over the 512
+    windows + bias group ``h``) and unshifted (bias ``h``); ViT-B/16
+    (dense, S 196); CLIP's text tower (causal, S 77); Transformer-XL wt103
+    (causal + bias ``h``, S_q 128 over 288 keys, D 41 zero-padded to 44,
+    and the entry at D = 41 end to end against the plain attention, three
+    ``dpad_launches``); BigBird-base (block-sparse mask ``one``, S 1024).
+    (b) ViT-B/16 and Swin-T at full width and depth, batch 8,
+    ``AdamOptimizer(1e-4)`` through ``Executor.run``: 2 warm-up and 10
+    counted steps (every flash counter of the path at its launches a step,
+    none other, no ``backend:`` fallback), p50 / p99, samples/s, MFU
+    against 67 TFLOP/s from ``profile_train.graph_flops`` (linear layers
+    and attention on its visible pairs), peak memory, 3 profiled steps
+    (idle share, flash time by entry), then step 1 at batch 2 on the card
+    against the CPU from the same weights (loss within
+    ``TRAIN_LOSS_RTOL``, every gradient within ``TRAIN_GRAD_RTOL`` /
+    ``TRAIN_GRAD_ATOL``).  (c) BART-base, BigBird-base (seq 1024, batch
+    2), CLIP ViT-B/32, MAE-base, the base Transformer, Transformer-XL wt103
+    (memory 160, consecutive segments) and Reformer-base at published
+    widths cut to 2 layers (2 + 2): 3 steps each with the counters read
+    as in (b) (Reformer: none at all; Transformer-XL: every launch also a
+    padded one, and its memory written), finite losses, p50; then the
+    card-vs-CPU check at batch 2 with dropout 0 (Transformer-XL over two
+    segments, the second reading the memory).
+45. Print the card's name and power limit, the ``kernels`` JSON line (each
+    flash row counts the launches of phases 38-42 and 44 too, B4 and B5
+    those of phases 41-43, by kernels-line name; the rows of phase 44's
+    shapes under ``shapes``, Transformer-XL's padded launches under
+    ``dpad_launches``) and, last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32:
 ``torch.backends.cuda.matmul.allow_tf32`` is set False.  The bf16 ones
@@ -689,6 +716,13 @@ RS_PRECISIONS = (None, "tensorfloat32", "bfloat16")
 # each store makes ((a) one a turn, (b) BSP, ASP flushed each step, ASP,
 # SSP); the seconds the shard process may take to start or stop
 PS_TURNS, PS_PROFILED, PS_TABLES, PS_TIMEOUT = 2, 2, 6, 120
+# phase 44: the remaining transformer families.  The batch of (a)'s Swin
+# and ViT shapes, of (b) and of (c) but BigBird, Transformer-XL and
+# Reformer (their configs' own 2, 4 and 2); (b)'s warm-up, counted and
+# profiled steps; the card-vs-CPU checks' batch (the CPU's step of the
+# full-depth models at batch 8 would take most of the phase); (c)'s steps
+FAM_BATCH, FAM_WARMUP, FAM_STEPS, FAM_PROFILED = 8, 2, 10, 3
+FAM_PARITY_BATCH, FAM_CUT_STEPS = 2, 3
 
 
 def log(msg):
@@ -3181,8 +3215,9 @@ def train_path(fa, metrics, kmods, tag, ex, fd, steps, warmup, launches,
     """``warmup`` + ``steps`` Adam steps of ``ex`` on ``fd``; the counted
     steps with every launch counter set to 0 just before and read just
     after.  ``launches`` names the counters of the path, each of which
-    must read ``want``; every other counter must read 0 and no attention
-    may take ``backend:cpu``; the loss must be finite and must not rise.
+    must read ``want`` (or, with a dict ``want``, its own count); every
+    other counter must read 0 and no attention may take ``backend:cpu``;
+    the loss must be finite and must not rise.
     ``base``: the device memory allocated before the executor was built;
     ``peak``: (name, FLOP/s) of the peak the MFU is taken against.
     Returns the report."""
@@ -3208,8 +3243,10 @@ def train_path(fa, metrics, kmods, tag, ex, fd, steps, warmup, launches,
     if not losses[-1] <= losses[warmup]:
         raise AssertionError(f"{tag} loss rose over the counted steps: "
                              f"{losses}")
-    if any(n != want for n in got.values()):
-        raise AssertionError(f"{tag} launches {got} != {want} each")
+    wants = want if isinstance(want, dict) else dict.fromkeys(launches,
+                                                               want)
+    if got != wants:
+        raise AssertionError(f"{tag} launches {got} != {wants}")
     if others:
         raise AssertionError(f"{tag} other kernels launched: {others}")
     left = {r: n for r, n in fallbacks.items() if r.startswith("backend:")}
@@ -6307,6 +6344,467 @@ def phase_ps_sharded(ht, emb, seg, metrics, kmods, pm, device="cuda"):
     return launches
 
 
+# -- the remaining transformer families: ViT, Swin, MAE, CLIP, the base
+# -- Transformer, BART, BigBird, Transformer-XL, Reformer ------------------------
+
+def _fam_feeds(ht, model, cfg, seed=0, segment=0):
+    """Seeded feeds {name: array} of a family's graph: the images and
+    labels of ``synthetic_image_batch`` (ViT, Swin), the images and
+    shuffles of ``synthetic_mae_batch``, ``rand`` images and uniform ids
+    (CLIP), the copy task (the base Transformer), uniform source, target
+    and next-token ids (BART), MLM ids (BigBird), next-token ids
+    (Reformer) and, for Transformer-XL, segment ``segment`` of one seeded
+    text, so consecutive segments carry the memory."""
+    rng = np.random.RandomState(seed)
+    b = cfg.batch_size
+    if model in ("vit", "swin"):
+        return dict(zip(("images", "labels"),
+                        ht.synthetic_image_batch(cfg, seed)))
+    if model == "mae":
+        return dict(zip(("images", "shuffle"),
+                        ht.synthetic_mae_batch(cfg, seed)))
+    if model == "clip":
+        return {"images": rng.rand(b, 3, cfg.image_size,
+                                   cfg.image_size).astype(np.float32),
+                "input_ids": rng.randint(0, cfg.vocab_size,
+                                         (b, cfg.text_len)).astype(np.int32)}
+    if model == "transformer":
+        return dict(zip(("src_ids", "tgt_ids", "labels"),
+                        ht.synthetic_copy_batch(cfg, seed)))
+    if model == "bart":
+        tgt = rng.randint(0, cfg.vocab_size, (b, cfg.tgt_len + 1))
+        return {"input_ids": rng.randint(0, cfg.vocab_size,
+                                         (b, cfg.src_len)).astype(np.int32),
+                "decoder_input_ids": tgt[:, :-1].astype(np.int32),
+                "labels": tgt[:, 1:].astype(np.int32)}
+    if model == "bigbird":
+        return dict(zip(("input_ids", "labels"),
+                        ht.synthetic_mlm_ids(cfg, seed)))
+    seq = cfg.tgt_len if model == "transfoxl" else cfg.seq_len
+    text = rng.randint(0, cfg.vocab_size, (b, (segment + 1) * seq + 1))
+    part = text[:, segment * seq:].astype(np.int32)
+    return {"input_ids": part[:, :-1], "labels": part[:, 1:]}
+
+
+#: each family at its published widths: (config, graph, published
+#: config's keywords beside the cut ones, the flash counters a counted step
+#: reads by name); the cut ones are (c)'s 2 layers (2 + 2 for the
+#: encoder-decoders) and batch
+FAMILIES = {
+    "vit": ("ViTConfig", "vit_classify_graph", dict(batch_size=FAM_BATCH),
+            {"": 12}),
+    "swin": ("SwinConfig", "swin_classify_graph", dict(batch_size=FAM_BATCH),
+             {"bias": 7, "mask_bias": 5}),
+    "bart": ("BartConfig", "bart_seq2seq_graph",
+             dict(encoder_layers=2, decoder_layers=2, batch_size=FAM_BATCH),
+             {"": 4, "causal": 2}),
+    "bigbird": ("BigBirdConfig", "bigbird_mlm_graph",
+                dict(num_hidden_layers=2, batch_size=2, seq_len=1024),
+                {"mask": 2}),
+    "clip": ("CLIPConfig", "clip_graph",
+             dict(vision_layers=2, text_layers=2, batch_size=FAM_BATCH),
+             {"": 2, "causal": 2}),
+    "mae": ("MAEConfig", "mae_pretrain_graph",
+            dict(encoder_layers=2, decoder_layers=2, batch_size=FAM_BATCH),
+            {"": 4}),
+    "transformer": ("TransformerConfig", "transformer_graph",
+                    dict(num_layers=2, batch_size=FAM_BATCH),
+                    {"": 4, "causal": 2}),
+    "transfoxl": ("TransfoXLConfig", "transfoxl_lm_graph",
+                  dict(n_layer=2, batch_size=4), {"bias_causal": 2}),
+    "reformer": ("ReformerConfig", "reformer_lm_graph",
+                 dict(num_hidden_layers=2, batch_size=2), {}),
+}
+#: the dropout keyword of each family's config (0 for the card-vs-CPU
+#: check: the card's and the CPU's generators draw different masks)
+FAM_DROPOUT = {"bart": "dropout", "bigbird": "hidden_dropout_prob",
+               "transformer": "dropout", "transfoxl": "dropout",
+               "reformer": "hidden_dropout_prob"}
+
+
+def _fam_config(ht, model, **over):
+    config, _, kw, _ = FAMILIES[model]
+    make = getattr(ht, config)
+    make = make.base if hasattr(make, "base") else make
+    return make(**dict(kw, **over))
+
+
+def _fam_counters(model):
+    """The flash counters a family's step reads, with their launches a
+    step: ``fwd_bias_causal_launches`` etc."""
+    out = {}
+    for sfx, n in FAMILIES[model][3].items():
+        for kind in ("fwd", "dq", "dkv"):
+            out[kind + ("_" + sfx if sfx else "") + "_launches"] = n
+    return out
+
+
+def _fam_graph(ht, model, cfg):
+    feeds, loss, _ = getattr(ht, FAMILIES[model][1])(cfg)
+    return feeds, loss
+
+
+def phase_family_kernels(ht, fa):
+    """(a) The flash kernels vs their plain versions at the new families'
+    shapes, each timed as phase 21's (64 MB L2 flush, median of 50 CUDA
+    events) beside its bound and SDPA: Swin-T stage 1's windows (BH 1,536
+    = 8 x 64 windows x 3 heads, S 49, D 32), shifted (the tiled shift mask
+    group ``b`` and the relative bias group ``h``) and unshifted (the bias
+    alone); ViT-B/16 (dense, BH 96, S 196, D 64); CLIP's text tower
+    (causal, BH 64, S 77, D 64); Transformer-XL wt103 (causal + bias
+    group ``h``, S_q 128 over 160 + 128 keys, BH 40, D 41 zero-padded to
+    44 as :class:`FlashAttention` pads it, scale 1/sqrt(41)); BigBird-base
+    (the block-sparse mask, group ``one``, BH 24, S 1024, D 64).  The D =
+    41 entry is also held end to end: ``fa.flash_attention`` on the
+    unpadded tensors, out and every gradient against the plain attention
+    at D = 41, three ``dpad_launches``.  Returns {shape name: {fwd, dq,
+    dkv: timing row with max_abs_err}}."""
+    from hetu_tpu_torch.models.swin import _rel_bias_index, _shift_mask
+    from hetu_tpu_torch.ops.attention import sdpa_reference
+    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rng = np.random.RandomState(44)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+
+    swin = ht.SwinConfig.base()
+    w, res = swin.window_size, swin.image_size // swin.patch_size
+    nwin = FAM_BATCH * (res // w) ** 2
+    sheads = swin.num_heads[0]
+    table = rng.randn((2 * w - 1) ** 2, sheads).astype(np.float32) * 0.02
+    sbias = torch.from_numpy(np.ascontiguousarray(
+        table[_rel_bias_index(w)].reshape(w * w, w * w, sheads)
+        .transpose(2, 0, 1))).cuda()                         # (3, 49, 49)
+    smask = torch.from_numpy(np.ascontiguousarray(np.tile(
+        _shift_mask(res, res, w, w // 2), (FAM_BATCH, 1, 1)) != 0,
+        np.uint8)).cuda()                                     # (512, 49, 49)
+    xl = ht.TransfoXLConfig.base()
+    xheads, xd = xl.n_head, xl.d_model // xl.n_head
+    xkv = xl.mem_len + xl.tgt_len
+    bb = ht.BigBirdConfig.base()
+    bmask = torch.from_numpy(ht.bigbird_attention_mask(
+        bb.seq_len, bb.block_size, bb.num_random_blocks,
+        bb.num_global_blocks, bb.mask_seed)[None] != 0).to(
+            torch.uint8).cuda()
+    # (name, B, heads, S_q, S_kv, D, causal, mask, mask group, bias, bias
+    # group, scale)
+    cases = [
+        ("swin_shifted", nwin, sheads, w * w, w * w, 32, False, smask, "b",
+         sbias, "h", 32 ** -0.5),
+        ("swin_unshifted", nwin, sheads, w * w, w * w, 32, False, None, None,
+         sbias, "h", 32 ** -0.5),
+        ("vit", FAM_BATCH, 12, 196, 196, 64, False, None, None, None, None,
+         0.125),
+        ("clip_text", FAM_BATCH, 8, 77, 77, 64, True, None, None, None, None,
+         0.125),
+        ("transfoxl_d41", xl.batch_size, xheads, xl.tgt_len, xkv, xd, True,
+         None, None, t(xheads, xl.tgt_len, xkv) * 0.1, "h", xd ** -0.5),
+        ("bigbird", bb.batch_size, 12, bb.seq_len, bb.seq_len, 64, False,
+         bmask, "one", None, None, 0.125)]
+    rows = {}
+    for (name, b, heads, s_q, s_kv, d, causal, mask, mg, bias, bg,
+         scale) in cases:
+        bh = b * heads
+        dk = fa.padded_head_dim(d, torch.float32)
+        q, k, v, do = (torch.nn.functional.pad(x, (0, dk - d)) for x in (
+            t(bh, s_q, d), t(bh, s_kv, d), t(bh, s_kv, d), t(bh, s_q, d)))
+        err, row = attn_case(fa, "[family-kernels]", name, q, k, v, do,
+                             heads, scale, causal=causal, bias=bias,
+                             gmode=bg or "bh", flush=flush_buf.zero_,
+                             mask=mask, mask_gmode=mg or "bh")
+        for kk in row:
+            row[kk]["max_abs_err"] = err[kk]
+            row[kk]["shape"] = {"B": b, "H": heads, "S_q": s_q,
+                                "S_kv": s_kv, "D": d, "D_launched": dk}
+        rows[name] = row
+        if dk != d:
+            # the entry on the unpadded tensors: it pads, launches, slices
+            q4, k4, v4 = (x[..., :d].reshape(b, heads, -1, d).detach()
+                          .requires_grad_(True) for x in (q, k, v))
+            b4 = bias.reshape(1, heads, s_q, s_kv).detach() \
+                .requires_grad_(True)
+            do4 = do[..., :d].reshape(b, heads, s_q, d)
+            before = dict(vars(fa))
+            out = fa.flash_attention(q4, k4, v4, causal=causal, bias=b4)
+            got = (out,) + torch.autograd.grad(out, (q4, k4, v4, b4), do4)
+            torch.cuda.synchronize()
+            moved = {n: c - before[n] for n, c in vars(fa).items()
+                     if n.endswith("launches") and c != before[n]}
+            ref = sdpa_reference(q4, k4, v4, causal=causal, bias=b4)
+            want = (ref,) + torch.autograd.grad(ref, (q4, k4, v4, b4), do4)
+            e2e = 0.0
+            for what, g, w_ in zip(("out", "dq", "dk", "dv", "dbias"), got,
+                                   want):
+                e2e = max(e2e, float((g - w_).abs().max()))
+                if g.shape != w_.shape or not torch.allclose(
+                        g, w_, rtol=GRAD_RTOL, atol=GRAD_ATOL):
+                    raise AssertionError(f"{name} entry {what} vs plain: "
+                                         f"{float((g - w_).abs().max())}")
+            if moved != {"fwd_bias_causal_launches": 1,
+                         "dq_bias_causal_launches": 1,
+                         "dkv_bias_causal_launches": 1, "dpad_launches": 3}:
+                raise AssertionError(f"{name} entry launched {moved}")
+            log(f"[family-kernels] {name} entry at D={d} (padded to {dk}): "
+                f"out, dQ, dK, dV, dbias vs plain max_abs_err {e2e:.3e}; "
+                f"launches {json.dumps(moved)}")
+            for kk in row:
+                row[kk]["max_abs_err"] = max(row[kk]["max_abs_err"], e2e)
+            _unpadded_yardsticks(fa, row, q, k, v, do, d, heads, scale,
+                                 causal, bias, flush_buf.zero_)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _unpadded_yardsticks(fa, row, q, k, v, do, d, heads, scale, causal,
+                         bias, flush):
+    """For a case launched zero-padded along D: the bound, the plain
+    versions and SDPA of the function the entry computes, at the true
+    ``d`` on the unpadded columns of ``q``, ``k``, ``v``, ``dO`` (BH, S,
+    D_padded), in place of attn_case's at the launched D."""
+    F = torch.nn.functional
+    q, k, v, do = (x[..., :d].contiguous() for x in (q, k, v, do))
+    bh, s_q, s_kv = q.shape[0], q.shape[1], k.shape[1]
+    pkw = dict(causal=causal, bias=bias, bgmode="h")
+    out, lse = fa.flash_fwd_plain(q, k, v, None, heads, scale, **pkw)
+    row["fwd"]["plain_ms"] = time_ms(
+        lambda: fa.flash_fwd_plain(q, k, v, None, heads, scale, **pkw),
+        flush=flush)
+    row["dq"]["plain_ms"] = row["dkv"]["plain_ms"] = time_ms(
+        lambda: fa.flash_bwd_bias_plain(q, k, v, None, bias, None, "h",
+                                        heads, out, lse, do, scale,
+                                        causal=causal), flush=flush)
+    qkv4, kw, what = sdpa_yardstick(fa, q, k, v, heads, scale, None, causal,
+                                    bias, None, "h")
+    do4 = do.view(qkv4[0].shape)
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(*qkv4, **kw)
+    lib_grads = qkv4 + (kw["attn_mask"],)
+    try:
+        torch.autograd.grad(lib_out, lib_grads, do4, retain_graph=True)
+    except RuntimeError:               # the yardstick only: no bias gradient
+        lib_grads = qkv4
+    row["fwd"]["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(
+            *(x.detach() for x in qkv4),
+            **{a: (b.detach() if torch.is_tensor(b) else b)
+               for a, b in kw.items()}), flush=flush)
+    row["dq"]["library_ms"] = row["dkv"]["library_ms"] = time_ms(
+        lambda: torch.autograd.grad(lib_out, lib_grads, do4,
+                                    retain_graph=True), flush=flush)
+    for kk, r in row.items():
+        r["bound_ms"], r["bound_by"] = attn_bound(
+            kk, bh, s_q, s_kv, d, r["visible_pairs"],
+            attn_extra(kk, None, bias, None, bh, s_q, s_kv))
+    log(f"[family-kernels] D={d} yardsticks (library = {what}) "
+        f"{json.dumps(row)}")
+
+
+def _fam_parity(ht, model, cfg, steps=1):
+    """The family's graph (dropout 0) on the card and on the CPU from the
+    card's weights: ``steps`` Adam steps (Transformer-XL: 2 consecutive
+    segments, the second reading the memory the first wrote), the losses
+    within TRAIN_LOSS_RTOL, the step-1 gradient of every variable within
+    ``allclose(TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL)``.  Returns the worst
+    errors."""
+    feeds, loss = _fam_graph(ht, model, cfg)
+    wrt = [n for n in ht.topo_sort([loss])
+           if isinstance(n, ht.PlaceholderOp) and n.is_variable
+           and n.trainable]
+    fetches = {"train": [loss, ht.optim.AdamOptimizer(1e-4).minimize(loss)]
+               + ht.gradients(loss, wrt)}
+    card = ht.Executor(fetches, seed=0, device="cuda")
+    host = ht.Executor(fetches, seed=0, device="cpu")
+    load_all(host, card.return_tensor_values())
+    loss_err = grad_err = 0.0
+    for step in range(steps):
+        fd = {feeds[k_]: v_ for k_, v_ in _fam_feeds(
+            ht, model, cfg, seed=1, segment=step).items()}
+        got = card.run("train", feed_dict=fd, convert_to_numpy_ret_vals=True)
+        want = host.run("train", feed_dict=fd,
+                        convert_to_numpy_ret_vals=True)
+        gl, wl = float(got[0]), float(want[0])
+        loss_err = max(loss_err, abs(gl - wl) / abs(wl))
+        if not (math.isfinite(gl) and abs(gl - wl) <= TRAIN_LOSS_RTOL
+                * abs(wl)):
+            raise AssertionError(f"card vs CPU {model} loss at step "
+                                 f"{step + 1}: {gl} vs {wl}")
+        if step == 0:
+            for node, g, w_ in zip(wrt, got[2:], want[2:]):
+                grad_err = max(grad_err, float(np.max(np.abs(g - w_))))
+                if not np.allclose(g, w_, rtol=TRAIN_GRAD_RTOL,
+                                   atol=TRAIN_GRAD_ATOL):
+                    raise AssertionError(
+                        f"card vs CPU {model} gradient of {node.name}: max "
+                        f"err {float(np.max(np.abs(g - w_)))}")
+    card.close()
+    host.close()
+    del card, host
+    torch.cuda.empty_cache()
+    return {"batch": cfg.batch_size, "steps": steps, "variables": len(wrt),
+            "loss_max_rel_err": loss_err, "grad_max_abs_err": grad_err}
+
+
+def _fam_flops(loss, fd):
+    """Model FLOPs of one training step on the feeds ``fd`` ({placeholder:
+    array}): 6 x the forward's multiply-adds of the linear layers and of
+    attention on its visible pairs (``profile_train.graph_flops``)."""
+    from hetu_tpu_torch.tools import profile_train as pt
+    macs = pt.graph_flops(loss, {n: np.shape(v_) for n, v_ in fd.items()})
+    return 6.0 * (macs["linear"] + macs["attention"]), macs
+
+
+def phase_family_full(ht, fa, metrics, kmods, model):
+    """(b) ViT-B/16 or Swin-T at full width and depth (batch FAM_BATCH):
+    ``vit_classify_graph`` / ``swin_classify_graph`` →
+    ``AdamOptimizer(1e-4)`` → ``Executor.run``, FAM_WARMUP + FAM_STEPS
+    steps through ``train_path`` (every flash counter of the path at its
+    launches a step: ViT's dense ones 12, Swin's bias ones 7 (the
+    unshifted blocks, stage 4's two included) and mask-with-bias ones 5),
+    p50 / p99, samples/s, MFU against 67 TFLOP/s from the graph's linear
+    and attention shapes, peak memory; FAM_PROFILED profiled steps (idle
+    share, flash time by entry); then the step-1 card-vs-CPU check at
+    batch FAM_PARITY_BATCH.  Returns the counted launches by
+    kernels-line name."""
+    from hetu_tpu_torch.tools.profile_train import profile_steps
+    tag = f"[{model}-train]"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    cfg = _fam_config(ht, model)
+    feeds, loss = _fam_graph(ht, model, cfg)
+    fd = {feeds[k_]: v_ for k_, v_ in _fam_feeds(ht, model, cfg).items()}
+    flops, macs = _fam_flops(loss, fd)
+    train_op = ht.optim.AdamOptimizer(1e-4).minimize(loss)
+    t0 = time.perf_counter()
+    ex = ht.Executor({"train": [loss, train_op]}, seed=0, device="cuda")
+    log(f"{tag} executor built in {time.perf_counter() - t0:.1f} s")
+    want = _fam_counters(model)
+    want = {n: c * FAM_STEPS for n, c in want.items()}
+    report = train_path(fa, metrics, kmods, tag, ex, fd, FAM_STEPS,
+                        FAM_WARMUP, tuple(want), want, (flops, flops), base)
+    step_s = report["step_ms_mean"] / 1e3
+    report["profiled"], _ = profile_steps(
+        lambda: float(ex.run("train", feed_dict=fd)[0].asnumpy()),
+        FAM_PROFILED, step_s)
+    ex.close()
+    del ex
+    torch.cuda.empty_cache()
+    report.update({
+        "batch": cfg.batch_size, "samples_per_s": cfg.batch_size / step_s,
+        "forward_macs": macs,
+        "parity": _fam_parity(ht, model, _fam_config(
+            ht, model, batch_size=FAM_PARITY_BATCH))})
+    for k_ in ("mfu_fp32_dense_attention",
+               "model_tflop_per_step_dense_attention"):
+        report.pop(k_)
+    log(f"{tag} {json.dumps(report)}")
+    return {line_name(n): c for n, c in report["launches"].items()}
+
+
+def phase_family_cut(ht, fa, metrics, kmods, model):
+    """(c) One family at published widths cut to 2 layers (2 + 2 for
+    BART, MAE and the base Transformer; each cut in FAMILIES): FAM_CUT_STEPS
+    Adam steps through ``Executor.run`` with every launch counter set to 0
+    just before and read just after (the path's flash counters at their
+    launches a step, every other 0; Reformer's LSH attention is plain
+    PyTorch: no flash launch at all; Transformer-XL's consecutive
+    segments write and read the memory on the card and every one of its
+    launches is also a ``dpad_launches`` one), finite losses, p50; then
+    the step-1 card-vs-CPU check at batch FAM_PARITY_BATCH (Transformer-XL
+    two segments).  Returns the counted launches by kernels-line name and
+    Transformer-XL's padded launches."""
+    tag = f"[{model}-cut]"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    cfg = _fam_config(ht, model)
+    feeds, loss = _fam_graph(ht, model, cfg)
+    train_op = ht.optim.AdamOptimizer(1e-4).minimize(loss)
+    t0 = time.perf_counter()
+    ex = ht.Executor({"train": [loss, train_op]}, seed=0, device="cuda")
+    built = time.perf_counter() - t0
+    fds = [{feeds[k_]: v_ for k_, v_ in _fam_feeds(
+        ht, model, cfg, segment=i if model == "transfoxl" else 0).items()}
+        for i in range(FAM_CUT_STEPS)]
+    mems = [n for n in ex.var_values if n.name.endswith(".mems")]
+    torch.cuda.synchronize()
+    reset_launches(*kmods)
+    metrics.reset_flash_fallbacks()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for fd in fds:
+        t0 = time.perf_counter()
+        losses.append(float(ex.run("train", feed_dict=fd)[0].asnumpy()))
+        times.append(time.perf_counter() - t0)
+    want = {n: c * FAM_CUT_STEPS for n, c in _fam_counters(model).items()}
+    if model == "transfoxl":
+        want["dpad_launches"] = sum(want.values())
+    want = {n: c for n, c in want.items() if c}
+    got = {name: n for m in kmods for name, n in vars(m).items()
+           if name.endswith("launches") and n}
+    if got != want:
+        raise AssertionError(f"{tag} launches {got} != {want}")
+    left = {r: n for r, n in metrics.flash_fallback_counts().items()
+            if r.startswith("backend:")}
+    if left:
+        raise AssertionError(f"{tag} attention left the kernels: {left}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag} non-finite loss: {losses}")
+    if mems and not all(float(ex.var_values[m].abs().max()) > 0
+                        for m in mems):
+        raise AssertionError(f"{tag} the memory was not written")
+    ms = np.asarray(times[1:]) * 1e3         # the first step is untimed
+    report = {"config": {k_: v_ for k_, v_ in vars(cfg).items()
+                         if k_ in FAMILIES[model][2]
+                         or k_ in ("hidden_size", "d_model", "vocab_size")},
+              "executor_build_s": built, "steps": FAM_CUT_STEPS,
+              "losses": losses, "step_ms_p50": float(np.percentile(ms, 50)),
+              "peak_mem_gib": (torch.cuda.max_memory_allocated() - base)
+              / 2 ** 30, "launches": got, "card": card_line()}
+    ex.close()
+    del ex
+    torch.cuda.empty_cache()
+    report["parity"] = _fam_parity(
+        ht, model, _fam_config(ht, model, batch_size=FAM_PARITY_BATCH,
+                               **({FAM_DROPOUT[model]: 0.0}
+                                  if model in FAM_DROPOUT else {})),
+        steps=2 if model == "transfoxl" else 1)
+    log(f"{tag} {json.dumps(report)}")
+    counts = {line_name(n): c for n, c in got.items()
+              if n != "dpad_launches"}
+    return counts, got.get("dpad_launches", 0)
+
+
+def phase_families(ht, fa, metrics, kmods):
+    """Phase 44: (a) the kernels at the families' new shapes, (b) ViT-B/16
+    and Swin-T at full depth, (c) the seven others cut to 2 layers.
+    Returns (the (a) rows by shape, the launches by kernels-line name,
+    Transformer-XL's padded launches by kernels-line name)."""
+    t_phase = time.perf_counter()
+    rows = phase_family_kernels(ht, fa)
+    launches, dpad = {}, {}
+    for model in ("vit", "swin"):
+        for name, n in phase_family_full(ht, fa, metrics, kmods,
+                                         model).items():
+            launches[name] = launches.get(name, 0) + n
+    for model in ("bart", "bigbird", "clip", "mae", "transformer",
+                  "transfoxl", "reformer"):
+        counts, padded = phase_family_cut(ht, fa, metrics, kmods, model)
+        if model == "transfoxl":
+            # every Transformer-XL launch is a padded one (D 41 -> 44)
+            if padded != sum(counts.values()):
+                raise AssertionError(f"Transformer-XL padded launches "
+                                     f"{padded} != {counts}")
+            dpad = dict(counts)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    log(f"[families] launches {json.dumps(launches)} padded "
+        f"{json.dumps(dpad)} phase 44 in {time.perf_counter() - t_phase:.1f}"
+        f" s")
+    return rows, launches, dpad
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script runs on the "
@@ -6531,7 +7029,12 @@ def main():
                                     pm).items():
         dlaunches[name] = dlaunches.get(name, 0) + n
 
-    # -- 44. result lines ---------------------------------------------------------
+    # -- 44. the remaining transformer families --------------------------------
+    frows, flaunches, fdpad = phase_families(ht, fa, metrics, kmods)
+    for name, n in flaunches.items():
+        dlaunches[name] = dlaunches.get(name, 0) + n
+
+    # -- 45. result lines ---------------------------------------------------------
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
@@ -6635,10 +7138,25 @@ def main():
                          launches=calls.count(dtype, cline["n"],
                                               cline["src_rows"]))))
     # the flash kernels of the data-parallel paths (phases 38-40) and of
-    # phases 41 and 42, and the B4 and B5 launches of phases 41-43, by
+    # phases 41, 42 and 44, and the B4 and B5 launches of phases 41-43, by
     # kernels-line name
     for e in kernels:
         e["launches"] += dlaunches.pop(e["name"], 0)
+    # phase 44's shapes beside each float32 flash entry they launch, and
+    # Transformer-XL's padded launches (D 41 -> 44)
+    by_name = {e["name"]: e for e in kernels}
+    for shape, sfx in (("swin_shifted", "_mask_bias"),
+                       ("swin_unshifted", "_bias"), ("vit", ""),
+                       ("clip_text", "_causal"),
+                       ("transfoxl_d41", "_bias_causal"),
+                       ("bigbird", "_mask")):
+        for key, name, _, _ in flash:
+            e, r = by_name[name + sfx], frows[shape][key]
+            e.setdefault("shapes", []).append(dict(
+                {k_: r[k_] for k_ in keys + ("shape",)}, name=shape))
+            e["max_abs_err"] = max(e["max_abs_err"], r["max_abs_err"])
+    for name, n in fdpad.items():
+        by_name[name]["dpad_launches"] = n
     if dlaunches:
         raise AssertionError(f"launches with no kernels-line entry: "
                              f"{dlaunches}")

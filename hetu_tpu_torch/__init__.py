@@ -36,6 +36,18 @@ kernel on a ported path is a hand-written kernel for the H100
   ``optim.AdamOptimizer(...).minimize(loss)`` → ``Executor.run``, the
   sliding-window + global mask through the full-mask specialization of
   the CUDA flash kernels, forward and backward;
+* training of the other transformer families, each through
+  ``optim.AdamOptimizer(...).minimize(loss)`` → ``Executor.run``: ViT and
+  Swin image classification (``vit_classify_graph``,
+  ``swin_classify_graph``: Swin's windows through the bias and the
+  mask-with-bias flash kernels), MAE (``mae_pretrain_graph``) and CLIP
+  (``clip_graph``) pretraining, the base Transformer
+  (``transformer_graph``) and BART (``bart_seq2seq_graph``), BigBird MLM
+  (``bigbird_mlm_graph``, the full-mask kernels), Transformer-XL
+  (``transfoxl_lm_graph``: memory carried across ``run`` calls, the
+  causal-bias kernels at head dim 41, zero-padded to the kernels'
+  multiple) and Reformer (``reformer_lm_graph``: LSH attention in plain
+  PyTorch, as the JAX package writes it in plain ``jnp``);
 * MoE training: GShard top-2 ``TopKGateSparse`` → ``SparseMoELayer``
   (with ``Expert``) → ``AdamOptimizer`` → ``Executor.run``, the sparse
   dispatch and combine, forward and backward, in the CUDA row-gather
@@ -91,12 +103,23 @@ from .models import (BertConfig, GPT2Config, LongformerConfig, XLNetConfig,
                      synthetic_lm_batch, synthetic_mlm_batch,
                      synthetic_mlm_ids, synthetic_plm_batch,
                      synthetic_seq2seq_batch, T5Config, t5_seq2seq_graph,
-                     wdl_criteo, xlnet_plm_graph)
+                     wdl_criteo, xlnet_plm_graph,
+                     BartConfig, BigBirdConfig, CLIPConfig, MAEConfig,
+                     ReformerConfig, SwinConfig, TransfoXLConfig,
+                     TransformerConfig, ViTConfig, bart_seq2seq_graph,
+                     bigbird_attention_mask, bigbird_mlm_graph, clip_graph,
+                     lsh_attention, mae_pretrain_graph, reformer_lm_graph,
+                     swin_classify_graph, synthetic_copy_batch,
+                     synthetic_image_batch, synthetic_mae_batch,
+                     transfoxl_lm_graph, transformer_graph,
+                     vit_classify_graph)
 from .data import Dataloader, DataloaderOp, dataloader_op
 from .ndarray import NDArray
 from .ops import (BatchNormOp, array_reshape_op, avg_pool2d_op,
                   batch_normalization_op, binarycrossentropy_op,
-                  broadcastto_op, concat_op, conv2d_add_bias_op, conv2d_op,
+                  broadcast_shape_op, broadcastto_op, concat_op,
+                  concatenate_op, exp_op, indexing_op, repeat_op, roll_op,
+                  scatter1d_grad_op, sqrt_op, conv2d_add_bias_op, conv2d_op,
                   dropout2d_op, dropout_op, einsum_op, embedding_lookup_op,
                   gelu_op, instance_normalization2d_op,
                   layer_normalization_op, leaky_relu_op, linear_op,

@@ -20,7 +20,9 @@ Rules, with the JAX package's names and severities:
 * ``ps-embedding-width`` (error) — a declared embedding width that is not
   the PS table's
 * ``flash-fallback`` (warn) — an attention call the port's kernels would
-  refuse on the card: a head dim they do not take, a mask or bias outside
+  refuse on the card: a head dim above ``MAX_HEAD_DIM`` once padded to
+  their multiple (a head dim off the multiple, such as 41, is zero-padded
+  and taken), a mask or bias outside
   their broadcast support (1|B, 1|H, 1|S_q, S_kv), a q dtype other than
   float32 or bfloat16.  The port launches at every length and masks
   ragged tiles, so, unlike the JAX rule, a causal call with lengths that
@@ -340,7 +342,7 @@ def _r_flash(gi):
     dispatchers never fall back to the plain attention there: the
     wrapper raises)."""
     import torch
-    from ..ops.kernels.flash_attention import MAX_HEAD_DIM
+    from ..ops.kernels.flash_attention import MAX_HEAD_DIM, padded_head_dim
     for node in gi.topo:
         spec = _ATTN_OPS.get(node.op_type)
         if spec is None:
@@ -359,14 +361,13 @@ def _r_flash(gi):
                 f"kernels take float32 or bfloat16, so on the card this "
                 f"call raises", node)
             continue
-        mult = 8 if q.dtype == torch.bfloat16 else 4
-        if d > MAX_HEAD_DIM or d % mult:
+        if padded_head_dim(d, q.dtype) > MAX_HEAD_DIM:
             yield Diagnostic(
                 "flash-fallback", "warn",
-                f"{node.op_type} '{node.name}': head dim {d} is not a "
-                f"multiple of {mult} up to {MAX_HEAD_DIM} for {q.dtype}, "
-                f"so on the card the flash kernels refuse this call "
-                f"(reason 'head_dim')", node)
+                f"{node.op_type} '{node.name}': head dim {d} pads to "
+                f"{padded_head_dim(d, q.dtype)} for {q.dtype}, above the "
+                f"kernels' {MAX_HEAD_DIM}, so on the card the flash kernels "
+                f"refuse this call (reason 'head_dim')", node)
         for what, idx in (("mask", m_i), ("bias", b_i)):
             if idx is None or idx >= len(node.inputs):
                 continue

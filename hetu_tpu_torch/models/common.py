@@ -1,4 +1,4 @@
-"""Shared model-graph helpers (subset of ``hetu_tpu/models/common.py``)."""
+"""Shared model-graph helpers (twin of ``hetu_tpu/models/common.py``)."""
 from .. import ops
 
 
@@ -18,6 +18,51 @@ def masked_lm_loss(logits, labels, n_tokens, ignored_index=-1):
         / (ops.reduce_sum_op(valid, [0]) + 1e-6)
 
 
+def patchify(images, batch, channels, image_size, patch_size, hidden,
+             name, bias=True):
+    """(B, C, H, W) → (B*P, hidden) with one product (shared by ViT,
+    Swin, CLIP and MAE): reshape (B, C, g, p, g, p) → transpose →
+    (B*g*g, C*p*p) @ W."""
+    from .. import initializers as init
+    from ..layers.core import Linear
+    p_ = patch_size
+    g = image_size // p_
+    x = ops.array_reshape_op(
+        images, output_shape=(batch, channels, g, p_, g, p_))
+    x = ops.transpose_op(x, perm=(0, 2, 4, 1, 3, 5))
+    x = ops.array_reshape_op(
+        x, output_shape=(batch * g * g, channels * p_ * p_))
+    return Linear(channels * p_ * p_, hidden, bias=bias,
+                  initializer=init.GenTruncatedNormal(0.0, 0.02),
+                  name=name)(x)
+
+
+def pre_ln_block(hidden, heads, seq, batch, eps, name, causal=False,
+                 dropout=0.0):
+    """The pre-LN transformer encoder block (ViT, CLIP and MAE towers):
+    x + attn(ln1(x)); x + mlp(ln2(x))."""
+    from .. import initializers as init
+    from ..layers.attention import MultiHeadAttention
+    from ..layers.core import Linear, LayerNorm
+
+    def block(x):
+        h = LayerNorm(hidden, eps, name + ".ln1")(x)
+        mha = MultiHeadAttention(hidden, heads, causal=causal,
+                                 dropout=dropout, name=name + ".attn")
+        x = x + mha(h, batch, seq)
+        h = LayerNorm(hidden, eps, name + ".ln2")(x)
+        h = Linear(hidden, 4 * hidden, activation="gelu",
+                   initializer=init.GenTruncatedNormal(0.0, 0.02),
+                   name=name + ".mlp1")(h)
+        h = Linear(4 * hidden, hidden,
+                   initializer=init.GenTruncatedNormal(0.0, 0.02),
+                   name=name + ".mlp2")(h)
+        if dropout:
+            h = ops.dropout_op(h, 1.0 - dropout)
+        return x + h
+    return block
+
+
 def split_heads(x, batch, seq, heads, head_dim):
     """(batch*seq, hidden) → (batch, heads, seq, head_dim)."""
     x = ops.array_reshape_op(x, output_shape=(batch, seq, heads, head_dim))
@@ -32,7 +77,7 @@ def merge_heads(x, batch, seq, hidden):
 
 def post_ln_encoder_stack(x, cfg, attn_factory, name):
     """BERT-style post-LN encoder stack shared by the static-sparse-mask
-    models (Longformer): per layer, x = LN(x + attn(x));
+    models (Longformer, BigBird): per layer, x = LN(x + attn(x));
     x = LN(x + dropout(FFN(x))).  ``attn_factory(layer_name) -> callable``.
     Reads hidden_size / num_hidden_layers / intermediate_size /
     hidden_dropout_prob / layer_norm_eps off ``cfg``."""

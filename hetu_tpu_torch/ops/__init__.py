@@ -3,7 +3,7 @@ from .base import OP_REGISTRY, ItemOp, SimpleOp, def_op, tuple_outputs
 from .arithmetic import (add_op, minus_op, mul_op, div_op, addbyconst_op,
                          minusbyconst_op, mulbyconst_op, div_const_op,
                          const_div_op, opposite_op, pow_op, ne_op, tanh_op,
-                         sigmoid_op, rsqrt_op)
+                         sigmoid_op, rsqrt_op, exp_op, sqrt_op)
 from .matmul import matmul_op, linear_op, einsum_op
 from .nn import (relu_op, leaky_relu_op, gelu_op, softmax_op, log_softmax_op,
                  softmax_func, dropout_op, dropout2d_op, conv2d_op,
@@ -11,7 +11,8 @@ from .nn import (relu_op, leaky_relu_op, gelu_op, softmax_op, log_softmax_op,
                  batch_normalization_op, layer_normalization_op,
                  instance_normalization2d_op, BatchNormOp)
 from .transform import (array_reshape_op, transpose_op, slice_op, concat_op,
-                        broadcastto_op)
+                        concatenate_op, broadcastto_op, broadcast_shape_op,
+                        repeat_op, roll_op, scatter1d_grad_op, indexing_op)
 from .reduce import reduce_sum_op, reduce_mean_op
 from .losses import (softmaxcrossentropy_op, softmaxcrossentropy_sparse_op,
                      binarycrossentropy_op)

@@ -73,4 +73,6 @@ opposite_op = def_op("Opposite", lambda c, a: -a)
 pow_op = def_op("Pow", lambda c, a, p=2.0: torch.pow(a, p))
 tanh_op = def_op("Tanh", lambda c, a: torch.tanh(a))
 rsqrt_op = def_op("ReciprocalSqrt", lambda c, a: torch.rsqrt(a))
+exp_op = def_op("Exp", lambda c, a: torch.exp(a))
+sqrt_op = def_op("Sqrt", lambda c, a: torch.sqrt(a))
 sigmoid_op = def_op("Sigmoid", lambda c, a: torch.sigmoid(a))

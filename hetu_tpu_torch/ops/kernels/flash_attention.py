@@ -100,7 +100,10 @@ dense bias ``fwd_mask_bias_launches``, ``dq_mask_bias_launches``,
 (``fwd_len_launches``, ``dq_causal_len_launches``); with bfloat16
 inputs the same names with a ``bf16_`` prefix; reset them by
 assignment).  :class:`FlashAttention` is the autograd function of every
-training path, the counterpart of the JAX package's ``custom_vjp``.
+training path, the counterpart of the JAX package's ``custom_vjp``; it
+zero-pads a head dim off the kernels' multiple (Transformer-XL's 41 to 44
+in float32, 48 in bfloat16) and counts each such launch also in
+``dpad_launches``.
 """
 from __future__ import annotations
 
@@ -113,7 +116,7 @@ from . import _build
 
 NEG_INF = -1e30
 #: largest head dim the kernels take (and it must be a multiple of 4, of 8
-#: with bfloat16 inputs)
+#: with bfloat16 inputs; :class:`FlashAttention` zero-pads any other)
 MAX_HEAD_DIM = 128
 #: the input dtypes of the training kernels
 DTYPES = (torch.float32, torch.bfloat16)
@@ -178,6 +181,10 @@ del _name
 #: merge-kernel launches made by :func:`flash_fwd` (once a call whose split
 #: plan has more than one split)
 merge_launches = 0
+#: training-kernel launches (forward, dQ, dK/dV) that :class:`FlashAttention`
+#: made on a head dim zero-padded to the kernels' multiple; each also counts
+#: under its specialization's counter
+dpad_launches = 0
 
 #: C entry → (source ``csrc/<source>.cu``, pointer arguments, int
 #: arguments); each takes its pointers, then its ints ((bh, heads, s_q,
@@ -615,6 +622,14 @@ def _check_rows(fn, q, **rows):
             raise ValueError(f"{fn}: {name} must be {dtype} {want} on "
                              f"{q.device}, got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
+
+
+def padded_head_dim(d, dtype):
+    """The head dim the training kernels take for ``d``: ``d`` rounded up
+    to a multiple of 4 (float32) or 8 (bfloat16, whose 16-byte loads are 8
+    values)."""
+    mult = 8 if dtype == torch.bfloat16 else 4
+    return -(-d // mult) * mult
 
 
 def _check_launch(fn, d, **tensors):
@@ -1142,6 +1157,14 @@ def flash_bwd_dkv_mask(q, k, v, key_mask, mask, gmode, heads, do, lse, delta,
     return dk, dv, dkbias
 
 
+def _count_dpad(q, n=1):
+    """Count ``n`` padded-head-dim launches, on the card only (the CPU
+    takes the plain versions)."""
+    global dpad_launches
+    if q.device.type == "cuda":
+        dpad_launches += n
+
+
 class FlashAttention(torch.autograd.Function):
     """Attention on (BH, S, D) tensors with the kernels' gradient, on every
     training path: dense, ``key_mask``, ``lengths`` (B,), causal, a full
@@ -1154,12 +1177,24 @@ class FlashAttention(torch.autograd.Function):
     ``causal``, lengths, mask and bias.
     dbias / dkbias come back summed over the bias's group, in its storage
     shape (the JAX package's ``_flash_vjp_bwd``).  ``key_mask``,
-    ``lengths``, the mask, ``scale`` and ``causal`` get no gradient."""
+    ``lengths``, the mask, ``scale`` and ``causal`` get no gradient.
+
+    A head dim off the kernels' multiple (:func:`padded_head_dim`:
+    Transformer-XL's 41) is zero-padded along D before every launch: the
+    zero columns add nothing to q·kᵀ and give zero output columns, and
+    ``scale`` stays the caller's (1/√D of the true D).  ``out`` and dQ,
+    dK, dV are sliced back; each padded launch also counts in
+    ``dpad_launches``."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, scale, causal=False, bias=None,
                 kbias=None, bgmode="bh", heads=1, mask=None, gmode="bh",
                 lengths=None):
+        d = q.shape[-1]
+        pad = padded_head_dim(d, q.dtype) - d
+        if pad:
+            q, k, v = (torch.nn.functional.pad(t, (0, pad))
+                       for t in (q, k, v))
         if mask is not None:
             out, lse = flash_fwd_fullmask(q, k, v, mask, gmode, heads, scale,
                                           key_mask=key_mask, causal=causal,
@@ -1171,11 +1206,15 @@ class FlashAttention(torch.autograd.Function):
         else:
             out, lse = flash_fwd_bias(q, k, v, key_mask, bias, kbias, bgmode,
                                       heads, scale, causal, lengths=lengths)
+        if pad:
+            out = out[..., :d].contiguous()
+            _count_dpad(q)
         ctx.save_for_backward(q, k, v, key_mask, lengths, mask, bias, kbias,
                               out, lse)
         ctx.scale = scale
         ctx.causal = bool(causal)
         ctx.bgmode, ctx.heads, ctx.gmode = bgmode, heads, gmode
+        ctx.pad = pad
         return out
 
     @staticmethod
@@ -1184,6 +1223,8 @@ class FlashAttention(torch.autograd.Function):
             ctx.saved_tensors
         do = dout.contiguous()
         delta = (do.float() * out.float()).sum(-1)
+        if ctx.pad:
+            do = torch.nn.functional.pad(do, (0, ctx.pad))
         if mask is not None:
             kw = dict(causal=ctx.causal, bias=bias, kbias=kbias,
                       bgmode=ctx.bgmode, lengths=lengths)
@@ -1201,6 +1242,10 @@ class FlashAttention(torch.autograd.Function):
                     do, lse, delta, ctx.scale, ctx.causal)
             dq, dbias = flash_bwd_dq_bias(*args, lengths=lengths)
             dk, dv, dkbias = flash_bwd_dkv_bias(*args, lengths=lengths)
+        if ctx.pad:
+            d = q.shape[-1] - ctx.pad
+            dq, dk, dv = (g[..., :d].contiguous() for g in (dq, dk, dv))
+            _count_dpad(q, 2)
         if dbias is not None:
             dbias = group_reduce(dbias, ctx.bgmode, ctx.heads, bias.shape)
         if dkbias is not None:
@@ -1242,7 +1287,8 @@ def flash_attention(q, k, v, causal=False, scale=None, lengths=None,
     broadcastable the same way, each alone or together, with their
     gradient (a (., ., 1, S_kv) bias takes the key-bias strip when
     S_q != 1, as in the JAX entry; the mask and the bias keep their own
-    group modes).  ``lengths`` alone at one float32 query row with no
+    group modes; a head dim off the kernels' multiple is zero-padded, with
+    ``scale`` from the true D).  ``lengths`` alone at one float32 query row with no
     gradient to take is the decode step: the ``lengths`` kernel
     (:func:`flash_fwd`); every other call goes through
     :class:`FlashAttention` and the training kernels.  Returns ``out``

@@ -285,23 +285,69 @@ def resnet18_step(batch=128, data_format="NCHW", compute_dtype=None,
     return ex, {x: xv, y: yv}, loss
 
 
-def graph_flops(loss, feed_shapes):
-    """Multiply-adds of one forward of ``loss``'s graph, from its
-    convolutions' and linear layers' shapes: the graph lowered on meta
-    tensors (shapes only, no data), each ``Conv2d`` counting
-    N * C_out * H_out * W_out * C_in * k_h * k_w, each ``Linear`` /
-    ``MatrixMult`` M * N * K.  ``feed_shapes``: {placeholder: shape}.
-    Returns {"conv": MACs, "linear": MACs}."""
+#: the training attention ops and the input index of their mask (None: no
+#: mask input)
+ATTENTION_MASK_INPUT = {"ScaledDotProductAttention": None,
+                        "ScaledDotProductAttentionBias": None,
+                        "ScaledDotProductAttentionMasked": 3,
+                        "ScaledDotProductAttentionMaskedBias": 3}
+
+
+def _const_value(node):
+    """``node``'s value when it depends only on variables with a value,
+    computed on the CPU (a constant mask: BigBird's, Swin's tiled shift
+    mask); None when it depends on a feed."""
     from hetu_tpu_torch.graph.executor import lower_forward
     from hetu_tpu_torch.graph.node import LowerCtx
+    topo = ht.topo_sort([node])
+    leaves = {n: n.get_init_value() for n in topo if not n.inputs
+              and getattr(n, "_value", None) is not None}
+    if any(not n.inputs and n not in leaves for n in topo):
+        return None
+    return lower_forward(topo, LowerCtx(False), leaves.__getitem__)[node]
+
+
+def attention_pairs(q_shape, k_shape, causal=False, mask=None):
+    """Visible (row, key) pairs of a (B, H, S_q, D) x (B, H, S_kv, D)
+    attention: every pair, less those above the bottom-right diagonal with
+    ``causal``, less those a ``mask`` broadcastable to (B, H, S_q, S_kv)
+    hides."""
+    b, h, s_q, _ = q_shape
+    s_kv = k_shape[-2]
+    if mask is None and not causal:
+        return b * h * s_q * s_kv
+    valid = torch.ones((s_q, s_kv), dtype=torch.bool)
+    if causal:
+        valid = valid.tril(s_kv - s_q)
+    if mask is not None:
+        valid = valid & (mask != 0)
+    return int(valid.expand(b, h, s_q, s_kv).sum())
+
+
+def graph_flops(loss, feed_shapes):
+    """Multiply-adds of one forward of ``loss``'s graph, from its
+    convolutions', linear layers' and attention ops' shapes: the graph
+    lowered on meta tensors (shapes only, no data), each ``Conv2d``
+    counting N * C_out * H_out * W_out * C_in * k_h * k_w, each
+    ``Linear`` / ``MatrixMult`` M * N * K, each training attention op 2 *
+    D (q·kᵀ and P·V) a visible pair (:func:`attention_pairs`: causal from
+    the bottom right, a constant mask on its visible pairs, a fed one on
+    every pair).  ``feed_shapes``: {placeholder: shape}.  Returns
+    {"conv": MACs, "linear": MACs, "attention": MACs}."""
+    from hetu_tpu_torch.graph.executor import lower_forward
+    from hetu_tpu_torch.graph.node import LowerCtx
+    from hetu_tpu_torch.metrics import suppress_perf_counters
     topo = ht.topo_sort([loss])
 
     def leaf(node):
         shape = feed_shapes.get(node, node.shape)
         return torch.empty(shape, device="meta")
 
-    env = lower_forward(topo, LowerCtx(False), leaf)
-    macs = {"conv": 0, "linear": 0}
+    # meta tensors: the attention dispatchers take the plain versions,
+    # launching and counting nothing
+    with suppress_perf_counters():
+        env = lower_forward(topo, LowerCtx(False), leaf)
+    macs = {"conv": 0, "linear": 0, "attention": 0}
     for node in topo:
         if node.op_type in ("Conv2d", "Conv2dAddBias"):
             w = env[node.inputs[1]].shape          # OIHW in both layouts
@@ -309,6 +355,13 @@ def graph_flops(loss, feed_shapes):
         elif node.op_type in ("Linear", "MatrixMult"):
             a, b = (env[i].shape for i in node.inputs[:2])
             macs["linear"] += int(np.prod(a)) * int(b[-1])
+        elif node.op_type in ATTENTION_MASK_INPUT:
+            q, k = (env[i].shape for i in node.inputs[:2])
+            m_i = ATTENTION_MASK_INPUT[node.op_type]
+            mask = None if m_i is None else _const_value(node.inputs[m_i])
+            pairs = attention_pairs(q, k, node.attrs.get("causal", False),
+                                    mask)
+            macs["attention"] += 2 * pairs * int(q[-1])
     return macs
 
 

@@ -2,8 +2,10 @@
 JAX package's (``hetu_tpu.analysis``), on the CPU.
 
 * ``infer_graph``: tiny BERT, GPT-2, T5, XLNet, Longformer, sparse MoE,
-  ResNet-18 (full width, batch 2) and Wide & Deep through a device PS
-  cache, built alike in both packages: node for node in topo order the
+  ResNet-18 (full width, batch 2), Wide & Deep through a device PS
+  cache, and tiny ViT, Swin (roll, repeat, the window mask with a bias),
+  Transformer-XL (concatenate, the memory's state write) and Reformer
+  (LSH attention), built alike in both packages: node for node in topo order the
   same op type, shape and dtype.  The JAX package runs without x64, so
   its integer leaves are int32 where the port keeps the int64 the
   executor feeds: an int64 of the port is read as int32 here, and no
@@ -12,8 +14,9 @@ JAX package's (``hetu_tpu.analysis``), on the CPU.
   the bad graphs of ``tests/test_analysis.py``, and both packages give
   the same (rule, severity) pairs on them; ``flash-fallback`` is the
   port's own (ROADMAP C7) and held apart: it flags what the port's
-  kernels refuse (a head dim, a mask shape), not the JAX package's
-  ragged causal case.
+  kernels refuse (a head dim above 128 once padded to their multiple, a
+  mask shape), not a head dim off the multiple (zero-padded and taken)
+  nor the JAX package's ragged causal case.
 * ``validate=``: ``'warn'`` (the default), ``'error'`` and ``'off'`` in
   ``Executor``, ``InferenceExecutor`` and ``DecodeEngine`` as in the JAX
   package; a mis-shaped feed names its placeholder and creation site.
@@ -129,9 +132,30 @@ def _wdl(ht, models):
     return [loss, ht.optim.SGDOptimizer(0.01).minimize(loss)]
 
 
+def _vit(ht, models):
+    return _train(ht, models.vit_classify_graph(
+        models.ViTConfig.tiny(batch_size=2))[1])
+
+
+def _swin(ht, models):
+    return _train(ht, models.swin_classify_graph(
+        models.SwinConfig.tiny(batch_size=2))[1], grads=True)
+
+
+def _transfoxl(ht, models):
+    return _train(ht, models.transfoxl_lm_graph(
+        models.TransfoXLConfig.tiny(batch_size=2))[1])
+
+
+def _reformer(ht, models):
+    return _train(ht, models.reformer_lm_graph(
+        models.ReformerConfig.tiny(batch_size=2))[1])
+
+
 GRAPHS = {"bert": _bert, "gpt2": _gpt2, "t5": _t5, "xlnet": _xlnet,
           "longformer": _longformer, "moe": _moe, "resnet18": _resnet18,
-          "wdl_ps": _wdl}
+          "wdl_ps": _wdl, "vit": _vit, "swin": _swin,
+          "transfoxl": _transfoxl, "reformer": _reformer}
 
 
 def _dtype_name(dt):
@@ -353,10 +377,12 @@ def test_lint_rules_match_the_jax_package(case, monkeypatch):
         assert "test_torch_analysis.py" in str(hits[0]), str(hits[0])
 
 
-@pytest.mark.parametrize("model", ["bert", "gpt2", "resnet18"])
+@pytest.mark.parametrize("model", ["bert", "gpt2", "resnet18", "vit",
+                                   "swin", "transfoxl", "reformer"])
 def test_lint_of_the_model_graphs_matches(model):
-    """BERT and GPT-2 lint clean in both packages; ResNet-18's BatchNorm
-    statistics share default names, a warning in both."""
+    """BERT, GPT-2, ViT, Swin, Transformer-XL and Reformer lint clean in
+    both packages; ResNet-18's BatchNorm statistics share default names,
+    a warning in both."""
     t = tlint(GRAPHS[model](tht, tht.models))
     j = jlint(GRAPHS[model](jht, jmodels))
     assert _pairs(t, skip=()) == _pairs(j, skip=()), (str(t), str(j))
@@ -376,24 +402,27 @@ def test_zero_sharding_buckets_match_at_a_group_of_four():
 
 def test_flash_fallback_flags_what_the_port_refuses():
     """The port's rule: a mask outside the broadcast support and a head
-    dim the kernels do not take are flagged; the JAX package's ragged
-    causal case (q 384, kv 273) is not, since the port's kernels take
-    it."""
+    dim above the kernels' 128 are flagged; a head dim off the kernels'
+    multiple (Transformer-XL's 41: zero-padded to 44) and the JAX
+    package's ragged causal case (q 384, kv 273) are not, since the
+    port's kernels take them."""
     q = tht.placeholder_op("q", shape=(1, 2, 256, 64))
     mask = tht.placeholder_op("m", shape=(1, 2, 3, 256))
     bad_mask = tht.sdpa_masked_op(q, q, q, mask, name="badmask_attn")
-    q6 = tht.placeholder_op("q6", shape=(1, 2, 16, 6))
-    bad_dim = tht.sdpa_op(q6, q6, q6, name="dim6_attn")
+    q41 = tht.placeholder_op("q41", shape=(1, 2, 16, 41))
+    dim41 = tht.sdpa_op(q41, q41, q41, causal=True, name="dim41_attn")
+    q132 = tht.placeholder_op("q132", shape=(1, 2, 16, 132))
+    bad_dim = tht.sdpa_op(q132, q132, q132, name="dim132_attn")
     qr = tht.placeholder_op("qr", shape=(1, 2, 384, 64))
     kr = tht.placeholder_op("kr", shape=(1, 2, 273, 64))
     ragged = tht.sdpa_op(qr, kr, kr, causal=True, name="ragged_attn")
-    rep = tlint([bad_mask, bad_dim, ragged])
+    rep = tlint([bad_mask, dim41, bad_dim, ragged])
     flagged = {d.node.name: d for d in rep.diagnostics
                if d.rule == "flash-fallback"}
-    assert set(flagged) == {"badmask_attn", "dim6_attn"}, str(rep)
+    assert set(flagged) == {"badmask_attn", "dim132_attn"}, str(rep)
     assert all(d.severity == "warn" for d in flagged.values())
     assert "mask_shape" in flagged["badmask_attn"].message
-    assert "head_dim" in flagged["dim6_attn"].message
+    assert "head_dim" in flagged["dim132_attn"].message
     # the JAX package flags the ragged causal call
     jq = jht.placeholder_op("qr", shape=(1, 2, 384, 64))
     jk = jht.placeholder_op("kr", shape=(1, 2, 273, 64))

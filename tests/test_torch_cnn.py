@@ -471,7 +471,8 @@ def test_step_flops_count_resnet18_by_hand():
     for df in ("NCHW", "NHWC"):
         _, fd, loss = pt.resnet18_step(batch, df, device="cpu")
         macs = pt.graph_flops(loss, {n: np.shape(v) for n, v in fd.items()})
-        assert macs == {"conv": batch * want, "linear": batch * 512 * 10}
+        assert macs == {"conv": batch * want, "linear": batch * 512 * 10,
+                        "attention": 0}
     assert round(want / 1e9, 4) == 0.5554
 
 

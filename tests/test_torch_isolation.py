@@ -48,6 +48,16 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "import hetu_tpu_torch.models.t5\n"
             "import hetu_tpu_torch.models.xlnet\n"
             "import hetu_tpu_torch.models.longformer\n"
+            "import hetu_tpu_torch.models.vit\n"
+            "import hetu_tpu_torch.models.swin\n"
+            "import hetu_tpu_torch.models.mae\n"
+            "import hetu_tpu_torch.models.clip\n"
+            "import hetu_tpu_torch.models.transformer\n"
+            "import hetu_tpu_torch.models.bart\n"
+            "import hetu_tpu_torch.models.bigbird\n"
+            "import hetu_tpu_torch.models.transfoxl\n"
+            "import hetu_tpu_torch.models.reformer\n"
+            "import hetu_tpu_torch.ops.transform\n"
             "import hetu_tpu_torch.ops.attention\n"
             "import hetu_tpu_torch.ops.arithmetic\n"
             "import hetu_tpu_torch.ops.embedding\n"

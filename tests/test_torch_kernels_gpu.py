@@ -1703,3 +1703,87 @@ def test_run_steps_on_the_card_is_bit_equal_to_the_loop(cuda, monkeypatch):
     assert counts["plan_cache_miss"] == 1 and counts["plan_cache_hit"] == 7
     # six steps past the window of two, and the flush
     assert counts["async_sync_points"] == 7
+
+
+# -- the transformer families' new shapes (Swin windows, head dim 41) -----------
+
+def _entry_vs_plain(cuda, dtype, b, h, s_q, s_kv, d, causal=False, mask=None,
+                    bias=None, seed=0):
+    """Out and the gradients of q, k, v and the bias through the flash entry
+    (``fa.flash_attention``, the autograd function) and through the plain
+    attention (``sdpa_reference``) on the same inputs; returns both and
+    the launch counters' increments."""
+    from hetu_tpu_torch.ops.attention import sdpa_reference
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rng.randn(b, h, s, d).astype(np.float32))
+               .to(cuda, dtype).requires_grad_(True)
+               for s in (s_q, s_kv, s_kv))
+    if bias is not None:
+        bias = bias.detach().requires_grad_(True)
+    cot = torch.from_numpy(rng.randn(b, h, s_q, d).astype(np.float32)) \
+        .to(cuda, dtype)
+    wrt = (q, k, v) + ((bias,) if bias is not None else ())
+    before = {n: c for n, c in vars(fa).items() if n.endswith("launches")}
+    out = fa.flash_attention(q, k, v, causal=causal, mask=mask, bias=bias)
+    got = (out,) + torch.autograd.grad(out, wrt, cot)
+    torch.cuda.synchronize()
+    counts = {n: c - before[n] for n, c in vars(fa).items()
+              if n.endswith("launches") and c != before[n]}
+    ref = sdpa_reference(q, k, v, causal=causal, mask=mask, bias=bias)
+    want = (ref,) + torch.autograd.grad(ref, wrt, cot)
+    return got, want, counts
+
+
+def _close(got, want, dtype):
+    tol = BF16_TOL if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-5)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g.float()).all())
+        torch.testing.assert_close(g.float(), w.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shifted", [True, False])
+def test_swin_window_attention_matches_plain_version(cuda, shifted, dtype):
+    """Swin-T stage 2's windows (res 28, window 7, 6 heads of 32, batch
+    2: 32 windows of 49 tokens, each one ragged 64-row tile): the bias of
+    group ``h`` alone (unshifted blocks) or with the shift mask of group
+    ``b`` tiled over the windows (shifted blocks), through the entry
+    against the plain attention, forward and every gradient."""
+    from hetu_tpu_torch.models.swin import _rel_bias_index, _shift_mask
+    b, res, w, heads = 2, 28, 7, 6
+    nwin = b * (res // w) ** 2
+    rng = np.random.RandomState(3)
+    table = rng.randn((2 * w - 1) ** 2, heads).astype(np.float32) * 0.5
+    bias = torch.from_numpy(np.ascontiguousarray(
+        table[_rel_bias_index(w)].reshape(w * w, w * w, heads)
+        .transpose(2, 0, 1)[None])).to(cuda)
+    mask = None
+    if shifted:
+        m = _shift_mask(res, res, w, w // 2)[:, None]      # (nW, 1, 49, 49)
+        mask = torch.from_numpy(np.tile(m, (b, 1, 1, 1))).to(cuda)
+    got, want, counts = _entry_vs_plain(cuda, dtype, nwin, heads, w * w,
+                                        w * w, 32, mask=mask, bias=bias)
+    _close(got, want, dtype)
+    sfx = "_mask_bias_launches" if shifted else "_bias_launches"
+    pre = "bf16_" if dtype == torch.bfloat16 else ""
+    assert counts == {pre + k + sfx: 1 for k in ("fwd", "dq", "dkv")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_41_launches_the_kernels_padded(cuda, dtype):
+    """Transformer-XL wt103's attention (10 heads of 41, 128 queries over
+    160 memory + 128 segment keys, causal from the bottom right, the
+    relative bias of group ``h``): the entry pads D to 44 (float32) or 48
+    (bf16), keeps the scale at 1/sqrt(41) and slices back; out and every
+    gradient match the plain attention at D = 41, and each of the three
+    launches counts also in ``dpad_launches``."""
+    b, h, s_q, s_kv, d = 2, 10, 128, 288, 41
+    bias = torch.randn(1, h, s_q, s_kv, device=cuda) * 0.5
+    got, want, counts = _entry_vs_plain(cuda, dtype, b, h, s_q, s_kv, d,
+                                        causal=True, bias=bias, seed=4)
+    _close(got, want, dtype)
+    pre = "bf16_" if dtype == torch.bfloat16 else ""
+    assert counts == dict({pre + k + "_bias_causal_launches": 1
+                           for k in ("fwd", "dq", "dkv")}, dpad_launches=3)
