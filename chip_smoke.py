@@ -521,9 +521,33 @@ without printing the final result line:
     padded one, and its memory written), finite losses, p50; then the
     card-vs-CPU check at batch 2 with dropout 0 (Transformer-XL over two
     segments, the second reading the memory).
-45. Print the card's name and power limit, the ``kernels`` JSON line (each
-    flash row counts the launches of phases 38-42 and 44 too, B4 and B5
-    those of phases 41-43, by kernels-line name; the rows of phase 44's
+45. The serving planes at full width.  (a) GPT-2 small (published widths,
+    seeded weights) behind a chunked ``DecodeEngine`` (``max_len`` 512, 8
+    slots, chunk 32) and ``DecodeRouter``: ``SP_REQUESTS`` prompts of one
+    seeded 256-token preamble and a seeded 16-64-token suffix each, 32 new
+    tokens, first on an engine with no store, then on one with a
+    ``PrefixKVStore`` (512 MiB) primed by one request that shares the
+    preamble: every prompt a hit of at least 256 rows, fewer prefill rows,
+    TTFT p50 cold against warm, the decode ``lengths`` (and its merge, as
+    ``DecodeCalls`` records) and full-mask forwards launched with no
+    ``backend:`` fallback and no other kernel, the streams equal the
+    store-less engine's (or apart only at a near tie, phase 17's rule).
+    (b) Two such replicas behind ``FrontDoor``, sharing one store and the
+    weights, the same prompts: replica 1 killed once its streams hold
+    ``SP_KILL_AFTER`` tokens, the door polled until every stream is done,
+    each equal to the unkilled run of (a); the ``decode_recovery``
+    counters and the ``recovery`` latency p50.  (c)
+    ``bert_classify_graph(BertConfig.base(batch_size=32, seq_len=128),
+    num_labels=2)`` from a directory ``Executor.save`` wrote, through
+    ``ServingRouter(max_batch=32, max_wait_ms=2)`` from 8 submitting
+    threads, 256 requests of ``synthetic_mlm_batch``'s rows: each response
+    within ``SP_ROW_ATOL`` of ``iex.infer`` of the request alone, p50 / p99
+    and requests/s, the key-mask forward launched 12 times a serving call;
+    then 64 of them through a two-replica door of such routers with
+    replica 1 killed: every admitted request answered.
+46. Print the card's name and power limit, the ``kernels`` JSON line (each
+    flash row counts the launches of phases 38-42, 44 and 45 too, B4 and
+    B5 those of phases 41-43, by kernels-line name; the rows of phase 44's
     shapes under ``shapes``, Transformer-XL's padded launches under
     ``dpad_launches``) and, last, ``{"ok": true, "device": {...}}``.
 
@@ -533,6 +557,7 @@ run on the tensor cores (cuBLAS), as the JAX package leaves them to XLA.
 """
 import collections
 import contextlib
+import copy
 import gc
 import json
 import math
@@ -6805,6 +6830,383 @@ def phase_families(ht, fa, metrics, kmods):
     return rows, launches, dpad
 
 
+# -- 45. the serving planes ---------------------------------------------------------
+
+# GPT-2 small behind the prefix store: the cache length, the slots, the
+# shared preamble, the suffix range, the requests and their new tokens
+SP_MAX_LEN, SP_SLOTS, SP_PREAMBLE, SP_SUFFIX = 512, 8, 256, (16, 64)
+SP_REQUESTS, SP_NEW, SP_STORE_BYTES = 16, 32, 512 << 20
+# replica 1 of the two-replica fleet is killed once it emitted this many
+SP_KILL_AFTER = 8
+# BERT-base classification behind the request router
+SP_BERT_BATCH, SP_BERT_SEQ, SP_BERT_REQS, SP_BERT_THREADS = 32, 128, 256, 8
+SP_BERT_WAIT_MS, SP_ROW_ATOL, SP_FLEET_REQS = 2.0, 1e-5, 64
+
+
+def sp_prompts(cfg, seed=45):
+    """``SP_REQUESTS`` prompts: one seeded ``SP_PREAMBLE``-token preamble,
+    each followed by its own seeded suffix of ``SP_SUFFIX`` tokens; and a
+    priming prompt (the preamble and 8 tokens of its own)."""
+    rng = np.random.RandomState(seed)
+    pre = rng.randint(0, cfg.vocab_size, SP_PREAMBLE)
+    prompts = [np.concatenate([pre, rng.randint(
+        0, cfg.vocab_size, rng.randint(SP_SUFFIX[0], SP_SUFFIX[1] + 1))])
+        for _ in range(SP_REQUESTS)]
+    prime = np.concatenate([pre, rng.randint(0, cfg.vocab_size, 8)])
+    return prompts, prime
+
+
+def sp_engine(ht, graphs, weights, device, store=None):
+    (feeds, logits, caches, _), cg = graphs
+    return ht.DecodeEngine(feeds, logits, caches, weights=weights,
+                           max_slots=SP_SLOTS, max_len=SP_MAX_LEN,
+                           device=device, chunked=cg[:3],
+                           max_chunk=PREFILL_CHUNK, prefix_store=store)
+
+
+def sp_serve(ht, metrics, engine, prompts, prime=None, on_start=None):
+    """``prompts`` through one ``DecodeRouter`` after an untimed warm-up
+    (and the priming request, whose snapshot the prompts then hit); the
+    decode, prefix-cache and fallback counters set to 0 just before, and
+    ``on_start()`` called there (the caller's launch counters).  Returns
+    (streams, report)."""
+    with ht.DecodeRouter(engine, queue_limit=len(prompts) + 1) as router:
+        router.submit(prompts[0][:40], max_new_tokens=2).result(timeout=300)
+        if prime is not None:
+            router.submit(prime, max_new_tokens=1).result(timeout=300)
+        sync(engine.device)
+        metrics.reset_decode_counts()
+        metrics.reset_prefix_cache_counts()
+        metrics.reset_flash_fallbacks()
+        if on_start is not None:
+            on_start()
+        t0 = time.perf_counter()
+        streams = [router.submit(p, max_new_tokens=SP_NEW) for p in prompts]
+        out = [s.result(timeout=900) for s in streams]
+        sync(engine.device)
+        wall = time.perf_counter() - t0
+    counts = metrics.decode_counts()
+    pc = metrics.prefix_cache_counts()
+    lat = metrics.decode_latency_stats()
+    report = {k: counts.get(k, 0) for k in (
+        "decode_steps", "decode_prefill_steps", "decode_prefill_steps_saved",
+        "decode_prefill_rows", "decode_tokens")}
+    report.update({
+        "prefix_cache_hits": pc.get("prefix_cache_hits", 0),
+        "prefix_cache_hit_rows": pc.get("prefix_cache_hit_rows", 0),
+        "prefix_cache_bytes_hw": pc.get("prefix_cache_bytes_hw", 0),
+        "wall_s": wall, "tokens_per_s": counts.get("decode_tokens", 0) / wall,
+        "ttft_p50_ms": lat["ttft"]["p50"] / 1e3,
+        "ttft_p99_ms": lat["ttft"]["p99"] / 1e3,
+        "step_p50_ms": lat["step"]["p50"] / 1e3,
+        "fallbacks": metrics.flash_fallback_counts()})
+    return out, report
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def sp_agree(tag, got, want, prompts, engine):
+    """Greedy streams equal token for token, or apart only at a near tie:
+    the one-token engine's top-2 logit gap at the first differing token
+    under ``2 * LOGITS_ATOL`` (phase 17's rule).  Returns the count of
+    equal streams."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        at = next(j for j in range(len(b)) if a[j] != b[j])
+        row = np.sort(teacher_forced_logits(
+            engine, list(prompts[i]) + list(b[:at]))[-1])
+        gap = float(row[-1] - row[-2])
+        log(f"[{tag}] stream {i} differs from token {at}: {a[at]} vs "
+            f"{b[at]}; top-2 logit gap {gap:.3e}")
+        if not gap < 2 * LOGITS_ATOL:
+            raise AssertionError(f"{tag}: stream {i} differs at token {at} "
+                                 f"with a top-2 gap of {gap}")
+    return sum(a == b for a, b in zip(got, want))
+
+
+def sp_recovery(ht, metrics, graphs, weights, device, prompts,
+                on_start=None):
+    """Two chunked ``DecodeRouter`` replicas behind a ``FrontDoor``,
+    sharing one prefix store and the weights: every prompt submitted,
+    replica 1 killed once its streams hold ``SP_KILL_AFTER`` tokens, the
+    door polled until every stream is done.  Returns (streams, report)."""
+    store = ht.PrefixKVStore(capacity_bytes=SP_STORE_BYTES)
+    routers = {}
+
+    def mk(idx):
+        routers[idx] = ht.DecodeRouter(
+            sp_engine(ht, graphs, weights, device, store),
+            queue_limit=len(prompts), name=f"r{idx}")
+        return routers[idx]
+
+    door = ht.FrontDoor(mk, 2, wedge_timeout_ms=60000.0)
+    try:
+        for r in routers.values():       # warm-up, uncounted
+            r.submit(prompts[0][:40], max_new_tokens=2).result(timeout=300)
+        sync(device)
+        for reset in (metrics.reset_decode_counts,
+                      metrics.reset_decode_recovery_counts,
+                      metrics.reset_fleet_counts,
+                      metrics.reset_prefix_cache_counts,
+                      metrics.reset_flash_fallbacks):
+            reset()
+        if on_start is not None:
+            on_start()
+        t0 = time.perf_counter()
+        streams, on1 = [], []
+        for p in prompts:
+            before = routers[1].pending
+            streams.append(door.submit(p, max_new_tokens=SP_NEW))
+            if routers[1].pending > before:
+                on1.append(streams[-1])
+        deadline = time.monotonic() + 600
+        while sum(s.n_tokens for s in on1) < SP_KILL_AFTER:
+            if time.monotonic() > deadline:
+                raise AssertionError("replica 1 emitted no tokens")
+            time.sleep(0.001)
+        killed_at = sum(s.n_tokens for s in on1)
+        routers[1].kill()
+        while not all(s.done for s in streams):
+            if time.monotonic() > deadline:
+                raise AssertionError("streams did not finish after the kill")
+            door.poll()
+            time.sleep(0.002)
+        out = [s.result(timeout=5) for s in streams]
+        sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        door.close()
+    rec = metrics.decode_recovery_counts()
+    lat = metrics.decode_latency_stats()
+    report = {"streams_on_replica_1": len(on1), "tokens_at_kill": killed_at,
+              "wall_s": wall, "decode_recovery": rec,
+              "fleet": metrics.fleet_counts(),
+              "recovery_p50_ms": lat["recovery"]["p50"] / 1e3
+              if "recovery" in lat else None,
+              "fallbacks": metrics.flash_fallback_counts()}
+    return out, report
+
+
+def sp_bert(ht, metrics, device, tmp, cfg=None):
+    """BERT-base classification (``num_labels=2``) from a checkpoint
+    directory that ``Executor.save`` wrote, served through
+    ``ServingRouter`` from ``SP_BERT_THREADS`` submitting threads, each
+    response held to ``iex.infer`` of its request alone; then a
+    two-replica ``FrontDoor`` of such routers with replica 1 killed.
+    Returns (report, the serving calls made: each request alone, the
+    router's batches and the door's)."""
+    import threading
+    cfg = cfg or ht.BertConfig.base(batch_size=SP_BERT_BATCH,
+                                    seq_len=SP_BERT_SEQ)
+    feeds, _, logits = ht.bert_classify_graph(cfg, num_labels=2)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # dropout in a served graph warns
+        ex = ht.Executor({"eval": [logits]}, seed=0, device=device)
+        ck = os.path.join(tmp, "bert_classify")
+        t0 = time.perf_counter()
+        ex.save(ck)
+        save_s = time.perf_counter() - t0
+        del ex
+        iex = ht.InferenceExecutor([logits], weights=ck,
+                                   buckets=(cfg.batch_size,), device=device,
+                                   strict=True)
+    data = copy.copy(cfg)
+    data.batch_size = SP_BERT_REQS
+    ids, tt, _, mask = ht.synthetic_mlm_batch(data, seed=45)
+    reqs = [{feeds["input_ids"]: ids[i], feeds["token_type_ids"]: tt[i],
+             feeds["attention_mask"]: mask[i]} for i in range(len(ids))]
+    metrics.reset_serve_counts()
+    want = [iex.infer({k: v[None] for k, v in r.items()})[0][0]
+            for r in reqs]
+    b_alone = metrics.serve_counts().get("serve_batches", 0)
+    metrics.reset_serve_latency()
+    got, lat = [None] * len(reqs), [None] * len(reqs)
+    router = ht.ServingRouter(iex, max_batch=cfg.batch_size,
+                              max_wait_ms=SP_BERT_WAIT_MS,
+                              queue_limit=len(reqs))
+
+    def client(k):
+        for i in range(k, len(reqs), SP_BERT_THREADS):
+            t = time.perf_counter()
+            got[i] = router.submit(reqs[i]).result(timeout=300)[0]
+            lat[i] = (time.perf_counter() - t) * 1e3
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(SP_BERT_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    router.close()
+    batches = metrics.serve_counts().get("serve_batches", 0) - b_alone
+    err = max(float(np.max(np.abs(g - w))) for g, w in zip(got, want))
+    if not err <= SP_ROW_ATOL:
+        raise AssertionError(f"router responses vs infer alone: {err}")
+    # the same requests through a two-replica door, replica 1 killed
+    named = {iex.var_names[n]: iex.params[iex._k(n)] for n in iex.var_nodes}
+    routers = {}
+
+    def mk(idx):
+        routers[idx] = ht.ServingRouter(
+            ht.InferenceExecutor([logits], weights=named,
+                                 buckets=(cfg.batch_size,), device=device,
+                                 validate="off"),
+            max_batch=cfg.batch_size, max_wait_ms=SP_BERT_WAIT_MS,
+            queue_limit=len(reqs), name=f"b{idx}")
+        return routers[idx]
+
+    metrics.reset_fleet_counts()
+    door = ht.FrontDoor(mk, 2, wedge_timeout_ms=60000.0)
+    try:
+        futs = []
+        for i in range(SP_FLEET_REQS):
+            futs.append((i, door.submit(reqs[i])))
+            if i == SP_FLEET_REQS // 2:
+                routers[1].kill()
+        deadline = time.monotonic() + 300
+        door.poll()                      # the killed replica is ejected
+        while not all(f.done() for _, f in futs):
+            if time.monotonic() > deadline:
+                raise AssertionError("fleet requests not answered")
+            door.poll()
+            time.sleep(0.002)
+        ferr = max(float(np.max(np.abs(f.result()[0] - want[i])))
+                   for i, f in futs)
+    finally:
+        door.close()
+    fleet = metrics.fleet_counts()
+    if fleet.get("fleet_request_failures", 0) or not ferr <= SP_ROW_ATOL \
+            or fleet.get("fleet_replica_ejected", 0) != 1:
+        raise AssertionError(f"two-replica BERT door: {fleet}, err {ferr}")
+    ms = np.asarray(lat)
+    served = metrics.serve_counts().get("serve_batches", 0)
+    report = {"batch_bucket": cfg.batch_size, "seq": cfg.seq_len,
+              "requests": len(reqs), "threads": SP_BERT_THREADS,
+              "save_s": save_s, "batches": batches,
+              "max_abs_err_vs_alone": err, "p50_ms": float(np.median(ms)),
+              "p99_ms": float(np.percentile(ms, 99)),
+              "requests_per_s": len(reqs) / wall,
+              "serve": metrics.serve_counts(),
+              "fleet_admitted": fleet.get("fleet_admitted", 0),
+              "fleet_rescued": fleet.get("fleet_rescued", 0),
+              "fleet_max_abs_err": ferr, "calls_alone": b_alone,
+              "router_batches": batches, "all_calls": served}
+    return report, served
+
+
+def phase_serving_planes(ht, fa, metrics, kmods):
+    """Phase 45: the prefix store, stream recovery behind the front door,
+    and BERT-base behind the request router, at full width on the card.
+    Returns (launches by kernels-line name, merge launches)."""
+    t_phase = time.perf_counter()
+    cfg = ht.GPT2Config.small()
+    graphs = (ht.gpt2_decode_graph(cfg, max_len=SP_MAX_LEN),
+              ht.gpt2_decode_chunked_graph(cfg, max_len=SP_MAX_LEN,
+                                           chunk=PREFILL_CHUNK))
+    cold_eng = sp_engine(ht, graphs, None, "cuda")
+    weights = {cold_eng.iex.var_names[n]: cold_eng.iex.params[
+        cold_eng.iex._k(n)] for n in cold_eng.iex.var_nodes}
+    prompts, prime = sp_prompts(cfg)
+    launches = {"flash_fwd_lengths": 0, "flash_fwd_mask": 0, "flash_fwd": 0}
+    merges = 0
+
+    def count(tag, need):
+        nonlocal merges
+        got = {"flash_fwd_lengths": fa.launches,
+               "flash_fwd_mask": fa.fwd_mask_launches,
+               "flash_fwd": fa.fwd_launches}
+        others = {name: n for m in kmods for name, n in vars(m).items()
+                  if name.endswith("launches") and n and not (
+                      m is fa and name in ("launches", "merge_launches",
+                                           "fwd_mask_launches",
+                                           "fwd_launches"))}
+        left = {r: n for r, n in metrics.flash_fallback_counts().items()
+                if r.startswith("backend:")}
+        if any(got[k] <= 0 for k in need) or others or left:
+            raise AssertionError(f"[{tag}] launches {got}, others {others}, "
+                                 f"fallbacks {left}")
+        for k in launches:
+            launches[k] += got[k]
+        merges += fa.merge_launches
+        return dict(got, merges=fa.merge_launches)
+
+    # (a) prefix reuse: the store-less engine, then the store engine
+    def start():
+        reset_launches(*kmods)
+        calls.reset()
+
+    with DecodeCalls(fa) as calls:
+        cold, crep = sp_serve(ht, metrics, cold_eng, prompts,
+                              on_start=start)
+        calls.check(fa, "phase 45a, no store")
+        crep["launches"] = count("prefix-cold", ("flash_fwd_lengths",
+                                                 "flash_fwd_mask"))
+        warm_eng = sp_engine(ht, graphs, weights, "cuda",
+                             ht.PrefixKVStore(capacity_bytes=SP_STORE_BYTES))
+        warm, wrep = sp_serve(ht, metrics, warm_eng, prompts, prime,
+                              on_start=start)
+        calls.check(fa, "phase 45a")
+        wrep["launches"] = count("prefix-warm", ("flash_fwd_lengths",
+                                                 "flash_fwd_mask"))
+    if wrep["prefix_cache_hits"] != SP_REQUESTS \
+            or wrep["prefix_cache_hit_rows"] < SP_REQUESTS * SP_PREAMBLE:
+        raise AssertionError(f"prefix store: {wrep}")
+    if not wrep["decode_prefill_rows"] < crep["decode_prefill_rows"]:
+        raise AssertionError(f"the hits skipped no prefill: {wrep} {crep}")
+    same = sp_agree("prefix", warm, cold, prompts, cold_eng)
+    card = card_line()
+    for tag, rep in (("cold (no store)", crep), ("warm (store)", wrep)):
+        log(f"[serving-planes] (a) GPT-2 small {tag}: {json.dumps(rep)} "
+            f"[{card}]")
+    log(f"[serving-planes] (a) TTFT p50 cold {crep['ttft_p50_ms']:.3f} ms / "
+        f"warm {wrep['ttft_p50_ms']:.3f} ms; prefill steps saved "
+        f"{crep['decode_prefill_steps_saved']} / "
+        f"{wrep['decode_prefill_steps_saved']}; streams equal {same}/"
+        f"{len(cold)} [{card}]")
+    del warm_eng
+    _free_cuda()
+
+    # (b) recovery behind the front door
+    rec, rrep = sp_recovery(ht, metrics, graphs, weights, "cuda", prompts,
+                            on_start=lambda: reset_launches(*kmods))
+    rrep["launches"] = count("recovery", ("flash_fwd_lengths",
+                                          "flash_fwd_mask"))
+    r = rrep["decode_recovery"]
+    if r.get("decode_recovery_reseated", 0) < 1 \
+            or r.get("decode_recovery_exhausted", 0) \
+            or rrep["fleet"].get("fleet_request_failures", 0):
+        raise AssertionError(f"recovery: {rrep}")
+    same = sp_agree("recovery", rec, cold, prompts, cold_eng)
+    log(f"[serving-planes] (b) two replicas, replica 1 killed: "
+        f"{json.dumps(rrep)}; streams equal to the unkilled run {same}/"
+        f"{len(rec)} [{card}]")
+    del cold_eng
+    _free_cuda()
+
+    # (c) BERT-base behind the request router
+    reset_launches(*kmods)
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics.reset_flash_fallbacks()
+        brep, calls_made = sp_bert(ht, metrics, "cuda", tmp)
+    got = fa.fwd_launches
+    brep["launches"] = count("bert", ("flash_fwd",))
+    if got != 12 * calls_made:
+        raise AssertionError(f"key-mask launches {got} != 12 layers x "
+                             f"{calls_made} serving calls")
+    log(f"[serving-planes] (c) BERT-base classify: {json.dumps(brep)} "
+        f"[{card}]")
+    _free_cuda()
+    log(f"[serving-planes] launches {json.dumps(launches)} merges {merges}; "
+        f"phase 45 in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches, merges
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script runs on the "
@@ -7034,7 +7436,12 @@ def main():
     for name, n in flaunches.items():
         dlaunches[name] = dlaunches.get(name, 0) + n
 
-    # -- 45. result lines ---------------------------------------------------------
+    # -- 45. the serving planes: prefix store, recovery, request router ------------
+    slaunches, smerges = phase_serving_planes(ht, fa, metrics, kmods)
+    for name, n in slaunches.items():
+        dlaunches[name] = dlaunches.get(name, 0) + n
+
+    # -- 46. result lines ---------------------------------------------------------
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
@@ -7138,10 +7545,11 @@ def main():
                          launches=calls.count(dtype, cline["n"],
                                               cline["src_rows"]))))
     # the flash kernels of the data-parallel paths (phases 38-40) and of
-    # phases 41, 42 and 44, and the B4 and B5 launches of phases 41-43, by
-    # kernels-line name
+    # phases 41, 42, 44 and 45, and the B4 and B5 launches of phases 41-43,
+    # by kernels-line name; phase 45's decode merges beside phase 3's
     for e in kernels:
         e["launches"] += dlaunches.pop(e["name"], 0)
+    kernels[0]["merge_launches"] += smerges
     # phase 44's shapes beside each float32 flash entry they launch, and
     # Transformer-XL's padded launches (D 41 -> 44)
     by_name = {e["name"]: e for e in kernels}

@@ -9,7 +9,12 @@ kernel on a ported path is a hand-written kernel for the H100
 * serving: GPT-2 greedy decode, ``gpt2_decode_graph`` → ``DecodeEngine``
   → ``DecodeRouter``, decode attention in the CUDA flash kernel; with
   ``DecodeEngine(chunked=gpt2_decode_chunked_graph(...)[:3])`` prompts are
-  ingested in chunks through the full-mask flash forward;
+  ingested in chunks through the full-mask flash forward, and with
+  ``prefix_store=PrefixKVStore()`` a shared prompt prefix seats from a
+  snapshot; ``FrontDoor(lambda i: DecodeRouter(...), 2)`` serves over
+  replicas and carries a dead replica's streams to a survivor; a
+  request-level graph (BERT classification) through ``InferenceExecutor``
+  → ``ServingRouter``, attention in the key-mask flash kernel;
 * training: GPT-2 causal LM, ``gpt2_lm_graph`` →
   ``optim.AdamOptimizer(...).minimize(loss)`` → ``Executor.run``,
   attention in the causal flash kernels, forward and backward; the trained
@@ -131,6 +136,8 @@ from .ops import (BatchNormOp, array_reshape_op, avg_pool2d_op,
                   softmaxcrossentropy_sparse_op, tanh_op, transpose_op)
 from .ps import (CacheSparseTable, DistCacheTable, EmbeddingStore,
                  PSEmbeddingLookupOp, default_store, ps_embedding_lookup_op)
-from .serving import (DecodeEngine, DecodeRouter, DecodeStream,
-                      InferenceExecutor, ServeRejected, default_buckets)
+from .serving import (CLASSES, DecodeEngine, DecodeRouter, DecodeStream,
+                      FrontDoor, InferenceExecutor, PrefixKVStore,
+                      ServeRejected, ServingRouter, SLOAutoscaler,
+                      default_buckets)
 from .weights import params_from_named_arrays

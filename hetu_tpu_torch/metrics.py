@@ -68,8 +68,37 @@ Families:
   dataloader feeds with a copy in flight at once, a gauge) and
   ``async_sync_points`` (where ``run(sync=False)`` had to wait: a numpy
   conversion, the PS push boundary, a save, the window filling).
-* decode latency samples in microseconds by kind (``step``, ``token``,
-  ``ttft``, ``join_wait``), the newest :data:`LATENCY_WINDOW` kept.
+* ``prefix_cache`` — the shared-prefix KV store's reuse
+  (``serving/prefix_cache.py``): lookups that found a stored prefix
+  (``prefix_cache_hits``) or not (``prefix_cache_misses``), the cache
+  rows those hits seated pre-filled (``prefix_cache_hit_rows``),
+  snapshots inserted (``prefix_cache_inserts``) or refused as an
+  exact-key duplicate (``prefix_cache_dup_inserts``), LRU evictions
+  (``prefix_cache_evictions``, ``prefix_cache_evicted_bytes``) and the
+  resident-bytes high-water mark (``prefix_cache_bytes_hw``).
+* ``decode_recovery`` — exactly-once migration of in-flight decode
+  streams off a dead replica: streams detached as continuation requests
+  (``decode_recovery_detached``), reseated on a survivor
+  (``decode_recovery_reseated``), the rows the survivor re-prefilled
+  (``decode_recovery_replayed_rows``) and the rows a prefix-store hit
+  seated for free (``decode_recovery_prefix_assisted``), second and
+  later recoveries of one stream (``decode_recovery_retries``), streams
+  failed fast instead (``decode_recovery_exhausted``) and stale
+  emissions the epoch fence dropped (``decode_recovery_fenced``).
+* ``serve_rejection_reason`` — every ``ServeRejected`` by its structured
+  reason (``queue_full``, ``over_max_len``, ``deadline``, ``draining``,
+  ``recovery_exhausted``, ``shed:<class>``).
+* ``fleet`` — the front door's events (``serving/fleet.py``):
+  admissions and dispatches, sheds by class, replicas scaled out or in,
+  ejected and re-admitted, requests rescued off a dead replica, admitted
+  requests that failed, autoscaler polls and refused resizes, and the
+  live-replica high-water mark (``fleet_replicas_hw``).
+* latency samples in microseconds, the newest :data:`LATENCY_WINDOW`
+  kept of each kind: decode (``step``, ``token``, ``ttft``,
+  ``join_wait``, ``recovery``: detach to reseat of a migrated stream)
+  and serving (``queue_wait`` a request, ``batch`` a micro-batch, each
+  suffixed ``@<replica name>`` for a named router; ``request`` the front
+  door's submit to done).
 
 Abstract evaluation (``analysis/shapes.py``) runs the ops' lowerings on
 meta tensors inside :func:`suppress_perf_counters`: the dispatch-time
@@ -122,6 +151,11 @@ class _Registry:
     def samples(self, kind):
         with self._lock:
             return list(self._latency.get(kind, ()))
+
+    def kinds(self, prefix):
+        """The latency kinds that start with ``prefix``."""
+        with self._lock:
+            return [k for k in self._latency if k.startswith(prefix)]
 
     def reset_latency(self, prefix=None):
         """Drop the latency samples (of the kinds starting ``prefix``)."""
@@ -244,28 +278,35 @@ def decode_counts():
 def reset_decode_counts():
     """Reset the decode counters AND the decode latency samples."""
     _REGISTRY.reset("decode")
-    _REGISTRY.reset_latency()
+    _REGISTRY.reset_latency("decode:")
 
 
 def record_decode_latency(kind, us):
     """Observe one decode latency sample in microseconds (``step`` per
     engine step, ``token`` per emitted token, ``ttft`` per stream at its
-    first token, ``join_wait`` per joined request)."""
-    _REGISTRY.observe(kind, us)
+    first token, ``join_wait`` per joined request, ``recovery`` per
+    migrated continuation at its reseat)."""
+    _REGISTRY.observe("decode:" + kind, us)
+
+
+def _stats(prefix):
+    """{kind: {count, p50, p99, mean}} over the kept samples of every
+    kind under ``prefix`` (the prefix stripped)."""
+    out = {}
+    for kind in _REGISTRY.kinds(prefix):
+        a = np.asarray(_REGISTRY.samples(kind))
+        if a.size:
+            out[kind[len(prefix):]] = {
+                "count": int(a.size),
+                "p50": float(np.percentile(a, 50)),
+                "p99": float(np.percentile(a, 99)),
+                "mean": float(a.mean())}
+    return out
 
 
 def decode_latency_stats():
     """{kind: {count, p50, p99, mean}} over the kept samples (us)."""
-    out = {}
-    for kind in ("step", "token", "ttft", "join_wait"):
-        s = _REGISTRY.samples(kind)
-        if s:
-            a = np.asarray(s)
-            out[kind] = {"count": int(a.size),
-                         "p50": float(np.percentile(a, 50)),
-                         "p99": float(np.percentile(a, 99)),
-                         "mean": float(a.mean())}
-    return out
+    return _stats("decode:")
 
 
 # -------------------------------------------------------------- serving
@@ -281,6 +322,84 @@ def serve_counts():
 
 def reset_serve_counts():
     _REGISTRY.reset("serve")
+
+
+def record_serve_latency(kind, us):
+    """Observe one serving latency sample in microseconds (``kind``:
+    ``queue_wait`` per request, ``batch`` per dispatched micro-batch,
+    ``request`` per front-door admission; a named router suffixes its
+    kinds ``@<name>``)."""
+    _REGISTRY.observe("serve:" + kind, us)
+
+
+def serve_latency_stats():
+    """{kind: {count, p50, p99, mean}} over the kept serving samples."""
+    return _stats("serve:")
+
+
+def reset_serve_latency():
+    _REGISTRY.reset_latency("serve:")
+
+
+def record_serve_rejection(reason, n=1):
+    """Count ``n`` rejections with the structured ``reason`` (one of
+    ``ServeRejected.REASONS``, or ``shed:<class>``)."""
+    if n:
+        _REGISTRY.record("serve_rejection_reason", str(reason), n)
+
+
+def serve_rejection_counts():
+    """{reason: count} snapshot of structured serving rejections."""
+    return _REGISTRY.counts("serve_rejection_reason")
+
+
+def reset_serve_rejection_counts():
+    _REGISTRY.reset("serve_rejection_reason")
+
+
+# ------------------------------------------ prefix store, recovery, fleet
+
+def record_prefix_cache(kind, n=1):
+    """Count ``n`` prefix-cache events of ``kind`` (``*_hw``: max gauge)."""
+    _REGISTRY.record("prefix_cache", kind, n)
+
+
+def prefix_cache_counts():
+    """{kind: count} snapshot of the prefix-cache counters."""
+    return _REGISTRY.counts("prefix_cache")
+
+
+def reset_prefix_cache_counts():
+    _REGISTRY.reset("prefix_cache")
+
+
+def record_decode_recovery(kind, n=1):
+    """Count ``n`` stream-recovery events of ``kind`` (``*_hw``: max
+    gauge)."""
+    _REGISTRY.record("decode_recovery", kind, n)
+
+
+def decode_recovery_counts():
+    """{kind: count} snapshot of the stream-recovery counters."""
+    return _REGISTRY.counts("decode_recovery")
+
+
+def reset_decode_recovery_counts():
+    _REGISTRY.reset("decode_recovery")
+
+
+def record_fleet(kind, n=1):
+    """Count ``n`` fleet events of ``kind`` (``*_hw``: max gauge)."""
+    _REGISTRY.record("fleet", kind, n)
+
+
+def fleet_counts():
+    """{kind: count} snapshot of the fleet counters."""
+    return _REGISTRY.counts("fleet")
+
+
+def reset_fleet_counts():
+    _REGISTRY.reset("fleet")
 
 
 # --------------------------------------------------------------- faults

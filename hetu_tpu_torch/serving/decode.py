@@ -41,16 +41,41 @@
 * **Per-token streaming** through :class:`DecodeStream` futures, with
   explicit backpressure (:class:`~hetu_tpu_torch.serving.ServeRejected`).
 
-Not ported yet: the shared-prefix KV store (``prefix_store=``),
-tensor-parallel plans (``plan=``), stream recovery across replicas and
-the fleet tier (of its replica contract only ``pending`` and
-``pending_steps`` exist), request-level batching, and the chaos / race /
-protocol / trace hooks.
+* **Shared-prefix KV reuse.**  With a ``prefix_store=``
+  (:class:`~hetu_tpu_torch.serving.PrefixKVStore`) the engine snapshots
+  each prompt's KV rows (a clone: the caches are written in place) at its
+  first generated token and seats a later request whose prompt extends a
+  stored prefix with those rows copied into its slot: the shared part's
+  prefill is skipped (``prefix_cache_hits`` / ``prefix_cache_hit_rows``).
+
+* **Keyed dispatch.**  Every step resolves its closure through a
+  :class:`~hetu_tpu_torch.graph.run_plan.KeyedPlanCache`, one key per
+  (batch, len) bucket pair and one per (batch, chunk, len) triple, so
+  ``plan_cache_hit`` shows the steady state as in the JAX package.
+
+* **Exactly-once stream recovery.**  A stream's host-side token list is
+  its replay journal: when a fleet replica dies mid-generation,
+  :meth:`DecodeRouter.detach_inflight` turns each seated sequence into a
+  continuation request (the original prompt plus the journal as the new
+  prompt, the remaining ``max_new``, the same stream and deadline) that a
+  survivor re-ingests, prefix store first.  The detach bumps the stream's
+  replay epoch, which fences every late emission of the dead replica:
+  resolved ``token(i)`` futures never fire again, and greedy selection
+  over the replayed history continues the stream as an unkilled run would.
+
+* **Fleet replica contract.**  :class:`DecodeRouter` has the surface
+  :class:`~hetu_tpu_torch.serving.FrontDoor` drives (``pending``,
+  ``pending_steps``, ``health()``, ``stop_admitting`` / ``drain``,
+  ``detach_queue`` / ``detach_inflight`` / ``adopt``, ``kill``) and the
+  request-level mode (``continuous=False``, ``max_wait_ms``).
+
+Not ported: tensor-parallel plans (``plan=``), and the chaos, race,
+protocol-trace and tracer hooks (``HETU_CHAOS`` set is refused by name).
 
 Threading: the router's loop thread owns the engine (slots, caches); the
-queue hands off under ``DecodeRouter._cv`` and each stream has its own
-lock.  Neither lock is held across a device call or while taking the
-other.
+queue and the seated-request mirror hand off under ``DecodeRouter._cv``
+and each stream has its own lock.  Neither lock is held across a device
+call or while taking the other.
 """
 from __future__ import annotations
 
@@ -62,9 +87,11 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
-from ..metrics import record_decode, record_decode_latency
+from ..graph.run_plan import KeyedPlanCache
+from ..metrics import (record_decode, record_decode_latency,
+                       record_decode_recovery)
 from .executor import InferenceExecutor, default_buckets
-from .router import ServeRejected
+from .router import ServeRejected, refuse_chaos
 
 
 class DecodeStream:
@@ -75,12 +102,21 @@ class DecodeStream:
     Iterating yields tokens until the sequence finishes.
     ``result(timeout)`` blocks for the full token list.  A router or
     engine failure fails every outstanding future and ``result()`` with
-    the same exception."""
+    the same exception.
 
-    def __init__(self):
+    The host-side token list is the replay journal of stream recovery:
+    ``_detach`` bumps the replay epoch atomically with a snapshot of the
+    journal, and every engine-side mutation carries the epoch its request
+    was built under, so a stale replica cannot fire a resolved future
+    again or deliver a token twice."""
+
+    def __init__(self, prompt_len, max_new_tokens):
+        self.prompt_len = int(prompt_len)
+        self.max_new_tokens = int(max_new_tokens)
         self._lock = threading.Lock()
         self._futs = []
         self._tokens = []
+        self._epoch = 0
         self._final = Future()
 
     # -- consumer side -----------------------------------------------------
@@ -113,6 +149,18 @@ class DecodeStream:
         with self._lock:
             return len(self._tokens)
 
+    @property
+    def epoch(self):
+        """Current replay epoch (bumped once per detach)."""
+        with self._lock:
+            return self._epoch
+
+    def partial(self):
+        """The tokens generated so far (a copy of the journal); a
+        ``recovery_exhausted`` failure carries it."""
+        with self._lock:
+            return list(self._tokens)
+
     def __iter__(self):
         i = 0
         while True:
@@ -126,9 +174,20 @@ class DecodeStream:
 
     # -- engine side (router loop thread only) -----------------------------
 
-    def _emit(self, tok):
-        """Deliver one token; returns the token count after the append."""
+    def _detach(self):
+        """Bump the replay epoch and snapshot the journal atomically.
+        Returns ``(new_epoch, journal)``."""
         with self._lock:
+            self._epoch += 1
+            return self._epoch, list(self._tokens)
+
+    def _emit(self, tok, epoch=None):
+        """Deliver one token.  A stale ``epoch`` (the stream migrated
+        away) is a no-op returning False; otherwise returns the journal
+        length after the append (1: the stream's first token ever)."""
+        with self._lock:
+            if epoch is not None and epoch != self._epoch:
+                return False
             while len(self._futs) <= len(self._tokens):
                 self._futs.append(Future())
             fut = self._futs[len(self._tokens)]
@@ -139,8 +198,10 @@ class DecodeStream:
             fut.set_result(int(tok))
         return count
 
-    def _finish(self):
+    def _finish(self, epoch=None):
         with self._lock:
+            if epoch is not None and epoch != self._epoch:
+                return False
             tokens = list(self._tokens)
             extra = self._futs[len(tokens):]
         for f in extra:
@@ -149,28 +210,63 @@ class DecodeStream:
                     f"generation finished after {len(tokens)} tokens"))
         if self._final.set_running_or_notify_cancel():
             self._final.set_result(tokens)
+        return True
 
-    def _fail(self, exc):
+    def _fail(self, exc, epoch=None):
         with self._lock:
+            if epoch is not None and epoch != self._epoch:
+                return False
             pending = self._futs[len(self._tokens):]
         for f in pending:
             if f.set_running_or_notify_cancel():
                 f.set_exception(exc)
         if self._final.set_running_or_notify_cancel():
             self._final.set_exception(exc)
+        return True
 
 
 class _DecodeRequest:
     __slots__ = ("prompt", "max_new", "eos_id", "stream", "t_arrival",
-                 "deadline")
+                 "fid", "deadline", "epoch", "retries", "detached_ts")
 
-    def __init__(self, prompt, max_new, eos_id, deadline=None):
+    def __init__(self, prompt, max_new, eos_id, fid=None, deadline=None):
         self.prompt = prompt
         self.max_new = int(max_new)
         self.eos_id = eos_id
-        self.stream = DecodeStream()
+        self.stream = DecodeStream(len(prompt), max_new)
         self.t_arrival = time.monotonic()
+        self.fid = fid             # the JAX package's flow id; no tracer here
         self.deadline = deadline   # absolute monotonic, or None
+        self.epoch = 0             # stream replay epoch this req emits under
+        self.retries = 0           # continuation builds for this stream
+        self.detached_ts = None    # set on continuations: detach time
+
+
+def _continuation(req):
+    """Continuation request for a detached in-flight stream: the original
+    prompt plus the emitted-token journal is the new prompt, ``max_new``
+    shrinks to the remaining budget, and the same stream travels along,
+    resuming at the next token index.  The journal snapshot and the epoch
+    bump are one atomic operation (``DecodeStream._detach``)."""
+    stream = req.stream
+    epoch, journal = stream._detach()
+    base = np.asarray(req.prompt, np.int32)[:stream.prompt_len]
+    cont = _DecodeRequest.__new__(_DecodeRequest)
+    cont.prompt = np.concatenate(
+        [base, np.asarray(journal, np.int32)]) if journal else base
+    cont.max_new = stream.max_new_tokens - len(journal)
+    cont.eos_id = req.eos_id
+    cont.stream = stream
+    cont.t_arrival = req.t_arrival      # deadlines stay submit-anchored
+    cont.fid = None
+    cont.deadline = req.deadline
+    cont.epoch = epoch
+    cont.retries = req.retries + 1
+    cont.detached_ts = time.monotonic()
+    record_decode_recovery("decode_recovery_detached")
+    if cont.retries > 1:
+        record_decode_recovery("decode_recovery_retries")
+    return cont
 
 
 class _Sequence:
@@ -207,7 +303,9 @@ class DecodeEngine:
     raises.  ``max_chunk`` caps the chunk ladder (default
     ``min(32, max_len)``).  ``validate`` (``'error'``, ``'warn'``,
     ``'off'``) is each entry's ``InferenceExecutor(validate=,
-    decode=True)``.
+    decode=True)``.  ``prefix_store=`` takes a
+    :class:`~hetu_tpu_torch.serving.PrefixKVStore` for shared-prefix KV
+    reuse (one store may serve several engines).
 
     Not thread-safe by design: the owning :class:`DecodeRouter` loop
     thread (or a single test thread) makes every call after construction.
@@ -217,9 +315,8 @@ class DecodeEngine:
                  max_slots=8, max_len=128, seed=0, device=None, plan=None,
                  validate="error", chunked=None, max_chunk=None,
                  prefix_store=None):
-        for opt, given in (("plan", plan), ("prefix_store", prefix_store)):
-            if given is not None:
-                raise NotImplementedError(f"DecodeEngine({opt}=) is not ported")
+        if plan is not None:
+            raise NotImplementedError("DecodeEngine(plan=) is not ported")
         # float32 products in full float32, as the JAX decode graph
         torch.backends.cuda.matmul.allow_tf32 = False
         self.iex = InferenceExecutor(
@@ -239,6 +336,7 @@ class DecodeEngine:
         self.ciex = None
         self.chunk_ladder = (1,)
         self.chunk_top = 1
+        self.prefix = prefix_store
         if chunked is not None:
             cfeeds, clogits, ccaches = chunked
             # the chunked executor serves the primary's weight tensors:
@@ -256,6 +354,11 @@ class DecodeEngine:
             self.chunk_top = self.chunk_ladder[-1]
             self._cfk = {name: self.ciex._k(node)
                          for name, node in cfeeds.items()}
+        # dispatch plans: one per (batch, len) pair for the one-token
+        # entry and one per (batch, chunk, len) triple for the chunked one
+        self._plans = KeyedPlanCache(
+            max_entries=(len(self.batch_ladder) * len(self.len_ladder)
+                         * (1 + len(self.chunk_ladder))))
         self.bb = self.batch_ladder[0]
         self.lb = self.len_ladder[0]
         self.slots = [None] * self.bb
@@ -348,23 +451,48 @@ class DecodeEngine:
     def join(self, req):
         """Seat ``req`` in a free KV-cache slot (growing the batch bucket
         if every slot is taken); its first prompt token decodes at the
-        next :meth:`step`.  A recycled slot's stale cache rows need no
-        clearing: rows past the new sequence's position stay invisible
-        and are overwritten before they become visible."""
+        next :meth:`step`.  With a prefix store, a prompt extending a
+        stored prefix seats with its first ``m`` cache rows copied in
+        (``ptr`` / ``positions`` start at ``m``): that prefill never
+        runs.  A recycled slot's stale cache rows need no clearing: rows
+        past the new sequence's position stay invisible and are
+        overwritten before they become visible."""
         slot = next((i for i, s in enumerate(self.slots) if s is None),
                     None)
         if slot is None:
             self._grow_batch()
             slot = next(i for i, s in enumerate(self.slots) if s is None)
-        self.slots[slot] = _Sequence(req)
-        self.tokens[slot] = req.prompt[0]
-        self.positions[slot] = 0
+        m, rows = 0, None
+        if self.prefix is not None:
+            m, rows = self.prefix.lookup(req.prompt, device=self.device)
+        seq = _Sequence(req)
+        seq.ptr = m
+        self.slots[slot] = seq
+        self.tokens[slot] = req.prompt[m]
+        self.positions[slot] = m
+        if m:
+            # the snapshot lands at rows 0..m-1: grow the length bucket
+            # first
+            self._grow_len_if_needed()
+            for name in self.cache_names:
+                self.caches[name][slot, :, :m, :].copy_(rows[name])
         if self._used[slot]:
             record_decode("decode_slot_recycles")
         self._used[slot] = True
         record_decode("decode_joins")
-        record_decode_latency(
-            "join_wait", (time.monotonic() - req.t_arrival) * 1e6)
+        if req.detached_ts is not None:
+            # a migrated continuation: the journal replay is the prompt
+            # suffix, less whatever the prefix store seated
+            record_decode_recovery("decode_recovery_reseated")
+            record_decode_recovery("decode_recovery_replayed_rows",
+                                   max(0, len(req.prompt) - m))
+            if m:
+                record_decode_recovery("decode_recovery_prefix_assisted", m)
+            record_decode_latency(
+                "recovery", (time.monotonic() - req.detached_ts) * 1e6)
+        else:
+            record_decode_latency(
+                "join_wait", (time.monotonic() - req.t_arrival) * 1e6)
         return slot
 
     def _clear(self, slot):
@@ -376,15 +504,16 @@ class DecodeEngine:
         seq = self.slots[slot]
         self._clear(slot)
         record_decode("decode_leaves")
-        seq.req.stream._finish()
+        seq.req.stream._finish(seq.req.epoch)
 
     def abort(self, exc):
         """Fail every in-flight stream and clear the batch (router close
-        or a fatal step error)."""
+        or a fatal step error).  Epoch-fenced: a stream the front door
+        already migrated to a survivor ignores this replica's abort."""
         for i, seq in enumerate(self.slots):
             if seq is not None:
                 self._clear(i)
-                seq.req.stream._fail(exc)
+                seq.req.stream._fail(exc, seq.req.epoch)
 
     def evict_expired(self, now=None):
         """Deadline eviction: a seated sequence whose deadline has passed
@@ -403,11 +532,23 @@ class DecodeEngine:
                 seq.req.stream._fail(ServeRejected(
                     "deadline",
                     f"decode deadline passed after {seq.emitted} of "
-                    f"{seq.req.max_new} tokens"))
+                    f"{seq.req.max_new} tokens"), seq.req.epoch)
                 evicted += 1
         return evicted
 
     # -- the decode step ---------------------------------------------------
+
+    def _step_fn(self):
+        """The step closure of the current (batch, len) bucket pair,
+        through the keyed plan cache (a hit plans nothing)."""
+        return self._plans.lookup((self.bb, self.lb),
+                                  lambda: self.iex.compiled(self.bb))
+
+    def _chunk_step_fn(self, chunk):
+        """The chunked step closure of the current (batch, chunk, len)
+        triple: a 3-tuple key in the same plan cache."""
+        return self._plans.lookup((self.bb, chunk, self.lb),
+                                  lambda: self.ciex.compiled(self.bb))
 
     def _pick_chunk(self, active):
         """Chunk bucket for this step: the smallest ladder bucket
@@ -447,15 +588,26 @@ class DecodeEngine:
 
     def _emit_token(self, i, seq, tok, now):
         """Post-argmax bookkeeping shared by the one-token and chunked
-        paths: counters, latency, stream emission and the done check.
-        Returns 1 (one token emitted)."""
-        count = seq.req.stream._emit(tok)
+        paths: counters, latency, the prefix snapshot, stream emission and
+        the done check.  Returns 1 (one token emitted), or 0 when the
+        stream's replay epoch fenced the emission: the stream migrated to
+        a survivor while this replica was still stepping, so the stale
+        seat is dropped without touching the stream."""
+        count = seq.req.stream._emit(tok, seq.req.epoch)
+        if count is False:
+            self._clear(i)
+            record_decode("decode_leaves")
+            record_decode_recovery("decode_recovery_fenced")
+            return 0
         seq.emitted += 1
         record_decode("decode_generate_rows")
         record_decode("decode_tokens")
         record_decode_latency("token", (now - seq.t_last) * 1e6)
         if count == 1:
+            # the stream's first token ever, whichever replica delivers it
             record_decode_latency("ttft", (now - seq.req.t_arrival) * 1e6)
+        if seq.emitted == 1 and self.prefix is not None:
+            self._prefix_insert(i, seq)
         seq.t_last = now
         self.tokens[i] = tok
         done = (seq.emitted >= seq.req.max_new
@@ -465,6 +617,18 @@ class DecodeEngine:
         if done:
             self._leave(i)
         return 1
+
+    def _prefix_insert(self, i, seq):
+        """Snapshot slot ``i``'s prompt KV rows into the prefix store at
+        the first generated token, when rows ``0..P-1`` hold exactly the
+        prompt's KV.  Cloned: the slot's rows are written in place later
+        and overwritten when the slot is reused."""
+        p = len(seq.req.prompt)
+        if p < self.prefix.min_tokens:
+            return
+        rows = {name: self.caches[name][i, :, :p, :].clone()
+                for name in self.cache_names}
+        self.prefix.insert(seq.req.prompt, rows)
 
     def step(self):
         """Decode ONE batch step: every active slot consumes its pending
@@ -480,7 +644,7 @@ class DecodeEngine:
         if chunk > 1:
             return self._step_chunked(active, chunk)
         self._grow_len_if_needed()
-        fn = self.iex.compiled(self.bb)
+        fn = self._step_fn()
         t0 = time.perf_counter_ns()
         feeds = {
             self._fk["input_ids"]: torch.from_numpy(
@@ -526,7 +690,7 @@ class DecodeEngine:
         write, and only rows that finished their prompt read logits: a
         pure-prefill chunk skips the copy to the host."""
         self._grow_len_if_needed(span=chunk)
-        fn = self.ciex.compiled(self.bb)
+        fn = self._chunk_step_fn(chunk)
         t0 = time.perf_counter_ns()
         ids = np.zeros((self.bb, chunk), np.int32)
         valid = np.zeros(self.bb, np.int32)
@@ -598,42 +762,39 @@ class DecodeRouter:
 
     ``submit`` admits a prompt and returns a :class:`DecodeStream`; the
     loop thread seats waiting requests into free slots at every step
-    boundary and runs decode steps while any sequence is in flight.
-    ``close()`` rejects the queue and fails in-flight streams with
-    :class:`~hetu_tpu_torch.serving.ServeRejected` (``draining``)."""
+    boundary (``continuous=True``) and runs decode steps while any
+    sequence is in flight.  ``continuous=False`` is the request-level
+    mode: joins happen only into an EMPTY engine, after the
+    arrival-anchored ``max_wait_ms`` fill window (the whole batch runs to
+    completion first).  ``close()`` rejects the queue and fails in-flight
+    streams with :class:`~hetu_tpu_torch.serving.ServeRejected`
+    (``draining``).  ``name`` labels the replica behind a front door."""
 
-    def __init__(self, engine, queue_limit=64, start=True):
+    def __init__(self, engine, queue_limit=64, max_wait_ms=2.0,
+                 continuous=True, start=True, name=""):
+        refuse_chaos("DecodeRouter")
         self.engine = engine
+        self.name = str(name)
         self.queue_limit = int(queue_limit)
+        self.max_wait_ms = float(max_wait_ms)
+        self.continuous = bool(continuous)
         self._q = collections.deque()
         self._cv = threading.Condition()
         self._stop = False
+        self._draining = False
+        self._killed = False
         self._active_ct = 0     # loop's mirror of engine.active (under _cv)
+        # the seated-request mirror (under _cv), updated at pop time in
+        # _take_joins, before the step: a replica that wedges inside a
+        # device call with an empty queue still reports its in-flight
+        # batch, and detach_inflight rescues it without the loop thread
+        self._seated = []
+        now = time.monotonic()
+        self.hb_ts = now          # loop heartbeat (under _cv)
+        self.progress_ts = now    # last step that made progress (under _cv)
         self._thread = None
         if start:
             self.start()
-
-    # -- load signals -------------------------------------------------------
-
-    @property
-    def pending(self):
-        """Queued + in-flight sequence count (``_active_ct`` is the loop's
-        own mirror of ``engine.active``: no cross-thread engine read)."""
-        with self._cv:
-            return len(self._q) + self._active_ct
-
-    @property
-    def pending_steps(self):
-        """Estimated engine steps queued ahead of a new request.  A
-        queued prompt costs ``ceil(prompt_len / chunk_top)`` prefill steps
-        (``prompt_len`` with no chunked entry, where ``chunk_top`` is 1),
-        not the one step per request that ``pending`` implies; an
-        in-flight sequence counts one step.  ``chunk_top`` does not change
-        after the engine is built, so reading it here is safe."""
-        ct = max(1, int(self.engine.chunk_top))
-        with self._cv:
-            q = sum((len(r.prompt) + ct - 1) // ct for r in self._q)
-            return q + self._active_ct
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -672,14 +833,131 @@ class DecodeRouter:
     def __exit__(self, *exc):
         self.close()
 
+    @property
+    def queue_depth(self):
+        with self._cv:
+            return len(self._q)
+
+    # -- fleet replica contract ----------------------------------------------
+
+    @property
+    def pending(self):
+        """Queued + in-flight sequence count (``_active_ct`` is the loop's
+        own mirror of ``engine.active``: no cross-thread engine read)."""
+        with self._cv:
+            return len(self._q) + self._active_ct
+
+    def _queued_steps(self):
+        # under _cv: a queued prompt costs ceil(prompt_len / chunk_top)
+        # prefill steps; chunk_top does not change after construction
+        ct = max(1, int(self.engine.chunk_top))
+        return sum((len(r.prompt) + ct - 1) // ct for r in self._q)
+
+    @property
+    def pending_steps(self):
+        """Estimated engine steps queued ahead of a new request: a queued
+        prompt costs ``ceil(prompt_len / chunk_top)`` prefill steps
+        (``prompt_len`` with no chunked entry), an in-flight sequence
+        one."""
+        with self._cv:
+            return self._queued_steps() + self._active_ct
+
+    def health(self):
+        """Load, heartbeat and lifecycle flags in one lock hold, the shape
+        of ``ServingRouter.health``."""
+        with self._cv:
+            q_steps = self._queued_steps()
+            return {"pending": len(self._q) + self._active_ct,
+                    "queued": len(self._q),
+                    "inflight": self._active_ct,
+                    "pending_steps": q_steps + self._active_ct,
+                    "hb_ts": self.hb_ts,
+                    "progress_ts": self.progress_ts,
+                    "killed": self._killed,
+                    "draining": self._draining,
+                    "stopped": self._stop}
+
+    def stop_admitting(self):
+        """Graceful drain, step 1: new submits are rejected
+        (``draining``) while the loop keeps decoding."""
+        with self._cv:
+            self._draining = True
+            self._cv.notify_all()
+
+    def drain(self, timeout=10.0):
+        """Block until the queue is empty and every seated sequence
+        finished.  Returns True when drained, False on timeout, a killed
+        loop or one that never started."""
+        deadline = time.monotonic() + float(timeout)
+        with self._cv:
+            while self._q or self._active_ct:
+                if self._killed or self._thread is None:
+                    return False
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._cv.wait(min(left, 0.05))
+            return True
+
+    def detach_queue(self):
+        """Remove and return every queued (not yet seated) request; the
+        streams travel with them."""
+        with self._cv:
+            orphans = list(self._q)
+            self._q.clear()
+            self._cv.notify_all()
+            return orphans
+
+    def detach_inflight(self):
+        """Remove and return every SEATED sequence as a continuation
+        request (prompt + journal, the original arrival and deadline, the
+        retry count bumped).  The journal snapshot bumps each stream's
+        epoch, so this works on a wedged replica too: what its loop emits
+        afterwards is fenced.  Streams already finished or migrated are
+        skipped."""
+        with self._cv:
+            seated = list(self._seated)
+            self._seated = []
+            self._active_ct = 0
+            self._cv.notify_all()
+        return [_continuation(req) for req in seated
+                if not req.stream.done and req.epoch == req.stream.epoch]
+
+    def adopt(self, reqs):
+        """Admit requests detached from another decode replica (queued
+        orphans and continuations): arrival times and deadlines are kept,
+        and ``queue_limit`` is bypassed (rescue must not reject admitted
+        work).  Returns the count."""
+        reqs = list(reqs)
+        if not reqs:
+            return 0
+        with self._cv:
+            if self._stop or self._killed:
+                raise ServeRejected(
+                    "draining", "cannot adopt into a stopped router")
+            self._q.extend(reqs)
+            self._cv.notify_all()
+        return len(reqs)
+
+    def kill(self):
+        """Fail-stop: the loop exits at its next boundary without touching
+        the queue or the seated streams; the front door rescues both
+        (:meth:`detach_queue`, :meth:`detach_inflight`).  Streams nobody
+        detaches are failed by :meth:`close`.  New submits are rejected
+        (``draining``)."""
+        with self._cv:
+            self._killed = True
+            self._cv.notify_all()
+
     # -- admission ---------------------------------------------------------
 
     def submit(self, prompt_ids, max_new_tokens=16, eos_id=None,
                deadline_ms=None):
         """Admit one prompt (1-D int token ids); returns a
         :class:`DecodeStream`.  Raises ``ServeRejected`` when the queue
-        is full (``queue_full``), the router is closed (``draining``), or
-        the sequence cannot fit ``max_len`` (``over_max_len``).
+        is full (``queue_full``), the router is closed, draining or killed
+        (``draining``), or the sequence cannot fit ``max_len``
+        (``over_max_len``).
 
         ``deadline_ms``: completion budget from submit time.  A request
         still queued past it fails at seat time; a seated sequence that
@@ -698,11 +976,15 @@ class DecodeRouter:
                 f"engine's max_len {self.engine.max_len}")
         deadline = None if deadline_ms is None \
             else time.monotonic() + float(deadline_ms) / 1e3
-        req = _DecodeRequest(prompt, max_new, eos_id, deadline)
+        req = _DecodeRequest(prompt, max_new, eos_id, None, deadline)
         with self._cv:
-            if self._stop:
+            if self._stop or self._killed:
                 record_decode("decode_rejections")
                 raise ServeRejected("draining", "router is closed")
+            if self._draining:
+                record_decode("decode_rejections")
+                raise ServeRejected("draining",
+                                    "router is draining — not admitting")
             if len(self._q) >= self.queue_limit:
                 record_decode("decode_rejections")
                 raise ServeRejected(
@@ -717,27 +999,48 @@ class DecodeRouter:
 
     def _take_joins(self):
         """Requests to seat before the next step (empty: just step), or
-        None at shutdown."""
+        None at shutdown or kill.  Continuous mode joins at every step
+        boundary; request-level mode only into an empty engine, after the
+        arrival-anchored fill window."""
         with self._cv:
             while True:
-                if self._stop:
+                if self._stop or self._killed:
                     return None
                 cap = self.engine.capacity()
                 busy = not self.engine.idle
-                if self._q and cap > 0:
+                if self._q and cap > 0 and (self.continuous or not busy):
+                    if not self.continuous:
+                        deadline = (self._q[0].t_arrival
+                                    + self.max_wait_ms / 1e3)
+                        while (len(self._q) < cap and not self._stop
+                               and not self._killed):
+                            left = deadline - time.monotonic()
+                            if left <= 0:
+                                break
+                            self._cv.wait(left)
+                        if self._stop or self._killed:
+                            return None
+                        cap = self.engine.capacity()
                     n = min(len(self._q), cap)
-                    # mirrored at pop time, before the step: a request is
-                    # never in neither the queue nor the in-flight count
-                    self._active_ct += n
-                    return [self._q.popleft() for _ in range(n)]
+                    joins = [self._q.popleft() for _ in range(n)]
+                    # mirrored at pop time, before the step: a loop that
+                    # wedges inside the step still reports this work
+                    self._seated.extend(joins)
+                    self._active_ct = len(self._seated)
+                    return joins
                 if busy:
                     return []
+                self.hb_ts = time.monotonic()   # an idle loop still beats
                 self._cv.wait(0.05)
 
     def _loop(self):
         while True:
             joins = self._take_joins()
             if joins is None:
+                # a kill leaves the seated streams and the mirror for the
+                # front door's rescue; close() fails what nobody detached
+                with self._cv:
+                    self._cv.notify_all()
                 return
             now = time.monotonic()
             for req in joins:
@@ -747,18 +1050,34 @@ class DecodeRouter:
                     record_decode("decode_deadline_evictions")
                     req.stream._fail(ServeRejected(
                         "deadline",
-                        "decode deadline passed waiting for a slot"))
+                        "decode deadline passed waiting for a slot"),
+                        req.epoch)
                     continue
                 self.engine.join(req)
+            emitted = 0
             if not self.engine.idle:
                 try:
                     self.engine.evict_expired()
-                    self.engine.step()
+                    emitted = self.engine.step()
                 except Exception as e:    # noqa: BLE001 — every in-flight
                     self.engine.abort(e)  # stream must learn its fate; the
                     #                       router keeps serving new work
             with self._cv:
-                self._active_ct = self.engine.active
+                seated = [s.req for s in self.engine.slots if s is not None]
+                active = len(seated)
+                # a completed step with seated rows is progress; a wedged
+                # step never gets here.  Seats of streams the door already
+                # detached may re-enter the mirror: their emissions are
+                # fenced and free the seat at the next emit
+                progressed = bool(joins) or bool(emitted) \
+                    or active != self._active_ct
+                self._seated = seated
+                self._active_ct = active
+                now = time.monotonic()
+                self.hb_ts = now
+                if progressed or active:
+                    self.progress_ts = now
+                self._cv.notify_all()   # drain() waits on this
 
 
 __all__ = ["DecodeEngine", "DecodeRouter", "DecodeStream"]

@@ -8,14 +8,29 @@ bucket: PyTorch runs eagerly, so the step is the graph's topo order
 evaluated under ``torch.no_grad`` — built once per bucket and
 reused, as the JAX package builds one jitted executable per bucket.
 
+:meth:`InferenceExecutor.infer` runs one request batch: padded with zero
+rows to the smallest legal bucket (:meth:`~InferenceExecutor.bucket_for`),
+one call, per-row fetches sliced back.  :meth:`~InferenceExecutor.
+infer_rows` also returns each fetch's scatter plan, found from the
+fetches' abstract shapes at two batch sizes (``analysis.infer_graph``,
+each op's lowering on meta tensors, no launch): ``k`` rows a sample, None
+for a batch-invariant fetch, and a fetch that aggregates over the batch
+is refused for a padded batch.  :meth:`~InferenceExecutor.warm` runs
+every bucket once.
+
 Weights come from a ``{checkpoint name: array or tensor}`` dict (see
-:func:`hetu_tpu_torch.weights.params_from_named_arrays`) or, for
-variables the dict does not cover, from seeded initializers.  Feeds and
+:func:`hetu_tpu_torch.weights.params_from_named_arrays`), a live port
+``Executor`` (its ``return_tensor_values()``) or a ``hetu_tpu.ckpt.v1``
+directory written by ``Executor.save`` (its dense params); variables the
+source does not cover take their seeded initializer values.  Feeds and
 params are keyed by canonical topo-ordinal keys (``_k``), as in the JAX
-package.
+package.  There is no process-wide serve cache: a rebuilt executor has
+nothing to compile (ROADMAP C7 (k)).
 """
 from __future__ import annotations
 
+import json
+import os
 import warnings
 
 import numpy as np
@@ -26,6 +41,7 @@ from ..graph.executor import lower_forward
 from ..graph.node import (LowerCtx, Op, PlaceholderOp, checkpoint_names,
                           topo_sort)
 from ..initializers import variable_generator
+from ..metrics import record_serve
 
 
 def default_buckets(max_batch=128):
@@ -46,11 +62,24 @@ def default_buckets(max_batch=128):
     return tuple(sorted(out))
 
 
+def _pad_rows(v, bucket):
+    """Zero-pad ``v`` along the leading (batch) dim to ``bucket`` rows."""
+    v = np.asarray(v)
+    if v.ndim == 0 or v.shape[0] == bucket:
+        return v
+    if v.shape[0] > bucket:
+        raise ValueError(f"batch {v.shape[0]} exceeds bucket {bucket}")
+    pad = np.zeros((bucket - v.shape[0],) + v.shape[1:], v.dtype)
+    return np.concatenate([v, pad], 0)
+
+
 class InferenceExecutor:
     """Serving over a fetch subgraph (see module docstring).
 
     ``fetches``: the serving outputs.  ``weights``: ``None`` (seeded
-    initializer values) or a ``{name: array}`` dict.  ``buckets`` /
+    initializer values), a ``{name: array}`` dict, a live port
+    ``Executor``, or a checkpoint directory (``Executor.save``; one
+    without ``meta.json`` raises ``ValueError``).  ``buckets`` /
     ``max_batch``: the legal padded batch sizes.  ``device``: where
     weights live and the graph runs — CUDA by default; the CPU only when
     asked for.  ``strict``: a variable that a ``weights`` dict does not
@@ -63,8 +92,8 @@ class InferenceExecutor:
     forward is inert and only warned of).  ``decode=True``: the fetch set
     is a one-token decode step (the ``decode-incompatible-op`` rule).
 
-    Not ported yet, and refused by name: ``plan=``, ``mesh=``, PS
-    embedding nodes and checkpoint-directory weights.
+    Not ported yet, and refused by name: ``plan=``, ``mesh=`` and PS
+    embedding nodes.
     """
 
     def __init__(self, fetches, weights=None, buckets=None, max_batch=128,
@@ -101,9 +130,19 @@ class InferenceExecutor:
         self.buckets = tuple(sorted({int(b) for b in bset}))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"bad bucket set {self.buckets}")
+        self.max_batch = self.buckets[-1]
+        # which fetches are batch-derived (transitively consume a fed
+        # placeholder)?  Those are padded and sliced per request
+        deps = {}
+        feed_set = set(self.feed_nodes)
+        for node in self.topo:
+            deps[node] = node in feed_set or any(
+                deps.get(i, False) for i in node.inputs)
+        self.fetch_batched = [deps.get(f, False) for f in self.fetches]
         self.params = {}
         self._load_weights(weights, bool(strict))
         self._compiled = {}
+        self._fetch_rows = {}   # (bucket, feed schema) -> scatter plan
 
     # -- canonical keys ----------------------------------------------------
 
@@ -136,14 +175,28 @@ class InferenceExecutor:
 
     # -- weights -----------------------------------------------------------
 
+    @staticmethod
+    def _weights_dict(weights):
+        """Normalize a weights source to ``{checkpoint name: array}``."""
+        if isinstance(weights, dict):
+            return weights
+        if hasattr(weights, "return_tensor_values"):   # live Executor
+            return weights.return_tensor_values()
+        path = os.fspath(weights)
+        meta_path = os.path.join(path, "meta.json")
+        if not os.path.exists(meta_path):
+            raise ValueError(
+                f"weights source {path!r} is not a checkpoint directory "
+                f"(no meta.json) — pass an Executor, a name->array dict, "
+                f"or a directory written by Executor.save")
+        with open(meta_path) as f:
+            meta = json.load(f)
+        return {name: np.load(os.path.join(path, "params", fn))
+                for name, fn in meta.get("params", {}).items()}
+
     def _load_weights(self, weights, strict=False):
-        if weights is not None and not isinstance(weights, dict):
-            raise NotImplementedError(
-                f"InferenceExecutor: weights from {type(weights).__name__} "
-                f"(checkpoint directories, live executors) are not ported — "
-                f"pass a {{name: array}} dict")
         self.var_names = checkpoint_names(self.var_nodes)
-        named = weights or {}
+        named = self._weights_dict(weights) if weights is not None else {}
         missing = []
         # initializers run only for variables the weights do not cover;
         # the generator is seeded from the node's topo position, so
@@ -176,6 +229,16 @@ class InferenceExecutor:
             t = t.to(torch.float32)
         return t.to(self.device)
 
+    def _place_feed(self, node, val):
+        """A request feed on the device, in the placeholder's dtype."""
+        val = np.asarray(val)
+        if val.dtype == np.float64:
+            val = val.astype(np.float32)
+        want = getattr(node, "dtype", None)
+        if want is not None and val.dtype != np.dtype(want):
+            val = val.astype(np.dtype(want))
+        return self._place(val)
+
     # -- one serving step per bucket ---------------------------------------
 
     def _infer_fn(self):
@@ -201,6 +264,14 @@ class InferenceExecutor:
 
         return infer
 
+    def bucket_for(self, n):
+        """Smallest legal bucket >= ``n``, or None when ``n`` exceeds the
+        largest bucket."""
+        for b in self.buckets:
+            if b >= n:
+                return b
+        return None
+
     def compiled(self, bucket):
         """The serving step for one bucket, built at most once."""
         if bucket not in self.buckets:
@@ -211,6 +282,169 @@ class InferenceExecutor:
             fn = self._infer_fn()
             self._compiled[bucket] = fn
         return fn
+
+    # -- inference ---------------------------------------------------------
+
+    #: scatter-plan sentinel: batch-derived, but its leading dim does not
+    #: scale with the batch — the fetch aggregated over it
+    _AGGREGATE = -1
+
+    def _eval_fetch_shapes(self, padded, b):
+        """The fetches' shapes at batch size ``b``: each op's lowering on
+        meta tensors (``analysis.infer_graph``), feeds synthesized from
+        the real batch's trailing dims and the placeholders' dtypes."""
+        from ..analysis import infer_graph
+        from ..analysis.shapes import meta
+        feeds = {}
+        for node in self.feed_nodes:
+            v = np.asarray(padded[node])
+            dt = np.dtype(node.dtype) if node.dtype is not None \
+                else (np.dtype(np.float32) if v.dtype == np.float64
+                      else v.dtype)
+            feeds[node] = meta((b,) + v.shape[1:], dt)
+        gs = infer_graph(self.fetches, feeds=feeds, training=False)
+        shapes = []
+        for f in self.fetches:
+            shape = gs.shape(f)
+            if shape is None:
+                why = gs.failed.get(f) or gs.pending.get(f)
+                raise ValueError(f"fetch {f} has no abstract shape at "
+                                 f"batch {b}: {why}")
+            shapes.append(tuple(shape))
+        return shapes
+
+    def _fetch_row_scaling(self, padded, bucket):
+        """Scatter plan per fetch: ``k`` (>= 1) when its leading dim is
+        exactly ``k * batch`` rows in row-major sample order, None when the
+        fetch never touches the batch, ``_AGGREGATE`` when it is
+        batch-derived but does not row-scale.  A shape at one size is
+        ambiguous (a reduce whose output dim equals the bucket looks
+        per-row), so the plan compares two batch sizes; cached per
+        (bucket, trailing-dims schema).  A graph that cannot be evaluated
+        at twice the bucket is built at one batch size, and its plan reads
+        the bucket's shapes alone (the JAX package refuses such a
+        graph)."""
+        key = (bucket,
+               tuple((self._k(n), np.shape(v)[1:], str(np.asarray(v).dtype))
+                     for n, v in sorted(padded.items(),
+                                        key=lambda kv: kv[0].id)))
+        plan = self._fetch_rows.get(key)
+        if plan is not None:
+            return plan
+        s1 = self._eval_fetch_shapes(padded, bucket)
+        try:
+            s2 = self._eval_fetch_shapes(padded, 2 * bucket)
+        except ValueError:
+            # a graph built at one batch size (its reshapes name the
+            # batch, as the model zoo's BERT does) is served at that size
+            # only: its plan reads the one shape (ROADMAP C7 (n))
+            s2 = [None] * len(s1)
+        plan = []
+        for a, b2, batched in zip(s1, s2, self.fetch_batched):
+            if not batched:
+                plan.append(None)
+            elif (len(a) and a[0] and a[0] % bucket == 0
+                  and (b2 is None
+                       or b2[0] == (a[0] // bucket) * 2 * bucket)):
+                plan.append(a[0] // bucket)
+            else:
+                plan.append(self._AGGREGATE)
+        self._fetch_rows[key] = plan
+        return plan
+
+    def _batch_size(self, feed_dict):
+        sizes = {int(np.shape(v)[0]) for v in feed_dict.values()
+                 if np.ndim(v)}
+        if len(sizes) != 1:
+            raise ValueError(f"feeds disagree on batch size: {sizes}")
+        return sizes.pop()
+
+    def infer(self, feed_dict, convert=True):
+        """Run ONE request batch: pad to the smallest legal bucket, one
+        call, slice batch-derived fetches back to the true size.
+        ``feed_dict``: ``{placeholder: array}`` with a shared leading batch
+        dim.  Returns one value per fetch (numpy when ``convert``)."""
+        return self.infer_rows(feed_dict, convert)[0]
+
+    def infer_rows(self, feed_dict, convert=True):
+        """:meth:`infer` plus the per-fetch scatter plan: ``(results,
+        rows_per_sample)``, where ``rows_per_sample[i]`` is the number of
+        leading rows each sample contributed to fetch ``i`` (request ``j``
+        gets rows ``j*k:(j+1)*k``), or None for a batch-invariant or
+        aggregating fetch whose whole value belongs to every request."""
+        n = self._batch_size(feed_dict)
+        bucket = self.bucket_for(n)
+        if bucket is None:
+            raise ValueError(
+                f"request batch {n} exceeds the largest serving bucket "
+                f"{self.max_batch} — split the request or raise max_batch")
+        record_serve("serve_pad_rows", bucket - n)
+        padded = {node: _pad_rows(v, bucket)
+                  for node, v in feed_dict.items()}
+        for node in self.feed_nodes:
+            if node not in padded:
+                raise ValueError(f"missing feed for {node}")
+        # the plan comes before any device work: a padded batch with an
+        # aggregating fetch is refused without running it
+        scaling = self._fetch_row_scaling(padded, bucket)
+        if n != bucket:
+            for i, k in enumerate(scaling):
+                if k == self._AGGREGATE:
+                    raise ValueError(
+                        f"fetch {self.fetches[i]} aggregates over the "
+                        f"batch dim (leading dim does not scale with "
+                        f"batch size): its value would include the "
+                        f"{bucket - n} zero-padding row(s) of bucket "
+                        f"{bucket} — fetch the per-row form and "
+                        f"aggregate client-side, or submit exact-bucket "
+                        f"batches")
+        outs = self._run_bucket(padded, bucket)
+        results, rows_per_sample = [], []
+        for o, k in zip(outs, scaling):
+            if k is None or k == self._AGGREGATE:
+                rows_per_sample.append(None)
+            else:
+                if n != bucket:
+                    o = o[: n * k]
+                rows_per_sample.append(k)
+            results.append(o.cpu().numpy() if convert else o)
+        return results, rows_per_sample
+
+    def _run_bucket(self, padded, bucket, record=True):
+        """One call at an exact bucket; ``record=False`` (``warm``) leaves
+        the batch counters alone."""
+        feeds = {}
+        for node in self.feed_nodes:
+            if node not in padded:
+                raise ValueError(f"missing feed for {node}")
+            feeds[self._k(node)] = self._place_feed(node, padded[node])
+        outs = self.compiled(bucket)(self.params, feeds)
+        if record:
+            record_serve("serve_batches")
+            record_serve("serve_batch_rows", bucket)
+        return outs
+
+    def warm(self, example_feeds=None):
+        """Run every bucket once: the example request (default: zeros of
+        the declared feed shapes) tiled or cut to each bucket.  Returns the
+        number of buckets."""
+        if example_feeds is None:
+            example_feeds = {}
+            for node in self.feed_nodes:
+                if getattr(node, "shape", None) is None:
+                    raise ValueError(
+                        f"warm() needs an example feed for {node} "
+                        f"(no declared shape)")
+                dt = getattr(node, "dtype", None) or np.float32
+                example_feeds[node] = np.zeros(node.shape, dt)
+        for bucket in self.buckets:
+            fd = {}
+            for node, v in example_feeds.items():
+                v = np.asarray(v)
+                reps = -(-bucket // max(1, v.shape[0]))  # ceil
+                fd[node] = np.concatenate([v] * reps, 0)[:bucket]
+            self._run_bucket(fd, bucket, record=False)
+        return len(self.buckets)
 
 
 __all__ = ["InferenceExecutor", "default_buckets"]

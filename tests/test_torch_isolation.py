@@ -64,6 +64,11 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "import hetu_tpu_torch.graph.executor\n"
             "import hetu_tpu_torch.parallel.zero\n"
             "import hetu_tpu_torch.serving.decode\n"
+            "import hetu_tpu_torch.serving.executor\n"
+            "import hetu_tpu_torch.serving.router\n"
+            "import hetu_tpu_torch.serving.prefix_cache\n"
+            "import hetu_tpu_torch.serving.fleet\n"
+            "import hetu_tpu_torch.parallel.elastic\n"
             "import hetu_tpu_torch.models.cnn\n"
             "import hetu_tpu_torch.ops.nn\n"
             "import hetu_tpu_torch.data.dataloader\n"
@@ -187,7 +192,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         calls[entry]()
 
 
-@pytest.mark.parametrize("opt", ["plan", "prefix_store"])
+@pytest.mark.parametrize("opt", ["plan"])
 def test_decode_engine_refuses_unported_options(opt):
     cfg = ht.GPT2Config.tiny(n_layer=1)
     feeds, logits, caches, _ = ht.gpt2_decode_graph(cfg, max_len=8)
@@ -223,11 +228,36 @@ def test_inference_executor_refuses_unported_options(opt):
         ht.InferenceExecutor([logits], device="cpu", **{opt: "error"})
 
 
-def test_inference_executor_refuses_checkpoint_directory(tmp_path):
+def test_inference_executor_rejects_a_directory_without_meta_json(tmp_path):
+    """Checkpoint-directory weights are ported; a directory that holds no
+    ``meta.json`` raises ``ValueError``, as in the JAX package."""
     cfg = ht.GPT2Config.tiny(n_layer=1)
     _, logits, _, _ = ht.gpt2_decode_graph(cfg, max_len=8)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    with pytest.raises(ValueError, match="meta.json"):
         ht.InferenceExecutor([logits], weights=str(tmp_path), device="cpu")
+
+
+def test_fleet_refuses_hetu_chaos_by_name(monkeypatch):
+    """The port has no chaos injector: with ``HETU_CHAOS`` set the front
+    door and both routers refuse by name instead of ignoring it; unset,
+    ``register_chaos`` does nothing, as the JAX package without it."""
+    x = ht.placeholder_op("x")
+    iex = ht.InferenceExecutor([x * 2.0], buckets=(1,), device="cpu")
+    cfg = ht.GPT2Config.tiny(n_layer=1)
+    feeds, logits, caches, _ = ht.gpt2_decode_graph(cfg, max_len=8)
+    eng = ht.DecodeEngine(feeds, logits, caches, device="cpu", max_len=8)
+    monkeypatch.setenv("HETU_CHAOS", "7:kill:replica@0:req4")
+    calls = [lambda: ht.FrontDoor(lambda i: None, 1),
+             lambda: ht.ServingRouter(iex, start=False),
+             lambda: ht.DecodeRouter(eng, start=False)]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="HETU_CHAOS"):
+            call()
+    monkeypatch.delenv("HETU_CHAOS")
+    door = ht.FrontDoor(lambda i: ht.ServingRouter(iex, start=False), 1,
+                        register_chaos=True)
+    assert door.n_replicas == 1
+    door.close(timeout=0.1)
 
 
 @pytest.mark.parametrize("what", ["causal", "full_mask", "prefill", "bias",
