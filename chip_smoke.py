@@ -545,11 +545,54 @@ without printing the final result line:
     and requests/s, the key-mask forward launched 12 times a serving call;
     then 64 of them through a two-replica door of such routers with
     replica 1 killed: every admitted request answered.
-46. Print the card's name and power limit, the ``kernels`` JSON line (each
+46. The replicated parameter server and CTR serving at phase 9's
+    configuration (BASELINE config 4: batch 2048, vocab 100,000, dim 16,
+    one shared table).  Rank 0's ``DistributedStore(replication=2)`` binds
+    first and four shard processes are spawned at once (ranks 1 and 2, and
+    a standby for each, which binds its rank's port only when told), while
+    (a) and (b) run.  (a) Wide & Deep through ``vlru_dev`` over a local
+    store, float32 and ``compute_dtype='bfloat16'`` in ``CS_TURNS`` turns
+    from one table and one set of weights, 8 steps each (the last
+    ``CS_PROFILED`` profiled): bf16 losses within ``CS_BF16_PARITY`` of
+    float32, B4 and B5 once a step, p50, busy and idle share; the last
+    bf16 run's B4 and B5 calls are recorded and, after it, held to their
+    plain versions and timed at those shapes (the row gradient float32),
+    the ``wdl_bf16_rows`` shape rows of the kernels line.  (b) DeepFM and
+    DCN (``deepfm_criteo`` / ``dcn_criteo``, ``vlru_dev``, float32),
+    ``CS_MODEL_STEPS`` steps each (B4 / B5 once a step, p50, idle share),
+    then 2 steps at batch ``CS_PARITY_BATCH`` on the card against the CPU
+    from one table and one set of weights (losses within ``CTR_LOSS_RTOL``,
+    the store table within ``CTR_TABLE_RTOL`` / ``CTR_TABLE_ATOL``).  (c)
+    bench.py's failover schedule on Wide & Deep over the three-rank store:
+    ``FO_STEPS`` steps on table 0 uninterrupted, then ``FO_STEPS`` on table
+    1 with ``HETU_PS_REREPLICATE_EVERY=1``: shard 1's primary (rank 1's
+    process) SIGKILLed after step ``FO_KILL`` (1-based), its standby
+    relaunched after the next, the repair tick re-replicating it, the
+    port's ``ps_fsck`` clean two steps before the promoted ex-backup (rank
+    2's process) is SIGKILLed three steps before the end; per-step losses
+    bit-equal to the uninterrupted run, failovers absorbed in exactly steps
+    ``FO_KILL`` and ``FO_STEPS - 3`` (0-based), ``ps_failover_promoted``
+    counted; rank 2's standby relaunched, ``maybe_re_replicate``, and
+    ``ps_fsck --verify`` (exit 0) on the whole live cluster.  The
+    replicated step's p50 beside phase 43's unreplicated two-shard p50, the
+    wall time of each step that absorbed a failover.  (d) The killed run's
+    weights behind ``ServingRouter(refresh_every_batches=4)`` over a
+    read-only ``DistCacheTable`` on table 1, bucket ``CS_BUCKET``, while a
+    writer thread pushes to the table: ``CS_SERVE_REQS`` single-row
+    requests from ``CS_CLIENTS`` threads, shard 1's primary (the first
+    standby) SIGKILLed halfway, every request answered and the failover
+    counted (``serve_failovers``); the writer stopped, a refresh sweep
+    joined, ``CS_CHECK_REQS`` requests whose answers are held to a direct
+    forward on rows pulled from the store (``SP_ROW_ATOL``); then two cells
+    of a ``CellMap``, each with its own read-only cache and router behind
+    a ``CellHead``, warmed and serving their own waves (no rejection),
+    ``catch_up``.  p50 / p99 latency, requests/s, refreshed rows.
+47. Print the card's name and power limit, the ``kernels`` JSON line (each
     flash row counts the launches of phases 38-42, 44 and 45 too, B4 and
-    B5 those of phases 41-43, by kernels-line name; the rows of phase 44's
-    shapes under ``shapes``, Transformer-XL's padded launches under
-    ``dpad_launches``) and, last, ``{"ok": true, "device": {...}}``.
+    B5 those of phases 41-43 and 46, by kernels-line name; the rows of
+    phase 44's shapes and phase 46's bf16 step under ``shapes``,
+    Transformer-XL's padded launches under ``dpad_launches``) and, last,
+    ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32:
 ``torch.backends.cuda.matmul.allow_tf32`` is set False.  The bf16 ones
@@ -6196,7 +6239,7 @@ def ps_kernels_at_phase_shapes(emb, seg, cache, ids):
 
 def phase_ps_sharded(ht, emb, seg, metrics, kmods, pm, device="cuda"):
     """Phase 43 (see the module docstring); returns its B4 / B5 launches
-    by kernels-line name."""
+    by kernels-line name and the sharded device-cache step's p50 (ms)."""
     from hetu_tpu_torch.ps import build as ps_build
     from hetu_tpu_torch.ps.dist_store import DistributedStore
     t_phase = time.perf_counter()
@@ -6366,7 +6409,7 @@ def phase_ps_sharded(ht, emb, seg, metrics, kmods, pm, device="cuda"):
     report["phase_s"] = time.perf_counter() - t_phase
     log(f"[ps] launches {json.dumps(launches)} card {report['card']} "
         f"phase 43 in {report['phase_s']:.1f} s")
-    return launches
+    return launches, report["a_device_cache"]["sharded"]["step_ms_p50"]
 
 
 # -- the remaining transformer families: ViT, Swin, MAE, CLIP, the base
@@ -7207,6 +7250,638 @@ def phase_serving_planes(ht, fa, metrics, kmods):
     return launches, merges
 
 
+# -- 46. the replicated parameter server and CTR serving --------------------------
+
+#: (a) / (b): WDL turns of each dtype, profiled steps a run, DeepFM and DCN
+#: steps, and the card-vs-CPU batch
+CS_TURNS, CS_PROFILED, CS_MODEL_STEPS, CS_PARITY_BATCH = 2, 2, 5, 2
+#: test_torch_bf16.py's budget of a bf16 run against its float32 twin
+CS_BF16_PARITY = dict(rtol=5e-2, atol=5e-2)
+#: (c): bench.py's failover schedule at WDL's width: three ranks, 10
+#: steps, shard 1's primary killed after step FO_KILL (its 4th step
+#: absorbs the failover), the promoted ex-backup killed three steps before
+#: the end; the store's RPC settings; the tables (the uninterrupted run's,
+#: the killed run's)
+FO_WORLD, FO_STEPS, FO_KILL, FO_TABLES = 3, 10, 3, 2
+FO_RPC = dict(rpc_timeout=5.0, rpc_retries=2, connect_timeout=2.0)
+FO_HB_DEADLINE_MS = 1500.0
+#: (d): the serving bucket, the requests of the killed wave, the checked
+#: wave and each cell's wave, client threads, the router's refresh period
+CS_BUCKET, CS_SERVE_REQS, CS_CHECK_REQS, CS_CELL_REQS = 64, 512, 64, 64
+CS_CLIENTS, CS_REFRESH_EVERY, CS_WAIT_MS = 4, 4, 2.0
+
+
+def ps_replica(rank, ports, conn, vocab, dim, standby):
+    """Phase 46's shard process: rank ``rank`` of the three-rank replicated
+    store with ``FO_TABLES`` tables; a ``standby`` (a relaunched
+    replacement) waits for a word before it binds the dead rank's port,
+    and creates no table (re-replication brings them).  Serves until told
+    to stop, or killed."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from hetu_tpu_torch.ps.dist_store import DistributedStore
+    if standby:
+        conn.send(("waiting", None))
+        conn.recv()
+    store = DistributedStore(rank, FO_WORLD,
+                             [("127.0.0.1", p) for p in ports],
+                             port=ports[rank], replication=2,
+                             standby=standby, **FO_RPC)
+    if not standby:
+        for _ in range(FO_TABLES):
+            store.init_table(vocab, dim, opt="sgd", lr=0.01, seed=0,
+                             init_scale=0.01)
+    conn.send(("ready", store.local.native))
+    conn.recv()
+    store.close()
+    conn.send(("closed", None))
+
+
+class _Replicas:
+    """The phase's shard processes: ranks 1 and 2, and a standby for each,
+    all spawned at once at the phase's start."""
+
+    def __init__(self, ports):
+        ctx = multiprocessing.get_context("spawn")
+        self.procs = {}
+        for key, rank, standby in (("r1", 1, False), ("r2", 2, False),
+                                   ("s1", 1, True), ("s2", 2, True)):
+            conn, child = ctx.Pipe()
+            p = ctx.Process(target=ps_replica, args=(
+                rank, ports, child, CTR_VOCAB, CTR_DIM, standby),
+                daemon=True)
+            p.start()
+            self.procs[key] = (p, conn)
+
+    def wait(self, key, status):
+        p, conn = self.procs[key]
+        if not conn.poll(PS_TIMEOUT):
+            raise AssertionError(f"phase 46: shard process {key} did not "
+                                 f"reach {status}")
+        got, native = conn.recv()
+        if got != status:
+            raise AssertionError(f"phase 46: {key} said {got}")
+        return native
+
+    def go(self, key):
+        """Bind a standby (it took the dead rank's port)."""
+        self.wait(key, "waiting")
+        self.procs[key][1].send("go")
+        return self.wait(key, "ready")
+
+    def kill(self, key):
+        import signal
+        p, _ = self.procs[key]
+        os.kill(p.pid, signal.SIGKILL)
+        p.join(30)
+
+    def close(self):
+        for p, conn in self.procs.values():
+            if p.is_alive():
+                try:
+                    conn.send("stop")
+                    if conn.poll(PS_TIMEOUT):
+                        conn.recv()
+                except (OSError, EOFError):
+                    pass
+            p.join(30)
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+
+
+def _launched(emb, seg):
+    return {"emb_gather": emb.launches, "sorted_segment_sum": seg.launches}
+
+
+def _add(total, got):
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def cs_capture(emb):
+    """Record the last B4 call of the device-cache path and the last B5
+    call of the executor's step (their tensors), calling through: the
+    launches count as before."""
+    from hetu_tpu_torch.graph import executor as exmod
+    got, orig = {}, (emb.emb_gather, exmod.emb_scatter_add)
+
+    def gather(slab, slots):
+        got["gather"] = (slab, slots)
+        return orig[0](slab, slots)
+
+    def scatter(grad, inv):
+        got["scatter"] = (grad, inv)
+        return orig[1](grad, inv)
+
+    emb.emb_gather, exmod.emb_scatter_add = gather, scatter
+
+    def restore():
+        emb.emb_gather, exmod.emb_scatter_add = orig
+    return got, restore
+
+
+def cs_kernels_at(emb, seg, got, tag):
+    """B4 and B5 held to their plain versions and timed at the shapes of
+    one captured step (``cs_capture``): the gather exact, the segment
+    sum within SEG_RTOL / SEG_ATOL.  Returns their kernels-line shape
+    rows."""
+    slab, slots = got["gather"]
+    flush_buf = torch.empty(DECODE_FLUSH, dtype=torch.float32,
+                            device=slab.device)
+    flush = flush_buf.zero_
+    slots = slots.to(torch.int32)
+    out = emb.gather_rows(slab, slots)
+    if not torch.equal(out, emb.gather_rows_plain(slab, slots)):
+        raise AssertionError(f"phase 46 ({tag}): B4 vs plain not equal")
+    n, w = slots.shape[0], slab.shape[1]
+    slots64 = slots.long()
+    grow = {"name": tag, "shape": [int(n), int(w)], "max_abs_err": 0.0,
+            "ms": time_ms(lambda: emb.gather_rows(slab, slots), flush=flush),
+            "plain_ms": time_ms(lambda: emb.gather_rows_plain(slab, slots),
+                                flush=flush),
+            "library_ms": time_ms(lambda: torch.index_select(
+                slab, 0, slots64), flush=flush)}
+    distinct = int(torch.unique(slots).numel())
+    grow["bound_ms"], grow["bound_by"] = bytes_bound(
+        4 * n + 4 * distinct * w + 4 * n * w)
+    g, inv = got["scatter"]
+    if g.dtype != torch.float32:
+        raise AssertionError(f"phase 46 ({tag}): the row gradient reached "
+                             f"B5 as {g.dtype}, not float32")
+    g = g.reshape(-1, g.shape[-1])
+    inv = inv.to(torch.int32)
+    got_sum = emb.scatter_add_grads(g, inv)
+    order = torch.sort(inv, stable=True)
+    rows_sorted = g.index_select(0, order.indices)
+    seg_ids = order.values
+    plain = seg.sorted_segment_sum_plain(rows_sorted, seg_ids, g.shape[0])
+    err = float((got_sum - plain).abs().max()) if g.numel() else 0.0
+    if not torch.allclose(got_sum, plain, rtol=SEG_RTOL, atol=SEG_ATOL):
+        raise AssertionError(f"phase 46 ({tag}): B5 vs plain max err {err}")
+    m = g.shape[0]
+    seg64 = seg_ids.long()
+    zeros = torch.zeros(m, g.shape[1], device=g.device)
+    u = int(seg_ids[-1]) + 1 if m else 0
+    srow = {"name": tag, "shape": [int(m), int(g.shape[1])],
+            "max_abs_err": err,
+            "ms": time_ms(lambda: seg.sorted_segment_sum(rows_sorted,
+                                                         seg_ids, m),
+                          flush=flush),
+            "plain_ms": time_ms(lambda: seg.sorted_segment_sum_plain(
+                rows_sorted, seg_ids, m), flush=flush),
+            "library_ms": time_ms(lambda: zeros.index_add_(
+                0, seg64, rows_sorted), flush=flush)}
+    srow["bound_ms"], srow["bound_by"] = bytes_bound(
+        4 * m * g.shape[1] + 4 * m + 4 * m * g.shape[1],
+        adds=float((m - u) * g.shape[1]))
+    return {"emb_gather": grow, "sorted_segment_sum": srow}
+
+
+def cs_precision(ht, emb, seg, metrics, kmods, pm, device):
+    """(a) Wide & Deep through ``vlru_dev`` over a local store, float32 and
+    bf16 in turns from one table and one set of weights; the bf16 step's
+    B4 / B5 shapes held to plain.  Returns (report, launches, shape
+    rows)."""
+    batches = ctr_batches(ht)
+    steps = len(batches)
+    local = ht.EmbeddingStore()
+    tids = [local.init_table(CTR_VOCAB, CTR_DIM, opt="sgd", lr=0.01, seed=0,
+                             init_scale=0.01) for _ in range(2 * CS_TURNS)]
+    table0 = local.get_data(tids[0])
+    _, ex0, _ = ps_wdl(ht, local, tids[0], "vlru_dev", None, device)
+    weights = ex0.return_tensor_values()
+    ex0.close()
+    launches, runs, rows = {}, {"float32": [], "bfloat16": []}, None
+    for turn in range(CS_TURNS):
+        for i, cd in enumerate(("float32", "bfloat16")):
+            last = cd == "bfloat16" and turn == CS_TURNS - 1
+            got, restore = cs_capture(emb) if last else ({}, None)
+            reset_launches(*kmods)
+            try:
+                r = ps_run(ht, metrics, pm, local, tids[2 * turn + i],
+                           "vlru_dev", weights, batches, table0, device,
+                           profiled=CS_PROFILED,
+                           compute_dtype=None if cd == "float32" else cd)
+            finally:
+                if restore is not None:
+                    restore()
+            n = _launched(emb, seg)
+            if any(v != steps for v in n.values()):
+                raise AssertionError(f"phase 46 (a) {cd}: B4 / B5 launches "
+                                     f"{n} != {steps}")
+            _add(launches, n)
+            r["ex"].close()
+            runs[cd].append(r)
+            if last:
+                rows = cs_kernels_at(emb, seg, got, "wdl_bf16_rows")
+    f32, bf = runs["float32"][0]["losses"], runs["bfloat16"][0]["losses"]
+    if not np.allclose(bf, f32, **CS_BF16_PARITY):
+        raise AssertionError(f"phase 46 (a): bf16 losses {bf} vs float32 "
+                             f"{f32}")
+    report = {"losses": {"float32": f32, "bfloat16": bf},
+              "bf16_max_abs_loss_gap": float(np.max(np.abs(
+                  np.subtract(bf, f32)))),
+              "turns_equal": {cd: all(r["losses"] == rs[0]["losses"]
+                                      for r in rs)
+                              for cd, rs in runs.items()},
+              "launches_per_step": {k: v / (2 * CS_TURNS * steps)
+                                    for k, v in launches.items()}}
+    for cd, rs in runs.items():
+        ms = np.concatenate([r["ms"] for r in rs])
+        p50 = float(np.percentile(ms, 50))
+        busy = float(np.mean([r["busy_ms"] for r in rs]))
+        report[cd] = {"step_ms_p50": p50, "busy_ms": busy,
+                      "idle_share": 1.0 - busy / p50}
+    report["bf16_rows"] = rows
+    return report, launches, rows
+
+
+def cs_model_executor(ht, model, device, batch):
+    """``model`` ('deepfm' | 'dcn') at WDL's configuration and ``batch``
+    through ``vlru_dev``: (feeds, executor, cache)."""
+    dense = ht.placeholder_op("dense")
+    sparse = ht.placeholder_op("sparse", dtype=np.int64)
+    y_ = ht.placeholder_op("y")
+    loss, _ = getattr(ht, f"{model}_criteo")(
+        dense, sparse, y_, batch, vocab=CTR_VOCAB, dim=CTR_DIM,
+        embed_mode="vlru_dev", lr=0.01, slab_device=device)
+    ex = ht.Executor({"train": [loss, ht.optim.SGDOptimizer(0.01)
+                                .minimize(loss)]}, seed=0, device=device)
+    return (dense, sparse, y_), ex, ex.subexecutors["train"].ps_nodes[0].cache
+
+
+def cs_models(ht, emb, seg, metrics, kmods, pm, device):
+    """(b) DeepFM and DCN through ``vlru_dev`` in float32: a few steps at
+    full width (p50, idle share), then card against CPU at batch
+    ``CS_PARITY_BATCH`` from one table and one set of weights."""
+    batches = ctr_batches(ht)
+    report, launches = {}, {}
+    for model in ("deepfm", "dcn"):
+        feeds, ex, cache = cs_model_executor(ht, model, device, CTR_BATCH)
+        weights = ex.return_tensor_values()
+        table = cache.store.get_data(cache.table)
+        reset_launches(*kmods)
+        losses, ms = [], []
+        for i in range(CS_MODEL_STEPS - CS_PROFILED):
+            t0 = time.perf_counter()
+            losses.append(float(ex.run("train", feed_dict=dict(
+                zip(feeds, batches[i])))[0].asnumpy()))
+            if i:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        it = iter(batches[CS_MODEL_STEPS - CS_PROFILED:CS_MODEL_STEPS])
+
+        def step():
+            losses.append(float(ex.run("train", feed_dict=dict(
+                zip(feeds, next(it))))[0].asnumpy()))
+        busy = _device_busy(pm, lambda: [step() for _ in
+                                         range(CS_PROFILED)],
+                            CS_PROFILED)[0]
+        n = _launched(emb, seg)
+        if any(v != CS_MODEL_STEPS for v in n.values()) \
+                or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"phase 46 (b) {model}: launches {n}, "
+                                 f"losses {losses}")
+        _add(launches, n)
+        ex.close()
+        par = []
+        for dev in (device, "cpu"):
+            f, e, c = cs_model_executor(ht, model, dev, CS_PARITY_BATCH)
+            e.load_dict(weights)
+            c.store.set_data(c.table, table)
+            ls = [float(e.run("train", feed_dict=dict(zip(feeds_, (
+                b[0][:CS_PARITY_BATCH], b[1][:CS_PARITY_BATCH],
+                b[2][:CS_PARITY_BATCH]))))[0].asnumpy())
+                for feeds_, b in ((f, batches[0]), (f, batches[1]))]
+            c.flush()
+            par.append((ls, c.store.get_data(c.table)))
+            e.close()
+        reset_launches(*kmods)      # the parity steps are not the path's
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(par[0][0],
+                                                           par[1][0]))
+        tab_err = float(np.max(np.abs(par[0][1] - par[1][1])))
+        if not loss_err <= CTR_LOSS_RTOL or not np.allclose(
+                par[0][1], par[1][1], rtol=CTR_TABLE_RTOL,
+                atol=CTR_TABLE_ATOL):
+            raise AssertionError(f"phase 46 (b) {model}: card vs CPU loss "
+                                 f"{loss_err}, table {tab_err}")
+        p50 = float(np.percentile(ms, 50))
+        report[model] = {"losses": losses, "step_ms_p50": p50,
+                         "busy_ms": busy, "idle_share": 1.0 - busy / p50,
+                         "card_vs_cpu_loss_rel_err": loss_err,
+                         "card_vs_cpu_table_max_abs_err": tab_err}
+    return report, launches
+
+
+def cs_failover(ht, emb, seg, metrics, kmods, device, reps, ports, dstore,
+                tids, weights, table0, ps_p50):
+    """(c) bench.py's failover schedule on WDL over the replicated store
+    (see the module docstring); ``ps_p50``: phase 43's unreplicated
+    two-shard step p50, reported beside this one's.  Returns (report,
+    launches, the trained executor's weights)."""
+    from hetu_tpu_torch.tools import ps_fsck
+    batches = ctr_batches(ht)
+    ends = [("127.0.0.1", p) for p in ports]
+
+    def run(tid, chaos):
+        dstore.set_data(tid, table0)
+        feeds, ex, cache = ps_wdl(ht, dstore, tid, "vlru_dev", weights,
+                                  device)
+        losses, ms, failed_over, checks = [], [], [], {}
+        for step in range(FO_STEPS):
+            before = metrics.fault_counts().get("ps_failover_promoted", 0)
+            t0 = time.perf_counter()
+            losses.append(float(ex.run("train", feed_dict=dict(zip(
+                feeds, batches[step % len(batches)])))[0].asnumpy()))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if metrics.fault_counts().get("ps_failover_promoted",
+                                          0) > before:
+                failed_over.append(step)
+            if not chaos:
+                continue
+            if step == FO_KILL - 1:
+                reps.kill("r1")               # shard 1's primary
+            elif step == FO_KILL:
+                # ops relaunch a standby at the dead rank's endpoint; the
+                # executor's re-replication tick attaches it
+                reps.go("s1")
+            elif step == FO_STEPS - 5:
+                # the whole cluster is up again: redundancy restored
+                checks["fsck_before_second_kill"] = ps_fsck.fsck(
+                    ends, FO_TABLES, replication=2)
+            elif step == FO_STEPS - 4:
+                reps.kill("r2")               # the promoted ex-backup
+        n = _launched(emb, seg)
+        rows = {"losses": losses, "ms": ms, "failover_steps": failed_over,
+                "launches": n, **checks}
+        return rows, ex, cache
+
+    os.environ.pop("HETU_PS_REREPLICATE_EVERY", None)
+    reset_launches(*kmods)
+    base, ex, _ = run(tids[0], False)
+    ex.close()
+    metrics.reset_faults()
+    os.environ["HETU_PS_REREPLICATE_EVERY"] = "1"
+    reset_launches(*kmods)
+    try:
+        killed, ex, cache = run(tids[1], True)
+    finally:
+        os.environ.pop("HETU_PS_REREPLICATE_EVERY", None)
+    faults = dict(metrics.fault_counts())
+    trained = ex.return_tensor_values()
+    cache.flush()
+    ex.close()
+    launches = {}
+    for r in (base, killed):
+        if any(v != FO_STEPS for v in r["launches"].values()):
+            raise AssertionError(f"phase 46 (c): B4 / B5 launches "
+                                 f"{r['launches']} != {FO_STEPS}")
+        _add(launches, r["launches"])
+    if killed["losses"] != base["losses"]:
+        raise AssertionError(f"phase 46 (c): losses through the kills "
+                             f"{killed['losses']} != uninterrupted "
+                             f"{base['losses']}")
+    if killed["failover_steps"] != [FO_KILL, FO_STEPS - 3] \
+            or base["failover_steps"] or not faults.get(
+                "ps_failover_promoted"):
+        raise AssertionError(f"phase 46 (c): failover steps "
+                             f"{killed['failover_steps']} (uninterrupted "
+                             f"{base['failover_steps']}), faults {faults}")
+    pre = killed["fsck_before_second_kill"]
+    if not pre["ok"]:
+        raise AssertionError(f"phase 46 (c): fsck before the second kill: "
+                             f"{pre}")
+    # the second standby takes rank 2's place; the repair tick's work done
+    # by hand, then fsck --verify on the whole live cluster
+    reps.go("s2")
+    repaired = dstore.maybe_re_replicate()
+    code = ps_fsck.main(["--endpoints", ",".join(f"{h}:{p}" for h, p in ends),
+                         "--tables", str(FO_TABLES), "--verify"])
+    post = ps_fsck.fsck(ends, FO_TABLES, replication=2)
+    if code != 0 or not post["ok"] or not repaired:
+        raise AssertionError(f"phase 46 (c): fsck --verify after the "
+                             f"relaunch exit {code}: {post}")
+    ms = np.asarray(base["ms"][1:])
+    p50 = float(np.percentile(ms, 50))
+    bound_ms = FO_RPC["rpc_timeout"] * 1e3 + FO_HB_DEADLINE_MS
+    report = {
+        "losses": base["losses"], "loss_parity": "bit-equal",
+        "failover_steps": killed["failover_steps"],
+        "failover_step_ms": [killed["ms"][s]
+                             for s in killed["failover_steps"]],
+        "recovery_bound_ms": bound_ms,
+        "replicated_step_ms_p50": p50,
+        "unreplicated_two_shard_step_ms_p50_phase43": ps_p50,
+        "killed_run_step_ms": killed["ms"],
+        "fault_counters": faults,
+        "fsck_before_second_kill": {k: pre[k] for k in (
+            "ok", "serving_ranks", "retries_used")},
+        "fsck_after_relaunch": {k: post[k] for k in (
+            "ok", "serving_ranks", "retries_used")},
+        "serving_epochs": {s: [v["epoch"] for v in e.values()]
+                           for s, e in post["epochs"].items()}}
+    return report, launches, trained
+
+
+def cs_serving(ht, metrics, device, reps, dstore, tid, trained):
+    """(d) The trained weights behind ``ServingRouter(refresh_every_batches
+    =CS_REFRESH_EVERY)`` over a read-only ``DistCacheTable`` on the
+    replicated store, a writer pushing meanwhile; a primary killed
+    mid-serving; a checked wave against a direct forward on freshly
+    pulled rows; two cells each serving its own wave."""
+    import threading
+    d, s, _ = ht.synthetic_criteo_skewed(
+        CS_SERVE_REQS + CS_CHECK_REQS + 2 * CS_CELL_REQS, vocab=CTR_VOCAB,
+        seed=46)
+
+    def serving(cache):
+        dense = ht.placeholder_op("dense")
+        sparse = ht.placeholder_op("sparse", dtype=np.int64)
+        y_ = ht.placeholder_op("y")
+        emb_n = ht.ps_embedding_lookup_op(cache, sparse, width=CTR_DIM)
+        _, prob = ht.models.ctr._wdl_head(emb_n, dense, y_, CS_BUCKET,
+                                          CTR_DIM)
+        iex = ht.InferenceExecutor([prob], weights=trained,
+                                   buckets=(CS_BUCKET,), device=device,
+                                   strict=True)
+        return dense, sparse, iex
+
+    def reqs(dense, sparse, lo, n):
+        return [{dense: d[i], sparse: s[i]} for i in range(lo, lo + n)]
+
+    cache = ht.DistCacheTable(dstore, tid, limit=max(CTR_VOCAB // 10, 256),
+                              policy="lru", read_only=True)
+    dense, sparse, iex = serving(cache)
+    metrics.reset_serve_counts()
+    metrics.reset_faults()
+    router = ht.ServingRouter(iex, max_batch=CS_BUCKET,
+                              max_wait_ms=CS_WAIT_MS,
+                              queue_limit=CS_SERVE_REQS,
+                              refresh_every_batches=CS_REFRESH_EVERY)
+    stop = threading.Event()
+    pushes = [0]
+
+    def writer():
+        rng = np.random.RandomState(47)
+        while not stop.is_set():
+            keys = rng.randint(0, CTR_VOCAB, 256)
+            dstore.push(tid, keys, (rng.randn(256, CTR_DIM) * 1e-3)
+                        .astype(np.float32))
+            pushes[0] += 1
+            time.sleep(0.002)
+
+    wave = reqs(dense, sparse, 0, CS_SERVE_REQS)
+    # the bucket's scatter plan (shape inference at two batch sizes) is
+    # made at the first call: timed apart, before the wave
+    t = time.perf_counter()
+    iex.infer({k: v[None] for k, v in wave[0].items()})
+    first_call_s = time.perf_counter() - t
+    got, lat = [None] * len(wave), [None] * len(wave)
+    killed = threading.Event()
+
+    def client(k):
+        for i in range(k, len(wave), CS_CLIENTS):
+            if i >= len(wave) // 2 and not killed.is_set() and k == 0:
+                killed.set()
+                reps.kill("s1")       # shard 1's primary, mid-serving
+            t = time.perf_counter()
+            got[i] = router.submit(wave[i]).result(timeout=300)[0]
+            lat[i] = (time.perf_counter() - t) * 1e3
+
+    wt = threading.Thread(target=writer, daemon=True)
+    wt.start()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(CS_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    stop.set()
+    wt.join(timeout=60)
+    answered = sum(g is not None for g in got)
+    served = metrics.serve_counts()
+    faults = dict(metrics.fault_counts())
+    if answered != len(wave) or not all(np.all(np.isfinite(g)) for g in got):
+        raise AssertionError(f"phase 46 (d): {answered} of {len(wave)} "
+                             f"requests answered")
+    if not faults.get("ps_failover_promoted") \
+            or not served.get("serve_failovers"):
+        raise AssertionError(f"phase 46 (d): the kill was not absorbed by "
+                             f"a failover: {faults} {served}")
+    # the writer has stopped: after a sweep every cached row is the
+    # store's, and a wave must equal a direct forward on pulled rows
+    refreshed = iex.refresh_embeddings()
+    cache.refresh_join(timeout=60)
+    check = reqs(dense, sparse, CS_SERVE_REQS, CS_CHECK_REQS)
+    futs = [router.submit(r) for r in check]
+    served_rows = np.stack([f.result(timeout=300)[0] for f in futs])
+    router.close()
+    rows_ph = ht.placeholder_op("rows")
+    dn, yy = ht.placeholder_op("dense"), ht.placeholder_op("y")
+    _, direct_prob = ht.models.ctr._wdl_head(rows_ph, dn, yy, CS_BUCKET,
+                                             CTR_DIM)
+    direct = ht.InferenceExecutor([direct_prob], weights=trained,
+                                  buckets=(CS_BUCKET,), device=device,
+                                  strict=True)
+    ids = np.stack([r[sparse] for r in check])
+    want = direct.infer({rows_ph: dstore.pull(tid, ids),
+                         dn: np.stack([r[dense] for r in check])})[0]
+    err = float(np.max(np.abs(served_rows - want)))
+    if not err <= SP_ROW_ATOL:
+        raise AssertionError(f"phase 46 (d): served vs a direct forward on "
+                             f"pulled rows: max err {err}")
+    # two cells, each its own cache, router and wave
+    cm = ht.CellMap({"west": [0], "east": {"ranks": [1, 2],
+                                           "replicas": 1}})
+    cells, lo = {}, CS_SERVE_REQS + CS_CHECK_REQS
+    for name in ("west", "east"):
+        c = ht.DistCacheTable(dstore, tid, limit=max(CTR_VOCAB // 10, 256),
+                              policy="lru", read_only=True)
+        dn_, sp_, iex_ = serving(c)
+        head = ht.CellHead(name, dstore, ht.ServingRouter(
+            iex_, max_batch=CS_BUCKET, max_wait_ms=CS_WAIT_MS,
+            queue_limit=CS_CELL_REQS), c)
+        wave_reqs = reqs(dn_, sp_, lo, CS_CELL_REQS)
+        lo += CS_CELL_REQS
+        head.warm(np.stack([r[sp_] for r in wave_reqs]))
+        t = time.perf_counter()
+        resp, stats = head.serve_wave(wave_reqs, timeout=300)
+        wave_s = time.perf_counter() - t
+        up = head.catch_up()
+        head.close()
+        if stats["answered"] != CS_CELL_REQS or stats["rejections"]:
+            raise AssertionError(f"phase 46 (d) cell {name}: {stats}")
+        cells[name] = {"ranks": cm.ranks(name), "wave": stats,
+                       "wave_s": wave_s, "catch_up": up}
+    ms = np.asarray(lat)
+    return {"requests": len(wave), "bucket": CS_BUCKET,
+            "clients": CS_CLIENTS, "writer_pushes": pushes[0],
+            "first_call_s": first_call_s,
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "requests_per_s": len(wave) / wall,
+            "refreshed_rows_router": served.get("serve_emb_refresh_rows", 0),
+            "refreshed_rows_final_sweep": refreshed,
+            "serve_failovers": served.get("serve_failovers", 0),
+            "checked_wave_max_abs_err": err, "cells": cells,
+            "cache": cache.perf()}
+
+
+def phase_ctr_serving(ht, emb, seg, metrics, kmods, pm, ps_p50=None,
+                      device="cuda"):
+    """Phase 46 (see the module docstring); ``ps_p50``: phase 43's
+    two-shard step p50.  Returns (B4 / B5 launches by kernels-line name,
+    the bf16 step's shape rows of B4 and B5)."""
+    t_phase = time.perf_counter()
+    report = {"card": card_line()}
+    from hetu_tpu_torch.ps.dist_store import DistributedStore
+    ports = _free_ports(FO_WORLD)
+    # rank 0's server binds first (rank 2's replica tables land on it);
+    # the shard processes start now and (a) and (b) run meanwhile
+    dstore = DistributedStore(0, FO_WORLD, [("127.0.0.1", p) for p in ports],
+                              port=ports[0], replication=2, **FO_RPC)
+    reps = _Replicas(ports)
+    launches = {}
+    try:
+        report["a_precision"], n, rows = cs_precision(
+            ht, emb, seg, metrics, kmods, pm, device)
+        _add(launches, n)
+        log(f"[ctr-serve] (a) {json.dumps(report['a_precision'])}")
+        report["b_models"], n = cs_models(ht, emb, seg, metrics, kmods, pm,
+                                          device)
+        _add(launches, n)
+        log(f"[ctr-serve] (b) {json.dumps(report['b_models'])}")
+        tids = [dstore.init_table(CTR_VOCAB, CTR_DIM, opt="sgd", lr=0.01,
+                                  seed=0, init_scale=0.01)
+                for _ in range(FO_TABLES)]
+        natives = [reps.wait(k, "ready") for k in ("r1", "r2")]
+        if not (all(natives) and dstore.local.native):
+            raise AssertionError("phase 46: the stores' native library is "
+                                 "not loaded")
+        local = ht.EmbeddingStore()
+        lt = local.init_table(CTR_VOCAB, CTR_DIM, opt="sgd", lr=0.01,
+                              seed=0, init_scale=0.01)
+        _, ex0, _ = ps_wdl(ht, local, lt, "vlru_dev", None, device)
+        weights = ex0.return_tensor_values()
+        ex0.close()
+        report["c_failover"], n, trained = cs_failover(
+            ht, emb, seg, metrics, kmods, device, reps, ports, dstore, tids,
+            weights, local.get_data(lt), ps_p50)
+        _add(launches, n)
+        log(f"[ctr-serve] (c) {json.dumps(report['c_failover'])}")
+        report["d_serving"] = cs_serving(ht, metrics, device, reps, dstore,
+                                         tids[1], trained)
+        log(f"[ctr-serve] (d) {json.dumps(report['d_serving'])}")
+    finally:
+        dstore.close()
+        reps.close()
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[ctr-serve] launches {json.dumps(launches)} card {report['card']} "
+        f"phase 46 in {report['phase_s']:.1f} s")
+    return launches, rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script runs on the "
@@ -7427,8 +8102,8 @@ def main():
         dlaunches[name] = dlaunches.get(name, 0) + n
 
     # -- 43. the sharded parameter server on Wide & Deep ----------------------------
-    for name, n in phase_ps_sharded(ht, emb, seg, metrics, kmods,
-                                    pm).items():
+    ps_launches, ps_p50 = phase_ps_sharded(ht, emb, seg, metrics, kmods, pm)
+    for name, n in ps_launches.items():
         dlaunches[name] = dlaunches.get(name, 0) + n
 
     # -- 44. the remaining transformer families --------------------------------
@@ -7441,7 +8116,13 @@ def main():
     for name, n in slaunches.items():
         dlaunches[name] = dlaunches.get(name, 0) + n
 
-    # -- 46. result lines ---------------------------------------------------------
+    # -- 46. the replicated parameter server and CTR serving ----------------------
+    claunches46, crows = phase_ctr_serving(ht, emb, seg, metrics, kmods, pm,
+                                           ps_p50)
+    for name, n in claunches46.items():
+        dlaunches[name] = dlaunches.get(name, 0) + n
+
+    # -- 47. result lines ---------------------------------------------------------
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
@@ -7545,8 +8226,9 @@ def main():
                          launches=calls.count(dtype, cline["n"],
                                               cline["src_rows"]))))
     # the flash kernels of the data-parallel paths (phases 38-40) and of
-    # phases 41, 42, 44 and 45, and the B4 and B5 launches of phases 41-43,
-    # by kernels-line name; phase 45's decode merges beside phase 3's
+    # phases 41, 42, 44 and 45, and the B4 and B5 launches of phases 41-43
+    # and 46, by kernels-line name; phase 45's decode merges beside phase
+    # 3's
     for e in kernels:
         e["launches"] += dlaunches.pop(e["name"], 0)
     kernels[0]["merge_launches"] += smerges
@@ -7565,6 +8247,11 @@ def main():
             e["max_abs_err"] = max(e["max_abs_err"], r["max_abs_err"])
     for name, n in fdpad.items():
         by_name[name]["dpad_launches"] = n
+    # phase 46's bf16 step: B4 and B5 at its float32 rows' shapes
+    for name, r in crows.items():
+        by_name[name].setdefault("shapes", []).append(dict(r))
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
+                                           r["max_abs_err"])
     if dlaunches:
         raise AssertionError(f"launches with no kernels-line entry: "
                              f"{dlaunches}")

@@ -108,7 +108,8 @@ from .models import (BertConfig, GPT2Config, LongformerConfig, XLNetConfig,
                      synthetic_lm_batch, synthetic_mlm_batch,
                      synthetic_mlm_ids, synthetic_plm_batch,
                      synthetic_seq2seq_batch, T5Config, t5_seq2seq_graph,
-                     wdl_criteo, xlnet_plm_graph,
+                     wdl_criteo, deepfm_criteo, dcn_criteo,
+                     validate_cache_parity, xlnet_plm_graph,
                      BartConfig, BigBirdConfig, CLIPConfig, MAEConfig,
                      ReformerConfig, SwinConfig, TransfoXLConfig,
                      TransformerConfig, ViTConfig, bart_seq2seq_graph,
@@ -136,8 +137,9 @@ from .ops import (BatchNormOp, array_reshape_op, avg_pool2d_op,
                   softmaxcrossentropy_sparse_op, tanh_op, transpose_op)
 from .ps import (CacheSparseTable, DistCacheTable, EmbeddingStore,
                  PSEmbeddingLookupOp, default_store, ps_embedding_lookup_op)
-from .serving import (CLASSES, DecodeEngine, DecodeRouter, DecodeStream,
-                      FrontDoor, InferenceExecutor, PrefixKVStore,
+from .serving import (CLASSES, CellHead, CellMap, DecodeEngine,
+                      DecodeRouter, DecodeStream, FrontDoor,
+                      InferenceExecutor, PrefixKVStore,
                       ServeRejected, ServingRouter, SLOAutoscaler,
                       default_buckets)
 from .weights import params_from_named_arrays

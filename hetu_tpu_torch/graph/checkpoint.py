@@ -488,13 +488,34 @@ class CheckpointMixin:
     # -- auto-save, resume, preemption ------------------------------------------
 
     def _post_step(self, training):
-        """Step-boundary hooks: the periodic auto-save and a deferred
-        preemption save."""
-        if training and self.auto_save_dir and self.auto_save_every > 0 \
-                and self.step_counter % self.auto_save_every == 0:
-            self._auto_save()
+        """Step-boundary hooks: the periodic auto-save, the PS redundancy
+        repair tick and a deferred preemption save."""
+        if training:
+            if self.auto_save_dir and self.auto_save_every > 0 \
+                    and self.step_counter % self.auto_save_every == 0:
+                self._auto_save()
+            self._tick_re_replication()
         if self._preempt_signum is not None:
             self._handle_preemption()
+
+    def _tick_re_replication(self):
+        """Every ``HETU_PS_REREPLICATE_EVERY`` training steps (0, the
+        default, is off): each replicated store the graphs' PS embeddings
+        use tries to restore the backup of a shard that failed over onto
+        its relaunched holder; a still-dead target defers
+        (``ps_re_replicate_deferred``) to the next tick."""
+        every = int(os.environ.get("HETU_PS_REREPLICATE_EVERY", "0"))
+        if every <= 0 or self.step_counter % every != 0:
+            return
+        seen = set()
+        for se in self.subexecutors.values():
+            for node in getattr(se, "ps_nodes", []):
+                store = getattr(node, "store", None)
+                if store is None or id(store) in seen \
+                        or not hasattr(store, "maybe_re_replicate"):
+                    continue
+                seen.add(id(store))
+                store.maybe_re_replicate()
 
     def _auto_save(self):
         """One checkpoint of the current step under ``auto_save_dir``

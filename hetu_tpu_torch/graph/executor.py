@@ -52,8 +52,11 @@ rounded.  Fetched values and state updates leave the step as float32;
 the optimizer's state and update stay float32, on the masters.  The MoE
 sparse dispatch keeps the JAX package's dtypes (bf16 expert buffers,
 float32 gate weights and combine output), so its row gather runs in both
-dtypes within one step.  Not with PS embeddings (the cache slab and its
-kernels are float32 only): refused by name.
+dtypes within one step.  A PS embedding's rows stay float32 leaves and
+are cast inside the differentiated function, as the JAX package casts
+them: their gradient reaches the push and the device cache's segment sum
+(B5) as float32, and the slab, its gather (B4) and the store stay
+float32.
 
 Data parallelism (``dist_strategy=DataParallel()``, over the
 ``torch.distributed`` group the caller initialised): the JAX package runs
@@ -120,6 +123,10 @@ state updates threaded from block to block; M = 1 is the plain step.
 Rematerialization (``remat=``): ``parallel/remat.py``.  Checkpoints in
 the ``hetu_tpu.ckpt.v1`` format, auto-save, ``resume`` and the
 preemption save: ``graph/checkpoint.py``.
+
+``HETU_PS_REREPLICATE_EVERY`` steps (0, off, by default): each
+replicated ``DistributedStore`` under the graphs' PS embeddings tries to
+restore a failed-over shard's backup (``maybe_re_replicate``).
 
 Not ported, refused by name: a strategy other than ``DataParallel``,
 ``mesh``, PS embeddings together with ``dist_strategy``, ``plan``,
@@ -418,10 +425,6 @@ class SubExecutor:
         if len(losses) > 1:
             raise ValueError("multiple distinct losses in one subgraph")
         self.loss_node = next(iter(losses)) if losses else None
-        if executor.compute_dtype is not None and self.ps_nodes:
-            raise NotImplementedError(
-                f"Executor(compute_dtype=...) with {self.ps_nodes[0]} in "
-                f"subgraph {name!r}: PS embeddings take float32 only")
         #: the variables the subgraph reads
         self.var_nodes = [n for n in self.topo
                           if isinstance(n, PlaceholderOp) and n.is_variable]
@@ -573,7 +576,7 @@ class SubExecutor:
                 env = lower_forward(
                     self.fwd_topo, ctx,
                     lambda n: feeds[n] if n in feeds
-                    else ps_vals[n] if n in ps_vals
+                    else self._low(ps_vals[n]) if n in ps_vals
                     else self._low(var(n)))
         for node, val in updates.items():
             ex.var_values[node] = self._high(val.detach())
@@ -645,8 +648,9 @@ class SubExecutor:
         def resolve(node):
             if node in feeds:
                 return feeds[node]
-            # the cast of a trainable variable is differentiated
-            # through: its gradient reaches the master as float32
+            # the cast of a trainable variable, or of a PS embedding's
+            # float32 rows, is differentiated through: the gradient
+            # reaches the master, or the row push and B5, as float32
             return self._low(leaves[node] if node in leaves else var(node))
 
         with torch.enable_grad():

@@ -13,7 +13,8 @@ from .common import (masked_lm_loss, merge_heads, patchify,
                      post_ln_encoder_stack, pre_ln_block, split_heads)
 from .cnn import (alexnet, cnn_3_layers, lenet, logreg, mlp, resnet,
                   resnet18, resnet34, vgg, vgg16, vgg19)
-from .ctr import synthetic_criteo, synthetic_criteo_skewed, wdl_criteo
+from .ctr import (dcn_criteo, deepfm_criteo, synthetic_criteo,
+                  synthetic_criteo_skewed, validate_cache_parity, wdl_criteo)
 from .t5 import (T5Config, synthetic_seq2seq_batch, t5_decoder, t5_encoder,
                  t5_seq2seq_graph)
 from .longformer import (LongformerConfig, LongformerSelfAttention,

@@ -2,8 +2,10 @@
 host embedding store on the native C++ core, the native HET cache
 (``CacheSparseTable``), the sharded store over TCP (``DistributedStore``,
 ``StoreServer``), and the vectorized HET cache (``DistCacheTable``) with
-its device-resident slab on the card.  Shard replication and failover are
-not ported (refused by name in ``dist_store``)."""
+its device-resident slab on the card or as a read-only serving cache.
+``replication=2`` keeps a ring backup of every shard with client-side
+failover, fencing epochs and re-replication; ``tools.ps_fsck`` checks a
+live cluster."""
 from .store import EmbeddingStore, default_store
 from .cstable import CacheSparseTable
 from .dist_store import DistCacheTable, DistributedStore, StoreServer

@@ -1,21 +1,21 @@
-"""The sharded parameter server and the HET bounded-staleness embedding
-cache (twin of ``hetu_tpu/ps/dist_store.py``).
+"""The sharded, replicated parameter server and the HET bounded-staleness
+embedding cache (twin of ``hetu_tpu/ps/dist_store.py``).
 
 **The sharded store.**  Every process of a ``world`` owns the keys with
 ``key % world == rank``: a :class:`DistributedStore` keeps its shard in a
 local :class:`~hetu_tpu_torch.ps.store.EmbeddingStore` (the native core),
 answers for it over TCP through its :class:`StoreServer` thread, and
-routes the keys it does not own to their owner over persistent sockets
-in length-prefixed binary frames (int64 keys, float32 rows; no pickle).
-The frame layout is the JAX package's byte for byte — an 8-byte length,
-then the header ``<BiqdIqqqq`` (op, table, nkeys, lr, payload width,
-client rank, client sequence number, shard, fencing epoch), the keys and
-the payload — with the epoch sent as the JAX package sends it without
-replication, so either package's client talks to either package's
-server.  Transport discipline (ps-lite ``resender.h``): every socket op
-has a timeout; a failed op drops the connection and retries on a fresh
-one after a decorrelated-jitter backoff with the SAME (client, seq), and
-the server's dedup window applies a retried push or clock tick once;
+routes the keys it does not own to the rank serving them over persistent
+sockets in length-prefixed binary frames (int64 keys, float32 rows; no
+pickle).  The frame layout and the opcode numbers are the JAX package's
+byte for byte — an 8-byte length, then the header ``<BiqdIqqqq`` (op,
+table, nkeys, lr, payload width, client rank, client sequence number,
+shard, fencing epoch), the keys and the payload — so either package's
+client talks to either package's server, and a ring may mix them.
+Transport discipline (ps-lite ``resender.h``): every socket op has a
+timeout; a failed op drops the connection and retries on a fresh one
+after a decorrelated-jitter backoff with the SAME (client, seq), and the
+server's dedup window applies a retried push or clock tick once;
 exhausted retries raise a RuntimeError naming the peer.  A frame length
 outside ``[0, HETU_MAX_FRAME_MB]`` drops that connection only.
 
@@ -24,19 +24,39 @@ The client deduplicates keys with ``np.unique`` before the shard fanout
 hands over, skips it), fuses a push and a pull of one peer into one
 ``OP_PUSH_PULL`` frame, pushes asynchronously on a bounded queue
 (``push_async`` / ``flush``, ASP), and keeps SSP clocks, in independent
-channels, and heartbeats on rank 0 (the reference's scheduler role).
+channels, and heartbeats on shard 0 (the reference's scheduler role).
 
-Not ported, refused by name (they come with the next slice): shard
-replication (``replication=2``, ``HETU_PS_REPLICATION=2``), the standby
-relaunch (``standby``, ``HETU_PS_STANDBY=1``), re-replication
-(``re_replicate``, ``re_replicate_async``, ``maybe_re_replicate``), the
-state digest (``table_checksum``) and fencing epochs (``shard_epoch``);
-the server answers the replication opcodes (``OP_REPLICATE`` through
-``OP_EPOCH``) with an error naming them.  Nor the chaos hooks.
+**Replication** (``replication=2``, ``HETU_PS_REPLICATION=2``): shard
+``s`` keeps a bitwise-identical backup on rank ``(s + 1) % world``.  The
+serving server mirrors every mutating frame (``OP_PUSH``, the push half
+of ``OP_PUSH_PULL``, ``OP_SET_DATA``, and for shard 0 the heartbeats and
+SSP clocks) to the backup as ``OP_REPLICATE`` before it acks, under one
+lock, so the backup applies the op-log in the primary's order, Adam
+moments included.  The forwarded frame keeps the original (client, seq),
+so the backup's dedup window absorbs the retry of a push the primary
+acked and then died on.  A client whose RPC to a shard's serving rank
+exhausts its retries promotes the backup (``OP_PROMOTE``, idempotent),
+re-routes and resends the same frame (``ps_failover``,
+``ps_failover_promoted``).  :meth:`DistributedStore.re_replicate`
+restores redundancy onto a relaunched holder (``standby=True``,
+``HETU_PS_STANDBY=1``): ``OP_INIT`` replica tables, an ``OP_SYNC``
+snapshot streamed as ``OP_SYNC_PUT`` chunks of the store's save file,
+then the op-log buffered meanwhile.
+
+**Fencing.**  Every shard carries a monotonic epoch, stamped on every
+replication-relevant frame; promotion bumps it (``ps_epoch_bumps``).  A
+frame of an older lineage is refused with :class:`EpochFenced`
+(``ps_epoch_refused``) before it touches the table, and the refusal
+teaches the sender the newer epoch; a healed stale ex-primary demotes
+itself on first contact with the new lineage (``ps_demotions``) and must
+be synced before it can be promoted again.  Reads stay unfenced.
+``OP_CHECKSUM`` (``state_digest``) and ``OP_EPOCH`` are what
+:mod:`hetu_tpu_torch.tools.ps_fsck` reads.  The chaos hooks are not
+ported.
 
 **The cache** (``_segment_sum``, ``_DevLookup``, :class:`DistCacheTable`)
-works over either store; its read-only serving mode (``read_only``,
-``refresh_every``) is not ported.
+works over either store, in training mode or as a read-only serving
+cache (``read_only``, ``refresh_every``).
 """
 from __future__ import annotations
 
@@ -44,10 +64,13 @@ import itertools
 import os
 import queue
 import random
+import re
 import socket
 import struct
+import tempfile
 import threading
 import time
+import warnings
 from collections import OrderedDict
 
 import numpy as np
@@ -56,7 +79,9 @@ import torch
 from ..context import resolve_device
 from ..metrics import record_cache, record_fault, record_rpc
 from .opcodes import defop as _defop, frame_repr, op_name
-from .store import EmbeddingStore
+from .store import _OPT_IDS, _V3_CHUNK, EmbeddingStore
+
+_OPT_NAMES = {v: k for k, v in _OPT_IDS.items()}
 
 OP_PULL = _defop("OP_PULL", 1)
 OP_PUSH = _defop("OP_PUSH", 2)
@@ -71,8 +96,9 @@ OP_ALIVE = _defop("OP_ALIVE", 10)
 #: fused push + pull (reference PsfType kSDPushPull): the keys carry
 #: ``[npush, push_keys..., pull_keys...]``, the payload the grads
 OP_PUSH_PULL = _defop("OP_PUSH_PULL", 11)
-#: the replication plane: registered for the wire's sake, answered with an
-#: error naming them (not ported)
+#: the replication plane: mirror a mutating frame to the backup; promote
+#: a backup; create a replica table; set a shard's slab; the snapshot of
+#: a re-replication; a copy's state digest; a copy's (epoch, serving)
 OP_REPLICATE = _defop("OP_REPLICATE", 12)
 OP_PROMOTE = _defop("OP_PROMOTE", 13)
 OP_INIT = _defop("OP_INIT", 14)
@@ -81,12 +107,10 @@ OP_SYNC = _defop("OP_SYNC", 16)
 OP_SYNC_PUT = _defop("OP_SYNC_PUT", 17)
 OP_CHECKSUM = _defop("OP_CHECKSUM", 18)
 OP_EPOCH = _defop("OP_EPOCH", 19)
-_NOT_PORTED_OPS = frozenset((OP_REPLICATE, OP_PROMOTE, OP_INIT, OP_SYNC,
-                             OP_SYNC_PUT, OP_CHECKSUM, OP_EPOCH))
 
 # op, table, nkeys, lr, payload width, client rank, client sequence number,
-# shard (-1: the receiving server's own), fencing epoch (0 without
-# replication).  (client, seq) lets the server apply a retried push or
+# shard (-1: the receiving server's own), the sender's fencing epoch for
+# that shard.  (client, seq) lets the server apply a retried push or
 # clock tick once.
 _HDR = struct.Struct("<BiqdIqqqq")
 #: retried pushes are remembered per client this many ops back
@@ -100,7 +124,8 @@ MAX_FRAME_BYTES = int(float(os.environ.get("HETU_MAX_FRAME_MB",
 
 def _next_backoff(base, prev, cap, rng):
     """Decorrelated-jitter retry delay: ``min(cap, uniform(base,
-    3*prev))``, so a fleet of retrying workers spreads out."""
+    3*prev))``, so a fleet of clients retrying a killed primary spreads
+    out instead of stampeding the promoted backup."""
     return min(cap, rng.uniform(base, 3.0 * max(base, prev)))
 
 
@@ -149,6 +174,33 @@ class FrameError(ConnectionError):
     client retries on a fresh one."""
 
 
+class EpochFenced(RuntimeError):
+    """A replication-relevant frame refused by the fencing epoch.
+    ``current`` is the refusing side's epoch for the shard, ``serving``
+    whether it still serves it: a serving refuser means "adopt my epoch
+    and retry here", a non-serving one "adopt it and re-route to the
+    shard's other holder".  The message carries both in the JAX
+    package's parseable form, since the refusal usually crosses the wire
+    as a server error string."""
+
+    def __init__(self, shard, current, serving):
+        self.shard, self.current, self.serving = \
+            int(shard), int(current), bool(serving)
+        super().__init__(
+            f"shard {shard} epoch_fence cur={int(current)} "
+            f"serving={int(bool(serving))} — frame from a different "
+            f"lineage refused")
+
+
+def _fence_info(err):
+    """(current epoch, refuser still serving) from an epoch-fence refusal,
+    local or in its wire string form; None for any other error."""
+    if isinstance(err, EpochFenced):
+        return err.current, err.serving
+    m = re.search(r"epoch_fence cur=(\d+) serving=([01])", str(err))
+    return (int(m.group(1)), bool(int(m.group(2)))) if m else None
+
+
 def _recv_frame(sock):
     (n,) = struct.unpack("<q", _recv_exact(sock, 8))
     if n < 0 or n > MAX_FRAME_BYTES:
@@ -159,35 +211,25 @@ def _recv_frame(sock):
     return _recv_exact(sock, n)
 
 
-def _refuse_replication(replication, standby):
-    if replication is None:
-        replication = int(os.environ.get("HETU_PS_REPLICATION", "1"))
-    if int(replication) == 2:
-        raise NotImplementedError(
-            "replication=2 (a live ring backup of every shard, "
-            "HETU_PS_REPLICATION=2) is not ported: the port's sharded store "
-            "keeps one copy")
-    if not 1 <= int(replication) <= 2:
-        raise ValueError(f"replication={replication} unsupported: 1 (off) "
-                         f"or 2 (primary + one ring backup)")
-    if standby is None:
-        standby = os.environ.get("HETU_PS_STANDBY", "") == "1"
-    if standby:
-        raise NotImplementedError(
-            "standby=True (HETU_PS_STANDBY=1, a relaunched replacement "
-            "rank) is not ported: it needs replication")
-
-
 class StoreServer:
     """Serves one process's shard over TCP (the reference server role):
     an accept loop, a handler thread a connection, the ``(client, seq)``
     dedup window for pushes and clock ticks, SSP clock vectors by
-    channel and the heartbeat table."""
+    channel and the heartbeat table.
+
+    With ``replication=2`` it also holds, and does not serve, a replica
+    of shard ``(rank - 1) % world``, kept bit-equal by the op-log its
+    primary forwards, and mirrors its own shard's mutations to rank
+    ``(rank + 1) % world`` before each ack.  A ``standby`` server (a
+    relaunched replacement) serves nothing until re-replication and a
+    promotion.  Forwards ride the owning :class:`DistributedStore`'s
+    transport, :attr:`rpc_fn`."""
 
     def __init__(self, local: EmbeddingStore, world: int, rank: int,
                  host="127.0.0.1", port=0, replication=1, standby=False):
-        _refuse_replication(replication, standby)
         self.local, self.world, self.rank = local, world, rank
+        self.replication = int(replication)
+        self.standby = bool(standby)
         self._ssp_lock = threading.Condition()
         self._clocks = {}          # channel -> per-worker clock vector
         self._hb = {}              # rank -> (monotonic last seen, step)
@@ -195,7 +237,39 @@ class StoreServer:
         self._applied = {}         # client -> OrderedDict of recent seqs
         self._applied_lock = threading.Lock()
         self._live_conns = set()
-        self._serving = {rank}
+        #: shard -> the store holding its rows here
+        self._stores = {rank: local}
+        self._ntables = {rank: 0}  # shard -> tables created
+        standby = bool(standby and self.replicable)
+        #: shards this server answers for; a standby starts with none
+        self._serving = set() if standby else {rank}
+        #: shards whose copy may be promoted: a standby's copy only once
+        #: an OP_SYNC snapshot has landed (its own init_table would give
+        #: the right table count with step-0 data)
+        self._promotable = set() if standby \
+            else {rank, (rank - 1) % world} if self.replicable else {rank}
+        #: shard -> the fencing epoch of the lineage our copy belongs to
+        self._epochs = {rank: 0}
+        #: leaf lock of the epoch map, never held across an RPC: a
+        #: primary holds _repl_lock across its forward, so the receive
+        #: side of a forward must never wait on the receiver's _repl_lock
+        self._epoch_lock = threading.Lock()
+        self._fwd_ok = {}          # shard -> live forwarding enabled
+        self._fence_probe = {}     # shard -> time of the last lineage probe
+        self._oplog = {}           # shard -> frames buffered during OP_SYNC
+        self._sync_parts = {}      # (shard, table) -> received chunks
+        #: apply + forward is one critical section: the backup sees the
+        #: op-log in the primary's apply order
+        self._repl_lock = threading.RLock()
+        #: set by the owning DistributedStore:
+        #: rpc_fn(peer, op, table, keys, payload=..., epoch=...)
+        self.rpc_fn = None
+        if self.replicable:
+            backup_of = (rank - 1) % world
+            self._stores[backup_of] = EmbeddingStore()
+            self._ntables[backup_of] = 0
+            self._epochs[backup_of] = 0
+            self._fwd_ok[rank] = True
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind((host, port))
@@ -206,20 +280,99 @@ class StoreServer:
                                         name=f"ps-accept-r{rank}")
         self._thread.start()
 
+    # -- replication topology ----------------------------------------------
+    @property
+    def replicable(self):
+        return self.replication >= 2 and self.world >= 2
+
     def serves(self, shard):
         """True iff this server answers for ``shard``."""
         return shard in self._serving
 
+    def holds(self, shard):
+        """True iff this server keeps a copy of ``shard``."""
+        return shard in self._stores
+
+    def epoch(self, shard):
+        """This server's fencing epoch for ``shard`` (0 if unheld)."""
+        return self._epochs.get(shard, 0)
+
+    def _adopt_epoch(self, shard, epoch):
+        """Advance ``shard``'s epoch to at least ``epoch``: a locked
+        max-merge, so racing adoptions never let the lower epoch win."""
+        with self._epoch_lock:
+            if epoch > self._epochs.get(shard, 0):
+                self._epochs[shard] = epoch
+
+    def _fence_or_adopt(self, shard, epoch, refuse_equal_if_serving=False):
+        """The replica plane's gate (OP_REPLICATE, OP_INIT, OP_SYNC_PUT):
+        refuse a frame of an older lineage (and an op-log forward at our
+        own epoch aimed at a copy we serve: one epoch has one primary);
+        adopt a newer epoch, demoting first if we still served the
+        shard."""
+        with self._epoch_lock:
+            cur = self._epochs.get(shard, 0)
+            if epoch < cur or (refuse_equal_if_serving and epoch == cur
+                               and shard in self._serving):
+                record_fault("ps_epoch_refused")
+                raise EpochFenced(shard, cur,
+                                  serving=shard in self._serving)
+        if epoch > cur:
+            if shard in self._serving:
+                self._demote(shard, epoch)
+            else:
+                self._adopt_epoch(shard, epoch)
+
+    def _demote(self, shard, new_epoch):
+        """Stop serving ``shard``: a newer lineage exists.  The copy stays
+        but is no longer promotable (it may hold writes the surviving
+        lineage never saw), and forwarding stops.  Idempotent."""
+        self._adopt_epoch(shard, new_epoch)
+        with self._repl_lock:
+            if shard not in self._serving:
+                return
+            self._serving.discard(shard)
+            self._promotable.discard(shard)
+            self._fwd_ok[shard] = False
+            record_fault("ps_demotions")
+
+    def _fence(self, shard, frame_epoch):
+        """The serving side's gate of a replication-relevant frame: equal
+        epochs pass; a newer frame epoch means we missed a promotion
+        (demote, refuse); an older one is a stale sender (refuse, and
+        teach it ours).  Runs before the (client, seq) registration, so a
+        refused frame retried at the right epoch still applies."""
+        with self._epoch_lock:
+            cur = self._epochs.get(shard, 0)
+        if frame_epoch == cur:
+            return
+        record_fault("ps_epoch_refused")
+        if frame_epoch > cur:
+            self._demote(shard, frame_epoch)
+            raise EpochFenced(shard, frame_epoch, serving=False)
+        raise EpochFenced(shard, cur, serving=shard in self._serving)
+
+    def register_table(self, shard):
+        """Bookkeeping of a table created directly on ``local``."""
+        with self._repl_lock:
+            self._ntables[shard] = self._ntables.get(shard, 0) + 1
+
+    def _fwd_target(self, shard):
+        """The other holder of ``shard``: its backup rank when we are its
+        home primary, its home rank when we are the promoted backup."""
+        return (shard + 1) % self.world if self.rank == shard else shard
+
     def _store_serving(self, shard):
         """(store, shard) serving ``shard`` (-1: our own), or an error the
-        client sees."""
+        client sees and fails over on: a stale route never reads a
+        possibly stale replica."""
         if shard < 0:
             shard = self.rank
         if shard not in self._serving:
             raise RuntimeError(
                 f"shard {shard} not served by rank {self.rank} "
                 f"(serving {sorted(self._serving)})")
-        return self.local, shard
+        return self._stores[shard], shard
 
     def _accept_loop(self):
         while not self._stop:
@@ -283,35 +436,384 @@ class StoreServer:
                 f"ssp_init(n_workers, channel={channel}) first")
         return v
 
+    # -- op-log forwarding ---------------------------------------------------
+    def _forward(self, shard, body):
+        """Mirror one applied mutating frame to ``shard``'s other holder,
+        under ``_repl_lock`` (the apply's critical section), before the
+        ack.  During an OP_SYNC transfer the frame is buffered for the
+        catch-up instead.  A transport failure degrades to unreplicated
+        serving until ``re_replicate``; an epoch-fence refusal means the
+        peer is a newer lineage: demote and refuse the client."""
+        log = self._oplog.get(shard)
+        if log is not None:
+            log.append(bytes(body))
+            return
+        if not self._fwd_ok.get(shard):
+            return
+        try:
+            if self.rpc_fn is None:
+                raise RuntimeError("replication transport not attached")
+            self.rpc_fn(self._fwd_target(shard), OP_REPLICATE, 0,
+                        np.asarray([shard], np.int64), payload=bytes(body),
+                        epoch=self._epochs.get(shard, 0))
+        except Exception as e:
+            fence = _fence_info(e)
+            if fence is not None:
+                self._demote(shard, fence[0])
+                raise EpochFenced(shard, fence[0], serving=False) from e
+            self._fwd_ok[shard] = False
+            record_fault("repl_forward_failed")
+            warnings.warn(
+                f"rank {self.rank}: op-log forward for shard {shard} to "
+                f"rank {self._fwd_target(shard)} failed "
+                f"({type(e).__name__}: {e}) — shard now serves "
+                f"UNREPLICATED until re_replicate()", RuntimeWarning)
+
+    def _probe_lineage(self, shard):
+        """While forwarding of ``shard`` is broken, probe its other
+        holder's epoch (at most every ``HETU_PS_FENCE_PROBE_S`` s, 5 by
+        default): a newer one means we were deposed while cut off —
+        demote and refuse the write in flight.  An unreachable peer keeps
+        the degraded but available serving."""
+        interval = float(os.environ.get("HETU_PS_FENCE_PROBE_S", "5"))
+        now = time.monotonic()
+        if now - self._fence_probe.get(shard, -1e9) < interval:
+            return
+        self._fence_probe[shard] = now
+        try:
+            raw = self.rpc_fn(self._fwd_target(shard), OP_EPOCH, 0,
+                              np.asarray([shard], np.int64),
+                              op_timeout=2.0, record=False, retries=1)
+            peer_epoch = struct.unpack("<qq", raw)[0]
+        except Exception:
+            return      # still unreachable: availability wins
+        if peer_epoch > self._epochs.get(shard, 0):
+            self._demote(shard, peer_epoch)
+            raise EpochFenced(shard, peer_epoch, serving=False)
+
+    def _maybe_probe_degraded(self, shard):
+        """The deposed-check of a shard served with broken forwarding, run
+        before the apply and outside ``_repl_lock``."""
+        if not self._fwd_ok.get(shard) and self._oplog.get(shard) is None:
+            self._probe_lineage(shard)
+
+    def _apply_push(self, shard, store, table, keys, grads, lr, body):
+        """Serving-side push: apply and mirror in one critical section."""
+        if not self.replicable:
+            store.push(table, keys // self.world, grads, lr)
+            return
+        self._maybe_probe_degraded(shard)
+        with self._repl_lock:
+            store.push(table, keys // self.world, grads, lr)
+            self._forward(shard, body)
+
+    def _apply_set_data(self, shard, store, table, arr, body):
+        if not self.replicable:
+            store.set_data(table, arr)
+            return
+        self._maybe_probe_degraded(shard)
+        with self._repl_lock:
+            store.set_data(table, arr)
+            self._forward(shard, body)
+
+    def _apply_replicated(self, shard, inner):
+        """Replay one forwarded frame on the held (non-serving) replica of
+        ``shard``, in the order the sender forwarded it (one connection,
+        forwards serialized under its _repl_lock).  Dedup registers the
+        original (client, seq), so the promotion-window retry of a push
+        acked before the primary died is recognised.  The inner frame's
+        epoch is not read: the outer OP_REPLICATE was fenced."""
+        iop, itable, inkeys, ilr, iwidth, iclient, iseq, _, _ = \
+            _HDR.unpack_from(inner)
+        ioff = _HDR.size
+        ikeys = np.frombuffer(inner, np.int64, inkeys, ioff)
+        ioff += inkeys * 8
+        if iop == OP_HEARTBEAT:
+            # shard 0's mirrored liveness table, stamped with our clock
+            with self._hb_lock:
+                self._hb[int(ikeys[0])] = (time.monotonic(), int(ikeys[1]))
+            return
+        if iop == OP_SSP_INIT:
+            n, channel = int(ikeys[0]), int(ikeys[1])
+            with self._ssp_lock:
+                cur = self._clocks.get(channel)
+                if cur is None or cur.size != n:
+                    self._clocks[channel] = np.zeros(n, np.int64)
+            return
+        if iop == OP_CLOCK:
+            channel = int(ikeys[1]) if inkeys > 1 else 0
+            worker = int(ikeys[0])
+            if not self._seen(iclient, iseq):
+                with self._ssp_lock:
+                    v = self._clocks.get(channel)
+                    if v is None or v.size <= worker:
+                        # a re-attached standby may see ticks before any
+                        # ssp_init: grow rather than break the stream
+                        nv = np.zeros(max(self.world, worker + 1), np.int64)
+                        if v is not None:
+                            nv[:v.size] = v
+                        v = self._clocks[channel] = nv
+                    v[worker] += 1
+                    self._ssp_lock.notify_all()
+            return
+        store = self._stores.get(shard)
+        if store is None:
+            raise RuntimeError(
+                f"rank {self.rank} holds no replica of shard {shard}")
+        if iop == OP_PUSH:
+            if not self._seen(iclient, iseq):
+                grads = np.frombuffer(inner, np.float32, inkeys * iwidth,
+                                      ioff).reshape(inkeys, iwidth)
+                store.push(itable, ikeys // self.world, grads, ilr)
+        elif iop == OP_PUSH_PULL:
+            npush = int(ikeys[0])
+            if npush and not self._seen(iclient, iseq):
+                grads = np.frombuffer(inner, np.float32, npush * iwidth,
+                                      ioff).reshape(npush, iwidth)
+                store.push(itable, ikeys[1:1 + npush] // self.world,
+                           grads, ilr)
+        elif iop == OP_SET_DATA:
+            n = (len(inner) - ioff) // 4
+            store.set_data(itable, np.frombuffer(
+                inner, np.float32, n, ioff).reshape(-1, iwidth))
+        else:
+            raise RuntimeError(
+                f"{frame_repr(iop, itable, inkeys, client=iclient, seq=iseq)}"
+                f" is not replicable")
+
+    def _init_replica_table(self, shard, table, local_rows, width, opt_id,
+                            seed, lr, beta1, beta2, eps, init_scale,
+                            epoch=0):
+        """Create table ``table`` in our copy of ``shard`` with the
+        primary's init parameters (seeded init: the copies start
+        bit-equal).  Idempotent per table id.  A newer ``epoch`` on a
+        shard we still serve demotes us; an older one is refused."""
+        store = self._stores.get(shard)
+        if store is None:
+            raise RuntimeError(
+                f"rank {self.rank} is not a replica holder for shard "
+                f"{shard} (replication={self.replication})")
+        self._fence_or_adopt(shard, epoch)
+        with self._repl_lock:
+            have = self._ntables.get(shard, 0)
+            if table < have:
+                return               # idempotent re-init
+            if table > have:
+                raise RuntimeError(
+                    f"out-of-order replica init: table {table} before "
+                    f"{have} on shard {shard}")
+            tid = store.init_table(
+                local_rows, width, opt=_OPT_NAMES[opt_id], lr=lr,
+                beta1=beta1, beta2=beta2, eps=eps, seed=seed,
+                init_scale=init_scale)
+            assert tid == table, (tid, table)
+            self._ntables[shard] = table + 1
+
+    def _promote(self, shard, want_tables, want_epoch=0):
+        """Serve ``shard`` from our replica (idempotent); returns its
+        resulting epoch.  Refused when we hold no copy, fewer tables than
+        the client has, or a copy never synced.  A real promotion bumps
+        the epoch past ours and the promoter's (``want_epoch``), so the
+        new lineage dominates the old; concurrent promoters converge on
+        one epoch."""
+        with self._repl_lock:
+            cur = self._epochs.get(shard, 0)
+            if shard in self._serving:
+                if want_epoch > cur:
+                    cur = want_epoch
+                    self._adopt_epoch(shard, cur)
+                return cur
+            if not self.replicable:
+                raise RuntimeError(
+                    f"rank {self.rank} runs unreplicated "
+                    f"(replication={self.replication}) — cannot promote "
+                    f"shard {shard}")
+            store = self._stores.get(shard)
+            if store is None or self._ntables.get(shard, 0) < want_tables:
+                raise RuntimeError(
+                    f"rank {self.rank} replica of shard {shard} has "
+                    f"{self._ntables.get(shard, 0)}/{want_tables} tables "
+                    f"— not promotable")
+            if shard not in self._promotable and want_tables > 0:
+                raise RuntimeError(
+                    f"rank {self.rank} copy of shard {shard} was never "
+                    f"synced from the serving replica — not promotable")
+            new_epoch = max(cur + 1, want_epoch)
+            self._adopt_epoch(shard, new_epoch)
+            self._serving.add(shard)
+            # the old primary is presumed dead: no forwarding until
+            # re_replicate() attaches a fresh backup
+            self._fwd_ok[shard] = False
+            record_fault("ps_promoted")
+            record_fault("ps_epoch_bumps")
+            return new_epoch
+
+    def _sync_to(self, shard, target):
+        """Re-replication, source half: save every table of ``shard`` to
+        temporary files (the store's own format), stream them to
+        ``target`` in bounded OP_SYNC_PUT chunks, then drain the op-log
+        buffered meanwhile and resume live forwarding.  Mutations wait
+        only for the save and the drain, not the transfer."""
+        if shard not in self._serving:
+            raise RuntimeError(
+                f"rank {self.rank} does not serve shard {shard} — "
+                f"only the serving replica can source a sync")
+        if not self.replicable:
+            raise RuntimeError("replication disabled on this server")
+        if target != self._fwd_target(shard):
+            raise RuntimeError(
+                f"shard {shard}: rank {target} is not its replica slot "
+                f"(expected {self._fwd_target(shard)})")
+        store = self._stores[shard]
+        ntabs = self._ntables.get(shard, 0)
+        paths = []
+        with self._repl_lock:
+            if self._fwd_ok.get(shard):
+                return               # redundancy already live
+            if self._oplog.get(shard) is not None:
+                raise RuntimeError(
+                    f"shard {shard}: sync already in progress")
+            self._fwd_ok[shard] = False
+            self._oplog[shard] = []
+            for tid in range(ntabs):
+                fd, path = tempfile.mkstemp(prefix="hetu_ps_sync_")
+                os.close(fd)
+                paths.append(path)
+                store.save(tid, path)
+        try:
+            chunk = min(_V3_CHUNK, max(1 << 20, MAX_FRAME_BYTES // 2))
+            epoch = self._epochs.get(shard, 0)
+            for tid, path in enumerate(paths):
+                size = os.path.getsize(path)
+                nch = max(1, -(-size // chunk))
+                with open(path, "rb") as f:
+                    for ci in range(nch):
+                        self.rpc_fn(
+                            target, OP_SYNC_PUT, tid,
+                            np.asarray([shard, ci, nch, size, ntabs],
+                                       np.int64),
+                            payload=f.read(chunk), epoch=epoch)
+            with self._repl_lock:
+                # the drain and the switch to live forwarding are atomic
+                # against concurrent applies
+                for frame in self._oplog.pop(shard, []):
+                    self.rpc_fn(target, OP_REPLICATE, 0,
+                                np.asarray([shard], np.int64),
+                                payload=frame, epoch=epoch)
+                self._fwd_ok[shard] = True
+            record_fault("ps_re_replicated")
+        except Exception as e:
+            with self._repl_lock:
+                self._oplog.pop(shard, None)
+                self._fwd_ok[shard] = False
+            fence = _fence_info(e)
+            if fence is not None:
+                # the target is a newer lineage: we are the stale
+                # ex-primary, so demote instead of retrying every tick
+                self._demote(shard, fence[0])
+                raise EpochFenced(shard, fence[0], serving=False) from e
+            record_fault("ps_re_replicate_failed")
+            raise
+        finally:
+            for path in paths:
+                try:
+                    os.unlink(path)
+                except OSError:
+                    pass
+
+    def _sync_put(self, shard, table, ci, nch, total, ntabs, payload,
+                  epoch=0):
+        """Re-replication, sink half: append the chunks to a temporary
+        file and load the completed table through the store's own load;
+        once all ``ntabs`` tables have landed the copy is promotable.  A
+        retried chunk is absorbed; an older epoch is refused, a newer one
+        adopted (demoting us if we still served the shard)."""
+        store = self._stores.get(shard)
+        if store is None:
+            raise RuntimeError(
+                f"rank {self.rank} holds no replica of shard {shard}")
+        self._fence_or_adopt(shard, epoch)
+        if shard in self._serving and shard != self.rank:
+            raise RuntimeError(
+                f"rank {self.rank} already SERVES shard {shard} — "
+                f"refusing a snapshot that would overwrite live state")
+        part = self._sync_parts.get((shard, table))
+        if part is None:
+            fd, path = tempfile.mkstemp(prefix="hetu_ps_sync_")
+            os.close(fd)
+            part = self._sync_parts[(shard, table)] = {
+                "path": path, "next": 0}
+        if ci < part["next"]:
+            return                   # a retried chunk
+        if ci != part["next"]:
+            raise RuntimeError(
+                f"sync chunk gap: got {ci}, expected {part['next']}")
+        with open(part["path"], "ab") as f:
+            f.write(payload)
+        part["next"] = ci + 1
+        if part["next"] < nch:
+            return
+        del self._sync_parts[(shard, table)]
+        try:
+            if os.path.getsize(part["path"]) != total:
+                raise RuntimeError(
+                    f"sync snapshot truncated: "
+                    f"{os.path.getsize(part['path'])}/{total} bytes")
+            store.load(table, part["path"])
+        finally:
+            try:
+                os.unlink(part["path"])
+            except OSError:
+                pass
+        with self._repl_lock:
+            done = self._sync_parts.setdefault(("loaded", shard), set())
+            done.add(table)
+            if len(done) >= ntabs:
+                del self._sync_parts[("loaded", shard)]
+                self._promotable.add(shard)
+
+    def _mirror_shard0(self, body):
+        """Scheduler state (heartbeats, SSP clocks) rides shard 0's
+        replication, so the liveness table and the SSP barrier survive
+        rank 0's death."""
+        if self.replicable and 0 in self._serving:
+            with self._repl_lock:
+                self._forward(0, body)
+
     def _handle(self, conn, body):
-        op, table, nkeys, lr, width, client, seq, shard, _epoch = \
+        op, table, nkeys, lr, width, client, seq, shard, epoch = \
             _HDR.unpack_from(body)
         off = _HDR.size
         keys = np.frombuffer(body, np.int64, nkeys, off)
         off += nkeys * 8
         if op == OP_PULL:
+            # reads are unfenced: a cut-off cell keeps serving bounded-
+            # staleness reads; fencing guards the writes
             store, _ = self._store_serving(shard)
             out = store.pull(table, keys // self.world)
             _send_frame(conn, b"\x00",
                         np.ascontiguousarray(out, np.float32).tobytes())
         elif op == OP_PUSH:
-            store, _ = self._store_serving(shard)
+            store, shard = self._store_serving(shard)
+            self._fence(shard, epoch)
             if not self._seen(client, seq):
                 grads = np.frombuffer(body, np.float32, nkeys * width,
                                       off).reshape(nkeys, width)
-                store.push(table, keys // self.world, grads, lr)
+                self._apply_push(shard, store, table, keys, grads, lr, body)
             _send_frame(conn, b"\x00\x01")
         elif op == OP_PUSH_PULL:
             # the push half is as non-idempotent as OP_PUSH: a retried
             # frame skips it but still answers the (idempotent) pull
-            store, _ = self._store_serving(shard)
+            store, shard = self._store_serving(shard)
+            self._fence(shard, epoch)
             npush = int(keys[0])
             push_keys = keys[1:1 + npush]
             pull_keys = keys[1 + npush:]
             if npush and not self._seen(client, seq):
                 grads = np.frombuffer(body, np.float32, npush * width,
                                       off).reshape(npush, width)
-                store.push(table, push_keys // self.world, grads, lr)
+                self._apply_push(shard, store, table, push_keys, grads, lr,
+                                 body)
             out = store.pull(table, pull_keys // self.world)
             _send_frame(conn, b"\x00",
                         np.ascontiguousarray(out, np.float32).tobytes())
@@ -321,11 +823,54 @@ class StoreServer:
             _send_frame(conn, b"\x00",
                         np.ascontiguousarray(v, np.int64).tobytes())
         elif op == OP_SET_DATA:
-            store, _ = self._store_serving(shard)
+            store, shard = self._store_serving(shard)
+            self._fence(shard, epoch)
             n = (len(body) - off) // 4
-            store.set_data(table, np.frombuffer(body, np.float32, n, off)
-                           .reshape(-1, width))
+            arr = np.frombuffer(body, np.float32, n, off).reshape(-1, width)
+            self._apply_set_data(shard, store, table, arr, body)
             _send_frame(conn, b"\x00\x01")
+        elif op == OP_REPLICATE:
+            s = int(keys[0])
+            self._fence_or_adopt(s, epoch, refuse_equal_if_serving=True)
+            self._apply_replicated(s, body[off:])
+            _send_frame(conn, b"\x00\x01")
+        elif op == OP_PROMOTE:
+            ep = self._promote(int(keys[0]), int(keys[1]),
+                               int(keys[2]) if nkeys > 2 else 0)
+            _send_frame(conn, b"\x00", struct.pack("<q", ep))
+        elif op == OP_INIT:
+            # keys [local_rows, width, opt_id, seed]; the payload packs the
+            # float init parameters (a NaN init_scale: the store default)
+            p = struct.unpack_from("<5d", body, off)
+            self._init_replica_table(
+                shard, table, int(keys[0]), int(keys[1]), int(keys[2]),
+                int(keys[3]), p[0], p[1], p[2], p[3],
+                None if p[4] != p[4] else p[4], epoch=epoch)
+            _send_frame(conn, b"\x00\x01")
+        elif op == OP_SYNC:
+            self._fence(int(keys[0]), epoch)
+            self._sync_to(int(keys[0]), int(keys[1]))
+            _send_frame(conn, b"\x00\x01")
+        elif op == OP_SYNC_PUT:
+            self._sync_put(int(keys[0]), table, int(keys[1]), int(keys[2]),
+                           int(keys[3]), int(keys[4]), body[off:],
+                           epoch=epoch)
+            _send_frame(conn, b"\x00\x01")
+        elif op == OP_EPOCH:
+            # (epoch, serving) of any shard's copy here (0 if unheld): the
+            # probe works against a standby or a demoted holder too
+            s = self.rank if not nkeys else int(keys[0])
+            _send_frame(conn, b"\x00",
+                        struct.pack("<qq", self._epochs.get(s, 0),
+                                    int(s in self._serving)))
+        elif op == OP_CHECKSUM:
+            # the state digest of any held copy, serving or not
+            s = self.rank if shard < 0 else shard
+            store = self._stores.get(s)
+            if store is None:
+                raise RuntimeError(
+                    f"rank {self.rank} holds no copy of shard {s}")
+            _send_frame(conn, b"\x00", store.state_digest(table).encode())
         elif op == OP_SSP_INIT:
             n, channel = int(keys[0]), int(keys[1])
             with self._ssp_lock:
@@ -334,6 +879,7 @@ class StoreServer:
                 cur = self._clocks.get(channel)
                 if cur is None or cur.size != n:
                     self._clocks[channel] = np.zeros(n, np.int64)
+            self._mirror_shard0(body)
             _send_frame(conn, b"\x00\x01")
         elif op == OP_CLOCK:
             # a retried tick whose ack was lost must not count twice
@@ -342,6 +888,7 @@ class StoreServer:
                 with self._ssp_lock:
                     self._clock_vec(channel)[int(keys[0])] += 1
                     self._ssp_lock.notify_all()
+                self._mirror_shard0(body)
             _send_frame(conn, b"\x00\x01")
         elif op == OP_SSP_SYNC:
             worker, staleness = int(keys[0]), int(keys[1])
@@ -367,6 +914,7 @@ class StoreServer:
         elif op == OP_HEARTBEAT:
             with self._hb_lock:
                 self._hb[int(keys[0])] = (time.monotonic(), int(keys[1]))
+            self._mirror_shard0(body)
             _send_frame(conn, b"\x00\x01")
         elif op == OP_ALIVE:
             # keys=[n] (or [n, 1]: strict, a never-pinged rank is dead), lr
@@ -386,10 +934,6 @@ class StoreServer:
         elif op == OP_SHUTDOWN:
             _send_frame(conn, b"\x00\x01")
             return True
-        elif op in _NOT_PORTED_OPS:
-            raise NotImplementedError(
-                f"{op_name(op)} (shard replication, fencing and failover) "
-                f"is not ported")
         else:
             raise ValueError(
                 f"unknown opcode in frame "
@@ -421,16 +965,31 @@ class DistributedStore:
 
     ``endpoints``: ``(host, port)`` of every rank, index = rank; this
     process's entry may be None (its own server's bound port is used).
-    A shard process is one of these that serves until ``close``.
+    ``replication``: 1 (one copy) or 2 (a ring backup of every shard;
+    default ``HETU_PS_REPLICATION``; a world of one degrades to 1).
+    ``standby``: this process replaces a dead rank and serves nothing
+    until re-replication (default ``HETU_PS_STANDBY=1``).  A shard
+    process is one of these that serves until ``close``.
     """
 
     def __init__(self, rank, world, endpoints=None, host="127.0.0.1",
                  port=0, async_queue=64, rpc_timeout=60.0, rpc_retries=3,
                  connect_timeout=10.0, replication=None, standby=None):
-        _refuse_replication(replication, standby)
         self.rank, self.world = rank, world
+        if standby is None:
+            standby = os.environ.get("HETU_PS_STANDBY", "") == "1"
+        if replication is None:
+            replication = int(os.environ.get("HETU_PS_REPLICATION", "1"))
+        replication = int(replication)
+        if not 1 <= replication <= 2:
+            raise ValueError(
+                f"replication={replication} unsupported: 1 (off) or 2 "
+                f"(primary + one ring backup)")
+        self.replication = replication if world >= 2 else 1
         self.local = EmbeddingStore()
-        self.server = StoreServer(self.local, world, rank, host, port)
+        self.server = StoreServer(self.local, world, rank, host, port,
+                                  replication=self.replication,
+                                  standby=standby)
         self.endpoints = list(endpoints) if endpoints else [None] * world
         self.endpoints[rank] = (host, self.server.port)
         self.rpc_timeout = rpc_timeout
@@ -449,10 +1008,23 @@ class DistributedStore:
         self._connect_lock = threading.Lock()   # guards the conn dicts
         self._pool = None                       # lazy RPC fan-out pool
         self._tables = {}
+        self._table_init_kw = {}   # tid -> init kwargs (replica init)
+        #: shard -> the rank serving it; a failover flips an entry to the
+        #: shard's other holder
+        self._route = list(range(world))
+        #: shard -> the fencing epoch this client believes current
+        self._epoch = [0] * world
+        #: leaf lock of _epoch / _route / _flip_epoch: fence refusals land
+        #: on whichever thread sent the frame; never held across an RPC
+        self._fence_lock = threading.Lock()
+        self._flip_epoch = {}      # shard -> epoch at which the route flipped
+        self._failed_over = set()  # shards running without redundancy
         self._queue = queue.Queue(maxsize=async_queue)
         self._async_thread = None
         self._hb_thread = None
         self._hb_stop = threading.Event()
+        # the server's forwards and sync transfers ride this transport
+        self.server.rpc_fn = self._rpc
 
     # -- connections -------------------------------------------------------
     def _conn(self, peer):
@@ -485,7 +1057,8 @@ class DistributedStore:
         socket op, a failed op retried on a fresh connection after a
         backoff with the same (client, seq), exhausted retries raised as a
         RuntimeError naming the peer.  ``seq`` may be pinned by the
-        caller; ``record=False`` keeps a probe out of the counters."""
+        caller (a failover resends the same frame); ``record=False``
+        keeps a probe out of the counters."""
         keys = np.ascontiguousarray(keys, np.int64)
         hdr = _HDR.pack(op, table, keys.size, lr, width, self.rank,
                         next(self._seq) if seq is None else seq, shard,
@@ -532,11 +1105,120 @@ class DistributedStore:
                        nbytes)
         return resp[1:]
 
+    # -- shard routing and client-side failover ------------------------------
+    @staticmethod
+    def _failover_worthy(err):
+        """An exhausted transport (peer dead or wedged), or a stale route
+        hitting a non-serving holder; an application error raises."""
+        msg = str(err)
+        return "unreachable" in msg or "not served" in msg
+
+    def _note_fence(self, shard, err):
+        """Adopt the lineage an epoch-fence refusal names: advance our
+        epoch for ``shard`` (a locked max-merge) and, when the refuser no
+        longer serves, flip the route to the shard's other holder — once
+        an epoch, so two racing refusals of one event do not flip it back
+        — and mark the shard for re-replication."""
+        cur, serving = _fence_info(err)
+        with self._fence_lock:
+            known = self._epoch[shard]
+            if cur > known:
+                self._epoch[shard] = known = cur
+            if not serving and cur == known \
+                    and self._flip_epoch.get(shard) != cur:
+                self._flip_epoch[shard] = cur
+                dead = self._route[shard]
+                self._route[shard] = (shard + 1) % self.world \
+                    if dead == shard else shard
+                self._failed_over.add(shard)
+
     def _rpc_shard(self, shard, op, table, keys, payload=b"", lr=-1.0,
                    width=0, op_timeout=None):
-        """An RPC to the rank serving ``shard`` (its home rank)."""
-        return self._rpc(shard, op, table, keys, payload, lr, width,
-                         op_timeout, shard=shard, seq=next(self._seq))
+        """An RPC to the rank serving ``shard``.  With ``replication=2``
+        an unreachable primary is a transparent failover (promote the
+        backup, flip the route, resend THE SAME frame: its pinned seq
+        keeps an acked push exactly-once on the backup), and an epoch
+        refusal one retry at the learnt epoch and route."""
+        seq = next(self._seq)
+        peer = self._route[shard]
+        try:
+            return self._rpc(peer, op, table, keys, payload, lr, width,
+                             op_timeout, shard=shard, seq=seq,
+                             epoch=self._epoch[shard])
+        except RuntimeError as e:
+            if _fence_info(e) is not None:
+                # learn the lineage, then take the same send-with-failover
+                # path below (the corrected target can die too)
+                self._note_fence(shard, e)
+            elif self.replication < 2 or not self._failover_worthy(e):
+                raise
+            else:
+                self._failover(shard, err=e, dead=peer)
+        peer = self._route[shard]
+        try:
+            return self._rpc(peer, op, table, keys, payload, lr, width,
+                             op_timeout, shard=shard, seq=seq,
+                             epoch=self._epoch[shard])
+        except RuntimeError as e:
+            if self.replication < 2 or not self._failover_worthy(e):
+                raise
+            alt = self._failover(shard, err=e, dead=peer)
+            return self._rpc(alt, op, table, keys, payload, lr, width,
+                             op_timeout, shard=shard, seq=seq,
+                             epoch=self._epoch[shard])
+
+    def _failover(self, shard, err=None, dead=None):
+        """Promote ``shard``'s other holder and re-route to it.  Raises,
+        chaining the transport error, when that holder is unreachable or
+        not promotable: both copies gone is a real outage.  ``dead``: the
+        rank the failing RPC went to; when another thread has already
+        moved the route off it, that failover stands and its rank is
+        returned (promoting the dead rank's partner instead would try
+        the dead rank itself; ROADMAP C16)."""
+        with self._fence_lock:
+            if dead is not None and self._route[shard] != dead:
+                return self._route[shard]
+            dead = self._route[shard]
+        alt = (shard + 1) % self.world if dead == shard else shard
+        record_fault("ps_failover")
+        # telemetry only: a heartbeat table that still believes the
+        # primary alive flags a possible partition; one short,
+        # counter-silent attempt
+        if shard != 0:
+            try:
+                hb_ms = float(os.environ.get("HETU_HEARTBEAT_MS", "500"))
+                raw = self._rpc(self._route[0], OP_ALIVE, 0,
+                                np.asarray([self.world, 1], np.int64),
+                                lr=3.0 * hb_ms,
+                                op_timeout=min(2.0, self.rpc_timeout),
+                                record=False, retries=1)
+                if np.frombuffer(raw, np.int64)[dead]:
+                    record_fault("ps_failover_primary_reported_alive")
+            except (RuntimeError, OSError, ConnectionError):
+                pass
+        try:
+            # want_epoch = ours + 1: the promotion strictly dominates the
+            # lineage we abandon
+            raw = self._rpc(alt, OP_PROMOTE, 0,
+                            np.asarray([shard, len(self._tables),
+                                        self._epoch[shard] + 1], np.int64))
+        except (RuntimeError, OSError, ConnectionError) as e2:
+            record_fault("ps_failover_failed")
+            raise RuntimeError(
+                f"shard {shard}: serving rank {dead} unreachable AND "
+                f"backup rank {alt} not promotable ({e2})") from err
+        with self._fence_lock:
+            if len(raw) >= 8:    # the ack names the resulting epoch
+                self._epoch[shard] = max(self._epoch[shard],
+                                         int(np.frombuffer(raw, np.int64,
+                                                           1)[0]))
+            self._route[shard] = alt
+            # the promotion is this epoch's route change: a refusal
+            # racing in from the deposed primary must not flip it back
+            self._flip_epoch[shard] = self._epoch[shard]
+            self._failed_over.add(shard)
+        record_fault("ps_failover_promoted")
+        return alt
 
     def _fanout(self, jobs):
         """Run per-peer jobs concurrently (one RPC in flight a peer)."""
@@ -553,7 +1235,7 @@ class DistributedStore:
 
     def _local(self, shard):
         """True iff ``shard`` is answered by this process's own server."""
-        return shard == self.rank and self.server.serves(shard)
+        return self._route[shard] == self.rank and self.server.serves(shard)
 
     # -- tables ------------------------------------------------------------
     def _shard_rows(self, rows, shard):
@@ -561,17 +1243,60 @@ class DistributedStore:
 
     def init_table(self, rows, width, **kw):
         """This rank's shard of a ``rows x width`` table (every rank calls
-        it with the same arguments); returns its id."""
+        it with the same arguments); returns its id.  Replicated, the
+        shard's backup is created with the same arguments (seeded init:
+        the copies start bit-equal)."""
         tid = self.local.init_table(self._shard_rows(rows, self.rank), width,
                                     **kw)
+        self.server.register_table(self.rank)
         self._tables[tid] = (rows, width)
+        self._table_init_kw[tid] = dict(kw)
+        if self.replication >= 2:
+            self._replica_init(tid, self.rank, (self.rank + 1) % self.world,
+                               patient=True)
         return tid
+
+    def _replica_init(self, tid, shard, target, patient=False):
+        """OP_INIT ``shard``'s table ``tid`` on ``target`` (idempotent).
+        ``patient``: at bring-up the backup's server may not be bound yet,
+        so the init keeps knocking for a bounded grace; re-replication is
+        impatient, so a dead standby defers fast."""
+        rows, width = self._tables[tid]
+        kw = self._table_init_kw.get(tid, {})
+        scale = kw.get("init_scale")
+        keys = np.asarray([self._shard_rows(rows, shard), width,
+                           _OPT_IDS[kw.get("opt", "sgd")],
+                           int(kw.get("seed", 0))], np.int64)
+        payload = struct.pack(
+            "<5d", float(kw.get("lr", 0.01)), float(kw.get("beta1", 0.9)),
+            float(kw.get("beta2", 0.999)), float(kw.get("eps", 1e-7)),
+            float("nan") if scale is None else float(scale))
+        deadline = time.monotonic() + max(3 * self.connect_timeout, 15.0)
+        while True:
+            try:
+                return self._rpc(target, OP_INIT, tid, keys, payload,
+                                 shard=shard, record=not patient,
+                                 epoch=self._epoch[shard])
+            except RuntimeError as e:
+                fence = _fence_info(e)
+                if fence is not None:
+                    # the target already belongs to a newer lineage: the
+                    # replica table exists there
+                    with self._fence_lock:
+                        if fence[0] > self._epoch[shard]:
+                            self._epoch[shard] = fence[0]
+                    return None
+                if not patient or time.monotonic() >= deadline:
+                    raise
+                time.sleep(0.2)
 
     def width(self, table):
         return self._tables[table][1]
 
     def set_data(self, table, arr):
-        """Scatter a full ``(rows, width)`` array across every shard."""
+        """Scatter a full ``(rows, width)`` array across every shard,
+        through each shard's replication path (the copies stay
+        bit-equal)."""
         rows, width = self._tables[table]
         arr = np.ascontiguousarray(arr, np.float32)
         if arr.shape != (rows, width):
@@ -581,13 +1306,56 @@ class DistributedStore:
         for s in range(self.world):
             part = np.ascontiguousarray(arr[s::self.world])
             if self._local(s):
-                jobs.append(lambda part=part: self.local.set_data(table,
-                                                                  part))
+                jobs.append(lambda s=s, part=part:
+                            self._local_set_data(s, table, part))
             else:
                 jobs.append(lambda s=s, part=part: self._rpc_shard(
                     s, OP_SET_DATA, table, np.zeros(0, np.int64),
                     part.tobytes(), width=width))
         self._fanout(jobs)
+
+    # -- applies to a shard we serve ----------------------------------------
+    # They skip the wire but ride the op-log: the server's apply + forward
+    # critical section orders a shard's mutations whether they came over
+    # TCP or from this process's own client.
+    def _local_store(self, shard):
+        return self.server._stores[shard]
+
+    def _local_push(self, shard, table, keys, grads, lr):
+        keys = np.ascontiguousarray(keys, np.int64)
+        grads = np.ascontiguousarray(grads, np.float32)
+        body = None
+        if self.server.replicable:
+            body = _HDR.pack(OP_PUSH, table, keys.size, lr, grads.shape[1],
+                             self.rank, next(self._seq), shard,
+                             self._epoch[shard]) \
+                + keys.tobytes() + grads.tobytes()
+        try:
+            self.server._apply_push(shard, self._local_store(shard), table,
+                                    keys, grads, lr, body)
+        except EpochFenced as e:
+            # our server just learnt it is a deposed lineage and demoted
+            # itself; the apply landed only on the demoted copy, so the op
+            # goes to the surviving lineage, which never saw it
+            self._note_fence(shard, e)
+            self._rpc_shard(shard, OP_PUSH, table, keys,
+                            np.ascontiguousarray(grads).tobytes(), lr,
+                            grads.shape[1])
+
+    def _local_set_data(self, shard, table, part):
+        body = None
+        if self.server.replicable:
+            body = _HDR.pack(OP_SET_DATA, table, 0, -1.0, part.shape[1],
+                             self.rank, next(self._seq), shard,
+                             self._epoch[shard]) + part.tobytes()
+        try:
+            self.server._apply_set_data(shard, self._local_store(shard),
+                                        table, part, body)
+        except EpochFenced as e:
+            self._note_fence(shard, e)       # see _local_push
+            self._rpc_shard(shard, OP_SET_DATA, table,
+                            np.zeros(0, np.int64), part.tobytes(),
+                            width=part.shape[1])
 
     # -- sparse ops (EmbeddingStore API) -----------------------------------
     # Wire-level dedup: a Zipf-skewed CTR batch is mostly duplicate keys,
@@ -635,8 +1403,9 @@ class DistributedStore:
             if not sel.size:
                 continue
             if self._local(s):
-                jobs.append(lambda sel=sel: out.__setitem__(
-                    sel, self.local.pull(table, uk[sel] // self.world)))
+                jobs.append(lambda s=s, sel=sel: out.__setitem__(
+                    sel, self._local_store(s).pull(
+                        table, uk[sel] // self.world)))
             else:
                 def job(s=s, sel=sel):
                     raw = self._rpc_shard(s, OP_PULL, table, uk[sel])
@@ -662,8 +1431,8 @@ class DistributedStore:
             if not sel.size:
                 continue
             if self._local(s):
-                jobs.append(lambda sel=sel: self.local.push(
-                    table, uk[sel] // self.world, acc[sel], lr))
+                jobs.append(lambda s=s, sel=sel: self._local_push(
+                    s, table, uk[sel], acc[sel], lr))
             else:
                 jobs.append(lambda s=s, sel=sel: self._rpc_shard(
                     s, OP_PUSH, table, uk[sel],
@@ -701,13 +1470,20 @@ class DistributedStore:
             if not psel.size and not lsel.size:
                 continue
             if self._local(s):
-                def local_job(psel=psel, lsel=lsel):
+                def local_job(s=s, psel=psel, lsel=lsel):
                     if psel.size:
-                        self.local.push(table, upk[psel] // self.world,
-                                        acc[psel], lr)
-                    if lsel.size:
-                        out[lsel] = self.local.pull(
+                        self._local_push(s, table, upk[psel], acc[psel], lr)
+                    if not lsel.size:
+                        return
+                    if self.server.serves(s):
+                        out[lsel] = self._local_store(s).pull(
                             table, ulk[lsel] // self.world)
+                    else:
+                        # the push's fence just demoted our own server:
+                        # the pull follows the re-route
+                        raw = self._rpc_shard(s, OP_PULL, table, ulk[lsel])
+                        out[lsel] = np.frombuffer(raw, np.float32).reshape(
+                            lsel.size, width)
                 jobs.append(local_job)
             elif psel.size:
                 def fused_job(s=s, psel=psel, lsel=lsel):
@@ -747,8 +1523,9 @@ class DistributedStore:
             if not sel.size:
                 continue
             if self._local(s):
-                jobs.append(lambda sel=sel: out.__setitem__(
-                    sel, self.local.versions(table, uk[sel] // self.world)))
+                jobs.append(lambda s=s, sel=sel: out.__setitem__(
+                    sel, self._local_store(s).versions(
+                        table, uk[sel] // self.world)))
             else:
                 def vjob(s=s, sel=sel):
                     raw = self._rpc_shard(s, OP_VERSIONS, table, uk[sel])
@@ -785,9 +1562,11 @@ class DistributedStore:
         if self._async_thread is not None:
             self._queue.join()
 
-    # -- SSP via rank 0 (the reference scheduler role) ----------------------
+    # -- SSP via shard 0 (the reference scheduler role) ----------------------
     # ``channel`` separates independent clock consumers: the executor's SSP
-    # loop ticks channel 0, partial-reduce arrivals channel 1.
+    # loop ticks channel 0, partial-reduce arrivals channel 1.  Replicated,
+    # every tick and init is mirrored to shard 0's backup, so the barrier
+    # fails over with the shard.
     def ssp_init(self, n_workers, channel=0):
         """Idempotent per (channel, size): every rank may call it."""
         self._rpc_shard(0, OP_SSP_INIT, 0,
@@ -798,7 +1577,7 @@ class DistributedStore:
         self._rpc_shard(0, OP_CLOCK, 0, np.asarray([w, channel], np.int64))
 
     def clocks(self, channel=0):
-        """Every worker's clock (rank 0's copy): the arrival feed of
+        """Every worker's clock (shard 0's copy): the arrival feed of
         partial-reduce group formation."""
         raw = self._rpc_shard(0, OP_CLOCKS, 0,
                               np.asarray([channel], np.int64))
@@ -819,9 +1598,11 @@ class DistributedStore:
                               if timeout_ms else 600.0)
         return raw == b"\x01"
 
-    # -- liveness: heartbeats on rank 0 -------------------------------------
+    # -- liveness: heartbeats on shard 0 -------------------------------------
+    # Replicated, shard 0's server mirrors every heartbeat to the shard's
+    # backup: alive_mask survives rank 0's death.
     def heartbeat(self, rank=None, step=0):
-        """Ping rank 0's liveness table."""
+        """Ping shard 0's liveness table."""
         w = self.rank if rank is None else rank
         self._rpc_shard(0, OP_HEARTBEAT, 0, np.asarray([w, step], np.int64))
 
@@ -857,9 +1638,9 @@ class DistributedStore:
 
     def liveness_report(self, deadline_ms, n_workers=None):
         """Ranks the heartbeat table calls dead, split into ``dead`` (no
-        answer to one direct probe either) and ``unreachable`` (the rank
-        answers this client: it only fails to reach rank 0, counted as
-        ``ps_unreachable``), beside ``alive``."""
+        answer to one direct ``OP_EPOCH`` probe either) and
+        ``unreachable`` (the rank answers this client: it only fails to
+        reach shard 0, counted as ``ps_unreachable``), beside ``alive``."""
         n = self.world if n_workers is None else int(n_workers)
         mask = self.alive_mask(deadline_ms, n)
         report = {"alive": [], "dead": [], "unreachable": []}
@@ -871,46 +1652,108 @@ class DistributedStore:
                 self._rpc(r, OP_EPOCH, 0, np.asarray([r], np.int64),
                           op_timeout=min(2.0, self.rpc_timeout),
                           record=False, retries=1)
-            except RuntimeError as e:
-                if "unreachable" in str(e):
-                    report["dead"].append(r)
-                    continue
-            # any answer is a live server, the port's refusal of OP_EPOCH
-            # included
-            report["unreachable"].append(r)
-            record_fault("ps_unreachable")
+            except (RuntimeError, OSError, ConnectionError):
+                report["dead"].append(r)
+            else:
+                report["unreachable"].append(r)
+                record_fault("ps_unreachable")
         return report
 
-    # -- not ported: replication, fencing, failover --------------------------
-    def _not_ported(self, what):
-        raise NotImplementedError(
-            f"DistributedStore.{what} (shard replication, fencing and "
-            f"failover) is not ported")
-
+    # -- re-replication and lineage introspection ----------------------------
     def re_replicate(self, shard=None):
-        self._not_ported("re_replicate")
+        """Restore redundancy for ``shard`` (default: every shard this
+        client failed over): replica tables on the shard's vacant holder
+        (``OP_INIT``), then the serving replica's snapshot and op-log
+        catch-up (``OP_SYNC``).  A second failure of the shard is then
+        survivable."""
+        if self.replication < 2:
+            raise RuntimeError("re_replicate needs replication >= 2")
+        shards = sorted(self._failed_over) if shard is None else [shard]
+        for s in shards:
+            serving = self._route[s]
+            target = s if serving != s else (s + 1) % self.world
+            for tid in sorted(self._tables):
+                self._replica_init(tid, s, target)
+            if serving == self.rank:
+                self.server._sync_to(s, target)
+            else:
+                self._rpc(serving, OP_SYNC, 0,
+                          np.asarray([s, target], np.int64),
+                          op_timeout=max(self.rpc_timeout, 600.0),
+                          epoch=self._epoch[s])
+            self._failed_over.discard(s)
 
     def re_replicate_async(self, shard=None):
-        self._not_ported("re_replicate_async")
+        """:meth:`re_replicate` on a background thread; a failure is a
+        warning (and ``ps_re_replicate_failed``), not a crash."""
+        def run():
+            try:
+                self.re_replicate(shard)
+            except (RuntimeError, OSError, ConnectionError) as e:
+                warnings.warn(f"background re-replication failed: {e}",
+                              RuntimeWarning)
+        t = threading.Thread(target=run, daemon=True,
+                             name=f"hetu-resync-{self.rank}")
+        t.start()
+        return t
 
     def maybe_re_replicate(self):
-        self._not_ported("maybe_re_replicate")
+        """Opportunistic repair (the executor's ``HETU_PS_REREPLICATE_EVERY``
+        tick): one re-replication try for each shard running without a
+        backup — one this client failed over, or one our server serves
+        with broken forwarding; a still-dead target defers
+        (``ps_re_replicate_deferred``).  True iff a shard was repaired."""
+        if self.replication < 2:
+            return False
+        pending = set(self._failed_over)
+        srv = self.server
+        if srv.replicable:
+            for s in list(srv._serving):
+                if not srv._fwd_ok.get(s) and srv._oplog.get(s) is None:
+                    pending.add(s)
+        if not pending:
+            return False
+        repaired = False
+        for s in sorted(pending):
+            try:
+                self.re_replicate(s)
+                repaired = True
+            except (RuntimeError, OSError, ConnectionError):
+                record_fault("ps_re_replicate_deferred")
+        return repaired
 
     def table_checksum(self, table, shard, rank=None):
-        self._not_ported("table_checksum")
+        """The state digest of ``shard``'s copy of ``table`` on ``rank``
+        (default: the serving rank): the divergence check behind
+        ``ps_fsck --verify``."""
+        peer = self._route[shard] if rank is None else rank
+        if peer == self.rank:
+            return self.server._stores[shard].state_digest(table)
+        raw = self._rpc(peer, OP_CHECKSUM, table, np.zeros(0, np.int64),
+                        shard=shard)
+        return raw.decode()
 
     def shard_epoch(self, shard, rank=None):
-        self._not_ported("shard_epoch")
+        """``(epoch, serving)`` of ``shard``'s copy on ``rank`` (default:
+        the rank this client routes the shard to)."""
+        peer = self._route[shard] if rank is None else rank
+        if peer == self.rank:
+            return (self.server.epoch(shard), self.server.serves(shard))
+        raw = self._rpc(peer, OP_EPOCH, 0, np.asarray([shard], np.int64))
+        ep, serving = struct.unpack("<qq", raw)
+        return int(ep), bool(serving)
 
     # -- shard persistence (reference per-server SaveParam) -----------------
-    # Shard files are named by shard: ``<path>.shard<rank>``.
+    # Shard files are named by shard, ``<path>.shard<s>``, for every shard
+    # this server serves: after a failover the promoted server saves the
+    # shard it adopted, and an unsynced standby saves nothing.
     def save(self, table, path):
         for shard in sorted(self.server._serving):
-            self.local.save(table, f"{path}.shard{shard}")
+            self.server._stores[shard].save(table, f"{path}.shard{shard}")
 
     def load(self, table, path):
         for shard in sorted(self.server._serving):
-            self.local.load(table, f"{path}.shard{shard}")
+            self.server._stores[shard].load(table, f"{path}.shard{shard}")
 
     def close(self):
         """Drain the async pushes, say goodbye to every peer, stop the
@@ -1008,6 +1851,18 @@ class DistCacheTable:
     through :meth:`apply_update_summed`.  The lock is held from
     ``begin_lookup`` to ``finish_lookup`` / :meth:`abort_lookup`.  The
     host ``_data`` slab is not kept in device mode.
+
+    **Read-only serving mode** (``read_only=True``, what
+    :class:`~hetu_tpu_torch.serving.InferenceExecutor` serves through): a
+    cached row serves without spending ``pull_bound`` or touching the
+    grad slab, since a serving replica never writes; ``update`` is
+    refused.  Staleness is by server version instead: each miss fill
+    records the rows' versions (one ``versions`` fanout before the pull,
+    so a write between the two leaves a version older than the data),
+    and :meth:`refresh_stale` — called, or every ``refresh_every``
+    lookups on a background thread (:meth:`refresh_join` waits for it) —
+    re-pulls exactly the cached rows whose version advanced.  Eviction
+    recency still advances.  A device slab with ``read_only`` is refused.
     """
 
     _EMPTY, _TOMB = -1, -2
@@ -1016,10 +1871,6 @@ class DistCacheTable:
                  push_bound=10, lr=-1.0, policy="lru", read_only=False,
                  refresh_every=0, device=False, device_scratch=None,
                  device_interpret=None, slab_device=None):
-        if read_only or refresh_every:
-            raise NotImplementedError(
-                "DistCacheTable(read_only=, refresh_every=): the read-only "
-                "serving cache is not ported")
         if device_interpret is not None:
             raise NotImplementedError(
                 "DistCacheTable(device_interpret=): the port's kernels are "
@@ -1031,6 +1882,17 @@ class DistCacheTable:
         self.pull_bound, self.push_bound = int(pull_bound), int(push_bound)
         self.lr = lr
         self.device = bool(device)
+        self.read_only = bool(read_only)
+        if self.device and self.read_only:
+            raise NotImplementedError(
+                "DistCacheTable(device=True, read_only=True): the "
+                "serving path keeps its host slab (version-refresh "
+                "rides it) — device-resident serving is future work")
+        #: read-only mode: a refresh sweep every N lookups (0: only when
+        #: refresh_stale() is called)
+        self.refresh_every = int(refresh_every)
+        self._lookups_since_refresh = 0
+        self._refresh_thread = None   # the sweep in flight (at most one)
         #: where the device slab lives (device mode only)
         self.slab_device = resolve_device(slab_device) if self.device \
             else None
@@ -1049,6 +1911,8 @@ class DistCacheTable:
         self._gcnt = np.zeros(L, np.int64)     # pending update events
         self._ticks = np.zeros(L, np.int64)    # last-touch clock (LRU)
         self._freq = np.zeros(L, np.int64)     # touch count (LFU)
+        #: server version at fill time (read-only mode only)
+        self._vers = np.zeros(L, np.int64)
         cap = 1 << max(6, (4 * L - 1).bit_length())   # load factor <= 1/4
         self._hcap, self._hmask = cap, cap - 1
         self._hkey = np.full(cap, self._EMPTY, np.int64)
@@ -1238,9 +2102,141 @@ class DistCacheTable:
         keys = np.ascontiguousarray(keys, np.int64)
         if self.device:
             return self._lookup_device(keys)
+        sweep = False
         with self._lock:
-            out = self._lookup_locked(keys.reshape(-1))
+            if self.read_only:
+                out = self._lookup_readonly_locked(keys.reshape(-1))
+                if self.refresh_every > 0:
+                    self._lookups_since_refresh += 1
+                    if self._lookups_since_refresh >= self.refresh_every:
+                        self._lookups_since_refresh = 0
+                        sweep = True
+            else:
+                out = self._lookup_locked(keys.reshape(-1))
+        if sweep:
+            self._refresh_async()
         return out.reshape(keys.shape + (self.width,))
+
+    # -- read-only serving mode -----------------------------------------------
+    def _lookup_readonly_locked(self, flat):
+        """A read-only lookup: a cached row is a hit whatever its
+        ``uses``, nothing dirty is planned, and each fill records the
+        rows' server versions for :meth:`refresh_stale`."""
+        self._tick += 1
+        self.stats["lookups"] += int(flat.size)
+        if not flat.size:
+            return np.empty((0, self.width), np.float32)
+        uk, inv, cnt = np.unique(flat, return_inverse=True,
+                                 return_counts=True)
+        slots = self._find(uk)
+        present = slots >= 0
+        rows_out = np.empty((uk.size, self.width), np.float32)
+        miss = ~present
+        if miss.any():
+            mkeys = uk[miss]
+            plan = self._plan_slots(mkeys, slots[present])
+            # the one fallible step (a failover inside the store's pull
+            # is invisible here); versions before rows, so a write landing
+            # between the two leaves a version older than the data, which
+            # the next sweep re-pulls once
+            vers = self.store.versions(self.table, mkeys) \
+                if hasattr(self.store, "versions") else None
+            rows = self.store.pull(self.table, mkeys)
+            self.stats["fetches"] += int(mkeys.size)
+            self._commit_slots(mkeys, plan)
+            mslots = plan[0]
+            cached = mslots >= 0
+            cs = mslots[cached]
+            self._data[cs] = rows[cached]
+            self._uses[cs] = 0
+            self._ticks[cs] = self._tick
+            self._freq[cs] += cnt[miss][cached]
+            self._vers[cs] = 0 if vers is None else vers[cached]
+            rows_out[miss] = rows
+            self._maybe_rehash()
+            slots = slots.copy()
+            slots[miss] = mslots
+        n_hit_rows = int(cnt[present].sum())
+        self.stats["hits"] += n_hit_rows
+        record_cache("emb_cache_hit_rows", n_hit_rows)
+        record_cache("emb_cache_miss_rows", int(flat.size) - n_hit_rows)
+        if present.any():
+            hs = slots[present]
+            # the recency clocks advance (eviction reads them); the
+            # pull_bound budget does not
+            self._ticks[hs] = self._tick
+            self._freq[hs] += cnt[present]
+            rows_out[present] = self._data[hs]
+        return rows_out[inv]
+
+    def refresh_stale(self):
+        """Version-based refresh (read-only serving): one ``versions``
+        fanout over every cached key, then one pull of exactly the rows
+        whose server version advanced since their fill.  Both round trips
+        run outside the lock, so lookups keep serving; the commit skips a
+        slot that changed key meanwhile and only moves versions forward.
+        Returns the rows refreshed (``emb_cache_refresh_rows``)."""
+        if not hasattr(self.store, "versions"):
+            return 0
+        with self._lock:
+            occ = np.flatnonzero(self._slotkey >= 0)
+            if not occ.size:
+                return 0
+            keys = self._slotkey[occ]
+            order = np.argsort(keys, kind="stable")   # deterministic wire
+            keys = keys[order]
+            have = self._vers[occ[order]].copy()
+        vers = np.asarray(self.store.versions(self.table, keys), np.int64)
+        stale = vers > have
+        if not stale.any():
+            return 0
+        sk = keys[stale]
+        rows = np.asarray(self.store.pull(self.table, sk), np.float32)
+        sv = vers[stale]
+        refreshed = 0
+        with self._lock:
+            slots = self._find(sk)
+            live = slots >= 0
+            if live.any():
+                s = slots[live]
+                newer = sv[live] > self._vers[s]
+                s = s[newer]
+                self._data[s] = rows[live][newer]
+                self._vers[s] = sv[live][newer]
+                refreshed = int(s.size)
+        if refreshed:
+            record_cache("emb_cache_refresh_rows", refreshed)
+        return refreshed
+
+    def _refresh_async(self):
+        """:meth:`refresh_stale` on a background thread (at most one in
+        flight): the lookup that trips ``refresh_every`` does not pay the
+        sweep in its own latency."""
+        with self._lock:
+            if self._refresh_thread is not None \
+                    and self._refresh_thread.is_alive():
+                return
+            t = threading.Thread(target=self._refresh_quiet, daemon=True,
+                                 name="hetu-emb-refresh")
+            # started under the lock: refresh_join never sees an
+            # unstarted thread, and no second sweep starts beside it
+            t.start()
+            self._refresh_thread = t
+
+    def _refresh_quiet(self):
+        try:
+            self.refresh_stale()
+        except Exception:
+            pass    # best effort: the next trip of the counter retries
+
+    def refresh_join(self, timeout=None):
+        """Wait for the sweep in flight; True when none runs after."""
+        with self._lock:
+            t = self._refresh_thread
+        if t is None:
+            return True
+        t.join(timeout)
+        return not t.is_alive()
 
     # -- device-resident mode ------------------------------------------------
     def _ensure_dev_slab(self):
@@ -1507,6 +2503,11 @@ class DistCacheTable:
 
     def update(self, keys, grads):
         """Accumulate per-occurrence ``grads`` for ``keys``."""
+        if self.read_only:
+            raise RuntimeError(
+                "DistCacheTable(read_only=True) rejects update(): a "
+                "serving replica must never push gradients — train "
+                "through a read-write cache and serve through this one")
         keys = np.ascontiguousarray(keys, np.int64).reshape(-1)
         if not keys.size:
             return

@@ -17,16 +17,18 @@ writes the JAX package's streamed v3 file (the magic ``HETUPS3\\n``, an
 int64 header length, a JSON header naming each array's dtype and shape,
 then the arrays' bytes in 64 MB slices) and also reads its v2 ``npz`` and
 v1 ``.npy`` files.  Each file is byte for byte the one the JAX package's
-table of the same flavour writes.
-
-Not ported, refused by name: ``state_digest`` (the replica-divergence
-digest behind ``OP_CHECKSUM``, which comes with replication).
+table of the same flavour writes, and ``state_digest`` (the replica
+divergence check behind ``OP_CHECKSUM`` and ``ps_fsck``) is the JAX
+package's digest of the same table.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
+import os
 import struct
+import tempfile
 import threading
 
 import numpy as np
@@ -337,11 +339,38 @@ class EmbeddingStore:
                 t.data[:] = np.load(path)
 
     def state_digest(self, table, chunk=_V3_CHUNK):
-        """Not ported: the full-state digest behind replication's
-        divergence check."""
-        raise NotImplementedError(
-            "EmbeddingStore.state_digest (the replica-divergence digest "
-            "behind OP_CHECKSUM and tools/ps_fsck.py) is not ported")
+        """sha256 hex digest of the table's whole state (data, optimizer
+        slots, per-row versions), streamed in bounded slices: two
+        replicas that applied one op-log agree iff their digests do.  A
+        native table digests its save file; a numpy table its arrays in
+        the order data, version, s0, s1, t.  Either is the JAX package's
+        digest of the same table, byte for byte, so either package's
+        ``ps_fsck`` checks either's cluster; compare like flavours only."""
+        h = hashlib.sha256()
+        if self._lib:
+            fd, path = tempfile.mkstemp(prefix="hetu_ps_digest_")
+            os.close(fd)
+            try:
+                self.save(table, path)
+                with open(path, "rb") as f:
+                    while True:
+                        b = f.read(chunk)
+                        if not b:
+                            break
+                        h.update(b)
+            finally:
+                os.unlink(path)
+            return h.hexdigest()
+        t = self._np_tables[table]
+        with t._lock:   # a digest mid-push would tear data from moments
+            for name in ("data", "version", "s0", "s1", "t"):
+                a = getattr(t, name)
+                if a is None:
+                    continue
+                mv = memoryview(np.ascontiguousarray(a)).cast("B")
+                for off in range(0, len(mv), chunk):
+                    h.update(mv[off:off + chunk])
+        return h.hexdigest()
 
     # -- SSP (bounded staleness barrier) -----------------------------------
     #: set by ssp_init: the native clock entry points index the clock

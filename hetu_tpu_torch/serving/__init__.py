@@ -1,5 +1,4 @@
-"""Serving plane of the port (twin of ``hetu_tpu/serving``, without the
-geo-replicated cells):
+"""Serving plane of the port (twin of ``hetu_tpu/serving``):
 
 * :class:`InferenceExecutor` — serving over frozen weights, one cached
   step per batch bucket; ``infer`` / ``infer_rows`` pad a request batch to
@@ -14,7 +13,10 @@ geo-replicated cells):
   door: least-loaded dispatch, class shedding, deadlines, ejection and
   rescue, exactly-once recovery of in-flight decode streams, autoscaling
   and graceful drain.
+* :class:`CellMap` / :class:`CellHead` — serving cells: disjoint rank
+  sets, each serving its traffic off a read-only embedding cache.
 """
+from .cells import CellHead, CellMap
 from .decode import DecodeEngine, DecodeRouter, DecodeStream
 from .executor import InferenceExecutor, default_buckets
 from .fleet import CLASSES, FrontDoor, SLOAutoscaler
@@ -22,5 +24,6 @@ from .prefix_cache import PrefixKVStore
 from .router import ServingRouter, ServeRejected
 
 __all__ = ["InferenceExecutor", "ServingRouter", "ServeRejected",
-           "default_buckets", "DecodeEngine", "DecodeRouter", "DecodeStream",
+           "default_buckets", "CellMap", "CellHead", "DecodeEngine",
+           "DecodeRouter", "DecodeStream",
            "PrefixKVStore", "FrontDoor", "SLOAutoscaler", "CLASSES"]

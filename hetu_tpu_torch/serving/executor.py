@@ -26,9 +26,19 @@ source does not cover take their seeded initializer values.  Feeds and
 params are keyed by canonical topo-ordinal keys (``_k``), as in the JAX
 package.  There is no process-wide serve cache: a rebuilt executor has
 nothing to compile (ROADMAP C7 (k)).
+
+PS embeddings serve through their node's cache — a read-only
+``DistCacheTable`` over a (replicated) ``DistributedStore``, whose shard
+router fails a killed primary over inside the pull.  ``infer`` pulls the
+rows of the request's real ids before padding (padding ids would pull row
+0 again and again) and pads the rows with zeros;
+:meth:`InferenceExecutor.refresh_embeddings` re-pulls the cached rows a
+trainer has since written (``serve_emb_refresh_rows``).  A checkpoint
+directory's PS tables load into each node's store by node name.
 """
 from __future__ import annotations
 
+import glob
 import json
 import os
 import warnings
@@ -92,8 +102,7 @@ class InferenceExecutor:
     forward is inert and only warned of).  ``decode=True``: the fetch set
     is a one-token decode step (the ``decode-incompatible-op`` rule).
 
-    Not ported yet, and refused by name: ``plan=``, ``mesh=`` and PS
-    embedding nodes.
+    Not ported yet, and refused by name: ``plan=`` and ``mesh=``.
     """
 
     def __init__(self, fetches, weights=None, buckets=None, max_batch=128,
@@ -115,15 +124,14 @@ class InferenceExecutor:
         self.device = resolve_device(device)
         self.seed = int(seed)
         self.topo = topo_sort(self.fetches)
-        if any(getattr(n, "is_ps", False) for n in self.topo):
-            raise NotImplementedError(
-                "InferenceExecutor: PS embedding nodes are not ported")
         # canonical topo-ordinal keys: a structurally identical rebuild
         # produces identical param/feed keys
         self._node_keys = {n: f"s{i}" for i, n in enumerate(self.topo)}
+        self.ps_nodes = [n for n in self.topo if getattr(n, "is_ps", False)]
         self.feed_nodes = [n for n in self.topo
                            if isinstance(n, PlaceholderOp)
-                           and not n.is_variable]
+                           and not n.is_variable
+                           and not getattr(n, "is_ps", False)]
         self.var_nodes = [n for n in self.topo
                           if isinstance(n, PlaceholderOp) and n.is_variable]
         bset = buckets if buckets is not None else default_buckets(max_batch)
@@ -132,9 +140,9 @@ class InferenceExecutor:
             raise ValueError(f"bad bucket set {self.buckets}")
         self.max_batch = self.buckets[-1]
         # which fetches are batch-derived (transitively consume a fed
-        # placeholder)?  Those are padded and sliced per request
+        # placeholder or PS rows)?  Those are padded and sliced per request
         deps = {}
-        feed_set = set(self.feed_nodes)
+        feed_set = set(self.feed_nodes) | set(self.ps_nodes)
         for node in self.topo:
             deps[node] = node in feed_set or any(
                 deps.get(i, False) for i in node.inputs)
@@ -175,9 +183,11 @@ class InferenceExecutor:
 
     # -- weights -----------------------------------------------------------
 
-    @staticmethod
-    def _weights_dict(weights):
-        """Normalize a weights source to ``{checkpoint name: array}``."""
+    def _weights_dict(self, weights):
+        """Normalize a weights source to ``{checkpoint name: array}``; a
+        checkpoint directory's PS tables load into their nodes' stores
+        (matched by node name: the file ordinals are the training graph's
+        table order)."""
         if isinstance(weights, dict):
             return weights
         if hasattr(weights, "return_tensor_values"):   # live Executor
@@ -191,6 +201,19 @@ class InferenceExecutor:
                 f"or a directory written by Executor.save")
         with open(meta_path) as f:
             meta = json.load(f)
+        by_name = {e["node"]: e["file"] for e in meta.get("ps_tables", [])}
+        for node in self.ps_nodes:
+            fn = by_name.get(node.name)
+            if fn is None:
+                if by_name:
+                    warnings.warn(
+                        f"checkpoint has no PS table for serving node "
+                        f"'{node.name}' (tables: {sorted(by_name)}) — "
+                        f"serving the store's LIVE rows", RuntimeWarning)
+                continue
+            fp = os.path.join(path, fn)
+            if hasattr(node.store, "load") and glob.glob(fp + "*"):
+                node.store.load(node.table, fp)
         return {name: np.load(os.path.join(path, "params", fn))
                 for name, fn in meta.get("params", {}).items()}
 
@@ -292,11 +315,12 @@ class InferenceExecutor:
     def _eval_fetch_shapes(self, padded, b):
         """The fetches' shapes at batch size ``b``: each op's lowering on
         meta tensors (``analysis.infer_graph``), feeds synthesized from
-        the real batch's trailing dims and the placeholders' dtypes."""
+        the real batch's trailing dims and the placeholders' dtypes (a PS
+        embedding's rows from its ids feed and the table's width)."""
         from ..analysis import infer_graph
         from ..analysis.shapes import meta
         feeds = {}
-        for node in self.feed_nodes:
+        for node in self.feed_nodes + [n.ids_node for n in self.ps_nodes]:
             v = np.asarray(padded[node])
             dt = np.dtype(node.dtype) if node.dtype is not None \
                 else (np.dtype(np.float32) if v.dtype == np.float64
@@ -379,6 +403,18 @@ class InferenceExecutor:
                 f"request batch {n} exceeds the largest serving bucket "
                 f"{self.max_batch} — split the request or raise max_batch")
         record_serve("serve_pad_rows", bucket - n)
+        # PS rows of the REAL ids, before padding (pad ids would pull id
+        # 0's row bucket - n times a field: store traffic, skewed hit
+        # counts, an LFU boost); the rows pad with zeros instead
+        ps_rows = {}
+        for node in self.ps_nodes:
+            ids = feed_dict.get(node.ids_node)
+            if ids is None:
+                raise ValueError(
+                    f"missing ids feed for PS embedding {node} "
+                    f"(feed its ids placeholder {node.ids_node})")
+            rows = node.pull_rows(np.asarray(ids, np.int64))
+            ps_rows[node] = _pad_rows(np.asarray(rows), bucket)
         padded = {node: _pad_rows(v, bucket)
                   for node, v in feed_dict.items()}
         for node in self.feed_nodes:
@@ -398,7 +434,7 @@ class InferenceExecutor:
                         f"{bucket} — fetch the per-row form and "
                         f"aggregate client-side, or submit exact-bucket "
                         f"batches")
-        outs = self._run_bucket(padded, bucket)
+        outs = self._run_bucket(padded, bucket, ps_rows)
         results, rows_per_sample = [], []
         for o, k in zip(outs, scaling):
             if k is None or k == self._AGGREGATE:
@@ -410,14 +446,25 @@ class InferenceExecutor:
             results.append(o.cpu().numpy() if convert else o)
         return results, rows_per_sample
 
-    def _run_bucket(self, padded, bucket, record=True):
-        """One call at an exact bucket; ``record=False`` (``warm``) leaves
-        the batch counters alone."""
+    def _run_bucket(self, padded, bucket, ps_rows=None, record=True):
+        """One call at an exact bucket, with the PS rows ``infer`` pulled
+        (or, absent, pulled here for the padded ids); ``record=False``
+        (``warm``) leaves the batch counters alone."""
         feeds = {}
         for node in self.feed_nodes:
             if node not in padded:
                 raise ValueError(f"missing feed for {node}")
             feeds[self._k(node)] = self._place_feed(node, padded[node])
+        for node in self.ps_nodes:
+            rows = (ps_rows or {}).get(node)
+            if rows is None:
+                ids = padded.get(node.ids_node)
+                if ids is None:
+                    raise ValueError(
+                        f"missing ids feed for PS embedding {node} "
+                        f"(feed its ids placeholder {node.ids_node})")
+                rows = node.pull_rows(np.asarray(ids, np.int64))
+            feeds[self._k(node)] = self._place_feed(node, rows)
         outs = self.compiled(bucket)(self.params, feeds)
         if record:
             record_serve("serve_batches")
@@ -430,7 +477,8 @@ class InferenceExecutor:
         number of buckets."""
         if example_feeds is None:
             example_feeds = {}
-            for node in self.feed_nodes:
+            for node in self.feed_nodes + [n.ids_node
+                                           for n in self.ps_nodes]:
                 if getattr(node, "shape", None) is None:
                     raise ValueError(
                         f"warm() needs an example feed for {node} "
@@ -443,8 +491,34 @@ class InferenceExecutor:
                 v = np.asarray(v)
                 reps = -(-bucket // max(1, v.shape[0]))  # ceil
                 fd[node] = np.concatenate([v] * reps, 0)[:bucket]
-            self._run_bucket(fd, bucket, record=False)
+            # zero rows for the PS embeddings: warming needs their shapes,
+            # and pulling the example ids through the cache would be store
+            # traffic and skewed hit counts
+            ps_rows = {
+                node: np.zeros(np.shape(fd[node.ids_node]) + (node.width,),
+                               np.float32)
+                for node in self.ps_nodes
+                if node.ids_node in fd and node.width is not None}
+            self._run_bucket(fd, bucket, ps_rows, record=False)
         return len(self.buckets)
+
+    def refresh_embeddings(self):
+        """The version-based staleness sweep of every read-only embedding
+        cache this graph serves through (``DistCacheTable.refresh_stale``):
+        the rows a trainer kept writing are re-pulled, one batched round
+        trip a cache.  Returns the rows refreshed, also counted as
+        ``serve_emb_refresh_rows``."""
+        seen, total = set(), 0
+        for node in self.ps_nodes:
+            cache = getattr(node, "cache", None)
+            if cache is None or id(cache) in seen \
+                    or not hasattr(cache, "refresh_stale"):
+                continue
+            seen.add(id(cache))
+            refreshed = cache.refresh_stale()
+            total += refreshed
+            record_serve("serve_emb_refresh_rows", refreshed)
+        return total
 
 
 __all__ = ["InferenceExecutor", "default_buckets"]

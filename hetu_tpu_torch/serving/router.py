@@ -25,9 +25,15 @@
   DecodeRouter` has them; a ``name`` suffixes the ``serve`` latency kinds
   (``batch@r0``) so the front door scores each replica.
 
-Not ported: read-only PS embedding serving and its refresh
-(``refresh_every_batches`` other than 0 is refused by name), and the
-chaos, race and tracer hooks (``HETU_CHAOS`` set is refused by name).
+* **PS embeddings.**  A graph served through a read-only
+  ``DistCacheTable`` over a replicated store keeps answering through a
+  killed shard primary (the failover is inside the batch's pull; the
+  promotions a batch absorbed count as ``serve_failovers``), and
+  ``refresh_every_batches=N`` runs the executor's staleness sweep
+  (``refresh_embeddings``) after every N-th batch.
+
+Not ported: the chaos, race and tracer hooks (``HETU_CHAOS`` set is
+refused by name).
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ from concurrent.futures import Future
 
 import numpy as np
 
-from ..metrics import (record_serve, record_serve_latency,
+from ..metrics import (fault_counts, record_serve, record_serve_latency,
                        record_serve_rejection)
 
 
@@ -96,20 +102,19 @@ class ServingRouter:
     ``max_batch``: the largest batch packed (default and cap: the
     executor's largest bucket).  ``max_wait_ms``: how long the oldest
     waiting request may sit before its batch ships part-full.
-    ``queue_limit``: the admission bound.  ``start=False`` builds the
-    router paused (call :meth:`start`).  ``name``: the replica label that
+    ``queue_limit``: the admission bound.  ``refresh_every_batches``: run
+    the read-only embedding staleness sweep every N batches (0: never;
+    call ``iex.refresh_embeddings()`` yourself).  ``start=False`` builds
+    the router paused (call :meth:`start`).  ``name``: the replica label that
     suffixes the latency kinds."""
 
     def __init__(self, iex, max_batch=None, max_wait_ms=2.0,
                  queue_limit=256, refresh_every_batches=0, start=True,
                  name=""):
         refuse_chaos("ServingRouter")
-        if int(refresh_every_batches) != 0:
-            raise NotImplementedError(
-                "ServingRouter(refresh_every_batches=) is not ported: it "
-                "refreshes read-only PS embedding caches, which the port's "
-                "InferenceExecutor does not serve")
         self.iex = iex
+        self.refresh_every_batches = int(refresh_every_batches)
+        self._batches = 0
         self.name = str(name)
         self.max_batch = min(int(max_batch or iex.max_batch), iex.max_batch)
         if self.max_batch < 1:
@@ -348,6 +353,7 @@ class ServingRouter:
             stacked = {node: np.stack(
                 [np.asarray(r.feeds[node]) for r in reqs], 0)
                 for node in nodes}
+            before = fault_counts().get("ps_failover_promoted", 0)
             t_call = time.perf_counter_ns()
             try:
                 outs, rows_per_req = self.iex.infer_rows(stacked)
@@ -356,6 +362,9 @@ class ServingRouter:
                 outs, rows_per_req = self.iex.infer_rows(stacked)
             record_serve_latency(self._lat_batch,
                                  (time.perf_counter_ns() - t_call) / 1e3)
+            delta = fault_counts().get("ps_failover_promoted", 0) - before
+            if delta:
+                record_serve("serve_failovers", delta)
         except Exception as e:    # noqa: BLE001 — each request learns its
             for r in reqs:        # fate; the router keeps serving
                 r.future.set_exception(e)
@@ -371,6 +380,13 @@ class ServingRouter:
                 else:
                     row.append(o[i * k:(i + 1) * k])
             r.future.set_result(row)
+        self._batches += 1
+        if self.refresh_every_batches > 0 \
+                and self._batches % self.refresh_every_batches == 0:
+            try:
+                self.iex.refresh_embeddings()
+            except Exception:   # noqa: BLE001 — a refresh hiccup must
+                pass            # not stop the router
 
 
 __all__ = ["ServingRouter", "ServeRejected"]

@@ -529,17 +529,33 @@ def test_other_compute_dtypes_are_refused_by_name(cd):
         tht.Executor([x * 2.0], compute_dtype=ok, device="cpu")
 
 
-def test_ps_subgraphs_refuse_compute_dtype_by_name():
-    """PS embeddings take float32 only (the cache slab and its kernels, B4
-    and B5, have no bf16 instantiation yet)."""
+def test_ps_subgraphs_take_compute_dtype_and_keep_float32_rows():
+    """PS embeddings train in bf16 (tests/test_torch_ctr_models.py holds
+    Wide & Deep against the JAX package's): the slab stays float32, the
+    rows are cast inside the step, and the summed row gradient (B5's
+    output) reaches the cache as float32.  ``num_microbatches`` with PS
+    embeddings stays refused by name."""
     ids = tht.placeholder_op("ids", dtype=np.int64)
     st = tht.EmbeddingStore()
-    cache = tht.DistCacheTable(st, st.init_table(10, 4), limit=4,
-                               device=True, slab_device="cpu")
-    ps = tht.reduce_sum_op(tht.ps_embedding_lookup_op(cache, ids))
-    with pytest.raises(NotImplementedError, match="PS embeddings"):
-        tht.Executor([ps], compute_dtype="bfloat16", device="cpu")
-    tht.Executor([ps], device="cpu")                # float32 takes it
+    t = st.init_table(10, 4, opt="sgd", lr=1.0, init_scale=0.1)
+    before = st.get_data(t)
+    cache = tht.DistCacheTable(st, t, limit=4, push_bound=1, device=True,
+                               slab_device="cpu")
+    e = tht.ps_embedding_lookup_op(cache, ids)
+    w = tht.Variable("w_psbf", value=np.ones((4, 1), np.float32))
+    loss = tht.reduce_sum_op(tht.matmul_op(tht.array_reshape_op(
+        e, (-1, 4)), w))
+    ex = tht.Executor([loss, tht.optim.SGDOptimizer(0.5).minimize(loss)],
+                      compute_dtype="bfloat16", device="cpu")
+    ex.run(feed_dict={ids: np.asarray([[1, 2], [2, 3]], np.int64)})
+    assert cache._ensure_dev_slab().dtype == torch.float32
+    # d loss / d row = w = 1 an occurrence: row 2 moved twice, 1 and 3 once
+    moved = before - st.get_data(t)
+    np.testing.assert_array_equal(moved[[1, 2, 3], 0], [1.0, 2.0, 1.0])
+    with pytest.raises(NotImplementedError, match="num_microbatches"):
+        tht.Executor([loss, tht.optim.SGDOptimizer(0.5).minimize(loss)],
+                     compute_dtype="bfloat16", device="cpu",
+                     num_microbatches=2)
 
 
 # -- ResNet-18 (BASELINE config 1) -------------------------------------------

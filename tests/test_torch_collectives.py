@@ -312,12 +312,29 @@ def test_partial_reduce_masks_match_jax(kw):
                                                            and 0 in alive)
 
 
-def test_unported_partial_reduce_paths_raise_by_name(monkeypatch):
+def test_partial_reduce_store_takes_the_replication_knobs(monkeypatch):
     # DistPartialReduce is ported (tests/test_torch_ps_dist.py); the store
-    # it rides on refuses a standby rank and replication, by keyword or
-    # environment
-    with pytest.raises(NotImplementedError, match="standby"):
-        tht.ps.DistributedStore(0, 1, standby=True)
+    # it rides on takes the replication knobs by keyword or environment,
+    # as the JAX package's does: a world of one has no room for a backup
+    # and runs unreplicated, and only replication 1 or 2 is accepted
     monkeypatch.setenv("HETU_PS_REPLICATION", "2")
-    with pytest.raises(NotImplementedError, match="replication=2"):
-        tht.ps.DistributedStore(0, 1)
+    monkeypatch.setenv("HETU_PS_STANDBY", "1")
+    for mod in (tht.ps, jht_ps()):
+        store = mod.DistributedStore(0, 1)
+        try:
+            assert store.replication == 1 and store.server.serves(0)
+            pr = tht.dist.DistPartialReduce(store, max_wait_ms=50.0,
+                                            min_workers=1)
+            pr.report_arrival(0, 0)
+            assert pr.get_partner(0, 0).tolist() == [1.0]
+        finally:
+            store.close()
+    with pytest.raises(ValueError, match="replication=3"):
+        tht.ps.DistributedStore(0, 1, replication=3)
+
+
+def jht_ps():
+    """The JAX package's ``ps`` (imported here: the rank processes import
+    this module)."""
+    from hetu_tpu import ps
+    return ps

@@ -277,19 +277,19 @@ def test_store_sgd_matches_native_store():
 
 def test_refusals_by_name():
     st, t = _stores(16, 4, n=0)[0]
-    for kw, name in ((dict(read_only=True), "read_only"),
-                     (dict(refresh_every=3), "refresh_every"),
-                     (dict(device=True, device_interpret=True),
-                      "device_interpret")):
+    # what stays refused of the cache: the interpret knob, and a device
+    # slab serving read-only (the JAX package's words)
+    for kw, name in ((dict(device=True, device_interpret=True),
+                      "device_interpret"),
+                     (dict(device=True, read_only=True),
+                      "device-resident serving")):
         with pytest.raises(NotImplementedError, match=name):
             TCache(st, t, slab_device="cpu", **kw)
-    # what stays refused of the sharded store: replication and standby
-    for kw, name in ((dict(replication=2), "replication=2"),
-                     (dict(standby=True), "standby")):
-        with pytest.raises(NotImplementedError, match=name):
-            tht.ps.DistributedStore(0, 1, **kw)
-        with pytest.raises(NotImplementedError, match=name):
-            tht.ps.StoreServer(st, 1, 0, **kw)
+    ro = TCache(st, t, read_only=True, refresh_every=3)
+    assert ro.read_only and ro.refresh_every == 3
+    # the sharded store takes replication 1 or 2 only
+    with pytest.raises(ValueError, match="replication=3"):
+        tht.ps.DistributedStore(0, 1, replication=3)
     if not torch.cuda.is_available():
         # the slab goes to CUDA unless the CPU is asked for
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -19,6 +19,9 @@ from hetu_tpu_torch.ops.kernels import flash_attention as fa  # noqa: E402
 
 PKG = os.path.join(ROOT, "hetu_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "hetu_tpu")
+#: the repo's own script folders: the port keeps its own copy of what it
+#: needs from them (``tools/ps_fsck.py``, ``examples/ctr/models.py``)
+REPO_SCRIPTS = ("tools", "examples")
 
 
 def _sources():
@@ -29,7 +32,8 @@ def _sources():
 
 
 def _forbidden(module):
-    return any(module == m or module.startswith(m + ".") for m in FORBIDDEN)
+    return any(module == m or module.startswith(m + ".")
+               for m in FORBIDDEN + REPO_SCRIPTS)
 
 
 def test_import_with_jax_and_hetu_tpu_blocked():
@@ -96,7 +100,12 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "import hetu_tpu_torch.autoparallel\n"
             "import hetu_tpu_torch.autoparallel.cost_model\n"
             "import hetu_tpu_torch.graph.run_plan\n"
+            "import hetu_tpu_torch.serving.cells\n"
+            "import hetu_tpu_torch.tools.ps_fsck\n"
+            "import hetu_tpu_torch.models.ctr\n"
             "assert sys.modules['jax'] is None\n"
+            "assert 'tools' not in sys.modules\n"
+            "assert 'examples' not in sys.modules\n"
             "x = hetu_tpu_torch.placeholder_op('x')\n"
             "ex = hetu_tpu_torch.Executor([x * 2.0], device='cpu',\n"
             "                             compute_dtype='bfloat16')\n"
@@ -131,12 +140,29 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "s.push(t, [1], [[1.0, 1.0]], 0.5)\n"
             "print(s.pull(t, [1])[0, 0], s.local.native)\n"
             "s.close()\n"
-            "print(hetu_tpu_torch.CacheSparseTable(4, 8, 2).perf()['size'])\n")
+            "print(hetu_tpu_torch.CacheSparseTable(4, 8, 2).perf()['size'])\n"
+            "import socket\n"
+            "ports = []\n"
+            "for _ in range(2):\n"
+            "    sk = socket.socket(); sk.bind(('127.0.0.1', 0))\n"
+            "    ports.append(sk.getsockname()[1]); sk.close()\n"
+            "ends = [('127.0.0.1', p) for p in ports]\n"
+            "ss = [hetu_tpu_torch.ps.DistributedStore(r, 2, ends, port=p,\n"
+            "      replication=2, rpc_timeout=5.0, connect_timeout=2.0)\n"
+            "      for r, p in enumerate(ports)]\n"
+            "t = [s.init_table(8, 2, init_scale=0.0) for s in ss][0]\n"
+            "ss[0].push(t, [1, 2], [[1.0, 1.0]] * 2, 1.0)\n"
+            "from hetu_tpu_torch.tools import ps_fsck\n"
+            "print(ps_fsck.fsck(ends, 1)['ok'])\n"
+            "for s in ss:\n"
+            "    s.close()\n"
+            "print(hetu_tpu_torch.CellMap({'a': [0], 'b': [1]}).world)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["float32", "True", "12", "6", "12", "512",
-                                   "2", "()", "3.0", "-0.5", "True", "0"]
+                                   "2", "()", "3.0", "-0.5", "True", "0",
+                                   "True", "2"]
 
 
 def test_sources_import_no_jax_or_hetu_tpu():

@@ -609,7 +609,7 @@ def test_strategy_checks_mirror_the_jax_package():
     assert [tht.dist.DataParallel(zero=z).zero
             for z in (None, True, 1, 3, "2")] == [0, 2, 1, 3, 2]
     # DistPartialReduce forms a group from a store's clocks (one rank
-    # here); the store's replication stays refused
+    # here); replication=2 on a world of one runs unreplicated
     store = tht.ps.DistributedStore(0, 1)
     try:
         pr = tht.dist.DistPartialReduce(store, max_wait_ms=50.0,
@@ -618,8 +618,11 @@ def test_strategy_checks_mirror_the_jax_package():
         assert pr.get_partner(0, 0).tolist() == [1.0]
     finally:
         store.close()
-    with pytest.raises(NotImplementedError, match="replication=2"):
-        tht.ps.DistributedStore(0, 2, replication=2)
+    store = tht.ps.DistributedStore(0, 1, replication=2)
+    try:
+        assert store.replication == 1
+    finally:
+        store.close()
 
 
 def test_world_of_one_needs_num_devices_to_match(world1):

@@ -243,21 +243,19 @@ def test_heartbeats_liveness_and_stopped_server():
 
 
 def test_what_stays_refused_by_name():
+    """An unknown opcode and ``replication=3`` are refused; on an
+    unreplicated pair the replication plane answers as the JAX package's
+    does: lineage probes answer, promotion and re-replication refuse."""
     stores, tid = _two_ranks(tds)
     s0 = stores[0]
     try:
-        for op in (tds.OP_REPLICATE, tds.OP_PROMOTE, tds.OP_INIT,
-                   tds.OP_SYNC, tds.OP_SYNC_PUT, tds.OP_CHECKSUM,
-                   tds.OP_EPOCH):
-            with pytest.raises(RuntimeError, match=tds.op_name(op)
-                               + r".*not ported"):
-                s0._rpc(1, op, 0, np.asarray([1, 0], np.int64))
-        for call in (lambda: s0.re_replicate(), lambda: s0.maybe_re_replicate(),
-                     lambda: s0.re_replicate_async(),
-                     lambda: s0.table_checksum(tid, 1),
-                     lambda: s0.shard_epoch(1)):
-            with pytest.raises(NotImplementedError, match="not ported"):
-                call()
+        assert s0.shard_epoch(1) == (0, True)
+        assert s0.table_checksum(tid, 1) == stores[1].local.state_digest(tid)
+        assert s0.maybe_re_replicate() is False
+        with pytest.raises(RuntimeError, match="replication >= 2"):
+            s0.re_replicate()
+        with pytest.raises(RuntimeError, match="runs unreplicated"):
+            s0._rpc(1, tds.OP_PROMOTE, 0, np.asarray([0, 1], np.int64))
         with pytest.raises(RuntimeError, match="unknown opcode"):
             s0._rpc(1, 99, 0, np.zeros(0, np.int64))
         np.testing.assert_array_equal(s0.pull(tid, [1, 2]), 0.0)

@@ -129,8 +129,33 @@ def test_native_save_file_is_the_jax_packages(tmp_path, opt):
     ts.push(tt, k, g)
     ts2.push(t2, k, g)     # the optimizer slots came back too
     assert np.array_equal(ts2.get_data(t2), ts.get_data(tt))
-    with pytest.raises(NotImplementedError, match="state_digest"):
-        ts.state_digest(tt)
+    js.push(jt, k, g)
+    # the state digest (slab, slots, versions) is the JAX package's
+    assert ts.state_digest(tt) == js.state_digest(jt) == ts2.state_digest(t2)
+
+
+@pytest.mark.parametrize("native", [True, False])
+@pytest.mark.parametrize("opt", ["sgd", "adam"])
+def test_state_digest_is_the_jax_packages(monkeypatch, native, opt):
+    """``state_digest`` of a native table hashes its save file, of a
+    numpy table its arrays: either flavour's digest equals the JAX
+    package's table of the same flavour after the same pushes, and moves
+    with every push (the optimizer slots included)."""
+    if not native:
+        monkeypatch.setattr(tstore, "get_lib", lambda: None)
+        monkeypatch.setattr(jstore, "get_lib", lambda: None)
+    (js, jt), (ts, tt) = _pair(24, 3, opt=opt, lr=0.05, seed=4)
+    assert ts.native == (js._lib is not None) == native
+    rng = np.random.RandomState(5)
+    seen = {ts.state_digest(tt)}
+    for _ in range(3):
+        k = rng.randint(0, 24, 8)
+        g = rng.randn(8, 3).astype(np.float32)
+        js.push(jt, k, g)
+        ts.push(tt, k, g)
+        d = ts.state_digest(tt)
+        assert d == js.state_digest(jt) and d not in seen
+        seen.add(d)
 
 
 @pytest.mark.parametrize("native", [True, False])

@@ -276,11 +276,25 @@ def test_weights_from_a_live_executor_and_a_checkpoint_directory(tmp_path):
         _iex(ht, [prob], weights=str(tmp_path), buckets=(2,))
 
 
-def test_refresh_every_batches_is_refused_by_name():
+def test_refresh_every_batches_without_ps_is_a_no_op(monkeypatch):
+    """``refresh_every_batches`` is ported (tests/test_torch_ctr_serving.py
+    holds the sweep against the JAX package's): over a graph without PS
+    embeddings the sweep refreshes nothing and the rows are the JAX
+    router's; what stays refused is a set ``HETU_CHAOS``."""
+    got = []
+    for pkg in (ht, jht):
+        x, y = _graph(pkg)
+        iex = _iex(pkg, [y], buckets=(4,))
+        with pkg.ServingRouter(iex, refresh_every_batches=1) as r:
+            got.append(r.submit({x: np.ones((3,), np.float32)})
+                       .result(timeout=30)[0])
+        assert iex.refresh_embeddings() == 0
+    np.testing.assert_allclose(got[0], got[1], rtol=0, atol=ROW_ATOL)
+    monkeypatch.setenv("HETU_CHAOS", "7:kill:replica@0:req4")
     x, y = _graph(ht)
-    with pytest.raises(NotImplementedError, match="refresh_every_batches"):
-        ht.ServingRouter(_iex(ht, [y], buckets=(4,)), refresh_every_batches=5,
-                         start=False)
+    with pytest.raises(NotImplementedError, match="HETU_CHAOS"):
+        ht.ServingRouter(_iex(ht, [y], buckets=(4,)),
+                         refresh_every_batches=5, start=False)
 
 
 def test_fixed_batch_graph_is_planned_at_its_own_size():
