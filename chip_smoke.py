@@ -587,7 +587,29 @@ without printing the final result line:
     of a ``CellMap``, each with its own read-only cache and router behind
     a ``CellHead``, warmed and serving their own waves (no rejection),
     ``catch_up``.  p50 / p99 latency, requests/s, refreshed rows.
-47. Print the card's name and power limit, the ``kernels`` JSON line (each
+47. The hybrid deployment (dense parameters averaged over
+    ``DataParallel`` ranks, embedding rows in a sharded parameter server
+    with a shard on every rank) through the launcher, at phase 9's
+    configuration.  (a) Two ranks started by ``launcher.launch``, sharing
+    the card over gloo, each running ``hetu_tpu_torch/tools/hybrid_wdl.py``
+    (a shard of a two-shard ``DistributedStore``, ``wdl_criteo`` with
+    ``embed_mode`` ``ps`` and ``vlru``, ``HY_STEPS`` BSP and ``HY_STEPS``
+    ASP steps each, every rank fed the global batch, the dense weights and
+    the table's rows those of this process's one-process run): both ranks'
+    losses equal, ASP's equal to BSP's, the BSP losses within ``HY_RTOL``
+    of a one-process run on the card over a local ``EmbeddingStore`` with
+    the same feeds, its final table within ``CTR_TABLE_RTOL`` /
+    ``CTR_TABLE_ATOL`` and its digest within ``HY_DIGEST_ATOL``; no
+    embedding-cache kernel launched on a rank (the strategy refuses the
+    device cache, so B4 and B5 are on no path here); p50 step and rank 0's
+    device idle share per mode.  (b) Three ranks with
+    ``HETU_PS_REPLICATION=2`` (the launcher's ``--ps-replication 2``), the
+    hybrid BSP run over ``ps`` (batch ``HY_B_BATCH``, 2048 cut to a
+    multiple of 3) without and then with ``HETU_CHAOS=HY_CHAOS``
+    (dup 5 %, drop 2 %, shard 1's primary stopped after step 4): the run
+    completes with one promotion, its losses and table bit-equal to the
+    run without the schedule; the fault counters printed.
+48. Print the card's name and power limit, the ``kernels`` JSON line (each
     flash row counts the launches of phases 38-42, 44 and 45 too, B4 and
     B5 those of phases 41-43 and 46, by kernels-line name; the rows of
     phase 44's shapes and phase 46's bf16 step under ``shapes``,
@@ -614,6 +636,7 @@ import sys
 import tempfile
 import time
 import traceback
+import types
 import warnings
 
 import numpy as np
@@ -7265,6 +7288,15 @@ CS_BF16_PARITY = dict(rtol=5e-2, atol=5e-2)
 FO_WORLD, FO_STEPS, FO_KILL, FO_TABLES = 3, 10, 3, 2
 FO_RPC = dict(rpc_timeout=5.0, rpc_retries=2, connect_timeout=2.0)
 FO_HB_DEADLINE_MS = 1500.0
+# phase 47: the hybrid deployment through the launcher
+HY_STEPS = 8
+HY_RTOL = 2e-5              # tests/test_launcher.py's hybrid case
+HY_DIGEST_ATOL = 2e-4       # that case's table digest bar
+HY_DEADLINE = 300
+HY_CHAOS = "7:dup=0.05,drop=0.02,kill:primary@shard1:step4"
+#: (b)'s batch over three ranks: phase 9's 2048 cut to a multiple of 3
+HY_B_BATCH = 2046
+HY_RPC = ("--rpc-timeout", "5")
 #: (d): the serving bucket, the requests of the killed wave, the checked
 #: wave and each cell's wave, client threads, the router's refresh period
 CS_BUCKET, CS_SERVE_REQS, CS_CHECK_REQS, CS_CELL_REQS = 64, 512, 64, 64
@@ -7882,6 +7914,191 @@ def phase_ctr_serving(ht, emb, seg, metrics, kmods, pm, ps_p50=None,
     return launches, rows
 
 
+# -- phase 47: the hybrid deployment through the launcher ----------------------
+
+def hy_launch(n, args, env=None):
+    """``n`` ranks of ``tools/hybrid_wdl.py`` started by the launcher
+    (``launcher.launch``, local processes) with ``env`` added to their
+    environment; every rank killed past ``HY_DEADLINE``.  Returns each
+    rank's JSON."""
+    from hetu_tpu_torch import launcher
+    from hetu_tpu_torch.context import DistConfig
+    root = os.path.dirname(os.path.abspath(__file__))
+    tool = os.path.join(root, "hetu_tpu_torch", "tools", "hybrid_wdl.py")
+    out = args[args.index("--out") + 1]
+    ports = _free_ports(n + 1)
+    saved = dict(os.environ)
+    os.environ.update(env or {})
+    try:
+        procs = launcher.launch(
+            DistConfig(num_hosts=n, hosts=["localhost"] * n), tool,
+            ["--ports", ",".join(map(str, ports[:n]))] + list(args),
+            ssh=False, coordinator_port=ports[n])
+    finally:
+        os.environ.clear()
+        os.environ.update(saved)
+    t0, codes = time.monotonic(), None
+    try:
+        while time.monotonic() - t0 < HY_DEADLINE:
+            codes = [p.poll() for p in procs]
+            if any(c not in (None, 0) for c in codes) \
+                    or all(c == 0 for c in codes):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if [p.returncode for p in procs] != [0] * n:
+        raise AssertionError(f"phase 47: the ranks exited {codes} (None: "
+                             f"past the {HY_DEADLINE} s deadline)")
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def hy_reference(ht, hybrid_wdl, mode, weights, device):
+    """The one-process run on the card over a local ``EmbeddingStore``:
+    (losses, final table, the dense weights: ``weights``, else the run's
+    initial ones)."""
+    a = types.SimpleNamespace(batch=CTR_BATCH, vocab=CTR_VOCAB, dim=CTR_DIM,
+                              device=device)
+    store = ht.EmbeddingStore()
+    run = hybrid_wdl.Run(store, mode, "sgd", a, None)
+    store.set_data(run.node.table, hybrid_wdl.table0(CTR_VOCAB, CTR_DIM, 1))
+    if weights is None:
+        weights = run.ex.return_tensor_values()
+    run.ex.load_dict(weights)
+    losses, _ = run.steps(hybrid_wdl.feeds(HY_STEPS, CTR_BATCH, CTR_VOCAB,
+                                           0))
+    run.finish()
+    run.ex.close()
+    return losses, store.pull(run.node.table, np.arange(CTR_VOCAB)), weights
+
+
+def phase_hybrid(ht, device="cuda"):
+    """Phase 47 (see the module docstring)."""
+    from hetu_tpu_torch.tools import hybrid_wdl
+    t_phase = time.perf_counter()
+    card = card_line()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hybrid_")
+    report = {"card": card}
+    try:
+        ref, weights = {}, None
+        for mode in ("ps", "vlru"):
+            losses, table, weights = hy_reference(ht, hybrid_wdl, mode,
+                                                  weights, device)
+            ref[mode] = (losses, table)
+        wpath = os.path.join(tmp, "weights.pkl")
+        with open(wpath, "wb") as f:
+            pickle.dump(weights, f)
+        common = ["--device", device, "--steps", str(HY_STEPS),
+                  "--vocab", str(CTR_VOCAB), "--dim", str(CTR_DIM),
+                  "--weights", wpath, "--dump-tables"]
+        # (a) two ranks sharing the card
+        out_a = os.path.join(tmp, "a")
+        os.makedirs(out_a)
+        t0 = time.perf_counter()
+        ranks = hy_launch(2, ["--out", out_a, "--modes", "ps,vlru",
+                              "--bsps", "0,-1", "--profile",
+                              "--batch", str(CTR_BATCH)] + common)
+        report["a_s"] = time.perf_counter() - t0
+        rows = {}
+        for mode in ("ps", "vlru"):
+            want, wtable = ref[mode]
+            for bsp in (0, -1):
+                name = f"{mode}_sgd_bsp{bsp}"
+                r0, r1 = (r["runs"][name] for r in ranks)
+                if r1["losses"] != r0["losses"] \
+                        or r1["digest"] != r0["digest"]:
+                    raise AssertionError(f"phase 47 {name}: the ranks "
+                                         f"disagree")
+                if r0["losses"] != ranks[0]["runs"][
+                        f"{mode}_sgd_bsp0"]["losses"]:
+                    raise AssertionError(f"phase 47 {name}: ASP (flushed "
+                                         f"at the step boundary) left BSP")
+                got = np.load(os.path.join(out_a, name + ".npy"))
+                loss_err = float(np.max(np.abs(np.subtract(
+                    r0["losses"], want)) / np.abs(want)))
+                table_err = float(np.max(np.abs(got - wtable)))
+                digest_err = abs(float(np.abs(
+                    got.astype(np.float64)).sum())
+                    - float(np.abs(wtable.astype(np.float64)).sum()))
+                if not (loss_err <= HY_RTOL and digest_err < HY_DIGEST_ATOL
+                        and np.allclose(got, wtable, rtol=CTR_TABLE_RTOL,
+                                        atol=CTR_TABLE_ATOL)
+                        and all(math.isfinite(x) for x in r0["losses"])):
+                    raise AssertionError(
+                        f"phase 47 {name}: two ranks vs one process: loss "
+                        f"rel {loss_err:.3e}, table {table_err:.3e}, "
+                        f"digest {digest_err:.3e}")
+                rows[name] = {
+                    "p50_step_ms": float(np.median(r0["step_ms"][1:])),
+                    "rank0_idle_share": r0.get("idle_share"),
+                    "rank0_busy_ms": r0.get("busy_ms"),
+                    "loss_rel_err": loss_err, "table_max_abs_err": table_err,
+                    "digest_err": digest_err, "cache_rank0": r0["cache"],
+                    "cache_rank1": r1["cache"], "last_loss": r0["losses"][-1]}
+        for r in ranks:
+            if any(r["launches"].values()):
+                raise AssertionError(f"phase 47: an embedding-cache kernel "
+                                     f"launched on a rank: {r['launches']}")
+        report["a"] = rows
+        log(f"[hybrid] (a) {json.dumps(rows)} card {card}")
+        # (b) three ranks, replicated, without and with the schedule
+        runs = {}
+        for tag, env in (("clean", {}), ("chaos", {"HETU_CHAOS": HY_CHAOS})):
+            out = os.path.join(tmp, tag)
+            os.makedirs(out)
+            t0 = time.perf_counter()
+            runs[tag] = hy_launch(
+                3, ["--out", out, "--modes", "ps", "--bsps", "0",
+                    "--batch", str(HY_B_BATCH), *HY_RPC] + common,
+                env=dict(env, HETU_PS_REPLICATION="2"))
+            report[f"b_{tag}_s"] = time.perf_counter() - t0
+        name = "ps_sgd_bsp0"
+        base = runs["clean"][0]["runs"][name]["losses"]
+        for tag in ("clean", "chaos"):
+            for r in runs[tag]:
+                if r["runs"][name]["losses"] != base:
+                    raise AssertionError(f"phase 47 (b) {tag} rank "
+                                         f"{r['rank']}: losses left the "
+                                         f"clean run's")
+        tables = [np.load(os.path.join(tmp, tag, name + ".npy"))
+                  for tag in ("clean", "chaos")]
+        if not np.array_equal(*tables):
+            raise AssertionError("phase 47 (b): the chaos run's table left "
+                                 "the clean run's")
+        faults = [r["faults"] for r in runs["chaos"]]
+        promoted = sum(f.get("ps_promoted", 0) for f in faults)
+        killed = sum(f.get("chaos_kill_primary", 0) for f in faults)
+        if promoted != 1 or killed != 1 \
+                or 1 not in runs["chaos"][2]["serving"]:
+            raise AssertionError(f"phase 47 (b): not one failover of shard "
+                                 f"1: {faults}")
+        if any(r["faults"] for r in runs["clean"]):
+            raise AssertionError("phase 47 (b): faults in the clean run")
+        report["b"] = {"faults_by_rank": faults,
+                       "serving": [r["serving"] for r in runs["chaos"]],
+                       "p50_step_ms_clean": float(np.median(
+                           runs["clean"][0]["runs"][name]["step_ms"][1:])),
+                       "p50_step_ms_chaos": float(np.median(
+                           runs["chaos"][0]["runs"][name]["step_ms"][1:])),
+                       "chaos_step_ms": runs["chaos"][0]["runs"][name][
+                           "step_ms"]}
+        log(f"[hybrid] (b) {json.dumps(report['b'])} card {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[hybrid] card {card} phase 47 in {report['phase_s']:.1f} s "
+        f"(a {report['a_s']:.1f} s, b {report['b_clean_s']:.1f} + "
+        f"{report['b_chaos_s']:.1f} s)")
+    return report
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script runs on the "
@@ -8122,7 +8339,10 @@ def main():
     for name, n in claunches46.items():
         dlaunches[name] = dlaunches.get(name, 0) + n
 
-    # -- 47. result lines ---------------------------------------------------------
+    # -- 47. the hybrid deployment through the launcher ---------------------------
+    phase_hybrid(ht)
+
+    # -- 48. result lines ---------------------------------------------------------
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 

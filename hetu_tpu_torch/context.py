@@ -1,5 +1,5 @@
-"""Device resolution and the device mesh of the PyTorch port (the device
-and mesh halves of ``hetu_tpu/context.py``).
+"""Device resolution, the device mesh and the cluster spec of the PyTorch
+port (the device, mesh and ``DistConfig`` parts of ``hetu_tpu/context.py``).
 
 ``gpu(i)`` names a CUDA device and ``cpu()`` the host.  Entry points
 (``InferenceExecutor``, ``DecodeEngine``) take ``device=`` and resolve it
@@ -9,6 +9,7 @@ caller asks for it (the CPU tests do).
 
 ``make_mesh`` names the axes of the initialised ``torch.distributed``
 world as a ``DeviceMesh``; only the data-parallel axis ``dp`` is ported.
+:class:`DistConfig` is the cluster yaml the launcher reads.
 """
 from __future__ import annotations
 
@@ -79,3 +80,26 @@ def make_mesh(axis_sizes=None, devices=None, dcn_axes=None):
         devices = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return DeviceMesh(torch.device(devices).type, list(range(n)),
                       mesh_dim_names=("dp",))
+
+
+class DistConfig:
+    """The cluster spec of the launcher (``hetu_tpu_torch.launcher``): a
+    list of hosts, one rank a host, the first the chief.  ``file``: a yaml
+    of the JAX package's format, ``nodes: [{host: ...}, ...]`` (needs
+    ``pyyaml``); else ``num_hosts`` and ``hosts``."""
+
+    def __init__(self, file=None, num_hosts=1, hosts=None):
+        self.hosts = hosts or ["localhost"]
+        self.num_hosts = num_hosts
+        if file is not None:
+            import yaml
+            with open(file) as f:
+                spec = yaml.safe_load(f)
+            nodes = spec.get("nodes", [])
+            self.hosts = [n.get("host", "localhost") for n in nodes] \
+                or self.hosts
+            self.num_hosts = len(self.hosts)
+        self.chief = self.hosts[0]
+
+    def __repr__(self):
+        return f"DistConfig(hosts={self.hosts})"

@@ -46,6 +46,18 @@ from ..metrics import record_fault
 
 FORMAT = "hetu_tpu.ckpt.v1"
 
+#: ``chaos.active``, resolved at the first step that asks; the injector
+#: itself may be installed or removed mid-run and is read every step
+_chaos_active_fn = None
+
+
+def _chaos_active():
+    global _chaos_active_fn
+    if _chaos_active_fn is None:
+        from .. import chaos
+        _chaos_active_fn = chaos.active
+    return _chaos_active_fn()
+
 
 # -- jax.tree_util's flattening order and key strings ---------------------------
 
@@ -342,6 +354,9 @@ class CheckpointMixin:
         if rank0:
             os.makedirs(os.path.join(work, "params"), exist_ok=True)
             os.makedirs(os.path.join(work, "opt"), exist_ok=True)
+        # a DistributedStore's shards are written by their ranks, into the
+        # directory rank 0 has just made
+        self._save_barrier()
         meta = {"format": FORMAT, "step": self.step_counter,
                 "seed": self.seed, "params": {}, "opt": [],
                 "ps_tables": [], "manifest": {}}
@@ -375,6 +390,8 @@ class CheckpointMixin:
         meta["dataloaders"] = [
             {split: dl.state_dict() for split, dl in op.dataloaders.items()}
             for op in self._dataloader_sites()]
+        # every rank's shard files are written before rank 0 publishes
+        self._save_barrier()
         if rank0:
             tmp = os.path.join(work, "meta.json.tmp")
             with open(tmp, "w") as f:
@@ -437,6 +454,10 @@ class CheckpointMixin:
             fn = f"ps{i}.bin"
             if fn in entries:
                 node.store.load(node.table, os.path.join(path, fn))
+        # each rank loads the shards it serves: no rank pulls before all
+        # of them are back
+        if meta["ps_tables"]:
+            self._save_barrier()
 
     def _load_dir(self, path, meta, params_only):
         by_name = {self.var_names[n]: n for n in self.var_values}
@@ -488,12 +509,18 @@ class CheckpointMixin:
     # -- auto-save, resume, preemption ------------------------------------------
 
     def _post_step(self, training):
-        """Step-boundary hooks: the periodic auto-save, the PS redundancy
-        repair tick and a deferred preemption save."""
+        """Step-boundary hooks: the periodic auto-save, the chaos
+        schedule's step clock, the PS redundancy repair tick and a
+        deferred preemption save."""
         if training:
             if self.auto_save_dir and self.auto_save_every > 0 \
                     and self.step_counter % self.auto_save_every == 0:
                 self._auto_save()
+            inj = _chaos_active()
+            if inj is not None:
+                # after the auto-save: ``kill:ps@rank<r>:step<s>`` is
+                # "step s completed and was saved, then the server died"
+                inj.on_step(self.step_counter)
             self._tick_re_replication()
         if self._preempt_signum is not None:
             self._handle_preemption()

@@ -74,6 +74,20 @@ sharded one gathered to the global batch, so every rank returns what the
 single-device run returns.  Rank r > 0 draws its dropout masks from
 ``(seed, step, r)``.
 
+PS embeddings under the strategy (the JAX package's hybrid deployment:
+dense parameters averaged over the ranks, sparse rows in a store every
+rank shares, a :class:`~hetu_tpu_torch.ps.dist_store.DistributedStore`
+with a shard on each rank): every rank pulls the global batch's rows,
+through its own host-mode cache where there is one, and keeps its block;
+after the backward the ranks' row gradients are gathered into the global
+batch's, equal on every rank, and rank 0 alone pushes it (the server's
+optimizer, Adam included, applies one push of the whole gradient, as in
+the JAX package).  ASP's pushes are flushed at the step boundary, and a
+``torch.distributed.barrier`` there makes every rank's next pull see the
+step's push; SSP ticks each rank's clock.  A device-resident cache is
+refused under the strategy, as the JAX package refuses it on a
+multi-process mesh.
+
 Mixed precision composes with the strategy: the casts into and out of
 bf16 run inside each rank's step, the gradients reach the float32 masters
 as float32 and are averaged (or reduce-scattered) in float32.
@@ -119,7 +133,10 @@ window) are counted in ``metrics.run_plan_counts()['async_sync_points']``.
 Gradient accumulation (``num_microbatches=M``, the JAX package's
 ``_microbatched_grads``): the batch feeds split into M blocks, one
 forward and backward a block, the gradients summed and divided by M, the
-state updates threaded from block to block; M = 1 is the plain step.
+state updates threaded from block to block; M = 1 is the plain step.  A
+subgraph with PS embeddings, whose rows are pulled for the whole batch,
+takes the whole batch's gradient in one step, as the JAX package does
+without a pipeline.
 Rematerialization (``remat=``): ``parallel/remat.py``.  Checkpoints in
 the ``hetu_tpu.ckpt.v1`` format, auto-save, ``resume`` and the
 preemption save: ``graph/checkpoint.py``.
@@ -129,11 +146,11 @@ replicated ``DistributedStore`` under the graphs' PS embeddings tries to
 restore a failed-over shard's backup (``maybe_re_replicate``).
 
 Not ported, refused by name: a strategy other than ``DataParallel``,
-``mesh``, PS embeddings together with ``dist_strategy``, ``plan``,
-``pipeline``, ``num_microbatches`` and ``remat`` under ``dist_strategy``,
-``num_microbatches`` with PS embeddings, a ``compute_dtype`` other than
-bfloat16, a device cache under ASP / SSP, PS ids from a computed node,
-the other JAX-package options, and ``save_orbax`` / ``load_orbax``.
+``mesh``, ``plan``, ``pipeline``, ``num_microbatches`` and ``remat``
+under ``dist_strategy``, a ``compute_dtype`` other than bfloat16, a
+device cache under ASP / SSP or under the strategy, PS ids from a
+computed node or from a dataloader holding one rank's shard, the other
+JAX-package options, and ``save_orbax`` / ``load_orbax``.
 """
 from __future__ import annotations
 
@@ -455,23 +472,27 @@ class SubExecutor:
                                                  for i in node.inputs)
         self.fetch_depends_feed = [f is not None and deps.get(f, False)
                                    for f in self.fetches]
-        if self.ps_nodes and self.grad_ops \
-                and (executor.num_microbatches or 1) > 1:
-            raise NotImplementedError(
-                f"Executor(num_microbatches=) with PS embedding "
-                f"{self.ps_nodes[0]} in subgraph {name!r}: the rows are "
-                f"pulled for the whole batch")
+        #: PS rows are pulled for the whole batch, so a subgraph with PS
+        #: embeddings takes the whole batch's gradient in one step under
+        #: ``num_microbatches``, as the JAX package does without a pipeline
+        self._accumulates = (executor.num_microbatches or 1) > 1 \
+            and not self.ps_nodes
         self._remat_plan = _remat.plan_for(self)
 
     def _check_dp(self, name):
-        """Data parallelism: no PS embeddings; each dataloader either
+        """Data parallelism: no device-resident PS cache (the JAX
+        package's refusal on a multi-process mesh); each dataloader either
         holds the whole dataset (``dp_nrank=1``: its batches are split
-        like feeds) or exactly this rank's shard."""
-        if self.ps_nodes:
-            raise NotImplementedError(
-                f"Executor(dist_strategy=...) with PS embedding "
-                f"{self.ps_nodes[0]} in subgraph {name!r} is not ported")
+        like feeds) or exactly this rank's shard, and a PS embedding's ids
+        come from a whole-dataset loader or a feed."""
         _, size, rank = self.ex.dp
+        if self._ps_dev_items:
+            raise NotImplementedError(
+                f"PS embedding {self._ps_dev_items[0]} in subgraph "
+                f"{name!r}: device-resident embedding caches support "
+                f"single-process BSP training (bsp=0) — ASP/SSP and "
+                f"multi-process meshes need the host-mode cache "
+                f"(DistCacheTable(device=False))")
         for node in self.dataloader_nodes:
             dl = node.dataloaders.get(name)
             if dl is None or dl.dp_nrank == 1:
@@ -483,6 +504,13 @@ class SubExecutor:
                     f"data-parallel group of {size} takes dp_nrank=1 or "
                     f"its own shard")
             self._shard_loaders.add(node)
+        for n in self.ps_nodes:
+            if n.ids_node in self._shard_loaders:
+                raise NotImplementedError(
+                    f"PS embedding {n}: ids from {n.ids_node}, a dataloader "
+                    f"holding one rank's shard, are not ported under "
+                    f"dist_strategy; feed the global batch's ids or a "
+                    f"dp_nrank=1 loader")
 
     def _low(self, t):
         """A float32 value in the compute dtype (the mixed-precision cast
@@ -519,11 +547,15 @@ class SubExecutor:
                 feeds[node] = self._low(t)
                 if axis is not None and t.ndim:
                     axis.sharded.add(node)
+            # every rank pulls the global batch's rows (its cache sees
+            # what the JAX package's process sees) and keeps its block
             for node in self._ps_host_items:
                 ps_vals[node] = ex._place_feed(
                     node, self._host_rows(node, feed_dict, feeds))
             if dev_pending is not None:
                 self._finish_dev_lookups(dev_pending, ps_vals, invs)
+            if axis is not None:
+                axis.sharded.update(ps_vals)
         except BaseException:
             if dev_pending is not None:
                 self._settle_dev_pending(dev_pending)
@@ -543,7 +575,7 @@ class SubExecutor:
 
         updates = ctx.state_updates
         if self.grad_ops:
-            if (ex.num_microbatches or 1) > 1:
+            if self._accumulates:
                 env, grads, updates = self._accumulate(feeds, var)
             else:
                 env, grads, ps_grads = self._value_and_grad(
@@ -838,6 +870,7 @@ class SubExecutor:
         copy to the host is the step's sync point); a host table pushes
         the whole row gradient through its cache or store."""
         ex = self.ex
+        multi = ex.dp is not None and ex.dp[1] > 1
         if ex.bsp == -1 and ex.prefetch:
             # ASP: the next pull may overlap the push (bounded staleness
             # allows it)
@@ -849,12 +882,32 @@ class SubExecutor:
                 if g is not None and h is not None and h.uk is not None:
                     node.cache.apply_update_summed(
                         h.uk, g[:h.uk.size].cpu().numpy(), h.cnt)
-            elif g is not None:
-                if ex.bsp == -1:
-                    # the copy to the host runs on the worker, too
-                    ex._ps_async_push(node, g)
-                else:
-                    node.push(g.cpu().numpy())
+                continue
+            if g is None:
+                continue
+            if multi:
+                # the rank's rows carry dp times their share of the
+                # global loss's gradient (the loss's sum over ranks
+                # differentiates into a sum of the cotangents): gathered
+                # and divided, every rank holds the global batch's row
+                # gradient, and exactly one rank applies it, as the JAX
+                # package pushes its replicated gradient once
+                group, size, rank = ex.dp
+                g = all_gather(g, group) / size
+                if rank != 0:
+                    continue
+            if ex.bsp == -1:
+                # the copy to the host runs on the worker, too
+                ex._ps_async_push(node, g)
+            else:
+                node.push(g.cpu().numpy())
+        if multi and self.ps_nodes and self.training:
+            # every rank's next pull sees this step's push: ASP's pushes
+            # are flushed at the step boundary (rows diverging across
+            # ranks would be silent corruption, not bounded staleness)
+            if ex.bsp == -1:
+                ex.ps_flush()
+            torch.distributed.barrier(group=ex.dp[0])
         if ex.bsp > 0 and self.training:
             self._ssp_wait()
         if ex.bsp != -1 and ex.prefetch:
@@ -915,10 +968,12 @@ class SubExecutor:
             if node in self._prefetched or node.device_mode:
                 continue
             if isinstance(node.store, DistributedStore) \
-                    and self.ex.bsp != -1:
+                    and (self.ex.bsp != -1 or (self.ex.dp is not None
+                                               and self.ex.dp[1] > 1)):
                 # BSP / SSP over several workers: a lookahead issued after
                 # only the local push would miss the other workers' pushes
-                # of the step
+                # of the step; under data parallelism, ASP's too (ranks
+                # would read different rows for one global batch)
                 continue
             idn = node.ids_node
             if not isinstance(idn, DataloaderOp):

@@ -24,27 +24,31 @@ NUM_SPARSE = 26
 
 
 def _embed(ids_node, vocab, dim, mode, lr, name, batch_ids=None,
-           slab_device=None):
+           slab_device=None, store=None, table_opt="sgd"):
     """Shared embedding.  Modes: ``dense`` (in-graph variable), ``ps``
-    (the default store, no cache), ``lru`` / ``lfu`` / ``lfuopt`` (the
-    native HET cache, :class:`CacheSparseTable`, over the default store),
-    ``vlru`` / ``vlfu`` (the vectorized HET cache, :class:`DistCacheTable`,
-    host slab) and ``vlru_dev`` / ``vlfu_dev`` (the same cache with its
-    slab on ``slab_device``, CUDA by default: hit rows gathered on the
-    card, only miss rows cross from the host, grads summed on the
-    card)."""
+    (the store, no cache), ``lru`` / ``lfu`` / ``lfuopt`` (the native HET
+    cache, :class:`CacheSparseTable`, with its own table), ``vlru`` /
+    ``vlfu`` (the vectorized HET cache, :class:`DistCacheTable`, host
+    slab, over the store) and ``vlru_dev`` / ``vlfu_dev`` (the same cache
+    with its slab on ``slab_device``, CUDA by default: hit rows gathered
+    on the card, only miss rows cross from the host, grads summed on the
+    card).  ``store``: where ``ps`` and the vectorized caches keep the
+    table (a ``DistributedStore`` for the hybrid deployment); None is the
+    default store for ``ps`` and a fresh ``EmbeddingStore`` for the
+    caches, as in the JAX package.  ``table_opt``: the store's optimizer
+    of the table's rows (``sgd``, as in the JAX package, ``adam``, ...)."""
     if mode == "dense":
         table = Variable(name, initializer=init.GenNormal(0.0, 0.01),
                          shape=(vocab, dim), trainable=True, is_embed=True)
         return embedding_lookup_op(table, ids_node)
     if mode == "ps":
-        store = default_store()
-        t = store.init_table(vocab, dim, opt="sgd", lr=lr, seed=0,
+        store = store if store is not None else default_store()
+        t = store.init_table(vocab, dim, opt=table_opt, lr=lr, seed=0,
                              init_scale=0.01)
         return ps_embedding_lookup_op((store, t), ids_node, width=dim)
     if mode in ("vlru", "vlfu", "vlru_dev", "vlfu_dev"):
-        store = EmbeddingStore()
-        t = store.init_table(vocab, dim, opt="sgd", lr=lr, seed=0,
+        store = store if store is not None else EmbeddingStore()
+        t = store.init_table(vocab, dim, opt=table_opt, lr=lr, seed=0,
                              init_scale=0.01)
         device = mode.endswith("_dev")
         # a batch never holds more uncacheable unique keys than ids, so
@@ -79,12 +83,15 @@ def _mlp(x, dims, name):
 
 
 def wdl_criteo(dense, sparse, y_, batch_size, vocab=100000, dim=16,
-               embed_mode="dense", lr=0.01, slab_device=None):
+               embed_mode="dense", lr=0.01, slab_device=None, store=None,
+               table_opt="sgd"):
     """Wide & Deep (reference models/wdl_criteo.py).  Returns
     ``(loss, prob)``.  ``slab_device``: where a ``*_dev`` cache keeps its
-    slab (CUDA by default; pass the executor's device)."""
+    slab (CUDA by default; pass the executor's device).  ``store`` and
+    ``table_opt``: the PS table's store and optimizer (see ``_embed``)."""
     emb = _embed(sparse, vocab, dim, embed_mode, lr, "wdl_embed",
-                 batch_ids=batch_size * NUM_SPARSE, slab_device=slab_device)
+                 batch_ids=batch_size * NUM_SPARSE, slab_device=slab_device,
+                 store=store, table_opt=table_opt)
     return _wdl_head(emb, dense, y_, batch_size, dim)
 
 

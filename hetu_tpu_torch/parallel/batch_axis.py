@@ -27,6 +27,9 @@ its rows of what the single-device program computes on the global batch:
   sharded, or replicated and broadcast into the rows); a sharded operand
   broadcast to a replicated shape raises;
 * ``Transpose`` keeps dim 0 in place;
+* ``Concat`` / ``Concatenate`` along a dim after the batch's is
+  row-local (Wide & Deep joins its embedding rows to the dense
+  features); along dim 0 it raises;
 * a reduction over dim 0 (``ReduceSum``, ``ReduceMean``) reduces locally,
   then sums over the group with the differentiable ``all_reduce`` (a mean
   divides by the global count): a replicated value.  A bf16 input is
@@ -190,6 +193,15 @@ def _slice(ax, node, ctx, vals, flags):
     return _lower_with(node, ctx, vals, end=end), True
 
 
+def _concat(ax, node, ctx, vals, flags):
+    """Joined along a dim after the batch's: row-local.  Along dim 0 the
+    ranks' blocks would interleave: refused."""
+    nd = max(v.ndim for v in vals)
+    if node.attrs.get("axis", 0) % nd == 0:
+        _refuse(node, "a join along the batch dim")
+    return _rowwise(ax, node, ctx, vals, flags)
+
+
 def _reduce(mean):
     def rule(ax, node, ctx, vals, flags):
         a = vals[0]
@@ -304,5 +316,6 @@ RULES.update({
     "Conv2d": _weights(1), "Conv2dAddBias": _weights(1, 2),
     "EmbeddingLookup": _weights(0), "Transpose": _transpose,
     "ArrayReshape": _reshape, "Slice": _slice,
+    "Concat": _concat, "Concatenate": _concat,
     "ReduceSum": _reduce(mean=False), "ReduceMean": _reduce(mean=True),
     "BatchNorm": _batch_norm, "BroadcastTo": _broadcast_to})

@@ -51,8 +51,14 @@ teaches the sender the newer epoch; a healed stale ex-primary demotes
 itself on first contact with the new lineage (``ps_demotions``) and must
 be synced before it can be promoted again.  Reads stay unfenced.
 ``OP_CHECKSUM`` (``state_digest``) and ``OP_EPOCH`` are what
-:mod:`hetu_tpu_torch.tools.ps_fsck` reads.  The chaos hooks are not
-ported.
+:mod:`hetu_tpu_torch.tools.ps_fsck` reads.
+
+**Chaos** (:mod:`hetu_tpu_torch.chaos`, ``HETU_CHAOS``): a store's server
+registers with the active injector as a kill target (``kill:ps``, and
+``kill:primary`` / ``kill:backup`` resolved against ``serves`` / ``holds``
+at fire time), and ``_rpc`` asks ``on_send`` before every attempt of
+every frame, retries and forwards included, as the JAX client does, so
+one seeded schedule gives both packages one fault order.
 
 **The cache** (``_segment_sum``, ``_DevLookup``, :class:`DistCacheTable`)
 works over either store, in training mode or as a read-only serving
@@ -76,6 +82,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .. import chaos as _chaos
 from ..context import resolve_device
 from ..metrics import record_cache, record_fault, record_rpc
 from .opcodes import defop as _defop, frame_repr, op_name
@@ -1025,6 +1032,11 @@ class DistributedStore:
         self._hb_stop = threading.Event()
         # the server's forwards and sync transfers ride this transport
         self.server.rpc_fn = self._rpc
+        # HETU_CHAOS=seed:spec activates the injector for every store in
+        # the process; the server registers as a kill target
+        inj = _chaos.active() or _chaos.install_from_env()
+        if inj is not None:
+            inj.register_server(rank, self.server)
 
     # -- connections -------------------------------------------------------
     def _conn(self, peer):
@@ -1076,11 +1088,31 @@ class DistributedStore:
                                       self._backoff_cap, self._backoff_rng)
                 time.sleep(delay)
             try:
+                # the active chaos schedule may drop, delay, duplicate or
+                # wedge this frame, decided where the JAX client decides
+                inj = _chaos.active()
+                act = inj.on_send(peer, op, src=self.rank) \
+                    if inj is not None else None
+                if act is not None and act[0] == "drop":
+                    raise TimeoutError(
+                        f"chaos: dropped {op_name(op)} frame")
                 sock, lock = self._conn(peer)
                 with lock:
                     sock.settimeout(op_timeout if op_timeout is not None
                                     else self.rpc_timeout)
+                    if act is not None and act[0] == "delay":
+                        time.sleep(act[1] / 1e3)
+                    elif act is not None and act[0] == "wedge":
+                        time.sleep(act[1] / 1e3)
+                        raise TimeoutError(
+                            f"chaos: wedged socket on {op_name(op)}")
                     _send_frame(sock, hdr, keys.tobytes(), payload)
+                    if act is not None and act[0] == "dup":
+                        # the same (client, seq) frame twice: the server's
+                        # dedup window applies it once; the dup's ack is
+                        # read and dropped
+                        _send_frame(sock, hdr, keys.tobytes(), payload)
+                        _recv_frame(sock)
                     resp = _recv_frame(sock)
                 break
             except (TimeoutError, ConnectionError, OSError) as e:
@@ -1234,8 +1266,14 @@ class DistributedStore:
             f.result()
 
     def _local(self, shard):
-        """True iff ``shard`` is answered by this process's own server."""
-        return self._route[shard] == self.rank and self.server.serves(shard)
+        """True iff ``shard`` is answered by this process's own live
+        server.  A stopped server (a chaos kill, a fail-stop) answers
+        nothing, its own worker included: its shards go over the
+        transport, which fails over to the backup, so the worker never
+        reads or writes the dead copy (ROADMAP C17; the JAX client keeps
+        using it)."""
+        return self._route[shard] == self.rank \
+            and self.server.serves(shard) and not self.server._stop
 
     # -- tables ------------------------------------------------------------
     def _shard_rows(self, rows, shard):

@@ -11,9 +11,9 @@ refused, demotes itself and re-replicates.
 
 :class:`CellMap` names disjoint rank sets; :meth:`CellMap.partition_spec`
 formats the chaos-DSL string of a cross-cell cut
-(``partition:rankA+...|rankB+...@step<n>[:heal<m>]``) — only the string:
-the port has no chaos injector to play it (``HETU_CHAOS`` stays refused
-by name).  :class:`CellHead` is one cell's serving head: its store
+(``partition:rankA+...|rankB+...@step<n>[:heal<m>]``), which
+:mod:`hetu_tpu_torch.chaos` plays on the PS transport; the serving
+routers themselves still refuse a set ``HETU_CHAOS`` by name.  :class:`CellHead` is one cell's serving head: its store
 client, its read-only cache and the router in front of its
 :class:`~hetu_tpu_torch.serving.InferenceExecutor`.
 """

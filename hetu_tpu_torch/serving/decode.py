@@ -69,8 +69,9 @@
   ``detach_queue`` / ``detach_inflight`` / ``adopt``, ``kill``) and the
   request-level mode (``continuous=False``, ``max_wait_ms``).
 
-Not ported: tensor-parallel plans (``plan=``), and the chaos, race,
-protocol-trace and tracer hooks (``HETU_CHAOS`` set is refused by name).
+Not ported: tensor-parallel plans (``plan=``), the chaos token clock
+(``kill:replica@<idx>:tok<n>``; ``HETU_CHAOS`` set is refused by name),
+and the race, protocol-trace and tracer hooks.
 
 Threading: the router's loop thread owns the engine (slots, caches); the
 queue and the seated-request mirror hand off under ``DecodeRouter._cv``

@@ -42,8 +42,8 @@ Locking: the door owns one lock and never holds it across a replica's
 → router lock, and done-callbacks (router threads) take only the door
 lock.
 
-Not ported: the chaos ``kill:replica@…`` hooks (``HETU_CHAOS`` set is
-refused by name) and the serve cache that makes a JAX scale-out a cache
+Not ported: the chaos ``kill:replica@…`` hooks and admission clock
+(``HETU_CHAOS`` set is refused by name) and the serve cache that makes a JAX scale-out a cache
 hit.
 """
 from __future__ import annotations
@@ -107,8 +107,8 @@ class FrontDoor:
     ejects a replica.  ``health_every_ms``: sweep cadence (time-gated;
     sweeps ride admissions and ``poll``).  ``window``: end-to-end
     latency ring size behind :meth:`p99_ms`.  ``register_chaos`` is kept
-    for the JAX package's signature; with no chaos injector in the port
-    it does nothing (a set ``HETU_CHAOS`` is refused by name).
+    for the JAX package's signature; the front door's chaos hooks are not
+    ported, so it does nothing (a set ``HETU_CHAOS`` is refused by name).
     ``forward_deadline_ms=True`` forwards the per-request deadline into
     ``replica.submit(..., deadline_ms=...)`` (decode replicas evict
     mid-generation); one-shot routers don't take the kwarg, so it

@@ -32,8 +32,13 @@
   ``refresh_every_batches=N`` runs the executor's staleness sweep
   (``refresh_embeddings``) after every N-th batch.
 
-Not ported: the chaos, race and tracer hooks (``HETU_CHAOS`` set is
-refused by name).
+Not ported: the race and tracer hooks, and the chaos hooks of the serving
+planes — the ``:req`` admission clock here and in ``FrontDoor``, the
+``:tok`` token clock of ``DecodeRouter``, ``kill:replica`` — so a set
+``HETU_CHAOS`` is refused by name by those three constructors.  The
+injector itself (:mod:`hetu_tpu_torch.chaos`) is ported, and the PS path
+(the store's transport, its servers, the executor's step clock, the
+launcher) plays its schedules.
 """
 from __future__ import annotations
 
@@ -50,11 +55,12 @@ from ..metrics import (fault_counts, record_serve, record_serve_latency,
 
 
 def refuse_chaos(who):
-    """The port has no chaos injector: a set ``HETU_CHAOS`` is refused by
-    name rather than ignored."""
+    """The serving planes' chaos hooks are not ported: a set
+    ``HETU_CHAOS`` is refused by name rather than ignored."""
     if os.environ.get("HETU_CHAOS"):
         raise NotImplementedError(
-            f"{who}: HETU_CHAOS is set, and the chaos injector is not "
+            f"{who}: HETU_CHAOS is set, and the serving planes' chaos "
+            f"hooks (the :req / :tok clocks, kill:replica) are not "
             f"ported — unset it")
 
 

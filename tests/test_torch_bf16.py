@@ -534,7 +534,8 @@ def test_ps_subgraphs_take_compute_dtype_and_keep_float32_rows():
     Wide & Deep against the JAX package's): the slab stays float32, the
     rows are cast inside the step, and the summed row gradient (B5's
     output) reaches the cache as float32.  ``num_microbatches`` with PS
-    embeddings stays refused by name."""
+    embeddings takes the whole batch's gradient in one step, as the JAX
+    package does without a pipeline: the same rows move."""
     ids = tht.placeholder_op("ids", dtype=np.int64)
     st = tht.EmbeddingStore()
     t = st.init_table(10, 4, opt="sgd", lr=1.0, init_scale=0.1)
@@ -552,10 +553,17 @@ def test_ps_subgraphs_take_compute_dtype_and_keep_float32_rows():
     # d loss / d row = w = 1 an occurrence: row 2 moved twice, 1 and 3 once
     moved = before - st.get_data(t)
     np.testing.assert_array_equal(moved[[1, 2, 3], 0], [1.0, 2.0, 1.0])
-    with pytest.raises(NotImplementedError, match="num_microbatches"):
-        tht.Executor([loss, tht.optim.SGDOptimizer(0.5).minimize(loss)],
-                     compute_dtype="bfloat16", device="cpu",
-                     num_microbatches=2)
+    st.set_data(t, before)
+    cache2 = tht.DistCacheTable(st, t, limit=4, push_bound=1, device=True,
+                                slab_device="cpu")
+    e2 = tht.ps_embedding_lookup_op(cache2, ids)
+    loss2 = tht.reduce_sum_op(tht.matmul_op(tht.array_reshape_op(
+        e2, (-1, 4)), w))
+    ex2 = tht.Executor([loss2, tht.optim.SGDOptimizer(0.5).minimize(loss2)],
+                       compute_dtype="bfloat16", device="cpu",
+                       num_microbatches=2)
+    ex2.run(feed_dict={ids: np.asarray([[1, 2], [2, 3]], np.int64)})
+    np.testing.assert_array_equal(before - st.get_data(t), moved)
 
 
 # -- ResNet-18 (BASELINE config 1) -------------------------------------------

@@ -33,7 +33,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import hetu_tpu_torch as tht                                  # noqa: E402
 from hetu_tpu_torch import metrics as tmetrics                # noqa: E402
 from hetu_tpu_torch.parallel import collectives as tcc        # noqa: E402
-from test_torch_parallel import join_world, spawn_world       # noqa: E402
+from test_torch_parallel import (end_world, join_world,       # noqa: E402
+                                 spawn_world)
 
 WORLD = 4
 SUM_TOL = dict(rtol=1e-6, atol=1e-6)
@@ -152,19 +153,20 @@ def rank_main(rank, world, init_file, out_dir):
     import traceback
     import torch.distributed as dist
     torch.set_num_threads(1)
+    clean = False
     try:
         dist.init_process_group("gloo", init_method="file://" + init_file,
                                 rank=rank, world_size=world)
         res = port_collectives(rank)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
+        clean = True
     except BaseException:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
         raise
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        end_world(clean)
 
 
 @pytest.fixture(scope="module")

@@ -167,14 +167,6 @@ def test_bf16_wdl_with_ps_embeddings_matches_jax(monkeypatch):
     assert tc._ensure_dev_slab().dtype == torch.float32
 
 
-def test_num_microbatches_with_ps_embeddings_stays_refused():
-    feeds, ex, _, _ = _build(True, "wdl", "vlru_dev", _sgd,
-                             compute_dtype="bfloat16")
-    ex.close()
-    with pytest.raises(NotImplementedError, match="num_microbatches"):
-        _build(True, "wdl", "vlru_dev", _sgd, num_microbatches=2)
-
-
 # -- DeepFM and DCN through the model-parity gates ----------------------------
 
 @pytest.mark.parametrize("mode", ["dense", "vlru_dev"])

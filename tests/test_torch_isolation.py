@@ -103,6 +103,9 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "import hetu_tpu_torch.serving.cells\n"
             "import hetu_tpu_torch.tools.ps_fsck\n"
             "import hetu_tpu_torch.models.ctr\n"
+            "import hetu_tpu_torch.chaos\n"
+            "import hetu_tpu_torch.launcher\n"
+            "import hetu_tpu_torch.tools.hybrid_wdl\n"
             "assert sys.modules['jax'] is None\n"
             "assert 'tools' not in sys.modules\n"
             "assert 'examples' not in sys.modules\n"
@@ -156,13 +159,17 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "print(ps_fsck.fsck(ends, 1)['ok'])\n"
             "for s in ss:\n"
             "    s.close()\n"
-            "print(hetu_tpu_torch.CellMap({'a': [0], 'b': [1]}).world)\n")
+            "print(hetu_tpu_torch.CellMap({'a': [0], 'b': [1]}).world)\n"
+            "from hetu_tpu_torch import chaos, launcher\n"
+            "print(len(chaos.parse_spec('7:dup=0.1,kill:ps@rank1:step3')[1]))\n"
+            "launcher.init_distributed(num_processes=1)\n"
+            "print(dist.is_initialized())\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["float32", "True", "12", "6", "12", "512",
                                    "2", "()", "3.0", "-0.5", "True", "0",
-                                   "True", "2"]
+                                   "True", "2", "2", "False"]
 
 
 def test_sources_import_no_jax_or_hetu_tpu():
@@ -264,9 +271,10 @@ def test_inference_executor_rejects_a_directory_without_meta_json(tmp_path):
 
 
 def test_fleet_refuses_hetu_chaos_by_name(monkeypatch):
-    """The port has no chaos injector: with ``HETU_CHAOS`` set the front
-    door and both routers refuse by name instead of ignoring it; unset,
-    ``register_chaos`` does nothing, as the JAX package without it."""
+    """The serving planes' chaos hooks are not ported: with
+    ``HETU_CHAOS`` set the front door and both routers refuse by name
+    instead of ignoring it; unset, ``register_chaos`` does nothing, as the
+    JAX package without a schedule."""
     x = ht.placeholder_op("x")
     iex = ht.InferenceExecutor([x * 2.0], buckets=(1,), device="cpu")
     cfg = ht.GPT2Config.tiny(n_layer=1)

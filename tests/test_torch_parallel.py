@@ -278,6 +278,7 @@ def rank_main(rank, world, init_file, out_dir, weights_path):
     results (or the traceback) under ``out_dir``."""
     import torch.distributed as dist
     torch.set_num_threads(1)
+    clean = False
     try:
         dist.init_process_group("gloo", init_method="file://" + init_file,
                                 rank=rank, world_size=world)
@@ -286,25 +287,53 @@ def rank_main(rank, world, init_file, out_dir, weights_path):
         res = port_workloads(weights)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
+        clean = True
     except BaseException:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
         raise
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        end_world(clean)
+
+
+def end_world(clean):
+    """A rank's teardown, in its entry's ``finally``: after a clean run
+    the ranks meet at a barrier before any destroys its group, so no rank
+    tears its connections down while a peer is still in a collective with
+    it; then the group is destroyed.  A failed rank skips the barrier (its
+    peers may never reach it)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        if clean:
+            dist.barrier()
+        dist.destroy_process_group()
+
+
+def _rank_entry(target, *args):
+    """The spawned process: ``target(*args)``, then, once it returned
+    (its results written, its group destroyed by :func:`end_world`), an
+    immediate ``os._exit(0)``.  The interpreter's own exit would first
+    destroy the C++ state the collectives left (gloo's contexts and
+    threads), where a rank has been seen to abort with "terminate called
+    without an active exception" after its results were on disk; a rank
+    that raises exits through the normal path, non-zero."""
+    target(*args)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def spawn_world(world, tmp, target, *args):
     """Start ``world`` ranks of ``target(rank, world, init_file, out_dir,
-    *args)``; returns (processes, out_dir)."""
+    *args)`` (which ends with :func:`end_world`); returns (processes,
+    out_dir)."""
     import multiprocessing
     ctx = multiprocessing.get_context("spawn")
     out_dir = os.path.join(tmp, f"world{world}")
     os.makedirs(out_dir)
     init_file = os.path.join(tmp, f"init{world}")
-    procs = [ctx.Process(target=target,
-                         args=(r, world, init_file, out_dir) + args)
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(target, r, world, init_file, out_dir) + args)
              for r in range(world)]
     for p in procs:
         p.start()

@@ -50,7 +50,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import hetu_tpu_torch as tht                                  # noqa: E402
 from test_torch_parallel import (JOIN_TIMEOUT, bert_graph,    # noqa: E402
-                                 join_world, mlp_feeds, mlp_graph,
+                                 end_world, join_world, mlp_feeds, mlp_graph,
                                  resnet_graph, spawn_world)
 
 WORLD = 2
@@ -170,6 +170,7 @@ def port_workloads(data):
 def rank_main(rank, world, init_file, out_dir, data_path):
     import torch.distributed as dist
     torch.set_num_threads(1)
+    clean = False
     try:
         dist.init_process_group("gloo", init_method="file://" + init_file,
                                 rank=rank, world_size=world)
@@ -178,13 +179,13 @@ def rank_main(rank, world, init_file, out_dir, data_path):
         res = port_workloads(data)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
+        clean = True
     except BaseException:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
         raise
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        end_world(clean)
 
 
 # -- the JAX references, in the test process ---------------------------------------

@@ -1,7 +1,7 @@
 """Shard replication of the port's parameter server against the JAX
 package's, on the CPU: the twins of ``tests/test_ps_replication.py``
-(but its two chaos cases, which wait for a chaos injector, and the bench
-smoke).  Each scenario runs once on a cluster of each package — 2 or 3
+(its two chaos cases included, under each package's injector; not its
+bench smoke).  Each scenario runs once on a cluster of each package — 2 or 3
 ranks as server threads in this process, short timeouts — on the same
 sequence of operations, and the two runs agree: the pulled tables and
 versions bit for bit, every copy's state digest (``OP_CHECKSUM``) bit for
@@ -35,8 +35,13 @@ from _torch_ps_harness import (close_all as _close_all,  # noqa: E402
                                ends as _ends, free_ports as _free_ports,
                                run_both)
 
-JAX = SimpleNamespace(name="jax", ds=jds, metrics=jmetrics, fsck=jfsck)
-PORT = SimpleNamespace(name="port", ds=tds, metrics=tmetrics, fsck=tfsck)
+from hetu_tpu import chaos as jchaos                   # noqa: E402
+from hetu_tpu_torch import chaos as tchaos            # noqa: E402
+
+JAX = SimpleNamespace(name="jax", ds=jds, metrics=jmetrics, fsck=jfsck,
+                      chaos=jchaos)
+PORT = SimpleNamespace(name="port", ds=tds, metrics=tmetrics, fsck=tfsck,
+                       chaos=tchaos)
 FAST = dict(rpc_timeout=5.0, rpc_retries=2, connect_timeout=2.0)
 
 
@@ -286,6 +291,51 @@ def test_promotion_window_retry_is_exactly_once():
         finally:
             _close_all(stores)
     assert _both(scenario)["alt"] == 2
+
+
+def _pushes_through_a_failover(pkg, spec, **kw):
+    """Six pushes of ones onto key ``k`` of shard 1 under the chaos
+    ``spec``, the shard's primary stopped after the third: the surviving
+    copy's row and the number of promotions."""
+    stores, tid, _ = _cluster(pkg, **kw)
+    key = np.asarray([1], np.int64)
+    try:
+        start = stores[0].pull(tid, key)[0].copy()
+        pkg.chaos.install(pkg.chaos.ChaosInjector.from_spec(spec))
+        for i in range(6):
+            stores[0].push(tid, key, np.ones((1, 8), np.float32))
+            if i == 2:
+                stores[1].server.stop()
+        pkg.chaos.uninstall()
+        return start, stores[0].pull(tid, key)[0]
+    finally:
+        pkg.chaos.uninstall()
+        _close_all(stores)
+
+
+def test_chaos_dup_frames_straddling_failover_stay_exactly_once():
+    """``dup=1.0`` sends every frame twice while the primary dies midway:
+    each push lands once on the surviving copy, in both packages, with
+    equal counters."""
+    def scenario(pkg):
+        start, after = _pushes_through_a_failover(pkg, "5:dup=1.0")
+        np.testing.assert_allclose(after, start - 0.1 * 6, atol=1e-5)
+        return {"after": after}
+    out = _both(scenario)
+    assert out["faults"]["chaos_dup"] >= 6
+    assert out["faults"]["ps_failover_promoted"] == 1
+
+
+def test_chaos_drop_retries_across_failover_stay_exactly_once():
+    """``drop=0.35``: dropped frames are retried with their (client,
+    seq), across the failover too, and each push lands once."""
+    def scenario(pkg):
+        start, after = _pushes_through_a_failover(pkg, "21:drop=0.35",
+                                                  rpc_retries=8)
+        np.testing.assert_allclose(after, start - 0.1 * 6, atol=1e-5)
+        return {"after": after}
+    out = _both(scenario)
+    assert out["faults"]["chaos_drop"] >= 1
 
 
 # -- re-replication -----------------------------------------------------------

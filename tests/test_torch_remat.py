@@ -17,8 +17,9 @@ gradient accumulation (``Executor(num_microbatches=)``) in the port.
   gradients rtol 1e-4 atol 1e-6); M = 1 is the plain step bit for bit;
   a BatchNorm graph's running statistics are threaded from microbatch to
   microbatch as the JAX package threads them (rtol 1e-5); the
-  ``microbatch_feeds`` choice, an indivisible batch and PS embeddings are
-  held to the JAX package's rules.
+  ``microbatch_feeds`` choice and an indivisible batch are held to the
+  JAX package's rules (PS embeddings with ``num_microbatches``:
+  ``tests/test_torch_ps_hybrid.py``).
 * ``remat='auto'``: on ``tests/test_remat.py``'s two-segment toy the
   port's plan equals ``hetu_tpu.parallel.remat.build_plan``'s for the
   same budget (segment for segment, bytes, FLOPs, the report); without a
@@ -286,19 +287,6 @@ def test_microbatch_feeds_and_the_batch_rule():
     bad = tht.Executor(fetches, seed=0, device="cpu", num_microbatches=3)
     with pytest.raises(ValueError, match="not divisible into 3"):
         bad.run("train", feed_dict=fd)
-
-
-def test_accumulation_with_ps_embeddings_is_refused():
-    ids = tht.placeholder_op("ids", dtype=np.int64)
-    store = tht.EmbeddingStore()
-    t = store.init_table(10, 4, seed=0)
-    emb = tht.ps_embedding_lookup_op((store, t), ids, width=4)
-    w = tht.Variable("w", value=np.ones((4, 1), np.float32))
-    loss = tht.reduce_mean_op(tht.matmul_op(emb, w), [0, 1])
-    with pytest.raises(NotImplementedError, match="num_microbatches"):
-        tht.Executor({"train": [loss, tht.optim.SGDOptimizer(0.1)
-                                .minimize(loss)]}, device="cpu",
-                     num_microbatches=2)
 
 
 # ------------------------------------------------------------ remat auto

@@ -69,7 +69,7 @@ import hetu_tpu_torch as tht                                  # noqa: E402
 from hetu_tpu_torch import metrics as tmetrics                # noqa: E402
 from hetu_tpu_torch.parallel import zero as tzero             # noqa: E402
 from test_torch_parallel import (JOIN_TIMEOUT, bert_graph,    # noqa: E402
-                                 join_world, spawn_world)
+                                 end_world, join_world, spawn_world)
 
 WORLDS = (2, 4)
 STAGES = (0, 1, 2, 3)
@@ -281,6 +281,7 @@ def ckpt_loads_transcoded(dp, tmp, deadline):
 def rank_main(rank, world, init_file, out_dir, weights_path):
     import torch.distributed as dist
     torch.set_num_threads(1)
+    clean = False
     try:
         dist.init_process_group("gloo", init_method="file://" + init_file,
                                 rank=rank, world_size=world)
@@ -310,13 +311,13 @@ def rank_main(rank, world, init_file, out_dir, weights_path):
                 res["bert"] = bert_workloads(dp, pickle.load(f))
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
+        clean = True
     except BaseException:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
         raise
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        end_world(clean)
 
 
 # -- the JAX references, in the test process ---------------------------------------
