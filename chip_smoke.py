@@ -609,10 +609,34 @@ without printing the final result line:
     (dup 5 %, drop 2 %, shard 1's primary stopped after step 4): the run
     completes with one promotion, its losses and table bit-equal to the
     run without the schedule; the fault counters printed.
-48. Print the card's name and power limit, the ``kernels`` JSON line (each
+48. The rest of MoE at the MoE configuration's widths (8,192 tokens, d
+    512, 16 experts, experts of hidden width 2,048, ``AdamOptimizer(1e-3)``)
+    through ``hetu_tpu_torch/tools/train_moe.py``'s graph builder.  (a)
+    Each of its six gates (``base`` through ``BalancedMoELayer``, ``top1``,
+    ``top2``, ``hash``, ``ktop1``, ``sam``, at the script's capacity
+    factors): 3 warm-up and 10 counted steps, the loss finite and falling,
+    step p50 / p99, peak memory, 3 profiled steps' device idle share; no
+    hand kernel launched (the dense einsums and the permutation are plain
+    PyTorch).  (b) Each gate at 1,024 tokens, card against CPU from the
+    card's weights, 3 Adam steps by phase 13's rule: the routing map (the
+    dense dispatch, base's permutation) equal every step (a differing route
+    stops the phase with the tokens' gate gaps), losses within rtol 1e-4,
+    step-1 gradients ``allclose(rtol=1e-3, atol=1e-5)``.  (c) Phase 12's
+    sparse graph under ``DataParallel``, held to the single-process card run
+    from its weights (every step's ``token_of_slot`` and ``slot_of_token``
+    equal, losses within rtol 1e-5): at world size 1 over NCCL in this
+    process, then two ranks over gloo sharing the card, each counting its
+    B6 launches (6 a step, no ``backend:`` fallback) and, by shape, those at
+    the rank-local dispatch.  (d) B6 at that shape (20,480 slots gathered
+    from rank 0's 4,096 tokens of a real gate's maps, the other rank's slots
+    -1) against its plain version bit for bit, timed with the plain version,
+    ``index_select`` + ``masked_fill_`` and the bytes bound as in phase 11.
+    The phase's seconds, by part.
+49. Print the card's name and power limit, the ``kernels`` JSON line (each
     flash row counts the launches of phases 38-42, 44 and 45 too, B4 and
-    B5 those of phases 41-43 and 46, by kernels-line name; the rows of
-    phase 44's shapes and phase 46's bf16 step under ``shapes``,
+    B5 those of phases 41-43 and 46, B6's float32 row those of phase 48
+    (c), by kernels-line name; the rows of phase 44's shapes, phase 46's
+    bf16 step and phase 48 (d)'s rank-local dispatch under ``shapes``,
     Transformer-XL's padded launches under ``dpad_launches``) and, last,
     ``{"ok": true, "device": {...}}``.
 
@@ -2285,11 +2309,12 @@ def phase_moe_train(ht, pm, metrics, kmods, md, compute_dtype=None):
     return sp["launches"], sp["calls"]
 
 
-def moe_train_executor(ht, pm, tokens, sparse, device):
+def moe_train_executor(ht, pm, tokens, sparse, device, strategy=None):
     """The MoE graph at ``tokens`` tokens (full widths) with fetches [loss,
     train op, every trainable variable's gradient, the routing maps (the
     sparse gate's token_of_slot and slot_of_token; the dense gate's
-    dispatch tensor)]: (graph, variables, executor, feeds)."""
+    dispatch tensor)], under ``strategy`` if given: (graph, variables,
+    executor, feeds)."""
     g = pm.moe_graph(tokens, sparse)
     wrt = [n for n in ht.topo_sort([g["loss"]])
            if isinstance(n, ht.PlaceholderOp) and n.is_variable
@@ -2297,7 +2322,8 @@ def moe_train_executor(ht, pm, tokens, sparse, device):
     train_op = ht.optim.AdamOptimizer(1e-3).minimize(g["loss"])
     fetches = [g["loss"], train_op] + ht.gradients(g["loss"], wrt) \
         + list(g["route"][:2 if sparse else 1])
-    ex = ht.Executor({"train": fetches}, seed=0, device=device)
+    ex = ht.Executor({"train": fetches}, seed=0, device=device,
+                     dist_strategy=strategy)
     return g, wrt, ex, pm.moe_feeds(g)
 
 
@@ -8099,6 +8125,420 @@ def phase_hybrid(ht, device="cuda"):
     return report
 
 
+# -- phase 48: the rest of MoE -----------------------------------------------------
+
+#: phase 48: train_moe's graphs at the MoE configuration's widths (the
+#: experts' hidden width 2,048 of BASELINE config 5, not the script's 2 d);
+#: (a)'s warm-up, counted and profiled steps (a profile of a single step
+#: was seen to miss some of the step's kernels on the card); (b)'s
+#: card-vs-CPU tokens and steps; (c)'s steps, ranks and each rank's time
+#: limit
+MOE48_HIDDEN = 2048
+MOE48_WARMUP, MOE48_STEPS, MOE48_PROFILED = 3, 10, 3
+MOE48_CPU_TOKENS, MOE48_CPU_STEPS = 1024, 3
+MOE48_DP_STEPS, MOE48_DP_WORLD, MOE48_DP_TIMEOUT = 3, 2, 300
+#: the variable whose product gives each gate its logits (scores for base)
+MOE48_WG = {"base": "balance_gate.we", "top1": "topk_gate.wg",
+            "top2": "topk_gate.wg", "ktop1": "ktop1_gate.wg",
+            "sam": "sam_gate.wg", "hash": None}
+
+
+def moe48_graph(pm, gate, tokens):
+    """``tools/train_moe.py``'s graph of ``gate`` at ``tokens`` tokens, the
+    MoE configuration's widths: (graph, trainable variables)."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.tools import train_moe as tm
+    g = tm.build_graph(gate, pm.EXPERTS, pm.D, tokens, hidden=MOE48_HIDDEN)
+    wrt = [n for n in ht.topo_sort([g["loss"]])
+           if isinstance(n, ht.PlaceholderOp) and n.is_variable
+           and n.trainable]
+    return g, wrt
+
+
+def phase_moe_gates_train(ht, pm, metrics, kmods):
+    """Phase 48 (a): each of ``train_moe``'s six gates at 8,192 tokens, d
+    512, 16 experts, hidden 2,048, Adam 1e-3 on the card: warm-up, counted
+    steps (the loss finite, the last below the first), p50 / p99, peak
+    memory, the profiled steps' busy time a step against the p50 (idle
+    share) and their kernels a step.
+    The dense dispatch and the balanced permutation launch no hand kernel
+    (checked: every counter 0).  Returns {gate: record}."""
+    from hetu_tpu_torch.tools import train_moe as tm
+    card = card_line()
+    out = {}
+    for gate in tm.GATES:
+        g, _ = moe48_graph(pm, gate, pm.TOKENS)
+        ex = tm.build_executor(g, device="cuda")
+        fd = {k: torch.from_numpy(v).cuda() for k, v in
+              tm.feeds(g, pm.TOKENS, pm.D).items()}
+
+        def step():
+            return float(ex.run("train", feed_dict=fd)[0].asnumpy())
+
+        losses = [step() for _ in range(MOE48_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(*kmods)
+        metrics.reset_moe_fallbacks()
+        ms = []
+        for _ in range(MOE48_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        launched = {name: n for mod in kmods for name, n in vars(mod).items()
+                    if name.endswith("launches") and n}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        kern, _, _ = pm.device_profile(step, MOE48_PROFILED)
+        busy = sum(v[1] for v in kern.values()) / 1e3 / MOE48_PROFILED
+        p50 = float(np.percentile(ms, 50))
+        rec = {"losses": losses, "step_ms_p50": p50,
+               "device_ops_per_step": sum(v[0] for v in kern.values())
+               / MOE48_PROFILED,
+               "step_ms_p99": float(np.percentile(ms, 99)),
+               "tokens_per_s": pm.TOKENS / (p50 / 1e3),
+               "capacity": getattr(getattr(g["gate"], "gate", g["gate"]),
+                                   "capacity", None),
+               "peak_mem_gib": peak, "busy_ms": busy,
+               "idle_share": 1.0 - busy / p50, "launches": launched}
+        log(f"[moe48-a] {gate}: {json.dumps(rec)} card {card}")
+        if not all(math.isfinite(v) for v in losses) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"[moe48-a] {gate}: the loss is not finite "
+                                 f"and falling: {losses}")
+        if launched or metrics.moe_fallback_counts():
+            raise AssertionError(f"[moe48-a] {gate}: the dense path launched "
+                                 f"{launched}, fallbacks "
+                                 f"{metrics.moe_fallback_counts()}")
+        if not busy > 0:
+            raise AssertionError(f"[moe48-a] {gate}: the profiler saw no "
+                                 f"device time")
+        out[gate] = rec
+        ex.close()
+        del ex, fd
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe48_gaps(x, wg, rows, k=3):
+    """Each differing token's gaps between its sorted gate probabilities
+    over all experts (float64 from ``x`` and ``wg``): a near tie can flip a
+    route between devices."""
+    if wg is None:
+        return f"tokens {rows[:8].tolist()} (hash: no gate weights)"
+    logits = x[rows[:8]].astype(np.float64) @ wg.astype(np.float64)
+    p = np.exp(logits - logits.max(1, keepdims=True))
+    p = np.sort(p / p.sum(1, keepdims=True), axis=1)[:, ::-1]
+    return "; ".join(f"token {t}: " + ", ".join(
+        f"p{j + 1}-p{j + 2} {p[i, j] - p[i, j + 1]:.3e}" for j in range(k))
+        for i, t in enumerate(rows[:8].tolist()))
+
+
+def phase_moe_gates_parity(ht, pm):
+    """Phase 48 (b): each gate at 1,024 tokens (full widths), the card
+    against the CPU from the card's weights, 3 Adam steps: the routing map
+    (the dense dispatch; base's permutation) equal every step (a differing
+    route stops the phase with the tokens' gate gaps), the losses within
+    ``TRAIN_LOSS_RTOL``, the step-1 gradients ``allclose(TRAIN_GRAD_RTOL,
+    TRAIN_GRAD_ATOL)``.  Returns {gate: (loss rel err, grad abs err)}."""
+    from hetu_tpu_torch.tools import train_moe as tm
+    out = {}
+    for gate in tm.GATES:
+        execs = []
+        for device in ("cuda", "cpu"):
+            g, wrt = moe48_graph(pm, gate, MOE48_CPU_TOKENS)
+            extra = ht.gradients(g["loss"], wrt) + g["route"][:1]
+            execs.append((g, wrt, tm.build_executor(g, device=device,
+                                                    extra=extra)))
+        (g, wrt, card), (gh, _, host) = execs
+        load_all(host, card.return_tensor_values())
+        fd = tm.feeds(g, MOE48_CPU_TOKENS, pm.D)
+        fdh = {gh["x"]: fd[g["x"]], gh["y"]: fd[g["y"]]}
+        wg_node = next((n for n, name in card.var_names.items()
+                        if name == MOE48_WG[gate]), None)
+        loss_err = grad_err = 0.0
+        for step in range(MOE48_CPU_STEPS):
+            wg = None if wg_node is None else \
+                card.var_values[wg_node].cpu().numpy()
+            got = card.run("train", feed_dict=fd,
+                           convert_to_numpy_ret_vals=True)
+            want = host.run("train", feed_dict=fdh,
+                            convert_to_numpy_ret_vals=True)
+            if not np.array_equal(got[-1], want[-1]):
+                a, b = got[-1], want[-1]
+                if a.ndim == 1:           # the permutation: slot -> token
+                    rows = np.unique(np.concatenate([a[a != b], b[a != b]]))
+                else:
+                    rows = np.nonzero((a != b).reshape(a.shape[0], -1)
+                                      .any(1))[0]
+                raise AssertionError(
+                    f"[moe48-b] {gate}: card vs CPU routing differs at step "
+                    f"{step + 1}: " + moe48_gaps(fd[g["x"]], wg, rows))
+            gl, wl = float(got[0]), float(want[0])
+            loss_err = max(loss_err, abs(gl - wl) / abs(wl))
+            if not (math.isfinite(gl)
+                    and abs(gl - wl) <= TRAIN_LOSS_RTOL * abs(wl)):
+                raise AssertionError(f"[moe48-b] {gate}: card vs CPU loss at "
+                                     f"step {step + 1}: {gl} vs {wl}")
+            if step == 0:
+                for node, gc_, gh_ in zip(wrt, got[2:], want[2:]):
+                    grad_err = max(grad_err, float(np.max(np.abs(gc_ - gh_))))
+                    if not np.allclose(gc_, gh_, rtol=TRAIN_GRAD_RTOL,
+                                       atol=TRAIN_GRAD_ATOL):
+                        raise AssertionError(
+                            f"[moe48-b] {gate}: card vs CPU gradient of "
+                            f"{node.name}: max err "
+                            f"{float(np.max(np.abs(gc_ - gh_)))}")
+        log(f"[moe48-b] {gate}: card vs CPU, {MOE48_CPU_TOKENS} tokens at "
+            f"full widths, {MOE48_CPU_STEPS} Adam steps: routing equal every "
+            f"step; loss max rel err {loss_err:.3e} (rtol {TRAIN_LOSS_RTOL}); "
+            f"step-1 gradients of {len(wrt)} variables max abs err "
+            f"{grad_err:.3e} (rtol {TRAIN_GRAD_RTOL}, atol {TRAIN_GRAD_ATOL})")
+        out[gate] = (loss_err, grad_err)
+        card.close()
+        host.close()
+        del card, host, execs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe48_dp_steps(ex, fd):
+    """``MOE48_DP_STEPS`` steps of a ``moe_train_executor``: the losses
+    and each step's routing maps (token_of_slot, slot_of_token)."""
+    losses, maps = [], []
+    for _ in range(MOE48_DP_STEPS):
+        out = ex.run("train", feed_dict=fd)
+        losses.append(float(out[0].asnumpy()))
+        maps.append([out[-2].torch().cpu().numpy(),
+                     out[-1].torch().cpu().numpy()])
+    return {"losses": losses, "maps": maps}
+
+
+def moe48_check(tag, got, want):
+    """A strategy run held to the single-process card run: every step's
+    maps equal, the losses within ``MOE_LOSS_RTOL``; the max rel err."""
+    for step, (a, b) in enumerate(zip(got["maps"], want["maps"])):
+        for name, x, y in zip(("token_of_slot", "slot_of_token"), a, b):
+            if not np.array_equal(x, y):
+                raise AssertionError(
+                    f"[moe48-c] {tag}: {name} differs from the single-process "
+                    f"run at step {step + 1} in {int(np.sum(x != y))} places")
+    err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                  want["losses"]))
+    if not (all(math.isfinite(v) for v in got["losses"])
+            and err <= MOE_LOSS_RTOL):
+        raise AssertionError(f"[moe48-c] {tag}: losses {got['losses']} vs "
+                             f"{want['losses']}")
+    return err
+
+
+def moe48_dp_rank(rank, world, tmp):
+    """Entry of one phase-48 (c) rank: gloo over a file in ``tmp``, the
+    MoE configuration's sparse graph through ``DataParallel`` on
+    ``cuda:0`` from the weights in ``tmp``; the record (or the traceback)
+    into ``tmp``."""
+    import torch.distributed as dist
+    try:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        import hetu_tpu_torch as ht
+        from hetu_tpu_torch import metrics
+        from hetu_tpu_torch.ops.kernels import moe_dispatch as md
+        from hetu_tpu_torch.tools import profile_moe as pm
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method="file://"
+                                + os.path.join(tmp, "init"), rank=rank,
+                                world_size=world)
+        with open(os.path.join(tmp, "weights.pkl"), "rb") as f:
+            weights = pickle.load(f)
+        g, _, ex, fd = moe_train_executor(ht, pm, pm.TOKENS, True, "cuda",
+                                          ht.dist.DataParallel())
+        load_all(ex, weights)
+        fd = {k: torch.from_numpy(v).cuda() for k, v in fd.items()}
+        reset_launches(md)
+        metrics.reset_moe_fallbacks()
+        t0 = time.perf_counter()
+        with GatherCalls(md) as calls:
+            res = moe48_dp_steps(ex, fd)
+        res["seconds"] = time.perf_counter() - t0
+        res["launches"] = {"row_gather": md.launches,
+                           "row_gather_bf16": md.bf16_launches}
+        res["fallbacks"] = metrics.moe_fallback_counts()
+        res["shapes"] = {f"{dt} {n} of {r} (m {m})": c
+                         for (dt, n, m, r), c in calls.shapes.items()}
+        res["local_dispatch"] = calls.count(
+            "float32", pm.EXPERTS * g["gate"].capacity, pm.TOKENS // world)
+        ex.close()
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_moe_dp(ht, pm, md, metrics):
+    """Phase 48 (c): the MoE configuration's sparse graph under
+    ``DataParallel``, held to the single-process card run from its
+    weights: at world size 1 over NCCL in this process, then as
+    ``MOE48_DP_WORLD`` ranks over gloo sharing the card.  Every step's
+    maps equal, the losses within ``MOE_LOSS_RTOL``; B6 launched on every
+    rank (6 a step, ``MOE_GATHERS_PER_STEP``), no ``backend:`` fallback.
+    Returns (the B6 launches of every run, the launches at the rank-local
+    dispatch shape)."""
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp()
+    per_step = MOE_GATHERS_PER_STEP["row_gather"]
+    try:
+        _, _, ref, fd = moe_train_executor(ht, pm, pm.TOKENS, True, "cuda")
+        weights = ref.return_tensor_values()
+        fd = {k: torch.from_numpy(v).cuda() for k, v in fd.items()}
+        want = moe48_dp_steps(ref, fd)
+        ref.close()
+        del ref
+        with open(os.path.join(tmp, "weights.pkl"), "wb") as f:
+            pickle.dump(weights, f)
+        # world size 1 over NCCL, in this process
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl", init_method="file://"
+                                + os.path.join(tmp, "init1"), rank=0,
+                                world_size=1)
+        try:
+            _, _, ex, fd = moe_train_executor(ht, pm, pm.TOKENS, True,
+                                              "cuda", ht.dist.DataParallel())
+            load_all(ex, weights)
+            fd = {k: torch.from_numpy(v).cuda() for k, v in fd.items()}
+            reset_launches(md)
+            metrics.reset_moe_fallbacks()
+            got = moe48_dp_steps(ex, fd)
+            one = md.launches
+            left = {r: n for r, n in metrics.moe_fallback_counts().items()
+                    if r.startswith("backend:")}
+            ex.close()
+            del ex
+        finally:
+            dist.destroy_process_group()
+        err = moe48_check("world 1 (NCCL)", got, want)
+        if left or one != per_step * MOE48_DP_STEPS:
+            raise AssertionError(f"[moe48-c] world 1: {one} row gathers, "
+                                 f"fallbacks {left}")
+        log(f"[moe48-c] world 1 over NCCL, {MOE48_DP_STEPS} steps in "
+            f"{time.perf_counter() - t0:.1f} s: maps equal every step, loss "
+            f"max rel err {err:.3e} (rtol {MOE_LOSS_RTOL}); row gathers {one}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the ranks over gloo, sharing the card
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=moe48_dp_rank,
+                             args=(r, MOE48_DP_WORLD, tmp))
+                 for r in range(MOE48_DP_WORLD)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MOE48_DP_TIMEOUT
+        try:
+            while any(p.is_alive() for p in procs) \
+                    and time.monotonic() < deadline \
+                    and not any(p.exitcode not in (None, 0) for p in procs):
+                time.sleep(0.2)
+            codes = [p.exitcode for p in procs]
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(30)
+        errs = [open(os.path.join(tmp, f)).read()
+                for f in sorted(os.listdir(tmp)) if f.endswith(".err")]
+        if errs or codes != [0] * MOE48_DP_WORLD:
+            raise AssertionError(f"[moe48-c] ranks exited {codes} (None: "
+                                 f"alive past {MOE48_DP_TIMEOUT} s)\n"
+                                 + "\n".join(errs))
+        ranks = []
+        for r in range(MOE48_DP_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+        total, local = one, 0
+        for r, rec in enumerate(ranks):
+            err = moe48_check(f"rank {r} of {MOE48_DP_WORLD} (gloo)", rec,
+                              want)
+            left = {k: n for k, n in rec["fallbacks"].items()
+                    if k.startswith("backend:")}
+            n = rec["launches"]["row_gather"]
+            if left or n != per_step * MOE48_DP_STEPS \
+                    or rec["launches"]["row_gather_bf16"]:
+                raise AssertionError(f"[moe48-c] rank {r}: launches "
+                                     f"{rec['launches']}, fallbacks {left}")
+            total += n
+            local += rec["local_dispatch"]
+            log(f"[moe48-c] rank {r}: maps equal every step, loss max rel "
+                f"err {err:.3e}; {MOE48_DP_STEPS} steps in "
+                f"{rec['seconds']:.2f} s; row gathers {n} by shape "
+                f"{json.dumps(rec['shapes'])}")
+        log(f"[moe48-c] {MOE48_DP_WORLD} ranks on cuda:0 over gloo in "
+            f"{time.perf_counter() - t0:.1f} s (spawn included); losses "
+            f"{ranks[0]['losses']} single-process {want['losses']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"row_gather": total}, local
+
+
+def phase_moe_dp_gather(ht, pm, md):
+    """Phase 48 (d): B6 at the rank-local dispatch shape of two ranks
+    (the expert slots gathered from rank 0's 4,096 tokens of a real gate's
+    maps, the other rank's slots -1) against its plain version (bit for
+    bit), timed with the plain version, ``index_select`` +
+    ``masked_fill_`` and the bytes bound as in phase 11."""
+    flush_buf = torch.empty(DECODE_FLUSH, dtype=torch.float32, device="cuda")
+    flush = flush_buf.zero_
+    x, tos, _, _, _ = moe_route(ht, pm)
+    rows = x.shape[0] // MOE48_DP_WORLD
+    src = x[:rows].contiguous()
+    idx = torch.where((tos >= 0) & (tos < rows), tos,
+                      torch.full_like(tos, -1)).to(torch.int32).contiguous()
+    got, want = md.row_gather(src, idx), md.row_gather_plain(src, idx)
+    if not torch.equal(got, want):
+        raise AssertionError(f"[moe48-d] kernel vs plain at the rank-local "
+                             f"shape: max err "
+                             f"{float((got - want).abs().max())}")
+    idx64, neg = idx.clamp_min(0).long(), (idx < 0)[:, None]
+    row = {"name": "dp_local_dispatch", "max_abs_err": 0.0,
+           "ms": time_ms(lambda: md.row_gather(src, idx), flush=flush),
+           "plain_ms": time_ms(lambda: md.row_gather_plain(src, idx),
+                               flush=flush),
+           "library_ms": time_ms(lambda: src.index_select(
+               0, idx64).masked_fill_(neg, 0.0), flush=flush),
+           "n": idx.shape[0], "src_rows": rows,
+           "neg_share": float((idx < 0).float().mean())}
+    row["bound_ms"], row["bound_by"] = gather_bound(src, idx)
+    log(f"[moe48-d] row gather at the rank-local dispatch shape (n="
+        f"{idx.shape[0]} m={src.shape[1]} src_rows={rows}; library = "
+        f"index_select + masked_fill_): {json.dumps(row)} card {card_line()}")
+    return row
+
+
+def phase_moe_rest(ht, pm, metrics, kmods, md):
+    """Phase 48: (a) the six gates trained, (b) card vs CPU, (c) the sparse
+    graph under ``DataParallel``, (d) B6 at the rank-local shape.  Returns
+    (B6 launches by kernels-line name, the kernels line's row at the
+    rank-local shape)."""
+    t_phase = time.perf_counter()
+    phase_moe_gates_train(ht, pm, metrics, kmods)
+    t_a = time.perf_counter() - t_phase
+    phase_moe_gates_parity(ht, pm)
+    t_b = time.perf_counter() - t_phase - t_a
+    launches, local = phase_moe_dp(ht, pm, md, metrics)
+    t_c = time.perf_counter() - t_phase - t_a - t_b
+    row = phase_moe_dp_gather(ht, pm, md)
+    row["launches"] = local
+    log(f"[moe48] phase 48 in {time.perf_counter() - t_phase:.1f} s (a "
+        f"{t_a:.1f} s, b {t_b:.1f} s, c {t_c:.1f} s)")
+    return launches, row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script runs on the "
@@ -8342,7 +8782,12 @@ def main():
     # -- 47. the hybrid deployment through the launcher ---------------------------
     phase_hybrid(ht)
 
-    # -- 48. result lines ---------------------------------------------------------
+    # -- 48. the rest of MoE: every gate, the sparse graph under the strategy ----
+    m48_launches, m48_row = phase_moe_rest(ht, pm, metrics, kmods, md)
+    for name, n in m48_launches.items():
+        dlaunches[name] = dlaunches.get(name, 0) + n
+
+    # -- 49. result lines ---------------------------------------------------------
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
 
@@ -8446,9 +8891,9 @@ def main():
                          launches=calls.count(dtype, cline["n"],
                                               cline["src_rows"]))))
     # the flash kernels of the data-parallel paths (phases 38-40) and of
-    # phases 41, 42, 44 and 45, and the B4 and B5 launches of phases 41-43
-    # and 46, by kernels-line name; phase 45's decode merges beside phase
-    # 3's
+    # phases 41, 42, 44 and 45, the B4 and B5 launches of phases 41-43
+    # and 46, and B6's of phase 48 (c), by kernels-line name; phase 45's
+    # decode merges beside phase 3's
     for e in kernels:
         e["launches"] += dlaunches.pop(e["name"], 0)
     kernels[0]["merge_launches"] += smerges
@@ -8472,6 +8917,9 @@ def main():
         by_name[name].setdefault("shapes", []).append(dict(r))
         by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
                                            r["max_abs_err"])
+    # phase 48 (d)'s rank-local dispatch shape beside B6's float32 entry,
+    # with the launches the ranks of phase 48 (c) made at it
+    by_name["row_gather"].setdefault("shapes", []).append(m48_row)
     if dlaunches:
         raise AssertionError(f"launches with no kernels-line entry: "
                              f"{dlaunches}")

@@ -57,7 +57,12 @@ kernel on a ported path is a hand-written kernel for the H100
   (with ``Expert``) → ``AdamOptimizer`` → ``Executor.run``, the sparse
   dispatch and combine, forward and backward, in the CUDA row-gather
   kernel (the dense ``TopKGate`` → ``MoELayer`` graph runs on plain
-  products);
+  products); every gate family of ``tools/train_moe.py`` (``--gate``
+  base, top1, top2, hash, ktop1, sam: ``KTop1Gate``, ``SAMGate`` and
+  ``HashGate`` through ``MoELayer``, ``BalanceAssignmentGate`` through
+  ``BalancedMoELayer``); under ``DataParallel`` the capacity gates route
+  over the global batch, and ``SparseMoELayer`` dispatches each rank's
+  rows through the row-gather kernel;
 * CNN training: the model zoo of ``models/cnn.py`` (``resnet18`` /
   ``resnet34`` in NCHW or NHWC, ``vgg16`` / ``vgg19``, ``alexnet``,
   ``lenet``, ``cnn_3_layers``, ``mlp``, ``logreg``) over
@@ -96,9 +101,10 @@ from .context import cpu, gpu, make_mesh, resolve_device
 from .graph import (Executor, GradientOp, LowerCtx, Op, PlaceholderOp,
                     Variable, gradients, lower_forward, placeholder_op,
                     topo_sort)
-from .layers import (DropOut, Embedding, Expert, LayerNorm, Linear,
-                     MoELayer, MultiHeadAttention, RMSNorm, SparseMoELayer,
-                     TopKGate, TopKGateSparse)
+from .layers import (BalanceAssignmentGate, BalancedMoELayer, DropOut,
+                     Embedding, Expert, HashGate, KTop1Gate, LayerNorm,
+                     Linear, MoELayer, MultiHeadAttention, RMSNorm, SAMGate,
+                     SparseMoELayer, TopKGate, TopKGateSparse)
 from .models import (BertConfig, GPT2Config, LongformerConfig, XLNetConfig,
                      bert_classify_graph, bert_model, bert_pooler, bert_pretrain_graph,
                      gpt2_decode_chunked_graph, gpt2_decode_graph,
@@ -121,6 +127,11 @@ from .models import (BertConfig, GPT2Config, LongformerConfig, XLNetConfig,
                      vit_classify_graph)
 from .data import Dataloader, DataloaderOp, dataloader_op
 from .ndarray import NDArray
+from .ops import (alltoall_op, balance_assignment_op, halltoall_op,
+                  hash_dispatch_op, ktop1_gate_op, layout_transform_op,
+                  reverse_layout_transform_op, sam_gate_op,
+                  sparse_combine_op, sparse_dispatch_op, topk_gate_op,
+                  topk_gate_sparse_op)
 from .ops import (BatchNormOp, array_reshape_op, avg_pool2d_op,
                   batch_normalization_op, binarycrossentropy_op,
                   broadcast_shape_op, broadcastto_op, concat_op,

@@ -2,5 +2,6 @@
 from .base import BaseLayer
 from .core import Linear, LayerNorm, RMSNorm, Embedding, DropOut
 from .attention import MultiHeadAttention
-from .gates import TopKGate, TopKGateSparse
-from .moe_layer import Expert, MoELayer, SparseMoELayer
+from .gates import (TopKGate, TopKGateSparse, HashGate, KTop1Gate, SAMGate,
+                    BalanceAssignmentGate)
+from .moe_layer import Expert, MoELayer, SparseMoELayer, BalancedMoELayer

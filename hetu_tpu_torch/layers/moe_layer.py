@@ -1,13 +1,17 @@
-"""MoE layers (the ported subset of ``hetu_tpu/layers/moe_layer.py``):
-``Expert``, ``MoELayer`` (dense einsum dispatch) and ``SparseMoELayer``
-(the row-gather dispatch, kernel B6).
+"""MoE layers (the port of ``hetu_tpu/layers/moe_layer.py``; reference
+``layers/moe_layer.py:45`` MoELayer + Expert:7 and the BASE-layer variant
+:90-133): ``Expert``, ``MoELayer`` (dense einsum dispatch, any dense
+gate), ``SparseMoELayer`` (the row-gather dispatch, kernel B6) and
+``BalancedMoELayer`` (the balanced-assignment permutation).
 
 Expert FFN weights are STACKED along a leading expert axis, (E, d, h),
 and applied with one batched einsum, so the expert dimension can later be
 sharded for expert parallelism.  The JAX package marks that axis with
 ``PartitionSpec("ep")``; the port keeps each annotation as the plain
 tuple ``("ep",)`` (nothing reads it until expert parallel is ported).
-Not ported: ``BalancedMoELayer``.
+Under ``DataParallel`` (``parallel/batch_axis.py``) ``MoELayer`` and
+``SparseMoELayer`` route over the global batch; ``BalancedMoELayer`` is
+refused by name.
 """
 from __future__ import annotations
 
@@ -101,3 +105,34 @@ class SparseMoELayer(BaseLayer):
                                       self.embed_dim))
         y = sparse_combine_op(out_flat, gate_w, sot, tos, kos)
         return y, aux
+
+
+class BalancedMoELayer(BaseLayer):
+    """BASE-layer variant (reference moe_layer.py:90-133): balanced-assignment
+    permutation instead of capacity gating — every expert gets exactly
+    tokens/E tokens, no drops.  Needs the static token count, matching the
+    reference gates' ``num_tokens`` argument."""
+
+    def __init__(self, gate, experts, num_experts, num_tokens, embed_dim,
+                 name="base_moe"):
+        assert num_tokens % num_experts == 0
+        self.gate = gate
+        self.experts = experts
+        self.num_experts = num_experts
+        self.num_tokens = num_tokens
+        self.embed_dim = embed_dim
+
+    def __call__(self, x):
+        # slot→token permutation from the balanced-assignment gate
+        assign = self.gate(x)                      # (tokens,)
+        gathered = ops.indexing_op(x, assign)      # (tokens, d) expert-grouped
+        cap = self.num_tokens // self.num_experts
+        expert_in = ops.array_reshape_op(
+            gathered, output_shape=(self.num_experts, cap, self.embed_dim))
+        expert_in.sharding = EP
+        expert_out = self.experts(expert_in)
+        expert_out.sharding = EP
+        flat = ops.array_reshape_op(
+            expert_out, output_shape=(self.num_tokens, self.embed_dim))
+        # inverse permutation: scatter rows back to original token order
+        return ops.scatter1d_grad_op(flat, assign, size=self.num_tokens), None

@@ -27,6 +27,8 @@ from .attention import (sdpa_reference, dispatch_sdpa, sdpa_op,
                         sdpa_prefill_op, chunk_positions_op,
                         split_heads_chunk_op, merge_heads_chunk_op,
                         chunk_emit_gather_op)
-from .moe import (topk_gate_op, layout_transform_op,
-                  reverse_layout_transform_op, topk_gate_sparse_op,
-                  sparse_dispatch_op, sparse_combine_op)
+from .moe import (topk_gate_op, ktop1_gate_op, sam_gate_op,
+                  layout_transform_op, reverse_layout_transform_op,
+                  hash_dispatch_op, balance_assignment_op, alltoall_op,
+                  halltoall_op, topk_gate_sparse_op, sparse_dispatch_op,
+                  sparse_combine_op)

@@ -1,17 +1,23 @@
-"""MoE ops: GShard top-1/top-2 gating and token dispatch / combine (the
-ported subset of ``hetu_tpu/ops/moe.py``, same ``op_type`` strings).
+"""MoE ops: gating, token dispatch / combine and the expert-parallel
+collectives (the port of ``hetu_tpu/ops/moe.py``, same ``op_type``
+strings).
 
 Two formulations of one routing, as in the JAX package:
 
 * dense (``TopKGate`` → ``MoELayer``): :func:`topk_gate_op` builds the
   ``(s, e, c)`` one-hot dispatch and combine tensors, and
   :func:`layout_transform_op` / :func:`reverse_layout_transform_op` are
-  einsums against them (plain PyTorch products, no kernel);
+  einsums against them (plain PyTorch products, no kernel); the KTop1
+  (:func:`ktop1_gate_op`), SAM (:func:`sam_gate_op`) and hash
+  (:func:`hash_dispatch_op`) gates build the same tensors;
 * sparse (``TopKGateSparse`` → ``SparseMoELayer``):
   :func:`topk_gate_sparse_op` emits index maps, and
   :func:`sparse_dispatch_op` / :func:`sparse_combine_op` move rows with
   the CUDA row-gather kernel (``ops/kernels/moe_dispatch.py``, B6),
   forward and backward.
+
+:func:`balance_assignment_op` is the BASE layer's balanced assignment, a
+slot→token permutation (``BalancedMoELayer`` gathers rows by it).
 
 The arithmetic is the JAX package's, literally: the softmax one op at a
 time (:func:`_softmax`), float32 one-hot cumsums for
@@ -19,8 +25,10 @@ the queue positions, expert-2 positions offset by the count of expert-1
 *choices* (``mask1``, dropped ones included), the aux loss from the first
 route's mask only, the top-2 renormalisation with its ``1e-9`` floor, and
 ``token_of_slot`` / ``k_of_slot`` built by a scatter whose dropped routes
-land in a discarded ``n_slots``-th bin.  Not ported: the KTop1, SAM, hash
-and balanced-assignment gates, and the expert-parallel all-to-alls.
+land in a discarded ``n_slots``-th bin.  Every sort is stable, as
+``jnp.argsort`` is.  :func:`alltoall_op` / :func:`halltoall_op` are the
+identity: they exchange rows only over an ``ep`` mesh, and expert
+parallelism is not ported (``ModelParallel`` is refused).
 """
 import torch
 
@@ -132,6 +140,232 @@ reverse_layout_transform_op = def_op(
     "ReverseLayoutTransform",
     lambda c, combine, expert_out: torch.einsum(
         "sec,ecm->sm", combine.to(expert_out.dtype), expert_out))
+
+
+def _dispatch_from(keep, pos, capacity, gate_w=None):
+    """Build (s,e,c) dispatch / combine tensors from a keep mask (s,e) and
+    per-token queue positions (s,)."""
+    d = keep[:, :, None] * _one_hot_f(pos, capacity)[:, None, :]
+    if gate_w is None:
+        return d
+    return d, gate_w[:, None, None] * d
+
+
+def _ktop1_gating(logits, k, capacity):
+    """KTop1 (reference ``layers/KTop1Gate.py`` ktop1gating:14): experts are
+    split into k prototype groups of e/k; each token routes top-1 within
+    EVERY group (so k experts per token, one per group); balance loss summed
+    per group."""
+    s, e = logits.shape
+    g = e // k
+    dis_parts, com_parts = [], []
+    aux = 0.0
+    for i in range(k):
+        gates = _softmax(logits[:, i * g:(i + 1) * g])
+        idx = torch.argmax(gates, dim=-1)
+        mask = _one_hot_f(idx, g)
+        posm = _cumsum_tokens(mask) * mask - mask
+        keep = mask * (posm < capacity)
+        gate_w = torch.sum(gates * keep, dim=-1)
+        aux = aux + torch.sum(torch.mean(gates, 0) * torch.mean(mask, 0)) * g
+        p = torch.sum(posm * keep, dim=-1).to(torch.int64)
+        d, c = _dispatch_from(keep, p, capacity, gate_w)
+        dis_parts.append(d)
+        com_parts.append(c)
+    dispatch = torch.cat(dis_parts, dim=1)          # (s, e, c)
+    combine = torch.cat(com_parts, dim=1)
+    return dispatch, combine, aux
+
+
+def _sam_gating(logits, k, capacity, group_size):
+    """SAM gate (reference ``layers/SAMGate.py`` samgating:22 + SamMax.cu,
+    SamGroupSum.cu, GroupTopKIdx.cu): softmax over all experts; pick the
+    group (node) with the largest summed prob; route top-k within that group;
+    alignment loss = hinge on out-group probs exceeding the selected k-th
+    expert's prob."""
+    s, e = logits.shape
+    ngroups = e // group_size
+    gates = _softmax(logits)
+    gsum = gates.reshape(s, ngroups, group_size).sum(-1)
+    top_group = torch.argmax(gsum, dim=-1)                      # (s,)
+    in_group = _one_hot_f(top_group, ngroups)                   # (s, ngroups)
+    in_group_e = in_group[:, :, None].expand(
+        s, ngroups, group_size).reshape(s, e)                # jnp.repeat
+    neg_inf = gates.new_full((), float("-inf"))
+    masked_gates = torch.where(in_group_e > 0, gates, neg_inf)
+
+    dispatch = gates.new_zeros((s, e, capacity), dtype=torch.float32)
+    combine = gates.new_zeros((s, e, capacity), dtype=torch.float32)
+    aux = 0.0
+    used = gates.new_zeros((s, e), dtype=torch.float32)  # routed experts
+    kth_prob = None
+    for _ in range(k):
+        idx = torch.argmax(torch.where(used > 0, neg_inf, masked_gates),
+                           dim=-1)
+        mask = _one_hot_f(idx, e)
+        used = used + mask
+        # queue positions account for earlier-k selections (acc_base)
+        posm = _cumsum_tokens(mask) * mask - mask \
+            + torch.sum(used - mask, dim=0, keepdim=True) * mask
+        keep = mask * (posm < capacity)
+        gate_w = torch.sum(gates * keep, dim=-1)
+        aux = aux + torch.sum(torch.mean(gates, 0) * torch.mean(mask, 0)) * e
+        p = torch.sum(posm * keep, dim=-1).to(torch.int64)
+        d, c = _dispatch_from(keep, p, capacity, gate_w)
+        dispatch = dispatch + d
+        combine = combine + c
+        kth_prob = torch.sum(gates * mask, dim=-1)              # (s,)
+    # SamMax hinge: out-group probs exceeding the k-th selected prob
+    out_group = 1.0 - in_group_e
+    align = torch.sum(torch.clamp_min(gates - kth_prob[:, None], 0.0)
+                      * out_group)
+    return dispatch, combine, aux, align
+
+
+def ktop1_gate_op(logits_node, k, capacity, name=None):
+    """Fused KTop1 gating node → (dispatch, combine, aux_loss)."""
+    node = SimpleOp("KTop1Gate", [logits_node],
+                    lambda c, logits, k=1, capacity=None:
+                        _ktop1_gating(logits, k, capacity),
+                    name=name, k=k, capacity=capacity)
+    return tuple_outputs(node, 3)
+
+
+def sam_gate_op(logits_node, k, capacity, group_size, name=None):
+    """Fused SAM gating node → (dispatch, combine, aux_loss, align_loss)."""
+    node = SimpleOp("SAMGate", [logits_node],
+                    lambda c, logits, k=1, capacity=None, group_size=1:
+                        _sam_gating(logits, k, capacity, group_size),
+                    name=name, k=k, capacity=capacity, group_size=group_size)
+    return tuple_outputs(node, 4)
+
+
+def _hash_dispatch(c, idx, num_experts=1, capacity=None):
+    """Hash gating (reference HashGate.py): expert = token_id % E, the
+    floor modulo of ``jnp``'s ``%`` (``torch.remainder``)."""
+    e = num_experts
+    expert_of = torch.remainder(idx.to(torch.int32), e)
+    mask = _one_hot_f(expert_of, e)
+    pos = _cumsum_tokens(mask) * mask - mask
+    keep = mask * (pos < capacity)
+    p = torch.sum(pos * keep, dim=-1).to(torch.int64)
+    return keep[:, :, None] * _one_hot_f(p, capacity)[:, None, :]
+
+
+def hash_dispatch_op(idx_node, num_experts, capacity, name=None):
+    return SimpleOp("HashDispatch", [idx_node], _hash_dispatch, name=name,
+                    num_experts=num_experts, capacity=capacity)
+
+
+def _logsumexp(a, dim):
+    """``jax.nn.logsumexp(a, axis=dim, keepdims=True)`` as the JAX package
+    computes it: the max (0 where it is not finite) taken out, then added
+    back to the log of the absolute sum."""
+    amax = a.amax(dim=dim, keepdim=True)
+    amax = torch.where(torch.isfinite(amax), amax, amax.new_zeros(()))
+    sumexp = torch.exp(a - amax).sum(dim=dim, keepdim=True)
+    return torch.log(torch.abs(sumexp)) + amax
+
+
+def _set_drop(size, idx, vals):
+    """``zeros(size).at[idx].set(vals, mode="drop")`` for int ``idx``
+    whose out-of-range entries are ``size``: those land in a discarded
+    bin (torch's indexing raises on them)."""
+    out = torch.zeros(size + 1, dtype=vals.dtype, device=vals.device)
+    out[idx.long()] = vals
+    return out[:size]
+
+
+def _balanced_assignment(scores, rounds=4):
+    """Balanced token→expert assignment: every expert gets exactly
+    tokens/experts tokens and every token is assigned exactly once.
+
+    The JAX package's replacement for the reference's auction kernel
+    (``BalanceAssignment.cu``): a fixed number of dense greedy rounds —
+    each round, unassigned tokens bid for their best expert with remaining
+    capacity and the top bidders win (ties to the lower token: the sort is
+    stable, as ``jnp.argsort`` is) — then a deterministic fill matches any
+    leftovers to the remaining slots.  Static shapes, no data-dependent
+    loops.  The result carries no gradient.
+
+    Returns slot→token ids, int32 of shape (s,), grouped by expert: slot
+    q*cap+i holds the i-th token assigned to expert q — a permutation of
+    arange(s).
+    """
+    scores = scores.detach()
+    s, e = scores.shape
+    cap = s // e
+    dev = scores.device
+    # Sinkhorn normalization evens out scale differences between experts
+    p = scores
+    for _ in range(4):
+        p = p - _logsumexp(p, 1)
+        p = p - _logsumexp(p, 0)
+
+    assigned = torch.full((s,), -1, dtype=torch.int32, device=dev)
+    pos = torch.zeros((s,), dtype=torch.int32, device=dev)
+    used = torch.zeros((e,), dtype=torch.int32, device=dev)
+    neg = torch.tensor(-1e30, dtype=p.dtype, device=dev)
+    for _ in range(rounds):
+        open_e = used < cap                       # (e,)
+        unas = assigned < 0                       # (s,)
+        masked = torch.where(open_e[None, :] & unas[:, None], p, neg)
+        choice = torch.argmax(masked, dim=1)      # (s,)
+        bid = torch.where(unas & open_e[choice],
+                          torch.gather(masked, 1, choice[:, None])[:, 0], neg)
+        cmask = _one_hot_f(choice, e) * (bid > neg / 2)[:, None]  # (s, e)
+        score_col = torch.where(cmask > 0, bid[:, None], neg)
+        # rank tokens per chosen expert by bid (descending, stable)
+        order = torch.argsort(-score_col, dim=0, stable=True)
+        rank = torch.argsort(order, dim=0, stable=True)  # rank in column
+        accept = (cmask > 0) & (rank < (cap - used)[None, :])
+        zero = rank.new_zeros(())
+        tok_rank = torch.sum(torch.where(accept, rank, zero), dim=1)
+        acc_any = torch.any(accept, dim=1)
+        new_pos = torch.sum(torch.where(accept, used[None, :].to(rank.dtype),
+                                        zero), dim=1) + tok_rank
+        assigned = torch.where(acc_any, choice.to(torch.int32), assigned)
+        pos = torch.where(acc_any, new_pos.to(torch.int32), pos)
+        used = used + torch.sum(accept, dim=0).to(torch.int32)
+
+    # deterministic fill: k-th leftover token -> k-th free slot
+    unas = assigned < 0
+    token_rank = torch.cumsum(unas.to(torch.int32), dim=0) - 1   # (s,)
+    slot_expert = torch.arange(e, dtype=torch.int32, device=dev)[
+        :, None].expand(e, cap).reshape(-1)                      # (e*cap,)
+    slot_idx = torch.arange(cap, dtype=torch.int32, device=dev).repeat(e)
+    free = slot_idx >= used[slot_expert.long()]                  # slot free?
+    free_rank = torch.cumsum(free.to(torch.int32), dim=0) - 1
+    # token with rank r takes the slot with rank r
+    tgt = torch.where(free, free_rank, torch.full_like(free_rank, s))
+    fill_expert = _set_drop(s, tgt, slot_expert)
+    fill_pos = _set_drop(s, tgt, slot_idx)
+    # a token that is assigned reads any entry: the where keeps its own
+    take = token_rank.clamp_min(0).long()
+    assigned = torch.where(unas, fill_expert[take], assigned)
+    pos = torch.where(unas, fill_pos[take], pos)
+
+    slot_of_token = assigned * cap + pos                          # (s,)
+    return _set_drop(s, torch.where(slot_of_token < s, slot_of_token,
+                                    torch.full_like(slot_of_token, s)),
+                     torch.arange(s, dtype=torch.int32, device=dev))
+
+
+def balance_assignment_op(scores_node, name=None):
+    """BASE-layer balanced assignment node: scores (tokens, experts) →
+    slot→token permutation (see :func:`_balanced_assignment`)."""
+    return SimpleOp("BalanceAssignment", [scores_node],
+                    lambda c, scores: _balanced_assignment(scores), name=name)
+
+
+# the graph-level all-to-alls: the JAX package exchanges rows only under
+# an ``ep`` mesh (a sharding constraint, or the two-phase schedule of
+# ``parallel.collectives.hierarchical_all_to_all`` on an
+# (ep_outer, ep_inner) mesh) and is the identity without one; the port
+# has no such mesh
+alltoall_op = def_op("AllToAll", lambda c, x: x)
+
+halltoall_op = def_op("HAllToAll", lambda c, x: x)
 
 
 def _topk_sparse_indices(logits, k, capacity):

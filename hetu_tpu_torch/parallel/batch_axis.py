@@ -37,6 +37,25 @@ its rows of what the single-device program computes on the global batch:
 * shape-carrying ops (``ArrayReshape``, ``Slice``) take the leading
   static dim of their shape argument divided by dp (a reshape's must
   divide exactly; a slice must keep the whole batch);
+* MoE: a gate (``TopKGate``, ``TopKGateSparse``, ``KTop1Gate``,
+  ``SAMGate``, ``HashDispatch``) on sharded logits or ids all-gathers them
+  and routes the global batch, so capacity, queue positions and the aux
+  and align losses count every rank's tokens (the gathered logits'
+  gradient lands on this rank's rows); of its outputs the per-token ones
+  (dispatch, combine, ``slot_of_token``, ``gate_w``) are this rank's
+  rows, the per-slot ones (``token_of_slot``, ``k_of_slot``, global
+  token ids) and the losses replicated, and ``Item`` reads which from
+  :attr:`BatchAxis.parts`.  A hash gate on a replicated id Variable routes
+  the global batch as it is; ``LayoutTransform`` then takes its rows.
+  ``LayoutTransform`` and ``SparseDispatch`` fill the expert buffers from
+  this rank's tokens (``SparseDispatch`` through the row-gather kernel,
+  ``token_of_slot`` shifted to this rank's rows, -1 outside them) and sum
+  them over the group: replicated buffers, every rank running every
+  expert.  ``ReverseLayoutTransform`` and ``SparseCombine`` are row-local
+  on replicated buffers (``SparseCombine``'s ``d_buffers`` is this rank's
+  partial); ``AllToAll`` / ``HAllToAll`` are the identity.
+  ``BalanceAssignment`` is refused, naming ``BalancedMoELayer``: its
+  permutation gathers rows across the batch (``Indexing``);
 * ``BatchNorm`` in training takes the mean and the biased variance of
   the global batch, for the normalization and the running statistics
   alike (sync BN, what GSPMD computes): each rank's per-channel mean and
@@ -56,7 +75,7 @@ import math
 import torch
 import torch.distributed as dist
 
-from .collectives import all_reduce
+from .collectives import all_gather, all_reduce
 
 #: reduced and normalized in float32, rounded once (the bf16 step)
 _LOW = (torch.bfloat16, torch.float16)
@@ -68,13 +87,16 @@ def _up(t):
 
 class BatchAxis:
     """One step's batch split: the ``dp`` process group, its size, this
-    rank, and the nodes whose value is sharded."""
+    rank, and the nodes whose value is sharded.  A tuple-valued node
+    (a gate) with some sharded outputs is in ``sharded``, and ``parts``
+    maps it to the flag of each output."""
 
     def __init__(self, group, size, rank):
         self.group = group
         self.size = size
         self.rank = rank
         self.sharded = set()
+        self.parts = {}
 
     def lower(self, node, ctx, vals):
         """``node.lower`` on ``vals``, by its rule when an input is
@@ -89,6 +111,9 @@ class BatchAxis:
                 f"op type has no data-parallel rule "
                 f"(hetu_tpu_torch/parallel/batch_axis.py)")
         out, sharded = rule(self, node, ctx, vals, flags)
+        if isinstance(sharded, tuple):
+            self.parts[node] = sharded
+            sharded = any(sharded)
         if sharded:
             self.sharded.add(node)
         return out
@@ -295,13 +320,97 @@ def _batch_norm(ax, node, ctx, vals, flags):
     return (out.movedim(1, -1) if nhwc else out), True
 
 
+def _block(ax, rows):
+    """This rank's block of the global batch's rows: (first, stop)."""
+    return ax.rank * rows, (ax.rank + 1) * rows
+
+
+def _gate(*per_token):
+    """A gate on sharded logits (or ids): all-gathered, routed over the
+    global batch; outputs at ``per_token`` cut to this rank's rows, the
+    others replicated.  A one-output gate returns its value."""
+    def rule(ax, node, ctx, vals, flags):
+        local = vals[0]
+        lo, hi = _block(ax, local.shape[0])
+        out = node.lower(ctx, all_gather(local, ax.group))
+        if not isinstance(out, tuple):
+            return out[lo:hi], True
+        return (tuple(o[lo:hi] if i in per_token else o
+                      for i, o in enumerate(out)),
+                tuple(i in per_token for i in range(len(out))))
+    return rule
+
+
+def _item(ax, node, ctx, vals, flags):
+    """One output of a tuple-valued node: sharded as its gate said."""
+    part = ax.parts.get(node.inputs[0])
+    if part is None:
+        _refuse(node, f"{node.inputs[0].op_type} flags no output as "
+                      f"sharded or replicated")
+    return node.lower(ctx, *vals), part[node.index]
+
+
+def _balance_assignment(ax, node, ctx, vals, flags):
+    _refuse(node, "BalancedMoELayer gathers rows by a permutation of the "
+                  "global batch (Indexing / Scatter1DGrad), which has no "
+                  "data-parallel rule")
+
+
+def _local_slots(ax, token_of_slot, rows):
+    """``token_of_slot``'s global token ids shifted to this rank's rows,
+    -1 for a slot of another rank's token (or an empty one)."""
+    lo, hi = _block(ax, rows)
+    return torch.where((token_of_slot >= lo) & (token_of_slot < hi),
+                       token_of_slot - lo, token_of_slot.new_full((), -1))
+
+
+def _layout_transform(ax, node, ctx, vals, flags):
+    """The expert buffers of this rank's tokens, summed over the group."""
+    vals, flags = _take_rows(ax, vals, flags)
+    if not all(flags):
+        _refuse(node, "the dispatch and the tokens must both hold rows")
+    return all_reduce(node.lower(ctx, *vals), ax.group), False
+
+
+def _sparse_dispatch(ax, node, ctx, vals, flags):
+    """The row gather of this rank's tokens into the expert buffers,
+    summed over the group."""
+    if flags != [True, False, True]:
+        _refuse(node, "the tokens and slot_of_token must be sharded and "
+                      "token_of_slot replicated")
+    tokens, tos, sot = vals
+    local = _local_slots(ax, tos, tokens.shape[0])
+    return all_reduce(node.lower(ctx, tokens, local, sot), ax.group), False
+
+
+def _sparse_combine(ax, node, ctx, vals, flags):
+    """Row-local on replicated buffers; ``token_of_slot`` shifted to this
+    rank's rows, so the buffers' gradient is this rank's partial."""
+    if flags != [False, True, True, False, False]:
+        _refuse(node, "the buffers, token_of_slot and k_of_slot must be "
+                      "replicated and the gate weights and slot_of_token "
+                      "sharded")
+    buffers, gate_w, sot, tos, kos = vals
+    local = _local_slots(ax, tos, gate_w.shape[0])
+    return node.lower(ctx, buffers, gate_w, sot, local, kos), True
+
+
+def _reverse_layout_transform(ax, node, ctx, vals, flags):
+    """This rank's rows of the combine against replicated buffers."""
+    if flags != [True, False]:
+        _refuse(node, "the combine must be sharded and the expert outputs "
+                      "replicated")
+    return node.lower(ctx, *vals), True
+
+
 _ROW_LOCAL = (
     "AddElewise", "MinusElewise", "MultiplyElewise", "Division", "Ne",
     "AddConst", "MinusByConst", "MultiplyConst", "DivConst", "ConstDiv",
     "Opposite", "Pow", "Tanh", "ReciprocalSqrt", "Sigmoid", "Relu",
     "LeakyRelu", "Gelu", "Softmax", "LogSoftmax", "Dropout", "Dropout2d",
     "LayerNorm", "MaxPool2d", "AvgPool2d", "SoftmaxCrossEntropy",
-    "SoftmaxCrossEntropySparse", "BinaryCrossEntropy")
+    "SoftmaxCrossEntropySparse", "BinaryCrossEntropy", "AllToAll",
+    "HAllToAll")
 _ATTENTION = (
     "ScaledDotProductAttention", "ScaledDotProductAttentionMasked",
     "ScaledDotProductAttentionBias", "ScaledDotProductAttentionMaskedBias",
@@ -318,4 +427,11 @@ RULES.update({
     "ArrayReshape": _reshape, "Slice": _slice,
     "Concat": _concat, "Concatenate": _concat,
     "ReduceSum": _reduce(mean=False), "ReduceMean": _reduce(mean=True),
-    "BatchNorm": _batch_norm, "BroadcastTo": _broadcast_to})
+    "BatchNorm": _batch_norm, "BroadcastTo": _broadcast_to,
+    "TopKGate": _gate(0, 1), "KTop1Gate": _gate(0, 1),
+    "SAMGate": _gate(0, 1), "TopKGateSparse": _gate(1, 3),
+    "HashDispatch": _gate(), "Item": _item,
+    "BalanceAssignment": _balance_assignment,
+    "LayoutTransform": _layout_transform,
+    "ReverseLayoutTransform": _reverse_layout_transform,
+    "SparseDispatch": _sparse_dispatch, "SparseCombine": _sparse_combine})

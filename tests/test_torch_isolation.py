@@ -106,6 +106,10 @@ def test_import_with_jax_and_hetu_tpu_blocked():
             "import hetu_tpu_torch.chaos\n"
             "import hetu_tpu_torch.launcher\n"
             "import hetu_tpu_torch.tools.hybrid_wdl\n"
+            "import hetu_tpu_torch.tools.train_moe\n"
+            "import hetu_tpu_torch.ops.moe\n"
+            "import hetu_tpu_torch.layers.gates\n"
+            "import hetu_tpu_torch.layers.moe_layer\n"
             "assert sys.modules['jax'] is None\n"
             "assert 'tools' not in sys.modules\n"
             "assert 'examples' not in sys.modules\n"
@@ -187,6 +191,7 @@ def test_sources_import_no_jax_or_hetu_tpu():
             bad += [f"{os.path.relpath(path, ROOT)}:{node.lineno} {n}"
                     for n in names if _forbidden(n)]
     assert len(_sources()) > 15
+    assert os.path.join(PKG, "tools", "train_moe.py") in _sources()
     assert not bad, bad
 
 

@@ -29,8 +29,9 @@ references run in the test process.
   floored at 2e-2).
 * bf16 with ``zero=2`` on the MLP: bit-equal to the bf16 run at stage 0
   (dp 2), and within rtol 5e-3 of the JAX package's bf16 losses.
-* The sparse MoE graph under the strategy raises, naming
-  ``TopKGateSparse`` (its capacity counts over the global batch).
+* ``BalancedMoELayer`` under the strategy raises, naming it (its
+  permutation gathers rows across the global batch); the capacity gates
+  and ``SparseMoELayer`` train under it (``tests/test_torch_moe_dp.py``).
 
 The rank processes import this module, so JAX is imported only inside
 functions."""
@@ -321,20 +322,16 @@ def test_bf16_with_zero2_is_the_bf16_stage0_step(runs):
     assert runs["ranks"][1]["mlp", "dp_zero2"]["losses"] == got["losses"]
 
 
-def test_sparse_moe_under_the_strategy_raises_by_name(tmp_path):
+def test_balanced_moe_under_the_strategy_raises_by_name(tmp_path):
     import torch.distributed as dist
-    from test_torch_bf16 import _moe_graph
+    from hetu_tpu_torch.tools import train_moe
     dist.init_process_group("gloo", init_method="file://"
                             + str(tmp_path / "init1"), rank=0, world_size=1)
     try:
-        feeds, loss, _ = _moe_graph(tht)
-        ex = tht.Executor([loss, tht.optim.AdamOptimizer(1e-3)
-                           .minimize(loss)], device="cpu",
-                          dist_strategy=tht.dist.DataParallel())
-        rng = np.random.RandomState(0)
-        fd = {n: rng.randn(*n.shape).astype(np.float32)
-              for n in feeds.values()}
-        with pytest.raises(NotImplementedError, match="TopKGateSparse"):
-            ex.run(fd)
+        g = train_moe.build_graph("base", tokens=32, dim=8)
+        ex = train_moe.build_executor(g, device="cpu", dp=True)
+        with pytest.raises(NotImplementedError,
+                           match="BalanceAssignment.*BalancedMoELayer"):
+            ex.run("train", feed_dict=train_moe.feeds(g, 32, 8))
     finally:
         dist.destroy_process_group()
